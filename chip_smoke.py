@@ -1,0 +1,440 @@
+#!/usr/bin/env python3
+"""On-card smoke of the PyTorch/CUDA port (``sheeprl_tpu_torch``) on one
+NVIDIA Hopper GPU. Run from the root of a checkout::
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (the script then exits non-zero and prints no
+result line):
+
+1. device: the card's name and power limit (``nvidia-smi``);
+2. build: every kernel under ``sheeprl_tpu_torch/csrc`` with ``nvcc``, one
+   process per source, all at once;
+3. kernels: each kernel's wrapper against its plain PyTorch version on the
+   card at the shapes the serving path and the XL training width give it,
+   timed with CUDA events around CUDA-graph replays;
+4. model: the DreamerV3-S session step on the card against the same weights
+   on the CPU, TF32 off, on one small batch;
+5. step: one engine dispatch per bucket timed on the host clock, the device
+   time inside it from ``torch.profiler``, and the host cost of one frame's
+   JSON round trip;
+6. serve: DreamerV3-S (Atari-100k shape: 64x64x3 pixels, 9 actions, full
+   width, random weights from a seed) through the port's ``serve`` entry
+   point on an ephemeral socket: 8 concurrent sessions x 16 steps, one
+   client reset, a health probe, one session replayed alone; the kernel
+   launch counters are zeroed just before and read just after.
+
+The last three lines: the kernels' JSON record, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import socket
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+import numpy as np
+import torch
+
+from sheeprl_tpu_torch import cli
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent, sample_stochastic
+from sheeprl_tpu_torch.algos.dreamer_v3.evaluate import act, posterior_step, serve_policy_dreamer_v3
+from sheeprl_tpu_torch.config import plain, preset
+from sheeprl_tpu_torch.ops import kernels
+from sheeprl_tpu_torch.ops.kernels import _build
+from sheeprl_tpu_torch.utils.checkpoint import save_checkpoint
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+GRU_OPS_PER_ELEMENT = 10  # 2 sigmoid + tanh + 7 multiply/add, counted as one op each
+N_SESSIONS, N_STEPS, RESET_AT = 8, 16, 8
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+# -- 1. device --------------------------------------------------------------
+
+
+def device_phase() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    log(f"nvidia-smi: {out}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    return out.splitlines()[0]
+
+
+# -- 2. build -----------------------------------------------------------------
+
+
+def build_phase() -> None:
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    log(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    for name, text in sorted(_build.BUILD_LOGS.items()):
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"ptxas {name}: {line.strip()}")
+
+
+# -- 3. kernels ---------------------------------------------------------------
+
+
+def _time_ms(fn, iters: int) -> float:
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def _graph_ms(fn, per_graph: int = 20, replays: int = 20) -> float:
+    """Device time per call: ``per_graph`` calls captured in one CUDA graph,
+    replayed ``replays`` times between two CUDA events, so the host's launch
+    cost drops out. Inputs stay where the calls leave them: a shape below the
+    50 MB L2 is timed with its operands in L2, as a caller that has just
+    produced them would find them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_graph):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (replays * per_graph)
+
+
+def gru_gates_phase(serve_batch: int) -> dict:
+    """The kernel against its plain version (computed in f32, cast to the IO
+    dtype) at each shape: f32 within atol 1e-6 rtol 1e-5, bf16 within atol
+    1e-2 rtol 1e-2 (one bf16 rounding). ``ms``/``plain_ms`` are device time
+    per call (:func:`_graph_ms`); ``call_ms``/``plain_call_ms`` are eager
+    calls back to back, which the host's launch cost bounds at small
+    shapes."""
+    shapes = [(1, 512, "float32"), (8, 512, "float32"), (32, 512, "float32"), (1024, 512, "float32"),
+              (1, 512, "bfloat16"), (32, 512, "bfloat16"), (1024, 512, "bfloat16"), (1024, 4096, "float32")]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for B, H, dtype in shapes:
+        dt = getattr(torch, dtype)
+        fused = (torch.randn((B, 3 * H), generator=gen, device="cuda") * 2).to(dt)
+        h = torch.randn((B, H), generator=gen, device="cuda").to(dt)
+        out = kernels.gru_gates(fused, h)
+        torch.cuda.synchronize()
+        want = kernels.gru_gates_reference(fused.float(), h.float()).to(dt)
+        f32 = dtype == "float32"
+        torch.testing.assert_close(out, want, atol=1e-6 if f32 else 1e-2, rtol=1e-5 if f32 else 1e-2)
+        err = float((out.float() - want.float()).abs().max())
+        iters = 200 if B * H < 1 << 20 else 100
+        call_ms = _time_ms(lambda: kernels.gru_gates(fused, h), iters)
+        plain_call_ms = _time_ms(lambda: kernels.gru_gates_reference(fused, h), iters)
+        ms = _graph_ms(lambda: kernels.gru_gates(fused, h))
+        plain_ms = _graph_ms(lambda: kernels.gru_gates_reference(fused, h))
+        nbytes = 5 * B * H * h.element_size()
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = GRU_OPS_PER_ELEMENT * B * H / F32_FLOPS * 1e3
+        rows.append({
+            "shape": [B, 3 * H], "dtype": dtype, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        })
+        log(f"gru_gates {dtype} fused ({B},{3 * H}): err {err:.3g} kernel {ms * 1e3:.2f} us "
+            f"(call {call_ms * 1e3:.2f} us) plain {plain_ms * 1e3:.2f} us (call {plain_call_ms * 1e3:.2f} us) "
+            f"bound {max(bytes_ms, ops_ms) * 1e3:.3f} us")
+    main = next(r for r in rows if r["shape"] == [serve_batch, 3 * 512] and r["dtype"] == "float32")
+    return {
+        "name": "gru_gates",
+        "route": "cuda",
+        "source": "sheeprl_tpu_torch/csrc/gru_gates.cu",
+        "replaces": "sheeprl_tpu/ops/kernels/gru.py:59",
+        "launches": None,  # filled from the serve phase
+        "max_abs_err": main["max_abs_err"],
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this gate chain
+        "shapes": rows,
+    }
+
+
+# -- 4. model on the card against the CPU --------------------------------------
+
+
+def model_phase(cfg) -> dict:
+    """The session step's pieces on the card against the same seeded weights
+    on the CPU, full float32 (TF32 off for cuDNN and cuBLAS): recurrent state
+    and representation logits within atol 1e-3 (float32 sums over 4096-wide
+    inputs in another order), greedy actions on the same posterior equal."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = serve_policy_dreamer_v3(cfg, None, "cuda")
+    cpu = serve_policy_dreamer_v3(cfg, None, "cpu")
+    rng = np.random.default_rng(1)
+    B = 8
+    raw = {"rgb": rng.integers(0, 256, size=(B, 64, 64, 3), dtype=np.uint8)}
+    obs = gpu.prepare(raw, B)
+    init = cpu.init_fn(cpu.params, B)
+    stoch_logits = torch.from_numpy(rng.normal(size=tuple(init["stochastic"].shape)).astype(np.float32))
+    stoch = sample_stochastic(stoch_logits, cpu.params.world_model.discrete, sample=False)
+    actions = torch.nn.functional.one_hot(torch.from_numpy(rng.integers(0, 9, size=B)), 9).float()
+    rec0 = torch.from_numpy(rng.normal(size=tuple(init["recurrent"].shape)).astype(np.float32)).tanh()
+    out = {}
+    with torch.no_grad():
+        for name, pol, dev in (("gpu", gpu, "cuda"), ("cpu", cpu, "cpu")):
+            o = {k: torch.from_numpy(v).to(dev) for k, v in obs.items()}
+            rec, logits = posterior_step(pol.params, o, actions.to(dev), rec0.to(dev), stoch.to(dev))
+            greedy = act(pol.params, stoch.to(dev), rec, greedy=True)
+            out[name] = (rec.cpu(), logits.cpu(), torch.cat(greedy, -1).cpu())
+    torch.cuda.synchronize()
+    rec_err = float((out["gpu"][0] - out["cpu"][0]).abs().max())
+    logit_err = float((out["gpu"][1] - out["cpu"][1]).abs().max())
+    log(f"model: recurrent max err {rec_err:.3g}, logits max err {logit_err:.3g} (card vs CPU)")
+    if not (rec_err <= 1e-3 and logit_err <= 1e-3 and torch.isfinite(out["gpu"][1]).all()):
+        raise AssertionError(f"DreamerV3-S step on the card disagrees with the CPU: {rec_err}, {logit_err}")
+    if not torch.equal(out["gpu"][2], out["cpu"][2]):
+        raise AssertionError("greedy actions on the card differ from the CPU on the same posterior")
+    return {"recurrent_max_abs_err": rec_err, "logits_max_abs_err": logit_err}
+
+
+def step_phase(cfg) -> dict:
+    """Where a request's time goes, below the socket: one engine dispatch per
+    bucket (host clock, ending in the actions' copy to the host), the device
+    time inside it (``torch.profiler``, summed over kernels), and the host
+    cost of one frame's JSON round trip."""
+    from sheeprl_tpu_torch.serve.sessions import SessionEngine
+
+    policy = serve_policy_dreamer_v3(cfg, None, "cuda")
+    engine = SessionEngine(policy, buckets=(1, 8, 32), max_sessions=64)
+    rng = np.random.default_rng(3)
+    out = {}
+    for b in engine.buckets:
+        obs = policy.prepare({"rgb": rng.integers(0, 256, size=(b, 64, 64, 3), dtype=np.uint8)}, b)
+        ids = [f"p{i}" for i in range(b)]
+        for _ in range(5):
+            engine.step_sessions(policy.params, obs, ids)
+        t0 = time.perf_counter()
+        n = 30
+        for _ in range(n):
+            engine.step_sessions(policy.params, obs, ids)
+        host_ms = (time.perf_counter() - t0) / n * 1e3
+        acts = torch.profiler.ProfilerActivity
+        with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+            for _ in range(10):
+                engine.step_sessions(policy.params, obs, ids)
+        events = [e for e in prof.key_averages() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events) / 10
+        kernels_per_step = sum(e.count for e in events) / 10
+        out[f"bucket_{b}"] = {
+            "dispatch_ms": host_ms,
+            "device_ms": device_us / 1e3 if device_us > 0 else None,
+            "device_busy_share": device_us / 1e3 / host_ms if device_us > 0 else None,
+            "device_ops_per_step": kernels_per_step,
+        }
+        log(f"step bucket {b}: {json.dumps(out[f'bucket_{b}'])}")
+    frame = rng.integers(0, 256, size=(64, 64, 3), dtype=np.uint8)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        msg = json.dumps({"obs": {"rgb": frame.tolist()}, "session_id": "x"})
+        np.asarray(json.loads(msg)["obs"]["rgb"])
+    out["json_frame_round_trip_ms"] = (time.perf_counter() - t0) / 20 * 1e3
+    log(f"host JSON encode + decode of one 64x64x3 frame: {out['json_frame_round_trip_ms']:.3f} ms")
+    return out
+
+
+# -- 6. serve -----------------------------------------------------------------
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _Conn:
+    """One persistent JSON-lines connection."""
+
+    def __init__(self, port: int, deadline: float) -> None:
+        while True:
+            try:
+                self.sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.2)
+        self.rfile = self.sock.makefile("rb")
+
+    def ask(self, payload: dict) -> dict:
+        self.sock.sendall((json.dumps(payload) + "\n").encode())
+        line = self.rfile.readline()
+        if not line:
+            raise ConnectionError("server closed the connection")
+        return json.loads(line)
+
+    def close(self) -> None:
+        self.rfile.close()
+        self.sock.close()
+
+
+def _drive(port: int, frames, result: dict) -> None:
+    """The client side: runs on a thread while ``serve`` holds the main
+    thread, then asks the server to drain with SIGTERM."""
+    try:
+        deadline = time.monotonic() + 300
+        probe = _Conn(port, deadline)
+        result["health_start"] = probe.ask({"health": True})
+        actions = [[None] * N_STEPS for _ in range(N_SESSIONS)]
+        latencies = []
+        errors = []
+
+        def session(i: int) -> None:
+            try:
+                conn = _Conn(port, deadline)
+                for t in range(N_STEPS):
+                    msg = {"obs": {"rgb": frames[i][t].tolist()}, "session_id": f"s{i}"}
+                    if i == 1 and t == RESET_AT:
+                        msg["reset"] = True
+                    t0 = time.perf_counter()
+                    resp = conn.ask(msg)
+                    latencies.append(time.perf_counter() - t0)
+                    if "actions" not in resp:
+                        raise AssertionError(f"session s{i} step {t}: {resp}")
+                    actions[i][t] = resp["actions"]
+                conn.close()
+            except BaseException as e:  # reported by the main thread
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=session, args=(i,), daemon=True) for i in range(N_SESSIONS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        if any(th.is_alive() for th in threads):
+            raise TimeoutError("a session client did not finish")
+        result["health_batched"] = probe.ask({"health": True})
+        result["actions"], result["latencies"], result["wall_s"] = actions, latencies, wall
+        # session s0's frames again, alone: the same actions
+        solo = [probe.ask({"obs": {"rgb": frames[0][t].tolist()}, "session_id": "solo"})["actions"] for t in range(N_STEPS)]
+        result["solo"] = solo
+        result["health_end"] = probe.ask({"health": True})
+        probe.close()
+    except BaseException as e:
+        result["error"] = e
+    finally:
+        os.kill(os.getpid(), signal.SIGTERM)  # graceful drain of the server
+
+
+def serve_phase(cfg, workdir: str, accelerator: str = "cuda") -> dict:
+    world_model, actor = build_agent(cfg, "cpu")
+    state = {"world_model": world_model.state_dict(), "actor": actor.state_dict()}
+    ckpt = save_checkpoint(os.path.join(workdir, "dreamer_v3_S", "ckpt_0.pt"), state, plain(cfg))
+    rng = np.random.default_rng(2)
+    frames = [[rng.integers(0, 256, size=(64, 64, 3), dtype=np.uint8) for _ in range(N_STEPS)] for _ in range(N_SESSIONS)]
+    port = _free_port()
+    result: dict = {}
+    kernels.reset_launches()
+    driver = threading.Thread(target=_drive, args=(port, frames, result), daemon=True)
+    driver.start()
+    cli.serve([
+        f"checkpoint_path={ckpt}",
+        f"fabric.accelerator={accelerator}",
+        f"serve.port={port}",
+        "serve.session.buckets=[1,8,32]",
+        "serve.max_wait_ms=2.0",
+        "serve.log_every_s=600",
+    ])
+    launches = dict(kernels.LAUNCHES)
+    driver.join(timeout=60)
+    if "error" in result:
+        raise result["error"]
+    if driver.is_alive():
+        raise TimeoutError("the serve driver did not finish")
+
+    for i in range(N_SESSIONS):
+        for t, a in enumerate(result["actions"][i]):
+            if not (len(a) == 1 and len(a[0]) == 1 and 0 <= a[0][0] < 9):
+                raise AssertionError(f"session s{i} step {t}: bad action {a}")
+    hb = result["health_batched"]
+    if hb["sessions"]["live"] != N_SESSIONS or hb["sessions"]["client_resets"] != 1:
+        raise AssertionError(f"sessions after the batched phase: {hb['sessions']}")
+    if result["solo"] != result["actions"][0]:
+        raise AssertionError(f"session alone {result['solo']} != batched {result['actions'][0]}")
+    end = result["health_end"]["engine"]
+    dispatches = end["dispatches"] + end["warmup_dispatches"]
+    if launches["gru_gates"] < 1 or launches["gru_gates"] != dispatches:
+        raise AssertionError(f"gru_gates launched {launches['gru_gates']} times for {dispatches} dispatches")
+    lat = np.asarray(result["latencies"]) * 1e3
+    phase_dispatches = hb["engine"]["dispatches"] - result["health_start"]["engine"]["dispatches"]
+    stats = {
+        "sessions": N_SESSIONS,
+        "steps": N_STEPS,
+        "requests": int(lat.size),
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "dispatches": int(phase_dispatches),
+        "dispatches_per_s": phase_dispatches / result["wall_s"],
+        "rows_per_dispatch": lat.size / max(phase_dispatches, 1),
+        "requests_per_s": lat.size / result["wall_s"],
+        "launches": launches,
+        "engine_end": end,
+    }
+    log("serve: " + json.dumps(stats))
+    return stats
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
+        return 1
+    card = device_phase()
+    build_phase()
+    gru = gru_gates_phase(serve_batch=N_SESSIONS)
+    cfg = preset("dreamer_v3_S_atari100k")
+    model = model_phase(cfg)
+    step = step_phase(cfg)
+    with tempfile.TemporaryDirectory() as workdir:
+        serve = serve_phase(cfg, workdir)
+    gru["launches"] = serve["launches"]["gru_gates"]
+    print(json.dumps({"model": model, "step": step, "serve": serve}))
+    print(json.dumps({"kernels": [gru]}))
+    print(card)
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

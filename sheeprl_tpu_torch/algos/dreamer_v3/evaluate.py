@@ -1,0 +1,142 @@
+"""The DreamerV3 stateful policy builder (counterpart of
+``sheeprl_tpu/algos/dreamer_v3/evaluate.py``, ``serve_policy_dreamer_v3``).
+
+Per-session state row: ``actions`` (the one-hot action carry), ``recurrent``
+(the RSSM deterministic state), ``stochastic`` (the flattened posterior
+sample), and ``seed``/``counter`` in place of the JAX package's per-session
+key: every random draw of a session is a function of its seed, its step
+count and the draw's stream, so row ``i`` of a batched step equals stepping
+that session alone. The posterior is sampled even in greedy mode, as in the
+offline player; greedy mode takes the actor's mode.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import Actor, WorldModel, actor_sample, build_agent, sample_stochastic
+from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs
+from sheeprl_tpu_torch.ops import counter_uniform
+from sheeprl_tpu_torch.serve.policy import StatefulServePolicy
+from sheeprl_tpu_torch.utils.registry import register_policy_builder
+
+__all__ = ["DreamerV3Agent", "posterior_step", "act", "serve_policy_dreamer_v3"]
+
+#: counter_uniform stream of the posterior draw; actor head ``i`` uses 1 + i
+POSTERIOR_STREAM = 0
+
+
+class DreamerV3Agent(nn.Module):
+    """What a session step needs: the world model and the actor."""
+
+    def __init__(self, world_model: WorldModel, actor: Actor) -> None:
+        super().__init__()
+        self.world_model = world_model
+        self.actor = actor
+
+
+def posterior_step(
+    agent: DreamerV3Agent,
+    obs: Dict[str, torch.Tensor],
+    actions: torch.Tensor,
+    recurrent: torch.Tensor,
+    stochastic: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encode ``obs``, advance the recurrent state on the previous posterior
+    and action, and return ``(recurrent', representation logits)`` (unimixed,
+    flat ``(B, S*D)``)."""
+    wm = agent.world_model
+    embedded = wm.encoder(obs)
+    recurrent = wm.recurrent_model(torch.cat([stochastic, actions], dim=-1), recurrent)
+    return recurrent, wm.representation(recurrent, embedded)
+
+
+def act(
+    agent: DreamerV3Agent,
+    stochastic: torch.Tensor,
+    recurrent: torch.Tensor,
+    greedy: bool,
+    seed: Optional[torch.Tensor] = None,
+    counter: Optional[torch.Tensor] = None,
+) -> List[torch.Tensor]:
+    """One-hot actions per head from the latent ``[stochastic, recurrent]``;
+    sampled mode draws head ``i`` from stream ``1 + i`` of each row's
+    ``(seed, counter)``."""
+    actor = agent.actor
+    uniforms = None
+    if not greedy:
+        uniforms = [counter_uniform(seed, counter, 1 + i, d) for i, d in enumerate(actor.actions_dim)]
+    actions, _ = actor_sample(actor, torch.cat([stochastic, recurrent], dim=-1), uniforms, greedy)
+    return actions
+
+
+def _spec(cfg: Any) -> Tuple[Dict[str, Tuple[Tuple[int, ...], Any]], Tuple[str, ...]]:
+    cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
+    obs_spec = {}
+    for k in cnn_keys:
+        obs_spec[k] = (tuple(int(d) for d in cfg.spaces.obs[k].shape[-3:]), np.float32)
+    for k in cfg.algo.mlp_keys.encoder:
+        obs_spec[k] = ((int(np.prod(cfg.spaces.obs[k].shape)),), np.float32)
+    return obs_spec, cnn_keys
+
+
+@register_policy_builder(algorithms=["dreamer_v3", "dreamer_sebulba"])
+def serve_policy_dreamer_v3(cfg: Any, state: Optional[Dict[str, Any]], device: torch.device) -> StatefulServePolicy:
+    """A :class:`StatefulServePolicy` over the DreamerV3 world model and actor
+    of ``state`` (``{"world_model", "actor"}`` state dicts; None serves the
+    seeded random init) on ``device``."""
+    device = torch.device(device)
+    world_model, actor = build_agent(cfg, device, state)
+    params = DreamerV3Agent(world_model, actor).requires_grad_(False)
+    discrete = world_model.discrete
+    stoch_size = int(cfg.algo.world_model.stochastic_size) * discrete
+    sum_actions = int(sum(actor.actions_dim))
+    seed = int(cfg.get("seed") or 0)
+    obs_spec, cnn_keys = _spec(cfg)
+
+    def step_fn(p: DreamerV3Agent, obs, s, greedy: bool):
+        rec, logits = posterior_step(p, obs, s["actions"], s["recurrent"], s["stochastic"])
+        uniform = counter_uniform(s["seed"], s["counter"], POSTERIOR_STREAM, stoch_size)
+        stoch = sample_stochastic(logits, discrete, uniform)
+        acts = act(p, stoch, rec, greedy, s["seed"], s["counter"])
+        env_actions = torch.stack([a.argmax(dim=-1) for a in acts], dim=-1)
+        new_state = {
+            "actions": torch.cat(acts, dim=-1),
+            "recurrent": rec,
+            "stochastic": stoch,
+            "seed": s["seed"],
+            "counter": s["counter"] + 1,
+        }
+        return env_actions, new_state
+
+    def init_fn(p: DreamerV3Agent, n: int):
+        rec, post = p.world_model.get_initial_states(n)
+        return {
+            "actions": torch.zeros((n, sum_actions), dtype=torch.float32, device=rec.device),
+            "recurrent": rec,
+            "stochastic": post,
+            "seed": torch.full((n,), seed, dtype=torch.int64, device=rec.device),
+            "counter": torch.zeros((n,), dtype=torch.int64, device=rec.device),
+        }
+
+    def prepare(obs, n):
+        prepared = prepare_obs({k: obs[k] for k in obs_spec}, cnn_keys=cnn_keys, num_envs=n)
+        return {k: prepared[k].reshape(n, *obs_spec[k][0]) for k in obs_spec}
+
+    def params_from_state(new_state):
+        wm, ac = build_agent(cfg, device, new_state)
+        return DreamerV3Agent(wm, ac).requires_grad_(False)
+
+    return StatefulServePolicy(
+        params=params,
+        obs_spec=obs_spec,
+        step_fn=step_fn,
+        init_fn=init_fn,
+        prepare=prepare,
+        params_from_state=params_from_state,
+        device=device,
+    )

@@ -1,0 +1,133 @@
+"""JSON run configuration (counterpart of ``sheeprl_tpu/config.py``).
+
+The port reads no YAML. A run's configuration is the ``config.json`` saved
+beside its checkpoint, with the same key paths as the JAX package's composed
+config (``algo.world_model.recurrent_model.recurrent_state_size``, ...) plus a
+``spaces`` block: the observation and action specs, which the JAX package
+reads off a gymnasium env. ``serve`` merges :data:`SERVE_DEFAULTS` under the
+run config and CLI-style ``key.path=value`` overrides over it.
+"""
+
+from __future__ import annotations
+
+import ast
+import copy
+import json
+import os
+from pathlib import Path
+from typing import Any, Dict, Iterable
+
+__all__ = [
+    "DotDict",
+    "dotdict",
+    "plain",
+    "load_config",
+    "apply_overrides",
+    "merge",
+    "preset",
+    "SERVE_DEFAULTS",
+    "PRESETS_DIR",
+]
+
+PRESETS_DIR = Path(__file__).resolve().parent / "configs"
+
+
+class DotDict(dict):
+    """dict with attribute access, recursively applied."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+
+
+def dotdict(data: Any) -> Any:
+    if isinstance(data, dict):
+        return DotDict({k: dotdict(v) for k, v in data.items()})
+    if isinstance(data, (list, tuple)):
+        return type(data)(dotdict(v) for v in data)
+    return data
+
+
+def plain(data: Any) -> Any:
+    if isinstance(data, dict):
+        return {k: plain(v) for k, v in data.items()}
+    if isinstance(data, (list, tuple)):
+        return [plain(v) for v in data]
+    return data
+
+
+#: what ``serve`` steers, with the JAX package's serve_config.yaml defaults
+#: for the keys the port implements
+SERVE_DEFAULTS: Dict[str, Any] = {
+    "checkpoint_path": None,
+    "fabric": {"accelerator": "cuda"},
+    "serve": {
+        "mode": "greedy",
+        "max_wait_ms": 5.0,
+        "max_batch": None,
+        "queue_bound": 256,
+        "host": "127.0.0.1",
+        "port": 0,
+        "request_timeout_s": 30.0,
+        "session": {"ttl_s": 300.0, "max_sessions": 1024, "buckets": None, "sweep_every_s": 1.0},
+        "max_requests": None,
+        "log_every_s": 10.0,
+    },
+}
+
+
+def merge(base: Dict[str, Any], over: Dict[str, Any]) -> Dict[str, Any]:
+    """Recursive dict merge, ``over`` winning; neither input changes."""
+    out = copy.deepcopy(dict(base))
+    for k, v in over.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = merge(out[k], v)
+        else:
+            out[k] = copy.deepcopy(v)
+    return out
+
+
+def load_config(path: "str | os.PathLike") -> DotDict:
+    with open(path) as f:
+        return dotdict(json.load(f))
+
+
+def preset(name: str) -> DotDict:
+    """A run configuration shipped with the package (``configs/<name>.json``)."""
+    return load_config(PRESETS_DIR / f"{name}.json")
+
+
+def _parse_value(text: str) -> Any:
+    for parse in (json.loads, ast.literal_eval):
+        try:
+            return parse(text)
+        except (ValueError, SyntaxError):
+            continue
+    lowered = text.lower()
+    if lowered in ("null", "none"):
+        return None
+    if lowered in ("true", "false"):
+        return lowered == "true"
+    return text
+
+
+def apply_overrides(cfg: Dict[str, Any], overrides: Iterable[str]) -> DotDict:
+    """Apply ``a.b.c=value`` tokens; values parse as JSON, then as Python
+    literals (``True``, ``[1, 8]``), else stay strings."""
+    out = plain(cfg)
+    for token in overrides:
+        if "=" not in token:
+            raise ValueError(f"override '{token}' is not of the form key.path=value")
+        key, text = token.split("=", 1)
+        node = out
+        parts = key.strip().split(".")
+        for part in parts[:-1]:
+            nxt = node.get(part)
+            if not isinstance(nxt, dict):
+                nxt = node[part] = {}
+            node = nxt
+        node[parts[-1]] = _parse_value(text.strip())
+    return dotdict(out)

@@ -1,0 +1,25 @@
+"""Hand-written Hopper kernels, one per Pallas kernel of the JAX package.
+
+Every kernel module holds three things: the plain PyTorch version
+(``*_reference``, the ground truth, and what runs on CPU tensors), the
+wrapper that launches the CUDA kernel on CUDA tensors or raises, and a count
+of launches in :data:`LAUNCHES`, so a run can show that its main path went
+through the kernel. Nothing is built at import: see :mod:`._build`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+#: kernel name -> launches of its CUDA kernel in this process
+LAUNCHES: Dict[str, int] = {"gru_gates": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+from sheeprl_tpu_torch.ops.kernels.gru import gru_gates, gru_gates_reference  # noqa: E402
+
+__all__ = ["LAUNCHES", "reset_launches", "gru_gates", "gru_gates_reference"]

@@ -1,0 +1,393 @@
+"""Micro-batching request scheduler (counterpart of
+``sheeprl_tpu/serve/scheduler.py``).
+
+Requests (one prepared observation row per session request, or ``n >= 1``
+one-shot rows) enter a bounded queue; one worker thread runs the admission
+loop:
+
+- the first request opens a batch and arms a max-wait deadline;
+- further requests join until the batch would exceed ``max_batch`` rows, a
+  second request for a session already in the batch arrives (it is held
+  over, never reordered: one batch steps a session at most once), or the
+  deadline passes;
+- the batch is one engine dispatch under one pulled weight snapshot, and
+  every caller's future resolves with its own action rows and the weight
+  version that produced them.
+
+Past the queue bound ``submit`` blocks (backpressure) and raises
+:class:`ServeOverloadedError` once its timeout expires. The worker thread
+runs inference, so it binds the engine's CUDA device when it starts; it uses
+that device's current stream, like every other caller.
+"""
+
+from __future__ import annotations
+
+import collections
+import queue
+import threading
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+__all__ = [
+    "ServeStats",
+    "RequestScheduler",
+    "ServeOverloadedError",
+    "ServeClosedError",
+    "ServeTimeoutError",
+]
+
+
+class ServeOverloadedError(RuntimeError):
+    """The request queue stayed at its bound past the submit timeout."""
+
+
+class ServeClosedError(RuntimeError):
+    """submit() after the scheduler stopped."""
+
+
+class ServeTimeoutError(TimeoutError):
+    """A submitted request did not resolve inside the caller's timeout."""
+
+
+class ServeStats:
+    """The serving tier's ``Serve/*`` counters and gauges."""
+
+    def __init__(self, latency_window: int = 4096) -> None:
+        self._lock = threading.Lock()
+        self.requests = 0
+        self.rows_served = 0
+        self.batches = 0
+        self.rejected = 0
+        self.swaps = 0
+        self.weight_version = 0
+        self.max_queue_depth = 0
+        self._latencies = collections.deque(maxlen=int(latency_window))
+        self._depth_fn = None  # wired by the scheduler
+        self._sessions_fn = None  # wired by the scheduler
+
+    def add(self, name: str, value: int = 1) -> None:
+        with self._lock:
+            setattr(self, name, getattr(self, name) + value)
+
+    def observe_depth(self, depth: int) -> None:
+        with self._lock:
+            self.max_queue_depth = max(self.max_queue_depth, int(depth))
+
+    def observe_latency(self, seconds: float) -> None:
+        with self._lock:
+            self._latencies.append(seconds)
+
+    def observe_version(self, version: int) -> None:
+        with self._lock:
+            if version > self.weight_version:
+                self.swaps += version - self.weight_version
+                self.weight_version = version
+
+    def latency_percentiles(self) -> Tuple[float, float]:
+        """(p50, p99) in seconds over the sliding window (0.0, 0.0 empty)."""
+        with self._lock:
+            lat = list(self._latencies)
+        if not lat:
+            return 0.0, 0.0
+        arr = np.asarray(lat)
+        return float(np.percentile(arr, 50)), float(np.percentile(arr, 99))
+
+    def snapshot(self) -> Dict[str, float]:
+        p50, p99 = self.latency_percentiles()
+        depth = self._depth_fn() if self._depth_fn is not None else 0
+        with self._lock:
+            rows, batches = self.rows_served, self.batches
+            out = {
+                "Serve/requests": self.requests,
+                "Serve/rows": rows,
+                "Serve/batches": batches,
+                "Serve/rows_per_batch": round(rows / batches, 2) if batches else 0.0,
+                "Serve/rejected": self.rejected,
+                "Serve/queue_depth": depth,
+                "Serve/max_queue_depth": self.max_queue_depth,
+                "Serve/weight_version": self.weight_version,
+                "Serve/swap_count": self.swaps,
+                "Serve/p50_latency_ms": round(p50 * 1e3, 3),
+                "Serve/p99_latency_ms": round(p99 * 1e3, 3),
+            }
+            sessions_fn = self._sessions_fn
+        if sessions_fn is not None:
+            s = sessions_fn()
+            out.update(
+                {
+                    "Serve/sessions_live": s["live"],
+                    "Serve/sessions_peak": s["peak"],
+                    "Serve/sessions_opened": s["opened"],
+                    "Serve/sessions_evicted": s["evicted_lru"] + s["evicted_ttl"],
+                    "Serve/sessions_ttl_evicted": s["evicted_ttl"],
+                    "Serve/sessions_reset": s["resets"],
+                    "Serve/sessions_client_resets": s["client_resets"],
+                    "Serve/sessions_state_bytes": s["state_bytes"],
+                }
+            )
+        return out
+
+
+class _Request:
+    __slots__ = ("obs", "n", "session_id", "reset", "event", "actions", "version", "error", "t_submit", "t_resolve")
+
+    def __init__(self, obs: Dict[str, np.ndarray], n: int, session_id: Optional[str] = None, reset: bool = False):
+        self.obs = obs
+        self.n = n
+        self.session_id = session_id
+        self.reset = bool(reset)
+        self.event = threading.Event()
+        self.actions: Optional[np.ndarray] = None
+        self.version = -1
+        self.error: Optional[BaseException] = None
+        self.t_submit = time.perf_counter()
+        self.t_resolve = 0.0
+
+    @property
+    def latency_s(self) -> float:
+        """Submit -> resolve seconds, stamped by the worker."""
+        return max(0.0, self.t_resolve - self.t_submit)
+
+    def resolve(self, actions: Optional[np.ndarray], version: int, error: Optional[BaseException] = None) -> None:
+        self.actions = actions
+        self.version = version
+        self.error = error
+        self.t_resolve = time.perf_counter()
+        self.event.set()
+
+
+class RequestScheduler:
+    """Deadline/size-admission micro-batcher feeding one
+    :class:`~sheeprl_tpu_torch.serve.sessions.SessionEngine`.
+
+    ``weights`` is anything with ``pull() -> (version, params)``, in practice
+    :class:`~sheeprl_tpu_torch.serve.weights.WeightStore`. Each admitted
+    session request resolves to its slab row; on a new weight version the
+    engine checks once whether the live sessions' state still fits.
+    """
+
+    def __init__(
+        self,
+        engine: Any,
+        weights: Any,
+        max_wait_s: float = 0.005,
+        max_batch: Optional[int] = None,
+        queue_bound: int = 256,
+        stats: Optional[ServeStats] = None,
+    ) -> None:
+        if max_wait_s < 0:
+            raise ValueError(f"max_wait_s must be >= 0, got {max_wait_s}")
+        if queue_bound < 1:
+            raise ValueError(f"queue_bound must be >= 1, got {queue_bound}")
+        self.engine = engine
+        self.weights = weights
+        self.sessions = engine.cache
+        self.max_wait_s = float(max_wait_s)
+        self.max_batch = int(max_batch) if max_batch else max(engine.buckets)
+        if self.max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
+        self.queue_bound = int(queue_bound)
+        self.stats = stats or ServeStats()
+        self._last_version: Optional[int] = None
+        self._q: "queue.Queue[_Request]" = queue.Queue(maxsize=self.queue_bound)
+        self.stats._depth_fn = self._q.qsize
+        self.stats._sessions_fn = self.sessions.snapshot
+        self._holdover: Optional[_Request] = None
+        self._stop = threading.Event()
+        self._closed = threading.Event()
+        self._worker = threading.Thread(target=self._run, name="serve-scheduler", daemon=True)
+        self._started = False
+
+    # -- lifecycle ----------------------------------------------------------- #
+
+    def start(self) -> "RequestScheduler":
+        if not self._started:
+            self._started = True
+            self._worker.start()
+        return self
+
+    def worker_alive(self) -> bool:
+        return self._worker.is_alive()
+
+    def stop(self) -> None:
+        """Stop the worker after it has served every request already
+        admitted (a graceful drain); new submits raise
+        :class:`ServeClosedError`."""
+        self._closed.set()
+        self._stop.set()
+        if self._started:
+            self._worker.join(timeout=30.0)
+            if self._worker.is_alive():
+                return  # still mid-dispatch: its own shutdown loop drains
+        # a submit that passed the closed check just before stop() may have
+        # enqueued after the worker's last drain sweep
+        leftovers = self._take_pending()
+        if leftovers:
+            self._settle(leftovers)
+
+    # -- client side --------------------------------------------------------- #
+
+    def submit(
+        self,
+        obs: Dict[str, np.ndarray],
+        timeout: Optional[float] = None,
+        session_id: Optional[str] = None,
+        reset: bool = False,
+    ) -> _Request:
+        """Enqueue a prepared batch; returns the request future. Blocks while
+        the queue is at its bound; ``timeout`` seconds later it gives up with
+        :class:`ServeOverloadedError`. ``session_id`` names the caller's
+        session (one row); ``reset`` restarts its state before stepping; no
+        ``session_id`` serves a one-shot step from a fresh state."""
+        if self._closed.is_set():
+            raise ServeClosedError("scheduler is stopped")
+        n = self.engine.policy.validate_batch(obs)
+        if session_id is not None and n != 1:
+            raise ValueError(f"a session request is one state row, got n={n}")
+        req = _Request(obs, n, session_id=session_id, reset=reset)
+        try:
+            if timeout is None:
+                while not self._closed.is_set():
+                    try:
+                        self._q.put(req, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+                else:
+                    raise ServeClosedError("scheduler stopped while waiting for queue space")
+            elif timeout <= 0:
+                self._q.put_nowait(req)
+            else:
+                self._q.put(req, timeout=timeout)
+        except queue.Full:
+            self.stats.add("rejected", 1)
+            raise ServeOverloadedError(f"request queue held {self.queue_bound} pending requests for {timeout}s") from None
+        self.stats.add("requests", 1)
+        self.stats.observe_depth(self._q.qsize())
+        return req
+
+    def result(self, req: _Request, timeout: Optional[float] = None) -> Tuple[np.ndarray, int]:
+        """Block until ``req`` resolves; returns ``(actions, weight_version)``."""
+        if not req.event.wait(timeout):
+            raise ServeTimeoutError(f"request did not resolve within {timeout}s")
+        if req.error is not None:
+            raise req.error
+        self.stats.observe_latency(req.latency_s)
+        return req.actions, req.version
+
+    # -- worker side --------------------------------------------------------- #
+
+    def _next_request(self, timeout: float) -> Optional[_Request]:
+        if self._holdover is not None:
+            req, self._holdover = self._holdover, None
+            return req
+        try:
+            return self._q.get(timeout=timeout)
+        except queue.Empty:
+            return None
+
+    def _collect(self) -> List[_Request]:
+        """One admission round (see the module docstring)."""
+        first = self._next_request(timeout=0.05)
+        if first is None:
+            return []
+        batch = [first]
+        rows = first.n
+        seen = {first.session_id} if first.session_id is not None else set()
+        deadline = time.perf_counter() + self.max_wait_s
+        while rows < self.max_batch:
+            remaining = deadline - time.perf_counter()
+            if remaining <= 0:
+                break
+            nxt = self._next_request(timeout=remaining)
+            if nxt is None:
+                break
+            if rows + nxt.n > self.max_batch or (nxt.session_id is not None and nxt.session_id in seen):
+                self._holdover = nxt  # the head of the next batch
+                break
+            batch.append(nxt)
+            rows += nxt.n
+            if nxt.session_id is not None:
+                seen.add(nxt.session_id)
+        return batch
+
+    def _serve_batch(self, batch: List[_Request]) -> None:
+        rows = sum(r.n for r in batch)
+        obs = (
+            batch[0].obs
+            if len(batch) == 1
+            else {k: np.concatenate([r.obs[k] for r in batch], axis=0) for k in batch[0].obs}
+        )
+        version, params = self.weights.pull()
+        try:
+            if version != self._last_version:
+                # once per new version: compatible weights keep the sessions,
+                # incompatible ones version-and-reinit the cache
+                self.engine.check_swap(params)
+                self._last_version = version
+            session_ids: List[Optional[str]] = []
+            resets: List[bool] = []
+            for r in batch:
+                if r.session_id is None:
+                    session_ids.extend([None] * r.n)
+                    resets.extend([False] * r.n)
+                else:
+                    session_ids.append(r.session_id)
+                    resets.append(r.reset)
+            actions = self.engine.step_sessions(params, obs, session_ids, resets)
+        except Exception as e:  # resolve the callers with the error, keep serving
+            for r in batch:
+                r.resolve(None, version, error=e)
+            return
+        self.stats.observe_version(version)
+        self.stats.add("batches", 1)
+        self.stats.add("rows_served", rows)
+        start = 0
+        for r in batch:
+            r.resolve(actions[start : start + r.n], version)
+            start += r.n
+
+    def _settle(self, pending: List[_Request]) -> None:
+        """Shutdown: serve ``pending`` in order, in batches of at most
+        ``max_batch`` rows and one request per session."""
+        batch: List[_Request] = []
+        rows = 0
+        seen: set = set()
+        for r in pending:
+            if batch and (rows + r.n > self.max_batch or (r.session_id is not None and r.session_id in seen)):
+                self._serve_batch(batch)
+                batch, rows, seen = [], 0, set()
+            batch.append(r)
+            rows += r.n
+            if r.session_id is not None:
+                seen.add(r.session_id)
+        if batch:
+            self._serve_batch(batch)
+
+    def _take_pending(self) -> List[_Request]:
+        pending: List[_Request] = []
+        if self._holdover is not None:
+            pending.append(self._holdover)
+            self._holdover = None
+        while True:
+            try:
+                pending.append(self._q.get_nowait())
+            except queue.Empty:
+                return pending
+
+    def _run(self) -> None:
+        if self.engine.device.type == "cuda":
+            torch.cuda.set_device(self.engine.device)
+        while not self._stop.is_set():
+            self.sessions.maybe_sweep()  # TTL sweep rides the admission loop
+            batch = self._collect()
+            if batch:
+                self._serve_batch(batch)
+        while True:  # shutdown: settle everything already admitted
+            pending = self._take_pending()
+            if not pending:
+                break
+            self._settle(pending)

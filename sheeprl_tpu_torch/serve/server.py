@@ -1,0 +1,281 @@
+"""Server assembly: in-process client, JSON-lines socket front end and the
+``serve`` entry body (counterpart of ``sheeprl_tpu/serve/server.py``,
+stateful path).
+
+Wire protocol (one JSON object per line, both directions)::
+
+    -> {"obs": {"rgb": [[[...]]]}, "session_id": "user-42"}
+    -> {"obs": {...}, "session_id": "user-42", "reset": true}  # new episode
+    <- {"actions": [[...]], "version": 3}
+    <- {"error": "..."}                       # per-request failure
+    -> {"health": true}
+    <- {"status": "ok", "ready": true, ...}   # liveness/readiness probe
+
+``obs`` leaves are raw env observations (the server applies the policy's own
+``prepare``). ``session_id`` binds the request to a server-side state row;
+without it, ``n`` (default 1) one-shot rows are stepped from a fresh state.
+``serve_policy`` stops on SIGTERM/SIGINT with a graceful drain: it stops
+accepting, serves every admitted request, then returns.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import socket
+import socketserver
+import threading
+import time
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sheeprl_tpu_torch.serve.policy import StatefulServePolicy
+from sheeprl_tpu_torch.serve.scheduler import RequestScheduler, ServeStats
+from sheeprl_tpu_torch.serve.sessions import SessionEngine, default_session_buckets
+from sheeprl_tpu_torch.serve.weights import WeightStore
+
+__all__ = ["PolicyClient", "PolicyServer", "install_drain_handlers", "request_over_socket", "serve_policy"]
+
+
+class PolicyClient:
+    """In-process client: raw env observations in, env-format actions out.
+    Concurrent callers are micro-batched into shared dispatches."""
+
+    def __init__(self, policy: StatefulServePolicy, scheduler: RequestScheduler) -> None:
+        self.policy = policy
+        self.scheduler = scheduler
+
+    def act(
+        self,
+        obs: Dict[str, np.ndarray],
+        n: int = 1,
+        timeout: Optional[float] = None,
+        submit_timeout: Optional[float] = None,
+        session_id: Optional[str] = None,
+        reset: bool = False,
+    ) -> Tuple[np.ndarray, int]:
+        """Actions ``(n, action_dim)`` and the weight version that produced
+        them. ``timeout`` bounds the wait for the result, ``submit_timeout``
+        the wait for queue space (None: no bound)."""
+        prepared = self.policy.prepare(obs, n)
+        req = self.scheduler.submit(prepared, timeout=submit_timeout, session_id=session_id, reset=reset)
+        return self.scheduler.result(req, timeout=timeout)
+
+
+class _JsonLineHandler(socketserver.StreamRequestHandler):
+    def handle(self) -> None:  # one connection, many newline-framed requests
+        server: "_TcpFrontEnd" = self.server  # type: ignore[assignment]
+        for raw in self.rfile:
+            line = raw.strip()
+            if not line:
+                continue
+            try:
+                msg = json.loads(line)
+                if msg.get("health"):
+                    resp = server.health_fn()
+                else:
+                    obs = {k: np.asarray(v) for k, v in msg["obs"].items()}
+                    session_id = msg.get("session_id")
+                    actions, version = server.client.act(
+                        obs,
+                        n=int(msg.get("n", 1)),
+                        timeout=server.request_timeout_s,
+                        submit_timeout=server.request_timeout_s,
+                        session_id=None if session_id is None else str(session_id),
+                        reset=bool(msg.get("reset", False)),
+                    )
+                    resp = {"actions": np.asarray(actions).tolist(), "version": int(version)}
+            except Exception as e:  # per request: report it, keep the connection
+                resp = {"error": f"{type(e).__name__}: {e}"}
+            try:
+                self.wfile.write((json.dumps(resp) + "\n").encode())
+                self.wfile.flush()
+            except (BrokenPipeError, ConnectionResetError):  # the client went away
+                return
+
+
+class _TcpFrontEnd(socketserver.ThreadingTCPServer):
+    daemon_threads = True
+    allow_reuse_address = True
+
+    def __init__(self, addr, client: PolicyClient, request_timeout_s: float, health_fn: Callable[[], Dict[str, Any]]):
+        super().__init__(addr, _JsonLineHandler)
+        self.client = client
+        self.request_timeout_s = request_timeout_s
+        self.health_fn = health_fn
+
+
+class PolicyServer:
+    """One stateful policy, fully assembled: session engine, scheduler,
+    versioned weight store and, with ``serve.port`` set, the socket front
+    end. ``serve_cfg`` mirrors the ``serve`` block of
+    :data:`sheeprl_tpu_torch.config.SERVE_DEFAULTS`."""
+
+    def __init__(self, policy: StatefulServePolicy, serve_cfg: Optional[Dict[str, Any]] = None) -> None:
+        cfg = dict(serve_cfg or {})
+        self.policy = policy
+        self.stats = ServeStats()
+        mode = str(cfg.get("mode", "greedy"))
+        if mode not in ("greedy", "sample"):
+            raise ValueError(f"serve.mode must be greedy|sample, got {mode!r}")
+        scfg = dict(cfg.get("session") or {})
+        self.engine = SessionEngine(
+            policy,
+            buckets=scfg.get("buckets") or default_session_buckets(),
+            mode=mode,
+            max_sessions=int(scfg.get("max_sessions", 1024)),
+            ttl_s=float(scfg.get("ttl_s", 300.0)),
+            sweep_every_s=float(scfg.get("sweep_every_s", 1.0)),
+        )
+        self.weights = WeightStore(policy.params, policy.params_from_state)
+        self.scheduler = RequestScheduler(
+            self.engine,
+            self.weights,
+            max_wait_s=float(cfg.get("max_wait_ms", 5.0)) / 1e3,
+            max_batch=cfg.get("max_batch"),
+            queue_bound=int(cfg.get("queue_bound", 256)),
+            stats=self.stats,
+        )
+        self.client = PolicyClient(policy, self.scheduler)
+        self._request_timeout_s = float(cfg.get("request_timeout_s", 30.0) or 30.0)
+        self._tcp: Optional[_TcpFrontEnd] = None
+        self._tcp_thread: Optional[threading.Thread] = None
+        self._host = str(cfg.get("host", "127.0.0.1"))
+        self._port = cfg.get("port", None)
+        self._draining = False
+
+    @property
+    def address(self) -> Optional[Tuple[str, int]]:
+        """Bound (host, port) of the socket front end, if one is up."""
+        return self._tcp.server_address[:2] if self._tcp is not None else None
+
+    def start(self, with_socket: Optional[bool] = None) -> "PolicyServer":
+        self.scheduler.start()
+        if (self._port is not None) if with_socket is None else with_socket:
+            self._tcp = _TcpFrontEnd(
+                (self._host, int(self._port or 0)), self.client, self._request_timeout_s, self.health
+            )
+            self._tcp_thread = threading.Thread(target=self._tcp.serve_forever, name="serve-tcp", daemon=True)
+            self._tcp_thread.start()
+        return self
+
+    def health(self) -> Dict[str, Any]:
+        """Liveness and readiness (served over the socket as ``{"health":
+        true}``): worker liveness, queue depth, weight version and age,
+        engine and session counters, drain state."""
+        alive = self.scheduler.worker_alive()
+        status = "draining" if self._draining else ("ok" if alive else "degraded")
+        s = self.engine.cache.snapshot()
+        return {
+            "status": status,
+            "ready": bool(alive and not self._draining),
+            "engine": {
+                "kind": type(self.engine).__name__,
+                "device": str(self.engine.device),
+                "buckets": [int(b) for b in self.engine.buckets],
+                **self.engine.stats(),
+            },
+            "scheduler": {"alive": bool(alive), "queue_depth": int(self.scheduler._q.qsize())},
+            "weights": {"version": int(self.weights.version), "staleness_s": round(self.weights.staleness_s, 3)},
+            "sessions": {
+                "live": int(s["live"]),
+                "peak": int(s["peak"]),
+                "max_sessions": int(s["max_sessions"]),
+                "opened": int(s["opened"]),
+                "evictions": int(s["evicted_lru"] + s["evicted_ttl"]),
+                "ttl_evictions": int(s["evicted_ttl"]),
+                "resets": int(s["resets"]),
+                "client_resets": int(s["client_resets"]),
+                "state_bytes": int(s["state_bytes"]),
+                "ttl_s": float(s["ttl_s"]),
+            },
+        }
+
+    def stop(self) -> None:
+        """Graceful drain: stop accepting (socket down, submits closed),
+        serve every admitted request, then stop the worker."""
+        self._draining = True
+        if self._tcp is not None:
+            self._tcp.shutdown()
+            self._tcp.server_close()
+            self._tcp = None
+        self.scheduler.stop()
+
+    def __enter__(self) -> "PolicyServer":
+        return self.start()
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+
+def request_over_socket(addr: Tuple[str, int], payload: Dict[str, Any], timeout: float = 30.0) -> Dict[str, Any]:
+    """One JSON-lines round trip on a fresh connection (tests and examples;
+    real clients keep one connection open for many requests)."""
+    with socket.create_connection(addr, timeout=timeout) as sock:
+        sock.sendall((json.dumps(payload) + "\n").encode())
+        buf = b""
+        while not buf.endswith(b"\n"):
+            chunk = sock.recv(65536)
+            if not chunk:
+                break
+            buf += chunk
+    return json.loads(buf.decode())
+
+
+def install_drain_handlers(event: threading.Event) -> Callable[[], None]:
+    """Make SIGTERM/SIGINT set ``event`` (a graceful drain); returns a
+    callable that restores the old handlers. A no-op off the main thread,
+    where Python delivers no signals."""
+    if threading.current_thread() is not threading.main_thread():
+        return lambda: None
+
+    def _handler(signum, frame) -> None:
+        event.set()
+        try:  # os.write: print() can raise a reentrant-call error in a handler
+            os.write(1, f"serve: received {signal.Signals(signum).name}, draining\n".encode())
+        except OSError:
+            pass
+
+    previous = {s: signal.signal(s, _handler) for s in (signal.SIGTERM, signal.SIGINT)}
+
+    def _restore() -> None:
+        for s, h in previous.items():
+            signal.signal(s, h)
+
+    return _restore
+
+
+def serve_policy(cfg: Any, state: Optional[Dict[str, Any]], builder: Callable, device: torch.device) -> None:
+    """The ``serve`` entry body: build the policy from the checkpoint state on
+    ``device`` and serve it until ``serve.max_requests`` requests have been
+    answered (None: until SIGTERM/SIGINT). Prints a ``Serve/*`` snapshot
+    every ``serve.log_every_s`` seconds and once at the end."""
+    policy = builder(cfg, state, device)
+    serve_cfg = dict(cfg.get("serve", {}))
+    server = PolicyServer(policy, serve_cfg)
+    max_requests = serve_cfg.get("max_requests")
+    log_every_s = float(serve_cfg.get("log_every_s", 10.0) or 10.0)
+    drain = threading.Event()
+    restore_handlers = install_drain_handlers(drain)
+    server.start()
+    try:
+        addr = server.address
+        if addr is not None:
+            print(f"serving {cfg.algo.name} on {addr[0]}:{addr[1]} (device={device}, buckets={list(server.engine.buckets)})", flush=True)
+        last_log = time.perf_counter()
+        while not drain.is_set():
+            drain.wait(0.2)
+            if time.perf_counter() - last_log >= log_every_s:
+                print(json.dumps({**server.stats.snapshot(), **server.engine.stats()}), flush=True)
+                last_log = time.perf_counter()
+            if max_requests is not None and server.stats.requests >= int(max_requests):
+                break
+    finally:
+        server.stop()
+        restore_handlers()
+        print(json.dumps({**server.stats.snapshot(), **server.engine.stats()}), flush=True)
+        if drain.is_set():
+            print("serve: drained cleanly", flush=True)

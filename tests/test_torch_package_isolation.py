@@ -1,0 +1,77 @@
+"""The port stands alone: it imports no JAX, flax, optax, orbax or
+``sheeprl_tpu`` module, and neither YAML nor gymnasium, which the machine
+with the GPU does not have. Checked twice: every submodule imports in a
+subprocess where those modules are blocked, and an AST scan of the package
+(and of ``chip_smoke.py``) finds no such import."""
+
+import ast
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+import sheeprl_tpu_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "sheeprl_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "sheeprl_tpu", "yaml", "gymnasium", "gym")
+
+_BLOCKED_IMPORT = f"""
+import importlib, json, pkgutil, sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None  # any import of it now raises ImportError
+import sheeprl_tpu_torch
+names = ["sheeprl_tpu_torch"] + [m.name for m in pkgutil.walk_packages(sheeprl_tpu_torch.__path__, "sheeprl_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in {FORBIDDEN!r} and sys.modules[m] is not None)
+print(json.dumps({{"imported": names, "leaked": leaked}}))
+"""
+
+
+def _submodules():
+    return ["sheeprl_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages(sheeprl_tpu_torch.__path__, "sheeprl_tpu_torch.")
+    ]
+
+
+def test_torch_package_imports_with_jax_and_reference_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["leaked"] == []
+    assert set(report["imported"]) == set(_submodules())
+    assert "sheeprl_tpu_torch.ops.kernels.gru" in report["imported"]
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_torch_package_source_imports_nothing_forbidden(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert bad == [], f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_torch_package_ships_its_kernel_sources():
+    sources = sorted(p.name for p in (PACKAGE / "csrc").glob("*.cu"))
+    assert sources == ["gru_gates.cu"]
+    text = (PACKAGE / "csrc" / "gru_gates.cu").read_text()
+    assert 'extern "C" int gru_gates_launch' in text
+    assert "sheeprl_tpu/ops/kernels/gru.py" in text  # names the TPU kernel it replaces
