@@ -11,18 +11,28 @@ result line):
 2. build: every kernel under ``sheeprl_tpu_torch/csrc`` with ``nvcc``, one
    process per source, all at once;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
-   card at the shapes the serving path and the XL training width give it,
-   timed with CUDA events around CUDA-graph replays;
+   card at the shapes the serving and training paths give it, timed with
+   CUDA events around CUDA-graph replays; the two-hot kernels' gradients
+   against the plain chain's;
 4. model: the DreamerV3-S session step on the card against the same weights
    on the CPU, TF32 off, on one small batch;
 5. step: one engine dispatch per bucket timed on the host clock, the device
    time inside it from ``torch.profiler``, and the host cost of one frame's
    JSON round trip;
-6. serve: DreamerV3-S (Atari-100k shape: 64x64x3 pixels, 9 actions, full
-   width, random weights from a seed) through the port's ``serve`` entry
-   point on an ephemeral socket: 8 concurrent sessions x 16 steps, one
-   client reset, a health probe, one session replayed alone; the kernel
-   launch counters are zeroed just before and read just after.
+6. train step: one DreamerV3-S gradient step (full width, batch 4 x
+   sequence 16, horizon 15) on the card against the same step on the CPU:
+   same seeded weights, batch and injected noise, TF32 off;
+7. run: ``python -m sheeprl_tpu_torch run preset=dreamer_v3_100k_atari_dummy``'s
+   entry point on the card at the full recipe (batch 16 x sequence 64,
+   horizon 15, 255 bins) with ``learning_starts`` 128, for 9 gradient
+   steps, ending in a checkpoint; the launch counters are zeroed just
+   before and checked against the path's exact counts just after; then one
+   gradient step from that checkpoint under ``torch.profiler``;
+8. serve: the run's checkpoint (Atari-protocol shape: 64x64x3 pixels, 18
+   actions, full width) through the port's ``serve`` entry point on an
+   ephemeral socket: 8 concurrent sessions x 16 steps, one client reset, a
+   health probe, one session replayed alone; the launch counters are
+   zeroed just before and read just after.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -44,17 +54,26 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch import cli
-from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent, sample_stochastic
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_training_agent, sample_stochastic
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_NAMES, draw_noise, make_optimizers, make_train_step
 from sheeprl_tpu_torch.algos.dreamer_v3.evaluate import act, posterior_step, serve_policy_dreamer_v3
-from sheeprl_tpu_torch.config import plain, preset
+from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments
+from sheeprl_tpu_torch.config import apply_overrides, load_config, preset
 from sheeprl_tpu_torch.ops import kernels
 from sheeprl_tpu_torch.ops.kernels import _build
-from sheeprl_tpu_torch.utils.checkpoint import save_checkpoint
+from sheeprl_tpu_torch.utils.checkpoint import find_run_config, load_checkpoint
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 GRU_OPS_PER_ELEMENT = 10  # 2 sigmoid + tanh + 7 multiply/add, counted as one op each
+# the loss, per row: symlog (~10), the bracket's guess and two checks (~8),
+# the weights (~8) and the two-term dot (3); the decode, per logit: a max, a
+# subtraction, an exp, an add and a multiply-add
+TWO_HOT_LOSS_OPS_PER_ROW = 30
+TWO_HOT_DECODE_OPS_PER_LOGIT = 6
 N_SESSIONS, N_STEPS, RESET_AT = 8, 16, 8
+RUN_PRESET = "dreamer_v3_100k_atari_dummy"
+RUN_LEARNING_STARTS, RUN_GRADIENT_STEPS = 128, 9
 
 
 def log(msg: str) -> None:
@@ -130,15 +149,16 @@ def _graph_ms(fn, per_graph: int = 20, replays: int = 20) -> float:
     return start.elapsed_time(stop) / (replays * per_graph)
 
 
-def gru_gates_phase(serve_batch: int) -> dict:
+def gru_gates_phase(main_batch: int) -> dict:
     """The kernel against its plain version (computed in f32, cast to the IO
     dtype) at each shape: f32 within atol 1e-6 rtol 1e-5, bf16 within atol
     1e-2 rtol 1e-2 (one bf16 rounding). ``ms``/``plain_ms`` are device time
     per call (:func:`_graph_ms`); ``call_ms``/``plain_call_ms`` are eager
     calls back to back, which the host's launch cost bounds at small
     shapes."""
-    shapes = [(1, 512, "float32"), (8, 512, "float32"), (32, 512, "float32"), (1024, 512, "float32"),
-              (1, 512, "bfloat16"), (32, 512, "bfloat16"), (1024, 512, "bfloat16"), (1024, 4096, "float32")]
+    shapes = [(1, 512, "float32"), (8, 512, "float32"), (16, 512, "float32"), (32, 512, "float32"),
+              (1024, 512, "float32"), (1, 512, "bfloat16"), (32, 512, "bfloat16"), (1024, 512, "bfloat16"),
+              (1024, 4096, "float32")]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for B, H, dtype in shapes:
@@ -167,13 +187,13 @@ def gru_gates_phase(serve_batch: int) -> dict:
         log(f"gru_gates {dtype} fused ({B},{3 * H}): err {err:.3g} kernel {ms * 1e3:.2f} us "
             f"(call {call_ms * 1e3:.2f} us) plain {plain_ms * 1e3:.2f} us (call {plain_call_ms * 1e3:.2f} us) "
             f"bound {max(bytes_ms, ops_ms) * 1e3:.3f} us")
-    main = next(r for r in rows if r["shape"] == [serve_batch, 3 * 512] and r["dtype"] == "float32")
+    main = next(r for r in rows if r["shape"] == [main_batch, 3 * 512] and r["dtype"] == "float32")
     return {
         "name": "gru_gates",
         "route": "cuda",
         "source": "sheeprl_tpu_torch/csrc/gru_gates.cu",
         "replaces": "sheeprl_tpu/ops/kernels/gru.py:59",
-        "launches": None,  # filled from the serve phase
+        "launches": None,  # filled from the run phase
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
@@ -182,6 +202,102 @@ def gru_gates_phase(serve_batch: int) -> dict:
         "library_ms": None,  # no single PyTorch call computes this gate chain
         "shapes": rows,
     }
+
+
+def _two_hot_inputs(gen, n: int, k: int, scale: float):
+    logits = torch.log_softmax(torch.randn((n, k), generator=gen, device="cuda") * scale, dim=-1)
+    value = torch.randn((n, 1), generator=gen, device="cuda") * 30
+    # zero, negatives, beyond +-20 in symlog space, exactly on the top bin,
+    # then one target on each bin
+    value[:5, 0] = torch.tensor([0.0, -1.0, 1e10, -1e10, float(np.expm1(20.0))], device="cuda")
+    bins = torch.linspace(-20.0, 20.0, k, device="cuda")
+    value[5:5 + k, 0] = torch.sign(bins) * torch.expm1(bins.abs())
+    return logits, value
+
+
+def two_hot_phase() -> list:
+    """Both two-hot kernels against their plain versions computed in f32 on
+    the same (rounded) inputs, at the training path's shapes: f32 within
+    atol 1e-4 rtol 1e-5 (the in-kernel bins ``low + i * step`` and
+    ``torch.linspace`` differ by an ulp of 20, which moves a two-hot weight
+    by ~1e-5 against logits down to ~-25), bf16 within atol 2e-2 rtol 1e-2
+    (one bf16 rounding of the output). Each ``autograd.Function``'s gradient
+    on the card against the plain chain's, within atol and rtol 1e-4."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = []
+    # loss logits spread wide (down to ~-25); decode logits spread as a head's
+    # do, so decoded values stay in the range a critic or reward head gives
+    for name, main_n, scale in (("two_hot_symlog_loss", 15360, 3.0), ("two_hot_symexp_decode", 16384, 1.0)):
+        kernel, plain_fn = getattr(kernels, name), getattr(kernels, f"{name}_reference")
+        rows = []
+        for n in (1024, 15360, 16384):
+            for dtype in ("float32", "bfloat16"):
+                dt = getattr(torch, dtype)
+                logits, value = _two_hot_inputs(gen, n, 255, scale)
+                logits = logits.to(dt)
+                args = (logits, value) if name == "two_hot_symlog_loss" else (logits,)
+                plain_args = (logits.float(), value) if name == "two_hot_symlog_loss" else (logits.float(),)
+                got = kernel(*args)
+                torch.cuda.synchronize()
+                want = plain_fn(*plain_args)
+                f32 = dtype == "float32"
+                tol = dict(atol=1e-4, rtol=1e-5) if f32 else dict(atol=2e-2, rtol=1e-2)
+                torch.testing.assert_close(got.float(), want, **tol)
+                if got.dtype != dt:
+                    raise AssertionError(f"{name} returned {got.dtype} for {dt} logits")
+                err = float((got.float() - want).abs().max())
+                call_ms = _time_ms(lambda: kernel(*args), 200)
+                plain_call_ms = _time_ms(lambda: plain_fn(*args), 200)
+                ms = _graph_ms(lambda: kernel(*args))
+                plain_ms = _graph_ms(lambda: plain_fn(*args))
+                size = logits.element_size()
+                if name == "two_hot_symlog_loss":  # per row: the target, two logits, the output
+                    nbytes, ops = n * (4 + 3 * size), TWO_HOT_LOSS_OPS_PER_ROW * n
+                else:  # per row: every logit, the output
+                    nbytes, ops = n * 255 * size + n * size, TWO_HOT_DECODE_OPS_PER_LOGIT * n * 255
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = ops / F32_FLOPS * 1e3
+                rows.append({
+                    "shape": [n, 255], "dtype": dtype, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+                    "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                })
+                log(f"{name} {dtype} ({n},255): err {err:.3g} kernel {ms * 1e3:.2f} us (call {call_ms * 1e3:.2f} us) "
+                    f"plain {plain_ms * 1e3:.2f} us (call {plain_call_ms * 1e3:.2f} us) "
+                    f"bound {max(bytes_ms, ops_ms) * 1e3:.4f} us")
+        # the gradient through the autograd.Function against the plain chain's
+        logits, value = _two_hot_inputs(gen, 512, 255, scale)
+        value[8:] = value[8:] / 8  # most targets inside the support, where d/dvalue != 0
+        weight = torch.rand((512,), generator=gen, device="cuda")
+        grads = []
+        for fn in (kernel, plain_fn):
+            lg = logits.clone().requires_grad_(True)
+            v = value.clone().requires_grad_(True)
+            out_ = fn(lg, v) if name == "two_hot_symlog_loss" else fn(lg)[..., 0]
+            (out_ * weight).sum().backward()
+            grads.append([t.grad for t in ((lg, v) if name == "two_hot_symlog_loss" else (lg,))])
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        grad_err = max(float((a - b).abs().max()) for a, b in zip(*grads))
+        log(f"{name} backward: max err {grad_err:.3g} against the plain chain")
+        main = next(r for r in rows if r["shape"] == [main_n, 255] and r["dtype"] == "float32")
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": "sheeprl_tpu_torch/csrc/two_hot.cu",
+            "replaces": "sheeprl_tpu/ops/kernels/twohot.py:133" if name == "two_hot_symlog_loss"
+            else "sheeprl_tpu/ops/kernels/twohot.py:158",
+            "launches": None,  # filled from the run phase
+            "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes the two-hot loss or decode
+            "grad_max_abs_err": grad_err,
+            "shapes": rows,
+        })
+    return out
 
 
 # -- 4. model on the card against the CPU --------------------------------------
@@ -223,6 +339,17 @@ def model_phase(cfg) -> dict:
     return {"recurrent_max_abs_err": rec_err, "logits_max_abs_err": logit_err}
 
 
+def _device_kernels(prof) -> list:
+    """The profile's device-side events, without user annotations (the
+    optimizer's ``Optimizer.step#Adam.step`` range spans kernels that are
+    counted on their own)."""
+    return [
+        e for e in prof.key_averages()
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)
+    ]
+
+
 def step_phase(cfg) -> dict:
     """Where a request's time goes, below the socket: one engine dispatch per
     bucket (host clock, ending in the actions' copy to the host), the device
@@ -248,7 +375,7 @@ def step_phase(cfg) -> dict:
         with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
             for _ in range(10):
                 engine.step_sessions(policy.params, obs, ids)
-        events = [e for e in prof.key_averages() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        events = _device_kernels(prof)
         device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events) / 10
         kernels_per_step = sum(e.count for e in events) / 10
         out[f"bucket_{b}"] = {
@@ -268,7 +395,190 @@ def step_phase(cfg) -> dict:
     return out
 
 
-# -- 6. serve -----------------------------------------------------------------
+# -- 6. one gradient step on the card against the CPU -----------------------------
+
+
+def _batch(rng, T: int, B: int, n_actions: int) -> dict:
+    data = {
+        "rgb": rng.integers(0, 256, (1, T, B, 64, 64, 3)).astype(np.float32),
+        "actions": np.eye(n_actions, dtype=np.float32)[rng.integers(0, n_actions, (1, T, B))],
+        "rewards": (rng.random((1, T, B, 1)) < 0.1).astype(np.float32) * 10,
+        "terminated": np.zeros((1, T, B, 1), np.float32),
+        "is_first": np.zeros((1, T, B, 1), np.float32),
+    }
+    data["terminated"][0, T // 2, 0] = 1.0
+    data["is_first"][0, T // 2 + 1, 0] = 1.0
+    return {k: torch.from_numpy(v) for k, v in data.items()}
+
+
+def _run_cfg(extra=()):
+    cfg = apply_overrides(preset(RUN_PRESET), list(extra))
+    cfg["spaces"] = {"obs": {"rgb": {"shape": [64, 64, 3], "dtype": "uint8"}}, "actions": {"n": [18], "continuous": False}}
+    return apply_overrides(cfg, [])
+
+
+def train_step_phase() -> dict:
+    """One DreamerV3-S gradient step (full width, B 4 x T 16, H 15) on the
+    card against the same step on the CPU, TF32 off: the same seeded
+    weights, batch and injected noise. Tolerances:
+
+    - the ten losses within rtol 1e-4: float32 sums of the same terms in
+      another order (cuDNN's convolutions, cuBLAS's matmuls);
+    - the updated parameters: Adam's first step moves each element by about
+      its learning rate times the sign of its gradient, so an element whose
+      gradient is within float32 noise of zero can move either way on the
+      two machines, by up to twice the learning rate (2e-4). So every
+      element within 2 * lr + 1e-6 of the CPU's, and at least 99.9% of each
+      module's elements within 1e-6."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, B = 16, 4
+    cfg = _run_cfg([f"algo.per_rank_sequence_length={T}", f"algo.per_rank_batch_size={B}"])
+    data = _batch(np.random.default_rng(4), T, B, 18)
+    noise = draw_noise(cfg, T, B, [18], torch.Generator().manual_seed(5), "cpu")
+    results = {}
+    for dev in ("cpu", "cuda"):
+        modules = build_training_agent(cfg, dev)
+        optimizers = make_optimizers(cfg, *modules[:3])
+        train = make_train_step(*modules, optimizers, cfg)
+        dev_noise = {
+            "posterior": noise["posterior"].to(dev), "imagined_prior": noise["imagined_prior"].to(dev),
+            "actions": [u.to(dev) for u in noise["actions"]],
+        }
+        t0 = time.perf_counter()
+        moments, metrics = train({k: v.to(dev) for k, v in data.items()}, init_moments(dev), 0, noise=[dev_noise])
+        metrics = metrics.cpu()
+        seconds = time.perf_counter() - t0
+        params = {name: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+                  for name, m in zip(("world_model", "actor", "critic"), modules)}
+        results[dev] = (metrics[0], params, seconds)
+    out = {"cpu_s": results["cpu"][2], "cuda_s": results["cuda"][2]}
+    if not torch.isfinite(results["cuda"][0]).all():
+        raise AssertionError(f"non-finite losses on the card: {results['cuda'][0].tolist()}")
+    torch.testing.assert_close(results["cuda"][0], results["cpu"][0], rtol=1e-4, atol=1e-5)
+    out["loss_abs_err"] = dict(zip(METRIC_NAMES, (results["cuda"][0] - results["cpu"][0]).abs().tolist()))
+    out["losses_cpu"] = dict(zip(METRIC_NAMES, results["cpu"][0].tolist()))
+    lrs = {"world_model": 1e-4, "actor": 8e-5, "critic": 8e-5}
+    for name, lr in lrs.items():
+        diffs = torch.cat([(results["cuda"][1][name][k] - results["cpu"][1][name][k]).abs().reshape(-1)
+                           for k in results["cpu"][1][name]])
+        close = float((diffs <= 1e-6).float().mean())
+        out[name] = {"max_abs_err": float(diffs.max()), "share_within_1e-6": close}
+        if float(diffs.max()) > 2 * lr + 1e-6 or close < 0.999:
+            raise AssertionError(f"{name} after one step on the card differs from the CPU: {out[name]}")
+    log("train step (card vs CPU): " + json.dumps(out))
+    return out
+
+
+# -- 7. run -------------------------------------------------------------------------
+
+
+def _profile_gradient_step(checkpoint: str) -> dict:
+    """One full-recipe gradient step (B 16 x T 64, H 15) from the run's
+    checkpoint, after two warm-up steps: host time around the step (ending
+    in a synchronize), and device time and device operations from
+    ``torch.profiler``, with the two-hot kernels' and ``gru_gates``' share."""
+    cfg = load_config(find_run_config(checkpoint))
+    state = load_checkpoint(checkpoint)
+    modules = build_training_agent(cfg, "cuda", state)
+    optimizers = make_optimizers(cfg, *modules[:3])
+    train = make_train_step(*modules, optimizers, cfg)
+    T, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
+    data = {k: v.cuda() for k, v in _batch(np.random.default_rng(6), T, B, 18).items()}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    moments = init_moments("cuda")
+    for _ in range(2):
+        moments, _ = train(data, moments, 1, gen)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        moments, _ = train(data, moments, 1, gen)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    acts = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+        moments, _ = train(data, moments, 1, gen)
+        torch.cuda.synchronize()
+    events = _device_kernels(prof)
+    device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    ops = sum(e.count for e in events)
+    share = {}
+    for kernel, needle in (("two_hot", "two_hot_"), ("gru_gates", "gru_gates_")):
+        us = sum(getattr(e, "self_device_time_total", 0.0) for e in events if needle in e.key)
+        share[kernel] = {"device_ms": us / 1e3, "share": us / device_us if device_us > 0 else None,
+                         "ops": sum(e.count for e in events if needle in e.key)}
+    top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:8]
+    return {
+        "host_ms": float(np.median(host) * 1e3),
+        "host_ms_all": [h * 1e3 for h in host],
+        "device_ms": device_us / 1e3 if device_us > 0 else None,
+        "device_busy_share": device_us / 1e3 / (np.median(host) * 1e3) if device_us > 0 else None,
+        "device_ops": ops,
+        "kernels": share,
+        "top": [{"name": e.key[:80], "device_ms": getattr(e, "self_device_time_total", 0.0) / 1e3, "count": e.count}
+                for e in top],
+    }
+
+
+def run_phase(workdir: str) -> dict:
+    """DreamerV3-S coupled training through ``run``'s entry point at the
+    full recipe, ``learning_starts`` 128 and 9 gradient steps. Every loss
+    finite; the launch counts exactly those of the path: per gradient step
+    3 two-hot losses (reward, critic against the lambda-returns and against
+    the target critic), 3 decodes (critic values, imagined rewards, target
+    values) and T + H GRU steps (dynamic rollout, imagination), plus one GRU
+    step per player step after ``learning_starts``."""
+    total = RUN_LEARNING_STARTS + RUN_GRADIENT_STEPS - 1
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.run([
+        f"preset={RUN_PRESET}",
+        f"algo.learning_starts={RUN_LEARNING_STARTS}",
+        f"algo.total_steps={total}",
+        "checkpoint.save_last=true",
+        "checkpoint.every=0",
+        "metric.log_level=0",  # the losses are logged below
+        f"log_root={workdir}",
+    ])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    G = summary["gradient_steps"]
+    cfg = load_config(find_run_config(summary["checkpoint"]))
+    T, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.horizon)
+    if G < 8 or summary["device"].split(":")[0] != "cuda":
+        raise AssertionError(f"run took {G} gradient steps on {summary['device']}")
+    if not np.isfinite(np.asarray(summary["metrics"])).all() or len(summary["metrics"]) != G:
+        raise AssertionError(f"non-finite or missing losses: {summary['metrics']}")
+    want = {
+        "two_hot_symlog_loss": 3 * G,
+        "two_hot_symexp_decode": 3 * G,
+        "gru_gates": G * (T + H) + summary["player_steps"],
+    }
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want} for {G} gradient steps")
+    per_step = [s / g * 1e3 for s, g in summary["train_host_s"]]
+    out = {
+        "gradient_steps": G,
+        "policy_steps": summary["policy_steps"],
+        "player_steps": summary["player_steps"],
+        "launches": launches,
+        "wall_s": wall,
+        "host_ms_per_gradient_step": per_step,
+        "env_steps_per_s": summary["env_steps_per_s"],
+        "losses": [dict(zip(METRIC_NAMES, row)) for row in summary["metrics"]],
+        "checkpoint": summary["checkpoint"],
+    }
+    for i, row in enumerate(summary["metrics"]):
+        log(f"run gradient step {i}: " + " ".join(f"{n.split('/')[-1]}={v:.5g}" for n, v in zip(METRIC_NAMES, row)))
+    log(f"run: {G} gradient steps, host ms per gradient step {[round(x, 1) for x in per_step]}, "
+        f"env steps/s {summary['env_steps_per_s']:.1f}, launches {launches}")
+    out["profile"] = _profile_gradient_step(summary["checkpoint"])
+    log("gradient step profile: " + json.dumps(out["profile"]))
+    return out
+
+
+# -- 8. serve -----------------------------------------------------------------
 
 
 def _free_port() -> int:
@@ -355,10 +665,8 @@ def _drive(port: int, frames, result: dict) -> None:
         os.kill(os.getpid(), signal.SIGTERM)  # graceful drain of the server
 
 
-def serve_phase(cfg, workdir: str, accelerator: str = "cuda") -> dict:
-    world_model, actor = build_agent(cfg, "cpu")
-    state = {"world_model": world_model.state_dict(), "actor": actor.state_dict()}
-    ckpt = save_checkpoint(os.path.join(workdir, "dreamer_v3_S", "ckpt_0.pt"), state, plain(cfg))
+def serve_phase(ckpt: str, accelerator: str = "cuda") -> dict:
+    n_actions = int(load_config(find_run_config(ckpt)).spaces.actions.n[0])
     rng = np.random.default_rng(2)
     frames = [[rng.integers(0, 256, size=(64, 64, 3), dtype=np.uint8) for _ in range(N_STEPS)] for _ in range(N_SESSIONS)]
     port = _free_port()
@@ -383,7 +691,7 @@ def serve_phase(cfg, workdir: str, accelerator: str = "cuda") -> dict:
 
     for i in range(N_SESSIONS):
         for t, a in enumerate(result["actions"][i]):
-            if not (len(a) == 1 and len(a[0]) == 1 and 0 <= a[0][0] < 9):
+            if not (len(a) == 1 and len(a[0]) == 1 and 0 <= a[0][0] < n_actions):
                 raise AssertionError(f"session s{i} step {t}: bad action {a}")
     hb = result["health_batched"]
     if hb["sessions"]["live"] != N_SESSIONS or hb["sessions"]["client_resets"] != 1:
@@ -417,17 +725,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     card = device_phase()
     build_phase()
-    gru = gru_gates_phase(serve_batch=N_SESSIONS)
+    gru = gru_gates_phase(main_batch=16)
+    two_hot = two_hot_phase()
     cfg = preset("dreamer_v3_S_atari100k")
     model = model_phase(cfg)
     step = step_phase(cfg)
+    train_step = train_step_phase()
     with tempfile.TemporaryDirectory() as workdir:
-        serve = serve_phase(cfg, workdir)
-    gru["launches"] = serve["launches"]["gru_gates"]
-    print(json.dumps({"model": model, "step": step, "serve": serve}))
-    print(json.dumps({"kernels": [gru]}))
+        run = run_phase(workdir)
+        serve = serve_phase(run["checkpoint"])
+    for row in [gru] + two_hot:
+        row["launches"] = run["launches"][row["name"]]
+        row["launches_by_path"] = {"run": run["launches"][row["name"]], "serve": serve["launches"][row["name"]]}
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"model": model, "step": step, "train_step": train_step, "run": run, "serve": serve}))
+    print(json.dumps({"kernels": [gru] + two_hot}))
     print(card)
     print(json.dumps({
         "ok": True,

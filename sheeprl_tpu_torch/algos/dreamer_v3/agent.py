@@ -1,7 +1,8 @@
-"""DreamerV3 agent, the subset that serving runs (counterpart of
-``sheeprl_tpu/algos/dreamer_v3/agent.py``): the encoders, the RSSM's
-recurrent, representation and transition models, and the discrete actor.
-The decoders and the reward, continue and critic heads belong to training.
+"""DreamerV3 agent (counterpart of ``sheeprl_tpu/algos/dreamer_v3/agent.py``):
+the encoders, the RSSM's recurrent, representation and transition models and
+its training steps, the decoders, the reward, continue and critic heads, and
+the discrete actor. Serving builds the subset it runs (:func:`build_agent`);
+training builds all of it (:func:`build_training_agent`).
 
 Pixels stay NHWC at every public function, as in the JAX package; the
 convolutions run NCHW inside, LayerNorm runs over channels, and the encoder
@@ -11,6 +12,7 @@ order they were trained on.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -19,13 +21,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from sheeprl_tpu_torch.distributions import OneHotCategoricalStraightThrough
-from sheeprl_tpu_torch.models import MLP, LayerNormGRUCell
+from sheeprl_tpu_torch.models import MLP, ConvTranspose, LayerNormGRUCell
 from sheeprl_tpu_torch.ops import symlog
 
 __all__ = [
     "CNNEncoder",
     "MLPEncoder",
     "Encoder",
+    "CNNDecoder",
+    "MLPDecoder",
     "RecurrentModel",
     "WorldModel",
     "Actor",
@@ -33,6 +37,7 @@ __all__ = [
     "actor_sample",
     "sample_stochastic",
     "build_agent",
+    "build_training_agent",
 ]
 
 
@@ -90,6 +95,61 @@ class Encoder(nn.Module):
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
+class CNNDecoder(nn.Module):
+    """Inverse of :class:`CNNEncoder`: a linear map to a 4x4 feature map in
+    (H, W, C) order, then ``stages`` stride-2 4x4 transposed convolutions
+    (LayerNorm over channels and SiLU after all but the last). Flat latent
+    in, one NHWC tensor per key out, split on channels."""
+
+    def __init__(
+        self,
+        keys: Sequence[str],
+        output_channels: Sequence[int],
+        channels_multiplier: int,
+        latent_dim: int,
+        cnn_encoder_output_dim: int,
+        stages: int = 4,
+    ) -> None:
+        super().__init__()
+        self.keys = tuple(keys)
+        self.output_channels = tuple(int(c) for c in output_channels)
+        self.fc = nn.Linear(int(latent_dim), int(cnn_encoder_output_dim))
+        self.hidden = [(2**i) * int(channels_multiplier) for i in reversed(range(int(stages) - 1))]
+        last = int(cnn_encoder_output_dim) // 16
+        for i, ch in enumerate(self.hidden):
+            self.add_module(f"deconv_{i}", ConvTranspose(last, ch, 4, 2, padding=1, bias=False))
+            self.add_module(f"ln_{i}", nn.LayerNorm(ch, eps=1e-3))
+            last = ch
+        self.out = ConvTranspose(last, sum(self.output_channels), 4, 2, padding=1)
+
+    def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
+        lead = latent.shape[:-1]
+        x = self.fc(latent).reshape(-1, 4, 4, self.fc.out_features // 16).permute(0, 3, 1, 2)
+        for i in range(len(self.hidden)):
+            x = getattr(self, f"deconv_{i}")(x)
+            x = F.silu(getattr(self, f"ln_{i}")(x.permute(0, 2, 3, 1))).permute(0, 3, 1, 2)
+        x = self.out(x).permute(0, 2, 3, 1)  # NHWC
+        x = x.reshape(*lead, *x.shape[1:])
+        return dict(zip(self.keys, torch.split(x, list(self.output_channels), dim=-1)))
+
+
+class MLPDecoder(nn.Module):
+    """Inverse of :class:`MLPEncoder`: an MLP and one linear head per key."""
+
+    def __init__(
+        self, keys: Sequence[str], output_dims: Sequence[int], latent_dim: int, mlp_layers: int, dense_units: int
+    ) -> None:
+        super().__init__()
+        self.keys = tuple(keys)
+        self.model = MLP(latent_dim, (int(dense_units),) * int(mlp_layers), activation="silu", layer_norm=True)
+        for i, d in enumerate(output_dims):
+            self.add_module(f"head_{i}", nn.Linear(int(dense_units), int(d)))
+
+    def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = self.model(latent)
+        return {k: getattr(self, f"head_{i}")(x) for i, k in enumerate(self.keys)}
+
+
 class RecurrentModel(nn.Module):
     """MLP, then the LayerNorm-GRU cell."""
 
@@ -109,6 +169,18 @@ class _StochHead(nn.Module):
         super().__init__()
         self.model = MLP(input_dim, (int(hidden_size),), activation="silu", layer_norm=True)
         self.out = nn.Linear(int(hidden_size), int(stoch_state_size))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.out(self.model(x))
+
+
+class _PredictionHead(nn.Module):
+    """An MLP and a linear output: the reward, continue and critic heads."""
+
+    def __init__(self, input_dim: int, output_dim: int, mlp_layers: int, dense_units: int) -> None:
+        super().__init__()
+        self.model = MLP(input_dim, (int(dense_units),) * int(mlp_layers), activation="silu", layer_norm=True)
+        self.out = nn.Linear(int(dense_units), int(output_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.out(self.model(x))
@@ -137,9 +209,14 @@ def sample_stochastic(
     return out.reshape(*out.shape[:-2], -1)
 
 
+#: world-model submodules that only training runs; serving drops their weights
+TRAINING_ONLY_MODULES = ("cnn_decoder", "mlp_decoder", "reward_model", "continue_model")
+
+
 class WorldModel(nn.Module):
-    """The serving subset of the world model: encoder and RSSM heads, plus
-    the learnable initial recurrent state."""
+    """Encoder, RSSM heads and the learnable initial recurrent state; for
+    training also the decoders and the reward and continue heads (None when
+    serving). Submodule names are the JAX package's world-model keys."""
 
     def __init__(
         self,
@@ -150,6 +227,10 @@ class WorldModel(nn.Module):
         recurrent_state_size: int,
         discrete: int = 32,
         unimix: float = 0.01,
+        cnn_decoder: Optional[CNNDecoder] = None,
+        mlp_decoder: Optional[MLPDecoder] = None,
+        reward_model: Optional[_PredictionHead] = None,
+        continue_model: Optional[_PredictionHead] = None,
     ) -> None:
         super().__init__()
         self.encoder = encoder
@@ -159,6 +240,10 @@ class WorldModel(nn.Module):
         self.initial_recurrent_state = nn.Parameter(torch.zeros(int(recurrent_state_size)))
         self.discrete = int(discrete)
         self.unimix = float(unimix)
+        self.cnn_decoder = cnn_decoder
+        self.mlp_decoder = mlp_decoder
+        self.reward_model = reward_model
+        self.continue_model = continue_model
 
     def _mix(self, logits: torch.Tensor) -> torch.Tensor:
         grouped = logits.reshape(*logits.shape[:-1], -1, self.discrete)
@@ -176,6 +261,48 @@ class WorldModel(nn.Module):
 
     def transition(self, recurrent_out: torch.Tensor) -> torch.Tensor:
         return self._mix(self.transition_model(recurrent_out))
+
+    def dynamic(
+        self,
+        posterior: torch.Tensor,
+        recurrent_state: torch.Tensor,
+        action: torch.Tensor,
+        embedded_obs: torch.Tensor,
+        is_first: torch.Tensor,
+        uniform: Optional[torch.Tensor] = None,
+        initial: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One dynamic-learning step over ``(B, ...)`` rows: where
+        ``is_first`` is 1 the action is zeroed and the state restarts from
+        ``tanh(initial_recurrent_state)`` and the transition's mode there
+        (``initial``, if the caller computed them once for the rollout).
+        Returns ``(recurrent', posterior sample, posterior logits, prior
+        logits)``; ``uniform`` is the posterior draw's noise."""
+        if initial is None:
+            initial = self.get_initial_states(recurrent_state.shape[0])
+        init_rec, init_post = initial
+        action = (1 - is_first) * action
+        recurrent_state = (1 - is_first) * recurrent_state + is_first * init_rec
+        posterior = (1 - is_first) * posterior + is_first * init_post
+        recurrent_state = self.recurrent_model(torch.cat([posterior, action], dim=-1), recurrent_state)
+        prior_logits = self.transition(recurrent_state)
+        posterior_logits = self.representation(recurrent_state, embedded_obs)
+        posterior = sample_stochastic(posterior_logits, self.discrete, uniform)
+        return recurrent_state, posterior, posterior_logits, prior_logits
+
+    def imagination(
+        self, prior: torch.Tensor, recurrent_state: torch.Tensor, actions: torch.Tensor, uniform: Optional[torch.Tensor]
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One latent imagination step: ``(prior sample', recurrent')``."""
+        recurrent_state = self.recurrent_model(torch.cat([prior, actions], dim=-1), recurrent_state)
+        return sample_stochastic(self.transition(recurrent_state), self.discrete, uniform), recurrent_state
+
+    def decode(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out: Dict[str, torch.Tensor] = {}
+        for decoder in (self.cnn_decoder, self.mlp_decoder):
+            if decoder is not None:
+                out.update(decoder(latent))
+        return out
 
 
 class Actor(nn.Module):
@@ -223,7 +350,7 @@ def _hafner_init(module: nn.Module, generator: torch.Generator) -> None:
     """Every Linear/Conv weight from a truncated normal (cut at 2 std) with
     variance ``2 / (fan_in + fan_out)``, every bias zero."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             fan_in, fan_out = _fans(m.weight)
             std = np.sqrt(1.0 / ((fan_in + fan_out) / 2.0)) / 0.87962566103423978
             nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
@@ -231,7 +358,8 @@ def _hafner_init(module: nn.Module, generator: torch.Generator) -> None:
                 nn.init.zeros_(m.bias)
 
 
-def _uniform_output_init(layer: nn.Linear, generator: torch.Generator, scale: float) -> None:
+def _uniform_output_init(layer: nn.Module, generator: torch.Generator, scale: float) -> None:
+    """Hafner's scaled uniform; scale 0 gives zeros."""
     fan_in, fan_out = _fans(layer.weight)
     limit = float(np.sqrt(3 * scale / ((fan_in + fan_out) / 2.0)))
     if limit > 0:
@@ -242,11 +370,9 @@ def _uniform_output_init(layer: nn.Linear, generator: torch.Generator, scale: fl
         nn.init.zeros_(layer.bias)
 
 
-def build_agent(cfg: Any, device: "torch.device | str" = "cpu", state: Optional[Dict[str, Any]] = None) -> Tuple[WorldModel, Actor]:
-    """The world model and actor for ``cfg`` (a run config with ``algo``,
-    ``env``, ``seed`` and ``spaces``), initialised on the CPU with Hafner's
-    scheme from ``cfg.seed``, then loaded from ``state`` (``{"world_model":
-    ..., "actor": ...}`` state dicts) where given, and moved to ``device``."""
+def _modules(cfg: Any, training: bool) -> Tuple[WorldModel, Actor, Optional[_PredictionHead]]:
+    """The modules for ``cfg``, not yet initialised: the serving subset, or
+    with ``training`` the whole world model and the critic."""
     wm_cfg = cfg.algo.world_model
     spaces = cfg.spaces
     if spaces.actions.get("continuous", False):
@@ -255,6 +381,7 @@ def build_agent(cfg: Any, device: "torch.device | str" = "cpu", state: Optional[
     recurrent_state_size = int(wm_cfg.recurrent_model.recurrent_state_size)
     discrete = int(wm_cfg.discrete_size)
     stoch_state_size = int(wm_cfg.stochastic_size) * discrete
+    latent_dim = stoch_state_size + recurrent_state_size
     if wm_cfg.get("decoupled_rssm", False):
         raise NotImplementedError("the decoupled RSSM is not ported yet")
 
@@ -263,17 +390,48 @@ def build_agent(cfg: Any, device: "torch.device | str" = "cpu", state: Optional[
     obs = spaces.obs
     screen = int(cfg.env.screen_size)
     stages = int(np.log2(screen) - np.log2(4))
+    cnn_channels = [int(np.prod(obs[k].shape[2:] or (1,))) for k in cnn_keys]
     cnn_encoder = mlp_encoder = None
+    cnn_encoder_output_dim = (2 ** (stages - 1)) * int(wm_cfg.encoder.cnn_channels_multiplier) * 4 * 4
     encoder_output_dim = 0
     if cnn_keys:
-        channels = sum(int(np.prod(obs[k].shape[2:] or (1,))) for k in cnn_keys)
-        mult = int(wm_cfg.encoder.cnn_channels_multiplier)
-        cnn_encoder = CNNEncoder(cnn_keys, channels, mult, stages)
-        encoder_output_dim += (2 ** (stages - 1)) * mult * 4 * 4
+        cnn_encoder = CNNEncoder(cnn_keys, sum(cnn_channels), int(wm_cfg.encoder.cnn_channels_multiplier), stages)
+        encoder_output_dim += cnn_encoder_output_dim
     if mlp_keys:
         mlp_in = sum(int(np.prod(obs[k].shape)) for k in mlp_keys)
         mlp_encoder = MLPEncoder(mlp_keys, mlp_in, int(wm_cfg.encoder.mlp_layers), int(wm_cfg.encoder.dense_units))
         encoder_output_dim += int(wm_cfg.encoder.dense_units)
+
+    heads: Dict[str, Any] = {}
+    critic = None
+    if training:
+        obs_cfg = wm_cfg.observation_model
+        cnn_dec = list(cfg.algo.cnn_keys.get("decoder", cnn_keys))
+        mlp_dec = list(cfg.algo.mlp_keys.get("decoder", mlp_keys))
+        if cnn_dec:
+            heads["cnn_decoder"] = CNNDecoder(
+                cnn_dec,
+                [int(np.prod(obs[k].shape[2:] or (1,))) for k in cnn_dec],
+                int(obs_cfg.cnn_channels_multiplier),
+                latent_dim,
+                cnn_encoder_output_dim,
+                stages,
+            )
+        if mlp_dec:
+            heads["mlp_decoder"] = MLPDecoder(
+                mlp_dec,
+                [int(np.prod(obs[k].shape)) for k in mlp_dec],
+                latent_dim,
+                int(obs_cfg.mlp_layers),
+                int(obs_cfg.dense_units),
+            )
+        rew, cont = wm_cfg.reward_model, wm_cfg.discount_model
+        heads["reward_model"] = _PredictionHead(latent_dim, int(rew.bins), int(rew.mlp_layers), int(rew.dense_units))
+        heads["continue_model"] = _PredictionHead(latent_dim, 1, int(cont.mlp_layers), int(cont.dense_units))
+        critic_cfg = cfg.algo.critic
+        critic = _PredictionHead(
+            latent_dim, int(critic_cfg.bins), int(critic_cfg.mlp_layers), int(critic_cfg.dense_units)
+        )
 
     world_model = WorldModel(
         Encoder(cnn_encoder, mlp_encoder),
@@ -287,24 +445,75 @@ def build_agent(cfg: Any, device: "torch.device | str" = "cpu", state: Optional[
         recurrent_state_size,
         discrete=discrete,
         unimix=float(cfg.algo.unimix),
+        **heads,
     )
-    actor = Actor(
-        stoch_state_size + recurrent_state_size,
-        actions_dim,
-        int(cfg.algo.actor.dense_units),
-        int(cfg.algo.actor.mlp_layers),
-        float(cfg.algo.unimix),
-    )
+    actor = Actor(latent_dim, actions_dim, int(cfg.algo.actor.dense_units), int(cfg.algo.actor.mlp_layers), float(cfg.algo.unimix))
+    return world_model, actor, critic
 
-    generator = torch.Generator().manual_seed(int(cfg.get("seed") or 0))
+
+def _init_weights(world_model: WorldModel, actor: Actor, critic: Optional[_PredictionHead], seed: int) -> None:
+    """Hafner's initialisation from ``seed``, with the JAX package's output
+    scales (agent.py:889-923): transition, representation, actor heads,
+    continue head and decoder outputs at 1.0; reward head and critic output
+    at 0.0, i.e. zeros. The serving subset is drawn first, so it is the same
+    whether or not the training heads exist."""
+    generator = torch.Generator().manual_seed(int(seed))
+    serving = [world_model.encoder, world_model.recurrent_model, world_model.representation_model]
+    serving.append(world_model.transition_model)
     with torch.no_grad():
-        _hafner_init(world_model, generator)
-        _hafner_init(actor, generator)
+        for m in serving + [actor]:
+            _hafner_init(m, generator)
         _uniform_output_init(world_model.transition_model.out, generator, 1.0)
         _uniform_output_init(world_model.representation_model.out, generator, 1.0)
-        for i in range(len(actions_dim)):
+        for i in range(len(actor.actions_dim)):
             _uniform_output_init(getattr(actor, f"head_{i}"), generator, 1.0)
+        if critic is None:
+            return
+        for name in TRAINING_ONLY_MODULES:
+            if getattr(world_model, name) is not None:
+                _hafner_init(getattr(world_model, name), generator)
+        _hafner_init(critic, generator)
+        _uniform_output_init(world_model.reward_model.out, generator, 0.0)
+        _uniform_output_init(world_model.continue_model.out, generator, 1.0)
+        _uniform_output_init(critic.out, generator, 0.0)
+        if world_model.cnn_decoder is not None:
+            _uniform_output_init(world_model.cnn_decoder.out.ConvTranspose_0, generator, 1.0)
+        if world_model.mlp_decoder is not None:
+            for i in range(len(world_model.mlp_decoder.keys)):
+                _uniform_output_init(getattr(world_model.mlp_decoder, f"head_{i}"), generator, 1.0)
+
+
+def build_agent(cfg: Any, device: "torch.device | str" = "cpu", state: Optional[Dict[str, Any]] = None) -> Tuple[WorldModel, Actor]:
+    """The serving world model and actor for ``cfg`` (a run config with
+    ``algo``, ``env``, ``seed`` and ``spaces``), initialised on the CPU with
+    Hafner's scheme from ``cfg.seed``, then loaded from ``state``
+    (``{"world_model": ..., "actor": ...}`` state dicts; a training
+    checkpoint's decoder and head weights are dropped) where given, and moved
+    to ``device``."""
+    world_model, actor, _ = _modules(cfg, training=False)
+    _init_weights(world_model, actor, None, int(cfg.get("seed") or 0))
+    if state is not None:
+        wm_state = {k: v for k, v in state["world_model"].items() if k.split(".")[0] not in TRAINING_ONLY_MODULES}
+        world_model.load_state_dict(wm_state)
+        actor.load_state_dict(state["actor"])
+    return world_model.to(device).eval(), actor.to(device).eval()
+
+
+def build_training_agent(
+    cfg: Any, device: "torch.device | str" = "cpu", state: Optional[Dict[str, Any]] = None
+) -> Tuple[WorldModel, Actor, _PredictionHead, _PredictionHead]:
+    """World model (with decoders, reward and continue heads), actor, critic
+    and target critic for training, initialised as :func:`build_agent` does
+    (the target critic a copy of the critic), loaded from ``state``
+    (``{"world_model", "actor", "critic", "target_critic"}`` state dicts)
+    where given, and moved to ``device``."""
+    world_model, actor, critic = _modules(cfg, training=True)
+    _init_weights(world_model, actor, critic, int(cfg.get("seed") or 0))
+    target_critic = copy.deepcopy(critic)
     if state is not None:
         world_model.load_state_dict(state["world_model"])
         actor.load_state_dict(state["actor"])
-    return world_model.to(device).eval(), actor.to(device).eval()
+        critic.load_state_dict(state["critic"])
+        target_critic.load_state_dict(state["target_critic"])
+    target_critic.requires_grad_(False)
+    return tuple(m.to(device).train() for m in (world_model, actor, critic, target_critic))

@@ -1,0 +1,507 @@
+"""DreamerV3 coupled training (counterpart of
+``sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py``, its host-sampled path).
+
+Each gradient step, in the JAX package's order: the target-critic EMA, the
+world-model update (reconstruction loss over a T-step dynamic rollout), the
+actor update through an H-step imagination on the freshly updated world
+model with ``Moments`` return normalisation, and the critic update against
+the lambda-returns and the target critic. Each loss is differentiated with
+respect to its own module's parameters only (``torch.autograd.grad``), as
+JAX's ``value_and_grad`` over one parameter subtree does.
+
+The JAX package's ``lax.scan``s are Python loops here; the GRU gate chain
+of every RSSM step and the two-hot heads run the hand-written CUDA kernels
+on the card. Random draws come from an explicit ``torch.Generator``, or are
+injected (:func:`draw_noise` gives their shapes), so a test can feed the
+uniforms JAX's keys give.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
+    Actor,
+    WorldModel,
+    actor_dists,
+    actor_sample,
+    build_training_agent,
+    sample_stochastic,
+)
+from sheeprl_tpu_torch.algos.dreamer_v3.evaluate import DreamerV3Agent, posterior_step
+from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
+from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
+    compute_lambda_values,
+    init_moments,
+    moments_update,
+    prepare_obs,
+)
+from sheeprl_tpu_torch.config import dotdict, plain
+from sheeprl_tpu_torch.data import EnvIndependentReplayBuffer
+from sheeprl_tpu_torch.distributions import (
+    BernoulliSafeMode,
+    Independent,
+    MSEDistribution,
+    OneHotCategorical,
+    SymlogDistribution,
+    TwoHotEncodingDistribution,
+)
+from sheeprl_tpu_torch.envs import make_vector_env
+from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
+from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from sheeprl_tpu_torch.utils.utils import Ratio
+
+__all__ = ["METRIC_NAMES", "Player", "draw_noise", "make_optimizers", "make_train_step", "main"]
+
+METRIC_NAMES = (
+    "Loss/world_model_loss",
+    "Loss/observation_loss",
+    "Loss/reward_loss",
+    "Loss/state_loss",
+    "Loss/continue_loss",
+    "State/kl",
+    "State/post_entropy",
+    "State/prior_entropy",
+    "Loss/policy_loss",
+    "Loss/value_loss",
+)
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _uniform(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Uniforms in ``[tiny, 1)``, the interval ``jax.random.categorical``'s
+    Gumbel noise is drawn from."""
+    return torch.rand(shape, generator=generator, device=device).clamp_(min=_TINY)
+
+
+def draw_noise(
+    cfg: Any, seq_len: int, batch: int, actions_dim: Sequence[int], generator: Optional[torch.Generator], device
+) -> Dict[str, Any]:
+    """One gradient step's noise: ``posterior`` ``(T, B, S*D)`` for the
+    dynamic rollout's posterior draws, ``imagined_prior`` ``(H, T*B, S*D)``
+    for imagination's prior draws, and ``actions``, one ``(H+1, T*B, A_i)``
+    tensor per actor head (row 0 for the first imagined action)."""
+    wm_cfg = cfg.algo.world_model
+    stoch = int(wm_cfg.stochastic_size) * int(wm_cfg.discrete_size)
+    horizon = int(cfg.algo.horizon)
+    rows = seq_len * batch
+    return {
+        "posterior": _uniform((seq_len, batch, stoch), generator, device),
+        "imagined_prior": _uniform((horizon, rows, stoch), generator, device),
+        "actions": [_uniform((horizon + 1, rows, int(d)), generator, device) for d in actions_dim],
+    }
+
+
+def make_optimizers(cfg: Any, world_model: WorldModel, actor: Actor, critic: torch.nn.Module) -> Dict[str, ClippedOptimizer]:
+    algo = cfg.algo
+    return {
+        "world": build_optimizer(world_model.parameters(), algo.world_model.optimizer, algo.world_model.clip_gradients),
+        "actor": build_optimizer(actor.parameters(), algo.actor.optimizer, algo.actor.clip_gradients),
+        "critic": build_optimizer(critic.parameters(), algo.critic.optimizer, algo.critic.clip_gradients),
+    }
+
+
+def _grads(loss: torch.Tensor, params: List[torch.nn.Parameter]) -> List[torch.Tensor]:
+    """d loss / d params; a parameter the loss does not reach gets zeros, as
+    in JAX, so Adam still counts the step for it."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+def make_train_step(
+    world_model: WorldModel,
+    actor: Actor,
+    critic: torch.nn.Module,
+    target_critic: torch.nn.Module,
+    optimizers: Dict[str, ClippedOptimizer],
+    cfg: Any,
+) -> Callable:
+    """The G-step update: ``train(data, moments_state, cum0, generator=None,
+    noise=None) -> (moments_state, metrics)``. ``data`` holds ``(G, T, B,
+    ...)`` float tensors on the modules' device (pixels in ``[0, 255]``);
+    ``cum0`` counts the gradient steps taken before; ``noise`` is a list of G
+    :func:`draw_noise` dicts, else the draws come from ``generator``. The
+    modules and optimizers are updated in place; ``metrics`` is ``(G, 10)``
+    in :data:`METRIC_NAMES` order."""
+    wm_cfg = cfg.algo.world_model
+    cnn_enc = list(cfg.algo.cnn_keys.encoder)
+    mlp_enc = list(cfg.algo.mlp_keys.encoder)
+    cnn_dec = list(cfg.algo.cnn_keys.get("decoder", cnn_enc))
+    mlp_dec = list(cfg.algo.mlp_keys.get("decoder", mlp_enc))
+    stochastic_size = int(wm_cfg.stochastic_size)
+    discrete_size = int(wm_cfg.discrete_size)
+    stoch_state_size = stochastic_size * discrete_size
+    recurrent_state_size = int(wm_cfg.recurrent_model.recurrent_state_size)
+    horizon = int(cfg.algo.horizon)
+    gamma = float(cfg.algo.gamma)
+    lmbda = float(cfg.algo.lmbda)
+    ent_coef = float(cfg.algo.actor.ent_coef)
+    target_update_freq = int(cfg.algo.critic.per_rank_target_network_update_freq)
+    tau = float(cfg.algo.critic.tau)
+    moments_cfg = cfg.algo.actor.moments
+    actions_dim = list(actor.actions_dim)
+    wm_params = list(world_model.parameters())
+    actor_params = list(actor.parameters())
+    critic_params = list(critic.parameters())
+
+    def grouped(logits: torch.Tensor) -> torch.Tensor:
+        return logits.reshape(*logits.shape[:-1], stochastic_size, discrete_size)
+
+    def gradient_step(batch: Dict[str, torch.Tensor], moments_state, cum: int, noise: Dict[str, Any]):
+        # -- target-critic EMA: a full copy at the first step
+        if cum % target_update_freq == 0:
+            mix = 1.0 if cum == 0 else tau
+            with torch.no_grad():
+                for t, c in zip(target_critic.parameters(), critic.parameters()):
+                    t.copy_(mix * c + (1.0 - mix) * t)
+
+        batch_obs = {k: batch[k] / 255.0 - 0.5 for k in cnn_enc}
+        batch_obs.update({k: batch[k] for k in mlp_enc})
+        is_first = batch["is_first"].clone()
+        is_first[0] = 1.0
+        batch_actions = torch.cat([torch.zeros_like(batch["actions"][:1]), batch["actions"][:-1]], dim=0)
+        T, B = batch["actions"].shape[:2]
+
+        # -- world-model update
+        embedded = world_model.encoder(batch_obs)
+        rec = torch.zeros((B, recurrent_state_size), device=embedded.device)
+        post = torch.zeros((B, stoch_state_size), device=embedded.device)
+        initial = world_model.get_initial_states(B)
+        steps = []
+        for t in range(T):
+            rec, post, post_logit, prior_logit = world_model.dynamic(
+                post, rec, batch_actions[t], embedded[t], is_first[t], noise["posterior"][t], initial
+            )
+            steps.append((rec, post, post_logit, prior_logit))
+        recs, posts, post_logits, prior_logits = (torch.stack(x, dim=0) for x in zip(*steps))
+        latents = torch.cat([posts, recs], dim=-1)
+        recon = world_model.decode(latents)
+        po = {k: MSEDistribution(recon[k], dims=3) for k in cnn_dec}
+        po.update({k: SymlogDistribution(recon[k], dims=1) for k in mlp_dec})
+        pr = TwoHotEncodingDistribution(world_model.reward_model(latents))
+        pc = Independent(BernoulliSafeMode(world_model.continue_model(latents)), 1)
+        rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
+            po,
+            batch_obs,
+            pr,
+            batch["rewards"],
+            grouped(prior_logits),
+            grouped(post_logits),
+            float(wm_cfg.kl_dynamic),
+            float(wm_cfg.kl_representation),
+            float(wm_cfg.kl_free_nats),
+            float(wm_cfg.kl_regularizer),
+            pc,
+            1 - batch["terminated"],
+            float(wm_cfg.continue_scale_factor),
+        )
+        optimizers["world"].step(_grads(rec_loss, wm_params))
+
+        # -- behaviour learning on the updated world model. With a discrete
+        # actor nothing differentiable reaches the actor through imagination:
+        # the imagined actions, the advantage and the discount are all
+        # stop-gradient in the JAX loss, so imagination and the value decode
+        # run without a graph. Continuous actors will need it.
+        with torch.no_grad():
+            prior = posts.detach().reshape(T * B, stoch_state_size)
+            rec = recs.detach().reshape(T * B, recurrent_state_size)
+            true_continue = (1 - batch["terminated"]).reshape(1, T * B, 1)
+            latent = torch.cat([prior, rec], dim=-1)
+            heads = noise["actions"]
+            act = torch.cat(actor_sample(actor, latent, [u[0] for u in heads])[0], dim=-1)
+            trajectory, imagined = [latent], [act]
+            for h in range(horizon):
+                prior, rec = world_model.imagination(prior, rec, act, noise["imagined_prior"][h])
+                latent = torch.cat([prior, rec], dim=-1)
+                act = torch.cat(actor_sample(actor, latent, [u[h + 1] for u in heads])[0], dim=-1)
+                trajectory.append(latent)
+                imagined.append(act)
+            traj = torch.stack(trajectory, dim=0)  # (H+1, T*B, L)
+            imagined_actions = torch.stack(imagined, dim=0)
+            values = TwoHotEncodingDistribution(critic(traj)).mean  # the critic before its update
+            rewards = TwoHotEncodingDistribution(world_model.reward_model(traj)).mean
+            continues = Independent(BernoulliSafeMode(world_model.continue_model(traj)), 1).mode
+            continues = torch.cat([true_continue, continues[1:]], dim=0)
+            lambda_values = compute_lambda_values(rewards[1:], values[1:], continues[1:] * gamma, lmbda)
+            discount = torch.cumprod(continues * gamma, dim=0) / gamma
+            moments_state, offset, invscale = moments_update(
+                moments_state,
+                lambda_values,
+                decay=float(moments_cfg.decay),
+                max_=float(moments_cfg.max),
+                percentile_low=float(moments_cfg.percentile.low),
+                percentile_high=float(moments_cfg.percentile.high),
+            )
+            advantage = (lambda_values - offset) / invscale - (values[:-1] - offset) / invscale
+
+        policies = actor_dists(actor, actor(traj))
+        act_parts = torch.split(imagined_actions, actions_dim, dim=-1)
+        logprob = torch.stack([p.log_prob(a)[..., None][:-1] for p, a in zip(policies, act_parts)], dim=-1).sum(-1)
+        entropy = ent_coef * torch.stack([p.entropy() for p in policies], dim=-1).sum(-1)
+        policy_loss = -torch.mean(discount[:-1] * (logprob * advantage + entropy[..., None][:-1]))
+        optimizers["actor"].step(_grads(policy_loss, actor_params))
+
+        # -- critic update, against the target critic after this step's EMA
+        qv = TwoHotEncodingDistribution(critic(traj[:-1]))
+        with torch.no_grad():
+            target_values = TwoHotEncodingDistribution(target_critic(traj[:-1])).mean
+        value_loss = torch.mean(
+            (-qv.log_prob(lambda_values) - qv.log_prob(target_values)) * discount[:-1, ..., 0]
+        )
+        optimizers["critic"].step(_grads(value_loss, critic_params))
+
+        with torch.no_grad():
+            post_ent = Independent(OneHotCategorical(grouped(post_logits)), 1).entropy().mean()
+            prior_ent = Independent(OneHotCategorical(grouped(prior_logits)), 1).entropy().mean()
+            metrics = torch.stack([
+                rec_loss, observation_loss, reward_loss, state_loss, continue_loss,
+                kl, post_ent, prior_ent, policy_loss, value_loss,
+            ]).detach()
+        return moments_state, metrics
+
+    def train(
+        data: Dict[str, torch.Tensor],
+        moments_state: Dict[str, torch.Tensor],
+        cum0: int,
+        generator: Optional[torch.Generator] = None,
+        noise: Optional[List[Dict[str, Any]]] = None,
+    ):
+        n_steps, T, B = data["actions"].shape[:3]
+        metrics = []
+        for g in range(n_steps):
+            step_noise = (
+                noise[g] if noise is not None
+                else draw_noise(cfg, T, B, actions_dim, generator, data["actions"].device)
+            )
+            moments_state, m = gradient_step({k: v[g] for k, v in data.items()}, moments_state, cum0 + g, step_noise)
+            metrics.append(m)
+        return moments_state, torch.stack(metrics, dim=0)
+
+    return train
+
+
+class Player:
+    """The env-side policy: per env the one-hot action carry, the recurrent
+    state and the posterior sample, advanced by the serving session step's
+    pieces (:func:`~sheeprl_tpu_torch.algos.dreamer_v3.evaluate.posterior_step`)
+    with the posterior and the actions drawn from ``generator``."""
+
+    def __init__(self, world_model: WorldModel, actor: Actor, num_envs: int, generator: torch.Generator) -> None:
+        self.agent = DreamerV3Agent(world_model, actor)
+        self.num_envs = int(num_envs)
+        self.generator = generator
+        self.actions = self.recurrent_state = self.stochastic_state = None
+
+    @torch.no_grad()
+    def init_states(self, reset_envs: Optional[Sequence[int]] = None) -> None:
+        wm = self.agent.world_model
+        if reset_envs is None or len(reset_envs) == 0:
+            device = wm.initial_recurrent_state.device
+            self.actions = torch.zeros((self.num_envs, sum(self.agent.actor.actions_dim)), device=device)
+            rec, post = wm.get_initial_states(self.num_envs)
+            self.recurrent_state, self.stochastic_state = rec.clone(), post  # rec is an expanded view
+            return
+        idx = torch.as_tensor(list(reset_envs), device=self.actions.device)
+        rec, post = wm.get_initial_states(len(reset_envs))
+        self.actions[idx] = 0.0
+        self.recurrent_state[idx] = rec
+        self.stochastic_state[idx] = post
+
+    @torch.no_grad()
+    def get_actions(self, obs: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+        wm, actor = self.agent.world_model, self.agent.actor
+        device = self.actions.device
+        rec, logits = posterior_step(self.agent, obs, self.actions, self.recurrent_state, self.stochastic_state)
+        stoch = sample_stochastic(logits, wm.discrete, _uniform(logits.shape, self.generator, device))
+        uniforms = [_uniform((self.num_envs, d), self.generator, device) for d in actor.actions_dim]
+        acts, _ = actor_sample(actor, torch.cat([stoch, rec], dim=-1), uniforms)
+        self.actions = torch.cat(acts, dim=-1)
+        self.recurrent_state, self.stochastic_state = rec, stoch
+        return acts
+
+
+def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
+    """The coupled loop: step the envs with the player (random actions
+    until ``learning_starts``), add every transition to the replay buffer,
+    take the gradient steps ``Ratio`` grants on host-sampled windows, and
+    checkpoint. Returns a summary of the run (counters, each train call's
+    metrics, timings, the last checkpoint's path)."""
+    device = torch.device(device)
+    state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.get("resume_from") else None
+    if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
+        raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
+    cnn_keys, mlp_keys = list(cfg.algo.cnn_keys.encoder), list(cfg.algo.mlp_keys.encoder)
+    for kind, enc in (("cnn", cnn_keys), ("mlp", mlp_keys)):
+        if set(cfg.algo[f"{kind}_keys"].get("decoder", enc)) - set(enc):
+            raise RuntimeError(f"The {kind.upper()} keys of the decoder must be contained in the encoder ones")
+    obs_keys = cnn_keys + mlp_keys
+    num_envs = int(cfg.env.num_envs)
+    seed = int(cfg.seed)
+
+    envs = make_vector_env(cfg, seed)
+    cfg["spaces"] = dotdict(envs.spaces)  # what serve reads off the run's config.json
+    actions_dim = tuple(int(d) for d in cfg.spaces.actions.n)
+
+    world_model, actor, critic, target_critic = build_training_agent(cfg, device, state)
+    optimizers = make_optimizers(cfg, world_model, actor, critic)
+    moments_state = init_moments(device)
+    if state is not None:
+        for name, opt in optimizers.items():
+            opt.load_state_dict(state["optimizers"][name])
+        moments_state = {k: v.to(device) for k, v in state["moments"].items()}
+
+    log_dir = os.path.join(
+        str(cfg.log_root), str(cfg.algo.name), str(cfg.env.id), str(cfg.get("run_name") or f"seed_{seed}")
+    )
+    buffer_size = int(cfg.buffer.size) // num_envs
+    rb = EnvIndependentReplayBuffer(buffer_size, num_envs, obs_keys)
+    rb.seed(seed)
+
+    start_iter = int(state["iter_num"]) + 1 if state is not None else 1
+    policy_step = int(state["iter_num"]) * num_envs if state is not None else 0
+    last_checkpoint = int(state["last_checkpoint"]) if state is not None else 0
+    last_log = int(state["last_log"]) if state is not None else 0
+    total_iters = int(cfg.algo.total_steps) // num_envs
+    learning_starts = int(cfg.algo.learning_starts) // num_envs
+    prefill_steps = learning_starts - int(learning_starts > 0)
+    if state is not None:
+        cfg.algo["per_rank_batch_size"] = int(state["batch_size"])
+        learning_starts += start_iter
+        prefill_steps += start_iter
+    ratio = Ratio(float(cfg.algo.replay_ratio), pretrain_steps=int(cfg.algo.per_rank_pretrain_steps))
+    if state is not None:
+        ratio.load_state_dict(state["ratio"])
+    batch_size = int(cfg.algo.per_rank_batch_size)
+    seq_len = int(cfg.algo.per_rank_sequence_length)
+    log_level = int(cfg.metric.get("log_level", 1))
+
+    generator = torch.Generator(device=device).manual_seed(seed)
+    if state is not None and state.get("rng") is not None:
+        generator.set_state(state["rng"])
+    action_rng = np.random.default_rng(seed)
+    train_fn = make_train_step(world_model, actor, critic, target_critic, optimizers, cfg)
+    player = Player(world_model, actor, num_envs, generator)
+
+    step_data: Dict[str, np.ndarray] = {}
+    obs = envs.reset(seed=seed)[0]
+    for k in obs_keys:
+        step_data[k] = np.asarray(obs[k])[np.newaxis]
+    for k in ("rewards", "truncated", "terminated"):
+        step_data[k] = np.zeros((1, num_envs, 1), dtype=np.float32)
+    step_data["is_first"] = np.ones_like(step_data["terminated"])
+    player.init_states()
+
+    summary: Dict[str, Any] = {"start_iter": start_iter, "metrics": [], "train_host_s": [], "checkpoint": None,
+                               "device": str(device)}
+    # this run's gradient steps: a resumed run starts again at 0, so its first
+    # step copies the critic into the target critic, as the JAX loop does
+    cum_gradient_steps = 0
+    player_steps = 0
+    env_s = 0.0
+    for iter_num in range(start_iter, total_iters + 1):
+        policy_step += num_envs
+        t_env = time.perf_counter()
+        if iter_num <= learning_starts and state is None:
+            real_actions = action_rng.integers(0, actions_dim, size=(num_envs, len(actions_dim)))
+            actions = np.concatenate(
+                [np.eye(d, dtype=np.float32)[real_actions[:, i]] for i, d in enumerate(actions_dim)], axis=-1
+            )
+        else:
+            prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=num_envs)
+            acts = player.get_actions({k: torch.from_numpy(v).to(device) for k, v in prepared.items()})
+            player_steps += 1
+            actions = torch.cat(acts, dim=-1).cpu().numpy()
+            real_actions = np.stack([a.argmax(dim=-1).cpu().numpy() for a in acts], axis=-1)
+
+        step_data["actions"] = actions.reshape(1, num_envs, -1)
+        rb.add(step_data)
+        next_obs, rewards, terminated, truncated, infos = envs.step(real_actions)
+        dones = np.logical_or(terminated, truncated)
+        env_s += time.perf_counter() - t_env
+
+        step_data["is_first"] = np.zeros_like(step_data["terminated"])
+        if log_level > 0:
+            for i, ep_rew, ep_len in infos.get("episodes", ()):
+                print(f"policy_step={policy_step}, reward_env_{i}={ep_rew}, length={ep_len}", flush=True)
+
+        real_next_obs = {k: np.asarray(next_obs[k]).copy() for k in obs_keys}
+        for idx, final in enumerate(infos.get("final_obs", ())):
+            if final is not None:
+                for k in obs_keys:
+                    real_next_obs[k][idx] = final[k]
+        for k in obs_keys:
+            step_data[k] = np.asarray(next_obs[k])[np.newaxis]
+        obs = next_obs
+
+        rewards = np.asarray(rewards, dtype=np.float32).reshape(1, num_envs, -1)
+        step_data["terminated"] = np.asarray(terminated, dtype=np.float32).reshape(1, num_envs, -1)
+        step_data["truncated"] = np.asarray(truncated, dtype=np.float32).reshape(1, num_envs, -1)
+        step_data["rewards"] = np.tanh(rewards) if cfg.env.get("clip_rewards", False) else rewards
+
+        dones_idxes = dones.nonzero()[0].tolist()
+        if dones_idxes:
+            # the episode's last observation, then the reset one starts the next
+            reset_data = {k: real_next_obs[k][dones_idxes][np.newaxis] for k in obs_keys}
+            reset_data["terminated"] = step_data["terminated"][:, dones_idxes]
+            reset_data["truncated"] = step_data["truncated"][:, dones_idxes]
+            reset_data["actions"] = np.zeros((1, len(dones_idxes), int(np.sum(actions_dim))), dtype=np.float32)
+            reset_data["rewards"] = step_data["rewards"][:, dones_idxes]
+            reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
+            rb.add(reset_data, dones_idxes)
+            step_data["rewards"][:, dones_idxes] = 0.0
+            step_data["terminated"][:, dones_idxes] = 0.0
+            step_data["truncated"][:, dones_idxes] = 0.0
+            step_data["is_first"][:, dones_idxes] = 1.0
+            player.init_states(dones_idxes)
+
+        if iter_num >= learning_starts:
+            gradient_steps = ratio(policy_step - prefill_steps * num_envs)
+            if gradient_steps > 0:
+                t0 = time.perf_counter()
+                sample = rb.sample(batch_size, sequence_length=seq_len, n_samples=gradient_steps)
+                data = {k: torch.from_numpy(v).to(device).float() for k, v in sample.items()}
+                moments_state, metrics = train_fn(data, moments_state, cum_gradient_steps, generator)
+                rows = metrics.cpu().tolist()  # also waits for the device
+                summary["train_host_s"].append((time.perf_counter() - t0, gradient_steps))
+                cum_gradient_steps += gradient_steps
+                summary["metrics"].extend(rows)
+                if log_level > 0:
+                    for row in rows:
+                        print("train " + " ".join(f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(METRIC_NAMES, row)),
+                              flush=True)
+
+        if (int(cfg.checkpoint.every) > 0 and policy_step - last_checkpoint >= int(cfg.checkpoint.every)) or (
+            iter_num == total_iters and cfg.checkpoint.get("save_last", False)
+        ):
+            last_checkpoint = policy_step
+            ckpt_state = {
+                "world_model": world_model.state_dict(),
+                "actor": actor.state_dict(),
+                "critic": critic.state_dict(),
+                "target_critic": target_critic.state_dict(),
+                "optimizers": {name: opt.state_dict() for name, opt in optimizers.items()},
+                "moments": moments_state,
+                "ratio": ratio.state_dict(),
+                "iter_num": iter_num,
+                "batch_size": batch_size,
+                "last_log": last_log,
+                "last_checkpoint": last_checkpoint,
+                "rng": generator.get_state(),
+            }
+            path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
+            summary["checkpoint"] = str(save_checkpoint(path, ckpt_state, plain(cfg)))
+
+    envs.close()
+    summary.update(
+        policy_steps=policy_step,
+        player_steps=player_steps,
+        gradient_steps=cum_gradient_steps,
+        env_steps_per_s=(policy_step - (start_iter - 1) * num_envs) / env_s if env_s > 0 else None,
+    )
+    return summary

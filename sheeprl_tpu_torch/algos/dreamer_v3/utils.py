@@ -2,11 +2,54 @@
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["prepare_obs"]
+__all__ = ["prepare_obs", "init_moments", "moments_update", "compute_lambda_values"]
+
+
+def init_moments(device: "torch.device | str" = "cpu") -> Dict[str, torch.Tensor]:
+    """Initial state of the return normaliser: two float32 scalars."""
+    return {"low": torch.zeros((), dtype=torch.float32, device=device),
+            "high": torch.zeros((), dtype=torch.float32, device=device)}
+
+
+def moments_update(
+    state: Dict[str, torch.Tensor],
+    x: torch.Tensor,
+    decay: float = 0.99,
+    max_: float = 1e8,
+    percentile_low: float = 0.05,
+    percentile_high: float = 0.95,
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
+    """EMA of the low and high percentiles of the lambda-returns (linear
+    interpolation, as ``jnp.quantile``); returns ``(new_state, offset,
+    invscale)``. One process: the JAX package's gather over devices is the
+    identity here."""
+    x = x.detach().to(torch.float32).reshape(-1)
+    low = torch.quantile(x, percentile_low)
+    high = torch.quantile(x, percentile_high)
+    new_low = decay * state["low"] + (1 - decay) * low
+    new_high = decay * state["high"] + (1 - decay) * high
+    invscale = torch.clamp(new_high - new_low, min=1.0 / max_)
+    return {"low": new_low, "high": new_high}, new_low, invscale
+
+
+def compute_lambda_values(
+    rewards: torch.Tensor, values: torch.Tensor, continues: torch.Tensor, lmbda: float = 0.95
+) -> torch.Tensor:
+    """TD(lambda) returns, a reverse loop over the horizon accumulated in
+    float32; all inputs ``(H, B, 1)``."""
+    rewards, values, continues = (t.to(torch.float32) for t in (rewards, values, continues))
+    interm = rewards + continues * values * (1 - lmbda)
+    nxt = values[-1]
+    out = [None] * rewards.shape[0]
+    for t in reversed(range(rewards.shape[0])):
+        nxt = interm[t] + continues[t] * lmbda * nxt
+        out[t] = nxt
+    return torch.stack(out, dim=0)
 
 
 def prepare_obs(obs: Dict[str, np.ndarray], *, cnn_keys: Sequence[str] = (), num_envs: int = 1) -> Dict[str, np.ndarray]:

@@ -1,11 +1,16 @@
-"""Command line (counterpart of ``sheeprl_tpu/cli.py``, ``serve`` verb)::
+"""Command line (counterpart of ``sheeprl_tpu/cli.py``, ``run`` and ``serve``
+verbs)::
 
+    python -m sheeprl_tpu_torch run preset=dreamer_v3_100k_atari_dummy \\
+        [fabric.accelerator=cuda|cpu] [algo.total_steps=...] [checkpoint.resume_from=<ckpt>] ...
     python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> \\
         [fabric.accelerator=cuda|cpu] [serve.port=0] [serve.session.buckets=[1,8,32]] ...
 
-The run configuration is the ``config.json`` beside the checkpoint;
-:data:`~sheeprl_tpu_torch.config.SERVE_DEFAULTS` fill what it lacks and the
-``key.path=value`` overrides win. The server runs on the GPU unless
+``run`` trains from a preset (``configs/<name>.json``), or resuming, from the
+checkpoint's ``config.json``; :data:`~sheeprl_tpu_torch.config.RUN_DEFAULTS`
+fill what it lacks and the ``key.path=value`` overrides win. ``serve`` reads
+the run configuration beside the checkpoint under
+:data:`~sheeprl_tpu_torch.config.SERVE_DEFAULTS`. Both run on the GPU unless
 ``fabric.accelerator=cpu`` asks for the CPU; asking for the GPU on a machine
 without one raises.
 """
@@ -17,9 +22,18 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from sheeprl_tpu_torch.config import SERVE_DEFAULTS, DotDict, apply_overrides, load_config, merge, plain
+from sheeprl_tpu_torch.config import (
+    RUN_DEFAULTS,
+    SERVE_DEFAULTS,
+    DotDict,
+    apply_overrides,
+    load_config,
+    merge,
+    plain,
+    preset,
+)
 
-__all__ = ["main", "serve", "compose_serve_config", "resolve_device"]
+__all__ = ["main", "run", "serve", "compose_run_config", "compose_serve_config", "resolve_device"]
 
 
 def resolve_device(accelerator: Optional[str]) -> torch.device:
@@ -50,6 +64,42 @@ def compose_serve_config(args: Sequence[str]) -> DotDict:
     return apply_overrides(merge(SERVE_DEFAULTS, plain(run_cfg)), args)
 
 
+def _full_float32() -> None:
+    # the JAX package's reference is float32: cuDNN would otherwise run
+    # float32 convolutions in TF32 (cuBLAS already defaults off)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def compose_run_config(args: Sequence[str]) -> DotDict:
+    """Run defaults <- the preset, or resuming, the checkpoint's run config
+    <- the overrides (``preset=<name>`` is not itself an override)."""
+    from sheeprl_tpu_torch.utils.checkpoint import find_run_config
+
+    overrides = [a for a in args if not a.startswith("preset=")]
+    names = [a.split("=", 1)[1] for a in args if a.startswith("preset=")]
+    resume = apply_overrides({}, overrides).get("checkpoint", {}).get("resume_from")
+    if resume:
+        base = plain(load_config(find_run_config(resume)))
+    elif names:
+        base = plain(preset(names[-1]))
+    else:
+        raise ValueError("run needs preset=<name> (see sheeprl_tpu_torch/configs) or checkpoint.resume_from=<ckpt>")
+    return apply_overrides(merge(RUN_DEFAULTS, base), overrides)
+
+
+def run(args: Sequence[str]) -> dict:
+    """Train; returns the run's summary (counters, metrics, checkpoint)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3
+
+    cfg = compose_run_config(args)
+    if cfg.algo.name != "dreamer_v3":
+        raise NotImplementedError(f"training '{cfg.algo.name}' is not ported yet; dreamer_v3 only")
+    device = resolve_device(cfg.fabric.get("accelerator"))
+    _full_float32()
+    return dreamer_v3.main(cfg, device)
+
+
 def serve(args: Sequence[str]) -> None:
     from sheeprl_tpu_torch.serve.server import serve_policy
     from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
@@ -57,10 +107,7 @@ def serve(args: Sequence[str]) -> None:
 
     cfg = compose_serve_config(args)
     device = resolve_device(cfg.fabric.get("accelerator"))
-    # serve in full float32, as the JAX package's reference does: cuDNN would
-    # otherwise run float32 convolutions in TF32 (cuBLAS already defaults off)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    _full_float32()
     builder = resolve_policy_builder(cfg.algo.name)
     if builder is None:
         raise RuntimeError(
@@ -71,7 +118,7 @@ def serve(args: Sequence[str]) -> None:
     serve_policy(cfg, state, builder, device)
 
 
-_VERBS = {"serve": serve}
+_VERBS = {"run": run, "serve": serve}
 
 
 def main(argv: Optional[List[str]] = None) -> None:

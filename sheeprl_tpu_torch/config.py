@@ -5,7 +5,9 @@ beside its checkpoint, with the same key paths as the JAX package's composed
 config (``algo.world_model.recurrent_model.recurrent_state_size``, ...) plus a
 ``spaces`` block: the observation and action specs, which the JAX package
 reads off a gymnasium env. ``serve`` merges :data:`SERVE_DEFAULTS` under the
-run config and CLI-style ``key.path=value`` overrides over it.
+run config and CLI-style ``key.path=value`` overrides over it; ``run`` merges
+:data:`RUN_DEFAULTS` under a preset (or, resuming, the checkpoint's run
+config) the same way.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ __all__ = [
     "merge",
     "preset",
     "SERVE_DEFAULTS",
+    "RUN_DEFAULTS",
     "PRESETS_DIR",
 ]
 
@@ -76,6 +79,18 @@ SERVE_DEFAULTS: Dict[str, Any] = {
         "max_requests": None,
         "log_every_s": 10.0,
     },
+}
+
+
+#: what ``run`` needs beyond a preset, with the JAX package's defaults
+RUN_DEFAULTS: Dict[str, Any] = {
+    "seed": 42,
+    "log_root": "logs/runs",
+    "run_name": None,
+    "fabric": {"accelerator": "cuda"},
+    "metric": {"log_level": 1},
+    "buffer": {"size": 1000000},
+    "checkpoint": {"every": 100000, "resume_from": None, "save_last": False},
 }
 
 

@@ -1,0 +1,120 @@
+"""Host replay buffers (counterpart of ``sheeprl_tpu/data/buffers.py``,
+the part DreamerV3's coupled loop uses), in numpy memory; memmap storage is
+not ported. Sampling draws from a numpy ``Generator`` in the same order as
+the JAX package's buffers, so one seed gives the same windows."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+
+__all__ = ["SequentialReplayBuffer", "EnvIndependentReplayBuffer"]
+
+
+class SequentialReplayBuffer:
+    """Ring buffer of ``(buffer_size, n_envs, ...)`` arrays, one per key,
+    allocated by the first :meth:`add`; samples ``sequence_length``-step
+    contiguous windows ``(n_samples, sequence_length, batch_size, ...)``."""
+
+    def __init__(self, buffer_size: int, n_envs: int = 1, obs_keys: Sequence[str] = ("observations",)) -> None:
+        if buffer_size <= 0:
+            raise ValueError(f"buffer_size must be a positive integer (got {buffer_size})")
+        if n_envs <= 0:
+            raise ValueError(f"n_envs must be a positive integer (got {n_envs})")
+        self._buffer_size = int(buffer_size)
+        self._n_envs = int(n_envs)
+        self._obs_keys = tuple(obs_keys)
+        self._buf: Dict[str, np.ndarray] = {}
+        self._pos = 0
+        self._full = False
+        self._rng: np.random.Generator = np.random.default_rng()
+
+    def __len__(self) -> int:
+        return self._buffer_size
+
+    def seed(self, seed: Optional[int]) -> None:
+        self._rng = np.random.default_rng(seed)
+
+    def add(self, data: Dict[str, np.ndarray]) -> None:
+        """Write ``(seq_len, n_envs, ...)`` rows at the head, wrapping around."""
+        data_len = next(iter(data.values())).shape[0]
+        next_pos = (self._pos + data_len) % self._buffer_size
+        if next_pos <= self._pos or (data_len > self._buffer_size and not self._full):
+            idxes = np.array(list(range(self._pos, self._buffer_size)) + list(range(0, next_pos)))
+        else:
+            idxes = np.arange(self._pos, next_pos)
+        if data_len > self._buffer_size:
+            data = {k: v[-self._buffer_size - next_pos :] for k, v in data.items()}
+        if not self._buf:
+            for k, v in data.items():
+                self._buf[k] = np.empty((self._buffer_size, self._n_envs, *v.shape[2:]), dtype=v.dtype)
+        for k, v in data.items():
+            self._buf[k][idxes] = v
+        if self._pos + data_len >= self._buffer_size:
+            self._full = True
+        self._pos = next_pos
+
+    def sample(self, batch_size: int, n_samples: int = 1, sequence_length: int = 1) -> Dict[str, np.ndarray]:
+        batch_dim = batch_size * n_samples
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError(f"need positive batch_size and n_samples (got {batch_size}, {n_samples})")
+        if not self._full and self._pos == 0:
+            raise ValueError("empty buffer: add() at least one transition before sampling")
+        if not self._full and self._pos - sequence_length + 1 < 1:
+            raise ValueError(f"a {sequence_length}-step window needs at least that many stored rows (have {self._pos})")
+        if self._full and sequence_length > len(self):
+            raise ValueError(f"The sequence length ({sequence_length}) is greater than the buffer size ({len(self)})")
+        if self._full:
+            # windows never cross the write head
+            young_stop = self._pos - sequence_length + 1
+            old_stop = self._buffer_size if young_stop >= 0 else self._buffer_size + young_stop
+            eligible = np.array(list(range(0, young_stop)) + list(range(self._pos, old_stop)), dtype=np.intp)
+            start_idxes = eligible[self._rng.integers(0, len(eligible), size=(batch_dim,), dtype=np.intp)]
+        else:
+            start_idxes = self._rng.integers(0, self._pos - sequence_length + 1, size=(batch_dim,), dtype=np.intp)
+        idxes = (start_idxes.reshape(-1, 1) + np.arange(sequence_length, dtype=np.intp).reshape(1, -1))
+        idxes = np.ravel(idxes % self._buffer_size)
+        if self._n_envs == 1:
+            env_idxes = np.zeros_like(idxes)
+        else:
+            env_idxes = self._rng.integers(0, self._n_envs, size=(batch_dim,), dtype=np.intp)
+            env_idxes = np.ravel(np.tile(env_idxes.reshape(-1, 1), (1, sequence_length)))
+        flat_idxes = idxes * self._n_envs + env_idxes
+        out = {}
+        for k, v in self._buf.items():
+            taken = np.take(v.reshape(-1, *v.shape[2:]), flat_idxes, axis=0)
+            out[k] = np.swapaxes(taken.reshape(n_samples, batch_size, sequence_length, *taken.shape[1:]), 1, 2)
+        return out
+
+
+class EnvIndependentReplayBuffer:
+    """One :class:`SequentialReplayBuffer` per environment, so ragged per-env
+    writes (the reset rows of the envs that just finished) stay aligned."""
+
+    def __init__(self, buffer_size: int, n_envs: int = 1, obs_keys: Sequence[str] = ("observations",)) -> None:
+        if n_envs <= 0:
+            raise ValueError(f"n_envs must be a positive integer (got {n_envs})")
+        self._buf = [SequentialReplayBuffer(buffer_size, 1, obs_keys) for _ in range(n_envs)]
+        self._n_envs = int(n_envs)
+        self._rng: np.random.Generator = np.random.default_rng()
+
+    def seed(self, seed: Optional[int]) -> None:
+        self._rng = np.random.default_rng(seed)
+        for i, b in enumerate(self._buf):
+            b.seed(None if seed is None else seed + i)
+
+    def add(self, data: Dict[str, np.ndarray], indices: Optional[Sequence[int]] = None) -> None:
+        if indices is None:
+            indices = tuple(range(self._n_envs))
+        elif len(indices) != next(iter(data.values())).shape[1]:
+            raise ValueError(f"{len(indices)} indices for {next(iter(data.values())).shape[1]} env columns")
+        for col, env_idx in enumerate(indices):
+            self._buf[env_idx].add({k: v[:, col : col + 1] for k, v in data.items()})
+
+    def sample(self, batch_size: int, n_samples: int = 1, **kwargs) -> Dict[str, np.ndarray]:
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError(f"need positive batch_size and n_samples (got {batch_size}, {n_samples})")
+        per_env = np.bincount(self._rng.integers(0, self._n_envs, (batch_size,)))
+        parts = [b.sample(batch_size=int(n), n_samples=n_samples, **kwargs) for b, n in zip(self._buf, per_env) if n > 0]
+        return {k: np.concatenate([p[k] for p in parts], axis=2) for k in parts[0]}

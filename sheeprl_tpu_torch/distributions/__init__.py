@@ -1,3 +1,21 @@
-from sheeprl_tpu_torch.distributions.core import OneHotCategorical, OneHotCategoricalStraightThrough
+from sheeprl_tpu_torch.distributions.core import (
+    BernoulliSafeMode,
+    Independent,
+    MSEDistribution,
+    OneHotCategorical,
+    OneHotCategoricalStraightThrough,
+    SymlogDistribution,
+    TwoHotEncodingDistribution,
+    kl_divergence,
+)
 
-__all__ = ["OneHotCategorical", "OneHotCategoricalStraightThrough"]
+__all__ = [
+    "BernoulliSafeMode",
+    "Independent",
+    "MSEDistribution",
+    "OneHotCategorical",
+    "OneHotCategoricalStraightThrough",
+    "SymlogDistribution",
+    "TwoHotEncodingDistribution",
+    "kl_divergence",
+]

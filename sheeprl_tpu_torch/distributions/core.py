@@ -1,5 +1,8 @@
-"""One-hot categoricals (counterpart of ``sheeprl_tpu/distributions/core.py``,
-``OneHotCategorical`` and ``OneHotCategoricalStraightThrough``).
+"""Distributions (counterpart of ``sheeprl_tpu/distributions/core.py``): the
+one-hot categoricals of the RSSM and the discrete actor, and DreamerV3's
+training heads (``TwoHotEncodingDistribution``, ``SymlogDistribution``,
+``MSEDistribution``, ``BernoulliSafeMode``), with ``Independent`` and
+``kl_divergence``.
 
 Sampling is Gumbel-max, ``argmax(logits + g)``, as ``jax.random.categorical``
 draws it. The noise comes from an explicit ``torch.Generator`` or is passed
@@ -15,7 +18,19 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-__all__ = ["OneHotCategorical", "OneHotCategoricalStraightThrough"]
+from sheeprl_tpu_torch.ops.core import symexp, symlog
+from sheeprl_tpu_torch.ops.kernels import two_hot_symexp_decode, two_hot_symlog_loss
+
+__all__ = [
+    "OneHotCategorical",
+    "OneHotCategoricalStraightThrough",
+    "Independent",
+    "TwoHotEncodingDistribution",
+    "SymlogDistribution",
+    "MSEDistribution",
+    "BernoulliSafeMode",
+    "kl_divergence",
+]
 
 
 class OneHotCategorical:
@@ -67,3 +82,109 @@ class OneHotCategoricalStraightThrough(OneHotCategorical):
 
     def sample(self, generator=None, uniform=None) -> torch.Tensor:
         return self.rsample(generator, uniform)
+
+
+class Independent:
+    """Sums log-probs and entropies over the rightmost ``ndims`` dims."""
+
+    def __init__(self, base, reinterpreted_batch_ndims: int = 1) -> None:
+        self.base = base
+        self.ndims = int(reinterpreted_batch_ndims)
+
+    def _reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return x if self.ndims == 0 else torch.sum(x, dim=tuple(range(-self.ndims, 0)))
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        return self._reduce(self.base.log_prob(value))
+
+    def entropy(self) -> torch.Tensor:
+        return self._reduce(self.base.entropy())
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self.base.mode
+
+
+class _DistanceHead:
+    """Decoder output scored by a negative squared distance, summed over the
+    rightmost ``dims`` dims."""
+
+    def __init__(self, mode: torch.Tensor, dims: int) -> None:
+        self._mode = mode
+        self.dims = int(dims)
+
+    def _aggregate(self, distance: torch.Tensor) -> torch.Tensor:
+        return torch.sum(distance, dim=tuple(range(-self.dims, 0)))
+
+
+class SymlogDistribution(_DistanceHead):
+    """Log-prob is the negative squared error in symlog space."""
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        return self._aggregate(-((self._mode - symlog(value)) ** 2))
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return symexp(self._mode)
+
+
+class MSEDistribution(_DistanceHead):
+    """Log-prob is the negative squared error."""
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        return self._aggregate(-((self._mode - value) ** 2))
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self._mode
+
+
+class TwoHotEncodingDistribution:
+    """Two-hot categorical over ``linspace(-20, 20, K)`` in symlog space with
+    one event dim, the JAX package's default transforms (the only ones
+    DreamerV3 uses): ``mean`` and ``log_prob`` are the two-hot kernels (the
+    CUDA kernels on the card), as the JAX package's are there."""
+
+    def __init__(self, logits: torch.Tensor) -> None:
+        self.logits = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return two_hot_symexp_decode(self.logits)
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        return two_hot_symlog_loss(self.logits, value)
+
+
+class BernoulliSafeMode:
+    """Bernoulli over logits whose mode is 0 at p == 0.5."""
+
+    def __init__(self, logits: torch.Tensor) -> None:
+        self.logits = logits
+
+    @property
+    def probs(self) -> torch.Tensor:
+        return torch.sigmoid(self.logits)
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        lg = self.logits
+        return -(torch.clamp(lg, min=0) - lg * value + torch.log1p(torch.exp(-torch.abs(lg))))
+
+    def entropy(self) -> torch.Tensor:
+        p = self.probs
+        return -(p * torch.log(p + 1e-8) + (1 - p) * torch.log(1 - p + 1e-8))
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return (self.probs > 0.5).to(self.logits.dtype)
+
+
+def kl_divergence(p, q) -> torch.Tensor:
+    """KL(p || q) for ``Independent`` pairs of one-hot categoricals."""
+    if isinstance(p, Independent) and isinstance(q, Independent):
+        if p.ndims != q.ndims:
+            raise ValueError("Independent KL requires matching event ndims")
+        return p._reduce(kl_divergence(p.base, q.base))
+    if isinstance(p, OneHotCategorical) and isinstance(q, OneHotCategorical):
+        return torch.sum(p.probs * (p.logits - q.logits), dim=-1)
+    raise NotImplementedError(f"KL not implemented for {type(p).__name__} || {type(q).__name__}")

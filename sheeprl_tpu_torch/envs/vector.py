@@ -1,0 +1,96 @@
+"""A plain synchronous vector over ``num_envs`` envs, with the conventions
+the JAX package's DreamerV3 loop relies on (gymnasium's ``SAME_STEP``
+autoreset): an env that ends is reset in the same ``step``, its returned
+observation is the reset one, and ``infos["final_obs"][i]`` holds the last
+observation of the episode that ended (None elsewhere). An episode that
+reaches ``max_episode_steps`` ends truncated, as ``TimeLimit`` does."""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from sheeprl_tpu_torch.envs.dummy import AtariProtocolDummyEnv
+
+__all__ = ["SyncVectorEnv", "make_vector_env"]
+
+
+class SyncVectorEnv:
+    def __init__(self, env_fns: Sequence[Callable[[], Any]], max_episode_steps: Optional[int] = None) -> None:
+        self.envs = [fn() for fn in env_fns]
+        self.num_envs = len(self.envs)
+        self.max_episode_steps = int(max_episode_steps) if max_episode_steps else None
+        self._elapsed = np.zeros(self.num_envs, dtype=np.int64)
+        self._returns = np.zeros(self.num_envs, dtype=np.float64)
+
+    @property
+    def spaces(self) -> Dict[str, dict]:
+        return self.envs[0].spaces
+
+    @staticmethod
+    def _stack(obs: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+        return {k: np.stack([o[k] for o in obs]) for k in obs[0]}
+
+    def reset(self, seed: Optional[int] = None):
+        """Env ``i`` is reset with ``seed + i``, as gymnasium's vector envs do."""
+        self._elapsed[:] = 0
+        self._returns[:] = 0
+        obs = [env.reset(seed=None if seed is None else seed + i)[0] for i, env in enumerate(self.envs)]
+        return self._stack(obs), {}
+
+    def step(self, actions: np.ndarray):
+        obs, rewards, terminated, truncated = [], [], [], []
+        final_obs: List[Optional[Dict[str, np.ndarray]]] = [None] * self.num_envs
+        episodes = []
+        for i, (env, action) in enumerate(zip(self.envs, np.asarray(actions).reshape(self.num_envs, -1))):
+            o, r, term, trunc, _ = env.step(action[0] if action.size == 1 else action)
+            self._elapsed[i] += 1
+            self._returns[i] += r
+            if self.max_episode_steps is not None and self._elapsed[i] >= self.max_episode_steps:
+                trunc = True
+            if term or trunc:
+                final_obs[i] = o
+                episodes.append((i, float(self._returns[i]), int(self._elapsed[i])))
+                o, _ = env.reset()
+                self._elapsed[i] = 0
+                self._returns[i] = 0
+            obs.append(o)
+            rewards.append(r)
+            terminated.append(term)
+            truncated.append(trunc)
+        infos: Dict[str, Any] = {}
+        if episodes:
+            infos["final_obs"] = final_obs
+            infos["episodes"] = episodes
+        return (
+            self._stack(obs),
+            np.asarray(rewards, dtype=np.float64),
+            np.asarray(terminated, dtype=bool),
+            np.asarray(truncated, dtype=bool),
+            infos,
+        )
+
+    def close(self) -> None:
+        for env in self.envs:
+            env.close()
+
+
+def make_vector_env(cfg: Any, seed: int) -> SyncVectorEnv:
+    """``cfg.env.num_envs`` copies of the env ``cfg.env.id`` names; env ``i``
+    is built with ``seed + i``. Only the Atari-protocol dummy is ported."""
+    env_cfg = cfg.env
+    if env_cfg.id != "atari_protocol_dummy":
+        raise NotImplementedError(f"env '{env_cfg.id}' is not ported yet; only atari_protocol_dummy")
+    wrapper = env_cfg.get("wrapper") or {}
+
+    def thunk(i: int) -> Callable[[], AtariProtocolDummyEnv]:
+        return lambda: AtariProtocolDummyEnv(
+            screen_size=int(env_cfg.screen_size),
+            frame_skip=int(env_cfg.action_repeat),
+            grayscale=bool(env_cfg.get("grayscale", False)),
+            noop_max=int(wrapper.get("noop_max", 30)),
+            seed=seed + i,
+        )
+
+    return SyncVectorEnv([thunk(i) for i in range(int(env_cfg.num_envs))], env_cfg.get("max_episode_steps"))

@@ -1,3 +1,3 @@
-from sheeprl_tpu_torch.models.blocks import MLP, LayerNormGRUCell, get_activation
+from sheeprl_tpu_torch.models.blocks import MLP, ConvTranspose, LayerNormGRUCell, get_activation
 
-__all__ = ["MLP", "LayerNormGRUCell", "get_activation"]
+__all__ = ["MLP", "ConvTranspose", "LayerNormGRUCell", "get_activation"]

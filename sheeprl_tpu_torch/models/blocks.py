@@ -15,7 +15,7 @@ from torch import nn
 
 from sheeprl_tpu_torch.ops.kernels import gru_gates
 
-__all__ = ["get_activation", "MLP", "LayerNormGRUCell"]
+__all__ = ["get_activation", "MLP", "LayerNormGRUCell", "ConvTranspose"]
 
 _ACTIVATIONS = {
     "relu": F.relu,
@@ -92,3 +92,27 @@ class LayerNormGRUCell(nn.Module):
         if self.ln is not None:
             fused = self.ln(fused)
         return gru_gates(fused.contiguous(), h.contiguous())
+
+
+class ConvTranspose(nn.Module):
+    """Transposed convolution with the JAX package's geometry (its
+    ``_ConvTranspose``): flax's VALID transposed convolution, then
+    ``padding`` trimmed from both sides of each spatial axis, which is
+    ``nn.ConvTranspose2d`` with the same kernel, stride and padding. NCHW in
+    and out; the layer sits under the flax name ``ConvTranspose_0``.
+
+    Flax applies its HWIO kernel to the dilated input unflipped, torch's
+    ``(in, out, kh, kw)`` weight is applied flipped: a flax kernel carries
+    over as ``kernel[::-1, ::-1].transpose(2, 3, 0, 1)``
+    (:mod:`sheeprl_tpu_torch.utils.convert`)."""
+
+    def __init__(
+        self, in_channels: int, out_channels: int, kernel_size: int, stride: int, padding: int = 0, bias: bool = True
+    ) -> None:
+        super().__init__()
+        self.ConvTranspose_0 = nn.ConvTranspose2d(
+            int(in_channels), int(out_channels), int(kernel_size), stride=int(stride), padding=int(padding), bias=bias
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ConvTranspose_0(x)

@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Dict
 
 #: kernel name -> launches of its CUDA kernel in this process
-LAUNCHES: Dict[str, int] = {"gru_gates": 0}
+LAUNCHES: Dict[str, int] = {"gru_gates": 0, "two_hot_symlog_loss": 0, "two_hot_symexp_decode": 0}
 
 
 def reset_launches() -> None:
@@ -21,5 +21,20 @@ def reset_launches() -> None:
 
 
 from sheeprl_tpu_torch.ops.kernels.gru import gru_gates, gru_gates_reference  # noqa: E402
+from sheeprl_tpu_torch.ops.kernels.twohot import (  # noqa: E402
+    two_hot_symexp_decode,
+    two_hot_symexp_decode_reference,
+    two_hot_symlog_loss,
+    two_hot_symlog_loss_reference,
+)
 
-__all__ = ["LAUNCHES", "reset_launches", "gru_gates", "gru_gates_reference"]
+__all__ = [
+    "LAUNCHES",
+    "reset_launches",
+    "gru_gates",
+    "gru_gates_reference",
+    "two_hot_symlog_loss",
+    "two_hot_symlog_loss_reference",
+    "two_hot_symexp_decode",
+    "two_hot_symexp_decode_reference",
+]

@@ -1,7 +1,10 @@
-"""The port's checkpoint format: ``torch.save`` of a dict of state dicts
-(``{"world_model": ..., "actor": ...}`` for DreamerV3), with the run's
-``config.json`` beside it. Both are written atomically (temp file, then
-``os.replace``), so a reader never sees half a file."""
+"""The port's checkpoint format: ``torch.save`` of a dict of state dicts and
+plain values (for DreamerV3 training: ``world_model``, ``actor``, ``critic``,
+``target_critic``, ``optimizers``, ``moments``, ``ratio``, the loop's
+counters and the generator state ``rng``; serving reads ``world_model`` and
+``actor``), with the run's ``config.json`` beside it. Both are written
+atomically (temp file, then ``os.replace``), so a reader never sees half a
+file."""
 
 from __future__ import annotations
 
@@ -26,12 +29,22 @@ def _atomic_write(path: Path, write) -> None:
         tmp.unlink(missing_ok=True)
 
 
+def _to_cpu(value: Any) -> Any:
+    if isinstance(value, torch.Tensor):
+        return value.detach().cpu()
+    if isinstance(value, dict):
+        return {k: _to_cpu(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_to_cpu(v) for v in value)
+    return value
+
+
 def save_checkpoint(path: "str | os.PathLike", state: Dict[str, Any], config: Optional[Dict[str, Any]] = None) -> Path:
-    """Write ``state`` (tensors are saved from the CPU) and, if given, the run
+    """Write ``state`` (tensors at any depth are saved from the CPU) and, if given, the run
     ``config`` as ``config.json`` in the same directory."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    cpu_state = {k: {n: t.detach().cpu() for n, t in v.items()} for k, v in state.items()}
+    cpu_state = _to_cpu(state)
     _atomic_write(path, lambda tmp: torch.save(cpu_state, tmp))
     if config is not None:
         text = json.dumps(config, indent=2, sort_keys=True)

@@ -7,6 +7,10 @@ change by name:
 
 - Dense ``kernel`` ``(in, out)`` -> Linear ``weight`` ``(out, in)``;
 - Conv ``kernel`` HWIO -> Conv2d ``weight`` OIHW;
+- ConvTranspose ``kernel`` (a kernel under a ``ConvTranspose_0`` module) ->
+  ConvTranspose2d ``weight`` ``(in, out, kh, kw)``, spatially flipped: flax
+  applies its kernel to the dilated input unflipped, torch applies its
+  weight flipped, so the layout is ``kernel[::-1, ::-1].transpose(2, 3, 0, 1)``;
 - LayerNorm ``scale`` -> ``weight``; ``bias`` stays ``bias``;
 - ``initial_recurrent_state`` is copied as it is.
 """
@@ -20,16 +24,18 @@ import torch
 
 __all__ = ["flax_to_state_dict", "dreamer_v3_state_from_jax"]
 
-#: world-model subtrees that serving runs; the decoders and the reward and
-#: continue heads belong to training
-_DREAMER_WM_SERVING = ("encoder", "recurrent_model", "representation_model", "transition_model")
+#: the flax module name of a transposed convolution's layer (the JAX
+#: package's ``_ConvTranspose`` wraps an unnamed ``nn.ConvTranspose``)
+CONV_TRANSPOSE = "ConvTranspose_0"
 
 
-def _leaf(name: str, value: Any) -> "tuple[str, torch.Tensor]":
+def _leaf(name: str, value: Any, module: str) -> "tuple[str, torch.Tensor]":
     a = np.asarray(value)
     if name == "kernel":
         if a.ndim == 2:
             a = a.T
+        elif a.ndim == 4 and module == CONV_TRANSPOSE:
+            a = a[::-1, ::-1].transpose(2, 3, 0, 1)
         elif a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
         else:
@@ -40,7 +46,7 @@ def _leaf(name: str, value: Any) -> "tuple[str, torch.Tensor]":
     return name, torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
-def flax_to_state_dict(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+def flax_to_state_dict(tree: Mapping[str, Any], prefix: str = "", module: str = "") -> Dict[str, torch.Tensor]:
     """Flatten one flax variable tree (with or without its ``params``
     level) into ``state_dict`` entries under ``prefix``."""
     if set(tree) == {"params"}:
@@ -48,20 +54,28 @@ def flax_to_state_dict(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, t
     out: Dict[str, torch.Tensor] = {}
     for key, value in tree.items():
         if isinstance(value, Mapping):
-            out.update(flax_to_state_dict(value, f"{prefix}{key}."))
+            out.update(flax_to_state_dict(value, f"{prefix}{key}.", key))
         else:
-            name, tensor = _leaf(key, value)
+            name, tensor = _leaf(key, value, module)
             out[f"{prefix}{name}"] = tensor
     return out
 
 
 def dreamer_v3_state_from_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
-    """``{"world_model", "actor", ...}`` as the JAX ``build_agent`` returns
-    them (numpy trees) -> the port's checkpoint state ``{"world_model":
-    state_dict, "actor": state_dict}``."""
+    """``{"world_model", "actor", "critic", "target_critic"}`` as the JAX
+    ``build_agent`` returns them (numpy trees; the critics may be absent) ->
+    the port's checkpoint state, one ``state_dict`` per present key. The
+    whole world model crosses: encoder, RSSM, decoders, reward and continue
+    heads."""
     wm = params["world_model"]
     world_model: Dict[str, torch.Tensor] = {}
-    for name in _DREAMER_WM_SERVING:
-        world_model.update(flax_to_state_dict(wm[name], f"{name}."))
-    world_model["initial_recurrent_state"] = torch.from_numpy(np.array(wm["initial_recurrent_state"], dtype=np.float32))
-    return {"world_model": world_model, "actor": flax_to_state_dict(params["actor"])}
+    for name, tree in wm.items():
+        if name == "initial_recurrent_state":
+            world_model[name] = torch.from_numpy(np.array(tree, dtype=np.float32))
+        else:
+            world_model.update(flax_to_state_dict(tree, f"{name}."))
+    state = {"world_model": world_model}
+    for name in ("actor", "critic", "target_critic"):
+        if name in params:
+            state[name] = flax_to_state_dict(params[name])
+    return state

@@ -87,3 +87,106 @@ def test_torch_cuda_gru_cell_launches_the_kernel(cuda):
         torch.cuda.synchronize()
     assert K.LAUNCHES["gru_gates"] == before + 1
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+def _two_hot_inputs(n, k, seed=0, scale=3.0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, k)).astype(np.float32) * scale
+    logits = x - np.log(np.exp(x).sum(-1, keepdims=True))
+    value = (rng.normal(size=(n, 1)) * 30).astype(np.float32)
+    value[:4, 0] = [0.0, -1.0, 1e10, -1e10]  # zero, negative, beyond +-20 in symlog space
+    return logits.astype(np.float32), value
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1024, 255), (37, 17), (3, 4, 255)], ids=["reward-head", "odd-K", "batched"])
+def test_torch_cuda_two_hot_kernels_match_plain(cuda, shape, dtype):
+    """Both kernels against the plain versions computed in f32 on the same
+    (rounded) inputs: f32 within atol 1e-4 rtol 1e-5 (the in-kernel bins
+    ``low + i * step`` and ``torch.linspace`` differ by an ulp of 20, which
+    moves a two-hot weight by ~1e-5 against logits of ~-15), bf16 within one
+    bf16 rounding of the output (rtol 1e-2, atol 2e-2)."""
+    n, k = int(np.prod(shape[:-1])), shape[-1]
+    logits, value = _two_hot_inputs(n, k)
+    dt = getattr(torch, dtype)
+    lg = torch.from_numpy(logits).reshape(shape).to(cuda, dt)
+    v = torch.from_numpy(value).reshape(*shape[:-1], 1).to(cuda)
+    before = dict(K.LAUNCHES)
+    loss, mean = K.two_hot_symlog_loss(lg, v), K.two_hot_symexp_decode(lg)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["two_hot_symlog_loss"] == before["two_hot_symlog_loss"] + 1
+    assert K.LAUNCHES["two_hot_symexp_decode"] == before["two_hot_symexp_decode"] + 1
+    assert loss.shape == shape[:-1] and mean.shape == (*shape[:-1], 1) and loss.dtype == mean.dtype == dt
+    f32 = dtype == "float32"
+    tol = dict(atol=1e-4, rtol=1e-5) if f32 else dict(atol=2e-2, rtol=1e-2)
+    torch.testing.assert_close(loss.float(), K.two_hot_symlog_loss_reference(lg.float(), v), **tol)
+    torch.testing.assert_close(mean.float(), K.two_hot_symexp_decode_reference(lg.float()), **tol)
+
+
+@pytest.mark.parametrize("k", [1, 17, 255])
+def test_torch_cuda_two_hot_loss_brackets_on_and_between_bins(cuda, k):
+    """The loss kernel finds its bracket in closed form: targets on every bin,
+    halfway between neighbours, beyond the support and NaN give what the
+    plain version's count over all K bins gives (f32, atol 1e-4 rtol 1e-5;
+    NaN where it gives NaN)."""
+    bins = np.linspace(-20.0, 20.0, k)
+    mids = (bins[1:] + bins[:-1]) / 2
+    x = np.concatenate([bins, mids, [-25.0, 25.0, np.inf, -np.inf, np.nan]])
+    value = torch.from_numpy((np.sign(x) * np.expm1(np.abs(x))).astype(np.float32)[:, None]).to(cuda)
+    logits = torch.from_numpy(_two_hot_inputs(len(x), k, seed=7)[0]).to(cuda)
+    got = K.two_hot_symlog_loss(logits, value)
+    torch.testing.assert_close(got, K.two_hot_symlog_loss_reference(logits, value), atol=1e-4, rtol=1e-5,
+                               equal_nan=True)
+
+
+def test_torch_cuda_two_hot_kernels_reject_what_they_do_not_take(cuda):
+    logits, value = (torch.from_numpy(a).to(cuda) for a in _two_hot_inputs(8, 17))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.two_hot_symexp_decode(logits.half())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.two_hot_symlog_loss(logits.double(), value)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.two_hot_symexp_decode(logits.t().contiguous().t())
+    with pytest.raises(ValueError, match="broadcast"):
+        K.two_hot_symlog_loss(logits, value[:3])
+    with pytest.raises(ValueError, match=str(value.device).split(":")[0]):
+        K.two_hot_symlog_loss(logits, value.cpu())
+    with pytest.raises(ValueError, match="at most 512"):
+        K.two_hot_symexp_decode(torch.zeros((2, 513), device=cuda))
+    with pytest.raises(RuntimeError, match="cudaError"):  # the bins must rise
+        K.two_hot_symlog_loss(logits, value, low=20.0, high=-20.0)
+
+
+def test_torch_cuda_two_hot_backward_is_the_plain_gradient(cuda):
+    """Each autograd.Function's gradient on the card against the plain
+    chain's on the CPU, under a fixed weighting of the outputs (the
+    decode's logits spread as a head's do, so its values stay moderate)."""
+    logits, value = _two_hot_inputs(16, 255, seed=4, scale=1.0)
+    value[4:, 0] = np.random.default_rng(5).normal(size=12) * 4  # inside the support
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        lg = torch.from_numpy(logits).to(dev).requires_grad_(True)
+        v = torch.from_numpy(value).to(dev).requires_grad_(True)
+        weight = torch.linspace(0.5, 2.0, 16, device=dev)
+        (K.two_hot_symlog_loss(lg, v) * weight).sum().backward()
+        g_loss = (lg.grad.cpu(), v.grad.cpu())
+        lg.grad = None
+        (K.two_hot_symexp_decode(lg)[:, 0] * weight).sum().backward()
+        grads[dev] = (*g_loss, lg.grad.cpu())
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_torch_cuda_two_hot_distribution_goes_through_the_kernels(cuda):
+    from sheeprl_tpu_torch.distributions import TwoHotEncodingDistribution
+
+    logits, value = _two_hot_inputs(6, 255, seed=6)
+    dist = TwoHotEncodingDistribution(torch.from_numpy(logits).to(cuda))
+    before = dict(K.LAUNCHES)
+    mean, logp = dist.mean, dist.log_prob(torch.from_numpy(value).to(cuda))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["two_hot_symexp_decode"] == before["two_hot_symexp_decode"] + 1
+    assert K.LAUNCHES["two_hot_symlog_loss"] == before["two_hot_symlog_loss"] + 1
+    cpu = TwoHotEncodingDistribution(torch.from_numpy(logits))
+    torch.testing.assert_close(mean.cpu(), cpu.mean, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(logp.cpu(), cpu.log_prob(torch.from_numpy(value)), atol=1e-4, rtol=1e-5)

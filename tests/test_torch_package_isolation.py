@@ -47,6 +47,8 @@ def test_torch_package_imports_with_jax_and_reference_blocked():
     assert report["leaked"] == []
     assert set(report["imported"]) == set(_submodules())
     assert "sheeprl_tpu_torch.ops.kernels.gru" in report["imported"]
+    assert "sheeprl_tpu_torch.ops.kernels.twohot" in report["imported"]
+    assert "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3" in report["imported"]
 
 
 def _imports(path: Path):
@@ -62,7 +64,9 @@ def _imports(path: Path):
 @pytest.mark.parametrize(
     "path",
     sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
-    ids=lambda p: str(p.relative_to(ROOT)),
+    # tests/conftest.py marks node ids that name "dreamer" as slow, which
+    # would leave the DreamerV3 modules out of the default run
+    ids=lambda p: p.relative_to(ROOT).as_posix().replace("dreamer_v3", "dv3"),
 )
 def test_torch_package_source_imports_nothing_forbidden(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
@@ -71,7 +75,23 @@ def test_torch_package_source_imports_nothing_forbidden(path):
 
 def test_torch_package_ships_its_kernel_sources():
     sources = sorted(p.name for p in (PACKAGE / "csrc").glob("*.cu"))
-    assert sources == ["gru_gates.cu"]
-    text = (PACKAGE / "csrc" / "gru_gates.cu").read_text()
-    assert 'extern "C" int gru_gates_launch' in text
-    assert "sheeprl_tpu/ops/kernels/gru.py" in text  # names the TPU kernel it replaces
+    assert sources == ["gru_gates.cu", "two_hot.cu"]
+
+
+@pytest.mark.parametrize(
+    "source, launchers, replaces",
+    [
+        ("gru_gates.cu", ["gru_gates_launch"], ["sheeprl_tpu/ops/kernels/gru.py", "_pallas_forward"]),
+        (
+            "two_hot.cu",
+            ["two_hot_symlog_loss_launch", "two_hot_symexp_decode_launch"],
+            ["sheeprl_tpu/ops/kernels/twohot.py:133", "_loss_pallas_forward", "twohot.py:158", "_decode_pallas_forward"],
+        ),
+    ],
+)
+def test_torch_package_kernel_source_names_what_it_replaces(source, launchers, replaces):
+    text = (PACKAGE / "csrc" / source).read_text()
+    for name in launchers:
+        assert f'extern "C" int {name}' in text
+    for ref in replaces:
+        assert ref in text  # the TPU kernel it replaces
