@@ -12,8 +12,8 @@ result line):
    process per source, all at once;
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the shapes the serving and training paths give it, timed with
-   CUDA events around CUDA-graph replays; the two-hot kernels' gradients
-   against the plain chain's;
+   CUDA events around CUDA-graph replays; the two-hot kernels' and
+   ``gae``'s gradients against the plain chain's;
 4. model: the DreamerV3-S session step on the card against the same weights
    on the CPU, TF32 off, on one small batch;
 5. step: one engine dispatch per bucket timed on the host clock, the device
@@ -32,7 +32,17 @@ result line):
    actions, full width) through the port's ``serve`` entry point on an
    ephemeral socket: 8 concurrent sessions x 16 steps, one client reset, a
    health probe, one session replayed alone; the launch counters are
-   zeroed just before and read just after.
+   zeroed just before and read just after;
+9. PPO update: one full-recipe PPO update (512 rows, 10 epochs x 8
+   minibatches of 64) on the card against the same update on the CPU, TF32
+   off, with the CartPole MLP agent and with the NatureCNN agent on 64x64x3
+   pixels and 18 actions;
+10. PPO run: ``python -m sheeprl_tpu_torch run preset=ppo``'s entry point on
+   the card at the full recipe (CartPole-v1, 4 envs x 128 steps, 65536
+   steps), the launch counters zeroed just before and checked just after
+   (``gae`` once per iteration, no DreamerV3 kernel), a learning check on
+   the last episodes' returns, a resume for one more iteration from its
+   checkpoint, and one update under ``torch.profiler``.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -40,6 +50,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import signal
@@ -58,6 +69,11 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_training_agent, sampl
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_NAMES, draw_noise, make_optimizers, make_train_step
 from sheeprl_tpu_torch.algos.dreamer_v3.evaluate import act, posterior_step, serve_policy_dreamer_v3
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments
+from sheeprl_tpu_torch.algos.ppo.agent import build_agent as build_ppo_agent
+from sheeprl_tpu_torch.algos.ppo.ppo import LOSS_NAMES as PPO_LOSS_NAMES
+from sheeprl_tpu_torch.algos.ppo.ppo import draw_permutations
+from sheeprl_tpu_torch.algos.ppo.ppo import make_optimizer as make_ppo_optimizer
+from sheeprl_tpu_torch.algos.ppo.ppo import make_train_step as make_ppo_train_step
 from sheeprl_tpu_torch.config import apply_overrides, load_config, preset
 from sheeprl_tpu_torch.ops import kernels
 from sheeprl_tpu_torch.ops.kernels import _build
@@ -71,9 +87,21 @@ GRU_OPS_PER_ELEMENT = 10  # 2 sigmoid + tanh + 7 multiply/add, counted as one op
 # subtraction, an exp, an add and a multiply-add
 TWO_HOT_LOSS_OPS_PER_ROW = 30
 TWO_HOT_DECODE_OPS_PER_LOGIT = 6
+# H100 SXM boost clock (NVIDIA's data sheet) and an f32 multiply-add's
+# latency in cycles: GAE's serial chain is one dependent multiply-add per step
+SM_CLOCK_HZ = 1.98e9
+FMA_LATENCY_CYCLES = 4
+# per element: 1 - done, two products and a sum for delta, a product and a
+# multiply-add for the carry, the return's add
+GAE_OPS_PER_ELEMENT = 8
 N_SESSIONS, N_STEPS, RESET_AT = 8, 16, 8
 RUN_PRESET = "dreamer_v3_100k_atari_dummy"
 RUN_LEARNING_STARTS, RUN_GRADIENT_STEPS = 128, 9
+PPO_PRESET = "ppo"
+# the mean return of the last PPO_LAST_EPISODES finished CartPole episodes
+# must reach PPO_RETURN_BAR: a random policy gets ~22; the first card run of
+# the full recipe read 500.0, CartPole's maximum (PERF.md)
+PPO_LAST_EPISODES, PPO_RETURN_BAR = 10, 450.0
 
 
 def log(msg: str) -> None:
@@ -298,6 +326,95 @@ def two_hot_phase() -> list:
             "shapes": rows,
         })
     return out
+
+
+def _gae_inputs(gen, T: int, N: int, trailing: tuple, value_dtype, done_dtype):
+    shape = (T, N) + trailing
+    rewards = torch.randn(shape, generator=gen, device="cuda")
+    values = torch.randn(shape, generator=gen, device="cuda") * 3
+    dones = torch.rand(shape, generator=gen, device="cuda") < 0.05
+    if T > 2:
+        dones[T // 2, ::2] = True  # terminal flags in the middle of columns
+    next_value = torch.randn(shape[1:], generator=gen, device="cuda")
+    dones = dones.to(done_dtype)
+    return rewards.to(value_dtype), values.to(value_dtype), dones, next_value.to(value_dtype)
+
+
+def gae_phase(gamma: float = 0.99, lam: float = 0.95) -> dict:
+    """The kernel against its plain version (float32 math on the same
+    inputs) at every shape and dones dtype, float32 and bf16 inputs, within
+    atol and rtol 1e-6; the gradient through the ``autograd.Function``
+    against the plain chain's within 1e-5 (float16 inputs are held the same
+    way). ``ms``/``plain_ms`` are device
+    time per call (:func:`_graph_ms`); ``call_ms`` is an eager call. Bound:
+    the larger of the bytes over the card's rate and the dependent chain, T
+    multiply-adds of FMA_LATENCY_CYCLES at the SM clock."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shapes = [((128, 4), (1,)), ((128, 4), ()), ((1, 7), ()), ((128, 1000), ()), ((1024, 4096), ())]
+    rows = []
+    for (T, N), trailing in shapes:
+        for value_dtype in (torch.float32, torch.bfloat16, torch.float16):
+            for done_dtype in (torch.uint8, torch.bool, torch.float32):
+                args = _gae_inputs(gen, T, N, trailing, value_dtype, done_dtype)
+                got = kernels.gae(*args, gamma, lam)
+                torch.cuda.synchronize()
+                want = kernels.gae_reference(*args, gamma, lam)
+                for g, w in zip(got, want):
+                    if g.dtype != torch.float32 or g.shape != args[0].shape:
+                        raise AssertionError(f"gae returned {g.dtype} {tuple(g.shape)} for {tuple(args[0].shape)}")
+                    torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+                err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                row = {"shape": [T, N, *trailing], "dtype": str(value_dtype).split(".")[-1],
+                       "dones": str(done_dtype).split(".")[-1], "max_abs_err": err}
+                if done_dtype == torch.uint8:  # timed once per shape and value dtype
+                    big = T * N > 1 << 20
+                    row["call_ms"] = _time_ms(lambda: kernels.gae(*args, gamma, lam), 50 if big else 200)
+                    row["ms"] = _graph_ms(lambda: kernels.gae(*args, gamma, lam))
+                    row["plain_ms"] = _graph_ms(lambda: kernels.gae_reference(*args, gamma, lam),
+                                                per_graph=2 if big else 20, replays=5 if big else 20)
+                    size = args[0].element_size()
+                    nbytes = T * N * (2 * size + args[2].element_size()) + N * size + 8 * T * N
+                    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                    ops_ms = max(T * FMA_LATENCY_CYCLES / SM_CLOCK_HZ, GAE_OPS_PER_ELEMENT * T * N / F32_FLOPS) * 1e3
+                    row.update(bytes_ms=bytes_ms, chain_ms=ops_ms, bound_ms=max(bytes_ms, ops_ms),
+                               bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                    log(f"gae {row['dtype']} {tuple(row['shape'])}: err {err:.3g} kernel {row['ms'] * 1e3:.2f} us "
+                        f"(call {row['call_ms'] * 1e3:.2f} us) plain {row['plain_ms'] * 1e3:.2f} us "
+                        f"bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}: bytes {bytes_ms * 1e3:.4f} us, "
+                        f"chain {ops_ms * 1e3:.3f} us)")
+                rows.append(row)
+    # the gradient through the autograd.Function against the plain chain's
+    r, v, d, nv = _gae_inputs(gen, 128, 4, (1,), torch.float32, torch.uint8)
+    w_ret, w_adv = torch.rand_like(r), torch.rand_like(r)
+    grads = []
+    for fn in (kernels.gae, kernels.gae_reference):
+        leaves = [t.clone().requires_grad_(True) for t in (r, v, nv)]
+        ret, adv = fn(leaves[0], leaves[1], d, leaves[2], gamma, lam)
+        ((ret * w_ret).sum() + (adv * w_adv).sum()).backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    log(f"gae backward: max err {grad_err:.3g} against the plain chain")
+    main = next(r for r in rows if r["shape"] == [128, 4, 1] and r["dtype"] == "float32" and r["dones"] == "uint8")
+    return {
+        "name": "gae",
+        "route": "cuda",
+        "source": "sheeprl_tpu_torch/csrc/gae.cu",
+        "replaces": "sheeprl_tpu/ops/kernels/gae.py:56",
+        "launches": None,  # filled from the PPO run phase
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the GAE recurrence
+        "call_ms": main["call_ms"],
+        "bytes_ms": main["bytes_ms"],
+        "chain_ms": main["chain_ms"],
+        "grad_max_abs_err": grad_err,
+        "shapes": rows,
+    }
 
 
 # -- 4. model on the card against the CPU --------------------------------------
@@ -554,6 +671,7 @@ def run_phase(workdir: str) -> dict:
         "two_hot_symlog_loss": 3 * G,
         "two_hot_symexp_decode": 3 * G,
         "gru_gates": G * (T + H) + summary["player_steps"],
+        "gae": 0,
     }
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} for {G} gradient steps")
@@ -721,6 +839,238 @@ def serve_phase(ckpt: str, accelerator: str = "cuda") -> dict:
     return stats
 
 
+# -- 9. one PPO update on the card against the CPU -------------------------------
+
+
+def _ppo_cfg(pixels: bool):
+    extra = ["algo.cnn_keys.encoder=[rgb]", "algo.mlp_keys.encoder=[]"] if pixels else []
+    return apply_overrides(preset(PPO_PRESET), extra)
+
+
+def _ppo_batch(rng, rows: int, pixels: bool, n_actions: int) -> dict:
+    data = {
+        "actions": np.eye(n_actions, dtype=np.float32)[rng.integers(0, n_actions, rows)],
+        "logprobs": (np.log(1.0 / n_actions) + 0.2 * rng.normal(size=(rows, 1))).astype(np.float32),
+        "values": rng.normal(size=(rows, 1)).astype(np.float32),
+        "returns": (rng.normal(size=(rows, 1)) * 3).astype(np.float32),
+        "advantages": rng.normal(size=(rows, 1)).astype(np.float32),
+        "rewards": np.ones((rows, 1), np.float32),
+        "dones": (rng.uniform(size=(rows, 1)) < 0.05).astype(np.uint8),
+    }
+    if pixels:
+        data["rgb"] = rng.integers(0, 256, (rows, 64, 64, 3), dtype=np.uint8)
+    else:
+        data["state"] = (rng.normal(size=(rows, 4)) * 0.1).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in data.items()}
+
+
+def _ppo_stepwise(cfg, spaces: dict, n_actions: int, data: dict, perms: torch.Tensor) -> dict:
+    """Every minibatch step of one update on the card, each held against the
+    same step on the CPU taken from the card's weights and Adam state just
+    before it: the step's three losses within rtol 1e-5 (atol 1e-6 for a
+    loss near 0); every updated parameter within 2e-5. One Adam step moves
+    an element by lr * m / (sqrt(v) + eps), whose slope in the gradient is
+    up to lr / eps = 10 where the gradient is near 0, so a float32 rounding
+    of 2e-6 in a convolution's weight gradient (a sum over ~14,000 products
+    taken in another order by cuDNN) moves such an element by up to 2e-5."""
+    rows, mb = perms.shape[1], int(cfg.algo.per_rank_batch_size)
+    one = apply_overrides(cfg, ["algo.update_epochs=1"])
+    agents = {}
+    for dev in ("cpu", "cuda"):
+        agent, _ = build_ppo_agent(cfg, (n_actions,), False, spaces, dev)
+        optimizer = make_ppo_optimizer(cfg, agent)
+        agents[dev] = (agent, optimizer, make_ppo_train_step(agent, optimizer, one, mb))
+    own_order = torch.arange(mb).reshape(1, mb)
+    worst_loss, worst_param = 0.0, 0.0
+    for epoch_perm in perms:
+        for rows_mb in epoch_perm[: rows - rows % mb].reshape(-1, mb):
+            agents["cpu"][0].load_state_dict(agents["cuda"][0].state_dict())
+            # a copy: Adam's step counts are CPU tensors that load_state_dict would share
+            agents["cpu"][1].load_state_dict(copy.deepcopy(agents["cuda"][1].state_dict()))
+            batch = {k: v[rows_mb] for k, v in data.items()}
+            clip, ent = float(cfg.algo.clip_coef), float(cfg.algo.ent_coef)
+            on_card = agents["cuda"][2]({k: v.cuda() for k, v in batch.items()}, clip, ent, perms=own_order.cuda()).cpu()
+            on_cpu = agents["cpu"][2](batch, clip, ent, perms=own_order)
+            torch.testing.assert_close(on_card, on_cpu, rtol=1e-5, atol=1e-6)
+            worst_loss = max(worst_loss, float(((on_card - on_cpu).abs() / on_cpu.abs().clamp(min=1e-12)).max()))
+            card_state, cpu_state = agents["cuda"][0].state_dict(), agents["cpu"][0].state_dict()
+            diff = max(float((card_state[k].cpu() - cpu_state[k]).abs().max()) for k in cpu_state)
+            if diff > 2e-5:
+                raise AssertionError(f"one PPO minibatch step on the card moved a parameter {diff} away from the CPU's")
+            worst_param = max(worst_param, diff)
+    return {"steps": int(perms.shape[0] * (rows // mb)), "loss_max_rel_err": worst_loss, "param_max_abs_err": worst_param}
+
+
+def ppo_update_phase() -> dict:
+    """One full-recipe PPO update (512 rows = 4 envs x 128 steps, 10 epochs
+    x 8 minibatches of 64, Adam lr 1e-3 eps 1e-4) on the card against the
+    same update on the CPU, TF32 off: the same seeded weights, batch and
+    permutations. Twice: the CartPole MLP agent, and the NatureCNN agent on
+    64x64x3 uint8 pixels with 18 actions.
+
+    - The MLP update as one call on each machine: the three mean losses
+      within rtol 1e-5 (atol 1e-6 for a loss near 0); the parameters after
+      80 Adam steps every element within 2e-4 (a fifth of the learning rate:
+      an element whose gradient sits in float32 noise can take a step of
+      another size on the two machines) and at least 99.9 % within 1e-5.
+    - The NatureCNN update as one call on each machine is reported, not
+      held to a tolerance: the float32 rounding of cuDNN's and the CPU's
+      convolutions compounds over 80 Adam steps on a value head fitting
+      random returns, and the two trajectories part (PERF.md).
+    - Both agents, every one of the 80 steps held against the CPU from the
+      card's state before it (:func:`_ppo_stepwise`)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, pixels, n_actions in (("mlp", False, 2), ("nature_cnn", True, 18)):
+        cfg = _ppo_cfg(pixels)
+        rows = int(cfg.env.num_envs) * int(cfg.algo.rollout_steps)
+        spaces = {"rgb": {"shape": [64, 64, 3]}} if pixels else {"state": {"shape": [4]}}
+        data = _ppo_batch(np.random.default_rng(8), rows, pixels, n_actions)
+        perms = draw_permutations(int(cfg.algo.update_epochs), rows, torch.Generator().manual_seed(9), "cpu")
+        results = {}
+        for dev in ("cpu", "cuda"):
+            agent, _ = build_ppo_agent(cfg, (n_actions,), False, spaces, dev)
+            train = make_ppo_train_step(agent, make_ppo_optimizer(cfg, agent), cfg, rows)
+            t0 = time.perf_counter()
+            losses = train({k: v.to(dev) for k, v in data.items()}, float(cfg.algo.clip_coef),
+                           float(cfg.algo.ent_coef), perms=perms.to(dev)).cpu()
+            seconds = time.perf_counter() - t0
+            results[dev] = (losses, {k: v.detach().cpu() for k, v in agent.state_dict().items()}, seconds)
+        if not torch.isfinite(results["cuda"][0]).all():
+            raise AssertionError(f"non-finite PPO losses on the card: {results['cuda'][0].tolist()}")
+        diffs = torch.cat([(results["cuda"][1][k] - results["cpu"][1][k]).abs().reshape(-1) for k in results["cpu"][1]])
+        close = float((diffs <= 1e-5).float().mean())
+        loss_err = (results["cuda"][0] - results["cpu"][0]).abs()
+        row = {
+            "losses_cpu": dict(zip(PPO_LOSS_NAMES, results["cpu"][0].tolist())),
+            "loss_abs_err": dict(zip(PPO_LOSS_NAMES, loss_err.tolist())),
+            "loss_rel_err": dict(zip(PPO_LOSS_NAMES, (loss_err / results["cpu"][0].abs()).tolist())),
+            "param_max_abs_err": float(diffs.max()),
+            "param_share_within_1e-5": close,
+            "cpu_s": results["cpu"][2],
+            "cuda_s": results["cuda"][2],
+        }
+        if not pixels:
+            torch.testing.assert_close(results["cuda"][0], results["cpu"][0], rtol=1e-5, atol=1e-6)
+            if float(diffs.max()) > 2e-4 or close < 0.999:
+                raise AssertionError(f"PPO {name} parameters after one update on the card differ from the CPU: {row}")
+        row["stepwise"] = _ppo_stepwise(cfg, spaces, n_actions, data, perms)
+        log(f"PPO update {name} (card vs CPU): " + json.dumps(row))
+        out[name] = row
+    return out
+
+
+# -- 10. PPO run -----------------------------------------------------------------
+
+
+def _profile_ppo_update(checkpoint: str) -> dict:
+    """One full-recipe update (512 rows, 10 x 8 minibatches) from the run's
+    checkpoint on a synthetic rollout, after one warm-up update: host time
+    (ending in the losses' read) and device time and operations from
+    ``torch.profiler``."""
+    cfg = load_config(find_run_config(checkpoint))
+    state = load_checkpoint(checkpoint)
+    agent, _ = build_ppo_agent(cfg, (2,), False, cfg.spaces.obs, "cuda", state["agent"])
+    optimizer = make_ppo_optimizer(cfg, agent)
+    optimizer.load_state_dict(state["optimizer"])
+    rows = int(cfg.env.num_envs) * int(cfg.algo.rollout_steps)
+    train = make_ppo_train_step(agent, optimizer, cfg, rows)
+    data = {k: v.cuda() for k, v in _ppo_batch(np.random.default_rng(10), rows, False, 2).items()}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    train(data, 0.2, 0.0, generator=gen).cpu()
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        train(data, 0.2, 0.0, generator=gen).cpu()
+        host.append(time.perf_counter() - t0)
+    acts = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+        train(data, 0.2, 0.0, generator=gen).cpu()
+    events = _device_kernels(prof)
+    device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:6]
+    return {
+        "host_ms": float(np.median(host) * 1e3),
+        "host_ms_all": [h * 1e3 for h in host],
+        "device_ms": device_us / 1e3 if device_us > 0 else None,
+        "device_busy_share": device_us / 1e3 / (np.median(host) * 1e3) if device_us > 0 else None,
+        "device_ops": sum(e.count for e in events),
+        "top": [{"name": e.key[:80], "device_ms": getattr(e, "self_device_time_total", 0.0) / 1e3, "count": e.count}
+                for e in top],
+    }
+
+
+def _ppo_launch_check(summary: dict, launches: dict) -> None:
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want["gae"] = summary["iterations"]
+    if launches != want:
+        raise AssertionError(f"PPO launches {launches} != {want} for {summary['iterations']} iterations")
+
+
+def ppo_run_phase(workdir: str) -> dict:
+    """PPO on CartPole-v1 through ``run`` at the full recipe: 128 iterations
+    of 4 envs x 128 steps. ``gae`` launched exactly once per iteration and no
+    other kernel; every loss finite; the mean return of the last
+    PPO_LAST_EPISODES episodes at least PPO_RETURN_BAR; then a resume from
+    the last checkpoint for one more iteration, its counters going on."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.run([f"preset={PPO_PRESET}", "metric.log_level=0", f"log_root={workdir}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    iters = summary["iterations"]
+    if iters != 128 or summary["device"].split(":")[0] != "cuda" or summary["policy_steps"] != 65536:
+        raise AssertionError(f"PPO run took {iters} iterations, {summary['policy_steps']} steps on {summary['device']}")
+    _ppo_launch_check(summary, launches)
+    if not np.isfinite(np.asarray(summary["losses"])).all():
+        raise AssertionError(f"non-finite PPO losses: {summary['losses']}")
+    returns = [ret for _, _, ret, _ in summary["episodes"]]
+    last = float(np.mean(returns[-PPO_LAST_EPISODES:]))
+    if len(returns) < PPO_LAST_EPISODES or last < PPO_RETURN_BAR:
+        raise AssertionError(f"PPO did not learn CartPole: mean return of the last {PPO_LAST_EPISODES} episodes {last}")
+    rollout_ms = [s * 1e3 for s in summary["rollout_s"]]
+    gae_ms = [s * 1e3 for s in summary["gae_s"]]
+    update_ms = [s * 1e3 for s in summary["update_s"]]
+    out = {
+        "iterations": iters,
+        "policy_steps": summary["policy_steps"],
+        "launches": launches,
+        "wall_s": wall,
+        "env_steps_per_s": summary["env_steps_per_s"],
+        "host_ms_per_iteration": {
+            "rollout_median": float(np.median(rollout_ms)), "gae_median": float(np.median(gae_ms)),
+            "update_median": float(np.median(update_ms)), "rollout_range": [min(rollout_ms), max(rollout_ms)],
+            "gae_range": [min(gae_ms), max(gae_ms)], "update_range": [min(update_ms), max(update_ms)],
+        },
+        "episodes": len(returns),
+        "first_10_mean_return": float(np.mean(returns[:10])),
+        "last_10_mean_return": last,
+        "test_reward": summary["test_reward"],
+        "losses_first": dict(zip(PPO_LOSS_NAMES, summary["losses"][0])),
+        "losses_last": dict(zip(PPO_LOSS_NAMES, summary["losses"][-1])),
+        "checkpoint": summary["checkpoint"],
+    }
+    log("PPO run: " + json.dumps({k: v for k, v in out.items() if k != "checkpoint"}))
+
+    kernels.reset_launches()
+    resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
+                       f"algo.total_steps={summary['policy_steps'] + 512}", "algo.run_test=false"])
+    resume_launches = dict(kernels.LAUNCHES)
+    if resumed["start_iter"] != iters + 1 or resumed["iterations"] != 1 or resumed["policy_steps"] != 65536 + 512:
+        raise AssertionError(f"PPO resume: start {resumed['start_iter']}, {resumed['iterations']} iterations, "
+                             f"{resumed['policy_steps']} steps")
+    _ppo_launch_check(resumed, resume_launches)
+    if not np.isfinite(np.asarray(resumed["losses"])).all():
+        raise AssertionError(f"non-finite PPO losses after the resume: {resumed['losses']}")
+    out["resume"] = {"start_iter": resumed["start_iter"], "policy_steps": resumed["policy_steps"],
+                     "launches": resume_launches, "losses": resumed["losses"]}
+    log("PPO resume: " + json.dumps(out["resume"]))
+    out["profile"] = _profile_ppo_update(summary["checkpoint"])
+    log("PPO update profile: " + json.dumps(out["profile"]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
@@ -730,6 +1080,7 @@ def main() -> int:
     build_phase()
     gru = gru_gates_phase(main_batch=16)
     two_hot = two_hot_phase()
+    gae_row = gae_phase()
     cfg = preset("dreamer_v3_S_atari100k")
     model = model_phase(cfg)
     step = step_phase(cfg)
@@ -737,12 +1088,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         run = run_phase(workdir)
         serve = serve_phase(run["checkpoint"])
+    ppo_update = ppo_update_phase()
+    with tempfile.TemporaryDirectory() as workdir:
+        ppo_run = ppo_run_phase(workdir)
     for row in [gru] + two_hot:
         row["launches"] = run["launches"][row["name"]]
-        row["launches_by_path"] = {"run": run["launches"][row["name"]], "serve": serve["launches"][row["name"]]}
+        row["launches_by_path"] = {"run": run["launches"][row["name"]], "serve": serve["launches"][row["name"]],
+                                   "ppo_run": ppo_run["launches"][row["name"]]}
+    gae_row["launches"] = ppo_run["launches"]["gae"]
+    gae_row["launches_by_path"] = {"run": run["launches"]["gae"], "serve": serve["launches"]["gae"],
+                                   "ppo_run": ppo_run["launches"]["gae"], "ppo_resume": ppo_run["resume"]["launches"]["gae"]}
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"model": model, "step": step, "train_step": train_step, "run": run, "serve": serve}))
-    print(json.dumps({"kernels": [gru] + two_hot}))
+    print(json.dumps({"model": model, "step": step, "train_step": train_step, "run": run, "serve": serve,
+                      "ppo_update": ppo_update, "ppo_run": ppo_run}))
+    print(json.dumps({"kernels": [gru] + two_hot + [gae_row]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -1,0 +1,48 @@
+"""PPO host-side helpers (counterpart of ``sheeprl_tpu/algos/ppo/utils.py``)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence
+
+import numpy as np
+import torch
+
+from sheeprl_tpu_torch.envs import make_env
+
+__all__ = ["prepare_obs", "test"]
+
+
+def prepare_obs(
+    obs: Dict[str, np.ndarray], cnn_keys: Sequence[str] = (), num_envs: int = 1, device: "torch.device | str" = "cpu"
+) -> Dict[str, torch.Tensor]:
+    """Host observations -> float32 tensors on ``device`` shaped
+    ``(num_envs, ...)``: pixel keys (NHWC) to ``x / 255 - 0.5``, vector
+    keys flattened."""
+    out = {}
+    for k, v in obs.items():
+        v = np.asarray(v, dtype=np.float32)
+        if k in cnn_keys:
+            v = v.reshape(num_envs, *v.shape[-3:]) / 255.0 - 0.5
+        else:
+            v = v.reshape(num_envs, -1)
+        out[k] = torch.from_numpy(v).to(device)
+    return out
+
+
+def test(player, cfg: Any, device: "torch.device | str") -> float:
+    """One greedy episode on a fresh env seeded with ``cfg.seed``; prints
+    and returns its return."""
+    env = make_env(cfg, int(cfg.seed))
+    obs_keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
+    obs = env.reset(seed=int(cfg.seed))[0]
+    done, cumulative = False, 0.0
+    while not done:
+        prepared = prepare_obs({k: obs[k] for k in obs_keys}, cfg.algo.cnn_keys.encoder, 1, device)
+        actions = player.get_actions(prepared, greedy=True)
+        real = torch.stack([a.argmax(dim=-1) for a in actions], dim=-1).cpu().numpy().reshape(-1)
+        obs, reward, terminated, truncated, _ = env.step(real[0] if real.size == 1 else real)
+        done = terminated or truncated
+        cumulative += reward
+    env.close()
+    print("Test - Reward:", cumulative, flush=True)
+    return float(cumulative)

@@ -1,13 +1,14 @@
 """Command line (counterpart of ``sheeprl_tpu/cli.py``, ``run`` and ``serve``
 verbs)::
 
-    python -m sheeprl_tpu_torch run preset=dreamer_v3_100k_atari_dummy \\
+    python -m sheeprl_tpu_torch run preset=ppo|dreamer_v3_100k_atari_dummy \\
         [fabric.accelerator=cuda|cpu] [algo.total_steps=...] [checkpoint.resume_from=<ckpt>] ...
     python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> \\
         [fabric.accelerator=cuda|cpu] [serve.port=0] [serve.session.buckets=[1,8,32]] ...
 
 ``run`` trains from a preset (``configs/<name>.json``), or resuming, from the
-checkpoint's ``config.json``; :data:`~sheeprl_tpu_torch.config.RUN_DEFAULTS`
+checkpoint's ``config.json``, with the algorithm ``algo.name`` names (PPO or
+DreamerV3); :data:`~sheeprl_tpu_torch.config.RUN_DEFAULTS`
 fill what it lacks and the ``key.path=value`` overrides win. ``serve`` reads
 the run configuration beside the checkpoint under
 :data:`~sheeprl_tpu_torch.config.SERVE_DEFAULTS`. Both run on the GPU unless
@@ -17,6 +18,7 @@ without one raises.
 
 from __future__ import annotations
 
+import importlib
 import sys
 from typing import List, Optional, Sequence
 
@@ -88,16 +90,18 @@ def compose_run_config(args: Sequence[str]) -> DotDict:
     return apply_overrides(merge(RUN_DEFAULTS, base), overrides)
 
 
+#: algo.name -> the module whose ``main(cfg, device)`` trains it
+_TRAINERS = {"dreamer_v3": "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3", "ppo": "sheeprl_tpu_torch.algos.ppo.ppo"}
+
+
 def run(args: Sequence[str]) -> dict:
     """Train; returns the run's summary (counters, metrics, checkpoint)."""
-    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3
-
     cfg = compose_run_config(args)
-    if cfg.algo.name != "dreamer_v3":
-        raise NotImplementedError(f"training '{cfg.algo.name}' is not ported yet; dreamer_v3 only")
+    if cfg.algo.name not in _TRAINERS:
+        raise NotImplementedError(f"training '{cfg.algo.name}' is not ported yet; {' and '.join(_TRAINERS)} only")
     device = resolve_device(cfg.fabric.get("accelerator"))
     _full_float32()
-    return dreamer_v3.main(cfg, device)
+    return importlib.import_module(_TRAINERS[cfg.algo.name]).main(cfg, device)
 
 
 def serve(args: Sequence[str]) -> None:

@@ -121,6 +121,9 @@ def _parse_value(text: str) -> Any:
             return parse(text)
         except (ValueError, SyntaxError):
             continue
+    if text.startswith("[") and text.endswith("]"):  # a list of bare words, as in algo.cnn_keys.encoder=[rgb]
+        inner = text[1:-1].strip()
+        return [_parse_value(item.strip()) for item in inner.split(",")] if inner else []
     lowered = text.lower()
     if lowered in ("null", "none"):
         return None
@@ -131,7 +134,8 @@ def _parse_value(text: str) -> Any:
 
 def apply_overrides(cfg: Dict[str, Any], overrides: Iterable[str]) -> DotDict:
     """Apply ``a.b.c=value`` tokens; values parse as JSON, then as Python
-    literals (``True``, ``[1, 8]``), else stay strings."""
+    literals (``True``, ``[1, 8]``), then as lists of bare words
+    (``[rgb, state]``), else stay strings."""
     out = plain(cfg)
     for token in overrides:
         if "=" not in token:

@@ -1,7 +1,8 @@
 """Host replay buffers (counterpart of ``sheeprl_tpu/data/buffers.py``,
-the part DreamerV3's coupled loop uses), in numpy memory; memmap storage is
-not ported. Sampling draws from a numpy ``Generator`` in the same order as
-the JAX package's buffers, so one seed gives the same windows."""
+the parts PPO's rollout and DreamerV3's coupled loop use), in numpy memory;
+memmap storage is not ported. Sampling draws from a numpy ``Generator`` in
+the same order as the JAX package's buffers, so one seed gives the same
+windows."""
 
 from __future__ import annotations
 
@@ -9,13 +10,12 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["SequentialReplayBuffer", "EnvIndependentReplayBuffer"]
+__all__ = ["ReplayBuffer", "SequentialReplayBuffer", "EnvIndependentReplayBuffer"]
 
 
-class SequentialReplayBuffer:
+class ReplayBuffer:
     """Ring buffer of ``(buffer_size, n_envs, ...)`` arrays, one per key,
-    allocated by the first :meth:`add`; samples ``sequence_length``-step
-    contiguous windows ``(n_samples, sequence_length, batch_size, ...)``."""
+    allocated by the first :meth:`add` (PPO's rollout storage)."""
 
     def __init__(self, buffer_size: int, n_envs: int = 1, obs_keys: Sequence[str] = ("observations",)) -> None:
         if buffer_size <= 0:
@@ -54,6 +54,16 @@ class SequentialReplayBuffer:
         if self._pos + data_len >= self._buffer_size:
             self._full = True
         self._pos = next_pos
+
+    def to_numpy(self) -> Dict[str, np.ndarray]:
+        """The storage, key by key: views, except that float64 keys are
+        copied down to float32, as the JAX package's buffer hands them out."""
+        return {k: v.astype(np.float32) if v.dtype == np.float64 else v for k, v in self._buf.items()}
+
+
+class SequentialReplayBuffer(ReplayBuffer):
+    """Samples ``sequence_length``-step contiguous windows
+    ``(n_samples, sequence_length, batch_size, ...)``."""
 
     def sample(self, batch_size: int, n_samples: int = 1, sequence_length: int = 1) -> Dict[str, np.ndarray]:
         batch_dim = batch_size * n_samples

@@ -1,5 +1,5 @@
 """A plain synchronous vector over ``num_envs`` envs, with the conventions
-the JAX package's DreamerV3 loop relies on (gymnasium's ``SAME_STEP``
+the JAX package's coupled loops rely on (gymnasium's ``SAME_STEP``
 autoreset): an env that ends is reset in the same ``step``, its returned
 observation is the reset one, and ``infos["final_obs"][i]`` holds the last
 observation of the episode that ended (None elsewhere). An episode that
@@ -11,9 +11,10 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from sheeprl_tpu_torch.envs.classic import CartPoleEnv
 from sheeprl_tpu_torch.envs.dummy import AtariProtocolDummyEnv
 
-__all__ = ["SyncVectorEnv", "make_vector_env"]
+__all__ = ["SyncVectorEnv", "make_env", "make_vector_env"]
 
 
 class SyncVectorEnv:
@@ -76,21 +77,30 @@ class SyncVectorEnv:
             env.close()
 
 
-def make_vector_env(cfg: Any, seed: int) -> SyncVectorEnv:
-    """``cfg.env.num_envs`` copies of the env ``cfg.env.id`` names; env ``i``
-    is built with ``seed + i``. Only the Atari-protocol dummy is ported."""
+def make_env(cfg: Any, seed: int) -> Any:
+    """One env of the kind ``cfg.env.id`` names, seeded with ``seed``: the
+    Atari-protocol dummy, or CartPole-v1 with its observation under the
+    first MLP encoder key."""
     env_cfg = cfg.env
-    if env_cfg.id != "atari_protocol_dummy":
-        raise NotImplementedError(f"env '{env_cfg.id}' is not ported yet; only atari_protocol_dummy")
-    wrapper = env_cfg.get("wrapper") or {}
-
-    def thunk(i: int) -> Callable[[], AtariProtocolDummyEnv]:
-        return lambda: AtariProtocolDummyEnv(
+    if env_cfg.id == "atari_protocol_dummy":
+        wrapper = env_cfg.get("wrapper") or {}
+        return AtariProtocolDummyEnv(
             screen_size=int(env_cfg.screen_size),
             frame_skip=int(env_cfg.action_repeat),
             grayscale=bool(env_cfg.get("grayscale", False)),
             noop_max=int(wrapper.get("noop_max", 30)),
-            seed=seed + i,
+            seed=seed,
         )
+    if env_cfg.id == "CartPole-v1":
+        mlp_keys = list(cfg.algo.mlp_keys.encoder)
+        if not mlp_keys or list(cfg.algo.cnn_keys.encoder):
+            raise ValueError("CartPole-v1 gives one vector observation: set algo.mlp_keys.encoder=[state] and no cnn keys")
+        return CartPoleEnv(obs_key=mlp_keys[0], seed=seed)
+    raise NotImplementedError(f"env '{env_cfg.id}' is not ported yet; atari_protocol_dummy and CartPole-v1 only")
 
-    return SyncVectorEnv([thunk(i) for i in range(int(env_cfg.num_envs))], env_cfg.get("max_episode_steps"))
+
+def make_vector_env(cfg: Any, seed: int) -> SyncVectorEnv:
+    """``cfg.env.num_envs`` copies of the env ``cfg.env.id`` names; env ``i``
+    is built with ``seed + i``."""
+    envs = [lambda i=i: make_env(cfg, seed + i) for i in range(int(cfg.env.num_envs))]
+    return SyncVectorEnv(envs, cfg.env.get("max_episode_steps"))

@@ -1,3 +1,11 @@
-from sheeprl_tpu_torch.models.blocks import MLP, ConvTranspose, LayerNormGRUCell, get_activation
+from sheeprl_tpu_torch.models.blocks import (
+    CNN,
+    MLP,
+    ConvTranspose,
+    LayerNormGRUCell,
+    MultiEncoder,
+    NatureCNN,
+    get_activation,
+)
 
-__all__ = ["MLP", "ConvTranspose", "LayerNormGRUCell", "get_activation"]
+__all__ = ["CNN", "MLP", "ConvTranspose", "LayerNormGRUCell", "MultiEncoder", "NatureCNN", "get_activation"]

@@ -1,13 +1,15 @@
 """Network blocks (counterpart of ``sheeprl_tpu/models/blocks.py``).
 
-Submodules keep the flax names (``dense_0``, ``ln_0``, ``fused``, ``ln``) so
-a converted flax parameter tree maps onto ``state_dict`` keys one to one
-(:mod:`sheeprl_tpu_torch.utils.convert`).
+Submodules keep the flax names (``dense_0``, ``ln_0``, ``out``, ``conv_0``,
+``fc``, ``fused``, ``ln``) so a converted flax parameter tree maps onto
+``state_dict`` keys one to one (:mod:`sheeprl_tpu_torch.utils.convert`).
+Images are NHWC at every block's interface, as in the JAX package; the
+convolutions run NCHW inside.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -15,7 +17,7 @@ from torch import nn
 
 from sheeprl_tpu_torch.ops.kernels import gru_gates
 
-__all__ = ["get_activation", "MLP", "LayerNormGRUCell", "ConvTranspose"]
+__all__ = ["get_activation", "MLP", "CNN", "NatureCNN", "MultiEncoder", "LayerNormGRUCell", "ConvTranspose"]
 
 _ACTIVATIONS = {
     "relu": F.relu,
@@ -45,10 +47,16 @@ def get_activation(name: Optional[Union[str, Callable]]) -> Callable:
 
 class MLP(nn.Module):
     """``Linear (with bias) -> [LayerNorm(eps 1e-3)] -> activation`` per
-    hidden layer."""
+    hidden layer, then, with ``output_dim``, a last ``Linear`` named ``out``
+    with no activation. ``output_features`` is the width it returns."""
 
     def __init__(
-        self, input_dim: int, hidden_sizes: Sequence[int], activation: Optional[str] = "relu", layer_norm: bool = False
+        self,
+        input_dim: int,
+        hidden_sizes: Sequence[int],
+        activation: Optional[str] = "relu",
+        layer_norm: bool = False,
+        output_dim: Optional[int] = None,
     ) -> None:
         super().__init__()
         self.hidden_sizes = tuple(int(s) for s in hidden_sizes)
@@ -60,6 +68,8 @@ class MLP(nn.Module):
             if self.layer_norm:
                 self.add_module(f"ln_{i}", nn.LayerNorm(size, eps=1e-3))
             last = size
+        self.out = nn.Linear(last, int(output_dim)) if output_dim is not None else None
+        self.output_features = int(output_dim) if output_dim is not None else last
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(len(self.hidden_sizes)):
@@ -67,7 +77,98 @@ class MLP(nn.Module):
             if self.layer_norm:
                 x = getattr(self, f"ln_{i}")(x)
             x = self._act(x)
+        return x if self.out is None else self.out(x)
+
+
+def _pair(v: Any) -> tuple:
+    return (int(v), int(v)) if isinstance(v, int) else tuple(int(x) for x in v)
+
+
+class CNN(nn.Module):
+    """Convolutions, each with ``kernel_size``/``stride``/``padding``/``bias``
+    from its ``layer_args`` (defaults 3, 1, 0, with bias), then
+    ``[LayerNorm over channels] -> activation``. NHWC in and out."""
+
+    def __init__(
+        self,
+        input_channels: int,
+        hidden_channels: Sequence[int],
+        layer_args: Union[Mapping[str, Any], Sequence[Mapping[str, Any]], None] = None,
+        activation: Optional[str] = "relu",
+        layer_norm: bool = False,
+        norm_eps: float = 1e-3,
+    ) -> None:
+        super().__init__()
+        self.hidden_channels = tuple(int(c) for c in hidden_channels)
+        n = len(self.hidden_channels)
+        args = list(layer_args) if isinstance(layer_args, (list, tuple)) else [layer_args] * n
+        self._act = get_activation(activation)
+        self.layer_norm = bool(layer_norm)
+        last = int(input_channels)
+        for i, ch in enumerate(self.hidden_channels):
+            kw: Dict[str, Any] = dict(args[i] or {})
+            conv = nn.Conv2d(
+                last, ch, _pair(kw.get("kernel_size", 3)), stride=_pair(kw.get("stride", 1)),
+                padding=_pair(kw.get("padding", 0)), bias=bool(kw.get("bias", True)),
+            )
+            self.add_module(f"conv_{i}", conv)
+            if self.layer_norm:
+                self.add_module(f"ln_{i}", nn.LayerNorm(ch, eps=norm_eps))
+            last = ch
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        for i in range(len(self.hidden_channels)):
+            x = getattr(self, f"conv_{i}")(x).permute(0, 2, 3, 1)  # NHWC for the norm and the output
+            if self.layer_norm:
+                x = getattr(self, f"ln_{i}")(x)
+            x = self._act(x)
+            if i + 1 < len(self.hidden_channels):
+                x = x.permute(0, 3, 1, 2)
         return x
+
+
+class NatureCNN(nn.Module):
+    """The DQN Nature network: convolutions 8/4, 4/2 and 3/1 with 32, 64 and
+    64 channels and ReLU (``cnn``), flattened in (H, W, C) order as flax
+    flattens NHWC, then ``fc`` and ReLU. NHWC ``(..., H, W, C)`` in."""
+
+    def __init__(self, input_channels: int, screen_size: int, features_dim: int = 512) -> None:
+        super().__init__()
+        self.cnn = CNN(
+            input_channels,
+            (32, 64, 64),
+            [{"kernel_size": 8, "stride": 4}, {"kernel_size": 4, "stride": 2}, {"kernel_size": 3, "stride": 1}],
+        )
+        side = int(screen_size)
+        for kernel, stride in ((8, 4), (4, 2), (3, 1)):
+            side = (side - kernel) // stride + 1
+        if side < 1:
+            raise ValueError(f"NatureCNN needs a larger screen than {screen_size}")
+        self.fc = nn.Linear(side * side * 64, int(features_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-3]
+        x = self.cnn(x.reshape(-1, *x.shape[-3:]))
+        return F.relu(self.fc(x.reshape(*lead, -1)))
+
+
+class MultiEncoder(nn.Module):
+    """A CNN encoder over the pixel keys and an MLP encoder over the vector
+    keys, each taking the observation dict; their features concatenated
+    (CNN first). ``output_features`` is the total width."""
+
+    def __init__(self, cnn_encoder: Optional[nn.Module] = None, mlp_encoder: Optional[nn.Module] = None) -> None:
+        super().__init__()
+        if cnn_encoder is None and mlp_encoder is None:
+            raise ValueError("There must be at least one encoder")
+        self.cnn_encoder = cnn_encoder
+        self.mlp_encoder = mlp_encoder
+        self.output_features = sum(int(e.output_features) for e in (cnn_encoder, mlp_encoder) if e is not None)
+
+    def forward(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        outs = [e(obs) for e in (self.cnn_encoder, self.mlp_encoder) if e is not None]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
 
 class LayerNormGRUCell(nn.Module):

@@ -12,7 +12,7 @@ from __future__ import annotations
 from typing import Dict
 
 #: kernel name -> launches of its CUDA kernel in this process
-LAUNCHES: Dict[str, int] = {"gru_gates": 0, "two_hot_symlog_loss": 0, "two_hot_symexp_decode": 0}
+LAUNCHES: Dict[str, int] = {"gru_gates": 0, "two_hot_symlog_loss": 0, "two_hot_symexp_decode": 0, "gae": 0}
 
 
 def reset_launches() -> None:
@@ -20,6 +20,7 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+from sheeprl_tpu_torch.ops.kernels.gae import gae, gae_reference  # noqa: E402
 from sheeprl_tpu_torch.ops.kernels.gru import gru_gates, gru_gates_reference  # noqa: E402
 from sheeprl_tpu_torch.ops.kernels.twohot import (  # noqa: E402
     two_hot_symexp_decode,
@@ -37,4 +38,6 @@ __all__ = [
     "two_hot_symlog_loss_reference",
     "two_hot_symexp_decode",
     "two_hot_symexp_decode_reference",
+    "gae",
+    "gae_reference",
 ]

@@ -1,5 +1,7 @@
 """Optimizers (counterpart of ``sheeprl_tpu/optim/builders.py``, the part
-DreamerV3 uses): Adam behind optax-style global-norm clipping."""
+DreamerV3 and PPO use): Adam behind optax-style global-norm clipping, with a
+learning rate that can be set between steps (optax's ``inject_hyperparams``,
+which PPO's ``anneal_lr`` writes)."""
 
 from __future__ import annotations
 
@@ -59,6 +61,11 @@ class ClippedOptimizer:
         self.optimizer.step()
         for p in self.params:
             p.grad = None
+
+    def set_lr(self, lr: float) -> None:
+        """The learning rate of the next steps, in place."""
+        for group in self.optimizer.param_groups:
+            group["lr"] = float(lr)
 
     def state_dict(self) -> dict:
         return self.optimizer.state_dict()

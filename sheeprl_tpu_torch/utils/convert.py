@@ -13,6 +13,10 @@ change by name:
   weight flipped, so the layout is ``kernel[::-1, ::-1].transpose(2, 3, 0, 1)``;
 - LayerNorm ``scale`` -> ``weight``; ``bias`` stays ``bias``;
 - ``initial_recurrent_state`` is copied as it is.
+
+NatureCNN's ``fc`` rows need no permutation: flax flattens the NHWC conv
+output in (H, W, C) order, and the port's ``NatureCNN`` permutes to NHWC
+before it flattens, so the rows mean the same features on both sides.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["flax_to_state_dict", "dreamer_v3_state_from_jax"]
+__all__ = ["flax_to_state_dict", "dreamer_v3_state_from_jax", "ppo_state_from_jax"]
 
 #: the flax module name of a transposed convolution's layer (the JAX
 #: package's ``_ConvTranspose`` wraps an unnamed ``nn.ConvTranspose``)
@@ -78,4 +82,23 @@ def dreamer_v3_state_from_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, 
     for name in ("actor", "critic", "target_critic"):
         if name in params:
             state[name] = flax_to_state_dict(params[name])
+    return state
+
+
+#: the PPO agent's encoders: children of the flax agent (its ``MultiEncoder``
+#: holds no parameters), under ``feature_extractor`` in the port
+PPO_ENCODERS = ("cnn_encoder", "mlp_encoder")
+
+
+def ppo_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The flax ``PPOAgent`` tree (numpy leaves, with or without its
+    ``params`` level) -> the port's ``PPOAgent`` ``state_dict``: Dense
+    kernels transposed, Conv kernels HWIO -> OIHW, the encoders nested
+    under ``feature_extractor``."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    state: Dict[str, torch.Tensor] = {}
+    for name, tree in params.items():
+        prefix = f"feature_extractor.{name}." if name in PPO_ENCODERS else f"{name}."
+        state.update(flax_to_state_dict(tree, prefix))
     return state

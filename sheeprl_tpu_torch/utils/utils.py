@@ -5,7 +5,18 @@ from __future__ import annotations
 import warnings
 from typing import Any, Dict, Mapping, Optional
 
-__all__ = ["Ratio"]
+__all__ = ["Ratio", "polynomial_decay"]
+
+
+def polynomial_decay(
+    current_step: int, *, initial: float = 1.0, final: float = 0.0, max_decay_steps: int = 100, power: float = 1.0
+) -> float:
+    """Polynomial schedule from ``initial`` to ``final`` over
+    ``max_decay_steps`` (PPO's ``anneal_lr``, ``anneal_clip_coef`` and
+    ``anneal_ent_coef``)."""
+    if current_step > max_decay_steps or initial == final:
+        return final
+    return (initial - final) * ((1 - current_step / max_decay_steps) ** power) + final
 
 
 class Ratio:

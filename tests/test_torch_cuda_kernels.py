@@ -190,3 +190,80 @@ def test_torch_cuda_two_hot_distribution_goes_through_the_kernels(cuda):
     cpu = TwoHotEncodingDistribution(torch.from_numpy(logits))
     torch.testing.assert_close(mean.cpu(), cpu.mean, atol=1e-4, rtol=1e-5)
     torch.testing.assert_close(logp.cpu(), cpu.log_prob(torch.from_numpy(value)), atol=1e-4, rtol=1e-5)
+
+
+def _gae_inputs(T, N, trailing=(1,), seed=0):
+    rng = np.random.default_rng(seed)
+    shape = (T, N) + trailing
+    dones = rng.uniform(size=shape) < 0.05
+    if T > 2:
+        dones[T // 2, ::2] = True  # terminal flags in the middle of columns
+    return (rng.normal(size=shape).astype(np.float32), (rng.normal(size=shape) * 3).astype(np.float32), dones,
+            rng.normal(size=shape[1:]).astype(np.float32))
+
+
+@pytest.mark.parametrize("done_dtype", ["uint8", "bool", "float32"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize(
+    "shape", [(128, 4, 1), (128, 4), (1, 7), (128, 1000), (1024, 4096)],
+    ids=["main-path", "no-trailing-axis", "T1", "ragged-N", "bandwidth"],
+)
+def test_torch_cuda_gae_matches_plain(cuda, shape, dtype, done_dtype):
+    """The kernel against the plain version on the same (rounded) inputs,
+    float32 math on both sides in the same op order: within atol and rtol
+    1e-6 for every input dtype, one launch per call, float32 outputs."""
+    r, v, d, nv = _gae_inputs(shape[0], shape[1], shape[2:])
+    dt = getattr(torch, dtype)
+    args = (
+        torch.from_numpy(r).to(cuda, dt), torch.from_numpy(v).to(cuda, dt),
+        torch.from_numpy(d).to(cuda, getattr(torch, done_dtype)), torch.from_numpy(nv).to(cuda, dt),
+    )
+    before = K.LAUNCHES["gae"]
+    got = K.gae(*args, 0.99, 0.95)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gae"] == before + 1
+    want = K.gae_reference(*args, 0.99, 0.95)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == args[0].shape
+        torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+
+
+def test_torch_cuda_gae_rejects_what_the_kernel_does_not_take(cuda):
+    r, v, d, nv = (torch.from_numpy(a).to(cuda) for a in _gae_inputs(8, 4))
+    d = d.to(torch.uint8)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        K.gae(r.double(), v, d, nv, 0.99, 0.95)
+    with pytest.raises(TypeError, match="uint8, bool or float32 dones"):
+        K.gae(r, v, d.to(torch.int32), nv, 0.99, 0.95)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.gae(r[::2], v[::2], d[::2], nv, 0.99, 0.95)
+    with pytest.raises(ValueError, match="next_value"):
+        K.gae(r, v, d, nv[:2], 0.99, 0.95)
+    with pytest.raises(ValueError, match="CUDA device"):
+        K.gae(r, v, d.cpu(), nv, 0.99, 0.95)
+
+
+def test_torch_cuda_gae_backward_is_the_plain_gradient(cuda):
+    r, v, d, nv = _gae_inputs(32, 5, seed=3)
+    rng = np.random.default_rng(4)
+    w = [torch.from_numpy(rng.uniform(0.5, 2.0, size=r.shape).astype(np.float32)) for _ in range(2)]
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [torch.from_numpy(a).to(dev).requires_grad_(True) for a in (r, v, nv)]
+        ret, adv = K.gae(leaves[0], leaves[1], torch.from_numpy(d).to(dev), leaves[2], 0.99, 0.95)
+        ((ret * w[0].to(dev)).sum() + (adv * w[1].to(dev)).sum()).backward()
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+def test_torch_cuda_ppo_rollout_gae_launches_once_per_iteration(cuda, tmp_path):
+    """Two iterations of the PPO loop on the card: ``gae`` launched twice,
+    no other kernel."""
+    from sheeprl_tpu_torch import cli
+
+    K.reset_launches()
+    summary = cli.run(["preset=ppo", "metric.log_level=0", "algo.run_test=false", "algo.total_steps=1024",
+                       "algo.update_epochs=1", f"log_root={tmp_path}"])
+    assert summary["device"].startswith("cuda") and summary["iterations"] == 2
+    assert K.LAUNCHES == {"gru_gates": 0, "two_hot_symlog_loss": 0, "two_hot_symexp_decode": 0, "gae": 2}

@@ -49,6 +49,8 @@ def test_torch_package_imports_with_jax_and_reference_blocked():
     assert "sheeprl_tpu_torch.ops.kernels.gru" in report["imported"]
     assert "sheeprl_tpu_torch.ops.kernels.twohot" in report["imported"]
     assert "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3" in report["imported"]
+    assert "sheeprl_tpu_torch.ops.kernels.gae" in report["imported"]
+    assert "sheeprl_tpu_torch.algos.ppo.ppo" in report["imported"]
 
 
 def _imports(path: Path):
@@ -75,13 +77,14 @@ def test_torch_package_source_imports_nothing_forbidden(path):
 
 def test_torch_package_ships_its_kernel_sources():
     sources = sorted(p.name for p in (PACKAGE / "csrc").glob("*.cu"))
-    assert sources == ["gru_gates.cu", "two_hot.cu"]
+    assert sources == ["gae.cu", "gru_gates.cu", "two_hot.cu"]
 
 
 @pytest.mark.parametrize(
     "source, launchers, replaces",
     [
         ("gru_gates.cu", ["gru_gates_launch"], ["sheeprl_tpu/ops/kernels/gru.py", "_pallas_forward"]),
+        ("gae.cu", ["gae_launch"], ["sheeprl_tpu/ops/kernels/gae.py:56", "_gae_pallas_forward"]),
         (
             "two_hot.cu",
             ["two_hot_symlog_loss_launch", "two_hot_symexp_decode_launch"],
