@@ -36,13 +36,31 @@ result line):
 9. PPO update: one full-recipe PPO update (512 rows, 10 epochs x 8
    minibatches of 64) on the card against the same update on the CPU, TF32
    off, with the CartPole MLP agent and with the NatureCNN agent on 64x64x3
-   pixels and 18 actions;
+   pixels and 18 actions; then each of its 80 steps from the card's state
+   just before it: losses, gradients (with the ReLU and clip kinks crossed
+   on one machine counted) and the Adam step on the card's gradients;
 10. PPO run: ``python -m sheeprl_tpu_torch run preset=ppo``'s entry point on
-   the card at the full recipe (CartPole-v1, 4 envs x 128 steps, 65536
-   steps), the launch counters zeroed just before and checked just after
+   the card at the full recipe's widths (CartPole-v1, 4 envs x 128 steps),
+   its depth cut to PPO_ITERATIONS iterations, the launch counters zeroed just before and checked just after
    (``gae`` once per iteration, no DreamerV3 kernel), a learning check on
    the last episodes' returns, a resume for one more iteration from its
-   checkpoint, and one update under ``torch.profiler``.
+   checkpoint, and one update under ``torch.profiler``;
+11. sumtree: ``sumtree_sample`` against its plain version on the card at
+   trees of 2^6 to 2^22 leaves and 1 to 4096 draws (zero leaves, padding,
+   uniforms of 0 and just under 1), timed as the other kernels are, beside
+   its bound: the bytes, or the fewest dependent L2 hits a descent needs
+   (``sumtree_bound``), whose latency a pointer chase measures on the card;
+12. SAC update: one device-resident dispatch at the full ``sac_per`` width
+   (append + 4 PER gradient steps, hidden 256, batch 256, a ring of
+   250,000 x 4) on the card against the CPU, each step from the card's
+   state just before it;
+13. SAC run: ``python -m sheeprl_tpu_torch run preset=sac_per``'s entry point
+   on the card at full width (Pendulum-v1, 4 envs, a 1,000,000-transition
+   ring with PER), ``total_steps`` cut to 16,384; the launch counters zeroed
+   just before and checked just after (``sumtree_sample`` once per gradient
+   step, no other kernel), a learning check, a resume from its checkpoint
+   that must restore the ring, the sum-tree and ``max_p``, and one dispatch
+   under ``torch.profiler``.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -75,6 +93,7 @@ from sheeprl_tpu_torch.algos.ppo.ppo import draw_permutations
 from sheeprl_tpu_torch.algos.ppo.ppo import make_optimizer as make_ppo_optimizer
 from sheeprl_tpu_torch.algos.ppo.ppo import make_train_step as make_ppo_train_step
 from sheeprl_tpu_torch.config import apply_overrides, load_config, preset
+from sheeprl_tpu_torch.models import NatureCNN
 from sheeprl_tpu_torch.ops import kernels
 from sheeprl_tpu_torch.ops.kernels import _build
 from sheeprl_tpu_torch.utils.checkpoint import find_run_config, load_checkpoint
@@ -100,8 +119,38 @@ RUN_LEARNING_STARTS, RUN_GRADIENT_STEPS = 128, 9
 PPO_PRESET = "ppo"
 # the mean return of the last PPO_LAST_EPISODES finished CartPole episodes
 # must reach PPO_RETURN_BAR: a random policy gets ~22; the first card run of
-# the full recipe read 500.0, CartPole's maximum (PERF.md)
+# the full recipe read 500.0, CartPole's maximum, and 500.0 at half its 128
+# iterations, the depth the run is cut to (PERF.md)
 PPO_LAST_EPISODES, PPO_RETURN_BAR = 10, 450.0
+PPO_ITERATIONS = 64
+SAC_PRESET = "sac_per"
+# the JAX package's own Pendulum learning budget and floor
+# (tests/test_algos/test_sac_sebulba.py): the best mean return over 10
+# consecutive episodes reaches -500 within 16,384 steps; random play scores
+# about -1200
+SAC_TOTAL_STEPS, SAC_WINDOW, SAC_RETURN_BAR = 16384, 10, -500.0
+SAC_RESUME_ITERATIONS = 40
+# the sumtree kernel's shapes: (leaves, draws); the SAC path's is (2^20, 256)
+SUMTREE_SHAPES = [(p, b) for p in (1 << 6, 1 << 10, 1 << 16, 1 << 20, 1 << 22) for b in (1, 256, 4096)]
+SUMTREE_MAIN = (1 << 20, 256)
+SECTOR_BYTES = 32  # one L2 sector: the least one dependent read moves
+# one thread walks a random cycle of dependent loads through an 8 MiB buffer
+# (inside the 50 MB L2, far beyond L1), loading with __ldcg (cached in L2
+# only): the time per hop is one L2 hit's latency
+_L2_CHASE_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void chase(const uint32_t* __restrict__ next, uint32_t start, long long hops, uint32_t* out) {
+  uint32_t i = start;
+  for (long long h = 0; h < hops; ++h) i = __ldcg(next + i);
+  *out = i;
+}
+extern "C" int chase_launch(const void* next, unsigned int start, long long hops, void* out, void* stream) {
+  chase<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<const uint32_t*>(next), start, hops,
+                                                       static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+"""
 
 
 def log(msg: str) -> None:
@@ -124,14 +173,30 @@ def device_phase() -> str:
 # -- 2. build -----------------------------------------------------------------
 
 
-def build_phase() -> None:
+def _start_l2_chase_build():
+    """``nvcc`` of the pointer chase, started beside the kernels' builds."""
+    out_dir = _build.BUILD_DIR.parent / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    source, target = out_dir / "l2_chase.cu", out_dir / "l2_chase.so"
+    source.write_text(_L2_CHASE_SOURCE)
+    cmd = [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-shared", "-Xcompiler", "-fPIC",
+           "-o", str(target), str(source)]
+    return target, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def build_phase():
     t0 = time.perf_counter()
+    chase_target, chase_build = _start_l2_chase_build()
     libs = _build.build_all()
-    log(f"built {sorted(libs)} in {time.perf_counter() - t0:.2f} s")
+    output, _ = chase_build.communicate()
+    if chase_build.returncode != 0:
+        raise RuntimeError(f"nvcc failed for the L2 pointer chase:\n{output}")
+    log(f"built {sorted(libs)} and the L2 pointer chase in {time.perf_counter() - t0:.2f} s")
     for name, text in sorted(_build.BUILD_LOGS.items()):
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    return chase_target
 
 
 # -- 3. kernels ---------------------------------------------------------------
@@ -672,6 +737,7 @@ def run_phase(workdir: str) -> dict:
         "two_hot_symexp_decode": 3 * G,
         "gru_gates": G * (T + H) + summary["player_steps"],
         "gae": 0,
+        "sumtree_sample": 0,
     }
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} for {G} gradient steps")
@@ -864,41 +930,133 @@ def _ppo_batch(rng, rows: int, pixels: bool, n_actions: int) -> dict:
     return {k: torch.from_numpy(v) for k, v in data.items()}
 
 
+PPO_GRAD_RTOL = 2e-4  # the gradient's distance from the CPU's over its norm, on a step without a kink
+PPO_KINK_GRAD_RTOL = 5e-2  # the same on a step where a kink took the other branch on one machine
+PPO_KINK_SHARE = 1e-4  # the most kinks a step may cross, over the kink inputs it has
+PPO_ADAM_ATOL = 1e-6  # the card's Adam step against the CPU's on the card's own gradients
+
+
+def _record_step(agent, optimizer) -> dict:
+    """Hooks that keep what each train step of ``agent`` saw: the gradients
+    handed to ``optimizer.step``, every ReLU input of a NatureCNN (its
+    convolutions' and ``fc``'s outputs) and the actor heads' logits."""
+    seen = {"grads": [], "relu": [], "logits": []}
+    step = optimizer.step
+
+    def capturing(grads):
+        seen["grads"] = [g.detach().clone() for g in grads]
+        step(grads)
+
+    def keep(key):
+        return lambda module, inputs, out: seen[key].append(out.detach().cpu())
+
+    optimizer.step = capturing
+    for module in agent.modules():
+        if isinstance(module, NatureCNN):
+            for layer in module.modules():
+                if isinstance(layer, (torch.nn.Conv2d, torch.nn.Linear)):
+                    layer.register_forward_hook(keep("relu"))
+    for i in range(len(agent.actions_dim)):
+        getattr(agent, f"actor_head_{i}").register_forward_hook(keep("logits"))
+    return seen
+
+
+def _ppo_kinks(card: dict, cpu: dict, batch: dict, clip: float) -> tuple:
+    """The kinks one step crossed on one machine and not on the other, and
+    the kink inputs it had: ReLU inputs of another sign, and rows whose
+    policy ratio lies on another side of 1 -+ clip (or within 1e-5 of it on
+    either machine: the ratio here is recomputed from the logits)."""
+    flips = sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(card["relu"], cpu["relu"]))
+    inputs = sum(a.numel() for a in cpu["relu"])
+    actions = torch.split(batch["actions"], [x.shape[-1] for x in cpu["logits"]], dim=-1)
+    sides = []
+    for seen in (card, cpu):
+        logprob = sum((torch.log_softmax(lg, -1) * a).sum(-1) for lg, a in zip(seen["logits"], actions))
+        ratio = torch.exp(logprob - batch["logprobs"].reshape(-1))
+        sides.append((torch.sign(ratio - (1 - clip)), torch.sign(ratio - (1 + clip)),
+                      torch.minimum((ratio - (1 - clip)).abs(), (ratio - (1 + clip)).abs()) <= 1e-5))
+    rows = (sides[0][0] != sides[1][0]) | (sides[0][1] != sides[1][1]) | sides[0][2] | sides[1][2]
+    return flips + int(rows.sum()), inputs + int(rows.numel())
+
+
 def _ppo_stepwise(cfg, spaces: dict, n_actions: int, data: dict, perms: torch.Tensor) -> dict:
     """Every minibatch step of one update on the card, each held against the
     same step on the CPU taken from the card's weights and Adam state just
-    before it: the step's three losses within rtol 1e-5 (atol 1e-6 for a
-    loss near 0); every updated parameter within 2e-5. One Adam step moves
-    an element by lr * m / (sqrt(v) + eps), whose slope in the gradient is
-    up to lr / eps = 10 where the gradient is near 0, so a float32 rounding
-    of 2e-6 in a convolution's weight gradient (a sum over ~14,000 products
-    taken in another order by cuDNN) moves such an element by up to 2e-5."""
+    before it, in three parts:
+
+    - the step's three losses within rtol 1e-5 (atol 1e-6 for a loss near 0);
+    - the gradient, every parameter's in one vector, within PPO_GRAD_RTOL of
+      its norm: float32 sums in another order (cuDNN's and cuBLAS's against
+      the CPU's). One vector, because a small tensor whose gradient nearly
+      cancels (a bias's, summed over 64 rows) keeps the rounding of its
+      terms, which can be far more than its own norm allows. The step's
+      kinks are counted: a ReLU input, or a policy ratio at 1 -+ clip,
+      that lies within rounding of its kink takes the other branch on one
+      machine, and that row's share of the gradient changes whole. A step
+      with a kink is held to PPO_KINK_GRAD_RTOL, and crosses at most
+      PPO_KINK_SHARE of its kink inputs, or one (a wrong layer would flip half);
+    - the card's Adam step within PPO_ADAM_ATOL of the CPU's Adam step on
+      the card's own gradients.
+
+    The parameters after the CPU's own step are reported, not held: Adam's
+    slope in a gradient near 0 is lr / eps = 10, so it turns a gradient
+    rounding of 1e-6, or any kink, into a step 1e-5 or more apart."""
     rows, mb = perms.shape[1], int(cfg.algo.per_rank_batch_size)
     one = apply_overrides(cfg, ["algo.update_epochs=1"])
     agents = {}
     for dev in ("cpu", "cuda"):
         agent, _ = build_ppo_agent(cfg, (n_actions,), False, spaces, dev)
         optimizer = make_ppo_optimizer(cfg, agent)
-        agents[dev] = (agent, optimizer, make_ppo_train_step(agent, optimizer, one, mb))
+        agents[dev] = (agent, optimizer, make_ppo_train_step(agent, optimizer, one, mb), _record_step(agent, optimizer))
+    (cpu_agent, cpu_opt, cpu_train, cpu_seen), (card_agent, card_opt, card_train, card_seen) = agents["cpu"], agents["cuda"]
     own_order = torch.arange(mb).reshape(1, mb)
-    worst_loss, worst_param = 0.0, 0.0
+    clip, ent = float(cfg.algo.clip_coef), float(cfg.algo.ent_coef)
+    worst = {"loss_max_rel_err": 0.0, "param_max_abs_err": 0.0, "adam_max_abs_err": 0.0,
+             "grad_max_rel_err": 0.0, "kink_grad_max_rel_err": 0.0}
+    kinks, kink_steps = 0, 0
     for epoch_perm in perms:
         for rows_mb in epoch_perm[: rows - rows % mb].reshape(-1, mb):
-            agents["cpu"][0].load_state_dict(agents["cuda"][0].state_dict())
+            before = {k: v.detach().cpu().clone() for k, v in card_agent.state_dict().items()}
             # a copy: Adam's step counts are CPU tensors that load_state_dict would share
-            agents["cpu"][1].load_state_dict(copy.deepcopy(agents["cuda"][1].state_dict()))
+            adam_before = copy.deepcopy(card_opt.state_dict())
+            cpu_agent.load_state_dict(before)
+            cpu_opt.load_state_dict(copy.deepcopy(adam_before))
+            for seen in (cpu_seen, card_seen):
+                seen["relu"].clear()
+                seen["logits"].clear()
             batch = {k: v[rows_mb] for k, v in data.items()}
-            clip, ent = float(cfg.algo.clip_coef), float(cfg.algo.ent_coef)
-            on_card = agents["cuda"][2]({k: v.cuda() for k, v in batch.items()}, clip, ent, perms=own_order.cuda()).cpu()
-            on_cpu = agents["cpu"][2](batch, clip, ent, perms=own_order)
+            on_card = card_train({k: v.cuda() for k, v in batch.items()}, clip, ent, perms=own_order.cuda()).cpu()
+            on_cpu = cpu_train(batch, clip, ent, perms=own_order)
             torch.testing.assert_close(on_card, on_cpu, rtol=1e-5, atol=1e-6)
-            worst_loss = max(worst_loss, float(((on_card - on_cpu).abs() / on_cpu.abs().clamp(min=1e-12)).max()))
-            card_state, cpu_state = agents["cuda"][0].state_dict(), agents["cpu"][0].state_dict()
-            diff = max(float((card_state[k].cpu() - cpu_state[k]).abs().max()) for k in cpu_state)
-            if diff > 2e-5:
-                raise AssertionError(f"one PPO minibatch step on the card moved a parameter {diff} away from the CPU's")
-            worst_param = max(worst_param, diff)
-    return {"steps": int(perms.shape[0] * (rows // mb)), "loss_max_rel_err": worst_loss, "param_max_abs_err": worst_param}
+            worst["loss_max_rel_err"] = max(worst["loss_max_rel_err"],
+                                            float(((on_card - on_cpu).abs() / on_cpu.abs().clamp(min=1e-12)).max()))
+            card_state, cpu_state = card_agent.state_dict(), cpu_agent.state_dict()
+            worst["param_max_abs_err"] = max(worst["param_max_abs_err"],
+                                             max(float((card_state[k].cpu() - cpu_state[k]).abs().max()) for k in cpu_state))
+
+            crossed, inputs = _ppo_kinks(card_seen, cpu_seen, batch, clip)
+            if crossed > max(1.0, PPO_KINK_SHARE * inputs):
+                raise AssertionError(f"one PPO minibatch step crossed {crossed} of its {inputs} kinks on one machine only")
+            kinks, kink_steps = kinks + crossed, kink_steps + int(crossed > 0)
+            key, bound = ("kink_grad_max_rel_err", PPO_KINK_GRAD_RTOL) if crossed else ("grad_max_rel_err", PPO_GRAD_RTOL)
+            g_card = torch.cat([g.cpu().reshape(-1) for g in card_seen["grads"]])
+            g_cpu = torch.cat([g.reshape(-1) for g in cpu_seen["grads"]])
+            err = float((g_card - g_cpu).norm() / g_cpu.norm().clamp(min=1e-30))
+            if err > bound:
+                raise AssertionError(f"one PPO minibatch step ({crossed} kinks crossed) on the card: the gradient "
+                                     f"is {err} of its norm away from the CPU's")
+            worst[key] = max(worst[key], err)
+
+            cpu_agent.load_state_dict(before)
+            cpu_opt.load_state_dict(copy.deepcopy(adam_before))
+            cpu_opt.step([g.cpu() for g in card_seen["grads"]])
+            cpu_state = cpu_agent.state_dict()
+            adam = max(float((card_state[k].cpu() - cpu_state[k]).abs().max()) for k in cpu_state)
+            if adam > PPO_ADAM_ATOL:
+                raise AssertionError(f"one Adam step on the card moved a parameter {adam} away from the CPU's "
+                                     "on the same gradients")
+            worst["adam_max_abs_err"] = max(worst["adam_max_abs_err"], adam)
+    return {"steps": int(perms.shape[0] * (rows // mb)), "kinks_crossed": kinks, "steps_with_kinks": kink_steps, **worst}
 
 
 def ppo_update_phase() -> dict:
@@ -1009,18 +1167,19 @@ def _ppo_launch_check(summary: dict, launches: dict) -> None:
 
 
 def ppo_run_phase(workdir: str) -> dict:
-    """PPO on CartPole-v1 through ``run`` at the full recipe: 128 iterations
-    of 4 envs x 128 steps. ``gae`` launched exactly once per iteration and no
+    """PPO on CartPole-v1 through ``run`` at the full recipe's widths, cut to
+    PPO_ITERATIONS iterations of 4 envs x 128 steps. ``gae`` launched exactly once per iteration and no
     other kernel; every loss finite; the mean return of the last
     PPO_LAST_EPISODES episodes at least PPO_RETURN_BAR; then a resume from
     the last checkpoint for one more iteration, its counters going on."""
     kernels.reset_launches()
     t0 = time.perf_counter()
-    summary = cli.run([f"preset={PPO_PRESET}", "metric.log_level=0", f"log_root={workdir}"])
+    steps = PPO_ITERATIONS * 4 * 128
+    summary = cli.run([f"preset={PPO_PRESET}", f"algo.total_steps={steps}", "metric.log_level=0", f"log_root={workdir}"])
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     iters = summary["iterations"]
-    if iters != 128 or summary["device"].split(":")[0] != "cuda" or summary["policy_steps"] != 65536:
+    if iters != PPO_ITERATIONS or summary["device"].split(":")[0] != "cuda" or summary["policy_steps"] != steps:
         raise AssertionError(f"PPO run took {iters} iterations, {summary['policy_steps']} steps on {summary['device']}")
     _ppo_launch_check(summary, launches)
     if not np.isfinite(np.asarray(summary["losses"])).all():
@@ -1046,6 +1205,9 @@ def ppo_run_phase(workdir: str) -> dict:
         "episodes": len(returns),
         "first_10_mean_return": float(np.mean(returns[:10])),
         "last_10_mean_return": last,
+        # where the run would stand cut to half its depth
+        "last_10_mean_return_at_half": float(np.mean(
+            [ret for step, _, ret, _ in summary["episodes"] if step <= summary["policy_steps"] // 2][-PPO_LAST_EPISODES:])),
         "test_reward": summary["test_reward"],
         "losses_first": dict(zip(PPO_LOSS_NAMES, summary["losses"][0])),
         "losses_last": dict(zip(PPO_LOSS_NAMES, summary["losses"][-1])),
@@ -1057,7 +1219,7 @@ def ppo_run_phase(workdir: str) -> dict:
     resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
                        f"algo.total_steps={summary['policy_steps'] + 512}", "algo.run_test=false"])
     resume_launches = dict(kernels.LAUNCHES)
-    if resumed["start_iter"] != iters + 1 or resumed["iterations"] != 1 or resumed["policy_steps"] != 65536 + 512:
+    if resumed["start_iter"] != iters + 1 or resumed["iterations"] != 1 or resumed["policy_steps"] != steps + 512:
         raise AssertionError(f"PPO resume: start {resumed['start_iter']}, {resumed['iterations']} iterations, "
                              f"{resumed['policy_steps']} steps")
     _ppo_launch_check(resumed, resume_launches)
@@ -1071,37 +1233,459 @@ def ppo_run_phase(workdir: str) -> dict:
     return out
 
 
+# -- 11. sumtree --------------------------------------------------------------------
+
+
+def l2_latency_ns(chase_lib: str, hops: int = 1 << 20) -> float:
+    """One L2 hit's latency: the pointer chase's time per dependent hop."""
+    import ctypes
+
+    lib = ctypes.CDLL(chase_lib)
+    lib.chase_launch.argtypes = [ctypes.c_void_p, ctypes.c_uint, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    lib.chase_launch.restype = ctypes.c_int
+    stride = SECTOR_BYTES // 4  # one node per sector
+    nodes = (8 << 20) // SECTOR_BYTES
+    order = np.random.default_rng(12).permutation(nodes).astype(np.int64) * stride
+    table = np.zeros(nodes * stride, np.uint32)
+    table[order] = np.roll(order, -1)  # one random cycle through every node
+    table_d = torch.from_numpy(table).cuda()
+    out = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(n: int) -> None:
+        if lib.chase_launch(table_d.data_ptr(), int(order[0]), n, out.data_ptr(), stream) != 0:
+            raise RuntimeError("the L2 pointer chase did not launch")
+
+    run(nodes)  # the buffer into L2
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(hops)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) * 1e6 / hops
+
+
+def _sumtree_inputs(gen, leaves: int, batch: int):
+    """A tree of ``leaves`` leaves, a tenth of them padding past the filled
+    ones (always zero), every seventh filled leaf zero; ``batch`` uniforms
+    with 0 and values just under 1 among them."""
+    from sheeprl_tpu_torch.replay import sumtree as st
+
+    filled = leaves - leaves // 10
+    prios = torch.rand(filled, generator=gen, device="cuda") * 2.0 + 0.01
+    prios[::7] = 0.0
+    tree = st.update(st.init(filled, "cuda"), torch.arange(filled, device="cuda"), prios)
+    u = torch.rand(batch, generator=gen, device="cuda")
+    edges = torch.tensor([0.0, float(np.nextafter(np.float32(1), np.float32(0))), 1 - 1e-7], device="cuda")
+    u[: min(batch, 3)] = edges[: min(batch, 3)]
+    return tree, u, prios, filled
+
+
+def sumtree_bound(leaves: int, batch: int, l2_ns: float) -> dict:
+    """The least time of ``batch`` proportional draws from a tree of
+    ``leaves`` leaves: a descent is a chain of dependent reads, each costing
+    one L2 hit (``l2_ns``), and every byte moves at the card's memory rate.
+
+    A read of 2^k aligned nodes settles k levels: node i's descendants k
+    levels down are nodes [i 2^k, (i + 1) 2^k), and every internal node is
+    the exact f32 sum of its children, so the nodes between follow from
+    them. The first read, nodes [0, 2^k), is the same for every draw (read
+    once) and holds the root and k - 1 levels; each later one is per draw
+    (at least one 32-byte sector), its last holding the leaf the weight
+    needs. Wider reads mean fewer hops and more bytes: the bound is the
+    best k's max(bytes, hops x l2_ns), from one sector per hop (k = 3, 3
+    levels a hop) to the whole tree in one read (k = levels + 1)."""
+    levels = leaves.bit_length() - 1
+    best = None
+    for k in range(3, levels + 2):
+        settled, hops, moved = min(k - 1, levels), 1, 4 << k
+        while settled < levels:
+            step = min(k, levels - settled)
+            hops, settled = hops + 1, settled + step
+            moved += batch * max(SECTOR_BYTES, 4 << step)
+        moved += 12 * batch  # its uniform in, its leaf and weight out
+        bytes_ms, chain_ms = moved / HBM_BYTES_PER_S * 1e3, hops * l2_ns * 1e-6
+        cand = {"bound_ms": max(bytes_ms, chain_ms), "bound_by": "bytes" if bytes_ms >= chain_ms else "operations",
+                "bytes_ms": bytes_ms, "chain_ms": chain_ms, "hops": hops, "hop_nodes": 1 << k}
+        if best is None or cand["bound_ms"] < best["bound_ms"]:
+            best = cand
+    return best
+
+
+def sumtree_phase(chase_lib: str, beta: float = 0.55) -> dict:
+    """The kernel against its plain version on the same tree and uniforms at
+    every shape: the leaves equal, no zero-priority or padding leaf drawn,
+    the weights within rtol 1e-6 (``powf`` against ``torch.pow``, one ulp);
+    the gradient through the ``autograd.Function`` against the plain
+    chain's within 1e-5. ``ms``/``plain_ms`` are device time per call
+    (:func:`_graph_ms`); the bound is :func:`sumtree_bound` at the pointer
+    chase's L2 hit."""
+    l2_ns = l2_latency_ns(chase_lib)
+    log(f"L2 hit latency (pointer chase): {l2_ns:.1f} ns")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = []
+    for leaves, batch in SUMTREE_SHAPES:
+        tree, u, prios, filled = _sumtree_inputs(gen, leaves, batch)
+        leaf, w = kernels.sumtree_sample(tree, u, filled, beta)
+        torch.cuda.synchronize()
+        want_leaf, want_w = kernels.sumtree_sample_reference(tree, u, filled, beta)
+        if not torch.equal(leaf, want_leaf):
+            raise AssertionError(f"sumtree_sample leaves differ from the plain version at ({leaves}, {batch})")
+        if bool((leaf.long() >= filled).any()) or bool((prios[leaf.long().clamp(max=filled - 1)] <= 0).any()):
+            raise AssertionError(f"sumtree_sample drew a zero-priority leaf at ({leaves}, {batch})")
+        torch.testing.assert_close(w, want_w, rtol=1e-6, atol=0)
+        err = float(((w - want_w).abs() / want_w.abs()).max())
+        abs_err = float((w - want_w).abs().max())
+        big = leaves * batch > 1 << 28
+        row = {"leaves": leaves, "batch": batch, "max_rel_err": err, "max_abs_err": abs_err,
+               "ms": _graph_ms(lambda: kernels.sumtree_sample(tree, u, filled, beta)),
+               "plain_ms": _graph_ms(lambda: kernels.sumtree_sample_reference(tree, u, filled, beta),
+                                     per_graph=5 if big else 20, replays=5 if big else 20),
+               "call_ms": _time_ms(lambda: kernels.sumtree_sample(tree, u, filled, beta), 200)}
+        row.update(sumtree_bound(leaves, batch, l2_ns))
+        rows.append(row)
+        log(f"sumtree_sample P={leaves} B={batch}: rel err {err:.3g} kernel {row['ms'] * 1e3:.2f} us "
+            f"(call {row['call_ms'] * 1e3:.2f} us) plain {row['plain_ms'] * 1e3:.2f} us bound {row['bound_ms'] * 1e3:.3f} us "
+            f"({row['bound_by']}: {row['hops']} hops of {row['hop_nodes']} nodes, bytes {row['bytes_ms'] * 1e3:.4f} us, "
+            f"chain {row['chain_ms'] * 1e3:.3f} us)")
+    # the gradient through the autograd.Function against the plain chain's
+    tree, u, _, filled = _sumtree_inputs(gen, 1 << 10, 256)
+    scale = torch.rand(256, generator=gen, device="cuda")
+    grads = []
+    for fn in (kernels.sumtree_sample, kernels.sumtree_sample_reference):
+        t = tree.clone().requires_grad_(True)
+        (fn(t, u, filled, beta)[1] * scale).sum().backward()
+        grads.append(t.grad)
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-5, rtol=1e-5)
+    grad_err = float((grads[0] - grads[1]).abs().max())
+    log(f"sumtree_sample backward: max err {grad_err:.3g} against the plain chain")
+    main = next(r for r in rows if (r["leaves"], r["batch"]) == SUMTREE_MAIN)
+    return {
+        "name": "sumtree_sample",
+        "route": "cuda",
+        "source": "sheeprl_tpu_torch/csrc/sumtree.cu",
+        "replaces": "sheeprl_tpu/ops/kernels/sumtree.py:68",
+        "launches": None,  # filled from the SAC run phase
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes the descent and the weights
+        "call_ms": main["call_ms"],
+        "bytes_ms": main["bytes_ms"],
+        "chain_ms": main["chain_ms"],
+        "hops": main["hops"],
+        "hop_nodes": main["hop_nodes"],
+        "l2_hit_ns": l2_ns,
+        "leaves_exact": True,
+        "max_rel_err": max(r["max_rel_err"] for r in rows),
+        "grad_max_abs_err": grad_err,
+        "shapes": rows,
+    }
+
+
+# -- 12. one SAC dispatch on the card against the CPU -----------------------------
+
+
+def _sac_parts(cfg, device: str, agent_state=None):
+    from sheeprl_tpu_torch.algos.sac.agent import build_agent as build_sac_agent
+    from sheeprl_tpu_torch.algos.sac.sac import make_optimizers as make_sac_optimizers
+
+    space = {"shape": [1], "low": [-2.0], "high": [2.0]}  # Pendulum-v1's torque
+    agent, _ = build_sac_agent(cfg, 3, space, device, agent_state)
+    return agent, make_sac_optimizers(cfg, agent)
+
+
+def _sac_ring(cfg, device: str):
+    from sheeprl_tpu_torch.algos.sac.sac import _ring_specs
+    from sheeprl_tpu_torch.replay import DeviceReplayBuffer
+
+    per = cfg.buffer.priority
+    n_envs = int(cfg.env.num_envs)
+    return DeviceReplayBuffer(_ring_specs(3, 1), int(cfg.buffer.size) // n_envs, n_envs, device=device,
+                              prioritized=True, per_alpha=float(per.alpha), per_eps=float(per.eps), seed=int(cfg.seed) + 29)
+
+
+def sac_update_phase(filled_rows: int = 4096, beta: float = 0.5) -> dict:
+    """One device-resident dispatch at the full ``sac_per`` width on the
+    card against the CPU, TF32 off: a ring of 250,000 x 4 holding
+    ``filled_rows`` random rows at random priorities (``max_p`` 2.5), one
+    staged row appended (its fresh leaves at ``max_p``), then the 4 granted
+    PER steps, each run on both machines from the card's state just before
+    it (weights, Adam, sum-tree, ``max_p``) with the same uniforms and noise:
+
+    - the drawn batch is the same on both (the kernel's leaves equal the
+      plain version's), so the step's three losses agree within rtol 1e-5
+      (atol 1e-6 for the entropy loss near 0): float32 sums in another order;
+    - every parameter within 2e-5: Adam moves an element by up to lr / eps =
+      3 times a gradient rounding where the gradient is near 0;
+    - the sum-tree and ``max_p`` within rtol 1e-5 (atol 1e-5): the written
+      priorities are |TD|s of those float32 forwards, summed in the same pairs."""
+    from sheeprl_tpu_torch.algos.sac.sac import make_resident_train_step
+    from sheeprl_tpu_torch.replay import DeviceReplayState
+    from sheeprl_tpu_torch.replay import sumtree as st
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = preset(SAC_PRESET)
+    rng = np.random.default_rng(14)
+    agents = {dev: _sac_parts(cfg, dev) for dev in ("cpu", "cuda")}
+    rings = {dev: _sac_ring(cfg, dev) for dev in ("cpu", "cuda")}
+    capacity, n_envs, B = rings["cpu"].capacity, rings["cpu"].n_envs, int(cfg.algo.per_rank_batch_size)
+    arrays = {}
+    for k, (shape, _) in rings["cpu"].specs.items():
+        full = np.zeros((capacity, n_envs) + shape, np.float32)
+        full[:filled_rows] = rng.normal(size=(filled_rows, n_envs) + shape)
+        arrays[f"storage/{k}"] = torch.from_numpy(full)
+    arrays["storage/terminated"].zero_()
+    leaves = filled_rows * n_envs
+    arrays["tree"] = st.update(st.init(capacity * n_envs), torch.arange(leaves),
+                               torch.from_numpy(rng.uniform(0.05, 2.0, size=leaves).astype(np.float32)))
+    arrays["max_p"] = torch.tensor(2.5)
+    meta = {"capacity": capacity, "n_envs": n_envs, "prioritized": True, "host_pos": filled_rows, "host_full": False}
+    staged = {k: rng.normal(size=(1, n_envs) + shape).astype(np.float32) for k, (shape, _) in rings["cpu"].specs.items()}
+    for drb in rings.values():  # each keeps its own generator: the steps take their draws as arguments
+        drb.load_state_dict(DeviceReplayState("uniform", {**arrays, "key": drb.generator.get_state()}, meta))
+        drb.add(staged)
+    trains = {dev: make_resident_train_step(agents[dev][0], agents[dev][1], cfg, rings[dev]) for dev in rings}
+    for dev in rings:  # the append alone
+        trains[dev](rings[dev].make_job(), [], beta)
+    if not torch.equal(rings["cuda"].tree.cpu(), rings["cpu"].tree) or float(rings["cuda"].max_p) != 2.5:
+        raise AssertionError("the appended fresh leaves differ between the card and the CPU")
+    gen = torch.Generator().manual_seed(15)
+    worst = {"loss_rel": 0.0, "param": 0.0, "tree": 0.0, "max_p": 0.0}
+    losses_cpu = []
+    for g in range(4):
+        card_agent, card_opts = agents["cuda"]
+        cpu_agent, cpu_opts = agents["cpu"]
+        cpu_agent.load_state_dict(card_agent.state_dict())
+        for a, b in zip(cpu_opts, card_opts):  # a copy: Adam's step counts are CPU tensors
+            a.load_state_dict(copy.deepcopy(b.state_dict()))
+        rings["cpu"].tree.copy_(rings["cuda"].tree.cpu())
+        rings["cpu"].max_p.copy_(rings["cuda"].max_p.cpu())
+        draws = {"u": torch.rand((1, B), generator=gen), "next": torch.randn((1, B, 1), generator=gen),
+                 "actor": torch.randn((1, B, 1), generator=gen)}
+        out = {}
+        for dev in ("cuda", "cpu"):
+            job = rings[dev].make_job()  # nothing staged: the step samples the ring as it is
+            out[dev] = trains[dev](job, [1.0], beta, draws={k: v.to(dev) for k, v in draws.items()}).cpu()
+        torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-5, atol=1e-6)
+        losses_cpu.append(out["cpu"].tolist())
+        worst["loss_rel"] = max(worst["loss_rel"], float(((out["cuda"] - out["cpu"]).abs() / out["cpu"].abs().clamp(min=1e-12)).max()))
+        card_state, cpu_state = card_agent.state_dict(), cpu_agent.state_dict()
+        diff = max(float((card_state[k].cpu() - cpu_state[k]).abs().max()) for k in cpu_state)
+        if diff > 2e-5:
+            raise AssertionError(f"SAC step {g} on the card moved a parameter {diff} away from the CPU's")
+        torch.testing.assert_close(rings["cuda"].tree.cpu(), rings["cpu"].tree, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(rings["cuda"].max_p.cpu(), rings["cpu"].max_p, rtol=1e-5, atol=1e-5)
+        worst["param"] = max(worst["param"], diff)
+        worst["tree"] = max(worst["tree"], float((rings["cuda"].tree.cpu() - rings["cpu"].tree).abs().max()))
+        worst["max_p"] = max(worst["max_p"], abs(float(rings["cuda"].max_p) - float(rings["cpu"].max_p)))
+    out = {"steps": 4, "losses_cpu": losses_cpu, "loss_max_rel_err": worst["loss_rel"], "param_max_abs_err": worst["param"],
+           "tree_max_abs_err": worst["tree"], "max_p_abs_err": worst["max_p"], "max_p": float(rings["cuda"].max_p)}
+    log("SAC update (card vs CPU, per step): " + json.dumps(out))
+    return out
+
+
+# -- 13. SAC run ----------------------------------------------------------------
+
+
+def _profile_sac_dispatch(checkpoint: str) -> dict:
+    """One full-width dispatch (append + 4 PER steps) from the run's
+    checkpoint, after warm-up dispatches: host time (ending in a
+    synchronize), and device time and operations from ``torch.profiler``,
+    with ``sumtree_sample``'s share."""
+    from sheeprl_tpu_torch.algos.sac.sac import make_resident_train_step
+    from sheeprl_tpu_torch.replay import DeviceReplayState
+
+    cfg = load_config(find_run_config(checkpoint))
+    state = load_checkpoint(checkpoint)
+    agent, optimizers = _sac_parts(cfg, "cuda", state["agent"])
+    for opt, name in zip(optimizers, ("actor_optimizer", "qf_optimizer", "alpha_optimizer")):
+        opt.load_state_dict(state[name])
+    drb = _sac_ring(cfg, "cuda").load_state_dict(DeviceReplayState.from_dict(state["rb"]))
+    train = make_resident_train_step(agent, optimizers, cfg, drb)
+    rng = np.random.default_rng(16)
+
+    def dispatch():
+        drb.add({k: rng.normal(size=(1, 4) + shape).astype(np.float32) for k, (shape, _) in drb.specs.items()})
+        return train(drb.make_job(), [1.0] * 4, 1.0)
+
+    for _ in range(3):
+        dispatch()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        dispatch()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    acts = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+        dispatch()
+        torch.cuda.synchronize()
+    events = _device_kernels(prof)
+    device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    kern_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events if "sumtree_sample" in e.key)
+    top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:8]
+    return {
+        "host_ms": float(np.median(host) * 1e3),
+        "host_ms_all": [h * 1e3 for h in host],
+        "device_ms": device_us / 1e3 if device_us > 0 else None,
+        "device_busy_share": device_us / 1e3 / (np.median(host) * 1e3) if device_us > 0 else None,
+        "device_ops": sum(e.count for e in events),
+        "sumtree_sample": {"device_ms": kern_us / 1e3, "share": kern_us / device_us if device_us > 0 else None,
+                           "ops": sum(e.count for e in events if "sumtree_sample" in e.key)},
+        "top": [{"name": e.key[:80], "device_ms": getattr(e, "self_device_time_total", 0.0) / 1e3, "count": e.count}
+                for e in top],
+    }
+
+
+def _sac_launch_check(summary: dict, launches: dict) -> None:
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want["sumtree_sample"] = summary["gradient_steps"]
+    if launches != want:
+        raise AssertionError(f"SAC launches {launches} != {want} for {summary['gradient_steps']} gradient steps")
+
+
+def sac_run_phase(workdir: str) -> dict:
+    """SAC with PER on Pendulum-v1 through ``run`` at full width,
+    ``total_steps`` 16,384 (4,096 iterations of 4 envs): ``sumtree_sample``
+    launched exactly once per gradient step and no other kernel; every loss
+    finite; the best mean return over SAC_WINDOW consecutive episodes at
+    least SAC_RETURN_BAR. Then a resume from the last checkpoint for
+    SAC_RESUME_ITERATIONS iterations: the ring, the sum-tree, ``max_p`` and
+    the draw generator it restores equal the checkpoint's, and its counters
+    go on."""
+    from sheeprl_tpu_torch.algos.sac import sac as sac_module
+    from sheeprl_tpu_torch.replay import DeviceReplayState
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.run([f"preset={SAC_PRESET}", f"algo.total_steps={SAC_TOTAL_STEPS}", "metric.log_level=0",
+                       f"log_root={workdir}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    iters = SAC_TOTAL_STEPS // 4
+    if (summary["iterations"] != iters or summary["device"].split(":")[0] != "cuda" or not summary["prioritized"]
+            or summary["policy_steps"] != SAC_TOTAL_STEPS):
+        raise AssertionError(f"SAC run: {summary['iterations']} iterations on {summary['device']}, "
+                             f"prioritized {summary['prioritized']}")
+    _sac_launch_check(summary, launches)
+    if not np.isfinite(np.asarray(summary["losses"])).all() or len(summary["losses"]) != summary["train_calls"]:
+        raise AssertionError("non-finite or missing SAC losses")
+    returns = [ret for _, _, ret, _ in summary["episodes"]]
+    windows = [float(np.mean(returns[i:i + SAC_WINDOW])) for i in range(len(returns) - SAC_WINDOW + 1)]
+    best = max(windows) if windows else float("-inf")
+    if best < SAC_RETURN_BAR:
+        raise AssertionError(f"SAC did not learn Pendulum: best mean of {SAC_WINDOW} episodes {best}")
+    env_ms, train_ms = (np.asarray(summary[k]) * 1e3 for k in ("env_s", "train_s"))
+    learning = int(preset(SAC_PRESET).algo.learning_starts) // 4  # the warm-up iterations train nothing
+    out = {
+        "iterations": summary["iterations"],
+        "policy_steps": summary["policy_steps"],
+        "gradient_steps": summary["gradient_steps"],
+        "dispatches": summary["replay"]["Replay/flushes"],
+        "launches": launches,
+        "wall_s": wall,
+        "env_steps_per_s": summary["env_steps_per_s"],
+        "host_ms_per_iteration": {
+            "env_median": float(np.median(env_ms)), "env_range": [float(env_ms.min()), float(env_ms.max())],
+            "train_median": float(np.median(train_ms[learning:])),
+            "train_range": [float(train_ms[learning:].min()), float(train_ms[learning:].max())],
+        },
+        "episodes": len(returns),
+        "first_10_mean_return": float(np.mean(returns[:SAC_WINDOW])),
+        "best_10_mean_return": best,
+        "last_10_mean_return": float(np.mean(returns[-SAC_WINDOW:])),
+        "test_reward": summary["test_reward"],
+        "losses_first": dict(zip(sac_module.LOSS_NAMES, summary["losses"][0])),
+        "losses_last": dict(zip(sac_module.LOSS_NAMES, summary["losses"][-1])),
+        "replay": summary["replay"],
+        "checkpoint": summary["checkpoint"],
+    }
+    log("SAC run: " + json.dumps({k: v for k, v in out.items() if k != "checkpoint"}))
+
+    saved = DeviceReplayState.from_dict(load_checkpoint(summary["checkpoint"])["rb"])
+    restored = {}
+
+    class _Recording(sac_module.DeviceReplayBuffer):
+        def load_state_dict(self, snap):
+            super().load_state_dict(snap)
+            restored.update(self.state_dict().arrays)
+            return self
+
+    kernels.reset_launches()
+    sac_module.DeviceReplayBuffer = _Recording
+    try:
+        resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0", "algo.run_test=false",
+                           f"algo.total_steps={SAC_TOTAL_STEPS + 4 * SAC_RESUME_ITERATIONS}"])
+    finally:
+        sac_module.DeviceReplayBuffer = _Recording.__bases__[0]
+    resume_launches = dict(kernels.LAUNCHES)
+    same = {k: torch.equal(restored[k], v) for k, v in saved.arrays.items()}
+    if not all(same.values()):
+        raise AssertionError(f"the resume restored a different ring: {same}")
+    if (resumed["start_iter"] != iters + 1 or resumed["iterations"] != SAC_RESUME_ITERATIONS
+            or resumed["gradient_steps"] == 0):
+        raise AssertionError(f"SAC resume: start {resumed['start_iter']}, {resumed['iterations']} iterations, "
+                             f"{resumed['gradient_steps']} gradient steps")
+    _sac_launch_check(resumed, resume_launches)
+    out["resume"] = {"start_iter": resumed["start_iter"], "policy_steps": resumed["policy_steps"],
+                     "gradient_steps": resumed["gradient_steps"], "launches": resume_launches,
+                     "restored_equal": sorted(same), "losses": resumed["losses"]}
+    log("SAC resume: " + json.dumps({k: v for k, v in out["resume"].items() if k != "losses"}))
+    out["profile"] = _profile_sac_dispatch(summary["checkpoint"])
+    log("SAC dispatch profile: " + json.dumps(out["profile"]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    card = device_phase()
-    build_phase()
-    gru = gru_gates_phase(main_batch=16)
-    two_hot = two_hot_phase()
-    gae_row = gae_phase()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t0, 1)
+        return out
+
+    card = timed("device", device_phase)
+    chase_lib = timed("build", build_phase)
+    gru = timed("gru_gates", gru_gates_phase, 16)
+    two_hot = timed("two_hot", two_hot_phase)
+    gae_row = timed("gae", gae_phase)
+    sumtree_row = timed("sumtree", sumtree_phase, str(chase_lib))
     cfg = preset("dreamer_v3_S_atari100k")
-    model = model_phase(cfg)
-    step = step_phase(cfg)
-    train_step = train_step_phase()
+    model = timed("model", model_phase, cfg)
+    step = timed("step", step_phase, cfg)
+    train_step = timed("train_step", train_step_phase)
     with tempfile.TemporaryDirectory() as workdir:
-        run = run_phase(workdir)
-        serve = serve_phase(run["checkpoint"])
-    ppo_update = ppo_update_phase()
+        run = timed("run", run_phase, workdir)
+        serve = timed("serve", serve_phase, run["checkpoint"])
+    ppo_update = timed("ppo_update", ppo_update_phase)
     with tempfile.TemporaryDirectory() as workdir:
-        ppo_run = ppo_run_phase(workdir)
+        ppo_run = timed("ppo_run", ppo_run_phase, workdir)
+    sac_update = timed("sac_update", sac_update_phase)
+    with tempfile.TemporaryDirectory() as workdir:
+        sac_run = timed("sac_run", sac_run_phase, workdir)
+    paths = {"run": run, "serve": serve, "ppo_run": ppo_run, "sac_run": sac_run}
+    for row in [gru] + two_hot + [gae_row, sumtree_row]:
+        row["launches_by_path"] = {name: path["launches"][row["name"]] for name, path in paths.items()}
     for row in [gru] + two_hot:
         row["launches"] = run["launches"][row["name"]]
-        row["launches_by_path"] = {"run": run["launches"][row["name"]], "serve": serve["launches"][row["name"]],
-                                   "ppo_run": ppo_run["launches"][row["name"]]}
     gae_row["launches"] = ppo_run["launches"]["gae"]
-    gae_row["launches_by_path"] = {"run": run["launches"]["gae"], "serve": serve["launches"]["gae"],
-                                   "ppo_run": ppo_run["launches"]["gae"], "ppo_resume": ppo_run["resume"]["launches"]["gae"]}
-    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
+    gae_row["launches_by_path"]["ppo_resume"] = ppo_run["resume"]["launches"]["gae"]
+    sumtree_row["launches"] = sac_run["launches"]["sumtree_sample"]
+    sumtree_row["launches_by_path"]["sac_resume"] = sac_run["resume"]["launches"]["sumtree_sample"]
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s; seconds by phase: {json.dumps(phase_s)}")
     print(json.dumps({"model": model, "step": step, "train_step": train_step, "run": run, "serve": serve,
-                      "ppo_update": ppo_update, "ppo_run": ppo_run}))
-    print(json.dumps({"kernels": [gru] + two_hot + [gae_row]}))
+                      "ppo_update": ppo_update, "ppo_run": ppo_run, "sac_update": sac_update, "sac_run": sac_run}))
+    print(json.dumps({"kernels": [gru] + two_hot + [gae_row, sumtree_row]}))
     print(card)
     print(json.dumps({
         "ok": True,

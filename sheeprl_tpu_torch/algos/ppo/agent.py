@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from sheeprl_tpu_torch.distributions import OneHotCategorical
-from sheeprl_tpu_torch.models import MLP, MultiEncoder, NatureCNN
+from sheeprl_tpu_torch.models import MLP, MultiEncoder, NatureCNN, lecun_normal_
 
 __all__ = ["PPOAgent", "CNNEncoder", "MLPEncoder", "forward_with_actions", "sample_actions", "PPOPlayer", "build_agent"]
 
@@ -182,18 +182,6 @@ class PPOPlayer:
         return sample_actions(self.agent, obs, self.generator, greedy=greedy)[0]
 
 
-def _lecun_normal_(module: nn.Module, generator: torch.Generator) -> None:
-    """flax's default ``Dense``/``Conv`` initialisation: kernels from a
-    normal truncated at 2 std with variance ``1 / fan_in``, biases zero."""
-    for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
-            fan_in = m.weight.shape[1] * int(np.prod(m.weight.shape[2:]))
-            std = np.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
-            if m.bias is not None:
-                nn.init.zeros_(m.bias)
-
-
 def build_agent(
     cfg: Any,
     actions_dim: Sequence[int],
@@ -219,7 +207,7 @@ def build_agent(
         int(cfg.env.screen_size),
     )
     with torch.no_grad():
-        _lecun_normal_(agent, torch.Generator().manual_seed(int(cfg.get("seed") or 0)))
+        lecun_normal_(agent, torch.Generator().manual_seed(int(cfg.get("seed") or 0)))
     if agent_state is not None:
         agent.load_state_dict(agent_state)
     agent = agent.to(device)

@@ -1,0 +1,429 @@
+"""SAC coupled training (counterpart of ``sheeprl_tpu/algos/sac/sac.py``,
+one device).
+
+Each iteration, in the JAX package's order: one env step of ``num_envs``
+envs (uniform random actions until ``learning_starts``, then the actor's
+samples), the transition stored with the real final observation of a
+truncated env as its next observation, then the gradient steps the
+``Ratio`` grants. A gradient step is the critic's TD update, the target
+critics' EMA, the actor's update and the entropy coefficient's, each with
+its own Adam.
+
+Two replay tiers, chosen by ``buffer.device_resident`` (and the HBM budget):
+
+- host (:func:`make_train_step`): the numpy ``ReplayBuffer``, uniform
+  ``(G, B)`` samples copied to the device in one transfer, then G steps;
+- device-resident (:func:`make_resident_train_step`): the ring lives on the
+  device (:class:`~sheeprl_tpu_torch.replay.DeviceReplayBuffer`); each env
+  step is one dispatch that appends the staged row and runs the granted
+  steps, each drawing its batch on the device: uniform, or with
+  ``buffer.priority.enabled`` proportional through the sum-tree by the CUDA
+  ``sumtree_sample`` kernel, whose IS weights scale the critic's errors and
+  whose |TD| priorities go back into the tree. ``beta`` anneals to 1 over
+  ``total_steps``.
+
+Random numbers come from explicit ``torch.Generator``s (the player's, the
+host path's train draws, and the device ring's own stream, which its
+checkpoint carries); both train steps take their uniforms and Gaussian noise
+as arguments too, so a test can feed JAX's draws. Losses stay on the device
+until a log point reads them.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+import warnings
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from sheeprl_tpu_torch.algos.sac.agent import SACAgent, build_agent
+from sheeprl_tpu_torch.algos.sac.loss import critic_loss, entropy_loss, policy_loss
+from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, test
+from sheeprl_tpu_torch.config import dotdict, plain
+from sheeprl_tpu_torch.data import ReplayBuffer
+from sheeprl_tpu_torch.envs import make_vector_env
+from sheeprl_tpu_torch.ops.kernels import sumtree_sample
+from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
+from sheeprl_tpu_torch.replay import DeviceReplayBuffer, DeviceReplayState, resolve_device_resident, restore_host_buffer
+from sheeprl_tpu_torch.replay import sumtree as st
+from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from sheeprl_tpu_torch.utils.utils import Ratio
+
+__all__ = ["LOSS_NAMES", "RING_KEYS", "make_optimizers", "make_train_step", "make_resident_train_step", "main"]
+
+LOSS_NAMES = ("Loss/value_loss", "Loss/policy_loss", "Loss/alpha_loss")
+#: what a stored transition holds, in the order a host sample is packed for its one copy to the device
+RING_KEYS = ("observations", "next_observations", "actions", "rewards", "terminated")
+
+Optimizers = Tuple[ClippedOptimizer, ClippedOptimizer, ClippedOptimizer]
+
+
+def make_optimizers(cfg: Any, agent: SACAgent) -> Optimizers:
+    """``(actor, critic, alpha)`` Adams, as the JAX package's ``actor_tx``,
+    ``critic_tx`` and ``alpha_tx``."""
+    algo = cfg.algo
+    return (
+        build_optimizer(agent.actor.parameters(), algo.actor.optimizer),
+        build_optimizer(agent.critic.parameters(), algo.critic.optimizer),
+        build_optimizer([agent.log_alpha], algo.alpha.optimizer),
+    )
+
+
+def _gradient_step(agent: SACAgent, optimizers: Optimizers, gamma: float) -> Callable:
+    """One SAC update: ``step(batch, weights, noise_next, noise_actor, ema)
+    -> (losses (3,), q (B, n), td_target (B, 1))``, the agent updated in
+    place. ``weights`` are PER's normalized IS weights or None."""
+    actor_opt, critic_opt, alpha_opt = optimizers
+    actor_params, critic_params = list(agent.actor.parameters()), list(agent.critic.parameters())
+
+    def step(batch: Dict[str, torch.Tensor], weights: Optional[torch.Tensor], noise_next: torch.Tensor,
+             noise_actor: torch.Tensor, ema: bool):
+        obs = batch["observations"]
+        td_target = agent.next_target_q(
+            batch["next_observations"], batch["rewards"], batch["terminated"], gamma, noise_next
+        )
+        q = agent.q_values(obs, batch["actions"])
+        qf_loss = critic_loss(q, td_target, weights)
+        critic_opt.step(torch.autograd.grad(qf_loss, critic_params))
+        if ema:
+            agent.ema()
+
+        alpha = torch.exp(agent.log_alpha.detach())
+        actions, logp = agent.sample_action(obs, noise_actor)
+        min_q = torch.min(agent.q_values(obs, actions), dim=-1, keepdim=True).values
+        actor_loss = policy_loss(alpha, logp, min_q)
+        actor_opt.step(torch.autograd.grad(actor_loss, actor_params))
+
+        alpha_loss = entropy_loss(agent.log_alpha, logp.detach(), agent.target_entropy)
+        alpha_opt.step(torch.autograd.grad(alpha_loss, [agent.log_alpha]))
+        return torch.stack([qf_loss, actor_loss, alpha_loss]).detach(), q.detach(), td_target
+
+    return step
+
+
+def make_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any) -> Callable:
+    """The host-replay update (JAX ``make_train_step`` on one device):
+    ``train(data, ema, noise=None, generator=None) -> losses``. ``data``
+    holds ``(G, B, ...)`` float32 tensors of :data:`RING_KEYS` on the
+    agent's device; ``noise`` is ``{"next", "actor"}``, each ``(G, B,
+    act_dim)`` standard normal, else drawn from ``generator``. ``ema`` is the
+    JAX ``ema_flag`` of the iteration. Returns the ``(3,)`` mean of
+    :data:`LOSS_NAMES` over the G steps, left on the device."""
+    step = _gradient_step(agent, optimizers, float(cfg.algo.gamma))
+
+    def train(data: Dict[str, torch.Tensor], ema: bool, noise: Optional[Dict[str, torch.Tensor]] = None,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        G, B = data["actions"].shape[:2]
+        device = data["actions"].device
+        if noise is None:
+            noise = {k: torch.randn((G, B, agent.action_dim), generator=generator, device=device) for k in ("next", "actor")}
+        total = torch.zeros(3, dtype=torch.float32, device=device)
+        for g in range(G):
+            losses, _, _ = step({k: data[k][g] for k in RING_KEYS}, None, noise["next"][g], noise["actor"][g], bool(ema))
+            total += losses
+        return total / G
+
+    return train
+
+
+def make_resident_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, drb: DeviceReplayBuffer) -> Callable:
+    """The device-resident dispatch (JAX ``make_resident_train_step`` on one
+    device): ``train(job, flags, beta=0.0, draws=None) -> losses or None``.
+
+    ``job`` is :meth:`DeviceReplayBuffer.make_job`'s flush, appended first;
+    then one gradient step per entry of ``flags`` (the granted steps' EMA
+    flags; none for a step that only appends). Each step draws ``B`` rows
+    from the ``job.valid`` rows now stored: with PER, proportionally through
+    the sum-tree (``sumtree_sample``, importance weights with exponent
+    ``beta`` normalized by the batch's largest), then writes ``(|TD| +
+    eps)^alpha`` back as the drawn leaves' priorities and raises ``max_p``;
+    else uniformly over the ``(row, env)`` grid. ``draws`` holds each step's
+    random numbers, ``(G, B)`` uniforms ``u`` (PER) or ``pos``/``env``
+    indices (uniform), and ``next``/``actor`` Gaussian noise ``(G, B,
+    act_dim)``; else they come from the ring's generator. Returns the
+    ``(3,)`` mean of :data:`LOSS_NAMES` over the steps, on the device, or
+    None without steps. Nothing here reads the device back."""
+    step = _gradient_step(agent, optimizers, float(cfg.algo.gamma))
+    batch_size = int(cfg.algo.per_rank_batch_size)
+    n_envs = drb.n_envs
+    flat = {k: v.view(drb.capacity * n_envs, *v.shape[2:]) for k, v in drb.storage.items()}
+
+    def draw(count: int, valid: int) -> Dict[str, torch.Tensor]:
+        gen, dev = drb.generator, drb.device
+        if drb.prioritized:
+            draws = {"u": torch.rand((count, batch_size), generator=gen, device=dev)}
+        else:
+            draws = {
+                "pos": torch.randint(0, max(valid, 1), (count, batch_size), generator=gen, device=dev),
+                "env": torch.randint(0, n_envs, (count, batch_size), generator=gen, device=dev),
+            }
+        for k in ("next", "actor"):
+            draws[k] = torch.randn((count, batch_size, agent.action_dim), generator=gen, device=dev)
+        return draws
+
+    def train(job, flags: Sequence[float], beta: float = 0.0,
+              draws: Optional[Dict[str, torch.Tensor]] = None) -> Optional[torch.Tensor]:
+        drb.append(job)
+        if not flags:
+            return None
+        if draws is None:
+            draws = draw(len(flags), job.valid)
+        total = torch.zeros(3, dtype=torch.float32, device=drb.device)
+        for g, flag in enumerate(flags):
+            weights = None
+            if drb.prioritized:
+                leaf, weights = sumtree_sample(drb.tree, draws["u"][g], job.valid * n_envs, beta)
+                weights = weights / torch.clamp(weights.max(), min=1e-12)
+                rows = leaf.to(torch.int64)  # leaves are (row, env) row-major
+            else:
+                rows = draws["pos"][g] * n_envs + draws["env"][g]
+            batch = {k: flat[k][rows] for k in RING_KEYS}
+            losses, q, td_target = step(batch, weights, draws["next"][g], draws["actor"][g], bool(flag))
+            if drb.prioritized:
+                priority = torch.pow(torch.mean(torch.abs(q - td_target), dim=-1) + drb.per_eps, drb.per_alpha)
+                st.update(drb.tree, rows, priority)
+                torch.maximum(drb.max_p, priority.max(), out=drb.max_p)
+            total += losses
+        return total / len(flags)
+
+    return train
+
+
+def _ring_specs(obs_dim: int, act_dim: int) -> Dict[str, Tuple[tuple, Any]]:
+    return {
+        "observations": ((obs_dim,), np.float32),
+        "next_observations": ((obs_dim,), np.float32),
+        "actions": ((act_dim,), np.float32),
+        "rewards": ((1,), np.float32),
+        "terminated": ((1,), np.float32),
+    }
+
+
+def _to_device(sample: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
+    """A host sample's :data:`RING_KEYS` as float32 on ``device``, in ONE copy."""
+    widths = [int(np.prod(sample[k].shape[2:])) for k in RING_KEYS]
+    lead = sample[RING_KEYS[0]].shape[:2]
+    packed = np.concatenate([sample[k].reshape(*lead, -1).astype(np.float32) for k in RING_KEYS], axis=-1)
+    on_device = torch.from_numpy(packed).to(device)
+    return dict(zip(RING_KEYS, torch.split(on_device, widths, dim=-1)))
+
+
+def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
+    """The coupled loop: act, store, train, log, checkpoint; a greedy test
+    episode at the end with ``algo.run_test``. Returns a summary of the run
+    (counters, the losses of every train call, the finished episodes, host
+    seconds per iteration, the replay tier and its metrics, the last
+    checkpoint's path)."""
+    device = torch.device(device)
+    state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.get("resume_from") else None
+    algo = cfg.algo
+    if list(algo.cnn_keys.encoder):
+        warnings.warn("SAC algorithm cannot allow to use images as observations, the CNN keys will be ignored")
+        algo.cnn_keys["encoder"] = []
+    mlp_keys = list(algo.mlp_keys.encoder)
+    if not mlp_keys:
+        raise RuntimeError("You should specify at least one MLP key for the encoder: `mlp_keys.encoder=[state]`")
+    if cfg.buffer.sample_next_obs:
+        raise NotImplementedError("buffer.sample_next_obs is not ported: the port stores every transition's next observation")
+    num_envs = int(cfg.env.num_envs)
+    seed = int(cfg.seed)
+
+    envs = make_vector_env(cfg, seed)
+    cfg["spaces"] = dotdict(envs.spaces)
+    action_space = cfg.spaces.actions
+    if not action_space.get("continuous", False):
+        raise ValueError("Only continuous action space is supported for the SAC agent")
+    obs_dim = int(sum(np.prod(cfg.spaces.obs[k].shape) for k in mlp_keys))
+    act_dim = int(np.prod(action_space.shape))
+    low, high = np.asarray(action_space.low, np.float32), np.asarray(action_space.high, np.float32)
+
+    generator = torch.Generator(device=device).manual_seed(seed)
+    if state is not None and state.get("rng") is not None:
+        generator.set_state(state["rng"])
+    agent, player = build_agent(cfg, obs_dim, action_space, device, state["agent"] if state is not None else None, generator)
+    optimizers = make_optimizers(cfg, agent)
+    if state is not None:
+        for opt, name in zip(optimizers, ("actor_optimizer", "qf_optimizer", "alpha_optimizer")):
+            opt.load_state_dict(state[name])
+        algo["per_rank_batch_size"] = int(state["batch_size"])
+    batch_size = int(algo.per_rank_batch_size)
+
+    log_dir = os.path.join(
+        str(cfg.log_root), str(algo.name), str(cfg.env.id), str(cfg.get("run_name") or f"seed_{seed}")
+    )
+    buffer_size = int(cfg.buffer.size) // num_envs
+    specs = _ring_specs(obs_dim, act_dim)
+    per_cfg = cfg.buffer.priority
+    prioritized = bool(per_cfg.enabled)
+    resident, reason = resolve_device_resident(
+        cfg.buffer.device_resident, specs, buffer_size, num_envs, float(cfg.buffer.hbm_budget_gb), prioritized
+    )
+    log_level = int(cfg.metric.get("log_level", 1))
+    if log_level > 0 and cfg.buffer.device_resident:
+        print(f"Replay: device_resident={resident} ({reason})", flush=True)
+
+    rb = ReplayBuffer(buffer_size, num_envs, ("observations",))
+    rb.seed(seed)
+    saved_rb = state.get("rb") if state is not None and cfg.buffer.checkpoint else None
+    restored_ring = None
+    if saved_rb is not None:
+        if "kind" not in saved_rb:
+            rb.load_state_dict(saved_rb)
+        elif resident:
+            restored_ring = DeviceReplayState.from_dict(saved_rb)
+        else:  # a device ring resumed on the host tier
+            restore_host_buffer(DeviceReplayState.from_dict(saved_rb), rb, fill_missing={"truncated": ((1,), np.uint8)})
+
+    policy_steps_per_iter = num_envs
+    start_iter = int(state["iter_num"]) + 1 if state is not None else 1
+    policy_step = int(state["iter_num"]) * num_envs if state is not None else 0
+    last_log = int(state["last_log"]) if state is not None else 0
+    last_checkpoint = int(state["last_checkpoint"]) if state is not None else 0
+    total_iters = int(algo.total_steps) // policy_steps_per_iter
+    learning_starts = int(algo.learning_starts) // policy_steps_per_iter
+    prefill_steps = learning_starts - int(learning_starts > 0)
+    if state is not None:
+        learning_starts += start_iter
+        prefill_steps += start_iter
+    ratio = Ratio(float(algo.replay_ratio), pretrain_steps=int(algo.per_rank_pretrain_steps))
+    if state is not None:
+        ratio.load_state_dict(state["ratio"])
+    ema_modulus = int(algo.critic.target_network_frequency) // policy_steps_per_iter + 1
+    log_every = int(cfg.metric.get("log_every", 5000))
+
+    drb = None
+    if resident:
+        grad_max = max(1, int(math.ceil(float(algo.replay_ratio) * policy_steps_per_iter)))
+        drb = DeviceReplayBuffer(
+            specs, buffer_size, num_envs, device=device, prioritized=prioritized,
+            per_alpha=float(per_cfg.alpha), per_eps=float(per_cfg.eps), seed=seed + 29,
+        )
+        if restored_ring is not None:
+            drb.load_state_dict(restored_ring)
+        elif not rb.empty:  # resumed from a host-buffer checkpoint
+            drb.load_host_buffer(rb)
+        resident_fn = make_resident_train_step(agent, optimizers, cfg, drb)
+        beta0 = float(per_cfg.beta)
+        ema_backlog: List[float] = []
+    else:
+        train_fn = make_train_step(agent, optimizers, cfg)
+
+    action_rng = np.random.default_rng(seed)
+    obs = envs.reset(seed=seed)[0]
+    summary: Dict[str, Any] = {
+        "start_iter": start_iter, "iterations": 0, "gradient_steps": 0, "train_calls": 0, "losses": [],
+        "episodes": [], "env_s": [], "train_s": [], "checkpoint": None, "device": str(device), "test_reward": None,
+        "resident": resident, "prioritized": resident and prioritized,
+    }
+    pending: List[torch.Tensor] = []  # losses still on the device
+
+    def read_losses() -> None:
+        if pending:
+            summary["losses"].extend(torch.stack(pending).cpu().tolist())
+            pending.clear()
+
+    for iter_num in range(start_iter, total_iters + 1):
+        policy_step += policy_steps_per_iter
+        t0 = time.perf_counter()
+        if iter_num <= learning_starts:
+            actions = action_rng.uniform(low, high, size=(num_envs, act_dim)).astype(np.float32)
+        else:
+            actions = player(prepare_obs(obs, mlp_keys, num_envs, device)).cpu().numpy()
+        next_obs, rewards, terminated, truncated, infos = envs.step(actions)
+        for i, ep_rew, ep_len in infos.get("episodes", ()):
+            summary["episodes"].append((policy_step, i, ep_rew, ep_len))
+            if log_level > 0:
+                print(f"Rank-0: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
+
+        real_next_obs = {k: np.array(next_obs[k]) for k in mlp_keys}
+        for i, final in enumerate(infos.get("final_obs", ())):
+            if final is not None:  # the episode's last observation, not the reset one
+                for k in mlp_keys:
+                    real_next_obs[k][i] = final[k]
+        step_data = {
+            "terminated": np.asarray(terminated, dtype=np.uint8).reshape(1, num_envs, -1),
+            "truncated": np.asarray(truncated, dtype=np.uint8).reshape(1, num_envs, -1),
+            "actions": actions.astype(np.float32).reshape(1, num_envs, -1),
+            "observations": prepare_obs(obs, mlp_keys, num_envs).numpy()[np.newaxis],
+            "next_observations": prepare_obs(real_next_obs, mlp_keys, num_envs).numpy()[np.newaxis],
+            "rewards": np.asarray(rewards, dtype=np.float32).reshape(1, num_envs, -1),
+        }
+        if resident:
+            drb.add(step_data)  # the device ring is the only storage tier
+        else:
+            rb.add(step_data)
+        obs = next_obs
+        t1 = time.perf_counter()
+
+        if resident:
+            if iter_num >= learning_starts:
+                granted = ratio(policy_step - prefill_steps + policy_steps_per_iter)
+                ema_backlog.extend([1.0 if iter_num % ema_modulus == 0 else 0.0] * granted)
+            # one dispatch per env step: append the staged row and run up to
+            # grad_max granted steps; append-free dispatches drain a backlog
+            while True:
+                chunk = min(grad_max, len(ema_backlog))
+                beta = beta0 + (1.0 - beta0) * min(1.0, policy_step / max(1, int(algo.total_steps))) if prioritized else 0.0
+                losses = resident_fn(drb.make_job(), ema_backlog[:chunk], beta)
+                del ema_backlog[:chunk]
+                if chunk:
+                    pending.append(losses)
+                    summary["gradient_steps"] += chunk
+                    summary["train_calls"] += 1
+                if len(ema_backlog) < grad_max:
+                    break
+        elif iter_num >= learning_starts:
+            granted = ratio(policy_step - prefill_steps + policy_steps_per_iter)
+            if granted > 0:
+                data = _to_device(rb.sample(batch_size, granted), device)
+                pending.append(train_fn(data, iter_num % ema_modulus == 0, generator=generator))
+                summary["gradient_steps"] += granted
+                summary["train_calls"] += 1
+        t2 = time.perf_counter()
+        summary["env_s"].append(t1 - t0)
+        summary["train_s"].append(t2 - t1)
+        summary["iterations"] += 1
+
+        if policy_step - last_log >= log_every or iter_num == total_iters:
+            read_losses()
+            if log_level > 0 and summary["losses"]:
+                print(f"policy_step={policy_step} " + " ".join(
+                    f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(LOSS_NAMES, summary["losses"][-1])), flush=True)
+            last_log = policy_step
+
+        if (int(cfg.checkpoint.every) > 0 and policy_step - last_checkpoint >= int(cfg.checkpoint.every)) or (
+            iter_num == total_iters and cfg.checkpoint.get("save_last", False)
+        ):
+            last_checkpoint = policy_step
+            ckpt_state = {
+                "agent": agent.state_dict(),
+                "qf_optimizer": optimizers[1].state_dict(),
+                "actor_optimizer": optimizers[0].state_dict(),
+                "alpha_optimizer": optimizers[2].state_dict(),
+                "ratio": ratio.state_dict(),
+                "iter_num": iter_num,
+                "batch_size": batch_size,
+                "last_log": last_log,
+                "last_checkpoint": last_checkpoint,
+                "rng": generator.get_state(),
+            }
+            if cfg.buffer.checkpoint:
+                ckpt_state["rb"] = drb.state_dict().to_dict() if resident else rb.state_dict()
+            path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
+            summary["checkpoint"] = str(save_checkpoint(path, ckpt_state, plain(cfg)))
+
+    read_losses()
+    envs.close()
+    if algo.get("run_test", True):
+        summary["test_reward"] = test(player, cfg, device)
+    env_s = sum(summary["env_s"])
+    summary.update(
+        policy_steps=policy_step,
+        env_steps_per_s=summary["iterations"] * num_envs / (env_s + sum(summary["train_s"])) if env_s > 0 else None,
+        replay=drb.metrics() if resident else None,
+    )
+    return summary

@@ -1,0 +1,38 @@
+"""SAC host-side helpers (counterpart of ``sheeprl_tpu/algos/sac/utils.py``)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence
+
+import numpy as np
+import torch
+
+from sheeprl_tpu_torch.envs import make_env
+
+__all__ = ["prepare_obs", "test"]
+
+
+def prepare_obs(
+    obs: Dict[str, np.ndarray], mlp_keys: Sequence[str], num_envs: int = 1, device: "torch.device | str" = "cpu"
+) -> torch.Tensor:
+    """Concatenate the vector keys into one float32 ``(num_envs, obs_dim)``
+    tensor on ``device``."""
+    flat = np.concatenate([np.asarray(obs[k], dtype=np.float32) for k in mlp_keys], axis=-1)
+    return torch.from_numpy(flat.reshape(num_envs, -1)).to(device)
+
+
+def test(player, cfg: Any, device: "torch.device | str") -> float:
+    """One greedy episode on a fresh env seeded with ``cfg.seed``; prints
+    and returns its return."""
+    env = make_env(cfg, int(cfg.seed))
+    mlp_keys = list(cfg.algo.mlp_keys.encoder)
+    obs = env.reset(seed=int(cfg.seed))[0]
+    done, cumulative = False, 0.0
+    while not done:
+        action = player.get_actions(prepare_obs(obs, mlp_keys, 1, device), greedy=True)
+        obs, reward, terminated, truncated, _ = env.step(action.cpu().numpy().reshape(-1))
+        done = terminated or truncated
+        cumulative += float(reward)
+    env.close()
+    print("Test - Reward:", cumulative, flush=True)
+    return cumulative

@@ -1,14 +1,14 @@
 """Command line (counterpart of ``sheeprl_tpu/cli.py``, ``run`` and ``serve``
 verbs)::
 
-    python -m sheeprl_tpu_torch run preset=ppo|dreamer_v3_100k_atari_dummy \\
+    python -m sheeprl_tpu_torch run preset=sac_per|sac|ppo|dreamer_v3_100k_atari_dummy \\
         [fabric.accelerator=cuda|cpu] [algo.total_steps=...] [checkpoint.resume_from=<ckpt>] ...
     python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> \\
         [fabric.accelerator=cuda|cpu] [serve.port=0] [serve.session.buckets=[1,8,32]] ...
 
 ``run`` trains from a preset (``configs/<name>.json``), or resuming, from the
-checkpoint's ``config.json``, with the algorithm ``algo.name`` names (PPO or
-DreamerV3); :data:`~sheeprl_tpu_torch.config.RUN_DEFAULTS`
+checkpoint's ``config.json``, with the algorithm ``algo.name`` names (SAC,
+PPO or DreamerV3); :data:`~sheeprl_tpu_torch.config.RUN_DEFAULTS`
 fill what it lacks and the ``key.path=value`` overrides win. ``serve`` reads
 the run configuration beside the checkpoint under
 :data:`~sheeprl_tpu_torch.config.SERVE_DEFAULTS`. Both run on the GPU unless
@@ -91,7 +91,11 @@ def compose_run_config(args: Sequence[str]) -> DotDict:
 
 
 #: algo.name -> the module whose ``main(cfg, device)`` trains it
-_TRAINERS = {"dreamer_v3": "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3", "ppo": "sheeprl_tpu_torch.algos.ppo.ppo"}
+_TRAINERS = {
+    "dreamer_v3": "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
+    "ppo": "sheeprl_tpu_torch.algos.ppo.ppo",
+    "sac": "sheeprl_tpu_torch.algos.sac.sac",
+}
 
 
 def run(args: Sequence[str]) -> dict:

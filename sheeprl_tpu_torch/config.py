@@ -89,7 +89,14 @@ RUN_DEFAULTS: Dict[str, Any] = {
     "run_name": None,
     "fabric": {"accelerator": "cuda"},
     "metric": {"log_level": 1},
-    "buffer": {"size": 1000000},
+    "buffer": {
+        "size": 1000000,
+        "checkpoint": True,
+        "sample_next_obs": False,
+        "device_resident": False,
+        "hbm_budget_gb": 4.0,
+        "priority": {"enabled": False, "alpha": 0.6, "beta": 0.4, "eps": 1e-6},
+    },
     "checkpoint": {"every": 100000, "resume_from": None, "save_last": False},
 }
 

@@ -1,21 +1,24 @@
 """Host replay buffers (counterpart of ``sheeprl_tpu/data/buffers.py``,
-the parts PPO's rollout and DreamerV3's coupled loop use), in numpy memory;
+the parts PPO's rollout, SAC's host replay and DreamerV3's coupled loop use),
+in numpy memory;
 memmap storage is not ported. Sampling draws from a numpy ``Generator`` in
 the same order as the JAX package's buffers, so one seed gives the same
 windows."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
 __all__ = ["ReplayBuffer", "SequentialReplayBuffer", "EnvIndependentReplayBuffer"]
 
 
 class ReplayBuffer:
     """Ring buffer of ``(buffer_size, n_envs, ...)`` arrays, one per key,
-    allocated by the first :meth:`add` (PPO's rollout storage)."""
+    allocated by the first :meth:`add` (PPO's rollout storage, SAC's host
+    replay)."""
 
     def __init__(self, buffer_size: int, n_envs: int = 1, obs_keys: Sequence[str] = ("observations",)) -> None:
         if buffer_size <= 0:
@@ -32,6 +35,32 @@ class ReplayBuffer:
 
     def __len__(self) -> int:
         return self._buffer_size
+
+    @property
+    def buffer(self) -> Dict[str, np.ndarray]:
+        """The storage, key by key (empty before the first :meth:`add`)."""
+        return self._buf
+
+    @property
+    def n_envs(self) -> int:
+        return self._n_envs
+
+    @property
+    def pos(self) -> int:
+        return self._pos
+
+    @property
+    def full(self) -> bool:
+        return self._full
+
+    @property
+    def empty(self) -> bool:
+        return not self._buf or (self._pos == 0 and not self._full)
+
+    def set_head(self, pos: int, full: bool) -> None:
+        """Place the write head, for storage filled from elsewhere (a
+        checkpointed device ring)."""
+        self._pos, self._full = int(pos), bool(full)
 
     def seed(self, seed: Optional[int]) -> None:
         self._rng = np.random.default_rng(seed)
@@ -54,6 +83,32 @@ class ReplayBuffer:
         if self._pos + data_len >= self._buffer_size:
             self._full = True
         self._pos = next_pos
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The storage and head, as a checkpoint stores them (tensors and
+        plain values)."""
+        return {"buffer": {k: torch.from_numpy(v) for k, v in self._buf.items()}, "pos": self._pos, "full": self._full}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self._buf = {k: v.numpy().copy() for k, v in state["buffer"].items()}
+        self.set_head(state["pos"], state["full"])
+
+    def sample(self, batch_size: int, n_samples: int = 1) -> Dict[str, np.ndarray]:
+        """Uniform ``(n_samples, batch_size, ...)`` transitions over the
+        stored ``(row, env)`` grid, drawn as the JAX package's buffer draws
+        them with ``sample_next_obs=False`` (rows, then envs, from one
+        numpy generator): the next observations are stored, not shifted."""
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError(f"need positive batch_size and n_samples (got {batch_size}, {n_samples})")
+        if self.empty:
+            raise ValueError("empty buffer: add() at least one transition before sampling")
+        rows = self._rng.integers(0, len(self) if self._full else self._pos, size=(batch_size * n_samples,), dtype=np.intp)
+        envs = self._rng.integers(0, self._n_envs, size=(len(rows),), dtype=np.intp)
+        flat = rows * self._n_envs + envs
+        return {
+            k: np.take(v.reshape(-1, *v.shape[2:]), flat, axis=0).reshape(n_samples, batch_size, *v.shape[2:])
+            for k, v in self._buf.items()
+        }
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
         """The storage, key by key: views, except that float64 keys are

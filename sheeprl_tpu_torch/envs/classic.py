@@ -1,7 +1,7 @@
-"""CartPole-v1 in numpy, without gymnasium (counterpart of what the JAX
-package builds with ``gymnasium.make("CartPole-v1")`` through
-``sheeprl_tpu/envs/factory.py``, and of its pure-JAX twin
-``sheeprl_tpu/envs/jax_envs/cartpole.py``).
+"""CartPole-v1 and Pendulum-v1 in numpy, without gymnasium (counterparts of
+what the JAX package builds with ``gymnasium.make`` through
+``sheeprl_tpu/envs/factory.py``, and of its pure-JAX twins
+``sheeprl_tpu/envs/jax_envs/{cartpole,pendulum}.py``).
 
 gymnasium's ``CartPoleEnv`` semantics, line for line: the same constants,
 Euler step and termination bounds, +1 reward per step, the reset draw
@@ -11,6 +11,13 @@ returned as float32, and the 500-step ``TimeLimit`` truncation that
 ``gymnasium.make`` adds. One seed and one action sequence give gymnasium's
 trajectory bit for bit. The observation is a dict under the MLP encoder key,
 as the JAX factory wraps a 1-D Box (``_AsDictObs``).
+
+Pendulum-v1 follows gymnasium's ``PendulumEnv`` the same way: float64 state
+``(theta, theta_dot)`` drawn ``U(-[pi, 1], [pi, 1])`` from the seeded
+generator, the torque clipped to [-2, 2], reward ``-(angle_normalize(theta)^2
++ 0.1 theta_dot^2 + 0.001 u^2)`` with gymnasium's types, speed clipped to
++-8, the float32 observation ``[cos theta, sin theta, theta_dot]``; it never
+terminates and is truncated after 200 steps.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-__all__ = ["CartPoleEnv"]
+__all__ = ["CartPoleEnv", "PendulumEnv"]
 
 
 class CartPoleEnv:
@@ -86,3 +93,61 @@ class CartPoleEnv:
 
     def close(self) -> None:
         pass
+
+
+class PendulumEnv:
+    max_speed = 8
+    max_torque = 2.0
+    dt = 0.05
+    g = 10.0
+    m = 1.0
+    l = 1.0  # noqa: E741 - gymnasium's name
+
+    def __init__(self, obs_key: str = "state", max_episode_steps: int = 200, seed: Optional[int] = None) -> None:
+        self.obs_key = str(obs_key)
+        self.max_episode_steps = int(max_episode_steps)
+        self._rng = np.random.default_rng(seed)
+        self.state: Optional[np.ndarray] = None
+        self._elapsed = 0
+
+    @property
+    def spaces(self) -> Dict[str, dict]:
+        """The run config's ``spaces`` block: a Box action of one torque."""
+        return {
+            "obs": {self.obs_key: {"shape": [3], "dtype": "float32"}},
+            "actions": {"shape": [1], "low": [-self.max_torque], "high": [self.max_torque], "continuous": True},
+        }
+
+    def _observe(self) -> Dict[str, np.ndarray]:
+        theta, theta_dot = self.state
+        return {self.obs_key: np.array([np.cos(theta), np.sin(theta), theta_dot], dtype=np.float32)}
+
+    def reset(self, seed: Optional[int] = None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        high = np.array([np.pi, 1.0])
+        self.state = self._rng.uniform(low=-high, high=high)
+        self._elapsed = 0
+        return self._observe(), {}
+
+    def step(self, action):
+        if self.state is None:
+            raise RuntimeError("call reset before step")
+        th, thdot = self.state
+        # gymnasium indexes the clipped action array: the torque keeps the action's dtype
+        u = np.clip(np.reshape(action, (-1,)), -self.max_torque, self.max_torque)[0]
+        costs = _angle_normalize(th) ** 2 + 0.1 * thdot**2 + 0.001 * (u**2)
+        newthdot = thdot + (3 * self.g / (2 * self.l) * np.sin(th) + 3.0 / (self.m * self.l**2) * u) * self.dt
+        newthdot = np.clip(newthdot, -self.max_speed, self.max_speed)
+        newth = th + newthdot * self.dt
+        self.state = np.array([newth, newthdot])
+        self._elapsed += 1
+        truncated = self._elapsed >= self.max_episode_steps
+        return self._observe(), -costs, False, truncated, {}
+
+    def close(self) -> None:
+        pass
+
+
+def _angle_normalize(x):
+    return ((x + np.pi) % (2 * np.pi)) - np.pi

@@ -11,7 +11,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from sheeprl_tpu_torch.envs.classic import CartPoleEnv
+from sheeprl_tpu_torch.envs.classic import CartPoleEnv, PendulumEnv
 from sheeprl_tpu_torch.envs.dummy import AtariProtocolDummyEnv
 
 __all__ = ["SyncVectorEnv", "make_env", "make_vector_env"]
@@ -79,8 +79,8 @@ class SyncVectorEnv:
 
 def make_env(cfg: Any, seed: int) -> Any:
     """One env of the kind ``cfg.env.id`` names, seeded with ``seed``: the
-    Atari-protocol dummy, or CartPole-v1 with its observation under the
-    first MLP encoder key."""
+    Atari-protocol dummy, or CartPole-v1 or Pendulum-v1 with its observation
+    under the first MLP encoder key."""
     env_cfg = cfg.env
     if env_cfg.id == "atari_protocol_dummy":
         wrapper = env_cfg.get("wrapper") or {}
@@ -91,12 +91,17 @@ def make_env(cfg: Any, seed: int) -> Any:
             noop_max=int(wrapper.get("noop_max", 30)),
             seed=seed,
         )
-    if env_cfg.id == "CartPole-v1":
+    classic = {"CartPole-v1": CartPoleEnv, "Pendulum-v1": PendulumEnv}
+    if env_cfg.id in classic:
         mlp_keys = list(cfg.algo.mlp_keys.encoder)
         if not mlp_keys or list(cfg.algo.cnn_keys.encoder):
-            raise ValueError("CartPole-v1 gives one vector observation: set algo.mlp_keys.encoder=[state] and no cnn keys")
-        return CartPoleEnv(obs_key=mlp_keys[0], seed=seed)
-    raise NotImplementedError(f"env '{env_cfg.id}' is not ported yet; atari_protocol_dummy and CartPole-v1 only")
+            raise ValueError(
+                f"{env_cfg.id} gives one vector observation: set algo.mlp_keys.encoder=[state] and no cnn keys"
+            )
+        return classic[env_cfg.id](obs_key=mlp_keys[0], seed=seed)
+    raise NotImplementedError(
+        f"env '{env_cfg.id}' is not ported yet; atari_protocol_dummy, CartPole-v1 and Pendulum-v1 only"
+    )
 
 
 def make_vector_env(cfg: Any, seed: int) -> SyncVectorEnv:

@@ -6,6 +6,7 @@ from sheeprl_tpu_torch.models.blocks import (
     MultiEncoder,
     NatureCNN,
     get_activation,
+    lecun_normal_,
 )
 
-__all__ = ["CNN", "MLP", "ConvTranspose", "LayerNormGRUCell", "MultiEncoder", "NatureCNN", "get_activation"]
+__all__ = ["CNN", "MLP", "ConvTranspose", "LayerNormGRUCell", "MultiEncoder", "NatureCNN", "get_activation", "lecun_normal_"]

@@ -11,13 +11,14 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from sheeprl_tpu_torch.ops.kernels import gru_gates
 
-__all__ = ["get_activation", "MLP", "CNN", "NatureCNN", "MultiEncoder", "LayerNormGRUCell", "ConvTranspose"]
+__all__ = ["get_activation", "lecun_normal_", "MLP", "CNN", "NatureCNN", "MultiEncoder", "LayerNormGRUCell", "ConvTranspose"]
 
 _ACTIVATIONS = {
     "relu": F.relu,
@@ -43,6 +44,19 @@ def get_activation(name: Optional[Union[str, Callable]]) -> Callable:
     if key not in _ACTIVATIONS:
         raise ValueError(f"Unknown activation '{name}'. Known: {sorted(_ACTIVATIONS)}")
     return _ACTIVATIONS[key]
+
+
+def lecun_normal_(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's default ``Dense``/``Conv`` initialisation of every
+    ``nn.Linear`` and ``nn.Conv2d`` in ``module``: kernels from a normal
+    truncated at 2 std with variance ``1 / fan_in``, biases zero."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            fan_in = m.weight.shape[1] * int(np.prod(m.weight.shape[2:]))
+            std = np.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
 
 
 class MLP(nn.Module):

@@ -12,7 +12,9 @@ from __future__ import annotations
 from typing import Dict
 
 #: kernel name -> launches of its CUDA kernel in this process
-LAUNCHES: Dict[str, int] = {"gru_gates": 0, "two_hot_symlog_loss": 0, "two_hot_symexp_decode": 0, "gae": 0}
+LAUNCHES: Dict[str, int] = {
+    "gru_gates": 0, "two_hot_symlog_loss": 0, "two_hot_symexp_decode": 0, "gae": 0, "sumtree_sample": 0,
+}
 
 
 def reset_launches() -> None:
@@ -22,6 +24,7 @@ def reset_launches() -> None:
 
 from sheeprl_tpu_torch.ops.kernels.gae import gae, gae_reference  # noqa: E402
 from sheeprl_tpu_torch.ops.kernels.gru import gru_gates, gru_gates_reference  # noqa: E402
+from sheeprl_tpu_torch.ops.kernels.sumtree import sumtree_sample, sumtree_sample_reference  # noqa: E402
 from sheeprl_tpu_torch.ops.kernels.twohot import (  # noqa: E402
     two_hot_symexp_decode,
     two_hot_symexp_decode_reference,
@@ -40,4 +43,6 @@ __all__ = [
     "two_hot_symexp_decode_reference",
     "gae",
     "gae_reference",
+    "sumtree_sample",
+    "sumtree_sample_reference",
 ]

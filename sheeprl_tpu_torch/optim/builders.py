@@ -53,8 +53,9 @@ class ClippedOptimizer:
         self.max_grad_norm = float(max_grad_norm) if max_grad_norm else None
 
     def step(self, grads: Sequence[torch.Tensor]) -> None:
-        grads = [g.detach().clone() for g in grads]
-        if self.max_grad_norm is not None:
+        grads = [g.detach() for g in grads]
+        if self.max_grad_norm is not None:  # clipped copies: the caller's gradients stay as they were
+            grads = [g.clone() for g in grads]
             clip_by_global_norm_(grads, self.max_grad_norm)
         for p, g in zip(self.params, grads):
             p.grad = g

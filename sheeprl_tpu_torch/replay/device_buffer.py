@@ -1,0 +1,327 @@
+"""Device-resident replay buffer: a ring of tensors in card memory that the
+train step appends to and samples from on the device (counterpart of
+``sheeprl_tpu/replay/device_buffer.py``, one card).
+
+The env loop stages one transition row on the host and flushes it as ONE
+packed uint8 blob per env step (:mod:`sheeprl_tpu_torch.data.ring`): one
+pinned host tensor and one non-blocking host->device copy. The SAC step
+scatters the row into the ring, draws its minibatches on the device
+(uniform over the valid ``(position, env)`` grid, or proportional through
+the sum-tree and the CUDA ``sumtree_sample`` kernel), trains, and writes the
+new priorities back, without a read back to the host.
+
+Layout and ownership:
+
+- storage ``{key: (capacity, n_envs, *feat)}`` on the device, updated in
+  place;
+- with PER, the ``(2P,)`` sum-tree over the ``capacity * n_envs`` row-major
+  ``(row, env)`` leaves and the running maximum priority ``max_p``, both on
+  the device;
+- the train draws' generator (the JAX ring's key stream), on the device;
+- the write head (``pos``/``valid``) as host integers: the host knows every
+  append, so nothing needs the device's copy.
+
+Checkpointing: :meth:`state_dict` copies everything to the CPU inside a
+:class:`DeviceReplayState` (:meth:`DeviceReplayState.to_dict` is what the
+checkpoint stores: tensors and plain values only), :meth:`load_state_dict`
+copies it back. :func:`restore_host_buffer` fills a host
+:class:`~sheeprl_tpu_torch.data.ReplayBuffer` from one, and
+:meth:`DeviceReplayBuffer.load_host_buffer` the ring from a host buffer (the
+crossovers between the two tiers). :func:`resolve_device_resident` sizes the
+ring against ``buffer.hbm_budget_gb``; a uniform ring that does not fit
+spills over to the host buffer, a prioritized one raises (the host tier has
+no PER).
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sheeprl_tpu_torch.data.ring import BlobLayout, make_layout, pack_burst_blob, torch_dtype, unpack_burst_blob
+from sheeprl_tpu_torch.replay import sumtree
+
+__all__ = [
+    "DeviceReplayBuffer",
+    "DeviceReplayState",
+    "ReplayJob",
+    "estimate_ring_bytes",
+    "resolve_device_resident",
+    "restore_host_buffer",
+]
+
+
+def estimate_ring_bytes(specs: Dict[str, Tuple[tuple, Any]], capacity: int, n_envs: int, prioritized: bool = False) -> int:
+    """Device bytes of a ring with the given storage spec (plus the sum-tree
+    with PER)."""
+    total = 0
+    for shape, dtype in specs.values():
+        total += capacity * n_envs * int(np.prod(shape or (1,))) * np.dtype(dtype).itemsize
+    if prioritized:
+        total += 2 * sumtree.leaf_count(capacity * n_envs) * 4
+    return int(total)
+
+
+def resolve_device_resident(
+    setting: Any,
+    specs: Dict[str, Tuple[tuple, Any]],
+    capacity: int,
+    n_envs: int,
+    hbm_budget_gb: float,
+    prioritized: bool = False,
+) -> Tuple[bool, str]:
+    """``(use_device, reason)`` for the ``buffer.device_resident`` knob:
+    ``False`` | ``True`` | ``"auto"``. ``auto`` puts the ring on the device
+    iff it fits ``hbm_budget_gb``; an explicit ``True`` that does not fit
+    spills over to the host buffer with a warning instead of running out of
+    memory at allocation. A prioritized ring that does not fit raises: the
+    host buffer samples uniformly, so spilling would change the algorithm
+    (the JAX package spills it all the same)."""
+    if isinstance(setting, str):
+        setting = setting.strip().lower()
+        if setting not in ("auto", "true", "false"):
+            raise ValueError(f"buffer.device_resident must be true/false/auto, got '{setting}'")
+        setting = {"auto": "auto", "true": True, "false": False}[setting]
+    if setting is False:
+        return False, "disabled by config"
+    budget = float(hbm_budget_gb) * (1 << 30)
+    est = estimate_ring_bytes(specs, capacity, n_envs, prioritized)
+    if est <= budget:
+        return True, f"ring fits HBM budget ({est / 2**20:.1f} MiB <= {hbm_budget_gb} GiB)"
+    need = f"device ring would need {est / 2**30:.2f} GiB (budget buffer.hbm_budget_gb={hbm_budget_gb})"
+    if prioritized:
+        raise ValueError(f"buffer.priority.enabled=true but the {need}; the host buffer has no PER")
+    reason = f"{need}; spilling to the host buffer"
+    if setting is True:
+        warnings.warn(f"buffer.device_resident=true but {reason}")
+    return False, reason
+
+
+class DeviceReplayState:
+    """CPU snapshot of a device ring: ``arrays`` (CPU tensors: ``storage/<key>``,
+    ``pos``, ``valid``, ``key`` = the generator state, and with PER ``tree``
+    and ``max_p``) and ``meta`` (plain values)."""
+
+    def __init__(self, kind: str, arrays: Dict[str, torch.Tensor], meta: Dict[str, Any]) -> None:
+        self.kind = kind
+        self.arrays = arrays
+        self.meta = meta
+
+    def to_dict(self) -> Dict[str, Any]:
+        """What a checkpoint stores (loads with ``weights_only``)."""
+        return {"kind": self.kind, "arrays": dict(self.arrays), "meta": dict(self.meta)}
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any]) -> "DeviceReplayState":
+        return cls(data["kind"], dict(data["arrays"]), dict(data["meta"]))
+
+
+class ReplayJob(NamedTuple):
+    """One flush: the staged row on the device (None when nothing was
+    staged: a backlog-drain dispatch), where it goes, and the valid rows
+    after it lands."""
+
+    blob: Optional[torch.Tensor]
+    pos: int
+    count: int
+    valid: int
+
+
+class DeviceReplayBuffer:
+    """Scalar-write-head device ring with uniform or PER sampling (the
+    SAC-shaped buffer). The class owns allocation, host staging and the
+    packed flush, the append, checkpoint state and ``Replay/*`` metrics;
+    the sampling is the train step's (``algos/sac/sac.py``)."""
+
+    def __init__(
+        self,
+        specs: Dict[str, Tuple[tuple, Any]],
+        capacity: int,
+        n_envs: int,
+        *,
+        device: "torch.device | str" = "cpu",
+        prioritized: bool = False,
+        per_alpha: float = 0.6,
+        per_eps: float = 1e-6,
+        seed: int = 0,
+    ) -> None:
+        if capacity <= 0 or n_envs <= 0:
+            raise ValueError(f"need positive capacity/n_envs (got {capacity}, {n_envs})")
+        self.device = torch.device(device)
+        self.specs = {k: (tuple(int(s) for s in shape), np.dtype(dtype)) for k, (shape, dtype) in specs.items()}
+        self.capacity = int(capacity)
+        self.n_envs = int(n_envs)
+        self.prioritized = bool(prioritized)
+        self.per_alpha = float(per_alpha)
+        self.per_eps = float(per_eps)
+        self.tree_leaves = sumtree.leaf_count(self.capacity * self.n_envs) if prioritized else 0
+        # one staged row per flush, packed into one upload
+        self.layout: BlobLayout = make_layout([(k, (1, self.n_envs) + shape, dtype) for k, (shape, dtype) in self.specs.items()])
+
+        self.storage = {
+            k: torch.zeros((self.capacity, self.n_envs) + shape, dtype=torch_dtype(dtype), device=self.device)
+            for k, (shape, dtype) in self.specs.items()
+        }
+        self.tree = sumtree.init(self.capacity * self.n_envs, self.device) if prioritized else None
+        self.max_p = torch.ones((), dtype=torch.float32, device=self.device) if prioritized else None
+        self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        self._env_leaves = torch.arange(self.n_envs, device=self.device)
+
+        self._pos = 0
+        self._full = False
+        self._staged: Optional[Dict[str, np.ndarray]] = None
+        self._metrics = {"flushes": 0, "inserts": 0}
+
+    # -- properties ----------------------------------------------------------
+    @property
+    def full(self) -> bool:
+        return self._full
+
+    @property
+    def pos(self) -> int:
+        return self._pos
+
+    @property
+    def valid_rows(self) -> int:
+        return self.capacity if self._full else self._pos
+
+    # -- staging, flush and append ---------------------------------------------
+    def add(self, step_data: Dict[str, np.ndarray]) -> None:
+        """Stage one ``(1, n_envs, ...)`` transition row for the next flush."""
+        if self._staged is not None:
+            raise RuntimeError("the staging area holds one row; flush (make_job) before adding another")
+        self._staged = {
+            k: np.asarray(step_data[k], dtype=dtype).reshape((1, self.n_envs) + shape)
+            for k, (shape, dtype) in self.specs.items()
+        }
+        self._metrics["inserts"] += self.n_envs
+
+    def make_job(self) -> ReplayJob:
+        """Pack the staged row (if any: a backlog-drain dispatch appends
+        nothing) into one blob, start its non-blocking copy to the device and
+        advance the host head."""
+        pos, count = self._pos, int(self._staged is not None)
+        blob = None
+        if count:
+            host = pack_burst_blob(self.layout, self._staged, pin_memory=self.device.type == "cuda")
+            blob = host.to(self.device, non_blocking=True)
+            self._staged = None
+            if self._pos + count >= self.capacity:
+                self._full = True
+            self._pos = (self._pos + count) % self.capacity
+        self._metrics["flushes"] += 1
+        return ReplayJob(blob, pos, count, self.valid_rows)
+
+    def append(self, job: ReplayJob) -> None:
+        """Scatter the job's row into the ring at its position; with PER its
+        ``n_envs`` fresh leaves enter at the running maximum priority."""
+        if not job.count:
+            return
+        rows = unpack_burst_blob(job.blob, self.layout)
+        for k, store in self.storage.items():
+            store[job.pos] = rows[k][0]
+        if self.prioritized:
+            sumtree.update(self.tree, job.pos * self.n_envs + self._env_leaves, self.max_p.expand(self.n_envs))
+
+    def metrics(self) -> Dict[str, float]:
+        """``Replay/*`` metrics."""
+        return {
+            "Replay/occupancy": self.valid_rows / self.capacity,
+            "Replay/size": self.valid_rows * self.n_envs,
+            "Replay/flushes": self._metrics["flushes"],
+            "Replay/inserts": self._metrics["inserts"],
+        }
+
+    # -- checkpoint ----------------------------------------------------------
+    def state_dict(self) -> DeviceReplayState:
+        """A copy of everything on the CPU. Call with an empty staging area
+        (the loop flushes every env step)."""
+        if self._staged is not None:
+            raise RuntimeError("checkpointing with a staged but unflushed row would drop it")
+        arrays = {f"storage/{k}": v.to("cpu", copy=True) for k, v in self.storage.items()}
+        arrays["pos"] = torch.tensor(self._pos, dtype=torch.int32)
+        arrays["valid"] = torch.tensor(self.valid_rows, dtype=torch.int32)
+        arrays["key"] = self.generator.get_state()
+        if self.prioritized:
+            arrays["tree"] = self.tree.to("cpu", copy=True)
+            arrays["max_p"] = self.max_p.to("cpu", copy=True)
+        meta = {
+            "capacity": self.capacity,
+            "n_envs": self.n_envs,
+            "prioritized": self.prioritized,
+            "host_pos": self._pos,
+            "host_full": self._full,
+            "metrics": dict(self._metrics),
+        }
+        return DeviceReplayState("uniform", arrays, meta)
+
+    def load_state_dict(self, snap: DeviceReplayState) -> "DeviceReplayBuffer":
+        if snap.kind != "uniform":
+            raise ValueError(f"cannot restore a '{snap.kind}' replay snapshot into DeviceReplayBuffer")
+        if snap.meta["capacity"] != self.capacity or snap.meta["n_envs"] != self.n_envs:
+            raise ValueError(
+                f"replay snapshot shape mismatch: checkpoint ({snap.meta['capacity']}, "
+                f"{snap.meta['n_envs']}) vs configured ({self.capacity}, {self.n_envs})"
+            )
+        for k, store in self.storage.items():
+            store.copy_(snap.arrays[f"storage/{k}"])
+        self.generator.set_state(snap.arrays["key"])
+        if self.prioritized:
+            if "tree" in snap.arrays:
+                self.tree.copy_(snap.arrays["tree"])
+                self.max_p.copy_(snap.arrays["max_p"])
+            else:  # a uniform ring resumed with PER: every filled slot at priority 1
+                self._uniform_priorities(int(snap.meta["capacity"] if snap.meta["host_full"] else snap.meta["host_pos"]))
+        self._pos = int(snap.meta["host_pos"])
+        self._full = bool(snap.meta["host_full"])
+        self._metrics.update(snap.meta.get("metrics", {}))
+        return self
+
+    def _uniform_priorities(self, valid: int) -> None:
+        # row-major (row, env) leaves: rows [0, valid) are the first valid * n_envs leaves
+        self.tree.zero_()
+        self.tree[self.tree_leaves : self.tree_leaves + valid * self.n_envs] = 1.0
+        sumtree.rebuild(self.tree)
+        self.max_p.fill_(1.0)
+
+    def load_host_buffer(self, rb) -> "DeviceReplayBuffer":
+        """Copy a restored host ``ReplayBuffer`` into the ring (resuming a
+        host-tier checkpoint into the device tier). PER priorities are not in
+        the host checkpoint, so filled slots restart at priority 1."""
+        if rb.empty:
+            return self
+        if len(rb) != self.capacity or rb.n_envs != self.n_envs:
+            raise ValueError(
+                f"host buffer shape ({len(rb)}, {rb.n_envs}) does not match the device ring ({self.capacity}, {self.n_envs})"
+            )
+        for k, (shape, dtype) in self.specs.items():
+            host = np.asarray(rb.buffer[k], dtype=dtype).reshape((self.capacity, self.n_envs) + shape)
+            self.storage[k].copy_(torch.from_numpy(host))
+        self._pos, self._full = int(rb.pos), bool(rb.full)
+        if self.prioritized:
+            self._uniform_priorities(self.valid_rows)
+        return self
+
+
+def restore_host_buffer(
+    snap: DeviceReplayState, rb, fill_missing: Optional[Dict[str, Tuple[tuple, Any]]] = None
+) -> None:
+    """Fill a host ``ReplayBuffer`` from a device-ring snapshot (resuming
+    into the host tier). ``fill_missing`` zero-allocates keys the host loop
+    writes but the ring never stored (SAC's ``truncated``), so later
+    ``add`` calls find every key."""
+    if snap.kind != "uniform":
+        raise ValueError(f"cannot restore a '{snap.kind}' replay snapshot into a flat host buffer")
+    cap, n_envs = int(snap.meta["capacity"]), int(snap.meta["n_envs"])
+    if cap != len(rb) or n_envs != rb.n_envs:
+        raise ValueError(f"replay snapshot shape ({cap}, {n_envs}) does not match the host buffer ({len(rb)}, {rb.n_envs})")
+    for name, arr in snap.arrays.items():
+        if name.startswith("storage/"):
+            rb.buffer[name[len("storage/") :]] = arr.numpy().copy()
+    for k, (shape, dtype) in (fill_missing or {}).items():
+        if k not in rb.buffer:
+            rb.buffer[k] = np.zeros((cap, n_envs) + tuple(shape), dtype)
+    rb.set_head(int(snap.meta["host_pos"]), bool(snap.meta["host_full"]))

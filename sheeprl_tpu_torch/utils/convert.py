@@ -26,7 +26,7 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["flax_to_state_dict", "dreamer_v3_state_from_jax", "ppo_state_from_jax"]
+__all__ = ["flax_to_state_dict", "dreamer_v3_state_from_jax", "ppo_state_from_jax", "sac_state_from_jax"]
 
 #: the flax module name of a transposed convolution's layer (the JAX
 #: package's ``_ConvTranspose`` wraps an unnamed ``nn.ConvTranspose``)
@@ -101,4 +101,28 @@ def ppo_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for name, tree in params.items():
         prefix = f"feature_extractor.{name}." if name in PPO_ENCODERS else f"{name}."
         state.update(flax_to_state_dict(tree, prefix))
+    return state
+
+
+def _stacked(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    """A ``nn.vmap``-ed flax tree, copied as it is: the port's stacked
+    layers keep flax's ``kernel (n, in, out)`` and ``bias (n, out)``."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            out.update(_stacked(value, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
+    return out
+
+
+def sac_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX SAC tree ``{actor, critic, target_critic, log_alpha}`` (numpy
+    leaves) -> the port's ``SACAgent`` ``state_dict``: the actor's Dense
+    kernels transposed; both critic ensembles' stacked leaves as they are."""
+    state = flax_to_state_dict(params["actor"], "actor.")
+    for name in ("critic", "target_critic"):
+        tree = params[name]
+        state.update(_stacked(tree["params"] if set(tree) == {"params"} else tree, f"{name}."))
+    state["log_alpha"] = torch.from_numpy(np.array(params["log_alpha"], dtype=np.float32).reshape(1))
     return state

@@ -266,4 +266,76 @@ def test_torch_cuda_ppo_rollout_gae_launches_once_per_iteration(cuda, tmp_path):
     summary = cli.run(["preset=ppo", "metric.log_level=0", "algo.run_test=false", "algo.total_steps=1024",
                        "algo.update_epochs=1", f"log_root={tmp_path}"])
     assert summary["device"].startswith("cuda") and summary["iterations"] == 2
-    assert K.LAUNCHES == {"gru_gates": 0, "two_hot_symlog_loss": 0, "two_hot_symexp_decode": 0, "gae": 2}
+    assert K.LAUNCHES == {
+        "gru_gates": 0, "two_hot_symlog_loss": 0, "two_hot_symexp_decode": 0, "gae": 2, "sumtree_sample": 0,
+    }
+
+
+def _sumtree_inputs(leaves, batch, seed=0):
+    """A ``(2P,)`` tree with ``leaves`` filled leaves (every fifth zero, the
+    rest of the power-of-two padding zero) and ``batch`` uniforms, 0 and
+    values just under 1 among them."""
+    from sheeprl_tpu_torch.replay import sumtree as st
+
+    rng = np.random.default_rng(seed)
+    prios = rng.uniform(0.01, 2.0, size=leaves).astype(np.float32)
+    prios[::5] = 0.0
+    tree = st.update(st.init(leaves), torch.arange(leaves), torch.from_numpy(prios))
+    u = rng.uniform(size=batch).astype(np.float32)
+    u[: min(batch, 3)] = np.array([0.0, np.nextafter(np.float32(1), np.float32(0)), 1 - 1e-7], np.float32)[: min(batch, 3)]
+    return tree, torch.from_numpy(u), prios
+
+
+@pytest.mark.parametrize("batch", [1, 256, 4096])
+@pytest.mark.parametrize("leaves", [40, 1000, 60_000, 1_000_000], ids=["P64", "P1024", "P65536", "sac-path"])
+def test_torch_cuda_sumtree_sample_matches_plain(cuda, leaves, batch):
+    """The kernel against the plain version on the same tree and uniforms:
+    leaves equal, weights within rtol 1e-6 (``powf`` against ``torch.pow``),
+    no zero-priority leaf drawn, one launch per call."""
+    tree, u, prios = _sumtree_inputs(leaves, batch, seed=leaves + batch)
+    tree, u = tree.to(cuda), u.to(cuda)
+    before = K.LAUNCHES["sumtree_sample"]
+    leaf, w = K.sumtree_sample(tree, u, leaves, 0.55)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["sumtree_sample"] == before + 1 and leaf.dtype == torch.int32 and w.dtype == torch.float32
+    want_leaf, want_w = K.sumtree_sample_reference(tree, u, leaves, 0.55)
+    assert torch.equal(leaf, want_leaf)
+    torch.testing.assert_close(w, want_w, rtol=1e-6, atol=0)
+    assert (prios[leaf.cpu().numpy()] > 0).all()
+
+
+def test_torch_cuda_sumtree_sample_rejects_what_the_kernel_does_not_take(cuda):
+    tree, u, _ = _sumtree_inputs(100, 8)
+    tree, u = tree.to(cuda), u.to(cuda)
+    with pytest.raises(TypeError, match="float32"):
+        K.sumtree_sample(tree.double(), u, 100, 0.4)
+    with pytest.raises(ValueError, match="power of two"):
+        K.sumtree_sample(tree[:200], u, 100, 0.4)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.sumtree_sample(tree, torch.rand(16, device=cuda)[::2], 100, 0.4)
+    with pytest.raises(ValueError, match="CUDA device"):
+        K.sumtree_sample(tree, u.cpu(), 100, 0.4)
+
+
+def test_torch_cuda_sumtree_sample_backward_is_the_plain_gradient(cuda):
+    tree, u, _ = _sumtree_inputs(300, 64, seed=5)
+    scale = torch.rand(64)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        t = tree.to(dev).clone().requires_grad_(True)
+        (K.sumtree_sample(t, u.to(dev), 300, 0.4)[1] * scale.to(dev)).sum().backward()
+        grads[dev] = t.grad.cpu()
+    torch.testing.assert_close(grads["cuda"], grads["cpu"], atol=1e-5, rtol=1e-5)
+
+
+def test_torch_cuda_sac_per_loop_launches_sumtree_once_per_gradient_step(cuda, tmp_path):
+    """A short ``run preset=sac_per`` on the card: ``sumtree_sample`` launched
+    exactly once per gradient step, no other kernel."""
+    from sheeprl_tpu_torch import cli
+
+    K.reset_launches()
+    summary = cli.run(["preset=sac_per", "metric.log_level=0", "algo.run_test=false", "algo.total_steps=400",
+                       "buffer.size=4096", "checkpoint.save_last=false", f"log_root={tmp_path}"])
+    assert summary["device"].startswith("cuda") and summary["resident"] and summary["gradient_steps"] > 0
+    assert K.LAUNCHES == {"gru_gates": 0, "two_hot_symlog_loss": 0, "two_hot_symexp_decode": 0, "gae": 0,
+                          "sumtree_sample": summary["gradient_steps"]}

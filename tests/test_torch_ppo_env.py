@@ -129,7 +129,7 @@ def test_torch_ppo_env_rejects_pixel_keys_on_cartpole():
     with pytest.raises(ValueError, match="mlp_keys"):
         make_vector_env(apply_overrides(preset("ppo"), ["algo.cnn_keys.encoder=[rgb]", "algo.mlp_keys.encoder=[]"]), 0)
     with pytest.raises(NotImplementedError, match="not ported"):
-        make_vector_env(apply_overrides(preset("ppo"), ["env.id=Pendulum-v1"]), 0)
+        make_vector_env(apply_overrides(preset("ppo"), ["env.id=LunarLanderContinuous-v3"]), 0)
 
 
 @pytest.mark.parametrize("size, steps", [(16, 16), (16, 23), (8, 3)], ids=["one-lap", "wraps", "partial"])
