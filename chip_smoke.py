@@ -60,7 +60,24 @@ result line):
    just before and checked just after (``sumtree_sample`` once per gradient
    step, no other kernel), a learning check, a resume from its checkpoint
    that must restore the ring, the sum-tree and ``max_p``, and one dispatch
-   under ``torch.profiler``.
+   under ``torch.profiler``;
+14. ring scatter: ``ragged_ring_scatter`` against its plain version on the
+   card, bit for bit, at uint8 and f32, slots of 1 to 12,288 elements, 1-2
+   staged rows, 1 and 4 envs, column offsets, dropped slots, heads that
+   wrap and misaligned staged rows, and at the main path's 100,000-row
+   64x64x3 ring, timed as the other kernels are, beside its bytes bound;
+   its gradient against the plain scatter's;
+15. resident dispatch: one device-resident DreamerV3-S dispatch (full width,
+   B 4 x T 16, a 2-env ring with a dropped slot) on the card against the
+   CPU: the ring and the windows bit-equal, losses and parameters as in 6;
+16. resident run: ``python -m sheeprl_tpu_torch run
+   preset=dreamer_v3_100k_atari_dummy_resident``'s entry point on the card
+   at the full recipe with the full 100,000-row ring in card memory,
+   ``learning_starts`` past the env's first episode end (a 2-row flush),
+   then 9 gradient steps; the launch counters zeroed just before and
+   checked just after (5 scatters per flush, the two-hot and GRU counts of
+   7); a resume that must restore the ring, its heads and its generator;
+   append-only and training dispatches under ``torch.profiler``.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -130,6 +147,11 @@ SAC_PRESET = "sac_per"
 # about -1200
 SAC_TOTAL_STEPS, SAC_WINDOW, SAC_RETURN_BAR = 16384, 10, -500.0
 SAC_RESUME_ITERATIONS = 40
+RESIDENT_PRESET = "dreamer_v3_100k_atari_dummy_resident"
+# learning starts a few steps past the env's first episode end, so the ring
+# takes the reset row as a 2-row flush before the first gradient step
+RESIDENT_GRADIENT_STEPS, RESIDENT_RESUME_STEPS = 9, 4
+PROFILED = 3  # resident dispatches per profiling window
 # the sumtree kernel's shapes: (leaves, draws); the SAC path's is (2^20, 256)
 SUMTREE_SHAPES = [(p, b) for p in (1 << 6, 1 << 10, 1 << 16, 1 << 20, 1 << 22) for b in (1, 256, 4096)]
 SUMTREE_MAIN = (1 << 20, 256)
@@ -738,6 +760,7 @@ def run_phase(workdir: str) -> dict:
         "gru_gates": G * (T + H) + summary["player_steps"],
         "gae": 0,
         "sumtree_sample": 0,
+        "ragged_ring_scatter": 0,
     }
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} for {G} gradient steps")
@@ -1641,6 +1664,471 @@ def sac_run_phase(workdir: str) -> dict:
     return out
 
 
+# -- 14. ragged_ring_scatter --------------------------------------------------------
+
+
+def _parking_scatter(storage, staged, row, pos, col_offset: int = 0):
+    """The plain version in the JAX docstring's parking form, which reads
+    nothing back and so can be graph-timed: a dropped slot rewrites the old
+    bytes of the row before its env's head, ``(pos - 1) % C``. Equal to
+    ``ragged_ring_scatter_reference`` (the literal masked scatter, whose
+    boolean indexing waits for the host). Returns the one ``index_put_``'s
+    operands for the library column."""
+    C = storage.shape[0]
+    S, e = row.shape
+    m = row < C
+    cols = col_offset + torch.arange(e, device=row.device).expand(S, e)
+    safe_row = torch.where(m, row, ((pos.to(row.dtype) - 1) % C)[None, :]).long()
+    keep = m.reshape(S, e, *([1] * (staged.ndim - 2)))
+    vals = torch.where(keep, staged, storage[safe_row, cols])
+    storage.index_put_((safe_row, cols), vals)
+    return safe_row, cols, vals
+
+
+def _scatter_case(gen, C: int, E: int, S: int, e: int, feat: tuple, dtype, col_offset: int, *, wrap: bool = False,
+                  drop: str = "ragged", misalign: int = 0):
+    """A ring of ``C`` rows and ``E`` env columns, heads from ``ring_append_rows``
+    over a staged ``(S, e)`` mask: ``drop`` "none" writes every slot,
+    "ragged" drops some, "column" drops every slot of env 0. ``wrap`` puts
+    the heads just before ``C``. ``misalign`` cuts the staged rows from a
+    byte buffer at that offset (an unpacked upload's segments are only
+    4-byte aligned)."""
+    from sheeprl_tpu_torch.data.ring import ring_append_rows
+
+    if dtype == torch.uint8:
+        storage = torch.randint(0, 256, (C, E) + feat, generator=gen, device="cuda", dtype=torch.uint8)
+        fresh = torch.randint(0, 256, (S, e) + feat, generator=gen, device="cuda", dtype=torch.uint8)
+    else:
+        storage = torch.randn((C, E) + feat, generator=gen, device="cuda", dtype=dtype)
+        fresh = torch.randn((S, e) + feat, generator=gen, device="cuda", dtype=dtype)
+    n = fresh.numel() * fresh.element_size()
+    buf = torch.zeros(n + 64, dtype=torch.uint8, device="cuda")
+    buf[misalign:misalign + n] = fresh.reshape(-1).view(torch.uint8)
+    staged = buf[misalign:misalign + n].view(dtype).reshape(fresh.shape)
+    mask = torch.ones((S, e), dtype=torch.int32, device="cuda")
+    if drop == "ragged":
+        mask[S - 1, ::2] = 0
+    elif drop == "column":
+        mask[:, 0] = 0
+    pos = torch.randint(0, C, (e,), generator=gen, device="cuda", dtype=torch.int32)
+    if wrap:
+        pos[:] = C - 1
+    valid = torch.full((e,), C, dtype=torch.int32, device="cuda")
+    row, _, _ = ring_append_rows(pos, valid, mask, C)
+    return storage, staged, row, pos, col_offset
+
+
+def _scatter_check(storage, staged, row, pos, col_offset) -> dict:
+    """The kernel against the plain version on copies of the same ring:
+    bit-equal; every row the call does not write keeps its bytes, the row
+    before each env's head too; one launch."""
+    got, want = storage.clone(), storage.clone()
+    before = kernels.LAUNCHES["ragged_ring_scatter"]
+    out = kernels.ragged_ring_scatter(got, staged, row, pos, col_offset)
+    torch.cuda.synchronize()
+    if out.data_ptr() != got.data_ptr() or kernels.LAUNCHES["ragged_ring_scatter"] != before + 1:
+        raise AssertionError("ragged_ring_scatter did not update the ring in place with one launch")
+    kernels.ragged_ring_scatter_reference(want, staged, row, pos, col_offset)
+    if not torch.equal(got, want):
+        raise AssertionError(f"ragged_ring_scatter differs from its plain version at ring {tuple(storage.shape)}, "
+                             f"staged {tuple(staged.shape)} {staged.dtype}, col_offset {col_offset}")
+    parked_ring = storage.clone()
+    _parking_scatter(parked_ring, staged, row, pos, col_offset)
+    if not torch.equal(parked_ring, want):
+        raise AssertionError("the parking form of the plain version differs from the literal one")
+    C = storage.shape[0]
+    touched = torch.zeros(storage.shape[:2], dtype=torch.bool, device="cuda")
+    m = row < C
+    cols = col_offset + torch.arange(row.shape[1], device="cuda").expand_as(row)
+    r, c = row[m].long(), cols[m]
+    touched[r, c] = True
+    if not torch.equal(got[~touched], storage[~touched]):
+        raise AssertionError("ragged_ring_scatter changed a slot it does not write")
+    parked_rows = ((pos.long() - 1) % C)
+    for j in range(row.shape[1]):
+        if not touched[parked_rows[j], col_offset + j] and not torch.equal(got[parked_rows[j], col_offset + j],
+                                                                            storage[parked_rows[j], col_offset + j]):
+            raise AssertionError("the row before an env's head lost its bytes")
+    return {"written": int(m.sum()), "max_abs_err": float((got[r, c].double() - want[r, c].double()).abs().max())
+            if bool(m.any()) else 0.0}
+
+
+def scatter_bound(row, slot_bytes: int, capacity: int) -> dict:
+    """The least time of one call: each written slot read once and written
+    once, the row indices read once, at the card's memory rate. The
+    arithmetic (an address per slot) is nothing beside it."""
+    written = int((row < capacity).sum())
+    moved = 2 * written * slot_bytes + row.numel() * 4
+    return {"bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bound_bytes": moved}
+
+
+def scatter_phase() -> dict:
+    """``ragged_ring_scatter`` against its plain version on the card, bit for
+    bit, at uint8 and f32, slots of 1, 18 and 12,288 elements, 1 and 2
+    staged rows, 1 and 4 envs, column offsets 0 and 3, dropped slots, an
+    all-dropped column, heads wrapping past C and staged rows at 16-, 4- and
+    1-byte alignment; then at the main path's ``(100000, 1, 64, 64, 3)``
+    uint8 ring with 1 and 2 staged rows. ``ms`` is device time per call at
+    the main path's 1-row frame append (:func:`_graph_ms`), ``plain_ms`` the
+    parking form of the plain version, ``library_ms`` its one
+    ``index_put_`` alone (without the ``where`` and the gather before it).
+    The gradient through the ``autograd.Function`` equals the plain
+    scatter's."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    cases = []
+    for dtype in (torch.uint8, torch.float32):
+        for feat in ((1,), (18,), (64, 64, 3)):
+            for S in (1, 2):
+                for e in (1, 4):
+                    for col_offset in (0, 3):
+                        for drop in ("none", "ragged", "column") if e > 1 else ("none", "ragged"):
+                            misalign = {0: 0, 1: 4, 2: 1}[len(cases) % 3] if dtype == torch.uint8 else 4 * (len(cases) % 2)
+                            args = _scatter_case(gen, 97, e + col_offset, S, e, feat, dtype, col_offset,
+                                                 wrap=len(cases) % 4 == 0, drop=drop, misalign=misalign)
+                            res = _scatter_check(*args)
+                            cases.append({"dtype": str(dtype).split(".")[-1], "feat": feat, "S": S, "e": e,
+                                          "col_offset": col_offset, "drop": drop, "misalign": misalign, **res})
+    log(f"ragged_ring_scatter: {len(cases)} cases bit-equal to the plain version")
+    # the main path: the rgb key of the 100,000-row ring, one env
+    ring = torch.randint(0, 256, (100_000, 1, 64, 64, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    main = {}
+    for S in (1, 2):
+        blob = torch.randint(0, 256, (S * 12288 + 8,), generator=gen, device="cuda", dtype=torch.uint8)
+        staged = blob[:S * 12288].view(S, 1, 64, 64, 3)
+        pos = torch.tensor([99_999], dtype=torch.int32, device="cuda")  # a wrap for the 2-row append
+        row = ((pos[None, :] + torch.arange(S, device="cuda", dtype=torch.int32)[:, None]) % 100_000).to(torch.int32)
+        res = _scatter_check(ring, staged, row, pos, 0)
+        stamp = {"S": S, **res, **scatter_bound(row, 12288, 100_000)}
+        stamp["ms"] = _graph_ms(lambda: kernels.ragged_ring_scatter(ring, staged, row, pos))
+        stamp["call_ms"] = _time_ms(lambda: kernels.ragged_ring_scatter(ring, staged, row, pos), 200)
+        stamp["plain_ms"] = _graph_ms(lambda: _parking_scatter(ring, staged, row, pos))
+        safe_row, cols, vals = _parking_scatter(ring, staged, row, pos)  # rewrites the same bytes
+        stamp["library_ms"] = _graph_ms(lambda: ring.index_put_((safe_row, cols), vals))
+        main[S] = stamp
+        log(f"ragged_ring_scatter main path S={S}: kernel {stamp['ms'] * 1e3:.2f} us (call {stamp['call_ms'] * 1e3:.2f} us) "
+            f"plain {stamp['plain_ms'] * 1e3:.2f} us index_put_ {stamp['library_ms'] * 1e3:.2f} us "
+            f"bound {stamp['bound_ms'] * 1e3:.4f} us ({stamp['bound_bytes']} bytes)")
+    del ring
+    # the gradient: the plain scatter's VJP, f32 only
+    storage, staged, row, pos, off = _scatter_case(gen, 13, 5, 2, 4, (3,), torch.float32, 1, drop="ragged")
+    scale = torch.randn(storage.shape, generator=gen, device="cuda")
+    grads = []
+    for dev in ("cuda", "cpu"):
+        s_leaf = storage.to(dev).clone().requires_grad_(True)
+        t_leaf = staged.to(dev).clone().requires_grad_(True)
+        out = kernels.ragged_ring_scatter(s_leaf.clone(), t_leaf, row.to(dev), pos.to(dev), off)
+        (out * scale.to(dev)).sum().backward()
+        grads.append((s_leaf.grad.cpu(), t_leaf.grad.cpu()))
+    for a, b in zip(*grads):
+        if not torch.equal(a, b):
+            raise AssertionError("ragged_ring_scatter's gradient differs from the plain scatter's")
+    log("ragged_ring_scatter backward: equal to the plain scatter's gradient")
+    m1 = main[1]
+    return {
+        "name": "ragged_ring_scatter",
+        "route": "cuda",
+        "source": "sheeprl_tpu_torch/csrc/ring_scatter.cu",
+        "replaces": "sheeprl_tpu/ops/kernels/scatter.py:68",
+        "launches": None,  # filled from the resident run phase
+        "max_abs_err": max([c["max_abs_err"] for c in cases] + [m["max_abs_err"] for m in main.values()]),
+        "ms": m1["ms"],
+        "plain_ms": m1["plain_ms"],
+        "bound_ms": m1["bound_ms"],
+        "bound_by": m1["bound_by"],
+        "library_ms": m1["library_ms"],  # index_put_ alone: the where and the gather before it are left out
+        "call_ms": m1["call_ms"],
+        "main_two_rows": main[2],
+        "cases": len(cases),
+        "grad_equal": True,
+    }
+
+
+# -- 15. one resident dispatch on the card against the CPU ----------------------------
+
+
+def _resident_ring(rng, keys, capacity: int, n_envs: int) -> dict:
+    ring = {"rgb": rng.integers(0, 256, (capacity, n_envs) + tuple(keys["rgb"][0])).astype(np.uint8)}
+    ring["actions"] = np.eye(keys["actions"][0][0], dtype=np.float32)[rng.integers(0, keys["actions"][0][0], (capacity, n_envs))]
+    ring["rewards"] = ((rng.random((capacity, n_envs, 1)) < 0.1) * 10).astype(np.float32)
+    ring["terminated"] = (rng.random((capacity, n_envs, 1)) < 0.02).astype(np.float32)
+    ring["is_first"] = (rng.random((capacity, n_envs, 1)) < 0.02).astype(np.float32)
+    return ring
+
+
+def resident_dispatch_phase() -> dict:
+    """One device-resident dispatch (full width, B 4 x T 16, H 15) on the card
+    against the same dispatch on the CPU, TF32 off: a ring of 256 rows x 2
+    envs (env 0 full, env 1 filling) from a seed, a 2-row upload (a regular
+    row and env 1's reset row, so env 0's second slot is dropped), one
+    granted step with the same injected draws. The ring after the append and
+    the windows bit-equal; the losses and parameters held as the train-step
+    phase holds them (rtol 1e-4; every element within 2 * lr + 1e-6 and
+    99.9 % within 1e-6); 5 scatter launches on the card."""
+    from sheeprl_tpu_torch.data.ring import make_blob_layouts, pack_burst_blob, ring_append_rows, ring_sample_windows
+    from sheeprl_tpu_torch.utils.burst import dreamer_ring_keys
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, B, C, E = 16, 4, 256, 2
+    cfg = _run_cfg([f"algo.per_rank_sequence_length={T}", f"algo.per_rank_batch_size={B}"])
+    keys = dreamer_ring_keys(cfg.spaces.obs, ["rgb"], [], [18], with_is_first=True)
+    spec = {"capacity": C, "n_envs": E, "grad_chunk": 1, "seq_len": T, "batch_size": B, "ring_keys": keys,
+            "stage_buckets": (1, 2), "stage_max": 2}
+    rng = np.random.default_rng(19)
+    ring = _resident_ring(rng, keys, C, E)
+    staged = {k: v[:2].copy() for k, v in _resident_ring(rng, keys, 2, E).items()}
+    values = {**staged, "__mask__": np.array([[1, 1], [0, 1]], np.int32), "__pos__": np.array([40, 100], np.int32),
+              "__valid_n__": np.array([C, 100], np.int32), "__validmask__": np.ones(1, np.float32)}
+    layout = make_blob_layouts(keys, E, 1, (1, 2))[2]
+    gen = torch.Generator().manual_seed(20)
+    draws = {"env": torch.randint(0, E, (1, B), generator=gen), "u": torch.rand((1, B), generator=gen),
+             "noise": [draw_noise(cfg, T, B, [18], gen, "cpu")]}
+    results = {}
+    for dev in ("cpu", "cuda"):
+        modules = build_training_agent(cfg, dev)
+        optimizers = make_optimizers(cfg, *modules[:3])
+        burst = make_train_step(*modules, optimizers, cfg, ring=spec)
+        rb = {k: torch.from_numpy(v.copy()).to(dev) for k, v in ring.items()}
+        noise = draws["noise"][0]
+        dev_draws = {"env": draws["env"].to(dev), "u": draws["u"].to(dev), "noise": [{
+            "posterior": noise["posterior"].to(dev), "imagined_prior": noise["imagined_prior"].to(dev),
+            "actions": [u.to(dev) for u in noise["actions"]]}]}
+        before = kernels.LAUNCHES["ragged_ring_scatter"]
+        t0 = time.perf_counter()
+        _, rb, metrics = burst((init_moments(dev), 0), rb, pack_burst_blob(layout, values, pin_memory=dev == "cuda"),
+                               None, dev_draws)
+        metrics = metrics.cpu()
+        seconds = time.perf_counter() - t0
+        launched = kernels.LAUNCHES["ragged_ring_scatter"] - before
+        _, new_pos, new_valid = ring_append_rows(*(torch.from_numpy(values[k]).to(dev) for k in ("__pos__", "__valid_n__", "__mask__")), C)
+        windows = ring_sample_windows(dev_draws["u"][0], dev_draws["env"][0], new_pos, new_valid, C, T).cpu()
+        params = {name: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+                  for name, m in zip(("world_model", "actor", "critic"), modules)}
+        results[dev] = {"rb": {k: v.cpu() for k, v in rb.items()}, "windows": windows, "metrics": metrics,
+                        "params": params, "seconds": seconds, "launched": launched}
+    card, cpu = results["cuda"], results["cpu"]
+    if card["launched"] != len(keys) or cpu["launched"] != 0:
+        raise AssertionError(f"scatter launches: card {card['launched']}, CPU {cpu['launched']}")
+    for k in keys:
+        if not torch.equal(card["rb"][k], cpu["rb"][k]):
+            raise AssertionError(f"the ring's '{k}' after the append differs between the card and the CPU")
+    if not torch.equal(card["windows"], cpu["windows"]):
+        raise AssertionError("the windows differ between the card and the CPU")
+    if not torch.isfinite(card["metrics"]).all():
+        raise AssertionError(f"non-finite losses on the card: {card['metrics'].tolist()}")
+    torch.testing.assert_close(card["metrics"], cpu["metrics"], rtol=1e-4, atol=1e-5)
+    out = {"cpu_s": cpu["seconds"], "cuda_s": card["seconds"], "ring_equal": True, "windows_equal": True,
+           "loss_abs_err": dict(zip(METRIC_NAMES, (card["metrics"] - cpu["metrics"]).abs().tolist())),
+           "losses_cpu": dict(zip(METRIC_NAMES, cpu["metrics"].tolist()))}
+    for name, lr in {"world_model": 1e-4, "actor": 8e-5, "critic": 8e-5}.items():
+        diffs = torch.cat([(card["params"][name][k] - cpu["params"][name][k]).abs().reshape(-1) for k in cpu["params"][name]])
+        close = float((diffs <= 1e-6).float().mean())
+        out[name] = {"max_abs_err": float(diffs.max()), "share_within_1e-6": close}
+        if float(diffs.max()) > 2 * lr + 1e-6 or close < 0.999:
+            raise AssertionError(f"{name} after the dispatch on the card differs from the CPU: {out[name]}")
+    log("resident dispatch (card vs CPU): " + json.dumps(out))
+    return out
+
+
+# -- 16. resident run ----------------------------------------------------------------
+
+
+def first_episode_end(cfg) -> int:
+    """The env step at which the preset's env (seed ``cfg.seed``) first ends
+    an episode: the Atari-protocol dummy's lives run out on a schedule that
+    does not depend on the actions."""
+    from sheeprl_tpu_torch.envs import make_vector_env
+
+    envs = make_vector_env(cfg, int(cfg.seed))
+    envs.reset(seed=int(cfg.seed))
+    for step in range(1, 5000):
+        _, _, terminated, truncated, _ = envs.step(np.zeros((int(cfg.env.num_envs), 1), np.int64))
+        if terminated[0] or truncated[0]:
+            return step
+    raise AssertionError("the dummy env ended no episode in 5000 steps")
+
+
+def _resident_launch_check(summary: dict, launches: dict, T: int, H: int) -> dict:
+    G, flushes = summary["gradient_steps"], summary["replay"]["Replay/flushes"]
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want.update({
+        "two_hot_symlog_loss": 3 * G,
+        "two_hot_symexp_decode": 3 * G,
+        "gru_gates": G * (T + H) + summary["player_steps"],
+        "ragged_ring_scatter": 5 * flushes,  # one per ring key per dispatch
+    })
+    if launches != want:
+        raise AssertionError(f"resident launches {launches} != {want} for {G} gradient steps, {flushes} flushes")
+    return want
+
+
+def _profile_resident_dispatch(checkpoint: str) -> dict:
+    """Dispatches of the full-recipe ring restored from the run's checkpoint:
+    host time (ending in a synchronize) of append-only and of training
+    dispatches (append + 1 gradient step), and PROFILED of each under
+    ``torch.profiler`` after a warm-up step: device time, operations and
+    the scatter's share, per dispatch."""
+    from sheeprl_tpu_torch.replay import DeviceReplayState, SequenceRingDriver
+    from sheeprl_tpu_torch.utils.burst import dreamer_ring_keys
+
+    cfg = load_config(find_run_config(checkpoint))
+    state = load_checkpoint(checkpoint)
+    modules = build_training_agent(cfg, "cuda", state)
+    optimizers = make_optimizers(cfg, *modules[:3])
+    keys = dreamer_ring_keys(cfg.spaces.obs, ["rgb"], [], [18], with_is_first=True)
+    snap = DeviceReplayState.from_dict(state.pop("rb"))
+    driver = SequenceRingDriver(
+        keys, int(snap.meta["capacity"]), 1, int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size),
+        1, lambda ring: make_train_step(*modules, optimizers, cfg, ring=ring), device="cuda", seed=8, restore=snap)
+    del snap, state
+    rng = np.random.default_rng(18)
+    carry = [(init_moments("cuda"), 1)]
+
+    def dispatch(grant: int) -> None:
+        row = {k: rng.integers(0, 256 if np.dtype(dtype) == np.uint8 else 2, (1, 1) + shape).astype(dtype)
+               for k, (shape, dtype) in keys.items()}
+        driver.stage_step(row)
+        driver.grant(grant)
+        carry[0], _ = driver.pump(carry[0])
+
+    out = {}
+    for kind, grant in (("append", 0), ("train", 1)):
+        for _ in range(2):
+            dispatch(grant)
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(5 if grant == 0 else 3):
+            t0 = time.perf_counter()
+            dispatch(grant)
+            torch.cuda.synchronize()
+            host.append(time.perf_counter() - t0)
+        # the start of a profiling window can lose a short dispatch's device
+        # events: one warm-up step, then PROFILED dispatches, per dispatch
+        acts = torch.profiler.ProfilerActivity
+        schedule = torch.profiler.schedule(wait=0, warmup=1, active=PROFILED, repeat=1)
+        with torch.profiler.profile(activities=[acts.CPU, acts.CUDA], schedule=schedule) as prof:
+            for _ in range(1 + PROFILED):
+                dispatch(grant)
+                torch.cuda.synchronize()
+                prof.step()
+        events = _device_kernels(prof)
+        device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events) / PROFILED
+        scatter_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events if "ragged_ring_scatter" in e.key) / PROFILED
+        top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:6]
+        out[kind] = {
+            "host_ms": float(np.median(host) * 1e3),
+            "host_ms_all": [h * 1e3 for h in host],
+            "device_ms": device_us / 1e3 if device_us > 0 else None,
+            "device_busy_share": device_us / 1e3 / (np.median(host) * 1e3) if device_us > 0 else None,
+            "device_ops": sum(e.count for e in events) / PROFILED,
+            "ragged_ring_scatter": {"device_ms": scatter_us / 1e3, "share": scatter_us / device_us if device_us > 0 else None,
+                                    "ops": sum(e.count for e in events if "ragged_ring_scatter" in e.key) / PROFILED},
+            "top": [{"name": e.key[:80], "device_ms": getattr(e, "self_device_time_total", 0.0) / 1e3 / PROFILED,
+                     "count": e.count / PROFILED} for e in top],
+        }
+        out[kind]["complete"] = out[kind]["ragged_ring_scatter"]["ops"] == len(keys)
+        if not out[kind]["complete"]:  # a measurement, not a check of the path: report it
+            log(f"the profile of a {kind} dispatch lost events: {out[kind]['ragged_ring_scatter']['ops']} scatters "
+                f"per dispatch, not {len(keys)}")
+    return out
+
+
+def resident_run_phase(workdir: str) -> dict:
+    """DreamerV3-S on the device sequence ring through ``run``'s entry point
+    at the full recipe with the full 100,000-row ring in card memory:
+    ``learning_starts`` past the env's first episode end, then
+    RESIDENT_GRADIENT_STEPS gradient steps, ending in a checkpoint that holds
+    the ring. At least one 2-row flush (the reset row); every loss finite;
+    the launch counts exactly those of the path. Then a resume from that
+    checkpoint that must restore the ring's bytes, its heads and its
+    generator, and dispatches of the restored ring under ``torch.profiler``."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.replay import DeviceReplayState
+
+    end = first_episode_end(preset(RESIDENT_PRESET))
+    starts = end + 8
+    total = starts + RESIDENT_GRADIENT_STEPS - 1
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary = cli.run([f"preset={RESIDENT_PRESET}", f"algo.learning_starts={starts}", f"algo.total_steps={total}",
+                       "checkpoint.every=0", "checkpoint.save_last=true", "metric.log_level=0", f"log_root={workdir}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    cfg = load_config(find_run_config(summary["checkpoint"]))
+    T, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.horizon)
+    G, replay = summary["gradient_steps"], summary["replay"]
+    # one env: every flush adds one row, a 2-row flush one more
+    two_row = replay["Replay/size"] - replay["Replay/flushes"]
+    if not summary["resident"] or summary["device"].split(":")[0] != "cuda" or G != RESIDENT_GRADIENT_STEPS:
+        raise AssertionError(f"resident run: resident {summary['resident']}, {G} gradient steps on {summary['device']}")
+    if two_row < 1:
+        raise AssertionError(f"no 2-row flush in {replay['Replay/flushes']} flushes (first episode end at step {end})")
+    if not np.isfinite(np.asarray(summary["metrics"])).all() or len(summary["metrics"]) != summary["train_calls"]:
+        raise AssertionError(f"non-finite or missing losses: {summary['metrics']}")
+    _resident_launch_check(summary, launches, T, H)
+    append_ms = [s * 1e3 for s, n in summary["dispatch_host_s"] if n == 0]
+    train_ms = [s * 1e3 for s, n in summary["dispatch_host_s"] if n > 0]
+    out = {
+        "first_episode_end": end,
+        "learning_starts": starts,
+        "policy_steps": summary["policy_steps"],
+        "gradient_steps": G,
+        "player_steps": summary["player_steps"],
+        "flushes": replay["Replay/flushes"],
+        "two_row_flushes": two_row,
+        "launches": launches,
+        "wall_s": wall,
+        "env_steps_per_s": summary["loop_steps_per_s"],
+        "env_only_steps_per_s": summary["env_steps_per_s"],
+        "host_ms_per_dispatch": {
+            "append_median": float(np.median(append_ms)), "append_range": [min(append_ms), max(append_ms)],
+            "train_median": float(np.median(train_ms)), "train_range": [min(train_ms), max(train_ms)],
+        },
+        "peak_device_gb": peak_gb,
+        "replay": replay,
+        "losses": [dict(zip(METRIC_NAMES, row)) for row in summary["metrics"]],
+        "checkpoint": summary["checkpoint"],
+    }
+    for i, row in enumerate(summary["metrics"]):
+        log(f"resident run gradient step {i}: " + " ".join(f"{n.split('/')[-1]}={v:.5g}" for n, v in zip(METRIC_NAMES, row)))
+    log("resident run: " + json.dumps({k: v for k, v in out.items() if k not in ("losses", "checkpoint")}))
+
+    saved = DeviceReplayState.from_dict(load_checkpoint(summary["checkpoint"])["rb"])
+    restored = {}
+
+    class _Recording(dv3.SequenceRingDriver):
+        def load_state_dict(self, snap):
+            super().load_state_dict(snap)
+            restored.update(self.state_dict().arrays)
+            return self
+
+    kernels.reset_launches()
+    dv3.SequenceRingDriver = _Recording
+    try:
+        resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
+                           "algo.learning_starts=2", f"algo.total_steps={summary['policy_steps'] + RESIDENT_RESUME_STEPS}",
+                           "checkpoint.save_last=false"])
+    finally:
+        dv3.SequenceRingDriver = _Recording.__bases__[0]
+    resume_launches = dict(kernels.LAUNCHES)
+    same = {k: torch.equal(restored[k], v) for k, v in saved.arrays.items()}
+    if set(restored) != set(saved.arrays) or not all(same.values()):
+        raise AssertionError(f"the resume restored a different ring: {same}")
+    del saved, restored
+    if resumed["start_iter"] != summary["policy_steps"] + 1 or resumed["gradient_steps"] == 0:
+        raise AssertionError(f"resident resume: start {resumed['start_iter']}, {resumed['gradient_steps']} gradient steps")
+    _resident_launch_check(resumed, resume_launches, T, H)
+    out["resume"] = {"start_iter": resumed["start_iter"], "policy_steps": resumed["policy_steps"],
+                     "gradient_steps": resumed["gradient_steps"], "launches": resume_launches,
+                     "restored_equal": sorted(same), "losses": resumed["metrics"]}
+    log("resident resume: " + json.dumps({k: v for k, v in out["resume"].items() if k != "losses"}))
+    out["profile"] = _profile_resident_dispatch(summary["checkpoint"])
+    log("resident dispatch profile: " + json.dumps(out["profile"]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
@@ -1660,6 +2148,7 @@ def main() -> int:
     two_hot = timed("two_hot", two_hot_phase)
     gae_row = timed("gae", gae_phase)
     sumtree_row = timed("sumtree", sumtree_phase, str(chase_lib))
+    scatter_row = timed("ring_scatter", scatter_phase)
     cfg = preset("dreamer_v3_S_atari100k")
     model = timed("model", model_phase, cfg)
     step = timed("step", step_phase, cfg)
@@ -1673,19 +2162,26 @@ def main() -> int:
     sac_update = timed("sac_update", sac_update_phase)
     with tempfile.TemporaryDirectory() as workdir:
         sac_run = timed("sac_run", sac_run_phase, workdir)
-    paths = {"run": run, "serve": serve, "ppo_run": ppo_run, "sac_run": sac_run}
-    for row in [gru] + two_hot + [gae_row, sumtree_row]:
+    resident_dispatch = timed("resident_dispatch", resident_dispatch_phase)
+    with tempfile.TemporaryDirectory() as workdir:
+        resident_run = timed("resident_run", resident_run_phase, workdir)
+    paths = {"run": run, "serve": serve, "ppo_run": ppo_run, "sac_run": sac_run, "resident_run": resident_run,
+             "resident_resume": resident_run["resume"]}
+    rows = [gru] + two_hot + [gae_row, sumtree_row, scatter_row]
+    for row in rows:
         row["launches_by_path"] = {name: path["launches"][row["name"]] for name, path in paths.items()}
     for row in [gru] + two_hot:
         row["launches"] = run["launches"][row["name"]]
+    scatter_row["launches"] = resident_run["launches"]["ragged_ring_scatter"]
     gae_row["launches"] = ppo_run["launches"]["gae"]
     gae_row["launches_by_path"]["ppo_resume"] = ppo_run["resume"]["launches"]["gae"]
     sumtree_row["launches"] = sac_run["launches"]["sumtree_sample"]
     sumtree_row["launches_by_path"]["sac_resume"] = sac_run["resume"]["launches"]["sumtree_sample"]
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s; seconds by phase: {json.dumps(phase_s)}")
     print(json.dumps({"model": model, "step": step, "train_step": train_step, "run": run, "serve": serve,
-                      "ppo_update": ppo_update, "ppo_run": ppo_run, "sac_update": sac_update, "sac_run": sac_run}))
-    print(json.dumps({"kernels": [gru] + two_hot + [gae_row, sumtree_row]}))
+                      "ppo_update": ppo_update, "ppo_run": ppo_run, "sac_update": sac_update, "sac_run": sac_run,
+                      "resident_dispatch": resident_dispatch, "resident_run": resident_run}))
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -1,5 +1,6 @@
 """DreamerV3 coupled training (counterpart of
-``sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py``, its host-sampled path).
+``sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py``: its host-sampled path and
+its device-resident sequence ring).
 
 Each gradient step, in the JAX package's order: the target-critic EMA, the
 world-model update (reconstruction loss over a T-step dynamic rollout), the
@@ -14,10 +15,19 @@ of every RSSM step and the two-hot heads run the hand-written CUDA kernels
 on the card. Random draws come from an explicit ``torch.Generator``, or are
 injected (:func:`draw_noise` gives their shapes), so a test can feed the
 uniforms JAX's keys give.
+
+Two replay tiers, chosen by ``buffer.device_resident`` (and the HBM budget):
+the host's per-env buffers, sampled on the host and copied over per train
+call; or the sequence ring in card memory
+(:class:`~sheeprl_tpu_torch.replay.SequenceRingDriver`), where each env
+step is one dispatch: the packed upload of the staged rows, their append by
+the CUDA ``ragged_ring_scatter`` kernel, the window draws on the card and
+the granted gradient steps.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -43,6 +53,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
 )
 from sheeprl_tpu_torch.config import dotdict, plain
 from sheeprl_tpu_torch.data import EnvIndependentReplayBuffer
+from sheeprl_tpu_torch.data.ring import build_burst_train_step
 from sheeprl_tpu_torch.distributions import (
     BernoulliSafeMode,
     Independent,
@@ -53,6 +64,13 @@ from sheeprl_tpu_torch.distributions import (
 )
 from sheeprl_tpu_torch.envs import make_vector_env
 from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
+from sheeprl_tpu_torch.replay import (
+    DeviceReplayState,
+    SequenceRingDriver,
+    resolve_device_resident,
+    restore_host_env_buffer,
+)
+from sheeprl_tpu_torch.utils.burst import dreamer_ring_keys
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.utils import Ratio
 
@@ -121,6 +139,7 @@ def make_train_step(
     target_critic: torch.nn.Module,
     optimizers: Dict[str, ClippedOptimizer],
     cfg: Any,
+    ring: Optional[Dict[str, Any]] = None,
 ) -> Callable:
     """The G-step update: ``train(data, moments_state, cum0, generator=None,
     noise=None) -> (moments_state, metrics)``. ``data`` holds ``(G, T, B,
@@ -128,7 +147,14 @@ def make_train_step(
     ``cum0`` counts the gradient steps taken before; ``noise`` is a list of G
     :func:`draw_noise` dicts, else the draws come from ``generator``. The
     modules and optimizers are updated in place; ``metrics`` is ``(G, 10)``
-    in :data:`METRIC_NAMES` order."""
+    in :data:`METRIC_NAMES` order.
+
+    With a ``ring`` spec (:class:`~sheeprl_tpu_torch.replay.SequenceRingDriver`
+    builds it), the same step body instead becomes the device ring's burst
+    (:func:`~sheeprl_tpu_torch.data.ring.build_burst_train_step`) over the
+    carry ``(moments_state, cum)``: ``burst(carry, rb, blob, generator=None,
+    draws=None) -> (carry, rb, metrics)``, ``metrics`` the ``(10,)`` mean
+    over the granted steps."""
     wm_cfg = cfg.algo.world_model
     cnn_enc = list(cfg.algo.cnn_keys.encoder)
     mlp_enc = list(cfg.algo.mlp_keys.encoder)
@@ -265,6 +291,19 @@ def make_train_step(
             ]).detach()
         return moments_state, metrics
 
+    if ring is not None:
+        seq_len, batch_size = int(ring["seq_len"]), int(ring["batch_size"])
+
+        def carry_step(carry, xs):
+            moments_state, cum = carry
+            batch, noise = xs
+            moments_state, metrics = gradient_step(batch, moments_state, cum, noise)
+            return (moments_state, cum + 1), metrics
+
+        return build_burst_train_step(
+            carry_step, ring, lambda gen: draw_noise(cfg, seq_len, batch_size, actions_dim, gen, gen.device)
+        )
+
     def train(
         data: Dict[str, torch.Tensor],
         moments_state: Dict[str, torch.Tensor],
@@ -328,10 +367,14 @@ class Player:
 
 def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     """The coupled loop: step the envs with the player (random actions
-    until ``learning_starts``), add every transition to the replay buffer,
-    take the gradient steps ``Ratio`` grants on host-sampled windows, and
-    checkpoint. Returns a summary of the run (counters, each train call's
-    metrics, timings, the last checkpoint's path)."""
+    until ``learning_starts``), store every transition, take the gradient
+    steps ``Ratio`` grants, and checkpoint. Host tier: the per-env buffers,
+    windows sampled on the host. Resident tier (``buffer.device_resident``
+    and a ring within ``buffer.hbm_budget_gb``): the sequence ring on the
+    device, one dispatch per env step (append + granted steps), the ring
+    checkpointed with ``buffer.checkpoint``. Returns a summary of the run
+    (counters, each train call's metrics, timings, the replay tier, the last
+    checkpoint's path)."""
     device = torch.device(device)
     state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.get("resume_from") else None
     if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
@@ -362,6 +405,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     buffer_size = int(cfg.buffer.size) // num_envs
     rb = EnvIndependentReplayBuffer(buffer_size, num_envs, obs_keys)
     rb.seed(seed)
+    saved_rb = state.get("rb") if state is not None and cfg.buffer.get("checkpoint", False) else None
 
     start_iter = int(state["iter_num"]) + 1 if state is not None else 1
     policy_step = int(state["iter_num"]) * num_envs if state is not None else 0
@@ -380,13 +424,39 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     batch_size = int(cfg.algo.per_rank_batch_size)
     seq_len = int(cfg.algo.per_rank_sequence_length)
     log_level = int(cfg.metric.get("log_level", 1))
+    log_every = int(cfg.metric.get("log_every", 5000))
 
     generator = torch.Generator(device=device).manual_seed(seed)
     if state is not None and state.get("rng") is not None:
         generator.set_state(state["rng"])
     action_rng = np.random.default_rng(seed)
-    train_fn = make_train_step(world_model, actor, critic, target_critic, optimizers, cfg)
     player = Player(world_model, actor, num_envs, generator)
+
+    # the device-resident sequence ring: pixels stay uint8 on the card,
+    # windows are drawn there, one dispatch per env step
+    ring_keys = dreamer_ring_keys(cfg.spaces.obs, cnn_keys, mlp_keys, actions_dim, with_is_first=True)
+    resident, reason = resolve_device_resident(
+        cfg.buffer.get("device_resident", False), ring_keys, buffer_size, num_envs,
+        float(cfg.buffer.get("hbm_budget_gb", 4.0)), sequence={"seq_len": seq_len, "batch_size": batch_size},
+    )
+    if log_level > 0 and cfg.buffer.get("device_resident", False):
+        print(f"Replay: device_resident={resident} ({reason})", flush=True)
+    restored = DeviceReplayState.from_dict(saved_rb) if saved_rb is not None else None
+    if restored is not None and not resident:
+        # a device-ring checkpoint resumed on the host tier keeps its experience
+        restore_host_env_buffer(restored, rb, fill_missing={"truncated": ((1,), np.float32)})
+    driver: Optional[SequenceRingDriver] = None
+    if resident:
+        driver = SequenceRingDriver(
+            ring_keys, buffer_size, num_envs, seq_len, batch_size,
+            grad_chunk=max(1, int(math.ceil(float(cfg.algo.replay_ratio) * num_envs))),
+            make_burst_fn=lambda ring: make_train_step(
+                world_model, actor, critic, target_critic, optimizers, cfg, ring=ring
+            ),
+            device=device, seed=seed + 31, restore=restored,
+        )
+    else:
+        train_fn = make_train_step(world_model, actor, critic, target_critic, optimizers, cfg)
 
     step_data: Dict[str, np.ndarray] = {}
     obs = envs.reset(seed=seed)[0]
@@ -398,12 +468,26 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     player.init_states()
 
     summary: Dict[str, Any] = {"start_iter": start_iter, "metrics": [], "train_host_s": [], "checkpoint": None,
-                               "device": str(device)}
+                               "device": str(device), "resident": resident, "dispatch_host_s": []}
     # this run's gradient steps: a resumed run starts again at 0, so its first
     # step copies the critic into the target critic, as the JAX loop does
     cum_gradient_steps = 0
+    carry = (moments_state, 0)  # the resident burst's carry
+    pending: List[torch.Tensor] = []  # resident metrics still on the device
+
+    def read_metrics() -> None:
+        if pending:
+            rows = torch.stack(pending).cpu().tolist()
+            pending.clear()
+            summary["metrics"].extend(rows)
+            if log_level > 0:
+                for row in rows:
+                    print("train " + " ".join(f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(METRIC_NAMES, row)),
+                          flush=True)
+
     player_steps = 0
     env_s = 0.0
+    t_loop = time.perf_counter()
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += num_envs
         t_env = time.perf_counter()
@@ -420,7 +504,10 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             real_actions = np.stack([a.argmax(dim=-1).cpu().numpy() for a in acts], axis=-1)
 
         step_data["actions"] = actions.reshape(1, num_envs, -1)
-        rb.add(step_data)
+        if resident:
+            driver.stage_step(step_data)  # the device ring is the only storage tier
+        else:
+            rb.add(step_data)
         next_obs, rewards, terminated, truncated, infos = envs.step(real_actions)
         dones = np.logical_or(terminated, truncated)
         env_s += time.perf_counter() - t_env
@@ -453,14 +540,32 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             reset_data["actions"] = np.zeros((1, len(dones_idxes), int(np.sum(actions_dim))), dtype=np.float32)
             reset_data["rewards"] = step_data["rewards"][:, dones_idxes]
             reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
-            rb.add(reset_data, dones_idxes)
+            if resident:
+                driver.stage_reset(reset_data, dones_idxes)
+            else:
+                rb.add(reset_data, dones_idxes)
             step_data["rewards"][:, dones_idxes] = 0.0
             step_data["terminated"][:, dones_idxes] = 0.0
             step_data["truncated"][:, dones_idxes] = 0.0
             step_data["is_first"][:, dones_idxes] = 1.0
             player.init_states(dones_idxes)
 
-        if iter_num >= learning_starts:
+        if resident:
+            if iter_num >= learning_starts:
+                driver.grant(ratio(policy_step - prefill_steps * num_envs))
+            # ONE append + sample + train dispatch per env step (plus
+            # append-free drains while a full grant chunk is backlogged)
+            t0 = time.perf_counter()
+            before = driver.gradient_steps
+            carry, metrics = driver.pump(carry)
+            summary["dispatch_host_s"].append((time.perf_counter() - t0, driver.gradient_steps - before))
+            if metrics is not None:
+                pending.append(metrics)
+            moments_state, cum_gradient_steps = carry[0], driver.gradient_steps
+            if policy_step - last_log >= log_every or iter_num == total_iters:
+                read_metrics()
+                last_log = policy_step
+        elif iter_num >= learning_starts:
             gradient_steps = ratio(policy_step - prefill_steps * num_envs)
             if gradient_steps > 0:
                 t0 = time.perf_counter()
@@ -494,14 +599,22 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 "last_checkpoint": last_checkpoint,
                 "rng": generator.get_state(),
             }
+            if resident and cfg.buffer.get("checkpoint", False):
+                ckpt_state["rb"] = driver.state_dict().to_dict()  # the ring, its heads and its generator
             path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
             summary["checkpoint"] = str(save_checkpoint(path, ckpt_state, plain(cfg)))
 
+    read_metrics()
+    loop_s = time.perf_counter() - t_loop
     envs.close()
+    steps = policy_step - (start_iter - 1) * num_envs
     summary.update(
         policy_steps=policy_step,
         player_steps=player_steps,
         gradient_steps=cum_gradient_steps,
-        env_steps_per_s=(policy_step - (start_iter - 1) * num_envs) / env_s if env_s > 0 else None,
+        env_steps_per_s=steps / env_s if env_s > 0 else None,
+        loop_steps_per_s=steps / loop_s if loop_s > 0 else None,
+        train_calls=driver.train_steps if resident else len(summary["train_host_s"]),
+        replay=driver.metrics() if resident else None,
     )
     return summary

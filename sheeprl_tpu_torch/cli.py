@@ -1,7 +1,8 @@
 """Command line (counterpart of ``sheeprl_tpu/cli.py``, ``run`` and ``serve``
 verbs)::
 
-    python -m sheeprl_tpu_torch run preset=sac_per|sac|ppo|dreamer_v3_100k_atari_dummy \\
+    python -m sheeprl_tpu_torch run \\
+        preset=sac_per|sac|ppo|dreamer_v3_100k_atari_dummy|dreamer_v3_100k_atari_dummy_resident \\
         [fabric.accelerator=cuda|cpu] [algo.total_steps=...] [checkpoint.resume_from=<ckpt>] ...
     python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> \\
         [fabric.accelerator=cuda|cpu] [serve.port=0] [serve.session.buckets=[1,8,32]] ...

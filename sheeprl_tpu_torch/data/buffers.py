@@ -7,7 +7,7 @@ windows."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -162,7 +162,21 @@ class EnvIndependentReplayBuffer:
             raise ValueError(f"n_envs must be a positive integer (got {n_envs})")
         self._buf = [SequentialReplayBuffer(buffer_size, 1, obs_keys) for _ in range(n_envs)]
         self._n_envs = int(n_envs)
+        self._buffer_size = int(buffer_size)
         self._rng: np.random.Generator = np.random.default_rng()
+
+    @property
+    def buffer(self) -> List[SequentialReplayBuffer]:
+        """The per-env buffers."""
+        return self._buf
+
+    @property
+    def n_envs(self) -> int:
+        return self._n_envs
+
+    @property
+    def buffer_size(self) -> int:
+        return self._buffer_size
 
     def seed(self, seed: Optional[int]) -> None:
         self._rng = np.random.default_rng(seed)

@@ -14,6 +14,7 @@ from typing import Dict
 #: kernel name -> launches of its CUDA kernel in this process
 LAUNCHES: Dict[str, int] = {
     "gru_gates": 0, "two_hot_symlog_loss": 0, "two_hot_symexp_decode": 0, "gae": 0, "sumtree_sample": 0,
+    "ragged_ring_scatter": 0,
 }
 
 
@@ -24,6 +25,7 @@ def reset_launches() -> None:
 
 from sheeprl_tpu_torch.ops.kernels.gae import gae, gae_reference  # noqa: E402
 from sheeprl_tpu_torch.ops.kernels.gru import gru_gates, gru_gates_reference  # noqa: E402
+from sheeprl_tpu_torch.ops.kernels.scatter import ragged_ring_scatter, ragged_ring_scatter_reference  # noqa: E402
 from sheeprl_tpu_torch.ops.kernels.sumtree import sumtree_sample, sumtree_sample_reference  # noqa: E402
 from sheeprl_tpu_torch.ops.kernels.twohot import (  # noqa: E402
     two_hot_symexp_decode,
@@ -45,4 +47,6 @@ __all__ = [
     "gae_reference",
     "sumtree_sample",
     "sumtree_sample_reference",
+    "ragged_ring_scatter",
+    "ragged_ring_scatter_reference",
 ]

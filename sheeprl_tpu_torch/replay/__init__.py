@@ -1,11 +1,14 @@
-"""Device-resident replay (counterpart of ``sheeprl_tpu/replay``, the
-SAC-shaped part): ring storage in card memory, one packed host->device copy
-per env step, and sampling (uniform, or prioritized through the sum-tree)
-on the device, so append, sample and train are one dispatch per env step.
+"""Device-resident replay (counterpart of ``sheeprl_tpu/replay``): ring
+storage in card memory, one packed host->device copy per env step, and
+sampling on the device, so append, sample and train are one dispatch per
+env step.
 
 - :mod:`~sheeprl_tpu_torch.replay.sumtree`: the sum-tree for PER;
 - :mod:`~sheeprl_tpu_torch.replay.device_buffer`: :class:`DeviceReplayBuffer`
-  and the spillover sizing.
+  (SAC's flat ring, uniform or prioritized), the spillover sizing and the
+  crossovers to the host buffers;
+- :mod:`~sheeprl_tpu_torch.replay.driver`: :class:`SequenceRingDriver`
+  (DreamerV3's per-env-head sequence ring).
 """
 
 from sheeprl_tpu_torch.replay.device_buffer import (
@@ -15,7 +18,9 @@ from sheeprl_tpu_torch.replay.device_buffer import (
     estimate_ring_bytes,
     resolve_device_resident,
     restore_host_buffer,
+    restore_host_env_buffer,
 )
+from sheeprl_tpu_torch.replay.driver import SequenceRingDriver
 
 __all__ = [
     "DeviceReplayBuffer",
@@ -24,4 +29,6 @@ __all__ = [
     "estimate_ring_bytes",
     "resolve_device_resident",
     "restore_host_buffer",
+    "restore_host_env_buffer",
+    "SequenceRingDriver",
 ]

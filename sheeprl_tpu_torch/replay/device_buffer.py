@@ -51,17 +51,38 @@ __all__ = [
     "estimate_ring_bytes",
     "resolve_device_resident",
     "restore_host_buffer",
+    "restore_host_env_buffer",
 ]
 
 
-def estimate_ring_bytes(specs: Dict[str, Tuple[tuple, Any]], capacity: int, n_envs: int, prioritized: bool = False) -> int:
+def estimate_ring_bytes(
+    specs: Dict[str, Tuple[tuple, Any]],
+    capacity: int,
+    n_envs: int,
+    prioritized: bool = False,
+    sequence: Optional[Dict[str, int]] = None,
+) -> int:
     """Device bytes of a ring with the given storage spec (plus the sum-tree
-    with PER)."""
+    with PER).
+
+    ``sequence`` (``{"seq_len": T, "batch_size": B}``) switches on the
+    per-env-head sequence-ring accounting (the Dreamer shape): beyond the
+    storage rows, the per-env heads and a train key (the JAX package's
+    count, kept so the two agree), the ``(capacity, n_envs)`` int32 window
+    validity working set, and the gathered ``(T, B)`` window in float32,
+    the part that bites for a pixel ring."""
     total = 0
+    row_bytes_f32 = 0
     for shape, dtype in specs.values():
-        total += capacity * n_envs * int(np.prod(shape or (1,))) * np.dtype(dtype).itemsize
+        feat = int(np.prod(shape or (1,)))
+        total += capacity * n_envs * feat * np.dtype(dtype).itemsize
+        row_bytes_f32 += feat * 4
     if prioritized:
         total += 2 * sumtree.leaf_count(capacity * n_envs) * 4
+    if sequence is not None:
+        total += n_envs * 2 * 4 + 8
+        total += capacity * n_envs * 4
+        total += int(sequence["seq_len"]) * int(sequence["batch_size"]) * row_bytes_f32
     return int(total)
 
 
@@ -72,6 +93,7 @@ def resolve_device_resident(
     n_envs: int,
     hbm_budget_gb: float,
     prioritized: bool = False,
+    sequence: Optional[Dict[str, int]] = None,
 ) -> Tuple[bool, str]:
     """``(use_device, reason)`` for the ``buffer.device_resident`` knob:
     ``False`` | ``True`` | ``"auto"``. ``auto`` puts the ring on the device
@@ -79,7 +101,8 @@ def resolve_device_resident(
     spills over to the host buffer with a warning instead of running out of
     memory at allocation. A prioritized ring that does not fit raises: the
     host buffer samples uniformly, so spilling would change the algorithm
-    (the JAX package spills it all the same)."""
+    (the JAX package spills it all the same). ``sequence`` sizes a Dreamer
+    sequence ring (:func:`estimate_ring_bytes`)."""
     if isinstance(setting, str):
         setting = setting.strip().lower()
         if setting not in ("auto", "true", "false"):
@@ -88,7 +111,7 @@ def resolve_device_resident(
     if setting is False:
         return False, "disabled by config"
     budget = float(hbm_budget_gb) * (1 << 30)
-    est = estimate_ring_bytes(specs, capacity, n_envs, prioritized)
+    est = estimate_ring_bytes(specs, capacity, n_envs, prioritized, sequence=sequence)
     if est <= budget:
         return True, f"ring fits HBM budget ({est / 2**20:.1f} MiB <= {hbm_budget_gb} GiB)"
     need = f"device ring would need {est / 2**30:.2f} GiB (budget buffer.hbm_budget_gb={hbm_budget_gb})"
@@ -325,3 +348,31 @@ def restore_host_buffer(
         if k not in rb.buffer:
             rb.buffer[k] = np.zeros((cap, n_envs) + tuple(shape), dtype)
     rb.set_head(int(snap.meta["host_pos"]), bool(snap.meta["host_full"]))
+
+
+def restore_host_env_buffer(
+    snap: DeviceReplayState, rb, fill_missing: Optional[Dict[str, Tuple[tuple, Any]]] = None
+) -> None:
+    """Fill a host ``EnvIndependentReplayBuffer`` from a sequence-ring
+    snapshot (resuming a device-ring checkpoint on the host tier). Each
+    env's column becomes its buffer's storage and the per-env write heads
+    carry over, so window sampling resumes with the same validity.
+    ``fill_missing`` zero-allocates keys the host loop writes but the ring
+    never stored (``truncated``)."""
+    if snap.kind != "sequence":
+        raise ValueError(f"cannot restore a '{snap.kind}' replay snapshot into per-env host buffers")
+    cap, n_envs = int(snap.meta["capacity"]), int(snap.meta["n_envs"])
+    if cap != rb.buffer_size or n_envs != rb.n_envs:
+        raise ValueError(
+            f"replay snapshot shape ({cap}, {n_envs}) does not match the host buffer ({rb.buffer_size}, {rb.n_envs})"
+        )
+    pos = np.asarray(snap.arrays["pos"])
+    valid = np.asarray(snap.arrays["valid"])
+    for e, sub in enumerate(rb.buffer):
+        for name, arr in snap.arrays.items():
+            if name.startswith("storage/"):
+                sub.buffer[name[len("storage/") :]] = arr[:, e : e + 1].numpy().copy()
+        for k, (shape, dtype) in (fill_missing or {}).items():
+            if k not in sub.buffer:
+                sub.buffer[k] = np.zeros((cap, 1) + tuple(shape), dtype)
+        sub.set_head(int(pos[e]), bool(valid[e] >= cap))

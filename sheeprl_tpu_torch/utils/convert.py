@@ -1,5 +1,6 @@
 """Carry weights across from the JAX package: flax parameter trees, held as
-numpy arrays, to the port's ``state_dict``s.
+numpy arrays, to the port's ``state_dict``s; and a JAX sequence-ring
+snapshot to the port's (:func:`sequence_ring_from_jax`).
 
 The port's modules keep the flax submodule names, so a leaf's path is its
 ``state_dict`` key once the ``params`` collection level is dropped. Leaves
@@ -26,7 +27,15 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["flax_to_state_dict", "dreamer_v3_state_from_jax", "ppo_state_from_jax", "sac_state_from_jax"]
+from sheeprl_tpu_torch.replay.device_buffer import DeviceReplayState
+
+__all__ = [
+    "flax_to_state_dict",
+    "dreamer_v3_state_from_jax",
+    "ppo_state_from_jax",
+    "sac_state_from_jax",
+    "sequence_ring_from_jax",
+]
 
 #: the flax module name of a transposed convolution's layer (the JAX
 #: package's ``_ConvTranspose`` wraps an unnamed ``nn.ConvTranspose``)
@@ -126,3 +135,18 @@ def sac_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         state.update(_stacked(tree["params"] if set(tree) == {"params"} else tree, f"{name}."))
     state["log_alpha"] = torch.from_numpy(np.array(params["log_alpha"], dtype=np.float32).reshape(1))
     return state
+
+
+def sequence_ring_from_jax(arrays: Mapping[str, Any], meta: Mapping[str, Any]) -> DeviceReplayState:
+    """A JAX sequence ``DeviceReplayState``'s numpy ``arrays``
+    (``storage/<key>``, ``pos``, ``valid``) and ``meta`` -> the port's
+    snapshot, which ``SequenceRingDriver.load_state_dict`` and
+    ``restore_host_env_buffer`` read. The JAX ``key`` is not carried: a
+    threefry key has no Philox state that draws the same numbers, so the
+    snapshot has no ``key`` and a driver restoring it keeps its generator
+    as seeded."""
+    out = {name: torch.from_numpy(np.array(a, order="C")) for name, a in arrays.items() if name.startswith("storage/")}
+    out["pos"] = torch.from_numpy(np.asarray(arrays["pos"], np.int64).copy())
+    out["valid"] = torch.from_numpy(np.asarray(arrays["valid"], np.int64).copy())
+    keep = {k: meta[k] for k in ("capacity", "n_envs", "seq_len") if k in meta}
+    return DeviceReplayState("sequence", out, {k: int(v) for k, v in keep.items()})

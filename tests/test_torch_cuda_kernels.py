@@ -268,6 +268,7 @@ def test_torch_cuda_ppo_rollout_gae_launches_once_per_iteration(cuda, tmp_path):
     assert summary["device"].startswith("cuda") and summary["iterations"] == 2
     assert K.LAUNCHES == {
         "gru_gates": 0, "two_hot_symlog_loss": 0, "two_hot_symexp_decode": 0, "gae": 2, "sumtree_sample": 0,
+        "ragged_ring_scatter": 0,
     }
 
 
@@ -338,4 +339,103 @@ def test_torch_cuda_sac_per_loop_launches_sumtree_once_per_gradient_step(cuda, t
                        "buffer.size=4096", "checkpoint.save_last=false", f"log_root={tmp_path}"])
     assert summary["device"].startswith("cuda") and summary["resident"] and summary["gradient_steps"] > 0
     assert K.LAUNCHES == {"gru_gates": 0, "two_hot_symlog_loss": 0, "two_hot_symexp_decode": 0, "gae": 0,
-                          "sumtree_sample": summary["gradient_steps"]}
+                          "sumtree_sample": summary["gradient_steps"], "ragged_ring_scatter": 0}
+
+
+def _scatter_inputs(cuda, dtype, feat, S, e, col_offset, misalign, seed=0):
+    """A ring of 13 rows and ``e + col_offset`` env columns, staged rows cut
+    from a byte buffer at ``misalign`` bytes (an unpacked upload's segments
+    are only 4-byte aligned), a second staged row dropping every other env
+    (a ragged reset row), heads wrapping past the capacity."""
+    from sheeprl_tpu_torch.data.ring import ring_append_rows
+
+    rng = np.random.default_rng(seed)
+    C = 13
+    if dtype == torch.uint8:
+        storage = torch.from_numpy(rng.integers(0, 256, (C, e + col_offset) + feat).astype(np.uint8))
+        fresh = torch.from_numpy(rng.integers(0, 256, (S, e) + feat).astype(np.uint8))
+    else:
+        storage = torch.from_numpy(rng.normal(size=(C, e + col_offset) + feat).astype(np.float32))
+        fresh = torch.from_numpy(rng.normal(size=(S, e) + feat).astype(np.float32))
+    n = fresh.numel() * fresh.element_size()
+    buf = torch.zeros(n + 16, dtype=torch.uint8)
+    buf[misalign:misalign + n] = fresh.reshape(-1).view(torch.uint8)
+    mask = torch.ones((S, e), dtype=torch.int32)
+    if S > 1:
+        mask[S - 1, ::2] = 0
+    pos = torch.full((e,), C - 1, dtype=torch.int32)
+    row, _, _ = ring_append_rows(pos, torch.full((e,), C, dtype=torch.int32), mask, C)
+    staged = buf.to(cuda)[misalign:misalign + n].view(dtype).reshape(fresh.shape)
+    return storage.to(cuda), staged, row.to(cuda), pos.to(cuda)
+
+
+@pytest.mark.parametrize(
+    "dtype, misalign",
+    [(torch.uint8, 0), (torch.uint8, 4), (torch.uint8, 1), (torch.float32, 0), (torch.float32, 4)],
+    ids=["u8-aligned16", "u8-aligned4", "u8-aligned1", "f32-aligned16", "f32-aligned4"],
+)
+@pytest.mark.parametrize("shape", [(1, 1, (1,)), (2, 4, (18,)), (2, 1, (64, 64, 3)), (1, 4, (64, 64, 3))],
+                         ids=["scalar", "actions", "frames", "frames-4envs"])
+@pytest.mark.parametrize("col_offset", [0, 2])
+def test_torch_cuda_ragged_ring_scatter_matches_plain(cuda, dtype, shape, misalign, col_offset):
+    """The kernel against the plain version on copies of one ring: bit-equal,
+    in place, one launch. (A float32 view needs 4-byte alignment, so float32
+    rows are cut at 16- and 4-byte offsets only.)"""
+    S, e, feat = shape
+    storage, staged, row, pos = _scatter_inputs(cuda, dtype, feat, S, e, col_offset, misalign)
+    got, want = storage.clone(), storage.clone()
+    before = K.LAUNCHES["ragged_ring_scatter"]
+    out = K.ragged_ring_scatter(got, staged, row, pos, col_offset)
+    torch.cuda.synchronize()
+    assert out.data_ptr() == got.data_ptr() and K.LAUNCHES["ragged_ring_scatter"] == before + 1
+    K.ragged_ring_scatter_reference(want, staged, row, pos, col_offset)
+    assert torch.equal(got, want) and not torch.equal(got, storage)
+
+
+def test_torch_cuda_ragged_ring_scatter_rejects_what_the_kernel_does_not_take(cuda):
+    storage, staged, row, pos = _scatter_inputs(cuda, torch.float32, (3,), 2, 4, 0, 0)
+    with pytest.raises(TypeError, match="staged is"):
+        K.ragged_ring_scatter(storage, staged.double(), row, pos)
+    with pytest.raises(TypeError, match="int32 rows"):
+        K.ragged_ring_scatter(storage, staged, row.long(), pos)
+    with pytest.raises(ValueError, match="outside the ring"):
+        K.ragged_ring_scatter(storage, staged, row, pos, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.ragged_ring_scatter(storage, staged.transpose(0, 1).contiguous().transpose(0, 1), row, pos)
+    with pytest.raises(ValueError, match="CUDA device"):
+        K.ragged_ring_scatter(storage, staged, row.cpu(), pos)
+    with pytest.raises(ValueError, match="slots"):
+        K.ragged_ring_scatter(storage, staged[..., :2].contiguous(), row, pos)
+
+
+def test_torch_cuda_ragged_ring_scatter_backward_is_the_plain_gradient(cuda):
+    storage, staged, row, pos = _scatter_inputs(cuda, torch.float32, (3,), 2, 4, 1, 0, seed=4)
+    scale = torch.rand(storage.shape)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        s = storage.to(dev).clone().requires_grad_(True)
+        t = staged.to(dev).clone().requires_grad_(True)
+        (K.ragged_ring_scatter(s.clone(), t, row.to(dev), pos.to(dev), 1) * scale.to(dev)).sum().backward()
+        grads[dev] = (s.grad.cpu(), t.grad.cpu())
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        assert torch.equal(a, b)
+
+
+def test_torch_cuda_resident_loop_launches_the_scatter_once_per_ring_key_and_flush(cuda, tmp_path):
+    """A short ``run preset=dreamer_v3_100k_atari_dummy_resident`` on the card
+    (full width, a 4,096-row ring): 5 scatters per flush, the two-hot and
+    GRU counts of the gradient steps and player steps, nothing else."""
+    from sheeprl_tpu_torch import cli
+
+    K.reset_launches()
+    summary = cli.run(["preset=dreamer_v3_100k_atari_dummy_resident", "metric.log_level=0", "buffer.size=4096",
+                       "algo.learning_starts=64", "algo.total_steps=66", "checkpoint.save_last=false",
+                       f"log_root={tmp_path}"])
+    G = summary["gradient_steps"]
+    assert summary["device"].startswith("cuda") and summary["resident"] and G == 3
+    assert np.isfinite(np.asarray(summary["metrics"])).all()
+    assert K.LAUNCHES == {
+        "gru_gates": G * (64 + 15) + summary["player_steps"], "two_hot_symlog_loss": 3 * G,
+        "two_hot_symexp_decode": 3 * G, "gae": 0, "sumtree_sample": 0,
+        "ragged_ring_scatter": 5 * summary["replay"]["Replay/flushes"],
+    }

@@ -52,7 +52,8 @@ def test_torch_package_imports_with_jax_and_reference_blocked():
     assert "sheeprl_tpu_torch.ops.kernels.gae" in report["imported"]
     assert "sheeprl_tpu_torch.algos.ppo.ppo" in report["imported"]
     for name in ("ops.kernels.sumtree", "replay.sumtree", "replay.device_buffer", "data.ring", "algos.sac.sac",
-                 "algos.sac.agent", "algos.sac.loss", "algos.sac.utils"):
+                 "algos.sac.agent", "algos.sac.loss", "algos.sac.utils", "ops.kernels.scatter", "replay.driver",
+                 "utils.burst", "utils.convert"):
         assert f"sheeprl_tpu_torch.{name}" in report["imported"]
 
 
@@ -80,7 +81,7 @@ def test_torch_package_source_imports_nothing_forbidden(path):
 
 def test_torch_package_ships_its_kernel_sources():
     sources = sorted(p.name for p in (PACKAGE / "csrc").glob("*.cu"))
-    assert sources == ["gae.cu", "gru_gates.cu", "sumtree.cu", "two_hot.cu"]
+    assert sources == ["gae.cu", "gru_gates.cu", "ring_scatter.cu", "sumtree.cu", "two_hot.cu"]
 
 
 @pytest.mark.parametrize(
@@ -89,6 +90,11 @@ def test_torch_package_ships_its_kernel_sources():
         ("gru_gates.cu", ["gru_gates_launch"], ["sheeprl_tpu/ops/kernels/gru.py", "_pallas_forward"]),
         ("gae.cu", ["gae_launch"], ["sheeprl_tpu/ops/kernels/gae.py:56", "_gae_pallas_forward"]),
         ("sumtree.cu", ["sumtree_sample_launch"], ["sheeprl_tpu/ops/kernels/sumtree.py:68", "_sumtree_pallas_forward"]),
+        (
+            "ring_scatter.cu",
+            ["ragged_ring_scatter_launch"],
+            ["sheeprl_tpu/ops/kernels/scatter.py:68", "_scatter_pallas_forward"],
+        ),
         (
             "two_hot.cu",
             ["two_hot_symlog_loss_launch", "two_hot_symexp_decode_launch"],
