@@ -9,7 +9,9 @@ result line):
 
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every kernel under ``sheeprl_tpu_torch/csrc`` with ``nvcc``, one
-   process per source, all at once;
+   process per source, all at once, and beside them the script's own L2
+   pointer chase and empty kernel; the empty kernel's graph-replayed time is
+   the floor of one launch (``floor_ms`` in every kernel's row);
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the shapes the serving and training paths give it, timed with
    CUDA events around CUDA-graph replays; the two-hot kernels' and
@@ -26,8 +28,11 @@ result line):
    entry point on the card at the full recipe (batch 16 x sequence 64,
    horizon 15, 255 bins) with ``learning_starts`` 128, for 9 gradient
    steps, ending in a checkpoint; the launch counters are zeroed just
-   before and checked against the path's exact counts just after; then one
-   gradient step from that checkpoint under ``torch.profiler``;
+   before and checked against the path's exact counts just after; the
+   checkpoint holds the host replay buffer, and a resume of 4 steps must
+   start with it (rows, heads, generators) and train with the path's
+   counts; then one gradient step from that checkpoint under
+   ``torch.profiler``;
 8. serve: the run's checkpoint (Atari-protocol shape: 64x64x3 pixels, 18
    actions, full width) through the port's ``serve`` entry point on an
    ephemeral socket: 8 concurrent sessions x 16 steps, one client reset, a
@@ -50,6 +55,8 @@ result line):
    uniforms of 0 and just under 1), timed as the other kernels are, beside
    its bound: the bytes, or the fewest dependent L2 hits a descent needs
    (``sumtree_bound``), whose latency a pointer chase measures on the card;
+   and a sweep of the kernel's levels per dependent read, k in
+   SUMTREE_HOP_SWEEP, at the SAC shape, each checked as above;
 12. SAC update: one device-resident dispatch at the full ``sac_per`` width
    (append + 4 PER gradient steps, hidden 256, batch 256, a ring of
    250,000 x 4) on the card against the CPU, each step from the card's
@@ -64,18 +71,22 @@ result line):
 14. ring scatter: ``ragged_ring_scatter`` against its plain version on the
    card, bit for bit, at uint8 and f32, slots of 1 to 12,288 elements, 1-2
    staged rows, 1 and 4 envs, column offsets, dropped slots, heads that
-   wrap and misaligned staged rows, and at the main path's 100,000-row
-   64x64x3 ring, timed as the other kernels are, beside its bytes bound;
-   its gradient against the plain scatter's;
+   wrap and misaligned staged rows, each case also through
+   ``ragged_ring_scatter_keys`` with 1, 2 and 5 keys in one launch; then the
+   main path's 5 ring keys (the 100,000-row 64x64x3 frame ring and its
+   action and scalar rings) from a packed upload, one launch timed as the
+   other kernels are beside the 5 per-key launches it replaces and its
+   bytes bound; the gradients against the plain scatter's;
 15. resident dispatch: one device-resident DreamerV3-S dispatch (full width,
    B 4 x T 16, a 2-env ring with a dropped slot) on the card against the
    CPU: the ring and the windows bit-equal, losses and parameters as in 6;
+   one scatter launch for the 5 ring keys;
 16. resident run: ``python -m sheeprl_tpu_torch run
    preset=dreamer_v3_100k_atari_dummy_resident``'s entry point on the card
    at the full recipe with the full 100,000-row ring in card memory,
    ``learning_starts`` past the env's first episode end (a 2-row flush),
    then 9 gradient steps; the launch counters zeroed just before and
-   checked just after (5 scatters per flush, the two-hot and GRU counts of
+   checked just after (one scatter per flush, the two-hot and GRU counts of
    7); a resume that must restore the ring, its heads and its generator;
    append-only and training dispatches under ``torch.profiler``.
 
@@ -133,6 +144,7 @@ GAE_OPS_PER_ELEMENT = 8
 N_SESSIONS, N_STEPS, RESET_AT = 8, 16, 8
 RUN_PRESET = "dreamer_v3_100k_atari_dummy"
 RUN_LEARNING_STARTS, RUN_GRADIENT_STEPS = 128, 9
+RUN_RESUME_STEPS = 4  # env steps of the host run's resume, learning from the restored buffer after 2
 PPO_PRESET = "ppo"
 # the mean return of the last PPO_LAST_EPISODES finished CartPole episodes
 # must reach PPO_RETURN_BAR: a random policy gets ~22; the first card run of
@@ -155,10 +167,13 @@ PROFILED = 3  # resident dispatches per profiling window
 # the sumtree kernel's shapes: (leaves, draws); the SAC path's is (2^20, 256)
 SUMTREE_SHAPES = [(p, b) for p in (1 << 6, 1 << 10, 1 << 16, 1 << 20, 1 << 22) for b in (1, 256, 4096)]
 SUMTREE_MAIN = (1 << 20, 256)
+SUMTREE_HOP_SWEEP = (5, 6, 7, 8, 10)  # the kernel's levels per dependent read, swept at SUMTREE_MAIN
 SECTOR_BYTES = 32  # one L2 sector: the least one dependent read moves
 # one thread walks a random cycle of dependent loads through an 8 MiB buffer
 # (inside the 50 MB L2, far beyond L1), loading with __ldcg (cached in L2
-# only): the time per hop is one L2 hit's latency
+# only): the time per hop is one L2 hit's latency. Beside it, an empty
+# kernel: its graph-replayed time is the floor of one launch, which every
+# kernel's ``ms`` includes
 _L2_CHASE_SOURCE = r"""
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -170,6 +185,11 @@ __global__ void chase(const uint32_t* __restrict__ next, uint32_t start, long lo
 extern "C" int chase_launch(const void* next, unsigned int start, long long hops, void* out, void* stream) {
   chase<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(static_cast<const uint32_t*>(next), start, hops,
                                                        static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+__global__ void empty() {}
+extern "C" int empty_launch(void* stream) {
+  empty<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -725,6 +745,57 @@ def _profile_gradient_step(checkpoint: str) -> dict:
     }
 
 
+def _run_resume(summary: dict, T: int, H: int) -> dict:
+    """The host run's checkpoint holds its replay buffer (``buffer.checkpoint``
+    is on under the preset, as in the JAX package): a resume of
+    RUN_RESUME_STEPS steps must start with that buffer, rows, heads and
+    generator states equal to the saved ones, and train from it with the
+    path's launch counts."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+
+    saved = load_checkpoint(summary["checkpoint"])["rb"]
+    rows = [env["pos"] for env in saved["envs"]]
+    log(f"run checkpoint: {os.path.getsize(summary['checkpoint'])} bytes, with the host buffer's {rows} rows")
+    restored = []
+
+    class _Recording(dv3.EnvIndependentReplayBuffer):
+        def load_state_dict(self, state):
+            super().load_state_dict(state)
+            restored.append(self.state_dict())
+
+    kernels.reset_launches()
+    dv3.EnvIndependentReplayBuffer = _Recording
+    try:
+        resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
+                           "algo.learning_starts=2", f"algo.total_steps={summary['policy_steps'] + RUN_RESUME_STEPS}",
+                           "checkpoint.save_last=false"])
+    finally:
+        dv3.EnvIndependentReplayBuffer = _Recording.__bases__[0]
+    launches = dict(kernels.LAUNCHES)
+    if len(restored) != 1 or restored[0]["rng"] != saved["rng"] or len(restored[0]["envs"]) != len(saved["envs"]):
+        raise AssertionError("the resume did not restore the checkpoint's host buffer")
+    for got, want in zip(restored[0]["envs"], saved["envs"]):
+        same = [got[k] == want[k] for k in ("pos", "full", "rng")]
+        same += [sorted(got["buffer"]) == sorted(want["buffer"])]
+        same += [torch.equal(got["buffer"][k], v) for k, v in want["buffer"].items()]
+        if not all(same):
+            raise AssertionError(f"the resume restored a different host buffer: {same}")
+    G = resumed["gradient_steps"]
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want.update({"two_hot_symlog_loss": 3 * G, "two_hot_symexp_decode": 3 * G,
+                 "gru_gates": G * (T + H) + resumed["player_steps"]})
+    if resumed["start_iter"] != summary["policy_steps"] + 1 or G == 0 or launches != want:
+        raise AssertionError(f"host resume: start {resumed['start_iter']}, {G} gradient steps, launches {launches} "
+                             f"!= {want}")
+    if not np.isfinite(np.asarray(resumed["metrics"])).all():
+        raise AssertionError(f"non-finite losses after the resume: {resumed['metrics']}")
+    out = {"start_iter": resumed["start_iter"], "policy_steps": resumed["policy_steps"], "gradient_steps": G,
+           "player_steps": resumed["player_steps"], "launches": launches, "restored_rows": rows,
+           "restored_equal": True}
+    log("run resume: " + json.dumps(out))
+    return out
+
+
 def run_phase(workdir: str) -> dict:
     """DreamerV3-S coupled training through ``run``'s entry point at the
     full recipe, ``learning_starts`` 128 and 9 gradient steps. Every loss
@@ -780,6 +851,8 @@ def run_phase(workdir: str) -> dict:
         log(f"run gradient step {i}: " + " ".join(f"{n.split('/')[-1]}={v:.5g}" for n, v in zip(METRIC_NAMES, row)))
     log(f"run: {G} gradient steps, host ms per gradient step {[round(x, 1) for x in per_step]}, "
         f"env steps/s {summary['env_steps_per_s']:.1f}, launches {launches}")
+    out["checkpoint_bytes"] = os.path.getsize(summary["checkpoint"])
+    out["resume"] = _run_resume(summary, T, H)
     out["profile"] = _profile_gradient_step(summary["checkpoint"])
     log("gradient step profile: " + json.dumps(out["profile"]))
     return out
@@ -1289,6 +1362,24 @@ def l2_latency_ns(chase_lib: str, hops: int = 1 << 20) -> float:
     return start.elapsed_time(stop) * 1e6 / hops
 
 
+def launch_floor_ms(chase_lib: str) -> float:
+    """The floor of one launch: an empty kernel's device time per call,
+    timed as every kernel is (:func:`_graph_ms`)."""
+    import ctypes
+
+    lib = ctypes.CDLL(chase_lib)
+    lib.empty_launch.argtypes = [ctypes.c_void_p]
+    lib.empty_launch.restype = ctypes.c_int
+
+    def run() -> None:
+        if lib.empty_launch(torch.cuda.current_stream().cuda_stream) != 0:
+            raise RuntimeError("the empty kernel did not launch")
+
+    floor = _graph_ms(run)
+    log(f"launch floor (an empty kernel, graph-replayed): {floor * 1e3:.3f} us")
+    return floor
+
+
 def _sumtree_inputs(gen, leaves: int, batch: int):
     """A tree of ``leaves`` leaves, a tenth of them padding past the filled
     ones (always zero), every seventh filled leaf zero; ``batch`` uniforms
@@ -1372,6 +1463,21 @@ def sumtree_phase(chase_lib: str, beta: float = 0.55) -> dict:
             f"(call {row['call_ms'] * 1e3:.2f} us) plain {row['plain_ms'] * 1e3:.2f} us bound {row['bound_ms'] * 1e3:.3f} us "
             f"({row['bound_by']}: {row['hops']} hops of {row['hop_nodes']} nodes, bytes {row['bytes_ms'] * 1e3:.4f} us, "
             f"chain {row['chain_ms'] * 1e3:.3f} us)")
+    # the sweep of k, the tree levels settled per dependent read, at the SAC shape
+    from sheeprl_tpu_torch.ops.kernels import sumtree as sumtree_module
+
+    tree, u, _, filled = _sumtree_inputs(gen, *SUMTREE_MAIN)
+    want_leaf, want_w = kernels.sumtree_sample_reference(tree, u, filled, beta)
+    sweep = []
+    for k in SUMTREE_HOP_SWEEP:
+        leaf, w = sumtree_module._launch(tree, u, filled, beta, hop_levels=k)
+        torch.cuda.synchronize()
+        if not torch.equal(leaf, want_leaf):
+            raise AssertionError(f"sumtree_sample at k = {k} draws other leaves than the plain version")
+        torch.testing.assert_close(w, want_w, rtol=1e-6, atol=0)
+        sweep.append({"k": k, "ms": _graph_ms(lambda: sumtree_module._launch(tree, u, filled, beta, hop_levels=k))})
+    log("sumtree_sample k sweep at (2^20, 256): " + ", ".join(f"k={r['k']} {r['ms'] * 1e3:.3f} us" for r in sweep)
+        + f"; the wrapper uses k={sumtree_module.HOP_LEVELS}")
     # the gradient through the autograd.Function against the plain chain's
     tree, u, _, filled = _sumtree_inputs(gen, 1 << 10, 256)
     scale = torch.rand(256, generator=gen, device="cuda")
@@ -1401,6 +1507,8 @@ def sumtree_phase(chase_lib: str, beta: float = 0.55) -> dict:
         "chain_ms": main["chain_ms"],
         "hops": main["hops"],
         "hop_nodes": main["hop_nodes"],
+        "hop_levels": sumtree_module.HOP_LEVELS,
+        "hop_sweep": sweep,
         "l2_hit_ns": l2_ns,
         "leaves_exact": True,
         "max_rel_err": max(r["max_rel_err"] for r in rows),
@@ -1685,26 +1793,12 @@ def _parking_scatter(storage, staged, row, pos, col_offset: int = 0):
     return safe_row, cols, vals
 
 
-def _scatter_case(gen, C: int, E: int, S: int, e: int, feat: tuple, dtype, col_offset: int, *, wrap: bool = False,
-                  drop: str = "ragged", misalign: int = 0):
-    """A ring of ``C`` rows and ``E`` env columns, heads from ``ring_append_rows``
-    over a staged ``(S, e)`` mask: ``drop`` "none" writes every slot,
-    "ragged" drops some, "column" drops every slot of env 0. ``wrap`` puts
-    the heads just before ``C``. ``misalign`` cuts the staged rows from a
-    byte buffer at that offset (an unpacked upload's segments are only
-    4-byte aligned)."""
+def _scatter_rows(gen, C: int, S: int, e: int, *, wrap: bool = False, drop: str = "ragged"):
+    """Heads and the ``ring_append_rows`` row table of a staged ``(S, e)``
+    mask: ``drop`` "none" writes every slot, "ragged" drops some, "column"
+    drops every slot of env 0. ``wrap`` puts the heads just before ``C``."""
     from sheeprl_tpu_torch.data.ring import ring_append_rows
 
-    if dtype == torch.uint8:
-        storage = torch.randint(0, 256, (C, E) + feat, generator=gen, device="cuda", dtype=torch.uint8)
-        fresh = torch.randint(0, 256, (S, e) + feat, generator=gen, device="cuda", dtype=torch.uint8)
-    else:
-        storage = torch.randn((C, E) + feat, generator=gen, device="cuda", dtype=dtype)
-        fresh = torch.randn((S, e) + feat, generator=gen, device="cuda", dtype=dtype)
-    n = fresh.numel() * fresh.element_size()
-    buf = torch.zeros(n + 64, dtype=torch.uint8, device="cuda")
-    buf[misalign:misalign + n] = fresh.reshape(-1).view(torch.uint8)
-    staged = buf[misalign:misalign + n].view(dtype).reshape(fresh.shape)
     mask = torch.ones((S, e), dtype=torch.int32, device="cuda")
     if drop == "ragged":
         mask[S - 1, ::2] = 0
@@ -1715,6 +1809,31 @@ def _scatter_case(gen, C: int, E: int, S: int, e: int, feat: tuple, dtype, col_o
         pos[:] = C - 1
     valid = torch.full((e,), C, dtype=torch.int32, device="cuda")
     row, _, _ = ring_append_rows(pos, valid, mask, C)
+    return row, pos
+
+
+def _scatter_key(gen, C: int, E: int, S: int, e: int, feat: tuple, dtype, misalign: int = 0):
+    """A ring of ``C`` rows and ``E`` env columns, and ``(S, e)`` staged rows
+    cut from a byte buffer at ``misalign`` bytes (an unpacked upload's
+    segments are only 4-byte aligned)."""
+    if dtype == torch.uint8:
+        storage = torch.randint(0, 256, (C, E) + feat, generator=gen, device="cuda", dtype=torch.uint8)
+        fresh = torch.randint(0, 256, (S, e) + feat, generator=gen, device="cuda", dtype=torch.uint8)
+    else:
+        storage = torch.randn((C, E) + feat, generator=gen, device="cuda", dtype=dtype)
+        fresh = torch.randn((S, e) + feat, generator=gen, device="cuda", dtype=dtype)
+    n = fresh.numel() * fresh.element_size()
+    buf = torch.zeros(n + 64, dtype=torch.uint8, device="cuda")
+    buf[misalign:misalign + n] = fresh.reshape(-1).view(torch.uint8)
+    return storage, buf[misalign:misalign + n].view(dtype).reshape(fresh.shape)
+
+
+def _scatter_case(gen, C: int, E: int, S: int, e: int, feat: tuple, dtype, col_offset: int, *, wrap: bool = False,
+                  drop: str = "ragged", misalign: int = 0):
+    """One key's ring and staged rows (:func:`_scatter_key`) and their row
+    table (:func:`_scatter_rows`)."""
+    row, pos = _scatter_rows(gen, C, S, e, wrap=wrap, drop=drop)
+    storage, staged = _scatter_key(gen, C, E, S, e, feat, dtype, misalign)
     return storage, staged, row, pos, col_offset
 
 
@@ -1736,6 +1855,12 @@ def _scatter_check(storage, staged, row, pos, col_offset) -> dict:
     _parking_scatter(parked_ring, staged, row, pos, col_offset)
     if not torch.equal(parked_ring, want):
         raise AssertionError("the parking form of the plain version differs from the literal one")
+    return _untouched_check(storage, got, want, row, pos, col_offset)
+
+
+def _untouched_check(storage, got, want, row, pos, col_offset) -> dict:
+    """Every slot the call does not write keeps its bytes in ``got``, the row
+    before each env's head too; the error of the written slots."""
     C = storage.shape[0]
     touched = torch.zeros(storage.shape[:2], dtype=torch.bool, device="cuda")
     m = row < C
@@ -1753,13 +1878,41 @@ def _scatter_check(storage, staged, row, pos, col_offset) -> dict:
             if bool(m.any()) else 0.0}
 
 
+def _scatter_keys_check(storages: dict, staged: dict, row, pos, col_offset) -> dict:
+    """Every key in one ``ragged_ring_scatter_keys`` launch against the
+    per-key plain version on copies of the same rings: bit-equal, in place,
+    one launch, untouched slots unchanged."""
+    got = {k: v.clone() for k, v in storages.items()}
+    before = kernels.LAUNCHES["ragged_ring_scatter"]
+    out = kernels.ragged_ring_scatter_keys(got, staged, row, pos, col_offset)
+    torch.cuda.synchronize()
+    if kernels.LAUNCHES["ragged_ring_scatter"] != before + 1 or any(out[k].data_ptr() != got[k].data_ptr() for k in got):
+        raise AssertionError("ragged_ring_scatter_keys did not update every ring in place with one launch")
+    err = 0.0
+    for k, storage in storages.items():
+        want = kernels.ragged_ring_scatter_reference(storage.clone(), staged[k], row, pos, col_offset)
+        if not torch.equal(got[k], want):
+            raise AssertionError(f"ragged_ring_scatter_keys differs from the plain version at key {k!r}: ring "
+                                 f"{tuple(storage.shape)}, staged {tuple(staged[k].shape)} {staged[k].dtype}, "
+                                 f"col_offset {col_offset}")
+        err = max(err, _untouched_check(storage, got[k], want, row, pos, col_offset)["max_abs_err"])
+    return {"keys": len(storages), "max_abs_err": err}
+
+
 def scatter_bound(row, slot_bytes: int, capacity: int) -> dict:
     """The least time of one call: each written slot read once and written
-    once, the row indices read once, at the card's memory rate. The
-    arithmetic (an address per slot) is nothing beside it."""
+    once (``slot_bytes``: a slot's bytes summed over the call's keys), the
+    row indices read once, at the card's memory rate. The arithmetic (an
+    address per slot) is nothing beside it."""
     written = int((row < capacity).sum())
     moved = 2 * written * slot_bytes + row.numel() * 4
     return {"bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bound_bytes": moved}
+
+
+# the other keys of a keys case, after the case's own: every slot size (1, 18
+# and 12,288 elements) and both dtypes of the DreamerV3 ring
+SCATTER_OTHER_KEYS = [(torch.uint8, (64, 64, 3)), (torch.float32, (18,)), (torch.float32, (1,)), (torch.uint8, (1,)),
+                      (torch.float32, (64, 64, 3))]
 
 
 def scatter_phase() -> dict:
@@ -1767,15 +1920,22 @@ def scatter_phase() -> dict:
     bit, at uint8 and f32, slots of 1, 18 and 12,288 elements, 1 and 2
     staged rows, 1 and 4 envs, column offsets 0 and 3, dropped slots, an
     all-dropped column, heads wrapping past C and staged rows at 16-, 4- and
-    1-byte alignment; then at the main path's ``(100000, 1, 64, 64, 3)``
-    uint8 ring with 1 and 2 staged rows. ``ms`` is device time per call at
-    the main path's 1-row frame append (:func:`_graph_ms`), ``plain_ms`` the
-    parking form of the plain version, ``library_ms`` its one
-    ``index_put_`` alone (without the ``where`` and the gather before it).
-    The gradient through the ``autograd.Function`` equals the plain
+    1-byte alignment; each case also through ``ragged_ring_scatter_keys``
+    with 1, 2 and 5 keys of mixed dtypes and slot sizes sharing its row
+    table. Then the main path: the DreamerV3 ring's 5 keys (the 100,000-row
+    64x64x3 uint8 frame, 18 f32 actions, 3 f32 scalars) appended from a
+    packed upload of 1 and 2 rows. ``ms`` is device time per call of the
+    one 5-key launch at the 1-row append (:func:`_graph_ms`), beside the 5
+    per-key launches it replaces (``per_key_ms``); ``plain_ms`` the parking
+    form of the plain version over the keys, ``library_ms`` one
+    ``index_put_`` per key (without the ``where`` and the gather before
+    each). The gradients through the ``autograd.Function`` equal the plain
     scatter's."""
+    from sheeprl_tpu_torch.data.ring import make_blob_layouts, pack_burst_blob, torch_dtype, unpack_burst_blob
+    from sheeprl_tpu_torch.utils.burst import dreamer_ring_keys
+
     gen = torch.Generator(device="cuda").manual_seed(17)
-    cases = []
+    cases, keys_cases = [], 0
     for dtype in (torch.uint8, torch.float32):
         for feat in ((1,), (18,), (64, 64, 3)):
             for S in (1, 2):
@@ -1783,33 +1943,66 @@ def scatter_phase() -> dict:
                     for col_offset in (0, 3):
                         for drop in ("none", "ragged", "column") if e > 1 else ("none", "ragged"):
                             misalign = {0: 0, 1: 4, 2: 1}[len(cases) % 3] if dtype == torch.uint8 else 4 * (len(cases) % 2)
-                            args = _scatter_case(gen, 97, e + col_offset, S, e, feat, dtype, col_offset,
-                                                 wrap=len(cases) % 4 == 0, drop=drop, misalign=misalign)
-                            res = _scatter_check(*args)
+                            row, pos = _scatter_rows(gen, 97, S, e, wrap=len(cases) % 4 == 0, drop=drop)
+                            storage, staged = _scatter_key(gen, 97, e + col_offset, S, e, feat, dtype, misalign)
+                            res = _scatter_check(storage, staged, row, pos, col_offset)
+                            others = [o for o in SCATTER_OTHER_KEYS if o != (dtype, feat)]
+                            for n_keys in (1, 2, 5):
+                                rings, blocks = {"case": storage}, {"case": staged}
+                                for i, (kd, kf) in enumerate(others[: n_keys - 1]):
+                                    cut = misalign if kd == torch.uint8 or misalign % 4 == 0 else 4
+                                    rings[f"k{i}"], blocks[f"k{i}"] = _scatter_key(gen, 97, e + col_offset, S, e, kf, kd, cut)
+                                keys_res = _scatter_keys_check(rings, blocks, row, pos, col_offset)
+                                res["max_abs_err"] = max(res["max_abs_err"], keys_res["max_abs_err"])
+                                keys_cases += 1
                             cases.append({"dtype": str(dtype).split(".")[-1], "feat": feat, "S": S, "e": e,
                                           "col_offset": col_offset, "drop": drop, "misalign": misalign, **res})
-    log(f"ragged_ring_scatter: {len(cases)} cases bit-equal to the plain version")
-    # the main path: the rgb key of the 100,000-row ring, one env
-    ring = torch.randint(0, 256, (100_000, 1, 64, 64, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    log(f"ragged_ring_scatter: {len(cases)} cases bit-equal to the plain version, per key and through "
+        f"ragged_ring_scatter_keys with 1, 2 and 5 keys ({keys_cases} calls)")
+    # the main path: the DreamerV3 ring's 5 keys, one env, appended from a packed upload
+    ring_keys = dreamer_ring_keys({"rgb": {"shape": [64, 64, 3]}}, ["rgb"], [], [18], with_is_first=True)
+    C = 100_000
+    rings = {}
+    for k, (shape, dtype) in ring_keys.items():
+        if np.dtype(dtype) == np.uint8:
+            rings[k] = torch.randint(0, 256, (C, 1) + shape, generator=gen, device="cuda", dtype=torch.uint8)
+        else:
+            rings[k] = torch.randn((C, 1) + shape, generator=gen, device="cuda", dtype=torch_dtype(dtype))
+    slot_bytes = sum(int(np.prod(shape)) * np.dtype(dtype).itemsize for shape, dtype in ring_keys.values())
+    rng = np.random.default_rng(17)
+    layouts = make_blob_layouts(ring_keys, 1, 1, (1, 2))
     main = {}
     for S in (1, 2):
-        blob = torch.randint(0, 256, (S * 12288 + 8,), generator=gen, device="cuda", dtype=torch.uint8)
-        staged = blob[:S * 12288].view(S, 1, 64, 64, 3)
-        pos = torch.tensor([99_999], dtype=torch.int32, device="cuda")  # a wrap for the 2-row append
-        row = ((pos[None, :] + torch.arange(S, device="cuda", dtype=torch.int32)[:, None]) % 100_000).to(torch.int32)
-        res = _scatter_check(ring, staged, row, pos, 0)
-        stamp = {"S": S, **res, **scatter_bound(row, 12288, 100_000)}
-        stamp["ms"] = _graph_ms(lambda: kernels.ragged_ring_scatter(ring, staged, row, pos))
-        stamp["call_ms"] = _time_ms(lambda: kernels.ragged_ring_scatter(ring, staged, row, pos), 200)
-        stamp["plain_ms"] = _graph_ms(lambda: _parking_scatter(ring, staged, row, pos))
-        safe_row, cols, vals = _parking_scatter(ring, staged, row, pos)  # rewrites the same bytes
-        stamp["library_ms"] = _graph_ms(lambda: ring.index_put_((safe_row, cols), vals))
+        values = {k: rng.integers(0, 256 if np.dtype(dtype) == np.uint8 else 2, (S, 1) + shape).astype(dtype)
+                  for k, (shape, dtype) in ring_keys.items()}
+        values.update(__mask__=np.ones((S, 1), np.int32), __pos__=np.array([C - 1], np.int32),
+                      __valid_n__=np.array([C], np.int32), __validmask__=np.zeros(1, np.float32))
+        u = unpack_burst_blob(pack_burst_blob(layouts[S], values).cuda(), layouts[S])
+        staged = {k: u[k] for k in ring_keys}
+        pos = u["__pos__"]  # a wrap for the 2-row append
+        row = ((pos[None, :] + torch.arange(S, device="cuda", dtype=torch.int32)[:, None]) % C).to(torch.int32)
+        res = _scatter_keys_check(rings, staged, row, pos, 0)
+        stamp = {"S": S, **res, **scatter_bound(row, slot_bytes, C)}
+        stamp["ms"] = _graph_ms(lambda: kernels.ragged_ring_scatter_keys(rings, staged, row, pos))
+        stamp["per_key_ms"] = _graph_ms(lambda: [kernels.ragged_ring_scatter(rings[k], staged[k], row, pos)
+                                                 for k in ring_keys])
+        stamp["call_ms"] = _time_ms(lambda: kernels.ragged_ring_scatter_keys(rings, staged, row, pos), 200)
+        stamp["per_key_call_ms"] = _time_ms(lambda: [kernels.ragged_ring_scatter(rings[k], staged[k], row, pos)
+                                                     for k in ring_keys], 200)
+        stamp["plain_ms"] = _graph_ms(lambda: [_parking_scatter(rings[k], staged[k], row, pos) for k in ring_keys])
+        # one index_put_ per key, rewriting the same bytes
+        puts = {k: _parking_scatter(rings[k], staged[k], row, pos) for k in ring_keys}
+        stamp["library_ms"] = _graph_ms(lambda: [rings[k].index_put_((r, c), v) for k, (r, c, v) in puts.items()])
+        r, c, v = puts["rgb"]
+        stamp["library_ms_frame"] = _graph_ms(lambda: rings["rgb"].index_put_((r, c), v))
         main[S] = stamp
-        log(f"ragged_ring_scatter main path S={S}: kernel {stamp['ms'] * 1e3:.2f} us (call {stamp['call_ms'] * 1e3:.2f} us) "
-            f"plain {stamp['plain_ms'] * 1e3:.2f} us index_put_ {stamp['library_ms'] * 1e3:.2f} us "
-            f"bound {stamp['bound_ms'] * 1e3:.4f} us ({stamp['bound_bytes']} bytes)")
-    del ring
-    # the gradient: the plain scatter's VJP, f32 only
+        log(f"ragged_ring_scatter main path S={S}, {len(ring_keys)} keys: one launch {stamp['ms'] * 1e3:.3f} us "
+            f"(call {stamp['call_ms'] * 1e3:.2f} us), {len(ring_keys)} per-key launches {stamp['per_key_ms'] * 1e3:.3f} us "
+            f"(calls {stamp['per_key_call_ms'] * 1e3:.2f} us), plain {stamp['plain_ms'] * 1e3:.2f} us, index_put_ per key "
+            f"{stamp['library_ms'] * 1e3:.2f} us (frame alone {stamp['library_ms_frame'] * 1e3:.2f} us), bound "
+            f"{stamp['bound_ms'] * 1e3:.4f} us ({stamp['bound_bytes']} bytes)")
+    del rings, puts
+    # the gradients: the plain scatter's VJP, f32 keys only; one key, and every key of a ring
     storage, staged, row, pos, off = _scatter_case(gen, 13, 5, 2, 4, (3,), torch.float32, 1, drop="ragged")
     scale = torch.randn(storage.shape, generator=gen, device="cuda")
     grads = []
@@ -1819,10 +2012,20 @@ def scatter_phase() -> dict:
         out = kernels.ragged_ring_scatter(s_leaf.clone(), t_leaf, row.to(dev), pos.to(dev), off)
         (out * scale.to(dev)).sum().backward()
         grads.append((s_leaf.grad.cpu(), t_leaf.grad.cpu()))
-    for a, b in zip(*grads):
+    row, pos = _scatter_rows(gen, 13, 2, 4, drop="ragged")
+    rings = {f"k{i}": _scatter_key(gen, 13, 5, 2, 4, kf, kd, 4) for i, (kd, kf) in enumerate(SCATTER_OTHER_KEYS)}
+    scales = {k: torch.randn(s.shape, generator=gen, device="cuda") for k, (s, _) in rings.items() if s.is_floating_point()}
+    for dev in ("cuda", "cpu"):
+        leaves = {k: (s.to(dev).clone().requires_grad_(k in scales), t.to(dev).clone().requires_grad_(k in scales))
+                  for k, (s, t) in rings.items()}
+        out = kernels.ragged_ring_scatter_keys({k: s.clone() for k, (s, _) in leaves.items()},
+                                               {k: t for k, (_, t) in leaves.items()}, row.to(dev), pos.to(dev), 1)
+        sum((out[k] * scales[k].to(dev)).sum() for k in scales).backward()
+        grads.append(tuple(g for k in scales for g in (leaves[k][0].grad.cpu(), leaves[k][1].grad.cpu())))
+    for a, b in zip(grads[0] + grads[2], grads[1] + grads[3]):
         if not torch.equal(a, b):
             raise AssertionError("ragged_ring_scatter's gradient differs from the plain scatter's")
-    log("ragged_ring_scatter backward: equal to the plain scatter's gradient")
+    log("ragged_ring_scatter backward: equal to the plain scatter's gradient, per key and for every key at once")
     m1 = main[1]
     return {
         "name": "ragged_ring_scatter",
@@ -1835,10 +2038,14 @@ def scatter_phase() -> dict:
         "plain_ms": m1["plain_ms"],
         "bound_ms": m1["bound_ms"],
         "bound_by": m1["bound_by"],
-        "library_ms": m1["library_ms"],  # index_put_ alone: the where and the gather before it are left out
+        "library_ms": m1["library_ms"],  # one index_put_ per key, without the where and the gather before each
+        "library_ms_frame": m1["library_ms_frame"],
+        "per_key_ms": m1["per_key_ms"],
         "call_ms": m1["call_ms"],
+        "per_key_call_ms": m1["per_key_call_ms"],
         "main_two_rows": main[2],
         "cases": len(cases),
+        "keys_cases": keys_cases,
         "grad_equal": True,
     }
 
@@ -1863,7 +2070,7 @@ def resident_dispatch_phase() -> dict:
     granted step with the same injected draws. The ring after the append and
     the windows bit-equal; the losses and parameters held as the train-step
     phase holds them (rtol 1e-4; every element within 2 * lr + 1e-6 and
-    99.9 % within 1e-6); 5 scatter launches on the card."""
+    99.9 % within 1e-6); one scatter launch for the 5 ring keys on the card."""
     from sheeprl_tpu_torch.data.ring import make_blob_layouts, pack_burst_blob, ring_append_rows, ring_sample_windows
     from sheeprl_tpu_torch.utils.burst import dreamer_ring_keys
 
@@ -1907,7 +2114,7 @@ def resident_dispatch_phase() -> dict:
         results[dev] = {"rb": {k: v.cpu() for k, v in rb.items()}, "windows": windows, "metrics": metrics,
                         "params": params, "seconds": seconds, "launched": launched}
     card, cpu = results["cuda"], results["cpu"]
-    if card["launched"] != len(keys) or cpu["launched"] != 0:
+    if card["launched"] != 1 or cpu["launched"] != 0:
         raise AssertionError(f"scatter launches: card {card['launched']}, CPU {cpu['launched']}")
     for k in keys:
         if not torch.equal(card["rb"][k], cpu["rb"][k]):
@@ -1955,7 +2162,7 @@ def _resident_launch_check(summary: dict, launches: dict, T: int, H: int) -> dic
         "two_hot_symlog_loss": 3 * G,
         "two_hot_symexp_decode": 3 * G,
         "gru_gates": G * (T + H) + summary["player_steps"],
-        "ragged_ring_scatter": 5 * flushes,  # one per ring key per dispatch
+        "ragged_ring_scatter": flushes,  # one launch for every ring key per dispatch
     })
     if launches != want:
         raise AssertionError(f"resident launches {launches} != {want} for {G} gradient steps, {flushes} flushes")
@@ -2026,10 +2233,10 @@ def _profile_resident_dispatch(checkpoint: str) -> dict:
             "top": [{"name": e.key[:80], "device_ms": getattr(e, "self_device_time_total", 0.0) / 1e3 / PROFILED,
                      "count": e.count / PROFILED} for e in top],
         }
-        out[kind]["complete"] = out[kind]["ragged_ring_scatter"]["ops"] == len(keys)
+        out[kind]["complete"] = out[kind]["ragged_ring_scatter"]["ops"] == 1
         if not out[kind]["complete"]:  # a measurement, not a check of the path: report it
             log(f"the profile of a {kind} dispatch lost events: {out[kind]['ragged_ring_scatter']['ops']} scatters "
-                f"per dispatch, not {len(keys)}")
+                "per dispatch, not 1")
     return out
 
 
@@ -2144,6 +2351,7 @@ def main() -> int:
 
     card = timed("device", device_phase)
     chase_lib = timed("build", build_phase)
+    floor = timed("floor", launch_floor_ms, str(chase_lib))
     gru = timed("gru_gates", gru_gates_phase, 16)
     two_hot = timed("two_hot", two_hot_phase)
     gae_row = timed("gae", gae_phase)
@@ -2165,11 +2373,12 @@ def main() -> int:
     resident_dispatch = timed("resident_dispatch", resident_dispatch_phase)
     with tempfile.TemporaryDirectory() as workdir:
         resident_run = timed("resident_run", resident_run_phase, workdir)
-    paths = {"run": run, "serve": serve, "ppo_run": ppo_run, "sac_run": sac_run, "resident_run": resident_run,
-             "resident_resume": resident_run["resume"]}
+    paths = {"run": run, "run_resume": run["resume"], "serve": serve, "ppo_run": ppo_run, "sac_run": sac_run,
+             "resident_run": resident_run, "resident_resume": resident_run["resume"]}
     rows = [gru] + two_hot + [gae_row, sumtree_row, scatter_row]
     for row in rows:
         row["launches_by_path"] = {name: path["launches"][row["name"]] for name, path in paths.items()}
+        row["floor_ms"] = floor  # an empty kernel's time, timed as the row's ms
     for row in [gru] + two_hot:
         row["launches"] = run["launches"][row["name"]]
     scatter_row["launches"] = resident_run["launches"]["ragged_ring_scatter"]

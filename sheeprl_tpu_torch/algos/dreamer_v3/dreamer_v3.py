@@ -22,7 +22,9 @@ call; or the sequence ring in card memory
 (:class:`~sheeprl_tpu_torch.replay.SequenceRingDriver`), where each env
 step is one dispatch: the packed upload of the staged rows, their append by
 the CUDA ``ragged_ring_scatter`` kernel, the window draws on the card and
-the granted gradient steps.
+the granted gradient steps. With ``buffer.checkpoint`` a checkpoint holds
+the replay of its tier, as the JAX loop's does: the ring's snapshot, or the
+host buffer's state with its generators. Either resumes on either tier.
 """
 
 from __future__ import annotations
@@ -405,7 +407,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     buffer_size = int(cfg.buffer.size) // num_envs
     rb = EnvIndependentReplayBuffer(buffer_size, num_envs, obs_keys)
     rb.seed(seed)
-    saved_rb = state.get("rb") if state is not None and cfg.buffer.get("checkpoint", False) else None
+    checkpoint_rb = bool(cfg.buffer.get("checkpoint", False))
+    saved_rb = state.get("rb") if state is not None and checkpoint_rb else None
 
     start_iter = int(state["iter_num"]) + 1 if state is not None else 1
     policy_step = int(state["iter_num"]) * num_envs if state is not None else 0
@@ -441,10 +444,16 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     )
     if log_level > 0 and cfg.buffer.get("device_resident", False):
         print(f"Replay: device_resident={resident} ({reason})", flush=True)
-    restored = DeviceReplayState.from_dict(saved_rb) if saved_rb is not None else None
-    if restored is not None and not resident:
-        # a device-ring checkpoint resumed on the host tier keeps its experience
-        restore_host_env_buffer(restored, rb, fill_missing={"truncated": ((1,), np.float32)})
+    # the saved replay, told apart by its content: a ring snapshot
+    # (``DeviceReplayState``) or the host buffer's state
+    restored: Any = None
+    if saved_rb is not None and "kind" in saved_rb:
+        restored = DeviceReplayState.from_dict(saved_rb)
+        if not resident:  # a device-ring checkpoint resumed on the host tier keeps its experience
+            restore_host_env_buffer(restored, rb, fill_missing={"truncated": ((1,), np.float32)})
+    elif saved_rb is not None:
+        rb.load_state_dict(saved_rb)
+        restored = rb  # resumed on the ring: the host buffer is mirrored into it
     driver: Optional[SequenceRingDriver] = None
     if resident:
         driver = SequenceRingDriver(
@@ -599,8 +608,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 "last_checkpoint": last_checkpoint,
                 "rng": generator.get_state(),
             }
-            if resident and cfg.buffer.get("checkpoint", False):
-                ckpt_state["rb"] = driver.state_dict().to_dict()  # the ring, its heads and its generator
+            if checkpoint_rb:
+                # the ring, its heads and its generator; or the host buffer and its generators
+                ckpt_state["rb"] = driver.state_dict().to_dict() if resident else rb.state_dict()
             path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
             summary["checkpoint"] = str(save_checkpoint(path, ckpt_state, plain(cfg)))
 

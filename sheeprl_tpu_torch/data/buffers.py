@@ -85,13 +85,32 @@ class ReplayBuffer:
         self._pos = next_pos
 
     def state_dict(self) -> Dict[str, Any]:
-        """The storage and head, as a checkpoint stores them (tensors and
-        plain values)."""
-        return {"buffer": {k: torch.from_numpy(v) for k, v in self._buf.items()}, "pos": self._pos, "full": self._full}
+        """The storage, the head and the generator state
+        (``bit_generator.state``), as a checkpoint stores them (tensors and
+        plain values), so a restored buffer draws what this one would draw
+        next. The storage is allocated at the full ``buffer_size`` by the
+        first :meth:`add`: until the buffer wraps, only the filled rows
+        ``[0, pos)`` are saved (copied, so the file does not hold the whole
+        allocation), and :meth:`load_state_dict` allocates the full size
+        again. The restored buffer equals this one."""
+        buf = {k: torch.from_numpy(v if self._full else v[: self._pos].copy()) for k, v in self._buf.items()}
+        return {"buffer": buf, "pos": self._pos, "full": self._full, "rng": self._rng.bit_generator.state}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self._buf = {k: v.numpy().copy() for k, v in state["buffer"].items()}
+        buf = {}
+        for k, v in state["buffer"].items():
+            rows = v.numpy()
+            filled = len(self) if state["full"] else int(state["pos"])
+            if rows.ndim < 2 or rows.shape[0] != filled or rows.shape[1] != self._n_envs:
+                raise ValueError(
+                    f"saved '{k}' of shape {tuple(rows.shape)} is not {filled} filled rows of a "
+                    f"({len(self)}, {self._n_envs}, ...) buffer"
+                )
+            buf[k] = np.zeros((len(self),) + rows.shape[1:], rows.dtype)
+            buf[k][:filled] = rows
+        self._buf = buf
         self.set_head(state["pos"], state["full"])
+        self._rng.bit_generator.state = state["rng"]
 
     def sample(self, batch_size: int, n_samples: int = 1) -> Dict[str, np.ndarray]:
         """Uniform ``(n_samples, batch_size, ...)`` transitions over the
@@ -190,6 +209,22 @@ class EnvIndependentReplayBuffer:
             raise ValueError(f"{len(indices)} indices for {next(iter(data.values())).shape[1]} env columns")
         for col, env_idx in enumerate(indices):
             self._buf[env_idx].add({k: v[:, col : col + 1] for k, v in data.items()})
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Every per-env buffer's :meth:`~ReplayBuffer.state_dict` (storage,
+        head and generator state; only the filled rows until it wraps) and
+        the generator state of this buffer, which splits each draw over the
+        envs. The JAX package pickles the buffer with its generators, so its
+        resumed run draws what the uninterrupted run would have drawn; this
+        state does the same."""
+        return {"envs": [b.state_dict() for b in self._buf], "rng": self._rng.bit_generator.state}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        if len(state["envs"]) != self._n_envs:
+            raise ValueError(f"saved state holds {len(state['envs'])} env buffers, this buffer {self._n_envs}")
+        for b, sub in zip(self._buf, state["envs"]):
+            b.load_state_dict(sub)
+        self._rng.bit_generator.state = state["rng"]
 
     def sample(self, batch_size: int, n_samples: int = 1, **kwargs) -> Dict[str, np.ndarray]:
         if batch_size <= 0 or n_samples <= 0:

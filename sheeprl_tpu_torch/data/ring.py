@@ -198,8 +198,8 @@ def build_burst_train_step(
     takes the ring ``rb`` (``{key: (C, E, ...)}`` on the device, appended in
     place) and one packed host blob (:func:`make_blob_layouts`; its length
     selects the layout). It copies the blob to the ring's device, appends
-    the staged rows with ``ragged_ring_scatter`` (one launch per ring key),
-    then runs each granted step of the blob's ``__validmask__``, gated as
+    the staged rows of every ring key with one ``ragged_ring_scatter_keys``
+    launch, then runs each granted step of the blob's ``__validmask__``, gated as
     the JAX program gates it: no step while any env holds fewer rows than a
     window. The mask, the heads and so the gate are read from the host copy
     of the blob: nothing is read back from the device. Each step draws
@@ -209,7 +209,7 @@ def build_burst_train_step(
     steps. ``metrics`` is the mean of the steps' metrics over the granted
     steps, or None when none ran."""
     # imported here: the kernels package imports the replay package, which imports this module
-    from sheeprl_tpu_torch.ops.kernels import ragged_ring_scatter
+    from sheeprl_tpu_torch.ops.kernels import ragged_ring_scatter_keys
 
     capacity = int(ring["capacity"])
     ring_envs = int(ring["n_envs"])
@@ -231,8 +231,7 @@ def build_burst_train_step(
         u = unpack_burst_blob(blob.to(device, non_blocking=True), layout)
         # -- per-env ring append: each env's rows pack densely from its own head
         row, new_pos, new_valid = ring_append_rows(u["__pos__"], u["__valid_n__"], u["__mask__"], capacity)
-        for k in rb:
-            ragged_ring_scatter(rb[k], u[k], row, u["__pos__"])
+        ragged_ring_scatter_keys(rb, u, row, u["__pos__"])
         # the in-graph gate of the JAX program, on the host copy of the same numbers
         _, _, host_valid = ring_append_rows(host["__pos__"], host["__valid_n__"], host["__mask__"], capacity)
         ready = bool((host_valid >= ring_seq).all())

@@ -25,7 +25,11 @@ def reset_launches() -> None:
 
 from sheeprl_tpu_torch.ops.kernels.gae import gae, gae_reference  # noqa: E402
 from sheeprl_tpu_torch.ops.kernels.gru import gru_gates, gru_gates_reference  # noqa: E402
-from sheeprl_tpu_torch.ops.kernels.scatter import ragged_ring_scatter, ragged_ring_scatter_reference  # noqa: E402
+from sheeprl_tpu_torch.ops.kernels.scatter import (  # noqa: E402
+    ragged_ring_scatter,
+    ragged_ring_scatter_keys,
+    ragged_ring_scatter_reference,
+)
 from sheeprl_tpu_torch.ops.kernels.sumtree import sumtree_sample, sumtree_sample_reference  # noqa: E402
 from sheeprl_tpu_torch.ops.kernels.twohot import (  # noqa: E402
     two_hot_symexp_decode,
@@ -48,5 +52,6 @@ __all__ = [
     "sumtree_sample",
     "sumtree_sample_reference",
     "ragged_ring_scatter",
+    "ragged_ring_scatter_keys",
     "ragged_ring_scatter_reference",
 ]

@@ -16,9 +16,20 @@ card. The wrapper reads nothing back from the card, so a CUDA graph can
 capture it. ``pos`` (the heads before the append) is in the signature for
 parity: only the Pallas version needs it, to park dropped slots.
 
+:func:`ragged_ring_scatter_keys` appends every key of a ring (a dict or
+sequence of storages, all sharing one ``row``) in ONE launch of the kernel:
+the JAX package makes one call per key over the same ``row``
+(``sheeprl_tpu/data/ring.py:320``), and on the card each such call costs a
+launch's floor for a copy of a few bytes. Its plain version is
+:func:`ragged_ring_scatter_reference` over the keys. The per-key
+:func:`ragged_ring_scatter` stays, as the JAX function's counterpart, and
+is the one-key case of the same launch. :data:`LAUNCHES` counts launches.
+
 Preconditions, checked on the card path: ``staged.dtype == storage.dtype``,
-``capacity == storage.shape[0]`` (the drop marker), ``col_offset + e`` within
-the ring's env columns, contiguous tensors on one device.
+``capacity == storage.shape[0]`` (the drop marker) for every key,
+``col_offset + e`` within each ring's env columns, contiguous tensors on one
+device. On both paths: 1 to :data:`MAX_KEYS` keys, each staged block
+starting with ``row``'s ``(S, e)``.
 
 The gradient is the plain scatter's, as the JAX package's ``custom_vjp``
 re-derives it from its lax reference (float dtypes only; the ring's uint8
@@ -30,13 +41,19 @@ at the written slots and 0 at dropped ones.
 from __future__ import annotations
 
 import ctypes
+from typing import Mapping, Sequence, Union
 
 import numpy as np
 import torch
 
 from sheeprl_tpu_torch.ops.kernels import LAUNCHES, _build
 
-__all__ = ["ragged_ring_scatter", "ragged_ring_scatter_reference"]
+__all__ = ["ragged_ring_scatter", "ragged_ring_scatter_keys", "ragged_ring_scatter_reference", "MAX_KEYS"]
+
+#: ring keys one launch takes (the kernel's segment table)
+MAX_KEYS = 8
+
+Storages = Union[Mapping[str, torch.Tensor], Sequence[torch.Tensor]]
 
 
 def _slots(storage: torch.Tensor, row: torch.Tensor, col_offset: int):
@@ -72,42 +89,54 @@ def _library() -> ctypes.CDLL:
     fn = lib.ragged_ring_scatter_launch
     if fn.argtypes is None:  # ctypes would pass each pointer as a 32-bit int
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        fn.argtypes = [ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr]
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ptr), ctypes.POINTER(ptr), ctypes.POINTER(i64),
+                       ctypes.POINTER(i64), ptr, i64, i64, i64, i64, ptr]
         fn.restype = ctypes.c_int
     return lib
 
 
-def _check(storage: torch.Tensor, staged: torch.Tensor, row: torch.Tensor, col_offset: int) -> None:
-    for name, t in (("storage", storage), ("staged", staged), ("row", row)):
-        if t.device.type != "cuda" or t.device != storage.device:
-            raise ValueError(f"ragged_ring_scatter kernel needs every tensor on one CUDA device, got {name} on {t.device}")
+def _check(name: str, storage: torch.Tensor, staged: torch.Tensor, row: torch.Tensor, col_offset: int) -> None:
+    for what, t in (("storage", storage), ("staged", staged), ("row", row)):
+        if t.device.type != "cuda" or t.device != row.device:
+            raise ValueError(
+                f"ragged_ring_scatter kernel needs every tensor on one CUDA device, got {name} {what} on {t.device}"
+            )
         if not t.is_contiguous():
-            raise ValueError(f"ragged_ring_scatter kernel needs a contiguous {name}")
+            raise ValueError(f"ragged_ring_scatter kernel needs a contiguous {name} {what}")
     if staged.dtype != storage.dtype:
-        raise TypeError(f"ragged_ring_scatter kernel: staged is {staged.dtype}, the ring {storage.dtype}")
+        raise TypeError(f"ragged_ring_scatter kernel: {name} staged is {staged.dtype}, the ring {storage.dtype}")
     if row.dtype != torch.int32 or row.ndim != 2:
         raise TypeError(f"ragged_ring_scatter kernel takes (S, e) int32 rows, got {row.dtype} {tuple(row.shape)}")
     if storage.ndim < 2 or tuple(staged.shape) != tuple(row.shape) + tuple(storage.shape[2:]):
         raise ValueError(
-            f"ragged_ring_scatter kernel: staged {tuple(staged.shape)} is not rows {tuple(row.shape)} of the "
-            f"ring's {tuple(storage.shape[2:])} slots"
+            f"ragged_ring_scatter kernel: {name} staged {tuple(staged.shape)} is not rows {tuple(row.shape)} of "
+            f"the ring's {tuple(storage.shape[2:])} slots"
         )
     if col_offset < 0 or col_offset + row.shape[1] > storage.shape[1]:
         raise ValueError(
-            f"ragged_ring_scatter kernel: columns {col_offset}..{col_offset + row.shape[1]} outside the ring's "
-            f"{storage.shape[1]}"
+            f"ragged_ring_scatter kernel: columns {col_offset}..{col_offset + row.shape[1]} outside the ring "
+            f"{name}'s {storage.shape[1]}"
         )
     if storage.shape[0] >= 2**31:
         raise ValueError(f"ragged_ring_scatter kernel: a capacity of {storage.shape[0]} rows does not fit int32 rows")
 
 
-def _launch(storage: torch.Tensor, staged: torch.Tensor, row: torch.Tensor, col_offset: int) -> None:
-    _check(storage, staged, row, col_offset)
-    slot_bytes = int(np.prod(storage.shape[2:])) * storage.element_size()
-    stream = torch.cuda.current_stream(storage.device).cuda_stream
+def _launch(storages, staged, row: torch.Tensor, col_offset: int) -> None:
+    """ONE launch appending every key."""
+    capacity = storages[0].shape[0]
+    for i, (storage, block) in enumerate(zip(storages, staged)):
+        _check(f"key {i}", storage, block, row, col_offset)
+        if storage.shape[0] != capacity:
+            raise ValueError(f"ragged_ring_scatter kernel: key {i} holds {storage.shape[0]} rows, key 0 {capacity}: "
+                             "one row table marks drops with one capacity")
+    n = len(storages)
+    ptrs, i64s = ctypes.c_void_p * n, ctypes.c_int64 * n
+    stream = torch.cuda.current_stream(row.device).cuda_stream
     err = _library().ragged_ring_scatter_launch(
-        storage.data_ptr(), staged.data_ptr(), row.data_ptr(), storage.shape[0], storage.shape[1],
-        row.shape[0], row.shape[1], col_offset, slot_bytes, stream,
+        n, ptrs(*(s.data_ptr() for s in storages)), ptrs(*(t.data_ptr() for t in staged)),
+        i64s(*(s.shape[1] for s in storages)),
+        i64s(*(int(np.prod(s.shape[2:])) * s.element_size() for s in storages)),
+        row.data_ptr(), capacity, row.shape[0], row.shape[1], col_offset, stream,
     )
     if err != 0:
         raise RuntimeError(f"ragged_ring_scatter kernel launch failed with cudaError {err}")
@@ -115,33 +144,75 @@ def _launch(storage: torch.Tensor, staged: torch.Tensor, row: torch.Tensor, col_
 
 
 class _RaggedRingScatter(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, storage, staged, row, pos, col_offset: int):
-        _launch(storage, staged, row, col_offset)
-        ctx.mark_dirty(storage)
-        ctx.save_for_backward(row)
-        ctx.col_offset, ctx.staged_shape = col_offset, staged.shape
-        return storage
+    """Inputs ``(row, col_offset, n, *storages, *staged)``; outputs the
+    ``n`` storages, written in place."""
 
     @staticmethod
-    def backward(ctx, g):
+    def forward(ctx, row, col_offset: int, n: int, *tensors):
+        storages, staged = tensors[:n], tensors[n:]
+        _launch(storages, staged, row, col_offset)
+        ctx.mark_dirty(*storages)
+        ctx.save_for_backward(row)
+        ctx.col_offset, ctx.staged_shapes = col_offset, [t.shape for t in staged]
+        return storages
+
+    @staticmethod
+    def backward(ctx, *grads):
         (row,) = ctx.saved_tensors
-        d_storage, d_staged = _scatter_vjp(g, row, ctx.col_offset, ctx.staged_shape)
-        return (
-            d_storage if ctx.needs_input_grad[0] else None,
-            d_staged if ctx.needs_input_grad[1] else None,
-            None,
-            None,
-            None,
-        )
+        n = len(grads)
+        d_storages, d_staged = [None] * n, [None] * n
+        for i, g in enumerate(grads):
+            wants_storage, wants_staged = ctx.needs_input_grad[3 + i], ctx.needs_input_grad[3 + n + i]
+            if wants_storage or wants_staged:  # float keys only: uint8 pixels never need a gradient
+                d_s, d_t = _scatter_vjp(g, row, ctx.col_offset, ctx.staged_shapes[i])
+                d_storages[i] = d_s if wants_storage else None
+                d_staged[i] = d_t if wants_staged else None
+        return (None, None, None, *d_storages, *d_staged)
+
+
+def _keyed(storages: Storages, staged, row: torch.Tensor):
+    """The keys' names, storages and staged blocks, in order; checks what
+    both paths need."""
+    if isinstance(storages, Mapping):
+        names = list(storages)
+        blocks = [staged[k] for k in names]
+        storages = [storages[k] for k in names]
+    else:
+        names, storages, blocks = list(range(len(storages))), list(storages), list(staged)
+        if len(blocks) != len(storages):
+            raise ValueError(f"ragged_ring_scatter: {len(blocks)} staged blocks for {len(storages)} ring keys")
+    if not 1 <= len(storages) <= MAX_KEYS:
+        raise ValueError(f"ragged_ring_scatter takes 1 to {MAX_KEYS} ring keys per call, got {len(storages)}")
+    for name, block in zip(names, blocks):
+        if tuple(block.shape[:2]) != tuple(row.shape):
+            raise ValueError(f"ragged_ring_scatter: key {name!r} staged {tuple(block.shape)} does not start with "
+                             f"the rows' {tuple(row.shape)}")
+    return names, storages, blocks
+
+
+def ragged_ring_scatter_keys(
+    storages: Storages, staged, row: torch.Tensor, pos: torch.Tensor, col_offset: int = 0
+) -> Storages:
+    """Every ring key appended in place, in one launch on the card:
+    ``storages`` is a dict (or sequence) of ``(C, E_k, ...)`` rings,
+    ``staged`` their ``(S, e, ...)`` blocks (a dict may hold more keys than
+    ``storages``; only theirs are read), all sharing the ``(S, e)`` ``row``
+    (``row == C`` slots are dropped). Returns the storages, in a container
+    of the same kind. CPU tensors run the plain version key by key; CUDA
+    tensors launch the kernel; anything else raises."""
+    names, rings, blocks = _keyed(storages, staged, row)
+    tensors = rings + blocks + [row]
+    if all(t.device.type == "cpu" for t in tensors):
+        out = [ragged_ring_scatter_reference(s, t, row, pos, col_offset) for s, t in zip(rings, blocks)]
+    else:
+        out = list(_RaggedRingScatter.apply(row, int(col_offset), len(rings), *rings, *blocks))
+    return dict(zip(names, out)) if isinstance(storages, Mapping) else out
 
 
 def ragged_ring_scatter(
     storage: torch.Tensor, staged: torch.Tensor, row: torch.Tensor, pos: torch.Tensor, col_offset: int = 0
 ) -> torch.Tensor:
     """``(C, E, ...) x (S, e, ...) x (S, e) rows -> (C, E, ...)`` in place
-    (``row == C`` slots are dropped): the plain version for CPU tensors, the
-    CUDA kernel for CUDA tensors; anything else raises."""
-    if storage.device.type == "cpu" and staged.device.type == "cpu" and row.device.type == "cpu":
-        return ragged_ring_scatter_reference(storage, staged, row, pos, col_offset)
-    return _RaggedRingScatter.apply(storage, staged, row, pos, int(col_offset))
+    (``row == C`` slots are dropped): the one-key case of
+    :func:`ragged_ring_scatter_keys`."""
+    return ragged_ring_scatter_keys([storage], [staged], row, pos, col_offset)[0]

@@ -8,7 +8,10 @@ two-pass chain: :func:`~sheeprl_tpu_torch.replay.sumtree.sample`, then
 :func:`sumtree_sample` runs it. On CUDA tensors it launches the hand-written
 kernel ``csrc/sumtree.cu`` (built at first use, see :mod:`._build`) or
 raises; nothing substitutes the plain version on the card. ``n_valid`` and
-``beta`` are host numbers, passed to the kernel by value.
+``beta`` are host numbers, passed to the kernel by value. The kernel runs a
+warp per draw and settles :data:`HOP_LEVELS` levels of the tree per
+dependent read (see the source's header); the tree must start 16-byte
+aligned, as every tensor PyTorch allocates does.
 
 The gradient is the plain chain's, as the JAX package's ``custom_vjp``
 re-derives it from its lax reference: the leaves are integers and carry
@@ -28,7 +31,12 @@ import torch
 from sheeprl_tpu_torch.ops.kernels import LAUNCHES, _build
 from sheeprl_tpu_torch.replay import sumtree as st
 
-__all__ = ["sumtree_sample", "sumtree_sample_reference"]
+__all__ = ["sumtree_sample", "sumtree_sample_reference", "HOP_LEVELS"]
+
+#: tree levels the kernel settles per dependent read (k in 1..10): the best
+#: of chip_smoke.py's sweep at the SAC shape (2^20 leaves, 256 draws) on an
+#: H100, recorded in PERF.md
+HOP_LEVELS = 7
 
 
 def sumtree_sample_reference(
@@ -45,7 +53,7 @@ def _library() -> ctypes.CDLL:
     fn = lib.sumtree_sample_launch
     if fn.argtypes is None:  # ctypes would pass each pointer as a 32-bit int
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, ctypes.c_int, ctypes.c_float, ctypes.c_float, ptr]
+        fn.argtypes = [ptr, ptr, ptr, ptr, i64, i64, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ptr]
         fn.restype = ctypes.c_int
     return lib
 
@@ -61,9 +69,15 @@ def _check(tree: torch.Tensor, u: torch.Tensor) -> None:
     nodes = tree.shape[0]
     if nodes < 2 or nodes & (nodes - 1):
         raise ValueError(f"sumtree_sample kernel wants a (2P,) tree with P a power of two, got {nodes} nodes")
+    if tree.data_ptr() % 16:
+        raise ValueError("sumtree_sample kernel reads the tree in 16-byte pieces: it must start 16-byte aligned")
 
 
-def _launch(tree: torch.Tensor, u: torch.Tensor, n_valid: float, beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(
+    tree: torch.Tensor, u: torch.Tensor, n_valid: float, beta: float, hop_levels: int = HOP_LEVELS
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch; ``hop_levels`` other than :data:`HOP_LEVELS` only for
+    chip_smoke.py's sweep."""
     _check(tree, u)
     leaves = tree.shape[0] // 2
     leaf = torch.empty(u.shape, dtype=torch.int32, device=u.device)
@@ -71,7 +85,7 @@ def _launch(tree: torch.Tensor, u: torch.Tensor, n_valid: float, beta: float) ->
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = _library().sumtree_sample_launch(
         tree.data_ptr(), u.data_ptr(), leaf.data_ptr(), weights.data_ptr(), u.shape[0], leaves,
-        leaves.bit_length() - 1, float(np.float32(n_valid)), float(np.float32(beta)), stream,
+        leaves.bit_length() - 1, float(np.float32(n_valid)), float(np.float32(beta)), int(hop_levels), stream,
     )
     if err != 0:
         raise RuntimeError(f"sumtree_sample kernel launch failed with cudaError {err}")

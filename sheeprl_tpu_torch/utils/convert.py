@@ -1,6 +1,8 @@
 """Carry weights across from the JAX package: flax parameter trees, held as
 numpy arrays, to the port's ``state_dict``s; and a JAX sequence-ring
-snapshot to the port's (:func:`sequence_ring_from_jax`).
+snapshot to the port's (:func:`sequence_ring_from_jax`); a JAX host
+``EnvIndependentReplayBuffer`` to the port's buffer state
+(:func:`host_env_buffer_from_jax`).
 
 The port's modules keep the flax submodule names, so a leaf's path is its
 ``state_dict`` key once the ``params`` collection level is dropped. Leaves
@@ -35,6 +37,7 @@ __all__ = [
     "ppo_state_from_jax",
     "sac_state_from_jax",
     "sequence_ring_from_jax",
+    "host_env_buffer_from_jax",
 ]
 
 #: the flax module name of a transposed convolution's layer (the JAX
@@ -150,3 +153,24 @@ def sequence_ring_from_jax(arrays: Mapping[str, Any], meta: Mapping[str, Any]) -
     out["valid"] = torch.from_numpy(np.asarray(arrays["valid"], np.int64).copy())
     keep = {k: meta[k] for k in ("capacity", "n_envs", "seq_len") if k in meta}
     return DeviceReplayState("sequence", out, {k: int(v) for k, v in keep.items()})
+
+
+def host_env_buffer_from_jax(rb: Any) -> Dict[str, Any]:
+    """A JAX ``EnvIndependentReplayBuffer`` of ``SequentialReplayBuffer``s
+    (numpy storage, per-env heads, numpy generators) -> the port's
+    ``EnvIndependentReplayBuffer.state_dict()``, which its
+    ``load_state_dict`` reads: per env, the filled rows (all of them once the
+    buffer has wrapped), the head and the generator state; and the outer
+    generator state. numpy generators carry over exactly, so the restored
+    buffer draws what the JAX one draws next."""
+    envs = []
+    for sub in rb.buffer:
+        full, pos = bool(sub.full), int(sub._pos)
+        rows = sub.buffer_size if full else pos
+        envs.append({
+            "buffer": {k: torch.from_numpy(np.array(np.asarray(v)[:rows], order="C")) for k, v in sub.buffer.items()},
+            "pos": pos,
+            "full": full,
+            "rng": sub._rng.bit_generator.state,
+        })
+    return {"envs": envs, "rng": rb._rng.bit_generator.state}

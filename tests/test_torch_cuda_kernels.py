@@ -7,6 +7,8 @@ the repository's JAX test bootstrap::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py -q
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -288,11 +290,13 @@ def _sumtree_inputs(leaves, batch, seed=0):
 
 
 @pytest.mark.parametrize("batch", [1, 256, 4096])
-@pytest.mark.parametrize("leaves", [40, 1000, 60_000, 1_000_000], ids=["P64", "P1024", "P65536", "sac-path"])
+@pytest.mark.parametrize("leaves", [2, 5, 40, 1000, 60_000, 1_000_000],
+                         ids=["P2", "P8-shallower-than-k", "P64", "P1024", "P65536", "sac-path"])
 def test_torch_cuda_sumtree_sample_matches_plain(cuda, leaves, batch):
     """The kernel against the plain version on the same tree and uniforms:
     leaves equal, weights within rtol 1e-6 (``powf`` against ``torch.pow``),
-    no zero-priority leaf drawn, one launch per call."""
+    no zero-priority leaf drawn, one launch per call; trees of fewer levels
+    than the kernel settles per hop included."""
     tree, u, prios = _sumtree_inputs(leaves, batch, seed=leaves + batch)
     tree, u = tree.to(cuda), u.to(cuda)
     before = K.LAUNCHES["sumtree_sample"]
@@ -303,6 +307,25 @@ def test_torch_cuda_sumtree_sample_matches_plain(cuda, leaves, batch):
     assert torch.equal(leaf, want_leaf)
     torch.testing.assert_close(w, want_w, rtol=1e-6, atol=0)
     assert (prios[leaf.cpu().numpy()] > 0).all()
+
+
+@pytest.mark.parametrize("hop_levels", range(1, 11))
+def test_torch_cuda_sumtree_sample_every_hop_width_matches_plain(cuda, hop_levels):
+    """Every width the kernel takes (k levels per dependent read), on deep
+    trees, on one shallower than k and on a one-leaf tree (no level to
+    walk): the plain version's leaves, weights within rtol 1e-6."""
+    from sheeprl_tpu_torch.replay import sumtree as st
+
+    sumtree_module = importlib.import_module("sheeprl_tpu_torch.ops.kernels.sumtree")
+    one_leaf = (st.update(st.init(1), torch.zeros(1, dtype=torch.long), torch.tensor([1.5])), torch.rand(7))
+    for leaves in (1, 5, 1000, 60_000):
+        tree, u, _ = one_leaf + (None,) if leaves == 1 else _sumtree_inputs(leaves, 300, seed=hop_levels)
+        tree, u = tree.to(cuda), u.to(cuda)
+        leaf, w = sumtree_module._launch(tree, u, leaves, 0.55, hop_levels=hop_levels)
+        torch.cuda.synchronize()
+        want_leaf, want_w = K.sumtree_sample_reference(tree, u, leaves, 0.55)
+        assert torch.equal(leaf, want_leaf), leaves
+        torch.testing.assert_close(w, want_w, rtol=1e-6, atol=0)
 
 
 def test_torch_cuda_sumtree_sample_rejects_what_the_kernel_does_not_take(cuda):
@@ -316,6 +339,8 @@ def test_torch_cuda_sumtree_sample_rejects_what_the_kernel_does_not_take(cuda):
         K.sumtree_sample(tree, torch.rand(16, device=cuda)[::2], 100, 0.4)
     with pytest.raises(ValueError, match="CUDA device"):
         K.sumtree_sample(tree, u.cpu(), 100, 0.4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.sumtree_sample(torch.zeros(257, device=cuda)[1:], u, 100, 0.4)
 
 
 def test_torch_cuda_sumtree_sample_backward_is_the_plain_gradient(cuda):
@@ -421,10 +446,75 @@ def test_torch_cuda_ragged_ring_scatter_backward_is_the_plain_gradient(cuda):
         assert torch.equal(a, b)
 
 
-def test_torch_cuda_resident_loop_launches_the_scatter_once_per_ring_key_and_flush(cuda, tmp_path):
+# the DreamerV3 ring's keys: a 64x64x3 uint8 frame, 18 f32 actions, 3 f32 scalars
+RING_KEYS = {"rgb": ((64, 64, 3), torch.uint8), "actions": ((18,), torch.float32),
+             "rewards": ((1,), torch.float32), "terminated": ((1,), torch.float32), "is_first": ((1,), torch.float32)}
+
+
+def _keys_inputs(cuda, names, S, e, col_offset, misalign, seed=0):
+    """``_scatter_inputs`` for several keys sharing one row table: each
+    key's staged rows cut from a byte buffer at ``misalign`` bytes (float32
+    keys at 4 where ``misalign`` is not a multiple of 4)."""
+    rings, staged = {}, {}
+    for i, k in enumerate(names):
+        feat, dtype = RING_KEYS[k]
+        cut = misalign if dtype == torch.uint8 or misalign % 4 == 0 else 4
+        rings[k], staged[k], row, pos = _scatter_inputs(cuda, dtype, feat, S, e, col_offset, cut, seed=seed + i)
+    return rings, staged, row, pos
+
+
+@pytest.mark.parametrize("misalign", [0, 4, 1], ids=["aligned16", "aligned4", "aligned1"])
+@pytest.mark.parametrize("names", [["rgb"], ["actions", "rgb"], list(RING_KEYS)], ids=["1key", "2keys", "5keys"])
+@pytest.mark.parametrize("shape", [(1, 1), (2, 4)], ids=["1row-1env", "2rows-4envs-dropped"])
+@pytest.mark.parametrize("col_offset", [0, 3])
+def test_torch_cuda_ragged_ring_scatter_keys_matches_plain(cuda, names, shape, misalign, col_offset):
+    """Every key in one launch against the per-key plain version on copies
+    of the rings: bit-equal, in place, untouched slots unchanged."""
+    S, e = shape
+    rings, staged, row, pos = _keys_inputs(cuda, names, S, e, col_offset, misalign)
+    got = {k: v.clone() for k, v in rings.items()}
+    before = K.LAUNCHES["ragged_ring_scatter"]
+    out = K.ragged_ring_scatter_keys(got, staged, row, pos, col_offset)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ragged_ring_scatter"] == before + 1
+    for k in names:
+        assert out[k].data_ptr() == got[k].data_ptr()
+        want = K.ragged_ring_scatter_reference(rings[k].clone(), staged[k], row, pos, col_offset)
+        assert torch.equal(got[k], want) and not torch.equal(got[k], rings[k]), k
+
+
+def test_torch_cuda_ragged_ring_scatter_keys_backward_is_the_plain_gradient(cuda):
+    rings, staged, row, pos = _keys_inputs(cuda, list(RING_KEYS), 2, 4, 1, 0, seed=6)
+    floats = [k for k, (_, dtype) in RING_KEYS.items() if dtype == torch.float32]
+    scale = {k: torch.rand(rings[k].shape) for k in floats}
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        leaves = {k: (rings[k].to(dev).clone().requires_grad_(k in floats),
+                      staged[k].to(dev).clone().requires_grad_(k in floats)) for k in RING_KEYS}
+        out = K.ragged_ring_scatter_keys({k: s.clone() for k, (s, _) in leaves.items()},
+                                         {k: t for k, (_, t) in leaves.items()}, row.to(dev), pos.to(dev), 1)
+        sum((out[k] * scale[k].to(dev)).sum() for k in floats).backward()
+        grads[dev] = {k: (leaves[k][0].grad.cpu(), leaves[k][1].grad.cpu()) for k in floats}
+    for k in floats:
+        for a, b in zip(grads["cuda"][k], grads["cpu"][k]):
+            assert torch.equal(a, b), k
+
+
+def test_torch_cuda_ragged_ring_scatter_keys_rejects_what_the_kernel_does_not_take(cuda):
+    rings, staged, row, pos = _keys_inputs(cuda, list(RING_KEYS), 2, 4, 0, 0)
+    with pytest.raises(ValueError, match="capacity"):
+        K.ragged_ring_scatter_keys(dict(rings, rewards=rings["rewards"][:5].contiguous()), staged, row, pos)
+    with pytest.raises(TypeError, match="staged is"):
+        K.ragged_ring_scatter_keys(rings, dict(staged, actions=staged["actions"].double()), row, pos)
+    with pytest.raises(ValueError, match="CUDA device"):
+        K.ragged_ring_scatter_keys(rings, dict(staged, rewards=staged["rewards"].cpu()), row, pos)
+
+
+def test_torch_cuda_resident_loop_launches_the_scatter_once_per_flush(cuda, tmp_path):
     """A short ``run preset=dreamer_v3_100k_atari_dummy_resident`` on the card
-    (full width, a 4,096-row ring): 5 scatters per flush, the two-hot and
-    GRU counts of the gradient steps and player steps, nothing else."""
+    (full width, a 4,096-row ring): one scatter per flush for all 5 ring
+    keys, the two-hot and GRU counts of the gradient steps and player steps,
+    nothing else."""
     from sheeprl_tpu_torch import cli
 
     K.reset_launches()
@@ -437,5 +527,5 @@ def test_torch_cuda_resident_loop_launches_the_scatter_once_per_ring_key_and_flu
     assert K.LAUNCHES == {
         "gru_gates": G * (64 + 15) + summary["player_steps"], "two_hot_symlog_loss": 3 * G,
         "two_hot_symexp_decode": 3 * G, "gae": 0, "sumtree_sample": 0,
-        "ragged_ring_scatter": 5 * summary["replay"]["Replay/flushes"],
+        "ragged_ring_scatter": summary["replay"]["Replay/flushes"],
     }

@@ -10,10 +10,18 @@ offset 0 and 2, dropped slots, an all-dropped column and heads that wrap
 past the capacity; rows the call does not write, and the row before each
 env's head, keep their bytes. Its gradient matches ``jax.vjp`` of the lax
 reference within 1e-6 (the values are copies: in practice it is equal).
+``ragged_ring_scatter_keys`` (every key of a ring in one launch on the
+card) on CPU tensors equals the JAX package's per-key dict comprehension
+(``sheeprl_tpu/data/ring.py:320``) key for key, bit for bit, with 1, 2 and
+5 keys of mixed dtypes and slot sizes; its gradient through the
+``autograd.Function`` the card runs (the launch swapped for the plain
+version) equals the per-key plain scatter's; its checks raise.
 ``ring_append_rows`` and ``ring_sample_windows`` (given JAX's own
 uniforms), the blob layouts' ring-key segments and ``estimate_ring_bytes``
 with the sequence accounting are equal to JAX's exactly.
 """
+
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +47,8 @@ from sheeprl_tpu_torch.replay import estimate_ring_bytes, resolve_device_residen
 from sheeprl_tpu_torch.utils.burst import dreamer_ring_keys
 
 C = 11
+# the module that holds the private launch the gradient test swaps
+scatter_module = importlib.import_module("sheeprl_tpu_torch.ops.kernels.scatter")
 
 
 def _case(seed, S, e, feat, dtype, col_offset, drop, wrap):
@@ -220,3 +230,104 @@ def test_torch_sequence_ring_full_recipe_fits_its_budget():
     est = estimate_ring_bytes(keys, 100_000, 1, sequence={"seq_len": 64, "batch_size": 16})
     assert 1.19 * 2**30 < est < 1.21 * 2**30
     assert resolve_device_resident(True, keys, 100_000, 1, 4.0, sequence={"seq_len": 64, "batch_size": 16})[0]
+
+
+# the DreamerV3 ring's keys: a 64x64x3 uint8 frame, 18 f32 actions, 3 f32 scalars
+RING_KEYS = {"rgb": ((64, 64, 3), np.uint8), "actions": ((18,), np.float32), "rewards": ((1,), np.float32),
+             "terminated": ((1,), np.float32), "is_first": ((1,), np.float32)}
+KEY_SETS = {1: ["rgb"], 2: ["actions", "rgb"], 5: list(RING_KEYS)}
+
+
+def _keys_case(seed, n_keys, S, e, off, drop, wrap):
+    """A ring of ``n_keys`` keys sharing one row table (JAX's
+    ``ring_append_rows``), and their staged blocks."""
+    rng = np.random.default_rng(seed)
+    base, _, row, pos = _case(seed, S, e, (1,), np.float32, off, drop, wrap)
+    del base
+    rings, staged = {}, {}
+    for k in KEY_SETS[n_keys]:
+        feat, dtype = RING_KEYS[k]
+        if dtype == np.uint8:
+            rings[k] = rng.integers(0, 256, (C, e + off) + feat).astype(np.uint8)
+            staged[k] = rng.integers(0, 256, (S, e) + feat).astype(np.uint8)
+        else:
+            rings[k] = rng.normal(size=(C, e + off) + feat).astype(np.float32)
+            staged[k] = rng.normal(size=(S, e) + feat).astype(np.float32)
+    return rings, staged, row, pos
+
+
+@pytest.mark.parametrize("backend", ["lax", "pallas"])
+@pytest.mark.parametrize("off", [0, 3])
+@pytest.mark.parametrize("n_keys", [1, 2, 5])
+@pytest.mark.parametrize("S, e, drop, wrap", [(1, 1, "none", True), (2, 4, "ragged", False), (2, 4, "column", True)],
+                         ids=["1row-1env-wrap", "2rows-4envs-ragged", "2rows-4envs-column-wrap"])
+def test_torch_ring_scatter_keys_is_bit_equal_to_jax_per_key(n_keys, off, backend, S, e, drop, wrap):
+    rings, staged, row, pos = _keys_case(10 * n_keys + S + e, n_keys, S, e, off, drop, wrap)
+    want = {k: np.asarray(JK.ragged_ring_scatter(jnp.asarray(rings[k]), jnp.asarray(staged[k]), jnp.asarray(row),
+                                                 jnp.asarray(pos), off, backend=backend)) for k in rings}
+    rb = {k: torch.from_numpy(v.copy()) for k, v in rings.items()}
+    blocks = {k: torch.from_numpy(v) for k, v in staged.items()}
+    out = K.ragged_ring_scatter_keys(rb, blocks, torch.from_numpy(row), torch.from_numpy(pos), off)
+    assert list(out) == list(rb) and all(out[k] is rb[k] for k in rb)  # in place, in the caller's order
+    for k in rings:
+        np.testing.assert_array_equal(out[k].numpy(), want[k], err_msg=k)
+    # a sequence of keys takes the same path
+    seq = K.ragged_ring_scatter_keys([torch.from_numpy(v.copy()) for v in rings.values()],
+                                     [blocks[k] for k in rings], torch.from_numpy(row), torch.from_numpy(pos), off)
+    for got, k in zip(seq, rings):
+        np.testing.assert_array_equal(got.numpy(), want[k], err_msg=k)
+    assert K.LAUNCHES["ragged_ring_scatter"] == 0  # CPU tensors run the plain version
+
+
+@pytest.mark.parametrize("off", [0, 3])
+def test_torch_ring_scatter_keys_gradient_is_the_per_key_plain_one(off, monkeypatch):
+    """Through the wrapper's CPU path and through the ``autograd.Function``
+    the card runs (its launch swapped for the plain version): the float keys'
+    gradients equal the per-key plain scatter's, the uint8 key takes none."""
+    rings, staged, row, pos = _keys_case(3, 5, 2, 4, off, "ragged", False)
+    rng = np.random.default_rng(4)
+    scales = {k: rng.normal(size=v.shape).astype(np.float32) for k, v in rings.items() if v.dtype == np.float32}
+    row_t, pos_t = torch.from_numpy(row), torch.from_numpy(pos)
+
+    def grads(scatter):
+        leaves = {k: (torch.from_numpy(rings[k]).requires_grad_(k in scales),
+                      torch.from_numpy(staged[k]).requires_grad_(k in scales)) for k in rings}
+        out = scatter({k: s.clone() for k, (s, _) in leaves.items()},
+                      {k: t for k, (_, t) in leaves.items()})
+        sum((out[k] * torch.from_numpy(scales[k])).sum() for k in scales).backward()
+        return {k: (s.grad, t.grad) for k, (s, t) in leaves.items() if k in scales}
+
+    want = grads(lambda rb, st: {k: K.ragged_ring_scatter_reference(rb[k], st[k], row_t, pos_t, off) for k in rb})
+    got = grads(lambda rb, st: K.ragged_ring_scatter_keys(rb, st, row_t, pos_t, off))
+
+    def plain_launch(storages, staged_blocks, row_, col_offset):
+        for s, t in zip(storages, staged_blocks):
+            K.ragged_ring_scatter_reference(s, t, row_, pos_t, col_offset)
+
+    monkeypatch.setattr(scatter_module, "_launch", plain_launch)
+    card_form = grads(lambda rb, st: dict(zip(rb, scatter_module._RaggedRingScatter.apply(
+        row_t, off, len(rb), *rb.values(), *(st[k] for k in rb)))))
+    for k in scales:
+        for a, b, c in zip(got[k], card_form[k], want[k]):
+            assert torch.equal(a, c) and torch.equal(b, c), k
+
+
+def test_torch_ring_scatter_keys_wrapper_checks_raise():
+    rings, staged, row, pos = _keys_case(5, 5, 2, 4, 0, "ragged", False)
+    rb = {k: torch.from_numpy(v.copy()) for k, v in rings.items()}
+    blocks = {k: torch.from_numpy(v) for k, v in staged.items()}
+    row_t, pos_t = torch.from_numpy(row), torch.from_numpy(pos)
+    with pytest.raises(ValueError, match="does not start with the rows"):
+        K.ragged_ring_scatter_keys(rb, blocks, row_t[:1], pos_t)
+    many = {f"k{i}": torch.zeros(C, 4, 1) for i in range(9)}
+    with pytest.raises(ValueError, match="1 to 8 ring keys"):
+        K.ragged_ring_scatter_keys(many, {k: torch.zeros(2, 4, 1) for k in many}, row_t, pos_t)
+    with pytest.raises(ValueError, match="1 to 8 ring keys"):
+        K.ragged_ring_scatter_keys({}, {}, row_t, pos_t)
+    with pytest.raises(ValueError, match="staged blocks for"):
+        K.ragged_ring_scatter_keys(list(rb.values()), list(blocks.values())[:4], row_t, pos_t)
+    # a key on another device goes to the kernel, which takes CUDA tensors only: no quiet fallback
+    elsewhere = dict(rb, actions=torch.zeros(C, 4, 18, device="meta"))
+    with pytest.raises(ValueError, match="CUDA device"):
+        K.ragged_ring_scatter_keys(elsewhere, blocks, row_t, pos_t)
+    assert K.LAUNCHES["ragged_ring_scatter"] == 0

@@ -17,7 +17,12 @@ that include 0 and values just under 1. What must agree:
 - the weights' gradient with respect to the tree against ``jax.grad``
   within 1e-5, through the wrapper's CPU path and through the
   ``autograd.Function`` the card runs (its launch swapped for the plain
-  version, since the kernel runs only on the card).
+  version, since the kernel runs only on the card);
+- the CUDA kernel's hop-wise descent, emulated in numpy load for load (k
+  levels per hop from the aligned ranges ``[i 2^m, (i+1) 2^m)``, in the
+  kernel's shared-memory layout), against JAX's reference: leaves exactly,
+  the priority it reads equal to the leaf's, weights within rtol 1e-6. This
+  holds the kernel's index arithmetic where there is no card.
 """
 
 import importlib
@@ -151,3 +156,83 @@ def test_torch_sumtree_sample_wrapper_raises_off_the_cpu_without_a_card():
     with pytest.raises(ValueError, match="CUDA"):
         K.sumtree_sample(torch.zeros(16, device="meta"), torch.zeros(4, device="meta"), 8, 0.4)
     assert K.LAUNCHES["sumtree_sample"] == 0
+
+
+def _hop_descent(tree: np.ndarray, u: np.ndarray, k: int):
+    """``csrc/sumtree.cu``'s descent in numpy, load for load: per hop from
+    node ``i``, the warp's slice takes float4 ``q`` from the global floats
+    ``(i - 1) 2^m + 4q`` (``m = floor(log2 q) + 2``; the first hop, from the
+    root, the floats ``4q``) and slots 2..3 from ``2i``; then ``j`` levels
+    are walked in the slice with the plain version's float32 arithmetic, two
+    per round trip (slots ``2r``, ``4r`` and ``4r + 2`` read together).
+    Slots a hop does not load are NaN, so reading one changes the result."""
+    P = tree.shape[0] // 2
+    levels = P.bit_length() - 1
+    leaves, prios, totals = [], [], []
+    for ub in u:
+        node, depth = 1, 0
+        total = p = tree[1]
+        mass = np.float32(0)
+        while depth < levels:
+            j = min(k, levels - depth)
+            n4 = 1 << (j - 1)
+            sl = np.full(4 * n4, np.nan, np.float32)
+            for q in range(n4):
+                if depth == 0:
+                    sl[4 * q : 4 * q + 4] = tree[4 * q : 4 * q + 4]
+                elif q == 0:
+                    sl[2:4] = tree[2 * node : 2 * node + 2]
+                else:
+                    g = ((node - 1) << (q.bit_length() + 1)) + 4 * q
+                    assert g % 4 == 0  # a 16-byte load
+                    sl[4 * q : 4 * q + 4] = tree[g : g + 4]
+            if depth == 0:
+                total = sl[1]
+                mass = np.minimum(np.float32(ub), np.float32(st.U_MAX)) * total
+            rel, m = 1, 0
+            while m < j:  # two levels per shared-memory round trip, the last one alone
+                left = sl[2 * rel]
+                nxt = (sl[4 * rel], sl[4 * rel + 2]) if m + 1 < j else None
+                assert not np.isnan(left) and (nxt is None or not np.isnan(nxt).any())
+                right = mass >= left
+                if right:
+                    mass = np.float32(mass - left)
+                rel = 2 * rel + int(right)
+                if nxt is not None:
+                    left2 = nxt[int(right)]
+                    if mass >= left2:
+                        mass = np.float32(mass - left2)
+                        rel = 2 * rel + 1
+                    else:
+                        rel = 2 * rel
+                m += 2
+            p = sl[rel]
+            node = ((node - 1) << j) + rel
+            depth += j
+        leaves.append(node - P)
+        prios.append(p)
+        totals.append(total)
+    return np.array(leaves, np.int32), np.array(prios, np.float32), np.array(totals, np.float32)
+
+
+@pytest.mark.parametrize("k", [1, 5, 7, 10])
+@pytest.mark.parametrize("log_leaves", range(1, 13))
+def test_torch_sumtree_kernel_hop_descent_matches_jax(log_leaves, k):
+    """Trees of 2^1 to 2^12 leaves built by JAX's ``update`` (zero leaves,
+    padding past the filled ones), uniforms with 0 and just under 1, and
+    trees shallower than k."""
+    P = 1 << log_leaves
+    n = P // 2 + 1 if P > 2 else P
+    rng, prios, jt, _ = _trees(n, 31 * log_leaves + k)
+    u = _uniforms(rng, 48)
+    want_leaf, want_w = JK.sumtree_sample(jt, jnp.asarray(u), jnp.asarray(n, jnp.int32), jnp.float32(0.55),
+                                          backend="lax")
+    tree = np.asarray(jt)
+    assert tree.shape == (2 * P,)
+    leaf, p, total = _hop_descent(tree, u, k)
+    np.testing.assert_array_equal(leaf, np.asarray(want_leaf))
+    np.testing.assert_array_equal(p, tree[P + leaf])  # the last hop holds the drawn leaf's priority
+    assert np.all(prios[leaf] > 0)
+    prob = p / np.maximum(total, np.float32(1e-12))
+    w = np.power(np.maximum(np.float32(n) * prob, np.float32(1e-12)), np.float32(-0.55))
+    np.testing.assert_allclose(w, np.asarray(want_w), **W_TOL)

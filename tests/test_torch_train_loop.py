@@ -175,7 +175,7 @@ def test_torch_train_loop_run_resume_and_serve(tmp_path):
     assert np.isfinite(np.asarray(first["metrics"])).all()
     state = load_checkpoint(first["checkpoint"])
     assert set(state) == {"world_model", "actor", "critic", "target_critic", "optimizers", "moments", "ratio",
-                          "iter_num", "batch_size", "last_log", "last_checkpoint", "rng"}
+                          "iter_num", "batch_size", "last_log", "last_checkpoint", "rng", "rb"}
     assert state["iter_num"] == 16
     assert not all(torch.equal(state["target_critic"][k], v) for k, v in state["critic"].items())
 
