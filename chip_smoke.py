@@ -14,8 +14,12 @@ result line):
    the floor of one launch (``floor_ms`` in every kernel's row);
 3. kernels: each kernel's wrapper against its plain PyTorch version on the
    card at the shapes the serving and training paths give it, timed with
-   CUDA events around CUDA-graph replays; the two-hot kernels' and
-   ``gae``'s gradients against the plain chain's;
+   CUDA events around CUDA-graph replays; ``gru_gates`` both alone and as
+   ``gru_gates_ln``, the GRU projection's LayerNorm fused in (every RSSM
+   step's entry), beside the pair of calls it replaces
+   (``F.layer_norm``, then the gates kernel); ``gae`` bit-equal at every
+   shape and dtype; the two-hot kernels', ``gru_gates_ln``'s and ``gae``'s
+   gradients against the plain chain's;
 4. model: the DreamerV3-S session step on the card against the same weights
    on the CPU, TF32 off, on one small batch;
 5. step: one engine dispatch per bucket timed on the host clock, the device
@@ -32,7 +36,8 @@ result line):
    checkpoint holds the host replay buffer, and a resume of 4 steps must
    start with it (rows, heads, generators) and train with the path's
    counts; then one gradient step from that checkpoint under
-   ``torch.profiler``;
+   ``torch.profiler``, whose forward must hold no LayerNorm of the GRU
+   projection (the cell fuses it into ``gru_gates_ln``);
 8. serve: the run's checkpoint (Atari-protocol shape: 64x64x3 pixels, 18
    actions, full width) through the port's ``serve`` entry point on an
    ephemeral socket: 8 concurrent sessions x 16 steps, one client reset, a
@@ -109,6 +114,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sheeprl_tpu_torch import cli
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_training_agent, sample_stochastic
@@ -129,6 +135,11 @@ from sheeprl_tpu_torch.utils.checkpoint import find_run_config, load_checkpoint
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 GRU_OPS_PER_ELEMENT = 10  # 2 sigmoid + tanh + 7 multiply/add, counted as one op each
+# per projection element: an add to the mean's sum, a subtraction and a
+# multiply-add for the squared deviation, a subtraction and two products to
+# normalise and scale, the bias's add
+GRU_LN_OPS_PER_ELEMENT = 8
+GRU_LN_EPS = 1e-3  # the RSSM cell's LayerNorm epsilon
 # the loss, per row: symlog (~10), the bracket's guess and two checks (~8),
 # the weights (~8) and the two-term dot (3); the decode, per logit: a max, a
 # subtraction, an exp, an add and a multiply-add
@@ -284,13 +295,34 @@ def _graph_ms(fn, per_graph: int = 20, replays: int = 20) -> float:
     return start.elapsed_time(stop) / (replays * per_graph)
 
 
+def _gru_ln_inputs(gen, B: int, H: int, dt):
+    proj = (torch.randn((B, 3 * H), generator=gen, device="cuda") * 2 + 0.5).to(dt)
+    h = torch.randn((B, H), generator=gen, device="cuda").to(dt)
+    weight = (1 + 0.3 * torch.randn((3 * H,), generator=gen, device="cuda")).to(dt)
+    bias = (0.2 * torch.randn((3 * H,), generator=gen, device="cuda")).to(dt)
+    return proj, h, weight, bias
+
+
 def gru_gates_phase(main_batch: int) -> dict:
-    """The kernel against its plain version (computed in f32, cast to the IO
-    dtype) at each shape: f32 within atol 1e-6 rtol 1e-5, bf16 within atol
-    1e-2 rtol 1e-2 (one bf16 rounding). ``ms``/``plain_ms`` are device time
-    per call (:func:`_graph_ms`); ``call_ms``/``plain_call_ms`` are eager
-    calls back to back, which the host's launch cost bounds at small
-    shapes."""
+    """Two entries of ``csrc/gru_gates.cu``, each against its plain version
+    (computed in f32, cast to the IO dtype) at each shape:
+
+    - the gate chain alone (``gru_gates``, the cell without LayerNorm): f32
+      within atol 1e-6 rtol 1e-5, bf16 within atol 1e-2 rtol 1e-2 (one bf16
+      rounding);
+    - the GRU projection's LayerNorm and the gate chain in one kernel
+      (``gru_gates_ln``, every RSSM step of the main paths): f32 within atol
+      and rtol 1e-5 (the row statistics are summed in another order), bf16
+      as above; beside it the pair of calls it replaces, ``F.layer_norm``
+      then the ``gru_gates`` kernel (``library_ms``), timed the same way;
+      its gradient through the ``autograd.Function`` against the plain
+      chain's within 1e-5.
+
+    ``ms``/``plain_ms`` are device time per call (:func:`_graph_ms`);
+    ``call_ms``/``plain_call_ms`` are eager calls back to back, which the
+    host's launch cost bounds at small shapes. The row's main numbers are
+    the fused kernel's at (main_batch, 1536) f32, the training paths'
+    shape."""
     shapes = [(1, 512, "float32"), (8, 512, "float32"), (16, 512, "float32"), (32, 512, "float32"),
               (1024, 512, "float32"), (1, 512, "bfloat16"), (32, 512, "bfloat16"), (1024, 512, "bfloat16"),
               (1024, 4096, "float32")]
@@ -322,7 +354,56 @@ def gru_gates_phase(main_batch: int) -> dict:
         log(f"gru_gates {dtype} fused ({B},{3 * H}): err {err:.3g} kernel {ms * 1e3:.2f} us "
             f"(call {call_ms * 1e3:.2f} us) plain {plain_ms * 1e3:.2f} us (call {plain_call_ms * 1e3:.2f} us) "
             f"bound {max(bytes_ms, ops_ms) * 1e3:.3f} us")
-    main = next(r for r in rows if r["shape"] == [main_batch, 3 * 512] and r["dtype"] == "float32")
+    ln_shapes = [(1, 512, "float32"), (8, 512, "float32"), (16, 512, "float32"), (32, 512, "float32"),
+                 (1024, 512, "float32"), (32, 512, "bfloat16"), (1024, 512, "bfloat16"), (1024, 4096, "float32")]
+    ln_rows = []
+    for B, H, dtype in ln_shapes:
+        dt = getattr(torch, dtype)
+        proj, h, w, b = _gru_ln_inputs(gen, B, H, dt)
+        out = kernels.gru_gates_ln(proj, h, w, b, GRU_LN_EPS)
+        torch.cuda.synchronize()
+        want = kernels.gru_gates_ln_reference(proj.float(), h.float(), w.float(), b.float(), GRU_LN_EPS).to(dt)
+        f32 = dtype == "float32"
+        torch.testing.assert_close(out, want, atol=1e-5 if f32 else 1e-2, rtol=1e-5 if f32 else 1e-2)
+        err = float((out.float() - want.float()).abs().max())
+
+        def fused_call():
+            return kernels.gru_gates_ln(proj, h, w, b, GRU_LN_EPS)
+
+        def pair_call():  # the two launches the fused kernel replaces
+            return kernels.gru_gates(F.layer_norm(proj, (3 * H,), w, b, GRU_LN_EPS), h)
+
+        def plain_call():
+            return kernels.gru_gates_ln_reference(proj, h, w, b, GRU_LN_EPS)
+
+        iters = 200 if B * H < 1 << 20 else 100
+        row = {"shape": [B, 3 * H], "dtype": dtype, "max_abs_err": err,
+               "call_ms": _time_ms(fused_call, iters), "pair_call_ms": _time_ms(pair_call, iters),
+               "ms": _graph_ms(fused_call), "pair_ms": _graph_ms(pair_call), "plain_ms": _graph_ms(plain_call)}
+        # read the projection, the carry and the affine once, write the output once
+        nbytes = (5 * B * H + 6 * H) * h.element_size()
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = (GRU_OPS_PER_ELEMENT * B * H + GRU_LN_OPS_PER_ELEMENT * 3 * B * H) / F32_FLOPS * 1e3
+        row.update(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+        ln_rows.append(row)
+        log(f"gru_gates_ln {dtype} proj ({B},{3 * H}): err {err:.3g} kernel {row['ms'] * 1e3:.2f} us "
+            f"(call {row['call_ms'] * 1e3:.2f} us) layer_norm + gru_gates pair {row['pair_ms'] * 1e3:.2f} us "
+            f"(call {row['pair_call_ms'] * 1e3:.2f} us) plain {row['plain_ms'] * 1e3:.2f} us "
+            f"bound {row['bound_ms'] * 1e3:.3f} us ({row['bound_by']})")
+    # the gradient through the autograd.Function against the plain chain's, both on the card
+    arrays = _gru_ln_inputs(gen, main_batch, 512, torch.float32)
+    cot = torch.randn((main_batch, 512), generator=gen, device="cuda")
+    grads = []
+    for fn in (kernels.gru_gates_ln, kernels.gru_gates_ln_reference):
+        leaves = [t.clone().requires_grad_(True) for t in arrays]
+        fn(*leaves, GRU_LN_EPS).backward(cot)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    grad_err = max(float((a - b).abs().max()) for a, b in zip(*grads))
+    log(f"gru_gates_ln backward: max err {grad_err:.3g} against the plain chain")
+    main = next(r for r in ln_rows if r["shape"] == [main_batch, 3 * 512] and r["dtype"] == "float32")
+    gates = next(r for r in rows if r["shape"] == [main_batch, 3 * 512] and r["dtype"] == "float32")
     return {
         "name": "gru_gates",
         "route": "cuda",
@@ -334,7 +415,14 @@ def gru_gates_phase(main_batch: int) -> dict:
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes this gate chain
+        # no single PyTorch call computes the chain: the yardstick is the pair
+        # of calls the fused kernel replaces
+        "library_ms": main["pair_ms"],
+        "library_call": "F.layer_norm, then the gru_gates kernel (a pair of calls)",
+        "entry": "gru_gates_ln",
+        "grad_max_abs_err": grad_err,
+        "gates_alone": {k: gates[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+        "ln_shapes": ln_rows,
         "shapes": rows,
     }
 
@@ -450,7 +538,7 @@ def _gae_inputs(gen, T: int, N: int, trailing: tuple, value_dtype, done_dtype):
 def gae_phase(gamma: float = 0.99, lam: float = 0.95) -> dict:
     """The kernel against its plain version (float32 math on the same
     inputs) at every shape and dones dtype, float32 and bf16 inputs, within
-    atol and rtol 1e-6; the gradient through the ``autograd.Function``
+    atol and rtol 1e-6 and with max error 0 (bit-equal); the gradient through the ``autograd.Function``
     against the plain chain's within 1e-5 (float16 inputs are held the same
     way). ``ms``/``plain_ms`` are device
     time per call (:func:`_graph_ms`); ``call_ms`` is an eager call. Bound:
@@ -471,6 +559,9 @@ def gae_phase(gamma: float = 0.99, lam: float = 0.95) -> dict:
                         raise AssertionError(f"gae returned {g.dtype} {tuple(g.shape)} for {tuple(args[0].shape)}")
                     torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
                 err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+                if err != 0:  # the same f32 ops in the same order: bit-equal at every shape and dtype
+                    raise AssertionError(f"gae is not bit-equal to its plain version at {(T, N, *trailing)} "
+                                         f"{value_dtype} {done_dtype}: max err {err}")
                 row = {"shape": [T, N, *trailing], "dtype": str(value_dtype).split(".")[-1],
                        "dones": str(done_dtype).split(".")[-1], "max_abs_err": err}
                 if done_dtype == torch.uint8:  # timed once per shape and value dtype
@@ -504,6 +595,9 @@ def gae_phase(gamma: float = 0.99, lam: float = 0.95) -> dict:
     grad_err = max(float((a - b).abs().max()) for a, b in zip(*grads))
     log(f"gae backward: max err {grad_err:.3g} against the plain chain")
     main = next(r for r in rows if r["shape"] == [128, 4, 1] and r["dtype"] == "float32" and r["dones"] == "uint8")
+    wide = next(r for r in rows if r["shape"] == [1024, 4096] and r["dtype"] == "float32" and r["dones"] == "uint8")
+    log(f"gae at (1024, 4096) f32: {wide['ms'] * 1e3:.2f} us, {wide['ms'] / wide['bytes_ms']:.2f}x its bytes bound "
+        f"{wide['bytes_ms'] * 1e3:.2f} us")
     return {
         "name": "gae",
         "route": "cuda",
@@ -520,6 +614,8 @@ def gae_phase(gamma: float = 0.99, lam: float = 0.95) -> dict:
         "bytes_ms": main["bytes_ms"],
         "chain_ms": main["chain_ms"],
         "grad_max_abs_err": grad_err,
+        "wide": {"shape": [1024, 4096], "ms": wide["ms"], "bytes_ms": wide["bytes_ms"],
+                 "over_bytes_bound": wide["ms"] / wide["bytes_ms"]},
         "shapes": rows,
     }
 
@@ -697,11 +793,34 @@ def train_step_phase() -> dict:
 # -- 7. run -------------------------------------------------------------------------
 
 
+def _gru_layer_norms(prof, width: int) -> tuple:
+    """The profile's LayerNorms over ``width`` features (the GRU projection's
+    3H, a width no other LayerNorm of the model has), counted as
+    ``(forward, backward)``: an ``aten::native_layer_norm`` call is in a
+    backward when the autograd engine's ``evaluate_function`` range holds
+    it (``gru_gates_ln``'s backward recomputes the norm there)."""
+    forward = backward = 0
+    for e in prof.events():
+        shapes = getattr(e, "input_shapes", None)
+        if e.name != "aten::native_layer_norm" or not shapes or not shapes[0] or shapes[0][-1] != width:
+            continue
+        parent = e.cpu_parent
+        while parent is not None and not parent.name.startswith("autograd::engine::evaluate_function"):
+            parent = parent.cpu_parent
+        if parent is None:
+            forward += 1
+        else:
+            backward += 1
+    return forward, backward
+
+
 def _profile_gradient_step(checkpoint: str) -> dict:
     """One full-recipe gradient step (B 16 x T 64, H 15) from the run's
     checkpoint, after two warm-up steps: host time around the step (ending
     in a synchronize), and device time and device operations from
-    ``torch.profiler``, with the two-hot kernels' and ``gru_gates``' share."""
+    ``torch.profiler``, with the two-hot kernels' and ``gru_gates``' share.
+    No LayerNorm of the GRU projection may remain in the forward: the cell
+    fuses it into ``gru_gates_ln``."""
     cfg = load_config(find_run_config(checkpoint))
     state = load_checkpoint(checkpoint)
     modules = build_training_agent(cfg, "cuda", state)
@@ -721,12 +840,16 @@ def _profile_gradient_step(checkpoint: str) -> dict:
         torch.cuda.synchronize()
         host.append(time.perf_counter() - t0)
     acts = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA], record_shapes=True) as prof:
         moments, _ = train(data, moments, 1, gen)
         torch.cuda.synchronize()
     events = _device_kernels(prof)
     device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
     ops = sum(e.count for e in events)
+    forward_ln, backward_ln = _gru_layer_norms(prof, 3 * int(cfg.algo.world_model.recurrent_model.recurrent_state_size))
+    if forward_ln:
+        raise AssertionError(f"{forward_ln} LayerNorms of the GRU projection remain in a gradient step's forward: "
+                             "the cell must fuse them into gru_gates_ln")
     share = {}
     for kernel, needle in (("two_hot", "two_hot_"), ("gru_gates", "gru_gates_")):
         us = sum(getattr(e, "self_device_time_total", 0.0) for e in events if needle in e.key)
@@ -739,6 +862,7 @@ def _profile_gradient_step(checkpoint: str) -> dict:
         "device_ms": device_us / 1e3 if device_us > 0 else None,
         "device_busy_share": device_us / 1e3 / (np.median(host) * 1e3) if device_us > 0 else None,
         "device_ops": ops,
+        "gru_layer_norms": {"forward": forward_ln, "backward": backward_ln},
         "kernels": share,
         "top": [{"name": e.key[:80], "device_ms": getattr(e, "self_device_time_total", 0.0) / 1e3, "count": e.count}
                 for e in top],

@@ -19,27 +19,47 @@
 // nor arithmetic. The bytes, T * N * (2 * sizeof + sizeof(done)) + N * sizeof
 // + 8 * T * N, are ~8.7 KB there (~3 ns at 3.35 TB/s); the chain is T
 // dependent multiply-adds in one thread, ~0.3 us at T = 128. What the kernel
-// can do about it is to keep memory latency off the chain. Past a few
-// thousand columns the card's bandwidth binds instead.
+// can do about it is to keep memory latency and every other instruction off
+// the chain. Past a few thousand columns the card's bandwidth binds instead.
 //
-// Design. One warp per block takes 32 neighbouring columns, one thread per
-// column walking it from t = T-1 down. The loads do not depend on the
-// recurrence, so the warp first stages kChunk steps of its columns in shared
-// memory, all 32 lanes loading the (kChunk, width) tile together: its rows
-// are contiguous in the (T, N) layout (one contiguous run when N <= 32, as
-// at the main path's N = 4), the loads are coalesced, and each lane issues
-// kLoadBatch of them into registers before it waits on the first, so the
-// tile costs about one memory latency (the main path's T = 128 is one tile).
-// Then each thread walks its column of the tile, so the serial part is only
-// the dependent chain of shared-memory reads and multiply-adds. The operands'
-// types are template parameters (27 instantiations over rewards, values and
-// dones; next_value, read once per thread, by its code), so no type switch
-// sits in the loops. All arithmetic is f32 in the plain version's order,
-// written with the __fmul_rn / __fadd_rn / __fsub_rn intrinsics, which nvcc
-// never contracts into an FMA: over T steps a contracted chain would drift
-// from the plain version. bf16 and f16 inputs are widened on load; dones are
-// uint8, bool or f32. Outputs are f32. The kernel launches on the caller's
-// stream, allocates nothing and does not synchronise.
+// Design. A block of kThreads threads takes kCols neighbouring columns and
+// walks T backwards in tiles of kChunk steps:
+// - Tile copies. All threads copy the tile's rewards, values and dones from
+//   global into shared memory with 16-byte cp.async (Ampere's asynchronous
+//   copy, which Hopper keeps). A tile is one contiguous span when the block
+//   holds every column (N <= kCols, as at the main path's N = 4), else one
+//   span per row. Each span is copied as the 16-byte-aligned blocks that
+//   cover it, so any dtype, N and pointer alignment copies with 16-byte
+//   requests (the bytes around a span read with it lie in the same aligned
+//   16 bytes as bytes of the span, so in the same page). Tiles are
+//   double-buffered: the copy of the next tile in the walk (earlier in time)
+//   is in flight while the block works on this one.
+// - Off the chain. All threads form delta[t] = (r + (gamma * v[t+1]) * nd)
+//   - v and c[t] = gamma_lambda * nd (nd = 1 - done) for the tile into shared
+//   memory. v[t+1] at the tile's last step is the first value of the tile
+//   walked before it, or next_value at t = T - 1, carried in shared memory.
+// - The chain. One thread per column walks only last = delta[t] + c[t] *
+//   last. Its (delta, c) pairs are read as float2, two batches of eight
+//   steps ahead of the multiply-adds, at immediate offsets (the pairs' rows
+//   have a fixed stride), and it writes last over delta. It issues no global
+//   store.
+// - Stores. All threads then write advantages and returns = last + value with
+//   coalesced stores.
+// With kCols = 16 a (1024, 4096) rollout is 256 blocks, two on most SMs, so
+// one block's chain overlaps another's copies, delta and stores.
+//
+// Every advantage and return is bit-equal to the plain version's: all
+// arithmetic is f32 in its op order, written with the __fmul_rn / __fadd_rn /
+// __fsub_rn intrinsics, which nvcc never contracts into an FMA (over T steps a
+// contracted chain would drift), and the chain stays sequential in t (a
+// parallel scan would re-associate it). The operands' types are template
+// parameters (27 instantiations over rewards, values and dones; next_value,
+// read once per column, by its code), so no type switch sits in the loops.
+// bf16 and f16 inputs are widened on load; dones are uint8, bool or f32.
+// Outputs are f32. The tiles take 49-78 KB of dynamic shared memory
+// (cudaFuncSetAttribute raises the 48 KB default at an instantiation's first
+// launch). The kernel launches on the caller's stream, allocates nothing and
+// does not synchronise.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -67,9 +87,10 @@ __device__ __forceinline__ float load_value(const void* p, int code, int64_t i) 
   }
 }
 
-constexpr int kThreads = 32;  // one warp per block: 32 columns, and small N spreads over more SMs
-constexpr int kChunk = 128;     // steps staged in shared memory at a time (3 x 16 KB, the static limit)
-constexpr int kLoadBatch = 16;  // tile rows a lane has in flight at once
+constexpr int kThreads = 256;  // 8 warps copy, form delta and store; `width` of them walk the chain
+constexpr int kCols = 16;      // columns per block
+constexpr int kChunk = 128;    // steps per tile: the main path's T = 128 is one tile
+constexpr int kAhead = 8;      // chain steps whose delta and c are read ahead of their multiply-adds
 
 struct Args {
   const void* rewards;
@@ -83,77 +104,218 @@ struct Args {
   int next_value_code;
 };
 
+// Shared bytes of one tile row of kCols elements of `size` bytes: the aligned
+// 16-byte blocks covering a span of up to kCols elements at any alignment.
+__host__ __device__ constexpr int row_bytes(int size) { return (kCols * size + 15) / 16 * 16 + 16; }
+
+template <typename R, typename V, typename D>
+struct Layout {
+  static constexpr int r = 0;
+  static constexpr int v = r + kChunk * row_bytes(sizeof(R));
+  static constexpr int d = v + kChunk * row_bytes(sizeof(V));
+  static constexpr int stage = d + kChunk * row_bytes(sizeof(D));  // one buffer of the three tiles
+  static constexpr int dc = 2 * stage;                   // float2 [kChunk][kCols]: (delta, c), then .x = advantage
+  static constexpr int carry = dc + kChunk * kCols * 8;  // f32 [kCols]: the value after the tile
+  static constexpr int total = carry + kCols * 4;
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending));
+}
+
+// One tile of one operand: rows [lo, lo + rows) of the block's columns
+// [n0, n0 + width). `flat` (the block holds all N columns) makes it one span.
+struct Tile {
+  int64_t N, lo, n0;
+  int rows, width;
+  bool flat;
+};
+
+template <typename E>
+__device__ __forceinline__ void issue_tile(char* smem, const void* base, const Tile& t) {
+  constexpr int S = sizeof(E);
+  constexpr int rb = row_bytes(S);
+  const char* g = static_cast<const char*>(base);
+  if (t.flat) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(g + t.lo * t.N * S);
+    const uintptr_t start = a & ~uintptr_t(15);
+    const int blocks = static_cast<int>(((a + static_cast<uintptr_t>(t.rows) * t.N * S + 15) & ~uintptr_t(15)) - start) / 16;
+    for (int i = threadIdx.x; i < blocks; i += kThreads)
+      cp_async16(smem + 16 * i, reinterpret_cast<const void*>(start + 16 * static_cast<uintptr_t>(i)));
+  } else {
+    constexpr int per_row = rb / 16;
+    for (int i = threadIdx.x; i < t.rows * per_row; i += kThreads) {
+      const int j = i / per_row, q = i - j * per_row;
+      const uintptr_t a = reinterpret_cast<uintptr_t>(g + ((t.lo + j) * t.N + t.n0) * S);
+      const uintptr_t start = (a & ~uintptr_t(15)) + 16 * static_cast<uintptr_t>(q);
+      if (start < a + static_cast<uintptr_t>(t.width) * S)
+        cp_async16(smem + j * rb + 16 * q, reinterpret_cast<const void*>(start));
+    }
+  }
+}
+
+// One operand's staged tile: element (j, col) widened to f32. `first` is the
+// byte offset of row 0's first element inside its aligned 16 bytes, and row j
+// starts j * N * S bytes after it in global memory, so only the low 4 bits of
+// that sum (32-bit arithmetic) place a row of a span-per-row tile.
+template <typename E>
+struct Staged {
+  static constexpr int S = sizeof(E);
+  const char* smem;
+  unsigned first, stride;
+  bool flat;
+  __device__ __forceinline__ Staged(const char* s, const void* base, const Tile& t)
+      : smem(s),
+        first((static_cast<unsigned>(reinterpret_cast<uintptr_t>(base)) +
+               static_cast<unsigned>(t.lo * t.N + t.n0) * S) & 15u),
+        stride(static_cast<unsigned>(t.N) * S),
+        flat(t.flat) {}
+  __device__ __forceinline__ float at(int j, int col) const {
+    const char* p = flat ? smem + first + j * stride + col * S
+                         : smem + j * row_bytes(S) + ((first + j * stride) & 15u) + col * S;
+    return to_f(*reinterpret_cast<const E*>(p));
+  }
+};
+
+// The chain over one batch of kAhead steps, q pointing at step j's (delta, c)
+// in a column of stride kCols: every address an immediate offset from q.
+__device__ __forceinline__ void load_batch(float2 (&out)[kAhead], const float2* q) {
+#pragma unroll
+  for (int u = 0; u < kAhead; ++u) out[u] = q[-u * kCols];
+}
+__device__ __forceinline__ void walk_batch(const float2 (&in)[kAhead], float2* q, float& last) {
+#pragma unroll
+  for (int u = 0; u < kAhead; ++u) {
+    last = __fadd_rn(in[u].x, __fmul_rn(in[u].y, last));
+    q[-u * kCols].x = last;
+  }
+}
+
 template <typename R, typename V, typename D>
 __global__ void __launch_bounds__(kThreads) gae_kernel(Args a) {
-  __shared__ float s_r[kChunk][kThreads], s_v[kChunk][kThreads], s_nd[kChunk][kThreads];
-  const R* __restrict__ rewards = static_cast<const R*>(a.rewards);
-  const V* __restrict__ values = static_cast<const V*>(a.values);
-  const D* __restrict__ dones = static_cast<const D*>(a.dones);
-  const int lane = threadIdx.x;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kThreads;
-  const int width = static_cast<int>(a.N - n0 < kThreads ? a.N - n0 : kThreads);
-  const bool active = lane < width;
-  const int64_t n = n0 + lane;
-  // the tile's loads: each pass covers rows_per_pass whole rows of the tile
+  using L = Layout<R, V, D>;
+  extern __shared__ __align__(16) char smem[];
+  float2* dc = reinterpret_cast<float2*>(smem + L::dc);
+  float* carry = reinterpret_cast<float*>(smem + L::carry);
+  const int tid = threadIdx.x;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kCols;
+  const int width = static_cast<int>(a.N - n0 < kCols ? a.N - n0 : kCols);
+  const int64_t chunks = (a.T + kChunk - 1) / kChunk;
+  // tile k holds steps [lo, hi]: tile 0 the last kChunk steps, the last tile starts at 0
+  auto tile = [&](int64_t k) {
+    const int64_t hi = a.T - 1 - k * kChunk;
+    const int64_t lo = hi - kChunk + 1 < 0 ? 0 : hi - kChunk + 1;
+    return Tile{a.N, lo, n0, static_cast<int>(hi - lo + 1), width, width == a.N};
+  };
+  auto issue = [&](int64_t k) {
+    char* stage = smem + (k & 1) * L::stage;
+    const Tile t = tile(k);
+    issue_tile<R>(stage + L::r, a.rewards, t);
+    issue_tile<V>(stage + L::v, a.values, t);
+    issue_tile<D>(stage + L::d, a.dones, t);
+    cp_async_commit();
+  };
+  // each thread's (row, column) in the off-chain passes: rows_per_pass rows a pass
   const int rows_per_pass = kThreads / width;
-  const int load_row = lane / width, load_col = lane - (lane / width) * width;
-  const bool loads = load_row < rows_per_pass;
+  const int j0 = tid / width, col = tid - (tid / width) * width;
+  const bool works = j0 < rows_per_pass;
 
-  float nv = active ? load_value(a.next_value, a.next_value_code, n) : 0.0f;
+  issue(0);  // before next_value's load, whose latency would otherwise delay the first copies
+  if (tid < width) carry[tid] = load_value(a.next_value, a.next_value_code, n0 + tid);
   float last = 0.0f;
-  for (int64_t hi = a.T - 1; hi >= 0; hi -= kChunk) {
-    const int rows = static_cast<int>(hi + 1 < kChunk ? hi + 1 : kChunk);
-    const int64_t lo = hi - rows + 1;
-    if (loads) {
-      // kLoadBatch rows of raw values in registers first, so their loads are
-      // all in flight before the first one is waited on
-      for (int j0 = load_row; j0 < rows; j0 += kLoadBatch * rows_per_pass) {
-        R rr[kLoadBatch];
-        V rv[kLoadBatch];
-        D rd[kLoadBatch];
+  for (int64_t k = 0; k < chunks; ++k) {
+    if (k + 1 < chunks) {
+      issue(k + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile k (and the carry) visible to every thread
+    const char* stage = smem + (k & 1) * L::stage;
+    const Tile t = tile(k);
+    const Staged<R> rs(stage + L::r, a.rewards, t);
+    const Staged<V> vs(stage + L::v, a.values, t);
+    const Staged<D> ds(stage + L::d, a.dones, t);
+    if (works) {
+      for (int j = j0; j < t.rows; j += rows_per_pass) {
+        const float v = vs.at(j, col);
+        const float nd = __fsub_rn(1.0f, ds.at(j, col));
+        const float nv = j + 1 < t.rows ? vs.at(j + 1, col) : carry[col];
+        const float delta = __fsub_rn(__fadd_rn(rs.at(j, col), __fmul_rn(__fmul_rn(a.gamma, nv), nd)), v);
+        dc[j * kCols + col] = make_float2(delta, __fmul_rn(a.gamma_lambda, nd));
+      }
+    }
+    __syncthreads();
+    if (tid < width) {
+      // the chain, one column per thread, in whole batches of kAhead steps
+      // through three register buffers: each batch's loads are issued two
+      // batches before its multiply-adds, so wherever the compiler places
+      // them in a batch, shared-memory latency stays off the chain, and no
+      // register moves between buffers. A load past step 0 reads the tiles
+      // below this array and is never used. Each step writes its advantage
+      // over its delta, which no later step reads.
+      float2* col_dc = dc + tid;
+      int j = t.rows - 1;
+      float2 a_buf[kAhead], b_buf[kAhead], c_buf[kAhead];
+      if (j >= kAhead - 1) {
+        load_batch(a_buf, col_dc + j * kCols);
+        load_batch(b_buf, col_dc + (j - kAhead) * kCols);
+      }
+      while (j >= kAhead - 1) {  // a_buf holds steps j .., b_buf the batch after
+        load_batch(c_buf, col_dc + (j - 2 * kAhead) * kCols);
+        walk_batch(a_buf, col_dc + j * kCols, last);
+        j -= kAhead;
+        if (j < kAhead - 1) break;
+        load_batch(a_buf, col_dc + (j - 2 * kAhead) * kCols);
+        walk_batch(b_buf, col_dc + j * kCols, last);
+        j -= kAhead;
+        if (j < kAhead - 1) break;
+        load_batch(b_buf, col_dc + (j - 2 * kAhead) * kCols);
+        walk_batch(c_buf, col_dc + j * kCols, last);
+        j -= kAhead;
+      }
 #pragma unroll
-        for (int u = 0; u < kLoadBatch; ++u) {
-          const int j = j0 + u * rows_per_pass;
-          if (j < rows) {
-            const int64_t i = (lo + j) * a.N + n0 + load_col;
-            rr[u] = rewards[i];
-            rv[u] = values[i];
-            rd[u] = dones[i];
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kLoadBatch; ++u) {
-          const int j = j0 + u * rows_per_pass;
-          if (j < rows) {
-            s_r[j][load_col] = to_f(rr[u]);
-            s_v[j][load_col] = to_f(rv[u]);
-            s_nd[j][load_col] = __fsub_rn(1.0f, to_f(rd[u]));
-          }
+      for (int u = 0; u < kAhead - 1; ++u) {  // the tile's first j + 1 < kAhead steps
+        if (u <= j) {
+          const float2 x = col_dc[(j - u) * kCols];
+          last = __fadd_rn(x.x, __fmul_rn(x.y, last));
+          col_dc[(j - u) * kCols].x = last;
         }
       }
     }
-    __syncwarp();
-    if (active) {
-#pragma unroll 8
-      for (int j = rows - 1; j >= 0; --j) {
-        const float r = s_r[j][lane], v = s_v[j][lane], nd = s_nd[j][lane];
-        const float delta = __fsub_rn(__fadd_rn(r, __fmul_rn(__fmul_rn(a.gamma, nv), nd)), v);
-        last = __fadd_rn(delta, __fmul_rn(__fmul_rn(a.gamma_lambda, nd), last));
-        const int64_t i = (lo + j) * a.N + n;
-        a.advantages[i] = last;
-        a.returns[i] = __fadd_rn(last, v);
-        nv = v;
+    __syncthreads();
+    if (works) {
+      for (int j = j0; j < t.rows; j += rows_per_pass) {
+        const float adv = dc[j * kCols + col].x;
+        const int64_t i = (t.lo + j) * a.N + n0 + col;
+        a.advantages[i] = adv;
+        a.returns[i] = __fadd_rn(adv, vs.at(j, col));
       }
     }
-    __syncwarp();  // the tile is read before the next chunk overwrites it
+    if (tid < width) carry[tid] = vs.at(0, tid);
+    __syncthreads();  // this buffer is refilled by the copy issued next
   }
 }
 
 template <typename R, typename V, typename D>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int64_t blocks = (a.N + kThreads - 1) / kThreads;
+  using L = Layout<R, V, D>;
+  static bool configured = false;  // the shared-memory limit, raised once per instantiation
+  if (!configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(gae_kernel<R, V, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::total);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int64_t blocks = (a.N + kCols - 1) / kCols;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  gae_kernel<R, V, D><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(a);
+  gae_kernel<R, V, D><<<static_cast<unsigned>(blocks), kThreads, L::total, stream>>>(a);
   return cudaGetLastError();
 }
 

@@ -1,27 +1,51 @@
 // Hafner-GRU gate chain for Hopper (sm_90a): the pointwise tail of every RSSM
-// step, after the fused Linear -> LayerNorm projection of LayerNormGRUCell.
+// step, after the fused Linear projection of LayerNormGRUCell.
 //
-//   r = sigmoid(f[:, :H]); c = tanh(r * f[:, H:2H]); u = sigmoid(f[:, 2H:] - 1)
+//   y = LayerNorm(proj) over the 3H axis, with the (3H,) affine   (gru_gates_ln only)
+//   r = sigmoid(y[:, :H]); c = tanh(r * y[:, H:2H]); u = sigmoid(y[:, 2H:] - 1)
 //   out = u * c + (1 - u) * h
 //
 // Replaces the Pallas TPU kernel sheeprl_tpu/ops/kernels/gru.py:46-77
 // (`_kernel` / `_pallas_forward`), which pins the chain into one VPU pass per
 // batch block so the (B, 3H) projection and the (B, H) carry are read once and
-// only the (B, H) result is written.
+// only the (B, H) result is written. The LayerNorm in front of it is left to
+// XLA there; here it would be a launch of its own and a round trip of the
+// (B, 3H) projection through memory, so `gru_gates_ln` takes it into the
+// same kernel: the whole epilogue of the cell's GEMM.
 //
-// What bounds it on the card: bytes. Per output element it reads four values
-// and writes one, 5 * B * H * sizeof(T) bytes in all, against about ten
-// floating-point operations. At B=32, H=512 in f32 that is 0.33 MB, far below
-// what launch latency costs; at B=1024, H=4096 it is 84 MB, about 25 us at
-// 3.35 TB/s.
+// What bounds it on the card: bytes. Per output element the gate chain reads
+// four values and writes one, 5 * B * H * sizeof(T) bytes in all (plus the
+// 6H affine values with the LayerNorm), against about ten floating-point
+// operations (about 34 with the norm's eight per projection element). At
+// B=16, H=512 in f32 that is 0.16 MB, far below what one launch costs; at
+// B=1024, H=4096 it is 84 MB, about 25 us at 3.35 TB/s.
 //
-// Design: one thread per output element, or per four neighbouring elements
-// (one 16-byte f32 load per operand) where H % 4 == 0 and the pointers are
-// aligned, so a warp reads contiguous spans of each operand. The gate math is
-// f32 whatever the IO type; bf16 is converted with __bfloat162float and
-// __float2bfloat16. Nothing is staged in shared memory: every byte is touched
-// once, so there is nothing to reuse. The kernel launches on the caller's
-// stream, allocates nothing and does not synchronise.
+// Design, gates alone (`gru_gates_launch`): one thread per output element, or
+// per four neighbouring elements (one 16-byte f32 load per operand) where
+// H % 4 == 0 and the pointers are aligned, so a warp reads contiguous spans of
+// each operand.
+//
+// Design, with the norm (`gru_gates_ln_launch`): one block per row. Where
+// H % 4 == 0, H <= 4096 (DreamerV3-XL's width) and the pointers are aligned,
+// thread t holds the quads q = t, t + blockDim (kQuadsPerThread at most) of the
+// reset, candidate and update thirds in registers: the 12 projection values
+// behind its four outputs per quad. At one quad a thread (H <= 2048, as the
+// RSSM's H = 512) it also loads the quad's affine and carry with them, so the
+// row costs one memory round trip. The row's mean, then its sum of squared
+// deviations from the mean, come from two block reductions over those
+// registers (warp shuffles, then one barrier, after which every thread adds
+// the warps' partial sums in one order): two passes, never E[x^2] - E[x]^2,
+// which cancels at LayerNorm's input scales. Each thread then normalises,
+// applies the affine and runs the gate chain in registers and writes one
+// vector of `out` per quad. Anything else (H not a multiple of 4, misaligned
+// pointers, wider rows) takes the same three steps one element at a time,
+// re-reading the row from cache in each pass.
+//
+// Both: the gate math is f32 whatever the IO type; bf16 is converted with
+// __bfloat162float and __float2bfloat16. Nothing is staged in shared memory
+// but the reductions' partial sums. The kernels launch on the caller's stream,
+// allocate nothing, write nothing but `out` and do not synchronise, so they
+// can be captured in a CUDA graph.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,6 +127,182 @@ cudaError_t launch(const void* fused, const void* h, void* out, int64_t B, int64
   return cudaGetLastError();
 }
 
+
+// ---- the LayerNorm in front of the gates ------------------------------------
+
+constexpr int kLnMaxThreads = 512;
+constexpr int kQuadsPerThread = 2;  // rows of up to 2 * 4 * 512 = 4096 outputs stay in registers
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// The sum of `v` over the block, returned to every thread: a warp-shuffle
+// sum, then one barrier, after which every thread adds the warps' partial
+// sums itself, in one order, so every thread holds the same total. `part`
+// holds one float per warp; each reduction of a kernel takes its own.
+__device__ __forceinline__ float block_sum(float v, float* part) {
+  const int warps = (blockDim.x + 31) >> 5;
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float s = 0.0f;
+  for (int w = 0; w < warps; ++w) s += part[w];
+  return s;
+}
+
+template <typename T, int QPT>
+__global__ void __launch_bounds__(kLnMaxThreads)
+    gru_gates_ln_vec4(const T* __restrict__ proj, const T* __restrict__ h, const T* __restrict__ weight,
+                      const T* __restrict__ bias, T* __restrict__ out, int64_t H, float eps) {
+  __shared__ float part[2][kLnMaxThreads / 32];
+  // at one quad a thread the affine and the carry are loaded with the
+  // projection, so the row costs one memory round trip; at two they cost
+  // registers the block's occupancy needs, and are loaded after the statistics
+  constexpr bool kPreload = QPT == 1;
+  const int64_t row = blockIdx.x;
+  const int quads = static_cast<int>(H / 4);
+  const T* p = proj + row * 3 * H;
+  float x[QPT][3][4];
+  Vec4<T> vw[kPreload ? QPT : 1][3], vb[kPreload ? QPT : 1][3], vh[kPreload ? QPT : 1];
+  float sum = 0.0f;
+#pragma unroll
+  for (int k = 0; k < QPT; ++k) {
+    const int q = threadIdx.x + k * blockDim.x;
+    if (q < quads) {
+      Vec4<T> v[3];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) v[g] = *reinterpret_cast<const Vec4<T>*>(p + g * H + 4 * q);
+      if constexpr (kPreload) {
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          vw[k][g] = *reinterpret_cast<const Vec4<T>*>(weight + g * H + 4 * q);
+          vb[k][g] = *reinterpret_cast<const Vec4<T>*>(bias + g * H + 4 * q);
+        }
+        vh[k] = *reinterpret_cast<const Vec4<T>*>(h + row * H + 4 * q);
+      }
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[k][g][e] = load_f(&v[g].v[e]);
+          sum += x[k][g][e];
+        }
+      }
+    }
+  }
+  const float n = static_cast<float>(3 * H);
+  const float mean = block_sum(sum, part[0]) / n;
+  float m2 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < QPT; ++k) {
+    if (static_cast<int>(threadIdx.x + k * blockDim.x) < quads) {
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float d = x[k][g][e] - mean;
+          m2 += d * d;
+        }
+      }
+    }
+  }
+  const float rstd = rsqrtf(block_sum(m2, part[1]) / n + eps);
+#pragma unroll
+  for (int k = 0; k < QPT; ++k) {
+    const int q = threadIdx.x + k * blockDim.x;
+    if (q >= quads) continue;
+    Vec4<T> w[3], b[3], hq;
+    if constexpr (kPreload) {
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        w[g] = vw[k][g];
+        b[g] = vb[k][g];
+      }
+      hq = vh[k];
+    } else {
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        w[g] = *reinterpret_cast<const Vec4<T>*>(weight + g * H + 4 * q);
+        b[g] = *reinterpret_cast<const Vec4<T>*>(bias + g * H + 4 * q);
+      }
+      hq = *reinterpret_cast<const Vec4<T>*>(h + row * H + 4 * q);
+    }
+    float y[3][4];
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[g][e] = (x[k][g][e] - mean) * rstd * load_f(&w[g].v[e]) + load_f(&b[g].v[e]);
+    }
+    Vec4<T> vo;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) store_f(&vo.v[e], gate(y[0][e], y[1][e], y[2][e], load_f(&hq.v[e])));
+    *reinterpret_cast<Vec4<T>*>(out + row * H + 4 * q) = vo;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kLnMaxThreads)
+    gru_gates_ln_rows(const T* __restrict__ proj, const T* __restrict__ h, const T* __restrict__ weight,
+                      const T* __restrict__ bias, T* __restrict__ out, int64_t H, float eps) {
+  __shared__ float part[2][kLnMaxThreads / 32];
+  const int64_t row = blockIdx.x;
+  const T* p = proj + row * 3 * H;
+  float sum = 0.0f;
+  for (int64_t i = threadIdx.x; i < 3 * H; i += blockDim.x) sum += load_f(p + i);
+  const float n = static_cast<float>(3 * H);
+  const float mean = block_sum(sum, part[0]) / n;
+  float m2 = 0.0f;
+  for (int64_t i = threadIdx.x; i < 3 * H; i += blockDim.x) {
+    const float d = load_f(p + i) - mean;
+    m2 += d * d;
+  }
+  const float rstd = rsqrtf(block_sum(m2, part[1]) / n + eps);
+  for (int64_t j = threadIdx.x; j < H; j += blockDim.x) {
+    float y[3];
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const int64_t i = g * H + j;
+      y[g] = (load_f(p + i) - mean) * rstd * load_f(weight + i) + load_f(bias + i);
+    }
+    store_f(out + row * H + j, gate(y[0], y[1], y[2], load_f(h + row * H + j)));
+  }
+}
+
+template <typename T>
+cudaError_t launch_ln(const void* proj, const void* h, const void* weight, const void* bias, void* out, int64_t B,
+                      int64_t H, float eps, cudaStream_t stream) {
+  const T* p = static_cast<const T*>(proj);
+  const T* hp = static_cast<const T*>(h);
+  const T* w = static_cast<const T*>(weight);
+  const T* b = static_cast<const T*>(bias);
+  T* o = static_cast<T*>(out);
+  if (B > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  const unsigned blocks = static_cast<unsigned>(B);
+  const uintptr_t align = 4 * sizeof(T);
+  const bool aligned = reinterpret_cast<uintptr_t>(proj) % align == 0 && reinterpret_cast<uintptr_t>(h) % align == 0 &&
+                       reinterpret_cast<uintptr_t>(weight) % align == 0 &&
+                       reinterpret_cast<uintptr_t>(bias) % align == 0 && reinterpret_cast<uintptr_t>(out) % align == 0;
+  const int64_t quads = H / 4;
+  if (H % 4 == 0 && aligned && quads <= kQuadsPerThread * kLnMaxThreads) {
+    // one quad a thread where the block holds the row so, else two
+    if (quads <= kLnMaxThreads) {
+      const int threads = static_cast<int>((quads + 31) / 32 * 32);
+      gru_gates_ln_vec4<T, 1><<<blocks, threads, 0, stream>>>(p, hp, w, b, o, H, eps);
+    } else {
+      const int threads = static_cast<int>(((quads + 1) / 2 + 31) / 32 * 32);
+      gru_gates_ln_vec4<T, 2><<<blocks, threads, 0, stream>>>(p, hp, w, b, o, H, eps);
+    }
+  } else {
+    const int64_t want = (H + 31) / 32 * 32;
+    const int threads = static_cast<int>(want < kLnMaxThreads ? want : kLnMaxThreads);
+    gru_gates_ln_rows<T><<<blocks, threads, 0, stream>>>(p, hp, w, b, o, H, eps);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. fused is (B, 3H) with `fused_stride`
@@ -117,6 +317,24 @@ extern "C" int gru_gates_launch(const void* fused, const void* h, void* out, int
       return static_cast<int>(launch<float>(fused, h, out, B, H, fused_stride, s));
     case 1:
       return static_cast<int>(launch<__nv_bfloat16>(fused, h, out, B, H, fused_stride, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// dtype: 0 = float32, 1 = bfloat16, for every operand. proj is a contiguous
+// (B, 3H), h and out contiguous (B, H), weight and bias the LayerNorm's (3H,)
+// affine; eps its epsilon. Returns the cudaError_t of the launch (0 on
+// success).
+extern "C" int gru_gates_ln_launch(const void* proj, const void* h, const void* weight, const void* bias, void* out,
+                                   int64_t B, int64_t H, float eps, int dtype, void* stream) {
+  if (B <= 0 || H <= 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return static_cast<int>(launch_ln<float>(proj, h, weight, bias, out, B, H, eps, s));
+    case 1:
+      return static_cast<int>(launch_ln<__nv_bfloat16>(proj, h, weight, bias, out, B, H, eps, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sheeprl_tpu_torch.ops.kernels import gru_gates
+from sheeprl_tpu_torch.ops.kernels import gru_gates, gru_gates_ln
 
 __all__ = ["get_activation", "lecun_normal_", "MLP", "CNN", "NatureCNN", "MultiEncoder", "LayerNormGRUCell", "ConvTranspose"]
 
@@ -187,8 +187,13 @@ class MultiEncoder(nn.Module):
 
 class LayerNormGRUCell(nn.Module):
     """Hafner's GRU cell: one fused ``Linear([h, x]) -> 3H`` projection,
-    optional LayerNorm on it, then the gate chain :func:`gru_gates` (the
-    CUDA kernel on the card). ``(h, x) -> h``."""
+    optional LayerNorm on it, then the gate chain. ``(h, x) -> h``.
+
+    With the LayerNorm, the norm and the gates are :func:`gru_gates_ln`: one
+    CUDA kernel on the card, ``F.layer_norm`` and the plain gate chain on
+    the CPU (the ops ``self.ln`` and :func:`gru_gates` run there). Without
+    it, :func:`gru_gates`. ``self.ln`` stays an ``nn.LayerNorm`` that holds
+    the affine, so the state-dict keys are those of an unfused cell."""
 
     def __init__(
         self,
@@ -203,10 +208,10 @@ class LayerNormGRUCell(nn.Module):
         self.ln = nn.LayerNorm(3 * self.hidden_size, eps=1e-3) if layer_norm else None
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        fused = self.fused(torch.cat([h, x], dim=-1))
-        if self.ln is not None:
-            fused = self.ln(fused)
-        return gru_gates(fused.contiguous(), h.contiguous())
+        fused = self.fused(torch.cat([h, x], dim=-1)).contiguous()
+        if self.ln is None:
+            return gru_gates(fused, h.contiguous())
+        return gru_gates_ln(fused, h.contiguous(), self.ln.weight, self.ln.bias, self.ln.eps)
 
 
 class ConvTranspose(nn.Module):

@@ -24,7 +24,12 @@ def reset_launches() -> None:
 
 
 from sheeprl_tpu_torch.ops.kernels.gae import gae, gae_reference  # noqa: E402
-from sheeprl_tpu_torch.ops.kernels.gru import gru_gates, gru_gates_reference  # noqa: E402
+from sheeprl_tpu_torch.ops.kernels.gru import (  # noqa: E402
+    gru_gates,
+    gru_gates_ln,
+    gru_gates_ln_reference,
+    gru_gates_reference,
+)
 from sheeprl_tpu_torch.ops.kernels.scatter import (  # noqa: E402
     ragged_ring_scatter,
     ragged_ring_scatter_keys,
@@ -43,6 +48,8 @@ __all__ = [
     "reset_launches",
     "gru_gates",
     "gru_gates_reference",
+    "gru_gates_ln",
+    "gru_gates_ln_reference",
     "two_hot_symlog_loss",
     "two_hot_symlog_loss_reference",
     "two_hot_symexp_decode",

@@ -1,11 +1,20 @@
 """The Hafner-GRU gate chain: ``(B, 3H) x (B, H) -> (B, H)``, the pointwise
 tail of every RSSM step (counterpart of ``sheeprl_tpu/ops/kernels/gru.py``).
 
-On CPU tensors :func:`gru_gates` runs :func:`gru_gates_reference`. On CUDA
-tensors it launches the hand-written kernel ``csrc/gru_gates.cu`` (built at
-first use, see :mod:`._build`) or raises; nothing substitutes the plain
-version on the card. The gradient is the reference chain re-derived, as the
-JAX package's ``custom_vjp`` does: neither package has a backward kernel.
+- :func:`gru_gates`: the gate chain on an already normalised projection
+  (``LayerNormGRUCell(layer_norm=False)``);
+- :func:`gru_gates_ln`: the projection's LayerNorm over the 3H axis, with
+  its ``(3H,)`` affine, and then the gate chain, in one kernel: the whole
+  epilogue of the cell's GEMM, as the RSSM's cell runs it.
+
+On CPU tensors each wrapper runs its plain version (``*_reference``). On
+CUDA tensors it launches the hand-written kernel ``csrc/gru_gates.cu``
+(built at first use, see :mod:`._build`) or raises; nothing substitutes the
+plain version on the card. The gradient is the plain chain re-derived, as
+the JAX package's ``custom_vjp`` does: neither package has a backward
+kernel. :func:`gru_gates_ln`'s forward saves only its inputs, so its
+backward recomputes the LayerNorm (one launch) before it differentiates.
+Both count their launches under ``LAUNCHES["gru_gates"]``.
 """
 
 from __future__ import annotations
@@ -13,10 +22,11 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from sheeprl_tpu_torch.ops.kernels import LAUNCHES, _build
 
-__all__ = ["gru_gates", "gru_gates_reference"]
+__all__ = ["gru_gates", "gru_gates_reference", "gru_gates_ln", "gru_gates_ln_reference"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -30,6 +40,14 @@ def gru_gates_reference(fused: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     return update * cand + (1 - update) * h
 
 
+def gru_gates_ln_reference(
+    proj: torch.Tensor, h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float
+) -> torch.Tensor:
+    """The plain LayerNorm over the 3H axis, then the plain gate chain, both
+    in the input dtype (ground truth and backward body)."""
+    return gru_gates_reference(F.layer_norm(proj, (proj.shape[-1],), weight, bias, eps), h)
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.load("gru_gates")
     fn = lib.gru_gates_launch
@@ -38,6 +56,10 @@ def _library() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
         ]
+        fn.restype = ctypes.c_int
+    fn = lib.gru_gates_ln_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int64, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -89,3 +111,59 @@ def gru_gates(fused: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     if fused.device.type == "cpu" and h.device.type == "cpu":
         return gru_gates_reference(fused, h)
     return _GruGates.apply(fused, h)
+
+
+def _check_ln(proj: torch.Tensor, h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> None:
+    _check(proj, h)
+    for name, t in (("weight", weight), ("bias", bias)):
+        if t.device != h.device:
+            raise ValueError(f"gru_gates_ln kernel needs every input on one CUDA device, got {name} on {t.device}")
+        if t.dtype != h.dtype:
+            raise TypeError(f"gru_gates_ln kernel takes a {name} of the inputs' dtype {h.dtype}, got {t.dtype}")
+        if t.shape != (proj.shape[1],) or not t.is_contiguous():
+            raise ValueError(f"gru_gates_ln kernel wants a contiguous ({proj.shape[1]},) {name}, got {tuple(t.shape)}")
+
+
+def _launch_ln(proj: torch.Tensor, h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
+    _check_ln(proj, h, weight, bias)
+    B, H = h.shape
+    out = torch.empty_like(h)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    err = _library().gru_gates_ln_launch(
+        proj.data_ptr(), h.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, float(eps),
+        _DTYPE_CODES[h.dtype], stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"gru_gates_ln kernel launch failed with cudaError {err}")
+    LAUNCHES["gru_gates"] += 1
+    return out
+
+
+class _GruGatesLn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, proj, h, weight, bias, eps: float) -> torch.Tensor:
+        ctx.save_for_backward(proj, h, weight, bias)
+        ctx.eps = eps
+        return _launch_ln(proj, h, weight, bias, eps)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        needs = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+            out = gru_gates_ln_reference(*leaves, ctx.eps)
+            wanted = [t for t in leaves if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad) if wanted else ())
+        return (*(next(grads) if n else None for n in needs), None)
+
+
+def gru_gates_ln(
+    proj: torch.Tensor, h: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float
+) -> torch.Tensor:
+    """LayerNorm of the ``(B, 3H)`` projection (``weight``, ``bias``: its
+    ``(3H,)`` affine), then the GRU gate chain with the carry ``h``: the
+    plain version for CPU tensors, one CUDA kernel for CUDA tensors;
+    anything else raises."""
+    if all(t.device.type == "cpu" for t in (proj, h, weight, bias)):
+        return gru_gates_ln_reference(proj, h, weight, bias, eps)
+    return _GruGatesLn.apply(proj, h, weight, bias, float(eps))

@@ -91,6 +91,79 @@ def test_torch_cuda_gru_cell_launches_the_kernel(cuda):
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
 
 
+def _ln_inputs(B, H, seed=0):
+    rng = np.random.default_rng(seed)
+    return (
+        (rng.normal(size=(B, 3 * H)) * 2.0 + 0.5).astype(np.float32), rng.normal(size=(B, H)).astype(np.float32),
+        (1.0 + 0.3 * rng.normal(size=(3 * H,))).astype(np.float32), (0.2 * rng.normal(size=(3 * H,))).astype(np.float32),
+    )
+
+
+def _misaligned(t):
+    """``t``'s values in a contiguous tensor that starts one element past an
+    aligned address, so the kernel cannot take 16-byte vectors."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "shape",
+    [(1, 512), (8, 512), (16, 512), (32, 512), (1024, 512), (1024, 4096), (7, 13), (3, 2056), (2, 6000),
+     (5, 512, "misaligned")],
+    ids=["B1", "B8", "B16", "B32", "imagination", "H4096", "scalar-path", "2-quads-a-thread", "wide-row-path",
+         "misaligned"],
+)
+def test_torch_cuda_gru_gates_ln_matches_plain(cuda, shape, dtype):
+    """The fused LayerNorm + gate kernel against the plain version computed
+    in f32 and cast to the IO dtype: f32 atol and rtol 1e-5 (the row
+    statistics are summed in another order), bf16 atol and rtol 1e-2 (one
+    bf16 rounding). One launch per call, counted as a ``gru_gates`` launch."""
+    B, H = shape[:2]
+    dt = getattr(torch, dtype)
+    proj, h, w, b = (torch.from_numpy(a).to(cuda, dt) for a in _ln_inputs(B, H, seed=B + H))
+    if len(shape) > 2:
+        proj, h, w, b = (_misaligned(t) for t in (proj, h, w, b))
+    before = K.LAUNCHES["gru_gates"]
+    got = K.gru_gates_ln(proj, h, w, b, 1e-3)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gru_gates"] == before + 1 and got.dtype == dt and got.shape == h.shape
+    want = K.gru_gates_ln_reference(proj.float(), h.float(), w.float(), b.float(), 1e-3).to(dt)
+    f32 = dtype == "float32"
+    torch.testing.assert_close(got, want, atol=1e-5 if f32 else 1e-2, rtol=1e-5 if f32 else 1e-2)
+
+
+def test_torch_cuda_gru_gates_ln_rejects_what_the_kernel_does_not_take(cuda):
+    proj, h, w, b = (torch.from_numpy(a).to(cuda) for a in _ln_inputs(4, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.gru_gates_ln(proj.t().contiguous().t(), h, w, b, 1e-3)
+    with pytest.raises(TypeError, match="dtype"):
+        K.gru_gates_ln(proj, h, w.double(), b, 1e-3)
+    with pytest.raises(ValueError, match=r"\(24,\) bias"):
+        K.gru_gates_ln(proj, h, w, b[:12], 1e-3)
+    with pytest.raises(ValueError, match="CUDA device"):
+        K.gru_gates_ln(proj, h, w.cpu(), b, 1e-3)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.gru_gates_ln(proj.half(), h.half(), w.half(), b.half(), 1e-3)
+
+
+def test_torch_cuda_gru_gates_ln_backward_is_the_plain_gradient(cuda):
+    """Gradients for the projection, the carry and the affine through the
+    kernel's autograd.Function against the plain chain's on the CPU: atol
+    and rtol 1e-5."""
+    arrays = _ln_inputs(5, 16, seed=2)
+    cot = np.random.default_rng(3).normal(size=(5, 16)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [torch.from_numpy(a).to(dev).requires_grad_(True) for a in arrays]
+        K.gru_gates_ln(*leaves, 1e-3).backward(torch.from_numpy(cot).to(dev))
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
 def _two_hot_inputs(n, k, seed=0, scale=3.0):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(n, k)).astype(np.float32) * scale
@@ -228,6 +301,37 @@ def test_torch_cuda_gae_matches_plain(cuda, shape, dtype, done_dtype):
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == args[0].shape
         torch.testing.assert_close(g, w, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("done_dtype", ["uint8", "bool", "float32"])
+@pytest.mark.parametrize("N", [1, 4, 33, 4096])
+@pytest.mark.parametrize("T", [1, 200, 300], ids=["T1", "T-ragged-tile", "T-3-tiles"])
+def test_torch_cuda_gae_tiles_are_bit_equal_to_plain(cuda, T, N, done_dtype):
+    """Every tile layout of the kernel (one span or one span per row, one
+    tile, a ragged last tile, three tiles with the value carried across
+    their edges) gives advantages and returns bit-equal to the plain
+    version's."""
+    r, v, d, nv = _gae_inputs(T, N, (), seed=T + N)
+    args = (torch.from_numpy(r).to(cuda), torch.from_numpy(v).to(cuda),
+            torch.from_numpy(d).to(cuda, getattr(torch, done_dtype)), torch.from_numpy(nv).to(cuda))
+    got = K.gae(*args, 0.99, 0.95)
+    want = K.gae_reference(*args, 0.99, 0.95)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("shape", [(131, 4), (131, 37)], ids=["one-span", "span-per-row"])
+def test_torch_cuda_gae_misaligned_inputs_are_bit_equal_to_plain(cuda, shape, dtype):
+    """Inputs one element past an aligned address: the tiles' 16-byte copies
+    cover each span from the aligned address below it."""
+    r, v, d, nv = _gae_inputs(*shape, (), seed=5)
+    dt = getattr(torch, dtype)
+    args = [_misaligned(torch.from_numpy(a).to(cuda, t)) for a, t in ((r, dt), (v, dt), (d, torch.uint8), (nv, dt))]
+    got = K.gae(*args, 0.99, 0.95)
+    want = K.gae_reference(*args, 0.99, 0.95)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_torch_cuda_gae_rejects_what_the_kernel_does_not_take(cuda):
