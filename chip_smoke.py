@@ -18,7 +18,12 @@ result line):
    ``gru_gates_ln``, the GRU projection's LayerNorm fused in (every RSSM
    step's entry), beside the pair of calls it replaces
    (``F.layer_norm``, then the gates kernel); ``gae`` bit-equal at every
-   shape and dtype; the two-hot kernels', ``gru_gates_ln``'s and ``gae``'s
+   shape and dtype; the two-hot loss over raw logits with the
+   log-normalisation fused in (``two_hot_symlog_loss_lse``) and its backward
+   kernel at every case of TWO_HOT_LSE_CASES (f32 and bf16, 1 to 15,360
+   rows, misaligned bases, every special target), beside the pair of calls
+   the forward replaces and the unfused path's backward; the two-hot
+   kernels', ``gru_gates_ln``'s and ``gae``'s
    gradients against the plain chain's;
 4. model: the DreamerV3-S session step on the card against the same weights
    on the CPU, TF32 off, on one small batch;
@@ -37,7 +42,9 @@ result line):
    start with it (rows, heads, generators) and train with the path's
    counts; then one gradient step from that checkpoint under
    ``torch.profiler``, whose forward must hold no LayerNorm of the GRU
-   projection (the cell fuses it into ``gru_gates_ln``);
+   projection (the cell fuses it into ``gru_gates_ln``) and which must hold
+   no op of the unfused two-hot chain (255-wide logsumexps, the plain
+   loss's bracket comparisons);
 8. serve: the run's checkpoint (Atari-protocol shape: 64x64x3 pixels, 18
    actions, full width) through the port's ``serve`` entry point on an
    ephemeral socket: 8 concurrent sessions x 16 steps, one client reset, a
@@ -130,6 +137,7 @@ from sheeprl_tpu_torch.config import apply_overrides, load_config, preset
 from sheeprl_tpu_torch.models import NatureCNN
 from sheeprl_tpu_torch.ops import kernels
 from sheeprl_tpu_torch.ops.kernels import _build
+from sheeprl_tpu_torch.ops.kernels import twohot
 from sheeprl_tpu_torch.utils.checkpoint import find_run_config, load_checkpoint
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -145,6 +153,17 @@ GRU_LN_EPS = 1e-3  # the RSSM cell's LayerNorm epsilon
 # subtraction, an exp, an add and a multiply-add
 TWO_HOT_LOSS_OPS_PER_ROW = 30
 TWO_HOT_DECODE_OPS_PER_LOGIT = 6
+# the fused loss per logit: a max, a subtraction, an exp and an add for the
+# log-sum-exp (plus the loss's per row); its backward per logit: a
+# subtraction, an exp, two products, the target's two compares and adds and
+# a subtraction
+TWO_HOT_LSE_OPS_PER_LOGIT = 4
+TWO_HOT_LSE_BWD_OPS_PER_LOGIT = 8
+# the fused loss's and its backward's shapes (rows, dtype, base one element
+# past an aligned address); the main path's is (15360, 255) f32, the
+# critic's T x B x H rows (15 x 16 x 64)
+TWO_HOT_LSE_MAIN = 15360
+TWO_HOT_LSE_CASES = [(n, dt, mis) for n in (1, 5, 1024, 15360) for dt in ("float32", "bfloat16") for mis in (False, True)]
 # H100 SXM boost clock (NVIDIA's data sheet) and an f32 multiply-add's
 # latency in cycles: GAE's serial chain is one dependent multiply-add per step
 SM_CLOCK_HZ = 1.98e9
@@ -523,6 +542,155 @@ def two_hot_phase() -> list:
     return out
 
 
+def _two_hot_lse_inputs(gen, n: int, k: int, dt, misaligned: bool):
+    """Raw head logits (spread, off centre), targets with every special one
+    (zero, negatives, beyond +-20 in symlog space, exactly on the top bin,
+    then one on each bin, as far as n allows), and an upstream gradient."""
+    logits = torch.randn((n, k), generator=gen, device="cuda") * 3 + 1.5
+    value = torch.randn((n, 1), generator=gen, device="cuda") * 30
+    special = [0.0, -1.0, -250.0, 3.5, 1e10, -1e10, float(np.expm1(20.0))]
+    bins = torch.linspace(-20.0, 20.0, k, device="cuda")
+    special = torch.cat([torch.tensor(special, device="cuda"), torch.sign(bins) * torch.expm1(bins.abs())])[:n]
+    value[: len(special), 0] = special
+    grad = torch.rand((n,), generator=gen, device="cuda") * 1.5 + 0.5
+    logits, grad = logits.to(dt), grad.to(dt)
+    if misaligned:  # a view one element past an aligned address, as a slice of a larger buffer is
+        logits = torch.empty(n * k + 1, dtype=dt, device="cuda")[1:].view(n, k).copy_(logits)
+    return logits, value, grad
+
+
+def two_hot_lse_phase() -> list:
+    """The fused loss over raw logits (``two_hot_symlog_loss_lse``) and its
+    backward kernel against their plain versions computed in f32 on the same
+    (rounded) inputs, at every case of TWO_HOT_LSE_CASES:
+
+    - the log-prob within atol 1e-4 rtol 1e-5 in f32 (the kernels' bins are
+      ``torch.linspace``'s floats, so targets bracket alike and what differs
+      is the order of the sums and the exps' rounding), atol 2e-2 rtol 1e-2
+      in bf16 (one bf16 rounding of the output); the rows' lse within atol
+      and rtol 1e-5;
+    - the gradient, given the same lse and upstream gradient (0.5 to 2),
+      within atol 1e-6 rtol 1e-5 in f32 (a row's softmax terms are ~1e-4
+      each, so a coarser atol would pass a kernel that got them wrong), as
+      the log-prob in bf16;
+
+    then both at the main shape and (1024, 255) in f32 and bf16, timed beside
+    their bounds: the forward beside the pair of calls it replaces
+    (``logits - torch.logsumexp``, then the ``two_hot_symlog_loss`` kernel:
+    ``library_ms``), the
+    backward beside the unfused path's backward (``_plain_grads`` and the
+    normalisation's, as the forward and backward of both paths minus the
+    forwards); and ``two_hot_mean``
+    (the decode kernel on raw logits) against the plain decode of the
+    normalised logits."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    k = 255
+    f32_tol, f32_grad_tol, bf16_tol = dict(atol=1e-4, rtol=1e-5), dict(atol=1e-6, rtol=1e-5), dict(atol=2e-2, rtol=1e-2)
+    checked = []
+    for n, dtype, misaligned in TWO_HOT_LSE_CASES:
+        dt = getattr(torch, dtype)
+        logits, value, grad = _two_hot_lse_inputs(gen, n, k, dt, misaligned)
+        tol, grad_tol = (f32_tol, f32_grad_tol) if dtype == "float32" else (bf16_tol, bf16_tol)
+        before = dict(kernels.LAUNCHES)
+        out, lse = twohot._launch_loss_lse(logits, value, -20.0, 20.0)
+        dx = twohot._launch_loss_lse_bwd(logits, value, lse, grad, -20.0, 20.0)
+        torch.cuda.synchronize()
+        if (kernels.LAUNCHES["two_hot_symlog_loss_lse"] - before["two_hot_symlog_loss_lse"],
+                kernels.LAUNCHES["two_hot_symlog_loss_lse_bwd"] - before["two_hot_symlog_loss_lse_bwd"]) != (1, 1):
+            raise AssertionError("the fused loss or its backward did not count one launch")
+        if out.dtype != dt or dx.dtype != dt or lse.dtype != torch.float32 or dx.shape != logits.shape:
+            raise AssertionError(f"fused loss returned {out.dtype}, {lse.dtype}, {dx.dtype} {tuple(dx.shape)}")
+        want = kernels.two_hot_symlog_loss_lse_reference(logits.float(), value)
+        want_lse = torch.logsumexp(logits.float(), dim=-1)
+        want_dx = kernels.two_hot_symlog_loss_lse_grad_reference(logits.float(), value, lse, grad.float())
+        torch.testing.assert_close(out.float(), want, **tol)
+        torch.testing.assert_close(lse, want_lse, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(dx.float(), want_dx, **grad_tol)
+        checked.append({"n": n, "dtype": dtype, "misaligned": misaligned,
+                        "max_abs_err": float((out.float() - want).abs().max()),
+                        "lse_max_abs_err": float((lse - want_lse).abs().max()),
+                        "grad_max_abs_err": float((dx.float() - want_dx).abs().max())})
+    log(f"two_hot_symlog_loss_lse: {len(checked)} cases against the plain versions, max err forward "
+        f"{max(c['max_abs_err'] for c in checked if c['dtype'] == 'float32'):.3g} (f32), backward "
+        f"{max(c['grad_max_abs_err'] for c in checked if c['dtype'] == 'float32'):.3g} (f32)")
+    # the mean from raw logits: the decode kernel, unchanged, against the plain decode of the normalised logits
+    raw, _, _ = _two_hot_lse_inputs(gen, 16384, k, torch.float32, False)
+    raw = raw / 3  # spread as a head's are, so decoded values stay in a head's range
+    torch.testing.assert_close(kernels.two_hot_mean(raw), kernels.two_hot_symexp_decode_reference(
+        raw - torch.logsumexp(raw, dim=-1, keepdim=True)), **f32_tol)
+
+    fwd_rows, bwd_rows = [], []
+    for n in (1024, TWO_HOT_LSE_MAIN):
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            logits, value, grad = _two_hot_lse_inputs(gen, n, k, dt, False)
+            out, lse = twohot._launch_loss_lse(logits, value, -20.0, 20.0)
+            dx = twohot._launch_loss_lse_bwd(logits, value, lse, grad, -20.0, 20.0)
+            torch.cuda.synchronize()
+            err = float((out.float() - kernels.two_hot_symlog_loss_lse_reference(logits.float(), value)).abs().max())
+            grad_err = float((dx.float() - kernels.two_hot_symlog_loss_lse_grad_reference(
+                logits.float(), value, lse, grad.float())).abs().max())
+            leaf = logits.detach().requires_grad_(True)
+
+            def fused():
+                return kernels.two_hot_symlog_loss_lse(logits, value)
+
+            def pair():  # the two calls the fused kernel replaces
+                return kernels.two_hot_symlog_loss(logits - torch.logsumexp(logits, dim=-1, keepdim=True), value)
+
+            def fused_fwd_bwd():
+                return torch.autograd.grad(kernels.two_hot_symlog_loss_lse(leaf, value), leaf, grad)
+
+            def pair_fwd_bwd():
+                y = kernels.two_hot_symlog_loss(leaf - torch.logsumexp(leaf, dim=-1, keepdim=True), value)
+                return torch.autograd.grad(y, leaf, grad)
+
+            size = logits.element_size()
+            row = {"shape": [n, k], "dtype": dtype, "max_abs_err": err, "ms": _graph_ms(fused),
+                   "pair_ms": _graph_ms(pair),
+                   "plain_ms": _graph_ms(lambda: kernels.two_hot_symlog_loss_lse_reference(logits, value)),
+                   "call_ms": _time_ms(fused, 200), "pair_call_ms": _time_ms(pair, 200)}
+            # every logit read once; the target, the log-prob and the lse per row
+            nbytes, ops = n * k * size + n * (8 + size), TWO_HOT_LSE_OPS_PER_LOGIT * n * k + TWO_HOT_LOSS_OPS_PER_ROW * n
+            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+            row.update(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            fwd_rows.append(row)
+            fwd_bwd_ms, pair_fwd_bwd_ms = _graph_ms(fused_fwd_bwd), _graph_ms(pair_fwd_bwd)
+            brow = {"shape": [n, k], "dtype": dtype, "max_abs_err": grad_err,
+                    "ms": _graph_ms(lambda: twohot._launch_loss_lse_bwd(logits, value, lse, grad, -20.0, 20.0)),
+                    "plain_ms": _graph_ms(lambda: kernels.two_hot_symlog_loss_lse_grad_reference(
+                        logits, value, lse, grad)),
+                    "fwd_bwd_ms": fwd_bwd_ms, "pair_fwd_bwd_ms": pair_fwd_bwd_ms,
+                    # the unfused path's backward: _plain_grads, then the normalisation's
+                    "pair_bwd_ms": pair_fwd_bwd_ms - row["pair_ms"]}
+            # the logits read and their gradient written once; the target, lse and upstream gradient per row
+            nbytes, ops = 2 * n * k * size + n * (8 + size), TWO_HOT_LSE_BWD_OPS_PER_LOGIT * n * k
+            bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+            brow.update(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+            bwd_rows.append(brow)
+            log(f"two_hot_symlog_loss_lse {dtype} ({n},{k}): err {err:.3g} kernel {row['ms'] * 1e3:.2f} us "
+                f"(call {row['call_ms'] * 1e3:.2f} us) logsumexp + two_hot_symlog_loss pair {row['pair_ms'] * 1e3:.2f} us "
+                f"(call {row['pair_call_ms'] * 1e3:.2f} us) plain {row['plain_ms'] * 1e3:.2f} us "
+                f"bound {row['bound_ms'] * 1e3:.3f} us; backward err {grad_err:.3g} kernel {brow['ms'] * 1e3:.2f} us "
+                f"plain {brow['plain_ms'] * 1e3:.2f} us bound {brow['bound_ms'] * 1e3:.3f} us; forward + backward "
+                f"{fwd_bwd_ms * 1e3:.2f} us, the unfused path's {pair_fwd_bwd_ms * 1e3:.2f} us")
+    main = next(r for r in fwd_rows if r["shape"][0] == TWO_HOT_LSE_MAIN and r["dtype"] == "float32")
+    bmain = next(r for r in bwd_rows if r["shape"][0] == TWO_HOT_LSE_MAIN and r["dtype"] == "float32")
+    common = {"route": "cuda", "source": "sheeprl_tpu_torch/csrc/two_hot.cu", "launches": None}  # from the run phase
+    return [
+        {"name": "two_hot_symlog_loss_lse", **common, "replaces": "sheeprl_tpu/ops/kernels/twohot.py:133",
+         **{key: main[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         # no single PyTorch call computes the loss: the yardstick is the pair of calls it replaces
+         "library_ms": main["pair_ms"],
+         "library_call": "logits - torch.logsumexp, then the two_hot_symlog_loss kernel (a pair of calls)",
+         "cases": checked, "shapes": fwd_rows},
+        {"name": "two_hot_symlog_loss_lse_bwd", **common, "replaces": "sheeprl_tpu/ops/kernels/twohot.py:192",
+         **{key: bmain[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None,  # no single PyTorch call computes the gradient
+         "unfused_bwd_ms": bmain["pair_bwd_ms"], "shapes": bwd_rows},
+    ]
+
+
 def _gae_inputs(gen, T: int, N: int, trailing: tuple, value_dtype, done_dtype):
     shape = (T, N) + trailing
     rewards = torch.randn(shape, generator=gen, device="cuda")
@@ -814,13 +982,33 @@ def _gru_layer_norms(prof, width: int) -> tuple:
     return forward, backward
 
 
+def _two_hot_plain_ops(prof, bins: int) -> dict:
+    """The unfused two-hot chain's ops left in the profile: ``aten::logsumexp``
+    over ``bins`` (the two-hot heads' normalisation; the one-hot
+    categoricals' are 32 and 18 wide) and the plain loss's bracket
+    comparisons, ``aten::le`` / ``aten::gt`` with the ``(bins,)`` support as
+    an input."""
+    counts = {"logsumexp": 0, "bracket_compares": 0}
+    for e in prof.events():
+        shapes = getattr(e, "input_shapes", None) or []
+        if e.cpu_parent is not None and e.cpu_parent.name == e.name:
+            continue  # an op's call of its own overload
+        if e.name == "aten::logsumexp" and shapes and shapes[0] and shapes[0][-1] == bins:
+            counts["logsumexp"] += 1
+        elif e.name in ("aten::le", "aten::gt") and [bins] in shapes:
+            counts["bracket_compares"] += 1
+    return counts
+
+
 def _profile_gradient_step(checkpoint: str) -> dict:
     """One full-recipe gradient step (B 16 x T 64, H 15) from the run's
     checkpoint, after two warm-up steps: host time around the step (ending
     in a synchronize), and device time and device operations from
     ``torch.profiler``, with the two-hot kernels' and ``gru_gates``' share.
     No LayerNorm of the GRU projection may remain in the forward: the cell
-    fuses it into ``gru_gates_ln``."""
+    fuses it into ``gru_gates_ln``. No op of the unfused two-hot chain may
+    remain (:func:`_two_hot_plain_ops`): the heads' log-prob is the fused
+    loss and its backward kernel, their mean the decode of raw logits."""
     cfg = load_config(find_run_config(checkpoint))
     state = load_checkpoint(checkpoint)
     modules = build_training_agent(cfg, "cuda", state)
@@ -850,6 +1038,10 @@ def _profile_gradient_step(checkpoint: str) -> dict:
     if forward_ln:
         raise AssertionError(f"{forward_ln} LayerNorms of the GRU projection remain in a gradient step's forward: "
                              "the cell must fuse them into gru_gates_ln")
+    plain_two_hot = _two_hot_plain_ops(prof, int(cfg.algo.critic.bins))
+    if any(plain_two_hot.values()):
+        raise AssertionError(f"the unfused two-hot chain remains in a gradient step: {plain_two_hot}; the "
+                             "distribution must call two_hot_symlog_loss_lse and decode the raw logits")
     share = {}
     for kernel, needle in (("two_hot", "two_hot_"), ("gru_gates", "gru_gates_")):
         us = sum(getattr(e, "self_device_time_total", 0.0) for e in events if needle in e.key)
@@ -863,6 +1055,7 @@ def _profile_gradient_step(checkpoint: str) -> dict:
         "device_busy_share": device_us / 1e3 / (np.median(host) * 1e3) if device_us > 0 else None,
         "device_ops": ops,
         "gru_layer_norms": {"forward": forward_ln, "backward": backward_ln},
+        "two_hot_plain_ops": plain_two_hot,
         "kernels": share,
         "top": [{"name": e.key[:80], "device_ms": getattr(e, "self_device_time_total", 0.0) / 1e3, "count": e.count}
                 for e in top],
@@ -906,8 +1099,8 @@ def _run_resume(summary: dict, T: int, H: int) -> dict:
             raise AssertionError(f"the resume restored a different host buffer: {same}")
     G = resumed["gradient_steps"]
     want = {name: 0 for name in kernels.LAUNCHES}
-    want.update({"two_hot_symlog_loss": 3 * G, "two_hot_symexp_decode": 3 * G,
-                 "gru_gates": G * (T + H) + resumed["player_steps"]})
+    want.update({"two_hot_symlog_loss_lse": 3 * G, "two_hot_symlog_loss_lse_bwd": 3 * G,
+                 "two_hot_symexp_decode": 3 * G, "gru_gates": G * (T + H) + resumed["player_steps"]})
     if resumed["start_iter"] != summary["policy_steps"] + 1 or G == 0 or launches != want:
         raise AssertionError(f"host resume: start {resumed['start_iter']}, {G} gradient steps, launches {launches} "
                              f"!= {want}")
@@ -924,10 +1117,11 @@ def run_phase(workdir: str) -> dict:
     """DreamerV3-S coupled training through ``run``'s entry point at the
     full recipe, ``learning_starts`` 128 and 9 gradient steps. Every loss
     finite; the launch counts exactly those of the path: per gradient step
-    3 two-hot losses (reward, critic against the lambda-returns and against
-    the target critic), 3 decodes (critic values, imagined rewards, target
-    values) and T + H GRU steps (dynamic rollout, imagination), plus one GRU
-    step per player step after ``learning_starts``."""
+    3 fused two-hot losses and their 3 backward launches (reward, critic
+    against the lambda-returns and against the target critic), 3 decodes
+    (critic values, imagined rewards, target values) and T + H GRU steps
+    (dynamic rollout, imagination), plus one GRU step per player step after
+    ``learning_starts``; the unfused ``two_hot_symlog_loss`` kernel none."""
     total = RUN_LEARNING_STARTS + RUN_GRADIENT_STEPS - 1
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -949,14 +1143,13 @@ def run_phase(workdir: str) -> dict:
         raise AssertionError(f"run took {G} gradient steps on {summary['device']}")
     if not np.isfinite(np.asarray(summary["metrics"])).all() or len(summary["metrics"]) != G:
         raise AssertionError(f"non-finite or missing losses: {summary['metrics']}")
-    want = {
-        "two_hot_symlog_loss": 3 * G,
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want.update({
+        "two_hot_symlog_loss_lse": 3 * G,
+        "two_hot_symlog_loss_lse_bwd": 3 * G,
         "two_hot_symexp_decode": 3 * G,
         "gru_gates": G * (T + H) + summary["player_steps"],
-        "gae": 0,
-        "sumtree_sample": 0,
-        "ragged_ring_scatter": 0,
-    }
+    })
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} for {G} gradient steps")
     per_step = [s / g * 1e3 for s, g in summary["train_host_s"]]
@@ -2283,7 +2476,8 @@ def _resident_launch_check(summary: dict, launches: dict, T: int, H: int) -> dic
     G, flushes = summary["gradient_steps"], summary["replay"]["Replay/flushes"]
     want = {name: 0 for name in kernels.LAUNCHES}
     want.update({
-        "two_hot_symlog_loss": 3 * G,
+        "two_hot_symlog_loss_lse": 3 * G,
+        "two_hot_symlog_loss_lse_bwd": 3 * G,
         "two_hot_symexp_decode": 3 * G,
         "gru_gates": G * (T + H) + summary["player_steps"],
         "ragged_ring_scatter": flushes,  # one launch for every ring key per dispatch
@@ -2478,6 +2672,7 @@ def main() -> int:
     floor = timed("floor", launch_floor_ms, str(chase_lib))
     gru = timed("gru_gates", gru_gates_phase, 16)
     two_hot = timed("two_hot", two_hot_phase)
+    two_hot += timed("two_hot_lse", two_hot_lse_phase)
     gae_row = timed("gae", gae_phase)
     sumtree_row = timed("sumtree", sumtree_phase, str(chase_lib))
     scatter_row = timed("ring_scatter", scatter_phase)

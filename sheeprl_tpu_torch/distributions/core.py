@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from sheeprl_tpu_torch.ops.core import symexp, symlog
-from sheeprl_tpu_torch.ops.kernels import two_hot_symexp_decode, two_hot_symlog_loss
+from sheeprl_tpu_torch.ops.kernels import two_hot_mean, two_hot_symlog_loss_lse
 
 __all__ = [
     "OneHotCategorical",
@@ -142,18 +142,28 @@ class MSEDistribution(_DistanceHead):
 class TwoHotEncodingDistribution:
     """Two-hot categorical over ``linspace(-20, 20, K)`` in symlog space with
     one event dim, the JAX package's default transforms (the only ones
-    DreamerV3 uses): ``mean`` and ``log_prob`` are the two-hot kernels (the
-    CUDA kernels on the card), as the JAX package's are there."""
+    DreamerV3 uses). It keeps the head's raw logits: ``log_prob`` is the
+    two-hot loss with the log-normalisation fused in and ``mean`` the decode
+    (the CUDA kernels on the card, as the JAX package's are there; on the
+    CPU the JAX package's ops, the normalisation first)."""
 
     def __init__(self, logits: torch.Tensor) -> None:
-        self.logits = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
+        self.raw_logits = logits
+        self._logits: Optional[torch.Tensor] = None
+
+    @property
+    def logits(self) -> torch.Tensor:
+        """The log-normalised logits, computed at first read."""
+        if self._logits is None:
+            self._logits = self.raw_logits - torch.logsumexp(self.raw_logits, dim=-1, keepdim=True)
+        return self._logits
 
     @property
     def mean(self) -> torch.Tensor:
-        return two_hot_symexp_decode(self.logits)
+        return two_hot_mean(self.raw_logits)
 
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
-        return two_hot_symlog_loss(self.logits, value)
+        return two_hot_symlog_loss_lse(self.raw_logits, value)
 
 
 class BernoulliSafeMode:

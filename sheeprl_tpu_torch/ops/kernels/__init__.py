@@ -13,8 +13,8 @@ from typing import Dict
 
 #: kernel name -> launches of its CUDA kernel in this process
 LAUNCHES: Dict[str, int] = {
-    "gru_gates": 0, "two_hot_symlog_loss": 0, "two_hot_symexp_decode": 0, "gae": 0, "sumtree_sample": 0,
-    "ragged_ring_scatter": 0,
+    "gru_gates": 0, "two_hot_symlog_loss": 0, "two_hot_symlog_loss_lse": 0, "two_hot_symlog_loss_lse_bwd": 0,
+    "two_hot_symexp_decode": 0, "gae": 0, "sumtree_sample": 0, "ragged_ring_scatter": 0,
 }
 
 
@@ -37,9 +37,13 @@ from sheeprl_tpu_torch.ops.kernels.scatter import (  # noqa: E402
 )
 from sheeprl_tpu_torch.ops.kernels.sumtree import sumtree_sample, sumtree_sample_reference  # noqa: E402
 from sheeprl_tpu_torch.ops.kernels.twohot import (  # noqa: E402
+    two_hot_mean,
     two_hot_symexp_decode,
     two_hot_symexp_decode_reference,
     two_hot_symlog_loss,
+    two_hot_symlog_loss_lse,
+    two_hot_symlog_loss_lse_grad_reference,
+    two_hot_symlog_loss_lse_reference,
     two_hot_symlog_loss_reference,
 )
 
@@ -52,8 +56,12 @@ __all__ = [
     "gru_gates_ln_reference",
     "two_hot_symlog_loss",
     "two_hot_symlog_loss_reference",
+    "two_hot_symlog_loss_lse",
+    "two_hot_symlog_loss_lse_reference",
+    "two_hot_symlog_loss_lse_grad_reference",
     "two_hot_symexp_decode",
     "two_hot_symexp_decode_reference",
+    "two_hot_mean",
     "gae",
     "gae_reference",
     "sumtree_sample",

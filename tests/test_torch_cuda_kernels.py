@@ -253,18 +253,138 @@ def test_torch_cuda_two_hot_backward_is_the_plain_gradient(cuda):
 
 
 def test_torch_cuda_two_hot_distribution_goes_through_the_kernels(cuda):
+    """The distribution on raw logits: ``mean`` one decode launch,
+    ``log_prob`` one fused-loss launch and its backward one backward launch,
+    none of the unfused ``two_hot_symlog_loss``; values as on the CPU within
+    atol 1e-4 rtol 1e-5, the logits' gradient within atol 1e-6 rtol 1e-5."""
     from sheeprl_tpu_torch.distributions import TwoHotEncodingDistribution
 
     logits, value = _two_hot_inputs(6, 255, seed=6)
-    dist = TwoHotEncodingDistribution(torch.from_numpy(logits).to(cuda))
+    logits = logits * 2 + 1.5  # raw head outputs, not normalised
+    leaf = torch.from_numpy(logits).to(cuda).requires_grad_(True)
+    dist = TwoHotEncodingDistribution(leaf)
     before = dict(K.LAUNCHES)
     mean, logp = dist.mean, dist.log_prob(torch.from_numpy(value).to(cuda))
+    logp.sum().backward()
     torch.cuda.synchronize()
-    assert K.LAUNCHES["two_hot_symexp_decode"] == before["two_hot_symexp_decode"] + 1
-    assert K.LAUNCHES["two_hot_symlog_loss"] == before["two_hot_symlog_loss"] + 1
-    cpu = TwoHotEncodingDistribution(torch.from_numpy(logits))
-    torch.testing.assert_close(mean.cpu(), cpu.mean, atol=1e-4, rtol=1e-5)
-    torch.testing.assert_close(logp.cpu(), cpu.log_prob(torch.from_numpy(value)), atol=1e-4, rtol=1e-5)
+    launched = {name: K.LAUNCHES[name] - before[name] for name in K.LAUNCHES}
+    assert launched == dict({name: 0 for name in K.LAUNCHES}, two_hot_symexp_decode=1, two_hot_symlog_loss_lse=1,
+                            two_hot_symlog_loss_lse_bwd=1)
+    cpu_leaf = torch.from_numpy(logits).requires_grad_(True)
+    cpu = TwoHotEncodingDistribution(cpu_leaf)
+    cpu.log_prob(torch.from_numpy(value)).sum().backward()
+    torch.testing.assert_close(mean.detach().cpu(), cpu.mean.detach(), atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(logp.detach().cpu(), cpu.log_prob(torch.from_numpy(value)).detach(), atol=1e-4,
+                               rtol=1e-5)
+    torch.testing.assert_close(leaf.grad.cpu(), cpu_leaf.grad, atol=1e-6, rtol=1e-5)
+
+
+def _lse_inputs(cuda, n, k, dtype, misaligned=False, seed=0):
+    """Raw logits, targets with the special ones first (zero, negatives,
+    beyond +-20 in symlog space, NaN-free), then one on each bin as far as n
+    allows, and an upstream gradient in [0.5, 2]."""
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(size=(n, k)).astype(np.float32) * 3 + 1.5
+    value = (rng.normal(size=(n, 1)) * 30).astype(np.float32)
+    bins = np.linspace(-20.0, 20.0, k, dtype=np.float32)
+    special = np.concatenate([[0.0, -1.0, -250.0, 3.5, 1e10, -1e10, np.expm1(20.0)],
+                              np.sign(bins) * np.expm1(np.abs(bins))]).astype(np.float32)[:n]
+    value[: len(special), 0] = special
+    grad = rng.uniform(0.5, 2.0, size=(n,)).astype(np.float32)
+    dt = getattr(torch, dtype)
+    lg = torch.from_numpy(logits).to(cuda, dt)
+    if misaligned:
+        lg = _misaligned(lg)
+    return lg, torch.from_numpy(value).to(cuda), torch.from_numpy(grad).to(cuda, dt)
+
+
+LSE_TOL = {"float32": dict(atol=1e-4, rtol=1e-5), "bfloat16": dict(atol=2e-2, rtol=1e-2)}
+# a row's softmax terms are ~1e-4 each, so the f32 gradient's atol sits well below them
+LSE_GRAD_TOL = {"float32": dict(atol=1e-6, rtol=1e-5), "bfloat16": dict(atol=2e-2, rtol=1e-2)}
+
+
+@pytest.mark.parametrize("misaligned", [False, True], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 5, 1024, 15360])
+def test_torch_cuda_two_hot_lse_kernels_match_plain(cuda, n, dtype, misaligned):
+    """The fused loss over raw logits and its backward kernel against their
+    plain versions computed in f32 on the same (rounded) inputs: f32 atol
+    1e-4 rtol 1e-5 (the kernels' bins are ``torch.linspace``'s floats, so
+    targets bracket alike, on a bin too, and what differs is the order of
+    the sums and the exps' rounding), bf16 atol 2e-2 rtol 1e-2 (one bf16
+    rounding); the rows' lse within 1e-5; the f32 gradient within atol 1e-6
+    rtol 1e-5. One launch each."""
+    lg, v, g = _lse_inputs(cuda, n, 255, dtype, misaligned, seed=n)
+    twohot = importlib.import_module("sheeprl_tpu_torch.ops.kernels.twohot")
+    before = dict(K.LAUNCHES)
+    out, lse = twohot._launch_loss_lse(lg, v, -20.0, 20.0)
+    dx = twohot._launch_loss_lse_bwd(lg, v, lse, g, -20.0, 20.0)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["two_hot_symlog_loss_lse"] == before["two_hot_symlog_loss_lse"] + 1
+    assert K.LAUNCHES["two_hot_symlog_loss_lse_bwd"] == before["two_hot_symlog_loss_lse_bwd"] + 1
+    assert out.dtype == dx.dtype == lg.dtype and lse.dtype == torch.float32 and dx.shape == lg.shape
+    torch.testing.assert_close(out.float(), K.two_hot_symlog_loss_lse_reference(lg.float(), v), **LSE_TOL[dtype])
+    torch.testing.assert_close(lse, torch.logsumexp(lg.float(), dim=-1), atol=1e-5, rtol=1e-5)
+    want = K.two_hot_symlog_loss_lse_grad_reference(lg.float(), v, lse, g.float())
+    torch.testing.assert_close(dx.float(), want, **LSE_GRAD_TOL[dtype])
+
+
+# row counts that take 8, 16 and 32 lanes a row (15360, 5000, 37), odd K,
+# rows past 256 bins (16 or 32 lanes) up to the 512 the kernels hold
+LSE_ROW_LENGTHS = [(15360, 255), (5000, 255), (37, 255), (300, 17), (70, 1), (40, 256), (9000, 400), (90, 400),
+                   (40, 512)]
+
+
+@pytest.mark.parametrize("shape", LSE_ROW_LENGTHS, ids=[f"{n}x{k}" for n, k in LSE_ROW_LENGTHS])
+def test_torch_cuda_two_hot_lse_every_row_length_matches_plain(cuda, shape):
+    """The fused loss and its backward at every lane count the launch picks
+    and at both register layouts, each to its last bin: f32 against the
+    plain versions as above."""
+    n, k = shape
+    lg, v, g = _lse_inputs(cuda, n, k, "float32", seed=n + k)
+    twohot = importlib.import_module("sheeprl_tpu_torch.ops.kernels.twohot")
+    out, lse = twohot._launch_loss_lse(lg, v, -20.0, 20.0)
+    dx = twohot._launch_loss_lse_bwd(lg, v, lse, g, -20.0, 20.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, K.two_hot_symlog_loss_lse_reference(lg, v), **LSE_TOL["float32"])
+    torch.testing.assert_close(lse, torch.logsumexp(lg, dim=-1), atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(dx, K.two_hot_symlog_loss_lse_grad_reference(lg, v, lse, g), **LSE_GRAD_TOL["float32"])
+
+
+def test_torch_cuda_two_hot_lse_rejects_what_the_kernels_do_not_take(cuda):
+    twohot = importlib.import_module("sheeprl_tpu_torch.ops.kernels.twohot")
+    lg, v, g = _lse_inputs(cuda, 8, 17, "float32")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K.two_hot_symlog_loss_lse(lg.half(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.two_hot_symlog_loss_lse(lg.t().contiguous().t(), v)
+    with pytest.raises(ValueError, match="broadcast"):
+        K.two_hot_symlog_loss_lse(lg, v[:3])
+    with pytest.raises(ValueError, match="at most 512"):
+        K.two_hot_symlog_loss_lse(torch.zeros((2, 513), device=cuda), v[:2])
+    _, lse = twohot._launch_loss_lse(lg, v, -20.0, 20.0)
+    with pytest.raises(ValueError, match="float32 lse"):
+        twohot._launch_loss_lse_bwd(lg, v, lse[:4], g, -20.0, 20.0)
+    with pytest.raises(ValueError, match="gradient"):
+        twohot._launch_loss_lse_bwd(lg, v, lse, g[:4], -20.0, 20.0)
+    with pytest.raises(RuntimeError, match="cudaError"):  # the bins must rise
+        K.two_hot_symlog_loss_lse(lg, v, low=20.0, high=-20.0)
+
+
+def test_torch_cuda_two_hot_lse_backward_is_the_plain_gradient(cuda):
+    """Gradients for the raw logits and the value through the Function on
+    the card (the backward kernel; the value's through the plain chain)
+    against autograd of the plain chain on the CPU: the logits' within atol
+    1e-6 rtol 1e-5, the value's within atol and rtol 1e-5."""
+    lg, v, g = _lse_inputs(cuda, 16, 255, "float32", seed=4)
+    v[8:, 0] = torch.linspace(-40.0, 40.0, 8, device=cuda)  # inside the support, where d/dvalue != 0
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        leaf, val = lg.to(dev).requires_grad_(True), v.to(dev).requires_grad_(True)
+        K.two_hot_symlog_loss_lse(leaf, val).backward(g.to(dev))
+        grads[dev] = (leaf.grad.cpu(), val.grad.cpu())
+    torch.testing.assert_close(grads["cuda"][0], grads["cpu"][0], atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(grads["cuda"][1], grads["cpu"][1], atol=1e-5, rtol=1e-5)
 
 
 def _gae_inputs(T, N, trailing=(1,), seed=0):
@@ -372,10 +492,7 @@ def test_torch_cuda_ppo_rollout_gae_launches_once_per_iteration(cuda, tmp_path):
     summary = cli.run(["preset=ppo", "metric.log_level=0", "algo.run_test=false", "algo.total_steps=1024",
                        "algo.update_epochs=1", f"log_root={tmp_path}"])
     assert summary["device"].startswith("cuda") and summary["iterations"] == 2
-    assert K.LAUNCHES == {
-        "gru_gates": 0, "two_hot_symlog_loss": 0, "two_hot_symexp_decode": 0, "gae": 2, "sumtree_sample": 0,
-        "ragged_ring_scatter": 0,
-    }
+    assert K.LAUNCHES == dict({name: 0 for name in K.LAUNCHES}, gae=2)
 
 
 def _sumtree_inputs(leaves, batch, seed=0):
@@ -467,8 +584,7 @@ def test_torch_cuda_sac_per_loop_launches_sumtree_once_per_gradient_step(cuda, t
     summary = cli.run(["preset=sac_per", "metric.log_level=0", "algo.run_test=false", "algo.total_steps=400",
                        "buffer.size=4096", "checkpoint.save_last=false", f"log_root={tmp_path}"])
     assert summary["device"].startswith("cuda") and summary["resident"] and summary["gradient_steps"] > 0
-    assert K.LAUNCHES == {"gru_gates": 0, "two_hot_symlog_loss": 0, "two_hot_symexp_decode": 0, "gae": 0,
-                          "sumtree_sample": summary["gradient_steps"], "ragged_ring_scatter": 0}
+    assert K.LAUNCHES == dict({name: 0 for name in K.LAUNCHES}, sumtree_sample=summary["gradient_steps"])
 
 
 def _scatter_inputs(cuda, dtype, feat, S, e, col_offset, misalign, seed=0):
@@ -629,7 +745,8 @@ def test_torch_cuda_resident_loop_launches_the_scatter_once_per_flush(cuda, tmp_
     assert summary["device"].startswith("cuda") and summary["resident"] and G == 3
     assert np.isfinite(np.asarray(summary["metrics"])).all()
     assert K.LAUNCHES == {
-        "gru_gates": G * (64 + 15) + summary["player_steps"], "two_hot_symlog_loss": 3 * G,
+        "gru_gates": G * (64 + 15) + summary["player_steps"], "two_hot_symlog_loss": 0,
+        "two_hot_symlog_loss_lse": 3 * G, "two_hot_symlog_loss_lse_bwd": 3 * G,
         "two_hot_symexp_decode": 3 * G, "gae": 0, "sumtree_sample": 0,
         "ragged_ring_scatter": summary["replay"]["Replay/flushes"],
     }
