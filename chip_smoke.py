@@ -36,8 +36,10 @@ result line):
 7. run: ``python -m sheeprl_tpu_torch run preset=dreamer_v3_100k_atari_dummy``'s
    entry point on the card at the full recipe (batch 16 x sequence 64,
    horizon 15, 255 bins) with ``learning_starts`` 128, for 9 gradient
-   steps, ending in a checkpoint; the launch counters are zeroed just
-   before and checked against the path's exact counts just after; the
+   steps, ending in a checkpoint and the end-of-run test episode
+   (``algo.run_test``, one GRU step per episode step); the launch counters
+   are zeroed just before and checked against the path's exact counts just
+   after; the
    checkpoint holds the host replay buffer, and a resume of 4 steps must
    start with it (rows, heads, generators) and train with the path's
    counts; then one gradient step from that checkpoint under
@@ -97,10 +99,27 @@ result line):
    preset=dreamer_v3_100k_atari_dummy_resident``'s entry point on the card
    at the full recipe with the full 100,000-row ring in card memory,
    ``learning_starts`` past the env's first episode end (a 2-row flush),
-   then 9 gradient steps; the launch counters zeroed just before and
-   checked just after (one scatter per flush, the two-hot and GRU counts of
-   7); a resume that must restore the ring, its heads and its generator;
-   append-only and training dispatches under ``torch.profiler``.
+   then 9 gradient steps and the test episode; the launch counters zeroed
+   just before and checked just after (one scatter per flush, the two-hot
+   and GRU counts of 7); a resume that must restore the ring, its heads and
+   its generator; append-only and training dispatches under
+   ``torch.profiler``;
+17. DreamerV3 evaluation: ``evaluation`` of the run's checkpoint (7), one
+   greedy episode on the card, ``gru_gates`` launched exactly once per step
+   at the (1, 1536) projection; then one session served over the socket,
+   fed the episode's frames, must give its actions step by step;
+18. PPO stateless serving: ``serve`` of the PPO run's checkpoint (10)
+   through the bucket engine (buckets 1, 8, 32, 128): 8 concurrent clients
+   x 16 requests of 1-4 raw rows, then one of 200 rows chunked through
+   bucket 128; each served row equal to the card's greedy program on that
+   row alone, the 200 rows to their unchunked call, the engine's counts to
+   a log of every dispatch, no repo kernel launched; client p50/p99,
+   requests/s, dispatches/s, and one bucket-8 dispatch's host and device
+   time (``torch.profiler``); then PPO ``evaluation`` on the card: one
+   greedy CartPole episode at or above PPO_RETURN_BAR;
+19. SAC stateless serving and evaluation: the same on the SAC run's
+   checkpoint (13), rows within SAC_ROW_ATOL, the greedy Pendulum return
+   at or above SAC_RETURN_BAR.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -422,6 +441,8 @@ def gru_gates_phase(main_batch: int) -> dict:
     grad_err = max(float((a - b).abs().max()) for a, b in zip(*grads))
     log(f"gru_gates_ln backward: max err {grad_err:.3g} against the plain chain")
     main = next(r for r in ln_rows if r["shape"] == [main_batch, 3 * 512] and r["dtype"] == "float32")
+    # every evaluation and test-episode step: one row
+    eval_shape = next(r for r in ln_rows if r["shape"] == [1, 3 * 512] and r["dtype"] == "float32")
     gates = next(r for r in rows if r["shape"] == [main_batch, 3 * 512] and r["dtype"] == "float32")
     return {
         "name": "gru_gates",
@@ -440,6 +461,8 @@ def gru_gates_phase(main_batch: int) -> dict:
         "library_call": "F.layer_norm, then the gru_gates kernel (a pair of calls)",
         "entry": "gru_gates_ln",
         "grad_max_abs_err": grad_err,
+        "eval_shape": {k: eval_shape[k] for k in ("shape", "ms", "call_ms", "plain_ms", "pair_ms", "bound_ms",
+                                                  "bound_by", "max_abs_err")},
         "gates_alone": {k: gates[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
         "ln_shapes": ln_rows,
         "shapes": rows,
@@ -1100,14 +1123,17 @@ def _run_resume(summary: dict, T: int, H: int) -> dict:
     G = resumed["gradient_steps"]
     want = {name: 0 for name in kernels.LAUNCHES}
     want.update({"two_hot_symlog_loss_lse": 3 * G, "two_hot_symlog_loss_lse_bwd": 3 * G,
-                 "two_hot_symexp_decode": 3 * G, "gru_gates": G * (T + H) + resumed["player_steps"]})
-    if resumed["start_iter"] != summary["policy_steps"] + 1 or G == 0 or launches != want:
+                 "two_hot_symexp_decode": 3 * G,
+                 "gru_gates": G * (T + H) + resumed["player_steps"] + resumed["test_steps"]})
+    if (resumed["start_iter"] != summary["policy_steps"] + 1 or G == 0 or launches != want
+            or not resumed["test_steps"]):
         raise AssertionError(f"host resume: start {resumed['start_iter']}, {G} gradient steps, launches {launches} "
                              f"!= {want}")
     if not np.isfinite(np.asarray(resumed["metrics"])).all():
         raise AssertionError(f"non-finite losses after the resume: {resumed['metrics']}")
     out = {"start_iter": resumed["start_iter"], "policy_steps": resumed["policy_steps"], "gradient_steps": G,
-           "player_steps": resumed["player_steps"], "launches": launches, "restored_rows": rows,
+           "player_steps": resumed["player_steps"], "test_steps": resumed["test_steps"],
+           "test_reward": resumed["test_reward"], "launches": launches, "restored_rows": rows,
            "restored_equal": True}
     log("run resume: " + json.dumps(out))
     return out
@@ -1121,7 +1147,9 @@ def run_phase(workdir: str) -> dict:
     against the lambda-returns and against the target critic), 3 decodes
     (critic values, imagined rewards, target values) and T + H GRU steps
     (dynamic rollout, imagination), plus one GRU step per player step after
-    ``learning_starts``; the unfused ``two_hot_symlog_loss`` kernel none."""
+    ``learning_starts`` and one per step of the end-of-run test episode
+    (``algo.run_test``, on in the preset); the unfused
+    ``two_hot_symlog_loss`` kernel none."""
     total = RUN_LEARNING_STARTS + RUN_GRADIENT_STEPS - 1
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1139,8 +1167,11 @@ def run_phase(workdir: str) -> dict:
     G = summary["gradient_steps"]
     cfg = load_config(find_run_config(summary["checkpoint"]))
     T, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.horizon)
-    if G < 8 or summary["device"].split(":")[0] != "cuda":
-        raise AssertionError(f"run took {G} gradient steps on {summary['device']}")
+    if G < 8 or summary["device"].split(":")[0] != "cuda" or not summary["test_steps"]:
+        raise AssertionError(f"run took {G} gradient steps on {summary['device']}, test episode "
+                             f"{summary['test_steps']} steps")
+    if not np.isfinite(summary["test_reward"]):
+        raise AssertionError(f"test episode's return {summary['test_reward']}")
     if not np.isfinite(np.asarray(summary["metrics"])).all() or len(summary["metrics"]) != G:
         raise AssertionError(f"non-finite or missing losses: {summary['metrics']}")
     want = {name: 0 for name in kernels.LAUNCHES}
@@ -1148,7 +1179,7 @@ def run_phase(workdir: str) -> dict:
         "two_hot_symlog_loss_lse": 3 * G,
         "two_hot_symlog_loss_lse_bwd": 3 * G,
         "two_hot_symexp_decode": 3 * G,
-        "gru_gates": G * (T + H) + summary["player_steps"],
+        "gru_gates": G * (T + H) + summary["player_steps"] + summary["test_steps"],
     })
     if launches != want:
         raise AssertionError(f"launches {launches} != {want} for {G} gradient steps")
@@ -1157,6 +1188,8 @@ def run_phase(workdir: str) -> dict:
         "gradient_steps": G,
         "policy_steps": summary["policy_steps"],
         "player_steps": summary["player_steps"],
+        "test_steps": summary["test_steps"],
+        "test_reward": summary["test_reward"],
         "launches": launches,
         "wall_s": wall,
         "host_ms_per_gradient_step": per_step,
@@ -1210,10 +1243,41 @@ class _Conn:
         self.sock.close()
 
 
-def _drive(port: int, frames, result: dict) -> None:
-    """The client side: runs on a thread while ``serve`` holds the main
-    thread, then asks the server to drain with SIGTERM."""
-    try:
+def _serve_with(args, client) -> dict:
+    """``cli.serve(args)`` on this thread (it installs the drain handlers)
+    on a free port while ``client(port, result)`` talks to it from another
+    thread, then asks the server to drain with SIGTERM. The launch counters
+    are zeroed just before and read into ``result["launches"]`` just after;
+    what the client raised is raised here."""
+    port = _free_port()
+    result: dict = {}
+
+    def run() -> None:
+        try:
+            client(port, result)
+        except BaseException as e:  # reported by the main thread
+            result["error"] = e
+        finally:
+            os.kill(os.getpid(), signal.SIGTERM)  # graceful drain of the server
+
+    kernels.reset_launches()
+    client_thread = threading.Thread(target=run, daemon=True)
+    client_thread.start()
+    cli.serve(list(args) + [f"serve.port={port}", "serve.log_every_s=600"])
+    result["launches"] = dict(kernels.LAUNCHES)
+    client_thread.join(timeout=60)
+    if "error" in result:
+        raise result["error"]
+    if client_thread.is_alive():
+        raise TimeoutError("the serve client did not finish")
+    return result
+
+
+def _sessions_client(frames):
+    """8 concurrent sessions x 16 steps, one client reset, then session s0's
+    frames again alone."""
+
+    def client(port: int, result: dict) -> None:
         deadline = time.monotonic() + 300
         probe = _Conn(port, deadline)
         result["health_start"] = probe.ask({"health": True})
@@ -1256,35 +1320,21 @@ def _drive(port: int, frames, result: dict) -> None:
         result["solo"] = solo
         result["health_end"] = probe.ask({"health": True})
         probe.close()
-    except BaseException as e:
-        result["error"] = e
-    finally:
-        os.kill(os.getpid(), signal.SIGTERM)  # graceful drain of the server
+
+    return client
 
 
 def serve_phase(ckpt: str, accelerator: str = "cuda") -> dict:
     n_actions = int(load_config(find_run_config(ckpt)).spaces.actions.n[0])
     rng = np.random.default_rng(2)
     frames = [[rng.integers(0, 256, size=(64, 64, 3), dtype=np.uint8) for _ in range(N_STEPS)] for _ in range(N_SESSIONS)]
-    port = _free_port()
-    result: dict = {}
-    kernels.reset_launches()
-    driver = threading.Thread(target=_drive, args=(port, frames, result), daemon=True)
-    driver.start()
-    cli.serve([
+    result = _serve_with([
         f"checkpoint_path={ckpt}",
         f"fabric.accelerator={accelerator}",
-        f"serve.port={port}",
         "serve.session.buckets=[1,8,32]",
         "serve.max_wait_ms=2.0",
-        "serve.log_every_s=600",
-    ])
-    launches = dict(kernels.LAUNCHES)
-    driver.join(timeout=60)
-    if "error" in result:
-        raise result["error"]
-    if driver.is_alive():
-        raise TimeoutError("the serve driver did not finish")
+    ], _sessions_client(frames))
+    launches = result["launches"]
 
     for i in range(N_SESSIONS):
         for t, a in enumerate(result["actions"][i]):
@@ -2479,10 +2529,10 @@ def _resident_launch_check(summary: dict, launches: dict, T: int, H: int) -> dic
         "two_hot_symlog_loss_lse": 3 * G,
         "two_hot_symlog_loss_lse_bwd": 3 * G,
         "two_hot_symexp_decode": 3 * G,
-        "gru_gates": G * (T + H) + summary["player_steps"],
+        "gru_gates": G * (T + H) + summary["player_steps"] + summary["test_steps"],
         "ragged_ring_scatter": flushes,  # one launch for every ring key per dispatch
     })
-    if launches != want:
+    if launches != want or not summary["test_steps"]:
         raise AssertionError(f"resident launches {launches} != {want} for {G} gradient steps, {flushes} flushes")
     return want
 
@@ -2601,6 +2651,8 @@ def resident_run_phase(workdir: str) -> dict:
         "policy_steps": summary["policy_steps"],
         "gradient_steps": G,
         "player_steps": summary["player_steps"],
+        "test_steps": summary["test_steps"],
+        "test_reward": summary["test_reward"],
         "flushes": replay["Replay/flushes"],
         "two_row_flushes": two_row,
         "launches": launches,
@@ -2646,11 +2698,283 @@ def resident_run_phase(workdir: str) -> dict:
         raise AssertionError(f"resident resume: start {resumed['start_iter']}, {resumed['gradient_steps']} gradient steps")
     _resident_launch_check(resumed, resume_launches, T, H)
     out["resume"] = {"start_iter": resumed["start_iter"], "policy_steps": resumed["policy_steps"],
-                     "gradient_steps": resumed["gradient_steps"], "launches": resume_launches,
-                     "restored_equal": sorted(same), "losses": resumed["metrics"]}
+                     "gradient_steps": resumed["gradient_steps"], "test_steps": resumed["test_steps"],
+                     "launches": resume_launches, "restored_equal": sorted(same), "losses": resumed["metrics"]}
     log("resident resume: " + json.dumps({k: v for k, v in out["resume"].items() if k != "losses"}))
     out["profile"] = _profile_resident_dispatch(summary["checkpoint"])
     log("resident dispatch profile: " + json.dumps(out["profile"]))
+    return out
+
+
+# -- 17-20. evaluation and stateless serving -------------------------------------
+
+
+def _recording_make_env(frames: list, actions: list):
+    """``make_env`` whose env records every frame it returns and every
+    action it is given (what the test episode saw and did)."""
+    from sheeprl_tpu_torch.envs import make_env
+
+    def recording(*args, **kwargs):
+        env = make_env(*args, **kwargs)
+        reset, step = env.reset, env.step
+
+        def rec_reset(*a, **k):
+            out = reset(*a, **k)
+            frames.append(out[0]["rgb"].copy())
+            return out
+
+        def rec_step(action):
+            actions.append(int(action))
+            out = step(action)
+            frames.append(out[0]["rgb"].copy())
+            return out
+
+        env.reset, env.step = rec_reset, rec_step
+        return env
+
+    return recording
+
+
+def rssm_evaluation_phase(ckpt: str) -> dict:
+    """``evaluation`` of the DreamerV3 host run's checkpoint on the card: one
+    greedy episode, the reward finite, ``gru_gates`` launched exactly once
+    per step (batch 1: the (1, 1536) projection) and no other kernel. Then
+    one session served over the socket, fed the episode's frames (reset on
+    the first), must give the episode's actions step by step: the episode
+    is a serving session, with the same counter draws."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import utils as dv3_utils
+
+    frames, actions = [], []
+    make_env = dv3_utils.make_env
+    dv3_utils.make_env = _recording_make_env(frames, actions)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        result = cli.evaluation([f"checkpoint_path={ckpt}"])
+    finally:
+        dv3_utils.make_env = make_env
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    steps = result["steps"]
+    want = dict({name: 0 for name in launches}, gru_gates=steps)
+    if result["device"].split(":")[0] != "cuda" or not np.isfinite(result["reward"]) or steps != len(actions):
+        raise AssertionError(f"evaluation: {result}, {len(actions)} actions recorded")
+    if launches != want:
+        raise AssertionError(f"evaluation launches {launches} != {want} for {steps} steps")
+
+    def client(port: int, res: dict) -> None:
+        conn = _Conn(port, time.monotonic() + 300)
+        served = []
+        for t in range(steps):
+            resp = conn.ask({"obs": {"rgb": frames[t].tolist()}, "session_id": "episode", "reset": t == 0})
+            if "actions" not in resp:
+                raise AssertionError(f"served step {t}: {resp}")
+            served.append(int(resp["actions"][0][0]))
+        res["served"] = served
+        conn.close()
+
+    t1 = time.perf_counter()
+    served = _serve_with([f"checkpoint_path={ckpt}", "serve.session.buckets=[1,8,32]", "serve.max_wait_ms=2.0"],
+                         client)["served"]
+    parted = next((t for t, (a, b) in enumerate(zip(served, actions)) if a != b), None)
+    if parted is not None:
+        raise AssertionError(f"the served session parts from the evaluation episode at step {parted} of {steps}: "
+                             f"{served[parted:parted + 5]} != {actions[parted:parted + 5]}")
+    out = {"reward": result["reward"], "steps": steps, "device": result["device"], "launches": launches,
+           "wall_s": wall, "steps_per_s": steps / wall, "served_equal": True,
+           "served_wall_s": time.perf_counter() - t1, "distinct_actions": len(set(actions))}
+    log("DreamerV3 evaluation: " + json.dumps(out))
+    return out
+
+
+# 8 clients x 16 requests of 1-4 raw rows, then one request past the top bucket
+STATELESS_CLIENTS, STATELESS_REQUESTS, STATELESS_BIG = 8, 16, 200
+STATELESS_BUCKETS = (1, 8, 32, 128)
+# a batched SAC action against the same row alone on the card: float32
+# products at another batch size may be summed in another order
+SAC_ROW_ATOL = 1e-5
+
+
+def _stateless_rows(rng, algo: str, n: int) -> np.ndarray:
+    """Raw observations in the env's own ranges: CartPole's (position,
+    velocity, angle, angular velocity) or Pendulum's (cos, sin, speed)."""
+    if algo == "ppo":
+        return (rng.uniform(-1, 1, (n, 4)) * np.array([2.4, 2.0, 0.2, 2.0])).astype(np.float32)
+    theta, speed = rng.uniform(-np.pi, np.pi, n), rng.uniform(-8.0, 8.0, n)
+    return np.stack([np.cos(theta), np.sin(theta), speed], axis=-1).astype(np.float32)
+
+
+def _profile_stateless_dispatch(policy, rng, algo: str, bucket: int = 8) -> dict:
+    """One engine dispatch of ``bucket`` rows: host ms (ending in the
+    actions' copy to the host) and, under ``torch.profiler``, device ms
+    and operations."""
+    from sheeprl_tpu_torch.serve.engine import BucketEngine
+
+    engine = BucketEngine(policy, buckets=STATELESS_BUCKETS)
+    obs = policy.prepare({"state": _stateless_rows(rng, algo, bucket)}, bucket)
+    for _ in range(5):
+        engine.infer(policy.params, obs)
+    host = []
+    for _ in range(30):
+        t0 = time.perf_counter()
+        engine.infer(policy.params, obs)
+        host.append(time.perf_counter() - t0)
+    acts = torch.profiler.ProfilerActivity
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=10, repeat=1)
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA], schedule=schedule) as prof:
+        for _ in range(11):
+            engine.infer(policy.params, obs)
+            prof.step()
+    events = _device_kernels(prof)
+    device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events) / 10
+    return {"bucket": bucket, "host_ms": float(np.median(host) * 1e3), "host_ms_range": [min(host) * 1e3, max(host) * 1e3],
+            "device_ms": device_us / 1e3 if device_us > 0 else None,
+            "device_ops": sum(e.count for e in events) / 10}
+
+
+def stateless_serve_phase(ckpt: str, algo: str) -> dict:
+    """``serve`` of a PPO or SAC run's checkpoint on the card through the
+    bucket engine (buckets 1, 8, 32, 128): STATELESS_CLIENTS concurrent
+    clients send STATELESS_REQUESTS requests each of 1-4 raw rows, then one
+    request of STATELESS_BIG rows, which the engine chunks through bucket
+    128. Each served row equals the card's ``greedy_fn`` on that row alone
+    (PPO's actions exactly, SAC's within SAC_ROW_ATOL); the big request
+    equals its unchunked direct call; the engine's dispatches, rows and
+    padded rows agree with a log of every dispatch; no repo kernel is
+    launched."""
+    from sheeprl_tpu_torch.serve import server as server_module
+    from sheeprl_tpu_torch.utils.registry import resolve_policy_builder
+
+    rng = np.random.default_rng(11 if algo == "ppo" else 12)
+    plan = [[_stateless_rows(rng, algo, int(rng.integers(1, 5))) for _ in range(STATELESS_REQUESTS)]
+            for _ in range(STATELESS_CLIENTS)]
+    big = _stateless_rows(rng, algo, STATELESS_BIG)
+    dispatch_log = []
+
+    class _Logged(server_module.BucketEngine):
+        def _dispatch(self, params, obs, n, greedy, key, start):
+            dispatch_log.append((n, self.bucket_for(n)))
+            return super()._dispatch(params, obs, n, greedy, key, start)
+
+    def client(port: int, result: dict) -> None:
+        deadline = time.monotonic() + 300
+        probe = _Conn(port, deadline)
+        result["health_start"] = probe.ask({"health": True})
+        answers = [[None] * STATELESS_REQUESTS for _ in range(STATELESS_CLIENTS)]
+        latencies, errors = [], []
+
+        def one(i: int) -> None:
+            try:
+                conn = _Conn(port, deadline)
+                for j, rows in enumerate(plan[i]):
+                    t0 = time.perf_counter()
+                    resp = conn.ask({"obs": {"state": rows.tolist()}, "n": len(rows)})
+                    latencies.append(time.perf_counter() - t0)
+                    if "actions" not in resp:
+                        raise AssertionError(f"client {i} request {j}: {resp}")
+                    answers[i][j] = resp["actions"]
+                conn.close()
+            except BaseException as e:  # reported by the main thread
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=one, args=(i,), daemon=True) for i in range(STATELESS_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        result["wall_s"] = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        if any(th.is_alive() for th in threads):
+            raise TimeoutError("a stateless client did not finish")
+        result["health_batched"] = probe.ask({"health": True})
+        result["answers"], result["latencies"] = answers, latencies
+        resp = probe.ask({"obs": {"state": big.tolist()}, "n": STATELESS_BIG})
+        if "actions" not in resp:
+            raise AssertionError(f"the {STATELESS_BIG}-row request: {resp}")
+        result["big"] = resp["actions"]
+        result["health_end"] = probe.ask({"health": True})
+        probe.close()
+
+    server_module.BucketEngine = _Logged
+    try:
+        result = _serve_with([f"checkpoint_path={ckpt}", "serve.buckets=[1,8,32,128]", "serve.max_wait_ms=2.0"],
+                             client)
+    finally:
+        server_module.BucketEngine = _Logged.__bases__[0]
+    launches = result["launches"]
+    if any(launches.values()):
+        raise AssertionError(f"stateless {algo} serving launched repo kernels: {launches}")
+    end = result["health_end"]["engine"]
+    rows_sent = sum(len(r) for reqs in plan for r in reqs) + STATELESS_BIG
+    if (end["kind"] != _Logged.__name__ or not end["device"].startswith("cuda") or end["dispatches"] != len(dispatch_log)
+            or end["rows"] != rows_sent or end["rows"] != sum(n for n, _ in dispatch_log)
+            or end["padded_rows"] != sum(b - n for n, b in dispatch_log)
+            or dispatch_log[-2:] != [(128, 128), (STATELESS_BIG - 128, 128)]):
+        raise AssertionError(f"{algo} engine {end} against {len(dispatch_log)} logged dispatches "
+                             f"{dispatch_log[-4:]} and {rows_sent} rows sent")
+
+    cfg = load_config(find_run_config(ckpt))
+    policy = resolve_policy_builder(algo)(cfg, load_checkpoint(ckpt), "cuda")
+
+    def direct(rows: np.ndarray) -> np.ndarray:
+        obs = policy.prepare({"state": rows}, len(rows))
+        with torch.no_grad():
+            return policy.greedy_fn(policy.params, {k: torch.from_numpy(v).cuda() for k, v in obs.items()}).cpu().numpy()
+
+    def check(got, want, what: str) -> float:
+        got = np.asarray(got, dtype=want.dtype)
+        err = float(np.abs(got.astype(np.float64) - want).max())
+        if got.shape != want.shape or (err != 0 if algo == "ppo" else err > SAC_ROW_ATOL):
+            raise AssertionError(f"{algo} {what}: served {got.tolist()[:4]} != {want.tolist()[:4]} (max err {err})")
+        return err
+
+    row_err = 0.0
+    for i, reqs in enumerate(plan):
+        for j, rows in enumerate(reqs):
+            alone = np.concatenate([direct(rows[r:r + 1]) for r in range(len(rows))])
+            row_err = max(row_err, check(result["answers"][i][j], alone, f"client {i} request {j}, rows alone"))
+    big_err = check(result["big"], direct(big), f"{STATELESS_BIG}-row request against its unchunked call")
+    lat = np.asarray(result["latencies"]) * 1e3
+    hb, hs = result["health_batched"]["engine"], result["health_start"]["engine"]
+    phase_dispatches = hb["dispatches"] - hs["dispatches"]
+    out = {
+        "clients": STATELESS_CLIENTS,
+        "requests": int(lat.size),
+        "rows": int(hb["rows"] - hs["rows"]),
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "requests_per_s": lat.size / result["wall_s"],
+        "dispatches": int(phase_dispatches),
+        "dispatches_per_s": phase_dispatches / result["wall_s"],
+        "rows_per_dispatch": (hb["rows"] - hs["rows"]) / max(phase_dispatches, 1),
+        "padded_rows": int(hb["padded_rows"] - hs["padded_rows"]),
+        "row_alone_max_abs_err": row_err,
+        "big_unchunked_max_abs_err": big_err,
+        "launches": launches,
+        "engine_end": end,
+        "dispatch_bucket_8": _profile_stateless_dispatch(policy, rng, algo),
+    }
+    log(f"{algo} stateless serve: " + json.dumps(out))
+    return out
+
+
+def stateless_evaluation_phase(ckpt: str, algo: str, floor: float, run_test_reward: float) -> dict:
+    """``evaluation`` of a PPO or SAC run's checkpoint on the card: one greedy
+    episode at or above the run's learning floor, no repo kernel launched;
+    beside it the run's own end-of-run test episode on the same weights and
+    seed."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = cli.evaluation([f"checkpoint_path={ckpt}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if result["device"].split(":")[0] != "cuda" or any(launches.values()) or not result["reward"] >= floor:
+        raise AssertionError(f"{algo} evaluation: {result}, launches {launches}, floor {floor}")
+    out = {**result, "launches": launches, "wall_s": wall, "steps_per_s": result["steps"] / wall,
+           "run_test_reward": run_test_reward, "equals_run_test": result["reward"] == run_test_reward}
+    log(f"{algo} evaluation: " + json.dumps(out))
     return out
 
 
@@ -2683,21 +3007,34 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         run = timed("run", run_phase, workdir)
         serve = timed("serve", serve_phase, run["checkpoint"])
+        rssm_eval = timed("rssm_evaluation", rssm_evaluation_phase, run["checkpoint"])
     ppo_update = timed("ppo_update", ppo_update_phase)
     with tempfile.TemporaryDirectory() as workdir:
         ppo_run = timed("ppo_run", ppo_run_phase, workdir)
+        ppo_serve = timed("ppo_serve", stateless_serve_phase, ppo_run["checkpoint"], "ppo")
+        ppo_eval = timed("ppo_evaluation", stateless_evaluation_phase, ppo_run["checkpoint"], "ppo", PPO_RETURN_BAR,
+                         ppo_run["test_reward"])
     sac_update = timed("sac_update", sac_update_phase)
     with tempfile.TemporaryDirectory() as workdir:
         sac_run = timed("sac_run", sac_run_phase, workdir)
+        sac_serve = timed("sac_serve", stateless_serve_phase, sac_run["checkpoint"], "sac")
+        sac_eval = timed("sac_evaluation", stateless_evaluation_phase, sac_run["checkpoint"], "sac", SAC_RETURN_BAR,
+                         sac_run["test_reward"])
     resident_dispatch = timed("resident_dispatch", resident_dispatch_phase)
     with tempfile.TemporaryDirectory() as workdir:
         resident_run = timed("resident_run", resident_run_phase, workdir)
-    paths = {"run": run, "run_resume": run["resume"], "serve": serve, "ppo_run": ppo_run, "sac_run": sac_run,
-             "resident_run": resident_run, "resident_resume": resident_run["resume"]}
+    paths = {"run": run, "run_resume": run["resume"], "serve": serve, "evaluation": rssm_eval, "ppo_run": ppo_run,
+             "ppo_serve": ppo_serve, "ppo_evaluation": ppo_eval, "sac_run": sac_run, "sac_serve": sac_serve,
+             "sac_evaluation": sac_eval, "resident_run": resident_run, "resident_resume": resident_run["resume"]}
     rows = [gru] + two_hot + [gae_row, sumtree_row, scatter_row]
     for row in rows:
         row["launches_by_path"] = {name: path["launches"][row["name"]] for name, path in paths.items()}
         row["floor_ms"] = floor  # an empty kernel's time, timed as the row's ms
+    # the test episodes inside the run paths: one GRU step each, counted exactly there
+    gru["launches_by_path"].update(run_test=run["test_steps"], run_resume_test=run["resume"]["test_steps"],
+                                   resident_test=resident_run["test_steps"],
+                                   resident_resume_test=resident_run["resume"]["test_steps"])
+    gru["eval_shape"]["floor_ms"] = floor
     for row in [gru] + two_hot:
         row["launches"] = run["launches"][row["name"]]
     scatter_row["launches"] = resident_run["launches"]["ragged_ring_scatter"]
@@ -2707,7 +3044,9 @@ def main() -> int:
     sumtree_row["launches_by_path"]["sac_resume"] = sac_run["resume"]["launches"]["sumtree_sample"]
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s; seconds by phase: {json.dumps(phase_s)}")
     print(json.dumps({"model": model, "step": step, "train_step": train_step, "run": run, "serve": serve,
-                      "ppo_update": ppo_update, "ppo_run": ppo_run, "sac_update": sac_update, "sac_run": sac_run,
+                      "rssm_evaluation": rssm_eval, "ppo_update": ppo_update, "ppo_run": ppo_run,
+                      "ppo_serve": ppo_serve, "ppo_evaluation": ppo_eval, "sac_update": sac_update,
+                      "sac_run": sac_run, "sac_serve": sac_serve, "sac_evaluation": sac_eval,
                       "resident_dispatch": resident_dispatch, "resident_run": resident_run}))
     print(json.dumps({"kernels": rows}))
     print(card)

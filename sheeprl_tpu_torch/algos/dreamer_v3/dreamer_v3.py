@@ -52,6 +52,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
     init_moments,
     moments_update,
     prepare_obs,
+    test,
 )
 from sheeprl_tpu_torch.config import dotdict, plain
 from sheeprl_tpu_torch.data import EnvIndependentReplayBuffer
@@ -355,13 +356,15 @@ class Player:
         self.stochastic_state[idx] = post
 
     @torch.no_grad()
-    def get_actions(self, obs: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+    def get_actions(self, obs: Dict[str, torch.Tensor], greedy: bool = False) -> List[torch.Tensor]:
+        """One-hot actions per head: sampled, or with ``greedy`` the actor's
+        mode. The posterior is sampled in both modes, as the JAX player does."""
         wm, actor = self.agent.world_model, self.agent.actor
         device = self.actions.device
         rec, logits = posterior_step(self.agent, obs, self.actions, self.recurrent_state, self.stochastic_state)
         stoch = sample_stochastic(logits, wm.discrete, _uniform(logits.shape, self.generator, device))
-        uniforms = [_uniform((self.num_envs, d), self.generator, device) for d in actor.actions_dim]
-        acts, _ = actor_sample(actor, torch.cat([stoch, rec], dim=-1), uniforms)
+        uniforms = None if greedy else [_uniform((self.num_envs, d), self.generator, device) for d in actor.actions_dim]
+        acts, _ = actor_sample(actor, torch.cat([stoch, rec], dim=-1), uniforms, greedy)
         self.actions = torch.cat(acts, dim=-1)
         self.recurrent_state, self.stochastic_state = rec, stoch
         return acts
@@ -376,7 +379,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     device, one dispatch per env step (append + granted steps), the ring
     checkpointed with ``buffer.checkpoint``. Returns a summary of the run
     (counters, each train call's metrics, timings, the replay tier, the last
-    checkpoint's path)."""
+    checkpoint's path), and with ``algo.run_test`` (on by default, as in the
+    JAX package) the return and length of a test episode after the loop,
+    whose draws leave the training generator untouched."""
     device = torch.device(device)
     state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.get("resume_from") else None
     if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
@@ -477,7 +482,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     player.init_states()
 
     summary: Dict[str, Any] = {"start_iter": start_iter, "metrics": [], "train_host_s": [], "checkpoint": None,
-                               "device": str(device), "resident": resident, "dispatch_host_s": []}
+                               "device": str(device), "resident": resident, "dispatch_host_s": [],
+                               "test_reward": None, "test_steps": None}
     # this run's gradient steps: a resumed run starts again at 0, so its first
     # step copies the critic into the target critic, as the JAX loop does
     cum_gradient_steps = 0
@@ -617,6 +623,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     read_metrics()
     loop_s = time.perf_counter() - t_loop
     envs.close()
+    if cfg.algo.get("run_test", True):
+        summary["test_reward"], summary["test_steps"] = test(player.agent, cfg, device, greedy=False)
     steps = policy_step - (start_iter - 1) * num_envs
     summary.update(
         policy_steps=policy_step,

@@ -1,5 +1,6 @@
-"""The DreamerV3 stateful policy builder (counterpart of
-``sheeprl_tpu/algos/dreamer_v3/evaluate.py``, ``serve_policy_dreamer_v3``).
+"""DreamerV3 evaluation and its stateful policy builder (counterpart of
+``sheeprl_tpu/algos/dreamer_v3/evaluate.py``, ``evaluate_dreamer_v3`` and
+``serve_policy_dreamer_v3``).
 
 Per-session state row: ``actions`` (the one-hot action carry), ``recurrent``
 (the RSSM deterministic state), ``stochastic`` (the flattened posterior
@@ -7,7 +8,10 @@ sample), and ``seed``/``counter`` in place of the JAX package's per-session
 key: every random draw of a session is a function of its seed, its step
 count and the draw's stream, so row ``i`` of a batched step equals stepping
 that session alone. The posterior is sampled even in greedy mode, as in the
-offline player; greedy mode takes the actor's mode.
+offline player; greedy mode takes the actor's mode. The offline test
+episode (:func:`~sheeprl_tpu_torch.algos.dreamer_v3.utils.test`) steps one
+such row with the same :func:`session_step`, so a served session fed the
+episode's frames gives the episode's actions.
 """
 
 from __future__ import annotations
@@ -19,12 +23,20 @@ import torch
 from torch import nn
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import Actor, WorldModel, actor_sample, build_agent, sample_stochastic
-from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs
+from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs, test
 from sheeprl_tpu_torch.ops import counter_uniform
 from sheeprl_tpu_torch.serve.policy import StatefulServePolicy
-from sheeprl_tpu_torch.utils.registry import register_policy_builder
+from sheeprl_tpu_torch.utils.registry import register_evaluation, register_policy_builder
 
-__all__ = ["DreamerV3Agent", "posterior_step", "act", "serve_policy_dreamer_v3"]
+__all__ = [
+    "DreamerV3Agent",
+    "posterior_step",
+    "act",
+    "initial_state",
+    "session_step",
+    "evaluate_dreamer_v3",
+    "serve_policy_dreamer_v3",
+]
 
 #: counter_uniform stream of the posterior draw; actor head ``i`` uses 1 + i
 POSTERIOR_STREAM = 0
@@ -74,6 +86,41 @@ def act(
     return actions
 
 
+def initial_state(agent: DreamerV3Agent, n: int, seed: int) -> Dict[str, torch.Tensor]:
+    """``n`` identical fresh state rows: no action, the initial recurrent
+    state and its posterior, ``seed``, step 0."""
+    rec, post = agent.world_model.get_initial_states(n)
+    return {
+        "actions": torch.zeros((n, int(sum(agent.actor.actions_dim))), dtype=torch.float32, device=rec.device),
+        "recurrent": rec,
+        "stochastic": post,
+        "seed": torch.full((n,), int(seed), dtype=torch.int64, device=rec.device),
+        "counter": torch.zeros((n,), dtype=torch.int64, device=rec.device),
+    }
+
+
+def session_step(
+    agent: DreamerV3Agent, obs: Dict[str, torch.Tensor], state: Dict[str, torch.Tensor], greedy: bool
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One step of every row: the posterior drawn from stream
+    ``POSTERIOR_STREAM`` of the row's ``(seed, counter)``, then the actions.
+    Returns the env actions ``(B, heads)`` (each head's index) and the
+    advanced rows."""
+    wm = agent.world_model
+    rec, logits = posterior_step(agent, obs, state["actions"], state["recurrent"], state["stochastic"])
+    uniform = counter_uniform(state["seed"], state["counter"], POSTERIOR_STREAM, logits.shape[-1])
+    stoch = sample_stochastic(logits, wm.discrete, uniform)
+    acts = act(agent, stoch, rec, greedy, state["seed"], state["counter"])
+    new_state = {
+        "actions": torch.cat(acts, dim=-1),
+        "recurrent": rec,
+        "stochastic": stoch,
+        "seed": state["seed"],
+        "counter": state["counter"] + 1,
+    }
+    return torch.stack([a.argmax(dim=-1) for a in acts], dim=-1), new_state
+
+
 def _spec(cfg: Any) -> Tuple[Dict[str, Tuple[Tuple[int, ...], Any]], Tuple[str, ...]]:
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
     obs_spec = {}
@@ -84,6 +131,15 @@ def _spec(cfg: Any) -> Tuple[Dict[str, Tuple[Tuple[int, ...], Any]], Tuple[str, 
     return obs_spec, cnn_keys
 
 
+@register_evaluation(algorithms=["dreamer_v3", "dreamer_sebulba"])
+def evaluate_dreamer_v3(cfg: Any, state: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
+    """One greedy test episode of the checkpoint's world model and actor;
+    its return and step count."""
+    world_model, actor = build_agent(cfg, device, state)
+    reward, steps = test(DreamerV3Agent(world_model, actor).requires_grad_(False), cfg, device, greedy=True)
+    return {"reward": reward, "steps": steps}
+
+
 @register_policy_builder(algorithms=["dreamer_v3", "dreamer_sebulba"])
 def serve_policy_dreamer_v3(cfg: Any, state: Optional[Dict[str, Any]], device: torch.device) -> StatefulServePolicy:
     """A :class:`StatefulServePolicy` over the DreamerV3 world model and actor
@@ -92,36 +148,8 @@ def serve_policy_dreamer_v3(cfg: Any, state: Optional[Dict[str, Any]], device: t
     device = torch.device(device)
     world_model, actor = build_agent(cfg, device, state)
     params = DreamerV3Agent(world_model, actor).requires_grad_(False)
-    discrete = world_model.discrete
-    stoch_size = int(cfg.algo.world_model.stochastic_size) * discrete
-    sum_actions = int(sum(actor.actions_dim))
     seed = int(cfg.get("seed") or 0)
     obs_spec, cnn_keys = _spec(cfg)
-
-    def step_fn(p: DreamerV3Agent, obs, s, greedy: bool):
-        rec, logits = posterior_step(p, obs, s["actions"], s["recurrent"], s["stochastic"])
-        uniform = counter_uniform(s["seed"], s["counter"], POSTERIOR_STREAM, stoch_size)
-        stoch = sample_stochastic(logits, discrete, uniform)
-        acts = act(p, stoch, rec, greedy, s["seed"], s["counter"])
-        env_actions = torch.stack([a.argmax(dim=-1) for a in acts], dim=-1)
-        new_state = {
-            "actions": torch.cat(acts, dim=-1),
-            "recurrent": rec,
-            "stochastic": stoch,
-            "seed": s["seed"],
-            "counter": s["counter"] + 1,
-        }
-        return env_actions, new_state
-
-    def init_fn(p: DreamerV3Agent, n: int):
-        rec, post = p.world_model.get_initial_states(n)
-        return {
-            "actions": torch.zeros((n, sum_actions), dtype=torch.float32, device=rec.device),
-            "recurrent": rec,
-            "stochastic": post,
-            "seed": torch.full((n,), seed, dtype=torch.int64, device=rec.device),
-            "counter": torch.zeros((n,), dtype=torch.int64, device=rec.device),
-        }
 
     def prepare(obs, n):
         prepared = prepare_obs({k: obs[k] for k in obs_spec}, cnn_keys=cnn_keys, num_envs=n)
@@ -132,10 +160,12 @@ def serve_policy_dreamer_v3(cfg: Any, state: Optional[Dict[str, Any]], device: t
         return DreamerV3Agent(wm, ac).requires_grad_(False)
 
     return StatefulServePolicy(
+        name=str(cfg.algo.name),
         params=params,
         obs_spec=obs_spec,
-        step_fn=step_fn,
-        init_fn=init_fn,
+        action_dim=len(actor.actions_dim),
+        step_fn=session_step,
+        init_fn=lambda p, n: initial_state(p, n, seed),
         prepare=prepare,
         params_from_state=params_from_state,
         device=device,

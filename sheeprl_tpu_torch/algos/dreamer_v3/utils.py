@@ -2,12 +2,14 @@
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["prepare_obs", "init_moments", "moments_update", "compute_lambda_values"]
+from sheeprl_tpu_torch.envs import make_env
+
+__all__ = ["prepare_obs", "init_moments", "moments_update", "compute_lambda_values", "test"]
 
 
 def init_moments(device: "torch.device | str" = "cpu") -> Dict[str, torch.Tensor]:
@@ -64,3 +66,40 @@ def prepare_obs(obs: Dict[str, np.ndarray], *, cnn_keys: Sequence[str] = (), num
             v = v.reshape(num_envs, -1)
         out[k] = v
     return out
+
+
+@torch.no_grad()
+def test(agent: Any, cfg: Any, device: "torch.device | str", greedy: bool = True) -> Tuple[float, int]:
+    """One episode of ``agent`` (a
+    :class:`~sheeprl_tpu_torch.algos.dreamer_v3.evaluate.DreamerV3Agent`) on
+    a fresh env seeded with ``cfg.seed``, batch 1; prints its return and
+    returns it with the episode's step count.
+
+    The episode is one serving session: each step is
+    :func:`~sheeprl_tpu_torch.algos.dreamer_v3.evaluate.session_step` on a
+    state row seeded with ``cfg.seed``, so every draw (the posterior, and
+    without ``greedy`` the actions) comes from ``counter_uniform`` of the
+    seed and the step, as a served session's do, and no generator is
+    consumed: a served session fed the episode's frames gives its actions,
+    and a training run's generator is left as it was."""
+    # imported here: the evaluate module imports this one
+    from sheeprl_tpu_torch.algos.dreamer_v3.evaluate import initial_state, session_step
+
+    cnn_keys = list(cfg.algo.cnn_keys.encoder)
+    obs_keys = cnn_keys + list(cfg.algo.mlp_keys.encoder)
+    env = make_env(cfg, int(cfg.seed))
+    obs = env.reset(seed=int(cfg.seed))[0]
+    state = initial_state(agent, 1, int(cfg.seed))
+    done, cumulative, steps = False, 0.0, 0
+    while not done:
+        prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=1)
+        actions, state = session_step(agent, {k: torch.from_numpy(v).to(device) for k, v in prepared.items()},
+                                      state, greedy)
+        real = actions.cpu().numpy().reshape(-1)
+        obs, reward, terminated, truncated, _ = env.step(real[0] if real.size == 1 else real)
+        done = terminated or truncated
+        cumulative += float(reward)
+        steps += 1
+    env.close()
+    print("Test - Reward:", cumulative, flush=True)
+    return cumulative, steps

@@ -136,16 +136,24 @@ def forward_with_actions(
 
 
 def sample_actions(
-    agent: PPOAgent, obs: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None, greedy: bool = False
+    agent: PPOAgent,
+    obs: Dict[str, torch.Tensor],
+    generator: Optional[torch.Generator] = None,
+    greedy: bool = False,
+    uniforms: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[Tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor]:
     """The player's forward: one-hot actions per head (sampled, or the mode
-    with ``greedy``), their summed log-prob ``(..., 1)`` and the values."""
+    with ``greedy``), their summed log-prob ``(..., 1)`` and the values.
+    Head ``i``'s Gumbel noise comes from ``uniforms[i]`` (shaped like its
+    logits) where given, else from ``generator``."""
     actor_outs, values = agent(obs)
     acts, logprobs = [], []
-    for logits in actor_outs:
+    for i, logits in enumerate(actor_outs):
         d = OneHotCategorical(logits)
         if greedy:
             a = d.mode
+        elif uniforms is not None:
+            a = d.sample(uniform=uniforms[i])
         else:  # uniforms in [tiny, 1), the interval jax.random.categorical draws from
             u = torch.rand(logits.shape, generator=generator, device=logits.device).clamp_(min=_TINY)
             a = d.sample(uniform=u)

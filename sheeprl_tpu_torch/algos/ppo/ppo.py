@@ -176,6 +176,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     summary: Dict[str, Any] = {
         "start_iter": start_iter, "iterations": 0, "losses": [], "episodes": [], "rollout_s": [], "gae_s": [],
         "update_s": [], "checkpoint": None, "device": str(device), "test_reward": None,
+        "test_steps": None,
     }
     heads = len(actions_dim)
     for iter_num in range(start_iter, total_iters + 1):
@@ -259,7 +260,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
 
     envs.close()
     if algo.get("run_test", True):
-        summary["test_reward"] = test(player, cfg, device)
+        summary["test_reward"], summary["test_steps"] = test(player, cfg, device)
     env_s = sum(summary["rollout_s"])
     summary.update(
         policy_steps=policy_step,

@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,13 +29,13 @@ def prepare_obs(
     return out
 
 
-def test(player, cfg: Any, device: "torch.device | str") -> float:
+def test(player, cfg: Any, device: "torch.device | str") -> Tuple[float, int]:
     """One greedy episode on a fresh env seeded with ``cfg.seed``; prints
-    and returns its return."""
+    its return and returns it with the episode's step count."""
     env = make_env(cfg, int(cfg.seed))
     obs_keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
     obs = env.reset(seed=int(cfg.seed))[0]
-    done, cumulative = False, 0.0
+    done, cumulative, steps = False, 0.0, 0
     while not done:
         prepared = prepare_obs({k: obs[k] for k in obs_keys}, cfg.algo.cnn_keys.encoder, 1, device)
         actions = player.get_actions(prepared, greedy=True)
@@ -43,6 +43,7 @@ def test(player, cfg: Any, device: "torch.device | str") -> float:
         obs, reward, terminated, truncated, _ = env.step(real[0] if real.size == 1 else real)
         done = terminated or truncated
         cumulative += reward
+        steps += 1
     env.close()
     print("Test - Reward:", cumulative, flush=True)
-    return float(cumulative)
+    return float(cumulative), steps

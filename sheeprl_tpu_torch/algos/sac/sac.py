@@ -317,6 +317,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     summary: Dict[str, Any] = {
         "start_iter": start_iter, "iterations": 0, "gradient_steps": 0, "train_calls": 0, "losses": [],
         "episodes": [], "env_s": [], "train_s": [], "checkpoint": None, "device": str(device), "test_reward": None,
+        "test_steps": None,
         "resident": resident, "prioritized": resident and prioritized,
     }
     pending: List[torch.Tensor] = []  # losses still on the device
@@ -419,7 +420,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     read_losses()
     envs.close()
     if algo.get("run_test", True):
-        summary["test_reward"] = test(player, cfg, device)
+        summary["test_reward"], summary["test_steps"] = test(player, cfg, device)
     env_s = sum(summary["env_s"])
     summary.update(
         policy_steps=policy_step,

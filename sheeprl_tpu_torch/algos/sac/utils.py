@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -21,18 +21,19 @@ def prepare_obs(
     return torch.from_numpy(flat.reshape(num_envs, -1)).to(device)
 
 
-def test(player, cfg: Any, device: "torch.device | str") -> float:
+def test(player, cfg: Any, device: "torch.device | str") -> Tuple[float, int]:
     """One greedy episode on a fresh env seeded with ``cfg.seed``; prints
-    and returns its return."""
+    its return and returns it with the episode's step count."""
     env = make_env(cfg, int(cfg.seed))
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
     obs = env.reset(seed=int(cfg.seed))[0]
-    done, cumulative = False, 0.0
+    done, cumulative, steps = False, 0.0, 0
     while not done:
         action = player.get_actions(prepare_obs(obs, mlp_keys, 1, device), greedy=True)
         obs, reward, terminated, truncated, _ = env.step(action.cpu().numpy().reshape(-1))
         done = terminated or truncated
         cumulative += float(reward)
+        steps += 1
     env.close()
     print("Test - Reward:", cumulative, flush=True)
-    return cumulative
+    return cumulative, steps

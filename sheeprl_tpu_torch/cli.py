@@ -1,20 +1,27 @@
-"""Command line (counterpart of ``sheeprl_tpu/cli.py``, ``run`` and ``serve``
-verbs)::
+"""Command line (counterpart of ``sheeprl_tpu/cli.py``: the ``run``,
+``serve``, ``evaluation`` and ``agents`` verbs)::
 
     python -m sheeprl_tpu_torch run \\
         preset=sac_per|sac|ppo|dreamer_v3_100k_atari_dummy|dreamer_v3_100k_atari_dummy_resident \\
         [fabric.accelerator=cuda|cpu] [algo.total_steps=...] [checkpoint.resume_from=<ckpt>] ...
     python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> \\
-        [fabric.accelerator=cuda|cpu] [serve.port=0] [serve.session.buckets=[1,8,32]] ...
+        [fabric.accelerator=cuda|cpu] [serve.port=0] [serve.buckets=[1,8,32,128]] [serve.engine=aot|naive] \\
+        [serve.session.buckets=[1,8,32]] ...
+    python -m sheeprl_tpu_torch evaluation checkpoint_path=<ckpt> [fabric.accelerator=cuda|cpu] [seed=...]
+    python -m sheeprl_tpu_torch agents
 
 ``run`` trains from a preset (``configs/<name>.json``), or resuming, from the
 checkpoint's ``config.json``, with the algorithm ``algo.name`` names (SAC,
 PPO or DreamerV3); :data:`~sheeprl_tpu_torch.config.RUN_DEFAULTS`
 fill what it lacks and the ``key.path=value`` overrides win. ``serve`` reads
 the run configuration beside the checkpoint under
-:data:`~sheeprl_tpu_torch.config.SERVE_DEFAULTS`. Both run on the GPU unless
-``fabric.accelerator=cpu`` asks for the CPU; asking for the GPU on a machine
-without one raises.
+:data:`~sheeprl_tpu_torch.config.SERVE_DEFAULTS`: a PPO or SAC checkpoint
+serves stateless requests through the bucket engine, a DreamerV3 one
+sessions. ``evaluation`` (alias ``eval``) runs one greedy test episode of a
+checkpoint on one env, seeded with the checkpoint run's seed unless
+``seed=`` says otherwise. ``agents`` prints the algorithms the port knows.
+Each runs on the GPU unless ``fabric.accelerator=cpu`` asks for the CPU;
+asking for the GPU on a machine without one raises.
 """
 
 from __future__ import annotations
@@ -26,17 +33,29 @@ from typing import List, Optional, Sequence
 import torch
 
 from sheeprl_tpu_torch.config import (
+    EVAL_DEFAULTS,
     RUN_DEFAULTS,
     SERVE_DEFAULTS,
     DotDict,
     apply_overrides,
+    dotdict,
     load_config,
     merge,
     plain,
     preset,
 )
 
-__all__ = ["main", "run", "serve", "compose_run_config", "compose_serve_config", "resolve_device"]
+__all__ = [
+    "main",
+    "run",
+    "serve",
+    "evaluation",
+    "agents",
+    "compose_run_config",
+    "compose_serve_config",
+    "compose_eval_config",
+    "resolve_device",
+]
 
 
 def resolve_device(accelerator: Optional[str]) -> torch.device:
@@ -91,22 +110,35 @@ def compose_run_config(args: Sequence[str]) -> DotDict:
     return apply_overrides(merge(RUN_DEFAULTS, base), overrides)
 
 
-#: algo.name -> the module whose ``main(cfg, device)`` trains it
-_TRAINERS = {
-    "dreamer_v3": "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
-    "ppo": "sheeprl_tpu_torch.algos.ppo.ppo",
-    "sac": "sheeprl_tpu_torch.algos.sac.sac",
-}
+def compose_eval_config(args: Sequence[str]) -> DotDict:
+    """The checkpoint's run config with one env, the checkpoint's path, and
+    the accelerator and seed of :data:`EVAL_DEFAULTS` <- the overrides (the
+    seed, if unset, stays the run's own)."""
+    from sheeprl_tpu_torch.utils.checkpoint import find_run_config
+
+    eval_cfg = apply_overrides(EVAL_DEFAULTS, args)
+    ckpt = eval_cfg.get("checkpoint_path")
+    if not ckpt:
+        raise ValueError("evaluation needs checkpoint_path=<path to a checkpoint>")
+    run_cfg = plain(load_config(find_run_config(ckpt)))
+    return dotdict(merge(run_cfg, {
+        "env": {"num_envs": 1},
+        "fabric": {"accelerator": eval_cfg.fabric.get("accelerator")},
+        "checkpoint_path": str(ckpt),
+        "seed": eval_cfg.seed if eval_cfg.get("seed") is not None else run_cfg.get("seed", 42),
+    }))
 
 
 def run(args: Sequence[str]) -> dict:
     """Train; returns the run's summary (counters, metrics, checkpoint)."""
+    from sheeprl_tpu_torch.utils.registry import TRAINERS
+
     cfg = compose_run_config(args)
-    if cfg.algo.name not in _TRAINERS:
-        raise NotImplementedError(f"training '{cfg.algo.name}' is not ported yet; {' and '.join(_TRAINERS)} only")
+    if cfg.algo.name not in TRAINERS:
+        raise NotImplementedError(f"training '{cfg.algo.name}' is not ported yet; {' and '.join(TRAINERS)} only")
     device = resolve_device(cfg.fabric.get("accelerator"))
     _full_float32()
-    return importlib.import_module(_TRAINERS[cfg.algo.name]).main(cfg, device)
+    return importlib.import_module(TRAINERS[cfg.algo.name]).main(cfg, device)
 
 
 def serve(args: Sequence[str]) -> None:
@@ -127,7 +159,37 @@ def serve(args: Sequence[str]) -> None:
     serve_policy(cfg, state, builder, device)
 
 
-_VERBS = {"run": run, "serve": serve}
+def evaluation(args: Sequence[str]) -> dict:
+    """One greedy test episode of a checkpoint; returns ``{"reward", "steps",
+    "device"}``."""
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+    from sheeprl_tpu_torch.utils.registry import resolve_evaluation
+
+    cfg = compose_eval_config(args)
+    device = resolve_device(cfg.fabric.get("accelerator"))
+    _full_float32()
+    evaluate = resolve_evaluation(cfg.algo.name)
+    if evaluate is None:
+        raise RuntimeError(f"no evaluation is registered for '{cfg.algo.name}'")
+    result = evaluate(cfg, load_checkpoint(cfg.checkpoint_path), device)
+    return {"reward": result["reward"], "steps": result["steps"], "device": str(device)}
+
+
+def agents(args: Sequence[str] = ()) -> List[dict]:
+    """Print, and return, one row per algorithm: its name, trainer module,
+    and whether it evaluates and serves (the JAX CLI's table without
+    ``rich``)."""
+    from sheeprl_tpu_torch.utils.registry import algorithm_table
+
+    if args:
+        raise ValueError(f"agents takes no arguments, got {list(args)}")
+    rows = algorithm_table()
+    for row in rows:
+        print(f"{row['name']}: trainer={row['trainer']}, evaluation={row['evaluation']}, serving={row['serving']}")
+    return rows
+
+
+_VERBS = {"run": run, "serve": serve, "evaluation": evaluation, "eval": evaluation, "agents": agents}
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -7,7 +7,8 @@ config (``algo.world_model.recurrent_model.recurrent_state_size``, ...) plus a
 reads off a gymnasium env. ``serve`` merges :data:`SERVE_DEFAULTS` under the
 run config and CLI-style ``key.path=value`` overrides over it; ``run`` merges
 :data:`RUN_DEFAULTS` under a preset (or, resuming, the checkpoint's run
-config) the same way.
+config) the same way; ``evaluation`` reads :data:`EVAL_DEFAULTS` and the
+overrides, and lays what they pick over the checkpoint's run config.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ __all__ = [
     "preset",
     "SERVE_DEFAULTS",
     "RUN_DEFAULTS",
+    "EVAL_DEFAULTS",
     "PRESETS_DIR",
 ]
 
@@ -68,6 +70,9 @@ SERVE_DEFAULTS: Dict[str, Any] = {
     "checkpoint_path": None,
     "fabric": {"accelerator": "cuda"},
     "serve": {
+        "buckets": None,  # None: serve.engine.default_buckets(), (1, 8, 32, 128)
+        "engine": "aot",  # aot: the bucket engine; naive: one dispatch per request
+        "seed": 0,  # keys the stateless sample-mode draws
         "mode": "greedy",
         "max_wait_ms": 5.0,
         "max_batch": None,
@@ -79,6 +84,15 @@ SERVE_DEFAULTS: Dict[str, Any] = {
         "max_requests": None,
         "log_every_s": 10.0,
     },
+}
+
+
+#: what ``evaluation`` steers, as the JAX package's eval_config.yaml: the
+#: seed defaults to the checkpoint run's own
+EVAL_DEFAULTS: Dict[str, Any] = {
+    "checkpoint_path": None,
+    "seed": None,
+    "fabric": {"accelerator": "cuda"},
 }
 
 

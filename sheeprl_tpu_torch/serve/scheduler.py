@@ -14,6 +14,14 @@ loop:
   every caller's future resolves with its own action rows and the weight
   version that produced them.
 
+With a :class:`~sheeprl_tpu_torch.serve.sessions.SessionEngine` the batch
+steps session state rows; with a stateless engine
+(:class:`~sheeprl_tpu_torch.serve.engine.BucketEngine` or
+:class:`~sheeprl_tpu_torch.serve.engine.NaiveEngine`, which have no session
+``cache``) it is one ``infer`` over the concatenated rows, and in sample mode
+batch ``i`` is keyed ``(seed, i)``, the counterpart of the JAX scheduler's
+``fold_in(base_key, i)``.
+
 Past the queue bound ``submit`` blocks (backpressure) and raises
 :class:`ServeOverloadedError` once its timeout expires. The worker thread
 runs inference, so it binds the engine's CUDA device when it starts; it uses
@@ -160,13 +168,13 @@ class _Request:
 
 
 class RequestScheduler:
-    """Deadline/size-admission micro-batcher feeding one
-    :class:`~sheeprl_tpu_torch.serve.sessions.SessionEngine`.
+    """Deadline/size-admission micro-batcher feeding one engine.
 
     ``weights`` is anything with ``pull() -> (version, params)``, in practice
-    :class:`~sheeprl_tpu_torch.serve.weights.WeightStore`. Each admitted
-    session request resolves to its slab row; on a new weight version the
-    engine checks once whether the live sessions' state still fits.
+    :class:`~sheeprl_tpu_torch.serve.weights.WeightStore`. For a session
+    engine each admitted session request resolves to its slab row, and on a
+    new weight version the engine checks once whether the live sessions'
+    state still fits. ``seed`` keys a stateless engine's sample-mode draws.
     """
 
     def __init__(
@@ -177,6 +185,7 @@ class RequestScheduler:
         max_batch: Optional[int] = None,
         queue_bound: int = 256,
         stats: Optional[ServeStats] = None,
+        seed: int = 0,
     ) -> None:
         if max_wait_s < 0:
             raise ValueError(f"max_wait_s must be >= 0, got {max_wait_s}")
@@ -184,9 +193,9 @@ class RequestScheduler:
             raise ValueError(f"queue_bound must be >= 1, got {queue_bound}")
         self.engine = engine
         self.weights = weights
-        self.sessions = engine.cache
+        self.sessions = getattr(engine, "cache", None)  # None: a stateless engine
         self.max_wait_s = float(max_wait_s)
-        self.max_batch = int(max_batch) if max_batch else max(engine.buckets)
+        self.max_batch = int(max_batch) if max_batch else (max(engine.buckets) if engine.buckets else 128)
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
         self.queue_bound = int(queue_bound)
@@ -194,7 +203,9 @@ class RequestScheduler:
         self._last_version: Optional[int] = None
         self._q: "queue.Queue[_Request]" = queue.Queue(maxsize=self.queue_bound)
         self.stats._depth_fn = self._q.qsize
-        self.stats._sessions_fn = self.sessions.snapshot
+        self.stats._sessions_fn = self.sessions.snapshot if self.sessions is not None else None
+        self._seed = int(seed)
+        self._batch_idx = 0
         self._holdover: Optional[_Request] = None
         self._stop = threading.Event()
         self._closed = threading.Event()
@@ -244,6 +255,8 @@ class RequestScheduler:
         ``session_id`` serves a one-shot step from a fresh state."""
         if self._closed.is_set():
             raise ServeClosedError("scheduler is stopped")
+        if session_id is not None and self.sessions is None:
+            raise ValueError("session_id on a stateless server (this policy carries no per-user state)")
         n = self.engine.policy.validate_batch(obs)
         if session_id is not None and n != 1:
             raise ValueError(f"a session request is one state row, got n={n}")
@@ -323,21 +336,28 @@ class RequestScheduler:
         )
         version, params = self.weights.pull()
         try:
-            if version != self._last_version:
-                # once per new version: compatible weights keep the sessions,
-                # incompatible ones version-and-reinit the cache
-                self.engine.check_swap(params)
-                self._last_version = version
-            session_ids: List[Optional[str]] = []
-            resets: List[bool] = []
-            for r in batch:
-                if r.session_id is None:
-                    session_ids.extend([None] * r.n)
-                    resets.extend([False] * r.n)
-                else:
-                    session_ids.append(r.session_id)
-                    resets.append(r.reset)
-            actions = self.engine.step_sessions(params, obs, session_ids, resets)
+            if self.sessions is None:
+                key = None
+                if not self.engine.greedy:
+                    key = (self._seed, self._batch_idx)
+                    self._batch_idx += 1
+                actions = self.engine.infer(params, obs, key=key)
+            else:
+                if version != self._last_version:
+                    # once per new version: compatible weights keep the
+                    # sessions, incompatible ones version-and-reinit the cache
+                    self.engine.check_swap(params)
+                    self._last_version = version
+                session_ids: List[Optional[str]] = []
+                resets: List[bool] = []
+                for r in batch:
+                    if r.session_id is None:
+                        session_ids.extend([None] * r.n)
+                        resets.extend([False] * r.n)
+                    else:
+                        session_ids.append(r.session_id)
+                        resets.append(r.reset)
+                actions = self.engine.step_sessions(params, obs, session_ids, resets)
         except Exception as e:  # resolve the callers with the error, keep serving
             for r in batch:
                 r.resolve(None, version, error=e)
@@ -382,7 +402,8 @@ class RequestScheduler:
         if self.engine.device.type == "cuda":
             torch.cuda.set_device(self.engine.device)
         while not self._stop.is_set():
-            self.sessions.maybe_sweep()  # TTL sweep rides the admission loop
+            if self.sessions is not None:
+                self.sessions.maybe_sweep()  # TTL sweep rides the admission loop
             batch = self._collect()
             if batch:
                 self._serve_batch(batch)

@@ -1,21 +1,25 @@
 """Server assembly: in-process client, JSON-lines socket front end and the
-``serve`` entry body (counterpart of ``sheeprl_tpu/serve/server.py``,
-stateful path).
+``serve`` entry body (counterpart of ``sheeprl_tpu/serve/server.py``).
 
 Wire protocol (one JSON object per line, both directions)::
 
-    -> {"obs": {"rgb": [[[...]]]}, "session_id": "user-42"}
+    -> {"obs": {"state": [[...], [...]]}, "n": 2}  # stateless: n raw rows
+    <- {"actions": [[...], [...]], "version": 3}
+    -> {"obs": {"rgb": [[[...]]]}, "session_id": "user-42"}  # stateful
     -> {"obs": {...}, "session_id": "user-42", "reset": true}  # new episode
-    <- {"actions": [[...]], "version": 3}
     <- {"error": "..."}                       # per-request failure
     -> {"health": true}
     <- {"status": "ok", "ready": true, ...}   # liveness/readiness probe
 
 ``obs`` leaves are raw env observations (the server applies the policy's own
-``prepare``). ``session_id`` binds the request to a server-side state row;
-without it, ``n`` (default 1) one-shot rows are stepped from a fresh state.
-``serve_policy`` stops on SIGTERM/SIGINT with a graceful drain: it stops
-accepting, serves every admitted request, then returns.
+``prepare``), ``n`` (default 1) of them batched along the first axis. A
+stateless policy (:class:`~sheeprl_tpu_torch.serve.policy.ServePolicy`, PPO
+and SAC) answers each row on its own. A stateful one
+(:class:`~sheeprl_tpu_torch.serve.policy.StatefulServePolicy`, DreamerV3)
+binds a request with ``session_id`` to a server-side state row; without it,
+``n`` one-shot rows are stepped from a fresh state. ``serve_policy`` stops on
+SIGTERM/SIGINT with a graceful drain: it stops accepting, serves every
+admitted request, then returns.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.serve.policy import StatefulServePolicy
+from sheeprl_tpu_torch.serve.engine import BucketEngine, NaiveEngine, default_buckets
+from sheeprl_tpu_torch.serve.policy import ServePolicy, StatefulServePolicy
 from sheeprl_tpu_torch.serve.scheduler import RequestScheduler, ServeStats
 from sheeprl_tpu_torch.serve.sessions import SessionEngine, default_session_buckets
 from sheeprl_tpu_torch.serve.weights import WeightStore
@@ -44,7 +49,7 @@ class PolicyClient:
     """In-process client: raw env observations in, env-format actions out.
     Concurrent callers are micro-batched into shared dispatches."""
 
-    def __init__(self, policy: StatefulServePolicy, scheduler: RequestScheduler) -> None:
+    def __init__(self, policy: "ServePolicy | StatefulServePolicy", scheduler: RequestScheduler) -> None:
         self.policy = policy
         self.scheduler = scheduler
 
@@ -109,27 +114,45 @@ class _TcpFrontEnd(socketserver.ThreadingTCPServer):
 
 
 class PolicyServer:
-    """One stateful policy, fully assembled: session engine, scheduler,
-    versioned weight store and, with ``serve.port`` set, the socket front
-    end. ``serve_cfg`` mirrors the ``serve`` block of
-    :data:`sheeprl_tpu_torch.config.SERVE_DEFAULTS`."""
+    """One policy, fully assembled: its engine, the scheduler, the versioned
+    weight store and, with ``serve.port`` set, the socket front end.
+    ``serve_cfg`` mirrors the ``serve`` block of
+    :data:`sheeprl_tpu_torch.config.SERVE_DEFAULTS`. The engine follows the
+    policy's type: a :class:`StatefulServePolicy` gets the
+    :class:`SessionEngine`; a :class:`ServePolicy` gets the
+    :class:`BucketEngine` (``serve.engine=aot``) or the per-request
+    :class:`NaiveEngine` (``naive``)."""
 
-    def __init__(self, policy: StatefulServePolicy, serve_cfg: Optional[Dict[str, Any]] = None) -> None:
+    def __init__(self, policy: "ServePolicy | StatefulServePolicy", serve_cfg: Optional[Dict[str, Any]] = None) -> None:
         cfg = dict(serve_cfg or {})
         self.policy = policy
         self.stats = ServeStats()
         mode = str(cfg.get("mode", "greedy"))
         if mode not in ("greedy", "sample"):
             raise ValueError(f"serve.mode must be greedy|sample, got {mode!r}")
-        scfg = dict(cfg.get("session") or {})
-        self.engine = SessionEngine(
-            policy,
-            buckets=scfg.get("buckets") or default_session_buckets(),
-            mode=mode,
-            max_sessions=int(scfg.get("max_sessions", 1024)),
-            ttl_s=float(scfg.get("ttl_s", 300.0)),
-            sweep_every_s=float(scfg.get("sweep_every_s", 1.0)),
-        )
+        engine = str(cfg.get("engine") or "aot")
+        if engine not in ("aot", "naive"):
+            raise ValueError(f"serve.engine must be aot|naive, got {engine!r}")
+        self.stateful = isinstance(policy, StatefulServePolicy)
+        if self.stateful:
+            if engine != "aot":
+                raise ValueError(
+                    "stateful policies serve through the session engine; for a per-session baseline use "
+                    "serve.session.buckets=[1] with serve.max_batch=1"
+                )
+            scfg = dict(cfg.get("session") or {})
+            self.engine: Any = SessionEngine(
+                policy,
+                buckets=scfg.get("buckets") or default_session_buckets(),
+                mode=mode,
+                max_sessions=int(scfg.get("max_sessions", 1024)),
+                ttl_s=float(scfg.get("ttl_s", 300.0)),
+                sweep_every_s=float(scfg.get("sweep_every_s", 1.0)),
+            )
+        elif engine == "aot":
+            self.engine = BucketEngine(policy, buckets=cfg.get("buckets") or default_buckets(), mode=mode)
+        else:
+            self.engine = NaiveEngine(policy, mode=mode)
         self.weights = WeightStore(policy.params, policy.params_from_state)
         self.scheduler = RequestScheduler(
             self.engine,
@@ -138,6 +161,7 @@ class PolicyServer:
             max_batch=cfg.get("max_batch"),
             queue_bound=int(cfg.get("queue_bound", 256)),
             stats=self.stats,
+            seed=int(cfg.get("seed") or 0),
         )
         self.client = PolicyClient(policy, self.scheduler)
         self._request_timeout_s = float(cfg.get("request_timeout_s", 30.0) or 30.0)
@@ -168,8 +192,7 @@ class PolicyServer:
         engine and session counters, drain state."""
         alive = self.scheduler.worker_alive()
         status = "draining" if self._draining else ("ok" if alive else "degraded")
-        s = self.engine.cache.snapshot()
-        return {
+        out = {
             "status": status,
             "ready": bool(alive and not self._draining),
             "engine": {
@@ -180,7 +203,10 @@ class PolicyServer:
             },
             "scheduler": {"alive": bool(alive), "queue_depth": int(self.scheduler._q.qsize())},
             "weights": {"version": int(self.weights.version), "staleness_s": round(self.weights.staleness_s, 3)},
-            "sessions": {
+        }
+        if self.stateful:
+            s = self.engine.cache.snapshot()
+            out["sessions"] = {
                 "live": int(s["live"]),
                 "peak": int(s["peak"]),
                 "max_sessions": int(s["max_sessions"]),
@@ -191,8 +217,8 @@ class PolicyServer:
                 "client_resets": int(s["client_resets"]),
                 "state_bytes": int(s["state_bytes"]),
                 "ttl_s": float(s["ttl_s"]),
-            },
-        }
+            }
+        return out
 
     def stop(self) -> None:
         """Graceful drain: stop accepting (socket down, submits closed),

@@ -1,27 +1,60 @@
-"""Policy-builder registry (counterpart of ``sheeprl_tpu/utils/registry.py``,
-serving part): algorithm name -> the stateful policy builder that serves it.
-Registration happens when the builder's module is imported; the CLI imports
-the built-in modules on first lookup."""
+"""Algorithm registry (counterpart of ``sheeprl_tpu/utils/registry.py``):
+algorithm name -> the module that trains it, the evaluation that tests its
+checkpoint, and the policy builder that serves it. Evaluations and builders
+register when their module is imported; the lookups import the built-in
+modules first."""
 
 from __future__ import annotations
 
 import importlib
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
-__all__ = ["register_policy_builder", "resolve_policy_builder", "registered_policy_builder_names"]
+__all__ = [
+    "TRAINERS",
+    "register_policy_builder",
+    "resolve_policy_builder",
+    "registered_policy_builder_names",
+    "register_evaluation",
+    "resolve_evaluation",
+    "algorithm_table",
+]
+
+#: algo.name -> the module whose ``main(cfg, device)`` trains it
+TRAINERS: Dict[str, str] = {
+    "dreamer_v3": "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
+    "ppo": "sheeprl_tpu_torch.algos.ppo.ppo",
+    "sac": "sheeprl_tpu_torch.algos.sac.sac",
+}
 
 policy_builder_registry: Dict[str, Callable] = {}
+evaluation_registry: Dict[str, Callable] = {}
 
-_BUILTIN_MODULES = ["sheeprl_tpu_torch.algos.dreamer_v3.evaluate"]
+_BUILTIN_MODULES = [
+    "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
+    "sheeprl_tpu_torch.algos.ppo.evaluate",
+    "sheeprl_tpu_torch.algos.sac.evaluate",
+]
 
 
-def register_policy_builder(algorithms: List[str]) -> Callable[[Callable], Callable]:
+def _register_into(registry: Dict[str, Callable], algorithms: List[str]) -> Callable[[Callable], Callable]:
     def decorator(fn: Callable) -> Callable:
         for name in algorithms:
-            policy_builder_registry[name] = fn
+            registry[name] = fn
         return fn
 
     return decorator
+
+
+def register_policy_builder(algorithms: List[str]) -> Callable[[Callable], Callable]:
+    """Register ``fn(cfg, state, device) -> ServePolicy | StatefulServePolicy``
+    as the serving policy builder of ``algorithms``."""
+    return _register_into(policy_builder_registry, algorithms)
+
+
+def register_evaluation(algorithms: List[str]) -> Callable[[Callable], Callable]:
+    """Register ``fn(cfg, state, device) -> {"reward", "steps"}`` as the
+    evaluation of ``algorithms``' checkpoints."""
+    return _register_into(evaluation_registry, algorithms)
 
 
 def _import_builtins() -> None:
@@ -37,3 +70,25 @@ def resolve_policy_builder(name: str) -> Optional[Callable]:
 def registered_policy_builder_names() -> List[str]:
     _import_builtins()
     return sorted(policy_builder_registry)
+
+
+def resolve_evaluation(name: str) -> Optional[Callable]:
+    _import_builtins()
+    return evaluation_registry.get(name)
+
+
+def algorithm_table() -> List[Dict[str, Any]]:
+    """One row per algorithm the port knows: its name, its trainer module
+    (None if it only evaluates or serves), and whether an evaluation and a
+    serving policy builder are registered for it."""
+    _import_builtins()
+    names = sorted(set(TRAINERS) | set(evaluation_registry) | set(policy_builder_registry))
+    return [
+        {
+            "name": name,
+            "trainer": TRAINERS.get(name),
+            "evaluation": name in evaluation_registry,
+            "serving": name in policy_builder_registry,
+        }
+        for name in names
+    ]

@@ -734,7 +734,8 @@ def test_torch_cuda_resident_loop_launches_the_scatter_once_per_flush(cuda, tmp_
     """A short ``run preset=dreamer_v3_100k_atari_dummy_resident`` on the card
     (full width, a 4,096-row ring): one scatter per flush for all 5 ring
     keys, the two-hot and GRU counts of the gradient steps and player steps,
-    nothing else."""
+    one GRU step for each step of the end-of-run test episode, nothing
+    else."""
     from sheeprl_tpu_torch import cli
 
     K.reset_launches()
@@ -742,11 +743,71 @@ def test_torch_cuda_resident_loop_launches_the_scatter_once_per_flush(cuda, tmp_
                        "algo.learning_starts=64", "algo.total_steps=66", "checkpoint.save_last=false",
                        f"log_root={tmp_path}"])
     G = summary["gradient_steps"]
-    assert summary["device"].startswith("cuda") and summary["resident"] and G == 3
+    assert summary["device"].startswith("cuda") and summary["resident"] and G == 3 and summary["test_steps"] > 0
     assert np.isfinite(np.asarray(summary["metrics"])).all()
     assert K.LAUNCHES == {
-        "gru_gates": G * (64 + 15) + summary["player_steps"], "two_hot_symlog_loss": 0,
+        "gru_gates": G * (64 + 15) + summary["player_steps"] + summary["test_steps"], "two_hot_symlog_loss": 0,
         "two_hot_symlog_loss_lse": 3 * G, "two_hot_symlog_loss_lse_bwd": 3 * G,
         "two_hot_symexp_decode": 3 * G, "gae": 0, "sumtree_sample": 0,
         "ragged_ring_scatter": summary["replay"]["Replay/flushes"],
     }
+
+
+def test_torch_cuda_eval_step_gru_gates_ln_matches_plain(cuda):
+    """The evaluation and test-episode path's shape: one row, the
+    (1, 1536) projection of DreamerV3-S's 512-wide GRU. The kernel against
+    its plain version (f32 atol and rtol 1e-5), and the RSSM cell at batch 1
+    on the card, one launch, against the cell on the CPU (TF32 off; atol
+    1e-5)."""
+    proj, h, w, b = (torch.from_numpy(a).to(cuda) for a in _ln_inputs(1, 512, seed=15))
+    before = K.LAUNCHES["gru_gates"]
+    got = K.gru_gates_ln(proj, h, w, b, 1e-3)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gru_gates"] == before + 1 and got.shape == (1, 512)
+    torch.testing.assert_close(got, K.gru_gates_ln_reference(proj, h, w, b, 1e-3), atol=1e-5, rtol=1e-5)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cell = LayerNormGRUCell(512, 512, use_bias=False, layer_norm=True)
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.normal(size=(1, 512)).astype(np.float32))
+    h = torch.from_numpy(rng.normal(size=(1, 512)).astype(np.float32)).tanh()
+    with torch.no_grad():
+        want = cell(h, x)
+        before = K.LAUNCHES["gru_gates"]
+        got = cell.to(cuda)(h.to(cuda), x.to(cuda))
+        torch.cuda.synchronize()
+    assert K.LAUNCHES["gru_gates"] == before + 1
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("algo", ["ppo", "sac"])
+def test_torch_cuda_stateless_engine_batched_row_equals_row_alone(cuda, algo):
+    """The bucket engine on the card at the presets' widths: every row of
+    batches of 1 to 200 (200 chunked through bucket 128) equals the greedy
+    program on that row alone, PPO's actions exactly and SAC's within atol
+    1e-5 (float32 products at another batch size); no repo kernel runs."""
+    from sheeprl_tpu_torch.algos.ppo.evaluate import serve_policy_ppo
+    from sheeprl_tpu_torch.algos.sac.evaluate import serve_policy_sac
+    from sheeprl_tpu_torch.config import apply_overrides, dotdict, preset
+    from sheeprl_tpu_torch.envs import make_vector_env
+    from sheeprl_tpu_torch.serve.engine import BucketEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = apply_overrides(preset(algo), ["env.num_envs=1"])
+    cfg["spaces"] = dotdict(make_vector_env(cfg, 0).spaces)
+    policy = (serve_policy_ppo if algo == "ppo" else serve_policy_sac)(cfg, None, cuda)
+    engine = BucketEngine(policy, buckets=(1, 8, 32, 128))
+    rng = np.random.default_rng(17)
+    K.reset_launches()
+    for n in (1, 3, 8, 9, 31, 128, 200):
+        raw = {"state": rng.normal(size=(n, 4 if algo == "ppo" else 3)).astype(np.float32)}
+        obs = policy.prepare(raw, n)
+        got = engine.infer(policy.params, obs)
+        with torch.no_grad():
+            alone = torch.cat([policy.greedy_fn(policy.params, {k: torch.from_numpy(v[i:i + 1]).to(cuda)
+                                                                for k, v in obs.items()}) for i in range(n)]).cpu().numpy()
+        if algo == "ppo":
+            np.testing.assert_array_equal(got, alone, err_msg=f"batch {n}")
+        else:
+            np.testing.assert_allclose(got, alone, rtol=0, atol=1e-5, err_msg=f"batch {n}")
+    assert not any(K.LAUNCHES.values())
+    assert engine.stats()["rows"] == 380 and engine.stats()["dispatches"] == 8
