@@ -119,7 +119,27 @@ result line):
    greedy CartPole episode at or above PPO_RETURN_BAR;
 19. SAC stateless serving and evaluation: the same on the SAC run's
    checkpoint (13), rows within SAC_ROW_ATOL, the greedy Pendulum return
-   at or above SAC_RETURN_BAR.
+   at or above SAC_RETURN_BAR;
+20. fault: the fault runtime on the card. PPO through ``run`` with
+   ``fault.inject.nan_grads_at``: the poisoned iteration's 80 minibatches
+   skipped and its checkpoint bit-equal to the previous one; a rollback
+   (``max_consecutive=1``) restoring the latest complete checkpoint
+   exactly; ``checkpoint.resume_from=latest`` with ``keep_last`` holding;
+   ``action=abort`` raising ``DivergenceError``. One SAC-PER resident
+   dispatch whose drawn rows carry NaN rewards, and one DreamerV3 host-tier
+   gradient step on NaN rewards: every parameter, Adam state (step counts
+   on the card), the sum-tree, ``max_p`` and ``Moments`` bit-equal to
+   before, the kernels at their exact counts. Beside it, phases 7, 10 and 13
+   profile the guarded step, update and dispatch next to the unguarded ones,
+   and phase 16 saves the ring's checkpoint through the manager, synchronously
+   and asynchronously (host ms, write and sha256 seconds, bytes);
+21. non-finite inputs (run beside the kernels of 3): each kernel of the
+   guarded paths (``gru_gates_ln``, the fused two-hot loss and its backward,
+   the decode, ``gae``, ``sumtree_sample``, ``ragged_ring_scatter_keys``) on
+   inputs seeded with NaN, +inf and -inf at the main path's shapes gives
+   non-finite outputs exactly where its plain version does; the fused loss
+   is held to the JAX Pallas kernel's form, which picks the bracket's two
+   bins, so a -inf logit outside the bracket leaves its row finite.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -127,7 +147,9 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import io
 import json
 import os
 import signal
@@ -137,6 +159,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -957,7 +980,7 @@ def train_step_phase() -> dict:
             "actions": [u.to(dev) for u in noise["actions"]],
         }
         t0 = time.perf_counter()
-        moments, metrics = train({k: v.to(dev) for k, v in data.items()}, init_moments(dev), 0, noise=[dev_noise])
+        moments, metrics, _ = train({k: v.to(dev) for k, v in data.items()}, init_moments(dev), 0, noise=[dev_noise])
         metrics = metrics.cpu()
         seconds = time.perf_counter() - t0
         params = {name: {k: v.detach().cpu() for k, v in m.state_dict().items()}
@@ -1023,11 +1046,13 @@ def _two_hot_plain_ops(prof, bins: int) -> dict:
     return counts
 
 
-def _profile_gradient_step(checkpoint: str) -> dict:
+def _profile_gradient_step(checkpoint: str, guard: bool = False) -> dict:
     """One full-recipe gradient step (B 16 x T 64, H 15) from the run's
     checkpoint, after two warm-up steps: host time around the step (ending
     in a synchronize), and device time and device operations from
-    ``torch.profiler``, with the two-hot kernels' and ``gru_gates``' share.
+    ``torch.profiler``, with the two-hot kernels' and ``gru_gates``' share;
+    with ``guard`` the step the host tier runs by default (the finite guard
+    and its select over the four modules, the Adams and ``Moments``).
     No LayerNorm of the GRU projection may remain in the forward: the cell
     fuses it into ``gru_gates_ln``. No op of the unfused two-hot chain may
     remain (:func:`_two_hot_plain_ops`): the heads' log-prob is the fused
@@ -1036,23 +1061,23 @@ def _profile_gradient_step(checkpoint: str) -> dict:
     state = load_checkpoint(checkpoint)
     modules = build_training_agent(cfg, "cuda", state)
     optimizers = make_optimizers(cfg, *modules[:3])
-    train = make_train_step(*modules, optimizers, cfg)
+    train = make_train_step(*modules, optimizers, cfg, guard=guard)
     T, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
     data = {k: v.cuda() for k, v in _batch(np.random.default_rng(6), T, B, 18).items()}
     gen = torch.Generator(device="cuda").manual_seed(7)
     moments = init_moments("cuda")
     for _ in range(2):
-        moments, _ = train(data, moments, 1, gen)
+        moments = train(data, moments, 1, gen)[0]
     torch.cuda.synchronize()
     host = []
     for _ in range(3):
         t0 = time.perf_counter()
-        moments, _ = train(data, moments, 1, gen)
+        moments = train(data, moments, 1, gen)[0]
         torch.cuda.synchronize()
         host.append(time.perf_counter() - t0)
     acts = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[acts.CPU, acts.CUDA], record_shapes=True) as prof:
-        moments, _ = train(data, moments, 1, gen)
+        moments = train(data, moments, 1, gen)[0]
         torch.cuda.synchronize()
     events = _device_kernels(prof)
     device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
@@ -1072,6 +1097,7 @@ def _profile_gradient_step(checkpoint: str) -> dict:
                          "ops": sum(e.count for e in events if needle in e.key)}
     top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:8]
     return {
+        "guard": guard,
         "host_ms": float(np.median(host) * 1e3),
         "host_ms_all": [h * 1e3 for h in host],
         "device_ms": device_us / 1e3 if device_us > 0 else None,
@@ -1205,6 +1231,8 @@ def run_phase(workdir: str) -> dict:
     out["resume"] = _run_resume(summary, T, H)
     out["profile"] = _profile_gradient_step(summary["checkpoint"])
     log("gradient step profile: " + json.dumps(out["profile"]))
+    out["profile_guarded"] = _profile_gradient_step(summary["checkpoint"], guard=True)
+    log("guarded gradient step profile: " + json.dumps(out["profile_guarded"]))
     return out
 
 
@@ -1480,7 +1508,7 @@ def _ppo_stepwise(cfg, spaces: dict, n_actions: int, data: dict, perms: torch.Te
     for epoch_perm in perms:
         for rows_mb in epoch_perm[: rows - rows % mb].reshape(-1, mb):
             before = {k: v.detach().cpu().clone() for k, v in card_agent.state_dict().items()}
-            # a copy: Adam's step counts are CPU tensors that load_state_dict would share
+            # a copy: load_state_dict would share the CPU tensors of a state it loads on the CPU
             adam_before = copy.deepcopy(card_opt.state_dict())
             cpu_agent.load_state_dict(before)
             cpu_opt.load_state_dict(copy.deepcopy(adam_before))
@@ -1488,8 +1516,8 @@ def _ppo_stepwise(cfg, spaces: dict, n_actions: int, data: dict, perms: torch.Te
                 seen["relu"].clear()
                 seen["logits"].clear()
             batch = {k: v[rows_mb] for k, v in data.items()}
-            on_card = card_train({k: v.cuda() for k, v in batch.items()}, clip, ent, perms=own_order.cuda()).cpu()
-            on_cpu = cpu_train(batch, clip, ent, perms=own_order)
+            on_card = card_train({k: v.cuda() for k, v in batch.items()}, clip, ent, perms=own_order.cuda())[0].cpu()
+            on_cpu = cpu_train(batch, clip, ent, perms=own_order)[0]
             torch.testing.assert_close(on_card, on_cpu, rtol=1e-5, atol=1e-6)
             worst["loss_max_rel_err"] = max(worst["loss_max_rel_err"],
                                             float(((on_card - on_cpu).abs() / on_cpu.abs().clamp(min=1e-12)).max()))
@@ -1555,7 +1583,7 @@ def ppo_update_phase() -> dict:
             train = make_ppo_train_step(agent, make_ppo_optimizer(cfg, agent), cfg, rows)
             t0 = time.perf_counter()
             losses = train({k: v.to(dev) for k, v in data.items()}, float(cfg.algo.clip_coef),
-                           float(cfg.algo.ent_coef), perms=perms.to(dev)).cpu()
+                           float(cfg.algo.ent_coef), perms=perms.to(dev))[0].cpu()
             seconds = time.perf_counter() - t0
             results[dev] = (losses, {k: v.detach().cpu() for k, v in agent.state_dict().items()}, seconds)
         if not torch.isfinite(results["cuda"][0]).all():
@@ -1585,33 +1613,40 @@ def ppo_update_phase() -> dict:
 # -- 10. PPO run -----------------------------------------------------------------
 
 
-def _profile_ppo_update(checkpoint: str) -> dict:
+def _profile_ppo_update(checkpoint: str, guard: bool = False) -> dict:
     """One full-recipe update (512 rows, 10 x 8 minibatches) from the run's
     checkpoint on a synthetic rollout, after one warm-up update: host time
     (ending in the losses' read) and device time and operations from
-    ``torch.profiler``."""
+    ``torch.profiler``; with ``guard`` the update the loop runs by default
+    (each minibatch guarded, the skipped count read with the losses)."""
     cfg = load_config(find_run_config(checkpoint))
     state = load_checkpoint(checkpoint)
     agent, _ = build_ppo_agent(cfg, (2,), False, cfg.spaces.obs, "cuda", state["agent"])
     optimizer = make_ppo_optimizer(cfg, agent)
     optimizer.load_state_dict(state["optimizer"])
     rows = int(cfg.env.num_envs) * int(cfg.algo.rollout_steps)
-    train = make_ppo_train_step(agent, optimizer, cfg, rows)
+    update = make_ppo_train_step(agent, optimizer, cfg, rows, guard=guard)
     data = {k: v.cuda() for k, v in _ppo_batch(np.random.default_rng(10), rows, False, 2).items()}
     gen = torch.Generator(device="cuda").manual_seed(11)
-    train(data, 0.2, 0.0, generator=gen).cpu()
+
+    def train():  # ends in the loop's one read
+        losses, skipped = update(data, 0.2, 0.0, generator=gen)
+        return torch.cat([losses, skipped.reshape(1)]).cpu()
+
+    train()
     host = []
     for _ in range(3):
         t0 = time.perf_counter()
-        train(data, 0.2, 0.0, generator=gen).cpu()
+        train()
         host.append(time.perf_counter() - t0)
     acts = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
-        train(data, 0.2, 0.0, generator=gen).cpu()
+        train()
     events = _device_kernels(prof)
     device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
     top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:6]
     return {
+        "guard": guard,
         "host_ms": float(np.median(host) * 1e3),
         "host_ms_all": [h * 1e3 for h in host],
         "device_ms": device_us / 1e3 if device_us > 0 else None,
@@ -1693,6 +1728,8 @@ def ppo_run_phase(workdir: str) -> dict:
     log("PPO resume: " + json.dumps(out["resume"]))
     out["profile"] = _profile_ppo_update(summary["checkpoint"])
     log("PPO update profile: " + json.dumps(out["profile"]))
+    out["profile_guarded"] = _profile_ppo_update(summary["checkpoint"], guard=True)
+    log("guarded PPO update profile: " + json.dumps(out["profile_guarded"]))
     return out
 
 
@@ -1958,7 +1995,7 @@ def sac_update_phase(filled_rows: int = 4096, beta: float = 0.5) -> dict:
         card_agent, card_opts = agents["cuda"]
         cpu_agent, cpu_opts = agents["cpu"]
         cpu_agent.load_state_dict(card_agent.state_dict())
-        for a, b in zip(cpu_opts, card_opts):  # a copy: Adam's step counts are CPU tensors
+        for a, b in zip(cpu_opts, card_opts):  # a copy: load_state_dict shares same-device tensors
             a.load_state_dict(copy.deepcopy(b.state_dict()))
         rings["cpu"].tree.copy_(rings["cuda"].tree.cpu())
         rings["cpu"].max_p.copy_(rings["cuda"].max_p.cpu())
@@ -1967,7 +2004,7 @@ def sac_update_phase(filled_rows: int = 4096, beta: float = 0.5) -> dict:
         out = {}
         for dev in ("cuda", "cpu"):
             job = rings[dev].make_job()  # nothing staged: the step samples the ring as it is
-            out[dev] = trains[dev](job, [1.0], beta, draws={k: v.to(dev) for k, v in draws.items()}).cpu()
+            out[dev] = trains[dev](job, [1.0], beta, draws={k: v.to(dev) for k, v in draws.items()})[0].cpu()
         torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-5, atol=1e-6)
         losses_cpu.append(out["cpu"].tolist())
         worst["loss_rel"] = max(worst["loss_rel"], float(((out["cuda"] - out["cpu"]).abs() / out["cpu"].abs().clamp(min=1e-12)).max()))
@@ -1989,11 +2026,12 @@ def sac_update_phase(filled_rows: int = 4096, beta: float = 0.5) -> dict:
 # -- 13. SAC run ----------------------------------------------------------------
 
 
-def _profile_sac_dispatch(checkpoint: str) -> dict:
+def _profile_sac_dispatch(checkpoint: str, guard: bool = False) -> dict:
     """One full-width dispatch (append + 4 PER steps) from the run's
     checkpoint, after warm-up dispatches: host time (ending in a
     synchronize), and device time and operations from ``torch.profiler``,
-    with ``sumtree_sample``'s share."""
+    with ``sumtree_sample``'s share; with ``guard`` the dispatch the loop
+    runs by default (each step guarded, the skipped count read after it)."""
     from sheeprl_tpu_torch.algos.sac.sac import make_resident_train_step
     from sheeprl_tpu_torch.replay import DeviceReplayState
 
@@ -2003,12 +2041,13 @@ def _profile_sac_dispatch(checkpoint: str) -> dict:
     for opt, name in zip(optimizers, ("actor_optimizer", "qf_optimizer", "alpha_optimizer")):
         opt.load_state_dict(state[name])
     drb = _sac_ring(cfg, "cuda").load_state_dict(DeviceReplayState.from_dict(state["rb"]))
-    train = make_resident_train_step(agent, optimizers, cfg, drb)
+    train = make_resident_train_step(agent, optimizers, cfg, drb, guard=guard)
     rng = np.random.default_rng(16)
 
     def dispatch():
         drb.add({k: rng.normal(size=(1, 4) + shape).astype(np.float32) for k, (shape, _) in drb.specs.items()})
-        return train(drb.make_job(), [1.0] * 4, 1.0)
+        losses, skipped = train(drb.make_job(), [1.0] * 4, 1.0)
+        return float(skipped) if guard else losses
 
     for _ in range(3):
         dispatch()
@@ -2028,6 +2067,7 @@ def _profile_sac_dispatch(checkpoint: str) -> dict:
     kern_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events if "sumtree_sample" in e.key)
     top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:8]
     return {
+        "guard": guard,
         "host_ms": float(np.median(host) * 1e3),
         "host_ms_all": [h * 1e3 for h in host],
         "device_ms": device_us / 1e3 if device_us > 0 else None,
@@ -2136,6 +2176,8 @@ def sac_run_phase(workdir: str) -> dict:
     log("SAC resume: " + json.dumps({k: v for k, v in out["resume"].items() if k != "losses"}))
     out["profile"] = _profile_sac_dispatch(summary["checkpoint"])
     log("SAC dispatch profile: " + json.dumps(out["profile"]))
+    out["profile_guarded"] = _profile_sac_dispatch(summary["checkpoint"], guard=True)
+    log("guarded SAC dispatch profile: " + json.dumps(out["profile_guarded"]))
     return out
 
 
@@ -2686,7 +2728,7 @@ def resident_run_phase(workdir: str) -> dict:
     try:
         resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
                            "algo.learning_starts=2", f"algo.total_steps={summary['policy_steps'] + RESIDENT_RESUME_STEPS}",
-                           "checkpoint.save_last=false"])
+                           "checkpoint.save_last=true", "checkpoint.async_save=true"])
     finally:
         dv3.SequenceRingDriver = _Recording.__bases__[0]
     resume_launches = dict(kernels.LAUNCHES)
@@ -2701,6 +2743,7 @@ def resident_run_phase(workdir: str) -> dict:
                      "gradient_steps": resumed["gradient_steps"], "test_steps": resumed["test_steps"],
                      "launches": resume_launches, "restored_equal": sorted(same), "losses": resumed["metrics"]}
     log("resident resume: " + json.dumps({k: v for k, v in out["resume"].items() if k != "losses"}))
+    out["saves"] = _resident_saves(summary, resumed)
     out["profile"] = _profile_resident_dispatch(summary["checkpoint"])
     log("resident dispatch profile: " + json.dumps(out["profile"]))
     return out
@@ -2978,6 +3021,426 @@ def stateless_evaluation_phase(ckpt: str, algo: str, floor: float, run_test_rewa
     return out
 
 
+# -- 20. the fault runtime ---------------------------------------------------------
+
+FAULT_PPO_ITERATIONS, FAULT_NAN_AT = 4, 2  # PPO drill runs: their depth and the poisoned iteration
+
+
+def _tensors_equal(a, b) -> bool:
+    """Two checkpoint subtrees bit-equal: every tensor ``torch.equal``, every
+    other leaf ``==``."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_tensors_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(_tensors_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _all_finite(tree) -> bool:
+    if isinstance(tree, torch.Tensor):
+        return not tree.is_floating_point() or bool(torch.isfinite(tree).all())
+    if isinstance(tree, dict):
+        return all(_all_finite(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(_all_finite(v) for v in tree)
+    return True
+
+
+def _on_card(tensors) -> bool:
+    return all(t.is_cuda for t in tensors)
+
+
+def _fault_ppo_run(root: str, *extra) -> dict:
+    """``run preset=ppo`` at the full recipe's widths, FAULT_PPO_ITERATIONS
+    iterations, a checkpoint every iteration; the summary and the launches."""
+    kernels.reset_launches()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        summary = cli.run([f"preset={PPO_PRESET}", f"algo.total_steps={FAULT_PPO_ITERATIONS * 512}",
+                           "checkpoint.every=512", "metric.log_level=0", "algo.run_test=false", f"log_root={root}",
+                           *extra])
+    summary["launches"] = dict(kernels.LAUNCHES)
+    summary["warnings"] = [str(w.message) for w in caught if "skipped" in str(w.message) or "rolling" in str(w.message)]
+    return summary
+
+
+def _fault_ppo(workdir: str) -> dict:
+    """PPO on the card with ``fault.inject.nan_grads_at``:
+
+    - skip: iteration FAULT_NAN_AT's advantages are NaN, so its 80
+      minibatches are skipped; its checkpoint's parameters, Adam moments and
+      step counts (copied from the card) bit-equal the previous iteration's;
+      everything finite at the end; ``gae`` once per iteration;
+    - rollback: iteration 3 poisoned with ``max_consecutive=1``: the sentinel
+      loads the latest complete checkpoint (iteration 2), so iteration 3's
+      checkpoint holds exactly its agent, Adam state and generator;
+    - resume: ``checkpoint.resume_from=latest`` over the rollback run's root
+      continues from its newest complete checkpoint for 2 iterations, and
+      ``keep_last`` (5) holds: the manifest keeps the 5 newest of 6 saves;
+    - abort: iterations 1 and 2 poisoned with ``max_consecutive=2
+      action=abort`` raise ``DivergenceError``."""
+    from sheeprl_tpu_torch.fault import DivergenceError, read_manifest
+
+    out = {}
+    root = os.path.join(workdir, "skip")
+    t0 = time.perf_counter()
+    s = _fault_ppo_run(root, f"fault.inject.nan_grads_at=[{FAULT_NAN_AT}]")
+    ckpt_dir = os.path.dirname(s["checkpoint"])
+    want_skipped = [80.0 if i == FAULT_NAN_AT else 0.0 for i in range(1, FAULT_PPO_ITERATIONS + 1)]
+    if s["skipped"] != want_skipped or s["rollbacks"] != 0:
+        raise AssertionError(f"PPO skip drill: skipped {s['skipped']} != {want_skipped}, rollbacks {s['rollbacks']}")
+    before = load_checkpoint(os.path.join(ckpt_dir, f"ckpt_{(FAULT_NAN_AT - 1) * 512}_0.ckpt"))
+    after = load_checkpoint(os.path.join(ckpt_dir, f"ckpt_{FAULT_NAN_AT * 512}_0.ckpt"))
+    if not (_tensors_equal(before["agent"], after["agent"])
+            and _tensors_equal(before["optimizer"]["state"], after["optimizer"]["state"])):
+        raise AssertionError("the skipped PPO iteration moved the parameters or Adam's state")
+    final = load_checkpoint(s["checkpoint"])
+    steps = {int(v["step"]) for v in final["optimizer"]["state"].values()}
+    if not (_all_finite(final["agent"]) and _all_finite(final["optimizer"]["state"])) or steps != {240}:
+        raise AssertionError(f"PPO skip drill: final state finite {_all_finite(final['agent'])}, Adam steps {steps}")
+    _ppo_launch_check(s, s["launches"])
+    out["skip"] = {"skipped": s["skipped"], "launches": s["launches"], "adam_steps": sorted(steps),
+                   "losses": s["losses"], "wall_s": time.perf_counter() - t0}
+    log("fault PPO skip: " + json.dumps({k: v for k, v in out["skip"].items() if k != "losses"}))
+
+    root = os.path.join(workdir, "rollback")
+    s = _fault_ppo_run(root, "fault.inject.nan_grads_at=[3]", "fault.sentinel.max_consecutive=1")
+    ckpt_dir = os.path.dirname(s["checkpoint"])
+    good = load_checkpoint(os.path.join(ckpt_dir, "ckpt_1024_0.ckpt"))
+    rolled = load_checkpoint(os.path.join(ckpt_dir, "ckpt_1536_0.ckpt"))
+    same = {k: _tensors_equal(good[k], rolled[k]) for k in ("agent", "rng")}
+    same["optimizer"] = _tensors_equal(good["optimizer"]["state"], rolled["optimizer"]["state"])
+    if s["rollbacks"] != 1 or not all(same.values()):
+        raise AssertionError(f"PPO rollback drill: {s['rollbacks']} rollbacks, restored equal {same}")
+    _ppo_launch_check(s, s["launches"])
+    out["rollback"] = {"rollbacks": s["rollbacks"], "skipped": s["skipped"], "restored_equal": same,
+                       "launches": s["launches"]}
+    log("fault PPO rollback: " + json.dumps(out["rollback"]))
+
+    kernels.reset_launches()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        resumed = cli.run([f"preset={PPO_PRESET}", f"log_root={root}", "checkpoint.resume_from=latest",
+                           f"algo.total_steps={(FAULT_PPO_ITERATIONS + 2) * 512}", "metric.log_level=0",
+                           "algo.run_test=false"])
+    launches = dict(kernels.LAUNCHES)
+    line = f"checkpoint.resume_from=latest -> {s['checkpoint']}"
+    manifest = [e["step"] for e in read_manifest(ckpt_dir)]
+    kept = sorted(int(f.split("_")[1]) for f in os.listdir(ckpt_dir) if f.endswith(".ckpt"))
+    want_kept = [i * 512 for i in range(2, FAULT_PPO_ITERATIONS + 3)]
+    if (line not in printed.getvalue() or resumed["start_iter"] != FAULT_PPO_ITERATIONS + 1
+            or resumed["iterations"] != 2 or manifest != want_kept or kept != want_kept):
+        raise AssertionError(f"PPO resume from latest: printed {printed.getvalue()!r}, start {resumed['start_iter']}, "
+                             f"manifest {manifest}, files {kept}")
+    _ppo_launch_check(resumed, launches)
+    out["resume_latest"] = {"start_iter": resumed["start_iter"], "iterations": resumed["iterations"],
+                            "manifest_steps": manifest, "launches": launches}
+    log("fault PPO resume from latest: " + json.dumps(out["resume_latest"]))
+
+    try:
+        _fault_ppo_run(os.path.join(workdir, "abort"), "fault.inject.nan_grads_at=[1,2]",
+                       "fault.sentinel.max_consecutive=2", "fault.sentinel.action=abort")
+    except DivergenceError as e:
+        out["abort"] = str(e)
+    else:
+        raise AssertionError("PPO abort drill: two poisoned iterations with action=abort did not raise")
+    log(f"fault PPO abort: {out['abort']}")
+    return out
+
+
+def _sac_ring_arrays(ring, rng, filled_rows: int, max_p: float) -> dict:
+    """A ring snapshot holding ``filled_rows`` random rows at random
+    priorities and ``max_p``, for ``load_state_dict``."""
+    from sheeprl_tpu_torch.replay import DeviceReplayState
+    from sheeprl_tpu_torch.replay import sumtree as st
+
+    capacity, n_envs = ring.capacity, ring.n_envs
+    arrays = {}
+    for k, (shape, _) in ring.specs.items():
+        full = np.zeros((capacity, n_envs) + shape, np.float32)
+        full[:filled_rows] = rng.normal(size=(filled_rows, n_envs) + shape)
+        arrays[f"storage/{k}"] = torch.from_numpy(full)
+    arrays["storage/terminated"].zero_()
+    leaves = filled_rows * n_envs
+    arrays["tree"] = st.update(st.init(capacity * n_envs), torch.arange(leaves),
+                               torch.from_numpy(rng.uniform(0.05, 2.0, size=leaves).astype(np.float32)))
+    arrays["max_p"] = torch.tensor(max_p)
+    meta = {"capacity": capacity, "n_envs": n_envs, "prioritized": True, "host_pos": filled_rows, "host_full": False}
+    return DeviceReplayState("uniform", {**arrays, "key": ring.generator.get_state()}, meta)
+
+
+def _fault_sac_dispatch(filled_rows: int = 4096, beta: float = 0.5) -> dict:
+    """One guarded SAC-PER resident dispatch at the full ``sac_per`` width
+    whose every drawn row carries a NaN reward (the ring's rewards are NaN),
+    after one clean dispatch: its 4 steps are skipped, and the parameters
+    (target critics included), the three Adams (step counts on the card),
+    the sum-tree and ``max_p`` bit-equal what they were with the staged
+    row's fresh leaves appended; the next draw's ``sumtree_sample`` leaves
+    equal those of a control tree that appended the row and never took the
+    poisoned steps; ``sumtree_sample`` launched once per step."""
+    from sheeprl_tpu_torch.algos.sac.sac import make_resident_train_step
+    from sheeprl_tpu_torch.replay import sumtree as st
+
+    cfg = preset(SAC_PRESET)
+    rng = np.random.default_rng(21)
+    agent, optimizers = _sac_parts(cfg, "cuda")
+    drb = _sac_ring(cfg, "cuda")
+    drb.load_state_dict(_sac_ring_arrays(drb, rng, filled_rows, 2.5))
+    train = make_resident_train_step(agent, optimizers, cfg, drb, guard=True)
+
+    def staged():
+        return {k: rng.normal(size=(1, drb.n_envs) + shape).astype(np.float32) for k, (shape, _) in drb.specs.items()}
+
+    drb.add(staged())
+    _, clean = train(drb.make_job(), [1.0] * 4, beta)
+    if float(clean) != 0.0:
+        raise AssertionError(f"the clean SAC dispatch skipped {float(clean)} steps")
+    state_tensors = list(agent.parameters()) + [t for opt in optimizers for t in opt.state_tensors()]
+    if not _on_card(state_tensors):
+        raise AssertionError("a SAC parameter or Adam state tensor (step counts included) is not on the card")
+    before = [t.detach().clone() for t in state_tensors]
+    max_p = drb.max_p.clone()
+    drb.storage["rewards"].fill_(float("nan"))
+    row = staged()
+    row["rewards"][:] = np.nan
+    drb.add(row)
+    job = drb.make_job()
+    fresh = torch.arange(job.pos * drb.n_envs, (job.pos + job.count) * drb.n_envs, device="cuda")
+    control = st.update(drb.tree.clone(), fresh, drb.max_p.expand(fresh.shape[0]))
+    kernels.reset_launches()
+    losses, skipped = train(job, [1.0] * 4, beta)
+    launches = dict(kernels.LAUNCHES)
+    if float(skipped) != 4.0 or launches["sumtree_sample"] != 4:
+        raise AssertionError(f"poisoned SAC dispatch: skipped {float(skipped)}, launches {launches}")
+    same = {"state": all(torch.equal(a, b) for a, b in zip(state_tensors, before)),
+            "tree": torch.equal(drb.tree, control), "max_p": torch.equal(drb.max_p, max_p)}
+    u = torch.rand(int(cfg.algo.per_rank_batch_size), device="cuda", generator=torch.Generator("cuda").manual_seed(22))
+    leaf, w = kernels.sumtree_sample(drb.tree, u, job.valid * drb.n_envs, beta)
+    leaf_ctl, w_ctl = kernels.sumtree_sample(control, u, job.valid * drb.n_envs, beta)
+    same["next_draw"] = torch.equal(leaf, leaf_ctl) and torch.equal(w, w_ctl)
+    if not all(same.values()):
+        raise AssertionError(f"the poisoned SAC dispatch changed the train state: {same}")
+    out = {"skipped": float(skipped), "losses": losses.tolist(), "bit_equal": same, "launches": launches}
+    log("fault SAC dispatch: " + json.dumps(out))
+    return out
+
+
+def _fault_rssm_step() -> dict:
+    """One guarded DreamerV3-S host-tier gradient step at the full recipe
+    (B 16 x T 64, H 15) on a batch whose rewards are NaN, after one clean
+    step: the step is skipped, the four modules, the three Adams (step
+    counts on the card) and ``Moments`` bit-equal what they were, and the
+    kernels launch the step's exact counts (3 fused two-hot losses, their 3
+    backward launches, 3 decodes, T + H GRU steps)."""
+    cfg = _run_cfg()
+    T, B, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size), int(cfg.algo.horizon)
+    modules = build_training_agent(cfg, "cuda")
+    optimizers = make_optimizers(cfg, *modules[:3])
+    train = make_train_step(*modules, optimizers, cfg, guard=True)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    data = {k: v.cuda() for k, v in _batch(np.random.default_rng(24), T, B, 18).items()}
+    moments, _, clean = train(data, init_moments("cuda"), 0, gen)
+    if float(clean) != 0.0:
+        raise AssertionError("the clean DreamerV3 step was skipped")
+    state_tensors = [p for m in modules for p in m.parameters()]
+    state_tensors += [t for opt in optimizers.values() for t in opt.state_tensors()]
+    if not _on_card(state_tensors):
+        raise AssertionError("a DreamerV3 parameter or Adam state tensor (step counts included) is not on the card")
+    before = [t.detach().clone() for t in state_tensors]
+    moments_before = {k: v.clone() for k, v in moments.items()}
+    data["rewards"].fill_(float("nan"))
+    kernels.reset_launches()
+    moments, metrics, skipped = train(data, moments, 1, gen)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want.update({"two_hot_symlog_loss_lse": 3, "two_hot_symlog_loss_lse_bwd": 3, "two_hot_symexp_decode": 3,
+                 "gru_gates": T + H})
+    same = {"state": all(torch.equal(a, b) for a, b in zip(state_tensors, before)),
+            "moments": all(torch.equal(moments[k], v) for k, v in moments_before.items())}
+    if float(skipped) != 1.0 or launches != want or not all(same.values()):
+        raise AssertionError(f"poisoned DreamerV3 step: skipped {float(skipped)}, launches {launches} != {want}, "
+                             f"bit-equal {same}")
+    out = {"skipped": float(skipped), "bit_equal": same, "launches": launches,
+           "reward_loss": float(metrics[0][METRIC_NAMES.index("Loss/reward_loss")]), "tensors": len(state_tensors)}
+    log("fault DreamerV3 step: " + json.dumps(out))
+    return out
+
+
+def fault_phase(workdir: str) -> dict:
+    """The fault runtime on the card: the PPO drills through ``run``
+    (:func:`_fault_ppo`), one poisoned SAC-PER dispatch
+    (:func:`_fault_sac_dispatch`) and one poisoned DreamerV3 host-tier
+    gradient step (:func:`_fault_rssm_step`)."""
+    return {"ppo": _fault_ppo(workdir), "sac": _fault_sac_dispatch(), "rssm": _fault_rssm_step()}
+
+
+def _resident_saves(summary: dict, resumed: dict) -> dict:
+    """The resident run's checkpoints through the manager, each holding the
+    100,000-row ring: the run's own, saved synchronously, and the resume's,
+    saved asynchronously. Per save: the host ms the training thread spent
+    in ``save`` (all of it, synchronously; the staging, asynchronously), the
+    writer's write and sha256 seconds, the file's bytes. Both are published
+    with matching sizes and digests, and the resume's is the newest
+    complete checkpoint."""
+    from sheeprl_tpu_torch.fault import latest_complete, read_manifest
+
+    ckpt_dir = os.path.dirname(summary["checkpoint"])
+    entries = {e["file"]: e for e in read_manifest(ckpt_dir)}
+    out = {}
+    for mode, run in (("sync", summary), ("async", resumed)):
+        name = os.path.basename(run["checkpoint"])
+        timing = run["checkpoint_timings"][-1]
+        if name not in entries or entries[name]["bytes"] != os.path.getsize(run["checkpoint"]):
+            raise AssertionError(f"the {mode} save of {name} is not published with its size")
+        out[mode] = {"host_ms": timing["blocked_s"] * 1e3, "write_s": timing["write_s"],
+                     "digest_s": timing["digest_s"], "bytes": timing["bytes"]}
+    if str(latest_complete(ckpt_dir)) != str(resumed["checkpoint"]):
+        raise AssertionError(f"the newest complete checkpoint is {latest_complete(ckpt_dir)}, not the async save's")
+    log("resident checkpoint saves: " + json.dumps(out))
+    return out
+
+
+# -- 21. non-finite inputs through every kernel ---------------------------------------
+
+
+def _poison(t: torch.Tensor, rows, gen) -> torch.Tensor:
+    """``t`` with a NaN, a +inf and a -inf at a seeded column of the rows
+    ``rows[0]``, ``rows[1]`` and ``rows[2]`` of its leading axis."""
+    t = t.clone()
+    for r, value in zip(rows, (float("nan"), float("inf"), float("-inf"))):
+        flat = t[r].reshape(-1)
+        flat[int(torch.randint(flat.numel(), (1,), generator=gen))] = value
+    return t
+
+
+def _nonfinite_gru(gen):
+    proj = _poison(torch.randn(16, 1536, generator=gen) * 2, (1, 3, 5), gen).cuda()
+    h = _poison(torch.randn(16, 512, generator=gen), (7, 9, 11), gen).cuda()
+    w, b = (1 + 0.1 * torch.randn(1536, generator=gen)).cuda(), (0.1 * torch.randn(1536, generator=gen)).cuda()
+    return [(kernels.gru_gates_ln(proj, h, w, b, GRU_LN_EPS), kernels.gru_gates_ln_reference(proj, h, w, b, GRU_LN_EPS))]
+
+
+def _two_hot_nonfinite_inputs(gen, rows: int):
+    logits = _poison(torch.randn(rows, 255, generator=gen) * 3, (1, 2, 3), gen).cuda()
+    value = _poison(torch.randn(rows, 1, generator=gen) * 10, (4, 5, 6), gen).cuda()
+    return logits, value
+
+
+def _two_hot_lse_picked(logits: torch.Tensor, value: torch.Tensor, low: float = -20.0, high: float = 20.0):
+    """The two-hot log-prob in the form of the JAX package's Pallas kernel
+    (``sheeprl_tpu/ops/kernels/twohot.py`` ``_loss_kernel``), which picks the
+    bracket's two bins instead of summing target * logit over every bin: a
+    -inf logit outside the bracket leaves the row finite there, where the
+    plain reference's 0 * -inf gives NaN."""
+    x = torch.sign(value) * torch.log1p(torch.abs(value))
+    k = logits.shape[-1]
+    bins = torch.linspace(low, high, k, dtype=logits.dtype, device=logits.device)
+    below = (torch.sum((bins <= x).long(), dim=-1, keepdim=True) - 1).clip(0, k - 1)
+    above = (k - torch.sum((bins > x).long(), dim=-1, keepdim=True)).clip(0, k - 1)
+    equal = below == above
+    to_below = torch.where(equal, 1.0, torch.abs(bins[below] - x))
+    to_above = torch.where(equal, 1.0, torch.abs(bins[above] - x))
+    total = to_below + to_above
+    norm = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
+    return (to_above / total * norm.gather(-1, below) + to_below / total * norm.gather(-1, above))[..., 0]
+
+
+def _nonfinite_two_hot_lse(gen):
+    logits, value = _two_hot_nonfinite_inputs(gen, TWO_HOT_LSE_MAIN)
+    return [(kernels.two_hot_symlog_loss_lse(logits, value), _two_hot_lse_picked(logits, value))]
+
+
+def _nonfinite_two_hot_lse_bwd(gen):
+    logits, value = _two_hot_nonfinite_inputs(gen, TWO_HOT_LSE_MAIN)
+    grad = torch.ones(TWO_HOT_LSE_MAIN, device="cuda")
+    leaf = logits.clone().requires_grad_(True)
+    kernels.two_hot_symlog_loss_lse(leaf, value).backward(grad)
+    lse = torch.logsumexp(logits, dim=-1)
+    return [(leaf.grad, kernels.two_hot_symlog_loss_lse_grad_reference(logits, value, lse, grad))]
+
+
+def _nonfinite_two_hot_decode(gen):
+    logits, _ = _two_hot_nonfinite_inputs(gen, 16384)
+    return [(kernels.two_hot_symexp_decode(logits), kernels.two_hot_symexp_decode_reference(logits))]
+
+
+def _nonfinite_gae(gen):
+    rewards = _poison(torch.randn(128, 4, 1, generator=gen), (20, 40, 60), gen).cuda()
+    values = _poison(torch.randn(128, 4, 1, generator=gen), (70, 90, 110), gen).cuda()
+    dones = (torch.rand(128, 4, 1, generator=gen) < 0.05).to(torch.uint8).cuda()
+    next_value = _poison(torch.randn(4, 1, generator=gen), (0, 1, 2), gen).cuda()
+    got = kernels.gae(rewards, values, dones, next_value, 0.99, 0.95)
+    want = kernels.gae_reference(rewards, values, dones, next_value, 0.99, 0.95)
+    return list(zip(got, want))
+
+
+def _nonfinite_sumtree(gen):
+    from sheeprl_tpu_torch.replay import sumtree as st
+
+    leaves, batch = SUMTREE_MAIN
+    prio = torch.rand(leaves, generator=gen) * 2
+    tree = st.update(st.init(leaves), torch.arange(leaves), prio).cuda()
+    u = _poison(torch.rand(batch, generator=gen), (3, 5, 7), gen).cuda()
+    pairs = []
+    for t in (tree, st.update(tree.clone(), torch.tensor([leaves // 3], device="cuda"),
+                              torch.tensor([float("nan")], device="cuda"))):
+        (leaf, w), (leaf_ref, w_ref) = (kernels.sumtree_sample(t, u, leaves, 0.4),
+                                        kernels.sumtree_sample_reference(t, u, leaves, 0.4))
+        if not torch.equal(leaf, leaf_ref):
+            raise AssertionError("sumtree_sample drew other leaves than its plain version on non-finite inputs")
+        pairs.append((w, w_ref))
+    return pairs
+
+
+def _nonfinite_scatter(gen):
+    ring = torch.zeros(64, 4, 18, device="cuda")
+    staged = _poison(torch.randn(1, 4, 18, generator=gen), (0, 0, 0), gen).cuda()
+    row = torch.tensor([[5, 5, 64, 5]], dtype=torch.int32, device="cuda")  # one slot dropped
+    pos = torch.tensor([5, 5, 5, 5], dtype=torch.int32, device="cuda")
+    got = kernels.ragged_ring_scatter_keys([ring.clone()], [staged], row, pos)[0]
+    want = kernels.ragged_ring_scatter_reference(ring.clone(), staged, row, pos)
+    return [(got, want)]
+
+
+#: each kernel of the guarded paths on inputs seeded with NaN, +inf and -inf
+#: at the main path's shapes: (kernel output, plain output) pairs, the plain
+#: output in the form of the JAX package's Pallas kernel where that differs
+NONFINITE_CHECKS = {
+    "gru_gates": _nonfinite_gru,
+    "two_hot_symlog_loss_lse": _nonfinite_two_hot_lse,
+    "two_hot_symlog_loss_lse_bwd": _nonfinite_two_hot_lse_bwd,
+    "two_hot_symexp_decode": _nonfinite_two_hot_decode,
+    "gae": _nonfinite_gae,
+    "sumtree_sample": _nonfinite_sumtree,
+    "ragged_ring_scatter": _nonfinite_scatter,
+}
+
+
+def nonfinite_check(name: str, seed: int = 0) -> dict:
+    """One kernel against its plain version on non-finite inputs: the same
+    non-finite output positions, and some there at all."""
+    gen = torch.Generator().manual_seed(seed)
+    counts = []
+    for got, want in NONFINITE_CHECKS[name](gen):
+        got_bad, want_bad = ~torch.isfinite(got.float()), ~torch.isfinite(want.float())
+        if not torch.equal(got_bad, want_bad):
+            raise AssertionError(f"{name}: {int((got_bad != want_bad).sum())} output positions are finite on one "
+                                 "side only (kernel against its plain version)")
+        counts.append(int(got_bad.sum()))
+    if not any(counts):
+        raise AssertionError(f"{name}: the seeded NaN and Inf inputs gave no non-finite output")
+    return {"nonfinite_outputs": counts}
+
+
+def nonfinite_phase() -> dict:
+    out = {name: nonfinite_check(name) for name in NONFINITE_CHECKS}
+    log("non-finite inputs, kernel against plain: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
@@ -3000,6 +3463,7 @@ def main() -> int:
     gae_row = timed("gae", gae_phase)
     sumtree_row = timed("sumtree", sumtree_phase, str(chase_lib))
     scatter_row = timed("ring_scatter", scatter_phase)
+    nonfinite = timed("nonfinite", nonfinite_phase)
     cfg = preset("dreamer_v3_S_atari100k")
     model = timed("model", model_phase, cfg)
     step = timed("step", step_phase, cfg)
@@ -3023,13 +3487,20 @@ def main() -> int:
     resident_dispatch = timed("resident_dispatch", resident_dispatch_phase)
     with tempfile.TemporaryDirectory() as workdir:
         resident_run = timed("resident_run", resident_run_phase, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        fault = timed("fault", fault_phase, workdir)
     paths = {"run": run, "run_resume": run["resume"], "serve": serve, "evaluation": rssm_eval, "ppo_run": ppo_run,
              "ppo_serve": ppo_serve, "ppo_evaluation": ppo_eval, "sac_run": sac_run, "sac_serve": sac_serve,
-             "sac_evaluation": sac_eval, "resident_run": resident_run, "resident_resume": resident_run["resume"]}
+             "sac_evaluation": sac_eval, "resident_run": resident_run, "resident_resume": resident_run["resume"],
+             "fault_ppo_skip": fault["ppo"]["skip"], "fault_ppo_rollback": fault["ppo"]["rollback"],
+             "fault_ppo_resume_latest": fault["ppo"]["resume_latest"], "fault_sac_dispatch": fault["sac"],
+             "fault_rssm_step": fault["rssm"]}
     rows = [gru] + two_hot + [gae_row, sumtree_row, scatter_row]
     for row in rows:
         row["launches_by_path"] = {name: path["launches"][row["name"]] for name, path in paths.items()}
         row["floor_ms"] = floor  # an empty kernel's time, timed as the row's ms
+        if row["name"] in nonfinite:
+            row["nonfinite_outputs"] = nonfinite[row["name"]]["nonfinite_outputs"]
     # the test episodes inside the run paths: one GRU step each, counted exactly there
     gru["launches_by_path"].update(run_test=run["test_steps"], run_resume_test=run["resume"]["test_steps"],
                                    resident_test=resident_run["test_steps"],
@@ -3047,7 +3518,8 @@ def main() -> int:
                       "rssm_evaluation": rssm_eval, "ppo_update": ppo_update, "ppo_run": ppo_run,
                       "ppo_serve": ppo_serve, "ppo_evaluation": ppo_eval, "sac_update": sac_update,
                       "sac_run": sac_run, "sac_serve": sac_serve, "sac_evaluation": sac_eval,
-                      "resident_dispatch": resident_dispatch, "resident_run": resident_run}))
+                      "resident_dispatch": resident_dispatch, "resident_run": resident_run, "fault": fault,
+                      "nonfinite": nonfinite}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

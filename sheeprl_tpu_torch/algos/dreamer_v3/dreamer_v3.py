@@ -25,6 +25,16 @@ the CUDA ``ragged_ring_scatter`` kernel, the window draws on the card and
 the granted gradient steps. With ``buffer.checkpoint`` a checkpoint holds
 the replay of its tier, as the JAX loop's does: the ring's snapshot, or the
 host buffer's state with its generators. Either resumes on either tier.
+
+On the host tier, with ``fault.sentinel.enabled`` (the default), each
+gradient step is guarded as the JAX package's ``guard=True`` step is: when a
+loss or gradient of the three updates is not finite, the four modules, the
+three optimizers' states (step counts included) and ``Moments`` go back to
+what they were before the target-critic EMA (a select on the device, no
+host read), and the EMA cadence counts only the steps taken. The
+:class:`~sheeprl_tpu_torch.fault.DivergenceSentinel` reads the skipped count
+with the metrics once per train call. The resident tier stays unguarded, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -66,6 +76,8 @@ from sheeprl_tpu_torch.distributions import (
     TwoHotEncodingDistribution,
 )
 from sheeprl_tpu_torch.envs import make_vector_env
+from sheeprl_tpu_torch.fault import CheckpointManager, DivergenceSentinel, load_resume_state
+from sheeprl_tpu_torch.ops.guard import StateGuard, finite_guard, guarded_select
 from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
 from sheeprl_tpu_torch.replay import (
     DeviceReplayState,
@@ -74,7 +86,6 @@ from sheeprl_tpu_torch.replay import (
     restore_host_env_buffer,
 )
 from sheeprl_tpu_torch.utils.burst import dreamer_ring_keys
-from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.utils import Ratio
 
 __all__ = ["METRIC_NAMES", "Player", "draw_noise", "make_optimizers", "make_train_step", "main"]
@@ -143,14 +154,22 @@ def make_train_step(
     optimizers: Dict[str, ClippedOptimizer],
     cfg: Any,
     ring: Optional[Dict[str, Any]] = None,
+    guard: bool = False,
 ) -> Callable:
     """The G-step update: ``train(data, moments_state, cum0, generator=None,
-    noise=None) -> (moments_state, metrics)``. ``data`` holds ``(G, T, B,
+    noise=None) -> (moments_state, metrics, skipped)``. ``data`` holds ``(G, T, B,
     ...)`` float tensors on the modules' device (pixels in ``[0, 255]``);
     ``cum0`` counts the gradient steps taken before; ``noise`` is a list of G
     :func:`draw_noise` dicts, else the draws come from ``generator``. The
     modules and optimizers are updated in place; ``metrics`` is ``(G, 10)``
-    in :data:`METRIC_NAMES` order.
+    in :data:`METRIC_NAMES` order; ``skipped`` is the 0-dim count of steps
+    the guard undid (0 unguarded), on the device.
+
+    ``guard=True`` (JAX ``guard=True``, host tier only): a step whose losses
+    or gradients are not all finite leaves the modules, the optimizers'
+    states and ``moments_state`` as they were before its target-critic EMA,
+    and the step count that sets the EMA's cadence advances only over the
+    steps taken.
 
     With a ``ring`` spec (:class:`~sheeprl_tpu_torch.replay.SequenceRingDriver`
     builds it), the same step body instead becomes the device ring's burst
@@ -178,17 +197,28 @@ def make_train_step(
     wm_params = list(world_model.parameters())
     actor_params = list(actor.parameters())
     critic_params = list(critic.parameters())
+    target_params = list(target_critic.parameters())
+    state_guard = StateGuard(
+        lambda: wm_params + actor_params + critic_params + target_params
+        + [t for opt in optimizers.values() for t in opt.state_tensors()]
+    ) if guard else None
 
     def grouped(logits: torch.Tensor) -> torch.Tensor:
         return logits.reshape(*logits.shape[:-1], stochastic_size, discrete_size)
 
-    def gradient_step(batch: Dict[str, torch.Tensor], moments_state, cum: int, noise: Dict[str, Any]):
-        # -- target-critic EMA: a full copy at the first step
-        if cum % target_update_freq == 0:
-            mix = 1.0 if cum == 0 else tau
-            with torch.no_grad():
-                for t, c in zip(target_critic.parameters(), critic.parameters()):
-                    t.copy_(mix * c + (1.0 - mix) * t)
+    def gradient_step(batch: Dict[str, torch.Tensor], moments_state, cum: "torch.Tensor | int",
+                      noise: Dict[str, Any]):
+        """One step; ``cum``, the steps taken before, is a 0-dim integer
+        tensor (or a host int), so the EMA's cadence needs no host read.
+        Returns ``(moments_state, metrics, ok)``, ``ok`` None unguarded."""
+        old_moments = moments_state
+        # -- target-critic EMA: a full copy at the first step, as JAX mixes it
+        cum = torch.as_tensor(cum, dtype=torch.int64, device=batch["actions"].device)
+        mix = torch.where(cum % target_update_freq == 0, torch.where(cum == 0, 1.0, tau), 0.0).to(torch.float32)
+        with torch.no_grad():
+            moved = torch._foreach_mul(critic_params, mix)
+            torch._foreach_add_(moved, torch._foreach_mul(target_params, 1.0 - mix))
+            torch._foreach_copy_(target_params, moved)
 
         batch_obs = {k: batch[k] / 255.0 - 0.5 for k in cnn_enc}
         batch_obs.update({k: batch[k] for k in mlp_enc})
@@ -230,7 +260,8 @@ def make_train_step(
             1 - batch["terminated"],
             float(wm_cfg.continue_scale_factor),
         )
-        optimizers["world"].step(_grads(rec_loss, wm_params))
+        wm_grads = _grads(rec_loss, wm_params)
+        optimizers["world"].step(wm_grads)
 
         # -- behaviour learning on the updated world model. With a discrete
         # actor nothing differentiable reaches the actor through imagination:
@@ -274,7 +305,8 @@ def make_train_step(
         logprob = torch.stack([p.log_prob(a)[..., None][:-1] for p, a in zip(policies, act_parts)], dim=-1).sum(-1)
         entropy = ent_coef * torch.stack([p.entropy() for p in policies], dim=-1).sum(-1)
         policy_loss = -torch.mean(discount[:-1] * (logprob * advantage + entropy[..., None][:-1]))
-        optimizers["actor"].step(_grads(policy_loss, actor_params))
+        actor_grads = _grads(policy_loss, actor_params)
+        optimizers["actor"].step(actor_grads)
 
         # -- critic update, against the target critic after this step's EMA
         qv = TwoHotEncodingDistribution(critic(traj[:-1]))
@@ -283,7 +315,15 @@ def make_train_step(
         value_loss = torch.mean(
             (-qv.log_prob(lambda_values) - qv.log_prob(target_values)) * discount[:-1, ..., 0]
         )
-        optimizers["critic"].step(_grads(value_loss, critic_params))
+        critic_grads = _grads(value_loss, critic_params)
+        optimizers["critic"].step(critic_grads)
+        ok = None
+        if guard:
+            ok = finite_guard([*wm_grads, *actor_grads, *critic_grads, rec_loss, policy_loss, value_loss])
+            state_guard.select(ok)
+            keys = list(old_moments)
+            moments_state = dict(zip(keys, guarded_select(
+                ok, [moments_state[k] for k in keys], [old_moments[k] for k in keys])))
 
         with torch.no_grad():
             post_ent = Independent(OneHotCategorical(grouped(post_logits)), 1).entropy().mean()
@@ -292,7 +332,7 @@ def make_train_step(
                 rec_loss, observation_loss, reward_loss, state_loss, continue_loss,
                 kl, post_ent, prior_ent, policy_loss, value_loss,
             ]).detach()
-        return moments_state, metrics
+        return moments_state, metrics, ok
 
     if ring is not None:
         seq_len, batch_size = int(ring["seq_len"]), int(ring["batch_size"])
@@ -300,7 +340,7 @@ def make_train_step(
         def carry_step(carry, xs):
             moments_state, cum = carry
             batch, noise = xs
-            moments_state, metrics = gradient_step(batch, moments_state, cum, noise)
+            moments_state, metrics, _ = gradient_step(batch, moments_state, cum, noise)
             return (moments_state, cum + 1), metrics
 
         return build_burst_train_step(
@@ -315,15 +355,25 @@ def make_train_step(
         noise: Optional[List[Dict[str, Any]]] = None,
     ):
         n_steps, T, B = data["actions"].shape[:3]
+        device = data["actions"].device
         metrics = []
+        cum = torch.tensor(int(cum0), dtype=torch.int64, device=device)
+        skipped = torch.zeros((), dtype=torch.float32, device=device)
+        if guard:
+            state_guard.snapshot()
         for g in range(n_steps):
             step_noise = (
                 noise[g] if noise is not None
-                else draw_noise(cfg, T, B, actions_dim, generator, data["actions"].device)
+                else draw_noise(cfg, T, B, actions_dim, generator, device)
             )
-            moments_state, m = gradient_step({k: v[g] for k, v in data.items()}, moments_state, cum0 + g, step_noise)
+            moments_state, m, ok = gradient_step({k: v[g] for k, v in data.items()}, moments_state, cum, step_noise)
             metrics.append(m)
-        return moments_state, torch.stack(metrics, dim=0)
+            if guard:  # a skipped step did not happen: the EMA's cadence keeps its phase
+                cum = cum + ok.to(torch.int64)
+                skipped += (~ok).to(torch.float32)
+            else:
+                cum = cum + 1
+        return moments_state, torch.stack(metrics, dim=0), skipped
 
     return train
 
@@ -381,9 +431,11 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     (counters, each train call's metrics, timings, the replay tier, the last
     checkpoint's path), and with ``algo.run_test`` (on by default, as in the
     JAX package) the return and length of a test episode after the loop,
-    whose draws leave the training generator untouched."""
+    whose draws leave the training generator untouched; on the host tier
+    ``Fault/skipped_updates`` and the sentinel's rollbacks; the manager's
+    save timings and ``Fault/env_restarts``."""
     device = torch.device(device)
-    state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.get("resume_from") else None
+    state = load_resume_state(cfg.checkpoint.resume_from) if cfg.checkpoint.get("resume_from") else None
     if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
         raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
     cnn_keys, mlp_keys = list(cfg.algo.cnn_keys.encoder), list(cfg.algo.mlp_keys.encoder)
@@ -409,6 +461,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     log_dir = os.path.join(
         str(cfg.log_root), str(cfg.algo.name), str(cfg.env.id), str(cfg.get("run_name") or f"seed_{seed}")
     )
+    ckpt_dir = os.path.join(log_dir, "checkpoint")
+    manager = CheckpointManager.from_config(cfg)
     buffer_size = int(cfg.buffer.size) // num_envs
     rb = EnvIndependentReplayBuffer(buffer_size, num_envs, obs_keys)
     rb.seed(seed)
@@ -449,6 +503,10 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     )
     if log_level > 0 and cfg.buffer.get("device_resident", False):
         print(f"Replay: device_resident={resident} ({reason})", flush=True)
+    # the finite guard and its sentinel on the host tier only, as in the JAX package
+    sentinel_cfg = (cfg.get("fault") or {}).get("sentinel") or {}
+    guard = bool(sentinel_cfg.get("enabled", True)) and not resident
+    sentinel = DivergenceSentinel(sentinel_cfg)
     # the saved replay, told apart by its content: a ring snapshot
     # (``DeviceReplayState``) or the host buffer's state
     restored: Any = None
@@ -470,7 +528,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             device=device, seed=seed + 31, restore=restored,
         )
     else:
-        train_fn = make_train_step(world_model, actor, critic, target_critic, optimizers, cfg)
+        train_fn = make_train_step(world_model, actor, critic, target_critic, optimizers, cfg, guard=guard)
 
     step_data: Dict[str, np.ndarray] = {}
     obs = envs.reset(seed=seed)[0]
@@ -487,7 +545,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     # this run's gradient steps: a resumed run starts again at 0, so its first
     # step copies the critic into the target critic, as the JAX loop does
     cum_gradient_steps = 0
-    carry = (moments_state, 0)  # the resident burst's carry
+    carry = (moments_state, torch.zeros((), dtype=torch.int64, device=device))  # the resident burst's carry
     pending: List[torch.Tensor] = []  # resident metrics still on the device
 
     def read_metrics() -> None:
@@ -586,15 +644,32 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 t0 = time.perf_counter()
                 sample = rb.sample(batch_size, sequence_length=seq_len, n_samples=gradient_steps)
                 data = {k: torch.from_numpy(v).to(device).float() for k, v in sample.items()}
-                moments_state, metrics = train_fn(data, moments_state, cum_gradient_steps, generator)
-                rows = metrics.cpu().tolist()  # also waits for the device
+                moments_state, metrics, skipped = train_fn(data, moments_state, cum_gradient_steps, generator)
+                # the skipped count rides the metrics' one read, which also waits for the device
+                rows = torch.cat([metrics, skipped.expand(metrics.shape[0], 1)], dim=1).cpu().tolist()
                 summary["train_host_s"].append((time.perf_counter() - t0, gradient_steps))
                 cum_gradient_steps += gradient_steps
+                skipped = rows[0][-1]
+                rows = [row[:-1] for row in rows]
                 summary["metrics"].extend(rows)
                 if log_level > 0:
                     for row in rows:
                         print("train " + " ".join(f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(METRIC_NAMES, row)),
                               flush=True)
+                if guard and sentinel.observe(skipped):
+                    def rollback(good: Dict[str, Any]) -> None:
+                        nonlocal moments_state
+                        for module, name in ((world_model, "world_model"), (actor, "actor"), (critic, "critic"),
+                                             (target_critic, "target_critic")):
+                            module.load_state_dict(good[name])
+                        for name, opt in optimizers.items():
+                            opt.load_state_dict(good["optimizers"][name])
+                        moments_state = {k: v.to(device) for k, v in good["moments"].items()}
+                        if good.get("rng") is not None:
+                            generator.set_state(good["rng"])
+
+                    manager.wait()  # the newest save must be published before the rollback looks for it
+                    sentinel.recover(ckpt_dir, rollback)
 
         if (int(cfg.checkpoint.every) > 0 and policy_step - last_checkpoint >= int(cfg.checkpoint.every)) or (
             iter_num == total_iters and cfg.checkpoint.get("save_last", False)
@@ -616,10 +691,11 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             }
             if checkpoint_rb:
                 # the ring, its heads and its generator; or the host buffer and its generators
-                ckpt_state["rb"] = driver.state_dict().to_dict() if resident else rb.state_dict()
-            path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
-            summary["checkpoint"] = str(save_checkpoint(path, ckpt_state, plain(cfg)))
+                ckpt_state["rb"] = driver.state_dict(live=True).to_dict() if resident else rb.state_dict()
+            path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
+            summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
 
+    manager.close()
     read_metrics()
     loop_s = time.perf_counter() - t_loop
     envs.close()
@@ -634,5 +710,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         loop_steps_per_s=steps / loop_s if loop_s > 0 else None,
         train_calls=driver.train_steps if resident else len(summary["train_host_s"]),
         replay=driver.metrics() if resident else None,
+        rollbacks=sentinel.rollbacks,
+        checkpoint_timings=manager.timings,
+        **{"Fault/skipped_updates": sentinel.total_skipped, "Fault/env_restarts": envs.env_restarts},
     )
     return summary

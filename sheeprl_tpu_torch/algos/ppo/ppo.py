@@ -12,6 +12,17 @@ once per iteration. Random draws come from an explicit ``torch.Generator``:
 the actions' Gumbel noise and each epoch's permutation, which the update
 also takes as an argument, so a test can feed the permutations JAX's keys
 give.
+
+With ``fault.sentinel.enabled`` (the default) each minibatch is guarded, as
+the JAX package's ``guard=True`` step is: a step whose loss or gradients
+hold a NaN or an Inf leaves the parameters, Adam's moments and its step
+count as they were (:class:`~sheeprl_tpu_torch.ops.guard.StateGuard`, a
+select on the device, no host read), and the update counts it. The
+:class:`~sheeprl_tpu_torch.fault.DivergenceSentinel` reads the count with
+the losses once per iteration and warns, rolls back to the last complete
+checkpoint or aborts. Checkpoints go through the
+:class:`~sheeprl_tpu_torch.fault.CheckpointManager` (manifest,
+``checkpoint.keep_last``, ``checkpoint.async_save``).
 """
 
 from __future__ import annotations
@@ -30,9 +41,10 @@ from sheeprl_tpu_torch.algos.ppo.utils import prepare_obs, test
 from sheeprl_tpu_torch.config import dotdict, plain
 from sheeprl_tpu_torch.data import ReplayBuffer
 from sheeprl_tpu_torch.envs import make_vector_env
+from sheeprl_tpu_torch.fault import CheckpointManager, DivergenceSentinel, NaNInjector, load_resume_state
+from sheeprl_tpu_torch.ops.guard import StateGuard, finite_guard
 from sheeprl_tpu_torch.ops.kernels import gae
 from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
-from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.utils import polynomial_decay
 
 __all__ = ["LOSS_NAMES", "draw_permutations", "make_optimizer", "make_train_step", "main"]
@@ -49,16 +61,22 @@ def draw_permutations(epochs: int, batch: int, generator: Optional[torch.Generat
     return torch.stack([torch.randperm(batch, generator=generator, device=device) for _ in range(epochs)])
 
 
-def make_train_step(agent: PPOAgent, optimizer: ClippedOptimizer, cfg: Any, local_batch: int) -> Callable:
+def make_train_step(agent: PPOAgent, optimizer: ClippedOptimizer, cfg: Any, local_batch: int,
+                    guard: bool = False) -> Callable:
     """The update (JAX ``make_local_train`` on one device): ``train(data,
-    clip_coef, ent_coef, perms=None, generator=None) -> losses``. ``data``
+    clip_coef, ent_coef, perms=None, generator=None) -> (losses, skipped)``. ``data``
     holds the flattened rollout, ``(local_batch, ...)`` tensors on the
     agent's device, rows in (t, n) order; ``perms`` is ``(update_epochs,
     local_batch)``, else drawn from ``generator``. Each epoch's permutation
     is padded cyclically to whole minibatches (``jnp.resize``), not cut into
     a ragged last one. The agent and optimizer are updated in place;
     ``losses`` is the ``(3,)`` mean of :data:`LOSS_NAMES` over every
-    minibatch of every epoch, left on the device."""
+    minibatch of every epoch, ``skipped`` the 0-dim float count of the
+    minibatches the guard undid (0 unguarded), both left on the device.
+
+    ``guard=True`` (JAX ``guard=True``): a minibatch whose gradients or loss
+    are not all finite leaves the parameters and the optimizer's state as
+    they were."""
     algo = cfg.algo
     mb_size = int(algo.per_rank_batch_size)
     n_mb = max(1, -(-local_batch // mb_size))
@@ -76,8 +94,9 @@ def make_train_step(agent: PPOAgent, optimizer: ClippedOptimizer, cfg: Any, loca
     reduction = str(algo.loss_reduction)
     cnn_keys, mlp_keys = list(algo.cnn_keys.encoder), list(algo.mlp_keys.encoder)
     params = list(agent.parameters())
+    state_guard = StateGuard(lambda: params + optimizer.state_tensors()) if guard else None
 
-    def minibatch_step(batch: Dict[str, torch.Tensor], clip_coef: torch.Tensor, ent_coef: torch.Tensor) -> torch.Tensor:
+    def minibatch_step(batch: Dict[str, torch.Tensor], clip_coef: torch.Tensor, ent_coef: torch.Tensor):
         obs = {k: batch[k].to(torch.float32) / 255.0 - 0.5 for k in cnn_keys}
         obs.update({k: batch[k].to(torch.float32) for k in mlp_keys})
         actions = torch.split(batch["actions"], list(agent.actions_dim), dim=-1)
@@ -90,8 +109,12 @@ def make_train_step(agent: PPOAgent, optimizer: ClippedOptimizer, cfg: Any, loca
         ent = entropy_loss(entropy, reduction)
         loss = pg + vf_coef * v + ent_coef * ent
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        optimizer.step([torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
-        return torch.stack([pg, v, ent]).detach()
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        ok = finite_guard([*grads, loss]) if guard else None
+        optimizer.step(grads)
+        if guard:
+            state_guard.select(ok)
+        return torch.stack([pg, v, ent]).detach(), ok
 
     def train(
         data: Dict[str, torch.Tensor],
@@ -99,7 +122,7 @@ def make_train_step(agent: PPOAgent, optimizer: ClippedOptimizer, cfg: Any, loca
         ent_coef: "torch.Tensor | float",
         perms: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
-    ) -> torch.Tensor:
+    ):
         device = data["actions"].device
         if perms is None:
             perms = draw_permutations(epochs, local_batch, generator, device)
@@ -108,11 +131,17 @@ def make_train_step(agent: PPOAgent, optimizer: ClippedOptimizer, cfg: Any, loca
         cyclic = torch.arange(padded, device=device) % local_batch
         idx = perms.to(device)[:, cyclic].reshape(epochs, n_mb, mb_size)
         total = torch.zeros(3, dtype=torch.float32, device=device)
+        skipped = torch.zeros((), dtype=torch.float32, device=device)
+        if guard:
+            state_guard.snapshot()
         for e in range(epochs):
             for m in range(n_mb):
                 rows = idx[e, m]
-                total += minibatch_step({k: v[rows] for k, v in data.items()}, clip_coef, ent_coef)
-        return total / (epochs * n_mb)
+                losses, ok = minibatch_step({k: v[rows] for k, v in data.items()}, clip_coef, ent_coef)
+                total += losses
+                if guard:
+                    skipped += (~ok).to(torch.float32)
+        return total / (epochs * n_mb), skipped
 
     return train
 
@@ -121,9 +150,11 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     """The coupled loop: roll out, GAE, update, anneal, checkpoint; a greedy
     test episode at the end with ``algo.run_test``. Returns a summary of the
     run (counters, each iteration's losses, the finished episodes, host
-    seconds per phase, the last checkpoint's path)."""
+    seconds per phase, the last checkpoint's path, ``Fault/skipped_updates``,
+    ``Fault/env_restarts``, the sentinel's rollbacks and the manager's save
+    timings)."""
     device = torch.device(device)
-    state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.get("resume_from") else None
+    state = load_resume_state(cfg.checkpoint.resume_from) if cfg.checkpoint.get("resume_from") else None
     algo = cfg.algo
     cnn_keys, mlp_keys = list(algo.cnn_keys.encoder), list(algo.mlp_keys.encoder)
     obs_keys = cnn_keys + mlp_keys
@@ -164,7 +195,13 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     log_level = int(cfg.metric.get("log_level", 1))
     log_every = int(cfg.metric.get("log_every", 5000))
     gamma, gae_lambda = float(algo.gamma), float(algo.gae_lambda)
-    train_fn = make_train_step(agent, optimizer, cfg, policy_steps_per_iter)
+    sentinel_cfg = (cfg.get("fault") or {}).get("sentinel") or {}
+    guard = bool(sentinel_cfg.get("enabled", True))
+    sentinel = DivergenceSentinel(sentinel_cfg)
+    nan_injector = NaNInjector(cfg)
+    ckpt_dir = os.path.join(log_dir, "checkpoint")
+    manager = CheckpointManager.from_config(cfg)
+    train_fn = make_train_step(agent, optimizer, cfg, policy_steps_per_iter, guard=guard)
 
     lr0 = float(algo.optimizer.lr)
     clip_coef0, ent_coef0 = float(algo.clip_coef), float(algo.ent_coef)
@@ -176,7 +213,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     summary: Dict[str, Any] = {
         "start_iter": start_iter, "iterations": 0, "losses": [], "episodes": [], "rollout_s": [], "gae_s": [],
         "update_s": [], "checkpoint": None, "device": str(device), "test_reward": None,
-        "test_steps": None,
+        "test_steps": None, "skipped": [],
     }
     heads = len(actions_dim)
     for iter_num in range(start_iter, total_iters + 1):
@@ -223,8 +260,23 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         flat = {k: v.reshape(-1, *v.shape[2:]) for k, v in on_device.items()}
         flat["returns"] = returns.reshape(-1, *returns.shape[2:])
         flat["advantages"] = advantages.reshape(-1, *advantages.shape[2:])
-        losses = train_fn(flat, clip_coef, ent_coef, generator=generator).cpu().tolist()  # the one read
+        if nan_injector:
+            nan_injector.poison(flat, "advantages", iter_num)
+        losses, skipped = train_fn(flat, clip_coef, ent_coef, generator=generator)
+        losses = torch.cat([losses, skipped.reshape(1)]).cpu().tolist()  # the one read
         t3 = time.perf_counter()
+        skipped = losses.pop()
+        if guard:
+            summary["skipped"].append(skipped)
+            if sentinel.observe(skipped):
+                def rollback(good: Dict[str, Any]) -> None:
+                    agent.load_state_dict(good["agent"])
+                    optimizer.load_state_dict(good["optimizer"])
+                    if good.get("rng") is not None:
+                        generator.set_state(good["rng"])
+
+                manager.wait()  # the newest save must be published before the rollback looks for it
+                sentinel.recover(ckpt_dir, rollback)
         summary["losses"].append(losses)
         summary["rollout_s"].append(t1 - t0)
         summary["gae_s"].append(t2 - t1)
@@ -255,9 +307,10 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 "last_checkpoint": last_checkpoint,
                 "rng": generator.get_state(),
             }
-            path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
-            summary["checkpoint"] = str(save_checkpoint(path, ckpt_state, plain(cfg)))
+            path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
+            summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
 
+    manager.close()
     envs.close()
     if algo.get("run_test", True):
         summary["test_reward"], summary["test_steps"] = test(player, cfg, device)
@@ -265,5 +318,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     summary.update(
         policy_steps=policy_step,
         env_steps_per_s=summary["iterations"] * policy_steps_per_iter / env_s if env_s > 0 else None,
+        rollbacks=sentinel.rollbacks,
+        checkpoint_timings=manager.timings,
+        **{"Fault/skipped_updates": sentinel.total_skipped, "Fault/env_restarts": envs.env_restarts},
     )
     return summary

@@ -27,6 +27,14 @@ host path's train draws, and the device ring's own stream, which its
 checkpoint carries); both train steps take their uniforms and Gaussian noise
 as arguments too, so a test can feed JAX's draws. Losses stay on the device
 until a log point reads them.
+
+With ``fault.sentinel.enabled`` (the default) every gradient step is guarded
+as the JAX package's ``guard=True`` step is: when a loss or a gradient of
+the critic, actor or entropy update is not finite, the parameters (target
+critics included), the three optimizers' states, and on the ring the drawn
+leaves' priorities and ``max_p`` stay as they were (a select on the device,
+no host read); the loop reads the skipped count once per train call for the
+:class:`~sheeprl_tpu_torch.fault.DivergenceSentinel`.
 """
 
 from __future__ import annotations
@@ -46,14 +54,16 @@ from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, test
 from sheeprl_tpu_torch.config import dotdict, plain
 from sheeprl_tpu_torch.data import ReplayBuffer
 from sheeprl_tpu_torch.envs import make_vector_env
+from sheeprl_tpu_torch.fault import CheckpointManager, DivergenceSentinel, load_resume_state
+from sheeprl_tpu_torch.ops.guard import StateGuard, finite_guard
 from sheeprl_tpu_torch.ops.kernels import sumtree_sample
 from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
 from sheeprl_tpu_torch.replay import DeviceReplayBuffer, DeviceReplayState, resolve_device_resident, restore_host_buffer
 from sheeprl_tpu_torch.replay import sumtree as st
-from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.utils import Ratio
 
-__all__ = ["LOSS_NAMES", "RING_KEYS", "make_optimizers", "make_train_step", "make_resident_train_step", "main"]
+__all__ = ["LOSS_NAMES", "RING_KEYS", "make_optimizers", "make_train_step", "make_resident_train_step",
+           "restore_train_state", "main"]
 
 LOSS_NAMES = ("Loss/value_loss", "Loss/policy_loss", "Loss/alpha_loss")
 #: what a stored transition holds, in the order a host sample is packed for its one copy to the device
@@ -73,12 +83,34 @@ def make_optimizers(cfg: Any, agent: SACAgent) -> Optimizers:
     )
 
 
-def _gradient_step(agent: SACAgent, optimizers: Optimizers, gamma: float) -> Callable:
-    """One SAC update: ``step(batch, weights, noise_next, noise_actor, ema)
-    -> (losses (3,), q (B, n), td_target (B, 1))``, the agent updated in
-    place. ``weights`` are PER's normalized IS weights or None."""
+def restore_train_state(agent: SACAgent, optimizers: Optimizers, generator: torch.Generator,
+                        good: Dict[str, Any]) -> None:
+    """Put a rollback checkpoint's agent, optimizers and generator back into
+    the live objects (the sentinel's recover callback; JAX
+    ``restore_train_state``)."""
+    agent.load_state_dict(good["agent"])
+    for opt, name in zip(optimizers, ("actor_optimizer", "qf_optimizer", "alpha_optimizer")):
+        opt.load_state_dict(good[name])
+    if good.get("rng") is not None:
+        generator.set_state(good["rng"])
+
+
+def _gradient_step(agent: SACAgent, optimizers: Optimizers, gamma: float,
+                   guard: bool = False) -> Tuple[Callable, Callable]:
+    """One SAC update and the snapshot that starts a train call:
+    ``step(batch, weights, noise_next, noise_actor, ema) -> (losses (3,), q
+    (B, n), td_target (B, 1), ok)``, the agent updated in place. ``weights``
+    are PER's normalized IS weights or None. With ``guard``, ``ok`` is the
+    0-dim verdict over the three updates' losses and gradients, and where it
+    is False the step has put the agent and the optimizers' states back as
+    the last ``snapshot()`` or step left them; else ``ok`` is None and
+    ``snapshot`` does nothing."""
     actor_opt, critic_opt, alpha_opt = optimizers
     actor_params, critic_params = list(agent.actor.parameters()), list(agent.critic.parameters())
+    every_param = list(agent.parameters())  # actor, critic, target critic, log_alpha
+    state_guard = StateGuard(
+        lambda: every_param + [t for opt in optimizers for t in opt.state_tensors()]
+    ) if guard else None
 
     def step(batch: Dict[str, torch.Tensor], weights: Optional[torch.Tensor], noise_next: torch.Tensor,
              noise_actor: torch.Tensor, ema: bool):
@@ -88,7 +120,8 @@ def _gradient_step(agent: SACAgent, optimizers: Optimizers, gamma: float) -> Cal
         )
         q = agent.q_values(obs, batch["actions"])
         qf_loss = critic_loss(q, td_target, weights)
-        critic_opt.step(torch.autograd.grad(qf_loss, critic_params))
+        cgrads = torch.autograd.grad(qf_loss, critic_params)
+        critic_opt.step(cgrads)
         if ema:
             agent.ema()
 
@@ -96,43 +129,61 @@ def _gradient_step(agent: SACAgent, optimizers: Optimizers, gamma: float) -> Cal
         actions, logp = agent.sample_action(obs, noise_actor)
         min_q = torch.min(agent.q_values(obs, actions), dim=-1, keepdim=True).values
         actor_loss = policy_loss(alpha, logp, min_q)
-        actor_opt.step(torch.autograd.grad(actor_loss, actor_params))
+        agrads = torch.autograd.grad(actor_loss, actor_params)
+        actor_opt.step(agrads)
 
         alpha_loss = entropy_loss(agent.log_alpha, logp.detach(), agent.target_entropy)
-        alpha_opt.step(torch.autograd.grad(alpha_loss, [agent.log_alpha]))
-        return torch.stack([qf_loss, actor_loss, alpha_loss]).detach(), q.detach(), td_target
+        lgrads = torch.autograd.grad(alpha_loss, [agent.log_alpha])
+        alpha_opt.step(lgrads)
+        ok = None
+        if guard:
+            ok = finite_guard([*cgrads, *agrads, *lgrads, qf_loss, actor_loss, alpha_loss])
+            state_guard.select(ok)
+        return torch.stack([qf_loss, actor_loss, alpha_loss]).detach(), q.detach(), td_target, ok
 
-    return step
+    return step, (state_guard.snapshot if guard else lambda: None)
 
 
-def make_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any) -> Callable:
+def _count_skipped(skipped: torch.Tensor, ok: Optional[torch.Tensor]) -> None:
+    if ok is not None:
+        skipped += (~ok).to(torch.float32)
+
+
+def make_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, guard: bool = False) -> Callable:
     """The host-replay update (JAX ``make_train_step`` on one device):
-    ``train(data, ema, noise=None, generator=None) -> losses``. ``data``
+    ``train(data, ema, noise=None, generator=None) -> (losses, skipped)``. ``data``
     holds ``(G, B, ...)`` float32 tensors of :data:`RING_KEYS` on the
     agent's device; ``noise`` is ``{"next", "actor"}``, each ``(G, B,
     act_dim)`` standard normal, else drawn from ``generator``. ``ema`` is the
     JAX ``ema_flag`` of the iteration. Returns the ``(3,)`` mean of
-    :data:`LOSS_NAMES` over the G steps, left on the device."""
-    step = _gradient_step(agent, optimizers, float(cfg.algo.gamma))
+    :data:`LOSS_NAMES` over the G steps and ``skipped``, the 0-dim count of
+    steps the guard undid (0 unguarded), both left on the device."""
+    step, snapshot = _gradient_step(agent, optimizers, float(cfg.algo.gamma), guard)
 
     def train(data: Dict[str, torch.Tensor], ema: bool, noise: Optional[Dict[str, torch.Tensor]] = None,
-              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+              generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         G, B = data["actions"].shape[:2]
         device = data["actions"].device
         if noise is None:
             noise = {k: torch.randn((G, B, agent.action_dim), generator=generator, device=device) for k in ("next", "actor")}
         total = torch.zeros(3, dtype=torch.float32, device=device)
+        skipped = torch.zeros((), dtype=torch.float32, device=device)
+        snapshot()
         for g in range(G):
-            losses, _, _ = step({k: data[k][g] for k in RING_KEYS}, None, noise["next"][g], noise["actor"][g], bool(ema))
+            losses, _, _, ok = step({k: data[k][g] for k in RING_KEYS}, None, noise["next"][g], noise["actor"][g],
+                                    bool(ema))
             total += losses
-        return total / G
+            _count_skipped(skipped, ok)
+        return total / G, skipped
 
     return train
 
 
-def make_resident_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, drb: DeviceReplayBuffer) -> Callable:
+def make_resident_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, drb: DeviceReplayBuffer,
+                             guard: bool = False) -> Callable:
     """The device-resident dispatch (JAX ``make_resident_train_step`` on one
-    device): ``train(job, flags, beta=0.0, draws=None) -> losses or None``.
+    device): ``train(job, flags, beta=0.0, draws=None) -> (losses, skipped)
+    or None``.
 
     ``job`` is :meth:`DeviceReplayBuffer.make_job`'s flush, appended first;
     then one gradient step per entry of ``flags`` (the granted steps' EMA
@@ -145,9 +196,14 @@ def make_resident_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, 
     random numbers, ``(G, B)`` uniforms ``u`` (PER) or ``pos``/``env``
     indices (uniform), and ``next``/``actor`` Gaussian noise ``(G, B,
     act_dim)``; else they come from the ring's generator. Returns the
-    ``(3,)`` mean of :data:`LOSS_NAMES` over the steps, on the device, or
-    None without steps. Nothing here reads the device back."""
-    step = _gradient_step(agent, optimizers, float(cfg.algo.gamma))
+    ``(3,)`` mean of :data:`LOSS_NAMES` over the steps and the 0-dim count
+    of steps the guard undid (0 unguarded), on the device, or None without
+    steps. Nothing here reads the device back.
+
+    ``guard=True`` (JAX ``guard=True``): a step the guard undoes also leaves
+    the drawn leaves' priorities and ``max_p`` as they were (the old leaf is
+    written back, so the next draw sees the tree JAX restores)."""
+    step, snapshot = _gradient_step(agent, optimizers, float(cfg.algo.gamma), guard)
     batch_size = int(cfg.algo.per_rank_batch_size)
     n_envs = drb.n_envs
     flat = {k: v.view(drb.capacity * n_envs, *v.shape[2:]) for k, v in drb.storage.items()}
@@ -166,13 +222,15 @@ def make_resident_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, 
         return draws
 
     def train(job, flags: Sequence[float], beta: float = 0.0,
-              draws: Optional[Dict[str, torch.Tensor]] = None) -> Optional[torch.Tensor]:
+              draws: Optional[Dict[str, torch.Tensor]] = None) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         drb.append(job)
         if not flags:
             return None
         if draws is None:
             draws = draw(len(flags), job.valid)
         total = torch.zeros(3, dtype=torch.float32, device=drb.device)
+        skipped = torch.zeros((), dtype=torch.float32, device=drb.device)
+        snapshot()
         for g, flag in enumerate(flags):
             weights = None
             if drb.prioritized:
@@ -182,13 +240,19 @@ def make_resident_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, 
             else:
                 rows = draws["pos"][g] * n_envs + draws["env"][g]
             batch = {k: flat[k][rows] for k in RING_KEYS}
-            losses, q, td_target = step(batch, weights, draws["next"][g], draws["actor"][g], bool(flag))
+            losses, q, td_target, ok = step(batch, weights, draws["next"][g], draws["actor"][g], bool(flag))
             if drb.prioritized:
                 priority = torch.pow(torch.mean(torch.abs(q - td_target), dim=-1) + drb.per_eps, drb.per_alpha)
+                if ok is not None:
+                    # a skipped step writes the drawn leaves' old priorities back; a
+                    # leaf never exceeds max_p (new rows enter at max_p), so max_p
+                    # below stays as it was too
+                    priority = torch.where(ok, priority, st.get(drb.tree, rows))
                 st.update(drb.tree, rows, priority)
                 torch.maximum(drb.max_p, priority.max(), out=drb.max_p)
             total += losses
-        return total / len(flags)
+            _count_skipped(skipped, ok)
+        return total / len(flags), skipped
 
     return train
 
@@ -217,9 +281,10 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     episode at the end with ``algo.run_test``. Returns a summary of the run
     (counters, the losses of every train call, the finished episodes, host
     seconds per iteration, the replay tier and its metrics, the last
-    checkpoint's path)."""
+    checkpoint's path, ``Fault/skipped_updates``, ``Fault/env_restarts``, the
+    sentinel's rollbacks and the manager's save timings)."""
     device = torch.device(device)
-    state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.get("resume_from") else None
+    state = load_resume_state(cfg.checkpoint.resume_from) if cfg.checkpoint.get("resume_from") else None
     algo = cfg.algo
     if list(algo.cnn_keys.encoder):
         warnings.warn("SAC algorithm cannot allow to use images as observations, the CNN keys will be ignored")
@@ -294,6 +359,11 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         ratio.load_state_dict(state["ratio"])
     ema_modulus = int(algo.critic.target_network_frequency) // policy_steps_per_iter + 1
     log_every = int(cfg.metric.get("log_every", 5000))
+    sentinel_cfg = (cfg.get("fault") or {}).get("sentinel") or {}
+    guard = bool(sentinel_cfg.get("enabled", True))
+    sentinel = DivergenceSentinel(sentinel_cfg)
+    ckpt_dir = os.path.join(log_dir, "checkpoint")
+    manager = CheckpointManager.from_config(cfg)
 
     drb = None
     if resident:
@@ -306,11 +376,11 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             drb.load_state_dict(restored_ring)
         elif not rb.empty:  # resumed from a host-buffer checkpoint
             drb.load_host_buffer(rb)
-        resident_fn = make_resident_train_step(agent, optimizers, cfg, drb)
+        resident_fn = make_resident_train_step(agent, optimizers, cfg, drb, guard=guard)
         beta0 = float(per_cfg.beta)
         ema_backlog: List[float] = []
     else:
-        train_fn = make_train_step(agent, optimizers, cfg)
+        train_fn = make_train_step(agent, optimizers, cfg, guard=guard)
 
     action_rng = np.random.default_rng(seed)
     obs = envs.reset(seed=seed)[0]
@@ -326,6 +396,15 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         if pending:
             summary["losses"].extend(torch.stack(pending).cpu().tolist())
             pending.clear()
+
+    def observe(out):
+        """The losses kept on the device; with the guard, the skipped count
+        read now (once per train call) and handed to the sentinel."""
+        losses, skipped = out
+        pending.append(losses)
+        if guard and sentinel.observe(skipped):
+            manager.wait()  # the newest save must be published before the rollback looks for it
+            sentinel.recover(ckpt_dir, lambda good: restore_train_state(agent, optimizers, generator, good))
 
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
@@ -369,10 +448,10 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             while True:
                 chunk = min(grad_max, len(ema_backlog))
                 beta = beta0 + (1.0 - beta0) * min(1.0, policy_step / max(1, int(algo.total_steps))) if prioritized else 0.0
-                losses = resident_fn(drb.make_job(), ema_backlog[:chunk], beta)
+                out = resident_fn(drb.make_job(), ema_backlog[:chunk], beta)
                 del ema_backlog[:chunk]
                 if chunk:
-                    pending.append(losses)
+                    observe(out)
                     summary["gradient_steps"] += chunk
                     summary["train_calls"] += 1
                 if len(ema_backlog) < grad_max:
@@ -381,7 +460,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             granted = ratio(policy_step - prefill_steps + policy_steps_per_iter)
             if granted > 0:
                 data = _to_device(rb.sample(batch_size, granted), device)
-                pending.append(train_fn(data, iter_num % ema_modulus == 0, generator=generator))
+                observe(train_fn(data, iter_num % ema_modulus == 0, generator=generator))
                 summary["gradient_steps"] += granted
                 summary["train_calls"] += 1
         t2 = time.perf_counter()
@@ -413,10 +492,11 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 "rng": generator.get_state(),
             }
             if cfg.buffer.checkpoint:
-                ckpt_state["rb"] = drb.state_dict().to_dict() if resident else rb.state_dict()
-            path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
-            summary["checkpoint"] = str(save_checkpoint(path, ckpt_state, plain(cfg)))
+                ckpt_state["rb"] = drb.state_dict(live=True).to_dict() if resident else rb.state_dict()
+            path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
+            summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
 
+    manager.close()
     read_losses()
     envs.close()
     if algo.get("run_test", True):
@@ -426,5 +506,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         policy_steps=policy_step,
         env_steps_per_s=summary["iterations"] * num_envs / (env_s + sum(summary["train_s"])) if env_s > 0 else None,
         replay=drb.metrics() if resident else None,
+        rollbacks=sentinel.rollbacks,
+        checkpoint_timings=manager.timings,
+        **{"Fault/skipped_updates": sentinel.total_skipped, "Fault/env_restarts": envs.env_restarts},
     )
     return summary

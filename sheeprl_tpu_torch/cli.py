@@ -3,7 +3,7 @@
 
     python -m sheeprl_tpu_torch run \\
         preset=sac_per|sac|ppo|dreamer_v3_100k_atari_dummy|dreamer_v3_100k_atari_dummy_resident \\
-        [fabric.accelerator=cuda|cpu] [algo.total_steps=...] [checkpoint.resume_from=<ckpt>] ...
+        [fabric.accelerator=cuda|cpu] [algo.total_steps=...] [checkpoint.resume_from=<ckpt>|latest] ...
     python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> \\
         [fabric.accelerator=cuda|cpu] [serve.port=0] [serve.buckets=[1,8,32,128]] [serve.engine=aot|naive] \\
         [serve.session.buckets=[1,8,32]] ...
@@ -13,7 +13,10 @@
 ``run`` trains from a preset (``configs/<name>.json``), or resuming, from the
 checkpoint's ``config.json``, with the algorithm ``algo.name`` names (SAC,
 PPO or DreamerV3); :data:`~sheeprl_tpu_torch.config.RUN_DEFAULTS`
-fill what it lacks and the ``key.path=value`` overrides win. ``serve`` reads
+fill what it lacks and the ``key.path=value`` overrides win.
+``checkpoint.resume_from=latest`` resumes from the newest complete
+checkpoint under ``<log_root>/<algo.name>/<env.id>`` (the preset's and the
+overrides' values), skipping torn saves. ``serve`` reads
 the run configuration beside the checkpoint under
 :data:`~sheeprl_tpu_torch.config.SERVE_DEFAULTS`: a PPO or SAC checkpoint
 serves stateless requests through the bucket engine, a DreamerV3 one
@@ -55,6 +58,7 @@ __all__ = [
     "compose_serve_config",
     "compose_eval_config",
     "resolve_device",
+    "resolve_resume_latest",
 ]
 
 
@@ -93,14 +97,41 @@ def _full_float32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def resolve_resume_latest(cfg: DotDict) -> str:
+    """``checkpoint.resume_from=latest`` -> the newest complete checkpoint
+    under ``<log_root>/<algo.name>/<env.id>``; raises
+    :class:`~sheeprl_tpu_torch.utils.checkpoint.CheckpointError` when there
+    is none."""
+    from pathlib import Path
+
+    from sheeprl_tpu_torch.fault.manager import find_latest_run_checkpoint
+    from sheeprl_tpu_torch.utils.checkpoint import CheckpointError
+
+    algo, env = (cfg.get("algo") or {}).get("name"), (cfg.get("env") or {}).get("id")
+    if not algo or not env:
+        raise ValueError("checkpoint.resume_from=latest needs algo.name and env.id (from preset=<name> or overrides)")
+    root = Path(str(cfg.get("log_root", "logs/runs"))) / str(algo) / str(env)
+    resolved = find_latest_run_checkpoint(root)
+    if resolved is None:
+        raise CheckpointError(f"checkpoint.resume_from=latest: no complete checkpoint found under {root}", root)
+    print(f"checkpoint.resume_from=latest -> {resolved}", flush=True)
+    return str(resolved)
+
+
 def compose_run_config(args: Sequence[str]) -> DotDict:
     """Run defaults <- the preset, or resuming, the checkpoint's run config
-    <- the overrides (``preset=<name>`` is not itself an override)."""
+    <- the overrides (``preset=<name>`` is not itself an override).
+    ``checkpoint.resume_from=latest`` is first resolved to a path from the
+    preset and the overrides."""
     from sheeprl_tpu_torch.utils.checkpoint import find_run_config
 
     overrides = [a for a in args if not a.startswith("preset=")]
     names = [a.split("=", 1)[1] for a in args if a.startswith("preset=")]
     resume = apply_overrides({}, overrides).get("checkpoint", {}).get("resume_from")
+    if resume and str(resume).strip().lower() == "latest":
+        fresh = apply_overrides(merge(RUN_DEFAULTS, plain(preset(names[-1])) if names else {}), overrides)
+        resume = resolve_resume_latest(fresh)
+        overrides = overrides + [f"checkpoint.resume_from={resume}"]
     if resume:
         base = plain(load_config(find_run_config(resume)))
     elif names:
@@ -131,8 +162,10 @@ def compose_eval_config(args: Sequence[str]) -> DotDict:
 
 def run(args: Sequence[str]) -> dict:
     """Train; returns the run's summary (counters, metrics, checkpoint)."""
+    from sheeprl_tpu_torch.fault.inject import arm_from_env
     from sheeprl_tpu_torch.utils.registry import TRAINERS
 
+    arm_from_env()  # SHEEPRL_FAULT_ARM's fault points, for drills
     cfg = compose_run_config(args)
     if cfg.algo.name not in TRAINERS:
         raise NotImplementedError(f"training '{cfg.algo.name}' is not ported yet; {' and '.join(TRAINERS)} only")

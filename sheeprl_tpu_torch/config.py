@@ -111,7 +111,18 @@ RUN_DEFAULTS: Dict[str, Any] = {
         "hbm_budget_gb": 4.0,
         "priority": {"enabled": False, "alpha": 0.6, "beta": 0.4, "eps": 1e-6},
     },
-    "checkpoint": {"every": 100000, "resume_from": None, "save_last": False},
+    # the JAX package's configs/checkpoint/default.yaml; resume_from may be a
+    # path or "latest" (the newest complete checkpoint under the experiment)
+    "checkpoint": {"every": 100, "resume_from": None, "save_last": True, "keep_last": 5, "async_save": False},
+    # configs/fault/default.yaml: the in-step finite guard and its sentinel,
+    # and the iterations whose training data is poisoned with NaNs
+    "fault": {
+        "sentinel": {"enabled": True, "max_consecutive": 3, "action": "rollback"},
+        "inject": {"nan_grads_at": []},
+    },
+    # configs/env/default.yaml: self-healing env workers (off at 0 attempts
+    # and no timeout)
+    "env": {"restart_attempts": 0, "restart_backoff": 0.5, "step_timeout": None},
 }
 
 

@@ -126,7 +126,8 @@ __global__ void __launch_bounds__(kWarps * 32) sumtree_sample_kernel(
     __syncwarp();
     if (depth == 0) {
       total = slice[1];
-      mass = __fmul_rn(fminf(ub, kUMax), total);
+      // torch.minimum keeps a NaN draw, fminf would drop it
+      mass = __fmul_rn(isnan(ub) ? ub : fminf(ub, kUMax), total);
     }
     // two levels per shared-memory round trip: the left child and both
     // grandchildren that can be next are read together, then the plain
@@ -157,8 +158,10 @@ __global__ void __launch_bounds__(kWarps * 32) sumtree_sample_kernel(
     depth += j;
   }
   if (lane == 0) {
-    const float prob = __fdiv_rn(p, fmaxf(total, 1e-12f));
-    const float scaled = fmaxf(__fmul_rn(n_valid, prob), 1e-12f);
+    // torch.clamp keeps a NaN, fmaxf would drop it: a NaN tree's weights stay NaN
+    const float prob = __fdiv_rn(p, isnan(total) ? total : fmaxf(total, 1e-12f));
+    const float product = __fmul_rn(n_valid, prob);
+    const float scaled = isnan(product) ? product : fmaxf(product, 1e-12f);
     leaf_out[b] = static_cast<int32_t>(node - leaves);
     w_out[b] = powf(scaled, -beta);
   }

@@ -3,7 +3,14 @@ the JAX package's coupled loops rely on (gymnasium's ``SAME_STEP``
 autoreset): an env that ends is reset in the same ``step``, its returned
 observation is the reset one, and ``infos["final_obs"][i]`` holds the last
 observation of the episode that ended (None elsewhere). An episode that
-reaches ``max_episode_steps`` ends truncated, as ``TimeLimit`` does."""
+reaches ``max_episode_steps`` ends truncated, as ``TimeLimit`` does.
+
+With ``restart_attempts > 0`` or a ``step_timeout`` (``env.restart_attempts``,
+``env.restart_backoff``, ``env.step_timeout``), each env is wrapped in a
+:class:`~sheeprl_tpu_torch.fault.watchdog.SelfHealingEnv` holding its
+factory: a crash or hang rebuilds the env with bounded retries and
+exponential backoff and comes back as a truncation; ``env_restarts`` counts
+the rebuilds (the run summary's ``Fault/env_restarts``)."""
 
 from __future__ import annotations
 
@@ -18,12 +25,28 @@ __all__ = ["SyncVectorEnv", "make_env", "make_vector_env"]
 
 
 class SyncVectorEnv:
-    def __init__(self, env_fns: Sequence[Callable[[], Any]], max_episode_steps: Optional[int] = None) -> None:
+    def __init__(self, env_fns: Sequence[Callable[[], Any]], max_episode_steps: Optional[int] = None,
+                 restart_attempts: int = 0, restart_backoff: float = 0.5,
+                 step_timeout: Optional[float] = None) -> None:
+        self._restart_counter = [0]
+        if restart_attempts > 0 or (step_timeout and step_timeout > 0):
+            from sheeprl_tpu_torch.fault.watchdog import SelfHealingEnv
+
+            env_fns = [
+                lambda fn=fn: SelfHealingEnv(fn, attempts=max(1, int(restart_attempts)), backoff=restart_backoff,
+                                             step_timeout=step_timeout, restart_counter=self._restart_counter)
+                for fn in env_fns
+            ]
         self.envs = [fn() for fn in env_fns]
         self.num_envs = len(self.envs)
         self.max_episode_steps = int(max_episode_steps) if max_episode_steps else None
         self._elapsed = np.zeros(self.num_envs, dtype=np.int64)
         self._returns = np.zeros(self.num_envs, dtype=np.float64)
+
+    @property
+    def env_restarts(self) -> int:
+        """Envs rebuilt by their watchdogs so far."""
+        return self._restart_counter[0]
 
     @property
     def spaces(self) -> Dict[str, dict]:
@@ -106,6 +129,10 @@ def make_env(cfg: Any, seed: int) -> Any:
 
 def make_vector_env(cfg: Any, seed: int) -> SyncVectorEnv:
     """``cfg.env.num_envs`` copies of the env ``cfg.env.id`` names; env ``i``
-    is built with ``seed + i``."""
+    is built with ``seed + i``, self-healing as ``env.restart_attempts`` and
+    ``env.step_timeout`` ask."""
     envs = [lambda i=i: make_env(cfg, seed + i) for i in range(int(cfg.env.num_envs))]
-    return SyncVectorEnv(envs, cfg.env.get("max_episode_steps"))
+    return SyncVectorEnv(
+        envs, cfg.env.get("max_episode_steps"), restart_attempts=int(cfg.env.get("restart_attempts", 0) or 0),
+        restart_backoff=float(cfg.env.get("restart_backoff", 0.5)), step_timeout=cfg.env.get("step_timeout"),
+    )

@@ -1,7 +1,17 @@
 """Optimizers (counterpart of ``sheeprl_tpu/optim/builders.py``, the part
 DreamerV3 and PPO use): Adam behind optax-style global-norm clipping, with a
 learning rate that can be set between steps (optax's ``inject_hyperparams``,
-which PPO's ``anneal_lr`` writes)."""
+which PPO's ``anneal_lr`` writes).
+
+On the card Adam is built ``fused`` and ``capturable``: its step count
+lives on the card, as optax's count does, so a guarded step can select the
+count back without reading it (:mod:`sheeprl_tpu_torch.ops.guard`), and the
+whole update, bias corrections included, is one multi-tensor kernel per
+parameter dtype: fewer launches than the ``foreach`` form, with a card-side
+count or a host one (``tools/guard_cost.py`` counts them). The CPU
+keeps torch's host step count and its ``foreach`` update (``capturable``
+raises there). The state is created when the optimizer is, not at its
+first step, so a guard can snapshot it before any update."""
 
 from __future__ import annotations
 
@@ -24,9 +34,36 @@ def adam(
     bias-corrected moments, eps outside the square root. A weight decay
     becomes ``AdamW``, as the JAX package maps it to ``optax.adamw``."""
     b1, b2 = (float(b) for b in betas)
+    params = list(params)
+    on_card = bool(params) and params[0].is_cuda
+    kwargs = dict(lr=float(lr), betas=(b1, b2), eps=float(eps), capturable=on_card, fused=True if on_card else None)
     if weight_decay:
-        return torch.optim.AdamW(params, lr=float(lr), betas=(b1, b2), eps=float(eps), weight_decay=float(weight_decay))
-    return torch.optim.Adam(params, lr=float(lr), betas=(b1, b2), eps=float(eps))
+        opt = torch.optim.AdamW(params, weight_decay=float(weight_decay), **kwargs)
+    else:
+        opt = torch.optim.Adam(params, **kwargs)
+    _init_state(opt)
+    return opt
+
+
+def _init_state(opt: torch.optim.Optimizer) -> None:
+    """Adam's per-parameter state as its first step would create it: the
+    step count (f32 on the parameter's device when fused or capturable) and
+    zero moments."""
+    for group in opt.param_groups:
+        fused = bool(group["fused"])
+        step_dtype = torch.float64 if torch.get_default_dtype() == torch.float64 and not fused else torch.float32
+        for p in group["params"]:
+            state = opt.state[p]
+            if state:
+                continue
+            if group["capturable"] or fused:
+                state["step"] = torch.zeros((), dtype=step_dtype, device=p.device)
+            else:
+                state["step"] = torch.tensor(0.0, dtype=step_dtype)
+            state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            if group["amsgrad"]:
+                state["max_exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
@@ -57,8 +94,11 @@ class ClippedOptimizer:
         if self.max_grad_norm is not None:  # clipped copies: the caller's gradients stay as they were
             grads = [g.clone() for g in grads]
             clip_by_global_norm_(grads, self.max_grad_norm)
+        fused = bool(self.optimizer.param_groups[0]["fused"])
         for p, g in zip(self.params, grads):
-            p.grad = g
+            # the fused update takes a gradient with its parameter's strides only
+            # (a convolution's weight gradient comes channels-last)
+            p.grad = g if not fused or g.stride() == p.stride() else torch.empty_like(p).copy_(g)
         self.optimizer.step()
         for p in self.params:
             p.grad = None
@@ -68,11 +108,31 @@ class ClippedOptimizer:
         for group in self.optimizer.param_groups:
             group["lr"] = float(lr)
 
+    @property
+    def capturable(self) -> bool:
+        return bool(self.optimizer.param_groups[0]["capturable"])
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every state tensor (moments and step counts), parameter by
+        parameter: what a guarded step must restore beside the parameters."""
+        return [t for p in self.params for t in self.optimizer.state[p].values() if isinstance(t, torch.Tensor)]
+
     def state_dict(self) -> dict:
         return self.optimizer.state_dict()
 
     def load_state_dict(self, state: dict) -> None:
-        self.optimizer.load_state_dict(state)
+        """Load a state saved on either device: the step counts go to the
+        card when this optimizer is capturable and stay on the CPU when not,
+        and the update keeps this optimizer's form, whatever the saved
+        ``capturable`` and ``fused`` flags say."""
+        own = self.optimizer.param_groups[0]
+        groups = [{**g, "capturable": own["capturable"], "fused": own["fused"]} for g in state["param_groups"]]
+        self.optimizer.load_state_dict({**state, "param_groups": groups})
+        if not self.capturable:
+            for st in self.optimizer.state.values():
+                if isinstance(st.get("step"), torch.Tensor) and st["step"].device.type != "cpu":
+                    st["step"] = st["step"].cpu()
+        _init_state(self.optimizer)  # a state saved before the first step may lack some entries
 
 
 def build_optimizer(

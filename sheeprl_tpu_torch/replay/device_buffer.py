@@ -259,18 +259,25 @@ class DeviceReplayBuffer:
         }
 
     # -- checkpoint ----------------------------------------------------------
-    def state_dict(self) -> DeviceReplayState:
-        """A copy of everything on the CPU. Call with an empty staging area
-        (the loop flushes every env step)."""
+    def state_dict(self, live: bool = False) -> DeviceReplayState:
+        """A copy of everything on the CPU; with ``live`` the storage, the
+        tree and ``max_p`` are the device tensors themselves, for a
+        :class:`~sheeprl_tpu_torch.fault.CheckpointManager` to stage without
+        blocking the host. Call with an empty staging area (the loop flushes
+        every env step)."""
         if self._staged is not None:
             raise RuntimeError("checkpointing with a staged but unflushed row would drop it")
-        arrays = {f"storage/{k}": v.to("cpu", copy=True) for k, v in self.storage.items()}
+
+        def out(v: torch.Tensor) -> torch.Tensor:
+            return v if live else v.to("cpu", copy=True)
+
+        arrays = {f"storage/{k}": out(v) for k, v in self.storage.items()}
         arrays["pos"] = torch.tensor(self._pos, dtype=torch.int32)
         arrays["valid"] = torch.tensor(self.valid_rows, dtype=torch.int32)
         arrays["key"] = self.generator.get_state()
         if self.prioritized:
-            arrays["tree"] = self.tree.to("cpu", copy=True)
-            arrays["max_p"] = self.max_p.to("cpu", copy=True)
+            arrays["tree"] = out(self.tree)
+            arrays["max_p"] = out(self.max_p)
         meta = {
             "capacity": self.capacity,
             "n_envs": self.n_envs,

@@ -183,11 +183,14 @@ class SequenceRingDriver:
             "Replay/dispatch_latency_s": round(self._metrics["dispatch_latency_s"], 4),
         }
 
-    def state_dict(self) -> DeviceReplayState:
-        """A copy of the ring, its heads and its generator on the CPU."""
+    def state_dict(self, live: bool = False) -> DeviceReplayState:
+        """A copy of the ring, its heads and its generator on the CPU; with
+        ``live`` the ring's storage is the device tensors themselves, for a
+        :class:`~sheeprl_tpu_torch.fault.CheckpointManager` to stage without
+        blocking the host."""
         if self._staged:
             raise RuntimeError("checkpointing with staged-but-unflushed rows would drop them")
-        arrays = {f"storage/{k}": v.to("cpu", copy=True) for k, v in self.rb_dev.items()}
+        arrays = {f"storage/{k}": v if live else v.to("cpu", copy=True) for k, v in self.rb_dev.items()}
         arrays["pos"] = torch.from_numpy(self.dev_pos.copy())
         arrays["valid"] = torch.from_numpy(self.dev_valid.copy())
         arrays["key"] = self.generator.get_state()

@@ -811,3 +811,81 @@ def test_torch_cuda_stateless_engine_batched_row_equals_row_alone(cuda, algo):
             np.testing.assert_allclose(got, alone, rtol=0, atol=1e-5, err_msg=f"batch {n}")
     assert not any(K.LAUNCHES.values())
     assert engine.stats()["rows"] == 380 and engine.stats()["dispatches"] == 8
+
+
+@pytest.mark.parametrize(
+    "kernel",
+    ["gru_gates", "two_hot_symlog_loss_lse", "two_hot_symlog_loss_lse_bwd", "two_hot_symexp_decode", "gae",
+     "sumtree_sample", "ragged_ring_scatter"],
+)
+def test_torch_cuda_kernel_keeps_the_plain_non_finite_positions(cuda, kernel):
+    """Each kernel of a guarded path, on inputs seeded with NaN, +inf and
+    -inf at its main path's shape, gives non-finite outputs exactly where
+    its plain version does (``chip_smoke.nonfinite_check``), so the finite
+    guard sees on the card what it sees on the CPU: a row max or a clamp
+    that drops a NaN must not turn a poisoned input into a finite loss."""
+    import chip_smoke
+
+    assert any(chip_smoke.nonfinite_check(kernel)["nonfinite_outputs"])
+
+
+def test_torch_cuda_capturable_adam_guard_select(cuda):
+    """Adam on the card is fused and capturable: its step counts live on the card,
+    a guarded step whose gradients hold a NaN leaves the parameters, the
+    moments and the step counts bit-equal, a finite one moves them as the
+    CPU's Adam does on the same gradients (within 1e-6), and a state saved
+    on the CPU loads with its step counts on the card."""
+    from sheeprl_tpu_torch.ops.guard import StateGuard, finite_guard
+    from sheeprl_tpu_torch.optim import build_optimizer
+
+    cfg = {"_target_": "torch.optim.Adam", "lr": 1e-3, "eps": 1e-5}
+    torch.manual_seed(0)
+    models = {dev: torch.nn.Sequential(torch.nn.Linear(6, 16), torch.nn.Tanh(), torch.nn.Linear(16, 2)).to(dev)
+              for dev in ("cpu", "cuda")}
+    models["cuda"].load_state_dict(models["cpu"].state_dict())
+    opts = {dev: build_optimizer(m.parameters(), cfg, max_grad_norm=0.5) for dev, m in models.items()}
+    assert opts["cuda"].capturable and not opts["cpu"].capturable
+    assert opts["cuda"].optimizer.param_groups[0]["fused"] and not opts["cpu"].optimizer.param_groups[0]["fused"]
+    steps = [st["step"] for st in opts["cuda"].optimizer.state.values()]
+    assert steps and all(s.is_cuda for s in steps)
+    params = list(models["cuda"].parameters())
+    guard = StateGuard(lambda: params + opts["cuda"].state_tensors())
+    x = torch.randn(32, 6)
+    for poisoned in (False, True, False):
+        loss = models["cuda"](x.to(cuda)).square().mean()
+        grads = {"cuda": list(torch.autograd.grad(loss, params))}
+        grads["cpu"] = [g.cpu() for g in grads["cuda"]]
+        if poisoned:
+            grads["cuda"][1][3] = float("nan")
+        guard.snapshot()
+        before = [t.clone() for t in params + opts["cuda"].state_tensors()]
+        ok = finite_guard(grads["cuda"])
+        assert ok.is_cuda and bool(ok) is not poisoned
+        opts["cuda"].step(grads["cuda"])
+        guard.select(ok)
+        after = params + opts["cuda"].state_tensors()
+        if poisoned:
+            assert all(torch.equal(a, b) for a, b in zip(after, before))
+            continue
+        opts["cpu"].step(grads["cpu"])
+        for a, b in zip(models["cuda"].parameters(), models["cpu"].parameters()):
+            torch.testing.assert_close(a.cpu(), b, atol=1e-6, rtol=0)
+    assert {int(s) for s in steps} == {2}
+    fresh = build_optimizer(models["cuda"].parameters(), cfg, max_grad_norm=0.5)
+    fresh.load_state_dict(opts["cpu"].state_dict())
+    assert all(st["step"].is_cuda and int(st["step"]) == 2 for st in fresh.optimizer.state.values())
+
+
+def test_torch_cuda_checkpoint_staging_is_ordered_before_later_writes(cuda):
+    """``stage_to_host`` copies card tensors on a side stream into pinned
+    buffers, and the caller's stream waits for the copies: an in-place
+    update queued right after it (as the next optimizer step would be) does
+    not reach the staged copy."""
+    from sheeprl_tpu_torch.utils.checkpoint import finalize_host, stage_to_host
+
+    live = {"w": torch.arange(1 << 22, dtype=torch.float32, device=cuda), "n": 3}
+    staged = stage_to_host(live, copy_host=True)
+    live["w"].mul_(-1.0)
+    host = finalize_host(staged)
+    assert host["w"].device.type == "cpu" and host["w"].is_pinned() and host["n"] == 3
+    assert torch.equal(host["w"], torch.arange(1 << 22, dtype=torch.float32))

@@ -54,7 +54,8 @@ def test_torch_package_imports_with_jax_and_reference_blocked():
     for name in ("ops.kernels.sumtree", "replay.sumtree", "replay.device_buffer", "data.ring", "algos.sac.sac",
                  "algos.sac.agent", "algos.sac.loss", "algos.sac.utils", "ops.kernels.scatter", "replay.driver",
                  "utils.burst", "utils.convert", "serve.engine", "serve.policy", "algos.ppo.evaluate",
-                 "algos.sac.evaluate", "algos.dreamer_v3.evaluate", "utils.registry", "cli"):
+                 "algos.sac.evaluate", "algos.dreamer_v3.evaluate", "utils.registry", "cli", "fault", "fault.inject",
+                 "fault.manager", "fault.sentinel", "fault.watchdog", "ops.guard", "utils.checkpoint"):
         assert f"sheeprl_tpu_torch.{name}" in report["imported"]
 
 

@@ -128,7 +128,7 @@ def update(request):
     n_threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        losses = port_train({k: torch.from_numpy(a) for k, a in data.items()}, 0.2, 0.01, perms=perms)
+        losses, _ = port_train({k: torch.from_numpy(a) for k, a in data.items()}, 0.2, 0.01, perms=perms)
     finally:
         torch.set_num_threads(n_threads)
     adam = _adam_state(new_opt)

@@ -168,9 +168,9 @@ def test_torch_sac_loop_stores_the_final_observation_of_a_truncated_env(tmp_path
     rings = []
     real = sac_module.make_resident_train_step
 
-    def keep(agent, optimizers, cfg, drb):
+    def keep(agent, optimizers, cfg, drb, **kwargs):
         rings.append(drb)
-        return real(agent, optimizers, cfg, drb)
+        return real(agent, optimizers, cfg, drb, **kwargs)
 
     monkeypatch.setattr(sac_module, "make_resident_train_step", keep)
     _run("sac_per", tmp_path, "algo.total_steps=420", "algo.learning_starts=400", "checkpoint.save_last=false")

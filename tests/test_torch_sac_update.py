@@ -187,7 +187,7 @@ def test_torch_sac_update_resident_dispatch_matches_jax(prioritized):
     assert (job.pos, job.count, job.valid) == (FILLED, 1, FILLED + 1)
     draws = _jax_resident_draws(key, prioritized, job.valid)
     train = make_resident_train_step(agent, optimizers, pcfg, pdrb)
-    losses = train(job, flags, beta, draws=draws)
+    losses, _ = train(job, flags, beta, draws=draws)
 
     np.testing.assert_allclose(losses.numpy(), [float(qf), float(al), float(ll)], **TOL)
     _compare_params(agent, p_new)
@@ -215,7 +215,7 @@ def test_torch_sac_update_resident_drain_dispatch_appends_nothing():
     storage = {k: v.clone() for k, v in pdrb.storage.items()}
     job = pdrb.make_job()
     assert (job.blob, job.count, job.pos, job.valid) == (None, 0, FILLED, FILLED)
-    losses = train(job, [1.0, 0.0], 0.4)
+    losses, _ = train(job, [1.0, 0.0], 0.4)
     assert losses.shape == (3,) and torch.isfinite(losses).all()
     assert all(torch.equal(storage[k], pdrb.storage[k]) for k in SPECS) and pdrb.pos == FILLED
     pdrb.add(_row(rng))
@@ -240,7 +240,7 @@ def test_torch_sac_update_host_train_step_matches_jax():
         noise["actor"].append(np.asarray(jax.random.normal(k_actor, (BATCH, ACT))))
     noise = {k: torch.from_numpy(np.stack(v)) for k, v in noise.items()}
     train = make_train_step(agent, optimizers, pcfg)
-    losses = train({k: torch.from_numpy(v) for k, v in data.items()}, True, noise=noise)
+    losses, _ = train({k: torch.from_numpy(v) for k, v in data.items()}, True, noise=noise)
     np.testing.assert_allclose(losses.numpy(), [float(qf), float(al), float(ll)], **TOL)
     _compare_params(agent, p_new)
 

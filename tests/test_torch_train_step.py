@@ -128,7 +128,7 @@ def step():
                 ),
                 "actions": [torch.from_numpy(np.stack([_uniform(k, s) for k, s in head])) for head in draws["actions"]],
             }
-            port_moments, port_metrics = port_train(port_data, port_moments, cum, noise=[noise])
+            port_moments, port_metrics, _ = port_train(port_data, port_moments, cum, noise=[noise])
             steps.append({
                 "jax": {
                     "params": dreamer_v3_state_from_jax(jax.tree.map(np.asarray, params)),
