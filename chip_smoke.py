@@ -124,7 +124,7 @@ result line):
    ``fault.inject.nan_grads_at``: the poisoned iteration's 80 minibatches
    skipped and its checkpoint bit-equal to the previous one; a rollback
    (``max_consecutive=1``) restoring the latest complete checkpoint
-   exactly; ``checkpoint.resume_from=latest`` with ``keep_last`` holding;
+   exactly; ``checkpoint.resume_from=latest`` publishing into a run directory of its own;
    ``action=abort`` raising ``DivergenceError``. One SAC-PER resident
    dispatch whose drawn rows carry NaN rewards, and one DreamerV3 host-tier
    gradient step on NaN rewards: every parameter, Adam state (step counts
@@ -139,7 +139,27 @@ result line):
    inputs seeded with NaN, +inf and -inf at the main path's shapes gives
    non-finite outputs exactly where its plain version does; the fused loss
    is held to the JAX Pallas kernel's form, which picks the bracket's two
-   bins, so a -inf logit outside the bracket leaves its row finite.
+   bins, so a -inf logit outside the bracket leaves its row finite;
+22. run directories: three ``run preset=ppo`` runs of one seed and one
+   ``run_name`` into one ``log_root`` (8 iterations, a save every 2,
+   ``keep_last`` 2): each in its own ``version_N``, keeping its own newest 2
+   saves and leaving the others' ``config.json`` as written; the second
+   run's planted NaN rolls back to its own checkpoint; the third resumes from
+   the first run's older step, and ``resume_from=latest`` then names its
+   save; the first run's ``metrics.jsonl`` holds the JAX loop's keys at the
+   JAX loop's steps; ``Time/sps_*`` and host ms per iteration at
+   ``metric.log_level`` 1 and 0 (``gae`` once per iteration);
+23. memmap: DreamerV3-S host runs (full width, 3 gradient steps) with
+   ``buffer.memmap`` on and off: the first gradient step's losses bit-equal,
+   the buffer's files under ``<log_dir>/memmap_buffer/rank_0/env_0``, a
+   resume that restores the buffer equal to the saved one into files of its
+   own run, host ms per env step and per batch draw both ways (the path's
+   GRU and two-hot counts, as in 7);
+24. hot swap: ``serve`` of a PPO checkpoint with ``serve.watch=true`` while
+   the run that wrote it trains on, publishing a save per iteration, and 8
+   clients send requests: versions only go up per client, every answer equals
+   the greedy program of the save its version came from, a rotted save is
+   quarantined while serving goes on; the publish-to-first-served latency.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -160,6 +180,7 @@ import tempfile
 import threading
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1134,7 +1155,7 @@ def _run_resume(summary: dict, T: int, H: int) -> dict:
     try:
         resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
                            "algo.learning_starts=2", f"algo.total_steps={summary['policy_steps'] + RUN_RESUME_STEPS}",
-                           "checkpoint.save_last=false"])
+                           "checkpoint.save_last=false", f"log_root={_log_root(summary)}"])
     finally:
         dv3.EnvIndependentReplayBuffer = _Recording.__bases__[0]
     launches = dict(kernels.LAUNCHES)
@@ -1163,6 +1184,12 @@ def _run_resume(summary: dict, T: int, H: int) -> dict:
            "restored_equal": True}
     log("run resume: " + json.dumps(out))
     return out
+
+
+def _log_root(summary: dict) -> str:
+    """The ``log_root`` a run wrote under: its directory is
+    ``<log_root>/<algo>/<env>/<run_name>/version_N``."""
+    return str(Path(summary["log_dir"]).parents[3])
 
 
 def run_phase(workdir: str) -> dict:
@@ -1271,12 +1298,13 @@ class _Conn:
         self.sock.close()
 
 
-def _serve_with(args, client) -> dict:
+def _serve_with(args, client, reset: bool = True) -> dict:
     """``cli.serve(args)`` on this thread (it installs the drain handlers)
     on a free port while ``client(port, result)`` talks to it from another
     thread, then asks the server to drain with SIGTERM. The launch counters
-    are zeroed just before and read into ``result["launches"]`` just after;
-    what the client raised is raised here."""
+    are zeroed just before (unless ``reset`` is False) and read into
+    ``result["launches"]`` just after; what the client raised is raised
+    here."""
     port = _free_port()
     result: dict = {}
 
@@ -1288,7 +1316,8 @@ def _serve_with(args, client) -> dict:
         finally:
             os.kill(os.getpid(), signal.SIGTERM)  # graceful drain of the server
 
-    kernels.reset_launches()
+    if reset:
+        kernels.reset_launches()
     client_thread = threading.Thread(target=run, daemon=True)
     client_thread.start()
     cli.serve(list(args) + [f"serve.port={port}", "serve.log_every_s=600"])
@@ -1715,7 +1744,8 @@ def ppo_run_phase(workdir: str) -> dict:
 
     kernels.reset_launches()
     resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
-                       f"algo.total_steps={summary['policy_steps'] + 512}", "algo.run_test=false"])
+                       f"algo.total_steps={summary['policy_steps'] + 512}", "algo.run_test=false",
+                       f"log_root={workdir}"])
     resume_launches = dict(kernels.LAUNCHES)
     if resumed["start_iter"] != iters + 1 or resumed["iterations"] != 1 or resumed["policy_steps"] != steps + 512:
         raise AssertionError(f"PPO resume: start {resumed['start_iter']}, {resumed['iterations']} iterations, "
@@ -2158,7 +2188,8 @@ def sac_run_phase(workdir: str) -> dict:
     sac_module.DeviceReplayBuffer = _Recording
     try:
         resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0", "algo.run_test=false",
-                           f"algo.total_steps={SAC_TOTAL_STEPS + 4 * SAC_RESUME_ITERATIONS}"])
+                           f"algo.total_steps={SAC_TOTAL_STEPS + 4 * SAC_RESUME_ITERATIONS}",
+                           f"log_root={_log_root(summary)}"])
     finally:
         sac_module.DeviceReplayBuffer = _Recording.__bases__[0]
     resume_launches = dict(kernels.LAUNCHES)
@@ -2728,7 +2759,7 @@ def resident_run_phase(workdir: str) -> dict:
     try:
         resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
                            "algo.learning_starts=2", f"algo.total_steps={summary['policy_steps'] + RESIDENT_RESUME_STEPS}",
-                           "checkpoint.save_last=true", "checkpoint.async_save=true"])
+                           "checkpoint.save_last=true", "checkpoint.async_save=true", f"log_root={_log_root(summary)}"])
     finally:
         dv3.SequenceRingDriver = _Recording.__bases__[0]
     resume_launches = dict(kernels.LAUNCHES)
@@ -3077,8 +3108,9 @@ def _fault_ppo(workdir: str) -> dict:
       loads the latest complete checkpoint (iteration 2), so iteration 3's
       checkpoint holds exactly its agent, Adam state and generator;
     - resume: ``checkpoint.resume_from=latest`` over the rollback run's root
-      continues from its newest complete checkpoint for 2 iterations, and
-      ``keep_last`` (5) holds: the manifest keeps the 5 newest of 6 saves;
+      continues from its newest complete checkpoint for 2 iterations,
+      publishing them into a directory of its own and leaving the rollback
+      run's manifest as it was;
     - abort: iterations 1 and 2 poisoned with ``max_consecutive=2
       action=abort`` raise ``DivergenceError``."""
     from sheeprl_tpu_torch.fault import DivergenceError, read_manifest
@@ -3127,16 +3159,21 @@ def _fault_ppo(workdir: str) -> dict:
                            "algo.run_test=false"])
     launches = dict(kernels.LAUNCHES)
     line = f"checkpoint.resume_from=latest -> {s['checkpoint']}"
-    manifest = [e["step"] for e in read_manifest(ckpt_dir)]
-    kept = sorted(int(f.split("_")[1]) for f in os.listdir(ckpt_dir) if f.endswith(".ckpt"))
-    want_kept = [i * 512 for i in range(2, FAULT_PPO_ITERATIONS + 3)]
+    # the resumed run publishes into a directory of its own; the rollback
+    # run's keeps its FAULT_PPO_ITERATIONS saves (within keep_last, 5)
+    own_dir = os.path.dirname(resumed["checkpoint"])
+    manifest = [e["step"] for e in read_manifest(own_dir)]
+    kept = sorted(int(f.split("_")[1]) for f in os.listdir(own_dir) if f.endswith(".ckpt"))
+    old = [e["step"] for e in read_manifest(ckpt_dir)]
+    want_kept = [i * 512 for i in range(FAULT_PPO_ITERATIONS + 1, FAULT_PPO_ITERATIONS + 3)]
     if (line not in printed.getvalue() or resumed["start_iter"] != FAULT_PPO_ITERATIONS + 1
-            or resumed["iterations"] != 2 or manifest != want_kept or kept != want_kept):
+            or resumed["iterations"] != 2 or manifest != want_kept or kept != want_kept or own_dir == ckpt_dir
+            or old != [i * 512 for i in range(1, FAULT_PPO_ITERATIONS + 1)]):
         raise AssertionError(f"PPO resume from latest: printed {printed.getvalue()!r}, start {resumed['start_iter']}, "
-                             f"manifest {manifest}, files {kept}")
+                             f"manifest {manifest}, files {kept}, the resumed run's old directory {old}")
     _ppo_launch_check(resumed, launches)
     out["resume_latest"] = {"start_iter": resumed["start_iter"], "iterations": resumed["iterations"],
-                            "manifest_steps": manifest, "launches": launches}
+                            "manifest_steps": manifest, "old_run_steps": old, "launches": launches}
     log("fault PPO resume from latest: " + json.dumps(out["resume_latest"]))
 
     try:
@@ -3283,22 +3320,22 @@ def _resident_saves(summary: dict, resumed: dict) -> dict:
     saved asynchronously. Per save: the host ms the training thread spent
     in ``save`` (all of it, synchronously; the staging, asynchronously), the
     writer's write and sha256 seconds, the file's bytes. Both are published
-    with matching sizes and digests, and the resume's is the newest
-    complete checkpoint."""
+    with matching sizes and digests, each the newest complete checkpoint
+    of its own run directory."""
     from sheeprl_tpu_torch.fault import latest_complete, read_manifest
 
-    ckpt_dir = os.path.dirname(summary["checkpoint"])
-    entries = {e["file"]: e for e in read_manifest(ckpt_dir)}
     out = {}
     for mode, run in (("sync", summary), ("async", resumed)):
+        ckpt_dir = os.path.dirname(run["checkpoint"])
+        entries = {e["file"]: e for e in read_manifest(ckpt_dir)}
         name = os.path.basename(run["checkpoint"])
         timing = run["checkpoint_timings"][-1]
         if name not in entries or entries[name]["bytes"] != os.path.getsize(run["checkpoint"]):
             raise AssertionError(f"the {mode} save of {name} is not published with its size")
+        if str(latest_complete(ckpt_dir)) != str(run["checkpoint"]):
+            raise AssertionError(f"the newest complete checkpoint is {latest_complete(ckpt_dir)}, not the {mode} save's")
         out[mode] = {"host_ms": timing["blocked_s"] * 1e3, "write_s": timing["write_s"],
                      "digest_s": timing["digest_s"], "bytes": timing["bytes"]}
-    if str(latest_complete(ckpt_dir)) != str(resumed["checkpoint"]):
-        raise AssertionError(f"the newest complete checkpoint is {latest_complete(ckpt_dir)}, not the async save's")
     log("resident checkpoint saves: " + json.dumps(out))
     return out
 
@@ -3441,6 +3478,431 @@ def nonfinite_phase() -> dict:
     return out
 
 
+# -- 22-24. run directories, memmapped replay, hot swap ----------------------------
+
+RUNDIR_ITERATIONS, RUNDIR_EVERY = 8, 1024  # PPO iterations of 512 steps; a save every 2 iterations
+RUNDIR_NAN_AT = 5  # the second run's poisoned iteration: it rolls back to its own step 2048
+# what the JAX PPO loop logs (sheeprl_tpu/algos/ppo/ppo.py): every iteration,
+# and at each log point
+PPO_INFO_KEYS = {"Info/learning_rate", "Info/clip_coef", "Info/ent_coef"}
+PPO_LOG_KEYS = {"Rewards/rew_avg", "Game/ep_len_avg", "Loss/value_loss", "Loss/policy_loss", "Loss/entropy_loss",
+                "Time/sps_train", "Time/sps_env_interaction", "Fault/env_restarts", "Fault/skipped_updates"}
+
+
+def _rundir_run(root: str, run_name: str, *extra) -> dict:
+    """``run preset=ppo`` cut to RUNDIR_ITERATIONS iterations, a save every
+    RUNDIR_EVERY steps and ``keep_last`` 2; ``gae`` once per iteration."""
+    kernels.reset_launches()
+    summary = cli.run([f"preset={PPO_PRESET}", f"algo.total_steps={RUNDIR_ITERATIONS * 512}",
+                       f"checkpoint.every={RUNDIR_EVERY}", "checkpoint.keep_last=2", "algo.run_test=false",
+                       f"metric.log_every={RUNDIR_EVERY}", f"run_name={run_name}", f"log_root={root}", *extra])
+    summary["launches"] = dict(kernels.LAUNCHES)
+    _ppo_launch_check(summary, summary["launches"])
+    return summary
+
+
+def _host_ms_per_iteration(summary: dict) -> float:
+    """The median host time of an iteration (rollout, GAE, update), the
+    first one (warm-up) left out."""
+    per = [(r + g + u) * 1e3 for r, g, u in zip(summary["rollout_s"], summary["gae_s"], summary["update_s"])]
+    return float(np.median(per[1:]))
+
+
+def _steps_of(ckpt_dir) -> tuple:
+    from sheeprl_tpu_torch.fault import read_manifest
+
+    manifest = [int(e["step"]) for e in read_manifest(ckpt_dir)]
+    files = sorted(int(p.name.split("_")[1]) for p in Path(ckpt_dir).glob("*.ckpt"))
+    return manifest, files
+
+
+def _check_metrics_jsonl(log_dir: Path, iterations: int) -> dict:
+    """``metrics.jsonl`` holds the JAX loop's keys at its steps: the Info
+    keys at every iteration, the losses and the two rates at every log
+    point, the episode means at the first, and nothing else."""
+    rows = [json.loads(line) for line in (log_dir / "metrics.jsonl").read_text().splitlines()]
+    by_step: dict = {}
+    for row in rows:
+        by_step.setdefault(row["step"], set()).update(k for k in row if k != "step")
+    log_points = [s for s in range(RUNDIR_EVERY, iterations * 512 + 1, RUNDIR_EVERY)]
+    want_loss = {"Loss/value_loss", "Loss/policy_loss", "Loss/entropy_loss", "Time/sps_train",
+                 "Time/sps_env_interaction"}
+    bad = [s for s in range(512, iterations * 512 + 1, 512)
+           if not PPO_INFO_KEYS <= by_step.get(s, set()) or not by_step[s] <= PPO_INFO_KEYS | PPO_LOG_KEYS
+           or (s in log_points) != bool(want_loss & by_step[s]) or (s in log_points and not want_loss <= by_step[s])]
+    if bad or set(by_step) != set(range(512, iterations * 512 + 1, 512)) or "Rewards/rew_avg" not in by_step[log_points[0]]:
+        raise AssertionError(f"metrics.jsonl steps {sorted(by_step)}, keys at the wrong steps {bad}: {by_step}")
+    rates = {k: [row[k] for row in rows if k in row] for k in ("Time/sps_train", "Time/sps_env_interaction")}
+    return {"log_points": log_points, "keys_by_step": {s: sorted(k) for s, k in by_step.items()}, **rates}
+
+
+def rundir_phase(workdir: str) -> dict:
+    """Three runs of ``preset=ppo`` with one seed and one ``run_name`` into
+    one ``log_root``: A at ``metric.log_level=1``; B with a NaN planted at
+    iteration RUNDIR_NAN_AT (``max_consecutive=1``); C resumed from A's older
+    kept step. Each gets its own ``version_N`` (0, 1, 2), keeps its own
+    newest 2 saves, and leaves the others' ``config.json`` as written; B's
+    sentinel rolls back to B's own step 2048; ``resume_from=latest`` then
+    names C's save, the newest. A's ``metrics.jsonl`` holds the JAX loop's
+    keys at the JAX loop's steps. Then host ms per iteration at
+    ``log_level`` 1 and 0, in turns (1, 0, 0, 1)."""
+    from sheeprl_tpu_torch.fault import DivergenceSentinel, latest_complete
+
+    root = os.path.join(workdir, "rundir")
+    base = Path(root) / "ppo" / "CartPole-v1" / "rundir"
+    t0 = time.perf_counter()
+    a = _rundir_run(root, "rundir", "metric.log_level=1")
+    a_dir = Path(a["log_dir"])
+    written = {p: p.read_bytes() for p in (a_dir / "config.json", a_dir / "checkpoint" / "config.json")}
+
+    rolled = []
+    real_recover = DivergenceSentinel.recover
+
+    def recover(self, ckpt_dir, rollback):
+        rolled.append(str(latest_complete(ckpt_dir)))
+        return real_recover(self, ckpt_dir, rollback)
+
+    DivergenceSentinel.recover = recover
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            b = _rundir_run(root, "rundir", "metric.log_level=0", f"fault.inject.nan_grads_at=[{RUNDIR_NAN_AT}]",
+                            "fault.sentinel.max_consecutive=1")
+    finally:
+        DivergenceSentinel.recover = real_recover
+    b_dir = Path(b["log_dir"])
+    written.update({p: p.read_bytes() for p in (b_dir / "config.json", b_dir / "checkpoint" / "config.json")})
+
+    older = a_dir / "checkpoint" / f"ckpt_{(RUNDIR_ITERATIONS - 2) * 512}_0.ckpt"
+    kernels.reset_launches()
+    c = cli.run([f"checkpoint.resume_from={older}", f"log_root={root}", "run_name=rundir", "metric.log_level=0"])
+    c["launches"] = dict(kernels.LAUNCHES)
+    _ppo_launch_check(c, c["launches"])
+    c_dir = Path(c["log_dir"])
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        latest = cli.compose_run_config([f"preset={PPO_PRESET}", f"log_root={root}", "checkpoint.resume_from=latest"])
+
+    last, before_last = RUNDIR_ITERATIONS * 512, (RUNDIR_ITERATIONS - 2) * 512
+    steps = {"A": _steps_of(a_dir / "checkpoint"), "B": _steps_of(b_dir / "checkpoint"),
+             "C": _steps_of(c_dir / "checkpoint")}
+    checks = {
+        "versions": [p.name for p in (a_dir, b_dir, c_dir)] == ["version_0", "version_1", "version_2"]
+        and all(p.parent == base for p in (a_dir, b_dir, c_dir)),
+        "own_saves": steps["A"] == steps["B"] == ([before_last, last],) * 2 and steps["C"] == ([last], [last]),
+        "configs_unchanged": all(p.read_bytes() == text for p, text in written.items()),
+        "rollback_own_dir": rolled == [str(b_dir / "checkpoint" / "ckpt_2048_0.ckpt")] and b["rollbacks"] == 1
+        and b["skipped"][RUNDIR_NAN_AT - 1] == 80.0,
+        "resume_latest": latest.checkpoint.resume_from == c["checkpoint"]
+        and f"checkpoint.resume_from=latest -> {c['checkpoint']}" in printed.getvalue(),
+        "resumed_from_older": c["start_iter"] == RUNDIR_ITERATIONS - 1 and c["iterations"] == 2,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"run directories: {checks}, saves {steps}, rolled back to {rolled}")
+    metrics = _check_metrics_jsonl(a_dir, RUNDIR_ITERATIONS)
+    out = {"checks": checks, "saves": steps, "rolled_back_to": rolled[0], "metrics": metrics,
+           "launches": a["launches"], "launches_b": b["launches"], "launches_c": c["launches"],
+           "runs_s": time.perf_counter() - t0}
+
+    # logging's host cost: the same run at log_level 1 and 0, in turns
+    timing = {1: [_host_ms_per_iteration(a)], 0: []}
+    for level in (0, 0, 1):
+        timing[level].append(_host_ms_per_iteration(_rundir_run(root, f"timing_{level}", f"metric.log_level={level}")))
+    out["host_ms_per_iteration"] = {"log_level_1": timing[1], "log_level_0": timing[0]}
+    out["sps_train_last"], out["sps_env_interaction_last"] = metrics["Time/sps_train"][-1], \
+        metrics["Time/sps_env_interaction"][-1]
+    log(f"rundir: Time/sps_train {metrics['Time/sps_train']}, Time/sps_env_interaction "
+        f"{metrics['Time/sps_env_interaction']}; host ms per iteration at log_level 1 {timing[1]} and 0 {timing[0]}")
+    log("rundir: " + json.dumps({k: v for k, v in out.items() if k != "metrics"}))
+    return out
+
+
+MEMMAP_LEARNING_STARTS, MEMMAP_GRADIENT_STEPS = 64, 3
+MEMMAP_RESUME_STEPS = 4
+
+
+def _memmap_run(root: str, memmap: bool, *extra) -> dict:
+    """DreamerV3-S host run (full width) with ``buffer.memmap``: the launch
+    counts of the path, the buffer files seen at the first batch draw, and
+    the timers (on at ``log_level=0`` through ``disable_timer=false``):
+    host ms per env step and per gradient-step batch draw."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.utils.timer import timer
+
+    seen = []
+
+    class _Watching(dv3.EnvIndependentReplayBuffer):
+        def sample(self, *args, **kwargs):
+            if not seen:
+                first = self.buffer[0].buffer
+                seen.extend(v.filename if hasattr(v, "filename") else None for v in first.values())
+            return super().sample(*args, **kwargs)
+
+    total = MEMMAP_LEARNING_STARTS + MEMMAP_GRADIENT_STEPS - 1
+    kernels.reset_launches()
+    timer.reset()
+    dv3.EnvIndependentReplayBuffer = _Watching
+    try:
+        summary = cli.run([f"preset={RUN_PRESET}", f"algo.learning_starts={MEMMAP_LEARNING_STARTS}",
+                           f"algo.total_steps={total}", "checkpoint.every=0", "checkpoint.save_last=true",
+                           "metric.log_level=0", "metric.disable_timer=false", "algo.run_test=false",
+                           f"buffer.memmap={memmap}", f"log_root={root}", *extra])
+    finally:
+        dv3.EnvIndependentReplayBuffer = _Watching.__bases__[0]
+    summary["launches"] = dict(kernels.LAUNCHES)
+    times = timer.compute()
+    steps = summary["policy_steps"] - (summary["start_iter"] - 1)
+    summary["host_ms_per_env_step"] = times["Time/env_interaction_time"] / steps * 1e3
+    summary["host_ms_per_batch_draw"] = times["Time/replay_path_time"] / max(1, summary["train_calls"]) * 1e3
+    summary["files"] = seen
+    return summary
+
+
+def _dreamer_launch_want(summary: dict, T: int, H: int) -> dict:
+    G = summary["gradient_steps"]
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want.update({"two_hot_symlog_loss_lse": 3 * G, "two_hot_symlog_loss_lse_bwd": 3 * G,
+                 "two_hot_symexp_decode": 3 * G,
+                 "gru_gates": G * (T + H) + summary["player_steps"] + (summary["test_steps"] or 0)})
+    return want
+
+
+def memmap_phase(workdir: str) -> dict:
+    """DreamerV3-S host runs of one seed with ``buffer.memmap`` on and off:
+    the first gradient step's losses bit-equal, the memmapped run's files
+    under its ``memmap_buffer/rank_0/env_0``, the launch counts of the path;
+    a resume of the memmapped run restores the buffer equal to the saved one
+    into files of its own run directory; host ms per env step and per batch
+    draw both ways, in turns (on, off, off, on)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+
+    root = os.path.join(workdir, "memmap")
+    # cuDNN's default convolution weight-gradient accumulates in a run-to-run
+    # order: the world model's first update, and so the actor's and critic's
+    # first losses after it, would differ in the last bit between two runs
+    # of the same data; its deterministic algorithms hold them bit-equal
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {"on": [_memmap_run(root, True)], "off": [_memmap_run(root, False)]}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    on, off = runs["on"][0], runs["off"][0]
+    cfg = load_config(find_run_config(on["checkpoint"]))
+    T, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.horizon)
+    for s in (on, off):
+        want = _dreamer_launch_want(s, T, H)
+        if s["launches"] != want or s["gradient_steps"] < MEMMAP_GRADIENT_STEPS or s["device"].split(":")[0] != "cuda":
+            raise AssertionError(f"memmap run: launches {s['launches']} != {want}, {s['gradient_steps']} gradient steps")
+    env_dir = Path(on["log_dir"]) / "memmap_buffer" / "rank_0" / "env_0"
+    keys = ["actions", "is_first", "rewards", "rgb", "terminated", "truncated"]
+    if sorted(on["files"]) != [str(env_dir / f"{k}.memmap") for k in keys] or any(off["files"]):
+        raise AssertionError(f"memmap files {on['files']} (want {keys} under {env_dir}); in memory {off['files']}")
+    if on["metrics"][0] != off["metrics"][0]:
+        raise AssertionError(f"first gradient step's losses differ: {on['metrics'][0]} != {off['metrics'][0]}")
+
+    saved = load_checkpoint(on["checkpoint"])["rb"]
+    restored = []
+
+    class _Recording(dv3.EnvIndependentReplayBuffer):
+        def load_state_dict(self, state):
+            super().load_state_dict(state)
+            restored.append((self.state_dict(), [v.filename for v in self.buffer[0].buffer.values()]))
+
+    kernels.reset_launches()
+    dv3.EnvIndependentReplayBuffer = _Recording
+    try:
+        resumed = cli.run([f"checkpoint.resume_from={on['checkpoint']}", "metric.log_level=0", "algo.learning_starts=2",
+                           f"algo.total_steps={on['policy_steps'] + MEMMAP_RESUME_STEPS}", "checkpoint.save_last=false",
+                           f"log_root={root}"])
+    finally:
+        dv3.EnvIndependentReplayBuffer = _Recording.__bases__[0]
+    resume_launches = dict(kernels.LAUNCHES)
+    (state, files), = restored
+    same = state["rng"] == saved["rng"] and all(
+        got[k] == want[k] for got, want in zip(state["envs"], saved["envs"]) for k in ("pos", "full", "rng"))
+    same = same and all(torch.equal(got["buffer"][k], v) for got, want in zip(state["envs"], saved["envs"])
+                        for k, v in want["buffer"].items())
+    own = Path(resumed["log_dir"]) / "memmap_buffer" / "rank_0" / "env_0"
+    if not same or sorted(files) != [str(own / f"{k}.memmap") for k in keys] or own == env_dir:
+        raise AssertionError(f"memmap resume: buffer restored equal {same}, files {files} (want under {own})")
+    if resume_launches != _dreamer_launch_want(resumed, T, H) or resumed["gradient_steps"] == 0:
+        raise AssertionError(f"memmap resume launches {resume_launches}")
+
+    for memmap in (False, True):  # the timing pair's second half, in turns
+        runs["on" if memmap else "off"].append(_memmap_run(root, memmap))
+    out = {
+        "first_step_losses_bit_equal": True,
+        "first_step_losses": dict(zip(METRIC_NAMES, on["metrics"][0])),
+        "losses_equal_every_step": [a == b for a, b in zip(on["metrics"], off["metrics"])],
+        "files": sorted(Path(f).name for f in on["files"]),
+        "launches": on["launches"], "launches_off": off["launches"], "resume_launches": resume_launches,
+        "resume_restored_equal": True,
+        "host_ms_per_env_step": {k: [r["host_ms_per_env_step"] for r in v] for k, v in runs.items()},
+        "host_ms_per_batch_draw": {k: [r["host_ms_per_batch_draw"] for r in v] for k, v in runs.items()},
+        "gradient_steps": on["gradient_steps"],
+    }
+    log("memmap: " + json.dumps(out))
+    return out
+
+
+HOTSWAP_ITERATIONS = 6  # the training run publishes a save every iteration (512 steps)
+HOTSWAP_CLIENTS = 8
+HOTSWAP_POLL_S = 0.2
+
+
+def hotswap_phase(workdir: str) -> dict:
+    """``serve`` of a PPO checkpoint with ``serve.watch=true`` and
+    ``watch_poll_s`` HOTSWAP_POLL_S while the run that wrote it trains on and
+    publishes a save per iteration into the watched directory, and
+    HOTSWAP_CLIENTS clients keep sending requests of 1-4 rows. Versions only
+    go up per client; no request fails; every answer equals the card's
+    greedy program of the save its version was published from; a rotted
+    save planted after the run is quarantined while serving goes on. The
+    training run launches ``gae`` once per iteration and serving launches no
+    kernel. Prints the publish-to-first-served latency."""
+    from sheeprl_tpu_torch.fault.inject import plant_torn_checkpoint
+    from sheeprl_tpu_torch.fault.manager import CheckpointManager, complete_entries, read_manifest
+    from sheeprl_tpu_torch.serve import server as server_module
+    from sheeprl_tpu_torch.utils.registry import resolve_policy_builder
+
+    root = os.path.join(workdir, "hotswap")
+    ckpt_dir = Path(root) / "ppo" / "CartPole-v1" / "hotswap" / "version_0" / "checkpoint"
+    gate, train = threading.Event(), {}
+    real_save = CheckpointManager.save
+
+    def gated_save(self, path, state, step=None, config=None):
+        if int(step or 0) > 512:  # the run's later saves wait until the clients are sending
+            gate.wait(300)
+        return real_save(self, path, state, step=step, config=config)
+
+    def train_run() -> None:
+        try:
+            train["summary"] = cli.run([f"preset={PPO_PRESET}", f"algo.total_steps={HOTSWAP_ITERATIONS * 512}",
+                                        "checkpoint.every=512", "checkpoint.keep_last=0", "metric.log_level=0",
+                                        "algo.run_test=false", "run_name=hotswap", f"log_root={root}"])
+        except BaseException as e:  # reported by the main thread
+            train["error"] = e
+
+    watchers = []
+
+    class _Recorded(server_module.CheckpointWatcher):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            watchers.append(self)
+
+    kernels.reset_launches()
+    CheckpointManager.save = gated_save
+    trainer = threading.Thread(target=train_run, daemon=True)
+    trainer.start()
+    deadline = time.monotonic() + 300
+    while not (ckpt_dir.is_dir() and complete_entries(ckpt_dir)) and "error" not in train:
+        if time.monotonic() > deadline:
+            raise TimeoutError("the hot-swap training run published no checkpoint")
+        time.sleep(0.05)
+    first = complete_entries(ckpt_dir)[0][2]
+    rng = np.random.default_rng(21)
+    records, errors = [], []
+    planted = {}
+
+    def client(port: int, result: dict) -> None:
+        stop = threading.Event()
+        probe = _Conn(port, deadline)
+
+        def one(i: int) -> None:
+            try:
+                conn = _Conn(port, deadline)
+                local = np.random.default_rng(100 + i)
+                while not stop.is_set():
+                    rows = _stateless_rows(local, "ppo", int(local.integers(1, 5)))
+                    resp = conn.ask({"obs": {"state": rows.tolist()}, "n": len(rows)})
+                    if "actions" not in resp:
+                        raise AssertionError(f"client {i}: {resp}")
+                    records.append((i, time.time(), int(resp["version"]), rows, np.asarray(resp["actions"])))
+                conn.close()
+            except BaseException as e:  # reported by the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=one, args=(i,), daemon=True) for i in range(HOTSWAP_CLIENTS)]
+        for th in threads:
+            th.start()
+        gate.set()
+        trainer.join(timeout=600)
+        final_step = HOTSWAP_ITERATIONS * 512
+        while probe.ask({"health": True})["weights"]["step"] != final_step and time.monotonic() < deadline:
+            time.sleep(0.05)
+        planted["path"] = plant_torn_checkpoint(ckpt_dir, f"ckpt_{final_step + 512}_0.ckpt",
+                                                load_checkpoint(ckpt_dir / f"ckpt_{final_step}_0.ckpt"),
+                                                step=final_step + 512)
+        planted["time"] = time.time()
+        while not probe.ask({"health": True}).get("watcher", {}).get("quarantined") and time.monotonic() < deadline:
+            time.sleep(0.05)
+        time.sleep(0.5)  # serving goes on past the quarantine
+        stop.set()
+        for th in threads:
+            th.join(timeout=60)
+        result["health"] = probe.ask({"health": True})
+        probe.close()
+
+    server_module.CheckpointWatcher = _Recorded
+    try:
+        result = _serve_with([f"checkpoint_path={first}", "serve.watch=true", f"serve.watch_poll_s={HOTSWAP_POLL_S}",
+                              "serve.buckets=[1,8,32,128]", "serve.max_wait_ms=2.0"], client, reset=False)
+    finally:
+        server_module.CheckpointWatcher = _Recorded.__bases__[0]
+        CheckpointManager.save = real_save
+        gate.set()
+    trainer.join(timeout=60)
+    launches = dict(kernels.LAUNCHES)
+    if "error" in train:
+        raise train["error"]
+    if errors:
+        raise errors[0]
+    summary = train["summary"]
+    _ppo_launch_check(summary, launches)  # gae once per training iteration; serving launched nothing
+    history = watchers[0].history
+    step_of = {0: 512, **{v: s for s, v, _ in history}}
+    cfg = load_config(find_run_config(first))
+    builder = resolve_policy_builder("ppo")
+    mismatched, by_version = 0, {}
+    for i, t, version, rows, actions in records:
+        by_version.setdefault(version, []).append((rows, actions))
+    for version, pairs in by_version.items():
+        policy = builder(cfg, load_checkpoint(ckpt_dir / f"ckpt_{step_of[version]}_0.ckpt"), "cuda")
+        for rows, actions in pairs:
+            obs = policy.prepare({"state": rows}, len(rows))
+            with torch.no_grad():
+                want = policy.greedy_fn(policy.params, {k: torch.from_numpy(v).cuda() for k, v in obs.items()})
+            mismatched += int(not np.array_equal(actions, want.cpu().numpy()))
+    monotone = all([v for c, _, v, _, _ in records if c == i] == sorted(v for c, _, v, _, _ in records if c == i)
+                   for i in range(HOTSWAP_CLIENTS))
+    manifest_time = {int(e["step"]): float(e["time"]) for e in read_manifest(ckpt_dir)}
+    latency = []
+    for step, version, published in history:
+        served = [t for _, t, v, _, _ in records if v >= version]
+        if served:
+            latency.append({"step": step, "version": version, "manifest_to_served_ms": (min(served) - manifest_time[step]) * 1e3,
+                            "publish_to_served_ms": (min(served) - published) * 1e3})
+    health = result["health"]
+    after_rot = [v for _, t, v, _, _ in records if t > planted["time"]]
+    checks = {
+        "every_request_answered_equal": mismatched == 0 and len(records) > 100,
+        "monotone_per_client": monotone,
+        "swapped_each_save": [s for s, _, _ in history] == sorted(s for s, _, _ in history)
+        and history[-1][0] == HOTSWAP_ITERATIONS * 512 and len(by_version) >= 3,
+        "quarantined": health["watcher"]["quarantined"] == [str(planted["path"])] and health["status"] == "ok"
+        and health["weights"]["step"] == HOTSWAP_ITERATIONS * 512,
+        "serving_after_rot": len(after_rot) > 0 and max(after_rot) == history[-1][1],
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"hot swap: {checks}, history {history}, {mismatched} mismatched answers, health {health}")
+    out = {"checks": checks, "requests": len(records), "versions_served": sorted(by_version),
+           "published_steps": [s for s, _, _ in history], "launches": launches, "latency": latency,
+           "watcher": health["watcher"], "serve_launches_zero": True}
+    log("hot swap: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
@@ -3489,12 +3951,21 @@ def main() -> int:
         resident_run = timed("resident_run", resident_run_phase, workdir)
     with tempfile.TemporaryDirectory() as workdir:
         fault = timed("fault", fault_phase, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        rundir = timed("rundir", rundir_phase, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        memmap = timed("memmap", memmap_phase, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        hotswap = timed("hotswap", hotswap_phase, workdir)
     paths = {"run": run, "run_resume": run["resume"], "serve": serve, "evaluation": rssm_eval, "ppo_run": ppo_run,
              "ppo_serve": ppo_serve, "ppo_evaluation": ppo_eval, "sac_run": sac_run, "sac_serve": sac_serve,
              "sac_evaluation": sac_eval, "resident_run": resident_run, "resident_resume": resident_run["resume"],
              "fault_ppo_skip": fault["ppo"]["skip"], "fault_ppo_rollback": fault["ppo"]["rollback"],
              "fault_ppo_resume_latest": fault["ppo"]["resume_latest"], "fault_sac_dispatch": fault["sac"],
-             "fault_rssm_step": fault["rssm"]}
+             "fault_rssm_step": fault["rssm"], "rundir": rundir, "rundir_rollback": {"launches": rundir["launches_b"]},
+             "rundir_resume": {"launches": rundir["launches_c"]}, "memmap": memmap,
+             "memmap_off": {"launches": memmap["launches_off"]}, "memmap_resume": {"launches": memmap["resume_launches"]},
+             "hotswap": hotswap}
     rows = [gru] + two_hot + [gae_row, sumtree_row, scatter_row]
     for row in rows:
         row["launches_by_path"] = {name: path["launches"][row["name"]] for name, path in paths.items()}
@@ -3519,7 +3990,7 @@ def main() -> int:
                       "ppo_serve": ppo_serve, "ppo_evaluation": ppo_eval, "sac_update": sac_update,
                       "sac_run": sac_run, "sac_serve": sac_serve, "sac_evaluation": sac_eval,
                       "resident_dispatch": resident_dispatch, "resident_run": resident_run, "fault": fault,
-                      "nonfinite": nonfinite}))
+                      "nonfinite": nonfinite, "rundir": rundir, "memmap": memmap, "hotswap": hotswap}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

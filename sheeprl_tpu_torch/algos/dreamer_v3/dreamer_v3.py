@@ -35,6 +35,14 @@ host read), and the EMA cadence counts only the steps taken. The
 :class:`~sheeprl_tpu_torch.fault.DivergenceSentinel` reads the skipped count
 with the metrics once per train call. The resident tier stays unguarded, as
 in the JAX package.
+
+The run writes into its own directory (``utils.logger.get_log_dir``); the
+host tier's per-env buffers are memmapped under its ``memmap_buffer/rank_0``
+with ``buffer.memmap`` (the default). At ``metric.log_level`` 1 the JAX
+loop's metrics go to ``metrics.jsonl`` every ``metric.log_every`` policy
+steps: ``Rewards/rew_avg``, ``Game/ep_len_avg``, the ``Loss/*`` and
+``State/*`` means (from the reads the loop already makes), on the ring
+``Replay/*``, ``Params/replay_ratio`` and ``Time/sps_*``.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from __future__ import annotations
 import math
 import os
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -86,6 +95,10 @@ from sheeprl_tpu_torch.replay import (
     restore_host_env_buffer,
 )
 from sheeprl_tpu_torch.utils.burst import dreamer_ring_keys
+from sheeprl_tpu_torch.utils.checkpoint import write_run_config
+from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
+from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric, build_aggregator
+from sheeprl_tpu_torch.utils.timer import log_timers, timer
 from sheeprl_tpu_torch.utils.utils import Ratio
 
 __all__ = ["METRIC_NAMES", "Player", "draw_noise", "make_optimizers", "make_train_step", "main"]
@@ -446,9 +459,15 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     num_envs = int(cfg.env.num_envs)
     seed = int(cfg.seed)
 
+    log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
+    logger = get_logger(cfg, log_dir)
+    print(f"Log dir: {log_dir}", flush=True)
     envs = make_vector_env(cfg, seed)
     cfg["spaces"] = dotdict(envs.spaces)  # what serve reads off the run's config.json
     actions_dim = tuple(int(d) for d in cfg.spaces.actions.n)
+    logger.log_hyperparams(cfg)
+    write_run_config(log_dir, plain(cfg))  # the run directory's config.json
+    aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.get("aggregator"))
 
     world_model, actor, critic, target_critic = build_training_agent(cfg, device, state)
     optimizers = make_optimizers(cfg, world_model, actor, critic)
@@ -458,13 +477,12 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             opt.load_state_dict(state["optimizers"][name])
         moments_state = {k: v.to(device) for k, v in state["moments"].items()}
 
-    log_dir = os.path.join(
-        str(cfg.log_root), str(cfg.algo.name), str(cfg.env.id), str(cfg.get("run_name") or f"seed_{seed}")
-    )
     ckpt_dir = os.path.join(log_dir, "checkpoint")
     manager = CheckpointManager.from_config(cfg)
     buffer_size = int(cfg.buffer.size) // num_envs
-    rb = EnvIndependentReplayBuffer(buffer_size, num_envs, obs_keys)
+    rb = EnvIndependentReplayBuffer(buffer_size, num_envs, obs_keys, memmap=bool(cfg.buffer.get("memmap", False)),
+                                    memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"),
+                                    memmap_mode=str(cfg.buffer.get("memmap_mode", "r+")))
     rb.seed(seed)
     checkpoint_rb = bool(cfg.buffer.get("checkpoint", False))
     saved_rb = state.get("rb") if state is not None and checkpoint_rb else None
@@ -474,7 +492,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     last_checkpoint = int(state["last_checkpoint"]) if state is not None else 0
     last_log = int(state["last_log"]) if state is not None else 0
     total_iters = int(cfg.algo.total_steps) // num_envs
-    learning_starts = int(cfg.algo.learning_starts) // num_envs
+    learning_starts = int(cfg.algo.get("learning_starts", 0)) // num_envs
     prefill_steps = learning_starts - int(learning_starts > 0)
     if state is not None:
         cfg.algo["per_rank_batch_size"] = int(state["batch_size"])
@@ -487,6 +505,15 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     seq_len = int(cfg.algo.per_rank_sequence_length)
     log_level = int(cfg.metric.get("log_level", 1))
     log_every = int(cfg.metric.get("log_every", 5000))
+    action_repeat = int(cfg.env.get("action_repeat", 1) or 1)
+    train_step = resumed_train_steps = int(state.get("train_step", 0)) if state is not None else 0
+    last_train = int(state.get("last_train", 0)) if state is not None else 0
+    if log_level > 0 and log_every % num_envs != 0:
+        warnings.warn(f"The metric.log_every parameter ({log_every}) is not a multiple of the "
+                      f"policy_steps_per_iter value ({num_envs}).")
+    if int(cfg.checkpoint.every) % num_envs != 0:
+        warnings.warn(f"The checkpoint.every parameter ({cfg.checkpoint.every}) is not a multiple of the "
+                      f"policy_steps_per_iter value ({num_envs}).")
 
     generator = torch.Generator(device=device).manual_seed(seed)
     if state is not None and state.get("rng") is not None:
@@ -548,15 +575,35 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     carry = (moments_state, torch.zeros((), dtype=torch.int64, device=device))  # the resident burst's carry
     pending: List[torch.Tensor] = []  # resident metrics still on the device
 
+    def take_metrics(rows: List[List[float]]) -> None:
+        """One train call's metrics read from the device, a row per step:
+        into the summary and the printout, and their mean into the
+        aggregator, once per call as the JAX loop updates it."""
+        summary["metrics"].extend(rows)
+        if aggregator is not None:
+            for name, column in zip(METRIC_NAMES, zip(*rows)):
+                aggregator.update(name, np.mean(column))
+        if log_level > 0:
+            for row in rows:
+                print("train " + " ".join(f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(METRIC_NAMES, row)), flush=True)
+
     def read_metrics() -> None:
+        """The resident dispatches' pending metrics, one row each, in one copy."""
         if pending:
             rows = torch.stack(pending).cpu().tolist()
             pending.clear()
-            summary["metrics"].extend(rows)
-            if log_level > 0:
-                for row in rows:
-                    print("train " + " ".join(f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(METRIC_NAMES, row)),
-                          flush=True)
+            for row in rows:
+                take_metrics([row])
+
+    def log_metrics() -> None:
+        """The JAX loop's log point (at ``metric.log_level`` 1)."""
+        if resident:
+            logger.log_dict(driver.metrics(), policy_step)
+        if aggregator is not None:
+            logger.log_dict(aggregator.compute(), policy_step)
+            aggregator.reset()
+        logger.log_dict({"Params/replay_ratio": cum_gradient_steps / policy_step}, policy_step)
+        log_timers(logger, policy_step, train_step - last_train, (policy_step - last_log) * action_repeat)
 
     player_steps = 0
     env_s = 0.0
@@ -564,30 +611,35 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += num_envs
         t_env = time.perf_counter()
-        if iter_num <= learning_starts and state is None:
-            real_actions = action_rng.integers(0, actions_dim, size=(num_envs, len(actions_dim)))
-            actions = np.concatenate(
-                [np.eye(d, dtype=np.float32)[real_actions[:, i]] for i, d in enumerate(actions_dim)], axis=-1
-            )
-        else:
-            prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=num_envs)
-            acts = player.get_actions({k: torch.from_numpy(v).to(device) for k, v in prepared.items()})
-            player_steps += 1
-            actions = torch.cat(acts, dim=-1).cpu().numpy()
-            real_actions = np.stack([a.argmax(dim=-1).cpu().numpy() for a in acts], axis=-1)
+        # the player's forward is inside: the copy of its actions to the host waits for the card
+        with timer("Time/env_interaction_time", SumMetric):
+            if iter_num <= learning_starts and state is None:
+                real_actions = action_rng.integers(0, actions_dim, size=(num_envs, len(actions_dim)))
+                actions = np.concatenate(
+                    [np.eye(d, dtype=np.float32)[real_actions[:, i]] for i, d in enumerate(actions_dim)], axis=-1
+                )
+            else:
+                prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=num_envs)
+                acts = player.get_actions({k: torch.from_numpy(v).to(device) for k, v in prepared.items()})
+                player_steps += 1
+                actions = torch.cat(acts, dim=-1).cpu().numpy()
+                real_actions = np.stack([a.argmax(dim=-1).cpu().numpy() for a in acts], axis=-1)
 
-        step_data["actions"] = actions.reshape(1, num_envs, -1)
-        if resident:
-            driver.stage_step(step_data)  # the device ring is the only storage tier
-        else:
-            rb.add(step_data)
-        next_obs, rewards, terminated, truncated, infos = envs.step(real_actions)
+            step_data["actions"] = actions.reshape(1, num_envs, -1)
+            if resident:
+                driver.stage_step(step_data)  # the device ring is the only storage tier
+            else:
+                rb.add(step_data)
+            next_obs, rewards, terminated, truncated, infos = envs.step(real_actions)
         dones = np.logical_or(terminated, truncated)
         env_s += time.perf_counter() - t_env
 
         step_data["is_first"] = np.zeros_like(step_data["terminated"])
         if log_level > 0:
             for i, ep_rew, ep_len in infos.get("episodes", ()):
+                if aggregator is not None:
+                    aggregator.update("Rewards/rew_avg", ep_rew)
+                    aggregator.update("Game/ep_len_avg", ep_len)
                 print(f"policy_step={policy_step}, reward_env_{i}={ep_rew}, length={ep_len}", flush=True)
 
         real_next_obs = {k: np.asarray(next_obs[k]).copy() for k in obs_keys}
@@ -630,32 +682,37 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             # append-free drains while a full grant chunk is backlogged)
             t0 = time.perf_counter()
             before = driver.gradient_steps
-            carry, metrics = driver.pump(carry)
+            # the dispatch's enqueue: its metrics stay on the card until the log point
+            with timer("Time/train_time", SumMetric):
+                carry, metrics = driver.pump(carry)
             summary["dispatch_host_s"].append((time.perf_counter() - t0, driver.gradient_steps - before))
             if metrics is not None:
                 pending.append(metrics)
             moments_state, cum_gradient_steps = carry[0], driver.gradient_steps
+            train_step = resumed_train_steps + driver.train_steps
             if policy_step - last_log >= log_every or iter_num == total_iters:
                 read_metrics()
+                if log_level > 0:
+                    log_metrics()
+                    last_train = train_step
                 last_log = policy_step
         elif iter_num >= learning_starts:
             gradient_steps = ratio(policy_step - prefill_steps * num_envs)
             if gradient_steps > 0:
                 t0 = time.perf_counter()
-                sample = rb.sample(batch_size, sequence_length=seq_len, n_samples=gradient_steps)
-                data = {k: torch.from_numpy(v).to(device).float() for k, v in sample.items()}
-                moments_state, metrics, skipped = train_fn(data, moments_state, cum_gradient_steps, generator)
-                # the skipped count rides the metrics' one read, which also waits for the device
-                rows = torch.cat([metrics, skipped.expand(metrics.shape[0], 1)], dim=1).cpu().tolist()
+                with timer("Time/replay_path_time", SumMetric):
+                    sample = rb.sample(batch_size, sequence_length=seq_len, n_samples=gradient_steps)
+                    data = {k: torch.from_numpy(v).to(device).float() for k, v in sample.items()}
+                # the metrics' one read waits for the card: the timer holds the steps' device time
+                with timer("Time/train_time", SumMetric):
+                    moments_state, metrics, skipped = train_fn(data, moments_state, cum_gradient_steps, generator)
+                    # the skipped count rides the metrics' one read, which also waits for the device
+                    rows = torch.cat([metrics, skipped.expand(metrics.shape[0], 1)], dim=1).cpu().tolist()
                 summary["train_host_s"].append((time.perf_counter() - t0, gradient_steps))
                 cum_gradient_steps += gradient_steps
+                train_step += 1
                 skipped = rows[0][-1]
-                rows = [row[:-1] for row in rows]
-                summary["metrics"].extend(rows)
-                if log_level > 0:
-                    for row in rows:
-                        print("train " + " ".join(f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(METRIC_NAMES, row)),
-                              flush=True)
+                take_metrics([row[:-1] for row in rows])
                 if guard and sentinel.observe(skipped):
                     def rollback(good: Dict[str, Any]) -> None:
                         nonlocal moments_state
@@ -670,6 +727,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
 
                     manager.wait()  # the newest save must be published before the rollback looks for it
                     sentinel.recover(ckpt_dir, rollback)
+        if not resident and log_level > 0 and (policy_step - last_log >= log_every or iter_num == total_iters):
+            log_metrics()
+            last_log, last_train = policy_step, train_step
 
         if (int(cfg.checkpoint.every) > 0 and policy_step - last_checkpoint >= int(cfg.checkpoint.every)) or (
             iter_num == total_iters and cfg.checkpoint.get("save_last", False)
@@ -687,6 +747,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 "batch_size": batch_size,
                 "last_log": last_log,
                 "last_checkpoint": last_checkpoint,
+                "train_step": train_step,
+                "last_train": last_train,
                 "rng": generator.get_state(),
             }
             if checkpoint_rb:
@@ -701,9 +763,11 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     envs.close()
     if cfg.algo.get("run_test", True):
         summary["test_reward"], summary["test_steps"] = test(player.agent, cfg, device, greedy=False)
+    logger.close()
     steps = policy_step - (start_iter - 1) * num_envs
     summary.update(
         policy_steps=policy_step,
+        log_dir=log_dir,
         player_steps=player_steps,
         gradient_steps=cum_gradient_steps,
         env_steps_per_s=steps / env_s if env_s > 0 else None,

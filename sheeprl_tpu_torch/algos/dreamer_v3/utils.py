@@ -9,7 +9,23 @@ import torch
 
 from sheeprl_tpu_torch.envs import make_env
 
-__all__ = ["prepare_obs", "init_moments", "moments_update", "compute_lambda_values", "test"]
+__all__ = ["AGGREGATOR_KEYS", "prepare_obs", "init_moments", "moments_update", "compute_lambda_values", "test"]
+
+#: the metrics the DreamerV3 loop aggregates (JAX ``AGGREGATOR_KEYS``)
+AGGREGATOR_KEYS = {
+    "Rewards/rew_avg",
+    "Game/ep_len_avg",
+    "Loss/world_model_loss",
+    "Loss/value_loss",
+    "Loss/policy_loss",
+    "Loss/observation_loss",
+    "Loss/reward_loss",
+    "Loss/state_loss",
+    "Loss/continue_loss",
+    "State/kl",
+    "State/post_entropy",
+    "State/prior_entropy",
+}
 
 
 def init_moments(device: "torch.device | str" = "cpu") -> Dict[str, torch.Tensor]:

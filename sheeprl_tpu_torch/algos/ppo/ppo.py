@@ -23,6 +23,13 @@ the losses once per iteration and warns, rolls back to the last complete
 checkpoint or aborts. Checkpoints go through the
 :class:`~sheeprl_tpu_torch.fault.CheckpointManager` (manifest,
 ``checkpoint.keep_last``, ``checkpoint.async_save``).
+
+The run writes into its own directory (``utils.logger.get_log_dir``): its
+``config.json``, checkpoints and, at ``metric.log_level`` 1, the JAX loop's
+metrics in ``metrics.jsonl`` at the same steps: ``Info/*`` every iteration,
+the aggregated ``Rewards/rew_avg``, ``Game/ep_len_avg`` and ``Loss/*`` and
+the ``Time/sps_*`` rates every ``metric.log_every`` policy steps. The losses
+reach the aggregator from the iteration's one read of the device.
 """
 
 from __future__ import annotations
@@ -45,6 +52,10 @@ from sheeprl_tpu_torch.fault import CheckpointManager, DivergenceSentinel, NaNIn
 from sheeprl_tpu_torch.ops.guard import StateGuard, finite_guard
 from sheeprl_tpu_torch.ops.kernels import gae
 from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
+from sheeprl_tpu_torch.utils.checkpoint import write_run_config
+from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
+from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric, build_aggregator
+from sheeprl_tpu_torch.utils.timer import log_timers, timer
 from sheeprl_tpu_torch.utils.utils import polynomial_decay
 
 __all__ = ["LOSS_NAMES", "draw_permutations", "make_optimizer", "make_train_step", "main"]
@@ -166,9 +177,15 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     if int(cfg.buffer.size) < rollout_steps:
         raise ValueError(f"The size of the buffer ({cfg.buffer.size}) cannot be lower than the rollout steps ({rollout_steps})")
 
+    log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
+    logger = get_logger(cfg, log_dir)
+    print(f"Log dir: {log_dir}", flush=True)
     envs = make_vector_env(cfg, seed)
     cfg["spaces"] = dotdict(envs.spaces)
     actions_dim = tuple(int(d) for d in cfg.spaces.actions.n)
+    logger.log_hyperparams(cfg)
+    write_run_config(log_dir, plain(cfg))  # the run directory's config.json
+    aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.get("aggregator"))
 
     generator = torch.Generator(device=device).manual_seed(seed)
     if state is not None and state.get("rng") is not None:
@@ -181,19 +198,27 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         optimizer.load_state_dict(state["optimizer"])
         algo["per_rank_batch_size"] = int(state["batch_size"])
 
-    log_dir = os.path.join(
-        str(cfg.log_root), str(algo.name), str(cfg.env.id), str(cfg.get("run_name") or f"seed_{seed}")
-    )
-    rb = ReplayBuffer(int(cfg.buffer.size), num_envs, obs_keys)
+    rb = ReplayBuffer(int(cfg.buffer.size), num_envs, obs_keys, memmap=bool(cfg.buffer.get("memmap", False)),
+                      memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"),
+                      memmap_mode=str(cfg.buffer.get("memmap_mode", "r+")))
 
     policy_steps_per_iter = num_envs * rollout_steps
     start_iter = int(state["iter_num"]) + 1 if state is not None else 1
     policy_step = int(state["iter_num"]) * policy_steps_per_iter if state is not None else 0
     last_log = int(state["last_log"]) if state is not None else 0
     last_checkpoint = int(state["last_checkpoint"]) if state is not None else 0
+    train_step = int(state.get("train_step", 0)) if state is not None else 0
+    last_train = int(state.get("last_train", 0)) if state is not None else 0
     total_iters = int(algo.total_steps) // policy_steps_per_iter
     log_level = int(cfg.metric.get("log_level", 1))
     log_every = int(cfg.metric.get("log_every", 5000))
+    action_repeat = int(cfg.env.get("action_repeat", 1) or 1)
+    if log_level > 0 and log_every % policy_steps_per_iter != 0:
+        warnings.warn(f"The metric.log_every parameter ({log_every}) is not a multiple of the "
+                      f"policy_steps_per_iter value ({policy_steps_per_iter}).")
+    if int(cfg.checkpoint.every) % policy_steps_per_iter != 0:
+        warnings.warn(f"The checkpoint.every parameter ({cfg.checkpoint.every}) is not a multiple of the "
+                      f"policy_steps_per_iter value ({policy_steps_per_iter}).")
     gamma, gae_lambda = float(algo.gamma), float(algo.gae_lambda)
     sentinel_cfg = (cfg.get("fault") or {}).get("sentinel") or {}
     guard = bool(sentinel_cfg.get("enabled", True))
@@ -203,7 +228,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     manager = CheckpointManager.from_config(cfg)
     train_fn = make_train_step(agent, optimizer, cfg, policy_steps_per_iter, guard=guard)
 
-    lr0 = float(algo.optimizer.lr)
+    lr = lr0 = float(algo.optimizer.lr)
     clip_coef0, ent_coef0 = float(algo.clip_coef), float(algo.ent_coef)
     clip_coef, ent_coef = clip_coef0, ent_coef0
 
@@ -220,18 +245,21 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         t0 = time.perf_counter()
         for _ in range(rollout_steps):
             policy_step += num_envs
-            obs_t = prepare_obs(next_obs, cnn_keys, num_envs, device)
-            env_actions, buf_actions, logprobs, values = player.rollout_step(obs_t)
-            # one copy to the host per step: the env's actions and what the buffer keeps
-            packed = torch.cat([env_actions.to(torch.float32), buf_actions, logprobs, values], dim=-1).cpu().numpy()
-            real_actions = packed[:, :heads].astype(np.int64)
-            obs, rewards, terminated, truncated, info = envs.step(real_actions)
-            rewards = np.asarray(rewards, dtype=np.float32)
-            truncated_envs = np.nonzero(truncated)[0]
-            if len(truncated_envs) > 0 and "final_obs" in info:
-                final = {k: np.stack([info["final_obs"][i][k] for i in truncated_envs]) for k in obs_keys}
-                vals = player.get_values(prepare_obs(final, cnn_keys, len(truncated_envs), device)).cpu().numpy()
-                rewards[truncated_envs] += gamma * vals.reshape(rewards[truncated_envs].shape)
+            # the policy's forward is inside: the copy of its actions to the
+            # host waits for the card
+            with timer("Time/env_interaction_time", SumMetric):
+                obs_t = prepare_obs(next_obs, cnn_keys, num_envs, device)
+                env_actions, buf_actions, logprobs, values = player.rollout_step(obs_t)
+                # one copy to the host per step: the env's actions and what the buffer keeps
+                packed = torch.cat([env_actions.to(torch.float32), buf_actions, logprobs, values], dim=-1).cpu().numpy()
+                real_actions = packed[:, :heads].astype(np.int64)
+                obs, rewards, terminated, truncated, info = envs.step(real_actions)
+                rewards = np.asarray(rewards, dtype=np.float32)
+                truncated_envs = np.nonzero(truncated)[0]
+                if len(truncated_envs) > 0 and "final_obs" in info:
+                    final = {k: np.stack([info["final_obs"][i][k] for i in truncated_envs]) for k in obs_keys}
+                    vals = player.get_values(prepare_obs(final, cnn_keys, len(truncated_envs), device)).cpu().numpy()
+                    rewards[truncated_envs] += gamma * vals.reshape(rewards[truncated_envs].shape)
             step_data["dones"] = np.logical_or(terminated, truncated).reshape(1, num_envs, -1).astype(np.uint8)
             step_data["values"] = packed[None, :, -1:]
             step_data["actions"] = packed[None, :, heads:-2]
@@ -245,6 +273,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             for i, ep_rew, ep_len in info.get("episodes", ()):
                 summary["episodes"].append((policy_step, i, ep_rew, ep_len))
                 if log_level > 0:
+                    if aggregator is not None:
+                        aggregator.update("Rewards/rew_avg", ep_rew)
+                        aggregator.update("Game/ep_len_avg", ep_len)
                     print(f"Rank-0: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
         t1 = time.perf_counter()
 
@@ -262,10 +293,16 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         flat["advantages"] = advantages.reshape(-1, *advantages.shape[2:])
         if nan_injector:
             nan_injector.poison(flat, "advantages", iter_num)
-        losses, skipped = train_fn(flat, clip_coef, ent_coef, generator=generator)
-        losses = torch.cat([losses, skipped.reshape(1)]).cpu().tolist()  # the one read
+        # the update's one read waits for the card: the timer holds its device time
+        with timer("Time/train_time", SumMetric):
+            losses, skipped = train_fn(flat, clip_coef, ent_coef, generator=generator)
+            losses = torch.cat([losses, skipped.reshape(1)]).cpu().tolist()  # the one read
         t3 = time.perf_counter()
+        train_step += 1
         skipped = losses.pop()
+        if aggregator is not None:
+            for name, value in zip(LOSS_NAMES, losses):
+                aggregator.update(name, value)
         if guard:
             summary["skipped"].append(skipped)
             if sentinel.observe(skipped):
@@ -282,13 +319,26 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         summary["gae_s"].append(t2 - t1)
         summary["update_s"].append(t3 - t2)
         summary["iterations"] += 1
-        if log_level > 0 and (policy_step - last_log >= log_every or iter_num == total_iters):
-            print(f"policy_step={policy_step} " + " ".join(
-                f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(LOSS_NAMES, losses)), flush=True)
-            last_log = policy_step
+        if log_level > 0:
+            logger.log_dict({"Info/learning_rate": lr, "Info/clip_coef": clip_coef, "Info/ent_coef": ent_coef},
+                            policy_step)
+            if envs.env_restarts:
+                logger.log_dict({"Fault/env_restarts": envs.env_restarts}, policy_step)
+            if guard and sentinel.total_skipped:
+                logger.log_dict({"Fault/skipped_updates": sentinel.total_skipped}, policy_step)
+            if policy_step - last_log >= log_every or iter_num == total_iters:
+                print(f"policy_step={policy_step} " + " ".join(
+                    f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(LOSS_NAMES, losses)), flush=True)
+                if aggregator is not None:
+                    logger.log_dict(aggregator.compute(), policy_step)
+                    aggregator.reset()
+                log_timers(logger, policy_step, train_step - last_train, (policy_step - last_log) * action_repeat)
+                last_log = policy_step
+                last_train = train_step
 
         if algo.anneal_lr:
-            optimizer.set_lr(polynomial_decay(iter_num, initial=lr0, final=0.0, max_decay_steps=total_iters))
+            lr = polynomial_decay(iter_num, initial=lr0, final=0.0, max_decay_steps=total_iters)
+            optimizer.set_lr(lr)
         if algo.anneal_clip_coef:
             clip_coef = polynomial_decay(iter_num, initial=clip_coef0, final=0.0, max_decay_steps=total_iters)
         if algo.anneal_ent_coef:
@@ -305,6 +355,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 "batch_size": int(algo.per_rank_batch_size),
                 "last_log": last_log,
                 "last_checkpoint": last_checkpoint,
+                "train_step": train_step,
+                "last_train": last_train,
                 "rng": generator.get_state(),
             }
             path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
@@ -314,9 +366,11 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     envs.close()
     if algo.get("run_test", True):
         summary["test_reward"], summary["test_steps"] = test(player, cfg, device)
+    logger.close()
     env_s = sum(summary["rollout_s"])
     summary.update(
         policy_steps=policy_step,
+        log_dir=log_dir,
         env_steps_per_s=summary["iterations"] * policy_steps_per_iter / env_s if env_s > 0 else None,
         rollbacks=sentinel.rollbacks,
         checkpoint_timings=manager.timings,

@@ -9,7 +9,10 @@ import torch
 
 from sheeprl_tpu_torch.envs import make_env
 
-__all__ = ["prepare_obs", "test"]
+__all__ = ["AGGREGATOR_KEYS", "prepare_obs", "test"]
+
+#: the metrics the PPO loop aggregates (JAX ``AGGREGATOR_KEYS``)
+AGGREGATOR_KEYS = {"Rewards/rew_avg", "Game/ep_len_avg", "Loss/value_loss", "Loss/policy_loss", "Loss/entropy_loss"}
 
 
 def prepare_obs(

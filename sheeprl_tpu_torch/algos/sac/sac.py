@@ -35,6 +35,13 @@ critics included), the three optimizers' states, and on the ring the drawn
 leaves' priorities and ``max_p`` stay as they were (a select on the device,
 no host read); the loop reads the skipped count once per train call for the
 :class:`~sheeprl_tpu_torch.fault.DivergenceSentinel`.
+
+The run writes into its own directory (``utils.logger.get_log_dir``) and, at
+``metric.log_level`` 1, the JAX loop's metrics into ``metrics.jsonl`` every
+``metric.log_every`` policy steps: ``Rewards/rew_avg``, ``Game/ep_len_avg``,
+``Loss/*`` (the losses kept on the device are read there, in one copy),
+``Params/replay_ratio``, ``Time/sps_*``, on the ring ``Replay/*``, and the
+fault counters. The host tier's buffer is memmapped with ``buffer.memmap``.
 """
 
 from __future__ import annotations
@@ -58,6 +65,10 @@ from sheeprl_tpu_torch.fault import CheckpointManager, DivergenceSentinel, load_
 from sheeprl_tpu_torch.ops.guard import StateGuard, finite_guard
 from sheeprl_tpu_torch.ops.kernels import sumtree_sample
 from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
+from sheeprl_tpu_torch.utils.checkpoint import write_run_config
+from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
+from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric, build_aggregator
+from sheeprl_tpu_torch.utils.timer import log_timers, timer
 from sheeprl_tpu_torch.replay import DeviceReplayBuffer, DeviceReplayState, resolve_device_resident, restore_host_buffer
 from sheeprl_tpu_torch.replay import sumtree as st
 from sheeprl_tpu_torch.utils.utils import Ratio
@@ -297,8 +308,14 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     num_envs = int(cfg.env.num_envs)
     seed = int(cfg.seed)
 
+    log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
+    logger = get_logger(cfg, log_dir)
+    print(f"Log dir: {log_dir}", flush=True)
     envs = make_vector_env(cfg, seed)
     cfg["spaces"] = dotdict(envs.spaces)
+    logger.log_hyperparams(cfg)
+    write_run_config(log_dir, plain(cfg))  # the run directory's config.json
+    aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.get("aggregator"))
     action_space = cfg.spaces.actions
     if not action_space.get("continuous", False):
         raise ValueError("Only continuous action space is supported for the SAC agent")
@@ -317,9 +334,6 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         algo["per_rank_batch_size"] = int(state["batch_size"])
     batch_size = int(algo.per_rank_batch_size)
 
-    log_dir = os.path.join(
-        str(cfg.log_root), str(algo.name), str(cfg.env.id), str(cfg.get("run_name") or f"seed_{seed}")
-    )
     buffer_size = int(cfg.buffer.size) // num_envs
     specs = _ring_specs(obs_dim, act_dim)
     per_cfg = cfg.buffer.priority
@@ -331,7 +345,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     if log_level > 0 and cfg.buffer.device_resident:
         print(f"Replay: device_resident={resident} ({reason})", flush=True)
 
-    rb = ReplayBuffer(buffer_size, num_envs, ("observations",))
+    rb = ReplayBuffer(buffer_size, num_envs, ("observations",), memmap=bool(cfg.buffer.get("memmap", False)),
+                      memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"),
+                      memmap_mode=str(cfg.buffer.get("memmap_mode", "r+")))
     rb.seed(seed)
     saved_rb = state.get("rb") if state is not None and cfg.buffer.checkpoint else None
     restored_ring = None
@@ -349,7 +365,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     last_log = int(state["last_log"]) if state is not None else 0
     last_checkpoint = int(state["last_checkpoint"]) if state is not None else 0
     total_iters = int(algo.total_steps) // policy_steps_per_iter
-    learning_starts = int(algo.learning_starts) // policy_steps_per_iter
+    learning_starts = int(algo.get("learning_starts", 0)) // policy_steps_per_iter
     prefill_steps = learning_starts - int(learning_starts > 0)
     if state is not None:
         learning_starts += start_iter
@@ -359,6 +375,15 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         ratio.load_state_dict(state["ratio"])
     ema_modulus = int(algo.critic.target_network_frequency) // policy_steps_per_iter + 1
     log_every = int(cfg.metric.get("log_every", 5000))
+    action_repeat = int(cfg.env.get("action_repeat", 1) or 1)
+    train_step = int(state.get("train_step", 0)) if state is not None else 0
+    last_train = int(state.get("last_train", 0)) if state is not None else 0
+    if log_level > 0 and log_every % policy_steps_per_iter != 0:
+        warnings.warn(f"The metric.log_every parameter ({log_every}) is not a multiple of the "
+                      f"policy_steps_per_iter value ({policy_steps_per_iter}).")
+    if int(cfg.checkpoint.every) % policy_steps_per_iter != 0:
+        warnings.warn(f"The checkpoint.every parameter ({cfg.checkpoint.every}) is not a multiple of the "
+                      f"policy_steps_per_iter value ({policy_steps_per_iter}).")
     sentinel_cfg = (cfg.get("fault") or {}).get("sentinel") or {}
     guard = bool(sentinel_cfg.get("enabled", True))
     sentinel = DivergenceSentinel(sentinel_cfg)
@@ -393,9 +418,15 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     pending: List[torch.Tensor] = []  # losses still on the device
 
     def read_losses() -> None:
+        """The pending losses in one copy; into the summary and the aggregator."""
         if pending:
-            summary["losses"].extend(torch.stack(pending).cpu().tolist())
+            rows = torch.stack(pending).cpu().tolist()
             pending.clear()
+            summary["losses"].extend(rows)
+            if aggregator is not None:
+                for row in rows:
+                    for name, value in zip(LOSS_NAMES, row):
+                        aggregator.update(name, value)
 
     def observe(out):
         """The losses kept on the device; with the guard, the skipped count
@@ -409,14 +440,19 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
         t0 = time.perf_counter()
-        if iter_num <= learning_starts:
-            actions = action_rng.uniform(low, high, size=(num_envs, act_dim)).astype(np.float32)
-        else:
-            actions = player(prepare_obs(obs, mlp_keys, num_envs, device)).cpu().numpy()
-        next_obs, rewards, terminated, truncated, infos = envs.step(actions)
+        # the actor's forward is inside: the copy of its actions to the host waits for the card
+        with timer("Time/env_interaction_time", SumMetric):
+            if iter_num <= learning_starts:
+                actions = action_rng.uniform(low, high, size=(num_envs, act_dim)).astype(np.float32)
+            else:
+                actions = player(prepare_obs(obs, mlp_keys, num_envs, device)).cpu().numpy()
+            next_obs, rewards, terminated, truncated, infos = envs.step(actions)
         for i, ep_rew, ep_len in infos.get("episodes", ()):
             summary["episodes"].append((policy_step, i, ep_rew, ep_len))
             if log_level > 0:
+                if aggregator is not None:
+                    aggregator.update("Rewards/rew_avg", ep_rew)
+                    aggregator.update("Game/ep_len_avg", ep_len)
                 print(f"Rank-0: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
 
         real_next_obs = {k: np.array(next_obs[k]) for k in mlp_keys}
@@ -448,21 +484,32 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             while True:
                 chunk = min(grad_max, len(ema_backlog))
                 beta = beta0 + (1.0 - beta0) * min(1.0, policy_step / max(1, int(algo.total_steps))) if prioritized else 0.0
-                out = resident_fn(drb.make_job(), ema_backlog[:chunk], beta)
+                with timer("Time/replay_path_time", SumMetric):
+                    job = drb.make_job()
+                # the time to enqueue the dispatch; with the guard, also its
+                # device time, as observe's read of the skipped count waits for it
+                with timer("Time/train_time", SumMetric):
+                    out = resident_fn(job, ema_backlog[:chunk], beta)
+                    if chunk:
+                        observe(out)
                 del ema_backlog[:chunk]
                 if chunk:
-                    observe(out)
                     summary["gradient_steps"] += chunk
                     summary["train_calls"] += 1
+                    train_step += 1
                 if len(ema_backlog) < grad_max:
                     break
         elif iter_num >= learning_starts:
             granted = ratio(policy_step - prefill_steps + policy_steps_per_iter)
             if granted > 0:
-                data = _to_device(rb.sample(batch_size, granted), device)
-                observe(train_fn(data, iter_num % ema_modulus == 0, generator=generator))
+                with timer("Time/replay_path_time", SumMetric):
+                    data = _to_device(rb.sample(batch_size, granted), device)
+                # as on the ring: the enqueue, and with the guard the device time
+                with timer("Time/train_time", SumMetric):
+                    observe(train_fn(data, iter_num % ema_modulus == 0, generator=generator))
                 summary["gradient_steps"] += granted
                 summary["train_calls"] += 1
+                train_step += 1
         t2 = time.perf_counter()
         summary["env_s"].append(t1 - t0)
         summary["train_s"].append(t2 - t1)
@@ -470,9 +517,22 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
 
         if policy_step - last_log >= log_every or iter_num == total_iters:
             read_losses()
-            if log_level > 0 and summary["losses"]:
-                print(f"policy_step={policy_step} " + " ".join(
-                    f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(LOSS_NAMES, summary["losses"][-1])), flush=True)
+            if log_level > 0:
+                if summary["losses"]:
+                    print(f"policy_step={policy_step} " + " ".join(
+                        f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(LOSS_NAMES, summary["losses"][-1])), flush=True)
+                if envs.env_restarts:
+                    logger.log_dict({"Fault/env_restarts": envs.env_restarts}, policy_step)
+                if guard and sentinel.total_skipped:
+                    logger.log_dict({"Fault/skipped_updates": sentinel.total_skipped}, policy_step)
+                if resident:
+                    logger.log_dict(drb.metrics(), policy_step)
+                if aggregator is not None:
+                    logger.log_dict(aggregator.compute(), policy_step)
+                    aggregator.reset()
+                logger.log_dict({"Params/replay_ratio": summary["gradient_steps"] / policy_step}, policy_step)
+                log_timers(logger, policy_step, train_step - last_train, (policy_step - last_log) * action_repeat)
+                last_train = train_step
             last_log = policy_step
 
         if (int(cfg.checkpoint.every) > 0 and policy_step - last_checkpoint >= int(cfg.checkpoint.every)) or (
@@ -489,6 +549,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 "batch_size": batch_size,
                 "last_log": last_log,
                 "last_checkpoint": last_checkpoint,
+                "train_step": train_step,
+                "last_train": last_train,
                 "rng": generator.get_state(),
             }
             if cfg.buffer.checkpoint:
@@ -501,9 +563,11 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     envs.close()
     if algo.get("run_test", True):
         summary["test_reward"], summary["test_steps"] = test(player, cfg, device)
+    logger.close()
     env_s = sum(summary["env_s"])
     summary.update(
         policy_steps=policy_step,
+        log_dir=log_dir,
         env_steps_per_s=summary["iterations"] * num_envs / (env_s + sum(summary["train_s"])) if env_s > 0 else None,
         replay=drb.metrics() if resident else None,
         rollbacks=sentinel.rollbacks,

@@ -6,7 +6,7 @@
         [fabric.accelerator=cuda|cpu] [algo.total_steps=...] [checkpoint.resume_from=<ckpt>|latest] ...
     python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> \\
         [fabric.accelerator=cuda|cpu] [serve.port=0] [serve.buckets=[1,8,32,128]] [serve.engine=aot|naive] \\
-        [serve.session.buckets=[1,8,32]] ...
+        [serve.session.buckets=[1,8,32]] [serve.watch=true] [serve.watch_poll_s=2.0] ...
     python -m sheeprl_tpu_torch evaluation checkpoint_path=<ckpt> [fabric.accelerator=cuda|cpu] [seed=...]
     python -m sheeprl_tpu_torch agents
 
@@ -14,6 +14,12 @@
 checkpoint's ``config.json``, with the algorithm ``algo.name`` names (SAC,
 PPO or DreamerV3); :data:`~sheeprl_tpu_torch.config.RUN_DEFAULTS`
 fill what it lacks and the ``key.path=value`` overrides win.
+Every run writes into a directory of its own,
+``<log_root>/<algo.name>/<env.id>/<run_name>/version_N`` (``run_name`` is
+timestamped): its ``config.json``, ``checkpoint/``, ``metrics.jsonl``,
+``hparams.json`` and ``memmap_buffer/``. A resumed run takes the old run's
+config but its directory, ``checkpoint.resume_from`` and
+``algo.learning_starts``, and writes into a new directory.
 ``checkpoint.resume_from=latest`` resumes from the newest complete
 checkpoint under ``<log_root>/<algo.name>/<env.id>`` (the preset's and the
 overrides' values), skipping torn saves. ``serve`` reads
@@ -29,9 +35,12 @@ asking for the GPU on a machine without one raises.
 
 from __future__ import annotations
 
+import copy
 import importlib
 import sys
-from typing import List, Optional, Sequence
+import time
+import warnings
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -59,6 +68,7 @@ __all__ = [
     "compose_eval_config",
     "resolve_device",
     "resolve_resume_latest",
+    "configure_metrics",
 ]
 
 
@@ -99,7 +109,8 @@ def _full_float32() -> None:
 
 def resolve_resume_latest(cfg: DotDict) -> str:
     """``checkpoint.resume_from=latest`` -> the newest complete checkpoint
-    under ``<log_root>/<algo.name>/<env.id>``; raises
+    under ``<log_root>/<root_dir>`` (``root_dir`` defaults to
+    ``<algo.name>/<env.id>``); raises
     :class:`~sheeprl_tpu_torch.utils.checkpoint.CheckpointError` when there
     is none."""
     from pathlib import Path
@@ -110,7 +121,7 @@ def resolve_resume_latest(cfg: DotDict) -> str:
     algo, env = (cfg.get("algo") or {}).get("name"), (cfg.get("env") or {}).get("id")
     if not algo or not env:
         raise ValueError("checkpoint.resume_from=latest needs algo.name and env.id (from preset=<name> or overrides)")
-    root = Path(str(cfg.get("log_root", "logs/runs"))) / str(algo) / str(env)
+    root = Path(str(cfg.get("log_root", "logs/runs"))) / str(cfg.get("root_dir") or f"{algo}/{env}")
     resolved = find_latest_run_checkpoint(root)
     if resolved is None:
         raise CheckpointError(f"checkpoint.resume_from=latest: no complete checkpoint found under {root}", root)
@@ -118,27 +129,72 @@ def resolve_resume_latest(cfg: DotDict) -> str:
     return str(resolved)
 
 
+def _resumed_config(old: Dict[str, Any], fresh: DotDict) -> Dict[str, Any]:
+    """The old run's config for a resume (JAX ``resume_from_checkpoint``):
+    raises when the new run names another env or algorithm, warns when the
+    old run pre-filled its buffer, and drops what belongs to the old run
+    alone (its directory: ``root_dir``, ``run_name``, ``log_root``; its
+    ``checkpoint.resume_from`` and ``algo.learning_starts``), so the new run
+    takes those from the preset, the defaults and the overrides."""
+    old_env, old_algo = (old.get("env") or {}).get("id"), (old.get("algo") or {}).get("name")
+    env, algo = (fresh.get("env") or {}).get("id"), (fresh.get("algo") or {}).get("name")
+    if env is not None and old_env != env:
+        raise ValueError(
+            "This experiment is run with a different environment from the one of the experiment you want to restart. "
+            f"Got '{env}', but the environment of the experiment of the checkpoint was {old_env}."
+        )
+    if algo is not None and old_algo != algo:
+        raise ValueError(
+            "This experiment is run with a different algorithm from the one of the experiment you want to restart. "
+            f"Got '{algo}', but the algorithm of the experiment of the checkpoint was {old_algo}."
+        )
+    if (old.get("algo") or {}).get("learning_starts") and old["algo"]["learning_starts"] > 0:
+        warnings.warn(
+            "The `algo.learning_starts` parameter is greater than zero: the resuming experiment will pre-fill "
+            "the buffer for `algo.learning_starts` steps. Set `algo.learning_starts=0` if not intended."
+        )
+    old = copy.deepcopy(old)
+    for key in ("root_dir", "run_name", "log_root"):
+        old.pop(key, None)
+    (old.get("checkpoint") or {}).pop("resume_from", None)
+    (old.get("algo") or {}).pop("learning_starts", None)
+    return old
+
+
+def _resolve_run_names(cfg: DotDict) -> DotDict:
+    """Fill ``exp_name``, ``root_dir`` and ``run_name`` left unset (see
+    :data:`~sheeprl_tpu_torch.config.RUN_DEFAULTS`)."""
+    algo, env = cfg.algo.name, cfg.env.id
+    if cfg.get("exp_name") is None:
+        cfg["exp_name"] = f"{algo}_{env}"
+    if cfg.get("root_dir") is None:
+        cfg["root_dir"] = f"{algo}/{env}"
+    if cfg.get("run_name") is None:
+        cfg["run_name"] = f"{time.strftime('%Y-%m-%d_%H-%M-%S')}_{cfg.exp_name}_{cfg.seed}"
+    return cfg
+
+
 def compose_run_config(args: Sequence[str]) -> DotDict:
-    """Run defaults <- the preset, or resuming, the checkpoint's run config
-    <- the overrides (``preset=<name>`` is not itself an override).
-    ``checkpoint.resume_from=latest`` is first resolved to a path from the
-    preset and the overrides."""
+    """Run defaults <- the preset <- resuming, the checkpoint's run config
+    less what belongs to the old run alone (:func:`_resumed_config`) <- the
+    overrides (``preset=<name>`` is not itself an override); then the run's
+    names. ``checkpoint.resume_from=latest`` is first resolved to a path from
+    the preset and the overrides."""
     from sheeprl_tpu_torch.utils.checkpoint import find_run_config
 
     overrides = [a for a in args if not a.startswith("preset=")]
     names = [a.split("=", 1)[1] for a in args if a.startswith("preset=")]
-    resume = apply_overrides({}, overrides).get("checkpoint", {}).get("resume_from")
+    base = merge(RUN_DEFAULTS, plain(preset(names[-1])) if names else {})
+    fresh = apply_overrides(base, overrides)
+    resume = (fresh.get("checkpoint") or {}).get("resume_from")
     if resume and str(resume).strip().lower() == "latest":
-        fresh = apply_overrides(merge(RUN_DEFAULTS, plain(preset(names[-1])) if names else {}), overrides)
         resume = resolve_resume_latest(fresh)
         overrides = overrides + [f"checkpoint.resume_from={resume}"]
     if resume:
-        base = plain(load_config(find_run_config(resume)))
-    elif names:
-        base = plain(preset(names[-1]))
-    else:
+        base = merge(base, _resumed_config(plain(load_config(find_run_config(resume))), fresh))
+    elif not names:
         raise ValueError("run needs preset=<name> (see sheeprl_tpu_torch/configs) or checkpoint.resume_from=<ckpt>")
-    return apply_overrides(merge(RUN_DEFAULTS, base), overrides)
+    return _resolve_run_names(apply_overrides(base, overrides))
 
 
 def compose_eval_config(args: Sequence[str]) -> DotDict:
@@ -160,6 +216,24 @@ def compose_eval_config(args: Sequence[str]) -> DotDict:
     }))
 
 
+def configure_metrics(cfg: DotDict, aggregator_keys: Sequence[str]) -> None:
+    """The run's metric switches (JAX ``run_algorithm``): the aggregator
+    keeps only the keys its algorithm logs (``aggregator_keys``) and is off
+    at ``metric.log_level=0`` or with no key left; the timers are off as
+    ``metric.disable_timer`` says, or with it unset, at ``log_level=0``."""
+    from sheeprl_tpu_torch.utils.metric import MetricAggregator
+    from sheeprl_tpu_torch.utils.timer import timer
+
+    metric = cfg.metric
+    log_level = int(metric.get("log_level", 1))
+    disable_timer = metric.get("disable_timer")
+    timer.disabled = log_level == 0 if disable_timer is None else bool(disable_timer)
+    metrics_cfg = (metric.get("aggregator") or {}).get("metrics") or {}
+    for k in set(metrics_cfg) - set(aggregator_keys):
+        metrics_cfg.pop(k)
+    MetricAggregator.disabled = log_level == 0 or not metrics_cfg
+
+
 def run(args: Sequence[str]) -> dict:
     """Train; returns the run's summary (counters, metrics, checkpoint)."""
     from sheeprl_tpu_torch.fault.inject import arm_from_env
@@ -171,7 +245,10 @@ def run(args: Sequence[str]) -> dict:
         raise NotImplementedError(f"training '{cfg.algo.name}' is not ported yet; {' and '.join(TRAINERS)} only")
     device = resolve_device(cfg.fabric.get("accelerator"))
     _full_float32()
-    return importlib.import_module(TRAINERS[cfg.algo.name]).main(cfg, device)
+    module = TRAINERS[cfg.algo.name]
+    utils = importlib.import_module(module.rsplit(".", 1)[0] + ".utils")
+    configure_metrics(cfg, utils.AGGREGATOR_KEYS)
+    return importlib.import_module(module).main(cfg, device)
 
 
 def serve(args: Sequence[str]) -> None:

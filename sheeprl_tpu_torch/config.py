@@ -83,6 +83,18 @@ SERVE_DEFAULTS: Dict[str, Any] = {
         "session": {"ttl_s": 300.0, "max_sessions": 1024, "buckets": None, "sweep_every_s": 1.0},
         "max_requests": None,
         "log_every_s": 10.0,
+        # hot swap: watch the served checkpoint's directory and publish each
+        # newer complete save; watch_publish_current adopts the newest save
+        # at start; a save that fails to load watcher_quarantine_after times
+        # is quarantined; weights older than max_staleness_s (None: no alarm)
+        # turn the health probe to degraded
+        "watch": False,
+        "watch_poll_s": 2.0,
+        "watch_publish_current": False,
+        "max_staleness_s": None,
+        "watcher_quarantine_after": 3,
+        # the scheduler and watcher workers' supervisor (fault.supervisor.*)
+        "supervisor": {},
     },
 }
 
@@ -96,15 +108,36 @@ EVAL_DEFAULTS: Dict[str, Any] = {
 }
 
 
-#: what ``run`` needs beyond a preset, with the JAX package's defaults
+#: what ``run`` needs beyond a preset, with the JAX package's defaults.
+#: ``exp_name``, ``root_dir`` and ``run_name`` left at None are resolved when
+#: ``run`` composes the config: ``<algo.name>_<env.id>``,
+#: ``<algo.name>/<env.id>`` and ``<%Y-%m-%d_%H-%M-%S>_<exp_name>_<seed>``, so
+#: a run's directory is ``<log_root>/<root_dir>/<run_name>/version_N``
 RUN_DEFAULTS: Dict[str, Any] = {
     "seed": 42,
-    "log_root": "logs/runs",
+    "exp_name": None,
+    "root_dir": None,
     "run_name": None,
+    "log_root": "logs/runs",
     "fabric": {"accelerator": "cuda"},
-    "metric": {"log_level": 1},
+    # configs/metric/default.yaml; disable_timer None: the timers run iff
+    # log_level > 0; the presets add their Loss/* and State/* keys
+    "metric": {
+        "log_level": 1,
+        "log_every": 5000,
+        "disable_timer": None,
+        "aggregator": {
+            "raise_on_missing": False,
+            "metrics": {"Rewards/rew_avg": {"_target_": "MeanMetric"}, "Game/ep_len_avg": {"_target_": "MeanMetric"}},
+        },
+    },
+    "logger": {"name": "jsonl"},
     "buffer": {
         "size": 1000000,
+        # configs/buffer/default.yaml: host buffers on files under the run's
+        # memmap_buffer/ (the PPO and SAC presets turn it off)
+        "memmap": True,
+        "memmap_mode": "r+",
         "checkpoint": True,
         "sample_next_obs": False,
         "device_resident": False,

@@ -1,26 +1,51 @@
 """Host replay buffers (counterpart of ``sheeprl_tpu/data/buffers.py``,
 the parts PPO's rollout, SAC's host replay and DreamerV3's coupled loop use),
-in numpy memory;
-memmap storage is not ported. Sampling draws from a numpy ``Generator`` in
-the same order as the JAX package's buffers, so one seed gives the same
-windows."""
+in numpy memory or, with ``memmap=True``, in files: one
+:class:`~sheeprl_tpu_torch.data.memmap.MemmapArray` per key at
+``<memmap_dir>/<key>.memmap`` (``<memmap_dir>/env_<i>/<key>.memmap`` for the
+per-env buffers), as the JAX package lays them out. Sampling draws from a
+numpy ``Generator`` in the same order as the JAX package's buffers, so one
+seed gives the same windows, memmapped or not.
+
+A buffer's ``state_dict`` holds its rows, memmapped or not: a resumed run
+writes them into files under its own ``memmap_dir``. (The JAX package
+pickles a memmapped buffer as views that name the old run's files.)"""
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from sheeprl_tpu_torch.data.memmap import MEMMAP_MODES, MemmapArray
+
 __all__ = ["ReplayBuffer", "SequentialReplayBuffer", "EnvIndependentReplayBuffer"]
+
+
+def _check_memmap(memmap: bool, memmap_dir: "str | Path | None", memmap_mode: str) -> Optional[Path]:
+    if not memmap:
+        return None
+    if memmap_mode not in MEMMAP_MODES:
+        raise ValueError(f"Accepted values for memmap_mode are {MEMMAP_MODES}, got '{memmap_mode}'")
+    if memmap_dir is None:
+        raise ValueError("memmap=True requires a 'memmap_dir'")
+    return Path(memmap_dir)
+
+
+def _host(v: "np.ndarray | MemmapArray") -> np.ndarray:
+    return v.array if isinstance(v, MemmapArray) else v
 
 
 class ReplayBuffer:
     """Ring buffer of ``(buffer_size, n_envs, ...)`` arrays, one per key,
     allocated by the first :meth:`add` (PPO's rollout storage, SAC's host
-    replay)."""
+    replay); with ``memmap`` each key is a file in ``memmap_dir``, mapped
+    with ``memmap_mode``."""
 
-    def __init__(self, buffer_size: int, n_envs: int = 1, obs_keys: Sequence[str] = ("observations",)) -> None:
+    def __init__(self, buffer_size: int, n_envs: int = 1, obs_keys: Sequence[str] = ("observations",),
+                 memmap: bool = False, memmap_dir: "str | Path | None" = None, memmap_mode: str = "r+") -> None:
         if buffer_size <= 0:
             raise ValueError(f"buffer_size must be a positive integer (got {buffer_size})")
         if n_envs <= 0:
@@ -28,7 +53,11 @@ class ReplayBuffer:
         self._buffer_size = int(buffer_size)
         self._n_envs = int(n_envs)
         self._obs_keys = tuple(obs_keys)
-        self._buf: Dict[str, np.ndarray] = {}
+        self._memmap_dir = _check_memmap(memmap, memmap_dir, memmap_mode)
+        self._memmap_mode = memmap_mode
+        if self._memmap_dir is not None:
+            self._memmap_dir.mkdir(parents=True, exist_ok=True)
+        self._buf: Dict[str, Union[np.ndarray, MemmapArray]] = {}
         self._pos = 0
         self._full = False
         self._rng: np.random.Generator = np.random.default_rng()
@@ -37,9 +66,14 @@ class ReplayBuffer:
         return self._buffer_size
 
     @property
-    def buffer(self) -> Dict[str, np.ndarray]:
-        """The storage, key by key (empty before the first :meth:`add`)."""
+    def buffer(self) -> Dict[str, Union[np.ndarray, MemmapArray]]:
+        """The storage, key by key (empty before the first :meth:`add`);
+        install a key with :meth:`set_key`."""
         return self._buf
+
+    @property
+    def is_memmap(self) -> bool:
+        return self._memmap_dir is not None
 
     @property
     def n_envs(self) -> int:
@@ -65,6 +99,25 @@ class ReplayBuffer:
     def seed(self, seed: Optional[int]) -> None:
         self._rng = np.random.default_rng(seed)
 
+    def _allocate(self, key: str, shape: tuple, dtype) -> Union[np.ndarray, MemmapArray]:
+        if self._memmap_dir is None:
+            return np.empty(shape, dtype=dtype)
+        return MemmapArray(dtype, shape, filename=self._memmap_dir / f"{key}.memmap", mode=self._memmap_mode)
+
+    def set_key(self, key: str, array: np.ndarray) -> None:
+        """Install ``array`` (``(buffer_size, n_envs, ...)``) as the storage
+        of ``key``: copied into the key's file when the buffer is
+        memmapped, else kept as it is."""
+        array = np.asarray(array)
+        if tuple(array.shape[:2]) != (self._buffer_size, self._n_envs):
+            raise ValueError(f"'{key}' of shape {array.shape} is not ({self._buffer_size}, {self._n_envs}, ...)")
+        if self._memmap_dir is None:
+            self._buf[key] = array
+        else:
+            self._buf.pop(key, None)  # the old owner deletes its file before the new one is made
+            self._buf[key] = self._allocate(key, array.shape, array.dtype)
+            self._buf[key][:] = array
+
     def add(self, data: Dict[str, np.ndarray]) -> None:
         """Write ``(seq_len, n_envs, ...)`` rows at the head, wrapping around."""
         data_len = next(iter(data.values())).shape[0]
@@ -77,7 +130,7 @@ class ReplayBuffer:
             data = {k: v[-self._buffer_size - next_pos :] for k, v in data.items()}
         if not self._buf:
             for k, v in data.items():
-                self._buf[k] = np.empty((self._buffer_size, self._n_envs, *v.shape[2:]), dtype=v.dtype)
+                self._buf[k] = self._allocate(k, (self._buffer_size, self._n_envs, *v.shape[2:]), v.dtype)
         for k, v in data.items():
             self._buf[k][idxes] = v
         if self._pos + data_len >= self._buffer_size:
@@ -92,11 +145,14 @@ class ReplayBuffer:
         first :meth:`add`: until the buffer wraps, only the filled rows
         ``[0, pos)`` are saved (copied, so the file does not hold the whole
         allocation), and :meth:`load_state_dict` allocates the full size
-        again. The restored buffer equals this one."""
-        buf = {k: torch.from_numpy(v if self._full else v[: self._pos].copy()) for k, v in self._buf.items()}
+        again. The restored buffer equals this one. A memmapped buffer's
+        state holds its rows too (a full one's as a view of its file)."""
+        buf = {k: torch.from_numpy(np.asarray(_host(v)) if self._full else _host(v)[: self._pos].copy())
+               for k, v in self._buf.items()}
         return {"buffer": buf, "pos": self._pos, "full": self._full, "rng": self._rng.bit_generator.state}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self._buf = {}  # old owners delete their files before the new ones are made
         buf = {}
         for k, v in state["buffer"].items():
             rows = v.numpy()
@@ -106,8 +162,9 @@ class ReplayBuffer:
                     f"saved '{k}' of shape {tuple(rows.shape)} is not {filled} filled rows of a "
                     f"({len(self)}, {self._n_envs}, ...) buffer"
                 )
-            buf[k] = np.zeros((len(self),) + rows.shape[1:], rows.dtype)
+            buf[k] = self._allocate(k, (len(self),) + rows.shape[1:], rows.dtype)
             buf[k][:filled] = rows
+            buf[k][filled:] = 0
         self._buf = buf
         self.set_head(state["pos"], state["full"])
         self._rng.bit_generator.state = state["rng"]
@@ -124,15 +181,20 @@ class ReplayBuffer:
         rows = self._rng.integers(0, len(self) if self._full else self._pos, size=(batch_size * n_samples,), dtype=np.intp)
         envs = self._rng.integers(0, self._n_envs, size=(len(rows),), dtype=np.intp)
         flat = rows * self._n_envs + envs
-        return {
-            k: np.take(v.reshape(-1, *v.shape[2:]), flat, axis=0).reshape(n_samples, batch_size, *v.shape[2:])
-            for k, v in self._buf.items()
-        }
+        out = {}
+        for k, v in self._buf.items():
+            v = np.asarray(_host(v))
+            out[k] = np.take(v.reshape(-1, *v.shape[2:]), flat, axis=0).reshape(n_samples, batch_size, *v.shape[2:])
+        return out
 
     def to_numpy(self) -> Dict[str, np.ndarray]:
         """The storage, key by key: views, except that float64 keys are
         copied down to float32, as the JAX package's buffer hands them out."""
-        return {k: v.astype(np.float32) if v.dtype == np.float64 else v for k, v in self._buf.items()}
+        out = {}
+        for k, v in self._buf.items():
+            v = np.asarray(_host(v))
+            out[k] = v.astype(np.float32) if v.dtype == np.float64 else v
+        return out
 
 
 class SequentialReplayBuffer(ReplayBuffer):
@@ -167,6 +229,7 @@ class SequentialReplayBuffer(ReplayBuffer):
         flat_idxes = idxes * self._n_envs + env_idxes
         out = {}
         for k, v in self._buf.items():
+            v = np.asarray(_host(v))
             taken = np.take(v.reshape(-1, *v.shape[2:]), flat_idxes, axis=0)
             out[k] = np.swapaxes(taken.reshape(n_samples, batch_size, sequence_length, *taken.shape[1:]), 1, 2)
         return out
@@ -174,12 +237,21 @@ class SequentialReplayBuffer(ReplayBuffer):
 
 class EnvIndependentReplayBuffer:
     """One :class:`SequentialReplayBuffer` per environment, so ragged per-env
-    writes (the reset rows of the envs that just finished) stay aligned."""
+    writes (the reset rows of the envs that just finished) stay aligned; with
+    ``memmap`` env ``i``'s files are in ``<memmap_dir>/env_<i>``."""
 
-    def __init__(self, buffer_size: int, n_envs: int = 1, obs_keys: Sequence[str] = ("observations",)) -> None:
+    def __init__(self, buffer_size: int, n_envs: int = 1, obs_keys: Sequence[str] = ("observations",),
+                 memmap: bool = False, memmap_dir: "str | Path | None" = None, memmap_mode: str = "r+") -> None:
+        if buffer_size <= 0:
+            raise ValueError(f"buffer_size must be a positive integer (got {buffer_size})")
         if n_envs <= 0:
             raise ValueError(f"n_envs must be a positive integer (got {n_envs})")
-        self._buf = [SequentialReplayBuffer(buffer_size, 1, obs_keys) for _ in range(n_envs)]
+        root = _check_memmap(memmap, memmap_dir, memmap_mode)
+        self._buf = [
+            SequentialReplayBuffer(buffer_size, 1, obs_keys, memmap=memmap,
+                                   memmap_dir=root / f"env_{i}" if root is not None else None, memmap_mode=memmap_mode)
+            for i in range(n_envs)
+        ]
         self._n_envs = int(n_envs)
         self._buffer_size = int(buffer_size)
         self._rng: np.random.Generator = np.random.default_rng()
@@ -196,6 +268,10 @@ class EnvIndependentReplayBuffer:
     @property
     def buffer_size(self) -> int:
         return self._buffer_size
+
+    @property
+    def is_memmap(self) -> bool:
+        return self._buf[0].is_memmap
 
     def seed(self, seed: Optional[int]) -> None:
         self._rng = np.random.default_rng(seed)

@@ -350,10 +350,10 @@ def restore_host_buffer(
         raise ValueError(f"replay snapshot shape ({cap}, {n_envs}) does not match the host buffer ({len(rb)}, {rb.n_envs})")
     for name, arr in snap.arrays.items():
         if name.startswith("storage/"):
-            rb.buffer[name[len("storage/") :]] = arr.numpy().copy()
+            rb.set_key(name[len("storage/") :], arr.numpy().copy())
     for k, (shape, dtype) in (fill_missing or {}).items():
         if k not in rb.buffer:
-            rb.buffer[k] = np.zeros((cap, n_envs) + tuple(shape), dtype)
+            rb.set_key(k, np.zeros((cap, n_envs) + tuple(shape), dtype))
     rb.set_head(int(snap.meta["host_pos"]), bool(snap.meta["host_full"]))
 
 
@@ -378,8 +378,8 @@ def restore_host_env_buffer(
     for e, sub in enumerate(rb.buffer):
         for name, arr in snap.arrays.items():
             if name.startswith("storage/"):
-                sub.buffer[name[len("storage/") :]] = arr[:, e : e + 1].numpy().copy()
+                sub.set_key(name[len("storage/") :], arr[:, e : e + 1].numpy().copy())
         for k, (shape, dtype) in (fill_missing or {}).items():
             if k not in sub.buffer:
-                sub.buffer[k] = np.zeros((cap, 1) + tuple(shape), dtype)
+                sub.set_key(k, np.zeros((cap, 1) + tuple(shape), dtype))
         sub.set_head(int(pos[e]), bool(valid[e] >= cap))

@@ -26,6 +26,13 @@ Past the queue bound ``submit`` blocks (backpressure) and raises
 :class:`ServeOverloadedError` once its timeout expires. The worker thread
 runs inference, so it binds the engine's CUDA device when it starts; it uses
 that device's current stream, like every other caller.
+
+The worker can run supervised (``start(supervisor=...)``, a
+:class:`~sheeprl_tpu_torch.fault.supervisor.Supervisor`): a crash mid-batch
+kills only that worker generation, and the supervisor's restart hook
+(:meth:`RequestScheduler.recover_inflight`) hands the batch it had admitted
+to the next generation, which serves it first: no admitted request is
+dropped.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from sheeprl_tpu_torch.fault.inject import fault_point
 
 __all__ = [
     "ServeStats",
@@ -71,6 +80,10 @@ class ServeStats:
         self.rejected = 0
         self.swaps = 0
         self.weight_version = 0
+        self.watcher_errors = 0  # checkpoint-watcher load and poll failures
+        self.weights_stale = 0  # ok -> stale transitions of the staleness alarm
+        self.publishes = 0  # weight versions published into the store
+        self.pulls = 0  # weight snapshots pulled by dispatches
         self.max_queue_depth = 0
         self._latencies = collections.deque(maxlen=int(latency_window))
         self._depth_fn = None  # wired by the scheduler
@@ -118,6 +131,8 @@ class ServeStats:
                 "Serve/max_queue_depth": self.max_queue_depth,
                 "Serve/weight_version": self.weight_version,
                 "Serve/swap_count": self.swaps,
+                "Serve/watcher_errors": self.watcher_errors,
+                "Serve/weights_stale": self.weights_stale,
                 "Serve/p50_latency_ms": round(p50 * 1e3, 3),
                 "Serve/p99_latency_ms": round(p99 * 1e3, 3),
             }
@@ -207,21 +222,46 @@ class RequestScheduler:
         self._seed = int(seed)
         self._batch_idx = 0
         self._holdover: Optional[_Request] = None
+        self._inflight: Optional[List[_Request]] = None  # collected, not yet resolved
+        self._requeue: List[_Request] = []  # recovered from a dead worker generation
         self._stop = threading.Event()
         self._closed = threading.Event()
-        self._worker = threading.Thread(target=self._run, name="serve-scheduler", daemon=True)
+        self._worker: Optional[threading.Thread] = threading.Thread(target=self._run, name="serve-scheduler",
+                                                                     daemon=True)
+        self._handle = None  # the supervisor's WorkerHandle when supervised
         self._started = False
 
     # -- lifecycle ----------------------------------------------------------- #
 
-    def start(self) -> "RequestScheduler":
+    def start(self, supervisor: Any = None) -> "RequestScheduler":
+        """Start the admission worker; with ``supervisor`` it runs
+        supervised, a crash restarting it with its admitted batch recovered.
+        There is no heartbeat lease: a dispatch's time is the engine's."""
         if not self._started:
             self._started = True
-            self._worker.start()
+            if supervisor is None:
+                self._worker.start()
+            else:
+                self._worker = None
+                self._handle = supervisor.spawn("serve-scheduler", self._run,
+                                                on_restart=lambda ctx: self.recover_inflight(), lease_s=None)
         return self
 
     def worker_alive(self) -> bool:
-        return self._worker.is_alive()
+        """Is the admission worker live (a supervised one in restart backoff counts)?"""
+        if self._handle is not None:
+            return self._handle.live()
+        return self._worker is not None and self._worker.is_alive()
+
+    def recover_inflight(self) -> int:
+        """Re-queue the batch a dead worker generation had admitted but not
+        resolved, to be served first, in admission order; returns how many
+        requests it held. Call only between generations (the supervisor's
+        restart hook)."""
+        recovered, self._inflight = self._inflight, None
+        if recovered:
+            self._requeue = list(recovered) + self._requeue
+        return len(recovered or ())
 
     def stop(self) -> None:
         """Stop the worker after it has served every request already
@@ -229,13 +269,19 @@ class RequestScheduler:
         :class:`ServeClosedError`."""
         self._closed.set()
         self._stop.set()
-        if self._started:
-            self._worker.join(timeout=30.0)
-            if self._worker.is_alive():
+        if self._handle is not None:
+            self._handle.retire()  # no respawn racing this stop
+        worker = self._handle.thread if self._handle is not None else self._worker
+        if self._started and worker is not None:
+            worker.join(timeout=30.0)
+            if worker.is_alive():
                 return  # still mid-dispatch: its own shutdown loop drains
         # a submit that passed the closed check just before stop() may have
-        # enqueued after the worker's last drain sweep
-        leftovers = self._take_pending()
+        # enqueued after the worker's last drain sweep, and a supervised
+        # worker that crashed while stopping left its batch behind
+        leftovers = list(self._inflight or ())
+        self._inflight = None
+        leftovers += self._take_pending()
         if leftovers:
             self._settle(leftovers)
 
@@ -294,6 +340,8 @@ class RequestScheduler:
     # -- worker side --------------------------------------------------------- #
 
     def _next_request(self, timeout: float) -> Optional[_Request]:
+        if self._requeue:  # recovered from a dead generation first: admission order survives
+            return self._requeue.pop(0)
         if self._holdover is not None:
             req, self._holdover = self._holdover, None
             return req
@@ -334,7 +382,7 @@ class RequestScheduler:
             if len(batch) == 1
             else {k: np.concatenate([r.obs[k] for r in batch], axis=0) for k in batch[0].obs}
         )
-        version, params = self.weights.pull()
+        version, params = self.weights.pull()  # one snapshot for every row of the batch
         try:
             if self.sessions is None:
                 key = None
@@ -388,7 +436,8 @@ class RequestScheduler:
             self._serve_batch(batch)
 
     def _take_pending(self) -> List[_Request]:
-        pending: List[_Request] = []
+        pending: List[_Request] = list(self._requeue)
+        self._requeue = []
         if self._holdover is not None:
             pending.append(self._holdover)
             self._holdover = None
@@ -398,7 +447,7 @@ class RequestScheduler:
             except queue.Empty:
                 return pending
 
-    def _run(self) -> None:
+    def _run(self, ctx: Any = None) -> None:
         if self.engine.device.type == "cuda":
             torch.cuda.set_device(self.engine.device)
         while not self._stop.is_set():
@@ -406,9 +455,16 @@ class RequestScheduler:
                 self.sessions.maybe_sweep()  # TTL sweep rides the admission loop
             batch = self._collect()
             if batch:
+                # what makes a worker's death lossless: recover_inflight hands
+                # this batch to the next generation if this one dies here
+                self._inflight = batch
+                fault_point("serve.scheduler.batch")
                 self._serve_batch(batch)
+                self._inflight = None
         while True:  # shutdown: settle everything already admitted
             pending = self._take_pending()
             if not pending:
                 break
             self._settle(pending)
+        if ctx is not None:
+            ctx.retire()  # an owner-driven stop: expected, not a crash to restart

@@ -20,6 +20,15 @@ binds a request with ``session_id`` to a server-side state row; without it,
 ``n`` one-shot rows are stepped from a fresh state. ``serve_policy`` stops on
 SIGTERM/SIGINT with a graceful drain: it stops accepting, serves every
 admitted request, then returns.
+
+With ``serve.watch`` a :class:`~sheeprl_tpu_torch.serve.weights.CheckpointWatcher`
+watches the served checkpoint's directory and publishes each newer complete
+save into the weight store (hot swap: versions only go up, no request is
+dropped or torn). The scheduler worker and the watcher run under one
+:class:`~sheeprl_tpu_torch.fault.supervisor.Supervisor` with a monitor
+thread, which restarts a crashed worker; the health probe reports the
+engine, scheduler, watcher and store, and turns ``degraded`` when the
+weights are older than ``serve.max_staleness_s``.
 """
 
 from __future__ import annotations
@@ -36,11 +45,12 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from sheeprl_tpu_torch.fault.supervisor import Supervisor
 from sheeprl_tpu_torch.serve.engine import BucketEngine, NaiveEngine, default_buckets
 from sheeprl_tpu_torch.serve.policy import ServePolicy, StatefulServePolicy
 from sheeprl_tpu_torch.serve.scheduler import RequestScheduler, ServeStats
 from sheeprl_tpu_torch.serve.sessions import SessionEngine, default_session_buckets
-from sheeprl_tpu_torch.serve.weights import WeightStore
+from sheeprl_tpu_torch.serve.weights import CheckpointWatcher, WeightStore
 
 __all__ = ["PolicyClient", "PolicyServer", "install_drain_handlers", "request_over_socket", "serve_policy"]
 
@@ -121,9 +131,11 @@ class PolicyServer:
     policy's type: a :class:`StatefulServePolicy` gets the
     :class:`SessionEngine`; a :class:`ServePolicy` gets the
     :class:`BucketEngine` (``serve.engine=aot``) or the per-request
-    :class:`NaiveEngine` (``naive``)."""
+    :class:`NaiveEngine` (``naive``). ``watch_dir`` (a run's
+    ``checkpoint/`` directory) starts a checkpoint watcher over it."""
 
-    def __init__(self, policy: "ServePolicy | StatefulServePolicy", serve_cfg: Optional[Dict[str, Any]] = None) -> None:
+    def __init__(self, policy: "ServePolicy | StatefulServePolicy", serve_cfg: Optional[Dict[str, Any]] = None,
+                 watch_dir: "str | os.PathLike | None" = None) -> None:
         cfg = dict(serve_cfg or {})
         self.policy = policy
         self.stats = ServeStats()
@@ -153,7 +165,7 @@ class PolicyServer:
             self.engine = BucketEngine(policy, buckets=cfg.get("buckets") or default_buckets(), mode=mode)
         else:
             self.engine = NaiveEngine(policy, mode=mode)
-        self.weights = WeightStore(policy.params, policy.params_from_state)
+        self.weights = WeightStore(policy.params, policy.params_from_state, stats=self.stats)
         self.scheduler = RequestScheduler(
             self.engine,
             self.weights,
@@ -165,6 +177,20 @@ class PolicyServer:
         )
         self.client = PolicyClient(policy, self.scheduler)
         self._request_timeout_s = float(cfg.get("request_timeout_s", 30.0) or 30.0)
+        # the staleness alarm: weights older than this turn the probe to
+        # degraded, and Serve/weights_stale counts the ok -> stale turns
+        max_stale = cfg.get("max_staleness_s")
+        self._max_staleness_s = float(max_stale) if max_stale else None
+        self._was_stale = False
+        self._watch_publish_current = bool(cfg.get("watch_publish_current", False))
+        self.supervisor = Supervisor.from_config(dict(cfg.get("supervisor") or {}), name="serve", max_restarts=3,
+                                                 backoff=0.25)
+        self.watcher: Optional[CheckpointWatcher] = None
+        if watch_dir is not None:
+            self.watcher = CheckpointWatcher(
+                watch_dir, self.weights, poll_s=float(cfg.get("watch_poll_s", 2.0)), stats=self.stats,
+                quarantine_after=int(cfg.get("watcher_quarantine_after", 3)),
+            )
         self._tcp: Optional[_TcpFrontEnd] = None
         self._tcp_thread: Optional[threading.Thread] = None
         self._host = str(cfg.get("host", "127.0.0.1"))
@@ -177,7 +203,10 @@ class PolicyServer:
         return self._tcp.server_address[:2] if self._tcp is not None else None
 
     def start(self, with_socket: Optional[bool] = None) -> "PolicyServer":
-        self.scheduler.start()
+        self.scheduler.start(supervisor=self.supervisor)
+        if self.watcher is not None:
+            self.watcher.start(publish_current=self._watch_publish_current, supervisor=self.supervisor)
+        self.supervisor.start_monitor(poll_s=0.5)
         if (self._port is not None) if with_socket is None else with_socket:
             self._tcp = _TcpFrontEnd(
                 (self._host, int(self._port or 0)), self.client, self._request_timeout_s, self.health
@@ -188,10 +217,20 @@ class PolicyServer:
 
     def health(self) -> Dict[str, Any]:
         """Liveness and readiness (served over the socket as ``{"health":
-        true}``): worker liveness, queue depth, weight version and age,
-        engine and session counters, drain state."""
+        true}``): the engine, the scheduler, the watcher and the store (version,
+        the step it was published from, age, the staleness alarm), the
+        supervisor's workers, session counters and drain state."""
         alive = self.scheduler.worker_alive()
-        status = "draining" if self._draining else ("ok" if alive else "degraded")
+        watcher_alive = self.watcher.alive() if self.watcher is not None else None
+        fatal = self.supervisor.fatal
+        staleness = self.weights.staleness_s
+        stale = self._max_staleness_s is not None and staleness > self._max_staleness_s
+        if stale and not self._was_stale:
+            self.stats.add("weights_stale", 1)
+        self._was_stale = stale
+        healthy = alive and watcher_alive in (None, True) and fatal is None and not stale
+        status = "draining" if self._draining else ("ok" if healthy else "degraded")
+        workers = self.supervisor.snapshot()
         out = {
             "status": status,
             "ready": bool(alive and not self._draining),
@@ -201,9 +240,27 @@ class PolicyServer:
                 "buckets": [int(b) for b in self.engine.buckets],
                 **self.engine.stats(),
             },
-            "scheduler": {"alive": bool(alive), "queue_depth": int(self.scheduler._q.qsize())},
-            "weights": {"version": int(self.weights.version), "staleness_s": round(self.weights.staleness_s, 3)},
+            "scheduler": {
+                "alive": bool(alive),
+                "queue_depth": int(self.scheduler._q.qsize()),
+                "restarts": int(workers.get("serve-scheduler", {}).get("restarts", 0)),
+            },
+            "weights": {
+                "version": int(self.weights.version),
+                "step": int(self.watcher.last_step) if self.watcher is not None else int(self.weights.version),
+                "staleness_s": round(staleness, 3),
+                "stale": bool(stale),
+            },
+            "supervisor": {"fatal": str(fatal) if fatal is not None else None, "workers": workers},
         }
+        if self.watcher is not None:
+            out["watcher"] = {
+                "alive": bool(watcher_alive),
+                "errors": int(self.stats.watcher_errors),
+                "published": int(self.watcher.published),
+                "quarantined": [str(p) for p in sorted(self.watcher.quarantined)],
+                "restarts": int(workers.get("serve-ckpt-watcher", {}).get("restarts", 0)),
+            }
         if self.stateful:
             s = self.engine.cache.snapshot()
             out["sessions"] = {
@@ -228,6 +285,12 @@ class PolicyServer:
             self._tcp.shutdown()
             self._tcp.server_close()
             self._tcp = None
+        # no restarts from here: a crash racing the shutdown falls to the
+        # scheduler's own settling of what it had admitted
+        self.supervisor.request_stop()
+        self.supervisor.stop_monitor()
+        if self.watcher is not None:
+            self.watcher.stop()
         self.scheduler.stop()
 
     def __enter__(self) -> "PolicyServer":
@@ -281,7 +344,8 @@ def serve_policy(cfg: Any, state: Optional[Dict[str, Any]], builder: Callable, d
     every ``serve.log_every_s`` seconds and once at the end."""
     policy = builder(cfg, state, device)
     serve_cfg = dict(cfg.get("serve", {}))
-    server = PolicyServer(policy, serve_cfg)
+    watch_dir = os.path.dirname(os.path.abspath(str(cfg.checkpoint_path))) if serve_cfg.get("watch") else None
+    server = PolicyServer(policy, serve_cfg, watch_dir=watch_dir)
     max_requests = serve_cfg.get("max_requests")
     log_every_s = float(serve_cfg.get("log_every_s", 10.0) or 10.0)
     drain = threading.Event()
@@ -290,7 +354,8 @@ def serve_policy(cfg: Any, state: Optional[Dict[str, Any]], builder: Callable, d
     try:
         addr = server.address
         if addr is not None:
-            print(f"serving {cfg.algo.name} on {addr[0]}:{addr[1]} (device={device}, buckets={list(server.engine.buckets)})", flush=True)
+            print(f"serving {cfg.algo.name} on {addr[0]}:{addr[1]} (device={device}, buckets={list(server.engine.buckets)})"
+                  + (f", watching {watch_dir}" if watch_dir else ""), flush=True)
         last_log = time.perf_counter()
         while not drain.is_set():
             drain.wait(0.2)

@@ -4,7 +4,9 @@ file is durable and before its rename) in a real subprocess, then relaunched
 with ``checkpoint.resume_from=latest``: it resumes from the newest complete
 checkpoint, skips the torn save, and reaches the counters of a run that was
 never interrupted, as the JAX package's ``tests/test_fault/test_kill_resume.py``
-drill does.
+drill does. Each run writes into its own ``<run_name>/version_N``
+directory: the resumed run publishes its saves there and leaves the killed
+run's directory as it was.
 """
 
 import os
@@ -37,7 +39,7 @@ def _launch(cwd: Path, *extra, env_extra=None):
 def test_torch_fault_sigkill_mid_save_then_resume_from_latest(tmp_path):
     killed = _launch(tmp_path, env_extra={"SHEEPRL_FAULT_KILL": "checkpoint.pre_commit:3"})
     assert killed.returncode == -signal.SIGKILL, killed.stderr[-2000:]
-    ckpt_dir = tmp_path / "logs" / "ppo" / "CartPole-v1" / "seed_11" / "checkpoint"
+    (ckpt_dir,) = (tmp_path / "logs" / "ppo" / "CartPole-v1").glob("*_ppo_CartPole-v1_11/version_*/checkpoint")
     assert sorted(p.name for p in ckpt_dir.glob("*.ckpt")) == ["ckpt_16_0.ckpt", "ckpt_32_0.ckpt"]
     assert (ckpt_dir / "ckpt_48_0.ckpt.tmp").exists()  # the torn third save
     assert [e["step"] for e in read_manifest(ckpt_dir)] == [16, 32]
@@ -45,7 +47,8 @@ def test_torch_fault_sigkill_mid_save_then_resume_from_latest(tmp_path):
 
     resumed = _launch(tmp_path, "checkpoint.resume_from=latest")
     assert resumed.returncode == 0, (resumed.stdout[-2000:], resumed.stderr[-2000:])
-    assert "checkpoint.resume_from=latest -> logs/ppo/CartPole-v1/seed_11/checkpoint/ckpt_32_0.ckpt" in resumed.stdout
+    killed_ckpt = (ckpt_dir / "ckpt_32_0.ckpt").relative_to(tmp_path).as_posix()
+    assert f"checkpoint.resume_from=latest -> {killed_ckpt}" in resumed.stdout
 
     clean_dir = tmp_path / "clean"
     clean_dir.mkdir()
@@ -60,5 +63,7 @@ def test_torch_fault_sigkill_mid_save_then_resume_from_latest(tmp_path):
         assert state[key] == want[key] == {"iter_num": 6, "last_checkpoint": 96, "batch_size": 8}[key]
     assert {int(s["step"]) for s in state["optimizer"]["state"].values()} == {6 * 2}
     assert all(torch.isfinite(v).all() for v in state["agent"].values())
-    # the resumed run published its steps after the resume point, and retention kept the last 5
-    assert [e["step"] for e in read_manifest(final.parent)] == [32, 48, 64, 80, 96]
+    # the resumed run published its steps after the resume point into its own directory
+    assert final.parent != ckpt_dir
+    assert [e["step"] for e in read_manifest(final.parent)] == [48, 64, 80, 96]
+    assert [e["step"] for e in read_manifest(ckpt_dir)] == [16, 32]

@@ -150,6 +150,6 @@ def test_torch_fault_runtime_arm_variable_reaches_the_run(tmp_path, monkeypatch)
             cli.run([*PPO_TINY, f"log_root={tmp_path}", "checkpoint.every=16"])
     finally:
         inject.reset()
-    ckpt_dir = tmp_path / "ppo" / "CartPole-v1" / "seed_42" / "checkpoint"
+    (ckpt_dir,) = (tmp_path / "ppo" / "CartPole-v1").glob("*/version_0/checkpoint")
     assert [e["step"] for e in read_manifest(ckpt_dir)] == [16]
     assert sorted(p.name for p in ckpt_dir.glob("*.ckpt*")) == ["ckpt_16_0.ckpt"]

@@ -55,7 +55,8 @@ def test_torch_package_imports_with_jax_and_reference_blocked():
                  "algos.sac.agent", "algos.sac.loss", "algos.sac.utils", "ops.kernels.scatter", "replay.driver",
                  "utils.burst", "utils.convert", "serve.engine", "serve.policy", "algos.ppo.evaluate",
                  "algos.sac.evaluate", "algos.dreamer_v3.evaluate", "utils.registry", "cli", "fault", "fault.inject",
-                 "fault.manager", "fault.sentinel", "fault.watchdog", "ops.guard", "utils.checkpoint"):
+                 "fault.manager", "fault.sentinel", "fault.watchdog", "ops.guard", "utils.checkpoint",
+                 "utils.logger", "utils.metric", "utils.timer", "data.memmap", "fault.supervisor", "serve.weights"):
         assert f"sheeprl_tpu_torch.{name}" in report["imported"]
 
 

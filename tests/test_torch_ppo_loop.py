@@ -72,12 +72,13 @@ def test_torch_ppo_loop_trains_checkpoints_and_resumes(tmp_path):
     assert first["episodes"] and all(ret == length for _, _, ret, length in first["episodes"])  # +1 per step
     assert K.LAUNCHES["gae"] == 0  # CPU tensors take the plain version
     state = load_checkpoint(first["checkpoint"])
-    assert set(state) == {"agent", "optimizer", "iter_num", "batch_size", "last_log", "last_checkpoint", "rng"}
+    assert set(state) == {"agent", "optimizer", "iter_num", "batch_size", "last_log", "last_checkpoint", "train_step",
+                          "last_train", "rng"}
     assert state["iter_num"] == 3 and state["batch_size"] == 64 and state["last_checkpoint"] == 1536
     assert first["checkpoint"].endswith("ckpt_1536_0.ckpt")
 
     resumed = cli.run([f"checkpoint.resume_from={first['checkpoint']}", "fabric.accelerator=cpu",
-                       "metric.log_level=0", "algo.total_steps=2560"])
+                       "metric.log_level=0", "algo.total_steps=2560", f"log_root={tmp_path}"])
     assert resumed["start_iter"] == 4 and resumed["iterations"] == 2 and resumed["policy_steps"] == 2560
     assert resumed["test_reward"] is None  # the checkpoint's config keeps run_test off
     after = load_checkpoint(resumed["checkpoint"])

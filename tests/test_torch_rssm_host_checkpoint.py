@@ -139,7 +139,7 @@ def test_torch_rssm_host_checkpoint_holds_the_buffer(host_run):
     assert float(env["buffer"]["is_first"][0, 0, 0]) == 1.0 and env["buffer"]["rgb"].dtype == torch.uint8
 
 
-def test_torch_rssm_host_checkpoint_resumes_with_its_buffer(host_run, monkeypatch):
+def test_torch_rssm_host_checkpoint_resumes_with_its_buffer(host_run, monkeypatch, tmp_path):
     saved = load_checkpoint(host_run["checkpoint"])["rb"]
     seen = []
 
@@ -150,7 +150,7 @@ def test_torch_rssm_host_checkpoint_resumes_with_its_buffer(host_run, monkeypatc
 
     monkeypatch.setattr(dv3, "EnvIndependentReplayBuffer", Recording)
     resumed = cli.run([f"checkpoint.resume_from={host_run['checkpoint']}", "fabric.accelerator=cpu",
-                       "metric.log_level=0", "algo.learning_starts=1", "algo.total_steps=15"])
+                       "metric.log_level=0", "algo.learning_starts=1", "algo.total_steps=15", f"log_root={tmp_path}"])
     (restored,) = seen
     assert restored["rng"] == saved["rng"] and restored["envs"][0]["rng"] == saved["envs"][0]["rng"]
     assert restored["envs"][0]["pos"] == 12
@@ -162,7 +162,7 @@ def test_torch_rssm_host_checkpoint_resumes_with_its_buffer(host_run, monkeypatc
     assert after["pos"] == 15 and torch.equal(after["buffer"]["rgb"][:12], saved["envs"][0]["buffer"]["rgb"])
 
 
-def test_torch_rssm_host_checkpoint_resumes_on_the_ring(host_run, monkeypatch):
+def test_torch_rssm_host_checkpoint_resumes_on_the_ring(host_run, monkeypatch, tmp_path):
     """``buffer.device_resident=true`` on a host-buffer checkpoint: the ring
     starts as a mirror of the host buffer, its heads the buffer's heads."""
     saved = load_checkpoint(host_run["checkpoint"])["rb"]["envs"][0]
@@ -177,7 +177,7 @@ def test_torch_rssm_host_checkpoint_resumes_on_the_ring(host_run, monkeypatch):
     monkeypatch.setattr(dv3, "SequenceRingDriver", Recording)
     resumed = cli.run([f"checkpoint.resume_from={host_run['checkpoint']}", "fabric.accelerator=cpu",
                        "metric.log_level=0", "buffer.device_resident=true", "algo.learning_starts=1",
-                       "algo.total_steps=15"])
+                       "algo.total_steps=15", f"log_root={tmp_path}"])
     assert resumed["resident"] and resumed["gradient_steps"] > 0
     assert mirrored["pos"].tolist() == [12] and mirrored["valid"].tolist() == [12]
     assert sorted(mirrored["ring"]) == ["actions", "is_first", "rewards", "rgb", "terminated"]

@@ -89,7 +89,7 @@ def test_torch_rssm_resident_loop_dispatches_and_trains(first_run):
     assert float(snap.arrays["storage/is_first"][first_run["end"] + 1, 0]) == 1.0
 
 
-def test_torch_rssm_resident_loop_resume_restores_the_ring(first_run, monkeypatch):
+def test_torch_rssm_resident_loop_resume_restores_the_ring(first_run, monkeypatch, tmp_path):
     """The resume's driver holds the checkpoint's ring, heads and generator,
     and the run goes on training on it."""
     s = first_run["summary"]
@@ -104,7 +104,7 @@ def test_torch_rssm_resident_loop_resume_restores_the_ring(first_run, monkeypatc
 
     monkeypatch.setattr(dv3, "SequenceRingDriver", Recording)
     resumed = cli.run([f"checkpoint.resume_from={s['checkpoint']}", "fabric.accelerator=cpu", "metric.log_level=0",
-                       "algo.learning_starts=2", f"algo.total_steps={s['policy_steps'] + 6}"])
+                       "algo.learning_starts=2", f"algo.total_steps={s['policy_steps'] + 6}", f"log_root={tmp_path}"])
     assert set(restored) == set(saved.arrays)
     for k, v in saved.arrays.items():
         assert torch.equal(restored[k], v), k
@@ -112,7 +112,7 @@ def test_torch_rssm_resident_loop_resume_restores_the_ring(first_run, monkeypatc
     assert resumed["gradient_steps"] > 0 and np.isfinite(np.asarray(resumed["metrics"])).all()
 
 
-def test_torch_rssm_resident_checkpoint_resumes_on_the_host_tier(first_run, monkeypatch):
+def test_torch_rssm_resident_checkpoint_resumes_on_the_host_tier(first_run, monkeypatch, tmp_path):
     """``buffer.device_resident=false`` on a ring checkpoint: the host per-env
     buffers take the ring's storage and heads, and the host path samples
     them from its first grant."""
@@ -126,7 +126,8 @@ def test_torch_rssm_resident_checkpoint_resumes_on_the_host_tier(first_run, monk
     dv3_restore = dv3.restore_host_env_buffer
     monkeypatch.setattr(dv3, "restore_host_env_buffer", spy)
     resumed = cli.run([f"checkpoint.resume_from={s['checkpoint']}", "fabric.accelerator=cpu", "metric.log_level=0",
-                       "buffer.device_resident=false", "algo.learning_starts=1", f"algo.total_steps={s['policy_steps'] + 3}"])
+                       "buffer.device_resident=false", "algo.learning_starts=1", f"algo.total_steps={s['policy_steps'] + 3}",
+                       f"log_root={tmp_path}"])
     assert calls == [(s["policy_steps"] + 1, False, ["actions", "is_first", "rewards", "rgb", "terminated", "truncated"])]
     assert not resumed["resident"] and resumed["gradient_steps"] == len(resumed["metrics"]) > 0
     assert np.isfinite(np.asarray(resumed["metrics"])).all()

@@ -114,7 +114,7 @@ def test_torch_sac_loop_per_trains_checkpoints_and_resumes(tmp_path, monkeypatch
         return out
 
     monkeypatch.setattr(sac_module.DeviceReplayBuffer, "load_state_dict", spy)
-    r = cli.run([f"checkpoint.resume_from={s['checkpoint']}", "algo.total_steps=320"])
+    r = cli.run([f"checkpoint.resume_from={s['checkpoint']}", "algo.total_steps=320", f"log_root={tmp_path}"])
     assert torch.equal(seen["tree"], tree) and seen["max_p"] == float(ring.arrays["max_p"]) and seen["pos"] == 80
     assert torch.equal(seen["obs"], ring.arrays["storage/observations"]) and torch.equal(seen["key"], ring.arrays["key"])
     assert r["start_iter"] == 81 and r["iterations"] == 80 and r["policy_steps"] == 320
@@ -128,7 +128,7 @@ def test_torch_sac_loop_host_tier_trains_checkpoints_and_resumes(tmp_path):
     saved = load_checkpoint(s["checkpoint"])
     assert saved["rb"]["pos"] == 80 and set(saved["rb"]["buffer"]) >= set(sac_module.RING_KEYS) | {"truncated"}
     assert set(saved) >= {"agent", "qf_optimizer", "actor_optimizer", "alpha_optimizer", "ratio", "rng", "iter_num"}
-    r = cli.run([f"checkpoint.resume_from={s['checkpoint']}", "algo.total_steps=320"])
+    r = cli.run([f"checkpoint.resume_from={s['checkpoint']}", "algo.total_steps=320", f"log_root={tmp_path}"])
     assert r["start_iter"] == 81 and r["policy_steps"] == 320 and r["gradient_steps"] > 0
 
 
@@ -144,10 +144,10 @@ def test_torch_sac_loop_checkpoints_cross_between_the_tiers(tmp_path, monkeypatc
 
     monkeypatch.setattr(sac_module.DeviceReplayBuffer, "load_host_buffer", spy)
     onto_host = cli.run([f"checkpoint.resume_from={per['checkpoint']}", "algo.total_steps=160",
-                         "buffer.device_resident=false"])
+                         "buffer.device_resident=false", f"log_root={tmp_path}"])
     assert not onto_host["resident"] and onto_host["gradient_steps"] > 0
     onto_ring = cli.run([f"checkpoint.resume_from={host['checkpoint']}", "algo.total_steps=160",
-                         "buffer.device_resident=true", "buffer.priority.enabled=true"])
+                         "buffer.device_resident=true", "buffer.priority.enabled=true", f"log_root={tmp_path}"])
     assert onto_ring["resident"] and onto_ring["prioritized"] and loaded["rows"] == 40
     assert onto_ring["replay"]["Replay/size"] == 160
 

@@ -175,11 +175,14 @@ def test_torch_train_loop_run_resume_and_serve(tmp_path):
     assert np.isfinite(np.asarray(first["metrics"])).all()
     state = load_checkpoint(first["checkpoint"])
     assert set(state) == {"world_model", "actor", "critic", "target_critic", "optimizers", "moments", "ratio",
-                          "iter_num", "batch_size", "last_log", "last_checkpoint", "rng", "rb"}
+                          "iter_num", "batch_size", "last_log", "last_checkpoint", "train_step", "last_train", "rng",
+                          "rb"}
     assert state["iter_num"] == 16
     assert not all(torch.equal(state["target_critic"][k], v) for k, v in state["critic"].items())
 
-    resume = [f"checkpoint.resume_from={first['checkpoint']}", "fabric.accelerator=cpu", "metric.log_level=0"]
+    # a resume takes algo.learning_starts afresh, as the JAX package's does
+    resume = [f"checkpoint.resume_from={first['checkpoint']}", "fabric.accelerator=cpu", "metric.log_level=0",
+              "algo.learning_starts=8", f"log_root={tmp_path}"]
     # learning starts again 8 iterations after the resume; Ratio grants the first step at iteration 26
     once = cli.run(resume + ["algo.total_steps=26"])
     assert once["start_iter"] == 17 and once["gradient_steps"] == len(once["metrics"]) == 1
