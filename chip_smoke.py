@@ -159,7 +159,30 @@ result line):
    the run that wrote it trains on, publishing a save per iteration, and 8
    clients send requests: versions only go up per client, every answer equals
    the greedy program of the save its version came from, a rotted save is
-   quarantined while serving goes on; the publish-to-first-served latency.
+   quarantined while serving goes on; the publish-to-first-served latency;
+25. A2C update: 8 full-width A2C updates (20 rows, 4 minibatches of 5, the
+   gradients summed, clip 0.5, RMSprop) on the card, each against the CPU
+   from the card's state just before it: losses, the summed gradient, and
+   the RMSprop step on the card's own gradient;
+26. A2C run: ``run preset=a2c``, the whole JAX recipe (25,000 steps, 4 envs
+   x 5 steps, 1,250 iterations): ``gae`` exactly once per iteration and no
+   other kernel, a learning floor, a two-iteration resume, ``evaluation``
+   of the checkpoint equal to the run's test episode, one update profiled;
+27. recurrent PPO run: ``run preset=ppo_recurrent`` at full width (16 envs x
+   512 steps, LSTM 64), cut to RECURRENT_ITERATIONS iterations: exact
+   ``gae`` launches, a learning floor, a one-iteration resume, one update
+   profiled (the cuDNN LSTM's share of the device time);
+28. recurrent PPO update: the run's first recorded rollout chunked and
+   bucketed, 8 epochs x 8 minibatches, every minibatch step on the card
+   against the CPU from the card's state just before it;
+29. recurrent PPO serving: ``evaluation`` of the run's checkpoint, then 8
+   concurrent sessions over the socket (a batched row equal to the row
+   alone), then one session fed the evaluation episode's observations gives
+   its actions step by step; client p50/p99 and requests/s;
+30. continuous PPO: ``run preset=ppo env.id=Pendulum-v1`` for
+   CONTINUOUS_ITERATIONS full-width iterations (exact ``gae`` launches),
+   one update on the card against the CPU, stateless serving (8 clients x
+   16 requests of 1-4 rows) and ``evaluation``.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -780,7 +803,10 @@ def gae_phase(gamma: float = 0.99, lam: float = 0.95) -> dict:
     the larger of the bytes over the card's rate and the dependent chain, T
     multiply-adds of FMA_LATENCY_CYCLES at the SM clock."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    shapes = [((128, 4), (1,)), ((128, 4), ()), ((1, 7), ()), ((128, 1000), ()), ((1024, 4096), ())]
+    # PPO's main path, then the other shapes; (512, 16, 1) and (5, 4, 1) are
+    # the recurrent PPO and A2C paths' (continuous PPO's is PPO's)
+    shapes = [((128, 4), (1,)), ((128, 4), ()), ((1, 7), ()), ((128, 1000), ()), ((1024, 4096), ()),
+              ((512, 16), (1,)), ((5, 4), (1,))]
     rows = []
     for (T, N), trailing in shapes:
         for value_dtype in (torch.float32, torch.bfloat16, torch.float16):
@@ -799,8 +825,9 @@ def gae_phase(gamma: float = 0.99, lam: float = 0.95) -> dict:
                                          f"{value_dtype} {done_dtype}: max err {err}")
                 row = {"shape": [T, N, *trailing], "dtype": str(value_dtype).split(".")[-1],
                        "dones": str(done_dtype).split(".")[-1], "max_abs_err": err}
-                if done_dtype == torch.uint8:  # timed once per shape and value dtype
-                    big = T * N > 1 << 20
+                # timed once per shape and value dtype, and with the recurrent path's float32 dones
+                if done_dtype == torch.uint8 or ((T, N) == (512, 16) and done_dtype == torch.float32):
+                    big = T * N > 1 << 20 or T >= 512  # the plain chain's long loop: fewer calls per graph
                     row["call_ms"] = _time_ms(lambda: kernels.gae(*args, gamma, lam), 50 if big else 200)
                     row["ms"] = _graph_ms(lambda: kernels.gae(*args, gamma, lam))
                     row["plain_ms"] = _graph_ms(lambda: kernels.gae_reference(*args, gamma, lam),
@@ -829,7 +856,10 @@ def gae_phase(gamma: float = 0.99, lam: float = 0.95) -> dict:
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
     grad_err = max(float((a - b).abs().max()) for a, b in zip(*grads))
     log(f"gae backward: max err {grad_err:.3g} against the plain chain")
-    main = next(r for r in rows if r["shape"] == [128, 4, 1] and r["dtype"] == "float32" and r["dones"] == "uint8")
+    def timed_row(shape, dones="uint8"):
+        return next(r for r in rows if r["shape"] == shape and r["dtype"] == "float32" and r["dones"] == dones)
+
+    main = timed_row([128, 4, 1])
     wide = next(r for r in rows if r["shape"] == [1024, 4096] and r["dtype"] == "float32" and r["dones"] == "uint8")
     log(f"gae at (1024, 4096) f32: {wide['ms'] * 1e3:.2f} us, {wide['ms'] / wide['bytes_ms']:.2f}x its bytes bound "
         f"{wide['bytes_ms'] * 1e3:.2f} us")
@@ -851,6 +881,12 @@ def gae_phase(gamma: float = 0.99, lam: float = 0.95) -> dict:
         "grad_max_abs_err": grad_err,
         "wide": {"shape": [1024, 4096], "ms": wide["ms"], "bytes_ms": wide["bytes_ms"],
                  "over_bytes_bound": wide["ms"] / wide["bytes_ms"]},
+        # each PPO-family path's own shape, f32 values; the recurrent path stores float32 dones
+        "paths": {
+            name: {k: r[k] for k in ("shape", "dones", "ms", "plain_ms", "call_ms", "bound_ms", "bound_by")}
+            for name, r in (("ppo", main), ("ppo_continuous", main), ("a2c", timed_row([5, 4, 1])),
+                            ("ppo_recurrent", timed_row([512, 16, 1], "float32")))
+        },
         "shapes": rows,
     }
 
@@ -2783,9 +2819,10 @@ def resident_run_phase(workdir: str) -> dict:
 # -- 17-20. evaluation and stateless serving -------------------------------------
 
 
-def _recording_make_env(frames: list, actions: list):
-    """``make_env`` whose env records every frame it returns and every
-    action it is given (what the test episode saw and did)."""
+def _recording_make_env(frames: list, actions: list, key: str = "rgb"):
+    """``make_env`` whose env records every frame (observation ``key``) it
+    returns and every action it is given (what the test episode saw and
+    did)."""
     from sheeprl_tpu_torch.envs import make_env
 
     def recording(*args, **kwargs):
@@ -2794,13 +2831,13 @@ def _recording_make_env(frames: list, actions: list):
 
         def rec_reset(*a, **k):
             out = reset(*a, **k)
-            frames.append(out[0]["rgb"].copy())
+            frames.append(out[0][key].copy())
             return out
 
         def rec_step(action):
             actions.append(int(action))
             out = step(action)
-            frames.append(out[0]["rgb"].copy())
+            frames.append(out[0][key].copy())
             return out
 
         env.reset, env.step = rec_reset, rec_step
@@ -2869,23 +2906,24 @@ STATELESS_BUCKETS = (1, 8, 32, 128)
 SAC_ROW_ATOL = 1e-5
 
 
-def _stateless_rows(rng, algo: str, n: int) -> np.ndarray:
+def _stateless_rows(rng, rows: str, n: int) -> np.ndarray:
     """Raw observations in the env's own ranges: CartPole's (position,
-    velocity, angle, angular velocity) or Pendulum's (cos, sin, speed)."""
-    if algo == "ppo":
+    velocity, angle, angular velocity) for ``rows`` "ppo", or Pendulum's
+    (cos, sin, speed) for "sac" or "pendulum"."""
+    if rows == "ppo":
         return (rng.uniform(-1, 1, (n, 4)) * np.array([2.4, 2.0, 0.2, 2.0])).astype(np.float32)
     theta, speed = rng.uniform(-np.pi, np.pi, n), rng.uniform(-8.0, 8.0, n)
     return np.stack([np.cos(theta), np.sin(theta), speed], axis=-1).astype(np.float32)
 
 
-def _profile_stateless_dispatch(policy, rng, algo: str, bucket: int = 8) -> dict:
+def _profile_stateless_dispatch(policy, rng, rows: str, bucket: int = 8) -> dict:
     """One engine dispatch of ``bucket`` rows: host ms (ending in the
     actions' copy to the host) and, under ``torch.profiler``, device ms
     and operations."""
     from sheeprl_tpu_torch.serve.engine import BucketEngine
 
     engine = BucketEngine(policy, buckets=STATELESS_BUCKETS)
-    obs = policy.prepare({"state": _stateless_rows(rng, algo, bucket)}, bucket)
+    obs = policy.prepare({"state": _stateless_rows(rng, rows, bucket)}, bucket)
     for _ in range(5):
         engine.infer(policy.params, obs)
     host = []
@@ -2906,23 +2944,26 @@ def _profile_stateless_dispatch(policy, rng, algo: str, bucket: int = 8) -> dict
             "device_ops": sum(e.count for e in events) / 10}
 
 
-def stateless_serve_phase(ckpt: str, algo: str) -> dict:
+def stateless_serve_phase(ckpt: str, algo: str, row_env: str = "") -> dict:
     """``serve`` of a PPO or SAC run's checkpoint on the card through the
     bucket engine (buckets 1, 8, 32, 128): STATELESS_CLIENTS concurrent
-    clients send STATELESS_REQUESTS requests each of 1-4 raw rows, then one
-    request of STATELESS_BIG rows, which the engine chunks through bucket
-    128. Each served row equals the card's ``greedy_fn`` on that row alone
-    (PPO's actions exactly, SAC's within SAC_ROW_ATOL); the big request
-    equals its unchunked direct call; the engine's dispatches, rows and
-    padded rows agree with a log of every dispatch; no repo kernel is
-    launched."""
+    clients send STATELESS_REQUESTS requests each of 1-4 raw rows
+    (``row_env`` names their env, :func:`_stateless_rows`; the algorithm's
+    by default),
+    then one request of STATELESS_BIG rows, which the engine chunks through
+    bucket 128. Each served row equals the card's ``greedy_fn`` on that row
+    alone (discrete actions exactly, continuous ones within SAC_ROW_ATOL);
+    the big request equals its unchunked direct call; the engine's
+    dispatches, rows and padded rows agree with a log of every dispatch; no
+    repo kernel is launched."""
     from sheeprl_tpu_torch.serve import server as server_module
     from sheeprl_tpu_torch.utils.registry import resolve_policy_builder
 
-    rng = np.random.default_rng(11 if algo == "ppo" else 12)
-    plan = [[_stateless_rows(rng, algo, int(rng.integers(1, 5))) for _ in range(STATELESS_REQUESTS)]
+    rows_like = row_env or algo
+    rng = np.random.default_rng(11 if rows_like == "ppo" else 12)
+    plan = [[_stateless_rows(rng, rows_like, int(rng.integers(1, 5))) for _ in range(STATELESS_REQUESTS)]
             for _ in range(STATELESS_CLIENTS)]
-    big = _stateless_rows(rng, algo, STATELESS_BIG)
+    big = _stateless_rows(rng, rows_like, STATELESS_BIG)
     dispatch_log = []
 
     class _Logged(server_module.BucketEngine):
@@ -2991,6 +3032,7 @@ def stateless_serve_phase(ckpt: str, algo: str) -> dict:
 
     cfg = load_config(find_run_config(ckpt))
     policy = resolve_policy_builder(algo)(cfg, load_checkpoint(ckpt), "cuda")
+    exact = not cfg.spaces.actions.get("continuous")
 
     def direct(rows: np.ndarray) -> np.ndarray:
         obs = policy.prepare({"state": rows}, len(rows))
@@ -3000,7 +3042,7 @@ def stateless_serve_phase(ckpt: str, algo: str) -> dict:
     def check(got, want, what: str) -> float:
         got = np.asarray(got, dtype=want.dtype)
         err = float(np.abs(got.astype(np.float64) - want).max())
-        if got.shape != want.shape or (err != 0 if algo == "ppo" else err > SAC_ROW_ATOL):
+        if got.shape != want.shape or (err != 0 if exact else err > SAC_ROW_ATOL):
             raise AssertionError(f"{algo} {what}: served {got.tolist()[:4]} != {want.tolist()[:4]} (max err {err})")
         return err
 
@@ -3028,7 +3070,7 @@ def stateless_serve_phase(ckpt: str, algo: str) -> dict:
         "big_unchunked_max_abs_err": big_err,
         "launches": launches,
         "engine_end": end,
-        "dispatch_bucket_8": _profile_stateless_dispatch(policy, rng, algo),
+        "dispatch_bucket_8": _profile_stateless_dispatch(policy, rng, rows_like),
     }
     log(f"{algo} stateless serve: " + json.dumps(out))
     return out
@@ -3903,6 +3945,585 @@ def hotswap_phase(workdir: str) -> dict:
     return out
 
 
+# -- 25-30. the PPO family: A2C, recurrent PPO, continuous PPO ------------------------
+
+A2C_PRESET, RECURRENT_PRESET = "a2c", "ppo_recurrent"
+A2C_UPDATES = 8  # full-width A2C updates held card against CPU, each from the card's state
+# learning floors (PERF.md). A2C: the best mean return over A2C_WINDOW
+# consecutive episodes of the full 25,000-step recipe, because its last-10
+# mean is a gamble (CPU runs read 9.5-145.4 across seeds: the policy
+# collapses on some); the JAX recipe's CPU run reads a best of 252.0 (last-10
+# 58.2), random play ~22. Recurrent PPO: the last-10 mean at
+# RECURRENT_ITERATIONS of the recipe's 49 iterations; the JAX recipe's CPU
+# run at that cut reads 364.1
+A2C_WINDOW, A2C_RETURN_BAR = 10, 100.0
+RECURRENT_ITERATIONS = 16
+RECURRENT_LAST_EPISODES, RECURRENT_RETURN_BAR = 10, 150.0
+CONTINUOUS_ITERATIONS = 4  # continuous PPO on Pendulum-v1: finite losses and card-vs-CPU checks, no floor
+RECURRENT_SESSIONS, RECURRENT_SESSION_STEPS = 8, 16
+
+
+def _family_launch_check(name: str, summary: dict, launches: dict) -> None:
+    """``gae`` exactly once per iteration, no other kernel."""
+    want = dict({k: 0 for k in kernels.LAUNCHES}, gae=summary["iterations"])
+    if launches != want:
+        raise AssertionError(f"{name} launches {launches} != {want} for {summary['iterations']} iterations")
+
+
+def _capture_grads(optimizer) -> dict:
+    """Keep the gradients each ``optimizer.step`` is handed."""
+    seen = {"grads": []}
+    step = optimizer.step
+
+    def capturing(grads):
+        seen["grads"] = [g.detach().clone() for g in grads]
+        step(grads)
+
+    optimizer.step = capturing
+    return seen
+
+
+def _grad_rel_err(card, cpu) -> float:
+    """The whole gradient, every parameter's in one vector: its distance from
+    the CPU's over the CPU's norm."""
+    g_card = torch.cat([g.cpu().reshape(-1) for g in card])
+    g_cpu = torch.cat([g.reshape(-1) for g in cpu])
+    return float((g_card - g_cpu).norm() / g_cpu.norm().clamp(min=1e-30))
+
+
+def _max_param_err(a: dict, b: dict) -> float:
+    return max(float((a[k].cpu() - b[k].cpu()).abs().max()) for k in b)
+
+
+def _profile_call(fn, reps: int = 3) -> dict:
+    """``fn`` (ending in a host read) after one warm-up call: host ms, and
+    device ms, operations and the top kernels under ``torch.profiler``."""
+    fn()
+    host = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+    acts = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+        fn()
+    events = _device_kernels(prof)
+    device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:6]
+    lstm_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events
+                  if any(w in e.key.lower() for w in ("lstm", "rnn")))
+    return {
+        "host_ms": float(np.median(host) * 1e3),
+        "host_ms_all": [h * 1e3 for h in host],
+        "device_ms": device_us / 1e3 if device_us > 0 else None,
+        "device_busy_share": device_us / 1e3 / (np.median(host) * 1e3) if device_us > 0 else None,
+        "device_ops": sum(e.count for e in events),
+        "lstm_device_ms": lstm_us / 1e3,
+        "top": [{"name": e.key[:80], "device_ms": getattr(e, "self_device_time_total", 0.0) / 1e3, "count": e.count}
+                for e in top],
+    }
+
+
+def _cartpole_batch(rng, rows: int) -> dict:
+    data = {
+        "state": (rng.uniform(-1, 1, (rows, 4)) * np.array([2.4, 2.0, 0.2, 2.0])).astype(np.float32),
+        "actions": np.eye(2, dtype=np.float32)[rng.integers(0, 2, rows)],
+        "values": rng.normal(size=(rows, 1)).astype(np.float32),
+        "returns": (rng.normal(size=(rows, 1)) * 3).astype(np.float32),
+        "advantages": rng.normal(size=(rows, 1)).astype(np.float32),
+        "rewards": np.ones((rows, 1), np.float32),
+        "dones": (rng.uniform(size=(rows, 1)) < 0.05).astype(np.uint8),
+    }
+    return {k: torch.from_numpy(v) for k, v in data.items()}
+
+
+def a2c_update_phase() -> dict:
+    """A2C_UPDATES full-width A2C updates (20 rows = 4 envs x 5 steps, 4
+    minibatches of 5, ``loss_reduction`` sum, the gradients summed, clipped
+    at 0.5, one RMSprop step) on the card, each held against the same
+    update on the CPU taken from the card's weights and RMSprop state just
+    before it, TF32 off: the two losses within rtol 1e-5 (atol 1e-6), the
+    summed gradient within PPO_GRAD_RTOL of its norm (float32 sums in
+    another order; tanh has no kink), and the CPU's clipped RMSprop step on
+    the card's own gradient within PPO_ADAM_ATOL of the card's step."""
+    from sheeprl_tpu_torch.algos.a2c.a2c import make_optimizer, make_train_step
+    from sheeprl_tpu_torch.algos.a2c.agent import build_agent
+
+    cfg = preset(A2C_PRESET)
+    rows = int(cfg.env.num_envs) * int(cfg.algo.rollout_steps)
+    spaces = {"state": {"shape": [4]}}
+    parts = {}
+    for dev in ("cpu", "cuda"):
+        agent, _ = build_agent(cfg, (2,), False, spaces, dev)
+        optimizer = make_optimizer(cfg, agent)
+        parts[dev] = (agent, optimizer, make_train_step(agent, optimizer, cfg, rows), _capture_grads(optimizer))
+    (cpu_agent, cpu_opt, cpu_train, cpu_seen), (card_agent, card_opt, card_train, card_seen) = parts["cpu"], parts["cuda"]
+    rng = np.random.default_rng(21)
+    gen = torch.Generator().manual_seed(22)
+    worst = {"loss_max_rel_err": 0.0, "grad_max_rel_err": 0.0, "rmsprop_max_abs_err": 0.0, "param_max_abs_err": 0.0}
+    for _ in range(A2C_UPDATES):
+        data = _cartpole_batch(rng, rows)
+        perm = torch.randperm(rows, generator=gen)
+        before = {k: v.detach().cpu().clone() for k, v in card_agent.state_dict().items()}
+        opt_before = copy.deepcopy(card_opt.state_dict())
+        cpu_agent.load_state_dict(before)
+        cpu_opt.load_state_dict(copy.deepcopy(opt_before))
+        on_card = card_train({k: v.cuda() for k, v in data.items()}, perm=perm.cuda()).cpu()
+        on_cpu = cpu_train(data, perm=perm)
+        torch.testing.assert_close(on_card, on_cpu, rtol=1e-5, atol=1e-6)
+        worst["loss_max_rel_err"] = max(worst["loss_max_rel_err"],
+                                        float(((on_card - on_cpu).abs() / on_cpu.abs().clamp(min=1e-12)).max()))
+        err = _grad_rel_err(card_seen["grads"], cpu_seen["grads"])
+        if err > PPO_GRAD_RTOL:
+            raise AssertionError(f"one A2C update on the card: the summed gradient is {err} of its norm from the CPU's")
+        worst["grad_max_rel_err"] = max(worst["grad_max_rel_err"], err)
+        card_state = card_agent.state_dict()
+        worst["param_max_abs_err"] = max(worst["param_max_abs_err"], _max_param_err(card_state, cpu_agent.state_dict()))
+        cpu_agent.load_state_dict(before)
+        cpu_opt.load_state_dict(copy.deepcopy(opt_before))
+        cpu_opt.step([g.cpu() for g in card_seen["grads"]])
+        step_err = _max_param_err(card_state, cpu_agent.state_dict())
+        if step_err > PPO_ADAM_ATOL:
+            raise AssertionError(f"one RMSprop step on the card moved a parameter {step_err} from the CPU's "
+                                 "on the same gradient")
+        worst["rmsprop_max_abs_err"] = max(worst["rmsprop_max_abs_err"], step_err)
+    out = {"updates": A2C_UPDATES, "rows": rows, "minibatches": rows // int(cfg.algo.per_rank_batch_size), **worst}
+    log("A2C update (card vs CPU): " + json.dumps(out))
+    return out
+
+
+def _best_window_mean(returns, window: int) -> float:
+    r = np.asarray(returns, dtype=np.float64)
+    return float(np.convolve(r, np.ones(window) / window, mode="valid").max()) if r.size >= window else float("nan")
+
+
+def a2c_run_phase(workdir: str) -> dict:
+    """A2C on CartPole-v1 through ``run`` at the JAX recipe (25,000 steps, 4
+    envs x 5 steps: 1,250 iterations, each one accumulated RMSprop update):
+    ``gae`` launched exactly once per iteration and no other kernel; every
+    loss finite; the best mean return over A2C_WINDOW consecutive episodes
+    at least A2C_RETURN_BAR; a resume from the last checkpoint for two more
+    iterations, its counters going on; ``evaluation`` of the checkpoint
+    equal to the run's own test episode, no kernel launched; one update
+    from the checkpoint under ``torch.profiler``."""
+    from sheeprl_tpu_torch.algos.a2c.a2c import make_optimizer, make_train_step
+    from sheeprl_tpu_torch.algos.a2c.agent import build_agent
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.run([f"preset={A2C_PRESET}", "metric.log_level=0", f"log_root={workdir}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    iters, steps = summary["iterations"], summary["policy_steps"]
+    if iters != 1250 or steps != 25000 or summary["device"].split(":")[0] != "cuda":
+        raise AssertionError(f"A2C run took {iters} iterations, {steps} steps on {summary['device']}")
+    _family_launch_check("A2C", summary, launches)
+    if not np.isfinite(np.asarray(summary["losses"])).all():
+        raise AssertionError("non-finite A2C losses")
+    returns = [ret for _, _, ret, _ in summary["episodes"]]
+    best = _best_window_mean(returns, A2C_WINDOW)
+    if not best >= A2C_RETURN_BAR:
+        raise AssertionError(f"A2C did not learn CartPole: best mean over {A2C_WINDOW} episodes {best}")
+    rollout_ms = [s * 1e3 for s in summary["rollout_s"]]
+    update_ms = [s * 1e3 for s in summary["update_s"]]
+    out = {
+        "iterations": iters, "policy_steps": steps, "launches": launches, "wall_s": wall,
+        "env_steps_per_s": summary["env_steps_per_s"],
+        "host_ms_per_iteration": {"rollout_median": float(np.median(rollout_ms)),
+                                  "gae_median": float(np.median([s * 1e3 for s in summary["gae_s"]])),
+                                  "update_median": float(np.median(update_ms))},
+        "episodes": len(returns), "first_10_mean_return": float(np.mean(returns[:10])),
+        f"best_{A2C_WINDOW}_mean_return": best, "last_10_mean_return": float(np.mean(returns[-10:])),
+        "test_reward": summary["test_reward"], "test_steps": summary["test_steps"],
+        "losses_last": summary["losses"][-1], "checkpoint": summary["checkpoint"],
+        "saves": len(summary["checkpoint_timings"]) if summary.get("checkpoint_timings") is not None else None,
+    }
+    log("A2C run: " + json.dumps({k: v for k, v in out.items() if k != "checkpoint"}))
+
+    kernels.reset_launches()
+    resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
+                       f"algo.total_steps={steps + 40}", "algo.run_test=false", f"log_root={workdir}"])
+    resume_launches = dict(kernels.LAUNCHES)
+    if resumed["start_iter"] != iters + 1 or resumed["iterations"] != 2 or resumed["policy_steps"] != steps + 40:
+        raise AssertionError(f"A2C resume: start {resumed['start_iter']}, {resumed['iterations']} iterations")
+    _family_launch_check("A2C resume", resumed, resume_launches)
+    out["resume"] = {"start_iter": resumed["start_iter"], "launches": resume_launches, "losses": resumed["losses"]}
+
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    result = cli.evaluation([f"checkpoint_path={summary['checkpoint']}"])
+    eval_launches = dict(kernels.LAUNCHES)
+    if (result["device"].split(":")[0] != "cuda" or any(eval_launches.values())
+            or result["reward"] != summary["test_reward"] or result["steps"] != summary["test_steps"]):
+        raise AssertionError(f"A2C evaluation {result} against the run's test {summary['test_reward']}, "
+                             f"launches {eval_launches}")
+    out["evaluation"] = {**result, "launches": eval_launches, "wall_s": time.perf_counter() - t1,
+                         "equals_run_test": True}
+    log("A2C resume and evaluation: " + json.dumps({"resume": out["resume"], "evaluation": out["evaluation"]}))
+
+    cfg = load_config(find_run_config(summary["checkpoint"]))
+    state = load_checkpoint(summary["checkpoint"])
+    agent, _ = build_agent(cfg, (2,), False, cfg.spaces.obs, "cuda", state["agent"])
+    optimizer = make_optimizer(cfg, agent)
+    optimizer.load_state_dict(state["optimizer"])
+    train = make_train_step(agent, optimizer, cfg, 20)
+    data = {k: v.cuda() for k, v in _cartpole_batch(np.random.default_rng(23), 20).items()}
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    out["profile"] = _profile_call(lambda: train(data, generator=gen).cpu())
+    log("A2C update profile: " + json.dumps(out["profile"]))
+    return out
+
+
+def ppo_recurrent_run_phase(workdir: str) -> dict:
+    """Recurrent PPO on CartPole-v1 through ``run`` at the full recipe's
+    widths (16 envs x 512 steps, sequences of 16, 8 epochs x 8 minibatches,
+    LSTM 64), its depth cut to RECURRENT_ITERATIONS of the recipe's 49
+    iterations: ``gae`` launched exactly once per iteration and no other
+    kernel; every loss finite; the last RECURRENT_LAST_EPISODES episodes'
+    mean return at least RECURRENT_RETURN_BAR; a one-iteration resume from
+    the checkpoint; one update under ``torch.profiler``. The first
+    iteration's rollout is kept for the update phase."""
+    from sheeprl_tpu_torch.algos.ppo_recurrent import ppo_recurrent as rec_loop
+    from sheeprl_tpu_torch.algos.ppo_recurrent.agent import build_agent
+
+    recorded = {}
+    prepare = rec_loop.prepare_update
+
+    def keep(local, returns, advantages, *args):
+        if not recorded:
+            recorded["args"] = ({k: np.array(v) for k, v in local.items()}, np.array(returns), np.array(advantages),
+                                *args[:-1])
+        return prepare(local, returns, advantages, *args)
+
+    per_iter = 16 * 512
+    kernels.reset_launches()
+    rec_loop.prepare_update = keep
+    t0 = time.perf_counter()
+    try:
+        summary = cli.run([f"preset={RECURRENT_PRESET}", f"algo.total_steps={RECURRENT_ITERATIONS * per_iter}",
+                           "metric.log_level=0", f"log_root={workdir}"])
+    finally:
+        rec_loop.prepare_update = prepare
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    iters = summary["iterations"]
+    if iters != RECURRENT_ITERATIONS or summary["device"].split(":")[0] != "cuda":
+        raise AssertionError(f"recurrent PPO run took {iters} iterations on {summary['device']}")
+    _family_launch_check("recurrent PPO", summary, launches)
+    if not np.isfinite(np.asarray(summary["losses"])).all():
+        raise AssertionError(f"non-finite recurrent PPO losses: {summary['losses']}")
+    returns = [ret for _, _, ret, _ in summary["episodes"]]
+    last = float(np.mean(returns[-RECURRENT_LAST_EPISODES:]))
+    if len(returns) < RECURRENT_LAST_EPISODES or not last >= RECURRENT_RETURN_BAR:
+        raise AssertionError(f"recurrent PPO did not learn CartPole: last {RECURRENT_LAST_EPISODES} mean {last}")
+    ms = {k: [s * 1e3 for s in summary[k]] for k in ("rollout_s", "gae_s", "update_s")}
+    out = {
+        "iterations": iters, "policy_steps": summary["policy_steps"], "launches": launches, "wall_s": wall,
+        "env_steps_per_s": summary["env_steps_per_s"], "sequences": summary["sequences"],
+        "host_ms_per_iteration": {f"{k[:-2]}_median": float(np.median(v)) for k, v in ms.items()},
+        "host_ms_ranges": {k[:-2]: [min(v), max(v)] for k, v in ms.items()},
+        "episodes": len(returns), "first_10_mean_return": float(np.mean(returns[:10])),
+        "last_10_mean_return": last, f"best_{A2C_WINDOW}_mean_return": _best_window_mean(returns, A2C_WINDOW),
+        "test_reward": summary["test_reward"], "test_steps": summary["test_steps"],
+        "losses_first": summary["losses"][0], "losses_last": summary["losses"][-1],
+        "checkpoint": summary["checkpoint"],
+    }
+    log("recurrent PPO run: " + json.dumps({k: v for k, v in out.items() if k != "checkpoint"}))
+
+    kernels.reset_launches()
+    resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
+                       f"algo.total_steps={summary['policy_steps'] + per_iter}", "algo.run_test=false",
+                       f"log_root={workdir}"])
+    resume_launches = dict(kernels.LAUNCHES)
+    if resumed["start_iter"] != iters + 1 or resumed["iterations"] != 1:
+        raise AssertionError(f"recurrent PPO resume: start {resumed['start_iter']}, {resumed['iterations']} iterations")
+    _family_launch_check("recurrent PPO resume", resumed, resume_launches)
+    if not np.isfinite(np.asarray(resumed["losses"])).all():
+        raise AssertionError(f"non-finite recurrent PPO losses after the resume: {resumed['losses']}")
+    out["resume"] = {"start_iter": resumed["start_iter"], "launches": resume_launches, "losses": resumed["losses"]}
+    log("recurrent PPO resume: " + json.dumps(out["resume"]))
+
+    cfg = load_config(find_run_config(summary["checkpoint"]))
+    state = load_checkpoint(summary["checkpoint"])
+    agent, _ = build_agent(cfg, (2,), False, cfg.spaces.obs, "cuda", state["agent"])
+    optimizer = rec_loop.make_optimizer(cfg, agent)
+    optimizer.load_state_dict(state["optimizer"])
+    data = rec_loop.prepare_update(*recorded["args"], "cuda")
+    train = rec_loop.make_train_step(agent, optimizer, cfg, int(data["mask"].shape[1]))
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    out["profile"] = {"sequences": int(data["mask"].shape[1]),
+                      **_profile_call(lambda: train(data, 0.2, 0.001, generator=gen).cpu())}
+    log("recurrent PPO update profile: " + json.dumps(out["profile"]))
+    out["recorded"] = recorded["args"]
+    return out
+
+
+def _recurrent_kinks(card: dict, cpu: dict, batch: dict, clip: float) -> tuple:
+    """The kinks one recurrent step crossed on one machine only, and the kink
+    inputs it had: ReLU inputs (the MLPs' LayerNorm outputs) of another
+    sign, and real (masked-in) steps whose policy ratio lies on another side
+    of 1 -+ clip (or within 1e-5 of it on either machine)."""
+    flips = sum(int(((a > 0) != (b > 0)).sum()) for a, b in zip(card["relu"], cpu["relu"]))
+    inputs = sum(a.numel() for a in cpu["relu"])
+    valid = batch["mask"].cpu().reshape(-1) > 0
+    sides = []
+    for seen in (card, cpu):
+        logprob = (torch.log_softmax(seen["logits"][0], -1) * batch["actions"].cpu()).sum(-1).reshape(-1)
+        ratio = torch.exp(logprob - batch["logprobs"].cpu().reshape(-1))
+        sides.append((torch.sign(ratio - (1 - clip)), torch.sign(ratio - (1 + clip)),
+                      torch.minimum((ratio - (1 - clip)).abs(), (ratio - (1 + clip)).abs()) <= 1e-5))
+    rows = ((sides[0][0] != sides[1][0]) | (sides[0][1] != sides[1][1]) | sides[0][2] | sides[1][2]) & valid
+    return flips + int(rows.sum()), inputs + int(valid.sum())
+
+
+def ppo_recurrent_update_phase(recorded: tuple) -> dict:
+    """One full-width recurrent PPO update from the run's first recorded
+    16 x 512 rollout, chunked into sequences of 16 and bucketed (``S_pad``
+    = 8 * 2**k), 8 epochs x 8 minibatches of ``S_pad / 8`` sequences; every
+    one of its 64 minibatch steps on the card held against the same step on
+    the CPU from the card's weights and Adam state just before it, TF32 off:
+    the step's three losses within rtol 1e-5 (atol 1e-6); the whole gradient
+    within PPO_GRAD_RTOL of its norm on a step that crossed no kink (cuDNN's
+    LSTM and the CPU's sum in other orders), within PPO_KINK_GRAD_RTOL on one
+    that did, with at most PPO_KINK_SHARE of its kink inputs crossed, or
+    one; the CPU's Adam step on the card's own gradients within
+    PPO_ADAM_ATOL."""
+    from sheeprl_tpu_torch.algos.ppo_recurrent import ppo_recurrent as rec_loop
+    from sheeprl_tpu_torch.algos.ppo_recurrent.agent import build_agent
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = preset(RECURRENT_PRESET)
+    data = rec_loop.prepare_update(*recorded, "cpu")
+    s_pad = int(data["mask"].shape[1])
+    epochs, nb = int(cfg.algo.update_epochs), int(cfg.algo.per_rank_num_batches)
+    mb = s_pad // nb
+    one = apply_overrides(cfg, ["algo.update_epochs=1", "algo.per_rank_num_batches=1"])
+    clip, ent = float(cfg.algo.clip_coef), float(cfg.algo.ent_coef)
+    parts = {}
+    for dev in ("cpu", "cuda"):
+        agent, _ = build_agent(cfg, (2,), False, {"state": {"shape": [4]}}, dev)
+        optimizer = rec_loop.make_optimizer(cfg, agent)
+        seen = _capture_grads(optimizer)
+        seen.update(relu=[], logits=[])
+        for module in agent.modules():
+            if isinstance(module, torch.nn.LayerNorm):
+                module.register_forward_hook(lambda m, i, o, s=seen: s["relu"].append(o.detach().cpu()))
+        agent.actor_head_0.register_forward_hook(lambda m, i, o, s=seen: s["logits"].append(o.detach().cpu()))
+        parts[dev] = (agent, optimizer, rec_loop.make_train_step(agent, optimizer, one, mb), seen)
+    (cpu_agent, cpu_opt, cpu_train, cpu_seen), (card_agent, card_opt, card_train, card_seen) = parts["cpu"], parts["cuda"]
+    perms = torch.stack([torch.randperm(s_pad, generator=torch.Generator().manual_seed(30 + e)) for e in range(epochs)])
+    own = torch.arange(mb).reshape(1, mb)
+    worst = {"loss_max_rel_err": 0.0, "param_max_abs_err": 0.0, "adam_max_abs_err": 0.0,
+             "grad_max_rel_err": 0.0, "kink_grad_max_rel_err": 0.0}
+    kinks = kink_steps = 0
+    t0 = time.perf_counter()
+    for e in range(epochs):
+        for m in range(nb):
+            rows = perms[e, m * mb:(m + 1) * mb]
+            batch = {k: v[:, rows].contiguous() for k, v in data.items()}
+            before = {k: v.detach().cpu().clone() for k, v in card_agent.state_dict().items()}
+            adam_before = copy.deepcopy(card_opt.state_dict())
+            cpu_agent.load_state_dict(before)
+            cpu_opt.load_state_dict(copy.deepcopy(adam_before))
+            for seen in (cpu_seen, card_seen):
+                seen["relu"].clear()
+                seen["logits"].clear()
+            on_card = card_train({k: v.cuda() for k, v in batch.items()}, clip, ent, perms=own.cuda()).cpu()
+            on_cpu = cpu_train(batch, clip, ent, perms=own)
+            torch.testing.assert_close(on_card, on_cpu, rtol=1e-5, atol=1e-6)
+            worst["loss_max_rel_err"] = max(worst["loss_max_rel_err"],
+                                            float(((on_card - on_cpu).abs() / on_cpu.abs().clamp(min=1e-12)).max()))
+            card_state = card_agent.state_dict()
+            worst["param_max_abs_err"] = max(worst["param_max_abs_err"], _max_param_err(card_state, cpu_agent.state_dict()))
+            crossed, inputs = _recurrent_kinks(card_seen, cpu_seen, batch, clip)
+            if crossed > max(1.0, PPO_KINK_SHARE * inputs):
+                raise AssertionError(f"one recurrent PPO step crossed {crossed} of its {inputs} kinks on one machine only")
+            kinks, kink_steps = kinks + crossed, kink_steps + int(crossed > 0)
+            key, bound = ("kink_grad_max_rel_err", PPO_KINK_GRAD_RTOL) if crossed else ("grad_max_rel_err", PPO_GRAD_RTOL)
+            err = _grad_rel_err(card_seen["grads"], cpu_seen["grads"])
+            if err > bound:
+                raise AssertionError(f"one recurrent PPO step ({crossed} kinks crossed) on the card: the gradient is "
+                                     f"{err} of its norm from the CPU's")
+            worst[key] = max(worst[key], err)
+            cpu_agent.load_state_dict(before)
+            cpu_opt.load_state_dict(copy.deepcopy(adam_before))
+            cpu_opt.step([g.cpu() for g in card_seen["grads"]])
+            adam = _max_param_err(card_state, cpu_agent.state_dict())
+            if adam > PPO_ADAM_ATOL:
+                raise AssertionError(f"one Adam step on the card moved a parameter {adam} from the CPU's on the same "
+                                     "gradients")
+            worst["adam_max_abs_err"] = max(worst["adam_max_abs_err"], adam)
+    out = {"sequences": s_pad, "real_sequences": int((data["mask"].sum(0) > 0).sum()), "minibatch": mb,
+           "steps": epochs * nb, "kinks_crossed": kinks, "steps_with_kinks": kink_steps,
+           "wall_s": time.perf_counter() - t0, **worst}
+    log("recurrent PPO update (card vs CPU, every minibatch step): " + json.dumps(out))
+    return out
+
+
+def ppo_recurrent_serve_phase(ckpt: str) -> dict:
+    """``evaluation`` of the recurrent run's checkpoint on the card (one
+    greedy episode, no kernel launched), then ``serve`` of it on the card
+    through the session engine (buckets 1, 8, 32): RECURRENT_SESSIONS
+    concurrent sessions x RECURRENT_SESSION_STEPS steps of CartPole-range
+    observations, each session's actions again from a session stepped
+    alone (a batched row equals the row alone); then one session fed the
+    evaluation episode's observations gives its actions step by step. No
+    repo kernel is launched on the serving path. Client p50/p99 and the
+    sessions' requests/s."""
+    from sheeprl_tpu_torch.algos.ppo_recurrent import utils as rec_utils
+
+    frames, actions = [], []
+    make_env = rec_utils.make_env
+    rec_utils.make_env = _recording_make_env(frames, actions, key="state")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        result = cli.evaluation([f"checkpoint_path={ckpt}"])
+    finally:
+        rec_utils.make_env = make_env
+    eval_wall = time.perf_counter() - t0
+    eval_launches = dict(kernels.LAUNCHES)
+    steps = result["steps"]
+    if (result["device"].split(":")[0] != "cuda" or any(eval_launches.values()) or steps != len(actions)
+            or not np.isfinite(result["reward"])):
+        raise AssertionError(f"recurrent PPO evaluation {result}, {len(actions)} actions, launches {eval_launches}")
+    rng = np.random.default_rng(26)
+    plan = [[_stateless_rows(rng, "ppo", 1)[0] for _ in range(RECURRENT_SESSION_STEPS)] for _ in range(RECURRENT_SESSIONS)]
+
+    def client(port: int, res: dict) -> None:
+        deadline = time.monotonic() + 300
+        probe = _Conn(port, deadline)
+        res["health_start"] = probe.ask({"health": True})
+        answers = [[None] * RECURRENT_SESSION_STEPS for _ in range(RECURRENT_SESSIONS)]
+        latencies, errors = [], []
+
+        def session(i: int) -> None:
+            try:
+                conn = _Conn(port, deadline)
+                for t, row in enumerate(plan[i]):
+                    t1 = time.perf_counter()
+                    resp = conn.ask({"obs": {"state": row.tolist()}, "session_id": f"s{i}"})
+                    latencies.append(time.perf_counter() - t1)
+                    if "actions" not in resp:
+                        raise AssertionError(f"session s{i} step {t}: {resp}")
+                    answers[i][t] = int(resp["actions"][0][0])
+                conn.close()
+            except BaseException as e:  # reported by the main thread
+                errors.append(e)
+
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=session, args=(i,), daemon=True) for i in range(RECURRENT_SESSIONS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        res["wall_s"] = time.perf_counter() - t1
+        if errors:
+            raise errors[0]
+        if any(th.is_alive() for th in threads):
+            raise TimeoutError("a session client did not finish")
+        res["health_batched"] = probe.ask({"health": True})
+        res["answers"], res["latencies"] = answers, latencies
+        res["alone"] = [[int(probe.ask({"obs": {"state": row.tolist()}, "session_id": f"alone{i}"})["actions"][0][0])
+                         for row in plan[i]] for i in range(RECURRENT_SESSIONS)]
+        res["episode"] = [int(probe.ask({"obs": {"state": frames[t].tolist()}, "session_id": "episode"})["actions"][0][0])
+                          for t in range(steps)]
+        res["health_end"] = probe.ask({"health": True})
+        probe.close()
+
+    t2 = time.perf_counter()
+    served = _serve_with([f"checkpoint_path={ckpt}", "serve.session.buckets=[1,8,32]", "serve.max_wait_ms=2.0"], client)
+    if any(served["launches"].values()):
+        raise AssertionError(f"recurrent PPO serving launched repo kernels: {served['launches']}")
+    if served["alone"] != served["answers"]:
+        bad = next(i for i in range(RECURRENT_SESSIONS) if served["alone"][i] != served["answers"][i])
+        raise AssertionError(f"session s{bad} batched {served['answers'][bad]} != alone {served['alone'][bad]}")
+    parted = next((t for t, (a, b) in enumerate(zip(served["episode"], actions)) if a != b), None)
+    if parted is not None:
+        raise AssertionError(f"the served session parts from the evaluation episode at step {parted} of {steps}")
+    lat = np.asarray(served["latencies"]) * 1e3
+    hb, hs = served["health_batched"]["engine"], served["health_start"]["engine"]
+    dispatches = hb["dispatches"] - hs["dispatches"]
+    out = {
+        "evaluation": {**result, "launches": eval_launches, "wall_s": eval_wall, "steps_per_s": steps / eval_wall},
+        "sessions": RECURRENT_SESSIONS, "steps": RECURRENT_SESSION_STEPS, "requests": int(lat.size),
+        "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+        "requests_per_s": lat.size / served["wall_s"], "dispatches": int(dispatches),
+        "rows_per_dispatch": lat.size / max(dispatches, 1), "batched_equals_alone": True,
+        "episode_replayed": True, "launches": served["launches"], "sessions_end": served["health_end"]["sessions"],
+        "served_wall_s": time.perf_counter() - t2,
+    }
+    log("recurrent PPO serve and evaluation: " + json.dumps(out))
+    return out
+
+
+def ppo_continuous_phase(workdir: str) -> dict:
+    """PPO on Pendulum-v1 (the continuous head) through ``run`` at the full
+    recipe's widths (4 envs x 128 steps, 10 epochs x 8 minibatches of 64),
+    CONTINUOUS_ITERATIONS iterations: ``gae`` exactly once per iteration and
+    no other kernel, every loss finite (no learning floor: a few iterations
+    learn nothing measurable). One full-width update on the card against
+    the CPU from the same weights, batch and permutations (held as the
+    CartPole MLP update is: losses within rtol 1e-5, parameters within 2e-4
+    and 99.9 % within 1e-5). Then the checkpoint served statelessly (8
+    clients x 16 requests of 1-4 Pendulum rows) and evaluated (one greedy
+    episode, no kernel launched)."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.run([f"preset={PPO_PRESET}", "env.id=Pendulum-v1", f"algo.total_steps={CONTINUOUS_ITERATIONS * 512}",
+                       "metric.log_level=0", f"log_root={workdir}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if summary["iterations"] != CONTINUOUS_ITERATIONS or summary["device"].split(":")[0] != "cuda":
+        raise AssertionError(f"continuous PPO run: {summary['iterations']} iterations on {summary['device']}")
+    _family_launch_check("continuous PPO", summary, launches)
+    if not np.isfinite(np.asarray(summary["losses"])).all():
+        raise AssertionError(f"non-finite continuous PPO losses: {summary['losses']}")
+    out = {"iterations": summary["iterations"], "launches": launches, "wall_s": wall,
+           "env_steps_per_s": summary["env_steps_per_s"], "losses_last": summary["losses"][-1],
+           "episodes": [ret for _, _, ret, _ in summary["episodes"]], "test_reward": summary["test_reward"]}
+    log("continuous PPO run: " + json.dumps(out))
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = load_config(find_run_config(summary["checkpoint"]))
+    rows = int(cfg.env.num_envs) * int(cfg.algo.rollout_steps)
+    rng = np.random.default_rng(27)
+    data = {"state": torch.from_numpy(_stateless_rows(rng, "pendulum", rows)),
+            "actions": torch.from_numpy((rng.normal(size=(rows, 1)) * 1.5).astype(np.float32)),
+            "logprobs": torch.from_numpy((-1.4 + 0.3 * rng.normal(size=(rows, 1))).astype(np.float32)),
+            "values": torch.from_numpy(rng.normal(size=(rows, 1)).astype(np.float32)),
+            "returns": torch.from_numpy((rng.normal(size=(rows, 1)) * 3).astype(np.float32)),
+            "advantages": torch.from_numpy(rng.normal(size=(rows, 1)).astype(np.float32)),
+            "rewards": torch.from_numpy(-np.ones((rows, 1), np.float32)),
+            "dones": torch.zeros((rows, 1), dtype=torch.uint8)}
+    perms = draw_permutations(int(cfg.algo.update_epochs), rows, torch.Generator().manual_seed(28), "cpu")
+    results = {}
+    for dev in ("cpu", "cuda"):
+        agent, _ = build_ppo_agent(cfg, (1,), True, cfg.spaces.obs, dev)
+        train = make_ppo_train_step(agent, make_ppo_optimizer(cfg, agent), cfg, rows)
+        losses = train({k: v.to(dev) for k, v in data.items()}, float(cfg.algo.clip_coef), float(cfg.algo.ent_coef),
+                       perms=perms.to(dev))[0].cpu()
+        results[dev] = (losses, {k: v.detach().cpu() for k, v in agent.state_dict().items()})
+    torch.testing.assert_close(results["cuda"][0], results["cpu"][0], rtol=1e-5, atol=1e-6)
+    diffs = torch.cat([(results["cuda"][1][k] - results["cpu"][1][k]).abs().reshape(-1) for k in results["cpu"][1]])
+    close = float((diffs <= 1e-5).float().mean())
+    if float(diffs.max()) > 2e-4 or close < 0.999:
+        raise AssertionError(f"continuous PPO parameters after one update on the card differ from the CPU: "
+                             f"max {float(diffs.max())}, {close} within 1e-5")
+    out["update"] = {"losses_cpu": dict(zip(PPO_LOSS_NAMES, results["cpu"][0].tolist())),
+                     "loss_abs_err": (results["cuda"][0] - results["cpu"][0]).abs().tolist(),
+                     "param_max_abs_err": float(diffs.max()), "param_share_within_1e-5": close}
+    log("continuous PPO update (card vs CPU): " + json.dumps(out["update"]))
+    out["serve"] = stateless_serve_phase(summary["checkpoint"], "ppo", row_env="pendulum")
+    out["evaluation"] = stateless_evaluation_phase(summary["checkpoint"], "ppo", -float("inf"), summary["test_reward"])
+    if not out["evaluation"]["equals_run_test"] or out["evaluation"]["steps"] != 200:
+        raise AssertionError(f"continuous PPO evaluation {out['evaluation']} against the run's test "
+                             f"{summary['test_reward']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
@@ -3957,6 +4578,13 @@ def main() -> int:
         memmap = timed("memmap", memmap_phase, workdir)
     with tempfile.TemporaryDirectory() as workdir:
         hotswap = timed("hotswap", hotswap_phase, workdir)
+    a2c_update = timed("a2c_update", a2c_update_phase)
+    with tempfile.TemporaryDirectory() as workdir:
+        a2c_run = timed("a2c_run", a2c_run_phase, workdir)
+        recurrent_run = timed("ppo_recurrent_run", ppo_recurrent_run_phase, workdir)
+        recurrent_update = timed("ppo_recurrent_update", ppo_recurrent_update_phase, recurrent_run.pop("recorded"))
+        recurrent_serve = timed("ppo_recurrent_serve", ppo_recurrent_serve_phase, recurrent_run["checkpoint"])
+        continuous = timed("ppo_continuous", ppo_continuous_phase, workdir)
     paths = {"run": run, "run_resume": run["resume"], "serve": serve, "evaluation": rssm_eval, "ppo_run": ppo_run,
              "ppo_serve": ppo_serve, "ppo_evaluation": ppo_eval, "sac_run": sac_run, "sac_serve": sac_serve,
              "sac_evaluation": sac_eval, "resident_run": resident_run, "resident_resume": resident_run["resume"],
@@ -3965,7 +4593,11 @@ def main() -> int:
              "fault_rssm_step": fault["rssm"], "rundir": rundir, "rundir_rollback": {"launches": rundir["launches_b"]},
              "rundir_resume": {"launches": rundir["launches_c"]}, "memmap": memmap,
              "memmap_off": {"launches": memmap["launches_off"]}, "memmap_resume": {"launches": memmap["resume_launches"]},
-             "hotswap": hotswap}
+             "hotswap": hotswap, "a2c_run": a2c_run, "a2c_resume": a2c_run["resume"],
+             "a2c_evaluation": a2c_run["evaluation"], "ppo_recurrent_run": recurrent_run,
+             "ppo_recurrent_resume": recurrent_run["resume"], "ppo_recurrent_serve": recurrent_serve,
+             "ppo_recurrent_evaluation": recurrent_serve["evaluation"], "ppo_continuous_run": continuous,
+             "ppo_continuous_serve": continuous["serve"], "ppo_continuous_evaluation": continuous["evaluation"]}
     rows = [gru] + two_hot + [gae_row, sumtree_row, scatter_row]
     for row in rows:
         row["launches_by_path"] = {name: path["launches"][row["name"]] for name, path in paths.items()}
@@ -3982,6 +4614,9 @@ def main() -> int:
     scatter_row["launches"] = resident_run["launches"]["ragged_ring_scatter"]
     gae_row["launches"] = ppo_run["launches"]["gae"]
     gae_row["launches_by_path"]["ppo_resume"] = ppo_run["resume"]["launches"]["gae"]
+    for name, path in (("a2c", a2c_run), ("ppo_recurrent", recurrent_run), ("ppo_continuous", continuous)):
+        gae_row["paths"][name]["launches"] = path["launches"]["gae"]
+    gae_row["paths"]["ppo"]["launches"] = ppo_run["launches"]["gae"]
     sumtree_row["launches"] = sac_run["launches"]["sumtree_sample"]
     sumtree_row["launches_by_path"]["sac_resume"] = sac_run["resume"]["launches"]["sumtree_sample"]
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s; seconds by phase: {json.dumps(phase_s)}")
@@ -3990,7 +4625,10 @@ def main() -> int:
                       "ppo_serve": ppo_serve, "ppo_evaluation": ppo_eval, "sac_update": sac_update,
                       "sac_run": sac_run, "sac_serve": sac_serve, "sac_evaluation": sac_eval,
                       "resident_dispatch": resident_dispatch, "resident_run": resident_run, "fault": fault,
-                      "nonfinite": nonfinite, "rundir": rundir, "memmap": memmap, "hotswap": hotswap}))
+                      "nonfinite": nonfinite, "rundir": rundir, "memmap": memmap, "hotswap": hotswap,
+                      "a2c_update": a2c_update, "a2c_run": a2c_run, "ppo_recurrent_run": recurrent_run,
+                      "ppo_recurrent_update": recurrent_update, "ppo_recurrent_serve": recurrent_serve,
+                      "ppo_continuous": continuous}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

@@ -10,24 +10,21 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.ppo.agent import build_agent, sample_actions
-from sheeprl_tpu_torch.algos.ppo.utils import prepare_obs, test
-from sheeprl_tpu_torch.ops import counter_uniform
+from sheeprl_tpu_torch.algos.ppo.agent import build_agent, env_actions, sample_actions
+from sheeprl_tpu_torch.algos.ppo.utils import action_spec, prepare_obs, test
+from sheeprl_tpu_torch.ops import counter_normal, counter_uniform
 from sheeprl_tpu_torch.serve.policy import ServePolicy
 from sheeprl_tpu_torch.utils.registry import register_evaluation, register_policy_builder
 
 __all__ = ["evaluate_ppo", "serve_policy_ppo"]
 
 
-def _actions_dim(cfg: Any) -> tuple:
-    return tuple(int(d) for d in cfg.spaces.actions.n)
-
-
 @register_evaluation(algorithms=["ppo"])
 def evaluate_ppo(cfg: Any, state: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     """One greedy test episode of the checkpoint's agent; its return and
     step count."""
-    _, player = build_agent(cfg, _actions_dim(cfg), False, cfg.spaces.obs, device, state["agent"])
+    actions_dim, is_continuous = action_spec(cfg.spaces)
+    _, player = build_agent(cfg, actions_dim, is_continuous, cfg.spaces.obs, device, state["agent"])
     reward, steps = test(player, cfg, device)
     return {"reward": reward, "steps": steps}
 
@@ -37,14 +34,17 @@ def serve_policy_ppo(cfg: Any, state: Optional[Dict[str, Any]], device: torch.de
     """A :class:`ServePolicy` over the PPO agent of ``state`` (None serves
     the seeded init) on ``device``. The programs are ``sample_actions``, the
     math of the offline ``test`` loop, with its host conversion (the argmax
-    of each head's one-hot) moved inside; sample mode draws head ``i``'s
-    Gumbel noise from stream ``i`` of each row's seed and counter."""
+    of each head's one-hot; a continuous action as it is) moved inside.
+    Sample mode draws head ``i``'s Gumbel noise from stream ``i`` of each
+    row's seed and counter; a continuous head draws ``mean + std * eps``
+    with ``eps`` the standard normals of stream 0 (``counter_normal``), so a
+    batched row equals the row alone."""
     device = torch.device(device)
-    actions_dim = _actions_dim(cfg)
+    actions_dim, is_continuous = action_spec(cfg.spaces)
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
 
     def build(agent_state):
-        agent, _ = build_agent(cfg, actions_dim, False, cfg.spaces.obs, device, agent_state)
+        agent, _ = build_agent(cfg, actions_dim, is_continuous, cfg.spaces.obs, device, agent_state)
         return agent.requires_grad_(False)
 
     obs_spec = {}
@@ -53,16 +53,17 @@ def serve_policy_ppo(cfg: Any, state: Optional[Dict[str, Any]], device: torch.de
     for k in cfg.algo.mlp_keys.encoder:
         obs_spec[k] = ((int(np.prod(cfg.spaces.obs[k].shape)),), np.float32)
 
-    def env_actions(acts) -> torch.Tensor:
-        return torch.stack([a.argmax(dim=-1) for a in acts], dim=-1)
-
     def greedy_fn(p, obs):
-        return env_actions(sample_actions(p, obs, greedy=True)[0])
+        return env_actions(sample_actions(p, obs, greedy=True)[0], is_continuous)
 
-    def sample_fn(p, obs, uniforms):
-        return env_actions(sample_actions(p, obs, uniforms=uniforms)[0])
+    def sample_fn(p, obs, draws):
+        if is_continuous:
+            return env_actions(sample_actions(p, obs, noise=draws)[0], True)
+        return env_actions(sample_actions(p, obs, uniforms=draws)[0], False)
 
     def draw_fn(seed, counter):
+        if is_continuous:
+            return counter_normal(seed, counter, 0, int(sum(actions_dim)))
         return [counter_uniform(seed, counter, i, d) for i, d in enumerate(actions_dim)]
 
     def prepare(obs, n):
@@ -73,7 +74,7 @@ def serve_policy_ppo(cfg: Any, state: Optional[Dict[str, Any]], device: torch.de
         name=str(cfg.algo.name),
         params=build(state["agent"] if state is not None else None),
         obs_spec=obs_spec,
-        action_dim=len(actions_dim),
+        action_dim=int(sum(actions_dim)) if is_continuous else len(actions_dim),
         greedy_fn=greedy_fn,
         sample_fn=sample_fn,
         draw_fn=draw_fn,

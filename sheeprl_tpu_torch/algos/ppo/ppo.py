@@ -3,7 +3,8 @@ one device).
 
 Each iteration, in the JAX package's order: ``rollout_steps`` env steps with
 one policy forward each (the truncation bootstrap ``r += gamma * V(final
-obs)`` on the envs the time limit cut), GAE on the device with the
+obs)`` on the envs the time limit cut; a continuous action goes to the env
+raw, as the JAX loop sends it, and the env clips it), GAE on the device with the
 bootstrap value of the last observation (the CUDA ``gae`` kernel on the
 card), then ``update_epochs`` passes over the flattened rollout in
 minibatches, each a clipped-surrogate + value + entropy loss and one Adam
@@ -44,7 +45,7 @@ import torch
 
 from sheeprl_tpu_torch.algos.ppo.agent import PPOAgent, build_agent, forward_with_actions
 from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_loss
-from sheeprl_tpu_torch.algos.ppo.utils import prepare_obs, test
+from sheeprl_tpu_torch.algos.ppo.utils import action_spec, prepare_obs, test
 from sheeprl_tpu_torch.config import dotdict, plain
 from sheeprl_tpu_torch.data import ReplayBuffer
 from sheeprl_tpu_torch.envs import make_vector_env
@@ -182,7 +183,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     print(f"Log dir: {log_dir}", flush=True)
     envs = make_vector_env(cfg, seed)
     cfg["spaces"] = dotdict(envs.spaces)
-    actions_dim = tuple(int(d) for d in cfg.spaces.actions.n)
+    actions_dim, is_continuous = action_spec(cfg.spaces)
     logger.log_hyperparams(cfg)
     write_run_config(log_dir, plain(cfg))  # the run directory's config.json
     aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.get("aggregator"))
@@ -191,7 +192,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     if state is not None and state.get("rng") is not None:
         generator.set_state(state["rng"])
     agent, player = build_agent(
-        cfg, actions_dim, False, cfg.spaces.obs, device, state["agent"] if state is not None else None, generator
+        cfg, actions_dim, is_continuous, cfg.spaces.obs, device, state["agent"] if state is not None else None,
+        generator,
     )
     optimizer = make_optimizer(cfg, agent)
     if state is not None:
@@ -240,7 +242,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         "update_s": [], "checkpoint": None, "device": str(device), "test_reward": None,
         "test_steps": None, "skipped": [],
     }
-    heads = len(actions_dim)
+    heads = sum(actions_dim) if is_continuous else len(actions_dim)  # the env's action columns
     for iter_num in range(start_iter, total_iters + 1):
         t0 = time.perf_counter()
         for _ in range(rollout_steps):
@@ -252,7 +254,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 env_actions, buf_actions, logprobs, values = player.rollout_step(obs_t)
                 # one copy to the host per step: the env's actions and what the buffer keeps
                 packed = torch.cat([env_actions.to(torch.float32), buf_actions, logprobs, values], dim=-1).cpu().numpy()
-                real_actions = packed[:, :heads].astype(np.int64)
+                real_actions = packed[:, :heads] if is_continuous else packed[:, :heads].astype(np.int64)
                 obs, rewards, terminated, truncated, info = envs.step(real_actions)
                 rewards = np.asarray(rewards, dtype=np.float32)
                 truncated_envs = np.nonzero(truncated)[0]

@@ -7,12 +7,22 @@ from typing import Any, Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from sheeprl_tpu_torch.algos.ppo.agent import env_actions
 from sheeprl_tpu_torch.envs import make_env
 
-__all__ = ["AGGREGATOR_KEYS", "prepare_obs", "test"]
+__all__ = ["AGGREGATOR_KEYS", "action_spec", "prepare_obs", "test"]
 
 #: the metrics the PPO loop aggregates (JAX ``AGGREGATOR_KEYS``)
 AGGREGATOR_KEYS = {"Rewards/rew_avg", "Game/ep_len_avg", "Loss/value_loss", "Loss/policy_loss", "Loss/entropy_loss"}
+
+
+def action_spec(spaces: Any) -> Tuple[Tuple[int, ...], bool]:
+    """``(actions_dim, is_continuous)`` from a run config's ``spaces``
+    block: a Box space's shape, or the sizes of its discrete heads."""
+    actions = spaces["actions"]
+    if actions.get("continuous"):
+        return tuple(int(d) for d in actions["shape"]), True
+    return tuple(int(d) for d in actions["n"]), False
 
 
 def prepare_obs(
@@ -34,7 +44,9 @@ def prepare_obs(
 
 def test(player, cfg: Any, device: "torch.device | str") -> Tuple[float, int]:
     """One greedy episode on a fresh env seeded with ``cfg.seed``; prints
-    its return and returns it with the episode's step count."""
+    its return and returns it with the episode's step count. A continuous
+    action goes to the env as the mean, a discrete one as each head's
+    index."""
     env = make_env(cfg, int(cfg.seed))
     obs_keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
     obs = env.reset(seed=int(cfg.seed))[0]
@@ -42,7 +54,7 @@ def test(player, cfg: Any, device: "torch.device | str") -> Tuple[float, int]:
     while not done:
         prepared = prepare_obs({k: obs[k] for k in obs_keys}, cfg.algo.cnn_keys.encoder, 1, device)
         actions = player.get_actions(prepared, greedy=True)
-        real = torch.stack([a.argmax(dim=-1) for a in actions], dim=-1).cpu().numpy().reshape(-1)
+        real = env_actions(actions, player.agent.is_continuous).cpu().numpy().reshape(-1)
         obs, reward, terminated, truncated, _ = env.step(real[0] if real.size == 1 else real)
         done = terminated or truncated
         cumulative += reward

@@ -12,7 +12,7 @@ import torch
 
 from sheeprl_tpu_torch.algos.sac.agent import build_agent
 from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, test
-from sheeprl_tpu_torch.ops import counter_uniform
+from sheeprl_tpu_torch.ops import counter_normal
 from sheeprl_tpu_torch.serve.policy import ServePolicy
 from sheeprl_tpu_torch.utils.registry import register_evaluation, register_policy_builder
 
@@ -24,10 +24,8 @@ def _obs_dim(cfg: Any) -> int:
 
 
 def standard_normal(seed: torch.Tensor, counter: torch.Tensor, n: int) -> torch.Tensor:
-    """``(B, n)`` standard normals, the inverse normal CDF of stream 0 of
-    ``counter_uniform`` (whose values lie strictly inside (0, 1), so every
-    one is finite)."""
-    return torch.special.ndtri(counter_uniform(seed, counter, 0, n))
+    """``(B, n)`` standard normals from stream 0 of ``counter_normal``."""
+    return counter_normal(seed, counter, 0, n)
 
 
 @register_evaluation(algorithms=["sac"])

@@ -2,6 +2,7 @@ from sheeprl_tpu_torch.distributions.core import (
     BernoulliSafeMode,
     Independent,
     MSEDistribution,
+    Normal,
     OneHotCategorical,
     OneHotCategoricalStraightThrough,
     SymlogDistribution,
@@ -13,6 +14,7 @@ __all__ = [
     "BernoulliSafeMode",
     "Independent",
     "MSEDistribution",
+    "Normal",
     "OneHotCategorical",
     "OneHotCategoricalStraightThrough",
     "SymlogDistribution",

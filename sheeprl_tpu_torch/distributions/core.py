@@ -1,5 +1,6 @@
 """Distributions (counterpart of ``sheeprl_tpu/distributions/core.py``): the
-one-hot categoricals of the RSSM and the discrete actor, and DreamerV3's
+one-hot categoricals of the RSSM and the discrete actor, the diagonal
+``Normal`` of the continuous PPO-family actors, and DreamerV3's
 training heads (``TwoHotEncodingDistribution``, ``SymlogDistribution``,
 ``MSEDistribution``, ``BernoulliSafeMode``), with ``Independent`` and
 ``kl_divergence``.
@@ -7,11 +8,15 @@ training heads (``TwoHotEncodingDistribution``, ``SymlogDistribution``,
 Sampling is Gumbel-max, ``argmax(logits + g)``, as ``jax.random.categorical``
 draws it. The noise comes from an explicit ``torch.Generator`` or is passed
 in as uniforms, so a caller that needs per-row streams (the session step)
-hands in its own. The two frameworks never give the same draws for one
-seed; tests feed both the same noise or compare logits instead.
+hands in its own. ``Normal`` samples ``loc + scale * eps`` from standard
+normals drawn the same way or passed in. The two frameworks never give the
+same draws for one seed; tests feed both the same noise or compare logits
+instead.
 """
 
 from __future__ import annotations
+
+import math
 
 from typing import Optional
 
@@ -24,6 +29,7 @@ from sheeprl_tpu_torch.ops.kernels import two_hot_mean, two_hot_symlog_loss_lse
 __all__ = [
     "OneHotCategorical",
     "OneHotCategoricalStraightThrough",
+    "Normal",
     "Independent",
     "TwoHotEncodingDistribution",
     "SymlogDistribution",
@@ -84,6 +90,46 @@ class OneHotCategoricalStraightThrough(OneHotCategorical):
         return self.rsample(generator, uniform)
 
 
+class Normal:
+    """Gaussian with elementwise ``loc`` and ``scale``; ``log_prob`` and
+    ``entropy`` in the JAX package's formulas and op order."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor) -> None:
+        self.loc = loc
+        self.scale = scale
+
+    def _shape(self) -> torch.Size:
+        return torch.broadcast_shapes(self.loc.shape, self.scale.shape)
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        var = self.scale**2
+        return -((value - self.loc) ** 2) / (2 * var) - torch.log(self.scale) - 0.5 * math.log(2 * math.pi)
+
+    def entropy(self) -> torch.Tensor:
+        return 0.5 + 0.5 * math.log(2 * math.pi) + torch.log(self.scale) + torch.zeros_like(self.loc)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.loc.expand(self._shape())
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self.mean
+
+    def rsample(self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``loc + scale * noise``; ``noise`` (standard normals of the
+        broadcast shape) is drawn from ``generator`` when not given."""
+        shape = tuple(self._shape())
+        if noise is None:
+            noise = torch.randn(shape, generator=generator, device=self.loc.device, dtype=self.loc.dtype)
+        elif tuple(noise.shape) != shape:
+            raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {shape}")
+        return self.loc + self.scale * noise
+
+    def sample(self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.rsample(generator, noise).detach()
+
+
 class Independent:
     """Sums log-probs and entropies over the rightmost ``ndims`` dims."""
 
@@ -103,6 +149,13 @@ class Independent:
     @property
     def mode(self) -> torch.Tensor:
         return self.base.mode
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.base.mean
+
+    def sample(self, *args, **kwargs) -> torch.Tensor:
+        return self.base.sample(*args, **kwargs)
 
 
 class _DistanceHead:

@@ -1,16 +1,31 @@
-"""The deterministic Atari-protocol stand-in env (counterpart of
-``sheeprl_tpu/envs/dummy.py``, ``AtariProtocolDummyEnv``), without gymnasium
-or OpenCV: its spaces are the plain specs of a run config's ``spaces`` block
-and its area resize is :func:`resize_area`, which reproduces OpenCV's
-``INTER_AREA`` for uint8 images."""
+"""The deterministic fake envs (counterpart of ``sheeprl_tpu/envs/dummy.py``)
+without gymnasium or OpenCV: their spaces are the plain specs of a run
+config's ``spaces`` block.
+
+- :class:`AtariProtocolDummyEnv`, the Atari-protocol stand-in; its area
+  resize is :func:`resize_area`, which reproduces OpenCV's ``INTER_AREA``
+  for uint8 images.
+- The step-counter envs of the JAX test suite, one per action-space kind
+  (:class:`ContinuousDummyEnv`, :class:`DiscreteDummyEnv`,
+  :class:`MultiDiscreteDummyEnv`): every observation value is the step
+  counter (pixels mod 256), the reward 0, and an episode terminates on the
+  step after ``n_steps``. Pixels come at ``screen_size`` directly: the JAX
+  factory's area resize of a constant 64x64 frame is that constant."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["AtariProtocolDummyEnv", "resize_area"]
+__all__ = [
+    "AtariProtocolDummyEnv",
+    "ContinuousDummyEnv",
+    "DiscreteDummyEnv",
+    "MultiDiscreteDummyEnv",
+    "COUNTER_ENVS",
+    "resize_area",
+]
 
 
 def _area_table(src: int, dst: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -55,6 +70,74 @@ def resize_area(image: np.ndarray, height: int, width: int) -> np.ndarray:
     for j in range(yi.shape[1]):
         out = out + ya[:, j, None, None] * rows[yi[:, j]]
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+class _CounterEnv:
+    """An env whose observations are the step counter broadcast into each
+    key: ``rgb`` ``(screen_size, screen_size, 3)`` uint8 and ``state``
+    ``vector_shape`` float32."""
+
+    def __init__(self, actions: Dict[str, Any], n_steps: int, screen_size: int = 64,
+                 vector_shape: Tuple[int, ...] = (10,)) -> None:
+        self._actions = dict(actions)
+        self._n_steps = int(n_steps)
+        self._screen_size = int(screen_size)
+        self._vector_shape = tuple(int(d) for d in vector_shape)
+        self._t = 0
+
+    @property
+    def spaces(self) -> Dict[str, dict]:
+        s = self._screen_size
+        return {
+            "obs": {"rgb": {"shape": [s, s, 3], "dtype": "uint8"},
+                    "state": {"shape": list(self._vector_shape), "dtype": "float32"}},
+            "actions": dict(self._actions),
+        }
+
+    def _observe(self) -> Dict[str, np.ndarray]:
+        s = self._screen_size
+        return {"rgb": np.full((s, s, 3), self._t % 256, dtype=np.uint8),
+                "state": np.full(self._vector_shape, self._t, dtype=np.float32)}
+
+    def step(self, action):
+        terminated = self._t == self._n_steps
+        self._t += 1
+        return self._observe(), 0.0, terminated, False, {}
+
+    def reset(self, seed=None, options=None):
+        self._t = 0
+        return self._observe(), {}
+
+    def close(self) -> None:
+        pass
+
+
+class ContinuousDummyEnv(_CounterEnv):
+    def __init__(self, screen_size: int = 64, n_steps: int = 128, vector_shape: Tuple[int, ...] = (10,),
+                 action_dim: int = 2) -> None:
+        actions = {"shape": [int(action_dim)], "low": [-1.0] * int(action_dim), "high": [1.0] * int(action_dim),
+                   "continuous": True}
+        super().__init__(actions, n_steps, screen_size, vector_shape)
+
+
+class DiscreteDummyEnv(_CounterEnv):
+    def __init__(self, screen_size: int = 64, n_steps: int = 4, vector_shape: Tuple[int, ...] = (10,),
+                 action_dim: int = 2) -> None:
+        super().__init__({"n": [int(action_dim)], "continuous": False}, n_steps, screen_size, vector_shape)
+
+
+class MultiDiscreteDummyEnv(_CounterEnv):
+    def __init__(self, screen_size: int = 64, n_steps: int = 128, vector_shape: Tuple[int, ...] = (10,),
+                 action_dims: Sequence[int] = (2, 2)) -> None:
+        super().__init__({"n": [int(d) for d in action_dims], "continuous": False}, n_steps, screen_size, vector_shape)
+
+
+#: env id -> counter env class, the ids the JAX factory's ``get_dummy_env`` reads
+COUNTER_ENVS = {
+    "continuous_dummy": ContinuousDummyEnv,
+    "discrete_dummy": DiscreteDummyEnv,
+    "multidiscrete_dummy": MultiDiscreteDummyEnv,
+}
 
 
 class AtariProtocolDummyEnv:

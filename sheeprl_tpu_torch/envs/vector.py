@@ -19,7 +19,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 
 from sheeprl_tpu_torch.envs.classic import CartPoleEnv, PendulumEnv
-from sheeprl_tpu_torch.envs.dummy import AtariProtocolDummyEnv
+from sheeprl_tpu_torch.envs.dummy import COUNTER_ENVS, AtariProtocolDummyEnv
 
 __all__ = ["SyncVectorEnv", "make_env", "make_vector_env"]
 
@@ -102,8 +102,10 @@ class SyncVectorEnv:
 
 def make_env(cfg: Any, seed: int) -> Any:
     """One env of the kind ``cfg.env.id`` names, seeded with ``seed``: the
-    Atari-protocol dummy, or CartPole-v1 or Pendulum-v1 with its observation
-    under the first MLP encoder key."""
+    Atari-protocol dummy, a step-counter dummy (``continuous_dummy``,
+    ``discrete_dummy``, ``multidiscrete_dummy``: keys ``rgb`` and
+    ``state``), or CartPole-v1 or Pendulum-v1 with its observation under the
+    first MLP encoder key."""
     env_cfg = cfg.env
     if env_cfg.id == "atari_protocol_dummy":
         wrapper = env_cfg.get("wrapper") or {}
@@ -114,6 +116,12 @@ def make_env(cfg: Any, seed: int) -> Any:
             noop_max=int(wrapper.get("noop_max", 30)),
             seed=seed,
         )
+    if env_cfg.id in COUNTER_ENVS:
+        keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
+        unknown = sorted(set(keys) - {"rgb", "state"})
+        if not keys or unknown:
+            raise ValueError(f"{env_cfg.id} observes 'rgb' and 'state'; the encoder keys {keys} do not fit")
+        return COUNTER_ENVS[env_cfg.id](screen_size=int(env_cfg.screen_size))
     classic = {"CartPole-v1": CartPoleEnv, "Pendulum-v1": PendulumEnv}
     if env_cfg.id in classic:
         mlp_keys = list(cfg.algo.mlp_keys.encoder)
@@ -123,7 +131,8 @@ def make_env(cfg: Any, seed: int) -> Any:
             )
         return classic[env_cfg.id](obs_key=mlp_keys[0], seed=seed)
     raise NotImplementedError(
-        f"env '{env_cfg.id}' is not ported yet; atari_protocol_dummy, CartPole-v1 and Pendulum-v1 only"
+        f"env '{env_cfg.id}' is not ported yet; atari_protocol_dummy, {', '.join(COUNTER_ENVS)}, CartPole-v1 and "
+        "Pendulum-v1 only"
     )
 
 

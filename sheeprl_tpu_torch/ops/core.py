@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["symlog", "symexp", "counter_uniform"]
+__all__ = ["symlog", "symexp", "counter_uniform", "counter_normal"]
 
 
 def symlog(x: torch.Tensor) -> torch.Tensor:
@@ -44,3 +44,11 @@ def counter_uniform(seed: torch.Tensor, counter: torch.Tensor, stream: int, n: i
     cols = _mix32(torch.arange(n, dtype=torch.int64, device=seed.device) + 0x9E3779B9)
     bits = _mix32(key[:, None] ^ cols[None, :])
     return ((bits >> 8).to(torch.float32) + 0.5) * (2.0**-24)
+
+
+def counter_normal(seed: torch.Tensor, counter: torch.Tensor, stream: int, n: int) -> torch.Tensor:
+    """``(B, n)`` standard normals, the inverse normal CDF of
+    :func:`counter_uniform` (whose values lie strictly inside (0, 1), so
+    every one is finite); row ``i`` depends only on row ``i`` of ``seed``
+    and ``counter``."""
+    return torch.special.ndtri(counter_uniform(seed, counter, stream, n))

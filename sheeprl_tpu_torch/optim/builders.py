@@ -1,7 +1,8 @@
 """Optimizers (counterpart of ``sheeprl_tpu/optim/builders.py``, the part
-DreamerV3 and PPO use): Adam behind optax-style global-norm clipping, with a
-learning rate that can be set between steps (optax's ``inject_hyperparams``,
-which PPO's ``anneal_lr`` writes).
+DreamerV3, the PPO family and SAC use): Adam, and RMSprop in optax's form
+(A2C), behind optax-style global-norm clipping, with a learning rate that
+can be set between steps (optax's ``inject_hyperparams``, which PPO's
+``anneal_lr`` writes).
 
 On the card Adam is built ``fused`` and ``capturable``: its step count
 lives on the card, as optax's count does, so a guarded step can select the
@@ -19,7 +20,7 @@ from typing import Any, Iterable, List, Mapping, Optional, Sequence
 
 import torch
 
-__all__ = ["adam", "clip_by_global_norm_", "ClippedOptimizer", "build_optimizer"]
+__all__ = ["adam", "rmsprop", "RMSprop", "clip_by_global_norm_", "ClippedOptimizer", "build_optimizer"]
 
 
 def adam(
@@ -43,6 +44,62 @@ def adam(
         opt = torch.optim.Adam(params, **kwargs)
     _init_state(opt)
     return opt
+
+
+class RMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop(lr, decay=alpha, eps, eps_in_sqrt=False)`` in optax's
+    op order, which ``torch.optim.RMSprop`` does not keep: ``nu = (1 - alpha)
+    * g**2 + alpha * nu``, then ``u = g * (1 / (sqrt(nu) + eps))``, then the
+    parameter plus ``-lr * u``. A weight decay adds ``weight_decay * p`` to
+    the gradient first (optax's ``add_decayed_weights`` chained before it).
+    ``nu`` starts at 0 (optax's ``initial_scale``) and is created with the
+    optimizer. The update is one ``_foreach`` chain per step."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], lr: float = 1e-3, alpha: float = 0.99,
+                 eps: float = 1e-8, weight_decay: float = 0.0) -> None:
+        super().__init__(params, dict(lr=float(lr), alpha=float(alpha), eps=float(eps),
+                                      weight_decay=float(weight_decay)))
+        for group in self.param_groups:
+            for p in group["params"]:
+                self.state[p]["nu"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if group["weight_decay"]:
+                grads = torch._foreach_add(grads, params, alpha=group["weight_decay"])
+            nus = [self.state[p]["nu"] for p in params]
+            alpha = group["alpha"]
+            new_nu = torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - alpha)
+            torch._foreach_add_(new_nu, torch._foreach_mul(nus, alpha))
+            for nu, value in zip(nus, new_nu):
+                nu.copy_(value)
+            denom = torch._foreach_add(torch._foreach_sqrt(new_nu), group["eps"])
+            updates = torch._foreach_mul(torch._foreach_reciprocal(denom), grads)
+            torch._foreach_add_(params, torch._foreach_mul(updates, -group["lr"]))
+        return None
+
+
+def rmsprop(
+    params: Iterable[torch.nn.Parameter],
+    lr: float = 1e-3,
+    alpha: float = 0.99,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+    momentum: float = 0.0,
+    centered: bool = False,
+    **_: Any,
+) -> RMSprop:
+    """The JAX package's ``rmsprop`` (eps outside the square root, as
+    torch places it, in optax's op order); momentum and the centered form
+    are not ported."""
+    if momentum or centered:
+        raise NotImplementedError("RMSprop with momentum or centered=True is not ported yet")
+    return RMSprop(params, lr=lr, alpha=alpha, eps=eps, weight_decay=weight_decay)
 
 
 def _init_state(opt: torch.optim.Optimizer) -> None:
@@ -94,7 +151,7 @@ class ClippedOptimizer:
         if self.max_grad_norm is not None:  # clipped copies: the caller's gradients stay as they were
             grads = [g.clone() for g in grads]
             clip_by_global_norm_(grads, self.max_grad_norm)
-        fused = bool(self.optimizer.param_groups[0]["fused"])
+        fused = bool(self.optimizer.param_groups[0].get("fused"))
         for p, g in zip(self.params, grads):
             # the fused update takes a gradient with its parameter's strides only
             # (a convolution's weight gradient comes channels-last)
@@ -110,7 +167,7 @@ class ClippedOptimizer:
 
     @property
     def capturable(self) -> bool:
-        return bool(self.optimizer.param_groups[0]["capturable"])
+        return bool(self.optimizer.param_groups[0].get("capturable"))
 
     def state_tensors(self) -> List[torch.Tensor]:
         """Every state tensor (moments and step counts), parameter by
@@ -125,6 +182,9 @@ class ClippedOptimizer:
         card when this optimizer is capturable and stay on the CPU when not,
         and the update keeps this optimizer's form, whatever the saved
         ``capturable`` and ``fused`` flags say."""
+        if isinstance(self.optimizer, RMSprop):  # no step count and one form
+            self.optimizer.load_state_dict(state)
+            return
         own = self.optimizer.param_groups[0]
         groups = [{**g, "capturable": own["capturable"], "fused": own["fused"]} for g in state["param_groups"]]
         self.optimizer.load_state_dict({**state, "param_groups": groups})
@@ -138,11 +198,14 @@ class ClippedOptimizer:
 def build_optimizer(
     params: Sequence[torch.nn.Parameter], optim_cfg: Mapping[str, Any], max_grad_norm: Optional[float] = None
 ) -> ClippedOptimizer:
-    """From a config node with ``_target_`` (only Adam is ported) and the
-    optimizer's keyword arguments."""
+    """From a config node with ``_target_`` (Adam and RMSprop are ported;
+    the target names the builder by its last component) and the optimizer's
+    keyword arguments."""
     cfg = dict(optim_cfg)
     target = str(cfg.pop("_target_", "adam")).rsplit(".", 1)[-1].lower()
-    if target not in ("adam", "adamw"):
-        raise NotImplementedError(f"optimizer '{target}' is not ported yet; Adam only")
+    builders = {"adam": adam, "adamw": adam, "rmsprop": rmsprop}
+    if target not in builders:
+        raise NotImplementedError(f"optimizer '{target}' is not ported yet; {', '.join(builders)} only")
     params = list(params)
-    return ClippedOptimizer(params, adam(params, **cfg), max_grad_norm if max_grad_norm and max_grad_norm > 0 else None)
+    clip = max_grad_norm if max_grad_norm and max_grad_norm > 0 else None
+    return ClippedOptimizer(params, builders[target](params, **cfg), clip)

@@ -35,6 +35,8 @@ __all__ = [
     "flax_to_state_dict",
     "dreamer_v3_state_from_jax",
     "ppo_state_from_jax",
+    "a2c_state_from_jax",
+    "ppo_recurrent_state_from_jax",
     "sac_state_from_jax",
     "sequence_ring_from_jax",
     "host_env_buffer_from_jax",
@@ -106,13 +108,62 @@ def ppo_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The flax ``PPOAgent`` tree (numpy leaves, with or without its
     ``params`` level) -> the port's ``PPOAgent`` ``state_dict``: Dense
     kernels transposed, Conv kernels HWIO -> OIHW, the encoders nested
-    under ``feature_extractor``."""
+    under ``feature_extractor``. A continuous agent's ``actor_head_0``
+    (``[mean, log_std]``, width ``2 * sum(actions_dim)``) carries over as
+    any Dense does."""
     if set(params) == {"params"}:
         params = params["params"]
     state: Dict[str, torch.Tensor] = {}
     for name, tree in params.items():
         prefix = f"feature_extractor.{name}." if name in PPO_ENCODERS else f"{name}."
         state.update(flax_to_state_dict(tree, prefix))
+    return state
+
+
+#: the A2C agent is the PPO agent (the JAX package's ``A2CAgent = PPOAgent``)
+a2c_state_from_jax = ppo_state_from_jax
+
+#: flax ``OptimizedLSTMCell`` gates, in torch's ``nn.LSTM`` order
+LSTM_GATES = ("i", "f", "g", "o")
+
+
+def _lstm_state(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    """flax's ``lstm/{ii,if,ig,io}/kernel`` (input, no bias) and
+    ``lstm/{hi,hf,hg,ho}/{kernel,bias}`` -> ``nn.LSTM``'s ``weight_ih_l0``
+    and ``weight_hh_l0`` (the gates' transposed kernels stacked in i, f, g,
+    o order), ``bias_hh_l0`` and a zero ``bias_ih_l0``."""
+
+    def rows(name: str) -> np.ndarray:
+        return np.concatenate([np.asarray(tree[f"{name}{g}"]["kernel"], np.float32).T for g in LSTM_GATES], axis=0)
+
+    bias_hh = np.concatenate([np.asarray(tree[f"h{g}"]["bias"], np.float32) for g in LSTM_GATES])
+    return {
+        f"{prefix}weight_ih_l0": torch.from_numpy(np.ascontiguousarray(rows("i"))),
+        f"{prefix}weight_hh_l0": torch.from_numpy(np.ascontiguousarray(rows("h"))),
+        f"{prefix}bias_ih_l0": torch.zeros(bias_hh.shape, dtype=torch.float32),
+        f"{prefix}bias_hh_l0": torch.from_numpy(bias_hh),
+    }
+
+
+def ppo_recurrent_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The flax ``RecurrentPPOAgent`` tree (numpy leaves, with or without
+    its ``params`` level) -> the port's ``RecurrentPPOAgent``
+    ``state_dict``: the encoders under ``feature_extractor`` and the Dense
+    and LayerNorm leaves as :func:`ppo_state_from_jax` carries them; the
+    LSTM's gates into ``rnn.lstm`` (:func:`_lstm_state`)."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    state: Dict[str, torch.Tensor] = {}
+    for name, tree in params.items():
+        if name == "rnn":
+            for sub, subtree in tree.items():
+                if sub == "lstm":
+                    state.update(_lstm_state(subtree, "rnn.lstm."))
+                else:
+                    state.update(flax_to_state_dict(subtree, f"rnn.{sub}."))
+        else:
+            prefix = f"feature_extractor.{name}." if name in PPO_ENCODERS else f"{name}."
+            state.update(flax_to_state_dict(tree, prefix))
     return state
 
 

@@ -21,8 +21,10 @@ __all__ = [
 
 #: algo.name -> the module whose ``main(cfg, device)`` trains it
 TRAINERS: Dict[str, str] = {
+    "a2c": "sheeprl_tpu_torch.algos.a2c.a2c",
     "dreamer_v3": "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
     "ppo": "sheeprl_tpu_torch.algos.ppo.ppo",
+    "ppo_recurrent": "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
     "sac": "sheeprl_tpu_torch.algos.sac.sac",
 }
 
@@ -30,8 +32,10 @@ policy_builder_registry: Dict[str, Callable] = {}
 evaluation_registry: Dict[str, Callable] = {}
 
 _BUILTIN_MODULES = [
+    "sheeprl_tpu_torch.algos.a2c.evaluate",
     "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
     "sheeprl_tpu_torch.algos.ppo.evaluate",
+    "sheeprl_tpu_torch.algos.ppo_recurrent.evaluate",
     "sheeprl_tpu_torch.algos.sac.evaluate",
 ]
 

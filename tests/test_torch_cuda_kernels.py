@@ -400,8 +400,8 @@ def _gae_inputs(T, N, trailing=(1,), seed=0):
 @pytest.mark.parametrize("done_dtype", ["uint8", "bool", "float32"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize(
-    "shape", [(128, 4, 1), (128, 4), (1, 7), (128, 1000), (1024, 4096)],
-    ids=["main-path", "no-trailing-axis", "T1", "ragged-N", "bandwidth"],
+    "shape", [(128, 4, 1), (128, 4), (1, 7), (128, 1000), (1024, 4096), (512, 16, 1), (5, 4, 1)],
+    ids=["main-path", "no-trailing-axis", "T1", "ragged-N", "bandwidth", "recurrent-ppo", "a2c"],
 )
 def test_torch_cuda_gae_matches_plain(cuda, shape, dtype, done_dtype):
     """The kernel against the plain version on the same (rounded) inputs,
@@ -493,6 +493,23 @@ def test_torch_cuda_ppo_rollout_gae_launches_once_per_iteration(cuda, tmp_path):
                        "algo.update_epochs=1", f"log_root={tmp_path}"])
     assert summary["device"].startswith("cuda") and summary["iterations"] == 2
     assert K.LAUNCHES == dict({name: 0 for name in K.LAUNCHES}, gae=2)
+
+
+@pytest.mark.parametrize("args, iterations", [
+    (["preset=a2c", "algo.total_steps=200"], 10),
+    (["preset=ppo_recurrent", "env.num_envs=4", "algo.rollout_steps=64", "algo.total_steps=512"], 2),
+    (["preset=ppo", "env.id=Pendulum-v1", "algo.total_steps=1024", "algo.update_epochs=1"], 2),
+], ids=["a2c", "ppo-recurrent", "ppo-continuous"])
+def test_torch_cuda_ppo_family_gae_launches_once_per_iteration(cuda, tmp_path, args, iterations):
+    """A short run of each PPO-family path on the card: ``gae`` launched
+    once per iteration, no other kernel; the losses finite."""
+    from sheeprl_tpu_torch import cli
+
+    K.reset_launches()
+    summary = cli.run(args + ["metric.log_level=0", "algo.run_test=false", f"log_root={tmp_path}"])
+    assert summary["device"].startswith("cuda") and summary["iterations"] == iterations
+    assert K.LAUNCHES == dict({name: 0 for name in K.LAUNCHES}, gae=iterations)
+    assert np.isfinite(np.asarray(summary["losses"])).all()
 
 
 def _sumtree_inputs(leaves, batch, seed=0):

@@ -56,7 +56,10 @@ def test_torch_package_imports_with_jax_and_reference_blocked():
                  "utils.burst", "utils.convert", "serve.engine", "serve.policy", "algos.ppo.evaluate",
                  "algos.sac.evaluate", "algos.dreamer_v3.evaluate", "utils.registry", "cli", "fault", "fault.inject",
                  "fault.manager", "fault.sentinel", "fault.watchdog", "ops.guard", "utils.checkpoint",
-                 "utils.logger", "utils.metric", "utils.timer", "data.memmap", "fault.supervisor", "serve.weights"):
+                 "utils.logger", "utils.metric", "utils.timer", "data.memmap", "fault.supervisor", "serve.weights",
+                 "algos.a2c.a2c", "algos.a2c.agent", "algos.a2c.evaluate", "algos.a2c.utils",
+                 "algos.ppo_recurrent.ppo_recurrent", "algos.ppo_recurrent.agent", "algos.ppo_recurrent.evaluate",
+                 "algos.ppo_recurrent.utils", "envs.dummy", "optim.builders", "distributions.core"):
         assert f"sheeprl_tpu_torch.{name}" in report["imported"]
 
 

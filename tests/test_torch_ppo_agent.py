@@ -143,6 +143,13 @@ def test_torch_ppo_agent_state_dict_takes_the_whole_flax_tree():
 
 
 def test_torch_ppo_agent_rejects_a_continuous_action_space():
+    """A continuous space no longer raises: it gets flax's one head of
+    width 2 * sum(actions_dim), the mean and the log std (the head's parity
+    is in tests/test_torch_ppo_continuous.py); what it rejects is a noise
+    tensor of another shape than the mean's."""
     cfg = _port_cfg([], ["state"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PPOAgent((2,), True, [], ["state"], cfg.algo.encoder, cfg.algo.actor, cfg.algo.critic, {"state": (4,)})
+    agent = PPOAgent((2,), True, [], ["state"], cfg.algo.encoder, cfg.algo.actor, cfg.algo.critic, {"state": (4,)})
+    assert agent.is_continuous and agent.n_heads == 1 and agent.actor_head_0.out_features == 4
+    assert not hasattr(agent, "actor_head_1")
+    with pytest.raises(ValueError, match="noise"):
+        sample_actions(agent, {"state": torch.zeros(3, 4)}, noise=torch.zeros(3, 4))
