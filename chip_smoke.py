@@ -182,7 +182,31 @@ result line):
 30. continuous PPO: ``run preset=ppo env.id=Pendulum-v1`` for
    CONTINUOUS_ITERATIONS full-width iterations (exact ``gae`` launches),
    one update on the card against the CPU, stateless serving (8 clients x
-   16 requests of 1-4 rows) and ``evaluation``.
+   16 requests of 1-4 rows) and ``evaluation``;
+31. continuous DreamerV3 step: one continuous DreamerV3-S gradient step
+   (full width, B 4 x T 16, H 15; the actor's gradient through the imagined
+   RSSM steps and the reward and critic decodes) on the card against the
+   CPU, coupled and with ``decoupled_rssm``: losses, the three modules'
+   gradients and parameters; then ``gru_gates_ln``'s and the decode's
+   backward (the plain chains) at the recipe's own shapes;
+32. continuous DreamerV3 run: ``run preset=dreamer_v3_continuous_dummy``
+   (the walker-walk recipe on the continuous dummy env) on the host buffer
+   cut to CONTINUOUS_HOST_BUFFER rows, a few gradient steps with exact
+   launch counts, the test episode, a resume, and one gradient step
+   profiled with the two plain backward chains' device ms and operations;
+33. sessions: the run's checkpoint served to 8 continuous sessions x 16
+   steps (a row alone equals its batched row within 1e-5), then a session
+   in sample mode replaying the run's test episode exactly;
+34. decoupled ring run: the preset with ``decoupled_rssm`` on the device
+   ring (cut to CONTINUOUS_RING_BUFFER rows; the recipe's ring bytes
+   reported), exact launch counts with one scatter per flush, a resume;
+35. DroQ: one train call card vs CPU on the same dropout masks and draws,
+   then ``run preset=droq``, a resume and ``evaluation``, no kernel;
+36. SAC-AE: one 2-step train call card vs CPU at full width (batch 4),
+   then ``run preset=sac_ae`` at batch 128, a resume and ``evaluation``, no
+   kernel;
+37. SAC with ``buffer.sample_next_obs``: a short host-buffer run, no next
+   observation stored, no kernel.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -4524,6 +4548,617 @@ def ppo_continuous_phase(workdir: str) -> dict:
     return out
 
 
+# -- 31-37. slice 13: continuous DreamerV3, the decoupled RSSM, DroQ, SAC-AE, sample_next_obs --
+
+CONTINUOUS_PRESET = "dreamer_v3_continuous_dummy"
+CONTINUOUS_ACTIONS = 2  # the continuous dummy env's Box
+# the gradients of one step, card against CPU: the whole vector's distance
+# over its norm (float32 sums in another order through 15 imagined steps)
+CONTINUOUS_GRAD_RTOL = 2e-3
+# cuts of scale for the runs (the preset's 500,000 rows hold 6.1 GB of frames,
+# which a resume would copy): a 20,000-row host buffer, a 40,000-row ring
+CONTINUOUS_HOST_BUFFER, CONTINUOUS_RING_BUFFER = 20000, 40000
+CONTINUOUS_TRAIN_ITERS, CONTINUOUS_RESUME_STEPS = 3, 16
+DROQ_CARD_STEPS = 4  # critic steps of the card-vs-CPU train call (the recipe grants 80 per iteration)
+DROQ_TOTAL_STEPS, DROQ_BUFFER = 164, 20000
+SAC_AE_CARD_BATCH, SAC_AE_BUFFER, SAC_AE_TRAIN_ITERS, SAC_AE_SGD_LR = 4, 20000, 3, 1e-3
+SAC_NEXT_OBS_STEPS = 512
+
+
+def _continuous_cfg(extra=()):
+    cfg = apply_overrides(preset(CONTINUOUS_PRESET), list(extra))
+    cfg["spaces"] = {"obs": {"rgb": {"shape": [64, 64, 3], "dtype": "uint8"}},
+                     "actions": {"shape": [CONTINUOUS_ACTIONS], "low": [-1.0] * CONTINUOUS_ACTIONS,
+                                 "high": [1.0] * CONTINUOUS_ACTIONS, "continuous": True}}
+    return apply_overrides(cfg, [])
+
+
+def _continuous_batch(rng, T: int, B: int) -> dict:
+    data = {
+        "rgb": rng.integers(0, 256, (1, T, B, 64, 64, 3)).astype(np.float32),
+        "actions": rng.uniform(-1, 1, (1, T, B, CONTINUOUS_ACTIONS)).astype(np.float32),
+        "rewards": rng.normal(size=(1, T, B, 1)).astype(np.float32),
+        "terminated": np.zeros((1, T, B, 1), np.float32),
+        "is_first": np.zeros((1, T, B, 1), np.float32),
+    }
+    data["terminated"][0, T // 2, 0] = 1.0
+    data["is_first"][0, T // 2 + 1, 0] = 1.0
+    return {k: torch.from_numpy(v) for k, v in data.items()}
+
+
+def _params_check(name: str, card: dict, cpu: dict, lr: float) -> dict:
+    """Adam's first step moves an element by about ``lr`` times its
+    gradient's sign, so an element whose gradient is within float32 noise of
+    zero may move either way: every element within 2 * lr + 1e-6 of the
+    CPU's, at least 99.9 % within 1e-6 (train_step_phase's rule)."""
+    diffs = torch.cat([(card[k] - cpu[k]).abs().reshape(-1) for k in cpu])
+    out = {"max_abs_err": float(diffs.max()), "share_within_1e-6": float((diffs <= 1e-6).float().mean())}
+    if out["max_abs_err"] > 2 * lr + 1e-6 or out["share_within_1e-6"] < 0.999:
+        raise AssertionError(f"{name} after the step on the card differs from the CPU: {out}")
+    return out
+
+
+def _backward_chain_checks(T: int, B: int, H: int, hidden: int, bins: int) -> dict:
+    """``gru_gates_ln``'s and the decode's autograd backward (the plain chain,
+    recomputed as the JAX ``custom_vjp`` bwd does) at the continuous step's
+    own shapes, against the plain forward's own gradient on the card: the
+    imagination's (T*B, 3 hidden) projection and the (H+1, T*B, bins)
+    reward and value logits. The GRU's within 1e-5 of the gradient's
+    largest element (a recomputed chain: the same ops on the same inputs);
+    the decode's within 1e-4, held against the CPU's form, which decodes the
+    log-normalised logits where the card's decodes the raw ones (equal in
+    exact arithmetic; 8.9e-6 apart in float32 on the card)."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rows = T * B
+    out = {}
+    proj = torch.randn((rows, 3 * hidden), device="cuda", generator=gen)
+    h = torch.randn((rows, hidden), device="cuda", generator=gen).tanh()
+    w = 1 + 0.1 * torch.randn((3 * hidden,), device="cuda", generator=gen)
+    b = 0.1 * torch.randn((3 * hidden,), device="cuda", generator=gen)
+    up = torch.randn((rows, hidden), device="cuda", generator=gen)
+    grads = []
+    for fn in (kernels.gru_gates_ln, kernels.gru_gates_ln_reference):
+        leaves = [t.clone().requires_grad_(True) for t in (proj, h, w, b)]
+        torch.autograd.backward(fn(*leaves, GRU_LN_EPS), up)
+        grads.append([t.grad for t in leaves])
+    err = max(float((g - r).abs().max() / r.abs().max().clamp(min=1e-30)) for g, r in zip(*grads))
+    out["gru_gates_ln_backward"] = {"shape": [rows, 3 * hidden], "max_rel_err": err}
+    logits = 3 * torch.randn((H + 1, rows, bins), device="cuda", generator=gen)
+    up = torch.randn((H + 1, rows, 1), device="cuda", generator=gen)
+    grads = []
+    for fn in (kernels.two_hot_mean,
+               lambda lg: kernels.two_hot_symexp_decode_reference(lg - torch.logsumexp(lg, -1, keepdim=True))):
+        leaf = logits.clone().requires_grad_(True)
+        torch.autograd.backward(fn(leaf), up)
+        grads.append(leaf.grad)
+    err_dec = float((grads[0] - grads[1]).abs().max() / grads[1].abs().max().clamp(min=1e-30))
+    out["two_hot_symexp_decode_backward"] = {"shape": [H + 1, rows, bins], "max_rel_err": err_dec}
+    if err > 1e-5 or err_dec > 1e-4 or not all(torch.isfinite(g).all() for g in grads):
+        raise AssertionError(f"a kernel's backward at the continuous step's shapes disagrees: {out}")
+    return out
+
+
+def continuous_step_phase() -> dict:
+    """One continuous DreamerV3-S gradient step (full width, B 4 x T 16, H
+    15, the ``scaled_normal`` actor learning by dynamics backpropagation) on
+    the card against the same step on the CPU, TF32 off: the same seeded
+    weights, batch and injected noise; and the same with ``decoupled_rssm``.
+    The ten losses within rtol 1e-4; the world model's, actor's and critic's
+    gradients (what each optimizer is handed) within CONTINUOUS_GRAD_RTOL of
+    their norm; the updated parameters by train_step_phase's rule. Then the
+    two plain backward chains now on the actor's path held at the recipe's
+    shapes (:func:`_backward_chain_checks`)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, B = 16, 4
+    out = {}
+    for name, extra in (("coupled", []), ("decoupled", ["algo.world_model.decoupled_rssm=true"])):
+        cfg = _continuous_cfg([f"algo.per_rank_sequence_length={T}", f"algo.per_rank_batch_size={B}"] + extra)
+        data = _continuous_batch(np.random.default_rng(4), T, B)
+        noise = draw_noise(cfg, T, B, [CONTINUOUS_ACTIONS], torch.Generator().manual_seed(5), "cpu", continuous=True)
+        results = {}
+        for dev in ("cpu", "cuda"):
+            modules = build_training_agent(cfg, dev)
+            optimizers = make_optimizers(cfg, *modules[:3])
+            seen = {k: _capture_grads(opt) for k, opt in optimizers.items()}
+            train = make_train_step(*modules, optimizers, cfg)
+            dev_noise = {"posterior": noise["posterior"].to(dev), "imagined_prior": noise["imagined_prior"].to(dev),
+                         "actions": [u.to(dev) for u in noise["actions"]]}
+            t0 = time.perf_counter()
+            _, metrics, _ = train({k: v.to(dev) for k, v in data.items()}, init_moments(dev), 0, noise=[dev_noise])
+            metrics = metrics.cpu()
+            seconds = time.perf_counter() - t0
+            params = {n: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+                      for n, m in zip(("world_model", "actor", "critic"), modules)}
+            results[dev] = (metrics[0], params, seconds, {k: v["grads"] for k, v in seen.items()})
+        if not torch.isfinite(results["cuda"][0]).all():
+            raise AssertionError(f"non-finite losses on the card: {results['cuda'][0].tolist()}")
+        torch.testing.assert_close(results["cuda"][0], results["cpu"][0], rtol=1e-4, atol=1e-5)
+        step = {"cpu_s": results["cpu"][2], "cuda_s": results["cuda"][2],
+                "loss_abs_err": dict(zip(METRIC_NAMES, (results["cuda"][0] - results["cpu"][0]).abs().tolist()))}
+        for opt_name in ("world", "actor", "critic"):
+            err = _grad_rel_err(results["cuda"][3][opt_name], results["cpu"][3][opt_name])
+            step[f"{opt_name}_grad_rel_err"] = err
+            if err > CONTINUOUS_GRAD_RTOL:
+                raise AssertionError(f"{name} continuous step: the {opt_name} gradient on the card is {err} of its "
+                                     "norm from the CPU's")
+        for module, lr in (("world_model", 1e-4), ("actor", 8e-5), ("critic", 8e-5)):
+            step[module] = _params_check(f"{name} {module}", results["cuda"][1][module], results["cpu"][1][module], lr)
+        out[name] = step
+        log(f"continuous {name} step (card vs CPU): " + json.dumps(step))
+    cfg = preset(CONTINUOUS_PRESET)
+    out["backward_chains"] = _backward_chain_checks(
+        int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size), int(cfg.algo.horizon),
+        int(cfg.algo.world_model.recurrent_model.recurrent_state_size), int(cfg.algo.critic.bins))
+    log("continuous backward chains (kernel vs plain, on the card): " + json.dumps(out["backward_chains"]))
+    return out
+
+
+def _backward_chain_cost(prof) -> dict:
+    """Device ms and operations of the kernels launched under the autograd
+    engine's range of each wrapper's backward (the plain chains)."""
+    nodes = {"_GruGatesLnBackward": "gru_gates_ln", "_TwoHotSymexpDecodeBackward": "two_hot_symexp_decode"}
+    out = {v: {"calls": 0, "device_ms": 0.0, "ops": 0} for v in nodes.values()}
+    prefix = "autograd::engine::evaluate_function: "
+    for e in prof.events():
+        if e.name.startswith(prefix) and e.name[len(prefix):] in nodes:
+            out[nodes[e.name[len(prefix):]]]["calls"] += 1
+        launched = getattr(e, "kernels", None) or []
+        if not launched:
+            continue
+        parent = e.cpu_parent
+        while parent is not None and not (parent.name.startswith(prefix) and parent.name[len(prefix):] in nodes):
+            parent = parent.cpu_parent
+        if parent is not None:
+            cost = out[nodes[parent.name[len(prefix):]]]
+            cost["ops"] += len(launched)
+            cost["device_ms"] += sum(getattr(k, "duration", 0.0) for k in launched) / 1e3
+    return out
+
+
+def _profile_continuous_step(checkpoint: str) -> dict:
+    """One full-recipe continuous gradient step (B 16 x T 64, H 15) from the
+    run's checkpoint after two warm-up steps: host ms, device ms and
+    operations, and what the two plain backward chains on the actor's path
+    cost inside it (:func:`_backward_chain_cost`)."""
+    cfg = load_config(find_run_config(checkpoint))
+    modules = build_training_agent(cfg, "cuda", load_checkpoint(checkpoint))
+    optimizers = make_optimizers(cfg, *modules[:3])
+    train = make_train_step(*modules, optimizers, cfg)
+    T, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
+    data = {k: v.cuda() for k, v in _continuous_batch(np.random.default_rng(6), T, B).items()}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    moments = init_moments("cuda")
+    for _ in range(2):
+        moments = train(data, moments, 1, gen)[0]
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        moments = train(data, moments, 1, gen)[0]
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    acts = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+        moments = train(data, moments, 1, gen)[0]
+        torch.cuda.synchronize()
+    events = _device_kernels(prof)
+    device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    chains = _backward_chain_cost(prof)
+    H = int(cfg.algo.horizon)
+    if chains["gru_gates_ln"]["calls"] < T + H or chains["two_hot_symexp_decode"]["calls"] < 2:
+        raise AssertionError(f"the plain backward chains did not run on the actor's path: {chains}")
+    return {"host_ms": float(np.median(host) * 1e3), "host_ms_all": [x * 1e3 for x in host],
+            "device_ms": device_us / 1e3 if device_us > 0 else None, "device_ops": sum(e.count for e in events),
+            "backward_chains": chains}
+
+
+def _continuous_launches(summary: dict, launches: dict, T: int, H: int, ring: bool = False) -> dict:
+    want = _dreamer_launch_want(summary, T, H)
+    if ring:
+        want["ragged_ring_scatter"] = summary["replay"]["Replay/flushes"]
+    if launches != want:
+        raise AssertionError(f"continuous launches {launches} != {want} for {summary['gradient_steps']} gradient steps")
+    return want
+
+
+def _continuous_run(workdir: str, extra, iters: int) -> tuple:
+    cfg = preset(CONTINUOUS_PRESET)
+    n_envs = int(cfg.env.num_envs)
+    starts = int(cfg.algo.learning_starts)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.run([f"preset={CONTINUOUS_PRESET}", f"algo.total_steps={starts + n_envs * (iters - 1)}",
+                       "checkpoint.every=0", "checkpoint.save_last=true", "metric.log_level=0",
+                       f"log_root={workdir}"] + list(extra))
+    return summary, dict(kernels.LAUNCHES), time.perf_counter() - t0
+
+
+def continuous_run_phase(workdir: str) -> dict:
+    """``run preset=dreamer_v3_continuous_dummy`` on the card at the recipe
+    (4 envs, DreamerV3-S, B 16 x T 64, H 15, ``learning_starts`` 1300, replay
+    ratio 0.5) on the host buffer cut to CONTINUOUS_HOST_BUFFER rows, for
+    CONTINUOUS_TRAIN_ITERS training iterations: exact launch counts (per
+    gradient step 3 + 3 two-hot and 3 decodes, T + H ``gru_gates_ln``; one
+    per player and test-episode step), finite losses, a checkpoint, the test
+    episode; a resume of CONTINUOUS_RESUME_STEPS steps from the checkpoint's
+    buffer with the path's counts; one gradient step profiled."""
+    summary, launches, wall = _continuous_run(workdir, [f"buffer.size={CONTINUOUS_HOST_BUFFER}"],
+                                              CONTINUOUS_TRAIN_ITERS)
+    cfg = load_config(find_run_config(summary["checkpoint"]))
+    T, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.horizon)
+    G = summary["gradient_steps"]
+    if summary["device"].split(":")[0] != "cuda" or G < 4 or summary["resident"] or not summary["test_steps"]:
+        raise AssertionError(f"continuous run: {G} gradient steps on {summary['device']}, resident "
+                             f"{summary['resident']}, test {summary['test_steps']}")
+    if not np.isfinite(np.asarray(summary["metrics"])).all() or not np.isfinite(summary["test_reward"]):
+        raise AssertionError(f"continuous run: non-finite losses or test return {summary['metrics']}")
+    _continuous_launches(summary, launches, T, H)
+    out = {"gradient_steps": G, "policy_steps": summary["policy_steps"], "player_steps": summary["player_steps"],
+           "test_steps": summary["test_steps"], "test_reward": summary["test_reward"], "launches": launches,
+           "wall_s": wall, "host_ms_per_gradient_step": [s / g * 1e3 for s, g in summary["train_host_s"]],
+           "losses": [dict(zip(METRIC_NAMES, row)) for row in summary["metrics"]],
+           "checkpoint": summary["checkpoint"]}
+    log("continuous run: " + json.dumps({k: v for k, v in out.items() if k not in ("losses", "checkpoint")}))
+    kernels.reset_launches()
+    resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
+                       "algo.learning_starts=8", f"algo.total_steps={summary['policy_steps'] + CONTINUOUS_RESUME_STEPS}",
+                       "checkpoint.save_last=false", "algo.run_test=false", f"log_root={_log_root(summary)}"])
+    resume_launches = dict(kernels.LAUNCHES)
+    if resumed["start_iter"] * 4 != summary["policy_steps"] + 4 or resumed["gradient_steps"] == 0:
+        raise AssertionError(f"continuous resume: start {resumed['start_iter']}, {resumed['gradient_steps']} steps")
+    _continuous_launches(resumed, resume_launches, T, H)
+    out["resume"] = {"start_iter": resumed["start_iter"], "gradient_steps": resumed["gradient_steps"],
+                     "launches": resume_launches}
+    out["profile"] = _profile_continuous_step(summary["checkpoint"])
+    log("continuous gradient step profile: " + json.dumps(out["profile"]))
+    return out
+
+
+def continuous_ring_phase(workdir: str) -> dict:
+    """The same preset with ``decoupled_rssm`` on the device ring (cut to
+    CONTINUOUS_RING_BUFFER rows; the recipe's bytes reported): one
+    ``ragged_ring_scatter`` launch per flush carrying the 2-wide float
+    action column, the path's other counts, finite losses, and a resume that
+    restores the ring."""
+    from sheeprl_tpu_torch.replay import estimate_ring_bytes
+    from sheeprl_tpu_torch.utils.burst import dreamer_ring_keys
+
+    ring = ["algo.world_model.decoupled_rssm=true", "buffer.device_resident=true",
+            f"buffer.size={CONTINUOUS_RING_BUFFER}", "algo.run_test=false"]
+    summary, launches, wall = _continuous_run(workdir, ring, CONTINUOUS_TRAIN_ITERS)
+    cfg = load_config(find_run_config(summary["checkpoint"]))
+    T, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.horizon)
+    if not summary["resident"] or summary["gradient_steps"] < 4:
+        raise AssertionError(f"ring run: resident {summary['resident']}, {summary['gradient_steps']} gradient steps")
+    if not np.isfinite(np.asarray(summary["metrics"])).all():
+        raise AssertionError(f"ring run: non-finite losses {summary['metrics']}")
+    _continuous_launches(summary, launches, T, H, ring=True)
+    saved = load_checkpoint(summary["checkpoint"])["rb"]["arrays"]["storage/actions"]
+    if saved.dtype != torch.float32 or saved.shape[-1] != CONTINUOUS_ACTIONS or not bool(saved.abs().sum() > 0):
+        raise AssertionError(f"the ring's action column: {saved.dtype} {tuple(saved.shape)}")
+    keys = dreamer_ring_keys(cfg.spaces.obs, list(cfg.algo.cnn_keys.encoder), [], (CONTINUOUS_ACTIONS,), True)
+    full = preset(CONTINUOUS_PRESET)
+    recipe_bytes = estimate_ring_bytes(keys, int(full.buffer.size) // int(full.env.num_envs), int(full.env.num_envs),
+                                       sequence={"seq_len": T, "batch_size": int(full.algo.per_rank_batch_size)})
+    kernels.reset_launches()
+    resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
+                       "algo.learning_starts=8", f"algo.total_steps={summary['policy_steps'] + CONTINUOUS_RESUME_STEPS}",
+                       "checkpoint.save_last=false", f"log_root={_log_root(summary)}"])
+    resume_launches = dict(kernels.LAUNCHES)
+    if not resumed["resident"] or resumed["gradient_steps"] == 0:
+        raise AssertionError(f"ring resume: {resumed['gradient_steps']} gradient steps, resident {resumed['resident']}")
+    _continuous_launches(resumed, resume_launches, T, H, ring=True)
+    out = {"gradient_steps": summary["gradient_steps"], "player_steps": summary["player_steps"],
+           "test_steps": summary["test_steps"], "flushes": summary["replay"]["Replay/flushes"], "launches": launches,
+           "wall_s": wall, "recipe_ring_bytes": recipe_bytes, "cut_ring_rows": CONTINUOUS_RING_BUFFER,
+           "resume": {"gradient_steps": resumed["gradient_steps"], "launches": resume_launches,
+                      "test_steps": resumed["test_steps"]}}
+    log("continuous decoupled ring run: " + json.dumps(out))
+    return out
+
+
+def continuous_serve_phase(ckpt: str) -> dict:
+    """The continuous run's checkpoint through ``serve`` on the card: 8
+    concurrent sessions x 16 steps with one client reset, each action 2
+    floats within the Box; session s0's frames alone give its batched
+    actions (within 1e-5: float32 matmuls of other batch sizes); one
+    ``gru_gates_ln`` launch per dispatch. Then, in sample mode, a session fed
+    the run's sampled test episode's frames gives its actions exactly."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import utils as dv3_utils
+
+    rng = np.random.default_rng(12)
+    frames = [[rng.integers(0, 256, size=(64, 64, 3), dtype=np.uint8) for _ in range(N_STEPS)]
+              for _ in range(N_SESSIONS)]
+    result = _serve_with([f"checkpoint_path={ckpt}", "serve.session.buckets=[1,8,32]", "serve.max_wait_ms=2.0"],
+                         _sessions_client(frames))
+    acts = np.asarray(result["actions"], dtype=np.float64)
+    if acts.shape != (N_SESSIONS, N_STEPS, 1, CONTINUOUS_ACTIONS) or np.abs(acts).max() > 1.0:
+        raise AssertionError(f"continuous served actions of shape {acts.shape}, max {np.abs(acts).max()}")
+    solo_err = float(np.abs(np.asarray(result["solo"], dtype=np.float64) - acts[0]).max())
+    if solo_err > 1e-5:
+        raise AssertionError(f"session alone differs from the batched rows by {solo_err}")
+    end = result["health_end"]["engine"]
+    dispatches = end["dispatches"] + end["warmup_dispatches"]
+    if result["launches"]["gru_gates"] != dispatches or result["launches"]["gru_gates"] < 1:
+        raise AssertionError(f"gru_gates launched {result['launches']['gru_gates']} times for {dispatches} dispatches")
+    lat = np.asarray(result["latencies"]) * 1e3
+
+    # the run's own (sampled) test episode, replayed by a served session
+    cfg = load_config(find_run_config(ckpt))
+    policy = serve_policy_dreamer_v3(cfg, load_checkpoint(ckpt), "cuda")
+    episode_frames, episode_actions = [], []
+    make_env = dv3_utils.make_env
+
+    def recording(*args, **kwargs):
+        env = make_env(*args, **kwargs)
+        reset, step = env.reset, env.step
+
+        def rec_reset(*a, **k):
+            o = reset(*a, **k)
+            episode_frames.append(o[0]["rgb"].copy())
+            return o
+
+        def rec_step(action):
+            episode_actions.append(np.asarray(action, np.float32).reshape(-1).tolist())
+            o = step(action)
+            episode_frames.append(o[0]["rgb"].copy())
+            return o
+
+        env.reset, env.step = rec_reset, rec_step
+        return env
+
+    dv3_utils.make_env = recording
+    try:
+        reward, steps = dv3_utils.test(policy.params, cfg, "cuda", greedy=False)
+    finally:
+        dv3_utils.make_env = make_env
+
+    def client(port: int, res: dict) -> None:
+        conn = _Conn(port, time.monotonic() + 300)
+        res["served"] = [conn.ask({"obs": {"rgb": episode_frames[t].tolist()}, "session_id": "episode",
+                                   "reset": t == 0})["actions"][0] for t in range(steps)]
+        conn.close()
+
+    served = _serve_with([f"checkpoint_path={ckpt}", "serve.mode=sample", "serve.session.buckets=[1,8]",
+                          "serve.max_wait_ms=2.0"], client)["served"]
+    replay_err = float(np.abs(np.asarray(served, np.float64) - np.asarray(episode_actions, np.float64)).max())
+    if replay_err > 0.0:
+        raise AssertionError(f"the served session parts from the test episode by {replay_err}")
+    out = {"sessions": N_SESSIONS, "steps": N_STEPS, "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)), "requests_per_s": lat.size / result["wall_s"],
+           "solo_max_abs_err": solo_err, "launches": result["launches"], "episode_steps": steps,
+           "episode_reward": reward, "replayed_equal": True}
+    log("continuous sessions: " + json.dumps(out))
+    return out
+
+
+class _Sgd:
+    """Stands in for a ``ClippedOptimizer`` in a card-vs-CPU comparison: a
+    plain SGD step at ``lr`` on the optimizer's parameters."""
+
+    def __init__(self, optimizer, lr: float) -> None:
+        self.params = list(optimizer.params)
+        self.lr = lr
+
+    def step(self, grads) -> None:
+        with torch.no_grad():
+            torch._foreach_add_(self.params, list(grads), alpha=-self.lr)
+
+
+def _zero_launch_check(name: str, launches: dict) -> None:
+    if any(launches.values()):
+        raise AssertionError(f"{name} is a host-buffer path and launched kernels: {launches}")
+
+
+def droq_phase(workdir: str) -> dict:
+    """DroQ on the card. One train call at the recipe's width (hidden 256,
+    batch 256, dropout 0.01; DROQ_CARD_STEPS critic steps, then actor and
+    entropy steps) against the same call on the CPU, on the same weights,
+    batches, normals and dropout masks, TF32 off: the losses within rtol
+    1e-4, the parameters by train_step_phase's rule at lr 3e-4. Then ``run
+    preset=droq`` (Pendulum-v1, 4 envs, replay ratio 20: 80 critic steps an
+    iteration) for DROQ_TOTAL_STEPS steps on a DROQ_BUFFER-row buffer, no
+    kernel launched, a resume, and ``evaluation`` equal to the run's test
+    episode."""
+    from sheeprl_tpu_torch.algos.droq.agent import build_agent as build_droq
+    from sheeprl_tpu_torch.algos.droq.droq import draw_noise as droq_noise
+    from sheeprl_tpu_torch.algos.droq.droq import make_train_step as droq_train_step
+    from sheeprl_tpu_torch.algos.sac.sac import make_optimizers as sac_optimizers
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = preset("droq")
+    space = {"shape": [1], "low": [-2.0], "high": [2.0], "continuous": True}
+    B, G = int(cfg.algo.per_rank_batch_size), DROQ_CARD_STEPS
+    rng = np.random.default_rng(13)
+
+    def batch(lead):
+        return {"observations": rng.normal(size=(*lead, 3)).astype(np.float32),
+                "next_observations": rng.normal(size=(*lead, 3)).astype(np.float32),
+                "actions": rng.uniform(-2, 2, size=(*lead, 1)).astype(np.float32),
+                "rewards": rng.normal(size=(*lead, 1)).astype(np.float32),
+                "terminated": (rng.uniform(size=(*lead, 1)) < 0.1).astype(np.float32)}
+
+    critic_data, actor_data = batch((G, B)), batch((B,))
+    ref_agent, _ = build_droq(cfg, 3, space, "cpu")
+    noise = droq_noise(ref_agent, G, B, torch.Generator().manual_seed(14), "cpu")
+    results = {}
+    for dev in ("cpu", "cuda"):
+        agent, _ = build_droq(cfg, 3, space, dev)
+        train = droq_train_step(agent, sac_optimizers(cfg, agent), cfg)
+        dev_noise = {k: v.to(dev) for k, v in noise.items()}
+        losses = train({k: torch.from_numpy(v).to(dev) for k, v in critic_data.items()},
+                       {k: torch.from_numpy(v).to(dev) for k, v in actor_data.items()}, noise=dev_noise).cpu()
+        results[dev] = (losses, {k: v.detach().cpu() for k, v in agent.state_dict().items()})
+    torch.testing.assert_close(results["cuda"][0], results["cpu"][0], rtol=1e-4, atol=1e-6)
+    out = {"train_call": {"critic_steps": G, "loss_abs_err": (results["cuda"][0] - results["cpu"][0]).abs().tolist(),
+                          "params": _params_check("DroQ agent", results["cuda"][1], results["cpu"][1], 3e-4)}}
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.run(["preset=droq", f"algo.total_steps={DROQ_TOTAL_STEPS}", f"buffer.size={DROQ_BUFFER}",
+                       "checkpoint.every=0", "checkpoint.save_last=true", "metric.log_level=0", f"log_root={workdir}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    _zero_launch_check("DroQ run", launches)
+    if summary["device"].split(":")[0] != "cuda" or summary["gradient_steps"] < 80 or summary["test_steps"] != 200:
+        raise AssertionError(f"DroQ run: {summary['gradient_steps']} gradient steps, test {summary['test_steps']}")
+    if not np.isfinite(np.asarray(summary["losses"])).all():
+        raise AssertionError(f"DroQ run: non-finite losses {summary['losses']}")
+    kernels.reset_launches()
+    resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
+                       "algo.learning_starts=4", f"algo.total_steps={DROQ_TOTAL_STEPS + 16}", "algo.run_test=false",
+                       "checkpoint.save_last=false", f"log_root={_log_root(summary)}"])
+    resume_launches = dict(kernels.LAUNCHES)
+    _zero_launch_check("DroQ resume", resume_launches)
+    kernels.reset_launches()
+    evaluated = cli.evaluation([f"checkpoint_path={summary['checkpoint']}"])
+    if evaluated["reward"] != summary["test_reward"] or resumed["gradient_steps"] == 0:
+        raise AssertionError(f"DroQ evaluation {evaluated} against the run's test {summary['test_reward']}; "
+                             f"resume {resumed['gradient_steps']} gradient steps")
+    out.update(gradient_steps=summary["gradient_steps"], train_calls=summary["train_calls"], wall_s=wall,
+               host_ms_per_train_call=float(np.median(summary["train_s"]) * 1e3), launches=launches,
+               resume={"gradient_steps": resumed["gradient_steps"], "launches": resume_launches},
+               evaluation={"reward": evaluated["reward"], "launches": dict(kernels.LAUNCHES)},
+               test_reward=summary["test_reward"])
+    _zero_launch_check("DroQ evaluation", dict(kernels.LAUNCHES))
+    log("DroQ: " + json.dumps(out))
+    return out
+
+
+def sac_ae_phase(workdir: str) -> dict:
+    """SAC-AE on the card. One train call of 2 gradient steps from step 1
+    (the first skips the EMAs and the actor, the second takes both; both
+    update the decoder) at the recipe's full width (conv trunk 4 x 512,
+    features 64, hidden 1024), batch cut to SAC_AE_CARD_BATCH, against the
+    same call on the CPU with the same weights, batch and draws, TF32 off,
+    each of the five optimizers an SGD at SAC_AE_SGD_LR: Adam's first step
+    moves an element with a near-zero gradient by lr either way, and over
+    512-channel convolutions those flips part the two machines' second
+    step by percents, which would hide a real fault. The losses within
+    rtol 1e-4, each optimizer's last gradient within CONTINUOUS_GRAD_RTOL of
+    its norm, every parameter within 1e-6. The recipe's Adams run in the
+    run below. Then ``run preset=sac_ae`` at batch 128 on a
+    SAC_AE_BUFFER-row buffer for SAC_AE_TRAIN_ITERS training iterations, no
+    kernel launched, a resume, ``evaluation`` equal to the run's test
+    episode, and one recipe gradient step (batch 128, every gate on)
+    profiled."""
+    from sheeprl_tpu_torch.algos.sac_ae.agent import build_agent as build_sac_ae
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import draw_noise as sac_ae_noise
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import make_optimizers as sac_ae_optimizers
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import make_train_step as sac_ae_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = apply_overrides(preset("sac_ae"), [f"algo.per_rank_batch_size={SAC_AE_CARD_BATCH}"])
+    cfg["spaces"] = {"obs": {"rgb": {"shape": [64, 64, 3], "dtype": "uint8"}},
+                     "actions": {"shape": [2], "low": [-1.0, -1.0], "high": [1.0, 1.0], "continuous": True}}
+    cfg = apply_overrides(cfg, [])
+    B, G = SAC_AE_CARD_BATCH, 2
+    rng = np.random.default_rng(15)
+    data = {"rgb": rng.integers(0, 256, (G, B, 64, 64, 3)).astype(np.float32),
+            "next_rgb": rng.integers(0, 256, (G, B, 64, 64, 3)).astype(np.float32),
+            "actions": rng.uniform(-1, 1, (G, B, 2)).astype(np.float32),
+            "rewards": rng.normal(size=(G, B, 1)).astype(np.float32),
+            "terminated": (rng.uniform(size=(G, B, 1)) < 0.25).astype(np.float32)}
+    ref_agent, _ = build_sac_ae(cfg, "cpu")
+    noise = sac_ae_noise(ref_agent, cfg, G, B, torch.Generator().manual_seed(16), "cpu")
+    del ref_agent
+    results = {}
+    for dev in ("cpu", "cuda"):
+        agent, _ = build_sac_ae(cfg, dev)
+        optimizers = {k: _Sgd(opt, SAC_AE_SGD_LR) for k, opt in sac_ae_optimizers(cfg, agent).items()}
+        seen = {k: _capture_grads(opt) for k, opt in optimizers.items()}
+        train = sac_ae_train_step(agent, optimizers, cfg)
+        dev_noise = {"next": noise["next"].to(dev), "actor": noise["actor"].to(dev),
+                     "pixels": {k: v.to(dev) for k, v in noise["pixels"].items()}}
+        t0 = time.perf_counter()
+        losses = train({k: torch.from_numpy(v).to(dev) for k, v in data.items()}, 1, noise=dev_noise).cpu()
+        results[dev] = (losses, {k: v.detach().cpu() for k, v in agent.state_dict().items()}, time.perf_counter() - t0,
+                        {k: v["grads"] for k, v in seen.items()})
+        del agent, train, optimizers
+    torch.testing.assert_close(results["cuda"][0], results["cpu"][0], rtol=1e-4, atol=1e-6)
+    grads = {k: _grad_rel_err(results["cuda"][3][k], results["cpu"][3][k]) for k in results["cpu"][3]}
+    param_err = _max_param_err(results["cuda"][1], results["cpu"][1])
+    if max(grads.values()) > CONTINUOUS_GRAD_RTOL or param_err > 1e-6:
+        raise AssertionError(f"SAC-AE train call on the card: gradients {grads}, parameters {param_err} from the CPU")
+    out = {"train_call": {"steps": G, "batch": B, "cpu_s": results["cpu"][2], "cuda_s": results["cuda"][2],
+                          "loss_abs_err": (results["cuda"][0] - results["cpu"][0]).abs().tolist(),
+                          "grad_rel_err": grads, "param_max_abs_err": param_err}}
+    del results
+
+    full = preset("sac_ae")
+    n_envs, starts = int(full.env.num_envs), int(full.algo.learning_starts)
+    total = starts + n_envs * (SAC_AE_TRAIN_ITERS - 1)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.run(["preset=sac_ae", f"algo.total_steps={total}", f"buffer.size={SAC_AE_BUFFER}",
+                       "checkpoint.every=0", "checkpoint.save_last=true", "metric.log_level=0", f"log_root={workdir}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    _zero_launch_check("SAC-AE run", launches)
+    if summary["device"].split(":")[0] != "cuda" or summary["gradient_steps"] < 4 or not summary["test_steps"]:
+        raise AssertionError(f"SAC-AE run: {summary['gradient_steps']} gradient steps, test {summary['test_steps']}")
+    if not np.isfinite(np.asarray(summary["losses"])).all():
+        raise AssertionError(f"SAC-AE run: non-finite losses {summary['losses']}")
+    kernels.reset_launches()
+    resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
+                       "algo.learning_starts=4", f"algo.total_steps={total + 12}", "algo.run_test=false",
+                       "checkpoint.save_last=false", f"log_root={_log_root(summary)}"])
+    resume_launches = dict(kernels.LAUNCHES)
+    _zero_launch_check("SAC-AE resume", resume_launches)
+    kernels.reset_launches()
+    evaluated = cli.evaluation([f"checkpoint_path={summary['checkpoint']}"])
+    evaluated["launches"] = dict(kernels.LAUNCHES)
+    _zero_launch_check("SAC-AE evaluation", evaluated["launches"])
+    if evaluated["reward"] != summary["test_reward"] or resumed["gradient_steps"] == 0:
+        raise AssertionError(f"SAC-AE evaluation {evaluated} against {summary['test_reward']}; resume "
+                             f"{resumed['gradient_steps']} gradient steps")
+    # one recipe gradient step (batch 128, every gate on) from the run's checkpoint, profiled
+    run_cfg = load_config(find_run_config(summary["checkpoint"]))
+    agent, _ = build_sac_ae(run_cfg, "cuda", load_checkpoint(summary["checkpoint"])["agent"])
+    train = sac_ae_train_step(agent, sac_ae_optimizers(run_cfg, agent), run_cfg)
+    B = int(run_cfg.algo.per_rank_batch_size)
+    batch = {"rgb": torch.randint(0, 256, (1, B, 64, 64, 3), device="cuda").float(),
+             "next_rgb": torch.randint(0, 256, (1, B, 64, 64, 3), device="cuda").float(),
+             "actions": torch.rand((1, B, 2), device="cuda") * 2 - 1, "rewards": torch.zeros((1, B, 1), device="cuda"),
+             "terminated": torch.zeros((1, B, 1), device="cuda")}
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    profile = _profile_call(lambda: train(batch, 2, generator=gen).cpu())
+    profile.pop("lstm_device_ms")
+    del agent, train, batch
+    out.update(gradient_steps=summary["gradient_steps"], wall_s=wall, launches=launches, profile=profile,
+               host_ms_per_train_call=[s * 1e3 for s in summary["train_s"]],
+               resume={"gradient_steps": resumed["gradient_steps"], "launches": resume_launches},
+               evaluation={"reward": evaluated["reward"], "steps": evaluated["steps"], "launches": evaluated["launches"]},
+               test_reward=summary["test_reward"])
+    log("SAC-AE: " + json.dumps(out))
+    return out
+
+
+def sac_next_obs_phase(workdir: str) -> dict:
+    """``run preset=sac buffer.sample_next_obs=true`` on the card at full
+    width for SAC_NEXT_OBS_STEPS steps: the host buffer stores no next
+    observation, every loss finite, no kernel launched."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.run(["preset=sac", "buffer.sample_next_obs=true", f"algo.total_steps={SAC_NEXT_OBS_STEPS}",
+                       "checkpoint.every=0", "checkpoint.save_last=true", "metric.log_level=0", f"log_root={workdir}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    _zero_launch_check("SAC sample_next_obs run", launches)
+    stored = set(load_checkpoint(summary["checkpoint"])["rb"]["buffer"])
+    if "next_observations" in stored or summary["resident"] or summary["gradient_steps"] < 100:
+        raise AssertionError(f"sample_next_obs run: stored {sorted(stored)}, {summary['gradient_steps']} steps")
+    if not np.isfinite(np.asarray(summary["losses"])).all():
+        raise AssertionError(f"sample_next_obs run: non-finite losses {summary['losses']}")
+    out = {"gradient_steps": summary["gradient_steps"], "stored_keys": sorted(stored), "launches": launches,
+           "wall_s": wall, "test_reward": summary["test_reward"]}
+    log("SAC sample_next_obs: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
@@ -4585,6 +5220,16 @@ def main() -> int:
         recurrent_update = timed("ppo_recurrent_update", ppo_recurrent_update_phase, recurrent_run.pop("recorded"))
         recurrent_serve = timed("ppo_recurrent_serve", ppo_recurrent_serve_phase, recurrent_run["checkpoint"])
         continuous = timed("ppo_continuous", ppo_continuous_phase, workdir)
+    continuous_step = timed("continuous_step", continuous_step_phase)
+    with tempfile.TemporaryDirectory() as workdir:
+        continuous_run = timed("continuous_run", continuous_run_phase, workdir)
+        continuous_serve = timed("continuous_serve", continuous_serve_phase, continuous_run["checkpoint"])
+    with tempfile.TemporaryDirectory() as workdir:
+        continuous_ring = timed("continuous_ring", continuous_ring_phase, workdir)
+    with tempfile.TemporaryDirectory() as workdir:
+        droq = timed("droq", droq_phase, workdir)
+        sac_ae = timed("sac_ae", sac_ae_phase, workdir)
+        sac_next_obs = timed("sac_next_obs", sac_next_obs_phase, workdir)
     paths = {"run": run, "run_resume": run["resume"], "serve": serve, "evaluation": rssm_eval, "ppo_run": ppo_run,
              "ppo_serve": ppo_serve, "ppo_evaluation": ppo_eval, "sac_run": sac_run, "sac_serve": sac_serve,
              "sac_evaluation": sac_eval, "resident_run": resident_run, "resident_resume": resident_run["resume"],
@@ -4597,7 +5242,13 @@ def main() -> int:
              "a2c_evaluation": a2c_run["evaluation"], "ppo_recurrent_run": recurrent_run,
              "ppo_recurrent_resume": recurrent_run["resume"], "ppo_recurrent_serve": recurrent_serve,
              "ppo_recurrent_evaluation": recurrent_serve["evaluation"], "ppo_continuous_run": continuous,
-             "ppo_continuous_serve": continuous["serve"], "ppo_continuous_evaluation": continuous["evaluation"]}
+             "ppo_continuous_serve": continuous["serve"], "ppo_continuous_evaluation": continuous["evaluation"],
+             "dreamer_continuous_run": continuous_run, "dreamer_continuous_resume": continuous_run["resume"],
+             "dreamer_continuous_serve": continuous_serve, "dreamer_decoupled_ring": continuous_ring,
+             "dreamer_decoupled_ring_resume": continuous_ring["resume"], "droq_run": droq,
+             "droq_resume": droq["resume"], "droq_evaluation": droq["evaluation"], "sac_ae_run": sac_ae,
+             "sac_ae_resume": sac_ae["resume"], "sac_ae_evaluation": sac_ae["evaluation"],
+             "sac_next_obs_run": sac_next_obs}
     rows = [gru] + two_hot + [gae_row, sumtree_row, scatter_row]
     for row in rows:
         row["launches_by_path"] = {name: path["launches"][row["name"]] for name, path in paths.items()}
@@ -4607,7 +5258,8 @@ def main() -> int:
     # the test episodes inside the run paths: one GRU step each, counted exactly there
     gru["launches_by_path"].update(run_test=run["test_steps"], run_resume_test=run["resume"]["test_steps"],
                                    resident_test=resident_run["test_steps"],
-                                   resident_resume_test=resident_run["resume"]["test_steps"])
+                                   resident_resume_test=resident_run["resume"]["test_steps"],
+                                   dreamer_continuous_test=continuous_run["test_steps"])
     gru["eval_shape"]["floor_ms"] = floor
     for row in [gru] + two_hot:
         row["launches"] = run["launches"][row["name"]]
@@ -4628,7 +5280,9 @@ def main() -> int:
                       "nonfinite": nonfinite, "rundir": rundir, "memmap": memmap, "hotswap": hotswap,
                       "a2c_update": a2c_update, "a2c_run": a2c_run, "ppo_recurrent_run": recurrent_run,
                       "ppo_recurrent_update": recurrent_update, "ppo_recurrent_serve": recurrent_serve,
-                      "ppo_continuous": continuous}))
+                      "ppo_continuous": continuous, "continuous_step": continuous_step,
+                      "continuous_run": continuous_run, "continuous_serve": continuous_serve,
+                      "continuous_ring": continuous_ring, "droq": droq, "sac_ae": sac_ae, "sac_next_obs": sac_next_obs}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

@@ -1,8 +1,12 @@
 """DreamerV3 agent (counterpart of ``sheeprl_tpu/algos/dreamer_v3/agent.py``):
 the encoders, the RSSM's recurrent, representation and transition models and
 its training steps, the decoders, the reward, continue and critic heads, and
-the discrete actor. Serving builds the subset it runs (:func:`build_agent`);
-training builds all of it (:func:`build_training_agent`).
+the actor: discrete (one-hot heads) or continuous (``scaled_normal``,
+``normal`` or ``tanh_normal``). With ``algo.world_model.decoupled_rssm`` the
+representation model reads the embedded observation alone (the JAX
+package's ``DecoupledRSSM``). Serving builds the subset it runs
+(:func:`build_agent`); training builds all of it
+(:func:`build_training_agent`).
 
 Pixels stay NHWC at every public function, as in the JAX package; the
 convolutions run NCHW inside, LayerNorm runs over channels, and the encoder
@@ -20,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sheeprl_tpu_torch.distributions import OneHotCategoricalStraightThrough
+from sheeprl_tpu_torch.distributions import Independent, Normal, OneHotCategoricalStraightThrough, TanhNormal
 from sheeprl_tpu_torch.models import MLP, ConvTranspose, LayerNormGRUCell
 from sheeprl_tpu_torch.ops import symlog
 
@@ -35,6 +39,7 @@ __all__ = [
     "Actor",
     "actor_dists",
     "actor_sample",
+    "action_dims",
     "sample_stochastic",
     "build_agent",
     "build_training_agent",
@@ -231,8 +236,10 @@ class WorldModel(nn.Module):
         mlp_decoder: Optional[MLPDecoder] = None,
         reward_model: Optional[_PredictionHead] = None,
         continue_model: Optional[_PredictionHead] = None,
+        decoupled: bool = False,
     ) -> None:
         super().__init__()
+        self.decoupled = bool(decoupled)
         self.encoder = encoder
         self.recurrent_model = recurrent_model
         self.representation_model = representation_model
@@ -256,8 +263,11 @@ class WorldModel(nn.Module):
         post = sample_stochastic(self.transition(rec), self.discrete, sample=False)
         return rec, post
 
-    def representation(self, recurrent_state: torch.Tensor, embedded_obs: torch.Tensor) -> torch.Tensor:
-        return self._mix(self.representation_model(torch.cat([recurrent_state, embedded_obs], dim=-1)))
+    def representation(self, recurrent_state: Optional[torch.Tensor], embedded_obs: torch.Tensor) -> torch.Tensor:
+        """The unimixed posterior logits; decoupled, from the embedded
+        observation alone (``recurrent_state`` is then ignored)."""
+        inputs = embedded_obs if self.decoupled else torch.cat([recurrent_state, embedded_obs], dim=-1)
+        return self._mix(self.representation_model(inputs))
 
     def transition(self, recurrent_out: torch.Tensor) -> torch.Tensor:
         return self._mix(self.transition_model(recurrent_out))
@@ -278,6 +288,24 @@ class WorldModel(nn.Module):
         (``initial``, if the caller computed them once for the rollout).
         Returns ``(recurrent', posterior sample, posterior logits, prior
         logits)``; ``uniform`` is the posterior draw's noise."""
+        recurrent_state, prior_logits = self.dynamic_decoupled(posterior, recurrent_state, action, is_first, initial)
+        posterior_logits = self.representation(recurrent_state, embedded_obs)
+        posterior = sample_stochastic(posterior_logits, self.discrete, uniform)
+        return recurrent_state, posterior, posterior_logits, prior_logits
+
+    def dynamic_decoupled(
+        self,
+        posterior: torch.Tensor,
+        recurrent_state: torch.Tensor,
+        action: torch.Tensor,
+        is_first: torch.Tensor,
+        initial: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The recurrent half of :meth:`dynamic`, which is the whole step of
+        the decoupled RSSM's rollout (its posterior, the previous step's, comes
+        from the observations alone): the ``is_first`` restart, then the
+        recurrent state and the prior advance. Returns ``(recurrent', prior
+        logits)``."""
         if initial is None:
             initial = self.get_initial_states(recurrent_state.shape[0])
         init_rec, init_post = initial
@@ -285,10 +313,7 @@ class WorldModel(nn.Module):
         recurrent_state = (1 - is_first) * recurrent_state + is_first * init_rec
         posterior = (1 - is_first) * posterior + is_first * init_post
         recurrent_state = self.recurrent_model(torch.cat([posterior, action], dim=-1), recurrent_state)
-        prior_logits = self.transition(recurrent_state)
-        posterior_logits = self.representation(recurrent_state, embedded_obs)
-        posterior = sample_stochastic(posterior_logits, self.discrete, uniform)
-        return recurrent_state, posterior, posterior_logits, prior_logits
+        return recurrent_state, self.transition(recurrent_state)
 
     def imagination(
         self, prior: torch.Tensor, recurrent_state: torch.Tensor, actions: torch.Tensor, uniform: Optional[torch.Tensor]
@@ -306,36 +331,88 @@ class WorldModel(nn.Module):
 
 
 class Actor(nn.Module):
-    """Discrete task actor: an MLP and one logits head per action dimension."""
+    """Task actor: an MLP, then one logits head per action dimension
+    (discrete), or one ``head_0`` of width ``2 * sum(actions_dim)`` giving
+    the mean and the std parameter of every action (continuous)."""
 
-    def __init__(self, input_dim: int, actions_dim: Sequence[int], dense_units: int, mlp_layers: int, unimix: float):
+    def __init__(
+        self,
+        input_dim: int,
+        actions_dim: Sequence[int],
+        dense_units: int,
+        mlp_layers: int,
+        unimix: float,
+        is_continuous: bool = False,
+        distribution: str = "auto",
+        init_std: float = 2.0,
+        min_std: float = 0.1,
+        max_std: float = 1.0,
+        action_clip: float = 1.0,
+    ):
         super().__init__()
         self.actions_dim = tuple(int(d) for d in actions_dim)
         self.unimix = float(unimix)
+        self.is_continuous = bool(is_continuous)
+        distribution = str(distribution).lower()
+        if distribution == "auto":
+            distribution = "scaled_normal" if self.is_continuous else "discrete"
+        allowed = ("scaled_normal", "normal", "tanh_normal") if self.is_continuous else ("discrete",)
+        if distribution not in allowed:
+            raise ValueError(f"distribution.type '{distribution}' does not fit this action space; one of {allowed}")
+        self.distribution = distribution
+        self.init_std, self.min_std, self.max_std = float(init_std), float(min_std), float(max_std)
+        self.action_clip = float(action_clip)
         self.model = MLP(input_dim, (int(dense_units),) * int(mlp_layers), activation="silu", layer_norm=True)
-        for i, d in enumerate(self.actions_dim):
+        widths = [2 * sum(self.actions_dim)] if self.is_continuous else list(self.actions_dim)
+        for i, d in enumerate(widths):
             self.add_module(f"head_{i}", nn.Linear(int(dense_units), d))
+        self.n_heads = len(widths)
 
     def forward(self, state: torch.Tensor) -> List[torch.Tensor]:
         x = self.model(state)
-        return [getattr(self, f"head_{i}")(x) for i in range(len(self.actions_dim))]
+        return [getattr(self, f"head_{i}")(x) for i in range(self.n_heads)]
 
 
-def actor_dists(actor: Actor, pre_dist: List[torch.Tensor]) -> List[OneHotCategoricalStraightThrough]:
-    return [OneHotCategoricalStraightThrough(_unimix(logits, actor.unimix)) for logits in pre_dist]
+def actor_dists(actor: Actor, pre_dist: List[torch.Tensor]) -> list:
+    """The action distributions of the actor's outputs: one one-hot
+    categorical per head (unimixed), or for a continuous actor one
+    ``Independent`` over the actions: ``scaled_normal`` ``Normal(tanh(mean),
+    (max_std - min_std) * sigmoid(std + init_std) + min_std)``, ``normal``
+    ``Normal(mean, std)``, ``tanh_normal`` ``TanhNormal(5 tanh(mean / 5),
+    softplus(std + init_std) + min_std)``."""
+    if not actor.is_continuous:
+        return [OneHotCategoricalStraightThrough(_unimix(logits, actor.unimix)) for logits in pre_dist]
+    mean, std = torch.chunk(pre_dist[0], 2, dim=-1)
+    if actor.distribution == "scaled_normal":
+        std = (actor.max_std - actor.min_std) * torch.sigmoid(std + actor.init_std) + actor.min_std
+        return [Independent(Normal(torch.tanh(mean), std), 1)]
+    if actor.distribution == "normal":
+        return [Independent(Normal(mean, std), 1)]
+    mean = 5 * torch.tanh(mean / 5)
+    std = F.softplus(std + actor.init_std) + actor.min_std
+    return [Independent(TanhNormal(mean, std), 1)]
 
 
 def actor_sample(
-    actor: Actor, state: torch.Tensor, uniforms: Optional[Sequence[torch.Tensor]] = None, greedy: bool = False
-) -> Tuple[List[torch.Tensor], List[OneHotCategoricalStraightThrough]]:
-    """One-hot actions per head: the mode when ``greedy``, else a
-    straight-through draw with ``uniforms[i]`` as head ``i``'s noise."""
+    actor: Actor, state: torch.Tensor, noise: Optional[Sequence[torch.Tensor]] = None, greedy: bool = False
+) -> Tuple[List[torch.Tensor], list]:
+    """Actions from the actor at ``state``: the mode when ``greedy``, else a
+    draw with ``noise``, one tensor per head: uniforms for a discrete head
+    (a straight-through one-hot), standard normals ``(..., sum(actions_dim))``
+    for the continuous head (a reparameterised draw). A continuous action is
+    then clipped as the JAX package clips it, ``act * stopgrad(clip /
+    max(clip, |act|))``."""
     dists = actor_dists(actor, actor(state))
-    if greedy:
-        return [d.mode for d in dists], dists
-    if uniforms is None or len(uniforms) != len(dists):
-        raise ValueError("sampled actions need one uniform tensor per action head")
-    return [d.rsample(uniform=u) for d, u in zip(dists, uniforms)], dists
+    if not greedy and (noise is None or len(noise) != len(dists)):
+        raise ValueError("sampled actions need one noise tensor per action head")
+    if not actor.is_continuous:
+        if greedy:
+            return [d.mode for d in dists], dists
+        return [d.rsample(uniform=u) for d, u in zip(dists, noise)], dists
+    act = dists[0].mode if greedy else dists[0].rsample(noise=noise[0])
+    if actor.action_clip > 0.0:
+        act = act * (actor.action_clip / torch.clamp(act.abs(), min=actor.action_clip)).detach()
+    return [act], dists
 
 
 # -- initialization from a seed (JAX: agent.py:657-711) ----------------------
@@ -370,20 +447,26 @@ def _uniform_output_init(layer: nn.Module, generator: torch.Generator, scale: fl
         nn.init.zeros_(layer.bias)
 
 
+def action_dims(spaces: Any) -> Tuple[bool, Tuple[int, ...]]:
+    """``(is_continuous, actions_dim)`` of a run config's ``spaces`` block:
+    a Box's shape, or the categorical sizes of the discrete heads."""
+    actions = spaces.actions
+    if actions.get("continuous", False):
+        return True, tuple(int(d) for d in actions.shape)
+    return False, tuple(int(d) for d in actions.n)
+
+
 def _modules(cfg: Any, training: bool) -> Tuple[WorldModel, Actor, Optional[_PredictionHead]]:
     """The modules for ``cfg``, not yet initialised: the serving subset, or
     with ``training`` the whole world model and the critic."""
     wm_cfg = cfg.algo.world_model
     spaces = cfg.spaces
-    if spaces.actions.get("continuous", False):
-        raise NotImplementedError("continuous DreamerV3 actor heads are not ported yet; discrete actions only")
-    actions_dim = tuple(int(d) for d in spaces.actions.n)
+    is_continuous, actions_dim = action_dims(spaces)
     recurrent_state_size = int(wm_cfg.recurrent_model.recurrent_state_size)
     discrete = int(wm_cfg.discrete_size)
     stoch_state_size = int(wm_cfg.stochastic_size) * discrete
     latent_dim = stoch_state_size + recurrent_state_size
-    if wm_cfg.get("decoupled_rssm", False):
-        raise NotImplementedError("the decoupled RSSM is not ported yet")
+    decoupled = bool(wm_cfg.get("decoupled_rssm", False))
 
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
@@ -437,7 +520,7 @@ def _modules(cfg: Any, training: bool) -> Tuple[WorldModel, Actor, Optional[_Pre
         Encoder(cnn_encoder, mlp_encoder),
         RecurrentModel(stoch_state_size + sum(actions_dim), recurrent_state_size, int(wm_cfg.recurrent_model.dense_units)),
         _StochHead(
-            encoder_output_dim + recurrent_state_size,
+            encoder_output_dim + (0 if decoupled else recurrent_state_size),
             int(wm_cfg.representation_model.hidden_size),
             stoch_state_size,
         ),
@@ -445,9 +528,23 @@ def _modules(cfg: Any, training: bool) -> Tuple[WorldModel, Actor, Optional[_Pre
         recurrent_state_size,
         discrete=discrete,
         unimix=float(cfg.algo.unimix),
+        decoupled=decoupled,
         **heads,
     )
-    actor = Actor(latent_dim, actions_dim, int(cfg.algo.actor.dense_units), int(cfg.algo.actor.mlp_layers), float(cfg.algo.unimix))
+    actor_cfg = cfg.algo.actor
+    actor = Actor(
+        latent_dim,
+        actions_dim,
+        int(actor_cfg.dense_units),
+        int(actor_cfg.mlp_layers),
+        float(cfg.algo.unimix),
+        is_continuous=is_continuous,
+        distribution=(cfg.get("distribution") or {}).get("type", "auto"),
+        init_std=float(actor_cfg.get("init_std", 2.0)),
+        min_std=float(actor_cfg.get("min_std", 0.1)),
+        max_std=float(actor_cfg.get("max_std", 1.0)),
+        action_clip=float(actor_cfg.get("action_clip", 1.0)),
+    )
     return world_model, actor, critic
 
 
@@ -465,7 +562,7 @@ def _init_weights(world_model: WorldModel, actor: Actor, critic: Optional[_Predi
             _hafner_init(m, generator)
         _uniform_output_init(world_model.transition_model.out, generator, 1.0)
         _uniform_output_init(world_model.representation_model.out, generator, 1.0)
-        for i in range(len(actor.actions_dim)):
+        for i in range(actor.n_heads):
             _uniform_output_init(getattr(actor, f"head_{i}"), generator, 1.0)
         if critic is None:
             return

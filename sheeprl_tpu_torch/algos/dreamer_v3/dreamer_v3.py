@@ -8,7 +8,10 @@ actor update through an H-step imagination on the freshly updated world
 model with ``Moments`` return normalisation, and the critic update against
 the lambda-returns and the target critic. Each loss is differentiated with
 respect to its own module's parameters only (``torch.autograd.grad``), as
-JAX's ``value_and_grad`` over one parameter subtree does.
+JAX's ``value_and_grad`` over one parameter subtree does. A discrete actor
+learns by REINFORCE on a graph-free imagination, a continuous one by
+backpropagating through it; with ``algo.world_model.decoupled_rssm`` every
+posterior comes from one pass over the observations.
 
 The JAX package's ``lax.scan``s are Python loops here; the GRU gate chain
 of every RSSM step and the two-hot heads run the hand-written CUDA kernels
@@ -59,6 +62,7 @@ import torch
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     Actor,
     WorldModel,
+    action_dims,
     actor_dists,
     actor_sample,
     build_training_agent,
@@ -126,21 +130,29 @@ def _uniform(shape, generator: Optional[torch.Generator], device) -> torch.Tenso
 
 
 def draw_noise(
-    cfg: Any, seq_len: int, batch: int, actions_dim: Sequence[int], generator: Optional[torch.Generator], device
+    cfg: Any, seq_len: int, batch: int, actions_dim: Sequence[int], generator: Optional[torch.Generator], device,
+    continuous: bool = False,
 ) -> Dict[str, Any]:
     """One gradient step's noise: ``posterior`` ``(T, B, S*D)`` for the
-    dynamic rollout's posterior draws, ``imagined_prior`` ``(H, T*B, S*D)``
-    for imagination's prior draws, and ``actions``, one ``(H+1, T*B, A_i)``
-    tensor per actor head (row 0 for the first imagined action)."""
+    dynamic rollout's posterior draws (with the decoupled RSSM, the one
+    pass's), ``imagined_prior`` ``(H, T*B, S*D)`` for imagination's prior
+    draws, and ``actions``, one ``(H+1, T*B, A_i)`` tensor of uniforms per
+    discrete actor head, or for a ``continuous`` actor one ``(H+1, T*B,
+    sum(actions_dim))`` tensor of standard normals (row 0 for the first
+    imagined action)."""
     wm_cfg = cfg.algo.world_model
     stoch = int(wm_cfg.stochastic_size) * int(wm_cfg.discrete_size)
     horizon = int(cfg.algo.horizon)
     rows = seq_len * batch
-    return {
+    noise = {
         "posterior": _uniform((seq_len, batch, stoch), generator, device),
         "imagined_prior": _uniform((horizon, rows, stoch), generator, device),
-        "actions": [_uniform((horizon + 1, rows, int(d)), generator, device) for d in actions_dim],
     }
+    if continuous:
+        noise["actions"] = [torch.randn((horizon + 1, rows, int(sum(actions_dim))), generator=generator, device=device)]
+    else:
+        noise["actions"] = [_uniform((horizon + 1, rows, int(d)), generator, device) for d in actions_dim]
+    return noise
 
 
 def make_optimizers(cfg: Any, world_model: WorldModel, actor: Actor, critic: torch.nn.Module) -> Dict[str, ClippedOptimizer]:
@@ -207,6 +219,7 @@ def make_train_step(
     tau = float(cfg.algo.critic.tau)
     moments_cfg = cfg.algo.actor.moments
     actions_dim = list(actor.actions_dim)
+    continuous = actor.is_continuous
     wm_params = list(world_model.parameters())
     actor_params = list(actor.parameters())
     critic_params = list(critic.parameters())
@@ -218,6 +231,67 @@ def make_train_step(
 
     def grouped(logits: torch.Tensor) -> torch.Tensor:
         return logits.reshape(*logits.shape[:-1], stochastic_size, discrete_size)
+
+    def imagine(posts, recs, true_continue, noise, moments_state):
+        """Imagination from every posterior of the rollout and the policy
+        loss. A discrete actor learns by REINFORCE: its imagined actions, the
+        advantage and the discount are all stop-gradient in the JAX loss, so
+        imagination and the value decode run without a graph and only the
+        log-probs and entropies of the actor's distributions carry one. A
+        continuous actor learns by dynamics backpropagation (``objective =
+        advantage``): imagination keeps a graph, so the gradient runs from
+        each rsampled action through the recurrent model (the GRU cell's
+        backward), the straight-through prior draws, and the reward and
+        critic heads' decode (its backward) into the lambda-returns. Either
+        way the actor reads its input detached and the discount and the
+        ``Moments`` quantiles are stop-gradient, as in the JAX loss. Returns
+        the trajectory and the lambda-returns detached for the critic."""
+        with torch.set_grad_enabled(continuous):
+            rows = posts.shape[0] * posts.shape[1]
+            prior = posts.detach().reshape(rows, stoch_state_size)
+            rec = recs.detach().reshape(rows, recurrent_state_size)
+            true_continue = true_continue.reshape(1, rows, 1)
+            latent = torch.cat([prior, rec], dim=-1)
+            heads = noise["actions"]
+            act = torch.cat(actor_sample(actor, latent, [u[0] for u in heads])[0], dim=-1)
+            trajectory, imagined = [latent], [act]
+            for h in range(horizon):
+                prior, rec = world_model.imagination(prior, rec, act, noise["imagined_prior"][h])
+                latent = torch.cat([prior, rec], dim=-1)
+                act = torch.cat(actor_sample(actor, latent.detach(), [u[h + 1] for u in heads])[0], dim=-1)
+                trajectory.append(latent)
+                imagined.append(act)
+            traj = torch.stack(trajectory, dim=0)  # (H+1, T*B, L)
+            values = TwoHotEncodingDistribution(critic(traj)).mean  # the critic before its update
+            rewards = TwoHotEncodingDistribution(world_model.reward_model(traj)).mean
+            with torch.no_grad():
+                continues = Independent(BernoulliSafeMode(world_model.continue_model(traj)), 1).mode
+                continues = torch.cat([true_continue, continues[1:]], dim=0)
+                discount = torch.cumprod(continues * gamma, dim=0) / gamma
+            lambda_values = compute_lambda_values(rewards[1:], values[1:], continues[1:] * gamma, lmbda)
+            moments_state, offset, invscale = moments_update(
+                moments_state,
+                lambda_values,
+                decay=float(moments_cfg.decay),
+                max_=float(moments_cfg.max),
+                percentile_low=float(moments_cfg.percentile.low),
+                percentile_high=float(moments_cfg.percentile.high),
+            )
+            advantage = (lambda_values - offset) / invscale - (values[:-1] - offset) / invscale
+
+        policies = actor_dists(actor, actor(traj.detach()))
+        if continuous:
+            objective = advantage
+        else:
+            act_parts = torch.split(torch.stack(imagined, dim=0), actions_dim, dim=-1)
+            logprob = torch.stack([p.log_prob(a)[..., None][:-1] for p, a in zip(policies, act_parts)], dim=-1).sum(-1)
+            objective = logprob * advantage
+        try:
+            entropy = ent_coef * torch.stack([p.entropy() for p in policies], dim=-1).sum(-1)
+        except NotImplementedError:  # TanhNormal, as the JAX loss does
+            entropy = torch.zeros(traj.shape[:-1], dtype=traj.dtype, device=traj.device)
+        policy_loss = -torch.mean(discount[:-1] * (objective + entropy[..., None][:-1]))
+        return moments_state, traj.detach(), lambda_values.detach(), discount, policy_loss
 
     def gradient_step(batch: Dict[str, torch.Tensor], moments_state, cum: "torch.Tensor | int",
                       noise: Dict[str, Any]):
@@ -243,15 +317,29 @@ def make_train_step(
         # -- world-model update
         embedded = world_model.encoder(batch_obs)
         rec = torch.zeros((B, recurrent_state_size), device=embedded.device)
-        post = torch.zeros((B, stoch_state_size), device=embedded.device)
         initial = world_model.get_initial_states(B)
-        steps = []
-        for t in range(T):
-            rec, post, post_logit, prior_logit = world_model.dynamic(
-                post, rec, batch_actions[t], embedded[t], is_first[t], noise["posterior"][t], initial
-            )
-            steps.append((rec, post, post_logit, prior_logit))
-        recs, posts, post_logits, prior_logits = (torch.stack(x, dim=0) for x in zip(*steps))
+        if world_model.decoupled:
+            # every posterior from the observations alone, in one pass; the
+            # recurrent rollout reads them shifted by one step
+            post_logits = world_model.representation(None, embedded)
+            posts = sample_stochastic(post_logits, world_model.discrete, noise["posterior"])
+            posts_prev = torch.cat([torch.zeros_like(posts[:1]), posts[:-1]], dim=0)
+            steps = []
+            for t in range(T):
+                rec, prior_logit = world_model.dynamic_decoupled(
+                    posts_prev[t], rec, batch_actions[t], is_first[t], initial
+                )
+                steps.append((rec, prior_logit))
+            recs, prior_logits = (torch.stack(x, dim=0) for x in zip(*steps))
+        else:
+            post = torch.zeros((B, stoch_state_size), device=embedded.device)
+            steps = []
+            for t in range(T):
+                rec, post, post_logit, prior_logit = world_model.dynamic(
+                    post, rec, batch_actions[t], embedded[t], is_first[t], noise["posterior"][t], initial
+                )
+                steps.append((rec, post, post_logit, prior_logit))
+            recs, posts, post_logits, prior_logits = (torch.stack(x, dim=0) for x in zip(*steps))
         latents = torch.cat([posts, recs], dim=-1)
         recon = world_model.decode(latents)
         po = {k: MSEDistribution(recon[k], dims=3) for k in cnn_dec}
@@ -276,48 +364,10 @@ def make_train_step(
         wm_grads = _grads(rec_loss, wm_params)
         optimizers["world"].step(wm_grads)
 
-        # -- behaviour learning on the updated world model. With a discrete
-        # actor nothing differentiable reaches the actor through imagination:
-        # the imagined actions, the advantage and the discount are all
-        # stop-gradient in the JAX loss, so imagination and the value decode
-        # run without a graph. Continuous actors will need it.
-        with torch.no_grad():
-            prior = posts.detach().reshape(T * B, stoch_state_size)
-            rec = recs.detach().reshape(T * B, recurrent_state_size)
-            true_continue = (1 - batch["terminated"]).reshape(1, T * B, 1)
-            latent = torch.cat([prior, rec], dim=-1)
-            heads = noise["actions"]
-            act = torch.cat(actor_sample(actor, latent, [u[0] for u in heads])[0], dim=-1)
-            trajectory, imagined = [latent], [act]
-            for h in range(horizon):
-                prior, rec = world_model.imagination(prior, rec, act, noise["imagined_prior"][h])
-                latent = torch.cat([prior, rec], dim=-1)
-                act = torch.cat(actor_sample(actor, latent, [u[h + 1] for u in heads])[0], dim=-1)
-                trajectory.append(latent)
-                imagined.append(act)
-            traj = torch.stack(trajectory, dim=0)  # (H+1, T*B, L)
-            imagined_actions = torch.stack(imagined, dim=0)
-            values = TwoHotEncodingDistribution(critic(traj)).mean  # the critic before its update
-            rewards = TwoHotEncodingDistribution(world_model.reward_model(traj)).mean
-            continues = Independent(BernoulliSafeMode(world_model.continue_model(traj)), 1).mode
-            continues = torch.cat([true_continue, continues[1:]], dim=0)
-            lambda_values = compute_lambda_values(rewards[1:], values[1:], continues[1:] * gamma, lmbda)
-            discount = torch.cumprod(continues * gamma, dim=0) / gamma
-            moments_state, offset, invscale = moments_update(
-                moments_state,
-                lambda_values,
-                decay=float(moments_cfg.decay),
-                max_=float(moments_cfg.max),
-                percentile_low=float(moments_cfg.percentile.low),
-                percentile_high=float(moments_cfg.percentile.high),
-            )
-            advantage = (lambda_values - offset) / invscale - (values[:-1] - offset) / invscale
-
-        policies = actor_dists(actor, actor(traj))
-        act_parts = torch.split(imagined_actions, actions_dim, dim=-1)
-        logprob = torch.stack([p.log_prob(a)[..., None][:-1] for p, a in zip(policies, act_parts)], dim=-1).sum(-1)
-        entropy = ent_coef * torch.stack([p.entropy() for p in policies], dim=-1).sum(-1)
-        policy_loss = -torch.mean(discount[:-1] * (logprob * advantage + entropy[..., None][:-1]))
+        # -- behaviour learning on the updated world model
+        moments_state, traj, lambda_values, discount, policy_loss = imagine(
+            posts, recs, 1 - batch["terminated"], noise, moments_state
+        )
         actor_grads = _grads(policy_loss, actor_params)
         optimizers["actor"].step(actor_grads)
 
@@ -357,7 +407,8 @@ def make_train_step(
             return (moments_state, cum + 1), metrics
 
         return build_burst_train_step(
-            carry_step, ring, lambda gen: draw_noise(cfg, seq_len, batch_size, actions_dim, gen, gen.device)
+            carry_step, ring,
+            lambda gen: draw_noise(cfg, seq_len, batch_size, actions_dim, gen, gen.device, continuous),
         )
 
     def train(
@@ -377,7 +428,7 @@ def make_train_step(
         for g in range(n_steps):
             step_noise = (
                 noise[g] if noise is not None
-                else draw_noise(cfg, T, B, actions_dim, generator, device)
+                else draw_noise(cfg, T, B, actions_dim, generator, device, continuous)
             )
             moments_state, m, ok = gradient_step({k: v[g] for k, v in data.items()}, moments_state, cum, step_noise)
             metrics.append(m)
@@ -392,9 +443,10 @@ def make_train_step(
 
 
 class Player:
-    """The env-side policy: per env the one-hot action carry, the recurrent
-    state and the posterior sample, advanced by the serving session step's
-    pieces (:func:`~sheeprl_tpu_torch.algos.dreamer_v3.evaluate.posterior_step`)
+    """The env-side policy: per env the action carry (one-hot per head, or
+    the continuous action), the recurrent state and the posterior sample,
+    advanced by the serving session step's pieces
+    (:func:`~sheeprl_tpu_torch.algos.dreamer_v3.evaluate.posterior_step`)
     with the posterior and the actions drawn from ``generator``."""
 
     def __init__(self, world_model: WorldModel, actor: Actor, num_envs: int, generator: torch.Generator) -> None:
@@ -420,14 +472,19 @@ class Player:
 
     @torch.no_grad()
     def get_actions(self, obs: Dict[str, torch.Tensor], greedy: bool = False) -> List[torch.Tensor]:
-        """One-hot actions per head: sampled, or with ``greedy`` the actor's
-        mode. The posterior is sampled in both modes, as the JAX player does."""
+        """One-hot actions per head, or the one continuous action tensor:
+        sampled, or with ``greedy`` the actor's mode. The posterior is
+        sampled in both modes, as the JAX player does."""
         wm, actor = self.agent.world_model, self.agent.actor
         device = self.actions.device
         rec, logits = posterior_step(self.agent, obs, self.actions, self.recurrent_state, self.stochastic_state)
         stoch = sample_stochastic(logits, wm.discrete, _uniform(logits.shape, self.generator, device))
-        uniforms = None if greedy else [_uniform((self.num_envs, d), self.generator, device) for d in actor.actions_dim]
-        acts, _ = actor_sample(actor, torch.cat([stoch, rec], dim=-1), uniforms, greedy)
+        noise = None
+        if not greedy and actor.is_continuous:
+            noise = [torch.randn((self.num_envs, sum(actor.actions_dim)), generator=self.generator, device=device)]
+        elif not greedy:
+            noise = [_uniform((self.num_envs, d), self.generator, device) for d in actor.actions_dim]
+        acts, _ = actor_sample(actor, torch.cat([stoch, rec], dim=-1), noise, greedy)
         self.actions = torch.cat(acts, dim=-1)
         self.recurrent_state, self.stochastic_state = rec, stoch
         return acts
@@ -464,7 +521,10 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     print(f"Log dir: {log_dir}", flush=True)
     envs = make_vector_env(cfg, seed)
     cfg["spaces"] = dotdict(envs.spaces)  # what serve reads off the run's config.json
-    actions_dim = tuple(int(d) for d in cfg.spaces.actions.n)
+    is_continuous, actions_dim = action_dims(cfg.spaces)
+    if is_continuous:
+        low = np.asarray(cfg.spaces.actions.low, np.float32)
+        high = np.asarray(cfg.spaces.actions.high, np.float32)
     logger.log_hyperparams(cfg)
     write_run_config(log_dir, plain(cfg))  # the run directory's config.json
     aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.get("aggregator"))
@@ -613,7 +673,11 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         t_env = time.perf_counter()
         # the player's forward is inside: the copy of its actions to the host waits for the card
         with timer("Time/env_interaction_time", SumMetric):
-            if iter_num <= learning_starts and state is None:
+            if iter_num <= learning_starts and state is None and is_continuous:
+                # uniform in the Box, as the JAX loop's action_space.sample() draws
+                actions = action_rng.uniform(low, high, size=(num_envs, len(low))).astype(np.float32)
+                real_actions = actions
+            elif iter_num <= learning_starts and state is None:
                 real_actions = action_rng.integers(0, actions_dim, size=(num_envs, len(actions_dim)))
                 actions = np.concatenate(
                     [np.eye(d, dtype=np.float32)[real_actions[:, i]] for i, d in enumerate(actions_dim)], axis=-1
@@ -623,7 +687,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 acts = player.get_actions({k: torch.from_numpy(v).to(device) for k, v in prepared.items()})
                 player_steps += 1
                 actions = torch.cat(acts, dim=-1).cpu().numpy()
-                real_actions = np.stack([a.argmax(dim=-1).cpu().numpy() for a in acts], axis=-1)
+                # a continuous action goes to the env as it is; a discrete head as its index
+                real_actions = actions if is_continuous else np.stack([a.argmax(dim=-1).cpu().numpy() for a in acts],
+                                                                      axis=-1)
 
             step_data["actions"] = actions.reshape(1, num_envs, -1)
             if resident:

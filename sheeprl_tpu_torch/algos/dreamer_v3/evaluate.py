@@ -2,7 +2,8 @@
 ``sheeprl_tpu/algos/dreamer_v3/evaluate.py``, ``evaluate_dreamer_v3`` and
 ``serve_policy_dreamer_v3``).
 
-Per-session state row: ``actions`` (the one-hot action carry), ``recurrent``
+Per-session state row: ``actions`` (the action carry: one-hot per discrete
+head, or the continuous action vector), ``recurrent``
 (the RSSM deterministic state), ``stochastic`` (the flattened posterior
 sample), and ``seed``/``counter`` in place of the JAX package's per-session
 key: every random draw of a session is a function of its seed, its step
@@ -24,7 +25,7 @@ from torch import nn
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import Actor, WorldModel, actor_sample, build_agent, sample_stochastic
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs, test
-from sheeprl_tpu_torch.ops import counter_uniform
+from sheeprl_tpu_torch.ops import counter_normal, counter_uniform
 from sheeprl_tpu_torch.serve.policy import StatefulServePolicy
 from sheeprl_tpu_torch.utils.registry import register_evaluation, register_policy_builder
 
@@ -38,7 +39,8 @@ __all__ = [
     "serve_policy_dreamer_v3",
 ]
 
-#: counter_uniform stream of the posterior draw; actor head ``i`` uses 1 + i
+#: counter_uniform stream of the posterior draw; discrete actor head ``i``
+#: uses 1 + i, a continuous actor's normals (``counter_normal``) stream 1
 POSTERIOR_STREAM = 0
 
 
@@ -75,14 +77,17 @@ def act(
     seed: Optional[torch.Tensor] = None,
     counter: Optional[torch.Tensor] = None,
 ) -> List[torch.Tensor]:
-    """One-hot actions per head from the latent ``[stochastic, recurrent]``;
-    sampled mode draws head ``i`` from stream ``1 + i`` of each row's
-    ``(seed, counter)``."""
+    """One-hot actions per head, or the one continuous action tensor, from
+    the latent ``[stochastic, recurrent]``; sampled mode draws discrete head
+    ``i`` from stream ``1 + i`` of each row's ``(seed, counter)``, a
+    continuous actor's standard normals from stream 1."""
     actor = agent.actor
-    uniforms = None
-    if not greedy:
-        uniforms = [counter_uniform(seed, counter, 1 + i, d) for i, d in enumerate(actor.actions_dim)]
-    actions, _ = actor_sample(actor, torch.cat([stochastic, recurrent], dim=-1), uniforms, greedy)
+    noise = None
+    if not greedy and actor.is_continuous:
+        noise = [counter_normal(seed, counter, 1, sum(actor.actions_dim))]
+    elif not greedy:
+        noise = [counter_uniform(seed, counter, 1 + i, d) for i, d in enumerate(actor.actions_dim)]
+    actions, _ = actor_sample(actor, torch.cat([stochastic, recurrent], dim=-1), noise, greedy)
     return actions
 
 
@@ -104,8 +109,9 @@ def session_step(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One step of every row: the posterior drawn from stream
     ``POSTERIOR_STREAM`` of the row's ``(seed, counter)``, then the actions.
-    Returns the env actions ``(B, heads)`` (each head's index) and the
-    advanced rows."""
+    Returns the env actions, ``(B, heads)`` (each head's index) or ``(B,
+    sum(actions_dim))`` (the continuous action as it is), and the advanced
+    rows."""
     wm = agent.world_model
     rec, logits = posterior_step(agent, obs, state["actions"], state["recurrent"], state["stochastic"])
     uniform = counter_uniform(state["seed"], state["counter"], POSTERIOR_STREAM, logits.shape[-1])
@@ -118,6 +124,8 @@ def session_step(
         "seed": state["seed"],
         "counter": state["counter"] + 1,
     }
+    if agent.actor.is_continuous:
+        return acts[0], new_state
     return torch.stack([a.argmax(dim=-1) for a in acts], dim=-1), new_state
 
 
@@ -163,7 +171,7 @@ def serve_policy_dreamer_v3(cfg: Any, state: Optional[Dict[str, Any]], device: t
         name=str(cfg.algo.name),
         params=params,
         obs_spec=obs_spec,
-        action_dim=len(actor.actions_dim),
+        action_dim=sum(actor.actions_dim) if actor.is_continuous else len(actor.actions_dim),
         step_fn=session_step,
         init_fn=lambda p, n: initial_state(p, n, seed),
         prepare=prepare,

@@ -4,7 +4,9 @@ one device).
 Each iteration, in the JAX package's order: one env step of ``num_envs``
 envs (uniform random actions until ``learning_starts``, then the actor's
 samples), the transition stored with the real final observation of a
-truncated env as its next observation, then the gradient steps the
+truncated env as its next observation (with ``buffer.sample_next_obs`` no
+next observation is stored: the host buffer reads it from the env's next
+row, as the JAX buffer does), then the gradient steps the
 ``Ratio`` grants. A gradient step is the critic's TD update, the target
 critics' EMA, the actor's update and the entropy coefficient's, each with
 its own Adam.
@@ -303,8 +305,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     mlp_keys = list(algo.mlp_keys.encoder)
     if not mlp_keys:
         raise RuntimeError("You should specify at least one MLP key for the encoder: `mlp_keys.encoder=[state]`")
-    if cfg.buffer.sample_next_obs:
-        raise NotImplementedError("buffer.sample_next_obs is not ported: the port stores every transition's next observation")
+    # the host buffer stores no next observation and reads it from the next row
+    sample_next_obs = bool(cfg.buffer.get("sample_next_obs", False))
     num_envs = int(cfg.env.num_envs)
     seed = int(cfg.seed)
 
@@ -341,6 +343,16 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     resident, reason = resolve_device_resident(
         cfg.buffer.device_resident, specs, buffer_size, num_envs, float(cfg.buffer.hbm_budget_gb), prioritized
     )
+    if resident and sample_next_obs:
+        # the ring holds every row's next observation; a uniform ring spills
+        # to the host buffer as the JAX loop does, a prioritized one raises as
+        # an over-budget prioritized ring does (the host tier has no PER)
+        if prioritized:
+            raise ValueError("buffer.sample_next_obs stores no next observation, which the prioritized device ring "
+                             "needs; turn one of buffer.sample_next_obs and buffer.priority.enabled off")
+        warnings.warn("buffer.sample_next_obs stores no explicit next observation; the device-resident ring needs "
+                      "one — falling back to the host buffer path.")
+        resident, reason = False, "buffer.sample_next_obs"
     log_level = int(cfg.metric.get("log_level", 1))
     if log_level > 0 and cfg.buffer.device_resident:
         print(f"Replay: device_resident={resident} ({reason})", flush=True)
@@ -465,9 +477,10 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             "truncated": np.asarray(truncated, dtype=np.uint8).reshape(1, num_envs, -1),
             "actions": actions.astype(np.float32).reshape(1, num_envs, -1),
             "observations": prepare_obs(obs, mlp_keys, num_envs).numpy()[np.newaxis],
-            "next_observations": prepare_obs(real_next_obs, mlp_keys, num_envs).numpy()[np.newaxis],
             "rewards": np.asarray(rewards, dtype=np.float32).reshape(1, num_envs, -1),
         }
+        if not sample_next_obs:
+            step_data["next_observations"] = prepare_obs(real_next_obs, mlp_keys, num_envs).numpy()[np.newaxis]
         if resident:
             drb.add(step_data)  # the device ring is the only storage tier
         else:
@@ -503,7 +516,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             granted = ratio(policy_step - prefill_steps + policy_steps_per_iter)
             if granted > 0:
                 with timer("Time/replay_path_time", SumMetric):
-                    data = _to_device(rb.sample(batch_size, granted), device)
+                    data = _to_device(rb.sample(batch_size, granted, sample_next_obs=sample_next_obs), device)
                 # as on the ring: the enqueue, and with the guard the device time
                 with timer("Time/train_time", SumMetric):
                     observe(train_fn(data, iter_num % ema_modulus == 0, generator=generator))

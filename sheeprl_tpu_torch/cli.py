@@ -2,7 +2,8 @@
 ``serve``, ``evaluation`` and ``agents`` verbs)::
 
     python -m sheeprl_tpu_torch run \\
-        preset=sac_per|sac|ppo|dreamer_v3_100k_atari_dummy|dreamer_v3_100k_atari_dummy_resident \\
+        preset=<configs/*.json: sac_per, sac, droq, sac_ae, ppo, a2c, ppo_recurrent, dreamer_v3_100k_atari_dummy,
+                dreamer_v3_100k_atari_dummy_resident, dreamer_v3_continuous_dummy> \\
         [fabric.accelerator=cuda|cpu] [algo.total_steps=...] [checkpoint.resume_from=<ckpt>|latest] ...
     python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> \\
         [fabric.accelerator=cuda|cpu] [serve.port=0] [serve.buckets=[1,8,32,128]] [serve.engine=aot|naive] \\
@@ -11,8 +12,8 @@
     python -m sheeprl_tpu_torch agents
 
 ``run`` trains from a preset (``configs/<name>.json``), or resuming, from the
-checkpoint's ``config.json``, with the algorithm ``algo.name`` names (SAC,
-PPO or DreamerV3); :data:`~sheeprl_tpu_torch.config.RUN_DEFAULTS`
+checkpoint's ``config.json``, with the algorithm ``algo.name`` names (a
+trainer of :data:`~sheeprl_tpu_torch.utils.registry.TRAINERS`); :data:`~sheeprl_tpu_torch.config.RUN_DEFAULTS`
 fill what it lacks and the ``key.path=value`` overrides win.
 Every run writes into a directory of its own,
 ``<log_root>/<algo.name>/<env.id>/<run_name>/version_N`` (``run_name`` is

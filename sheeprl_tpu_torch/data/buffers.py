@@ -169,22 +169,45 @@ class ReplayBuffer:
         self.set_head(state["pos"], state["full"])
         self._rng.bit_generator.state = state["rng"]
 
-    def sample(self, batch_size: int, n_samples: int = 1) -> Dict[str, np.ndarray]:
+    def sample(self, batch_size: int, n_samples: int = 1, sample_next_obs: bool = False) -> Dict[str, np.ndarray]:
         """Uniform ``(n_samples, batch_size, ...)`` transitions over the
         stored ``(row, env)`` grid, drawn as the JAX package's buffer draws
-        them with ``sample_next_obs=False`` (rows, then envs, from one
-        numpy generator): the next observations are stored, not shifted."""
+        them (rows, then envs, from one numpy generator).
+
+        With ``sample_next_obs`` no next observation is stored: each key of
+        ``obs_keys`` also comes back as ``next_<key>``, read from row ``(row
+        + 1) % buffer_size`` of the same env, so a pair may cross an episode
+        end, as the JAX buffer's does. The newest row has no successor yet
+        and is not drawn (on a full buffer, the row just before the write
+        head); fewer than two stored rows raise."""
         if batch_size <= 0 or n_samples <= 0:
             raise ValueError(f"need positive batch_size and n_samples (got {batch_size}, {n_samples})")
         if self.empty:
             raise ValueError("empty buffer: add() at least one transition before sampling")
-        rows = self._rng.integers(0, len(self) if self._full else self._pos, size=(batch_size * n_samples,), dtype=np.intp)
+        size = batch_size * n_samples
+        if self._full:
+            young_stop = self._pos - 1 if sample_next_obs else self._pos
+            old_stop = len(self) if young_stop >= 0 else len(self) + young_stop
+            eligible = np.array(list(range(0, young_stop)) + list(range(self._pos, old_stop)), dtype=np.intp)
+            rows = eligible[self._rng.integers(0, len(eligible), size=(size,), dtype=np.intp)]
+        else:
+            newest_allowed = self._pos - 1 if sample_next_obs else self._pos
+            if newest_allowed == 0:
+                raise RuntimeError(
+                    "sample_next_obs needs at least two stored transitions (the shifted-index pairing has nothing "
+                    "to pair with yet)"
+                )
+            rows = self._rng.integers(0, newest_allowed, size=(size,), dtype=np.intp)
         envs = self._rng.integers(0, self._n_envs, size=(len(rows),), dtype=np.intp)
         flat = rows * self._n_envs + envs
+        next_flat = ((rows + 1) % len(self)) * self._n_envs + envs
         out = {}
         for k, v in self._buf.items():
             v = np.asarray(_host(v))
-            out[k] = np.take(v.reshape(-1, *v.shape[2:]), flat, axis=0).reshape(n_samples, batch_size, *v.shape[2:])
+            v = v.reshape(-1, *v.shape[2:])
+            out[k] = np.take(v, flat, axis=0).reshape(n_samples, batch_size, *v.shape[1:])
+            if sample_next_obs and k in self._obs_keys:
+                out[f"next_{k}"] = np.take(v, next_flat, axis=0).reshape(n_samples, batch_size, *v.shape[1:])
         return out
 
     def to_numpy(self) -> Dict[str, np.ndarray]:

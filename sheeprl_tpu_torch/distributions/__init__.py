@@ -6,6 +6,7 @@ from sheeprl_tpu_torch.distributions.core import (
     OneHotCategorical,
     OneHotCategoricalStraightThrough,
     SymlogDistribution,
+    TanhNormal,
     TwoHotEncodingDistribution,
     kl_divergence,
 )
@@ -18,6 +19,7 @@ __all__ = [
     "OneHotCategorical",
     "OneHotCategoricalStraightThrough",
     "SymlogDistribution",
+    "TanhNormal",
     "TwoHotEncodingDistribution",
     "kl_divergence",
 ]

@@ -1,6 +1,7 @@
 """Distributions (counterpart of ``sheeprl_tpu/distributions/core.py``): the
 one-hot categoricals of the RSSM and the discrete actor, the diagonal
-``Normal`` of the continuous PPO-family actors, and DreamerV3's
+``Normal`` of the continuous PPO-family and DreamerV3 actors, the
+tanh-squashed ``TanhNormal`` of DreamerV3's ``tanh_normal`` actor, and DreamerV3's
 training heads (``TwoHotEncodingDistribution``, ``SymlogDistribution``,
 ``MSEDistribution``, ``BernoulliSafeMode``), with ``Independent`` and
 ``kl_divergence``.
@@ -30,6 +31,7 @@ __all__ = [
     "OneHotCategorical",
     "OneHotCategoricalStraightThrough",
     "Normal",
+    "TanhNormal",
     "Independent",
     "TwoHotEncodingDistribution",
     "SymlogDistribution",
@@ -130,6 +132,38 @@ class Normal:
         return self.rsample(generator, noise).detach()
 
 
+class TanhNormal:
+    """``tanh`` of a :class:`Normal` draw (the JAX package's ``TanhNormal``):
+    ``rsample`` squashes ``loc + scale * noise``, ``mode`` and ``mean`` are
+    ``tanh(loc)``, and ``log_prob`` carries the log-det-Jacobian of the
+    squash. It has no closed-form entropy: :meth:`entropy` raises, as the
+    JAX one does."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor) -> None:
+        self.base = Normal(loc, scale)
+
+    def rsample(self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return torch.tanh(self.base.rsample(generator, noise))
+
+    def sample(self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.rsample(generator, noise).detach()
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        value = torch.clamp(value, -1 + 1e-6, 1 - 1e-6)
+        return self.base.log_prob(torch.atanh(value)) - torch.log1p(-(value**2) + 1e-6)
+
+    def entropy(self) -> torch.Tensor:
+        raise NotImplementedError("a tanh-squashed Normal has no closed-form entropy")
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return torch.tanh(self.base.mean)
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return torch.tanh(self.base.mode)
+
+
 class Independent:
     """Sums log-probs and entropies over the rightmost ``ndims`` dims."""
 
@@ -156,6 +190,9 @@ class Independent:
 
     def sample(self, *args, **kwargs) -> torch.Tensor:
         return self.base.sample(*args, **kwargs)
+
+    def rsample(self, *args, **kwargs) -> torch.Tensor:
+        return self.base.rsample(*args, **kwargs)
 
 
 class _DistanceHead:

@@ -218,8 +218,11 @@ class ConvTranspose(nn.Module):
     """Transposed convolution with the JAX package's geometry (its
     ``_ConvTranspose``): flax's VALID transposed convolution, then
     ``padding`` trimmed from both sides of each spatial axis, which is
-    ``nn.ConvTranspose2d`` with the same kernel, stride and padding. NCHW in
-    and out; the layer sits under the flax name ``ConvTranspose_0``.
+    ``nn.ConvTranspose2d`` with the same kernel, stride and padding; then
+    ``output_padding`` rows and columns of ZEROS at the end of each spatial
+    axis, as the JAX layer pads them (``nn.ConvTranspose2d``'s own
+    ``output_padding`` would compute those rows and put the bias there).
+    NCHW in and out; the layer sits under the flax name ``ConvTranspose_0``.
 
     Flax applies its HWIO kernel to the dilated input unflipped, torch's
     ``(in, out, kh, kw)`` weight is applied flipped: a flax kernel carries
@@ -227,12 +230,17 @@ class ConvTranspose(nn.Module):
     (:mod:`sheeprl_tpu_torch.utils.convert`)."""
 
     def __init__(
-        self, in_channels: int, out_channels: int, kernel_size: int, stride: int, padding: int = 0, bias: bool = True
+        self, in_channels: int, out_channels: int, kernel_size: int, stride: int, padding: int = 0, bias: bool = True,
+        output_padding: int = 0,
     ) -> None:
         super().__init__()
         self.ConvTranspose_0 = nn.ConvTranspose2d(
             int(in_channels), int(out_channels), int(kernel_size), stride=int(stride), padding=int(padding), bias=bias
         )
+        self.output_padding = int(output_padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.ConvTranspose_0(x)
+        x = self.ConvTranspose_0(x)
+        if self.output_padding:
+            x = F.pad(x, (0, self.output_padding, 0, self.output_padding))
+        return x

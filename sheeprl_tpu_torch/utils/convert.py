@@ -38,6 +38,7 @@ __all__ = [
     "a2c_state_from_jax",
     "ppo_recurrent_state_from_jax",
     "sac_state_from_jax",
+    "sac_ae_state_from_jax",
     "sequence_ring_from_jax",
     "host_env_buffer_from_jax",
 ]
@@ -83,8 +84,10 @@ def dreamer_v3_state_from_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, 
     """``{"world_model", "actor", "critic", "target_critic"}`` as the JAX
     ``build_agent`` returns them (numpy trees; the critics may be absent) ->
     the port's checkpoint state, one ``state_dict`` per present key. The
-    whole world model crosses: encoder, RSSM, decoders, reward and continue
-    heads."""
+    whole world model crosses: encoder, RSSM (a decoupled representation
+    model's narrower input as it is), decoders, reward and continue heads;
+    the actor's heads, discrete or the continuous ``head_0`` of width ``2 *
+    sum(actions_dim)``, as any Dense."""
     wm = params["world_model"]
     world_model: Dict[str, torch.Tensor] = {}
     for name, tree in wm.items():
@@ -182,12 +185,35 @@ def _stacked(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
 def sac_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The JAX SAC tree ``{actor, critic, target_critic, log_alpha}`` (numpy
     leaves) -> the port's ``SACAgent`` ``state_dict``: the actor's Dense
-    kernels transposed; both critic ensembles' stacked leaves as they are."""
+    kernels transposed; both critic ensembles' stacked leaves as they are
+    (DroQ's tree too: its critics' stacked LayerNorm ``scale`` and ``bias``
+    cross as the stacked Dense leaves do)."""
     state = flax_to_state_dict(params["actor"], "actor.")
     for name in ("critic", "target_critic"):
         tree = params[name]
         state.update(_stacked(tree["params"] if set(tree) == {"params"} else tree, f"{name}."))
     state["log_alpha"] = torch.from_numpy(np.array(params["log_alpha"], dtype=np.float32).reshape(1))
+    return state
+
+#: the SAC-AE tree's batched Q ensembles (flax ``nn.vmap``), kept stacked
+SAC_AE_ENSEMBLES = ("qfs", "target_qfs")
+
+
+def sac_ae_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX SAC-AE tree ``{encoder, actor_enc_head, actor, qfs,
+    target_encoder, target_qfs, decoder, log_alpha}`` (numpy leaves) -> the
+    port's ``SACAEAgent`` ``state_dict``: convolution, Dense, LayerNorm and
+    transposed-convolution leaves as :func:`flax_to_state_dict` carries
+    them (the decoder's ``ConvTranspose_0`` kernels flipped), the two Q
+    ensembles' stacked leaves as they are."""
+    state: Dict[str, torch.Tensor] = {}
+    for name, tree in params.items():
+        if name == "log_alpha":
+            state[name] = torch.from_numpy(np.array(tree, dtype=np.float32).reshape(1))
+        elif name in SAC_AE_ENSEMBLES:
+            state.update(_stacked(tree["params"] if set(tree) == {"params"} else tree, f"{name}."))
+        elif tree:  # actor_enc_head is {} without pixel keys
+            state.update(flax_to_state_dict(tree, f"{name}."))
     return state
 
 

@@ -23,9 +23,11 @@ __all__ = [
 TRAINERS: Dict[str, str] = {
     "a2c": "sheeprl_tpu_torch.algos.a2c.a2c",
     "dreamer_v3": "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
+    "droq": "sheeprl_tpu_torch.algos.droq.droq",
     "ppo": "sheeprl_tpu_torch.algos.ppo.ppo",
     "ppo_recurrent": "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
     "sac": "sheeprl_tpu_torch.algos.sac.sac",
+    "sac_ae": "sheeprl_tpu_torch.algos.sac_ae.sac_ae",
 }
 
 policy_builder_registry: Dict[str, Callable] = {}
@@ -34,9 +36,11 @@ evaluation_registry: Dict[str, Callable] = {}
 _BUILTIN_MODULES = [
     "sheeprl_tpu_torch.algos.a2c.evaluate",
     "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
+    "sheeprl_tpu_torch.algos.droq.evaluate",
     "sheeprl_tpu_torch.algos.ppo.evaluate",
     "sheeprl_tpu_torch.algos.ppo_recurrent.evaluate",
     "sheeprl_tpu_torch.algos.sac.evaluate",
+    "sheeprl_tpu_torch.algos.sac_ae.evaluate",
 ]
 
 

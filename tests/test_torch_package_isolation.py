@@ -59,7 +59,10 @@ def test_torch_package_imports_with_jax_and_reference_blocked():
                  "utils.logger", "utils.metric", "utils.timer", "data.memmap", "fault.supervisor", "serve.weights",
                  "algos.a2c.a2c", "algos.a2c.agent", "algos.a2c.evaluate", "algos.a2c.utils",
                  "algos.ppo_recurrent.ppo_recurrent", "algos.ppo_recurrent.agent", "algos.ppo_recurrent.evaluate",
-                 "algos.ppo_recurrent.utils", "envs.dummy", "optim.builders", "distributions.core"):
+                 "algos.ppo_recurrent.utils", "envs.dummy", "optim.builders", "distributions.core",
+                 "algos.droq.agent", "algos.droq.droq", "algos.droq.evaluate", "algos.droq.utils",
+                 "algos.sac_ae.agent", "algos.sac_ae.sac_ae", "algos.sac_ae.evaluate", "algos.sac_ae.utils",
+                 "data.buffers", "models.blocks"):
         assert f"sheeprl_tpu_torch.{name}" in report["imported"]
 
 

@@ -136,12 +136,12 @@ def test_torch_ppo_loop_run_dispatches_on_the_algorithm(monkeypatch):
     monkeypatch.setattr(ppo_module, "main", lambda cfg, device: {"algo": cfg.algo.name, "device": str(device)})
     assert cli.run(["preset=dreamer_v3_100k_atari_dummy", "fabric.accelerator=cpu"]) == {"algo": "dreamer_v3", "device": "cpu"}
     assert cli.run(["preset=ppo", "fabric.accelerator=cpu"]) == {"algo": "ppo", "device": "cpu"}
-    for name in ("a2c", "ppo_recurrent"):  # trainers since slice 12
+    for name in ("a2c", "ppo_recurrent", "droq", "sac_ae"):  # trainers since slices 12 and 13
         module = importlib.import_module(f"sheeprl_tpu_torch.algos.{name}.{name}")
         monkeypatch.setattr(module, "main", lambda cfg, device: {"algo": cfg.algo.name, "device": str(device)})
         assert cli.run([f"preset={name}", "fabric.accelerator=cpu"]) == {"algo": name, "device": "cpu"}
-    with pytest.raises(NotImplementedError, match="droq"):
-        cli.run(["preset=ppo", "fabric.accelerator=cpu", "algo.name=droq"])
+    with pytest.raises(NotImplementedError, match="dreamer_v2"):
+        cli.run(["preset=ppo", "fabric.accelerator=cpu", "algo.name=dreamer_v2"])
 
 
 def test_torch_ppo_loop_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

@@ -194,7 +194,8 @@ def test_torch_sac_loop_run_dispatches_on_the_algorithm(monkeypatch):
 
 
 def test_torch_sac_loop_refuses_what_it_cannot_run(tmp_path):
-    with pytest.raises(NotImplementedError, match="sample_next_obs"):
-        _run("sac", tmp_path, "buffer.sample_next_obs=true")
+    # buffer.sample_next_obs runs on the host buffer; the prioritized ring needs stored next observations
+    with pytest.raises(ValueError, match="sample_next_obs"):
+        _run("sac_per", tmp_path, "buffer.sample_next_obs=true", "algo.total_steps=40")
     with pytest.raises(ValueError, match="continuous"):
         _run("sac", tmp_path, "env.id=CartPole-v1")
