@@ -207,6 +207,24 @@ result line):
    kernel;
 37. SAC with ``buffer.sample_next_obs``: a short host-buffer run, no next
    observation stored, no kernel.
+38. P2E exploration step: one Plan2Explore-DV3 exploration gradient step
+   (full width, B 4 x T 16, H 15, 8 ensemble members) on the card against
+   the CPU: the fifteen metrics (the intrinsic reward among them), the eight
+   optimizers' gradients, every module's parameters;
+39. P2E exploration run: ``run preset=p2e_dv3_exploration_atari_dummy`` on
+   1 env, ``learning_starts`` 128 and 6 gradient steps, each T + 2H
+   ``gru_gates_ln``, 7 fused two-hot losses and backwards and 8 decodes,
+   exactly; a resume from its buffer; ``evaluation`` equal to the run's test
+   episode; one full-recipe step profiled (host, device, operations, each
+   kernel's share and the ensembles');
+40. P2E finetuning: ``run preset=p2e_dv3_finetuning_atari_dummy`` from the
+   exploration's checkpoint and buffer, the player switched to the task
+   actor at the first granted step, DreamerV3's exact counts, and
+   ``evaluation``; the continuous DreamerV3 run (32) asserts its repaired
+   65-step episode (action repeat 2);
+41. classic control and dry runs: PPO for 8 iterations on Acrobot-v1 and on
+   MountainCar-v0 (``gae`` once per iteration) and their evaluations; one
+   ``dry_run=true`` per ported family at recipe width with its exact counts.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -4793,6 +4811,9 @@ def continuous_run_phase(workdir: str) -> dict:
                              f"{summary['resident']}, test {summary['test_steps']}")
     if not np.isfinite(np.asarray(summary["metrics"])).all() or not np.isfinite(summary["test_reward"]):
         raise AssertionError(f"continuous run: non-finite losses or test return {summary['metrics']}")
+    if summary["test_steps"] != CONTINUOUS_EPISODE_STEPS:
+        raise AssertionError(f"continuous test episode {summary['test_steps']} steps: the env with action repeat 2 "
+                             f"ends after {CONTINUOUS_EPISODE_STEPS}")
     _continuous_launches(summary, launches, T, H)
     out = {"gradient_steps": G, "policy_steps": summary["policy_steps"], "player_steps": summary["player_steps"],
            "test_steps": summary["test_steps"], "test_reward": summary["test_reward"], "launches": launches,
@@ -5159,6 +5180,393 @@ def sac_next_obs_phase(workdir: str) -> dict:
     return out
 
 
+# -- 38-41. Plan2Explore, the classic-control envs, dry runs ----------------------
+
+EXPLORE_PRESET = "p2e_dv3_exploration_atari_dummy"
+FINETUNE_PRESET = "p2e_dv3_finetuning_atari_dummy"
+# cuts of scale for the P2E runs: 1 env (the recipe's 4 would need 256 steps to
+# fill a 64-step window per env), learning_starts 128, 6 gradient steps
+EXPLORE_LEARNING_STARTS, EXPLORE_GRADIENT_STEPS, EXPLORE_RESUME_STEPS = 128, 6, 4
+# the finetuning run on the exploration's buffer: the first grant at step 8, then 1 a step
+FINETUNE_LEARNING_STARTS, FINETUNE_TOTAL_STEPS = 8, 12
+# the gradients of one exploration step, card against CPU, as CONTINUOUS_GRAD_RTOL
+EXPLORE_GRAD_RTOL = 2e-3
+# JAX make_env's episode of the continuous preset's env: the counter at 2 per
+# agent step (action repeat 2) ends on the step after 128 (tests/test_torch_action_repeat.py)
+CONTINUOUS_EPISODE_STEPS = 65
+CLASSIC_ENVS, CLASSIC_PPO_ITERATIONS = ("Acrobot-v1", "MountainCar-v0"), 8
+
+
+def _explore_launch_want(summary: dict, T: int, H: int) -> dict:
+    """One exploration gradient step: T + 2H ``gru_gates_ln`` (the dynamic
+    rollout, two imaginations), 7 fused two-hot losses and 7 backward
+    launches (the reward and two per critic update, three critics), 8
+    decodes (the two exploration critics' values and the reward in the
+    exploration imagination, the task's value and reward, the three critic
+    targets); one GRU step per player and test-episode step."""
+    G = summary["gradient_steps"]
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want.update({"two_hot_symlog_loss_lse": 7 * G, "two_hot_symlog_loss_lse_bwd": 7 * G,
+                 "two_hot_symexp_decode": 8 * G,
+                 "gru_gates": G * (T + 2 * H) + summary["player_steps"] + (summary["test_steps"] or 0)})
+    return want
+
+
+def _explore_cfg(extra=()):
+    cfg = apply_overrides(preset(EXPLORE_PRESET), list(extra))
+    cfg["spaces"] = {"obs": {"rgb": {"shape": [64, 64, 3], "dtype": "uint8"}}, "actions": {"n": [18], "continuous": False}}
+    return apply_overrides(cfg, [])
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def explore_step_phase() -> dict:
+    """One P2E-DV3 exploration gradient step (full width, B 4 x T 16, H 15,
+    8 ensemble members) on the card against the same step on the CPU, TF32
+    off: the same seeded weights, batch and injected noise. The fifteen
+    metrics (the intrinsic reward among them) within rtol 1e-4; each of the
+    eight optimizers' gradients (the world model, the ensembles, both
+    actors, the task critic and the two exploration critics; the targets
+    move by the EMA alone) within EXPLORE_GRAD_RTOL of its norm; every
+    module's parameters by train_step_phase's rule, the targets (a copy of
+    the critics before the step) exactly."""
+    from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as p2e
+    from sheeprl_tpu_torch.algos.p2e_dv3.agent import STATE_KEYS, build_agent as build_p2e_agent
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, B = 16, 4
+    cfg = _explore_cfg([f"algo.per_rank_sequence_length={T}", f"algo.per_rank_batch_size={B}"])
+    names = p2e.metric_names(p2e.critics_spec(cfg))
+    data = _batch(np.random.default_rng(4), T, B, 18)
+    noise = p2e.draw_noise(cfg, T, B, [18], torch.Generator().manual_seed(5), "cpu")
+    results = {}
+    for dev in ("cpu", "cuda"):
+        agent = build_p2e_agent(cfg, dev)
+        optimizers = p2e.make_optimizers(cfg, agent)
+        seen = {k: _capture_grads(opt) for k, opt in optimizers.items()}
+        train = p2e.make_train_step(agent, optimizers, cfg)
+        t0 = time.perf_counter()
+        _, metrics = train({k: v.to(dev) for k, v in data.items()}, p2e.initial_moments(agent, dev), 0,
+                           noise=[_to_device(noise, dev)])
+        metrics = metrics.cpu()
+        seconds = time.perf_counter() - t0
+        params = {k: {n: v.detach().cpu() for n, v in sd.items()} for k, sd in agent.state().items()}
+        results[dev] = (metrics[0], params, seconds, {k: v["grads"] for k, v in seen.items()})
+    card, cpu = results["cuda"], results["cpu"]
+    if not torch.isfinite(card[0]).all():
+        raise AssertionError(f"non-finite exploration losses on the card: {card[0].tolist()}")
+    torch.testing.assert_close(card[0], cpu[0], rtol=1e-4, atol=1e-5)
+    intrinsic = names.index("Rewards/intrinsic")
+    out = {"cpu_s": cpu[2], "cuda_s": card[2],
+           "loss_abs_err": dict(zip(names, (card[0] - cpu[0]).abs().tolist())),
+           "intrinsic_reward": {"card": float(card[0][intrinsic]), "cpu": float(cpu[0][intrinsic])}}
+    if not out["intrinsic_reward"]["card"] > 0:
+        raise AssertionError(f"the ensembles' disagreement is not positive: {out['intrinsic_reward']}")
+    for opt_name in card[3]:
+        err = _grad_rel_err(card[3][opt_name], cpu[3][opt_name])
+        out[f"{opt_name}_grad_rel_err"] = err
+        if err > EXPLORE_GRAD_RTOL:
+            raise AssertionError(f"exploration step: the {opt_name} gradient on the card is {err} of its norm from "
+                                 "the CPU's")
+    lrs = {"world_model": 1e-4, "ensembles": 1e-4, "actor_task": 8e-5, "actor_exploration": 8e-5, "critic_task": 8e-5,
+           "critics_exploration": 8e-5, "target_critic_task": 0.0}
+    for key in STATE_KEYS:
+        out[key] = _params_check(f"exploration {key}", card[1][key], cpu[1][key], lrs[key])
+    log("exploration step (card vs CPU): " + json.dumps(out))
+    return out
+
+
+def _ensembles_cost(agent, optimizer, T: int, B: int, H: int, gen) -> dict:
+    """The ensembles' work in one exploration gradient step at its shapes,
+    alone under ``torch.profiler``: their forward on the (T, B) latents and
+    actions, the MSE loss's backward and their Adam step, and the intrinsic
+    reward's forward over the (H + 1, T*B) imagined latents and actions."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _grads
+
+    ens = agent.ensembles
+    width, out_width = ens.model.dense_0.kernel.shape[1], ens.out.kernel.shape[2]
+    x = torch.randn((T, B, width), device="cuda", generator=gen)
+    target = torch.randn((T, B, out_width), device="cuda", generator=gen)
+    imagined = torch.randn((H + 1, T * B, width), device="cuda", generator=gen)
+    params = list(ens.parameters())
+
+    def work():
+        outs = ens(x)
+        loss = ((outs[:, :-1] - target[None, 1:]) ** 2).sum(-1).mean(dim=(1, 2)).sum()
+        optimizer.step(_grads(loss, params))
+        with torch.no_grad():
+            reward = ens(imagined).var(dim=0, unbiased=False).mean(-1, keepdim=True)
+        return reward
+
+    work()
+    torch.cuda.synchronize()
+    acts = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+        work()
+        torch.cuda.synchronize()
+    events = _device_kernels(prof)
+    return {"device_ms": sum(getattr(e, "self_device_time_total", 0.0) for e in events) / 1e3,
+            "device_ops": sum(e.count for e in events)}
+
+
+def _profile_explore_step(checkpoint: str) -> dict:
+    """One full-recipe exploration gradient step (B 16 x T 64, H 15, 8
+    members) from the run's checkpoint after two warm-up steps: host ms,
+    device ms and operations (``torch.profiler``), each kernel's share, and
+    the ensembles' share (:func:`_ensembles_cost` over the step's device
+    ms)."""
+    from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as p2e
+    from sheeprl_tpu_torch.algos.p2e_dv3.agent import build_agent as build_p2e_agent
+
+    cfg = load_config(find_run_config(checkpoint))
+    state = load_checkpoint(checkpoint)
+    agent = build_p2e_agent(cfg, "cuda", state)
+    optimizers = p2e.make_optimizers(cfg, agent)
+    train = p2e.make_train_step(agent, optimizers, cfg)
+    T, B, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size), int(cfg.algo.horizon)
+    data = {k: v.cuda() for k, v in _batch(np.random.default_rng(6), T, B, 18).items()}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    moments = p2e.initial_moments(agent, "cuda")
+    for _ in range(2):
+        moments = train(data, moments, 1, gen)[0]
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        moments = train(data, moments, 1, gen)[0]
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    acts = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+        moments = train(data, moments, 1, gen)[0]
+        torch.cuda.synchronize()
+    events = _device_kernels(prof)
+    device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    share = {}
+    for kernel, needle in (("two_hot", "two_hot_"), ("gru_gates", "gru_gates_")):
+        us = sum(getattr(e, "self_device_time_total", 0.0) for e in events if needle in e.key)
+        share[kernel] = {"device_ms": us / 1e3, "share": us / device_us if device_us > 0 else None,
+                         "ops": sum(e.count for e in events if needle in e.key)}
+    ensembles = _ensembles_cost(agent, optimizers["ensembles"], T, B, H, gen)
+    ensembles["share"] = ensembles["device_ms"] * 1e3 / device_us if device_us > 0 else None
+    top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:8]
+    return {
+        "host_ms": float(np.median(host) * 1e3),
+        "host_ms_all": [h * 1e3 for h in host],
+        "device_ms": device_us / 1e3 if device_us > 0 else None,
+        "device_busy_share": device_us / 1e3 / (np.median(host) * 1e3) if device_us > 0 else None,
+        "device_ops": sum(e.count for e in events),
+        "kernels": share,
+        "ensembles": ensembles,
+        "top": [{"name": e.key[:80], "device_ms": getattr(e, "self_device_time_total", 0.0) / 1e3, "count": e.count}
+                for e in top],
+    }
+
+
+def _evaluation_check(name: str, ckpt: str, summary: dict) -> dict:
+    """``evaluation`` of a P2E checkpoint on the card: the run's own test
+    episode (the task actor, sampled from the run's seed), one GRU step per
+    episode step and no other launch."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = cli.evaluation([f"checkpoint_path={ckpt}"])
+    launches = dict(kernels.LAUNCHES)
+    want = dict({k: 0 for k in kernels.LAUNCHES}, gru_gates=result["steps"])
+    if (result["reward"], result["steps"]) != (summary["test_reward"], summary["test_steps"]) or launches != want:
+        raise AssertionError(f"{name} evaluation {result} (launches {launches}) is not the run's test episode "
+                             f"({summary['test_reward']}, {summary['test_steps']} steps)")
+    return {"reward": result["reward"], "steps": result["steps"], "launches": launches,
+            "steps_per_s": result["steps"] / (time.perf_counter() - t0)}
+
+
+def explore_run_phase(workdir: str) -> dict:
+    """``run preset=p2e_dv3_exploration_atari_dummy`` on the card at the
+    recipe's widths (DreamerV3-S, B 16 x T 64, H 15, 8 ensemble members, the
+    100,000-row host buffer), on 1 env with ``learning_starts``
+    EXPLORE_LEARNING_STARTS and EXPLORE_GRADIENT_STEPS gradient steps: the
+    exact launch counts (:func:`_explore_launch_want`), the fifteen metrics
+    finite, the task actor's zero-shot test episode; a resume of
+    EXPLORE_RESUME_STEPS steps from the checkpoint's buffer with the path's
+    counts; ``evaluation`` of the checkpoint; one gradient step profiled."""
+    from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as p2e
+
+    total = EXPLORE_LEARNING_STARTS + EXPLORE_GRADIENT_STEPS - 1
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.run([f"preset={EXPLORE_PRESET}", "env.num_envs=1", f"algo.learning_starts={EXPLORE_LEARNING_STARTS}",
+                       f"algo.total_steps={total}", "checkpoint.every=0", "checkpoint.save_last=true",
+                       "metric.log_level=0", f"log_root={workdir}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    cfg = load_config(find_run_config(summary["checkpoint"]))
+    T, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.horizon)
+    G = summary["gradient_steps"]
+    if (G != EXPLORE_GRADIENT_STEPS or summary["device"].split(":")[0] != "cuda" or not summary["test_steps"]
+            or not np.isfinite(summary["test_reward"])):
+        raise AssertionError(f"exploration run: {G} gradient steps on {summary['device']}, test "
+                             f"{summary['test_steps']} steps, return {summary['test_reward']}")
+    if not np.isfinite(np.asarray(summary["metrics"])).all() or len(summary["metrics"]) != G:
+        raise AssertionError(f"exploration run: non-finite or missing metrics {summary['metrics']}")
+    want = _explore_launch_want(summary, T, H)
+    if launches != want:
+        raise AssertionError(f"exploration launches {launches} != {want} for {G} gradient steps")
+    names = p2e.metric_names(p2e.critics_spec(cfg))
+    out = {"gradient_steps": G, "policy_steps": summary["policy_steps"], "player_steps": summary["player_steps"],
+           "test_steps": summary["test_steps"], "test_reward": summary["test_reward"], "launches": launches,
+           "wall_s": wall, "host_ms_per_gradient_step": [s / g * 1e3 for s, g in summary["train_host_s"]],
+           "env_steps_per_s": summary["env_steps_per_s"],
+           "metrics": [dict(zip(names, row)) for row in summary["metrics"]], "checkpoint": summary["checkpoint"],
+           "checkpoint_bytes": os.path.getsize(summary["checkpoint"])}
+    log("exploration run: " + json.dumps({k: v for k, v in out.items() if k not in ("metrics", "checkpoint")}))
+    kernels.reset_launches()
+    resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
+                       "algo.learning_starts=2", f"algo.total_steps={summary['policy_steps'] + EXPLORE_RESUME_STEPS}",
+                       "checkpoint.save_last=false", "algo.run_test=false", f"log_root={_log_root(summary)}"])
+    resume_launches = dict(kernels.LAUNCHES)
+    if (resumed["start_iter"] != summary["policy_steps"] + 1 or resumed["gradient_steps"] == 0
+            or resume_launches != _explore_launch_want(resumed, T, H)
+            or not np.isfinite(np.asarray(resumed["metrics"])).all()):
+        raise AssertionError(f"exploration resume: start {resumed['start_iter']}, {resumed['gradient_steps']} "
+                             f"gradient steps, launches {resume_launches}")
+    out["resume"] = {"start_iter": resumed["start_iter"], "gradient_steps": resumed["gradient_steps"],
+                     "player_steps": resumed["player_steps"], "launches": resume_launches}
+    log("exploration resume: " + json.dumps(out["resume"]))
+    out["evaluation"] = _evaluation_check("exploration", summary["checkpoint"], summary)
+    log("exploration evaluation: " + json.dumps(out["evaluation"]))
+    out["profile"] = _profile_explore_step(summary["checkpoint"])
+    log("exploration gradient step profile: " + json.dumps(out["profile"]))
+    return out
+
+
+def finetune_phase(workdir: str, explore_ckpt: str) -> dict:
+    """``run preset=p2e_dv3_finetuning_atari_dummy
+    checkpoint.exploration_ckpt_path=<the exploration run's checkpoint>
+    buffer.load_from_exploration=true`` on the card: the exploration's
+    buffer and its 1 env, DreamerV3's gradient step from the first grant at
+    step FINETUNE_LEARNING_STARTS, the player switched from the exploration
+    actor to the task actor at that step, DreamerV3's exact launch counts
+    (one GRU step per player step from the first: no random prefill, as in
+    JAX); then ``evaluation`` of its checkpoint."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.run([f"preset={FINETUNE_PRESET}", f"checkpoint.exploration_ckpt_path={explore_ckpt}",
+                       "buffer.load_from_exploration=true", f"algo.learning_starts={FINETUNE_LEARNING_STARTS}",
+                       f"algo.total_steps={FINETUNE_TOTAL_STEPS}", "checkpoint.every=0", "checkpoint.save_last=true",
+                       "metric.log_level=0", f"log_root={workdir}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    cfg = load_config(find_run_config(summary["checkpoint"]))
+    T, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.horizon)
+    G = summary["gradient_steps"]
+    if (summary["switched_at"] != FINETUNE_LEARNING_STARTS or G != FINETUNE_TOTAL_STEPS - FINETUNE_LEARNING_STARTS + 1
+            or summary["player_steps"] != FINETUNE_TOTAL_STEPS or int(cfg.env.num_envs) != 1):
+        raise AssertionError(f"finetuning: switched at {summary['switched_at']}, {G} gradient steps, "
+                             f"{summary['player_steps']} player steps, {cfg.env.num_envs} envs")
+    want = _dreamer_launch_want(summary, T, H)
+    if launches != want or not np.isfinite(np.asarray(summary["metrics"])).all():
+        raise AssertionError(f"finetuning launches {launches} != {want}, or non-finite losses {summary['metrics']}")
+    rows = [env["pos"] for env in load_checkpoint(summary["checkpoint"])["rb"]["envs"]]
+    out = {"gradient_steps": G, "switched_at": summary["switched_at"], "player_steps": summary["player_steps"],
+           "test_steps": summary["test_steps"], "test_reward": summary["test_reward"], "launches": launches,
+           "wall_s": wall, "host_ms_per_gradient_step": [s / g * 1e3 for s, g in summary["train_host_s"]],
+           "buffer_rows": rows, "losses": [dict(zip(METRIC_NAMES, row)) for row in summary["metrics"]]}
+    log("finetuning run: " + json.dumps({k: v for k, v in out.items() if k != "losses"}))
+    out["evaluation"] = _evaluation_check("finetuning", summary["checkpoint"], summary)
+    log("finetuning evaluation: " + json.dumps(out["evaluation"]))
+    return out
+
+
+def classic_ppo_phase(workdir: str) -> dict:
+    """PPO at the recipe's widths (4 envs x 128 steps, 10 x 8 minibatches)
+    on Acrobot-v1 and on MountainCar-v0 through ``run``, CLASSIC_PPO_ITERATIONS
+    iterations each: ``gae`` exactly once per iteration and no other kernel,
+    every loss finite, every episode within the env's step limit; then
+    ``evaluation`` of each checkpoint, no kernel."""
+    out = {}
+    for env_id in CLASSIC_ENVS:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        summary = cli.run([f"preset={PPO_PRESET}", f"env.id={env_id}", "metric.log_level=0",
+                           f"algo.total_steps={CLASSIC_PPO_ITERATIONS * 4 * 128}", f"log_root={workdir}"])
+        launches = dict(kernels.LAUNCHES)
+        if summary["iterations"] != CLASSIC_PPO_ITERATIONS or summary["device"].split(":")[0] != "cuda":
+            raise AssertionError(f"{env_id} PPO: {summary['iterations']} iterations on {summary['device']}")
+        _ppo_launch_check(summary, launches)
+        limit = 500 if env_id == "Acrobot-v1" else 200
+        lengths = [ep_len for *_, ep_len in summary["episodes"]]
+        if not np.isfinite(np.asarray(summary["losses"])).all() or not lengths or max(lengths) > limit:
+            raise AssertionError(f"{env_id} PPO: losses {summary['losses'][-1]}, episode lengths {lengths[:8]}")
+        kernels.reset_launches()
+        result = cli.evaluation([f"checkpoint_path={summary['checkpoint']}"])
+        if any(kernels.LAUNCHES.values()) or not 0 < result["steps"] <= limit:
+            raise AssertionError(f"{env_id} evaluation {result}, launches {dict(kernels.LAUNCHES)}")
+        out[env_id] = {"iterations": summary["iterations"], "launches": launches, "episodes": len(lengths),
+                       "mean_return": float(np.mean([ret for _, _, ret, _ in summary["episodes"]])),
+                       "wall_s": time.perf_counter() - t0, "env_steps_per_s": summary["env_steps_per_s"],
+                       "evaluation": {"reward": result["reward"], "steps": result["steps"]}}
+        log(f"{env_id} PPO: " + json.dumps(out[env_id]))
+    return out
+
+
+def dry_run_phase(workdir: str) -> dict:
+    """``dry_run=true`` on the card at each family's recipe width, against
+    a ``total_steps`` and ``learning_starts`` it must ignore: one iteration,
+    the family's exact launch counts (``gae`` once for the PPO family; the
+    DreamerV3 and P2E counts at sequence length 1, which the 2-row dry-run
+    buffer holds, as the JAX package's dry-run tests set it; none for the SAC
+    family), finite losses; a finetuning dry run from the exploration's."""
+    from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration  # noqa: F401 - the TRAINERS entry
+
+    seq1 = ["algo.per_rank_sequence_length=1"]
+    families = {"ppo": (PPO_PRESET, [], 4 * 128), "a2c": ("a2c", [], 4 * 5),
+                "ppo_recurrent": ("ppo_recurrent", [], 16 * 512), "dreamer_v3": (RUN_PRESET, seq1, 1),
+                "sac": ("sac", [], 4), "droq": ("droq", [], 4), "sac_ae": ("sac_ae", ["buffer.memmap=false"], 4),
+                "p2e_dv3_exploration": (EXPLORE_PRESET, seq1, 4)}
+    common = ["dry_run=true", "algo.total_steps=1000000", "algo.learning_starts=500000", "checkpoint.every=0",
+              "checkpoint.save_last=true", "metric.log_level=0", f"log_root={workdir}"]
+    out = {}
+    for name, (preset_name, extra, steps) in families.items():
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        summary = cli.run([f"preset={preset_name}"] + common + extra)
+        launches = dict(kernels.LAUNCHES)
+        losses = summary.get("metrics") or summary.get("losses") or []
+        if summary["policy_steps"] != steps or not np.isfinite(np.asarray(losses, dtype=np.float64)).all():
+            raise AssertionError(f"{name} dry run: {summary['policy_steps']} policy steps (want {steps})")
+        if name in ("ppo", "a2c", "ppo_recurrent"):
+            want = dict({k: 0 for k in kernels.LAUNCHES}, gae=1)
+        elif name == "dreamer_v3":
+            want = _dreamer_launch_want(summary, 1, int(preset(RUN_PRESET).algo.horizon))
+        elif name == "p2e_dv3_exploration":
+            want = _explore_launch_want(summary, 1, int(preset(EXPLORE_PRESET).algo.horizon))
+        else:
+            want = {k: 0 for k in kernels.LAUNCHES}
+        if launches != want or (name not in ("ppo", "a2c", "ppo_recurrent") and not summary["gradient_steps"]):
+            raise AssertionError(f"{name} dry run: launches {launches} != {want}, "
+                                 f"{summary.get('gradient_steps')} gradient steps")
+        out[name] = {"policy_steps": summary["policy_steps"], "gradient_steps": summary.get("gradient_steps"),
+                     "launches": launches, "wall_s": time.perf_counter() - t0}
+        if name == "p2e_dv3_exploration":
+            explore_ckpt = summary["checkpoint"]
+    kernels.reset_launches()
+    summary = cli.run([f"preset={FINETUNE_PRESET}", f"checkpoint.exploration_ckpt_path={explore_ckpt}"] + common + seq1)
+    launches = dict(kernels.LAUNCHES)
+    want = _dreamer_launch_want(summary, 1, int(preset(EXPLORE_PRESET).algo.horizon))
+    if summary["policy_steps"] != 4 or summary["switched_at"] != 4 or launches != want:
+        raise AssertionError(f"finetuning dry run: {summary['policy_steps']} steps, switched at "
+                             f"{summary['switched_at']}, launches {launches} != {want}")
+    out["p2e_dv3_finetuning"] = {"policy_steps": 4, "gradient_steps": summary["gradient_steps"], "launches": launches}
+    log("dry runs: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
@@ -5230,6 +5638,13 @@ def main() -> int:
         droq = timed("droq", droq_phase, workdir)
         sac_ae = timed("sac_ae", sac_ae_phase, workdir)
         sac_next_obs = timed("sac_next_obs", sac_next_obs_phase, workdir)
+    explore_step = timed("explore_step", explore_step_phase)
+    with tempfile.TemporaryDirectory() as workdir:
+        explore = timed("explore_run", explore_run_phase, workdir)
+        finetune = timed("finetune", finetune_phase, workdir, explore["checkpoint"])
+    with tempfile.TemporaryDirectory() as workdir:
+        classic = timed("classic_ppo", classic_ppo_phase, workdir)
+        dry_runs = timed("dry_run", dry_run_phase, workdir)
     paths = {"run": run, "run_resume": run["resume"], "serve": serve, "evaluation": rssm_eval, "ppo_run": ppo_run,
              "ppo_serve": ppo_serve, "ppo_evaluation": ppo_eval, "sac_run": sac_run, "sac_serve": sac_serve,
              "sac_evaluation": sac_eval, "resident_run": resident_run, "resident_resume": resident_run["resume"],
@@ -5248,7 +5663,11 @@ def main() -> int:
              "dreamer_decoupled_ring_resume": continuous_ring["resume"], "droq_run": droq,
              "droq_resume": droq["resume"], "droq_evaluation": droq["evaluation"], "sac_ae_run": sac_ae,
              "sac_ae_resume": sac_ae["resume"], "sac_ae_evaluation": sac_ae["evaluation"],
-             "sac_next_obs_run": sac_next_obs}
+             "sac_next_obs_run": sac_next_obs, "explore_run": explore, "explore_resume": explore["resume"],
+             "explore_evaluation": explore["evaluation"], "finetune_run": finetune,
+             "finetune_evaluation": finetune["evaluation"],
+             **{f"ppo_{env_id}": run for env_id, run in classic.items()},
+             **{f"dry_run_{name}": run for name, run in dry_runs.items()}}
     rows = [gru] + two_hot + [gae_row, sumtree_row, scatter_row]
     for row in rows:
         row["launches_by_path"] = {name: path["launches"][row["name"]] for name, path in paths.items()}
@@ -5259,7 +5678,8 @@ def main() -> int:
     gru["launches_by_path"].update(run_test=run["test_steps"], run_resume_test=run["resume"]["test_steps"],
                                    resident_test=resident_run["test_steps"],
                                    resident_resume_test=resident_run["resume"]["test_steps"],
-                                   dreamer_continuous_test=continuous_run["test_steps"])
+                                   dreamer_continuous_test=continuous_run["test_steps"],
+                                   explore_test=explore["test_steps"], finetune_test=finetune["test_steps"])
     gru["eval_shape"]["floor_ms"] = floor
     for row in [gru] + two_hot:
         row["launches"] = run["launches"][row["name"]]
@@ -5282,7 +5702,9 @@ def main() -> int:
                       "ppo_recurrent_update": recurrent_update, "ppo_recurrent_serve": recurrent_serve,
                       "ppo_continuous": continuous, "continuous_step": continuous_step,
                       "continuous_run": continuous_run, "continuous_serve": continuous_serve,
-                      "continuous_ring": continuous_ring, "droq": droq, "sac_ae": sac_ae, "sac_next_obs": sac_next_obs}))
+                      "continuous_ring": continuous_ring, "droq": droq, "sac_ae": sac_ae, "sac_next_obs": sac_next_obs,
+                      "explore_step": explore_step, "explore_run": explore, "finetune": finetune,
+                      "classic_ppo": classic, "dry_runs": dry_runs}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

@@ -539,7 +539,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
 
     ckpt_dir = os.path.join(log_dir, "checkpoint")
     manager = CheckpointManager.from_config(cfg)
-    buffer_size = int(cfg.buffer.size) // num_envs
+    dry_run = bool(cfg.get("dry_run", False))
+    buffer_size = int(cfg.buffer.size) // num_envs if not dry_run else 2
     rb = EnvIndependentReplayBuffer(buffer_size, num_envs, obs_keys, memmap=bool(cfg.buffer.get("memmap", False)),
                                     memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"),
                                     memmap_mode=str(cfg.buffer.get("memmap_mode", "r+")))
@@ -551,8 +552,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     policy_step = int(state["iter_num"]) * num_envs if state is not None else 0
     last_checkpoint = int(state["last_checkpoint"]) if state is not None else 0
     last_log = int(state["last_log"]) if state is not None else 0
-    total_iters = int(cfg.algo.total_steps) // num_envs
-    learning_starts = int(cfg.algo.get("learning_starts", 0)) // num_envs
+    total_iters = int(cfg.algo.total_steps) // num_envs if not dry_run else 1
+    learning_starts = int(cfg.algo.get("learning_starts", 0)) // num_envs if not dry_run else 0
     prefill_steps = learning_starts - int(learning_starts > 0)
     if state is not None:
         cfg.algo["per_rank_batch_size"] = int(state["batch_size"])

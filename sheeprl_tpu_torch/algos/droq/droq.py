@@ -160,9 +160,10 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             opt.load_state_dict(state[name])
         algo["per_rank_batch_size"] = int(state["batch_size"])
     batch_size = int(algo.per_rank_batch_size)
+    dry_run = bool(cfg.get("dry_run", False))
     train_fn = make_train_step(agent, optimizers, cfg)
 
-    rb = ReplayBuffer(int(cfg.buffer.size) // num_envs, num_envs, ("observations",),
+    rb = ReplayBuffer(int(cfg.buffer.size) // num_envs if not dry_run else 1, num_envs, ("observations",),
                       memmap=bool(cfg.buffer.get("memmap", False)),
                       memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"),
                       memmap_mode=str(cfg.buffer.get("memmap_mode", "r+")))
@@ -174,8 +175,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     policy_step = int(state["iter_num"]) * num_envs if state is not None else 0
     last_log = int(state["last_log"]) if state is not None else 0
     last_checkpoint = int(state["last_checkpoint"]) if state is not None else 0
-    total_iters = int(algo.total_steps) // num_envs
-    learning_starts = int(algo.get("learning_starts", 0)) // num_envs
+    total_iters = int(algo.total_steps) // num_envs if not dry_run else 1
+    learning_starts = int(algo.get("learning_starts", 0)) // num_envs if not dry_run else 0
     prefill_steps = learning_starts - int(learning_starts > 0)
     if state is not None:
         learning_starts += start_iter

@@ -193,7 +193,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     last_checkpoint = int(state["last_checkpoint"]) if state is not None else 0
     train_step = int(state.get("train_step", 0)) if state is not None else 0
     last_train = int(state.get("last_train", 0)) if state is not None else 0
-    total_iters = int(algo.total_steps) // policy_steps_per_iter
+    total_iters = int(algo.total_steps) // policy_steps_per_iter if not bool(cfg.get("dry_run", False)) else 1
     log_level = int(cfg.metric.get("log_level", 1))
     log_every = int(cfg.metric.get("log_every", 5000))
     action_repeat = int(cfg.env.get("action_repeat", 1) or 1)

@@ -336,7 +336,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         algo["per_rank_batch_size"] = int(state["batch_size"])
     batch_size = int(algo.per_rank_batch_size)
 
-    buffer_size = int(cfg.buffer.size) // num_envs
+    dry_run = bool(cfg.get("dry_run", False))
+    buffer_size = int(cfg.buffer.size) // num_envs if not dry_run else 1
     specs = _ring_specs(obs_dim, act_dim)
     per_cfg = cfg.buffer.priority
     prioritized = bool(per_cfg.enabled)
@@ -376,8 +377,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     policy_step = int(state["iter_num"]) * num_envs if state is not None else 0
     last_log = int(state["last_log"]) if state is not None else 0
     last_checkpoint = int(state["last_checkpoint"]) if state is not None else 0
-    total_iters = int(algo.total_steps) // policy_steps_per_iter
-    learning_starts = int(algo.get("learning_starts", 0)) // policy_steps_per_iter
+    total_iters = int(algo.total_steps) // policy_steps_per_iter if not dry_run else 1
+    learning_starts = int(algo.get("learning_starts", 0)) // policy_steps_per_iter if not dry_run else 0
     prefill_steps = learning_starts - int(learning_starts > 0)
     if state is not None:
         learning_starts += start_iter

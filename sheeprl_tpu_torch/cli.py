@@ -3,8 +3,10 @@
 
     python -m sheeprl_tpu_torch run \\
         preset=<configs/*.json: sac_per, sac, droq, sac_ae, ppo, a2c, ppo_recurrent, dreamer_v3_100k_atari_dummy,
-                dreamer_v3_100k_atari_dummy_resident, dreamer_v3_continuous_dummy> \\
-        [fabric.accelerator=cuda|cpu] [algo.total_steps=...] [checkpoint.resume_from=<ckpt>|latest] ...
+                dreamer_v3_100k_atari_dummy_resident, dreamer_v3_continuous_dummy,
+                p2e_dv3_exploration_atari_dummy, p2e_dv3_finetuning_atari_dummy> \\
+        [fabric.accelerator=cuda|cpu] [algo.total_steps=...] [checkpoint.resume_from=<ckpt>|latest] \\
+        [checkpoint.exploration_ckpt_path=<ckpt>] [dry_run=true] ...
     python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> \\
         [fabric.accelerator=cuda|cpu] [serve.port=0] [serve.buckets=[1,8,32,128]] [serve.engine=aot|naive] \\
         [serve.session.buckets=[1,8,32]] [serve.watch=true] [serve.watch_poll_s=2.0] ...
@@ -23,7 +25,10 @@ config but its directory, ``checkpoint.resume_from`` and
 ``algo.learning_starts``, and writes into a new directory.
 ``checkpoint.resume_from=latest`` resumes from the newest complete
 checkpoint under ``<log_root>/<algo.name>/<env.id>`` (the preset's and the
-overrides' values), skipping torn saves. ``serve`` reads
+overrides' values), skipping torn saves. ``p2e_dv3_finetuning`` starts from
+``checkpoint.exploration_ckpt_path``: the exploration run must have the
+same ``env.id``, and its env keys :data:`EXPLORATION_ENV_KEYS` win.
+``dry_run=true`` runs one iteration with no warm-up. ``serve`` reads
 the run configuration beside the checkpoint under
 :data:`~sheeprl_tpu_torch.config.SERVE_DEFAULTS`: a PPO or SAC checkpoint
 serves stateless requests through the bucket engine, a DreamerV3 one
@@ -235,6 +240,31 @@ def configure_metrics(cfg: DotDict, aggregator_keys: Sequence[str]) -> None:
     MetricAggregator.disabled = log_level == 0 or not metrics_cfg
 
 
+#: the env keys a finetuning run takes from its exploration run (JAX ``cli.py``)
+EXPLORATION_ENV_KEYS = (
+    "frame_stack", "screen_size", "action_repeat", "grayscale", "clip_rewards", "frame_stack_dilation",
+    "max_episode_steps", "reward_as_observation",
+)
+
+
+def _exploration_handoff(cfg: DotDict) -> None:
+    """P2E finetuning: the exploration run's config (beside
+    ``checkpoint.exploration_ckpt_path``) must name the same env; its
+    :data:`EXPLORATION_ENV_KEYS` replace the run's."""
+    from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning import exploration_config
+
+    exploration_cfg = exploration_config(cfg)
+    if exploration_cfg.env.id != cfg.env.id:
+        raise ValueError(
+            "This experiment is run with a different environment from the one of the exploration you want to "
+            f"finetune. Got '{cfg.env.id}', but the environment used during exploration was "
+            f"{exploration_cfg.env.id}."
+        )
+    for k in EXPLORATION_ENV_KEYS:
+        if k in exploration_cfg.env:
+            cfg.env[k] = exploration_cfg.env[k]
+
+
 def run(args: Sequence[str]) -> dict:
     """Train; returns the run's summary (counters, metrics, checkpoint)."""
     from sheeprl_tpu_torch.fault.inject import arm_from_env
@@ -244,6 +274,8 @@ def run(args: Sequence[str]) -> dict:
     cfg = compose_run_config(args)
     if cfg.algo.name not in TRAINERS:
         raise NotImplementedError(f"training '{cfg.algo.name}' is not ported yet; {' and '.join(TRAINERS)} only")
+    if cfg.algo.name == "p2e_dv3_finetuning":
+        _exploration_handoff(cfg)
     device = resolve_device(cfg.fabric.get("accelerator"))
     _full_float32()
     module = TRAINERS[cfg.algo.name]

@@ -154,8 +154,23 @@ RUN_DEFAULTS: Dict[str, Any] = {
         "inject": {"nan_grads_at": []},
     },
     # configs/env/default.yaml: self-healing env workers (off at 0 attempts
-    # and no timeout)
-    "env": {"restart_attempts": 0, "restart_backoff": 0.5, "step_timeout": None},
+    # and no timeout), and the wrapper chain's keys (envs/vector.py:make_env);
+    # capture_video is off, as the port records no video
+    "env": {
+        "restart_attempts": 0,
+        "restart_backoff": 0.5,
+        "step_timeout": None,
+        "action_repeat": 1,
+        "mask_velocities": False,
+        "frame_stack": 1,
+        "frame_stack_dilation": 1,
+        "actions_as_observation": {"num_stack": -1, "noop": "You MUST define the NOOP", "dilation": 1},
+        "reward_as_observation": False,
+        "grayscale": False,
+        "capture_video": False,
+    },
+    # configs/config.yaml: one iteration, no warm-up and the loops' smallest buffers
+    "dry_run": False,
 }
 
 

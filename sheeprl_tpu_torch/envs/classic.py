@@ -1,7 +1,8 @@
-"""CartPole-v1 and Pendulum-v1 in numpy, without gymnasium (counterparts of
-what the JAX package builds with ``gymnasium.make`` through
-``sheeprl_tpu/envs/factory.py``, and of its pure-JAX twins
-``sheeprl_tpu/envs/jax_envs/{cartpole,pendulum}.py``).
+"""CartPole-v1, Pendulum-v1, Acrobot-v1 and MountainCar-v0 in numpy,
+without gymnasium (counterparts of what the JAX package builds with
+``gymnasium.make`` through ``sheeprl_tpu/envs/factory.py``, and of its
+pure-JAX twins ``sheeprl_tpu/envs/jax_envs/{cartpole,pendulum,acrobot,
+mountain_car}.py``).
 
 gymnasium's ``CartPoleEnv`` semantics, line for line: the same constants,
 Euler step and termination bounds, +1 reward per step, the reset draw
@@ -18,6 +19,21 @@ generator, the torque clipped to [-2, 2], reward ``-(angle_normalize(theta)^2
 + 0.1 theta_dot^2 + 0.001 u^2)`` with gymnasium's types, speed clipped to
 +-8, the float32 observation ``[cos theta, sin theta, theta_dot]``; it never
 terminates and is truncated after 200 steps.
+
+Acrobot-v1 follows gymnasium's ``AcrobotEnv``: the reset draw
+``U(-0.1, 0.1)^4`` cast to float32, then each step one RK4 stage over
+``[0, dt=0.2]`` of the "book" dynamics in float64, both angles wrapped to
+``[-pi, pi]`` and the velocities bounded at 4 pi and 9 pi; the float32
+observation ``[cos t1, sin t1, cos t2, sin t2, dt1, dt2]``; reward -1, 0 on
+the step that lifts the tip above the bar (``-cos t1 - cos(t1 + t2) > 1``,
+which terminates); truncated after 500 steps. Three actions: torque -1, 0, +1.
+
+MountainCar-v0 follows gymnasium's ``MountainCarEnv``: position drawn
+``U(-0.6, -0.4)`` with velocity 0 in float64, the velocity pushed by
+``(action - 1) * 0.001 - 0.0025 cos(3 position)`` and clipped to +-0.07,
+the position clipped to ``[-1.2, 0.6]`` (where the velocity stops if it
+points left), termination at ``position >= 0.5``, reward -1 every step,
+truncated after 200 steps; the float32 observation ``[position, velocity]``.
 """
 
 from __future__ import annotations
@@ -27,7 +43,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-__all__ = ["CartPoleEnv", "PendulumEnv"]
+__all__ = ["CartPoleEnv", "PendulumEnv", "AcrobotEnv", "MountainCarEnv", "CLASSIC_ENVS"]
 
 
 class CartPoleEnv:
@@ -151,3 +167,169 @@ class PendulumEnv:
 
 def _angle_normalize(x):
     return ((x + np.pi) % (2 * np.pi)) - np.pi
+
+
+def _wrap(x, m, M):
+    diff = M - m
+    while x > M:
+        x = x - diff
+    while x < m:
+        x = x + diff
+    return x
+
+
+def _bound(x, m, M):
+    return min(max(x, m), M)
+
+
+class AcrobotEnv:
+    dt = 0.2
+    LINK_LENGTH_1 = 1.0
+    LINK_LENGTH_2 = 1.0
+    LINK_MASS_1 = 1.0
+    LINK_MASS_2 = 1.0
+    LINK_COM_POS_1 = 0.5
+    LINK_COM_POS_2 = 0.5
+    LINK_MOI = 1.0
+    MAX_VEL_1 = 4 * np.pi
+    MAX_VEL_2 = 9 * np.pi
+    AVAIL_TORQUE = [-1.0, 0.0, +1]
+
+    def __init__(self, obs_key: str = "state", max_episode_steps: int = 500, seed: Optional[int] = None) -> None:
+        self.obs_key = str(obs_key)
+        self.max_episode_steps = int(max_episode_steps)
+        self._rng = np.random.default_rng(seed)
+        self.state: Optional[np.ndarray] = None
+        self._elapsed = 0
+
+    @property
+    def spaces(self) -> Dict[str, dict]:
+        """The run config's ``spaces`` block: three torques."""
+        return {"obs": {self.obs_key: {"shape": [6], "dtype": "float32"}}, "actions": {"n": [3], "continuous": False}}
+
+    def _observe(self) -> Dict[str, np.ndarray]:
+        s = self.state
+        return {self.obs_key: np.array([np.cos(s[0]), np.sin(s[0]), np.cos(s[1]), np.sin(s[1]), s[2], s[3]],
+                                       dtype=np.float32)}
+
+    def reset(self, seed: Optional[int] = None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self.state = self._rng.uniform(low=-0.1, high=0.1, size=(4,)).astype(np.float32)
+        self._elapsed = 0
+        return self._observe(), {}
+
+    def _dsdt(self, s_augmented):
+        m1, m2 = self.LINK_MASS_1, self.LINK_MASS_2
+        l1 = self.LINK_LENGTH_1
+        lc1, lc2 = self.LINK_COM_POS_1, self.LINK_COM_POS_2
+        I1 = I2 = self.LINK_MOI
+        g = 9.8
+        a = s_augmented[-1]
+        theta1, theta2, dtheta1, dtheta2 = s_augmented[:-1]
+        d1 = m1 * lc1**2 + m2 * (l1**2 + lc2**2 + 2 * l1 * lc2 * np.cos(theta2)) + I1 + I2
+        d2 = m2 * (lc2**2 + l1 * lc2 * np.cos(theta2)) + I2
+        phi2 = m2 * lc2 * g * np.cos(theta1 + theta2 - np.pi / 2.0)
+        phi1 = (
+            -m2 * l1 * lc2 * dtheta2**2 * np.sin(theta2)
+            - 2 * m2 * l1 * lc2 * dtheta2 * dtheta1 * np.sin(theta2)
+            + (m1 * lc1 + m2 * l1) * g * np.cos(theta1 - np.pi / 2)
+            + phi2
+        )
+        ddtheta2 = (a + d2 / d1 * phi1 - m2 * l1 * lc2 * dtheta1**2 * np.sin(theta2) - phi2) / (
+            m2 * lc2**2 + I2 - d2**2 / d1
+        )
+        ddtheta1 = -(d2 * ddtheta2 + phi1) / d1
+        return dtheta1, dtheta2, ddtheta1, ddtheta2, 0.0
+
+    def _rk4(self, y0: np.ndarray) -> np.ndarray:
+        """gymnasium's ``rk4`` over the one interval ``[0, dt]``."""
+        yout = np.zeros((2, len(y0)), np.float64)
+        yout[0] = y0
+        t = [0, self.dt]
+        dt = t[1] - t[0]
+        dt2 = dt / 2.0
+        y0 = yout[0]
+        k1 = np.asarray(self._dsdt(y0))
+        k2 = np.asarray(self._dsdt(y0 + dt2 * k1))
+        k3 = np.asarray(self._dsdt(y0 + dt2 * k2))
+        k4 = np.asarray(self._dsdt(y0 + dt * k3))
+        yout[1] = y0 + dt / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4)
+        return yout[-1][:4]
+
+    def step(self, action):
+        if self.state is None:
+            raise RuntimeError("call reset before step")
+        ns = self._rk4(np.append(self.state, self.AVAIL_TORQUE[int(action)]))
+        ns[0] = _wrap(ns[0], -np.pi, np.pi)
+        ns[1] = _wrap(ns[1], -np.pi, np.pi)
+        ns[2] = _bound(ns[2], -self.MAX_VEL_1, self.MAX_VEL_1)
+        ns[3] = _bound(ns[3], -self.MAX_VEL_2, self.MAX_VEL_2)
+        self.state = ns
+        terminated = bool(-np.cos(ns[0]) - np.cos(ns[1] + ns[0]) > 1.0)
+        self._elapsed += 1
+        truncated = self._elapsed >= self.max_episode_steps
+        return self._observe(), -1.0 if not terminated else 0.0, terminated, truncated, {}
+
+    def close(self) -> None:
+        pass
+
+
+class MountainCarEnv:
+    min_position = -1.2
+    max_position = 0.6
+    max_speed = 0.07
+    goal_position = 0.5
+    goal_velocity = 0
+    force = 0.001
+    gravity = 0.0025
+
+    def __init__(self, obs_key: str = "state", max_episode_steps: int = 200, seed: Optional[int] = None) -> None:
+        self.obs_key = str(obs_key)
+        self.max_episode_steps = int(max_episode_steps)
+        self._rng = np.random.default_rng(seed)
+        self.state = None
+        self._elapsed = 0
+
+    @property
+    def spaces(self) -> Dict[str, dict]:
+        """The run config's ``spaces`` block: push left, no push, push right."""
+        return {"obs": {self.obs_key: {"shape": [2], "dtype": "float32"}}, "actions": {"n": [3], "continuous": False}}
+
+    def _observe(self) -> Dict[str, np.ndarray]:
+        return {self.obs_key: np.array(self.state, dtype=np.float32)}
+
+    def reset(self, seed: Optional[int] = None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self.state = np.array([self._rng.uniform(low=-0.6, high=-0.4), 0])
+        self._elapsed = 0
+        return self._observe(), {}
+
+    def step(self, action):
+        if self.state is None:
+            raise RuntimeError("call reset before step")
+        position, velocity = self.state
+        velocity += (action - 1) * self.force + math.cos(3 * position) * (-self.gravity)
+        velocity = np.clip(velocity, -self.max_speed, self.max_speed)
+        position += velocity
+        position = np.clip(position, self.min_position, self.max_position)
+        if position == self.min_position and velocity < 0:
+            velocity = 0
+        terminated = bool(position >= self.goal_position and velocity >= self.goal_velocity)
+        self.state = (position, velocity)
+        self._elapsed += 1
+        truncated = self._elapsed >= self.max_episode_steps
+        return self._observe(), -1.0, terminated, truncated, {}
+
+    def close(self) -> None:
+        pass
+
+
+#: env id -> the classic-control env class, each observing one vector
+CLASSIC_ENVS = {
+    "CartPole-v1": CartPoleEnv,
+    "Pendulum-v1": PendulumEnv,
+    "Acrobot-v1": AcrobotEnv,
+    "MountainCar-v0": MountainCarEnv,
+}

@@ -18,8 +18,15 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from sheeprl_tpu_torch.envs.classic import CartPoleEnv, PendulumEnv
+from sheeprl_tpu_torch.envs.classic import CLASSIC_ENVS
 from sheeprl_tpu_torch.envs.dummy import COUNTER_ENVS, AtariProtocolDummyEnv
+from sheeprl_tpu_torch.envs.wrappers import (
+    ActionRepeat,
+    ActionsAsObservationWrapper,
+    FrameStack,
+    MaskVelocityWrapper,
+    RewardAsObservationWrapper,
+)
 
 __all__ = ["SyncVectorEnv", "make_env", "make_vector_env"]
 
@@ -100,12 +107,8 @@ class SyncVectorEnv:
             env.close()
 
 
-def make_env(cfg: Any, seed: int) -> Any:
-    """One env of the kind ``cfg.env.id`` names, seeded with ``seed``: the
-    Atari-protocol dummy, a step-counter dummy (``continuous_dummy``,
-    ``discrete_dummy``, ``multidiscrete_dummy``: keys ``rgb`` and
-    ``state``), or CartPole-v1 or Pendulum-v1 with its observation under the
-    first MLP encoder key."""
+def _base_env(cfg: Any, seed: int) -> Any:
+    """The env ``cfg.env.id`` names, before any wrapper."""
     env_cfg = cfg.env
     if env_cfg.id == "atari_protocol_dummy":
         wrapper = env_cfg.get("wrapper") or {}
@@ -117,23 +120,77 @@ def make_env(cfg: Any, seed: int) -> Any:
             seed=seed,
         )
     if env_cfg.id in COUNTER_ENVS:
-        keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
-        unknown = sorted(set(keys) - {"rgb", "state"})
-        if not keys or unknown:
-            raise ValueError(f"{env_cfg.id} observes 'rgb' and 'state'; the encoder keys {keys} do not fit")
         return COUNTER_ENVS[env_cfg.id](screen_size=int(env_cfg.screen_size))
-    classic = {"CartPole-v1": CartPoleEnv, "Pendulum-v1": PendulumEnv}
-    if env_cfg.id in classic:
+    if env_cfg.id in CLASSIC_ENVS:
         mlp_keys = list(cfg.algo.mlp_keys.encoder)
         if not mlp_keys or list(cfg.algo.cnn_keys.encoder):
             raise ValueError(
                 f"{env_cfg.id} gives one vector observation: set algo.mlp_keys.encoder=[state] and no cnn keys"
             )
-        return classic[env_cfg.id](obs_key=mlp_keys[0], seed=seed)
+        return CLASSIC_ENVS[env_cfg.id](obs_key=mlp_keys[0], seed=seed)
     raise NotImplementedError(
-        f"env '{env_cfg.id}' is not ported yet; atari_protocol_dummy, {', '.join(COUNTER_ENVS)}, CartPole-v1 and "
-        "Pendulum-v1 only"
+        f"env '{env_cfg.id}' is not ported yet; atari_protocol_dummy, {', '.join(COUNTER_ENVS)}, "
+        f"{', '.join(CLASSIC_ENVS)} only"
     )
+
+
+def make_env(cfg: Any, seed: int) -> Any:
+    """One env of the kind ``cfg.env.id`` names, seeded with ``seed``: the
+    Atari-protocol dummy, a step-counter dummy (``continuous_dummy``,
+    ``discrete_dummy``, ``multidiscrete_dummy``: keys ``rgb`` and
+    ``state``), or CartPole-v1, Pendulum-v1, Acrobot-v1 or MountainCar-v0
+    with its observation under the first MLP encoder key.
+
+    The JAX factory's wrappers follow in its order (``env.*`` keys, their
+    defaults in brackets): :class:`ActionRepeat` by ``action_repeat`` [1],
+    unless the env skips frames itself (the Atari-protocol dummy's
+    ``frame_skip``); :class:`MaskVelocityWrapper` with ``mask_velocities``
+    [false]; :class:`FrameStack` of the pixel keys with ``frame_stack`` [1]
+    > 1, every ``frame_stack_dilation`` [1] frames;
+    :class:`ActionsAsObservationWrapper` with
+    ``actions_as_observation.num_stack`` [-1] > 0;
+    :class:`RewardAsObservationWrapper` with ``reward_as_observation``
+    [false]. The vector env applies ``max_episode_steps``. The port's envs
+    give their frames in RGB at ``screen_size`` and record no video:
+    ``grayscale`` and ``capture_video`` raise."""
+    env_cfg = cfg.env
+    if env_cfg.get("capture_video", False):
+        raise ValueError("env.capture_video=true: the port records no video (it has no gymnasium RecordVideo)")
+    if env_cfg.get("grayscale", False):
+        raise NotImplementedError(f"env.grayscale=true: {env_cfg.id} gives RGB frames only in the port")
+    env = _base_env(cfg, seed)
+    cnn_enc = list(cfg.algo.cnn_keys.encoder or [])
+    mlp_enc = list(cfg.algo.mlp_keys.encoder or [])
+
+    action_repeat = int(env_cfg.get("action_repeat", 1) or 1)
+    if action_repeat > 1 and int(getattr(env, "frame_skip", 1) or 1) <= 1:
+        env = ActionRepeat(env, action_repeat)
+    if env_cfg.get("mask_velocities", False):
+        env = MaskVelocityWrapper(env, env_cfg.id, mlp_enc[0] if env_cfg.id in CLASSIC_ENVS else None)
+    if not cnn_enc + mlp_enc:
+        raise ValueError(
+            "`algo.cnn_keys.encoder` and `algo.mlp_keys.encoder` must be non-empty lists of strings, got: "
+            f"cnn={cnn_enc} mlp={mlp_enc}"
+        )
+    obs_spec = env.spaces["obs"]
+    if not set(obs_spec) & set(cnn_enc + mlp_enc):
+        raise ValueError(
+            f"The user specified keys `{mlp_enc + cnn_enc}` are not a subset of the environment "
+            f"`{list(obs_spec)}` observation keys."
+        )
+    cnn_keys = sorted(k for k in obs_spec if len(obs_spec[k]["shape"]) in (2, 3) and k in cnn_enc)
+    frame_stack = int(env_cfg.get("frame_stack", 1) or 1)
+    if cnn_keys and frame_stack > 1:
+        dilation = int(env_cfg.get("frame_stack_dilation", 1))
+        if dilation <= 0:
+            raise ValueError(f"The frame stack dilation argument must be greater than zero, got: {dilation}")
+        env = FrameStack(env, frame_stack, cnn_keys, dilation)
+    actions_obs = env_cfg.get("actions_as_observation") or {}
+    if int(actions_obs.get("num_stack", -1)) > 0:
+        env = ActionsAsObservationWrapper(env, **actions_obs)
+    if env_cfg.get("reward_as_observation", False):
+        env = RewardAsObservationWrapper(env)
+    return env
 
 
 def make_vector_env(cfg: Any, seed: int) -> SyncVectorEnv:

@@ -39,6 +39,7 @@ __all__ = [
     "ppo_recurrent_state_from_jax",
     "sac_state_from_jax",
     "sac_ae_state_from_jax",
+    "p2e_dv3_state_from_jax",
     "sequence_ring_from_jax",
     "host_env_buffer_from_jax",
 ]
@@ -194,6 +195,29 @@ def sac_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         state.update(_stacked(tree["params"] if set(tree) == {"params"} else tree, f"{name}."))
     state["log_alpha"] = torch.from_numpy(np.array(params["log_alpha"], dtype=np.float32).reshape(1))
     return state
+
+def p2e_dv3_state_from_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX P2E-DV3 tree ``{world_model, actor_task, critic_task,
+    target_critic_task, actor_exploration, critics_exploration: {name:
+    {module, target}}, ensembles}`` (numpy leaves) -> the port's checkpoint
+    entries (``sheeprl_tpu_torch.algos.p2e_dv3.agent.STATE_KEYS``): the world
+    model as :func:`dreamer_v3_state_from_jax` carries it, each actor and
+    critic as any flax tree, each exploration critic's pair under
+    ``<name>.module.`` and ``<name>.target.``, and the stacked ensemble tree
+    (its Dense kernels ``(n, in, out)`` and LayerNorm ``scale`` and ``bias``)
+    as it is."""
+    state = {"world_model": dreamer_v3_state_from_jax({"world_model": params["world_model"]})["world_model"]}
+    for name in ("actor_task", "critic_task", "target_critic_task", "actor_exploration"):
+        state[name] = flax_to_state_dict(params[name])
+    critics: Dict[str, torch.Tensor] = {}
+    for name, pair in params["critics_exploration"].items():
+        for role in ("module", "target"):
+            critics.update(flax_to_state_dict(pair[role], f"{name}.{role}."))
+    state["critics_exploration"] = critics
+    tree = params["ensembles"]
+    state["ensembles"] = _stacked(tree["params"] if set(tree) == {"params"} else tree, "")
+    return state
+
 
 #: the SAC-AE tree's batched Q ensembles (flax ``nn.vmap``), kept stacked
 SAC_AE_ENSEMBLES = ("qfs", "target_qfs")

@@ -24,6 +24,8 @@ TRAINERS: Dict[str, str] = {
     "a2c": "sheeprl_tpu_torch.algos.a2c.a2c",
     "dreamer_v3": "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
     "droq": "sheeprl_tpu_torch.algos.droq.droq",
+    "p2e_dv3_exploration": "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration",
+    "p2e_dv3_finetuning": "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning",
     "ppo": "sheeprl_tpu_torch.algos.ppo.ppo",
     "ppo_recurrent": "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
     "sac": "sheeprl_tpu_torch.algos.sac.sac",
@@ -37,6 +39,7 @@ _BUILTIN_MODULES = [
     "sheeprl_tpu_torch.algos.a2c.evaluate",
     "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
     "sheeprl_tpu_torch.algos.droq.evaluate",
+    "sheeprl_tpu_torch.algos.p2e_dv3.evaluate",
     "sheeprl_tpu_torch.algos.ppo.evaluate",
     "sheeprl_tpu_torch.algos.ppo_recurrent.evaluate",
     "sheeprl_tpu_torch.algos.sac.evaluate",

@@ -62,7 +62,9 @@ def test_torch_package_imports_with_jax_and_reference_blocked():
                  "algos.ppo_recurrent.utils", "envs.dummy", "optim.builders", "distributions.core",
                  "algos.droq.agent", "algos.droq.droq", "algos.droq.evaluate", "algos.droq.utils",
                  "algos.sac_ae.agent", "algos.sac_ae.sac_ae", "algos.sac_ae.evaluate", "algos.sac_ae.utils",
-                 "data.buffers", "models.blocks"):
+                 "data.buffers", "models.blocks", "envs.wrappers", "envs.classic", "algos.p2e_dv3.agent",
+                 "algos.p2e_dv3.p2e_dv3_exploration", "algos.p2e_dv3.p2e_dv3_finetuning", "algos.p2e_dv3.evaluate",
+                 "algos.p2e_dv3.utils"):
         assert f"sheeprl_tpu_torch.{name}" in report["imported"]
 
 
@@ -79,9 +81,10 @@ def _imports(path: Path):
 @pytest.mark.parametrize(
     "path",
     sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
-    # tests/conftest.py marks node ids that name "dreamer" as slow, which
-    # would leave the DreamerV3 modules out of the default run
-    ids=lambda p: p.relative_to(ROOT).as_posix().replace("dreamer_v3", "dv3"),
+    # tests/conftest.py marks node ids that name "dreamer", "p2e", "droq" or
+    # "sac_ae" as slow, which would leave those modules out of the default run
+    ids=lambda p: (p.relative_to(ROOT).as_posix().replace("dreamer_v3", "dv3").replace("p2e_", "explore_")
+                   .replace("droq", "q_dropout").replace("sac_ae", "pixel_ae")),
 )
 def test_torch_package_source_imports_nothing_forbidden(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]

@@ -31,6 +31,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.evaluate import initial_state, serve_pol
 from sheeprl_tpu_torch.config import load_config, preset
 from sheeprl_tpu_torch.serve.server import PolicyServer
 from sheeprl_tpu_torch.utils.checkpoint import find_run_config, load_checkpoint
+from tests.test_torch_action_repeat import jax_episode_length
 from tests.test_torch_sac_loop import _leaves
 from tests.test_torch_train_loop import TINY_RUN
 
@@ -108,7 +109,8 @@ def test_torch_rssm_continuous_loop_run_checkpoints_and_resumes(host_run):
     root, first = host_run
     assert first["device"] == "cpu" and first["policy_steps"] == 24 and not first["resident"]
     assert first["gradient_steps"] > 0 and np.isfinite(np.asarray(first["metrics"])).all()
-    assert first["test_steps"] == 129  # the counter env ends on the step after 128
+    # the counter env ends on the step after 128, reached at 2 per agent step (action repeat 2)
+    assert first["test_steps"] == jax_episode_length()
     state = load_checkpoint(first["checkpoint"])
     assert state["actor"]["head_0.weight"].shape[0] == 4  # mean and std of 2 actions
     resumed = cli.run([f"checkpoint.resume_from={first['checkpoint']}", "fabric.accelerator=cpu",
@@ -170,8 +172,9 @@ def test_torch_rssm_continuous_loop_evaluation_equals_the_greedy_test(host_run, 
     evaluated = cli.evaluation([f"checkpoint_path={first['checkpoint']}", "fabric.accelerator=cpu"])
     policy = serve_policy_dreamer_v3(cfg, load_checkpoint(first["checkpoint"]), "cpu")
     reward, frames, actions = _recorded_test(cfg, policy.params, True, monkeypatch)
-    assert evaluated["reward"] == reward and evaluated["steps"] == len(actions) == 129
-    assert actions.shape == (129, 2) and np.all(np.abs(actions) <= 1.0)
+    length = jax_episode_length()
+    assert evaluated["reward"] == reward and evaluated["steps"] == len(actions) == length
+    assert actions.shape == (length, 2) and np.all(np.abs(actions) <= 1.0)
 
 
 def test_torch_rssm_continuous_loop_served_session_replays_the_test_episode(host_run, monkeypatch):
