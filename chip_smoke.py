@@ -225,6 +225,29 @@ result line):
 41. classic control and dry runs: PPO for 8 iterations on Acrobot-v1 and on
    MountainCar-v0 (``gae`` once per iteration) and their evaluations; one
    ``dry_run=true`` per ported family at recipe width with its exact counts.
+42. Dreamer V2 step: one gradient step at the V2 recipe's widths (recurrent
+   600, dense 400 x 4, CNN multiplier 48; B 4 x T 16, H 15) on the card
+   against the CPU, for the discrete actor and for a ``trunc_normal`` actor
+   at ``objective_mix`` 0 (the gradient through the imagined RSSM steps):
+   the ten metrics, each AdamW's gradient and the parameters after it; the
+   card's AdamW fused and capturable (phase 3 also holds ``gru_gates_ln`` at
+   H 600 and 400, B 1, 16 and 800, and bf16 (800, 600), forward and gradient);
+43. Dreamer V2 run: ``run preset=dreamer_v2_atari_dummy`` (the sequential
+   buffer) on 1 env, ``learning_starts`` 128 and 6 gradient steps, T + H
+   ``gru_gates_ln`` a step and one per player and test step, exactly; a
+   resume from exactly the saved buffer and gradient-step count;
+   ``evaluation`` equal to the run's greedy test episode; one full-recipe
+   step profiled (host, device, operations, the GRU's and the convolutions'
+   shares);
+44. the episode buffer: ``run preset=dreamer_v2_ms_pacman_dummy``
+   (``prioritize_ends``, the continue head, B 32) past the first episode's
+   end, 3 gradient steps, and a resume whose ``EpisodeBuffer`` is the saved
+   one;
+45. Plan2Explore on Dreamer V2: ``run preset=p2e_dv2_exploration_atari_dummy``
+   (recurrent 400, 10 members) for 4 steps at T + 2H ``gru_gates_ln`` each,
+   one step profiled with the ensembles' share; the finetuning hand-off from
+   its checkpoint and buffer (the task actor from the first granted step, T
+   + H a step); ``evaluation`` of both checkpoints.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -276,6 +299,11 @@ GRU_OPS_PER_ELEMENT = 10  # 2 sigmoid + tanh + 7 multiply/add, counted as one op
 # normalise and scale, the bias's add
 GRU_LN_OPS_PER_ELEMENT = 8
 GRU_LN_EPS = 1e-3  # the RSSM cell's LayerNorm epsilon
+# the Dreamer V2 (H 600) and P2E-DV2 (H 400) cells: a player or test step, a
+# gradient step's dynamic rollout (B 16) and its imagination (T x B = 800);
+# 150 and 100 quads a row, not a multiple of 32, so the block's last warp
+# has idle lanes in both row sums
+GRU_V2_SHAPES = [(B, H, "float32") for H in (600, 400) for B in (1, 16, 800)] + [(800, 600, "bfloat16")]
 # the loss, per row: symlog (~10), the bracket's guess and two checks (~8),
 # the weights (~8) and the two-term dot (3); the decode, per logit: a max, a
 # subtraction, an exp, an add and a multiply-add
@@ -503,6 +531,7 @@ def gru_gates_phase(main_batch: int) -> dict:
             f"bound {max(bytes_ms, ops_ms) * 1e3:.3f} us")
     ln_shapes = [(1, 512, "float32"), (8, 512, "float32"), (16, 512, "float32"), (32, 512, "float32"),
                  (1024, 512, "float32"), (32, 512, "bfloat16"), (1024, 512, "bfloat16"), (1024, 4096, "float32")]
+    ln_shapes += GRU_V2_SHAPES
     ln_rows = []
     for B, H, dtype in ln_shapes:
         dt = getattr(torch, dtype)
@@ -549,6 +578,25 @@ def gru_gates_phase(main_batch: int) -> dict:
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
     grad_err = max(float((a - b).abs().max()) for a, b in zip(*grads))
     log(f"gru_gates_ln backward: max err {grad_err:.3g} against the plain chain")
+    # the Dreamer V2 family's widths: each f32 case's gradient against the plain chain's too
+    v2_rows = []
+    for B, H, dtype in GRU_V2_SHAPES:
+        row = next(r for r in ln_rows if r["shape"] == [B, 3 * H] and r["dtype"] == dtype)
+        if dtype == "float32":
+            arrays = _gru_ln_inputs(gen, B, H, torch.float32)
+            cot = torch.randn((B, H), generator=gen, device="cuda")
+            grads = []
+            for fn in (kernels.gru_gates_ln, kernels.gru_gates_ln_reference):
+                leaves = [t.clone().requires_grad_(True) for t in arrays]
+                fn(*leaves, GRU_LN_EPS).backward(cot)
+                grads.append([t.grad for t in leaves])
+            for a, b in zip(*grads):
+                torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+            row["grad_max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(*grads))
+        v2_rows.append(row)
+    log("gru_gates_ln at the Dreamer V2 (H 600) and P2E-DV2 (H 400) widths: " + json.dumps(
+        [{k: r.get(k) for k in ("shape", "dtype", "max_abs_err", "grad_max_abs_err", "ms", "pair_ms", "bound_ms")}
+         for r in v2_rows]))
     main = next(r for r in ln_rows if r["shape"] == [main_batch, 3 * 512] and r["dtype"] == "float32")
     # every evaluation and test-episode step: one row
     eval_shape = next(r for r in ln_rows if r["shape"] == [1, 3 * 512] and r["dtype"] == "float32")
@@ -573,6 +621,7 @@ def gru_gates_phase(main_batch: int) -> dict:
         "eval_shape": {k: eval_shape[k] for k in ("shape", "ms", "call_ms", "plain_ms", "pair_ms", "bound_ms",
                                                   "bound_by", "max_abs_err")},
         "gates_alone": {k: gates[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")},
+        "v2_shapes": v2_rows,
         "ln_shapes": ln_rows,
         "shapes": rows,
     }
@@ -5567,6 +5616,324 @@ def dry_run_phase(workdir: str) -> dict:
     return out
 
 
+# -- 42-45. Dreamer V2 and Plan2Explore on Dreamer V2 -----------------------------
+
+V2_PRESET = "dreamer_v2_atari_dummy"
+V2_EPISODE_PRESET = "dreamer_v2_ms_pacman_dummy"
+V2_EXPLORE_PRESET = "p2e_dv2_exploration_atari_dummy"
+V2_FINETUNE_PRESET = "p2e_dv2_finetuning_atari_dummy"
+# cuts of scale for the V2 runs: 1 env (the recipe's 4 would need 200 steps to
+# fill a 50-step window per env), learning_starts 128; the replay ratio of 0.2
+# then grants a gradient step every 5 env steps (the JAX loop's Ratio clamps
+# per_rank_pretrain_steps to the 1 step it first sees, so it grants none up front)
+V2_LEARNING_STARTS, V2_GRADIENT_STEPS, V2_RESUME_STEPS = 128, 6, 12
+# the episode buffer stores an episode at its end: seed 5's first ends at step
+# 366, and the ms_pacman recipe's ratio of 0.0625 grants a step every 16
+V2_EPISODE_LEARNING_STARTS, V2_EPISODE_GRADIENT_STEPS, V2_EPISODE_RESUME_STEPS = 368, 3, 32
+V2_EXPLORE_GRADIENT_STEPS, V2_FINETUNE_TOTAL_STEPS = 4, 23
+# gradients card against CPU: the discrete actor's as the DreamerV3 step's;
+# the trunc_normal actor's through 15 imagined RSSM steps as the continuous one's
+V2_GRAD_RTOL = 2e-3
+
+
+def _v2_launch_want(summary: dict, per_step: int) -> dict:
+    """``gru_gates_ln`` ``per_step`` times a gradient step (T + H for Dreamer
+    V2 and finetuning, T + 2H for a P2E-DV2 exploration step), once per
+    player and test-episode step; no other kernel (V2's heads are Normal)."""
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want["gru_gates"] = summary["gradient_steps"] * per_step + summary["player_steps"] + (summary["test_steps"] or 0)
+    return want
+
+
+def _v2_cfg(name: str, extra=(), continuous: bool = False):
+    cfg = apply_overrides(preset(name), list(extra))
+    actions = ({"shape": [CONTINUOUS_ACTIONS], "low": [-1.0] * CONTINUOUS_ACTIONS,
+                "high": [1.0] * CONTINUOUS_ACTIONS, "continuous": True} if continuous
+               else {"n": [18], "continuous": False})
+    cfg["spaces"] = {"obs": {"rgb": {"shape": [64, 64, 3], "dtype": "uint8"}}, "actions": actions}
+    return apply_overrides(cfg, [])
+
+
+def v2_step_phase() -> dict:
+    """One Dreamer V2 gradient step at the full recipe's widths (recurrent
+    600, dense 400 x 4, CNN multiplier 48; B 4 x T 16, H 15) on the card
+    against the same step on the CPU, TF32 off, from the same seeded weights,
+    batch and injected draws: the discrete actor at ``objective_mix`` 1 (the
+    recipe) and a ``trunc_normal`` actor at ``objective_mix`` 0 on the
+    continuous dummy env's 2 actions (its gradient through the imagined RSSM
+    steps, ``gru_gates_ln``'s plain backward chain). The ten metrics within
+    rtol 1e-4; each optimizer's gradient within V2_GRAD_RTOL of its norm; the
+    parameters after AdamW by train_step_phase's rule; the card's AdamW
+    fused and capturable."""
+    from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
+    from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent as build_v2_agent
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, B = 16, 4
+    out = {}
+    for kind, continuous, extra in (("discrete", False, []), ("trunc_normal", True, ["algo.actor.objective_mix=0.0"])):
+        cfg = _v2_cfg(V2_PRESET, [f"algo.per_rank_sequence_length={T}", f"algo.per_rank_batch_size={B}"] + extra,
+                      continuous)
+        data = (_continuous_batch if continuous else lambda r, t, b: _batch(r, t, b, 18))(np.random.default_rng(8), T, B)
+        results = {}
+        for dev in ("cpu", "cuda"):
+            modules = build_v2_agent(cfg, dev)
+            optimizers = dv2.make_optimizers(cfg, *modules[:3])
+            if dev == "cuda":
+                group = optimizers["world"].optimizer.param_groups[0]
+                if not (isinstance(optimizers["world"].optimizer, torch.optim.AdamW) and group["fused"]
+                        and group["capturable"] and group["weight_decay"] == 1e-6):
+                    raise AssertionError(f"the card's V2 optimizer is not a fused capturable AdamW: {group}")
+            if dev == "cpu":
+                noise = dv2.draw_noise(cfg, T, B, modules[1], torch.Generator().manual_seed(9), "cpu")
+            seen = {k: _capture_grads(opt) for k, opt in optimizers.items()}
+            train = dv2.make_train_step(*modules, optimizers, cfg)
+            t0 = time.perf_counter()
+            metrics = train({k: v.to(dev) for k, v in data.items()}, 0, noise=[_to_device(noise, dev)]).cpu()
+            seconds = time.perf_counter() - t0
+            params = {name: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+                      for name, m in zip(("world_model", "actor", "critic", "target_critic"), modules)}
+            results[dev] = (metrics[0], params, seconds, {k: v["grads"] for k, v in seen.items()})
+        card, cpu = results["cuda"], results["cpu"]
+        if not torch.isfinite(card[0]).all():
+            raise AssertionError(f"V2 {kind} step: non-finite losses on the card: {card[0].tolist()}")
+        torch.testing.assert_close(card[0], cpu[0], rtol=1e-4, atol=1e-5)
+        row = {"cpu_s": cpu[2], "cuda_s": card[2],
+               "loss_abs_err": dict(zip(METRIC_NAMES, (card[0] - cpu[0]).abs().tolist()))}
+        for name in card[3]:
+            err = _grad_rel_err(card[3][name], cpu[3][name])
+            row[f"{name}_grad_rel_err"] = err
+            if err > V2_GRAD_RTOL:
+                raise AssertionError(f"V2 {kind} step: the {name} gradient on the card is {err} of its norm from the CPU's")
+        lrs = {"world_model": 3e-4, "actor": 8e-5, "critic": 8e-5, "target_critic": 0.0}
+        for name in lrs:
+            row[name] = _params_check(f"V2 {kind} {name}", card[1][name], cpu[1][name], lrs[name])
+        out[kind] = row
+        log(f"V2 {kind} step (card vs CPU): " + json.dumps(row))
+    return out
+
+
+def _profile_v2_step(checkpoint: str, explore: bool = False) -> dict:
+    """One full-recipe gradient step (B 16 x T 50, H 15) from a run's
+    checkpoint after two warm-up steps: host ms, device ms and operations
+    (``torch.profiler``), ``gru_gates_ln``'s share, the top kernels and, for
+    a P2E-DV2 exploration step, the ensembles' share (:func:`_ensembles_cost`
+    over the step's device ms)."""
+    from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
+    from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent as build_v2_agent
+    from sheeprl_tpu_torch.algos.p2e_dv2 import p2e_dv2_exploration as p2e
+    from sheeprl_tpu_torch.algos.p2e_dv2.agent import build_agent as build_p2e_agent
+
+    cfg = load_config(find_run_config(checkpoint))
+    state = load_checkpoint(checkpoint)
+    if explore:
+        agent = build_p2e_agent(cfg, "cuda", state)
+        optimizers = p2e.make_optimizers(cfg, agent)
+        train = p2e.make_train_step(agent, optimizers, cfg)
+    else:
+        modules = build_v2_agent(cfg, "cuda", state)
+        optimizers = dv2.make_optimizers(cfg, *modules[:3])
+        train = dv2.make_train_step(*modules, optimizers, cfg)
+    T, B, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size), int(cfg.algo.horizon)
+    data = {k: v.cuda() for k, v in _batch(np.random.default_rng(6), T, B, 18).items()}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for _ in range(2):
+        train(data, 1, gen)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        train(data, 1, gen)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    acts = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA], record_shapes=True) as prof:
+        train(data, 1, gen)
+        torch.cuda.synchronize()
+    events = _device_kernels(prof)
+    device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    forward_ln, backward_ln = _gru_layer_norms(prof, 3 * int(cfg.algo.world_model.recurrent_model.recurrent_state_size))
+    if forward_ln:
+        raise AssertionError(f"{forward_ln} LayerNorms of the GRU projection remain in a V2 step's forward")
+    gru_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events if "gru_gates_" in e.key)
+    conv_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events
+                  if any(w in e.key.lower() for w in ("conv", "wgrad", "dgrad", "fprop", "implicit")))
+    out = {
+        "host_ms": float(np.median(host) * 1e3),
+        "host_ms_all": [h * 1e3 for h in host],
+        "device_ms": device_us / 1e3 if device_us > 0 else None,
+        "device_busy_share": device_us / 1e3 / (np.median(host) * 1e3) if device_us > 0 else None,
+        "device_ops": sum(e.count for e in events),
+        "gru_layer_norms": {"forward": forward_ln, "backward": backward_ln},
+        "gru_gates": {"device_ms": gru_us / 1e3, "share": gru_us / device_us if device_us > 0 else None,
+                      "ops": sum(e.count for e in events if "gru_gates_" in e.key)},
+        "convolution_share": conv_us / device_us if device_us > 0 else None,
+        "top": [{"name": e.key[:80], "device_ms": getattr(e, "self_device_time_total", 0.0) / 1e3, "count": e.count}
+                for e in sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:8]],
+    }
+    if explore:
+        ensembles = _ensembles_cost(agent, optimizers["ensembles"], T, B, H, gen)
+        ensembles["share"] = ensembles["device_ms"] * 1e3 / device_us if device_us > 0 else None
+        out["ensembles"] = ensembles
+    return out
+
+
+def _v2_run(args, per_step: int, name: str) -> tuple:
+    """``cli.run(args)`` with the counts zeroed just before and checked just
+    after (:func:`_v2_launch_want`); finite metrics, on the card."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.run(args)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if summary["device"].split(":")[0] != "cuda" or not np.isfinite(np.asarray(summary["metrics"])).all():
+        raise AssertionError(f"{name}: on {summary['device']}, metrics {summary['metrics'][:2]}")
+    want = _v2_launch_want(summary, per_step)
+    if launches != want:
+        raise AssertionError(f"{name} launches {launches} != {want} ({summary['gradient_steps']} gradient steps)")
+    return summary, launches, wall
+
+
+def _v2_resume_check(name: str, summary: dict, resumed: dict) -> dict:
+    """A resume starts where its checkpoint ended, from exactly its buffer
+    (``buffer_digest``: rows, per-key sums, heads, generators) and its
+    gradient-step count, and trains."""
+    from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import buffer_digest
+
+    saved = load_checkpoint(summary["checkpoint"])
+    if (resumed["start_iter"] != summary["policy_steps"] + 1 or resumed["restored_buffer"] != buffer_digest(saved["rb"])
+            or resumed["cum_restored"] != saved["cum"] or resumed["gradient_steps"] == 0):
+        raise AssertionError(f"{name} resume: start {resumed['start_iter']}, restored {resumed['restored_buffer']} "
+                             f"cum {resumed['cum_restored']} (saved {saved['cum']}), {resumed['gradient_steps']} steps")
+    return {"start_iter": resumed["start_iter"], "gradient_steps": resumed["gradient_steps"],
+            "restored_rows": resumed["restored_buffer"]["rows"], "cum_restored": resumed["cum_restored"]}
+
+
+def _v2_summary(summary: dict, launches: dict, wall: float) -> dict:
+    return {"gradient_steps": summary["gradient_steps"], "policy_steps": summary["policy_steps"],
+            "player_steps": summary["player_steps"], "test_steps": summary["test_steps"],
+            "test_reward": summary["test_reward"], "launches": launches, "wall_s": wall,
+            "host_ms_per_gradient_step": [s / g * 1e3 for s, g in summary["train_host_s"]],
+            "env_steps_per_s": summary["env_steps_per_s"], "checkpoint": summary["checkpoint"],
+            "checkpoint_bytes": os.path.getsize(summary["checkpoint"])}
+
+
+def v2_run_phase(workdir: str) -> dict:
+    """``run preset=dreamer_v2_atari_dummy`` on the card at the recipe's
+    widths (B 16 x T 50, H 15, the 100,000-row sequential buffer), on 1 env
+    with ``learning_starts`` V2_LEARNING_STARTS and V2_GRADIENT_STEPS
+    gradient steps: exact ``gru_gates_ln`` counts (T + H a gradient step, 1 a
+    player or test-episode step), the greedy test episode; a resume of
+    V2_RESUME_STEPS steps from exactly the saved buffer and gradient-step
+    count; ``evaluation`` of the checkpoint equal to the run's test episode;
+    one gradient step profiled."""
+    total = V2_LEARNING_STARTS + 5 * V2_GRADIENT_STEPS
+    cfg = preset(V2_PRESET)
+    T, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.horizon)
+    summary, launches, wall = _v2_run(
+        [f"preset={V2_PRESET}", "env.num_envs=1", f"algo.learning_starts={V2_LEARNING_STARTS}",
+         f"algo.total_steps={total}", "checkpoint.every=0", "checkpoint.save_last=true", "metric.log_level=0",
+         f"log_root={workdir}"], T + H, "V2 run")
+    if summary["gradient_steps"] != V2_GRADIENT_STEPS or not summary["test_steps"]:
+        raise AssertionError(f"V2 run: {summary['gradient_steps']} gradient steps, test {summary['test_steps']}")
+    out = _v2_summary(summary, launches, wall)
+    out["losses"] = [dict(zip(METRIC_NAMES, row)) for row in summary["metrics"]]
+    log("V2 run: " + json.dumps({k: v for k, v in out.items() if k not in ("losses", "checkpoint")}))
+    resumed, resume_launches, _ = _v2_run(
+        [f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0", "algo.learning_starts=2",
+         f"algo.total_steps={total + V2_RESUME_STEPS}", "checkpoint.save_last=false", "algo.run_test=false",
+         f"log_root={_log_root(summary)}"], T + H, "V2 resume")
+    out["resume"] = dict(_v2_resume_check("V2", summary, resumed), launches=resume_launches,
+                         player_steps=resumed["player_steps"])
+    log("V2 resume: " + json.dumps(out["resume"]))
+    out["evaluation"] = _evaluation_check("V2", summary["checkpoint"], summary)
+    log("V2 evaluation: " + json.dumps(out["evaluation"]))
+    out["profile"] = _profile_v2_step(summary["checkpoint"])
+    log("V2 gradient step profile: " + json.dumps(out["profile"]))
+    return out
+
+
+def v2_episode_phase(workdir: str) -> dict:
+    """``run preset=dreamer_v2_ms_pacman_dummy`` on the card (the episode
+    buffer with ``prioritize_ends``, the continue head, B 32 x T 50) on 1
+    env: training waits for the first stored episode (seed 5's ends at step
+    366), then V2_EPISODE_GRADIENT_STEPS steps with exact counts and a
+    positive continue loss; a resume whose ``EpisodeBuffer`` is the saved
+    one."""
+    cfg = preset(V2_EPISODE_PRESET)
+    T, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.horizon)
+    total = V2_EPISODE_LEARNING_STARTS + 16 * V2_EPISODE_GRADIENT_STEPS
+    summary, launches, wall = _v2_run(
+        [f"preset={V2_EPISODE_PRESET}", "env.num_envs=1", f"algo.learning_starts={V2_EPISODE_LEARNING_STARTS}",
+         f"algo.total_steps={total}", "checkpoint.every=0", "checkpoint.save_last=true", "metric.log_level=0",
+         "algo.run_test=false", f"log_root={workdir}"], T + H, "V2 episode run")
+    continue_loss = [row[METRIC_NAMES.index("Loss/continue_loss")] for row in summary["metrics"]]
+    if (summary["gradient_steps"] != V2_EPISODE_GRADIENT_STEPS or summary["buffer_type"] != "episode"
+            or not all(c > 0 for c in continue_loss)):
+        raise AssertionError(f"V2 episode run: {summary['gradient_steps']} steps on {summary['buffer_type']}, "
+                             f"continue losses {continue_loss}")
+    out = _v2_summary(summary, launches, wall)
+    out["continue_loss"] = continue_loss
+    log("V2 episode run: " + json.dumps({k: v for k, v in out.items() if k != "checkpoint"}))
+    resumed, resume_launches, _ = _v2_run(
+        [f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0", "algo.learning_starts=2",
+         f"algo.total_steps={total + V2_EPISODE_RESUME_STEPS}", "checkpoint.save_last=false", "algo.run_test=false",
+         f"log_root={_log_root(summary)}"], T + H, "V2 episode resume")
+    out["resume"] = dict(_v2_resume_check("V2 episode", summary, resumed), launches=resume_launches,
+                         episodes=resumed["restored_buffer"]["episodes"])
+    log("V2 episode resume: " + json.dumps(out["resume"]))
+    return out
+
+
+def p2e_dv2_phase(workdir: str) -> dict:
+    """``run preset=p2e_dv2_exploration_atari_dummy`` on the card (recurrent
+    400, 10 ensemble members of 400 x 4, B 16 x T 50, H 15) on 1 env for
+    V2_EXPLORE_GRADIENT_STEPS steps: T + 2H ``gru_gates_ln`` a step, exactly,
+    the intrinsic reward positive, one step profiled with the ensembles'
+    share; then ``run preset=p2e_dv2_finetuning_atari_dummy`` from its
+    checkpoint with ``buffer.load_from_exploration=true`` (the player on the
+    task actor from the first granted step, T + H a step); ``evaluation`` of
+    both checkpoints equal to their runs' test episodes."""
+    from sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration import METRIC_NAMES as EXPLORE_NAMES
+
+    cfg = preset(V2_EXPLORE_PRESET)
+    T, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.horizon)
+    total = V2_LEARNING_STARTS + 5 * V2_EXPLORE_GRADIENT_STEPS
+    summary, launches, wall = _v2_run(
+        [f"preset={V2_EXPLORE_PRESET}", "env.num_envs=1", f"algo.learning_starts={V2_LEARNING_STARTS}",
+         f"algo.total_steps={total}", "checkpoint.every=0", "checkpoint.save_last=true", "metric.log_level=0",
+         f"log_root={workdir}"], T + 2 * H, "P2E-DV2 exploration run")
+    intrinsic = [row[EXPLORE_NAMES.index("Rewards/intrinsic")] for row in summary["metrics"]]
+    if summary["gradient_steps"] != V2_EXPLORE_GRADIENT_STEPS or not all(r > 0 for r in intrinsic):
+        raise AssertionError(f"P2E-DV2 exploration: {summary['gradient_steps']} steps, intrinsic rewards {intrinsic}")
+    out = {"exploration": _v2_summary(summary, launches, wall)}
+    out["exploration"]["metrics"] = [dict(zip(EXPLORE_NAMES, row)) for row in summary["metrics"]]
+    log("P2E-DV2 exploration run: " + json.dumps({k: v for k, v in out["exploration"].items()
+                                                  if k not in ("metrics", "checkpoint")}))
+    out["exploration"]["evaluation"] = _evaluation_check("P2E-DV2 exploration", summary["checkpoint"], summary)
+    out["exploration"]["profile"] = _profile_v2_step(summary["checkpoint"], explore=True)
+    log("P2E-DV2 exploration step profile: " + json.dumps(out["exploration"]["profile"]))
+    fine, fine_launches, fine_wall = _v2_run(
+        [f"preset={V2_FINETUNE_PRESET}", f"checkpoint.exploration_ckpt_path={summary['checkpoint']}",
+         "buffer.load_from_exploration=true", "algo.learning_starts=8", f"algo.total_steps={V2_FINETUNE_TOTAL_STEPS}",
+         "checkpoint.every=0", "checkpoint.save_last=true", "metric.log_level=0", f"log_root={workdir}"],
+        T + H, "P2E-DV2 finetuning run")
+    from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import buffer_digest
+
+    first_grant = 8 + 5  # the fresh Ratio's first call at step 8 grants none, then one every 5
+    if (fine["switched_at"] != first_grant or fine["player_steps"] != V2_FINETUNE_TOTAL_STEPS
+            or fine["restored_buffer"] != buffer_digest(load_checkpoint(summary["checkpoint"])["rb"])):
+        raise AssertionError(f"P2E-DV2 finetuning: switched at {fine['switched_at']}, {fine['player_steps']} player "
+                             f"steps, restored {fine['restored_buffer']}")
+    out["finetuning"] = _v2_summary(fine, fine_launches, fine_wall)
+    out["finetuning"]["switched_at"] = fine["switched_at"]
+    log("P2E-DV2 finetuning run: " + json.dumps({k: v for k, v in out["finetuning"].items() if k != "checkpoint"}))
+    out["finetuning"]["evaluation"] = _evaluation_check("P2E-DV2 finetuning", fine["checkpoint"], fine)
+    log("P2E-DV2 evaluations: " + json.dumps({k: out[k]["evaluation"] for k in ("exploration", "finetuning")}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
@@ -5645,6 +6012,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         classic = timed("classic_ppo", classic_ppo_phase, workdir)
         dry_runs = timed("dry_run", dry_run_phase, workdir)
+    v2_step = timed("v2_step", v2_step_phase)
+    with tempfile.TemporaryDirectory() as workdir:
+        v2_run = timed("v2_run", v2_run_phase, workdir)
+        v2_episode = timed("v2_episode", v2_episode_phase, workdir)
+        p2e_dv2 = timed("p2e_dv2", p2e_dv2_phase, workdir)
     paths = {"run": run, "run_resume": run["resume"], "serve": serve, "evaluation": rssm_eval, "ppo_run": ppo_run,
              "ppo_serve": ppo_serve, "ppo_evaluation": ppo_eval, "sac_run": sac_run, "sac_serve": sac_serve,
              "sac_evaluation": sac_eval, "resident_run": resident_run, "resident_resume": resident_run["resume"],
@@ -5667,7 +6039,13 @@ def main() -> int:
              "explore_evaluation": explore["evaluation"], "finetune_run": finetune,
              "finetune_evaluation": finetune["evaluation"],
              **{f"ppo_{env_id}": run for env_id, run in classic.items()},
-             **{f"dry_run_{name}": run for name, run in dry_runs.items()}}
+             **{f"dry_run_{name}": run for name, run in dry_runs.items()},
+             "v2_run": v2_run, "v2_resume": v2_run["resume"], "v2_evaluation": v2_run["evaluation"],
+             "v2_episode_run": v2_episode, "v2_episode_resume": v2_episode["resume"],
+             "p2e_dv2_exploration": p2e_dv2["exploration"],
+             "p2e_dv2_exploration_evaluation": p2e_dv2["exploration"]["evaluation"],
+             "p2e_dv2_finetuning": p2e_dv2["finetuning"],
+             "p2e_dv2_finetuning_evaluation": p2e_dv2["finetuning"]["evaluation"]}
     rows = [gru] + two_hot + [gae_row, sumtree_row, scatter_row]
     for row in rows:
         row["launches_by_path"] = {name: path["launches"][row["name"]] for name, path in paths.items()}
@@ -5679,7 +6057,9 @@ def main() -> int:
                                    resident_test=resident_run["test_steps"],
                                    resident_resume_test=resident_run["resume"]["test_steps"],
                                    dreamer_continuous_test=continuous_run["test_steps"],
-                                   explore_test=explore["test_steps"], finetune_test=finetune["test_steps"])
+                                   explore_test=explore["test_steps"], finetune_test=finetune["test_steps"],
+                                   v2_test=v2_run["test_steps"], p2e_dv2_exploration_test=p2e_dv2["exploration"]["test_steps"],
+                                   p2e_dv2_finetuning_test=p2e_dv2["finetuning"]["test_steps"])
     gru["eval_shape"]["floor_ms"] = floor
     for row in [gru] + two_hot:
         row["launches"] = run["launches"][row["name"]]
@@ -5704,7 +6084,8 @@ def main() -> int:
                       "continuous_run": continuous_run, "continuous_serve": continuous_serve,
                       "continuous_ring": continuous_ring, "droq": droq, "sac_ae": sac_ae, "sac_next_obs": sac_next_obs,
                       "explore_step": explore_step, "explore_run": explore, "finetune": finetune,
-                      "classic_ppo": classic, "dry_runs": dry_runs}))
+                      "classic_ppo": classic, "dry_runs": dry_runs, "v2_step": v2_step, "v2_run": v2_run,
+                      "v2_episode": v2_episode, "p2e_dv2": p2e_dv2}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

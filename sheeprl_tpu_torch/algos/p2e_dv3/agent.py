@@ -21,7 +21,6 @@ import copy
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
@@ -35,6 +34,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
 )
 from sheeprl_tpu_torch.algos.droq.agent import _StackedLayerNorm
 from sheeprl_tpu_torch.algos.sac.agent import _StackedDense
+from sheeprl_tpu_torch.models import get_activation
 
 __all__ = ["Ensembles", "P2EAgent", "build_agent", "STATE_KEYS"]
 
@@ -54,16 +54,21 @@ class Ensembles(nn.Module):
     """``n`` :class:`_PredictionHead`-shaped MLPs (Linear, LayerNorm eps
     1e-3, SiLU per hidden layer, then a Linear ``out``) side by side, their
     weights stacked: ``x (..., in) -> (n, ..., out)``, every member applied
-    to the same input."""
+    to the same input. Dreamer V2's members (``layer_norm=False``,
+    ``activation="elu"``) have no LayerNorm and ELU."""
 
-    def __init__(self, n: int, input_dim: int, output_dim: int, mlp_layers: int, dense_units: int) -> None:
+    def __init__(self, n: int, input_dim: int, output_dim: int, mlp_layers: int, dense_units: int,
+                 layer_norm: bool = True, activation: str = "silu") -> None:
         super().__init__()
         self.n = int(n)
         self.model = nn.Module()
+        self.layer_norm = bool(layer_norm)
+        self._act = get_activation(activation)
         last = int(input_dim)
         for i in range(int(mlp_layers)):
             self.model.add_module(f"dense_{i}", _StackedDense(self.n, last, int(dense_units)))
-            self.model.add_module(f"ln_{i}", _StackedLayerNorm(self.n, int(dense_units), eps=1e-3))
+            if self.layer_norm:
+                self.model.add_module(f"ln_{i}", _StackedLayerNorm(self.n, int(dense_units), eps=1e-3))
             last = int(dense_units)
         self.out = _StackedDense(self.n, last, int(output_dim))
         self.mlp_layers = int(mlp_layers)
@@ -72,7 +77,8 @@ class Ensembles(nn.Module):
         lead = x.shape[:-1]
         h = x.reshape(1, -1, x.shape[-1]).expand(self.n, -1, -1)
         for i in range(self.mlp_layers):
-            h = F.silu(getattr(self.model, f"ln_{i}")(getattr(self.model, f"dense_{i}")(h)))
+            h = getattr(self.model, f"dense_{i}")(h)
+            h = self._act(getattr(self.model, f"ln_{i}")(h) if self.layer_norm else h)
         out = self.out(h)
         return out.reshape(self.n, *lead, out.shape[-1])
 

@@ -46,7 +46,7 @@ def exploration_config(cfg: Any) -> Any:
     """The exploration run's config, beside ``checkpoint.exploration_ckpt_path``."""
     path = (cfg.get("checkpoint") or {}).get("exploration_ckpt_path")
     if not path:
-        raise ValueError("p2e_dv3_finetuning needs checkpoint.exploration_ckpt_path=<exploration checkpoint>")
+        raise ValueError(f"{cfg.algo.name} needs checkpoint.exploration_ckpt_path=<exploration checkpoint>")
     return load_config(find_run_config(path))
 
 

@@ -4,7 +4,8 @@
     python -m sheeprl_tpu_torch run \\
         preset=<configs/*.json: sac_per, sac, droq, sac_ae, ppo, a2c, ppo_recurrent, dreamer_v3_100k_atari_dummy,
                 dreamer_v3_100k_atari_dummy_resident, dreamer_v3_continuous_dummy,
-                p2e_dv3_exploration_atari_dummy, p2e_dv3_finetuning_atari_dummy> \\
+                p2e_dv3_exploration_atari_dummy, p2e_dv3_finetuning_atari_dummy, dreamer_v2_atari_dummy,
+                dreamer_v2_ms_pacman_dummy, p2e_dv2_exploration_atari_dummy, p2e_dv2_finetuning_atari_dummy> \\
         [fabric.accelerator=cuda|cpu] [algo.total_steps=...] [checkpoint.resume_from=<ckpt>|latest] \\
         [checkpoint.exploration_ckpt_path=<ckpt>] [dry_run=true] ...
     python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> \\
@@ -25,9 +26,10 @@ config but its directory, ``checkpoint.resume_from`` and
 ``algo.learning_starts``, and writes into a new directory.
 ``checkpoint.resume_from=latest`` resumes from the newest complete
 checkpoint under ``<log_root>/<algo.name>/<env.id>`` (the preset's and the
-overrides' values), skipping torn saves. ``p2e_dv3_finetuning`` starts from
-``checkpoint.exploration_ckpt_path``: the exploration run must have the
-same ``env.id``, and its env keys :data:`EXPLORATION_ENV_KEYS` win.
+overrides' values), skipping torn saves. ``p2e_dv3_finetuning`` and
+``p2e_dv2_finetuning`` start from ``checkpoint.exploration_ckpt_path``: the
+exploration run must have the same ``env.id``, and its env keys
+:data:`EXPLORATION_ENV_KEYS` win.
 ``dry_run=true`` runs one iteration with no warm-up. ``serve`` reads
 the run configuration beside the checkpoint under
 :data:`~sheeprl_tpu_torch.config.SERVE_DEFAULTS`: a PPO or SAC checkpoint
@@ -247,6 +249,10 @@ EXPLORATION_ENV_KEYS = (
 )
 
 
+#: the algorithms that start from an exploration run's checkpoint
+FINETUNING_ALGOS = ("p2e_dv3_finetuning", "p2e_dv2_finetuning")
+
+
 def _exploration_handoff(cfg: DotDict) -> None:
     """P2E finetuning: the exploration run's config (beside
     ``checkpoint.exploration_ckpt_path``) must name the same env; its
@@ -274,7 +280,7 @@ def run(args: Sequence[str]) -> dict:
     cfg = compose_run_config(args)
     if cfg.algo.name not in TRAINERS:
         raise NotImplementedError(f"training '{cfg.algo.name}' is not ported yet; {' and '.join(TRAINERS)} only")
-    if cfg.algo.name == "p2e_dv3_finetuning":
+    if cfg.algo.name in FINETUNING_ALGOS:
         _exploration_handoff(cfg)
     device = resolve_device(cfg.fabric.get("accelerator"))
     _full_float32()

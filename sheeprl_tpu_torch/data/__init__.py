@@ -1,3 +1,3 @@
-from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, ReplayBuffer, SequentialReplayBuffer
+from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, EpisodeBuffer, ReplayBuffer, SequentialReplayBuffer
 
-__all__ = ["EnvIndependentReplayBuffer", "ReplayBuffer", "SequentialReplayBuffer"]
+__all__ = ["EnvIndependentReplayBuffer", "EpisodeBuffer", "ReplayBuffer", "SequentialReplayBuffer"]

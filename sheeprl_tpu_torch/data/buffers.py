@@ -1,5 +1,6 @@
 """Host replay buffers (counterpart of ``sheeprl_tpu/data/buffers.py``,
-the parts PPO's rollout, SAC's host replay and DreamerV3's coupled loop use),
+the parts PPO's rollout, SAC's host replay, the Dreamers' coupled loops and
+Dreamer V2's whole-episode store use),
 in numpy memory or, with ``memmap=True``, in files: one
 :class:`~sheeprl_tpu_torch.data.memmap.MemmapArray` per key at
 ``<memmap_dir>/<key>.memmap`` (``<memmap_dir>/env_<i>/<key>.memmap`` for the
@@ -7,12 +8,17 @@ per-env buffers), as the JAX package lays them out. Sampling draws from a
 numpy ``Generator`` in the same order as the JAX package's buffers, so one
 seed gives the same windows, memmapped or not.
 
+:class:`EpisodeBuffer` keeps whole episodes, memmapped one directory per
+episode (``<memmap_dir>/episode_<uuid>/<key>.memmap``).
+
 A buffer's ``state_dict`` holds its rows, memmapped or not: a resumed run
 writes them into files under its own ``memmap_dir``. (The JAX package
 pickles a memmapped buffer as views that name the old run's files.)"""
 
 from __future__ import annotations
 
+import uuid
+from itertools import compress
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Union
 
@@ -21,7 +27,7 @@ import torch
 
 from sheeprl_tpu_torch.data.memmap import MEMMAP_MODES, MemmapArray
 
-__all__ = ["ReplayBuffer", "SequentialReplayBuffer", "EnvIndependentReplayBuffer"]
+__all__ = ["ReplayBuffer", "SequentialReplayBuffer", "EnvIndependentReplayBuffer", "EpisodeBuffer"]
 
 
 def _check_memmap(memmap: bool, memmap_dir: "str | Path | None", memmap_mode: str) -> Optional[Path]:
@@ -331,3 +337,204 @@ class EnvIndependentReplayBuffer:
         per_env = np.bincount(self._rng.integers(0, self._n_envs, (batch_size,)))
         parts = [b.sample(batch_size=int(n), n_samples=n_samples, **kwargs) for b, n in zip(self._buf, per_env) if n > 0]
         return {k: np.concatenate([p[k] for p in parts], axis=2) for k in parts[0]}
+
+
+def _tensors(data: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(_host(v))) for k, v in data.items()}
+
+
+class EpisodeBuffer:
+    """Whole episodes, each stored once it ends (a row with ``terminated``
+    or ``truncated`` set), evicted oldest first by cumulative length: an
+    episode that would overflow ``buffer_size`` drops the fewest oldest
+    episodes that make room. Episodes shorter than
+    ``minimum_episode_length`` raise, as do longer ones than the buffer.
+    :meth:`sample` draws ``sequence_length``-step windows that never cross
+    an episode, laid out ``(n_samples, sequence_length, batch_size, ...)``;
+    with ``prioritize_ends`` a window's start is drawn from ``sequence_length``
+    more slots and clipped to the last one, so windows that end an episode
+    come more often. Draws come from one numpy generator in the JAX
+    package's order (the episodes, their counts, then each episode's
+    starts), so a seed gives the JAX buffer's windows."""
+
+    def __init__(
+        self,
+        buffer_size: int,
+        minimum_episode_length: int,
+        n_envs: int = 1,
+        obs_keys: Sequence[str] = ("observations",),
+        prioritize_ends: bool = False,
+        memmap: bool = False,
+        memmap_dir: "str | Path | None" = None,
+        memmap_mode: str = "r+",
+    ) -> None:
+        if buffer_size <= 0:
+            raise ValueError(f"buffer_size must be a positive integer (got {buffer_size})")
+        if minimum_episode_length <= 0:
+            raise ValueError(f"minimum_episode_length must be positive (got {minimum_episode_length})")
+        if buffer_size < minimum_episode_length:
+            raise ValueError(f"The sequence length must be lower than the buffer size, got: bs = {buffer_size} and "
+                             f"sl = {minimum_episode_length}")
+        self._n_envs = int(n_envs)
+        self._obs_keys = tuple(obs_keys)
+        self._buffer_size = int(buffer_size)
+        self._minimum_episode_length = int(minimum_episode_length)
+        self._prioritize_ends = bool(prioritize_ends)
+        self._memmap_dir = _check_memmap(memmap, memmap_dir, memmap_mode)
+        self._memmap_mode = memmap_mode
+        if self._memmap_dir is not None:
+            self._memmap_dir.mkdir(parents=True, exist_ok=True)
+        self._open_episodes: List[List[Dict[str, np.ndarray]]] = [[] for _ in range(self._n_envs)]
+        self._cum_lengths: List[int] = []
+        self._buf: List[Dict[str, Union[np.ndarray, MemmapArray]]] = []
+        self._rng: np.random.Generator = np.random.default_rng()
+
+    @property
+    def buffer(self) -> List[Dict[str, Union[np.ndarray, MemmapArray]]]:
+        """The stored episodes, oldest first."""
+        return self._buf
+
+    @property
+    def n_envs(self) -> int:
+        return self._n_envs
+
+    @property
+    def buffer_size(self) -> int:
+        return self._buffer_size
+
+    @property
+    def prioritize_ends(self) -> bool:
+        return self._prioritize_ends
+
+    @property
+    def is_memmap(self) -> bool:
+        return self._memmap_dir is not None
+
+    @property
+    def full(self) -> bool:
+        return bool(self._buf) and self._cum_lengths[-1] + self._minimum_episode_length > self._buffer_size
+
+    def __len__(self) -> int:
+        return self._cum_lengths[-1] if self._buf else 0
+
+    def seed(self, seed: Optional[int]) -> None:
+        self._rng = np.random.default_rng(seed)
+
+    def add(self, data: Dict[str, np.ndarray], env_idxes: Optional[Sequence[int]] = None) -> None:
+        """Append ``(seq_len, len(env_idxes), ...)`` rows to each env's open
+        episode; every row that ends an episode stores it."""
+        if "terminated" not in data or "truncated" not in data:
+            raise RuntimeError(f"The episode must contain the 'terminated' and 'truncated' keys, got: {data.keys()}")
+        if env_idxes is None:
+            env_idxes = range(self._n_envs)
+        for i, env in enumerate(env_idxes):
+            env_data = {k: v[:, i] for k, v in data.items()}
+            done = np.logical_or(env_data["terminated"], env_data["truncated"])
+            episode_ends = done.nonzero()[0].tolist()
+            if not episode_ends:
+                self._open_episodes[env].append(env_data)
+                continue
+            episode_ends.append(len(done))
+            start = 0
+            for stop in episode_ends:
+                episode = {k: v[start : stop + 1] for k, v in env_data.items()}
+                if len(episode["terminated"]) > 0:
+                    self._open_episodes[env].append(episode)
+                start = stop + 1
+                last = self._open_episodes[env][-1] if self._open_episodes[env] else None
+                if last is not None and np.logical_or(last["terminated"][-1], last["truncated"][-1]):
+                    self._save_episode(self._open_episodes[env])
+                    self._open_episodes[env] = []
+
+    def _store(self, episode: Dict[str, np.ndarray]) -> Dict[str, Union[np.ndarray, MemmapArray]]:
+        if self._memmap_dir is None:
+            return episode
+        episode_dir = self._memmap_dir / f"episode_{uuid.uuid4()}"
+        stored = {}
+        for k, v in episode.items():
+            stored[k] = MemmapArray(v.dtype, v.shape, filename=episode_dir / f"{k}.memmap", mode=self._memmap_mode)
+            stored[k][:] = v
+        return stored
+
+    def _save_episode(self, chunks: Sequence[Dict[str, np.ndarray]]) -> None:
+        if not chunks:
+            raise RuntimeError("Invalid episode, an empty sequence is given.")
+        episode = {k: np.concatenate([c[k] for c in chunks], axis=0) for k in chunks[0]}
+        ends = np.logical_or(episode["terminated"], episode["truncated"])
+        ep_len = ends.shape[0]
+        if len(ends.nonzero()[0]) != 1 or not ends[-1]:
+            raise RuntimeError("The episode must contain exactly one done at the end")
+        if ep_len < self._minimum_episode_length:
+            raise RuntimeError(f"episode of {ep_len} steps is shorter than the minimum episode length "
+                               f"{self._minimum_episode_length}")
+        if ep_len > self._buffer_size:
+            raise RuntimeError(f"episode of {ep_len} steps exceeds the buffer capacity of {self._buffer_size}")
+        if self.full or len(self) + ep_len > self._buffer_size:
+            cum_lengths = np.array(self._cum_lengths)
+            last_to_remove = int(((len(self) - cum_lengths + ep_len) <= self._buffer_size).argmax())
+            self._buf = self._buf[last_to_remove + 1 :]  # a memmapped episode's files go with its last reference
+            self._cum_lengths = (cum_lengths[last_to_remove + 1 :] - cum_lengths[last_to_remove]).tolist()
+        self._cum_lengths.append(len(self) + ep_len)
+        self._buf.append(self._store(episode))
+
+    def sample(self, batch_size: int, sample_next_obs: bool = False, n_samples: int = 1,
+               sequence_length: int = 1, **kwargs: Any) -> Dict[str, np.ndarray]:
+        """``(n_samples, sequence_length, batch_size, ...)`` windows, each
+        inside one stored episode at least ``sequence_length`` rows long
+        (longer, with ``sample_next_obs``: each key of ``obs_keys`` then also
+        comes back as ``next_<key>``, the window one row later)."""
+        if batch_size <= 0:
+            raise ValueError(f"batch_size must be positive (got {batch_size})")
+        if n_samples <= 0:
+            raise ValueError(f"n_samples must be positive (got {n_samples})")
+        ep_lens = np.array(self._cum_lengths) - np.array([0] + self._cum_lengths[:-1])
+        valid_mask = ep_lens > sequence_length if sample_next_obs else ep_lens >= sequence_length
+        valid_episodes = list(compress(self._buf, valid_mask))
+        if not valid_episodes:
+            raise RuntimeError(f"no stored episode is at least {sequence_length} steps long — nothing to sample")
+        chunk = np.arange(sequence_length, dtype=np.intp).reshape(1, -1)
+        nsample_per_eps = np.bincount(self._rng.integers(0, len(valid_episodes), (batch_size * n_samples,)))
+        keys = list(valid_episodes[0])
+        per_key: Dict[str, list] = {k: [] for k in keys}
+        if sample_next_obs:
+            per_key.update({f"next_{k}": [] for k in self._obs_keys})
+        for i, n in enumerate(nsample_per_eps.astype(np.intp)):
+            if n == 0:
+                continue
+            ep = valid_episodes[i]
+            ep_len = len(ep["terminated"]) - int(sample_next_obs)
+            upper = ep_len - sequence_length + 1 + (sequence_length if self._prioritize_ends else 0)
+            starts = np.minimum(self._rng.integers(0, upper, size=(n,)).reshape(-1, 1), ep_len - sequence_length,
+                                dtype=np.intp)
+            indices = starts + chunk
+            for k in keys:
+                arr = np.asarray(_host(ep[k]))
+                per_key[k].append(np.take(arr, indices.flat, axis=0).reshape(n, sequence_length, *arr.shape[1:]))
+                if sample_next_obs and k in self._obs_keys:
+                    per_key[f"next_{k}"].append(arr[indices + 1])
+        out = {}
+        for k, v in per_key.items():
+            if v:
+                joined = np.concatenate(v, axis=0)
+                out[k] = np.moveaxis(joined.reshape(n_samples, batch_size, sequence_length, *joined.shape[2:]), 2, 1)
+        return out
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The stored episodes (their rows, memmapped or not), the cumulative
+        lengths, each env's open episode chunks and the generator state."""
+        return {
+            "episodes": [_tensors(ep) for ep in self._buf],
+            "cum_lengths": list(self._cum_lengths),
+            "open": [[_tensors(chunk) for chunk in chunks] for chunks in self._open_episodes],
+            "rng": self._rng.bit_generator.state,
+        }
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        if len(state["open"]) != self._n_envs:
+            raise ValueError(f"saved state holds {len(state['open'])} envs' open episodes, this buffer {self._n_envs}")
+        self._buf = []  # old owners delete their files before the new ones are made
+        self._buf = [self._store({k: v.numpy() for k, v in ep.items()}) for ep in state["episodes"]]
+        self._cum_lengths = [int(c) for c in state["cum_lengths"]]
+        self._open_episodes = [[{k: v.numpy() for k, v in chunk.items()} for chunk in chunks]
+                               for chunks in state["open"]]
+        self._rng.bit_generator.state = state["rng"]

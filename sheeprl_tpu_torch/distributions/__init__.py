@@ -7,6 +7,7 @@ from sheeprl_tpu_torch.distributions.core import (
     OneHotCategoricalStraightThrough,
     SymlogDistribution,
     TanhNormal,
+    TruncatedNormal,
     TwoHotEncodingDistribution,
     kl_divergence,
 )
@@ -20,6 +21,7 @@ __all__ = [
     "OneHotCategoricalStraightThrough",
     "SymlogDistribution",
     "TanhNormal",
+    "TruncatedNormal",
     "TwoHotEncodingDistribution",
     "kl_divergence",
 ]

@@ -1,7 +1,8 @@
 """Distributions (counterpart of ``sheeprl_tpu/distributions/core.py``): the
 one-hot categoricals of the RSSM and the discrete actor, the diagonal
 ``Normal`` of the continuous PPO-family and DreamerV3 actors, the
-tanh-squashed ``TanhNormal`` of DreamerV3's ``tanh_normal`` actor, and DreamerV3's
+tanh-squashed ``TanhNormal`` of the Dreamers' ``tanh_normal`` actors, the
+``TruncatedNormal`` of Dreamer V2's ``trunc_normal`` actor, and DreamerV3's
 training heads (``TwoHotEncodingDistribution``, ``SymlogDistribution``,
 ``MSEDistribution``, ``BernoulliSafeMode``), with ``Independent`` and
 ``kl_divergence``.
@@ -10,7 +11,8 @@ Sampling is Gumbel-max, ``argmax(logits + g)``, as ``jax.random.categorical``
 draws it. The noise comes from an explicit ``torch.Generator`` or is passed
 in as uniforms, so a caller that needs per-row streams (the session step)
 hands in its own. ``Normal`` samples ``loc + scale * eps`` from standard
-normals drawn the same way or passed in. The two frameworks never give the
+normals drawn the same way or passed in; ``TruncatedNormal`` inverts its CDF
+at uniforms drawn or passed in. The two frameworks never give the
 same draws for one seed; tests feed both the same noise or compare logits
 instead.
 """
@@ -32,6 +34,7 @@ __all__ = [
     "OneHotCategoricalStraightThrough",
     "Normal",
     "TanhNormal",
+    "TruncatedNormal",
     "Independent",
     "TwoHotEncodingDistribution",
     "SymlogDistribution",
@@ -93,8 +96,9 @@ class OneHotCategoricalStraightThrough(OneHotCategorical):
 
 
 class Normal:
-    """Gaussian with elementwise ``loc`` and ``scale``; ``log_prob`` and
-    ``entropy`` in the JAX package's formulas and op order."""
+    """Gaussian with elementwise ``loc`` and ``scale`` (a tensor, or a
+    number such as Dreamer V2's unit scale); ``log_prob`` and ``entropy`` in
+    the JAX package's formulas and op order."""
 
     def __init__(self, loc: torch.Tensor, scale: torch.Tensor) -> None:
         self.loc = loc
@@ -103,9 +107,12 @@ class Normal:
     def _shape(self) -> torch.Size:
         return torch.broadcast_shapes(self.loc.shape, self.scale.shape)
 
+    def _log_scale(self) -> "torch.Tensor | float":
+        return math.log(self.scale) if isinstance(self.scale, (int, float)) else torch.log(self.scale)
+
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
         var = self.scale**2
-        return -((value - self.loc) ** 2) / (2 * var) - torch.log(self.scale) - 0.5 * math.log(2 * math.pi)
+        return -((value - self.loc) ** 2) / (2 * var) - self._log_scale() - 0.5 * math.log(2 * math.pi)
 
     def entropy(self) -> torch.Tensor:
         return 0.5 + 0.5 * math.log(2 * math.pi) + torch.log(self.scale) + torch.zeros_like(self.loc)
@@ -120,12 +127,13 @@ class Normal:
 
     def rsample(self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``loc + scale * noise``; ``noise`` (standard normals of the
-        broadcast shape) is drawn from ``generator`` when not given."""
+        broadcast shape, or ``(n, *shape)`` for ``n`` draws) is drawn from
+        ``generator`` when not given."""
         shape = tuple(self._shape())
         if noise is None:
             noise = torch.randn(shape, generator=generator, device=self.loc.device, dtype=self.loc.dtype)
-        elif tuple(noise.shape) != shape:
-            raise ValueError(f"noise has shape {tuple(noise.shape)}, expected {shape}")
+        elif noise.ndim < len(shape) or tuple(noise.shape[noise.ndim - len(shape):]) != shape:
+            raise ValueError(f"noise has shape {tuple(noise.shape)}, expected (..., {shape})")
         return self.loc + self.scale * noise
 
     def sample(self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -162,6 +170,79 @@ class TanhNormal:
     @property
     def mode(self) -> torch.Tensor:
         return torch.tanh(self.base.mode)
+
+
+_SQRT2 = math.sqrt(2.0)
+
+
+def _ndtr(x: torch.Tensor) -> torch.Tensor:
+    """The standard normal CDF, ``0.5 (1 + erf(x / sqrt 2))``."""
+    return 0.5 * (1 + torch.erf(x / _SQRT2))
+
+
+def _phi(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp(-0.5 * x**2) / math.sqrt(2 * math.pi)
+
+
+class TruncatedNormal:
+    """``Normal(loc, scale)`` truncated to ``[low, high]`` (the JAX
+    package's ``TruncatedNormal``). ``rsample`` inverts the CDF at a uniform
+    ``u``: ``loc + scale * ndtri(clip(Phi(alpha) + u Z, 1e-7, 1 - 1e-7))``,
+    clipped to ``[low + eps, high - eps]``, differentiable in ``loc`` and
+    ``scale``; ``Z = max(Phi(beta) - Phi(alpha), 1e-8)``. ``log_prob`` is
+    ``-inf`` outside the bounds."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, low: float = -1.0, high: float = 1.0,
+                 eps: float = 1e-6) -> None:
+        if not float(low) < float(high):
+            raise ValueError(f"TruncatedNormal: low ({low}) must be < high ({high})")
+        self.loc, self.scale = loc, scale
+        self.low, self.high, self.eps = float(low), float(high), float(eps)
+        self._alpha = (self.low - loc) / scale
+        self._beta = (self.high - loc) / scale
+        self._phi_alpha = _ndtr(self._alpha)
+        self._phi_beta = _ndtr(self._beta)
+        self._Z = torch.clamp(self._phi_beta - self._phi_alpha, min=1e-8)
+        self._log_Z = torch.log(self._Z)
+
+    def _shape(self) -> torch.Size:
+        return torch.broadcast_shapes(self.loc.shape, self.scale.shape)
+
+    def rsample(self, generator: Optional[torch.Generator] = None, uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One draw per element, or with ``uniform`` of shape ``(n, *batch)``
+        ``n`` draws; ``uniform`` (values in [0, 1)) is drawn from
+        ``generator`` when not given."""
+        shape = tuple(self._shape())
+        if uniform is None:
+            uniform = torch.rand(shape, generator=generator, device=self.loc.device, dtype=self.loc.dtype)
+        elif uniform.ndim < len(shape) or tuple(uniform.shape[uniform.ndim - len(shape):]) != shape:
+            raise ValueError(f"uniform noise has shape {tuple(uniform.shape)}, expected (..., {shape})")
+        p = self._phi_alpha + uniform * self._Z
+        x = self.loc + self.scale * torch.special.ndtri(torch.clamp(p, 1e-7, 1 - 1e-7))
+        return torch.clamp(x, self.low + self.eps, self.high - self.eps)
+
+    def sample(self, generator: Optional[torch.Generator] = None, uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.rsample(generator, uniform).detach()
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        z = (value - self.loc) / self.scale
+        log_unnorm = -0.5 * z**2 - 0.5 * math.log(2 * math.pi) - torch.log(self.scale)
+        inside = (value >= self.low) & (value <= self.high)
+        return torch.where(inside, log_unnorm - self._log_Z, torch.full_like(log_unnorm, -math.inf))
+
+    def entropy(self) -> torch.Tensor:
+        """``log(sqrt(2 pi e) scale Z) + (alpha phi(alpha) - beta phi(beta)) / (2 Z)``."""
+        a, b = self._alpha, self._beta
+        return (0.5 * math.log(2 * math.pi * math.e) + torch.log(self.scale) + self._log_Z
+                + (a * _phi(a) - b * _phi(b)) / (2 * self._Z))
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.loc + self.scale * (_phi(self._alpha) - _phi(self._beta)) / self._Z
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return torch.clamp(self.loc, self.low, self.high)
 
 
 class Independent:

@@ -40,6 +40,9 @@ __all__ = [
     "sac_state_from_jax",
     "sac_ae_state_from_jax",
     "p2e_dv3_state_from_jax",
+    "dreamer_v2_state_from_jax",
+    "p2e_dv2_state_from_jax",
+    "episode_buffer_from_jax",
     "sequence_ring_from_jax",
     "host_env_buffer_from_jax",
 ]
@@ -217,6 +220,60 @@ def p2e_dv3_state_from_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, tor
     tree = params["ensembles"]
     state["ensembles"] = _stacked(tree["params"] if set(tree) == {"params"} else tree, "")
     return state
+
+
+def dreamer_v2_state_from_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{"world_model", "actor", "critic", "target_critic"}`` as the JAX
+    Dreamer V2 ``build_agent`` returns them (numpy trees; any but the world
+    model may be absent) -> the port's checkpoint state. The V2 world model
+    has no initial recurrent state; its leaves cross as
+    :func:`flax_to_state_dict` carries them: the VALID encoder's HWIO
+    kernels to OIHW, the decoder's transposed kernels flipped
+    (``deconv_i.ConvTranspose_0``, ``out.ConvTranspose_0``), the
+    LayerNorm-GRU cell's ``fused`` Dense and its ``ln`` scale and bias."""
+    state = {"world_model": {}}
+    for name, tree in params["world_model"].items():
+        state["world_model"].update(flax_to_state_dict(tree, f"{name}."))
+    for name in ("actor", "critic", "target_critic"):
+        if name in params:
+            state[name] = flax_to_state_dict(params[name])
+    return state
+
+
+def p2e_dv2_state_from_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX P2E-DV2 tree ``{world_model, actor_task, critic_task,
+    target_critic_task, actor_exploration, critic_exploration,
+    target_critic_exploration, ensembles}`` (numpy leaves; entries may be
+    absent) -> the port's checkpoint entries
+    (``sheeprl_tpu_torch.algos.p2e_dv2.agent.STATE_KEYS``): the world model
+    as :func:`dreamer_v2_state_from_jax` carries it, each actor and critic
+    as any flax tree, and the stacked ensemble tree (Dense kernels ``(n, in,
+    out)``) as it is."""
+    state = {"world_model": dreamer_v2_state_from_jax({"world_model": params["world_model"]})["world_model"]}
+    for name in ("actor_task", "critic_task", "target_critic_task", "actor_exploration", "critic_exploration",
+                 "target_critic_exploration"):
+        if name in params:
+            state[name] = flax_to_state_dict(params[name])
+    if "ensembles" in params:
+        tree = params["ensembles"]
+        state["ensembles"] = _stacked(tree["params"] if set(tree) == {"params"} else tree, "")
+    return state
+
+
+def episode_buffer_from_jax(rb: Any) -> Dict[str, Any]:
+    """A JAX ``EpisodeBuffer`` (numpy episodes, open chunks, its numpy
+    generator) -> the port's ``EpisodeBuffer.state_dict()``: the stored
+    episodes' rows, the cumulative lengths, each env's open chunks and the
+    generator state, so the restored buffer draws the JAX one's windows."""
+    def tensors(data):
+        return {k: torch.from_numpy(np.array(np.asarray(v), order="C")) for k, v in data.items()}
+
+    return {
+        "episodes": [tensors(ep) for ep in rb.buffer],
+        "cum_lengths": [int(c) for c in rb._cum_lengths],
+        "open": [[tensors(chunk) for chunk in chunks] for chunks in rb._open_episodes],
+        "rng": rb._rng.bit_generator.state,
+    }
 
 
 #: the SAC-AE tree's batched Q ensembles (flax ``nn.vmap``), kept stacked

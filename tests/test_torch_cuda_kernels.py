@@ -112,9 +112,9 @@ def _misaligned(t):
 @pytest.mark.parametrize(
     "shape",
     [(1, 512), (8, 512), (16, 512), (32, 512), (1024, 512), (1024, 4096), (7, 13), (3, 2056), (2, 6000),
-     (5, 512, "misaligned")],
+     (5, 512, "misaligned"), (1, 600), (16, 600), (800, 600), (16, 400), (800, 400)],
     ids=["B1", "B8", "B16", "B32", "imagination", "H4096", "scalar-path", "2-quads-a-thread", "wide-row-path",
-         "misaligned"],
+         "misaligned", "v2-B1", "v2-B16", "v2-imagination", "v2-explore-B16", "v2-explore-imagination"],
 )
 def test_torch_cuda_gru_gates_ln_matches_plain(cuda, shape, dtype):
     """The fused LayerNorm + gate kernel against the plain version computed

@@ -64,7 +64,10 @@ def test_torch_package_imports_with_jax_and_reference_blocked():
                  "algos.sac_ae.agent", "algos.sac_ae.sac_ae", "algos.sac_ae.evaluate", "algos.sac_ae.utils",
                  "data.buffers", "models.blocks", "envs.wrappers", "envs.classic", "algos.p2e_dv3.agent",
                  "algos.p2e_dv3.p2e_dv3_exploration", "algos.p2e_dv3.p2e_dv3_finetuning", "algos.p2e_dv3.evaluate",
-                 "algos.p2e_dv3.utils"):
+                 "algos.p2e_dv3.utils", "algos.dreamer_v2.agent", "algos.dreamer_v2.dreamer_v2",
+                 "algos.dreamer_v2.evaluate", "algos.dreamer_v2.loss", "algos.dreamer_v2.utils", "algos.p2e_dv2.agent",
+                 "algos.p2e_dv2.p2e_dv2_exploration", "algos.p2e_dv2.p2e_dv2_finetuning", "algos.p2e_dv2.evaluate",
+                 "algos.p2e_dv2.utils"):
         assert f"sheeprl_tpu_torch.{name}" in report["imported"]
 
 
@@ -83,7 +86,8 @@ def _imports(path: Path):
     sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"],
     # tests/conftest.py marks node ids that name "dreamer", "p2e", "droq" or
     # "sac_ae" as slow, which would leave those modules out of the default run
-    ids=lambda p: (p.relative_to(ROOT).as_posix().replace("dreamer_v3", "dv3").replace("p2e_", "explore_")
+    ids=lambda p: (p.relative_to(ROOT).as_posix().replace("dreamer_v3", "dv3").replace("dreamer_v2", "dv2")
+                   .replace("p2e_", "explore_")
                    .replace("droq", "q_dropout").replace("sac_ae", "pixel_ae")),
 )
 def test_torch_package_source_imports_nothing_forbidden(path):
