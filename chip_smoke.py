@@ -129,9 +129,9 @@ result line):
    dispatch whose drawn rows carry NaN rewards, and one DreamerV3 host-tier
    gradient step on NaN rewards: every parameter, Adam state (step counts
    on the card), the sum-tree, ``max_p`` and ``Moments`` bit-equal to
-   before, the kernels at their exact counts. Beside it, phases 7, 10 and 13
-   profile the guarded step, update and dispatch next to the unguarded ones,
-   and phase 16 saves the ring's checkpoint through the manager, synchronously
+   before, the kernels at their exact counts. Beside it, phases 7 and 10
+   profile the guarded step and update next to the unguarded ones, phase 13
+   the guarded dispatch (the loop's default), and phase 16 saves the ring's checkpoint through the manager, synchronously
    and asynchronously (host ms, write and sha256 seconds, bytes);
 21. non-finite inputs (run beside the kernels of 3): each kernel of the
    guarded paths (``gru_gates_ln``, the fused two-hot loss and its backward,
@@ -248,6 +248,22 @@ result line):
    one step profiled with the ensembles' share; the finetuning hand-off from
    its checkpoint and buffer (the task actor from the first granted step, T
    + H a step); ``evaluation`` of both checkpoints.
+46. Dreamer V1 step: one gradient step at the full V1 recipe (B 50 x T 50,
+   H 15; stochastic 30, recurrent 200, dense 400 x 4, CNN multiplier 32) on
+   the card against the CPU: the ten metrics, each Adam's gradient (the
+   actor's by dynamics backpropagation through the imagined RSSM steps) and
+   the parameters after it, no kernel launched; then the step profiled
+   (host, device, operations, the convolutions' and the flax-form GRU's
+   recurrent model's shares);
+47. Dreamer V1 run: ``run preset=dreamer_v1_atari_dummy`` on 1 env,
+   ``learning_starts`` 128 and 3 gradient steps, the player's epsilon
+   exploration, no kernel launched; a resume from exactly the saved buffer;
+   ``evaluation`` equal to the run's test episode; a ``dry_run``;
+48. Plan2Explore on Dreamer V1: ``run preset=p2e_dv1_exploration_atari_dummy``
+   (recurrent 400, 10 members regressing the next embedded observation) for
+   3 steps, one step profiled with the ensembles' share; the finetuning
+   hand-off from its checkpoint and buffer; ``evaluation`` of both
+   checkpoints; no kernel launched on any of these paths.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -344,7 +360,7 @@ SAC_PRESET = "sac_per"
 # consecutive episodes reaches -500 within 16,384 steps; random play scores
 # about -1200
 SAC_TOTAL_STEPS, SAC_WINDOW, SAC_RETURN_BAR = 16384, 10, -500.0
-SAC_RESUME_ITERATIONS = 40
+SAC_RESUME_ITERATIONS = 4  # a resumed Ratio grants nothing on its first, then 4 steps an iteration
 RESIDENT_PRESET = "dreamer_v3_100k_atari_dummy_resident"
 # learning starts a few steps past the env's first episode end, so the ring
 # takes the reset row as a 2-row flush before the first gradient step
@@ -2183,12 +2199,12 @@ def sac_update_phase(filled_rows: int = 4096, beta: float = 0.5) -> dict:
 # -- 13. SAC run ----------------------------------------------------------------
 
 
-def _profile_sac_dispatch(checkpoint: str, guard: bool = False) -> dict:
+def _profile_sac_dispatch(checkpoint: str) -> dict:
     """One full-width dispatch (append + 4 PER steps) from the run's
-    checkpoint, after warm-up dispatches: host time (ending in a
-    synchronize), and device time and operations from ``torch.profiler``,
-    with ``sumtree_sample``'s share; with ``guard`` the dispatch the loop
-    runs by default (each step guarded, the skipped count read after it)."""
+    checkpoint as the loop runs it by default (each step guarded, the
+    skipped count read after it), after warm-up dispatches: host time (ending
+    in a synchronize), and device time and operations from
+    ``torch.profiler``, with ``sumtree_sample``'s share."""
     from sheeprl_tpu_torch.algos.sac.sac import make_resident_train_step
     from sheeprl_tpu_torch.replay import DeviceReplayState
 
@@ -2198,13 +2214,12 @@ def _profile_sac_dispatch(checkpoint: str, guard: bool = False) -> dict:
     for opt, name in zip(optimizers, ("actor_optimizer", "qf_optimizer", "alpha_optimizer")):
         opt.load_state_dict(state[name])
     drb = _sac_ring(cfg, "cuda").load_state_dict(DeviceReplayState.from_dict(state["rb"]))
-    train = make_resident_train_step(agent, optimizers, cfg, drb, guard=guard)
+    train = make_resident_train_step(agent, optimizers, cfg, drb, guard=True)
     rng = np.random.default_rng(16)
 
     def dispatch():
         drb.add({k: rng.normal(size=(1, 4) + shape).astype(np.float32) for k, (shape, _) in drb.specs.items()})
-        losses, skipped = train(drb.make_job(), [1.0] * 4, 1.0)
-        return float(skipped) if guard else losses
+        return float(train(drb.make_job(), [1.0] * 4, 1.0)[1])
 
     for _ in range(3):
         dispatch()
@@ -2224,7 +2239,7 @@ def _profile_sac_dispatch(checkpoint: str, guard: bool = False) -> dict:
     kern_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events if "sumtree_sample" in e.key)
     top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:8]
     return {
-        "guard": guard,
+        "guard": True,
         "host_ms": float(np.median(host) * 1e3),
         "host_ms_all": [h * 1e3 for h in host],
         "device_ms": device_us / 1e3 if device_us > 0 else None,
@@ -2252,7 +2267,8 @@ def sac_run_phase(workdir: str) -> dict:
     least SAC_RETURN_BAR. Then a resume from the last checkpoint for
     SAC_RESUME_ITERATIONS iterations: the ring, the sum-tree, ``max_p`` and
     the draw generator it restores equal the checkpoint's, and its counters
-    go on."""
+    go on; then the guarded dispatch (the loop's default) under
+    ``torch.profiler``."""
     from sheeprl_tpu_torch.algos.sac import sac as sac_module
     from sheeprl_tpu_torch.replay import DeviceReplayState
 
@@ -2315,7 +2331,7 @@ def sac_run_phase(workdir: str) -> dict:
     sac_module.DeviceReplayBuffer = _Recording
     try:
         resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0", "algo.run_test=false",
-                           f"algo.total_steps={SAC_TOTAL_STEPS + 4 * SAC_RESUME_ITERATIONS}",
+                           f"algo.total_steps={SAC_TOTAL_STEPS + 4 * SAC_RESUME_ITERATIONS}", "checkpoint.save_last=false",
                            f"log_root={_log_root(summary)}"])
     finally:
         sac_module.DeviceReplayBuffer = _Recording.__bases__[0]
@@ -2332,9 +2348,7 @@ def sac_run_phase(workdir: str) -> dict:
                      "gradient_steps": resumed["gradient_steps"], "launches": resume_launches,
                      "restored_equal": sorted(same), "losses": resumed["losses"]}
     log("SAC resume: " + json.dumps({k: v for k, v in out["resume"].items() if k != "losses"}))
-    out["profile"] = _profile_sac_dispatch(summary["checkpoint"])
-    log("SAC dispatch profile: " + json.dumps(out["profile"]))
-    out["profile_guarded"] = _profile_sac_dispatch(summary["checkpoint"], guard=True)
+    out["profile_guarded"] = _profile_sac_dispatch(summary["checkpoint"])
     log("guarded SAC dispatch profile: " + json.dumps(out["profile_guarded"]))
     return out
 
@@ -5934,6 +5948,317 @@ def p2e_dv2_phase(workdir: str) -> dict:
     return out
 
 
+# -- 46-48. Dreamer V1 and Plan2Explore on Dreamer V1 -----------------------------
+
+V1_PRESET = "dreamer_v1_atari_dummy"
+V1_EXPLORE_PRESET = "p2e_dv1_exploration_atari_dummy"
+V1_FINETUNE_PRESET = "p2e_dv1_finetuning_atari_dummy"
+# cuts of scale for the V1 runs: 1 env, learning_starts 128 (past the 50-step
+# window); the replay ratio of 0.1 grants a gradient step every 10 env steps
+V1_LEARNING_STARTS, V1_GRADIENT_STEPS, V1_RESUME_STEPS = 128, 3, 20
+V1_FINETUNE_LEARNING_STARTS, V1_FINETUNE_TOTAL_STEPS = 8, 40
+# the step's learning rates (the recipe's Adam), for the parameter rule of _params_check
+V1_LRS = {"world_model": 6e-4, "actor": 8e-5, "critic": 8e-5}
+
+
+def _v1_step_card_and_cpu(cfg, T: int, B: int) -> dict:
+    """One V1 gradient step on the CPU and on the card from the same seeded
+    weights, batch and injected draws: per device its metrics, parameters,
+    seconds and each optimizer's gradients; the card's modules, optimizers
+    and train step for the profile; the card's launches."""
+    from sheeprl_tpu_torch.algos.dreamer_v1 import dreamer_v1 as dv1
+    from sheeprl_tpu_torch.algos.dreamer_v1.agent import build_agent as build_v1_agent
+    from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import make_optimizers as make_v1_optimizers
+
+    data = {k: v for k, v in _batch(np.random.default_rng(11), T, B, 18).items() if k != "is_first"}
+    results = {}
+    for dev in ("cpu", "cuda"):
+        modules = build_v1_agent(cfg, dev)
+        optimizers = make_v1_optimizers(cfg, *modules)
+        if dev == "cpu":
+            noise = dv1.draw_noise(cfg, T, B, modules[1], torch.Generator().manual_seed(12), "cpu")
+        seen = {k: _capture_grads(opt) for k, opt in optimizers.items()}
+        train = dv1.make_train_step(*modules, optimizers, cfg)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        metrics = train({k: v.to(dev) for k, v in data.items()}, noise=[_to_device(noise, dev)]).cpu()
+        seconds = time.perf_counter() - t0
+        results[dev] = {"metrics": metrics[0], "seconds": seconds, "launches": dict(kernels.LAUNCHES),
+                        "grads": {k: v["grads"] for k, v in seen.items()},
+                        "params": {n: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+                                   for n, m in zip(("world_model", "actor", "critic"), modules)},
+                        "modules": modules, "optimizers": optimizers, "train": train, "data": data}
+    return results
+
+
+def _v1_adam_check(cfg, card: dict, cpu: dict) -> dict:
+    """Each module after the step. Each device's own step: every element
+    within 2 * lr + 1e-6 of the CPU's (Adam's first step moves an element by
+    about lr times its gradient's sign, and the gradients of a 2,500-row
+    step differ in float32 rounding; the share within 1e-6 is reported).
+    Adam on the card's own gradients: the CPU's optimizer from the same
+    seeded weights, handed the card's gradients, lands within PPO_ADAM_ATOL
+    of the card's parameters."""
+    from sheeprl_tpu_torch.algos.dreamer_v1.agent import build_agent as build_v1_agent
+    from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import make_optimizers as make_v1_optimizers
+
+    fresh = build_v1_agent(cfg, "cpu")
+    optimizers = make_v1_optimizers(cfg, *fresh)
+    out = {}
+    for (name, lr), module, key in zip(V1_LRS.items(), fresh, ("world", "actor", "critic")):
+        diffs = torch.cat([(card["params"][name][k] - cpu["params"][name][k]).abs().reshape(-1)
+                           for k in cpu["params"][name]])
+        optimizers[key].step([g.cpu() for g in card["grads"][key]])
+        on_card_grads = _max_param_err(card["params"][name], {k: v.detach() for k, v in module.state_dict().items()})
+        out[name] = {"max_abs_err": float(diffs.max()), "share_within_1e-6": float((diffs <= 1e-6).float().mean()),
+                     "adam_on_card_grads_max_abs_err": on_card_grads}
+        if out[name]["max_abs_err"] > 2 * lr + 1e-6 or on_card_grads > PPO_ADAM_ATOL:
+            raise AssertionError(f"V1 {name} after the step on the card differs from the CPU: {out[name]}")
+    return out
+
+
+def _v1_gru_cost(world_model, T: int, B: int, H: int, imaginations: int, gen) -> dict:
+    """The recurrent model's work in one V1 gradient step at its shapes,
+    alone under ``torch.profiler`` (``Linear``, ELU and the flax-form GRU
+    cell: V1's GRU has no kernel): T steps at B rows and ``imaginations``
+    times H steps at T*B rows, forward and backward to the parameters and
+    the inputs."""
+    rm = world_model.recurrent_model
+    rec, width = rm.rnn.hidden_size, rm.fc.in_features
+    xs = [torch.randn((T, B, width), device="cuda", generator=gen, requires_grad=True)]
+    xs += [torch.randn((H, T * B, width), device="cuda", generator=gen, requires_grad=True)
+           for _ in range(imaginations)]
+    params = list(rm.parameters())
+
+    def work():
+        total = 0.0
+        for x in xs:
+            h = torch.zeros((x.shape[1], rec), device="cuda")
+            for t in range(x.shape[0]):
+                h = rm(x[t], h)
+                total = total + h.sum()
+        return torch.autograd.grad(total, params + xs)
+
+    work()
+    torch.cuda.synchronize()
+    acts = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+        work()
+        torch.cuda.synchronize()
+    events = _device_kernels(prof)
+    return {"device_ms": sum(getattr(e, "self_device_time_total", 0.0) for e in events) / 1e3,
+            "device_ops": sum(e.count for e in events)}
+
+
+def _profile_v1(train, data: dict, world_model, H: int, imaginations: int, agent=None, optimizer=None) -> dict:
+    """One full-recipe V1 (or P2E-DV1 exploration) gradient step after two
+    warm-up steps: host ms, device ms and operations (``torch.profiler``),
+    the convolutions' share, the recurrent model's share
+    (:func:`_v1_gru_cost` over the step's device ms), the top kernels and,
+    with ``agent``, the ensembles' share (:func:`_ensembles_cost`)."""
+    T, B = data["actions"].shape[1:3]
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for _ in range(2):
+        train(data, generator=gen)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        train(data, generator=gen)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    acts = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+        train(data, generator=gen)
+        torch.cuda.synchronize()
+    events = _device_kernels(prof)
+    device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    conv_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events
+                  if any(w in e.key.lower() for w in ("conv", "wgrad", "dgrad", "fprop", "implicit")))
+    gru = _v1_gru_cost(world_model, T, B, H, imaginations, gen)
+    out = {
+        "host_ms": float(np.median(host) * 1e3),
+        "host_ms_all": [h * 1e3 for h in host],
+        "device_ms": device_us / 1e3 if device_us > 0 else None,
+        "device_busy_share": device_us / 1e3 / (np.median(host) * 1e3) if device_us > 0 else None,
+        "device_ops": sum(e.count for e in events),
+        "convolution_share": conv_us / device_us if device_us > 0 else None,
+        "recurrent_model": dict(gru, share=gru["device_ms"] * 1e3 / device_us if device_us > 0 else None),
+        "top": [{"name": e.key[:80], "device_ms": getattr(e, "self_device_time_total", 0.0) / 1e3, "count": e.count}
+                for e in sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:8]],
+    }
+    if agent is not None:
+        ensembles = _ensembles_cost(agent, optimizer, T, B, H - 1, gen)  # V1 imagines H rows, no start row
+        ensembles["share"] = ensembles["device_ms"] * 1e3 / device_us if device_us > 0 else None
+        out["ensembles"] = ensembles
+    return out
+
+
+def v1_step_phase() -> dict:
+    """One Dreamer V1 gradient step at the full recipe (B 50 x T 50, H 15;
+    stochastic 30, recurrent 200, dense 400 x 4, CNN multiplier 32) on the
+    card against the same step on the CPU, TF32 off, from the same seeded
+    weights, batch and injected draws: the discrete actor learning by
+    dynamics backpropagation through 15 imagined RSSM steps. The ten metrics
+    within rtol 1e-4; each Adam's gradient within V2_GRAD_RTOL of its norm;
+    the parameters after Adam as :func:`_v1_adam_check` holds them; no
+    kernel launched. Then the step profiled on the card (host, device, operations,
+    the convolutions' and the recurrent model's shares)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _v2_cfg(V1_PRESET)
+    T, B, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size), int(cfg.algo.horizon)
+    results = _v1_step_card_and_cpu(cfg, T, B)
+    card, cpu = results["cuda"], results["cpu"]
+    _zero_launch_check("V1 step", card["launches"])
+    if not torch.isfinite(card["metrics"]).all():
+        raise AssertionError(f"V1 step: non-finite losses on the card: {card['metrics'].tolist()}")
+    torch.testing.assert_close(card["metrics"], cpu["metrics"], rtol=1e-4, atol=1e-5)
+    out = {"T": T, "B": B, "H": H, "cpu_s": cpu["seconds"], "cuda_s": card["seconds"], "launches": card["launches"],
+           "loss_abs_err": dict(zip(METRIC_NAMES, (card["metrics"] - cpu["metrics"]).abs().tolist()))}
+    for name in card["grads"]:
+        err = _grad_rel_err(card["grads"][name], cpu["grads"][name])
+        out[f"{name}_grad_rel_err"] = err
+        if err > V2_GRAD_RTOL:
+            raise AssertionError(f"V1 step: the {name} gradient on the card is {err} of its norm from the CPU's")
+    out.update(_v1_adam_check(cfg, card, cpu))
+    log("V1 step (card vs CPU): " + json.dumps(out))
+    data = {k: v.cuda() for k, v in card["data"].items()}
+    out["profile"] = _profile_v1(card["train"], data, card["modules"][0], H, 1)
+    log("V1 gradient step profile: " + json.dumps(out["profile"]))
+    return out
+
+
+def _v1_run(args, name: str) -> tuple:
+    """``cli.run(args)`` with the counts zeroed just before and read just
+    after: no kernel on a V1 path; finite metrics, on the card."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.run(args)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if summary["device"].split(":")[0] != "cuda" or not np.isfinite(np.asarray(summary["metrics"])).all():
+        raise AssertionError(f"{name}: on {summary['device']}, metrics {summary['metrics'][:2]}")
+    _zero_launch_check(name, launches)
+    return summary, launches, wall
+
+
+def _v1_evaluation_check(name: str, ckpt: str, summary: dict) -> dict:
+    """``evaluation`` of a V1-family checkpoint on the card: the run's own
+    test episode, and no kernel launched."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = cli.evaluation([f"checkpoint_path={ckpt}"])
+    launches = dict(kernels.LAUNCHES)
+    _zero_launch_check(f"{name} evaluation", launches)
+    if (result["reward"], result["steps"]) != (summary["test_reward"], summary["test_steps"]):
+        raise AssertionError(f"{name} evaluation {result} is not the run's test episode "
+                             f"({summary['test_reward']}, {summary['test_steps']} steps)")
+    return {"reward": result["reward"], "steps": result["steps"], "launches": launches,
+            "steps_per_s": result["steps"] / (time.perf_counter() - t0)}
+
+
+def v1_run_phase(workdir: str) -> dict:
+    """``run preset=dreamer_v1_atari_dummy`` on the card at the recipe's
+    widths (B 50 x T 50, H 15, the 100,000-row sequential buffer) on 1 env,
+    ``learning_starts`` V1_LEARNING_STARTS and V1_GRADIENT_STEPS gradient
+    steps, the player's epsilon exploration on, the greedy test episode, no
+    kernel launched; a resume of V1_RESUME_STEPS steps from exactly the saved
+    buffer; ``evaluation`` of the checkpoint equal to the run's test episode;
+    a ``dry_run``."""
+    from sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1 import DreamerV1Learner
+
+    total = V1_LEARNING_STARTS + 10 * V1_GRADIENT_STEPS
+    summary, launches, wall = _v1_run(
+        [f"preset={V1_PRESET}", "env.num_envs=1", f"algo.learning_starts={V1_LEARNING_STARTS}",
+         f"algo.total_steps={total}", "checkpoint.every=0", "checkpoint.save_last=true", "metric.log_level=0",
+         f"log_root={workdir}"], "V1 run")
+    expl = DreamerV1Learner.metric_names.index("Params/exploration_amount")
+    if (summary["gradient_steps"] != V1_GRADIENT_STEPS or not summary["test_steps"]
+            or any(row[expl] != 0.3 for row in summary["metrics"])):
+        raise AssertionError(f"V1 run: {summary['gradient_steps']} gradient steps, test {summary['test_steps']}")
+    out = _v2_summary(summary, launches, wall)
+    out["losses"] = [dict(zip(DreamerV1Learner.metric_names, row)) for row in summary["metrics"]]
+    log("V1 run: " + json.dumps({k: v for k, v in out.items() if k not in ("losses", "checkpoint")}))
+    resumed, resume_launches, _ = _v1_run(
+        [f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0", "algo.learning_starts=2",
+         f"algo.total_steps={total + V1_RESUME_STEPS}", "checkpoint.save_last=false", "algo.run_test=false",
+         f"log_root={_log_root(summary)}"], "V1 resume")
+    out["resume"] = dict(_v2_resume_check("V1", summary, resumed), launches=resume_launches,
+                         player_steps=resumed["player_steps"])
+    log("V1 resume: " + json.dumps(out["resume"]))
+    out["evaluation"] = _v1_evaluation_check("V1", summary["checkpoint"], summary)
+    log("V1 evaluation: " + json.dumps(out["evaluation"]))
+    dry, dry_launches, dry_wall = _v1_run(
+        [f"preset={V1_PRESET}", "dry_run=true", "algo.per_rank_sequence_length=1", "algo.replay_ratio=0.25",
+         "algo.total_steps=1000000",
+         "algo.learning_starts=500000", "checkpoint.every=0", "metric.log_level=0", f"log_root={workdir}"],
+        "V1 dry run")
+    if (dry["policy_steps"], dry["gradient_steps"], dry["test_steps"]) != (4, 1, 1):
+        raise AssertionError(f"V1 dry run: {dry['policy_steps']} steps, {dry['gradient_steps']} gradient steps")
+    out["dry_run"] = {"policy_steps": dry["policy_steps"], "gradient_steps": dry["gradient_steps"],
+                      "launches": dry_launches, "wall_s": dry_wall}
+    log("V1 dry run: " + json.dumps(out["dry_run"]))
+    return out
+
+
+def p2e_dv1_phase(workdir: str) -> dict:
+    """``run preset=p2e_dv1_exploration_atari_dummy`` on the card (stochastic
+    60, recurrent 400, 10 ensemble members of 400 x 4, B 50 x T 50, H 15) on
+    1 env for V1_GRADIENT_STEPS steps, the intrinsic reward positive, no
+    kernel launched; one exploration step profiled with the ensembles' and
+    the recurrent model's shares; then ``run
+    preset=p2e_dv1_finetuning_atari_dummy`` from its checkpoint with
+    ``buffer.load_from_exploration=true`` (the player on the task actor from
+    the first granted step); ``evaluation`` of both checkpoints equal to
+    their runs' test episodes."""
+    from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import buffer_digest
+    from sheeprl_tpu_torch.algos.p2e_dv1 import p2e_dv1_exploration as p2e
+    from sheeprl_tpu_torch.algos.p2e_dv1.agent import build_agent as build_p2e_agent
+
+    total = V1_LEARNING_STARTS + 10 * V1_GRADIENT_STEPS
+    summary, launches, wall = _v1_run(
+        [f"preset={V1_EXPLORE_PRESET}", "env.num_envs=1", f"algo.learning_starts={V1_LEARNING_STARTS}",
+         f"algo.total_steps={total}", "checkpoint.every=0", "checkpoint.save_last=true", "metric.log_level=0",
+         f"log_root={workdir}"], "P2E-DV1 exploration run")
+    intrinsic = [row[summary["metric_names"].index("Rewards/intrinsic")] for row in summary["metrics"]]
+    if summary["gradient_steps"] != V1_GRADIENT_STEPS or not all(r > 0 for r in intrinsic):
+        raise AssertionError(f"P2E-DV1 exploration: {summary['gradient_steps']} steps, intrinsic rewards {intrinsic}")
+    out = {"exploration": _v2_summary(summary, launches, wall)}
+    out["exploration"]["metrics"] = [dict(zip(summary["metric_names"], row)) for row in summary["metrics"]]
+    log("P2E-DV1 exploration run: " + json.dumps({k: v for k, v in out["exploration"].items()
+                                                  if k not in ("metrics", "checkpoint")}))
+    out["exploration"]["evaluation"] = _v1_evaluation_check("P2E-DV1 exploration", summary["checkpoint"], summary)
+
+    cfg = load_config(find_run_config(summary["checkpoint"]))
+    agent = build_p2e_agent(cfg, "cuda", load_checkpoint(summary["checkpoint"]))
+    optimizers = p2e.make_optimizers(cfg, agent)
+    T, B, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size), int(cfg.algo.horizon)
+    data = {k: v.cuda() for k, v in _batch(np.random.default_rng(14), T, B, 18).items() if k != "is_first"}
+    out["exploration"]["profile"] = _profile_v1(p2e.make_train_step(agent, optimizers, cfg), data,
+                                                agent.world_model, H, 2, agent, optimizers["ensembles"])
+    log("P2E-DV1 exploration step profile: " + json.dumps(out["exploration"]["profile"]))
+    del agent, optimizers, data
+
+    fine, fine_launches, fine_wall = _v1_run(
+        [f"preset={V1_FINETUNE_PRESET}", f"checkpoint.exploration_ckpt_path={summary['checkpoint']}",
+         "buffer.load_from_exploration=true", f"algo.learning_starts={V1_FINETUNE_LEARNING_STARTS}",
+         f"algo.total_steps={V1_FINETUNE_TOTAL_STEPS}", "checkpoint.every=0", "checkpoint.save_last=true",
+         "metric.log_level=0", f"log_root={workdir}"], "P2E-DV1 finetuning run")
+    # the fresh Ratio's first call at step 8 grants none, then one every 10
+    first_grant = V1_FINETUNE_LEARNING_STARTS + 10
+    if (fine["switched_at"] != first_grant or fine["player_steps"] != V1_FINETUNE_TOTAL_STEPS
+            or fine["restored_buffer"] != buffer_digest(load_checkpoint(summary["checkpoint"])["rb"])):
+        raise AssertionError(f"P2E-DV1 finetuning: switched at {fine['switched_at']}, {fine['player_steps']} player "
+                             f"steps, restored {fine['restored_buffer']}")
+    out["finetuning"] = _v2_summary(fine, fine_launches, fine_wall)
+    out["finetuning"]["switched_at"] = fine["switched_at"]
+    log("P2E-DV1 finetuning run: " + json.dumps({k: v for k, v in out["finetuning"].items() if k != "checkpoint"}))
+    out["finetuning"]["evaluation"] = _v1_evaluation_check("P2E-DV1 finetuning", fine["checkpoint"], fine)
+    log("P2E-DV1 evaluations: " + json.dumps({k: out[k]["evaluation"] for k in ("exploration", "finetuning")}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
@@ -6017,6 +6342,10 @@ def main() -> int:
         v2_run = timed("v2_run", v2_run_phase, workdir)
         v2_episode = timed("v2_episode", v2_episode_phase, workdir)
         p2e_dv2 = timed("p2e_dv2", p2e_dv2_phase, workdir)
+    v1_step = timed("v1_step", v1_step_phase)
+    with tempfile.TemporaryDirectory() as workdir:
+        v1_run = timed("v1_run", v1_run_phase, workdir)
+        p2e_dv1 = timed("p2e_dv1", p2e_dv1_phase, workdir)
     paths = {"run": run, "run_resume": run["resume"], "serve": serve, "evaluation": rssm_eval, "ppo_run": ppo_run,
              "ppo_serve": ppo_serve, "ppo_evaluation": ppo_eval, "sac_run": sac_run, "sac_serve": sac_serve,
              "sac_evaluation": sac_eval, "resident_run": resident_run, "resident_resume": resident_run["resume"],
@@ -6045,7 +6374,13 @@ def main() -> int:
              "p2e_dv2_exploration": p2e_dv2["exploration"],
              "p2e_dv2_exploration_evaluation": p2e_dv2["exploration"]["evaluation"],
              "p2e_dv2_finetuning": p2e_dv2["finetuning"],
-             "p2e_dv2_finetuning_evaluation": p2e_dv2["finetuning"]["evaluation"]}
+             "p2e_dv2_finetuning_evaluation": p2e_dv2["finetuning"]["evaluation"],
+             "v1_step": v1_step, "v1_run": v1_run, "v1_resume": v1_run["resume"],
+             "v1_evaluation": v1_run["evaluation"], "v1_dry_run": v1_run["dry_run"],
+             "p2e_dv1_exploration": p2e_dv1["exploration"],
+             "p2e_dv1_exploration_evaluation": p2e_dv1["exploration"]["evaluation"],
+             "p2e_dv1_finetuning": p2e_dv1["finetuning"],
+             "p2e_dv1_finetuning_evaluation": p2e_dv1["finetuning"]["evaluation"]}
     rows = [gru] + two_hot + [gae_row, sumtree_row, scatter_row]
     for row in rows:
         row["launches_by_path"] = {name: path["launches"][row["name"]] for name, path in paths.items()}
@@ -6085,7 +6420,8 @@ def main() -> int:
                       "continuous_ring": continuous_ring, "droq": droq, "sac_ae": sac_ae, "sac_next_obs": sac_next_obs,
                       "explore_step": explore_step, "explore_run": explore, "finetune": finetune,
                       "classic_ppo": classic, "dry_runs": dry_runs, "v2_step": v2_step, "v2_run": v2_run,
-                      "v2_episode": v2_episode, "p2e_dv2": p2e_dv2}))
+                      "v2_episode": v2_episode, "p2e_dv2": p2e_dv2, "v1_step": v1_step, "v1_run": v1_run,
+                      "p2e_dv1": p2e_dv1}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

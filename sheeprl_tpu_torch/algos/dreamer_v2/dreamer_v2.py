@@ -381,6 +381,9 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
 
     ``learner`` holds ``world_model``, ``metric_names``, ``random_prefill``
     (random actions until ``learning_starts`` on a fresh run),
+    ``player_cls`` (:class:`PlayerDV2`, or Dreamer V1's player),
+    ``rows_with_is_first`` (the V2 rows' ``is_first`` key, and a dry run's
+    first row terminated and truncated; Dreamer V1's rows have neither),
     ``player_actor(granted)`` (the actor the player acts with before and from
     the first granted gradient step), ``test_actor``, ``train(data, cum,
     generator)`` (a list of metric rows; ``cum`` the run's gradient steps
@@ -443,19 +446,21 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
         generator.set_state(state["rng"])
     action_rng = np.random.default_rng(seed)
     expl_amount = float(cfg.algo.actor.get("expl_amount", 0.0) or 0.0)
-    player = PlayerDV2(learner.world_model, learner.player_actor(granted=False), num_envs, generator, expl_amount)
+    player_cls, with_is_first = learner.player_cls, learner.rows_with_is_first
+    player = player_cls(learner.world_model, learner.player_actor(granted=False), num_envs, generator, expl_amount)
     clip_rewards = bool(cfg.env.get("clip_rewards", False))
 
-    # the first observation: its row has a zero action and reward and is_first
+    # the first observation: its row has a zero action and reward (and is_first)
     step_data: Dict[str, np.ndarray] = {}
     obs = envs.reset(seed=seed)[0]
     for k in obs_keys:
         step_data[k] = np.asarray(obs[k])[np.newaxis]
     for k in ("terminated", "truncated"):
-        step_data[k] = np.full((1, num_envs, 1), 1.0 if dry_run else 0.0, dtype=np.float32)
+        step_data[k] = np.full((1, num_envs, 1), 1.0 if dry_run and with_is_first else 0.0, dtype=np.float32)
     step_data["actions"] = np.zeros((1, num_envs, int(np.sum(actions_dim))), dtype=np.float32)
     step_data["rewards"] = np.zeros((1, num_envs, 1), dtype=np.float32)
-    step_data["is_first"] = np.ones((1, num_envs, 1), dtype=np.float32)
+    if with_is_first:
+        step_data["is_first"] = np.ones((1, num_envs, 1), dtype=np.float32)
     rb.add(step_data)
     player.init_states()
 
@@ -488,7 +493,8 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
                 actions = torch.cat(acts, dim=-1).cpu().numpy()
                 real_actions = actions if is_continuous else np.stack([a.argmax(dim=-1).cpu().numpy() for a in acts],
                                                                       axis=-1)
-            step_data["is_first"] = np.logical_or(step_data["terminated"], step_data["truncated"]).astype(np.float32)
+            if with_is_first:
+                step_data["is_first"] = np.logical_or(step_data["terminated"], step_data["truncated"]).astype(np.float32)
             next_obs, rewards, terminated, truncated, infos = envs.step(real_actions)
             dones = np.logical_or(terminated, truncated)
             if dry_run and episode_buffer:
@@ -527,7 +533,8 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
             for k in ("terminated", "truncated", "rewards"):
                 reset_data[k] = np.zeros((1, n, 1), dtype=np.float32)
             reset_data["actions"] = np.zeros((1, n, int(np.sum(actions_dim))), dtype=np.float32)
-            reset_data["is_first"] = np.ones((1, n, 1), dtype=np.float32)
+            if with_is_first:
+                reset_data["is_first"] = np.ones((1, n, 1), dtype=np.float32)
             rb.add(reset_data, dones_idxes)
             step_data["terminated"][:, dones_idxes] = 0.0
             step_data["truncated"][:, dones_idxes] = 0.0
@@ -592,7 +599,7 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
     loop_s = time.perf_counter() - t_loop
     envs.close()
     if cfg.algo.get("run_test", True):
-        test_player = PlayerDV2(learner.world_model, learner.test_actor, 1, generator, expl_amount)
+        test_player = player_cls(learner.world_model, learner.test_actor, 1, generator, expl_amount)
         summary["test_reward"], summary["test_steps"] = test(test_player, cfg, device, greedy=True)
     logger.close()
     steps = policy_step - (start_iter - 1) * num_envs
@@ -618,6 +625,8 @@ class DreamerV2Learner:
 
     random_prefill = True
     metric_names = METRIC_NAMES
+    player_cls = PlayerDV2
+    rows_with_is_first = True
 
     def __init__(self, cfg: Any, device: torch.device, state: Optional[Dict[str, Any]]) -> None:
         self.world_model, self.actor, self.critic, self.target_critic = build_agent(cfg, device, state)

@@ -53,21 +53,19 @@ def compute_lambda_values(
 
 @torch.no_grad()
 def test(player: Any, cfg: Any, device: "torch.device | str", greedy: bool = True) -> Tuple[float, int]:
-    """One episode of ``player`` (a :class:`~sheeprl_tpu_torch.algos.dreamer_v2.agent.PlayerDV2`)
-    on a fresh env seeded with ``cfg.seed``, batch 1, its draws from a
+    """One episode of ``player`` (a :class:`~sheeprl_tpu_torch.algos.dreamer_v2.agent.PlayerDV2`,
+    or Dreamer V1's player) on a fresh env seeded with ``cfg.seed``, batch 1, its draws from a
     generator of its own seeded with ``cfg.seed`` (the training generator is
     left as it is, and an evaluation of the checkpoint on the same device
     replays the episode); prints its return and returns it with the
     episode's step count. Greedy by default, as the JAX package tests a V2
     agent."""
-    from sheeprl_tpu_torch.algos.dreamer_v2.agent import PlayerDV2
-
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     obs_keys = cnn_keys + list(cfg.algo.mlp_keys.encoder)
     env = make_env(cfg, int(cfg.seed))
     obs = env.reset(seed=int(cfg.seed))[0]
     generator = torch.Generator(device=device).manual_seed(int(cfg.seed))
-    episode_player = PlayerDV2(player.world_model, player.actor, 1, generator, player.expl_amount)
+    episode_player = type(player)(player.world_model, player.actor, 1, generator, player.expl_amount)
     episode_player.init_states()
     done, cumulative, steps = False, 0.0, 0
     while not done:

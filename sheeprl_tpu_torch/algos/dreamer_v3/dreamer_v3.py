@@ -74,6 +74,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
     compute_lambda_values,
     init_moments,
     moments_update,
+    patch_restarted_envs,
     prepare_obs,
     test,
 )
@@ -519,7 +520,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
     logger = get_logger(cfg, log_dir)
     print(f"Log dir: {log_dir}", flush=True)
-    envs = make_vector_env(cfg, seed)
+    envs = make_vector_env(cfg, seed, restart_on_exception=True)
     cfg["spaces"] = dotdict(envs.spaces)  # what serve reads off the run's config.json
     is_continuous, actions_dim = action_dims(cfg.spaces)
     if is_continuous:
@@ -702,6 +703,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         env_s += time.perf_counter() - t_env
 
         step_data["is_first"] = np.zeros_like(step_data["terminated"])
+        if "restart_on_exception" in infos:
+            patch_restarted_envs(infos["restart_on_exception"], dones, step_data,
+                                 rb=None if resident else rb, driver=driver if resident else None)
         if log_level > 0:
             for i, ep_rew, ep_len in infos.get("episodes", ()):
                 if aggregator is not None:

@@ -9,7 +9,8 @@ import torch
 
 from sheeprl_tpu_torch.envs import make_env
 
-__all__ = ["AGGREGATOR_KEYS", "prepare_obs", "init_moments", "moments_update", "compute_lambda_values", "test"]
+__all__ = ["AGGREGATOR_KEYS", "prepare_obs", "init_moments", "moments_update", "compute_lambda_values", "test",
+           "patch_restarted_envs"]
 
 #: the metrics the DreamerV3 loop aggregates (JAX ``AGGREGATOR_KEYS``)
 AGGREGATOR_KEYS = {
@@ -26,6 +27,28 @@ AGGREGATOR_KEYS = {
     "State/post_entropy",
     "State/prior_entropy",
 }
+
+
+def patch_restarted_envs(restarted: Sequence[bool], dones: np.ndarray, step_data: Dict[str, np.ndarray],
+                         rb: Any = None, driver: Any = None) -> None:
+    """The JAX Dreamer loops' ``restart_on_exception`` patch: for each env
+    rebuilt by ``RestartOnException`` in a step that did not end its
+    episode, the env's last stored row (the host buffer's, or the
+    ring driver's newest staged one) becomes truncated, not terminated and
+    not first (the ring stores no ``truncated``), and the step's row starts
+    a new episode (``is_first``)."""
+    for i, flag in enumerate(restarted):
+        if not flag or dones[i]:
+            continue
+        if rb is not None:
+            sub = rb.buffer[i]
+            last = (sub.pos - 1) % len(sub)
+            sub.buffer["terminated"][last] = 0.0
+            sub.buffer["truncated"][last] = 1.0
+            sub.buffer["is_first"][last] = 0.0
+        if driver is not None:
+            driver.patch_last(i, {"terminated": 0.0, "is_first": 0.0})
+        step_data["is_first"][0, i] = 1.0
 
 
 def init_moments(device: "torch.device | str" = "cpu") -> Dict[str, torch.Tensor]:

@@ -43,6 +43,7 @@ import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import action_dims, actor_dists, actor_sample
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import Player, _grads, _uniform
+from sheeprl_tpu_torch.algos.dreamer_v3.utils import patch_restarted_envs
 from sheeprl_tpu_torch.algos.dreamer_v3.evaluate import DreamerV3Agent
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.p2e_dv3.agent import P2EAgent, build_agent
@@ -495,6 +496,8 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
         env_s += time.perf_counter() - t_env
 
         step_data["is_first"] = np.zeros_like(step_data["terminated"])
+        if "restart_on_exception" in infos:
+            patch_restarted_envs(infos["restart_on_exception"], dones, step_data, rb=rb)
         if log_level > 0:
             for i, ep_rew, ep_len in infos.get("episodes", ()):
                 if aggregator is not None:
@@ -664,7 +667,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
     logger = get_logger(cfg, log_dir)
     print(f"Log dir: {log_dir}", flush=True)
-    envs = make_vector_env(cfg, int(cfg.seed))
+    envs = make_vector_env(cfg, int(cfg.seed), restart_on_exception=True)
     cfg["spaces"] = dotdict(envs.spaces)
     logger.log_hyperparams(cfg)
     write_run_config(log_dir, plain(cfg))

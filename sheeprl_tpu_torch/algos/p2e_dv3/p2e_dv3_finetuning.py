@@ -115,7 +115,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
     logger = get_logger(cfg, log_dir)
     print(f"Log dir: {log_dir}", flush=True)
-    envs = make_vector_env(cfg, int(cfg.seed))
+    envs = make_vector_env(cfg, int(cfg.seed), restart_on_exception=True)
     cfg["spaces"] = dotdict(envs.spaces)
     logger.log_hyperparams(cfg)
     write_run_config(log_dir, plain(cfg))

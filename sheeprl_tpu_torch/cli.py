@@ -5,7 +5,8 @@
         preset=<configs/*.json: sac_per, sac, droq, sac_ae, ppo, a2c, ppo_recurrent, dreamer_v3_100k_atari_dummy,
                 dreamer_v3_100k_atari_dummy_resident, dreamer_v3_continuous_dummy,
                 p2e_dv3_exploration_atari_dummy, p2e_dv3_finetuning_atari_dummy, dreamer_v2_atari_dummy,
-                dreamer_v2_ms_pacman_dummy, p2e_dv2_exploration_atari_dummy, p2e_dv2_finetuning_atari_dummy> \\
+                dreamer_v2_ms_pacman_dummy, p2e_dv2_exploration_atari_dummy, p2e_dv2_finetuning_atari_dummy,
+                dreamer_v1_atari_dummy, p2e_dv1_exploration_atari_dummy, p2e_dv1_finetuning_atari_dummy> \\
         [fabric.accelerator=cuda|cpu] [algo.total_steps=...] [checkpoint.resume_from=<ckpt>|latest] \\
         [checkpoint.exploration_ckpt_path=<ckpt>] [dry_run=true] ...
     python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> \\
@@ -17,7 +18,9 @@
 ``run`` trains from a preset (``configs/<name>.json``), or resuming, from the
 checkpoint's ``config.json``, with the algorithm ``algo.name`` names (a
 trainer of :data:`~sheeprl_tpu_torch.utils.registry.TRAINERS`); :data:`~sheeprl_tpu_torch.config.RUN_DEFAULTS`
-fill what it lacks and the ``key.path=value`` overrides win.
+fill what it lacks and the ``key.path=value`` overrides win; then
+:func:`check_configs` checks the result as the JAX CLI does. A command line
+whose first word is not a verb is ``run``'s.
 Every run writes into a directory of its own,
 ``<log_root>/<algo.name>/<env.id>/<run_name>/version_N`` (``run_name`` is
 timestamped): its ``config.json``, ``checkpoint/``, ``metrics.jsonl``,
@@ -26,8 +29,8 @@ config but its directory, ``checkpoint.resume_from`` and
 ``algo.learning_starts``, and writes into a new directory.
 ``checkpoint.resume_from=latest`` resumes from the newest complete
 checkpoint under ``<log_root>/<algo.name>/<env.id>`` (the preset's and the
-overrides' values), skipping torn saves. ``p2e_dv3_finetuning`` and
-``p2e_dv2_finetuning`` start from ``checkpoint.exploration_ckpt_path``: the
+overrides' values), skipping torn saves. ``p2e_dv3_finetuning``,
+``p2e_dv2_finetuning`` and ``p2e_dv1_finetuning`` start from ``checkpoint.exploration_ckpt_path``: the
 exploration run must have the same ``env.id``, and its env keys
 :data:`EXPLORATION_ENV_KEYS` win.
 ``dry_run=true`` runs one iteration with no warm-up. ``serve`` reads
@@ -72,6 +75,7 @@ __all__ = [
     "evaluation",
     "agents",
     "compose_run_config",
+    "check_configs",
     "compose_serve_config",
     "compose_eval_config",
     "resolve_device",
@@ -202,7 +206,21 @@ def compose_run_config(args: Sequence[str]) -> DotDict:
         base = merge(base, _resumed_config(plain(load_config(find_run_config(resume))), fresh))
     elif not names:
         raise ValueError("run needs preset=<name> (see sheeprl_tpu_torch/configs) or checkpoint.resume_from=<ckpt>")
-    return _resolve_run_names(apply_overrides(base, overrides))
+    cfg = apply_overrides(base, overrides)
+    check_configs(cfg)
+    return _resolve_run_names(cfg)
+
+
+def check_configs(cfg: DotDict) -> None:
+    """JAX ``check_configs``' checks of a run config that the port has keys
+    for: a negative ``algo.learning_starts`` raises; an ``env.action_repeat``
+    below 1 becomes 1."""
+    learning_starts = (cfg.get("algo") or {}).get("learning_starts")
+    if learning_starts is not None and learning_starts < 0:
+        raise ValueError("The `algo.learning_starts` parameter must be greater or equal to zero.")
+    env = cfg.get("env") or {}
+    if env.get("action_repeat") is not None and env["action_repeat"] < 1:
+        env["action_repeat"] = 1
 
 
 def compose_eval_config(args: Sequence[str]) -> DotDict:
@@ -250,7 +268,7 @@ EXPLORATION_ENV_KEYS = (
 
 
 #: the algorithms that start from an exploration run's checkpoint
-FINETUNING_ALGOS = ("p2e_dv3_finetuning", "p2e_dv2_finetuning")
+FINETUNING_ALGOS = ("p2e_dv3_finetuning", "p2e_dv2_finetuning", "p2e_dv1_finetuning")
 
 
 def _exploration_handoff(cfg: DotDict) -> None:
@@ -342,7 +360,10 @@ _VERBS = {"run": run, "serve": serve, "evaluation": evaluation, "eval": evaluati
 
 
 def main(argv: Optional[List[str]] = None) -> None:
+    """Dispatch on the first word when it is a verb; otherwise every word is
+    an argument of ``run``, as in the JAX CLI."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    if not argv or argv[0] not in _VERBS:
-        raise SystemExit(f"usage: python -m sheeprl_tpu_torch {{{'|'.join(_VERBS)}}} key=value ...")
-    _VERBS[argv[0]](argv[1:])
+    if argv and argv[0] in _VERBS:
+        _VERBS[argv[0]](argv[1:])
+    else:
+        run(argv)

@@ -361,11 +361,16 @@ class BernoulliSafeMode:
 
 
 def kl_divergence(p, q) -> torch.Tensor:
-    """KL(p || q) for ``Independent`` pairs of one-hot categoricals."""
+    """KL(p || q) for ``Independent`` pairs of one-hot categoricals or of
+    Normals, in the JAX package's formulas."""
     if isinstance(p, Independent) and isinstance(q, Independent):
         if p.ndims != q.ndims:
             raise ValueError("Independent KL requires matching event ndims")
         return p._reduce(kl_divergence(p.base, q.base))
     if isinstance(p, OneHotCategorical) and isinstance(q, OneHotCategorical):
         return torch.sum(p.probs * (p.logits - q.logits), dim=-1)
+    if isinstance(p, Normal) and isinstance(q, Normal):
+        var_ratio = (p.scale / q.scale) ** 2
+        t1 = ((p.loc - q.loc) / q.scale) ** 2
+        return 0.5 * (var_ratio + t1 - 1 - torch.log(var_ratio))
     raise NotImplementedError(f"KL not implemented for {type(p).__name__} || {type(q).__name__}")

@@ -6,6 +6,7 @@ from sheeprl_tpu_torch.envs.dummy import (
     DiscreteDummyEnv,
     MultiDiscreteDummyEnv,
     resize_area,
+    rgb_to_gray,
 )
 from sheeprl_tpu_torch.envs.vector import SyncVectorEnv, make_env, make_vector_env
 
@@ -21,4 +22,5 @@ __all__ = [
     "make_env",
     "make_vector_env",
     "resize_area",
+    "rgb_to_gray",
 ]

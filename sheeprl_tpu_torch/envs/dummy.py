@@ -4,7 +4,8 @@ config's ``spaces`` block.
 
 - :class:`AtariProtocolDummyEnv`, the Atari-protocol stand-in; its area
   resize is :func:`resize_area`, which reproduces OpenCV's ``INTER_AREA``
-  for uint8 images.
+  for uint8 images, and its gray frames :func:`rgb_to_gray`, OpenCV's
+  ``COLOR_RGB2GRAY``.
 - The step-counter envs of the JAX test suite, one per action-space kind
   (:class:`ContinuousDummyEnv`, :class:`DiscreteDummyEnv`,
   :class:`MultiDiscreteDummyEnv`): every observation value is the step
@@ -25,6 +26,7 @@ __all__ = [
     "MultiDiscreteDummyEnv",
     "COUNTER_ENVS",
     "resize_area",
+    "rgb_to_gray",
 ]
 
 
@@ -70,6 +72,22 @@ def resize_area(image: np.ndarray, height: int, width: int) -> np.ndarray:
     for j in range(yi.shape[1]):
         out = out + ya[:, j, None, None] * rows[yi[:, j]]
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+#: OpenCV's fixed-point gray weights of R, G and B for 8-bit images (0.299,
+#: 0.587, 0.114 scaled by 2^15, summing to 2^15: ``color_rgb.simd.hpp``'s
+#: ``RY15``, ``GY15``, ``BY15``)
+_GRAY_WEIGHTS = (9798, 19235, 3735)
+_GRAY_SHIFT = 15
+
+
+def rgb_to_gray(image: np.ndarray) -> np.ndarray:
+    """An ``(H, W, 3)`` uint8 RGB image as ``(H, W, 1)`` uint8 gray, with
+    OpenCV's ``COLOR_RGB2GRAY`` arithmetic for 8-bit images: the weighted sum
+    in integers, rounded by adding half of ``2^15`` before the shift."""
+    rgb = image.astype(np.int32)
+    acc = sum(rgb[..., c] * w for c, w in enumerate(_GRAY_WEIGHTS))
+    return ((acc + (1 << (_GRAY_SHIFT - 1))) >> _GRAY_SHIFT).astype(np.uint8)[..., None]
 
 
 class _CounterEnv:
@@ -144,9 +162,9 @@ class AtariProtocolDummyEnv:
     """Deterministic ALE-protocol stand-in: 210x160x3 uint8 raw frames
     resized to ``screen_size``, 18 actions, deterministic noop starts,
     frame-skip with a 2-frame max-pool, a 3-lives game-over episode and a
-    scripted action-coupled reward. Everything is a pure function of
-    ``(seed, action sequence)``; ``step``/``reset`` follow the gymnasium
-    protocol."""
+    scripted action-coupled reward; with ``grayscale`` the resized frame
+    becomes one gray channel. Everything is a pure function of ``(seed,
+    action sequence)``; ``step``/``reset`` follow the gymnasium protocol."""
 
     RAW_SHAPE = (210, 160, 3)
     N_ACTIONS = 18
@@ -161,9 +179,8 @@ class AtariProtocolDummyEnv:
         life_len: int = 500,
         seed: int = 0,
     ):
-        if grayscale:
-            raise NotImplementedError("grayscale observations are not ported yet")
         self.frame_skip = int(frame_skip)
+        self._grayscale = bool(grayscale)
         self._screen_size = int(screen_size)
         self._noop_max = int(noop_max)
         self._start_lives = int(lives)
@@ -183,7 +200,9 @@ class AtariProtocolDummyEnv:
     def spaces(self) -> Dict[str, dict]:
         """The run config's ``spaces`` block for this env."""
         s = self._screen_size
-        return {"obs": {"rgb": {"shape": [s, s, 3], "dtype": "uint8"}}, "actions": {"n": [self.N_ACTIONS], "continuous": False}}
+        channels = 1 if self._grayscale else 3
+        return {"obs": {"rgb": {"shape": [s, s, channels], "dtype": "uint8"}},
+                "actions": {"n": [self.N_ACTIONS], "continuous": False}}
 
     def _raw_frame(self, t: int, action: int) -> np.ndarray:
         frame = np.roll(self._base, shift=(t * 2) % self.RAW_SHAPE[0], axis=0)
@@ -205,7 +224,8 @@ class AtariProtocolDummyEnv:
 
     def _observe(self, frames: List[np.ndarray]) -> Dict[str, np.ndarray]:
         pooled = np.maximum(frames[-1], frames[-2]) if len(frames) >= 2 else frames[-1]
-        return {"rgb": resize_area(pooled, self._screen_size, self._screen_size)}
+        frame = resize_area(pooled, self._screen_size, self._screen_size)
+        return {"rgb": rgb_to_gray(frame) if self._grayscale else frame}
 
     def step(self, action):
         action = int(action)

@@ -10,7 +10,11 @@ With ``restart_attempts > 0`` or a ``step_timeout`` (``env.restart_attempts``,
 :class:`~sheeprl_tpu_torch.fault.watchdog.SelfHealingEnv` holding its
 factory: a crash or hang rebuilds the env with bounded retries and
 exponential backoff and comes back as a truncation; ``env_restarts`` counts
-the rebuilds (the run summary's ``Fault/env_restarts``)."""
+the rebuilds (the run summary's ``Fault/env_restarts``). With
+``restart_on_exception`` (the Dreamer V3 family's loops, as in JAX) each env
+is a :class:`~sheeprl_tpu_torch.envs.wrappers.RestartOnException` first: a
+step it recovered shows in ``infos["restart_on_exception"]`` (one bool per
+env) and starts the env's episode counters again."""
 
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from sheeprl_tpu_torch.envs.wrappers import (
     ActionsAsObservationWrapper,
     FrameStack,
     MaskVelocityWrapper,
+    RestartOnException,
     RewardAsObservationWrapper,
 )
 
@@ -74,8 +79,13 @@ class SyncVectorEnv:
         obs, rewards, terminated, truncated = [], [], [], []
         final_obs: List[Optional[Dict[str, np.ndarray]]] = [None] * self.num_envs
         episodes = []
+        restarted = np.zeros(self.num_envs, dtype=bool)
         for i, (env, action) in enumerate(zip(self.envs, np.asarray(actions).reshape(self.num_envs, -1))):
-            o, r, term, trunc, _ = env.step(action[0] if action.size == 1 else action)
+            o, r, term, trunc, info = env.step(action[0] if action.size == 1 else action)
+            if info.get("restart_on_exception", False):
+                restarted[i] = True  # a fresh env on its reset observation: a new episode
+                self._elapsed[i] = 0
+                self._returns[i] = 0
             self._elapsed[i] += 1
             self._returns[i] += r
             if self.max_episode_steps is not None and self._elapsed[i] >= self.max_episode_steps:
@@ -94,6 +104,8 @@ class SyncVectorEnv:
         if episodes:
             infos["final_obs"] = final_obs
             infos["episodes"] = episodes
+        if restarted.any():
+            infos["restart_on_exception"] = restarted
         return (
             self._stack(obs),
             np.asarray(rewards, dtype=np.float64),
@@ -151,12 +163,13 @@ def make_env(cfg: Any, seed: int) -> Any:
     ``actions_as_observation.num_stack`` [-1] > 0;
     :class:`RewardAsObservationWrapper` with ``reward_as_observation``
     [false]. The vector env applies ``max_episode_steps``. The port's envs
-    give their frames in RGB at ``screen_size`` and record no video:
-    ``grayscale`` and ``capture_video`` raise."""
+    give their frames at ``screen_size`` and record no video:
+    ``capture_video`` raises, and ``grayscale`` raises on every env but the
+    Atari-protocol dummy, whose frames it turns gray."""
     env_cfg = cfg.env
     if env_cfg.get("capture_video", False):
         raise ValueError("env.capture_video=true: the port records no video (it has no gymnasium RecordVideo)")
-    if env_cfg.get("grayscale", False):
+    if env_cfg.get("grayscale", False) and env_cfg.id != "atari_protocol_dummy":
         raise NotImplementedError(f"env.grayscale=true: {env_cfg.id} gives RGB frames only in the port")
     env = _base_env(cfg, seed)
     cnn_enc = list(cfg.algo.cnn_keys.encoder or [])
@@ -193,11 +206,14 @@ def make_env(cfg: Any, seed: int) -> Any:
     return env
 
 
-def make_vector_env(cfg: Any, seed: int) -> SyncVectorEnv:
+def make_vector_env(cfg: Any, seed: int, restart_on_exception: bool = False) -> SyncVectorEnv:
     """``cfg.env.num_envs`` copies of the env ``cfg.env.id`` names; env ``i``
-    is built with ``seed + i``, self-healing as ``env.restart_attempts`` and
+    is built with ``seed + i``, wrapped in :class:`RestartOnException` with
+    ``restart_on_exception``, self-healing as ``env.restart_attempts`` and
     ``env.step_timeout`` ask."""
     envs = [lambda i=i: make_env(cfg, seed + i) for i in range(int(cfg.env.num_envs))]
+    if restart_on_exception:
+        envs = [lambda fn=fn: RestartOnException(fn) for fn in envs]
     return SyncVectorEnv(
         envs, cfg.env.get("max_episode_steps"), restart_attempts=int(cfg.env.get("restart_attempts", 0) or 0),
         restart_backoff=float(cfg.env.get("restart_backoff", 0.5)), step_timeout=cfg.env.get("step_timeout"),

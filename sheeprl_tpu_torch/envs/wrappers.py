@@ -11,7 +11,9 @@ observation.
   several);
 - :class:`ActionRepeat`, :class:`MaskVelocityWrapper`, :class:`FrameStack`,
   :class:`RewardAsObservationWrapper`, :class:`ActionsAsObservationWrapper`,
-  with the JAX wrappers' semantics and checks.
+  with the JAX wrappers' semantics and checks;
+- :class:`RestartOnException`, which rebuilds a crashed env in place and
+  says so in the step's ``info``, for the Dreamer loops' buffer patch.
 
 Frames are channel-last, so ``FrameStack`` gives ``(H, W, C * num_stack)``.
 The JAX ``FrameStack`` re-primes its history on DIAMBRA's round and stage
@@ -20,8 +22,10 @@ flags; no env of the port emits them, so the port's has no such flush."""
 from __future__ import annotations
 
 import copy
+import time
+import warnings
 from collections import deque
-from typing import Any, Dict, List, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Sequence, Tuple, Type, Union
 
 import numpy as np
 
@@ -35,6 +39,7 @@ __all__ = [
     "FrameStack",
     "RewardAsObservationWrapper",
     "ActionsAsObservationWrapper",
+    "RestartOnException",
 ]
 
 
@@ -309,3 +314,55 @@ class ActionsAsObservationWrapper(Wrapper):
         obs = dict(obs)
         obs["action_stack"] = self._history.snapshot()
         return obs, info
+
+
+class RestartOnException(Wrapper):
+    """Rebuilds the env from ``env_fn`` when one of ``exceptions`` escapes
+    its ``step`` or ``reset`` (the JAX wrapper's semantics): a failed step
+    comes back as the fresh env's reset observation with reward 0, neither
+    terminated nor truncated, and ``info["restart_on_exception"] = True``; a
+    failed reset as the fresh env's reset with the same flag. More than
+    ``maxfails`` failures inside one ``window`` of seconds raise. Each
+    rebuild waits ``wait`` seconds first (the JAX default 20; tests pass 0).
+    The Dreamer loops turn the flag into a truncation of the env's last
+    stored row."""
+
+    def __init__(self, env_fn: Callable[[], Any],
+                 exceptions: Union[Type[BaseException], Sequence[Type[BaseException]]] = (Exception,),
+                 window: float = 300.0, maxfails: int = 2, wait: float = 20.0) -> None:
+        self._env_fn = env_fn
+        self._exceptions = tuple(exceptions) if isinstance(exceptions, (tuple, list)) else (exceptions,)
+        self._window = float(window)
+        self._maxfails = int(maxfails)
+        self._wait = float(wait)
+        self._window_start = time.time()
+        self._fail_count = 0
+        super().__init__(env_fn())
+
+    def _recover(self, exc: BaseException, phase: str) -> None:
+        now = time.time()
+        if now - self._window_start > self._window:
+            self._window_start = now
+            self._fail_count = 0
+        self._fail_count += 1
+        if self._fail_count > self._maxfails:
+            raise RuntimeError(f"The env crashed too many times: {self._fail_count}") from exc
+        warnings.warn(f"{phase} - Restarting env after crash with {type(exc).__name__}: {exc}")
+        time.sleep(self._wait)
+        self.env = self._env_fn()
+
+    def step(self, action):
+        try:
+            return self.env.step(action)
+        except self._exceptions as exc:
+            self._recover(exc, "STEP")
+            obs, info = self.env.reset()
+            return obs, 0.0, False, False, {**info, "restart_on_exception": True}
+
+    def reset(self, seed=None, options=None):
+        try:
+            return self.env.reset(seed=seed, options=options)
+        except self._exceptions as exc:
+            self._recover(exc, "RESET")
+            obs, info = self.env.reset(seed=seed, options=options)
+            return obs, {**info, "restart_on_exception": True}

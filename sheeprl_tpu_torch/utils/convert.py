@@ -42,6 +42,8 @@ __all__ = [
     "p2e_dv3_state_from_jax",
     "dreamer_v2_state_from_jax",
     "p2e_dv2_state_from_jax",
+    "dreamer_v1_state_from_jax",
+    "p2e_dv1_state_from_jax",
     "episode_buffer_from_jax",
     "sequence_ring_from_jax",
     "host_env_buffer_from_jax",
@@ -252,6 +254,68 @@ def p2e_dv2_state_from_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, tor
     state = {"world_model": dreamer_v2_state_from_jax({"world_model": params["world_model"]})["world_model"]}
     for name in ("actor_task", "critic_task", "target_critic_task", "actor_exploration", "critic_exploration",
                  "target_critic_exploration"):
+        if name in params:
+            state[name] = flax_to_state_dict(params[name])
+    if "ensembles" in params:
+        tree = params["ensembles"]
+        state["ensembles"] = _stacked(tree["params"] if set(tree) == {"params"} else tree, "")
+    return state
+
+
+#: flax ``nn.GRUCell``'s gates, in the order of torch's packed weights
+GRU_GATES = ("r", "z", "n")
+
+
+def _gru_state(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    """flax ``nn.GRUCell``'s ``{ir,iz,in}/{kernel,bias}``, ``{hr,hz}/kernel``
+    and ``hn/{kernel,bias}`` -> the port's ``GRUCell``: ``weight_ih`` and
+    ``weight_hh`` (the gates' transposed kernels stacked in r, z, n order),
+    ``bias_ih`` and ``bias_hn``. flax has no hidden bias on the r and z
+    gates, and neither has the port's cell (it reads them as zeros)."""
+
+    def rows(side: str) -> np.ndarray:
+        return np.concatenate([np.asarray(tree[f"{side}{g}"]["kernel"], np.float32).T for g in GRU_GATES], axis=0)
+
+    bias_ih = np.concatenate([np.asarray(tree[f"i{g}"]["bias"], np.float32) for g in GRU_GATES])
+    return {
+        f"{prefix}weight_ih": torch.from_numpy(np.ascontiguousarray(rows("i"))),
+        f"{prefix}weight_hh": torch.from_numpy(np.ascontiguousarray(rows("h"))),
+        f"{prefix}bias_ih": torch.from_numpy(bias_ih),
+        f"{prefix}bias_hn": torch.from_numpy(np.array(tree["hn"]["bias"], dtype=np.float32)),
+    }
+
+
+def dreamer_v1_state_from_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """``{"world_model", "actor", "critic"}`` as the JAX Dreamer V1
+    ``build_agent`` returns them (numpy trees; any but the world model may be
+    absent) -> the port's checkpoint state: the recurrent model's ``fc``
+    Dense as any Dense and its flax GRU cell ``rnn`` packed
+    (:func:`_gru_state`); every other leaf as :func:`flax_to_state_dict`
+    carries it."""
+    world_model: Dict[str, torch.Tensor] = {}
+    for name, tree in params["world_model"].items():
+        if name == "recurrent_model":
+            tree = tree["params"] if set(tree) == {"params"} else tree
+            world_model.update(flax_to_state_dict(tree["fc"], "recurrent_model.fc."))
+            world_model.update(_gru_state(tree["rnn"], "recurrent_model.rnn."))
+        else:
+            world_model.update(flax_to_state_dict(tree, f"{name}."))
+    state = {"world_model": world_model}
+    for name in ("actor", "critic"):
+        if name in params:
+            state[name] = flax_to_state_dict(params[name])
+    return state
+
+
+def p2e_dv1_state_from_jax(params: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX P2E-DV1 tree ``{world_model, actor_task, critic_task,
+    actor_exploration, critic_exploration, ensembles}`` (numpy leaves;
+    entries may be absent) -> the port's checkpoint entries
+    (``sheeprl_tpu_torch.algos.p2e_dv1.agent.STATE_KEYS``): the world model
+    as :func:`dreamer_v1_state_from_jax` carries it, each actor and critic
+    as any flax tree, and the stacked ensemble tree as it is."""
+    state = {"world_model": dreamer_v1_state_from_jax({"world_model": params["world_model"]})["world_model"]}
+    for name in ("actor_task", "critic_task", "actor_exploration", "critic_exploration"):
         if name in params:
             state[name] = flax_to_state_dict(params[name])
     if "ensembles" in params:

@@ -22,9 +22,12 @@ __all__ = [
 #: algo.name -> the module whose ``main(cfg, device)`` trains it
 TRAINERS: Dict[str, str] = {
     "a2c": "sheeprl_tpu_torch.algos.a2c.a2c",
+    "dreamer_v1": "sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1",
     "dreamer_v2": "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",
     "dreamer_v3": "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
     "droq": "sheeprl_tpu_torch.algos.droq.droq",
+    "p2e_dv1_exploration": "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_exploration",
+    "p2e_dv1_finetuning": "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_finetuning",
     "p2e_dv2_exploration": "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration",
     "p2e_dv2_finetuning": "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_finetuning",
     "p2e_dv3_exploration": "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration",
@@ -40,9 +43,11 @@ evaluation_registry: Dict[str, Callable] = {}
 
 _BUILTIN_MODULES = [
     "sheeprl_tpu_torch.algos.a2c.evaluate",
+    "sheeprl_tpu_torch.algos.dreamer_v1.evaluate",
     "sheeprl_tpu_torch.algos.dreamer_v2.evaluate",
     "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
     "sheeprl_tpu_torch.algos.droq.evaluate",
+    "sheeprl_tpu_torch.algos.p2e_dv1.evaluate",
     "sheeprl_tpu_torch.algos.p2e_dv2.evaluate",
     "sheeprl_tpu_torch.algos.p2e_dv3.evaluate",
     "sheeprl_tpu_torch.algos.ppo.evaluate",

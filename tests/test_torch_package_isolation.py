@@ -67,7 +67,10 @@ def test_torch_package_imports_with_jax_and_reference_blocked():
                  "algos.p2e_dv3.utils", "algos.dreamer_v2.agent", "algos.dreamer_v2.dreamer_v2",
                  "algos.dreamer_v2.evaluate", "algos.dreamer_v2.loss", "algos.dreamer_v2.utils", "algos.p2e_dv2.agent",
                  "algos.p2e_dv2.p2e_dv2_exploration", "algos.p2e_dv2.p2e_dv2_finetuning", "algos.p2e_dv2.evaluate",
-                 "algos.p2e_dv2.utils"):
+                 "algos.p2e_dv2.utils", "algos.dreamer_v1.agent", "algos.dreamer_v1.dreamer_v1",
+                 "algos.dreamer_v1.evaluate", "algos.dreamer_v1.loss", "algos.dreamer_v1.utils", "algos.p2e_dv1.agent",
+                 "algos.p2e_dv1.p2e_dv1_exploration", "algos.p2e_dv1.p2e_dv1_finetuning", "algos.p2e_dv1.evaluate",
+                 "algos.p2e_dv1.utils"):
         assert f"sheeprl_tpu_torch.{name}" in report["imported"]
 
 
