@@ -264,6 +264,24 @@ result line):
    3 steps, one step profiled with the ensembles' share; the finetuning
    hand-off from its checkpoint and buffer; ``evaluation`` of both
    checkpoints; no kernel launched on any of these paths.
+49. Anakin iteration: one full-recipe ``ppo_anakin`` iteration (4 envs x 128
+   steps of the device CartPole, GAE, 10 x 8 guarded minibatches) on the card
+   against the CPU from the same weights, env reset and injected draws:
+   episodes exact, observations, losses and parameters within tolerance
+   (phase 3 also holds ``gae``'s per-member entry bit-equal to its plain
+   version at the population's (128, 8 x 4, 1) and four other shapes, and
+   times it);
+50. Anakin run: ``run preset=ppo_anakin``, the whole recipe's
+   ANAKIN_ITERATIONS iterations: ``gae`` exactly once per iteration and no
+   other kernel, one host read of the card per block (counted with
+   ``torch.cuda.set_sync_debug_mode``), the learning floor of the PPO run at
+   its end, env steps/s and host ms per block, one iteration profiled, a
+   resume;
+51. Anakin population: ``run preset=ppo_anakin_population`` with
+   POPULATION_SIZE members and PBT for POPULATION_ITERATIONS iterations:
+   ``gae`` (the per-member entry) once per iteration, one host read per
+   block, a PBT step per block; a resume; ``evaluation`` of the best member;
+   a population of one bit-equal to the single run.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -285,6 +303,7 @@ import threading
 import time
 import warnings
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -300,6 +319,8 @@ from sheeprl_tpu_torch.algos.ppo.ppo import LOSS_NAMES as PPO_LOSS_NAMES
 from sheeprl_tpu_torch.algos.ppo.ppo import draw_permutations
 from sheeprl_tpu_torch.algos.ppo.ppo import make_optimizer as make_ppo_optimizer
 from sheeprl_tpu_torch.algos.ppo.ppo import make_train_step as make_ppo_train_step
+from sheeprl_tpu_torch.algos.ppo import ppo_anakin, ppo_anakin_population
+from sheeprl_tpu_torch.envs.device_envs import BatchedDeviceEnv
 from sheeprl_tpu_torch.config import apply_overrides, load_config, preset
 from sheeprl_tpu_torch.models import NatureCNN
 from sheeprl_tpu_torch.ops import kernels
@@ -343,6 +364,10 @@ FMA_LATENCY_CYCLES = 4
 # per element: 1 - done, two products and a sum for delta, a product and a
 # multiply-add for the carry, the return's add
 GAE_OPS_PER_ELEMENT = 8
+# the per-member entry's (T, P, N, trailing) cases: the population path's
+# (128, 8 members x 4 envs, 1) and P 4, a short ragged case, three tiles with
+# a row per span, one step
+GAE_FACTOR_SHAPES = [(128, 8, 4, (1,)), (128, 4, 4, (1,)), (16, 2, 3, ()), (300, 5, 33, ()), (1, 3, 4, (1,))]
 N_SESSIONS, N_STEPS, RESET_AT = 8, 16, 8
 RUN_PRESET = "dreamer_v3_100k_atari_dummy"
 RUN_LEARNING_STARTS, RUN_GRADIENT_STEPS = 128, 9
@@ -354,6 +379,16 @@ PPO_PRESET = "ppo"
 # iterations, the depth the run is cut to (PERF.md)
 PPO_LAST_EPISODES, PPO_RETURN_BAR = 10, 450.0
 PPO_ITERATIONS = 64
+ANAKIN_PRESET = "ppo_anakin"
+# the Anakin run takes the whole recipe, 128 iterations (65,536 steps, the
+# JAX exp's budget), and holds PPO's floor at its end: at half the recipe the
+# last-10 mean is luck of the draws for the host loop and this one alike (on
+# the CPU, seed 3's host PPO read 34.5 and seed 1's Anakin 273.5 at 64
+# iterations, every seed 500 at 128; on an H100 the seed-42 Anakin read 409.7
+# at 64), so the 64-iteration mark is reported, not held. The population runs
+# 16 iterations of 4 members
+ANAKIN_ITERATIONS, ANAKIN_HALF = 128, 64
+POPULATION_SIZE, POPULATION_ITERATIONS = 4, 16
 SAC_PRESET = "sac_per"
 # the JAX package's own Pendulum learning budget and floor
 # (tests/test_algos/test_sac_sebulba.py): the best mean return over 10
@@ -967,6 +1002,7 @@ def gae_phase(gamma: float = 0.99, lam: float = 0.95) -> dict:
         return next(r for r in rows if r["shape"] == shape and r["dtype"] == "float32" and r["dones"] == dones)
 
     main = timed_row([128, 4, 1])
+    per_member = gae_factors_check(gen)
     wide = next(r for r in rows if r["shape"] == [1024, 4096] and r["dtype"] == "float32" and r["dones"] == "uint8")
     log(f"gae at (1024, 4096) f32: {wide['ms'] * 1e3:.2f} us, {wide['ms'] / wide['bytes_ms']:.2f}x its bytes bound "
         f"{wide['bytes_ms'] * 1e3:.2f} us")
@@ -995,7 +1031,64 @@ def gae_phase(gamma: float = 0.99, lam: float = 0.95) -> dict:
                             ("ppo_recurrent", timed_row([512, 16, 1], "float32")))
         },
         "shapes": rows,
+        "per_member": per_member,
     }
+
+
+def gae_factors_check(gen) -> dict:
+    """The per-member entry (``gae_factors``, the population's ``(T, P, N,
+    1)`` rollout with ``(P,)`` gamma and lambda, each member its own) against
+    its plain version, bit for bit (max error 0), at GAE_FACTOR_SHAPES and
+    every dones dtype; the main path's (128, 8 members x 4 envs, 1) timed as
+    the scalar entry is (CUDA events around graph replays), beside the scalar
+    entry on the same columns, and its bound worked out as the scalar
+    entry's: the bytes (and the two (P,) factor arrays) or the 128-step
+    chain. With every member's factors equal it must equal the scalar entry
+    bit for bit."""
+    cases = []
+    for T, P, N, trailing in GAE_FACTOR_SHAPES:
+        for done_dtype in (torch.uint8, torch.bool, torch.float32):
+            shape = (T, P, N) + trailing
+            r, v, d, nv = _gae_inputs(gen, T, P * N, (), torch.float32, done_dtype)
+            args = (r.reshape(shape), v.reshape(shape), d.reshape(shape), nv.reshape(shape[1:]))
+            gamma = 0.9 + 0.099 * torch.rand(P, generator=gen, device="cuda")
+            lam = 0.5 + 0.49 * torch.rand(P, generator=gen, device="cuda")
+            got = kernels.gae_factors(*args, gamma, lam)
+            want = kernels.gae_factors_reference(*args, gamma, lam)
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            if err != 0 or any(g.shape != args[0].shape for g in got):
+                raise AssertionError(f"gae_factors is not bit-equal to its plain version at {shape} {done_dtype}: {err}")
+            cases.append({"shape": list(shape), "dones": str(done_dtype).split(".")[-1], "max_abs_err": err,
+                          "args": (args, gamma, lam)})
+    main = next(c for c in cases if c["shape"] == [128, 8, 4, 1] and c["dones"] == "float32")
+    args, gamma, lam = main.pop("args")
+    for c in cases:
+        c.pop("args", None)
+    same = kernels.gae_factors(*args, torch.full_like(gamma, 0.99), torch.full_like(lam, 0.95))
+    flat = [a.reshape(128, 32, 1) for a in args[:3]] + [args[3].reshape(32, 1)]
+    scalar = kernels.gae(*flat, 0.99, 0.95)
+    if not all(torch.equal(a.reshape(b.shape), b) for a, b in zip(same, scalar)):
+        raise AssertionError("gae_factors with every member at 0.99, 0.95 differs from the scalar entry")
+    T, cols = 128, 32
+    nbytes = T * cols * (4 + 4 + 4) + cols * 4 + 8 * T * cols + 2 * 8 * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    chain_ms = max(T * FMA_LATENCY_CYCLES / SM_CLOCK_HZ, GAE_OPS_PER_ELEMENT * T * cols / F32_FLOPS) * 1e3
+    row = {
+        "shape": [128, 8, 4, 1], "dones": "float32", "members": 8,
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": _graph_ms(lambda: kernels.gae_factors(*args, gamma, lam)),
+        "scalar_entry_ms": _graph_ms(lambda: kernels.gae(*flat, 0.99, 0.95)),
+        "plain_ms": _graph_ms(lambda: kernels.gae_factors_reference(*args, gamma, lam), per_graph=2, replays=5),
+        "call_ms": _time_ms(lambda: kernels.gae_factors(*args, gamma, lam), 200),
+        "bytes_ms": bytes_ms, "chain_ms": chain_ms, "bound_ms": max(bytes_ms, chain_ms),
+        "bound_by": "bytes" if bytes_ms >= chain_ms else "operations",
+        "library_ms": None,  # no PyTorch call computes the recurrence
+        "cases": cases,
+    }
+    log(f"gae_factors (128, 8x4, 1) f32: {row['ms'] * 1e3:.2f} us (the scalar entry on the same columns "
+        f"{row['scalar_entry_ms'] * 1e3:.2f} us) plain {row['plain_ms'] * 1e3:.1f} us bound {row['bound_ms'] * 1e3:.3f} us "
+        f"({row['bound_by']}); {len(cases)} cases bit-equal")
+    return row
 
 
 # -- 4. model on the card against the CPU --------------------------------------
@@ -6259,6 +6352,312 @@ def p2e_dv1_phase(workdir: str) -> dict:
     return out
 
 
+# -- 49-51. Anakin: the single run and the population on the card's own envs --
+
+
+@contextlib.contextmanager
+def _host_reads(counts: list, where: Optional[list] = None):
+    """Counts the synchronizing CUDA calls (each a read of the card by the
+    host) of the ``dispatch_block`` calls made inside, one count per block:
+    ``torch.cuda.set_sync_debug_mode("warn")`` warns at each one. ``where``
+    collects each block's warnings' source lines."""
+    real = ppo_anakin.dispatch_block
+
+    def counted(block, *args, **kwargs):
+        previous = torch.cuda.get_sync_debug_mode()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = real(block, *args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(previous)
+        syncs = [w for w in caught if "called a synchronizing cuda operation" in str(w.message).lower()]
+        counts.append(len(syncs))
+        if where is not None:
+            where.append([f"{Path(w.filename).name}:{w.lineno}: {w.message}" for w in syncs])
+        return out
+
+    ppo_anakin.dispatch_block = counted
+    ppo_anakin_population.dispatch_block = counted
+    try:
+        yield counts
+    finally:
+        ppo_anakin.dispatch_block = real
+        ppo_anakin_population.dispatch_block = real
+
+
+def _anakin_checks(name: str, summary: dict, launches: dict, reads: list, iterations: int) -> None:
+    """``gae`` exactly once per iteration, no other kernel; one host read per
+    block; every loss finite."""
+    want = dict({k: 0 for k in kernels.LAUNCHES}, gae=iterations)
+    if summary["iterations"] != iterations or launches != want:
+        raise AssertionError(f"{name}: {summary['iterations']} iterations, launches {launches} != {want}")
+    if reads != [1] * summary["blocks"]:
+        raise AssertionError(f"{name}: host reads per block {reads}, want one in each of {summary['blocks']} blocks")
+    if not np.isfinite(np.asarray(summary["losses"])).all():
+        raise AssertionError(f"{name}: non-finite losses {summary['losses']}")
+    if summary["device"].split(":")[0] != "cuda":
+        raise AssertionError(f"{name} ran on {summary['device']}")
+
+
+def _cuda_draws(draws: dict, device) -> dict:
+    return {k: [u.to(device) for u in v] if isinstance(v, list) else v.to(device) for k, v in draws.items()}
+
+
+def anakin_iteration_phase() -> dict:
+    """One full-recipe Anakin iteration (4 envs x 128 steps of CartPole, GAE,
+    10 epochs x 8 minibatches, guarded) on the card against the same
+    iteration on the CPU, TF32 off: the same seeded weights, env reset and
+    injected draws (action uniforms, reset uniforms, permutations drawn on
+    the CPU). Held: every episode's end, return and length exactly (the same
+    actions were drawn); the last observations within 1e-4; the losses
+    within rtol 1e-4; the parameters after the 80 Adam steps within 2e-4 and
+    at least 99 % of them within 1e-5, as the PPO update phase (9) holds a
+    PPO update."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = preset(ANAKIN_PRESET)
+    env, obs_key = ppo_anakin.anakin_env(cfg)
+    N, T, epochs = int(cfg.env.num_envs), int(cfg.algo.rollout_steps), int(cfg.algo.update_epochs)
+    spaces = env.spaces(obs_key)["obs"]
+    template, _ = build_ppo_agent(cfg, (2,), False, spaces, "cpu")
+    draws = ppo_anakin.draw_iteration(env, template, (N,), T, (epochs,), N * T, torch.Generator().manual_seed(21),
+                                      torch.Generator().manual_seed(22), "cpu")
+    start = torch.rand((N, 4), generator=torch.Generator().manual_seed(23))
+    results = {}
+    for dev in ("cpu", "cuda"):
+        agent, _ = build_ppo_agent(cfg, (2,), False, spaces, dev)
+        optimizer = make_ppo_optimizer(cfg, agent)
+        optimizer.set_lr(float(np.float32(cfg.algo.optimizer.lr)))
+        benv = BatchedDeviceEnv(env, N)
+        params = env.default_params(dev)
+        state, obs = benv.reset(params, noise=start.to(dev))
+        carry = ppo_anakin.AnakinCarry(state, obs, torch.zeros(N, device=dev),
+                                       torch.zeros(N, dtype=torch.int32, device=dev))
+        block = ppo_anakin.make_anakin_block(agent, optimizer, cfg, benv, obs_key, guard=True)
+        coefs = torch.tensor([float(cfg.algo.clip_coef), float(cfg.algo.ent_coef)]).to(dev)
+        t0 = time.perf_counter()
+        carry, metrics = ppo_anakin.dispatch_block(block, carry, 1, params, coefs[0], coefs[1],
+                                                   draws=[_cuda_draws(draws, dev)])
+        results[dev] = (metrics, {k: v.detach().cpu() for k, v in agent.state_dict().items()}, carry.obs.cpu(),
+                        time.perf_counter() - t0)
+    (m_cpu, p_cpu, o_cpu, s_cpu), (m_card, p_card, o_card, s_card) = results["cpu"], results["cuda"]
+    for k in ("ep_done", "ep_ret", "ep_len"):
+        if not np.array_equal(m_card[k], m_cpu[k]):
+            raise AssertionError(f"Anakin iteration: the card's {k} differs from the CPU's")
+    diffs = torch.cat([(p_card[k] - p_cpu[k]).abs().reshape(-1) for k in p_cpu])
+    row = {
+        "episodes": int(m_cpu["ep_done"].sum()),
+        "obs_max_abs_err": float((o_card - o_cpu).abs().max()),
+        "losses_cpu": {k: float(m_cpu[k][0]) for k in ("pg", "v", "ent")},
+        "loss_rel_err": {k: float(abs(m_card[k][0] - m_cpu[k][0]) / max(abs(m_cpu[k][0]), 1e-12))
+                         for k in ("pg", "v", "ent")},
+        "skipped": float(m_card["bad"][0]),
+        "param_max_abs_err": float(diffs.max()),
+        "param_share_within_1e-5": float((diffs <= 1e-5).float().mean()),
+        "cpu_s": s_cpu, "cuda_s": s_card,
+    }
+    log("Anakin iteration (card vs CPU): " + json.dumps(row))
+    if row["obs_max_abs_err"] > 1e-4 or row["skipped"] != 0:
+        raise AssertionError(f"Anakin iteration: {row}")
+    for k in ("pg", "v", "ent"):
+        if abs(m_card[k][0] - m_cpu[k][0]) > 1e-4 * abs(m_cpu[k][0]) + 1e-6:
+            raise AssertionError(f"Anakin iteration: loss {k} {m_card[k][0]} on the card, {m_cpu[k][0]} on the CPU")
+    if row["param_max_abs_err"] > 2e-4 or row["param_share_within_1e-5"] < 0.99:
+        raise AssertionError(f"Anakin iteration: parameters after the update differ: {row}")
+    return row
+
+
+def _profile_anakin_iteration(checkpoint: str) -> dict:
+    """One iteration of the single run (a block of one, with its read) from
+    the run's checkpoint, after one warm-up block: host ms of one, then the
+    device ms and operations of another under ``torch.profiler``, and the
+    profile's device-to-host copies and stream or device synchronisations
+    (the host's reads)."""
+    cfg = load_config(find_run_config(checkpoint))
+    state = load_checkpoint(checkpoint)
+    env, obs_key = ppo_anakin.anakin_env(cfg)
+    agent, _ = build_ppo_agent(cfg, (2,), False, cfg.spaces.obs, "cuda", state["agent"])
+    optimizer = make_ppo_optimizer(cfg, agent)
+    optimizer.load_state_dict(state["optimizer"])
+    N = int(cfg.env.num_envs)
+    benv = BatchedDeviceEnv(env, N)
+    params = env.default_params("cuda")
+    gens = [torch.Generator(device="cuda").manual_seed(s) for s in (31, 32, 33)]
+    env_state, obs = benv.reset(params, generator=gens[2])
+    carry = [ppo_anakin.AnakinCarry(env_state, obs, torch.zeros(N, device="cuda"),
+                                    torch.zeros(N, dtype=torch.int32, device="cuda"))]
+    block = ppo_anakin.make_anakin_block(agent, optimizer, cfg, benv, obs_key, guard=True)
+    coefs = torch.tensor([float(cfg.algo.clip_coef), float(cfg.algo.ent_coef)]).to("cuda")
+
+    def one():
+        carry[0], _ = ppo_anakin.dispatch_block(block, carry[0], 1, params, coefs[0], coefs[1],
+                                                rollout_gen=gens[0], train_gen=gens[1])
+
+    one()  # warm-up
+    t0 = time.perf_counter()
+    one()
+    host = [time.perf_counter() - t0]
+    # the card's activity alone (its kernels, copies and runtime calls): the ~30,000 operations' host-side
+    # records would take the profiler longer to process than the iteration takes
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        one()
+    averages = prof.key_averages()
+    events = _device_kernels(prof)
+    device_us = sum(getattr(e, "self_device_time_total", 0.0) for e in events)
+    top = sorted(events, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:6]
+    counts = {e.key: e.count for e in averages}
+    return {
+        "host_ms": float(np.median(host) * 1e3),
+        "host_ms_all": [h * 1e3 for h in host],
+        "device_ms": device_us / 1e3 if device_us > 0 else None,
+        "device_busy_share": device_us / 1e3 / (np.median(host) * 1e3) if device_us > 0 else None,
+        "device_ops": sum(e.count for e in events),
+        "top": [{"name": e.key[:80], "device_ms": getattr(e, "self_device_time_total", 0.0) / 1e3, "count": e.count}
+                for e in top],
+        # the block's one read: a device-to-host copy and its stream's synchronisation (the profiler's own
+        # start and stop add a device synchronisation)
+        "dtoh_copies": sum(c for k, c in counts.items() if "dtoh" in k.lower().replace(" ", "")),
+        "stream_synchronizations": counts.get("cudaStreamSynchronize", 0),
+        "device_synchronizations": counts.get("cudaDeviceSynchronize", 0),
+    }
+
+
+def anakin_run_phase(workdir: str) -> dict:
+    """``run preset=ppo_anakin`` (CartPole-v1, 4 envs x 128 steps, the JAX
+    recipe's widths; 9-iteration blocks from its 5,000-step logs) for the
+    recipe's ANAKIN_ITERATIONS iterations: ``gae`` exactly once per
+    iteration and no other kernel; one host read of the card per block (the
+    block's metrics), counted; the last PPO_LAST_EPISODES episodes' mean
+    return at least PPO_RETURN_BAR at the end (and reported at ANAKIN_HALF
+    iterations); env steps/s and host ms per block; one iteration profiled;
+    then a resume of one iteration with the same checks."""
+    reads: list = []
+    where: list = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    steps = ANAKIN_ITERATIONS * 4 * 128
+    with _host_reads(reads, where):
+        summary = cli.run([f"preset={ANAKIN_PRESET}", f"algo.total_steps={steps}", f"log_root={workdir}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if reads != [1] * len(reads):
+        log(f"Anakin run: synchronising calls by block: {json.dumps(where)}")
+    _anakin_checks("Anakin run", summary, launches, reads, ANAKIN_ITERATIONS)
+    returns = [ret for _, _, ret, _ in summary["episodes"]]
+    last = float(np.mean(returns[-PPO_LAST_EPISODES:]))
+    if len(returns) < PPO_LAST_EPISODES or last < PPO_RETURN_BAR:
+        raise AssertionError(f"Anakin did not learn CartPole: mean return of the last {PPO_LAST_EPISODES} "
+                             f"episodes {last}")
+    block_ms = [b * 1e3 for b in summary["block_s"]]
+    out = {
+        "iterations": summary["iterations"], "blocks": summary["blocks"], "iters_per_block": summary["iters_per_block"],
+        "policy_steps": summary["policy_steps"], "launches": launches, "host_reads_per_block": reads, "wall_s": wall,
+        "env_steps_per_s": summary["env_steps_per_s"],
+        "host_ms_per_block": {"median": float(np.median(block_ms)), "range": [min(block_ms), max(block_ms)],
+                              "per_iteration_median": float(np.median(
+                                  [b / n for b, n in zip(block_ms, [summary["iters_per_block"]] * len(block_ms))]))},
+        "episodes": len(returns), "first_10_mean_return": float(np.mean(returns[:10])), "last_10_mean_return": last,
+        "last_10_mean_return_at_half": float(np.mean(
+            [ret for step, _, ret, _ in summary["episodes"] if step <= ANAKIN_HALF * 512][-PPO_LAST_EPISODES:])),
+        "test_reward": summary["test_reward"], "checkpoint": summary["checkpoint"],
+        "losses_last": dict(zip(PPO_LOSS_NAMES, summary["losses"][-1])),
+    }
+    log("Anakin run: " + json.dumps({k: v for k, v in out.items() if k != "checkpoint"}))
+    out["profile"] = _profile_anakin_iteration(summary["checkpoint"])
+    log("Anakin iteration profile: " + json.dumps(out["profile"]))
+
+    reads = []
+    kernels.reset_launches()
+    with _host_reads(reads):
+        resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", f"algo.total_steps={steps + 512}",
+                           "algo.run_test=false", f"log_root={workdir}"])
+    resume_launches = dict(kernels.LAUNCHES)
+    if resumed["start_iter"] != ANAKIN_ITERATIONS + 1:
+        raise AssertionError(f"Anakin resume started at iteration {resumed['start_iter']}")
+    _anakin_checks("Anakin resume", resumed, resume_launches, reads, 1)
+    out["resume"] = {"start_iter": resumed["start_iter"], "launches": resume_launches, "host_reads_per_block": reads,
+                     "losses": resumed["losses"]}
+    log("Anakin resume: " + json.dumps(out["resume"]))
+    return out
+
+
+def population_run_phase(workdir: str) -> dict:
+    """``run preset=ppo_anakin_population`` with POPULATION_SIZE members
+    (an lr grid) and PBT on, cut to POPULATION_ITERATIONS iterations: ``gae``
+    exactly once per iteration (the per-member entry, all members in one
+    launch), one host read per block, a PBT step per block; a resume of one
+    iteration; ``evaluation`` of the checkpoint equal to the run's test
+    episode of its best member; then a population of one against the single
+    run, two iterations each: the checkpoints' parameters bit-equal."""
+    reads: list = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    steps = POPULATION_ITERATIONS * 4 * 128
+    common = [f"algo.total_steps={steps}", f"log_root={workdir}"]
+    with _host_reads(reads):
+        summary = cli.run(["preset=ppo_anakin_population", f"algo.population.size={POPULATION_SIZE}",
+                           "algo.population.hparams={lr: [0.0005, 0.001, 0.002, 0.003]}",
+                           "algo.population.pbt.enabled=true", *common])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    _anakin_checks("population run", summary, launches, reads, POPULATION_ITERATIONS)
+    if summary["pbt_steps"] != summary["blocks"] or summary["population_size"] != POPULATION_SIZE:
+        raise AssertionError(f"population run: {summary['pbt_steps']} PBT steps in {summary['blocks']} blocks")
+    if not np.isfinite(np.asarray(summary["fitness"])).all():
+        raise AssertionError(f"population fitness {summary['fitness']}")
+    block_ms = [b * 1e3 for b in summary["block_s"]]
+    out = {
+        "iterations": summary["iterations"], "blocks": summary["blocks"], "members": POPULATION_SIZE,
+        "launches": launches, "host_reads_per_block": reads, "wall_s": wall, "pbt_steps": summary["pbt_steps"],
+        "env_steps_per_s": summary["env_steps_per_s"],
+        "env_steps_per_s_all_members": summary["env_steps_per_s"] * POPULATION_SIZE,
+        "host_ms_per_block": {"median": float(np.median(block_ms)), "range": [min(block_ms), max(block_ms)]},
+        "fitness_last": summary["fitness"][-1], "best_member": summary["best_member"], "hparams": summary["hparams"],
+        "test_reward": summary["test_reward"], "checkpoint": summary["checkpoint"],
+    }
+    log("population run: " + json.dumps({k: v for k, v in out.items() if k != "checkpoint"}))
+
+    reads = []
+    kernels.reset_launches()
+    with _host_reads(reads):
+        resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", f"algo.total_steps={steps + 512}",
+                           "algo.run_test=false", f"log_root={workdir}"])
+    resume_launches = dict(kernels.LAUNCHES)
+    if resumed["start_iter"] != POPULATION_ITERATIONS + 1 or resumed["population_size"] != POPULATION_SIZE:
+        raise AssertionError(f"population resume: start {resumed['start_iter']}, {resumed['population_size']} members")
+    _anakin_checks("population resume", resumed, resume_launches, reads, 1)
+    out["resume"] = {"start_iter": resumed["start_iter"], "launches": resume_launches, "host_reads_per_block": reads}
+
+    kernels.reset_launches()
+    evaluated = cli.evaluation([f"checkpoint_path={summary['checkpoint']}"])
+    eval_launches = dict(kernels.LAUNCHES)
+    if evaluated["reward"] != summary["test_reward"] or any(eval_launches.values()):
+        raise AssertionError(f"population evaluation {evaluated} (launches {eval_launches}) is not the best "
+                             f"member's test episode ({summary['test_reward']})")
+    out["evaluation"] = {"reward": evaluated["reward"], "steps": evaluated["steps"], "launches": eval_launches}
+
+    one = ["metric.log_level=0", "algo.run_test=false", "algo.total_steps=1024", "algo.iters_per_block=1",
+           f"log_root={workdir}/one"]
+    kernels.reset_launches()
+    single = cli.run([f"preset={ANAKIN_PRESET}", *one])
+    single_launches = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    member = cli.run(["preset=ppo_anakin_population", "algo.population.size=1", "algo.population.hparams={}", *one])
+    member_launches = dict(kernels.LAUNCHES)
+    a, b = load_checkpoint(single["checkpoint"]), load_checkpoint(member["checkpoint"])
+    equal = all(torch.equal(b["agent"][k][0], v) for k, v in a["agent"].items())
+    if not equal or single["losses"] != member["losses"] or single_launches != member_launches:
+        raise AssertionError(f"a population of one differs from the single run on the card: {single['losses']} "
+                             f"vs {member['losses']}, launches {single_launches} vs {member_launches}")
+    out["one_member"] = {"bit_equal": equal, "iterations": single["iterations"], "launches_single": single_launches,
+                         "launches_population": member_launches}
+    log("population resume, evaluation, one member: " + json.dumps(
+        {k: out[k] for k in ("resume", "evaluation", "one_member")}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
@@ -6346,6 +6745,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         v1_run = timed("v1_run", v1_run_phase, workdir)
         p2e_dv1 = timed("p2e_dv1", p2e_dv1_phase, workdir)
+    anakin_iteration = timed("anakin_iteration", anakin_iteration_phase)
+    with tempfile.TemporaryDirectory() as workdir:
+        anakin_run = timed("anakin_run", anakin_run_phase, workdir)
+        population = timed("population_run", population_run_phase, workdir)
     paths = {"run": run, "run_resume": run["resume"], "serve": serve, "evaluation": rssm_eval, "ppo_run": ppo_run,
              "ppo_serve": ppo_serve, "ppo_evaluation": ppo_eval, "sac_run": sac_run, "sac_serve": sac_serve,
              "sac_evaluation": sac_eval, "resident_run": resident_run, "resident_resume": resident_run["resume"],
@@ -6380,7 +6783,11 @@ def main() -> int:
              "p2e_dv1_exploration": p2e_dv1["exploration"],
              "p2e_dv1_exploration_evaluation": p2e_dv1["exploration"]["evaluation"],
              "p2e_dv1_finetuning": p2e_dv1["finetuning"],
-             "p2e_dv1_finetuning_evaluation": p2e_dv1["finetuning"]["evaluation"]}
+             "p2e_dv1_finetuning_evaluation": p2e_dv1["finetuning"]["evaluation"],
+             "anakin_run": anakin_run, "anakin_resume": anakin_run["resume"], "population_run": population,
+             "population_resume": population["resume"], "population_evaluation": population["evaluation"],
+             "anakin_one_member_single": {"launches": population["one_member"]["launches_single"]},
+             "anakin_one_member_population": {"launches": population["one_member"]["launches_population"]}}
     rows = [gru] + two_hot + [gae_row, sumtree_row, scatter_row]
     for row in rows:
         row["launches_by_path"] = {name: path["launches"][row["name"]] for name, path in paths.items()}
@@ -6404,6 +6811,9 @@ def main() -> int:
     for name, path in (("a2c", a2c_run), ("ppo_recurrent", recurrent_run), ("ppo_continuous", continuous)):
         gae_row["paths"][name]["launches"] = path["launches"]["gae"]
     gae_row["paths"]["ppo"]["launches"] = ppo_run["launches"]["gae"]
+    gae_row["paths"]["ppo_anakin"] = {"launches": anakin_run["launches"]["gae"], "iterations": anakin_run["iterations"]}
+    gae_row["per_member"]["launches"] = population["launches"]["gae"]
+    gae_row["per_member"]["iterations"] = population["iterations"]
     sumtree_row["launches"] = sac_run["launches"]["sumtree_sample"]
     sumtree_row["launches_by_path"]["sac_resume"] = sac_run["resume"]["launches"]["sumtree_sample"]
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s; seconds by phase: {json.dumps(phase_s)}")
@@ -6421,7 +6831,8 @@ def main() -> int:
                       "explore_step": explore_step, "explore_run": explore, "finetune": finetune,
                       "classic_ppo": classic, "dry_runs": dry_runs, "v2_step": v2_step, "v2_run": v2_run,
                       "v2_episode": v2_episode, "p2e_dv2": p2e_dv2, "v1_step": v1_step, "v1_run": v1_run,
-                      "p2e_dv1": p2e_dv1}))
+                      "p2e_dv1": p2e_dv1, "anakin_iteration": anakin_iteration, "anakin_run": anakin_run,
+                      "population_run": population}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({

@@ -2,7 +2,8 @@
 ``serve``, ``evaluation`` and ``agents`` verbs)::
 
     python -m sheeprl_tpu_torch run \\
-        preset=<configs/*.json: sac_per, sac, droq, sac_ae, ppo, a2c, ppo_recurrent, dreamer_v3_100k_atari_dummy,
+        preset=<configs/*.json: sac_per, sac, droq, sac_ae, ppo, ppo_anakin, ppo_anakin_population, a2c,
+                ppo_recurrent, dreamer_v3_100k_atari_dummy,
                 dreamer_v3_100k_atari_dummy_resident, dreamer_v3_continuous_dummy,
                 p2e_dv3_exploration_atari_dummy, p2e_dv3_finetuning_atari_dummy, dreamer_v2_atari_dummy,
                 dreamer_v2_ms_pacman_dummy, p2e_dv2_exploration_atari_dummy, p2e_dv2_finetuning_atari_dummy,

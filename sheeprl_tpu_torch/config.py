@@ -195,6 +195,22 @@ def preset(name: str) -> DotDict:
     return load_config(PRESETS_DIR / f"{name}.json")
 
 
+def _split_top(text: str) -> list:
+    """``text`` split at the commas outside brackets and braces."""
+    parts, depth, start = [], 0, 0
+    for i, ch in enumerate(text):
+        if ch in "[{":
+            depth += 1
+        elif ch in "]}":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            parts.append(text[start:i].strip())
+            start = i + 1
+    if text[start:].strip():
+        parts.append(text[start:].strip())
+    return parts
+
+
 def _parse_value(text: str) -> Any:
     for parse in (json.loads, ast.literal_eval):
         try:
@@ -203,7 +219,15 @@ def _parse_value(text: str) -> Any:
             continue
     if text.startswith("[") and text.endswith("]"):  # a list of bare words, as in algo.cnn_keys.encoder=[rgb]
         inner = text[1:-1].strip()
-        return [_parse_value(item.strip()) for item in inner.split(",")] if inner else []
+        return [_parse_value(item.strip()) for item in _split_top(inner)] if inner else []
+    if text.startswith("{") and text.endswith("}"):  # a mapping with bare keys, as in hparams={lr: [1e-3, 5e-4]}
+        out = {}
+        for item in _split_top(text[1:-1].strip()):
+            key, sep, value = item.partition(":")
+            if not sep:
+                raise ValueError(f"cannot parse {text!r}: {item!r} is not key: value")
+            out[key.strip()] = _parse_value(value.strip())
+        return out
     lowered = text.lower()
     if lowered in ("null", "none"):
         return None

@@ -48,6 +48,16 @@
 // With kCols = 16 a (1024, 4096) rollout is 256 blocks, two on most SMs, so
 // one block's chain overlaps another's copies, delta and stores.
 //
+// Per-member factors. A population trains P runs at once, each with its own
+// gamma and lambda (sheeprl_tpu/algos/ppo/ppo_anakin_population.py:504 feeds
+// the JAX recurrence traced (P,) factors). gae_launch_factors takes the
+// members' (T, P * C) columns in one launch, member-major (column c is member
+// c / C's), and two (P,) float32 device arrays, gamma and lambda. Each thread
+// of the off-chain passes reads its column's pair once and forms gamma *
+// lambda as one float32 product (__fmul_rn), as the JAX population rounds its
+// traced factors; the chain is untouched, so with every member's factors
+// equal the entry is bit-equal to gae_launch given gamma and that product.
+//
 // Every advantage and return is bit-equal to the plain version's: all
 // arithmetic is f32 in its op order, written with the __fmul_rn / __fadd_rn /
 // __fsub_rn intrinsics, which nvcc never contracts into an FMA (over T steps a
@@ -102,6 +112,11 @@ struct Args {
   int64_t T, N;
   float gamma, gamma_lambda;
   int next_value_code;
+  // per-member factors (null for the scalar entry): member m's columns are
+  // [m * member_cols, (m + 1) * member_cols)
+  const float* gammas;
+  const float* lambdas;
+  int64_t member_cols;
 };
 
 // Shared bytes of one tile row of kCols elements of `size` bytes: the aligned
@@ -228,6 +243,13 @@ __global__ void __launch_bounds__(kThreads) gae_kernel(Args a) {
 
   issue(0);  // before next_value's load, whose latency would otherwise delay the first copies
   if (tid < width) carry[tid] = load_value(a.next_value, a.next_value_code, n0 + tid);
+  // this thread's column's factors, loaded while the first tile's copies are in flight
+  float gamma = a.gamma, gamma_lambda = a.gamma_lambda;
+  if (a.gammas != nullptr && works) {
+    const int64_t member = (n0 + col) / a.member_cols;
+    gamma = a.gammas[member];
+    gamma_lambda = __fmul_rn(gamma, a.lambdas[member]);
+  }
   float last = 0.0f;
   for (int64_t k = 0; k < chunks; ++k) {
     if (k + 1 < chunks) {
@@ -247,8 +269,8 @@ __global__ void __launch_bounds__(kThreads) gae_kernel(Args a) {
         const float v = vs.at(j, col);
         const float nd = __fsub_rn(1.0f, ds.at(j, col));
         const float nv = j + 1 < t.rows ? vs.at(j + 1, col) : carry[col];
-        const float delta = __fsub_rn(__fadd_rn(rs.at(j, col), __fmul_rn(__fmul_rn(a.gamma, nv), nd)), v);
-        dc[j * kCols + col] = make_float2(delta, __fmul_rn(a.gamma_lambda, nd));
+        const float delta = __fsub_rn(__fadd_rn(rs.at(j, col), __fmul_rn(__fmul_rn(gamma, nv), nd)), v);
+        dc[j * kCols + col] = make_float2(delta, __fmul_rn(gamma_lambda, nd));
       }
     }
     __syncthreads();
@@ -347,6 +369,19 @@ cudaError_t launch_value(const Args& a, int value_code, int done_code, cudaStrea
   }
 }
 
+int dispatch(const Args& a, int reward_dtype, int value_dtype, int done_dtype, cudaStream_t s) {
+  switch (reward_dtype) {
+    case 0:
+      return static_cast<int>(launch_value<float>(a, value_dtype, done_dtype, s));
+    case 1:
+      return static_cast<int>(launch_value<__nv_bfloat16>(a, value_dtype, done_dtype, s));
+    case 2:
+      return static_cast<int>(launch_value<__half>(a, value_dtype, done_dtype, s));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // rewards, values and dones are contiguous (T, N) arrays, next_value N values;
@@ -360,16 +395,23 @@ extern "C" int gae_launch(const void* rewards, const void* values, const void* d
   if (T <= 0 || N <= 0) return cudaSuccess;
   if (next_value_dtype < 0 || next_value_dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{rewards, values, dones, next_value, static_cast<float*>(returns), static_cast<float*>(advantages),
-               T, N, gamma, gamma_lambda, next_value_dtype};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (reward_dtype) {
-    case 0:
-      return static_cast<int>(launch_value<float>(a, value_dtype, done_dtype, s));
-    case 1:
-      return static_cast<int>(launch_value<__nv_bfloat16>(a, value_dtype, done_dtype, s));
-    case 2:
-      return static_cast<int>(launch_value<__half>(a, value_dtype, done_dtype, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+               T, N, gamma, gamma_lambda, next_value_dtype, nullptr, nullptr, 1};
+  return dispatch(a, reward_dtype, value_dtype, done_dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The population's entry: as gae_launch over N = P * member_cols columns, the
+// factors of column c read from gammas[c / member_cols] and lambdas[c /
+// member_cols] (two (P,) float32 arrays on the device).
+extern "C" int gae_launch_factors(const void* rewards, const void* values, const void* dones, const void* next_value,
+                                  void* returns, void* advantages, int64_t T, int64_t N, int64_t member_cols,
+                                  const void* gammas, const void* lambdas, int reward_dtype, int value_dtype,
+                                  int done_dtype, int next_value_dtype, void* stream) {
+  if (T <= 0 || N <= 0) return cudaSuccess;
+  if (member_cols <= 0 || N % member_cols != 0 || gammas == nullptr || lambdas == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (next_value_dtype < 0 || next_value_dtype > 2) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{rewards, values, dones, next_value, static_cast<float*>(returns), static_cast<float*>(advantages),
+               T, N, 0.0f, 0.0f, next_value_dtype, static_cast<const float*>(gammas),
+               static_cast<const float*>(lambdas), member_cols};
+  return dispatch(a, reward_dtype, value_dtype, done_dtype, static_cast<cudaStream_t>(stream));
 }

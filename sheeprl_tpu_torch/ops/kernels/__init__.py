@@ -23,7 +23,7 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-from sheeprl_tpu_torch.ops.kernels.gae import gae, gae_reference  # noqa: E402
+from sheeprl_tpu_torch.ops.kernels.gae import gae, gae_factors, gae_factors_reference, gae_reference  # noqa: E402
 from sheeprl_tpu_torch.ops.kernels.gru import (  # noqa: E402
     gru_gates,
     gru_gates_ln,
@@ -64,6 +64,8 @@ __all__ = [
     "two_hot_mean",
     "gae",
     "gae_reference",
+    "gae_factors",
+    "gae_factors_reference",
     "sumtree_sample",
     "sumtree_sample_reference",
     "ragged_ring_scatter",

@@ -12,7 +12,12 @@ parameter dtype: fewer launches than the ``foreach`` form, with a card-side
 count or a host one (``tools/guard_cost.py`` counts them). The CPU
 keeps torch's host step count and its ``foreach`` update (``capturable``
 raises there). The state is created when the optimizer is, not at its
-first step, so a guard can snapshot it before any update."""
+first step, so a guard can snapshot it before any update.
+
+A population's members train with :class:`StackedAdam`: Adam over the rows
+of one ``(P, D)`` tensor, each member with its own learning rate, gradient
+clipping and finite guard (optax's ``inject_hyperparams(adam)`` under
+``vmap``)."""
 
 from __future__ import annotations
 
@@ -20,7 +25,17 @@ from typing import Any, Iterable, List, Mapping, Optional, Sequence
 
 import torch
 
-__all__ = ["adam", "rmsprop", "RMSprop", "clip_by_global_norm_", "ClippedOptimizer", "build_optimizer"]
+__all__ = [
+    "adam",
+    "rmsprop",
+    "RMSprop",
+    "clip_by_global_norm_",
+    "clip_by_member_norm_",
+    "ClippedOptimizer",
+    "StackedAdam",
+    "build_optimizer",
+    "build_stacked_optimizer",
+]
 
 
 def adam(
@@ -209,3 +224,96 @@ def build_optimizer(
     params = list(params)
     clip = max_grad_norm if max_grad_norm and max_grad_norm > 0 else None
     return ClippedOptimizer(params, builders[target](params, **cfg), clip)
+
+
+def clip_by_member_norm_(grads: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """:func:`clip_by_global_norm_` for each member of a population apart:
+    ``grads`` is ``(P, D)``, one member's whole gradient a row, and each row
+    is scaled by its own norm (one global norm would mix the members).
+    Returns the ``(P,)`` norms before clipping."""
+    norm = torch.sqrt(torch.sum(grads * grads, dim=1, keepdim=True))
+    grads.copy_(torch.where(norm < max_norm, grads, (grads / norm) * max_norm))
+    return norm[:, 0]
+
+
+class StackedAdam:
+    """Adam for P members at once (optax ``inject_hyperparams(adam)`` under
+    ``vmap``, as the JAX population builds it): the members' parameters are
+    the rows of one ``(P, D)`` tensor, and so are both moments; each member
+    has its own step count and its own learning rate, a ``(P,)`` tensor on
+    the device given at every step. The update is optax's, in its op order:
+    ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2 + b2 nu``, the bias
+    corrections ``1 - b^count``, ``u = mu_hat / (sqrt(nu_hat) + eps)`` (plus
+    ``weight_decay * p``: ``adamw``), then ``p + (-lr * u)``. With
+    ``max_grad_norm`` each member's gradient is first clipped by its own
+    norm (:func:`clip_by_member_norm_`). ``ok`` (``(P,)`` bool) keeps a
+    member's parameters, moments and count as they were where it is False:
+    the population's finite guard, with no host read."""
+
+    def __init__(self, params: torch.Tensor, lr: float = 1e-3, eps: float = 1e-8, weight_decay: float = 0.0,
+                 betas: Sequence[float] = (0.9, 0.999), max_grad_norm: Optional[float] = None) -> None:
+        if params.dim() != 2:
+            raise ValueError(f"StackedAdam wants the members' parameters as one (P, D) tensor, got {tuple(params.shape)}")
+        self.params = params
+        self.lr = float(lr)
+        self.eps = float(eps)
+        self.weight_decay = float(weight_decay)
+        self.b1, self.b2 = (float(b) for b in betas)
+        self.max_grad_norm = float(max_grad_norm) if max_grad_norm else None
+        self.exp_avg = torch.zeros_like(params)
+        self.exp_avg_sq = torch.zeros_like(params)
+        self.step_count = torch.zeros(params.shape[0], dtype=torch.float32, device=params.device)
+
+    @torch.no_grad()
+    def step(self, grads: torch.Tensor, lr: torch.Tensor, ok: Optional[torch.Tensor] = None) -> None:
+        grads = grads.detach()
+        if self.max_grad_norm is not None:
+            grads = grads.clone()
+            clip_by_member_norm_(grads, self.max_grad_norm)
+        count = self.step_count + 1.0
+        mu = (1.0 - self.b1) * grads + self.b1 * self.exp_avg
+        nu = (1.0 - self.b2) * (grads * grads) + self.b2 * self.exp_avg_sq
+        mu_hat = mu / (1.0 - torch.pow(self.b1, count))[:, None]  # float32 powers, as optax's decay**count
+        nu_hat = nu / (1.0 - torch.pow(self.b2, count))[:, None]
+        update = mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        if self.weight_decay:
+            update = update + self.weight_decay * self.params
+        new_params = self.params + (-lr.to(torch.float32)[:, None]) * update
+        if ok is not None:
+            keep = ok[:, None]
+            new_params = torch.where(keep, new_params, self.params)
+            mu = torch.where(keep, mu, self.exp_avg)
+            nu = torch.where(keep, nu, self.exp_avg_sq)
+            count = torch.where(ok, count, self.step_count)
+        self.params.copy_(new_params)
+        self.exp_avg.copy_(mu)
+        self.exp_avg_sq.copy_(nu)
+        self.step_count.copy_(count)
+
+    def gather_(self, member_map: torch.Tensor) -> None:
+        """Member ``i``'s moments and count become member ``member_map[i]``'s
+        (a population-based-training copy; the parameters are the caller's)."""
+        for t in (self.exp_avg, self.exp_avg_sq, self.step_count):
+            t.copy_(t.index_select(0, member_map))
+
+    def state_dict(self) -> dict:
+        return {"exp_avg": self.exp_avg, "exp_avg_sq": self.exp_avg_sq, "step": self.step_count}
+
+    def load_state_dict(self, state: dict) -> None:
+        for name, t in (("exp_avg", self.exp_avg), ("exp_avg_sq", self.exp_avg_sq), ("step", self.step_count)):
+            t.copy_(torch.as_tensor(state[name]).to(device=t.device, dtype=t.dtype))
+
+
+def build_stacked_optimizer(params: torch.Tensor, optim_cfg: Mapping[str, Any],
+                            max_grad_norm: Optional[float] = None) -> StackedAdam:
+    """The population's optimizer from the run's optimizer node: Adam (AdamW
+    with a weight decay) over the ``(P, D)`` member rows; ``lr`` is the base
+    the per-member rates replace at each step."""
+    cfg = dict(optim_cfg)
+    target = str(cfg.pop("_target_", "adam")).rsplit(".", 1)[-1].lower()
+    if target not in ("adam", "adamw"):
+        raise NotImplementedError(f"a population trains with Adam only; the optimizer '{target}' is not ported for it")
+    clip = max_grad_norm if max_grad_norm and max_grad_norm > 0 else None
+    return StackedAdam(params, lr=cfg.get("lr", 1e-3), eps=cfg.get("eps", 1e-8),
+                       weight_decay=cfg.get("weight_decay", 0.0) or 0.0, betas=cfg.get("betas", (0.9, 0.999)),
+                       max_grad_norm=clip)

@@ -35,6 +35,7 @@ __all__ = [
     "flax_to_state_dict",
     "dreamer_v3_state_from_jax",
     "ppo_state_from_jax",
+    "ppo_population_state_from_jax",
     "a2c_state_from_jax",
     "ppo_recurrent_state_from_jax",
     "sac_state_from_jax",
@@ -127,6 +128,34 @@ def ppo_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         prefix = f"feature_extractor.{name}." if name in PPO_ENCODERS else f"{name}."
         state.update(flax_to_state_dict(tree, prefix))
     return state
+
+
+def ppo_population_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A member-stacked flax ``PPOAgent`` tree (every leaf ``(P, ...)``, as
+    the JAX population checkpoints it) -> the port's population ``agent``:
+    the ``PPOAgent`` ``state_dict`` keys, each tensor ``(P, ...)``, member
+    ``m`` the conversion of flax member ``m``."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    leaves = []
+
+    def collect(node):
+        for v in node.values():
+            if isinstance(v, Mapping):
+                collect(v)
+            else:
+                leaves.append(np.asarray(v))
+
+    collect(params)
+    members = {int(leaf.shape[0]) for leaf in leaves}
+    if len(members) != 1:
+        raise ValueError(f"a member-stacked tree has one leading size, got {sorted(members)}")
+
+    def member(node, m):
+        return {k: member(v, m) if isinstance(v, Mapping) else np.asarray(v)[m] for k, v in node.items()}
+
+    states = [ppo_state_from_jax(member(params, m)) for m in range(members.pop())]
+    return {k: torch.stack([s[k] for s in states]) for k in states[0]}
 
 
 #: the A2C agent is the PPO agent (the JAX package's ``A2CAgent = PPOAgent``)

@@ -33,6 +33,8 @@ TRAINERS: Dict[str, str] = {
     "p2e_dv3_exploration": "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration",
     "p2e_dv3_finetuning": "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning",
     "ppo": "sheeprl_tpu_torch.algos.ppo.ppo",
+    "ppo_anakin": "sheeprl_tpu_torch.algos.ppo.ppo_anakin",
+    "ppo_anakin_population": "sheeprl_tpu_torch.algos.ppo.ppo_anakin_population",
     "ppo_recurrent": "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
     "sac": "sheeprl_tpu_torch.algos.sac.sac",
     "sac_ae": "sheeprl_tpu_torch.algos.sac_ae.sac_ae",

@@ -483,6 +483,68 @@ def test_torch_cuda_gae_backward_is_the_plain_gradient(cuda):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
+def _factor_args(cuda, T, P, N, trailing=(1,), seed=0, done_dtype="float32"):
+    r, v, d, nv = _gae_inputs(T, P * N, (), seed=seed)
+    shape = (T, P, N) + trailing
+    rng = np.random.default_rng(seed + 1)
+    gamma = rng.uniform(0.9, 0.999, size=P).astype(np.float32)
+    lam = rng.uniform(0.5, 0.99, size=P).astype(np.float32)
+    tensors = [torch.from_numpy(a.reshape(s)).to(cuda) for a, s in ((r, shape), (v, shape), (nv, shape[1:]))]
+    dones = torch.from_numpy(d.reshape(shape)).to(cuda, getattr(torch, done_dtype))
+    return (tensors[0], tensors[1], dones, tensors[2], torch.from_numpy(gamma).to(cuda), torch.from_numpy(lam).to(cuda))
+
+
+@pytest.mark.parametrize("done_dtype", ["uint8", "bool", "float32"])
+@pytest.mark.parametrize("T, P, N, trailing", [(128, 8, 4, (1,)), (128, 4, 4, (1,)), (16, 2, 3, ()), (300, 5, 33, ()),
+                                               (1, 3, 4, (1,))],
+                         ids=["population-main-path", "pbt-main-path", "small", "tiles-and-rows", "T1"])
+def test_torch_cuda_gae_factors_are_bit_equal_to_plain(cuda, T, P, N, trailing, done_dtype):
+    """The per-member entry (``gae_launch_factors``): each column's own
+    gamma and gamma * lambda, bit-equal to the plain version, one launch."""
+    args = _factor_args(cuda, T, P, N, trailing, seed=T + P, done_dtype=done_dtype)
+    before = K.LAUNCHES["gae"]
+    got = K.gae_factors(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gae"] == before + 1
+    want = K.gae_factors_reference(*args)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == args[0].shape
+        assert torch.equal(g, w)
+
+
+def test_torch_cuda_gae_factors_of_equal_members_are_the_scalar_entry(cuda):
+    r, v, d, nv, _, _ = _factor_args(cuda, 128, 4, 4)
+    got = K.gae_factors(r, v, d, nv, torch.full((4,), 0.99, device=cuda), torch.full((4,), 0.95, device=cuda))
+    for m in range(4):
+        want = K.gae(r[:, m].contiguous(), v[:, m].contiguous(), d[:, m].contiguous(), nv[m].contiguous(), 0.99, 0.95)
+        assert torch.equal(got[0][:, m], want[0]) and torch.equal(got[1][:, m], want[1])
+
+
+def test_torch_cuda_gae_factors_rejects_what_the_kernel_does_not_take(cuda):
+    r, v, d, nv, g, lam = _factor_args(cuda, 8, 2, 3)
+    with pytest.raises(ValueError, match="gae_factors wants"):
+        K.gae_factors(r, v, d, nv, g[:1], lam[:1])
+    with pytest.raises(ValueError, match="gae_factors kernel wants"):
+        K.gae_factors(r, v, d, nv, g.cpu(), lam)
+
+
+def test_torch_cuda_anakin_runs_launch_gae_once_per_iteration(cuda, tmp_path):
+    """Three single-run Anakin iterations and two of a 3-member population on
+    the card: ``gae`` once per iteration (the population's per-member entry
+    included), no other kernel."""
+    from sheeprl_tpu_torch import cli
+
+    small = ["metric.log_level=0", "algo.run_test=false", "algo.update_epochs=1", f"log_root={tmp_path}"]
+    K.reset_launches()
+    summary = cli.run(["preset=ppo_anakin", "algo.total_steps=1536", *small])
+    assert summary["device"].startswith("cuda") and summary["iterations"] == 3
+    assert K.LAUNCHES == dict({name: 0 for name in K.LAUNCHES}, gae=3)
+    K.reset_launches()
+    summary = cli.run(["preset=ppo_anakin_population", "algo.population.size=3", "algo.population.hparams={}",
+                       "algo.total_steps=1024", *small])
+    assert summary["iterations"] == 2 and K.LAUNCHES == dict({name: 0 for name in K.LAUNCHES}, gae=2)
+
+
 def test_torch_cuda_ppo_rollout_gae_launches_once_per_iteration(cuda, tmp_path):
     """Two iterations of the PPO loop on the card: ``gae`` launched twice,
     no other kernel."""

@@ -143,8 +143,13 @@ def test_torch_ppo_loop_run_dispatches_on_the_algorithm(monkeypatch):
     v2 = importlib.import_module("sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2")  # a trainer since slice 15
     monkeypatch.setattr(v2, "main", lambda cfg, device: {"algo": cfg.algo.name, "device": str(device)})
     assert cli.run(["preset=dreamer_v2_atari_dummy", "fabric.accelerator=cpu"]) == {"algo": "dreamer_v2", "device": "cpu"}
-    with pytest.raises(NotImplementedError, match="ppo_anakin"):
-        cli.run(["preset=ppo", "fabric.accelerator=cpu", "algo.name=ppo_anakin"])
+    anakin = importlib.import_module("sheeprl_tpu_torch.algos.ppo.ppo_anakin")  # trainers since slice 17
+    population = importlib.import_module("sheeprl_tpu_torch.algos.ppo.ppo_anakin_population")
+    for name, module in (("ppo_anakin", anakin), ("ppo_anakin_population", population)):
+        monkeypatch.setattr(module, "main", lambda cfg, device: {"algo": cfg.algo.name, "device": str(device)})
+        assert cli.run([f"preset={name}", "fabric.accelerator=cpu"]) == {"algo": name, "device": "cpu"}
+    with pytest.raises(NotImplementedError, match="ppo_sebulba"):
+        cli.run(["preset=ppo", "fabric.accelerator=cpu", "algo.name=ppo_sebulba"])
 
 
 def test_torch_ppo_loop_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
