@@ -201,7 +201,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 truncated_envs = np.nonzero(truncated)[0]
                 if len(truncated_envs) > 0 and "final_obs" in info:
                     final = {k: np.stack([info["final_obs"][i][k] for i in truncated_envs]) for k in obs_keys}
-                    vals = player.get_values(prepare_obs(final, (), len(truncated_envs), device)).cpu().numpy()
+                    vals = player.get_values(prepare_obs(final, (), len(truncated_envs), device)).float().cpu().numpy()
                     rewards[truncated_envs] += gamma * vals.reshape(rewards[truncated_envs].shape)
             step_data["dones"] = np.logical_or(terminated, truncated).reshape(1, num_envs, -1).astype(np.uint8)
             step_data["values"] = packed[None, :, -1:]

@@ -47,7 +47,8 @@ from sheeprl_tpu_torch.algos.dreamer_v2.agent import (
     xavier_normal_,
 )
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import Encoder, action_dims
-from sheeprl_tpu_torch.models import get_activation
+from sheeprl_tpu_torch.models import Dense, get_activation, set_compute_dtype
+from sheeprl_tpu_torch.parallel import compute_dtype
 
 __all__ = [
     "GRUCell",
@@ -73,7 +74,11 @@ class GRUCell(nn.Module):
 
     The weights are packed in torch's r, z, n order (``weight_ih``
     ``(3H, in)``, ``weight_hh`` ``(3H, H)``, ``bias_ih`` ``(3H,)``); the one
-    hidden bias is ``bias_hn`` ``(H,)``."""
+    hidden bias is ``bias_hn`` ``(H,)``. Below float32 each projection is
+    computed as flax's ``Dense(dtype=...)`` and the gates in that dtype, as
+    flax's ``GRUCell(dtype=...)`` computes."""
+
+    dtype: torch.dtype = torch.float32
 
     def __init__(self, input_size: int, hidden_size: int) -> None:
         super().__init__()
@@ -92,11 +97,18 @@ class GRUCell(nn.Module):
         return torch.cat([torch.zeros_like(self.bias_hn).repeat(2), self.bias_hn])
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        i_r, i_z, i_n = F.linear(x, self.weight_ih, self.bias_ih).chunk(3, dim=-1)
-        h_r, h_z, h_n = F.linear(h, self.weight_hh).chunk(3, dim=-1)
+        if self.dtype == torch.float32:
+            i_r, i_z, i_n = F.linear(x, self.weight_ih, self.bias_ih).chunk(3, dim=-1)
+            h_r, h_z, h_n = F.linear(h, self.weight_hh).chunk(3, dim=-1)
+            h_n = h_n + self.bias_hn
+        else:
+            dt = self.dtype
+            i_r, i_z, i_n = (F.linear(x.to(dt), self.weight_ih.to(dt)) + self.bias_ih.to(dt)).chunk(3, dim=-1)
+            h_r, h_z, h_n = F.linear(h.to(dt), self.weight_hh.to(dt)).chunk(3, dim=-1)
+            h_n = h_n + self.bias_hn.to(dt)
         r = torch.sigmoid(i_r + h_r)
         z = torch.sigmoid(i_z + h_z)
-        n = torch.tanh(i_n + r * (h_n + self.bias_hn))
+        n = torch.tanh(i_n + r * h_n)
         return (1.0 - z) * n + z * h
 
     @torch.no_grad()
@@ -118,7 +130,7 @@ class RecurrentModel(nn.Module):
 
     def __init__(self, input_dim: int, recurrent_state_size: int, activation: str = "elu") -> None:
         super().__init__()
-        self.fc = nn.Linear(int(input_dim), int(recurrent_state_size))
+        self.fc = Dense(int(input_dim), int(recurrent_state_size))
         self._act = get_activation(activation)
         self.rnn = GRUCell(int(recurrent_state_size), int(recurrent_state_size))
 
@@ -320,6 +332,9 @@ def _modules(cfg: Any) -> Tuple[WorldModel, Actor, Head]:
                   init_std=float(actor_cfg.get("init_std", 0.0)), min_std=float(actor_cfg.get("min_std", 0.1)),
                   layer_norm=False, activation=act)
     critic = Head(latent_dim, 1, int(critic_cfg.mlp_layers), int(critic_cfg.dense_units), False, act)
+    dtype = compute_dtype(cfg)
+    for m in (world_model, actor, critic):
+        set_compute_dtype(m, dtype)
     return world_model, actor, critic
 
 

@@ -38,7 +38,10 @@ from sheeprl_tpu_torch.distributions import (
     TanhNormal,
     TruncatedNormal,
 )
-from sheeprl_tpu_torch.models import MLP, ConvTranspose, LayerNormGRUCell, get_activation
+from sheeprl_tpu_torch.models import (
+    MLP, Conv2d, ConvTranspose, Dense, LayerNorm, LayerNormGRUCell, get_activation, set_compute_dtype,
+)
+from sheeprl_tpu_torch.parallel import compute_dtype
 
 __all__ = [
     "CNNEncoder",
@@ -78,9 +81,9 @@ class CNNEncoder(nn.Module):
         last = int(input_channels)
         for i, mult in enumerate((1, 2, 4, 8)):
             ch = mult * int(channels_multiplier)
-            self.add_module(f"conv_{i}", nn.Conv2d(last, ch, 4, stride=2, padding=0, bias=not self.layer_norm))
+            self.add_module(f"conv_{i}", Conv2d(last, ch, 4, stride=2, padding=0, bias=not self.layer_norm))
             if self.layer_norm:
-                self.add_module(f"ln_{i}", nn.LayerNorm(ch, eps=_FLAX_LN_EPS))
+                self.add_module(f"ln_{i}", LayerNorm(ch, eps=_FLAX_LN_EPS))
             last = ch
 
     def forward(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -124,13 +127,13 @@ class CNNDecoder(nn.Module):
         self.output_channels = tuple(int(c) for c in output_channels)
         self.layer_norm = bool(layer_norm)
         self._act = get_activation(activation)
-        self.fc = nn.Linear(int(latent_dim), int(cnn_encoder_output_dim))
+        self.fc = Dense(int(latent_dim), int(cnn_encoder_output_dim))
         self.hidden = [4 * int(channels_multiplier), 2 * int(channels_multiplier), int(channels_multiplier)]
         last = int(cnn_encoder_output_dim)
         for i, ch in enumerate(self.hidden):
             self.add_module(f"deconv_{i}", ConvTranspose(last, ch, self.KERNELS[i], 2, padding=0, bias=not layer_norm))
             if self.layer_norm:
-                self.add_module(f"ln_{i}", nn.LayerNorm(ch, eps=_FLAX_LN_EPS))
+                self.add_module(f"ln_{i}", LayerNorm(ch, eps=_FLAX_LN_EPS))
             last = ch
         self.out = ConvTranspose(last, sum(self.output_channels), self.KERNELS[-1], 2, padding=0)
 
@@ -157,7 +160,7 @@ class MLPDecoder(nn.Module):
         self.model = MLP(latent_dim, (int(dense_units),) * int(mlp_layers), activation=activation,
                          layer_norm=layer_norm)
         for i, d in enumerate(output_dims):
-            self.add_module(f"head_{i}", nn.Linear(int(dense_units), int(d)))
+            self.add_module(f"head_{i}", Dense(int(dense_units), int(d)))
 
     def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.model(latent)
@@ -188,7 +191,7 @@ class Head(nn.Module):
         super().__init__()
         self.model = MLP(input_dim, (int(dense_units),) * int(mlp_layers), activation=activation,
                          layer_norm=layer_norm)
-        self.out = nn.Linear(int(dense_units), int(output_dim))
+        self.out = Dense(int(dense_units), int(output_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.out(self.model(x))
@@ -272,7 +275,7 @@ class Actor(nn.Module):
                          layer_norm=layer_norm)
         widths = [2 * sum(self.actions_dim)] if self.is_continuous else list(self.actions_dim)
         for i, d in enumerate(widths):
-            self.add_module(f"head_{i}", nn.Linear(int(dense_units), d))
+            self.add_module(f"head_{i}", Dense(int(dense_units), d))
         self.n_heads = len(widths)
 
     @property
@@ -504,6 +507,9 @@ def _modules(cfg: Any) -> Tuple[WorldModel, Actor, Head]:
                   init_std=float(actor_cfg.get("init_std", 0.0)), min_std=float(actor_cfg.get("min_std", 0.1)),
                   layer_norm=layer_norm, activation=act)
     critic = Head(latent_dim, 1, int(critic_cfg.mlp_layers), int(critic_cfg.dense_units), layer_norm, act)
+    dtype = compute_dtype(cfg)
+    for m in (world_model, actor, critic):
+        set_compute_dtype(m, dtype)
     return world_model, actor, critic
 
 

@@ -72,7 +72,7 @@ def test(player: Any, cfg: Any, device: "torch.device | str", greedy: bool = Tru
         prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=1)
         acts = episode_player.get_actions({k: torch.from_numpy(v).to(device) for k, v in prepared.items()}, greedy)
         if episode_player.actor.is_continuous:
-            real = torch.cat(acts, dim=-1).cpu().numpy().reshape(-1)
+            real = torch.cat(acts, dim=-1).float().cpu().numpy().reshape(-1)
         else:
             real = torch.stack([a.argmax(dim=-1) for a in acts], dim=-1).cpu().numpy().reshape(-1)
         obs, reward, terminated, truncated, _ = env.step(real[0] if real.size == 1 else real)

@@ -25,8 +25,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from sheeprl_tpu_torch.distributions import Independent, Normal, OneHotCategoricalStraightThrough, TanhNormal
-from sheeprl_tpu_torch.models import MLP, ConvTranspose, LayerNormGRUCell
+from sheeprl_tpu_torch.models import MLP, Conv2d, ConvTranspose, Dense, LayerNorm, LayerNormGRUCell, set_compute_dtype
 from sheeprl_tpu_torch.ops import symlog
+from sheeprl_tpu_torch.parallel import compute_dtype
 
 __all__ = [
     "CNNEncoder",
@@ -58,8 +59,8 @@ class CNNEncoder(nn.Module):
         for i in range(self.stages):
             ch = (2**i) * int(channels_multiplier)
             # flax padding ((1, 1), (1, 1)) with stride 2 and kernel 4
-            self.add_module(f"conv_{i}", nn.Conv2d(last, ch, kernel_size=4, stride=2, padding=1, bias=False))
-            self.add_module(f"ln_{i}", nn.LayerNorm(ch, eps=1e-3))
+            self.add_module(f"conv_{i}", Conv2d(last, ch, kernel_size=4, stride=2, padding=1, bias=False))
+            self.add_module(f"ln_{i}", LayerNorm(ch, eps=1e-3))
             last = ch
 
     def forward(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -118,12 +119,12 @@ class CNNDecoder(nn.Module):
         super().__init__()
         self.keys = tuple(keys)
         self.output_channels = tuple(int(c) for c in output_channels)
-        self.fc = nn.Linear(int(latent_dim), int(cnn_encoder_output_dim))
+        self.fc = Dense(int(latent_dim), int(cnn_encoder_output_dim))
         self.hidden = [(2**i) * int(channels_multiplier) for i in reversed(range(int(stages) - 1))]
         last = int(cnn_encoder_output_dim) // 16
         for i, ch in enumerate(self.hidden):
             self.add_module(f"deconv_{i}", ConvTranspose(last, ch, 4, 2, padding=1, bias=False))
-            self.add_module(f"ln_{i}", nn.LayerNorm(ch, eps=1e-3))
+            self.add_module(f"ln_{i}", LayerNorm(ch, eps=1e-3))
             last = ch
         self.out = ConvTranspose(last, sum(self.output_channels), 4, 2, padding=1)
 
@@ -148,7 +149,7 @@ class MLPDecoder(nn.Module):
         self.keys = tuple(keys)
         self.model = MLP(latent_dim, (int(dense_units),) * int(mlp_layers), activation="silu", layer_norm=True)
         for i, d in enumerate(output_dims):
-            self.add_module(f"head_{i}", nn.Linear(int(dense_units), int(d)))
+            self.add_module(f"head_{i}", Dense(int(dense_units), int(d)))
 
     def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.model(latent)
@@ -173,7 +174,7 @@ class _StochHead(nn.Module):
     def __init__(self, input_dim: int, hidden_size: int, stoch_state_size: int) -> None:
         super().__init__()
         self.model = MLP(input_dim, (int(hidden_size),), activation="silu", layer_norm=True)
-        self.out = nn.Linear(int(hidden_size), int(stoch_state_size))
+        self.out = Dense(int(hidden_size), int(stoch_state_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.out(self.model(x))
@@ -185,7 +186,7 @@ class _PredictionHead(nn.Module):
     def __init__(self, input_dim: int, output_dim: int, mlp_layers: int, dense_units: int) -> None:
         super().__init__()
         self.model = MLP(input_dim, (int(dense_units),) * int(mlp_layers), activation="silu", layer_norm=True)
-        self.out = nn.Linear(int(dense_units), int(output_dim))
+        self.out = Dense(int(dense_units), int(output_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.out(self.model(x))
@@ -309,9 +310,12 @@ class WorldModel(nn.Module):
         if initial is None:
             initial = self.get_initial_states(recurrent_state.shape[0])
         init_rec, init_post = initial
-        action = (1 - is_first) * action
-        recurrent_state = (1 - is_first) * recurrent_state + is_first * init_rec
-        posterior = (1 - is_first) * posterior + is_first * init_post
+        # every mixed term in the carried state's dtype, as the JAX RSSM casts
+        dtype = recurrent_state.dtype
+        is_first = is_first.to(dtype)
+        action = (1 - is_first) * action.to(dtype)
+        recurrent_state = (1 - is_first) * recurrent_state + is_first * init_rec.to(dtype)
+        posterior = (1 - is_first) * posterior + is_first * init_post.to(posterior.dtype)
         recurrent_state = self.recurrent_model(torch.cat([posterior, action], dim=-1), recurrent_state)
         return recurrent_state, self.transition(recurrent_state)
 
@@ -365,7 +369,7 @@ class Actor(nn.Module):
         self.model = MLP(input_dim, (int(dense_units),) * int(mlp_layers), activation="silu", layer_norm=True)
         widths = [2 * sum(self.actions_dim)] if self.is_continuous else list(self.actions_dim)
         for i, d in enumerate(widths):
-            self.add_module(f"head_{i}", nn.Linear(int(dense_units), d))
+            self.add_module(f"head_{i}", Dense(int(dense_units), d))
         self.n_heads = len(widths)
 
     def forward(self, state: torch.Tensor) -> List[torch.Tensor]:
@@ -545,6 +549,10 @@ def _modules(cfg: Any, training: bool) -> Tuple[WorldModel, Actor, Optional[_Pre
         max_std=float(actor_cfg.get("max_std", 1.0)),
         action_clip=float(actor_cfg.get("action_clip", 1.0)),
     )
+    dtype = compute_dtype(cfg)
+    for m in (world_model, actor, critic):
+        if m is not None:
+            set_compute_dtype(m, dtype)
     return world_model, actor, critic
 
 

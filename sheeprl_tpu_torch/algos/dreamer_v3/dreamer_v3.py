@@ -317,7 +317,7 @@ def make_train_step(
 
         # -- world-model update
         embedded = world_model.encoder(batch_obs)
-        rec = torch.zeros((B, recurrent_state_size), device=embedded.device)
+        rec = torch.zeros((B, recurrent_state_size), dtype=embedded.dtype, device=embedded.device)
         initial = world_model.get_initial_states(B)
         if world_model.decoupled:
             # every posterior from the observations alone, in one pass; the
@@ -333,7 +333,7 @@ def make_train_step(
                 steps.append((rec, prior_logit))
             recs, prior_logits = (torch.stack(x, dim=0) for x in zip(*steps))
         else:
-            post = torch.zeros((B, stoch_state_size), device=embedded.device)
+            post = torch.zeros((B, stoch_state_size), dtype=embedded.dtype, device=embedded.device)
             steps = []
             for t in range(T):
                 rec, post, post_logit, prior_logit = world_model.dynamic(
@@ -688,7 +688,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=num_envs)
                 acts = player.get_actions({k: torch.from_numpy(v).to(device) for k, v in prepared.items()})
                 player_steps += 1
-                actions = torch.cat(acts, dim=-1).cpu().numpy()
+                actions = torch.cat(acts, dim=-1).float().cpu().numpy()
                 # a continuous action goes to the env as it is; a discrete head as its index
                 real_actions = actions if is_continuous else np.stack([a.argmax(dim=-1).cpu().numpy() for a in acts],
                                                                       axis=-1)

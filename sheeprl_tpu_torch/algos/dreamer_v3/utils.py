@@ -134,7 +134,7 @@ def test(agent: Any, cfg: Any, device: "torch.device | str", greedy: bool = True
         prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=1)
         actions, state = session_step(agent, {k: torch.from_numpy(v).to(device) for k, v in prepared.items()},
                                       state, greedy)
-        real = actions.cpu().numpy().reshape(-1)
+        real = actions.float().cpu().numpy().reshape(-1)
         obs, reward, terminated, truncated, _ = env.step(real[0] if real.size == 1 else real)
         done = terminated or truncated
         cumulative += float(reward)

@@ -27,14 +27,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from sheeprl_tpu_torch.algos.sac.agent import SACAgent, SACPlayer, _StackedDense
-from sheeprl_tpu_torch.models import lecun_normal_
+from sheeprl_tpu_torch.models import lecun_normal_, set_compute_dtype
+from sheeprl_tpu_torch.ops import layer_norm
+from sheeprl_tpu_torch.parallel import compute_dtype
 
 __all__ = ["DroQCriticEnsemble", "DroQAgent", "build_agent"]
 
 
 class _StackedLayerNorm(nn.Module):
     """``n`` LayerNorms side by side over ``(n, B, features)``, flax's
-    ``scale`` and ``bias`` stacked."""
+    ``scale`` and ``bias`` stacked; below float32 each computes as
+    :func:`~sheeprl_tpu_torch.ops.layer_norm`."""
+
+    dtype: torch.dtype = torch.float32
 
     def __init__(self, n: int, features: int, eps: float = 1e-5) -> None:
         super().__init__()
@@ -43,6 +48,8 @@ class _StackedLayerNorm(nn.Module):
         self.eps = float(eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype != torch.float32:
+            return layer_norm(x, self.scale.unsqueeze(1), self.bias.unsqueeze(1), self.eps, self.dtype)
         x = F.layer_norm(x, x.shape[-1:], eps=self.eps)
         return x * self.scale.unsqueeze(1) + self.bias.unsqueeze(1)
 
@@ -60,7 +67,7 @@ class _DropoutStackedMLP(nn.Module):
         for i in range(2):
             x = getattr(self, f"dense_{i}")(x)
             if masks is not None:
-                x = x * masks[i] / keep
+                x = x * masks[i].to(x.dtype) / keep
             x = torch.relu(getattr(self, f"ln_{i}")(x))
         return self.out(x)
 
@@ -159,6 +166,7 @@ def build_agent(
         lecun_normal_(agent.actor, init)
         agent.critic.reset_parameters(init)
         agent.target_critic.load_state_dict(agent.critic.state_dict())
+    set_compute_dtype(agent, compute_dtype(cfg))
     if agent_state is not None:
         agent.load_state_dict(agent_state)
     agent = agent.to(device)

@@ -219,7 +219,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             if iter_num <= learning_starts:
                 actions = action_rng.uniform(low, high, size=(num_envs, len(low))).astype(np.float32)
             else:
-                actions = player(prepare_obs(obs, mlp_keys, num_envs, device)).cpu().numpy()
+                actions = player(prepare_obs(obs, mlp_keys, num_envs, device)).float().cpu().numpy()
             next_obs, rewards, terminated, truncated, infos = envs.step(actions)
         for i, ep_rew, ep_len in infos.get("episodes", ()):
             summary["episodes"].append((policy_step, i, ep_rew, ep_len))

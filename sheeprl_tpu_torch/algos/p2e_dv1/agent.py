@@ -24,6 +24,8 @@ from sheeprl_tpu_torch.algos.dreamer_v1.agent import WorldModel, _modules, init_
 from sheeprl_tpu_torch.algos.dreamer_v2.agent import Actor, Head
 from sheeprl_tpu_torch.algos.p2e_dv2.agent import _init_members
 from sheeprl_tpu_torch.algos.p2e_dv3.agent import Ensembles
+from sheeprl_tpu_torch.models import set_compute_dtype
+from sheeprl_tpu_torch.parallel import compute_dtype
 
 __all__ = ["P2EDV1Agent", "STATE_KEYS", "build_agent"]
 
@@ -77,6 +79,7 @@ def build_agent(cfg: Any, device: "torch.device | str" = "cpu", state: Optional[
                           int(ens_cfg.dense_units), layer_norm=False, activation=str(cfg.algo.dense_act))
     _init_members(ensembles, seed + 7)
     agent = P2EDV1Agent(world_model, actor, critic, actor_exploration, critic_exploration, ensembles)
+    set_compute_dtype(agent, compute_dtype(cfg))
     if state is not None:
         for key in STATE_KEYS:
             if state.get(key) is not None:

@@ -22,6 +22,8 @@ from torch import nn
 
 from sheeprl_tpu_torch.algos.dreamer_v2.agent import Actor, Head, WorldModel, _modules, xavier_normal_
 from sheeprl_tpu_torch.algos.p2e_dv3.agent import Ensembles
+from sheeprl_tpu_torch.models import set_compute_dtype
+from sheeprl_tpu_torch.parallel import compute_dtype
 
 __all__ = ["P2EDV2Agent", "STATE_KEYS", "build_agent"]
 
@@ -101,6 +103,7 @@ def build_agent(cfg: Any, device: "torch.device | str" = "cpu", state: Optional[
     _init_members(ensembles, seed + 7)
     agent = P2EDV2Agent(world_model, actor, critic, copy.deepcopy(critic), actor_exploration, critic_exploration,
                         copy.deepcopy(critic_exploration), ensembles)
+    set_compute_dtype(agent, compute_dtype(cfg))
     if state is not None:
         for key in STATE_KEYS:
             if state.get(key) is not None:

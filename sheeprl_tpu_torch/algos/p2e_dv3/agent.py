@@ -34,7 +34,8 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
 )
 from sheeprl_tpu_torch.algos.droq.agent import _StackedLayerNorm
 from sheeprl_tpu_torch.algos.sac.agent import _StackedDense
-from sheeprl_tpu_torch.models import get_activation
+from sheeprl_tpu_torch.models import get_activation, set_compute_dtype
+from sheeprl_tpu_torch.parallel import compute_dtype
 
 __all__ = ["Ensembles", "P2EAgent", "build_agent", "STATE_KEYS"]
 
@@ -158,6 +159,7 @@ def build_agent(cfg: Any, device: "torch.device | str" = "cpu", state: Optional[
                           int(ens_cfg.dense_units))
     ensembles.init_members(seed + 7)
     agent = P2EAgent(world_model, actor, critic, copy.deepcopy(critic), actor_exploration, critics, ensembles)
+    set_compute_dtype(agent, compute_dtype(cfg))
     if state is not None:
         for key in STATE_KEYS:
             if state.get(key) is not None:

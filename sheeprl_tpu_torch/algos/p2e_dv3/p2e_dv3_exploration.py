@@ -486,7 +486,7 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
                 prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=num_envs)
                 acts = player.get_actions({k: torch.from_numpy(v).to(device) for k, v in prepared.items()})
                 player_steps += 1
-                actions = torch.cat(acts, dim=-1).cpu().numpy()
+                actions = torch.cat(acts, dim=-1).float().cpu().numpy()
                 real_actions = actions if is_continuous else np.stack([a.argmax(dim=-1).cpu().numpy() for a in acts],
                                                                       axis=-1)
             step_data["actions"] = actions.reshape(1, num_envs, -1)

@@ -25,7 +25,8 @@ import torch
 from torch import nn
 
 from sheeprl_tpu_torch.distributions import Independent, Normal, OneHotCategorical
-from sheeprl_tpu_torch.models import MLP, MultiEncoder, NatureCNN, lecun_normal_
+from sheeprl_tpu_torch.models import MLP, Dense, MultiEncoder, NatureCNN, lecun_normal_, set_compute_dtype
+from sheeprl_tpu_torch.parallel import compute_dtype
 
 __all__ = [
     "PPOAgent",
@@ -92,10 +93,10 @@ def actor_heads(module: nn.Module, backbone: int, actions_dim: Sequence[int], is
     width ``2 * sum(actions_dim)`` (mean, log std) for a continuous space,
     else ``actor_head_{i}`` of width ``actions_dim[i]``."""
     if is_continuous:
-        module.add_module("actor_head_0", nn.Linear(backbone, 2 * int(sum(actions_dim))))
+        module.add_module("actor_head_0", Dense(backbone, 2 * int(sum(actions_dim))))
     else:
         for i, d in enumerate(actions_dim):
-            module.add_module(f"actor_head_{i}", nn.Linear(backbone, int(d)))
+            module.add_module(f"actor_head_{i}", Dense(backbone, int(d)))
 
 
 def apply_heads(module: nn.Module, backbone: torch.Tensor) -> List[torch.Tensor]:
@@ -296,6 +297,7 @@ def build_agent(
     )
     with torch.no_grad():
         lecun_normal_(agent, torch.Generator().manual_seed(int(cfg.get("seed") or 0)))
+    set_compute_dtype(agent, compute_dtype(cfg))
     if agent_state is not None:
         agent.load_state_dict(agent_state)
     agent = agent.to(device)

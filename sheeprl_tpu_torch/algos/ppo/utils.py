@@ -54,7 +54,8 @@ def test(player, cfg: Any, device: "torch.device | str") -> Tuple[float, int]:
     while not done:
         prepared = prepare_obs({k: obs[k] for k in obs_keys}, cfg.algo.cnn_keys.encoder, 1, device)
         actions = player.get_actions(prepared, greedy=True)
-        real = env_actions(actions, player.agent.is_continuous).cpu().numpy().reshape(-1)
+        real = env_actions(actions, player.agent.is_continuous)
+        real = (real.float() if real.is_floating_point() else real).cpu().numpy().reshape(-1)
         obs, reward, terminated, truncated, _ = env.step(real[0] if real.size == 1 else real)
         done = terminated or truncated
         cumulative += reward

@@ -32,6 +32,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sheeprl_tpu_torch.algos.ppo.agent import (
@@ -43,8 +44,9 @@ from sheeprl_tpu_torch.algos.ppo.agent import (
     draw_actions,
     env_actions,
 )
-from sheeprl_tpu_torch.models import MLP, MultiEncoder, lecun_normal_
+from sheeprl_tpu_torch.models import MLP, MultiEncoder, lecun_normal_, set_compute_dtype
 from sheeprl_tpu_torch.ops import counter_normal, counter_uniform
+from sheeprl_tpu_torch.parallel import compute_dtype
 
 __all__ = [
     "RecurrentModel",
@@ -68,7 +70,11 @@ def _side_mlp(input_dim: int, cfg: Mapping[str, Any]) -> Optional[MLP]:
 
 class RecurrentModel(nn.Module):
     """Optional pre-MLP, the LSTM over ``(T, B, in)`` from ``(hx, cx)``,
-    optional post-MLP: ``(x, hx, cx) -> (out, (hx', cx'))``."""
+    optional post-MLP: ``(x, hx, cx) -> (out, (hx', cx'))``. Below float32
+    the LSTM runs as flax's ``OptimizedLSTMCell(dtype=...)`` computes, one
+    step at a time in plain ops (:meth:`_lstm_low`)."""
+
+    dtype: torch.dtype = torch.float32
 
     def __init__(self, input_size: int, lstm_hidden_size: int, pre_rnn_mlp: Mapping[str, Any],
                  post_rnn_mlp: Mapping[str, Any]) -> None:
@@ -84,10 +90,33 @@ class RecurrentModel(nn.Module):
     def forward(self, x: torch.Tensor, hx: torch.Tensor, cx: torch.Tensor):
         if self.pre_mlp is not None:
             x = self.pre_mlp(x)
-        out, (h, c) = self.lstm(x, (hx[None].contiguous(), cx[None].contiguous()))
+        if self.dtype != torch.float32:
+            out, (h, c) = self._lstm_low(x, hx, cx)
+        else:
+            out, (h, c) = self.lstm(x, (hx[None].contiguous(), cx[None].contiguous()))
+            h, c = h[0], c[0]
         if self.post_mlp is not None:
             out = self.post_mlp(out)
-        return out, (h[0], c[0])
+        return out, (h, c)
+
+    def _lstm_low(self, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor):
+        """flax's ``OptimizedLSTMCell`` in ``self.dtype``: per step the
+        hidden projection with its bias and the input projection, each rounded
+        to the dtype, summed; the gates; ``c' = f c + i g`` and ``h' = o
+        tanh(c')``, whose dtype follows the carry's (float32 carries stay
+        float32, as in flax). The weights are torch's, in its ``i, f, g, o``
+        order, which is flax's."""
+        dt = self.dtype
+        w_ih, w_hh = self.lstm.weight_ih_l0.to(dt), self.lstm.weight_hh_l0.to(dt)
+        b_hh = self.lstm.bias_hh_l0.to(dt)
+        outs = []
+        for t in range(x.shape[0]):
+            y = (F.linear(h.to(dt), w_hh) + b_hh) + F.linear(x[t].to(dt), w_ih)
+            i, f, g, o = y.chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+            outs.append(h)
+        return torch.stack(outs, dim=0), (h, c)
 
 
 class RecurrentPPOAgent(nn.Module):
@@ -272,6 +301,7 @@ def build_agent(
     with torch.no_grad():
         lecun_normal_(agent, init_gen)
         _init_lstm(agent.rnn.lstm, init_gen)
+    set_compute_dtype(agent, compute_dtype(cfg))
     if agent_state is not None:
         agent.load_state_dict(agent_state)
     agent = agent.to(device)

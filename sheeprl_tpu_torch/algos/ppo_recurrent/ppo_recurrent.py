@@ -251,7 +251,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                     vals, _ = player.get_values(prepare_obs(final, cnn_keys, len(truncated_envs), device),
                                                 torch.from_numpy(actions_np[:, truncated_envs]).to(device),
                                                 (new_states[0][rows], new_states[1][rows]))
-                    rewards[truncated_envs] += gamma * vals.cpu().numpy().reshape(rewards[truncated_envs].shape)
+                    rewards[truncated_envs] += gamma * vals.float().cpu().numpy().reshape(rewards[truncated_envs].shape)
                 dones = np.logical_or(terminated, truncated).reshape(1, num_envs, -1).astype(np.float32)
 
             off = heads + n_actions

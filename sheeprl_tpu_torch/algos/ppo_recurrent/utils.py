@@ -119,7 +119,7 @@ def test(agent, cfg: Any, device: "torch.device | str", greedy: bool = True) -> 
         while not done:
             prepared = {k: v[0] for k, v in prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys, 1, device).items()}
             actions, state = session_step(agent, prepared, state, greedy)
-            real = actions.cpu().numpy().reshape(-1)
+            real = (actions.float() if actions.is_floating_point() else actions).cpu().numpy().reshape(-1)
             obs, reward, terminated, truncated, _ = env.step(real[0] if real.size == 1 else real)
             done = terminated or truncated
             cumulative += reward

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from sheeprl_tpu_torch.models import MLP, lecun_normal_
+from sheeprl_tpu_torch.models import MLP, Dense, lecun_normal_, set_compute_dtype
+from sheeprl_tpu_torch.parallel import compute_dtype
 
 __all__ = [
     "LOG_STD_MAX",
@@ -47,7 +48,10 @@ def squashed_gaussian_sample(
     """Reparameterized tanh-squashed Gaussian sample rescaled to the action
     bounds, with its ``(..., 1)`` log-prob (Eq. 26 of arXiv:1812.05905), in
     the JAX package's op order; ``noise`` is standard normal, shaped like
-    ``mean``."""
+    ``mean``. The noise and the bounds are taken in ``mean``'s dtype, as the
+    JAX package draws its normals and casts its bounds: below float32 the
+    whole sample and its log-prob are in the compute dtype."""
+    noise, scale, bias = noise.to(mean.dtype), scale.to(mean.dtype), bias.to(mean.dtype)
     x = mean + std * noise
     y = torch.tanh(x)
     action = y * scale + bias
@@ -63,8 +67,8 @@ class SACActor(nn.Module):
     def __init__(self, obs_dim: int, action_dim: int, hidden_size: int = 256) -> None:
         super().__init__()
         self.backbone = MLP(obs_dim, (hidden_size, hidden_size), "relu")
-        self.fc_mean = nn.Linear(hidden_size, action_dim)
-        self.fc_logstd = nn.Linear(hidden_size, action_dim)
+        self.fc_mean = Dense(hidden_size, action_dim)
+        self.fc_logstd = Dense(hidden_size, action_dim)
 
     def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = self.backbone(obs)
@@ -72,7 +76,10 @@ class SACActor(nn.Module):
 
 
 class _StackedDense(nn.Module):
-    """``n`` Dense layers side by side: ``x (n, B, in) -> (n, B, out)``."""
+    """``n`` Dense layers side by side: ``x (n, B, in) -> (n, B, out)``;
+    below float32 each computes as :class:`~sheeprl_tpu_torch.models.Dense`."""
+
+    dtype: torch.dtype = torch.float32
 
     def __init__(self, n: int, in_features: int, out_features: int) -> None:
         super().__init__()
@@ -80,7 +87,9 @@ class _StackedDense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(n, out_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.baddbmm(self.bias.unsqueeze(1), x, self.kernel)
+        if self.dtype == torch.float32:
+            return torch.baddbmm(self.bias.unsqueeze(1), x, self.kernel)
+        return torch.bmm(x.to(self.dtype), self.kernel.to(self.dtype)) + self.bias.to(self.dtype).unsqueeze(1)
 
 
 class _StackedMLP(nn.Module):
@@ -161,7 +170,7 @@ class SACAgent(nn.Module):
 
     def greedy_action(self, obs: torch.Tensor) -> torch.Tensor:
         mean, _ = self.actor(obs)
-        return torch.tanh(mean) * self.action_scale + self.action_bias
+        return torch.tanh(mean) * self.action_scale.to(mean.dtype) + self.action_bias.to(mean.dtype)
 
     # -- critics -------------------------------------------------------------
     def q_values(self, obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
@@ -237,6 +246,7 @@ def build_agent(
         lecun_normal_(agent.actor, init)
         agent.critic.reset_parameters(init)
         agent.target_critic.load_state_dict(agent.critic.state_dict())
+    set_compute_dtype(agent, compute_dtype(cfg))
     if agent_state is not None:
         agent.load_state_dict(agent_state)
     agent = agent.to(device)

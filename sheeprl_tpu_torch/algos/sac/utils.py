@@ -33,7 +33,7 @@ def test(player, cfg: Any, device: "torch.device | str") -> Tuple[float, int]:
     done, cumulative, steps = False, 0.0, 0
     while not done:
         action = player.get_actions(prepare_obs(obs, mlp_keys, 1, device), greedy=True)
-        obs, reward, terminated, truncated, _ = env.step(action.cpu().numpy().reshape(-1))
+        obs, reward, terminated, truncated, _ = env.step(action.float().cpu().numpy().reshape(-1))
         done = terminated or truncated
         cumulative += float(reward)
         steps += 1

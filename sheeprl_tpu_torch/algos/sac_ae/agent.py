@@ -27,7 +27,8 @@ import torch
 from torch import nn
 
 from sheeprl_tpu_torch.algos.sac.agent import SACCriticEnsemble, squashed_gaussian_sample
-from sheeprl_tpu_torch.models import CNN, MLP, ConvTranspose
+from sheeprl_tpu_torch.models import CNN, MLP, ConvTranspose, Dense, LayerNorm, set_compute_dtype
+from sheeprl_tpu_torch.parallel import compute_dtype
 
 __all__ = [
     "LOG_STD_MAX",
@@ -71,8 +72,8 @@ class SACAEEncoder(nn.Module):
             self.conv = CNN(int(cnn_channels), [width] * 4,
                             [{"kernel_size": 3, "stride": s} for s in TRUNK_STRIDES], activation="relu")
             self.trunk_features = conv_output_side(screen_size) ** 2 * width
-            self.fc = nn.Linear(self.trunk_features, int(features_dim))
-            self.ln = nn.LayerNorm(int(features_dim), eps=1e-5)
+            self.fc = Dense(self.trunk_features, int(features_dim))
+            self.ln = LayerNorm(int(features_dim), eps=1e-5)
             self.output_features += int(features_dim)
         if self.mlp_keys:
             self.mlp = MLP(int(mlp_dim), (int(dense_units),) * int(mlp_layers), "relu", layer_norm=bool(layer_norm))
@@ -102,8 +103,8 @@ class ActorEncoderHead(nn.Module):
 
     def __init__(self, trunk_features: int, features_dim: int) -> None:
         super().__init__()
-        self.Dense_0 = nn.Linear(int(trunk_features), int(features_dim))
-        self.LayerNorm_0 = nn.LayerNorm(int(features_dim), eps=1e-5)
+        self.Dense_0 = Dense(int(trunk_features), int(features_dim))
+        self.LayerNorm_0 = LayerNorm(int(features_dim), eps=1e-5)
 
     def forward(self, cnn_flat: torch.Tensor) -> torch.Tensor:
         return torch.tanh(self.LayerNorm_0(self.Dense_0(cnn_flat)))
@@ -116,8 +117,8 @@ class SACAEActorHead(nn.Module):
     def __init__(self, features: int, action_dim: int, hidden_size: int = 1024) -> None:
         super().__init__()
         self.model = MLP(int(features), (int(hidden_size), int(hidden_size)), "relu")
-        self.fc_mean = nn.Linear(int(hidden_size), int(action_dim))
-        self.fc_logstd = nn.Linear(int(hidden_size), int(action_dim))
+        self.fc_mean = Dense(int(hidden_size), int(action_dim))
+        self.fc_logstd = Dense(int(hidden_size), int(action_dim))
 
     def forward(self, feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = self.model(feat)
@@ -156,13 +157,13 @@ class SACAEDecoder(nn.Module):
         if self.cnn_keys:
             width = 32 * int(channels_multiplier)
             self.side, self.width = conv_output_side(screen_size), width
-            self.fc = nn.Linear(int(latent_dim), self.side * self.side * width)
+            self.fc = Dense(int(latent_dim), self.side * self.side * width)
             self.deconv = _DeCNN(width, width)
             self.to_obs = ConvTranspose(width, sum(self.cnn_channels), 3, 2, output_padding=1)
         if self.mlp_keys:
             self.mlp = MLP(int(latent_dim), (int(dense_units),) * int(mlp_layers), "relu", layer_norm=bool(layer_norm))
             for i, d in enumerate(mlp_dims):
-                self.add_module(f"head_{i}", nn.Linear(int(dense_units), int(d)))
+                self.add_module(f"head_{i}", Dense(int(dense_units), int(d)))
 
     def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {}
@@ -220,7 +221,7 @@ class SACAEAgent(nn.Module):
 
     def greedy_action(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
         mean, _ = self.actor(self.actor_features(obs))
-        return torch.tanh(mean) * self.action_scale + self.action_bias
+        return torch.tanh(mean) * self.action_scale.to(mean.dtype) + self.action_bias.to(mean.dtype)
 
     # -- critic --------------------------------------------------------------
     def q_values(self, obs: Dict[str, torch.Tensor], action: torch.Tensor) -> torch.Tensor:
@@ -324,6 +325,7 @@ def build_agent(
         agent.qfs.reset_parameters(init)
         agent.target_encoder.load_state_dict(agent.encoder.state_dict())
         agent.target_qfs.load_state_dict(agent.qfs.state_dict())
+    set_compute_dtype(agent, compute_dtype(cfg))
     if agent_state is not None:
         agent.load_state_dict(agent_state)
     agent = agent.to(device)

@@ -256,7 +256,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             else:
                 prepared = prepare_obs(obs, cnn_keys, mlp_keys, num_envs)
                 actions = player.get_actions({k: torch.from_numpy(v).to(device) for k, v in prepared.items()})
-                actions = actions.cpu().numpy()
+                actions = actions.float().cpu().numpy()
             next_obs, rewards, terminated, truncated, infos = envs.step(actions)
         for i, ep_rew, ep_len in infos.get("episodes", ()):
             summary["episodes"].append((policy_step, i, ep_rew, ep_len))

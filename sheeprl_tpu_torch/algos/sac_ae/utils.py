@@ -56,7 +56,7 @@ def test(player, cfg: Any, device: "torch.device | str") -> Tuple[float, int]:
     while not done:
         prepared = prepare_obs(obs, cnn_keys, mlp_keys)
         action = player.get_actions({k: torch.from_numpy(v).to(device) for k, v in prepared.items()}, greedy=True)
-        obs, reward, terminated, truncated, _ = env.step(action.cpu().numpy().reshape(-1))
+        obs, reward, terminated, truncated, _ = env.step(action.float().cpu().numpy().reshape(-1))
         done = terminated or truncated
         cumulative += float(reward)
         steps += 1

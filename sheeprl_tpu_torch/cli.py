@@ -8,8 +8,8 @@
                 p2e_dv3_exploration_atari_dummy, p2e_dv3_finetuning_atari_dummy, dreamer_v2_atari_dummy,
                 dreamer_v2_ms_pacman_dummy, p2e_dv2_exploration_atari_dummy, p2e_dv2_finetuning_atari_dummy,
                 dreamer_v1_atari_dummy, p2e_dv1_exploration_atari_dummy, p2e_dv1_finetuning_atari_dummy> \\
-        [fabric.accelerator=cuda|cpu] [algo.total_steps=...] [checkpoint.resume_from=<ckpt>|latest] \\
-        [checkpoint.exploration_ckpt_path=<ckpt>] [dry_run=true] ...
+        [fabric.accelerator=cuda|cpu] [fabric.precision=32-true|bf16-mixed|...] [algo.total_steps=...] \\
+        [checkpoint.resume_from=<ckpt>|latest] [checkpoint.exploration_ckpt_path=<ckpt>] [dry_run=true] ...
     python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> \\
         [fabric.accelerator=cuda|cpu] [serve.port=0] [serve.buckets=[1,8,32,128]] [serve.engine=aot|naive] \\
         [serve.session.buckets=[1,8,32]] [serve.watch=true] [serve.watch_poll_s=2.0] ...
@@ -42,7 +42,11 @@ sessions. ``evaluation`` (alias ``eval``) runs one greedy test episode of a
 checkpoint on one env, seeded with the checkpoint run's seed unless
 ``seed=`` says otherwise. ``agents`` prints the algorithms the port knows.
 Each runs on the GPU unless ``fabric.accelerator=cpu`` asks for the CPU;
-asking for the GPU on a machine without one raises.
+asking for the GPU on a machine without one raises. Each computes in the
+``fabric.precision`` of its run config (``32-true`` by default;
+``bf16-mixed`` computes in bfloat16 over float32 parameters, see
+:mod:`sheeprl_tpu_torch.parallel.fabric`); ``serve`` and ``evaluation``
+take the checkpoint run's, and an unknown one raises.
 """
 
 from __future__ import annotations
@@ -68,6 +72,7 @@ from sheeprl_tpu_torch.config import (
     plain,
     preset,
 )
+from sheeprl_tpu_torch.parallel import Precision
 
 __all__ = [
     "main",
@@ -110,7 +115,11 @@ def compose_serve_config(args: Sequence[str]) -> DotDict:
     if not ckpt:
         raise ValueError("serve needs checkpoint_path=<path to a checkpoint>")
     run_cfg = load_config(find_run_config(ckpt))
-    return apply_overrides(merge(SERVE_DEFAULTS, plain(run_cfg)), args)
+    cfg = apply_overrides(merge(SERVE_DEFAULTS, plain(run_cfg)), args)
+    # the checkpoint's run computes in its own precision, as the JAX verb
+    # reads it from the run config alone
+    cfg.fabric["precision"] = (run_cfg.get("fabric") or {}).get("precision", "32-true")
+    return cfg
 
 
 def _full_float32() -> None:
@@ -215,7 +224,9 @@ def compose_run_config(args: Sequence[str]) -> DotDict:
 def check_configs(cfg: DotDict) -> None:
     """JAX ``check_configs``' checks of a run config that the port has keys
     for: a negative ``algo.learning_starts`` raises; an ``env.action_repeat``
-    below 1 becomes 1."""
+    below 1 becomes 1. An unknown ``fabric.precision`` raises the
+    ``ValueError`` of the JAX package's ``Precision.from_string``."""
+    Precision.from_config(cfg)
     learning_starts = (cfg.get("algo") or {}).get("learning_starts")
     if learning_starts is not None and learning_starts < 0:
         raise ValueError("The `algo.learning_starts` parameter must be greater or equal to zero.")
@@ -315,6 +326,7 @@ def serve(args: Sequence[str]) -> None:
     from sheeprl_tpu_torch.utils.registry import registered_policy_builder_names, resolve_policy_builder
 
     cfg = compose_serve_config(args)
+    Precision.from_config(cfg)
     device = resolve_device(cfg.fabric.get("accelerator"))
     _full_float32()
     builder = resolve_policy_builder(cfg.algo.name)
@@ -334,6 +346,7 @@ def evaluation(args: Sequence[str]) -> dict:
     from sheeprl_tpu_torch.utils.registry import resolve_evaluation
 
     cfg = compose_eval_config(args)
+    Precision.from_config(cfg)
     device = resolve_device(cfg.fabric.get("accelerator"))
     _full_float32()
     evaluate = resolve_evaluation(cfg.algo.name)

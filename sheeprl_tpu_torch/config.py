@@ -119,7 +119,8 @@ RUN_DEFAULTS: Dict[str, Any] = {
     "root_dir": None,
     "run_name": None,
     "log_root": "logs/runs",
-    "fabric": {"accelerator": "cuda"},
+    # configs/fabric/default.yaml's precision; see sheeprl_tpu_torch/parallel/fabric.py
+    "fabric": {"accelerator": "cuda", "precision": "32-true"},
     # configs/metric/default.yaml; disable_timer None: the timers run iff
     # log_level > 0; the presets add their Loss/* and State/* keys
     "metric": {

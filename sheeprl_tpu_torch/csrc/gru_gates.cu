@@ -42,7 +42,14 @@
 // re-reading the row from cache in each pass.
 //
 // Both: the gate math is f32 whatever the IO type; bf16 is converted with
-// __bfloat162float and __float2bfloat16. Nothing is staged in shared memory
+// __bfloat162float and __float2bfloat16. The LayerNorm's affine is f32 for
+// both IO types (the parameter dtype). With bf16 IO the normalised projection
+// is (x - mean) * (rstd * w) + b in f32, rounded to bf16 before the gates, as
+// flax's LayerNorm(dtype=bfloat16) hands the Pallas kernel a bf16 projection;
+// the f32 entry keeps (x - mean) * rstd * w + b unrounded. The carry and the
+// output may be f32 under a bf16 projection (a player's or a session's carry
+// starts from the f32 initial state, and the Pallas kernel writes the carry's
+// dtype). Nothing is staged in shared memory
 // but the reductions' partial sums. The kernels launch on the caller's stream,
 // allocate nothing, write nothing but `out` and do not synchronise, so they
 // can be captured in a CUDA graph.
@@ -57,6 +64,18 @@ __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+// One element of the normalised projection (see the header).
+template <typename T>
+__device__ __forceinline__ float normalise(float x, float mean, float rstd, float w, float b);
+template <>
+__device__ __forceinline__ float normalise<float>(float x, float mean, float rstd, float w, float b) {
+  return (x - mean) * rstd * w + b;
+}
+template <>
+__device__ __forceinline__ float normalise<__nv_bfloat16>(float x, float mean, float rstd, float w, float b) {
+  return __bfloat162float(__float2bfloat16((x - mean) * (rstd * w) + b));
+}
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -153,10 +172,10 @@ __device__ __forceinline__ float block_sum(float v, float* part) {
   return s;
 }
 
-template <typename T, int QPT>
+template <typename P, typename S, int QPT>
 __global__ void __launch_bounds__(kLnMaxThreads)
-    gru_gates_ln_vec4(const T* __restrict__ proj, const T* __restrict__ h, const T* __restrict__ weight,
-                      const T* __restrict__ bias, T* __restrict__ out, int64_t H, float eps) {
+    gru_gates_ln_vec4(const P* __restrict__ proj, const S* __restrict__ h, const float* __restrict__ weight,
+                      const float* __restrict__ bias, S* __restrict__ out, int64_t H, float eps) {
   __shared__ float part[2][kLnMaxThreads / 32];
   // at one quad a thread the affine and the carry are loaded with the
   // projection, so the row costs one memory round trip; at two they cost
@@ -164,24 +183,25 @@ __global__ void __launch_bounds__(kLnMaxThreads)
   constexpr bool kPreload = QPT == 1;
   const int64_t row = blockIdx.x;
   const int quads = static_cast<int>(H / 4);
-  const T* p = proj + row * 3 * H;
+  const P* p = proj + row * 3 * H;
   float x[QPT][3][4];
-  Vec4<T> vw[kPreload ? QPT : 1][3], vb[kPreload ? QPT : 1][3], vh[kPreload ? QPT : 1];
+  Vec4<float> vw[kPreload ? QPT : 1][3], vb[kPreload ? QPT : 1][3];
+  Vec4<S> vh[kPreload ? QPT : 1];
   float sum = 0.0f;
 #pragma unroll
   for (int k = 0; k < QPT; ++k) {
     const int q = threadIdx.x + k * blockDim.x;
     if (q < quads) {
-      Vec4<T> v[3];
+      Vec4<P> v[3];
 #pragma unroll
-      for (int g = 0; g < 3; ++g) v[g] = *reinterpret_cast<const Vec4<T>*>(p + g * H + 4 * q);
+      for (int g = 0; g < 3; ++g) v[g] = *reinterpret_cast<const Vec4<P>*>(p + g * H + 4 * q);
       if constexpr (kPreload) {
 #pragma unroll
         for (int g = 0; g < 3; ++g) {
-          vw[k][g] = *reinterpret_cast<const Vec4<T>*>(weight + g * H + 4 * q);
-          vb[k][g] = *reinterpret_cast<const Vec4<T>*>(bias + g * H + 4 * q);
+          vw[k][g] = *reinterpret_cast<const Vec4<float>*>(weight + g * H + 4 * q);
+          vb[k][g] = *reinterpret_cast<const Vec4<float>*>(bias + g * H + 4 * q);
         }
-        vh[k] = *reinterpret_cast<const Vec4<T>*>(h + row * H + 4 * q);
+        vh[k] = *reinterpret_cast<const Vec4<S>*>(h + row * H + 4 * q);
       }
 #pragma unroll
       for (int g = 0; g < 3; ++g) {
@@ -214,7 +234,8 @@ __global__ void __launch_bounds__(kLnMaxThreads)
   for (int k = 0; k < QPT; ++k) {
     const int q = threadIdx.x + k * blockDim.x;
     if (q >= quads) continue;
-    Vec4<T> w[3], b[3], hq;
+    Vec4<float> w[3], b[3];
+    Vec4<S> hq;
     if constexpr (kPreload) {
 #pragma unroll
       for (int g = 0; g < 3; ++g) {
@@ -225,31 +246,31 @@ __global__ void __launch_bounds__(kLnMaxThreads)
     } else {
 #pragma unroll
       for (int g = 0; g < 3; ++g) {
-        w[g] = *reinterpret_cast<const Vec4<T>*>(weight + g * H + 4 * q);
-        b[g] = *reinterpret_cast<const Vec4<T>*>(bias + g * H + 4 * q);
+        w[g] = *reinterpret_cast<const Vec4<float>*>(weight + g * H + 4 * q);
+        b[g] = *reinterpret_cast<const Vec4<float>*>(bias + g * H + 4 * q);
       }
-      hq = *reinterpret_cast<const Vec4<T>*>(h + row * H + 4 * q);
+      hq = *reinterpret_cast<const Vec4<S>*>(h + row * H + 4 * q);
     }
     float y[3][4];
 #pragma unroll
     for (int g = 0; g < 3; ++g) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) y[g][e] = (x[k][g][e] - mean) * rstd * load_f(&w[g].v[e]) + load_f(&b[g].v[e]);
+      for (int e = 0; e < 4; ++e) y[g][e] = normalise<P>(x[k][g][e], mean, rstd, w[g].v[e], b[g].v[e]);
     }
-    Vec4<T> vo;
+    Vec4<S> vo;
 #pragma unroll
     for (int e = 0; e < 4; ++e) store_f(&vo.v[e], gate(y[0][e], y[1][e], y[2][e], load_f(&hq.v[e])));
-    *reinterpret_cast<Vec4<T>*>(out + row * H + 4 * q) = vo;
+    *reinterpret_cast<Vec4<S>*>(out + row * H + 4 * q) = vo;
   }
 }
 
-template <typename T>
+template <typename P, typename S>
 __global__ void __launch_bounds__(kLnMaxThreads)
-    gru_gates_ln_rows(const T* __restrict__ proj, const T* __restrict__ h, const T* __restrict__ weight,
-                      const T* __restrict__ bias, T* __restrict__ out, int64_t H, float eps) {
+    gru_gates_ln_rows(const P* __restrict__ proj, const S* __restrict__ h, const float* __restrict__ weight,
+                      const float* __restrict__ bias, S* __restrict__ out, int64_t H, float eps) {
   __shared__ float part[2][kLnMaxThreads / 32];
   const int64_t row = blockIdx.x;
-  const T* p = proj + row * 3 * H;
+  const P* p = proj + row * 3 * H;
   float sum = 0.0f;
   for (int64_t i = threadIdx.x; i < 3 * H; i += blockDim.x) sum += load_f(p + i);
   const float n = static_cast<float>(3 * H);
@@ -265,40 +286,42 @@ __global__ void __launch_bounds__(kLnMaxThreads)
 #pragma unroll
     for (int g = 0; g < 3; ++g) {
       const int64_t i = g * H + j;
-      y[g] = (load_f(p + i) - mean) * rstd * load_f(weight + i) + load_f(bias + i);
+      y[g] = normalise<P>(load_f(p + i), mean, rstd, weight[i], bias[i]);
     }
     store_f(out + row * H + j, gate(y[0], y[1], y[2], load_f(h + row * H + j)));
   }
 }
 
-template <typename T>
+template <typename P, typename S>
 cudaError_t launch_ln(const void* proj, const void* h, const void* weight, const void* bias, void* out, int64_t B,
                       int64_t H, float eps, cudaStream_t stream) {
-  const T* p = static_cast<const T*>(proj);
-  const T* hp = static_cast<const T*>(h);
-  const T* w = static_cast<const T*>(weight);
-  const T* b = static_cast<const T*>(bias);
-  T* o = static_cast<T*>(out);
+  const P* p = static_cast<const P*>(proj);
+  const S* hp = static_cast<const S*>(h);
+  const float* w = static_cast<const float*>(weight);
+  const float* b = static_cast<const float*>(bias);
+  S* o = static_cast<S*>(out);
   if (B > 0x7fffffff) return cudaErrorInvalidConfiguration;
   const unsigned blocks = static_cast<unsigned>(B);
-  const uintptr_t align = 4 * sizeof(T);
-  const bool aligned = reinterpret_cast<uintptr_t>(proj) % align == 0 && reinterpret_cast<uintptr_t>(h) % align == 0 &&
-                       reinterpret_cast<uintptr_t>(weight) % align == 0 &&
-                       reinterpret_cast<uintptr_t>(bias) % align == 0 && reinterpret_cast<uintptr_t>(out) % align == 0;
+  const uintptr_t proj_align = 4 * sizeof(P), state_align = 4 * sizeof(S), affine_align = 4 * sizeof(float);
+  const bool aligned = reinterpret_cast<uintptr_t>(proj) % proj_align == 0 &&
+                       reinterpret_cast<uintptr_t>(h) % state_align == 0 &&
+                       reinterpret_cast<uintptr_t>(weight) % affine_align == 0 &&
+                       reinterpret_cast<uintptr_t>(bias) % affine_align == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % state_align == 0;
   const int64_t quads = H / 4;
   if (H % 4 == 0 && aligned && quads <= kQuadsPerThread * kLnMaxThreads) {
     // one quad a thread where the block holds the row so, else two
     if (quads <= kLnMaxThreads) {
       const int threads = static_cast<int>((quads + 31) / 32 * 32);
-      gru_gates_ln_vec4<T, 1><<<blocks, threads, 0, stream>>>(p, hp, w, b, o, H, eps);
+      gru_gates_ln_vec4<P, S, 1><<<blocks, threads, 0, stream>>>(p, hp, w, b, o, H, eps);
     } else {
       const int threads = static_cast<int>(((quads + 1) / 2 + 31) / 32 * 32);
-      gru_gates_ln_vec4<T, 2><<<blocks, threads, 0, stream>>>(p, hp, w, b, o, H, eps);
+      gru_gates_ln_vec4<P, S, 2><<<blocks, threads, 0, stream>>>(p, hp, w, b, o, H, eps);
     }
   } else {
     const int64_t want = (H + 31) / 32 * 32;
     const int threads = static_cast<int>(want < kLnMaxThreads ? want : kLnMaxThreads);
-    gru_gates_ln_rows<T><<<blocks, threads, 0, stream>>>(p, hp, w, b, o, H, eps);
+    gru_gates_ln_rows<P, S><<<blocks, threads, 0, stream>>>(p, hp, w, b, o, H, eps);
   }
   return cudaGetLastError();
 }
@@ -322,20 +345,24 @@ extern "C" int gru_gates_launch(const void* fused, const void* h, void* out, int
   }
 }
 
-// dtype: 0 = float32, 1 = bfloat16, for every operand. proj is a contiguous
-// (B, 3H), h and out contiguous (B, H), weight and bias the LayerNorm's (3H,)
-// affine; eps its epsilon. Returns the cudaError_t of the launch (0 on
-// success).
+// proj_dtype, state_dtype: 0 = float32, 1 = bfloat16; the pairs taken are
+// (0, 0), (1, 1) and (1, 0): a bf16 projection over an f32 carry, whose output
+// is f32, as the Pallas kernel writes the carry's dtype. proj is a contiguous
+// (B, 3H) of proj_dtype, h and out contiguous (B, H) of state_dtype, weight
+// and bias the LayerNorm's f32 (3H,) affine; eps its epsilon. Returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int gru_gates_ln_launch(const void* proj, const void* h, const void* weight, const void* bias, void* out,
-                                   int64_t B, int64_t H, float eps, int dtype, void* stream) {
+                                   int64_t B, int64_t H, float eps, int proj_dtype, int state_dtype, void* stream) {
   if (B <= 0 || H <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(launch_ln<float>(proj, h, weight, bias, out, B, H, eps, s));
-    case 1:
-      return static_cast<int>(launch_ln<__nv_bfloat16>(proj, h, weight, bias, out, B, H, eps, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (proj_dtype == 0 && state_dtype == 0) {
+    return static_cast<int>(launch_ln<float, float>(proj, h, weight, bias, out, B, H, eps, s));
   }
+  if (proj_dtype == 1 && state_dtype == 1) {
+    return static_cast<int>(launch_ln<__nv_bfloat16, __nv_bfloat16>(proj, h, weight, bias, out, B, H, eps, s));
+  }
+  if (proj_dtype == 1 && state_dtype == 0) {
+    return static_cast<int>(launch_ln<__nv_bfloat16, float>(proj, h, weight, bias, out, B, H, eps, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

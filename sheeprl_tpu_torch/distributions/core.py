@@ -15,6 +15,12 @@ normals drawn the same way or passed in; ``TruncatedNormal`` inverts its CDF
 at uniforms drawn or passed in. The two frameworks never give the
 same draws for one seed; tests feed both the same noise or compare logits
 instead.
+
+Below float32 (``fabric.precision=bf16-mixed``) every distribution lifts its
+parameters to float32 first (:func:`_lift`), so log-probs, KLs, entropies
+and softmaxes run in float32, and casts its samples, modes and means back to
+the parameters' own dtype (``_sample_dtype``), as the JAX package does. With
+float32 parameters both are no-ops.
 """
 
 from __future__ import annotations
@@ -44,10 +50,19 @@ __all__ = [
 ]
 
 
+def _lift(x):
+    """A floating tensor below float32 as float32; anything else as is."""
+    if isinstance(x, torch.Tensor) and x.is_floating_point() and x.element_size() < 4:
+        return x.float()
+    return x
+
+
 class OneHotCategorical:
     """Categorical over the last axis with one-hot values."""
 
     def __init__(self, logits: torch.Tensor) -> None:
+        self._sample_dtype = logits.dtype
+        logits = _lift(logits)
         self.logits = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
 
     @property
@@ -59,7 +74,7 @@ class OneHotCategorical:
         return int(self.logits.shape[-1])
 
     def _one_hot(self, idx: torch.Tensor) -> torch.Tensor:
-        return F.one_hot(idx, self.num_classes).to(self.logits.dtype)
+        return F.one_hot(idx, self.num_classes).to(self._sample_dtype)
 
     @property
     def mode(self) -> torch.Tensor:
@@ -88,7 +103,7 @@ class OneHotCategoricalStraightThrough(OneHotCategorical):
 
     def rsample(self, generator: Optional[torch.Generator] = None, uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
         hard = super().sample(generator, uniform)
-        probs = self.probs
+        probs = self.probs.to(self._sample_dtype)
         return hard + probs - probs.detach()
 
     def sample(self, generator=None, uniform=None) -> torch.Tensor:
@@ -101,8 +116,9 @@ class Normal:
     the JAX package's formulas and op order."""
 
     def __init__(self, loc: torch.Tensor, scale: torch.Tensor) -> None:
-        self.loc = loc
-        self.scale = scale
+        self._sample_dtype = loc.dtype
+        self.loc = _lift(loc)
+        self.scale = _lift(scale)
 
     def _shape(self) -> torch.Size:
         return torch.broadcast_shapes(self.loc.shape, self.scale.shape)
@@ -119,22 +135,25 @@ class Normal:
 
     @property
     def mean(self) -> torch.Tensor:
-        return self.loc.expand(self._shape())
+        return self.loc.expand(self._shape()).to(self._sample_dtype)
 
     @property
     def mode(self) -> torch.Tensor:
         return self.mean
 
-    def rsample(self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``loc + scale * noise``; ``noise`` (standard normals of the
-        broadcast shape, or ``(n, *shape)`` for ``n`` draws) is drawn from
-        ``generator`` when not given."""
+    def _draw(self, generator: Optional[torch.Generator], noise: Optional[torch.Tensor]) -> torch.Tensor:
         shape = tuple(self._shape())
         if noise is None:
             noise = torch.randn(shape, generator=generator, device=self.loc.device, dtype=self.loc.dtype)
         elif noise.ndim < len(shape) or tuple(noise.shape[noise.ndim - len(shape):]) != shape:
             raise ValueError(f"noise has shape {tuple(noise.shape)}, expected (..., {shape})")
         return self.loc + self.scale * noise
+
+    def rsample(self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``loc + scale * noise``; ``noise`` (standard normals of the
+        broadcast shape, or ``(n, *shape)`` for ``n`` draws) is drawn from
+        ``generator`` when not given."""
+        return self._draw(generator, noise).to(self._sample_dtype)
 
     def sample(self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.rsample(generator, noise).detach()
@@ -151,13 +170,14 @@ class TanhNormal:
         self.base = Normal(loc, scale)
 
     def rsample(self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return torch.tanh(self.base.rsample(generator, noise))
+        # the squash takes the float32 draw: in bfloat16, tanh saturates to +-1
+        return torch.tanh(self.base._draw(generator, noise)).to(self.base._sample_dtype)
 
     def sample(self, generator: Optional[torch.Generator] = None, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.rsample(generator, noise).detach()
 
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
-        value = torch.clamp(value, -1 + 1e-6, 1 - 1e-6)
+        value = torch.clamp(_lift(value), -1 + 1e-6, 1 - 1e-6)
         return self.base.log_prob(torch.atanh(value)) - torch.log1p(-(value**2) + 1e-6)
 
     def entropy(self) -> torch.Tensor:
@@ -165,11 +185,11 @@ class TanhNormal:
 
     @property
     def mean(self) -> torch.Tensor:
-        return torch.tanh(self.base.mean)
+        return torch.tanh(_lift(self.base.mean)).to(self.base._sample_dtype)
 
     @property
     def mode(self) -> torch.Tensor:
-        return torch.tanh(self.base.mode)
+        return torch.tanh(_lift(self.base.mode)).to(self.base._sample_dtype)
 
 
 _SQRT2 = math.sqrt(2.0)
@@ -196,6 +216,8 @@ class TruncatedNormal:
                  eps: float = 1e-6) -> None:
         if not float(low) < float(high):
             raise ValueError(f"TruncatedNormal: low ({low}) must be < high ({high})")
+        self._sample_dtype = loc.dtype
+        loc, scale = _lift(loc), _lift(scale)
         self.loc, self.scale = loc, scale
         self.low, self.high, self.eps = float(low), float(high), float(eps)
         self._alpha = (self.low - loc) / scale
@@ -219,7 +241,7 @@ class TruncatedNormal:
             raise ValueError(f"uniform noise has shape {tuple(uniform.shape)}, expected (..., {shape})")
         p = self._phi_alpha + uniform * self._Z
         x = self.loc + self.scale * torch.special.ndtri(torch.clamp(p, 1e-7, 1 - 1e-7))
-        return torch.clamp(x, self.low + self.eps, self.high - self.eps)
+        return torch.clamp(x, self.low + self.eps, self.high - self.eps).to(self._sample_dtype)
 
     def sample(self, generator: Optional[torch.Generator] = None, uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
         return self.rsample(generator, uniform).detach()
@@ -238,11 +260,11 @@ class TruncatedNormal:
 
     @property
     def mean(self) -> torch.Tensor:
-        return self.loc + self.scale * (_phi(self._alpha) - _phi(self._beta)) / self._Z
+        return (self.loc + self.scale * (_phi(self._alpha) - _phi(self._beta)) / self._Z).to(self._sample_dtype)
 
     @property
     def mode(self) -> torch.Tensor:
-        return torch.clamp(self.loc, self.low, self.high)
+        return torch.clamp(self.loc, self.low, self.high).to(self._sample_dtype)
 
 
 class Independent:
@@ -319,7 +341,7 @@ class TwoHotEncodingDistribution:
     CPU the JAX package's ops, the normalisation first)."""
 
     def __init__(self, logits: torch.Tensor) -> None:
-        self.raw_logits = logits
+        self.raw_logits = _lift(logits)  # the two-hot kernels take float32 logits
         self._logits: Optional[torch.Tensor] = None
 
     @property
@@ -341,7 +363,8 @@ class BernoulliSafeMode:
     """Bernoulli over logits whose mode is 0 at p == 0.5."""
 
     def __init__(self, logits: torch.Tensor) -> None:
-        self.logits = logits
+        self._sample_dtype = logits.dtype
+        self.logits = _lift(logits)
 
     @property
     def probs(self) -> torch.Tensor:
@@ -357,7 +380,7 @@ class BernoulliSafeMode:
 
     @property
     def mode(self) -> torch.Tensor:
-        return (self.probs > 0.5).to(self.logits.dtype)
+        return (self.probs > 0.5).to(self._sample_dtype)
 
 
 def kl_divergence(p, q) -> torch.Tensor:

@@ -5,6 +5,13 @@ Submodules keep the flax names (``dense_0``, ``ln_0``, ``out``, ``conv_0``,
 ``state_dict`` keys one to one (:mod:`sheeprl_tpu_torch.utils.convert`).
 Images are NHWC at every block's interface, as in the JAX package; the
 convolutions run NCHW inside.
+
+Every layer holds a compute dtype (``dtype``), as a flax module takes
+``dtype=``: float32, the default, runs the plain ``torch.nn`` layer; a lower
+one computes as flax does (:class:`Dense`, :class:`Conv2d`,
+:class:`ConvTranspose2d`, :class:`LayerNorm`). The parameters stay float32
+either way. A family's ``build_agent`` sets the dtype of ``fabric.precision`` on
+every layer of its agent with :func:`set_compute_dtype`.
 """
 
 from __future__ import annotations
@@ -16,9 +23,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sheeprl_tpu_torch.ops.core import layer_norm
 from sheeprl_tpu_torch.ops.kernels import gru_gates, gru_gates_ln
 
-__all__ = ["get_activation", "lecun_normal_", "MLP", "CNN", "NatureCNN", "MultiEncoder", "LayerNormGRUCell", "ConvTranspose"]
+__all__ = [
+    "get_activation", "lecun_normal_", "Dense", "Conv2d", "ConvTranspose2d", "LayerNorm", "layer_norm",
+    "set_compute_dtype", "MLP", "CNN", "NatureCNN", "MultiEncoder", "LayerNormGRUCell", "ConvTranspose",
+]
 
 _ACTIVATIONS = {
     "relu": F.relu,
@@ -59,6 +70,70 @@ def lecun_normal_(module: nn.Module, generator: torch.Generator) -> None:
                 nn.init.zeros_(m.bias)
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` with a compute dtype. Below float32 it computes as
+    flax's ``Dense(dtype=...)``: input and weight cast to ``dtype``, the
+    product rounded to ``dtype``, then the bias added in ``dtype``."""
+
+    dtype: torch.dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with a compute dtype, as :class:`Dense` (flax's
+    ``Conv(dtype=...)``: the convolution rounded, then the bias added)."""
+
+    dtype: torch.dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        y = self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype), None)
+        return y if self.bias is None else y + self.bias.to(self.dtype).view(-1, 1, 1)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` with a compute dtype, as :class:`Conv2d`."""
+
+    dtype: torch.dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        y = F.conv_transpose2d(
+            x.to(self.dtype), self.weight.to(self.dtype), None, self.stride, self.padding, self.output_padding,
+            self.groups, self.dilation,
+        )
+        return y if self.bias is None else y + self.bias.to(self.dtype).view(-1, 1, 1)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with a compute dtype; below float32 :func:`layer_norm`."""
+
+    dtype: torch.dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        return layer_norm(x, self.weight, self.bias, self.eps, self.dtype)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Set ``dtype`` as the compute dtype of every module under ``module``
+    whose class declares one (a ``dtype`` class attribute: the layers above,
+    and the families' modules that compute on their own parameters);
+    returns ``module``."""
+    for m in module.modules():
+        if isinstance(getattr(type(m), "dtype", None), torch.dtype):
+            m.dtype = dtype
+    return module
+
+
 class MLP(nn.Module):
     """``Linear (with bias) -> [LayerNorm(eps 1e-3)] -> activation`` per
     hidden layer, then, with ``output_dim``, a last ``Linear`` named ``out``
@@ -78,11 +153,11 @@ class MLP(nn.Module):
         self.layer_norm = bool(layer_norm)
         last = int(input_dim)
         for i, size in enumerate(self.hidden_sizes):
-            self.add_module(f"dense_{i}", nn.Linear(last, size))
+            self.add_module(f"dense_{i}", Dense(last, size))
             if self.layer_norm:
-                self.add_module(f"ln_{i}", nn.LayerNorm(size, eps=1e-3))
+                self.add_module(f"ln_{i}", LayerNorm(size, eps=1e-3))
             last = size
-        self.out = nn.Linear(last, int(output_dim)) if output_dim is not None else None
+        self.out = Dense(last, int(output_dim)) if output_dim is not None else None
         self.output_features = int(output_dim) if output_dim is not None else last
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -121,13 +196,13 @@ class CNN(nn.Module):
         last = int(input_channels)
         for i, ch in enumerate(self.hidden_channels):
             kw: Dict[str, Any] = dict(args[i] or {})
-            conv = nn.Conv2d(
+            conv = Conv2d(
                 last, ch, _pair(kw.get("kernel_size", 3)), stride=_pair(kw.get("stride", 1)),
                 padding=_pair(kw.get("padding", 0)), bias=bool(kw.get("bias", True)),
             )
             self.add_module(f"conv_{i}", conv)
             if self.layer_norm:
-                self.add_module(f"ln_{i}", nn.LayerNorm(ch, eps=norm_eps))
+                self.add_module(f"ln_{i}", LayerNorm(ch, eps=norm_eps))
             last = ch
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -159,7 +234,7 @@ class NatureCNN(nn.Module):
             side = (side - kernel) // stride + 1
         if side < 1:
             raise ValueError(f"NatureCNN needs a larger screen than {screen_size}")
-        self.fc = nn.Linear(side * side * 64, int(features_dim))
+        self.fc = Dense(side * side * 64, int(features_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-3]
@@ -192,8 +267,11 @@ class LayerNormGRUCell(nn.Module):
     With the LayerNorm, the norm and the gates are :func:`gru_gates_ln`: one
     CUDA kernel on the card, ``F.layer_norm`` and the plain gate chain on
     the CPU (the ops ``self.ln`` and :func:`gru_gates` run there). Without
-    it, :func:`gru_gates`. ``self.ln`` stays an ``nn.LayerNorm`` that holds
-    the affine, so the state-dict keys are those of an unfused cell."""
+    it, :func:`gru_gates`. ``self.ln`` stays a LayerNorm that holds the
+    float32 affine, so the state-dict keys are those of an unfused cell.
+    Below float32 the projection and the carry are in the compute dtype and
+    the kernel takes the float32 affine, as flax's ``LayerNorm(dtype=...)``
+    and the Pallas kernel compute."""
 
     def __init__(
         self,
@@ -204,8 +282,8 @@ class LayerNormGRUCell(nn.Module):
     ) -> None:
         super().__init__()
         self.hidden_size = int(hidden_size)
-        self.fused = nn.Linear(self.hidden_size + int(input_size), 3 * self.hidden_size, bias=use_bias)
-        self.ln = nn.LayerNorm(3 * self.hidden_size, eps=1e-3) if layer_norm else None
+        self.fused = Dense(self.hidden_size + int(input_size), 3 * self.hidden_size, bias=use_bias)
+        self.ln = LayerNorm(3 * self.hidden_size, eps=1e-3) if layer_norm else None
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         fused = self.fused(torch.cat([h, x], dim=-1)).contiguous()
@@ -234,7 +312,7 @@ class ConvTranspose(nn.Module):
         output_padding: int = 0,
     ) -> None:
         super().__init__()
-        self.ConvTranspose_0 = nn.ConvTranspose2d(
+        self.ConvTranspose_0 = ConvTranspose2d(
             int(in_channels), int(out_channels), int(kernel_size), stride=int(stride), padding=int(padding), bias=bias
         )
         self.output_padding = int(output_padding)

@@ -3,9 +3,12 @@ counter-based random numbers that stand in for JAX's per-session keys."""
 
 from __future__ import annotations
 
-import torch
+from typing import Optional
 
-__all__ = ["symlog", "symexp", "counter_uniform", "counter_normal"]
+import torch
+import torch.nn.functional as F
+
+__all__ = ["symlog", "symexp", "counter_uniform", "counter_normal", "layer_norm"]
 
 
 def symlog(x: torch.Tensor) -> torch.Tensor:
@@ -52,3 +55,25 @@ def counter_normal(seed: torch.Tensor, counter: torch.Tensor, stream: int, n: in
     every one is finite); row ``i`` depends only on row ``i`` of ``seed``
     and ``counter``."""
     return torch.special.ndtri(counter_uniform(seed, counter, stream, n))
+
+
+def layer_norm(
+    x: torch.Tensor, weight: Optional[torch.Tensor], bias: Optional[torch.Tensor], eps: float, dtype: torch.dtype
+) -> torch.Tensor:
+    """LayerNorm over the last axis as flax's ``LayerNorm(dtype=dtype)``
+    computes it below float32: the statistics, the normalisation and the
+    float32 affine in float32, then one rounding to ``dtype``. torch's
+    two-pass statistics stand for flax's ``E[x^2] - E[x]^2``: the two agree
+    to float32 rounding, which the one rounding to bfloat16 hides (the
+    module tests hold them bit-equal on 99 % of the elements). ``weight``
+    and ``bias`` broadcast against ``x`` (a stack of members' affines
+    too)."""
+    shape = (x.shape[-1],)
+    if weight is not None and weight.shape == shape and (bias is None or bias.shape == shape):
+        return F.layer_norm(x.float(), shape, weight.float(), None if bias is None else bias.float(), eps).to(dtype)
+    y = F.layer_norm(x.float(), shape, None, None, eps)
+    if weight is not None:
+        y = y * weight.float()
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(dtype)

@@ -1,0 +1,62 @@
+"""``fabric.precision`` as a dtype policy (counterpart of ``Precision`` in
+``sheeprl_tpu/parallel/fabric.py``).
+
+The Lightning-style strings map to a parameter dtype and a compute dtype.
+Every family's ``build_agent`` reads the compute dtype and sets it on each of its
+layers (:func:`sheeprl_tpu_torch.models.blocks.set_compute_dtype`), as the
+JAX package hands ``dtype=fabric.precision.compute_dtype`` to its flax
+modules. No ``build_agent`` of either package passes the parameter dtype on, so
+parameters, gradients, optimizer state and checkpoints are float32 under
+every alias; ``param_dtype`` is kept for the table's sake. There is no
+float16 and no loss scaling: ``16-mixed`` and ``16-true`` are bfloat16, as
+in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Mapping
+
+import torch
+
+__all__ = ["PRECISION_ALIASES", "Precision", "compute_dtype"]
+
+#: alias -> (parameter dtype, compute dtype), the JAX package's table
+PRECISION_ALIASES = {
+    "32-true": ("float32", "float32"),
+    "32": ("float32", "float32"),
+    "bf16-mixed": ("float32", "bfloat16"),
+    "bf16-true": ("bfloat16", "bfloat16"),
+    "16-mixed": ("float32", "bfloat16"),
+    "16-true": ("bfloat16", "bfloat16"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Precision:
+    """Parameter and compute dtypes of one ``fabric.precision`` string.
+
+    ``param_dtype`` is the JAX table's value and is not applied: no agent
+    builder reads it, and parameters stay float32 under every alias (a
+    ``bf16-true`` run too). ``compute_dtype`` is what the builders set."""
+
+    param_dtype: torch.dtype
+    compute_dtype: torch.dtype
+
+    @classmethod
+    def from_string(cls, spec: str) -> "Precision":
+        if spec not in PRECISION_ALIASES:
+            raise ValueError(f"Unknown precision '{spec}'. Known: {sorted(PRECISION_ALIASES)}")
+        p, c = PRECISION_ALIASES[spec]
+        return cls(param_dtype=getattr(torch, p), compute_dtype=getattr(torch, c))
+
+    @classmethod
+    def from_config(cls, cfg: Mapping[str, Any]) -> "Precision":
+        """The policy of a run config's ``fabric.precision`` (``32-true``
+        when unset)."""
+        return cls.from_string(str((cfg.get("fabric") or {}).get("precision", "32-true")))
+
+
+def compute_dtype(cfg: Mapping[str, Any]) -> torch.dtype:
+    """The compute dtype a run config's ``fabric.precision`` asks for."""
+    return Precision.from_config(cfg).compute_dtype

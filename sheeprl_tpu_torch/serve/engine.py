@@ -33,7 +33,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.serve.policy import ServePolicy
+from sheeprl_tpu_torch.serve.policy import ServePolicy, actions_to_host
 
 __all__ = ["BucketEngine", "NaiveEngine", "default_buckets", "chunk_plan", "check_chunk_order", "row_keys"]
 
@@ -205,7 +205,7 @@ class BucketEngine:
                 out = _call(self.policy, params, slab, greedy, key, start, bucket, self.device)
                 # the copy back waits for the device, so the host slab is free
                 # again once it returns
-                actions = out[:n].cpu().numpy()
+                actions = actions_to_host(out[:n])
             self.dispatches += 1
             self.rows += n
             self.padded_rows += bucket - n
@@ -252,7 +252,7 @@ class NaiveEngine:
         n = self.policy.validate_batch(obs)
         with torch.no_grad():
             obs_t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for k, v in obs.items()}
-            actions = _call(self.policy, params, obs_t, greedy, key, 0, n, self.device).cpu().numpy()
+            actions = actions_to_host(_call(self.policy, params, obs_t, greedy, key, 0, n, self.device))
         with self._lock:
             self.dispatches += 1
             self.rows += n

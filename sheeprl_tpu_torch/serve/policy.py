@@ -19,7 +19,13 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
-__all__ = ["ServePolicy", "StatefulServePolicy"]
+__all__ = ["ServePolicy", "StatefulServePolicy", "actions_to_host"]
+
+
+def actions_to_host(actions: torch.Tensor) -> np.ndarray:
+    """A dispatch's actions as a numpy array: bfloat16 ones (a ``bf16-mixed``
+    policy's) widened to float32, which holds them exactly."""
+    return (actions.float() if actions.dtype == torch.bfloat16 else actions).cpu().numpy()
 
 
 def _validate_batch(obs_spec: Dict[str, Tuple[Tuple[int, ...], Any]], obs: Dict[str, np.ndarray]) -> int:

@@ -24,7 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.serve.policy import StatefulServePolicy
+from sheeprl_tpu_torch.serve.policy import StatefulServePolicy, actions_to_host
 
 __all__ = ["SessionCache", "SessionEngine", "default_session_buckets"]
 
@@ -268,7 +268,7 @@ class SessionEngine:
             for k, s in slab.items():
                 s.index_copy_(0, idx_t, new_rows[k])
             # the one host sync of a step: the caller needs the actions
-            return actions[:n].cpu().numpy()
+            return actions_to_host(actions[:n])
 
     def check_swap(self, params: Any) -> bool:
         """Do swapped params keep the per-row state shapes and dtypes? If not,

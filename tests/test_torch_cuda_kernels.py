@@ -117,22 +117,57 @@ def _misaligned(t):
          "misaligned", "v2-B1", "v2-B16", "v2-imagination", "v2-explore-B16", "v2-explore-imagination"],
 )
 def test_torch_cuda_gru_gates_ln_matches_plain(cuda, shape, dtype):
-    """The fused LayerNorm + gate kernel against the plain version computed
-    in f32 and cast to the IO dtype: f32 atol and rtol 1e-5 (the row
-    statistics are summed in another order), bf16 atol and rtol 1e-2 (one
-    bf16 rounding). One launch per call, counted as a ``gru_gates`` launch."""
+    """The fused LayerNorm + gate kernel against its plain version on the
+    same inputs (the bf16 entry: a bf16 projection and carry, the float32
+    affine, the normalised projection rounded to bf16 before the gates): f32
+    atol and rtol 1e-5 (the row statistics are summed in another order), bf16
+    atol and rtol 1e-2 (a normalised projection within float32 rounding of a
+    bf16 rounding boundary rounds the other way). One launch per call,
+    counted as a ``gru_gates`` launch."""
     B, H = shape[:2]
     dt = getattr(torch, dtype)
-    proj, h, w, b = (torch.from_numpy(a).to(cuda, dt) for a in _ln_inputs(B, H, seed=B + H))
+    proj, h, w, b = (torch.from_numpy(a).to(cuda) for a in _ln_inputs(B, H, seed=B + H))
+    proj, h = proj.to(dt), h.to(dt)  # the affine stays float32, the parameter dtype
     if len(shape) > 2:
         proj, h, w, b = (_misaligned(t) for t in (proj, h, w, b))
     before = K.LAUNCHES["gru_gates"]
     got = K.gru_gates_ln(proj, h, w, b, 1e-3)
     torch.cuda.synchronize()
     assert K.LAUNCHES["gru_gates"] == before + 1 and got.dtype == dt and got.shape == h.shape
-    want = K.gru_gates_ln_reference(proj.float(), h.float(), w.float(), b.float(), 1e-3).to(dt)
+    want = K.gru_gates_ln_reference(proj.cpu(), h.cpu(), w.cpu(), b.cpu(), 1e-3).to(cuda)
     f32 = dtype == "float32"
     torch.testing.assert_close(got, want, atol=1e-5 if f32 else 1e-2, rtol=1e-5 if f32 else 1e-2)
+
+
+@pytest.mark.parametrize("shape", [(1, 512), (16, 512), (800, 600), (7, 13), (5, 512, "misaligned")],
+                         ids=["session", "B16", "v2-imagination", "scalar-path", "misaligned"])
+def test_torch_cuda_gru_gates_ln_bf16_projection_over_f32_carry(cuda, shape):
+    """A bf16 projection over a float32 carry (a player's or a serving
+    session's RSSM state under ``bf16-mixed``): the output is float32, as
+    the Pallas kernel writes the carry's dtype, against the plain version on
+    the same inputs within atol and rtol 1e-2 (a normalised projection within
+    float32 rounding of a bf16 rounding boundary rounds the other way), and
+    within 1e-5 on 99 % of the elements (the gate math's float32 rounding)."""
+    B, H = shape[:2]
+    proj, h, w, b = (torch.from_numpy(a).to(cuda) for a in _ln_inputs(B, H, seed=B + H))
+    proj = proj.bfloat16()
+    if len(shape) > 2:
+        proj, h, w, b = (_misaligned(t) for t in (proj, h, w, b))
+    before = K.LAUNCHES["gru_gates"]
+    got = K.gru_gates_ln(proj, h, w, b, 1e-3)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["gru_gates"] == before + 1 and got.dtype == torch.float32
+    want = K.gru_gates_ln_reference(proj.cpu(), h.cpu(), w.cpu(), b.cpu(), 1e-3).to(cuda)
+    torch.testing.assert_close(got, want, atol=1e-2, rtol=1e-2)
+    assert float(((got - want).abs() <= 1e-5).float().mean()) >= 0.99
+
+
+def test_torch_cuda_gru_gates_ln_bf16_entry_takes_a_float32_affine(cuda):
+    proj, h, w, b = (torch.from_numpy(a).to(cuda) for a in _ln_inputs(4, 8))
+    with pytest.raises(TypeError, match="float32 weight"):
+        K.gru_gates_ln(proj.bfloat16(), h.bfloat16(), w.bfloat16(), b, 1e-3)
+    with pytest.raises(TypeError, match="projection"):
+        K.gru_gates_ln(proj, h.bfloat16(), w, b, 1e-3)
 
 
 def test_torch_cuda_gru_gates_ln_rejects_what_the_kernel_does_not_take(cuda):

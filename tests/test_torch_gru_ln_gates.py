@@ -107,8 +107,10 @@ def test_torch_gru_ln_backward_returns_only_the_gradients_asked_for(monkeypatch)
 
 
 def test_torch_gru_ln_bf16_plain_version_keeps_the_dtype():
-    proj, h, weight, bias = (t.bfloat16() for t in _torch(*_inputs(3, 8)))
-    assert K.gru_gates_ln(proj, h, weight, bias, EPS).dtype == torch.bfloat16
+    """The bf16 entry takes the float32 affine (the parameter dtype) and
+    keeps the carry's dtype."""
+    proj, h, weight, bias = _torch(*_inputs(3, 8))
+    assert K.gru_gates_ln(proj.bfloat16(), h.bfloat16(), weight, bias, EPS).dtype == torch.bfloat16
 
 
 def test_torch_gru_ln_cpu_path_launches_nothing():
