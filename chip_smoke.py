@@ -297,9 +297,29 @@ result line):
    (BF16_FAMILIES): losses, each optimizer's gradient, the card's modules
    in bfloat16. The discrete DreamerV3, PPO and SAC runs above stay at
    their recipes' ``32-true``.
+53. the pipeline on the card: a published parameter snapshot stays
+   bit-equal while Adam updates the live weights in place and an actor
+   stream reads it; the stager's refill waits for its slab's upload event
+   and the learner reads the item bit for bit; two threads reaching an
+   unbuilt ``gae`` at once build it once, both results bit-equal; an actor
+   stream's work ends while a long kernel runs on the learner's stream;
+54. Sebulba PPO: ``run preset=ppo_sebulba`` (2 actor threads, each on its
+   own stream) for SEBULBA_PPO_ITERATIONS items: ``gae`` exactly once per
+   item trained on or in flight at the stop, no other kernel, the staleness
+   within its bound, finite losses, the learning bar; a resume for one
+   item, ``evaluation``, one update and one actor step profiled, and a short
+   profiled run for the card's busy share and kernels by stream;
+55. decoupled PPO: ``run preset=ppo_decoupled``, the player's ``gae`` once
+   per iteration on its own stream; a resume;
+56. Sebulba SAC with PER: ``run preset=sac_sebulba_per`` at full width for
+   SEBULBA_SAC_STEPS steps: ``sumtree_sample`` exactly once per granted
+   gradient step, the replay-ratio governor's bound, finite losses; a
+   resume restoring the ring, the sum-tree, ``max_p`` and the generator bit
+   for bit; the append-free dispatch card against CPU step by step;
+57. decoupled SAC: ``run preset=sac_decoupled``, no kernel launched; a resume.
 
 Phases 1-3, 11, 14 and 21 run first, in this process alone, so that the
-kernels are timed on an idle card. Phases 4-10, 12, 13 and 15-52 then run
+kernels are timed on an idle card. Phases 4-10, 12, 13 and 15-57 then run
 in four worker processes at once on the same card (``LANES``; each worker
 is this script with ``--lane NAME --out FILE``), each a chain of phases in
 the order above; path timings taken there share the card and the CPU's
@@ -7149,6 +7169,609 @@ def population_run_phase(workdir: str) -> dict:
     return out
 
 
+# -- 53-57. the async topologies: the pipeline on the card, Sebulba and decoupled PPO and SAC ------------
+
+SEBULBA_PPO_PRESET, DECOUPLED_PPO_PRESET = "ppo_sebulba", "ppo_decoupled"
+SEBULBA_SAC_PRESET, DECOUPLED_SAC_PRESET = "sac_sebulba_per", "sac_decoupled"
+# the Sebulba PPO run takes the sync PPO run's depth (never cut below it);
+# its learning bar (PERF.md): the port's CPU runs of the preset read a last-10 mean of 219.6-310.5
+# at 64 iterations (seeds 1, 7, 42), every item 4 versions stale (the queue
+# of 2 and 2 actors); a random policy reads ~22, a pipeline that raced its
+# snapshots or slabs would train on garbage
+SEBULBA_PPO_ITERATIONS, SEBULBA_PPO_RETURN_BAR = PPO_ITERATIONS, 150.0
+SEBULBA_PROFILED_ITEMS = 3  # a short run under torch.profiler (the card's kernels only) for its busy share
+DECOUPLED_PPO_ITERATIONS = 8
+# the Sebulba SAC-PER run: 2,048 steps of 4 envs x 2 actors in blocks of 8
+# (32 granted steps a dispatch), a save at 1,024 and a resume of 256 steps
+SEBULBA_SAC_STEPS, SEBULBA_SAC_RESUME_STEPS, SEBULBA_SAC_SAVE_EVERY = 2048, 256, 1024
+DECOUPLED_SAC_STEPS, DECOUPLED_SAC_RESUME_STEPS = 1024, 256
+# the append-free dispatch card against CPU: a written priority's gap in |TD| units
+# (a Pendulum Q of up to 16 / (1 - 0.99) = 1,600 has a float32 ulp of 1.2e-4: 8 ulps), and
+# the tree's internal nodes, sums of such leaves, relative (an H100 read 3.4e-4 relative
+# on a leaf of a 2,048-step critic's tree against the CPU)
+SAC_TD_ATOL, SAC_NODE_RTOL = 1e-3, 2e-3
+SNAPSHOT_ADAM_STEPS = 12  # in-place Adam steps on the learner's stream while an actor reads the snapshot
+STAGER_SLAB_FLOATS = 16 << 20  # a 64 MiB slab: its upload is long enough to be in flight when the ring comes round
+SLEEP_CYCLES = int(0.2 * SM_CLOCK_HZ)  # ~200 ms of one spinning kernel on the learner's stream
+
+
+def _async_launch_check(name: str, launches: dict, **want_counts) -> None:
+    want = dict({k: 0 for k in kernels.LAUNCHES}, **want_counts)
+    if launches != want:
+        raise AssertionError(f"{name} launches {launches} != {want}")
+
+
+def _streams_check(name: str, streams: dict, actors_key: str = "actors", learner_key: str = "learner") -> None:
+    """The actors (or the player) worked on streams of their own: none is the
+    learner's, none the legacy default stream (handle 0)."""
+    actors = streams[actors_key] if isinstance(streams[actors_key], list) else [streams[actors_key]]
+    if not actors or 0 in actors or streams[learner_key] in actors:
+        raise AssertionError(f"{name}: actor streams {actors} against the learner's {streams[learner_key]}")
+
+
+def _snapshot_isolation() -> dict:
+    """Publish the CartPole agent (recipe widths), then SNAPSHOT_ADAM_STEPS
+    in-place Adam steps on the learner's (the default) stream while an actor
+    thread on its own stream reads the snapshot: the snapshot stays bit-equal
+    to the published parameters, every actor forward equals the published
+    parameters' forward, and the live parameters moved."""
+    from sheeprl_tpu_torch.parallel.pipeline import ParamServer, side_stream
+
+    cfg = _ppo_cfg(False)
+    agent, _ = build_ppo_agent(cfg, (2,), False, {"state": {"shape": [4]}}, "cuda")
+    optimizer = make_ppo_optimizer(cfg, agent)
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    obs = {"state": torch.randn(512, 4, generator=gen, device="cuda")}
+    server = ParamServer(agent)
+    server.publish()
+    published = {k: v.detach().clone() for k, v in agent.state_dict().items()}
+    torch.cuda.synchronize()
+    done, reads, errors = threading.Event(), [], []
+
+    def actor():
+        try:
+            _, ctx = side_stream("cuda")
+            with ctx, torch.no_grad():
+                version, snap = server.pull()
+                try:
+                    while (not done.is_set() or len(reads) < 8) and len(reads) < 4096:
+                        reads.append(snap(obs)[1].clone())
+                finally:
+                    server.release(version)
+                torch.cuda.current_stream().synchronize()
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    thread = threading.Thread(target=actor, name="snapshot-reader", daemon=True)
+    thread.start()
+    params = list(agent.parameters())
+    try:
+        for _ in range(SNAPSHOT_ADAM_STEPS):
+            actor_outs, values = agent(obs)
+            loss = values.square().mean() + sum(o.square().mean() for o in actor_outs)
+            optimizer.step(torch.autograd.grad(loss, params))
+    finally:
+        done.set()
+        thread.join(timeout=120)
+    if thread.is_alive() or errors:
+        raise AssertionError(f"the snapshot reader did not end cleanly: {errors}")
+    torch.cuda.synchronize()
+    ref, _ = build_ppo_agent(cfg, (2,), False, {"state": {"shape": [4]}}, "cuda", published)
+    with torch.no_grad():
+        want = ref(obs)[1]
+    version, snap = server.pull()
+    snap_equal = all(torch.equal(v, published[k]) for k, v in snap.state_dict().items())
+    server.release(version)
+    moved = max(float((v - published[k]).abs().max()) for k, v in agent.state_dict().items())
+    reads_equal = all(torch.equal(r, want) for r in reads)
+    out = {"adam_steps": SNAPSHOT_ADAM_STEPS, "actor_reads": len(reads), "snapshot_bit_equal": snap_equal,
+           "reads_bit_equal": reads_equal, "live_max_move": moved}
+    if not (snap_equal and reads_equal and moved > 0):
+        raise AssertionError(f"snapshot isolation on the card: {out}")
+    return out
+
+
+def _stager_on_card() -> dict:
+    """A ring of 2 slabs of 64 MiB on an actor stream, both filled, then
+    uploaded back to back, then slab 0 acquired again at once. The refill
+    waits for slab 0's copy (its event done when acquire returns; in flight
+    when asked), and the learner, after the item's event, reads slab 0's
+    first contents bit for bit although the host slab was overwritten."""
+    from sheeprl_tpu_torch.parallel.pipeline import DoubleBufferedStager, StagedItem, side_stream
+
+    stager = DoubleBufferedStager("cuda", slots=2)
+    template = {"x": ((STAGER_SLAB_FLOATS,), np.float32)}
+    first = np.arange(STAGER_SLAB_FLOATS, dtype=np.float32)
+    _, ctx = side_stream("cuda")
+    with ctx:
+        # the actor stream's cached blocks for both copies: a fresh cudaMalloc
+        # between the two uploads would wait for the first
+        warm = [torch.empty(STAGER_SLAB_FLOATS, device="cuda") for _ in range(2)]
+        del warm
+        slab0, slab1 = stager.acquire(template), stager.acquire(template)
+        slab0["x"][:] = first
+        slab1["x"][:] = -1.0
+        t0 = time.perf_counter()
+        item0 = StagedItem.record(stager.upload(slab0))
+        event0 = slab0.event
+        item1 = StagedItem.record(stager.upload(slab1))
+        in_flight = not event0.query()
+        again = stager.acquire(template)  # slab 0: must wait for its copy
+        waited = time.perf_counter() - t0
+        done_at_refill = event0.query()
+        again["x"][:] = 7.0  # overwrite the host slab, as the next rollout would
+    data0, data1 = item0.wait(), item1.wait()  # the learner's stream
+    equal0 = torch.equal(data0["x"].cpu(), torch.from_numpy(first))
+    equal1 = bool((data1["x"] == -1.0).all())
+    out = {"slab_mib": STAGER_SLAB_FLOATS * 4 / 2**20, "first_copy_in_flight_at_refill_request": in_flight,
+           "first_copy_done_at_refill": done_at_refill, "refill_wait_ms": waited * 1e3,
+           "item0_bit_equal": equal0, "item1_bit_equal": equal1, "same_slab": again is slab0}
+    if not (done_at_refill and equal0 and equal1 and again is slab0):
+        raise AssertionError(f"stager on the card: {out}")
+    return out
+
+
+def _gae_first_use() -> dict:
+    """Two threads, each on its own stream, call ``gae`` at once on a fresh
+    build directory: one nvcc (``_build._LOCK``), both results bit-equal to
+    the plain version."""
+    from sheeprl_tpu_torch.parallel.pipeline import side_stream
+
+    gen = torch.Generator(device="cuda").manual_seed(54)
+    inputs = _gae_inputs(gen, 128, 4, (1,), torch.float32, torch.uint8)
+    want = kernels.gae_reference(*inputs, 0.99, 0.95)
+    torch.cuda.synchronize()
+    saved_dir, saved_lib = _build.BUILD_DIR, _build._LOADED.pop("gae", None)
+    before = _build.BUILD_COUNTS.get("gae", 0)
+    barrier, results, errors = threading.Barrier(2, timeout=120), {}, []
+
+    def worker(i):
+        try:
+            _, ctx = side_stream("cuda")
+            with ctx:
+                barrier.wait()
+                r, a = kernels.gae(*inputs, 0.99, 0.95)
+                torch.cuda.current_stream().synchronize()
+                results[i] = (r, a)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    try:
+        with tempfile.TemporaryDirectory() as fresh:
+            _build.BUILD_DIR = Path(fresh)
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=worker, args=(i,), name=f"first-use-{i}", daemon=True) for i in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            seconds = time.perf_counter() - t0
+            built = sorted(p.name for p in Path(fresh).glob("gae-*.so"))
+    finally:
+        _build.BUILD_DIR = saved_dir
+        if saved_lib is not None:
+            _build._LOADED["gae"] = saved_lib
+    builds = _build.BUILD_COUNTS.get("gae", 0) - before
+    equal = [torch.equal(results[i][0], want[0]) and torch.equal(results[i][1], want[1]) for i in sorted(results)]
+    out = {"builds": builds, "libraries": built, "results_bit_equal": equal, "seconds": seconds}
+    if errors or builds != 1 or len(built) != 1 or equal != [True, True]:
+        raise AssertionError(f"gae's concurrent first use: {out}, errors {errors}")
+    return out
+
+
+def _streams_overlap() -> dict:
+    """A ~200 ms spinning kernel on the learner's (the default) stream, then
+    ``gae`` on an actor stream: the actor's work ends while the learner's
+    kernel still runs. A stream that synchronised with the legacy default
+    stream would have waited for it."""
+    from sheeprl_tpu_torch.parallel.pipeline import side_stream
+
+    gen = torch.Generator(device="cuda").manual_seed(55)
+    inputs = _gae_inputs(gen, 128, 4, (1,), torch.float32, torch.uint8)
+    kernels.gae(*inputs, 0.99, 0.95)
+    torch.cuda.synchronize()
+    learner_done = torch.cuda.Event()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    learner_done.record()
+    stream, ctx = side_stream("cuda")
+    with ctx:
+        kernels.gae(*inputs, 0.99, 0.95)
+        actor_done = torch.cuda.Event()
+        actor_done.record()
+    actor_done.synchronize()
+    actor_ms = (time.perf_counter() - t0) * 1e3
+    learner_busy = not learner_done.query()
+    learner_done.synchronize()
+    learner_ms = (time.perf_counter() - t0) * 1e3
+    out = {"actor_stream": int(stream.cuda_stream), "learner_stream": int(torch.cuda.current_stream().cuda_stream),
+           "actor_done_ms": actor_ms, "learner_done_ms": learner_ms, "learner_still_busy": learner_busy}
+    if not learner_busy or actor_ms > learner_ms / 2:
+        raise AssertionError(f"the actor stream waited for the learner's: {out}")
+    return out
+
+
+def pipeline_card_phase() -> dict:
+    """The pipeline's card-side guarantees (53): snapshot isolation under
+    in-place Adam, the stager's event-gated ring, ``gae``'s concurrent first
+    use, and an actor stream that does not queue behind the learner's. The
+    ``gae`` launches here are checks, not a path's."""
+    out = {"snapshot": _snapshot_isolation(), "stager": _stager_on_card(), "gae_first_use": _gae_first_use(),
+           "overlap": _streams_overlap()}
+    log("pipeline on the card: " + json.dumps(out))
+    return out
+
+
+def _device_busy(prof, wall_s: float) -> dict:
+    """Device time of a profiled window: the union of every kernel's
+    interval over the window's wall time, and kernels by stream."""
+    events = [e for e in prof.events() if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    by_stream = {}
+    for e in events:
+        key = str(getattr(e, "device_resource_id", "?"))
+        count, us = by_stream.get(key, (0, 0.0))
+        by_stream[key] = (count + 1, us + e.time_range.end - e.time_range.start)
+    return {"kernels": len(events), "device_busy_ms": busy / 1e3 if events else None,
+            "device_busy_share": busy / 1e6 / wall_s if events else None,
+            "by_stream": {k: {"kernels": n, "device_ms": us / 1e3} for k, (n, us) in by_stream.items()}}
+
+
+def _profile_actor_step(checkpoint: str, steps: int = 50) -> dict:
+    """One Sebulba PPO actor step (4 envs of CartPole): observations up,
+    the act program, actions down, on an actor stream from the run's
+    checkpoint: host ms per step, device ms of the act program (CUDA
+    events), operations (``torch.profiler``)."""
+    from sheeprl_tpu_torch.algos.ppo.ppo_sebulba import draw_act_noise, make_act_step
+    from sheeprl_tpu_torch.algos.ppo.utils import prepare_obs
+    from sheeprl_tpu_torch.parallel.pipeline import side_stream
+
+    cfg = load_config(find_run_config(checkpoint))
+    agent, _ = build_ppo_agent(cfg, (2,), False, cfg.spaces.obs, "cuda", load_checkpoint(checkpoint)["agent"])
+    agent.requires_grad_(False)
+    act = make_act_step(False)
+    rng = np.random.default_rng(56)
+    obs = [{"state": rng.uniform(-0.05, 0.05, (4, 4)).astype(np.float32)} for _ in range(steps)]
+    _, ctx = side_stream("cuda")
+    with ctx, torch.no_grad():
+        noise = draw_act_noise(torch.Generator(device="cuda").manual_seed(57), steps, 4, (2,), False, "cuda")
+
+        def step(t):
+            return act(agent, prepare_obs(obs[t], [], 4, "cuda"), [n[t] for n in noise]).cpu()
+
+        for t in range(5):
+            step(t)
+        host, device = [], []
+        for t in range(steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            prepared = prepare_obs(obs[t], [], 4, "cuda")
+            start.record()
+            actions = act(agent, prepared, [n[t] for n in noise])
+            end.record()
+            actions.cpu()
+            host.append(time.perf_counter() - t0)
+            device.append(start.elapsed_time(end))
+        acts = torch.profiler.ProfilerActivity
+        with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+            step(0)
+    events = _device_kernels(prof)
+    return {"host_ms": float(np.median(host) * 1e3), "host_ms_range": [min(host) * 1e3, max(host) * 1e3],
+            "device_ms_events": float(np.median(device)),
+            "device_ms_profiler": sum(getattr(e, "self_device_time_total", 0.0) for e in events) / 1e3 or None,
+            "device_ops": sum(e.count for e in events)}
+
+
+def ppo_sebulba_run_phase(workdir: str) -> dict:
+    """``run preset=ppo_sebulba`` (54) on CartPole-v1 at the recipe (2 actors
+    x 4 envs x 128 steps an item, queue 2, publish every update) for
+    SEBULBA_PPO_ITERATIONS items: ``gae`` launched exactly once per item
+    trained on or in flight at the stop, no other kernel; the staleness
+    within its bound; every loss finite; the last-10 mean return at least
+    SEBULBA_PPO_RETURN_BAR; the actors on streams of their own. Then a
+    resume for one more item, ``evaluation`` of the checkpoint, one update
+    and one actor step profiled, and a short run under ``torch.profiler`` for
+    the card's busy share."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    steps = SEBULBA_PPO_ITERATIONS * 512
+    summary = cli.run([f"preset={SEBULBA_PPO_PRESET}", f"algo.total_steps={steps}", "metric.log_level=0",
+                       f"log_root={workdir}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    pipe, iters = summary["pipeline"], summary["iterations"]
+    if iters != SEBULBA_PPO_ITERATIONS or summary["device"].split(":")[0] != "cuda" or summary["policy_steps"] != steps:
+        raise AssertionError(f"Sebulba PPO: {iters} items, {summary['policy_steps']} steps on {summary['device']}")
+    _async_launch_check("Sebulba PPO", launches, gae=iters + summary["items_in_flight_at_shutdown"])
+    if pipe["staleness_max"] > pipe["staleness_bound"]:
+        raise AssertionError(f"Sebulba PPO staleness {pipe['staleness_max']} past its bound {pipe['staleness_bound']}")
+    if not np.isfinite(np.asarray(summary["losses"])).all() or len(summary["losses"]) != iters:
+        raise AssertionError("non-finite or missing Sebulba PPO losses")
+    _streams_check("Sebulba PPO", summary["streams"])
+    returns = [ret for _, _, ret, _ in summary["episodes"]]
+    last = float(np.mean(returns[-PPO_LAST_EPISODES:]))
+    if len(returns) < PPO_LAST_EPISODES or last < SEBULBA_PPO_RETURN_BAR:
+        raise AssertionError(f"Sebulba PPO did not learn CartPole: last-{PPO_LAST_EPISODES} mean {last}")
+    update_ms = np.asarray(summary["update_s"]) * 1e3
+    out = {
+        "iterations": iters, "policy_steps": summary["policy_steps"], "launches": launches,
+        "items_in_flight_at_shutdown": summary["items_in_flight_at_shutdown"], "wall_s": wall,
+        "env_steps_per_s": steps / wall, "learner_starved_share": pipe["Pipeline/learner_starved_s"] / wall,
+        "actor_stall_s": pipe["Pipeline/actor_stall_s"], "staleness_hist": pipe["staleness_hist"],
+        "staleness_max": pipe["staleness_max"], "staleness_bound": pipe["staleness_bound"],
+        "pipeline": {k: v for k, v in pipe.items() if k.startswith("Pipeline/")}, "snapshots": pipe["snapshots"],
+        "streams": summary["streams"], "host_ms_per_update": {"median": float(np.median(update_ms)),
+                                                              "range": [float(update_ms.min()), float(update_ms.max())]},
+        "episodes": len(returns), "first_10_mean_return": float(np.mean(returns[:10])), "last_10_mean_return": last,
+        "test_reward": summary["test_reward"], "losses_last": dict(zip(PPO_LOSS_NAMES, summary["losses"][-1])),
+        "checkpoint": summary["checkpoint"],
+    }
+    log("Sebulba PPO run: " + json.dumps({k: v for k, v in out.items() if k != "checkpoint"}))
+
+    kernels.reset_launches()
+    resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
+                       f"algo.total_steps={steps + 512}", "algo.run_test=false", f"log_root={workdir}"])
+    resume_launches = dict(kernels.LAUNCHES)
+    if resumed["start_iter"] != iters + 1 or resumed["iterations"] != 1 or resumed["policy_steps"] != steps + 512:
+        raise AssertionError(f"Sebulba PPO resume: start {resumed['start_iter']}, {resumed['iterations']} items")
+    _async_launch_check("Sebulba PPO resume", resume_launches, gae=1 + resumed["items_in_flight_at_shutdown"])
+    out["resume"] = {"start_iter": resumed["start_iter"], "policy_steps": resumed["policy_steps"],
+                     "launches": resume_launches, "losses": resumed["losses"],
+                     "items_in_flight_at_shutdown": resumed["items_in_flight_at_shutdown"]}
+    log("Sebulba PPO resume: " + json.dumps(out["resume"]))
+    out["evaluation"] = stateless_evaluation_phase(summary["checkpoint"], "ppo_sebulba", 0.0, summary["test_reward"])
+    out["profile_update_guarded"] = _profile_ppo_update(summary["checkpoint"], guard=True)
+    out["profile_actor_step"] = _profile_actor_step(summary["checkpoint"])
+    log("Sebulba PPO update and actor step: " + json.dumps({k: out[k] for k in ("profile_update_guarded",
+                                                                              "profile_actor_step")}))
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        short = cli.run([f"preset={SEBULBA_PPO_PRESET}", f"algo.total_steps={SEBULBA_PROFILED_ITEMS * 512}",
+                         "metric.log_level=0", "algo.run_test=false", "checkpoint.every=0",
+                         "checkpoint.save_last=false", f"log_root={workdir}/profiled"])
+    short_wall = time.perf_counter() - t0
+    out["profiled_run"] = {"iterations": short["iterations"], "wall_s": short_wall, **_device_busy(prof, short_wall),
+                           "learner_starved_share": short["pipeline"]["Pipeline/learner_starved_s"] / short_wall,
+                           "streams": short["streams"]}
+    log("Sebulba PPO profiled run: " + json.dumps(out["profiled_run"]))
+    return out
+
+
+def ppo_decoupled_run_phase(workdir: str) -> dict:
+    """``run preset=ppo_decoupled`` (55) for DECOUPLED_PPO_ITERATIONS
+    iterations: the player's ``gae`` exactly once per iteration on its own
+    stream, no other kernel, every loss finite, checkpoints by the player and
+    the trainer; a resume for one more iteration."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    steps = DECOUPLED_PPO_ITERATIONS * 512
+    summary = cli.run([f"preset={DECOUPLED_PPO_PRESET}", f"algo.total_steps={steps}", "metric.log_level=0",
+                       f"log_root={workdir}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if summary["iterations"] != DECOUPLED_PPO_ITERATIONS or summary["device"].split(":")[0] != "cuda":
+        raise AssertionError(f"decoupled PPO: {summary['iterations']} iterations on {summary['device']}")
+    _async_launch_check("decoupled PPO", launches, gae=DECOUPLED_PPO_ITERATIONS)
+    _streams_check("decoupled PPO", summary["streams"], "player", "trainer")
+    if not np.isfinite(np.asarray(summary["losses"])).all():
+        raise AssertionError("non-finite decoupled PPO losses")
+    kernels.reset_launches()
+    resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
+                       f"algo.total_steps={steps + 512}", "algo.run_test=false", f"log_root={workdir}"])
+    resume_launches = dict(kernels.LAUNCHES)
+    if resumed["start_iter"] != DECOUPLED_PPO_ITERATIONS + 1 or resumed["iterations"] != 1:
+        raise AssertionError(f"decoupled PPO resume: start {resumed['start_iter']}, {resumed['iterations']} iterations")
+    _async_launch_check("decoupled PPO resume", resume_launches, gae=1)
+    out = {"iterations": summary["iterations"], "launches": launches, "wall_s": wall, "env_steps_per_s": steps / wall,
+           "host_ms_per_update": float(np.median(summary["update_s"]) * 1e3), "streams": summary["streams"],
+           "test_reward": summary["test_reward"], "losses_last": summary["losses"][-1],
+           "resume": {"start_iter": resumed["start_iter"], "launches": resume_launches}}
+    log("decoupled PPO run: " + json.dumps(out))
+    return out
+
+
+def _priority_gaps(card, cpu) -> tuple:
+    """Two rings' sum-trees after one step from a shared one: the largest gap
+    of the written leaves in |TD| units (a leaf is ``(|TD| + eps)^alpha``;
+    leaves no step wrote are equal), and the internal nodes' largest
+    relative gap."""
+    P, inv = card.tree_leaves, 1.0 / card.per_alpha
+    a, b = card.tree.cpu().double(), cpu.tree.double()
+    td = ((a[P:].clamp(min=0) ** inv) - (b[P:].clamp(min=0) ** inv)).abs().max()
+    nodes = ((a[1:P] - b[1:P]).abs() / b[1:P].abs().clamp(min=1e-12)).max()
+    return float(td), float(nodes)
+
+
+def _sac_append_free_check(checkpoint: str, steps: int = 4, beta: float = 0.5) -> dict:
+    """The append-free dispatch (one granted step each) card against CPU from
+    the Sebulba run's checkpoint, each step from the card's state just
+    before it, on the card's own draws (the card ring's generator): losses
+    and parameters at the tolerances of the SAC update phase (12); the
+    written priorities in |TD| units within SAC_TD_ATOL (a trained critic's
+    TD error cancels two Q values up to ~1,600 in magnitude on Pendulum, so
+    float32 rounding of each, in another sum order on each device, moves a
+    small TD error, and its priority, by far more than 1e-5 relative), the
+    tree's internal nodes within SAC_NODE_RTOL."""
+    from sheeprl_tpu_torch.algos.sac.sac import make_resident_train_step
+    from sheeprl_tpu_torch.replay import DeviceReplayState
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = load_config(find_run_config(checkpoint))
+    state = load_checkpoint(checkpoint)
+    snap = DeviceReplayState.from_dict(state["rb"])
+    parts = {dev: _sac_parts(cfg, dev, state["agent"]) for dev in ("cpu", "cuda")}
+    rings = {dev: _sac_ring(cfg, dev) for dev in ("cpu", "cuda")}
+    for ring in rings.values():  # the card's draw generator stays the card ring's: the CPU's takes its own state
+        ring.load_state_dict(DeviceReplayState(snap.kind, {**snap.arrays, "key": ring.generator.get_state()}, snap.meta))
+    trains = {dev: make_resident_train_step(parts[dev][0], parts[dev][1], cfg, rings[dev], append=False)
+              for dev in parts}
+    for dev, (_, opts) in parts.items():
+        for opt, name in zip(opts, ("actor_optimizer", "qf_optimizer", "alpha_optimizer")):
+            opt.load_state_dict(copy.deepcopy(state[name]))
+    B, worst, launches = int(cfg.algo.per_rank_batch_size), {"loss_rel": 0.0, "param": 0.0}, 0
+    for g in range(steps):
+        card_agent, card_opts = parts["cuda"]
+        cpu_agent, cpu_opts = parts["cpu"]
+        cpu_agent.load_state_dict(card_agent.state_dict())
+        for a, b in zip(cpu_opts, card_opts):
+            a.load_state_dict(copy.deepcopy(b.state_dict()))
+        rings["cpu"].tree.copy_(rings["cuda"].tree.cpu())
+        rings["cpu"].max_p.copy_(rings["cuda"].max_p.cpu())
+        gen = rings["cuda"].generator
+        draws = {"u": torch.rand((1, B), generator=gen, device="cuda"),
+                 "next": torch.randn((1, B, 1), generator=gen, device="cuda"),
+                 "actor": torch.randn((1, B, 1), generator=gen, device="cuda")}
+        out = {}
+        for dev in ("cuda", "cpu"):
+            before = kernels.LAUNCHES["sumtree_sample"]
+            ctl = rings[dev].make_ctl_job([1.0], beta)
+            out[dev] = trains[dev](ctl, draws={k: v.to(dev) for k, v in draws.items()})[0].cpu()
+            if dev == "cuda":
+                launches += kernels.LAUNCHES["sumtree_sample"] - before
+        torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-5, atol=1e-6)
+        card_state, cpu_state = card_agent.state_dict(), cpu_agent.state_dict()
+        diff = max(float((card_state[k].cpu() - cpu_state[k]).abs().max()) for k in cpu_state)
+        if diff > 2e-5:
+            raise AssertionError(f"append-free SAC step {g} on the card moved a parameter {diff} from the CPU's")
+        td_gap, node_gap = _priority_gaps(rings["cuda"], rings["cpu"])
+        if td_gap > SAC_TD_ATOL or node_gap > SAC_NODE_RTOL:
+            raise AssertionError(f"append-free SAC step {g}: written priorities {td_gap} apart in |TD|, "
+                                 f"tree nodes {node_gap} relative")
+        worst["loss_rel"] = max(worst["loss_rel"], float(((out["cuda"] - out["cpu"]).abs()
+                                                          / out["cpu"].abs().clamp(min=1e-12)).max()))
+        worst["param"] = max(worst["param"], diff)
+        worst["td"], worst["node_rel"] = max(worst.get("td", 0.0), td_gap), max(worst.get("node_rel", 0.0), node_gap)
+    if launches != steps:
+        raise AssertionError(f"the card's append-free dispatches launched sumtree_sample {launches} times for {steps}")
+    return {"steps": steps, "loss_max_rel_err": worst["loss_rel"], "param_max_abs_err": worst["param"],
+            "priority_max_td_gap": worst["td"], "tree_node_max_rel_err": worst["node_rel"],
+            "valid_rows": rings["cuda"].valid_rows}
+
+
+def sac_sebulba_per_run_phase(workdir: str) -> dict:
+    """``run preset=sac_sebulba_per`` (56) on Pendulum-v1 at full width (2
+    actors x 4 envs, blocks of 8, a 1,000,000-transition ring with PER) for
+    SEBULBA_SAC_STEPS steps: ``sumtree_sample`` launched exactly once per
+    granted gradient step, no other kernel; the governor within ratio + 1 of
+    ``ratio * (consumed - prefill)``; every loss finite; the actors on
+    streams of their own. Then a resume from the mid-run save that restores
+    the ring, the tree, ``max_p`` and the draw generator bit for bit, and
+    one append-free dispatch card against CPU."""
+    from sheeprl_tpu_torch.algos.sac import sac_sebulba as seb_module
+    from sheeprl_tpu_torch.algos.sac.sac import LOSS_NAMES as SAC_LOSS_NAMES
+    from sheeprl_tpu_torch.replay import DeviceReplayState
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.run([f"preset={SEBULBA_SAC_PRESET}", f"algo.total_steps={SEBULBA_SAC_STEPS}", "metric.log_level=0",
+                       f"checkpoint.every={SEBULBA_SAC_SAVE_EVERY}", f"log_root={workdir}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    pipe = summary["pipeline"]
+    if summary["device"].split(":")[0] != "cuda" or not summary["prioritized"] or summary["policy_steps"] < SEBULBA_SAC_STEPS:
+        raise AssertionError(f"Sebulba SAC: {summary['policy_steps']} steps on {summary['device']}")
+    _async_launch_check("Sebulba SAC", launches, sumtree_sample=summary["gradient_steps"])
+    ratio = float(preset(SEBULBA_SAC_PRESET).algo.replay_ratio)
+    consumed, grads = pipe["Pipeline/env_steps_consumed"], pipe["Pipeline/grad_steps"]
+    governor_gap = abs(grads - ratio * (consumed - summary["governor_offset"]))
+    if grads != summary["gradient_steps"] or governor_gap > ratio + 1:
+        raise AssertionError(f"Sebulba SAC governor: {grads} steps for {consumed} consumed, gap {governor_gap}")
+    if not np.isfinite(np.asarray(summary["losses"])).all() or len(summary["losses"]) != summary["train_calls"]:
+        raise AssertionError("non-finite or missing Sebulba SAC losses")
+    _streams_check("Sebulba SAC", summary["streams"])
+    returns = [ret for _, _, ret, _ in summary["episodes"]]
+    train_ms, append_ms = (np.asarray(summary[k]) * 1e3 for k in ("train_s", "append_s"))
+    out = {
+        "policy_steps": summary["policy_steps"], "gradient_steps": summary["gradient_steps"],
+        "train_calls": summary["train_calls"], "grad_max": summary["grad_max"], "launches": launches, "wall_s": wall,
+        "env_steps_per_s": summary["policy_steps"] / wall, "governor_gap": governor_gap,
+        "learner_starved_share": pipe["Pipeline/learner_starved_s"] / wall, "actor_stall_s": pipe["Pipeline/actor_stall_s"],
+        "staleness_hist": pipe["staleness_hist"], "staleness_max": pipe["staleness_max"],
+        "staleness_bound": pipe["staleness_bound"], "prefill_publishes": pipe["prefill_publishes"],
+        "pipeline": {k: v for k, v in pipe.items() if k.startswith("Pipeline/")}, "streams": summary["streams"],
+        "host_ms_per_blob": {"append_median": float(np.median(append_ms)), "train_median": float(np.median(train_ms))},
+        "episodes": len(returns), "last_10_mean_return": float(np.mean(returns[-10:])) if returns else None,
+        "test_reward": summary["test_reward"], "replay": summary["replay"],
+        "losses_last": dict(zip(SAC_LOSS_NAMES, summary["losses"][-1])), "checkpoint": summary["checkpoint"],
+    }
+    log("Sebulba SAC-PER run: " + json.dumps({k: v for k, v in out.items() if k != "checkpoint"}))
+
+    mid = str(Path(summary["checkpoint"]).with_name(f"ckpt_{SEBULBA_SAC_SAVE_EVERY}_0.ckpt"))
+    saved = DeviceReplayState.from_dict(load_checkpoint(mid)["rb"])
+    restored = {}
+
+    class _Recording(seb_module.DeviceReplayBuffer):
+        def load_state_dict(self, snap):
+            super().load_state_dict(snap)
+            restored.update(self.state_dict().arrays)
+            return self
+
+    kernels.reset_launches()
+    seb_module.DeviceReplayBuffer = _Recording
+    try:
+        resumed = cli.run([f"checkpoint.resume_from={mid}", "metric.log_level=0", "algo.run_test=false",
+                           f"algo.total_steps={SEBULBA_SAC_SAVE_EVERY + SEBULBA_SAC_RESUME_STEPS}",
+                           "checkpoint.save_last=false", "algo.learning_starts=0", f"log_root={_log_root(summary)}"])
+    finally:
+        seb_module.DeviceReplayBuffer = _Recording.__bases__[0]
+    resume_launches = dict(kernels.LAUNCHES)
+    same = {k: torch.equal(restored[k], v) for k, v in saved.arrays.items()}
+    if not all(same.values()) or not {"tree", "max_p", "key"} <= set(same):
+        raise AssertionError(f"the Sebulba resume restored a different ring: {same}")
+    _async_launch_check("Sebulba SAC resume", resume_launches, sumtree_sample=resumed["gradient_steps"])
+    if resumed["gradient_steps"] == 0 or resumed["policy_steps"] < SEBULBA_SAC_SAVE_EVERY + SEBULBA_SAC_RESUME_STEPS:
+        raise AssertionError(f"Sebulba SAC resume: {resumed['policy_steps']} steps, {resumed['gradient_steps']} grads")
+    out["resume"] = {"start_iter": resumed["start_iter"], "policy_steps": resumed["policy_steps"],
+                     "gradient_steps": resumed["gradient_steps"], "launches": resume_launches,
+                     "restored_equal": sorted(same)}
+    log("Sebulba SAC resume: " + json.dumps(out["resume"]))
+    out["append_free_dispatch"] = _sac_append_free_check(mid)
+    log("Sebulba SAC append-free dispatch (card vs CPU, per step): " + json.dumps(out["append_free_dispatch"]))
+    return out
+
+
+def sac_decoupled_run_phase(workdir: str) -> dict:
+    """``run preset=sac_decoupled`` (57) for DECOUPLED_SAC_STEPS steps (the
+    player's host buffer and governor, its uploads on its own stream; no
+    kernel on this path), then a resume of DECOUPLED_SAC_RESUME_STEPS."""
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    summary = cli.run([f"preset={DECOUPLED_SAC_PRESET}", f"algo.total_steps={DECOUPLED_SAC_STEPS}", "metric.log_level=0",
+                       f"checkpoint.every={DECOUPLED_SAC_STEPS // 2}", f"log_root={workdir}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if summary["device"].split(":")[0] != "cuda" or summary["gradient_steps"] == 0:
+        raise AssertionError(f"decoupled SAC: {summary['gradient_steps']} gradient steps on {summary['device']}")
+    _async_launch_check("decoupled SAC", launches)
+    _streams_check("decoupled SAC", summary["streams"], "player", "trainer")
+    if not np.isfinite(np.asarray(summary["losses"])).all():
+        raise AssertionError("non-finite decoupled SAC losses")
+    kernels.reset_launches()
+    resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0", "algo.run_test=false",
+                       f"algo.total_steps={DECOUPLED_SAC_STEPS + DECOUPLED_SAC_RESUME_STEPS}", "algo.learning_starts=0",
+                       f"log_root={workdir}"])
+    resume_launches = dict(kernels.LAUNCHES)
+    _async_launch_check("decoupled SAC resume", resume_launches)
+    if resumed["gradient_steps"] == 0 or not np.isfinite(np.asarray(resumed["losses"])).all():
+        raise AssertionError(f"decoupled SAC resume: {resumed['gradient_steps']} gradient steps")
+    out = {"policy_steps": summary["policy_steps"], "gradient_steps": summary["gradient_steps"],
+           "train_calls": summary["train_calls"], "launches": launches, "wall_s": wall,
+           "env_steps_per_s": summary["policy_steps"] / wall, "streams": summary["streams"],
+           "host_ms_per_train_call": float(np.median(summary["train_s"]) * 1e3), "test_reward": summary["test_reward"],
+           "resume": {"start_iter": resumed["start_iter"], "policy_steps": resumed["policy_steps"],
+                      "gradient_steps": resumed["gradient_steps"], "launches": resume_launches}}
+    log("decoupled SAC run: " + json.dumps(out))
+    return out
+
+
 # -- lanes -------------------------------------------------------------------
 #
 # After the kernel phases (1-3, 11, 14, 21), which the main process runs
@@ -7270,20 +7893,43 @@ def _lane_anakin(timed) -> dict:
     r = {"anakin_iteration": timed("anakin_iteration", anakin_iteration_phase)}
     with tempfile.TemporaryDirectory() as workdir:
         r["anakin_run"] = timed("anakin_run", anakin_run_phase, workdir)
-        r["population_run"] = timed("population_run", population_run_phase, workdir)
     return r
+
+
+def _lane_population(timed) -> dict:
+    with tempfile.TemporaryDirectory() as workdir:
+        return {"population_run": timed("population_run", population_run_phase, workdir)}
 
 
 def _lane_bf16(timed) -> dict:
     return {"bf16_families": timed("bf16_families", bf16_families_phase)}
 
 
+def _lane_pipeline(timed) -> dict:
+    return {"pipeline_card": timed("pipeline_card", pipeline_card_phase)}
+
+
+def _lane_async_ppo(timed) -> dict:
+    with tempfile.TemporaryDirectory() as workdir:
+        return {"ppo_sebulba_run": timed("ppo_sebulba_run", ppo_sebulba_run_phase, workdir),
+                "ppo_decoupled_run": timed("ppo_decoupled_run", ppo_decoupled_run_phase, workdir)}
+
+
+def _lane_async_sac(timed) -> dict:
+    with tempfile.TemporaryDirectory() as workdir:
+        return {"sac_sebulba_per_run": timed("sac_sebulba_per_run", sac_sebulba_per_run_phase, workdir),
+                "sac_decoupled_run": timed("sac_decoupled_run", sac_decoupled_run_phase, workdir)}
+
+
 #: each lane's groups, run in order by one worker; balanced on a serial
-#: run's seconds by phase (the SAC run alone is ~200 s)
+#: run's seconds by phase (the SAC run alone is ~200 s); the async PPO runs
+#: in the Anakin lane, the async SAC runs in the SAC lane, the pipeline's
+#: card checks (a ~25 s rebuild of gae among them) and the Anakin population
+#: in the PPO/DreamerV3 lane
 LANES = {
-    "sac": (_lane_sac, _lane_classic, _lane_bf16),
-    "anakin": (_lane_anakin, _lane_onpolicy),
-    "ppo_rssm": (_lane_ppo, _lane_rssm, _lane_resident, _lane_explore),
+    "sac": (_lane_sac, _lane_classic, _lane_bf16, _lane_async_sac),
+    "anakin": (_lane_anakin, _lane_onpolicy, _lane_async_ppo),
+    "ppo_rssm": (_lane_ppo, _lane_rssm, _lane_resident, _lane_explore, _lane_pipeline, _lane_population),
     "families": (_lane_runtime, _lane_continuous, _lane_offpolicy, _lane_v2, _lane_v1),
 }
 _LANE_TAG = ""
@@ -7436,7 +8082,12 @@ def main() -> int:
              "anakin_run": anakin_run, "anakin_resume": anakin_run["resume"], "population_run": population,
              "population_resume": population["resume"], "population_evaluation": population["evaluation"],
              "anakin_one_member_single": {"launches": population["one_member"]["launches_single"]},
-             "anakin_one_member_population": {"launches": population["one_member"]["launches_population"]}}
+             "anakin_one_member_population": {"launches": population["one_member"]["launches_population"]},
+             "ppo_sebulba": R["ppo_sebulba_run"], "ppo_sebulba_resume": R["ppo_sebulba_run"]["resume"],
+             "ppo_sebulba_evaluation": R["ppo_sebulba_run"]["evaluation"], "ppo_decoupled": R["ppo_decoupled_run"],
+             "ppo_decoupled_resume": R["ppo_decoupled_run"]["resume"], "sac_sebulba_per": R["sac_sebulba_per_run"],
+             "sac_sebulba_per_resume": R["sac_sebulba_per_run"]["resume"], "sac_decoupled": R["sac_decoupled_run"],
+             "sac_decoupled_resume": R["sac_decoupled_run"]["resume"]}
     rows = [gru] + two_hot + [gae_row, sumtree_row, scatter_row]
     for row in rows:
         row["launches_by_path"] = {name: path["launches"][row["name"]] for name, path in paths.items()}
@@ -7465,6 +8116,15 @@ def main() -> int:
     gae_row["per_member"]["iterations"] = population["iterations"]
     sumtree_row["launches"] = sac_run["launches"]["sumtree_sample"]
     sumtree_row["launches_by_path"]["sac_resume"] = sac_run["resume"]["launches"]["sumtree_sample"]
+    # the async paths: gae once per Sebulba item trained on or in flight at the stop, once per
+    # decoupled iteration; sumtree_sample once per Sebulba gradient step
+    seb = R["ppo_sebulba_run"]
+    gae_row["paths"]["ppo_sebulba"] = {"launches": seb["launches"]["gae"], "items": seb["iterations"],
+                                       "in_flight_at_shutdown": seb["items_in_flight_at_shutdown"]}
+    gae_row["paths"]["ppo_decoupled"] = {"launches": R["ppo_decoupled_run"]["launches"]["gae"],
+                                         "iterations": R["ppo_decoupled_run"]["iterations"]}
+    sumtree_row["paths"] = {"sac_sebulba_per": {"launches": R["sac_sebulba_per_run"]["launches"]["sumtree_sample"],
+                                                "gradient_steps": R["sac_sebulba_per_run"]["gradient_steps"]}}
     rows.append(_gru_bf16_kernel_row(gru, floor, continuous_run, R["continuous_serve"], R["continuous_ring"]))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s; seconds by phase: {json.dumps(phase_s)}")
     print(json.dumps({"nonfinite": nonfinite, **R}))

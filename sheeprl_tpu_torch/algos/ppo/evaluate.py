@@ -25,7 +25,7 @@ from sheeprl_tpu_torch.utils.registry import register_evaluation, register_polic
 __all__ = ["evaluate_ppo", "serve_policy_ppo", "evaluate_ppo_population", "serve_policy_ppo_population"]
 
 
-@register_evaluation(algorithms=["ppo", "ppo_anakin"])
+@register_evaluation(algorithms=["ppo", "ppo_anakin", "ppo_decoupled", "ppo_sebulba"])
 def evaluate_ppo(cfg: Any, state: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     """One greedy test episode of the checkpoint's agent; its return and
     step count."""
@@ -35,7 +35,7 @@ def evaluate_ppo(cfg: Any, state: Dict[str, Any], device: torch.device) -> Dict[
     return {"reward": reward, "steps": steps}
 
 
-@register_policy_builder(algorithms=["ppo", "ppo_anakin"])
+@register_policy_builder(algorithms=["ppo", "ppo_anakin", "ppo_decoupled", "ppo_sebulba"])
 def serve_policy_ppo(cfg: Any, state: Optional[Dict[str, Any]], device: torch.device) -> ServePolicy:
     """A :class:`ServePolicy` over the PPO agent of ``state`` (None serves
     the seeded init) on ``device``. The programs are ``sample_actions``, the

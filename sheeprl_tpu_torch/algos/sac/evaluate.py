@@ -28,7 +28,7 @@ def standard_normal(seed: torch.Tensor, counter: torch.Tensor, n: int) -> torch.
     return counter_normal(seed, counter, 0, n)
 
 
-@register_evaluation(algorithms=["sac"])
+@register_evaluation(algorithms=["sac", "sac_decoupled", "sac_sebulba"])
 def evaluate_sac(cfg: Any, state: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     """One greedy test episode of the checkpoint's agent; its return and
     step count."""
@@ -37,7 +37,7 @@ def evaluate_sac(cfg: Any, state: Dict[str, Any], device: torch.device) -> Dict[
     return {"reward": reward, "steps": steps}
 
 
-@register_policy_builder(algorithms=["sac"])
+@register_policy_builder(algorithms=["sac", "sac_decoupled", "sac_sebulba"])
 def serve_policy_sac(cfg: Any, state: Optional[Dict[str, Any]], device: torch.device) -> ServePolicy:
     """A :class:`ServePolicy` over the SAC actor of ``state`` (None serves
     the seeded init) on ``device``: greedy is ``agent.greedy_action`` (the

@@ -193,7 +193,7 @@ def make_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, guard: bo
 
 
 def make_resident_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, drb: DeviceReplayBuffer,
-                             guard: bool = False) -> Callable:
+                             guard: bool = False, append: bool = True) -> Callable:
     """The device-resident dispatch (JAX ``make_resident_train_step`` on one
     device): ``train(job, flags, beta=0.0, draws=None) -> (losses, skipped)
     or None``.
@@ -212,6 +212,13 @@ def make_resident_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, 
     ``(3,)`` mean of :data:`LOSS_NAMES` over the steps and the 0-dim count
     of steps the guard undid (0 unguarded), on the device, or None without
     steps. Nothing here reads the device back.
+
+    ``append=False`` (JAX ``append=False``) is the decoupled topology's
+    train-only dispatch: ``train(ctl, draws=None)`` over a
+    :class:`~sheeprl_tpu_torch.replay.ControlJob` (its flags, beta and the
+    valid rows); the appends ride :meth:`DeviceReplayBuffer.make_append_step`.
+    The draws, the sum-tree and the ring's generator advance exactly as in
+    the fused form.
 
     ``guard=True`` (JAX ``guard=True``): a step the guard undoes also leaves
     the drawn leaves' priorities and ``max_p`` as they were (the old leaf is
@@ -234,20 +241,17 @@ def make_resident_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, 
             draws[k] = torch.randn((count, batch_size, agent.action_dim), generator=gen, device=dev)
         return draws
 
-    def train(job, flags: Sequence[float], beta: float = 0.0,
-              draws: Optional[Dict[str, torch.Tensor]] = None) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-        drb.append(job)
-        if not flags:
-            return None
+    def steps(flags: Sequence[float], beta: float, valid: int,
+              draws: Optional[Dict[str, torch.Tensor]]) -> Tuple[torch.Tensor, torch.Tensor]:
         if draws is None:
-            draws = draw(len(flags), job.valid)
+            draws = draw(len(flags), valid)
         total = torch.zeros(3, dtype=torch.float32, device=drb.device)
         skipped = torch.zeros((), dtype=torch.float32, device=drb.device)
         snapshot()
         for g, flag in enumerate(flags):
             weights = None
             if drb.prioritized:
-                leaf, weights = sumtree_sample(drb.tree, draws["u"][g], job.valid * n_envs, beta)
+                leaf, weights = sumtree_sample(drb.tree, draws["u"][g], valid * n_envs, beta)
                 weights = weights / torch.clamp(weights.max(), min=1e-12)
                 rows = leaf.to(torch.int64)  # leaves are (row, env) row-major
             else:
@@ -266,6 +270,22 @@ def make_resident_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, 
             total += losses
             _count_skipped(skipped, ok)
         return total / len(flags), skipped
+
+    if not append:
+        def train_only(ctl, draws: Optional[Dict[str, torch.Tensor]] = None
+                       ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+            if not ctl.flags:
+                return None
+            return steps(ctl.flags, ctl.beta, ctl.valid, draws)
+
+        return train_only
+
+    def train(job, flags: Sequence[float], beta: float = 0.0,
+              draws: Optional[Dict[str, torch.Tensor]] = None) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        drb.append(job)
+        if not flags:
+            return None
+        return steps(flags, beta, job.valid, draws)
 
     return train
 

@@ -3,6 +3,7 @@
 
     python -m sheeprl_tpu_torch run \\
         preset=<configs/*.json: sac_per, sac, droq, sac_ae, ppo, ppo_anakin, ppo_anakin_population, a2c,
+                ppo_decoupled, ppo_sebulba, sac_decoupled, sac_sebulba, sac_sebulba_per,
                 ppo_recurrent, dreamer_v3_100k_atari_dummy,
                 dreamer_v3_100k_atari_dummy_resident, dreamer_v3_continuous_dummy,
                 p2e_dv3_exploration_atari_dummy, p2e_dv3_finetuning_atari_dummy, dreamer_v2_atari_dummy,
@@ -358,15 +359,16 @@ def evaluation(args: Sequence[str]) -> dict:
 
 def agents(args: Sequence[str] = ()) -> List[dict]:
     """Print, and return, one row per algorithm: its name, trainer module,
-    and whether it evaluates and serves (the JAX CLI's table without
-    ``rich``)."""
+    whether it evaluates and serves, and its ``decoupled`` flag (the JAX
+    CLI's table without ``rich``)."""
     from sheeprl_tpu_torch.utils.registry import algorithm_table
 
     if args:
         raise ValueError(f"agents takes no arguments, got {list(args)}")
     rows = algorithm_table()
     for row in rows:
-        print(f"{row['name']}: trainer={row['trainer']}, evaluation={row['evaluation']}, serving={row['serving']}")
+        print(f"{row['name']}: trainer={row['trainer']}, evaluation={row['evaluation']}, serving={row['serving']}, "
+              f"decoupled={row['decoupled']}")
     return rows
 
 

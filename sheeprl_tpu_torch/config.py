@@ -149,9 +149,13 @@ RUN_DEFAULTS: Dict[str, Any] = {
     # path or "latest" (the newest complete checkpoint under the experiment)
     "checkpoint": {"every": 100, "resume_from": None, "save_last": True, "keep_last": 5, "async_save": False},
     # configs/fault/default.yaml: the in-step finite guard and its sentinel,
-    # and the iterations whose training data is poisoned with NaNs
+    # the async tiers' actor supervision and seeded chaos schedule, and the
+    # iterations whose training data is poisoned with NaNs
     "fault": {
         "sentinel": {"enabled": True, "max_consecutive": 3, "action": "rollback"},
+        "supervisor": {"enabled": True, "max_restarts": 2, "backoff": 0.5, "escalation": "degrade",
+                       "lease_s": 60.0, "grace_s": 300.0, "join_s": 30.0, "handoff_deadline_s": 120.0},
+        "chaos": {"enabled": False, "seed": 0, "events": []},
         "inject": {"nan_grads_at": []},
     },
     # configs/env/default.yaml: self-healing env workers (off at 0 attempts

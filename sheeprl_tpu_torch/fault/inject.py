@@ -3,14 +3,18 @@
 
 Probe points (:func:`fault_point`) sit in the checkpoint write
 (``checkpoint.staged``, ``checkpoint.pre_commit``,
-``checkpoint.post_commit``); tests arm them in-process (:func:`arm`: raise
-:class:`FaultInjected`, SIGKILL the process, or stall the calling thread)
+``checkpoint.post_commit``), the serving workers, the pipeline's queue
+(``pipeline.queue.put``/``get``) and every step of a Sebulba actor
+(``ppo_sebulba.actor{N}.step``, ``sac_sebulba.actor{N}.step``); tests arm
+them in-process (:func:`arm`: raise :class:`FaultInjected`, SIGKILL the
+process, kill the calling thread with :class:`ThreadKilled`, or stall it)
 or across a process boundary with environment variables:
 
 - ``SHEEPRL_FAULT_KILL="checkpoint.pre_commit:2"``: SIGKILL the process the
   2nd time ``checkpoint.pre_commit`` fires (comma-separate several points);
 - ``SHEEPRL_FAULT_ARM="point:action:at[:hang_s]"``: arm points at start-up
-  (:func:`arm_from_env`);
+  (:func:`arm_from_env`; :func:`arm_from_cfg` adds the seeded schedule of
+  ``fault.chaos``, whose ``at`` may be a ``lo-hi`` range);
 - ``SHEEPRL_FAULT_NAN_AT="2,5"``: the iterations whose training data
   :class:`NaNInjector` poisons, beside ``fault.inject.nan_grads_at``.
 
@@ -35,9 +39,12 @@ import numpy as np
 
 __all__ = [
     "FaultInjected",
+    "ThreadKilled",
     "fault_point",
     "arm",
     "arm_from_env",
+    "arm_from_cfg",
+    "release_hangs",
     "disarm",
     "reset",
     "truncate_file",
@@ -54,7 +61,7 @@ KILL_ENV_VAR = "SHEEPRL_FAULT_KILL"
 ARM_ENV_VAR = "SHEEPRL_FAULT_ARM"
 NAN_ENV_VAR = "SHEEPRL_FAULT_NAN_AT"
 
-_ACTIONS = ("raise", "kill", "hang")
+_ACTIONS = ("raise", "kill", "kill-thread", "hang")
 
 _counts: Dict[str, int] = {}
 _armed: Dict[str, Tuple[str, int, float]] = {}  # point -> (action, Nth hit, hang_s)
@@ -65,10 +72,18 @@ class FaultInjected(RuntimeError):
     """Raised by an in-process-armed fault point."""
 
 
+class ThreadKilled(BaseException):
+    """A thread killed by a ``kill-thread`` fault point. A ``BaseException``,
+    so per-item recovery (``except Exception``) cannot swallow it: only the
+    supervision layer (:class:`~sheeprl_tpu_torch.fault.supervisor.Supervisor`)
+    sees the thread die and heals it."""
+
+
 def arm(point: str, action: str = "raise", at: int = 1, hang_s: float = 5.0) -> None:
     """Arm ``point`` to fire on its ``at``-th hit: ``raise``
-    (:class:`FaultInjected`), ``kill`` (SIGKILL the process) or ``hang``
-    (stall the calling thread ``hang_s`` seconds, then return)."""
+    (:class:`FaultInjected`), ``kill`` (SIGKILL the process), ``kill-thread``
+    (:class:`ThreadKilled`) or ``hang`` (stall the calling thread ``hang_s``
+    seconds, then return: a lease expiry, not a crash)."""
     if action not in _ACTIONS:
         raise ValueError(f"Unknown fault action '{action}' (one of {_ACTIONS})")
     _armed[point] = (action, int(at), float(hang_s))
@@ -82,6 +97,12 @@ def disarm(point: Optional[str] = None) -> None:
         _armed.pop(point, None)
 
 
+def release_hangs() -> None:
+    """Wake every thread stalled in a ``hang`` point (and any later one
+    until the next :func:`reset`)."""
+    _hang_release.set()
+
+
 def reset() -> None:
     """Clear every armed point and hit counter, and release stalled threads."""
     global _hang_release
@@ -91,15 +112,23 @@ def reset() -> None:
     _hang_release = threading.Event()
 
 
-def _parse_event(token: str) -> Optional[Tuple[str, str, int, float]]:
-    """``"point:action:at[:hang_s]"`` -> (point, action, at, hang_s)."""
+def _parse_event(token: str, seed: int = 0) -> Optional[Tuple[str, str, int, float]]:
+    """``"point:action:at[:hang_s]"`` -> (point, action, at, hang_s); ``at``
+    may be ``"lo-hi"``, drawn from the ``(seed, point)`` pair, so adding an
+    event never moves another's."""
     parts = [p.strip() for p in token.strip().split(":")]
     if not parts or not parts[0]:
         return None
+    point = parts[0]
     action = parts[1] if len(parts) > 1 and parts[1] else "raise"
-    at = int(parts[2]) if len(parts) > 2 and parts[2] else 1
+    at_raw = parts[2] if len(parts) > 2 and parts[2] else "1"
     hang_s = float(parts[3]) if len(parts) > 3 and parts[3] else 5.0
-    return parts[0], action, at, hang_s
+    if "-" in at_raw:
+        lo, hi = (int(x) for x in at_raw.split("-", 1))
+        at = int(np.random.default_rng([seed, *point.encode()]).integers(lo, hi + 1))
+    else:
+        at = int(at_raw)
+    return point, action, at, hang_s
 
 
 def arm_from_env() -> int:
@@ -111,6 +140,22 @@ def arm_from_env() -> int:
             arm(spec[0], action=spec[1], at=spec[2], hang_s=spec[3])
             armed += 1
     return armed
+
+
+def arm_from_cfg(cfg: Any) -> int:
+    """Arm the seeded chaos schedule of ``cfg.fault.chaos`` (``enabled``,
+    ``seed``, ``events``: ``"point:action:at[:hang_s]"`` tokens) and the
+    events of ``SHEEPRL_FAULT_ARM``; returns how many points were armed."""
+    armed = 0
+    chaos = ((cfg.get("fault") or {}).get("chaos") or {}) if cfg is not None else {}
+    if chaos.get("enabled", False):
+        seed = int(chaos.get("seed", 0) or 0)
+        for token in chaos.get("events") or ():
+            spec = _parse_event(str(token), seed=seed)
+            if spec is not None:
+                arm(spec[0], action=spec[1], at=spec[2], hang_s=spec[3])
+                armed += 1
+    return armed + arm_from_env()
 
 
 def _env_spec(point: str) -> Optional[Tuple[str, int, float]]:
@@ -135,8 +180,11 @@ def fault_point(point: str) -> None:
     if action == "kill":
         os.kill(os.getpid(), signal.SIGKILL)  # the preemption model: no cleanup
     if action == "hang":
+        # stall, then return: the woken thread must notice its own verdict (ctx.cancelled)
         _hang_release.wait(hang_s)
         return
+    if action == "kill-thread":
+        raise ThreadKilled(f"thread killed at '{point}' (hit {at})")
     raise FaultInjected(f"fault injected at '{point}' (hit {at})")
 
 

@@ -4,11 +4,15 @@ Every kernel module holds three things: the plain PyTorch version
 (``*_reference``, the ground truth, and what runs on CPU tensors), the
 wrapper that launches the CUDA kernel on CUDA tensors or raises, and a count
 of launches in :data:`LAUNCHES`, so a run can show that its main path went
-through the kernel. Nothing is built at import: see :mod:`._build`.
+through the kernel. A wrapper counts through :func:`count_launch`, under a
+lock: the Sebulba actors launch ``gae`` from several threads at once, and a
+bare ``+=`` on a dict entry can lose an increment between two threads.
+Nothing is built at import: see :mod:`._build`.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict
 
 #: kernel name -> launches of its CUDA kernel in this process
@@ -18,9 +22,19 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """One launch of ``name``'s CUDA kernel, counted exactly from any thread."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 from sheeprl_tpu_torch.ops.kernels.gae import gae, gae_factors, gae_factors_reference, gae_reference  # noqa: E402
@@ -49,6 +63,7 @@ from sheeprl_tpu_torch.ops.kernels.twohot import (  # noqa: E402
 
 __all__ = [
     "LAUNCHES",
+    "count_launch",
     "reset_launches",
     "gru_gates",
     "gru_gates_reference",

@@ -38,6 +38,9 @@ _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
 #: ptxas's register/shared-memory report of each kernel built in this process
 BUILD_LOGS: Dict[str, str] = {}
+#: nvcc processes started per kernel in this process (one per build: threads
+#: that reach an unbuilt kernel at once wait on ``_LOCK`` for the first's)
+BUILD_COUNTS: Dict[str, int] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -67,6 +70,7 @@ def _start(name: str, target: Path) -> subprocess.Popen:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    BUILD_COUNTS[name] = BUILD_COUNTS.get(name, 0) + 1
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 

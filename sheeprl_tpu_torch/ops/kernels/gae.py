@@ -30,7 +30,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.ops.kernels import LAUNCHES, _build
+from sheeprl_tpu_torch.ops.kernels import _build, count_launch
 
 __all__ = ["gae", "gae_reference", "gae_factors", "gae_factors_reference"]
 
@@ -106,10 +106,11 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("gae")
     if lib.gae_launch.argtypes is None:  # ctypes would pass each pointer as a 32-bit int
         ptr, i64, f32, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
-        lib.gae_launch.argtypes = [ptr] * 6 + [i64, i64, f32, f32] + [i32] * 4 + [ptr]
-        lib.gae_launch.restype = ctypes.c_int
         lib.gae_launch_factors.argtypes = [ptr] * 6 + [i64, i64, i64, ptr, ptr] + [i32] * 4 + [ptr]
         lib.gae_launch_factors.restype = ctypes.c_int
+        lib.gae_launch.restype = ctypes.c_int
+        # set last: a second thread that sees it set finds both entries typed
+        lib.gae_launch.argtypes = [ptr] * 6 + [i64, i64, f32, f32] + [i32] * 4 + [ptr]
     return lib
 
 
@@ -156,7 +157,7 @@ def _launch_factors(rewards, values, dones, next_value, gamma: torch.Tensor, gae
     )
     if err != 0:
         raise RuntimeError(f"gae kernel launch failed with cudaError {err}")
-    LAUNCHES["gae"] += 1
+    count_launch("gae")
     return returns, advantages
 
 
@@ -177,7 +178,7 @@ def _launch(rewards, values, dones, next_value, gamma: float, gae_lambda: float)
     )
     if err != 0:
         raise RuntimeError(f"gae kernel launch failed with cudaError {err}")
-    LAUNCHES["gae"] += 1
+    count_launch("gae")
     return returns, advantages
 
 

@@ -37,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from sheeprl_tpu_torch.ops.core import layer_norm
-from sheeprl_tpu_torch.ops.kernels import LAUNCHES, _build
+from sheeprl_tpu_torch.ops.kernels import _build, count_launch
 
 __all__ = ["gru_gates", "gru_gates_reference", "gru_gates_ln", "gru_gates_ln_reference"]
 
@@ -151,7 +151,7 @@ def _launch(fused: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"gru_gates kernel launch failed with cudaError {err}")
-    LAUNCHES["gru_gates"] += 1
+    count_launch("gru_gates")
     return out
 
 
@@ -209,7 +209,7 @@ def _launch_ln(proj: torch.Tensor, h: torch.Tensor, weight: torch.Tensor, bias: 
     )
     if err != 0:
         raise RuntimeError(f"gru_gates_ln kernel launch failed with cudaError {err}")
-    LAUNCHES["gru_gates"] += 1
+    count_launch("gru_gates")
     return out
 
 

@@ -46,7 +46,7 @@ from typing import Mapping, Sequence, Union
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.ops.kernels import LAUNCHES, _build
+from sheeprl_tpu_torch.ops.kernels import _build, count_launch
 
 __all__ = ["ragged_ring_scatter", "ragged_ring_scatter_keys", "ragged_ring_scatter_reference", "MAX_KEYS"]
 
@@ -140,7 +140,7 @@ def _launch(storages, staged, row: torch.Tensor, col_offset: int) -> None:
     )
     if err != 0:
         raise RuntimeError(f"ragged_ring_scatter kernel launch failed with cudaError {err}")
-    LAUNCHES["ragged_ring_scatter"] += 1
+    count_launch("ragged_ring_scatter")
 
 
 class _RaggedRingScatter(torch.autograd.Function):

@@ -28,7 +28,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.ops.kernels import LAUNCHES, _build
+from sheeprl_tpu_torch.ops.kernels import _build, count_launch
 from sheeprl_tpu_torch.replay import sumtree as st
 
 __all__ = ["sumtree_sample", "sumtree_sample_reference", "HOP_LEVELS"]
@@ -89,7 +89,7 @@ def _launch(
     )
     if err != 0:
         raise RuntimeError(f"sumtree_sample kernel launch failed with cudaError {err}")
-    LAUNCHES["sumtree_sample"] += 1
+    count_launch("sumtree_sample")
     return leaf, weights
 
 

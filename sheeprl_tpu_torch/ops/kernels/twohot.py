@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from sheeprl_tpu_torch.ops.core import symexp, symlog
-from sheeprl_tpu_torch.ops.kernels import LAUNCHES, _build
+from sheeprl_tpu_torch.ops.kernels import _build, count_launch
 
 __all__ = [
     "two_hot_symlog_loss",
@@ -174,7 +174,7 @@ def _launch_loss(logits: torch.Tensor, value: torch.Tensor, low: float, high: fl
         _DTYPE_CODES[logits.dtype], _stream(logits),
     )
     _raise_on(err, "two_hot_symlog_loss")
-    LAUNCHES["two_hot_symlog_loss"] += 1
+    count_launch("two_hot_symlog_loss")
     return out
 
 
@@ -193,7 +193,7 @@ def _launch_loss_lse(
         float(low), float(high), _DTYPE_CODES[logits.dtype], _stream(logits),
     )
     _raise_on(err, "two_hot_symlog_loss_lse")
-    LAUNCHES["two_hot_symlog_loss_lse"] += 1
+    count_launch("two_hot_symlog_loss_lse")
     return out, lse
 
 
@@ -220,7 +220,7 @@ def _launch_loss_lse_bwd(
         logits.shape[-1], float(low), float(high), _DTYPE_CODES[logits.dtype], _stream(logits),
     )
     _raise_on(err, "two_hot_symlog_loss_lse_bwd")
-    LAUNCHES["two_hot_symlog_loss_lse_bwd"] += 1
+    count_launch("two_hot_symlog_loss_lse_bwd")
     return out
 
 
@@ -234,7 +234,7 @@ def _launch_decode(logits: torch.Tensor, low: float, high: float) -> torch.Tenso
         _stream(logits),
     )
     _raise_on(err, "two_hot_symexp_decode")
-    LAUNCHES["two_hot_symexp_decode"] += 1
+    count_launch("two_hot_symexp_decode")
     return out
 
 

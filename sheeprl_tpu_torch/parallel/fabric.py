@@ -10,16 +10,19 @@ parameters, gradients, optimizer state and checkpoints are float32 under
 every alias; ``param_dtype`` is kept for the table's sake. There is no
 float16 and no loss scaling: ``16-mixed`` and ``16-true`` are bfloat16, as
 in the JAX package.
+
+:func:`partition` is ``Fabric.partition``'s rule for the Sebulba topologies
+on the port's one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, Mapping, Tuple
 
 import torch
 
-__all__ = ["PRECISION_ALIASES", "Precision", "compute_dtype"]
+__all__ = ["PRECISION_ALIASES", "Precision", "compute_dtype", "partition"]
 
 #: alias -> (parameter dtype, compute dtype), the JAX package's table
 PRECISION_ALIASES = {
@@ -60,3 +63,25 @@ class Precision:
 def compute_dtype(cfg: Mapping[str, Any]) -> torch.dtype:
     """The compute dtype a run config's ``fabric.precision`` asks for."""
     return Precision.from_config(cfg).compute_dtype
+
+
+def partition(device: "torch.device | str", actor_devices: "int | str" = "auto") -> Tuple[torch.device, torch.device]:
+    """``(actor_device, learner_device)`` for a Sebulba pipeline by the JAX
+    ``Fabric.partition`` rule on the port's one device: ``"auto"`` and 0
+    time-slice, the actors sharing the learner's device (the overlap is
+    between the host's env steps and the card, and between CUDA streams);
+    an ``actor_devices`` that leaves no learner device raises JAX's
+    ``ValueError``. The port builds no sub-fabric."""
+    if isinstance(actor_devices, str):
+        if actor_devices.lower() != "auto":
+            raise ValueError(f"actor_devices must be an int or 'auto', got {actor_devices!r}")
+        n_act = 0
+    else:
+        n_act = int(actor_devices)
+    if n_act != 0:
+        raise ValueError(
+            f"actor_devices ({n_act}) must leave at least one learner device "
+            "(fabric has 1); use 0 (or 'auto' on one chip) to time-slice."
+        )
+    device = torch.device(device)
+    return device, device

@@ -5,13 +5,15 @@ env step.
 
 - :mod:`~sheeprl_tpu_torch.replay.sumtree`: the sum-tree for PER;
 - :mod:`~sheeprl_tpu_torch.replay.device_buffer`: :class:`DeviceReplayBuffer`
-  (SAC's flat ring, uniform or prioritized), the spillover sizing and the
-  crossovers to the host buffers;
+  (SAC's flat ring, uniform or prioritized, with the decoupled topology's
+  append blobs and control jobs), the spillover sizing and the crossovers to
+  the host buffers;
 - :mod:`~sheeprl_tpu_torch.replay.driver`: :class:`SequenceRingDriver`
   (DreamerV3's per-env-head sequence ring).
 """
 
 from sheeprl_tpu_torch.replay.device_buffer import (
+    ControlJob,
     DeviceReplayBuffer,
     DeviceReplayState,
     ReplayJob,
@@ -23,6 +25,7 @@ from sheeprl_tpu_torch.replay.device_buffer import (
 from sheeprl_tpu_torch.replay.driver import SequenceRingDriver
 
 __all__ = [
+    "ControlJob",
     "DeviceReplayBuffer",
     "DeviceReplayState",
     "ReplayJob",

@@ -21,6 +21,15 @@ Layout and ownership:
 - the write head (``pos``/``valid``) as host integers: the host knows every
   append, so nothing needs the device's copy.
 
+The decoupled (Sebulba) topology splits the flush and the dispatch: actor
+threads pack up to ``stage_rows`` rows each into one append blob
+(:meth:`DeviceReplayBuffer.pack_rows`, a pure function of its rows) and stage
+it from their own thread; the learner, the ring's only writer, appends each
+blob (:meth:`DeviceReplayBuffer.make_append_step`), advances the host head
+(:meth:`DeviceReplayBuffer.note_append`) and trains from a control job
+(:meth:`DeviceReplayBuffer.make_ctl_job`) through the append-free variant of
+``algos/sac/sac.py:make_resident_train_step``.
+
 Checkpointing: :meth:`state_dict` copies everything to the CPU inside a
 :class:`DeviceReplayState` (:meth:`DeviceReplayState.to_dict` is what the
 checkpoint stores: tensors and plain values only), :meth:`load_state_dict`
@@ -36,7 +45,7 @@ no PER).
 from __future__ import annotations
 
 import warnings
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +54,7 @@ from sheeprl_tpu_torch.data.ring import BlobLayout, make_layout, pack_burst_blob
 from sheeprl_tpu_torch.replay import sumtree
 
 __all__ = [
+    "ControlJob",
     "DeviceReplayBuffer",
     "DeviceReplayState",
     "ReplayJob",
@@ -153,6 +163,17 @@ class ReplayJob(NamedTuple):
     valid: int
 
 
+class ControlJob(NamedTuple):
+    """One append-free train dispatch (JAX's control blob, ``__flags__``,
+    ``__valid__`` and ``__beta__``, kept on the host: the port's dispatch
+    loops over its steps in Python): each granted step's EMA flag, PER's
+    beta, and the valid rows of the ring the steps draw from."""
+
+    flags: Tuple[float, ...]
+    beta: float
+    valid: int
+
+
 class DeviceReplayBuffer:
     """Scalar-write-head device ring with uniform or PER sampling (the
     SAC-shaped buffer). The class owns allocation, host staging and the
@@ -170,9 +191,12 @@ class DeviceReplayBuffer:
         per_alpha: float = 0.6,
         per_eps: float = 1e-6,
         seed: int = 0,
+        stage_rows: int = 1,
     ) -> None:
         if capacity <= 0 or n_envs <= 0:
             raise ValueError(f"need positive capacity/n_envs (got {capacity}, {n_envs})")
+        if stage_rows > capacity:
+            raise ValueError(f"stage_rows ({stage_rows}) cannot exceed the ring capacity ({capacity})")
         self.device = torch.device(device)
         self.specs = {k: (tuple(int(s) for s in shape), np.dtype(dtype)) for k, (shape, dtype) in specs.items()}
         self.capacity = int(capacity)
@@ -183,6 +207,12 @@ class DeviceReplayBuffer:
         self.tree_leaves = sumtree.leaf_count(self.capacity * self.n_envs) if prioritized else 0
         # one staged row per flush, packed into one upload
         self.layout: BlobLayout = make_layout([(k, (1, self.n_envs) + shape, dtype) for k, (shape, dtype) in self.specs.items()])
+        # the decoupled topology's blob: up to stage_rows rows and their count
+        self.stage_rows = int(stage_rows)
+        self.append_layout: BlobLayout = make_layout(
+            [(k, (self.stage_rows, self.n_envs) + shape, dtype) for k, (shape, dtype) in self.specs.items()]
+            + [("__count__", (), np.int32)]
+        )
 
         self.storage = {
             k: torch.zeros((self.capacity, self.n_envs) + shape, dtype=torch_dtype(dtype), device=self.device)
@@ -248,6 +278,64 @@ class DeviceReplayBuffer:
             store[job.pos] = rows[k][0]
         if self.prioritized:
             sumtree.update(self.tree, job.pos * self.n_envs + self._env_leaves, self.max_p.expand(self.n_envs))
+
+    # -- decoupled (Sebulba) append/train pair ---------------------------------
+    def pack_rows(self, rows: Sequence[Dict[str, np.ndarray]]) -> torch.Tensor:
+        """Up to ``stage_rows`` transition rows (each key ``(n_envs, ...)``)
+        as one host append blob (pinned for a CUDA ring), rows past their
+        count zero. A pure function of ``rows``: nothing of the buffer
+        changes, so concurrent actors may each pack their own and stage it
+        from their thread; the learner advances the head
+        (:meth:`note_append`) when it appends one."""
+        if len(rows) > self.stage_rows:
+            raise ValueError(f"{len(rows)} rows exceed the append blob capacity (stage_rows={self.stage_rows})")
+        values: Dict[str, np.ndarray] = {}
+        for k, (shape, dtype) in self.specs.items():
+            arr = np.zeros((self.stage_rows, self.n_envs) + shape, dtype)
+            for i, row in enumerate(rows):
+                arr[i] = np.asarray(row[k], dtype=dtype).reshape((self.n_envs,) + shape)
+            values[k] = arr
+        values["__count__"] = np.asarray(len(rows), np.int32)
+        return pack_burst_blob(self.append_layout, values, pin_memory=self.device.type == "cuda")
+
+    def note_append(self, count: int) -> None:
+        """Advance the host head for one appended blob of ``count`` rows."""
+        count = int(count)
+        if count <= 0:
+            return
+        if self._pos + count >= self.capacity:
+            self._full = True
+        self._pos = (self._pos + count) % self.capacity
+        self._metrics["flushes"] += 1
+        self._metrics["inserts"] += count * self.n_envs
+
+    def make_ctl_job(self, flags: Sequence[float], beta: float = 0.0) -> ControlJob:
+        """An append-free dispatch's control: the granted steps' EMA flags
+        and PER's beta over the rows now stored."""
+        return ControlJob(tuple(float(f) for f in flags), float(beta), self.valid_rows)
+
+    def make_append_step(self) -> Callable[[torch.Tensor, int], None]:
+        """The decoupled topology's append: ``append(blob, count)`` scatters
+        the first ``count`` rows of a :meth:`pack_rows` blob (on the ring's
+        device) at the write head, wrapping, in one ``index_copy_`` per key;
+        the rows past ``count`` are dropped. With PER each fresh ``(row,
+        env)`` leaf enters the sum-tree at ``max_p``. Call
+        :meth:`note_append` after it: the head is the host's."""
+        layout, n_envs, capacity = self.append_layout, self.n_envs, self.capacity
+
+        def append(blob: torch.Tensor, count: int) -> None:
+            count = int(count)
+            if count <= 0:
+                return
+            rows = unpack_burst_blob(blob, layout)
+            idx = (torch.arange(count, device=self.device) + self._pos) % capacity
+            for k, store in self.storage.items():
+                store.index_copy_(0, idx, rows[k][:count])
+            if self.prioritized:
+                leaves = (idx[:, None] * n_envs + self._env_leaves[None, :]).reshape(-1)
+                sumtree.update(self.tree, leaves, self.max_p.expand(count * n_envs))
+
+        return append
 
     def metrics(self) -> Dict[str, float]:
         """``Replay/*`` metrics."""

@@ -1,8 +1,9 @@
 """Algorithm registry (counterpart of ``sheeprl_tpu/utils/registry.py``):
-algorithm name -> the module that trains it, the evaluation that tests its
-checkpoint, and the policy builder that serves it. Evaluations and builders
-register when their module is imported; the lookups import the built-in
-modules first."""
+algorithm name -> the module that trains it (and whether that trainer is
+decoupled, JAX's ``register_algorithm(decoupled=True)``), the evaluation
+that tests its checkpoint, and the policy builder that serves it.
+Evaluations and builders register when their module is imported; the
+lookups import the built-in modules first."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 __all__ = [
     "TRAINERS",
+    "DECOUPLED",
     "register_policy_builder",
     "resolve_policy_builder",
     "registered_policy_builder_names",
@@ -35,10 +37,18 @@ TRAINERS: Dict[str, str] = {
     "ppo": "sheeprl_tpu_torch.algos.ppo.ppo",
     "ppo_anakin": "sheeprl_tpu_torch.algos.ppo.ppo_anakin",
     "ppo_anakin_population": "sheeprl_tpu_torch.algos.ppo.ppo_anakin_population",
+    "ppo_decoupled": "sheeprl_tpu_torch.algos.ppo.ppo_decoupled",
     "ppo_recurrent": "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
+    "ppo_sebulba": "sheeprl_tpu_torch.algos.ppo.ppo_sebulba",
     "sac": "sheeprl_tpu_torch.algos.sac.sac",
     "sac_ae": "sheeprl_tpu_torch.algos.sac_ae.sac_ae",
+    "sac_decoupled": "sheeprl_tpu_torch.algos.sac.sac_decoupled",
+    "sac_sebulba": "sheeprl_tpu_torch.algos.sac.sac_sebulba",
 }
+
+#: the trainers that JAX registers ``decoupled=True``: a player or actor
+#: threads beside the learner
+DECOUPLED = frozenset({"ppo_decoupled", "ppo_sebulba", "sac_decoupled", "sac_sebulba", "dreamer_sebulba"})
 
 policy_builder_registry: Dict[str, Callable] = {}
 evaluation_registry: Dict[str, Callable] = {}
@@ -102,8 +112,9 @@ def resolve_evaluation(name: str) -> Optional[Callable]:
 
 def algorithm_table() -> List[Dict[str, Any]]:
     """One row per algorithm the port knows: its name, its trainer module
-    (None if it only evaluates or serves), and whether an evaluation and a
-    serving policy builder are registered for it."""
+    (None if it only evaluates or serves), whether an evaluation and a
+    serving policy builder are registered for it, and whether its trainer is
+    decoupled (JAX's flag)."""
     _import_builtins()
     names = sorted(set(TRAINERS) | set(evaluation_registry) | set(policy_builder_registry))
     return [
@@ -112,6 +123,7 @@ def algorithm_table() -> List[Dict[str, Any]]:
             "trainer": TRAINERS.get(name),
             "evaluation": name in evaluation_registry,
             "serving": name in policy_builder_registry,
+            "decoupled": name in DECOUPLED,
         }
         for name in names
     ]

@@ -100,8 +100,8 @@ def test_torch_a2c_loop_refuses_pixels(tmp_path):
 def test_torch_a2c_loop_agents_lists_the_family(capsys):
     rows = {row["name"]: row for row in cli.agents()}
     assert rows["a2c"] == {"name": "a2c", "trainer": "sheeprl_tpu_torch.algos.a2c.a2c", "evaluation": True,
-                           "serving": False}
+                           "serving": False, "decoupled": False}
     assert rows["ppo_recurrent"] == {"name": "ppo_recurrent",
                                      "trainer": "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
-                                     "evaluation": True, "serving": True}
+                                     "evaluation": True, "serving": True, "decoupled": False}
     assert "a2c: trainer=sheeprl_tpu_torch.algos.a2c.a2c, evaluation=True, serving=False" in capsys.readouterr().out

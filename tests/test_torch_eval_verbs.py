@@ -149,15 +149,15 @@ def test_torch_eval_verbs_main_dispatches_eval_and_agents(checkpoints, capsys):
     cli.main(["agents"])
     out = capsys.readouterr().out
     for name in ("dreamer_v3", "ppo", "sac"):
-        assert re.search(rf"^{name}: trainer=sheeprl_tpu_torch\.algos\.{name}\.{name}, evaluation=True, serving=True$",
-                         out, re.M), out
+        assert re.search(rf"^{name}: trainer=sheeprl_tpu_torch\.algos\.{name}\.{name}, evaluation=True, serving=True, "
+                         rf"decoupled=False$", out, re.M), out
 
 
 def test_torch_eval_verbs_agents_lists_the_three_families():
     rows = {row["name"]: row for row in cli.agents()}
     for name in ("dreamer_v3", "ppo", "sac"):
         assert rows[name] == {"name": name, "trainer": f"sheeprl_tpu_torch.algos.{name}.{name}",
-                              "evaluation": True, "serving": True}
+                              "evaluation": True, "serving": True, "decoupled": False}
     assert rows["dreamer_sebulba"]["trainer"] is None and rows["dreamer_sebulba"]["serving"]
     with pytest.raises(ValueError, match="no arguments"):
         cli.agents(["x=1"])

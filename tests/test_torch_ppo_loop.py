@@ -148,8 +148,8 @@ def test_torch_ppo_loop_run_dispatches_on_the_algorithm(monkeypatch):
     for name, module in (("ppo_anakin", anakin), ("ppo_anakin_population", population)):
         monkeypatch.setattr(module, "main", lambda cfg, device: {"algo": cfg.algo.name, "device": str(device)})
         assert cli.run([f"preset={name}", "fabric.accelerator=cpu"]) == {"algo": name, "device": "cpu"}
-    with pytest.raises(NotImplementedError, match="ppo_sebulba"):
-        cli.run(["preset=ppo", "fabric.accelerator=cpu", "algo.name=ppo_sebulba"])
+    with pytest.raises(NotImplementedError, match="dreamer_sebulba"):  # ppo_sebulba trains now
+        cli.run(["preset=ppo", "fabric.accelerator=cpu", "algo.name=dreamer_sebulba"])
 
 
 def test_torch_ppo_loop_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
