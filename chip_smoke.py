@@ -93,7 +93,9 @@ result line):
    main path's 5 ring keys (the 100,000-row 64x64x3 frame ring and its
    action and scalar rings) from a packed upload, one launch timed as the
    other kernels are beside the 5 per-key launches it replaces and its
-   bytes bound; the gradients against the plain scatter's;
+   bytes bound; the async ring's append (``dreamer_sebulba``: 16 staged
+   rows x 4 envs into a 12,500-row x 8-column ring at col_offset 4) timed
+   the same way; the gradients against the plain scatter's;
 15. resident dispatch: one device-resident DreamerV3-S dispatch (full width,
    B 4 x T 16, a 2-env ring with a dropped slot) on the card against the
    CPU: the ring and the windows bit-equal, losses and parameters as in 6;
@@ -293,7 +295,8 @@ result line):
    a population of one bit-equal to the single run.
 52. bf16 families: one short ``bf16-mixed`` train call of PPO, A2C,
    recurrent PPO, SAC, DroQ, SAC-AE, Dreamer V2, Dreamer V1 and
-   Plan2Explore on each Dreamer, on the card against the CPU
+   Plan2Explore on each Dreamer, and one guarded append-free dispatch of
+   ``dreamer_sebulba``'s async ring, on the card against the CPU
    (BF16_FAMILIES): losses, each optimizer's gradient, the card's modules
    in bfloat16. The discrete DreamerV3, PPO and SAC runs above stay at
    their recipes' ``32-true``.
@@ -317,10 +320,28 @@ result line):
    resume restoring the ring, the sum-tree, ``max_p`` and the generator bit
    for bit; the append-free dispatch card against CPU step by step;
 57. decoupled SAC: ``run preset=sac_decoupled``, no kernel launched; a resume.
+58. dreamer_sebulba on the card: two actor threads, each on its own stream,
+   write blocks with ragged reset rows into their writers at env columns 0
+   and 4, and the learner's appends through ``ragged_ring_scatter_keys``
+   leave the ring (every column wrapped) and its heads bit-equal to the
+   plain version's after every blob; a writer's slab is refilled only after
+   its upload's event; one guarded append-free dispatch (B 4 x T 16) and one
+   act step on the card against the CPU; ``prefer_ready``: while a train
+   dispatch still waits on the learner's stream, an actor's act step ends
+   on the previous snapshot;
+59. dreamer_sebulba run: ``run preset=dreamer_sebulba_atari_dummy`` (2 actors
+   x 4 envs, the 100,000-row ring) through the 1,024-step prefill and
+   SEBULBA_RSSM_FULL_DISPATCHES full 32-step dispatches: the scatter once per
+   committed blob, ``gru_gates`` once per act and test step and T + H a
+   gradient step, the two-hot kernels 3 a gradient step, exactly; the
+   governor, the staleness guard, finite losses, the actors' streams; a
+   resume from the latest save restoring the ring, heads, generator and
+   ``Ratio`` bit for bit; ``evaluation``, one served session, one dispatch
+   alone and an act step profiled.
 
 Phases 1-3, 11, 14 and 21 run first, in this process alone, so that the
-kernels are timed on an idle card. Phases 4-10, 12, 13 and 15-57 then run
-in four worker processes at once on the same card (``LANES``; each worker
+kernels are timed on an idle card. Phases 4-10, 12, 13 and 15-59 then run
+in five worker processes at once on the same card (``LANES``; each worker
 is this script with ``--lane NAME --out FILE``), each a chain of phases in
 the order above; path timings taken there share the card and the CPU's
 cores with the other lanes. The script fails, and stops the other workers,
@@ -937,6 +958,32 @@ def _bf16_call(family: str, cfg, dev: str):
     discrete = int(cfg.algo.world_model.get("discrete_size", 0)) or None
     data = _batch(np.random.default_rng(47), T, B, 18)
     gen = torch.Generator().manual_seed(48)
+    if family == "dreamer_sebulba":
+        # one guarded append-free dispatch of the async ring: an actor's blob appended at env
+        # columns 4-7, then one granted step on draws made on the CPU
+        from sheeprl_tpu_torch.data.ring import pack_burst_blob
+        from sheeprl_tpu_torch.replay import AsyncSequenceRing
+
+        keys, C, E, local = _sebulba_keys(), 256, 8, 4
+        modules = build_training_agent(cfg, dev)
+        watch(modules[0])
+        opts = make_optimizers(cfg, *modules[:3])
+        seen = {k: _capture_grads(o) for k, o in opts.items()}
+        rng = np.random.default_rng(49)
+        ring = AsyncSequenceRing(keys, C, E, local, T, 16, device=dev).load_state_dict(
+            _sebulba_ring_state(rng, keys, C, E))
+        rows = _sebulba_blob_rows(rng, keys, local)
+        counts = np.zeros(E, np.int64)
+        counts[local:] = sum(m for _, m in rows)
+        ring.append(ring.pack_rows(rows, local).to(dev), local)
+        ring.note_append(counts, 0)
+        train, ctl = make_train_step(*modules, opts, cfg, guard=True, ring={
+            "capacity": C, "n_envs": E, "grad_chunk": 1, "seq_len": T, "batch_size": B, "decoupled": True})
+        draws = {"env": torch.randint(0, E, (1, B), generator=gen), "u": torch.rand((1, B), generator=gen),
+                 "noise": [_decisive_tree(draw_noise(cfg, T, B, [18], gen, "cpu"), discrete)]}
+        _, metrics = train((init_moments(dev), 0), ring.state, pack_burst_blob(ctl, {"__validmask__": np.ones(1, np.float32)}),
+                           ring.host_valid, None, _to_device(draws, dev))
+        return metrics.cpu()[:len(METRIC_NAMES)], {k: v["grads"] for k, v in seen.items()}, out_dtype.get("dtype")
     if family == "dreamer_v2":
         from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
         from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent as build_v2
@@ -1031,6 +1078,8 @@ BF16_FAMILIES = [
     ("P2E-DV3", "p2e_dv3", "p2e_dv3_exploration_atari_dummy", []),
     ("P2E-DV2", "p2e_dv2", "p2e_dv2_exploration_atari_dummy", []),
     ("P2E-DV1", "p2e_dv1", "p2e_dv1_exploration_atari_dummy", []),
+    ("dreamer_sebulba", "dreamer_sebulba", "dreamer_sebulba_atari_dummy",
+     ["algo.per_rank_batch_size=2", "algo.per_rank_sequence_length=8"]),
 ]
 
 
@@ -2972,6 +3021,46 @@ SCATTER_OTHER_KEYS = [(torch.uint8, (64, 64, 3)), (torch.float32, (18,)), (torch
                       (torch.float32, (64, 64, 3))]
 
 
+def _scatter_async_blob(gen) -> dict:
+    """The async ring's append at the recipe's shape (``dreamer_sebulba``):
+    one actor's blob of 16 staged rows x 4 envs of the 5 ring keys (8 regular
+    rows, reset rows of some envs, padding rows dropped) into the
+    12,500-row x 8-column ring at col_offset 4, two heads wrapping; bit-equal
+    to the plain version and timed as the main path is, beside the plain
+    version's parking form and one ``index_put_`` per key."""
+    from sheeprl_tpu_torch.data.ring import make_seq_append_layout, pack_burst_blob, ring_append_rows, torch_dtype
+    from sheeprl_tpu_torch.data.ring import unpack_burst_blob
+
+    keys, C, E, local, S, off = _sebulba_keys(), 12_500, 8, 4, 16, 4
+    rings = {k: (torch.randint(0, 256, (C, E) + shape, generator=gen, device="cuda", dtype=torch.uint8)
+                 if np.dtype(dtype) == np.uint8 else
+                 torch.randn((C, E) + shape, generator=gen, device="cuda", dtype=torch_dtype(dtype)))
+             for k, (shape, dtype) in keys.items()}
+    rng = np.random.default_rng(71)
+    mask = np.zeros((S, local), np.int32)
+    mask[:8] = 1
+    mask[8:11] = [[0, 1, 0, 0], [1, 0, 0, 1], [0, 0, 1, 0]]
+    values = {k: rng.integers(0, 256 if np.dtype(dtype) == np.uint8 else 2, (S, local) + shape).astype(dtype)
+              for k, (shape, dtype) in keys.items()}
+    values.update(__mask__=mask, __offset__=np.asarray(off, np.int32))
+    layout = make_seq_append_layout(keys, local, S)
+    u = unpack_burst_blob(pack_burst_blob(layout, values).cuda(), layout)
+    staged = {k: u[k] for k in keys}
+    pos = torch.tensor([C - 3, 100, 5_000, C - 1], dtype=torch.int32, device="cuda")
+    row, _, _ = ring_append_rows(pos, torch.full((local,), C, dtype=torch.int32, device="cuda"), u["__mask__"], C)
+    slot_bytes = sum(int(np.prod(shape)) * np.dtype(dtype).itemsize for shape, dtype in keys.values())
+    stamp = {"staged": [S, local], "ring": [C, E], "col_offset": off, "written": int((row < C).sum()),
+             **_scatter_keys_check(rings, staged, row, pos, off), **scatter_bound(row, slot_bytes, C)}
+    stamp["ms"] = _graph_ms(lambda: kernels.ragged_ring_scatter_keys(rings, staged, row, pos, off))
+    stamp["plain_ms"] = _graph_ms(lambda: [_parking_scatter(rings[k], staged[k], row, pos, off) for k in keys])
+    puts = {k: _parking_scatter(rings[k], staged[k], row, pos, off) for k in keys}
+    stamp["library_ms"] = _graph_ms(lambda: [rings[k].index_put_((r, c), v) for k, (r, c, v) in puts.items()])
+    log(f"ragged_ring_scatter async blob ({S} x {local} at col_offset {off}, {stamp['written']} slots): "
+        f"{stamp['ms'] * 1e3:.3f} us, plain {stamp['plain_ms'] * 1e3:.2f} us, index_put_ per key "
+        f"{stamp['library_ms'] * 1e3:.2f} us, bound {stamp['bound_ms'] * 1e3:.4f} us")
+    return stamp
+
+
 def scatter_phase() -> dict:
     """``ragged_ring_scatter`` against its plain version on the card, bit for
     bit, at uint8 and f32, slots of 1, 18 and 12,288 elements, 1 and 2
@@ -3059,6 +3148,7 @@ def scatter_phase() -> dict:
             f"{stamp['library_ms'] * 1e3:.2f} us (frame alone {stamp['library_ms_frame'] * 1e3:.2f} us), bound "
             f"{stamp['bound_ms'] * 1e3:.4f} us ({stamp['bound_bytes']} bytes)")
     del rings, puts
+    async_blob = _scatter_async_blob(gen)
     # the gradients: the plain scatter's VJP, f32 keys only; one key, and every key of a ring
     storage, staged, row, pos, off = _scatter_case(gen, 13, 5, 2, 4, (3,), torch.float32, 1, drop="ragged")
     scale = torch.randn(storage.shape, generator=gen, device="cuda")
@@ -3101,6 +3191,7 @@ def scatter_phase() -> dict:
         "call_ms": m1["call_ms"],
         "per_key_call_ms": m1["per_key_call_ms"],
         "main_two_rows": main[2],
+        "async_blob": async_blob,
         "cases": len(cases),
         "keys_cases": keys_cases,
         "grad_equal": True,
@@ -7772,6 +7863,662 @@ def sac_decoupled_run_phase(workdir: str) -> dict:
     return out
 
 
+# -- 58-59. dreamer_sebulba on the card ------------------------------------------------
+
+SEBULBA_RSSM_PRESET = "dreamer_sebulba_atari_dummy"
+# the run: the recipe's 1,024-step prefill (256 rows of 4 envs), then blocks of 8 rows, each
+# granting one full 32-step dispatch at replay ratio 1
+SEBULBA_RSSM_FULL_DISPATCHES = 4
+# the resume from the run's last save: JAX shifts the prefill by the resumed iteration, so the
+# restored Ratio first grants -132 steps (its previous count), and 39 rows of 4 grants later the
+# backlog is 24: 5 items, one dispatch
+SEBULBA_RSSM_RESUME_ITEMS = 5
+SEBULBA_RSSM_APPEND_CAP = 40  # rows per env column of the two-actor append check: 6 blobs of >= 8 rows wrap it
+SEBULBA_RSSM_APPEND_BLOBS = 6
+SEBULBA_RSSM_ACT_STEPS = 50  # act steps profiled
+# ~3 s of work on the learner's stream ahead of a publish's copy: far longer than an act step
+SEBULBA_PREFER_READY_SLEEP = 15 * SLEEP_CYCLES
+
+
+def _sebulba_keys():
+    from sheeprl_tpu_torch.utils.burst import dreamer_ring_keys
+
+    return dreamer_ring_keys({"rgb": {"shape": [64, 64, 3]}}, ["rgb"], [], [18], with_is_first=True)
+
+
+def _fill_row(views: dict, rng) -> None:
+    for v in views.values():
+        v[...] = rng.integers(0, 256, v.shape) if v.dtype == np.uint8 else rng.normal(size=v.shape)
+
+
+def _write_block(writer, rng, block: int) -> int:
+    """``block`` regular rows of random bytes, each followed by a reset row
+    of the envs a coin marks done, as an actor writes them (at most 2 x
+    ``block`` rows). Returns the reset rows."""
+    resets = 0
+    for _ in range(block):
+        _fill_row(writer.row(np.ones(writer.local_envs, np.int32)), rng)
+        done = rng.random(writer.local_envs) < 0.3
+        if done.any():
+            _fill_row(writer.row(done.astype(np.int32)), rng)
+            resets += 1
+    return resets
+
+
+def _sebulba_appends() -> dict:
+    """Two actor threads, each on its own stream, write blocks of 8 rows with
+    ragged reset rows into their writers at env columns 0 and 4 and upload
+    them; the learner appends each blob through ``ragged_ring_scatter_keys``
+    into a ring of SEBULBA_RSSM_APPEND_CAP rows x 8 columns (every column
+    wraps) and the same bytes into the same ring on the CPU (the plain
+    version): storage and heads bit-equal after every blob, one launch per
+    blob."""
+    import queue as queue_mod
+
+    from sheeprl_tpu_torch.parallel.pipeline import StagedItem, side_stream
+    from sheeprl_tpu_torch.replay import AsyncSequenceRing, SeqBlobWriter
+
+    keys, local, actors, block, C = _sebulba_keys(), 4, 2, 8, SEBULBA_RSSM_APPEND_CAP
+    E = local * actors
+    card = AsyncSequenceRing(keys, C, E, local, 64, 2 * block, device="cuda")
+    cpu = AsyncSequenceRing(keys, C, E, local, 64, 2 * block)
+    items, errors, streams = queue_mod.Queue(), [], set()
+
+    def actor(aid: int) -> None:
+        try:
+            stream, ctx = side_stream("cuda")
+            streams.add(int(stream.cuda_stream))
+            with ctx:
+                writer, rng = SeqBlobWriter(card, aid * local), np.random.default_rng(60 + aid)
+                for _ in range(SEBULBA_RSSM_APPEND_BLOBS):
+                    resets = _write_block(writer, rng, block)
+                    blob, counts = writer.ship()
+                    items.put((aid, StagedItem.record({"blob": blob}), counts, resets))
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+            items.put(None)
+
+    threads = [threading.Thread(target=actor, args=(a,), name=f"seq-writer-{a}", daemon=True) for a in range(actors)]
+    before = kernels.LAUNCHES["ragged_ring_scatter"]
+    for t in threads:
+        t.start()
+    resets, order = 0, []
+    try:
+        for _ in range(actors * SEBULBA_RSSM_APPEND_BLOBS):
+            got = items.get(timeout=300)
+            if got is None:
+                break
+            aid, staged, counts, r = got
+            blob = staged.wait()["blob"]
+            env_counts = np.zeros(E, np.int64)
+            env_counts[aid * local:(aid + 1) * local] = counts
+            card.append(blob, aid * local)
+            card.note_append(env_counts, blob.numel())
+            host = blob.cpu()
+            cpu.append(host, aid * local)
+            cpu.note_append(env_counts, host.numel())
+            for k in keys:
+                if not torch.equal(card.state["storage"][k].cpu(), cpu.state["storage"][k]):
+                    raise AssertionError(f"blob {len(order)} of actor {aid}: the card's ring '{k}' differs from the CPU's")
+            for h in ("pos", "valid"):
+                if not torch.equal(card.state[h].cpu(), cpu.state[h]):
+                    raise AssertionError(f"blob {len(order)} of actor {aid}: the card's {h} differ from the CPU's")
+            resets += r
+            order.append(aid)
+    finally:
+        for t in threads:
+            t.join(timeout=120)
+    if errors:
+        raise errors[0]
+    launches = kernels.LAUNCHES["ragged_ring_scatter"] - before
+    out = {"blobs": len(order), "order": order, "reset_rows": resets, "launches": launches,
+           "host_valid": card.host_valid.tolist(), "host_pos": card.host_pos.tolist(), "streams": sorted(streams),
+           "learner_stream": int(torch.cuda.current_stream().cuda_stream)}
+    if (len(order) != actors * SEBULBA_RSSM_APPEND_BLOBS or launches != len(order) or not resets
+            or not (card.host_valid == C).all() or len(streams) != actors or 0 in streams):
+        raise AssertionError(f"the two-actor appends on the card: {out}")
+    if not np.array_equal(card.host_pos, card.state["pos"].cpu().numpy()):
+        raise AssertionError("the host mirror of the heads differs from the card's")
+    return out
+
+
+def _writer_refill() -> dict:
+    """A writer of 2 slabs on an actor stream held by a ~200 ms kernel: its
+    first slab's upload is still in flight when the next-but-one block
+    begins, which waits for that upload's event; the learner then reads the
+    first blob bit for bit though the host slab was overwritten."""
+    from sheeprl_tpu_torch.parallel.pipeline import StagedItem, side_stream
+    from sheeprl_tpu_torch.replay import AsyncSequenceRing, SeqBlobWriter
+
+    ring = AsyncSequenceRing(_sebulba_keys(), 64, 8, 4, 64, 16, device="cuda")
+    rng = np.random.default_rng(62)
+    _, ctx = side_stream("cuda")
+    with ctx:
+        writer = SeqBlobWriter(ring, 4)
+        slab0 = writer._slab
+        _write_block(writer, rng, 8)
+        first = slab0.blob.numpy().copy()
+        torch.cuda._sleep(SLEEP_CYCLES)  # the upload queues behind ~200 ms on the actor's stream
+        t0 = time.perf_counter()
+        blob0, _ = writer.ship()
+        event0 = slab0.event
+        in_flight = not event0.query()
+        item0 = StagedItem.record({"blob": blob0})
+        _write_block(writer, rng, 8)
+        writer.ship()  # the next block begins on slab 0 again: it waits for slab 0's upload
+        waited = time.perf_counter() - t0
+        done_at_refill, refilled = event0.query(), writer._slab is slab0
+        _write_block(writer, rng, 8)  # the next block overwrites slab 0's host bytes
+    equal = bool(np.array_equal(item0.wait()["blob"].cpu().numpy(), first))
+    out = {"upload_in_flight_at_ship": in_flight, "upload_done_at_refill": done_at_refill,
+           "refill_wait_ms": waited * 1e3, "same_slab": refilled, "first_blob_bit_equal": equal}
+    if not (in_flight and done_at_refill and refilled and equal):
+        raise AssertionError(f"the writer's event-gated refill on the card: {out}")
+    return out
+
+
+def _sebulba_ring_state(rng, keys, C: int, E: int):
+    """A random ring of C rows x E columns and ragged heads (every column at
+    least a 16-row window): a DeviceReplayState and its arrays."""
+    from sheeprl_tpu_torch.replay import DeviceReplayState
+
+    ring = _resident_ring(rng, keys, C, E)
+    pos = np.array([40, 100, 255, 0, 17, 200, 3, 90], np.int32)[:E]
+    valid = np.array([C, 100, C, C, 17, C, C, 90], np.int32)[:E]
+    arrays = {f"storage/{k}": torch.from_numpy(v) for k, v in ring.items()}
+    arrays.update(pos=torch.from_numpy(pos), valid=torch.from_numpy(valid))
+    return DeviceReplayState("sequence", arrays, {"capacity": C, "n_envs": E, "seq_len": 16})
+
+
+def _sebulba_blob_rows(rng, keys, local: int):
+    """Two regular rows of an actor's 4 envs and a reset row of two of them."""
+    def row():
+        return {k: (rng.integers(0, 256, (local,) + shape) if np.dtype(dtype) == np.uint8
+                    else rng.normal(size=(local,) + shape)).astype(dtype) for k, (shape, dtype) in keys.items()}
+
+    ones = np.ones(local, np.int32)
+    return [(row(), ones), (row(), ones), (row(), np.array([0, 1, 0, 1], np.int32))]
+
+
+def _sebulba_dispatch() -> dict:
+    """One append (an actor's blob at env columns 4-7) and one guarded
+    append-free dispatch (full width, B 4 x T 16, H 15, one granted step of 2)
+    on the card against the same on the CPU from the same seeded weights,
+    ring and injected draws, TF32 off: the ring after the append and the
+    windows bit-equal; the eleven metrics and the parameters held as the
+    resident dispatch (15) holds them; one scatter launch on the card."""
+    from sheeprl_tpu_torch.data.ring import pack_burst_blob, ring_sample_windows
+    from sheeprl_tpu_torch.replay import AsyncSequenceRing
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, B, C, local = 16, 4, 256, 4
+    E = 2 * local
+    cfg = _v2_cfg(SEBULBA_RSSM_PRESET, [f"algo.per_rank_sequence_length={T}", f"algo.per_rank_batch_size={B}"])
+    keys = _sebulba_keys()
+    spec = {"capacity": C, "n_envs": E, "grad_chunk": 2, "seq_len": T, "batch_size": B, "decoupled": True}
+    rng = np.random.default_rng(63)
+    snap = _sebulba_ring_state(rng, keys, C, E)
+    rows = _sebulba_blob_rows(rng, keys, local)
+    counts = np.zeros(E, np.int64)
+    counts[local:] = sum(m for _, m in rows)
+    gen = torch.Generator().manual_seed(64)
+    draws = {"env": torch.randint(0, E, (1, B), generator=gen), "u": torch.rand((1, B), generator=gen),
+             "noise": [draw_noise(cfg, T, B, [18], gen, "cpu")]}
+    results = {}
+    for dev in ("cpu", "cuda"):
+        modules = build_training_agent(cfg, dev)
+        optimizers = make_optimizers(cfg, *modules[:3])
+        train, ctl = make_train_step(*modules, optimizers, cfg, ring=spec, guard=True)
+        ring = AsyncSequenceRing(keys, C, E, local, T, 16, device=dev).load_state_dict(snap)
+        before = kernels.LAUNCHES["ragged_ring_scatter"]
+        ring.append(ring.pack_rows(rows, local).to(dev), local)
+        ring.note_append(counts, 0)
+        launched = kernels.LAUNCHES["ragged_ring_scatter"] - before
+        dev_draws = {"env": draws["env"].to(dev), "u": draws["u"].to(dev), "noise": [_to_device(draws["noise"][0], dev)]}
+        t0 = time.perf_counter()
+        _, metrics = train((init_moments(dev), 0), ring.state, pack_burst_blob(ctl, {"__validmask__": np.array([1, 0], np.float32)}),
+                           ring.host_valid, None, dev_draws)
+        metrics = metrics.cpu()
+        seconds = time.perf_counter() - t0
+        windows = ring_sample_windows(dev_draws["u"][0], dev_draws["env"][0], ring.state["pos"], ring.state["valid"],
+                                      C, T).cpu()
+        params = {name: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+                  for name, m in zip(("world_model", "actor", "critic"), modules)}
+        results[dev] = {"storage": {k: v.cpu() for k, v in ring.state["storage"].items()}, "windows": windows,
+                        "heads": (ring.state["pos"].cpu(), ring.state["valid"].cpu()), "metrics": metrics,
+                        "params": params, "seconds": seconds, "launched": launched}
+    card, cpu = results["cuda"], results["cpu"]
+    if card["launched"] != 1 or cpu["launched"] != 0:
+        raise AssertionError(f"scatter launches of the append: card {card['launched']}, CPU {cpu['launched']}")
+    if not all(torch.equal(card["storage"][k], cpu["storage"][k]) for k in keys) or not all(
+            torch.equal(a, b) for a, b in zip(card["heads"], cpu["heads"])):
+        raise AssertionError("the async ring after the append differs between the card and the CPU")
+    if not torch.equal(card["windows"], cpu["windows"]):
+        raise AssertionError("the dispatch's windows differ between the card and the CPU")
+    if not torch.isfinite(card["metrics"]).all() or card["metrics"].numel() != len(METRIC_NAMES) + 1:
+        raise AssertionError(f"the card's dispatch metrics: {card['metrics'].tolist()}")
+    torch.testing.assert_close(card["metrics"], cpu["metrics"], rtol=1e-4, atol=1e-5)
+    out = {"cpu_s": cpu["seconds"], "cuda_s": card["seconds"], "ring_equal": True, "windows_equal": True,
+           "loss_abs_err": dict(zip(METRIC_NAMES + ("Fault/skipped_fraction",),
+                                    (card["metrics"] - cpu["metrics"]).abs().tolist()))}
+    for name, lr in {"world_model": 1e-4, "actor": 8e-5, "critic": 8e-5}.items():
+        diffs = torch.cat([(card["params"][name][k] - cpu["params"][name][k]).abs().reshape(-1)
+                           for k in cpu["params"][name]])
+        close = float((diffs <= 1e-6).float().mean())
+        out[name] = {"max_abs_err": float(diffs.max()), "share_within_1e-6": close}
+        if float(diffs.max()) > 2 * lr + 1e-6 or close < 0.999:
+            raise AssertionError(f"{name} after the dispatch on the card differs from the CPU: {out[name]}")
+    return out
+
+
+def _sebulba_act_inputs(cfg, n: int, seed: int):
+    """An act step's inputs from a seed: frames, carries (every row one-hot
+    where the carry is), ``is_first`` on rows 0 and 3, and decisive draws."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs
+
+    rng = np.random.default_rng(seed)
+    S, D = int(cfg.algo.world_model.stochastic_size), int(cfg.algo.world_model.discrete_size)
+    H = int(cfg.algo.world_model.recurrent_model.recurrent_state_size)
+    obs = {k: torch.from_numpy(v) for k, v in prepare_obs(
+        {"rgb": rng.integers(0, 256, (n, 64, 64, 3), dtype=np.uint8)}, cnn_keys=["rgb"], num_envs=n).items()}
+    stoch = torch.nn.functional.one_hot(torch.from_numpy(rng.integers(0, D, (n, S))), D).float().reshape(n, S * D)
+    carry = (torch.nn.functional.one_hot(torch.from_numpy(rng.integers(0, 18, n)), 18).float(),
+             torch.from_numpy(rng.normal(size=(n, H)).astype(np.float32)).tanh(), stoch)
+    first = torch.tensor([[1.0], [0.0], [0.0], [1.0]])[:n]
+    noise = {"posterior": _decisive_uniforms(torch.rand(n, S * D), D, seed + 1),
+             "actions": [_decisive_uniforms(torch.rand(n, 18), 18, seed + 2)]}
+    return obs, carry, first, noise
+
+
+def _sebulba_act() -> dict:
+    """One act step (full width, 4 envs, ``is_first`` on two rows) on the
+    card against the CPU from the same seeded weights and decisive draws:
+    the recurrent state and the representation logits within atol 1e-3 (the
+    model phase's), the posterior and the actions the same one-hots; one
+    ``gru_gates`` launch on the card."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_sebulba import make_act_step, player_subset
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _v2_cfg(SEBULBA_RSSM_PRESET)
+    obs, carry, first, noise = _sebulba_act_inputs(cfg, 4, 65)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        wm, actor, _, _ = build_training_agent(cfg, dev)
+        agent, act_step = player_subset(wm, actor), make_act_step(wm, actor)
+        before = kernels.LAUNCHES["gru_gates"]
+        with torch.no_grad():
+            _, cat, rec, stoch = act_step(agent, _to_device(obs, dev), *(c.to(dev) for c in carry), first.to(dev),
+                                          _to_device(noise, dev))
+            logits = wm.representation(rec, wm.encoder(_to_device(obs, dev)))
+        out[dev] = (cat.cpu(), rec.cpu(), stoch.cpu(), logits.cpu(), kernels.LAUNCHES["gru_gates"] - before)
+    rec_err = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+    logit_err = float((out["cuda"][3] - out["cpu"][3]).abs().max())
+
+    def same_draw(a, b):  # the straight-through hard + p - p leaves an ulp: the same one-hots once rounded
+        return torch.equal(a.round(), b.round()) and float((a - b).abs().max()) <= 1e-6
+
+    res = {"recurrent_max_abs_err": rec_err, "logits_max_abs_err": logit_err, "gru_launches": out["cuda"][4],
+           "actions_equal": same_draw(out["cuda"][0], out["cpu"][0]),
+           "posterior_equal": same_draw(out["cuda"][2], out["cpu"][2])}
+    if rec_err > 1e-3 or logit_err > 1e-3 or not (res["actions_equal"] and res["posterior_equal"]) or out["cuda"][4] != 1:
+        raise AssertionError(f"the act step on the card disagrees with the CPU: {res}")
+    return res
+
+
+def _prefer_ready() -> dict:
+    """``ParamServer.pull(prefer_ready=True)`` on the card. The learner's
+    stream holds a ~3 s kernel (device work queued ahead of a publish: a
+    train dispatch's tail), then a publish whose copy queues behind it. An
+    actor on its own stream pulls meanwhile: ``prefer_ready`` gives it the
+    previous version, whose copy is done, and its act step ends within
+    milliseconds while the newest copy still waits; a default pull gives the
+    newest version, and the act step on it ends only after that copy.
+
+    Measured beside it, not checked: the same pull while the learner's host
+    is inside a one-step dispatch queued behind the kernel. A DreamerV3 step
+    is ~13,000 launches; the host stops in ``cudaLaunchKernel`` once the
+    CUDA launch queue is full, and the actor's act step then waits with it
+    (its timestamps say whether before or after its pull returned)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_sebulba import make_act_step, player_subset
+    from sheeprl_tpu_torch.data.ring import pack_burst_blob
+    from sheeprl_tpu_torch.parallel.pipeline import ParamServer, side_stream
+    from sheeprl_tpu_torch.replay import AsyncSequenceRing
+
+    T, B, C, E = 16, 4, 256, 8
+    cfg = _v2_cfg(SEBULBA_RSSM_PRESET, [f"algo.per_rank_sequence_length={T}", f"algo.per_rank_batch_size={B}"])
+    modules = build_training_agent(cfg, "cuda")
+    optimizers = make_optimizers(cfg, *modules[:3])
+    train, ctl = make_train_step(*modules, optimizers, cfg, guard=True, ring={
+        "capacity": C, "n_envs": E, "grad_chunk": 1, "seq_len": T, "batch_size": B, "decoupled": True})
+    ring = AsyncSequenceRing(_sebulba_keys(), C, E, 4, T, 16, device="cuda").load_state_dict(
+        _sebulba_ring_state(np.random.default_rng(66), _sebulba_keys(), C, E))
+    server = ParamServer(player_subset(modules[0], modules[1]))
+    for _ in range(3):  # versions 1-3: the pool's snapshots exist before the measured publishes
+        server.publish()
+    act_step = make_act_step(modules[0], modules[1])
+    obs, act_carry, first, noise = _sebulba_act_inputs(cfg, 4, 67)
+    obs, first, noise = _to_device(obs, "cuda"), first.cuda(), _to_device(noise, "cuda")
+    act_carry = [c.cuda() for c in act_carry]
+    ctl_blob = pack_burst_blob(ctl, {"__validmask__": np.ones(1, np.float32)})
+    # the loop's carry: the step count on the card (a Python int would be copied over, synchronously)
+    state = (init_moments("cuda"), torch.zeros((), dtype=torch.int64, device="cuda"))
+    for _ in range(2):  # warm-up: the first calls allocate
+        state, _ = train(state, ring.state, ctl_blob, ring.host_valid, ring.generator)
+
+    def act_on(prefer_ready: bool) -> dict:
+        t0 = time.perf_counter()
+        version, agent = server.pull(prefer_ready=prefer_ready)
+        pulled = time.perf_counter()
+        act_step(agent, obs, *act_carry, first, noise)
+        torch.cuda.current_stream().synchronize()
+        server.release(version)
+        return {"version": version, "pull_ms": (pulled - t0) * 1e3, "act_ms": (time.perf_counter() - t0) * 1e3}
+
+    def on_actor_stream(fn) -> dict:
+        out, errors = {}, []
+
+        def run():
+            try:
+                _, ctx = side_stream("cuda")
+                with ctx, torch.no_grad():
+                    out.update(fn())
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        thread = threading.Thread(target=run, name="prefer-ready-actor", daemon=True)
+        thread.start()
+        return out, errors, thread
+
+    out, errors, thread = on_actor_stream(lambda: act_on(True))  # the warm-up act step
+    thread.join(timeout=300)
+    if errors or thread.is_alive():
+        raise AssertionError(f"the actor's warm-up act step did not finish: {errors}")
+    torch.cuda.synchronize()
+    # 1. the newest copy queued behind ~3 s: prefer_ready acts on the previous version at once
+    torch.cuda._sleep(SEBULBA_PREFER_READY_SLEEP)
+    newest = server.publish()
+    newest_event = server._current.event
+
+    def both():
+        ready = act_on(True)
+        ready["newest_copy_pending"] = not newest_event.query()
+        return {"ready": ready, "default": act_on(False)}
+
+    got, errors, thread = on_actor_stream(both)
+    thread.join(timeout=300)
+    if errors or thread.is_alive():
+        raise AssertionError(f"the prefer_ready actor did not end cleanly: {errors}")
+    torch.cuda.synchronize()
+    # 2. measured: the same pull while the learner's host is inside a dispatch queued behind ~3 s
+    torch.cuda._sleep(SEBULBA_PREFER_READY_SLEEP)
+    newest_2 = server.publish()
+    in_dispatch = threading.Event()
+    waited, errors_2, thread = on_actor_stream(lambda: (in_dispatch.wait(timeout=120), time.sleep(0.05),
+                                                        act_on(True))[2])
+    t0 = time.perf_counter()
+    in_dispatch.set()
+    train(state, ring.state, ctl_blob, ring.host_valid, ring.generator)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    thread.join(timeout=300)
+    torch.cuda.synchronize()
+    res = {"newest": newest, "ready": got["ready"], "default": got["default"],
+           "ready_fallbacks": server.stats.ready_fallbacks, "snapshots": server.snapshots,
+           "inside_a_dispatch": {"newest": newest_2, **waited, "learner_enqueue_ms": enqueue_ms,
+                                 "errors": [repr(e) for e in errors_2]}}
+    ready, default = got["ready"], got["default"]
+    if not (newest == 4 and ready["version"] == 3 and ready["newest_copy_pending"] and ready["act_ms"] < 1000
+            and default["version"] == 4 and default["act_ms"] > ready["act_ms"]):
+        raise AssertionError(f"prefer_ready on the card: {res}")
+    return res
+
+
+def rssm_sebulba_card_phase() -> dict:
+    """``dreamer_sebulba``'s pieces on the card (58): two actors' blobs
+    appended at env columns 0 and 4 bit-equal to the plain version; the
+    writer's slab refilled only after its upload's event; one append-free
+    dispatch and one act step against the CPU; ``prefer_ready`` while the
+    newest snapshot's copy waits on the learner's stream. The kernel
+    launches here are checks, not a path's."""
+    out = {"appends": _sebulba_appends(), "writer_refill": _writer_refill(), "dispatch": _sebulba_dispatch(),
+           "act_step": _sebulba_act(), "prefer_ready": _prefer_ready()}
+    log("dreamer_sebulba on the card: " + json.dumps(out))
+    return out
+
+
+def _profile_sebulba_act_step(checkpoint: str, steps: int = SEBULBA_RSSM_ACT_STEPS) -> dict:
+    """One actor step of the run's checkpoint on an actor stream (4 envs):
+    frames up, the act step, the actions down: host ms per step, the act
+    step's span between CUDA events (which holds the host's launch gaps),
+    and its kernels' device time and operations (``torch.profiler``)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_sebulba import make_act_step, player_subset
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs
+    from sheeprl_tpu_torch.parallel.pipeline import side_stream
+
+    cfg = load_config(find_run_config(checkpoint))
+    wm, actor, _, _ = build_training_agent(cfg, "cuda", load_checkpoint(checkpoint))
+    agent, act_step = player_subset(wm, actor), make_act_step(wm, actor)
+    _, carry, first, noise = _sebulba_act_inputs(cfg, 4, 68)
+    rng = np.random.default_rng(69)
+    frames = [rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8) for _ in range(steps)]
+    _, ctx = side_stream("cuda")
+    with ctx, torch.no_grad():
+        carry, first, noise = [c.cuda() for c in carry], first.cuda(), _to_device(noise, "cuda")
+
+        def step(t):
+            obs = {k: torch.from_numpy(v).cuda() for k, v in prepare_obs({"rgb": frames[t]}, cnn_keys=["rgb"],
+                                                                          num_envs=4).items()}
+            return obs, act_step(agent, obs, *carry, first, noise)[1]
+
+        for t in range(5):
+            step(t)[1].cpu()
+        host, device = [], []
+        for t in range(steps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            obs = {k: torch.from_numpy(v).cuda() for k, v in prepare_obs({"rgb": frames[t]}, cnn_keys=["rgb"],
+                                                                          num_envs=4).items()}
+            start.record()
+            actions = act_step(agent, obs, *carry, first, noise)[1]
+            end.record()
+            actions.cpu()
+            host.append(time.perf_counter() - t0)
+            device.append(start.elapsed_time(end))
+        acts = torch.profiler.ProfilerActivity
+        with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+            step(0)[1].cpu()
+    events = _device_kernels(prof)
+    return {"host_ms": float(np.median(host) * 1e3), "host_ms_range": [min(host) * 1e3, max(host) * 1e3],
+            "device_ms_events": float(np.median(device)),
+            "device_ms_profiler": sum(getattr(e, "self_device_time_total", 0.0) for e in events) / 1e3 or None,
+            "device_ops": sum(e.count for e in events)}
+
+
+def _sebulba_dispatch_alone(checkpoint: str, grant: int) -> dict:
+    """One ``grant``-step append-free dispatch of the run's checkpoint (its
+    modules, optimizers and ring) alone on the card: host ms to enqueue it,
+    and to its end."""
+    from sheeprl_tpu_torch.data.ring import pack_burst_blob
+    from sheeprl_tpu_torch.replay import AsyncSequenceRing, DeviceReplayState
+    from sheeprl_tpu_torch.utils.burst import dreamer_ring_keys
+
+    cfg = load_config(find_run_config(checkpoint))
+    state = load_checkpoint(checkpoint)
+    modules = build_training_agent(cfg, "cuda", state)
+    optimizers = make_optimizers(cfg, *modules[:3])
+    for name, opt in optimizers.items():
+        opt.load_state_dict(state["optimizers"][name])
+    snap = DeviceReplayState.from_dict(state.pop("rb"))
+    C, E = int(snap.meta["capacity"]), int(snap.meta["n_envs"])
+    local = int(cfg.env.num_envs)
+    T, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
+    keys = dreamer_ring_keys(cfg.spaces.obs, ["rgb"], [], [18], with_is_first=True)
+    ring = AsyncSequenceRing(keys, C, E, local, T, 2 * int(cfg.algo.sebulba.rollout_block), device="cuda",
+                             seed=7).load_state_dict(snap)
+    del snap, state
+    train, ctl = make_train_step(*modules, optimizers, cfg, guard=True, ring={
+        "capacity": C, "n_envs": E, "grad_chunk": grant, "seq_len": T, "batch_size": B, "decoupled": True})
+    blob = pack_burst_blob(ctl, {"__validmask__": np.ones(grant, np.float32)})
+    carry = (init_moments("cuda"), torch.zeros((), dtype=torch.int64, device="cuda"))
+    carry, _ = train(carry, ring.state, blob, ring.host_valid, ring.generator)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, metrics = train(carry, ring.state, blob, ring.host_valid, ring.generator)
+    enqueued = time.perf_counter() - t0
+    float(metrics[-1])
+    return {"grant": grant, "host_ms_enqueue": enqueued * 1e3, "host_ms_to_end": (time.perf_counter() - t0) * 1e3}
+
+
+def _sebulba_launch_check(name: str, summary: dict, launches: dict, T: int, H: int) -> dict:
+    G = summary["gradient_steps"]
+    want = {"ragged_ring_scatter": summary["replay"]["Replay/flushes"],
+            "gru_gates": summary["act_steps"] + G * (T + H) + (summary["test_steps"] or 0),
+            "two_hot_symlog_loss_lse": 3 * G, "two_hot_symlog_loss_lse_bwd": 3 * G, "two_hot_symexp_decode": 3 * G}
+    _async_launch_check(name, launches, **want)
+    return want
+
+
+def _one_session_client(frames):
+    """One session of len(frames) steps, then a health probe."""
+
+    def client(port: int, result: dict) -> None:
+        conn = _Conn(port, time.monotonic() + 300)
+        result["actions"] = []
+        for frame in frames:
+            resp = conn.ask({"obs": {"rgb": frame.tolist()}, "session_id": "u"})
+            if "actions" not in resp:
+                raise AssertionError(f"session step {len(result['actions'])}: {resp}")
+            result["actions"].append(resp["actions"])
+        result["health"] = conn.ask({"health": True})
+        conn.close()
+
+    return client
+
+
+def rssm_sebulba_run_phase(workdir: str) -> dict:
+    """``run preset=dreamer_sebulba_atari_dummy`` (59) at the recipe on the
+    card: 2 actor threads x 4 envs on their own streams, the 1,024-step
+    prefill, then SEBULBA_RSSM_FULL_DISPATCHES full 32-step dispatches into
+    the 100,000-row ring, the test episode, a checkpoint of the whole ring.
+    Launches exactly: ``ragged_ring_scatter`` once per committed blob,
+    ``gru_gates`` once per act step and test step and T + H a gradient step,
+    the two-hot kernels 3 a gradient step each; the governor within ratio + 1
+    of its grants; the staleness within ``2 x bound + prefill_publishes``;
+    every loss finite; the actors' streams their own. Then a resume from the
+    latest save that must restore the ring, its heads, its generator and
+    ``Ratio`` bit for bit and train on, ``evaluation`` of the run's
+    checkpoint, one served session, one dispatch alone and an act step
+    profiled."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_sebulba as seb_module
+    from sheeprl_tpu_torch.replay import DeviceReplayState
+
+    cfg = preset(SEBULBA_RSSM_PRESET)
+    per_item = int(cfg.env.num_envs) * int(cfg.algo.sebulba.rollout_block)
+    steps = int(cfg.algo.learning_starts) + SEBULBA_RSSM_FULL_DISPATCHES * per_item
+    T, H, ratio = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.horizon), float(cfg.algo.replay_ratio)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    summary = cli.run([f"preset={SEBULBA_RSSM_PRESET}", f"algo.total_steps={steps}", "metric.log_level=0",
+                       f"log_root={workdir}"])
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    pipe, G = summary["pipeline"], summary["gradient_steps"]
+    grad_max = summary["grad_max"]
+    full = [s for s, n in summary["dispatch_host_s"] if n == grad_max]
+    if summary["device"].split(":")[0] != "cuda" or summary["policy_steps"] != steps or len(full) < SEBULBA_RSSM_FULL_DISPATCHES:
+        raise AssertionError(f"dreamer_sebulba: {summary['policy_steps']} steps, {len(full)} full dispatches on "
+                             f"{summary['device']}")
+    want = _sebulba_launch_check("dreamer_sebulba", summary, launches, T, H)
+    consumed = pipe["Pipeline/env_steps_consumed"]
+    governor_gap = abs(G - ratio * (consumed - summary["prefill_policy_steps"]))
+    if pipe["Pipeline/grad_steps"] != G or governor_gap > ratio + 1:
+        raise AssertionError(f"dreamer_sebulba governor: {G} steps for {consumed} consumed, gap {governor_gap}")
+    if pipe["staleness_max"] > 2 * pipe["staleness_bound"] + pipe["prefill_publishes"]:
+        raise AssertionError(f"dreamer_sebulba staleness {pipe['staleness_max']} past 2 x {pipe['staleness_bound']} + "
+                             f"{pipe['prefill_publishes']}")
+    if not np.isfinite(np.asarray(summary["metrics"])).all() or len(summary["metrics"]) != summary["train_calls"]:
+        raise AssertionError("non-finite or missing dreamer_sebulba losses")
+    _streams_check("dreamer_sebulba", summary["streams"])
+    out = {
+        "policy_steps": summary["policy_steps"], "gradient_steps": G, "train_calls": summary["train_calls"],
+        "full_dispatches": len(full), "grad_max": grad_max, "act_steps": summary["act_steps"],
+        "test_steps": summary["test_steps"], "test_reward": summary["test_reward"], "launches": launches,
+        "launches_want": want, "wall_s": wall, "env_steps_per_s": summary["policy_steps"] / wall,
+        "governor_gap": governor_gap, "learner_starved_share": pipe["Pipeline/learner_starved_s"] / wall,
+        "actor_stall_s": pipe["Pipeline/actor_stall_s"], "staleness_hist": pipe["staleness_hist"],
+        "staleness_max": pipe["staleness_max"], "staleness_bound": pipe["staleness_bound"],
+        "prefill_publishes": pipe["prefill_publishes"], "ready_fallbacks": pipe["ready_fallbacks"],
+        "streams": summary["streams"], "replay": summary["replay"],
+        "host_ms_per_dispatch_in_pipeline": {"enqueue_median": float(np.median(full) * 1e3),
+                                             "enqueue_range": [min(full) * 1e3, max(full) * 1e3]},
+        "host_ms_per_append": float(np.median(summary["append_s"]) * 1e3),
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "losses_last": dict(zip(METRIC_NAMES, summary["metrics"][-1])), "checkpoint": summary["checkpoint"],
+    }
+    log("dreamer_sebulba run: " + json.dumps({k: v for k, v in out.items() if k != "checkpoint"}))
+
+    saved = load_checkpoint(summary["checkpoint"])
+    saved_ring = DeviceReplayState.from_dict(saved.pop("rb"))
+    restored = {}
+
+    class _Ring(seb_module.AsyncSequenceRing):
+        def load_state_dict(self, snap):
+            super().load_state_dict(snap)
+            restored.update(self.state_dict().arrays)
+            return self
+
+    class _Ratio(seb_module.Ratio):
+        def load_state_dict(self, s):
+            super().load_state_dict(s)
+            restored["ratio"] = self.state_dict()
+            return self
+
+    kernels.reset_launches()
+    seb_module.AsyncSequenceRing, seb_module.Ratio = _Ring, _Ratio
+    try:
+        resumed = cli.run([f"preset={SEBULBA_RSSM_PRESET}", "checkpoint.resume_from=latest", "metric.log_level=0",
+                           "algo.run_test=false", "algo.learning_starts=0", "checkpoint.save_last=false",
+                           f"algo.total_steps={steps + SEBULBA_RSSM_RESUME_ITEMS * per_item}", f"log_root={workdir}"])
+    finally:
+        seb_module.AsyncSequenceRing, seb_module.Ratio = _Ring.__bases__[0], _Ratio.__bases__[0]
+    resume_launches = dict(kernels.LAUNCHES)
+    same = {k: torch.equal(restored[k].cpu(), v.cpu()) for k, v in saved_ring.arrays.items()}
+    same["ratio"] = restored.get("ratio") == saved["ratio"]
+    del saved_ring, restored
+    if not all(same.values()) or not {"key", "pos", "valid"} <= set(same):
+        raise AssertionError(f"the dreamer_sebulba resume restored a different ring or Ratio: {same}")
+    if resumed["gradient_steps"] == 0 or resumed["start_iter"] != steps // int(cfg.env.num_envs) + 1:
+        raise AssertionError(f"dreamer_sebulba resume: start {resumed['start_iter']}, {resumed['gradient_steps']} steps")
+    _sebulba_launch_check("dreamer_sebulba resume", resumed, resume_launches, T, H)
+    out["resume"] = {"start_iter": resumed["start_iter"], "policy_steps": resumed["policy_steps"],
+                     "gradient_steps": resumed["gradient_steps"], "act_steps": resumed["act_steps"],
+                     "launches": resume_launches, "restored_equal": sorted(same)}
+    log("dreamer_sebulba resume: " + json.dumps(out["resume"]))
+
+    kernels.reset_launches()
+    evaluation = cli.evaluation([f"checkpoint_path={summary['checkpoint']}"])
+    eval_launches = dict(kernels.LAUNCHES)
+    _async_launch_check("dreamer_sebulba evaluation", eval_launches, gru_gates=evaluation["steps"])
+    out["evaluation"] = {**evaluation, "launches": eval_launches}
+    rng = np.random.default_rng(70)
+    frames = [rng.integers(0, 256, (64, 64, 3), dtype=np.uint8) for _ in range(N_STEPS)]
+    served = _serve_with([f"checkpoint_path={summary['checkpoint']}", "serve.session.buckets=[1,8]"],
+                         _one_session_client(frames))
+    engine = served["health"]["engine"]
+    dispatches = engine["dispatches"] + engine["warmup_dispatches"]
+    if (len(served["actions"]) != N_STEPS or any(not (0 <= a[0][0] < 18) for a in served["actions"])
+            or served["launches"]["gru_gates"] != dispatches):
+        raise AssertionError(f"dreamer_sebulba served session: {served['actions']}, {served['launches']}, {engine}")
+    out["serve"] = {"steps": N_STEPS, "launches": served["launches"], "dispatches": dispatches}
+    out["dispatch_alone"] = _sebulba_dispatch_alone(summary["checkpoint"], grad_max)
+    out["act_step"] = _profile_sebulba_act_step(summary["checkpoint"])
+    log("dreamer_sebulba evaluation, serving, a dispatch alone, an act step: " + json.dumps(
+        {k: out[k] for k in ("evaluation", "serve", "dispatch_alone", "act_step")}))
+    return out
+
+
 # -- lanes -------------------------------------------------------------------
 #
 # After the kernel phases (1-3, 11, 14, 21), which the main process runs
@@ -7921,17 +8668,30 @@ def _lane_async_sac(timed) -> dict:
                 "sac_decoupled_run": timed("sac_decoupled_run", sac_decoupled_run_phase, workdir)}
 
 
+def _lane_sebulba_rssm(timed) -> dict:
+    r = {"rssm_sebulba_card": timed("rssm_sebulba_card", rssm_sebulba_card_phase)}
+    with tempfile.TemporaryDirectory() as workdir:
+        r["rssm_sebulba_run"] = timed("rssm_sebulba_run", rssm_sebulba_run_phase, workdir)
+    return r
+
+
 #: each lane's groups, run in order by one worker; balanced on a serial
 #: run's seconds by phase (the SAC run alone is ~200 s); the async PPO runs
 #: in the Anakin lane, the async SAC runs in the SAC lane, the pipeline's
 #: card checks (a ~25 s rebuild of gae among them) and the Anakin population
-#: in the PPO/DreamerV3 lane
+#: in the PPO/DreamerV3 lane; dreamer_sebulba (58-59) in a fifth lane, as
+#: every other lane was near ~360 s
 LANES = {
     "sac": (_lane_sac, _lane_classic, _lane_bf16, _lane_async_sac),
     "anakin": (_lane_anakin, _lane_onpolicy, _lane_async_ppo),
     "ppo_rssm": (_lane_ppo, _lane_rssm, _lane_resident, _lane_explore, _lane_pipeline, _lane_population),
     "families": (_lane_runtime, _lane_continuous, _lane_offpolicy, _lane_v2, _lane_v1),
+    "sebulba_rssm": (_lane_sebulba_rssm,),
 }
+#: torch threads of a lane: the first four split the host's cores as they did
+#: alone; the dreamer_sebulba lane's learner and actors mostly launch kernels
+#: under the GIL, so it takes one
+LANE_THREADS = {"sebulba_rssm": 1}
 _LANE_TAG = ""
 
 
@@ -7966,7 +8726,7 @@ def lane_main(name: str, out: str) -> int:
     _LANE_TAG = f"[{name}] "
     # the CPU's cores shared between the lanes; TF32 off, as every
     # card-vs-CPU phase sets it
-    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // len(LANES)))
+    torch.set_num_threads(LANE_THREADS.get(name, max(1, len(os.sched_getaffinity(0)) // 4)))
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.build_all()  # loads what the main process built
@@ -8087,7 +8847,10 @@ def main() -> int:
              "ppo_sebulba_evaluation": R["ppo_sebulba_run"]["evaluation"], "ppo_decoupled": R["ppo_decoupled_run"],
              "ppo_decoupled_resume": R["ppo_decoupled_run"]["resume"], "sac_sebulba_per": R["sac_sebulba_per_run"],
              "sac_sebulba_per_resume": R["sac_sebulba_per_run"]["resume"], "sac_decoupled": R["sac_decoupled_run"],
-             "sac_decoupled_resume": R["sac_decoupled_run"]["resume"]}
+             "sac_decoupled_resume": R["sac_decoupled_run"]["resume"], "dreamer_sebulba": R["rssm_sebulba_run"],
+             "dreamer_sebulba_resume": R["rssm_sebulba_run"]["resume"],
+             "dreamer_sebulba_evaluation": R["rssm_sebulba_run"]["evaluation"],
+             "dreamer_sebulba_serve": R["rssm_sebulba_run"]["serve"]}
     rows = [gru] + two_hot + [gae_row, sumtree_row, scatter_row]
     for row in rows:
         row["launches_by_path"] = {name: path["launches"][row["name"]] for name, path in paths.items()}
@@ -8101,7 +8864,10 @@ def main() -> int:
                                    dreamer_continuous_test=continuous_run["test_steps"],
                                    explore_test=explore["test_steps"], finetune_test=finetune["test_steps"],
                                    v2_test=v2_run["test_steps"], p2e_dv2_exploration_test=p2e_dv2["exploration"]["test_steps"],
-                                   p2e_dv2_finetuning_test=p2e_dv2["finetuning"]["test_steps"])
+                                   p2e_dv2_finetuning_test=p2e_dv2["finetuning"]["test_steps"],
+                                   dreamer_sebulba_test=R["rssm_sebulba_run"]["test_steps"],
+                                   dreamer_sebulba_act_steps=R["rssm_sebulba_run"]["act_steps"],
+                                   dreamer_sebulba_resume_act_steps=R["rssm_sebulba_run"]["resume"]["act_steps"])
     gru["eval_shape"]["floor_ms"] = floor
     for row in [gru] + two_hot:
         row["launches"] = run["launches"][row["name"]]
@@ -8125,6 +8891,10 @@ def main() -> int:
                                          "iterations": R["ppo_decoupled_run"]["iterations"]}
     sumtree_row["paths"] = {"sac_sebulba_per": {"launches": R["sac_sebulba_per_run"]["launches"]["sumtree_sample"],
                                                 "gradient_steps": R["sac_sebulba_per_run"]["gradient_steps"]}}
+    # dreamer_sebulba: one scatter per committed blob, at col_offset 0 and 4
+    seb_rssm = R["rssm_sebulba_run"]
+    scatter_row["paths"] = {"dreamer_sebulba": {"launches": seb_rssm["launches"]["ragged_ring_scatter"],
+                                                "blobs": seb_rssm["replay"]["Replay/flushes"]}}
     rows.append(_gru_bf16_kernel_row(gru, floor, continuous_run, R["continuous_serve"], R["continuous_ring"]))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s; seconds by phase: {json.dumps(phase_s)}")
     print(json.dumps({"nonfinite": nonfinite, **R}))

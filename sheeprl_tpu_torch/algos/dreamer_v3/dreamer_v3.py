@@ -80,7 +80,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
 )
 from sheeprl_tpu_torch.config import dotdict, plain
 from sheeprl_tpu_torch.data import EnvIndependentReplayBuffer
-from sheeprl_tpu_torch.data.ring import build_burst_train_step
+from sheeprl_tpu_torch.data.ring import build_burst_train_step, build_seq_train_step
 from sheeprl_tpu_torch.distributions import (
     BernoulliSafeMode,
     Independent,
@@ -202,7 +202,13 @@ def make_train_step(
     (:func:`~sheeprl_tpu_torch.data.ring.build_burst_train_step`) over the
     carry ``(moments_state, cum)``: ``burst(carry, rb, blob, generator=None,
     draws=None) -> (carry, rb, metrics)``, ``metrics`` the ``(10,)`` mean
-    over the granted steps."""
+    over the granted steps. With ``ring["decoupled"]`` (``dreamer_sebulba``)
+    it becomes the append-free dispatch over the async ring
+    (:func:`~sheeprl_tpu_torch.data.ring.build_seq_train_step`):
+    ``(train_fn, ctl_layout)``, ``train_fn(carry, state, ctl, host_valid,
+    generator=None, draws=None) -> (carry, metrics)``; guarded, each dispatch
+    snapshots the train state first, and ``metrics`` ends in the skipped
+    share of its steps (JAX's ``Fault/skipped_fraction``)."""
     wm_cfg = cfg.algo.world_model
     cnn_enc = list(cfg.algo.cnn_keys.encoder)
     mlp_enc = list(cfg.algo.mlp_keys.encoder)
@@ -404,13 +410,26 @@ def make_train_step(
         def carry_step(carry, xs):
             moments_state, cum = carry
             batch, noise = xs
-            moments_state, metrics, _ = gradient_step(batch, moments_state, cum, noise)
-            return (moments_state, cum + 1), metrics
+            moments_state, metrics, ok = gradient_step(batch, moments_state, cum, noise)
+            if ok is None:
+                return (moments_state, cum + 1), metrics
+            # a skipped step did not happen: the EMA's cadence keeps its phase
+            return (moments_state, cum + ok.to(torch.int64)), torch.cat([metrics, (~ok).to(metrics.dtype)[None]])
 
-        return build_burst_train_step(
-            carry_step, ring,
-            lambda gen: draw_noise(cfg, seq_len, batch_size, actions_dim, gen, gen.device, continuous),
-        )
+        def noise_fn(gen):
+            return draw_noise(cfg, seq_len, batch_size, actions_dim, gen, gen.device, continuous)
+
+        if not ring.get("decoupled"):
+            return build_burst_train_step(carry_step, ring, noise_fn)
+        seq_train, ctl_layout = build_seq_train_step(carry_step, ring, noise_fn)
+        if not guard:
+            return seq_train, ctl_layout
+
+        def guarded_seq_train(*args, **kwargs):
+            state_guard.snapshot()  # the state a skipped step returns to
+            return seq_train(*args, **kwargs)
+
+        return guarded_seq_train, ctl_layout
 
     def train(
         data: Dict[str, torch.Tensor],

@@ -3,7 +3,7 @@
 
     python -m sheeprl_tpu_torch run \\
         preset=<configs/*.json: sac_per, sac, droq, sac_ae, ppo, ppo_anakin, ppo_anakin_population, a2c,
-                ppo_decoupled, ppo_sebulba, sac_decoupled, sac_sebulba, sac_sebulba_per,
+                ppo_decoupled, ppo_sebulba, sac_decoupled, sac_sebulba, sac_sebulba_per, dreamer_sebulba_atari_dummy,
                 ppo_recurrent, dreamer_v3_100k_atari_dummy,
                 dreamer_v3_100k_atari_dummy_resident, dreamer_v3_continuous_dummy,
                 p2e_dv3_exploration_atari_dummy, p2e_dv3_finetuning_atari_dummy, dreamer_v2_atari_dummy,
@@ -310,7 +310,7 @@ def run(args: Sequence[str]) -> dict:
     arm_from_env()  # SHEEPRL_FAULT_ARM's fault points, for drills
     cfg = compose_run_config(args)
     if cfg.algo.name not in TRAINERS:
-        raise NotImplementedError(f"training '{cfg.algo.name}' is not ported yet; {' and '.join(TRAINERS)} only")
+        raise RuntimeError(f"Given the algorithm named '{cfg.algo.name}', no module has been found to be imported.")
     if cfg.algo.name in FINETUNING_ALGOS:
         _exploration_handoff(cfg)
     device = resolve_device(cfg.fabric.get("accelerator"))

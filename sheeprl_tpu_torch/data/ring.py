@@ -17,9 +17,15 @@ so a block is never reused under a copy in flight). :func:`unpack_burst_blob`
 slices and reinterprets each segment of the copy: views, no further copy.
 The segments start at 4-byte aligned offsets only.
 
-Left for later slices: the episode rule (``episode_window_table``,
-``sample_window_starts``) and the decoupled programs
-(``build_seq_append_step``, ``build_seq_train_step``).
+The decoupled (Sebulba) topology splits the burst in two: actor threads pack
+their rows into append blobs (:func:`make_seq_append_layout`), the learner
+appends each blob at the actor's env columns (:func:`build_seq_append_step`)
+and trains at its own cadence through the append-free dispatch
+(:func:`build_seq_train_step`), drawing windows against the live per-env
+heads.
+
+Left for a later slice: the episode rule (``episode_window_table``,
+``sample_window_starts``).
 """
 
 from __future__ import annotations
@@ -32,9 +38,13 @@ import torch
 __all__ = [
     "BlobLayout",
     "build_burst_train_step",
+    "build_seq_append_step",
+    "build_seq_train_step",
     "effective_stage_buckets",
     "make_blob_layouts",
     "make_layout",
+    "make_seq_append_layout",
+    "make_seq_ctl_layout",
     "pack_burst_blob",
     "ring_append_rows",
     "ring_sample_windows",
@@ -181,6 +191,26 @@ def _granted_step(gradient_step: Callable, storage: Dict[str, torch.Tensor], sam
     return sampled_step
 
 
+def _train_granted(carry, n: int, sampled_step: Callable, ring_envs: int, ring_batch: int, device,
+                   draw_noise: Callable, generator: Optional[torch.Generator], draws: Optional[Dict[str, Any]]):
+    """``n`` granted steps of ``sampled_step``, each drawing ``B`` env
+    indices, ``B`` window-start uniforms and its noise from ``generator``
+    (in that order), unless ``draws`` holds them: ``{"env": (n, B), "u": (n,
+    B), "noise": [n noise]}``. Returns the carry and the steps' mean metrics."""
+    if draws is None:
+        draws = {
+            "env": torch.randint(0, ring_envs, (n, ring_batch), generator=generator, device=device),
+            "u": torch.rand((n, ring_batch), generator=generator, device=device),
+            "noise": [draw_noise(generator) for _ in range(n)],
+        }
+    metrics = []
+    for i in range(n):
+        carry, m = sampled_step(carry, draws["env"][i], draws["u"][i], draws["noise"][i])
+        metrics.append(m.to(torch.float32))
+    # averaged over the granted steps only
+    return carry, torch.stack(metrics, dim=0).sum(dim=0) / n
+
+
 def build_burst_train_step(
     gradient_step: Callable[[Any, Any], Any],
     ring: Dict[str, Any],
@@ -238,21 +268,117 @@ def build_burst_train_step(
         granted: List[int] = [g for g in range(grad_chunk) if ready and float(host["__validmask__"][g]) > 0]
         if not granted:
             return carry, rb, None
-        if draws is None:
-            n = len(granted)
-            draws = {
-                "env": torch.randint(0, ring_envs, (n, ring_batch), generator=generator, device=device),
-                "u": torch.rand((n, ring_batch), generator=generator, device=device),
-                "noise": [draw_noise(generator) for _ in granted],
-            }
         sampled_step = _granted_step(
             gradient_step, rb, lambda uu, env_idx: ring_sample_windows(uu, env_idx, new_pos, new_valid, capacity, ring_seq)
         )
-        metrics = []
-        for i in range(len(granted)):
-            carry, m = sampled_step(carry, draws["env"][i], draws["u"][i], draws["noise"][i])
-            metrics.append(m.to(torch.float32))
-        # averaged over the granted steps only
-        return carry, rb, torch.stack(metrics, dim=0).sum(dim=0) / max(len(granted), 1)
+        carry, metrics = _train_granted(carry, len(granted), sampled_step, ring_envs, ring_batch, device, draw_noise,
+                                        generator, draws)
+        return carry, rb, metrics
 
     return burst_fn
+
+
+# -- the decoupled (Sebulba) programs: ragged per-env-head appends from
+# concurrent actor threads, and the append-free governed train step --------
+
+
+def make_seq_append_layout(ring_keys: Dict[str, Tuple[tuple, Any]], local_envs: int, stage_rows: int) -> BlobLayout:
+    """Byte layout of ONE actor's append blob: ``stage_rows`` staged rows over
+    the actor's own ``local_envs`` env columns (regular rows mask every env,
+    ragged reset rows only the done envs), the per-row write masks and the
+    actor's first env column in the ring (``__offset__``, JAX's layout; the
+    port's append takes the offset from the host side of the queued item, so
+    nothing reads it back from the card). One size for every block keeps one
+    layout for every actor."""
+    spec = [(k, (stage_rows, local_envs) + tuple(shape), np.dtype(dtype)) for k, (shape, dtype) in ring_keys.items()]
+    spec += [("__mask__", (stage_rows, local_envs), np.int32), ("__offset__", (), np.int32)]
+    return make_layout(spec)
+
+
+def make_seq_ctl_layout(grad_chunk: int) -> BlobLayout:
+    """Control blob of the append-free train dispatch: the granted-step mask.
+    The port keeps it on the host (the dispatch loops over its granted steps
+    in Python); its draws come from the ring's generator."""
+    return make_layout([("__validmask__", (grad_chunk,), np.float32)])
+
+
+def build_seq_append_step(
+    ring_keys: Dict[str, Tuple[tuple, Any]], capacity: int, n_envs: int, local_envs: int, stage_rows: int
+) -> Tuple[Callable, BlobLayout]:
+    """The ragged multi-head append of one actor's blob: ``(append, layout)``
+    with ``append(state, blob, col_offset) -> state``.
+
+    ``state`` is the async ring (``storage`` dict of ``(C, E, ...)`` tensors,
+    the per-env ``pos``/``valid`` int32 heads, all on one device) and
+    ``blob`` one :func:`make_seq_append_layout` upload on that device;
+    ``col_offset`` is the actor's first env column, a host ``int``. The
+    actor's slice of the heads advances by each column's masked row count
+    (:func:`ring_append_rows`: reset rows advance only the done envs), every
+    ring key is written by ONE ``ragged_ring_scatter_keys`` launch at
+    ``col_offset``, and the slice's new heads are written back: all in place,
+    on the current (the learner's) stream, with no read back to the host."""
+    from sheeprl_tpu_torch.ops.kernels import ragged_ring_scatter_keys
+
+    layout = make_seq_append_layout(ring_keys, local_envs, stage_rows)
+    capacity, n_envs, local_envs = int(capacity), int(n_envs), int(local_envs)
+
+    def append(state: Dict[str, Any], blob: torch.Tensor, col_offset: int) -> Dict[str, Any]:
+        off = int(col_offset)
+        if off < 0 or off + local_envs > n_envs:
+            raise ValueError(f"an append at env column {off} of {local_envs} columns leaves the ring's {n_envs}")
+        if blob.numel() != layout.nbytes:
+            raise ValueError(f"append blob of {blob.numel()} bytes, the layout holds {layout.nbytes}")
+        u = unpack_burst_blob(blob, layout)
+        pos_l, valid_l = state["pos"][off:off + local_envs], state["valid"][off:off + local_envs]
+        row, new_pos, new_valid = ring_append_rows(pos_l, valid_l, u["__mask__"], capacity)
+        ragged_ring_scatter_keys(state["storage"], u, row, pos_l, off)
+        pos_l.copy_(new_pos)
+        valid_l.copy_(new_valid)
+        return state
+
+    return append, layout
+
+
+def build_seq_train_step(
+    gradient_step: Callable[[Any, Any], Any],
+    ring: Dict[str, Any],
+    draw_noise: Callable[[torch.Generator], Any],
+) -> Tuple[Callable, BlobLayout]:
+    """Append-free governed train step over the async sequence ring:
+    ``(train_fn, ctl_layout)`` with::
+
+        train_fn(carry, state, ctl, host_valid, generator=None, draws=None) -> (carry, metrics)
+
+    ``state`` is the async ring (its storage and the LIVE per-env heads on
+    the device, which the append advances), ``ctl`` one host
+    :func:`make_seq_ctl_layout` blob, ``host_valid`` the host mirror of the
+    valid counts. The gate (no step while any env holds fewer rows than a
+    window, the JAX program's in-graph belt) and the granted steps are read
+    from the host: nothing is read back from the card. Each granted step
+    draws its env indices, window-start uniforms and noise from
+    ``generator`` (the ring's) unless ``draws`` holds them, as
+    :func:`build_burst_train_step` does, and samples its windows against the
+    device heads. The ring is neither copied nor reallocated: the function
+    returns only the carry and the steps' mean metrics (None when none
+    ran)."""
+    capacity = int(ring["capacity"])
+    ring_envs = int(ring["n_envs"])
+    grad_chunk = int(ring["grad_chunk"])
+    ring_seq = int(ring["seq_len"])
+    ring_batch = int(ring["batch_size"])
+    ctl_layout = make_seq_ctl_layout(grad_chunk)
+
+    def train_fn(carry, state: Dict[str, Any], ctl: torch.Tensor, host_valid,
+                 generator: Optional[torch.Generator] = None, draws: Optional[Dict[str, Any]] = None):
+        validmask = unpack_burst_blob(ctl, ctl_layout)["__validmask__"]
+        ready = bool((np.asarray(host_valid) >= ring_seq).all())
+        n = sum(1 for g in range(grad_chunk) if ready and float(validmask[g]) > 0)
+        if n == 0:
+            return carry, None
+        storage, pos, valid = state["storage"], state["pos"], state["valid"]
+        sampled_step = _granted_step(
+            gradient_step, storage, lambda uu, env_idx: ring_sample_windows(uu, env_idx, pos, valid, capacity, ring_seq)
+        )
+        return _train_granted(carry, n, sampled_step, ring_envs, ring_batch, pos.device, draw_noise, generator, draws)
+
+    return train_fn, ctl_layout

@@ -16,7 +16,8 @@ staging of finished rollouts.
     optimizers update the parameters in place, so :meth:`ParamServer.publish`
     COPIES them into a snapshot module that no optimizer touches, on the
     learner's stream, and records a CUDA event after the copy.
-    :meth:`ParamServer.pull` hands an actor the newest snapshot and makes the
+    :meth:`ParamServer.pull` hands an actor the newest snapshot (with
+    ``prefer_ready``, the newest whose copy has run) and makes the
     actor's stream wait on that event before any read;
     :meth:`ParamServer.release` records an event on the actor's stream when
     it is done with the version. A snapshot is reused for a later version
@@ -155,6 +156,7 @@ class PipelineStats:
         self.learner_starved_s = 0.0  # time the learner waited on an empty queue
         self.publishes = 0
         self.pulls = 0
+        self.ready_fallbacks = 0  # prefer_ready pulls that took an older, copied snapshot
         self.max_depth_seen = 0
         self.max_staleness_seen = 0
         self.last_staleness = 0
@@ -407,18 +409,32 @@ class ParamServer:
             return True
         return False
 
-    def pull(self) -> Tuple[int, nn.Module]:
+    def pull(self, prefer_ready: bool = False) -> Tuple[int, nn.Module]:
         """The newest snapshot ``(version, module)``, held for the caller
         until :meth:`release`; the caller's current stream waits for its
-        copy. Raises before the first publish."""
+        copy. Raises before the first publish.
+
+        ``prefer_ready`` (JAX ``pull(prefer_ready=True)``, newest-ready-wins):
+        the newest snapshot whose copy event has completed, and the newest
+        one when none has. A publish queues its copy behind the learner's
+        work on its stream, so an actor that takes the newest version waits
+        for that work before its act step; this one acts on the previous
+        version meanwhile. On the CPU, where snapshots have no event, it is
+        newest-wins."""
         with self._lock:
             snap = self._current
             if snap is None:
                 raise RuntimeError("ParamServer.pull before the first publish")
+            if prefer_ready and snap.event is not None and not snap.event.query():
+                ready = [s for s in self._by_version.values()
+                         if not s.writing and (s.event is None or s.event.query())]
+                if ready:
+                    snap = max(ready, key=lambda s: s.version)
+                    self.stats.add("ready_fallbacks", 1)
             snap.holders += 1
             version, event = snap.version, snap.event
         self.stats.add("pulls", 1)
-        if event is not None:
+        if event is not None and snap.device.type == "cuda":
             torch.cuda.current_stream(snap.device).wait_event(event)
         return version, snap.module
 

@@ -9,7 +9,8 @@ env step.
   append blobs and control jobs), the spillover sizing and the crossovers to
   the host buffers;
 - :mod:`~sheeprl_tpu_torch.replay.driver`: :class:`SequenceRingDriver`
-  (DreamerV3's per-env-head sequence ring).
+  (DreamerV3's per-env-head sequence ring), and :class:`AsyncSequenceRing`
+  with :class:`SeqBlobWriter` (the same ring fed by actor threads).
 """
 
 from sheeprl_tpu_torch.replay.device_buffer import (
@@ -22,9 +23,10 @@ from sheeprl_tpu_torch.replay.device_buffer import (
     restore_host_buffer,
     restore_host_env_buffer,
 )
-from sheeprl_tpu_torch.replay.driver import SequenceRingDriver
+from sheeprl_tpu_torch.replay.driver import AsyncSequenceRing, SeqBlobWriter, SequenceRingDriver
 
 __all__ = [
+    "AsyncSequenceRing",
     "ControlJob",
     "DeviceReplayBuffer",
     "DeviceReplayState",
@@ -33,5 +35,6 @@ __all__ = [
     "resolve_device_resident",
     "restore_host_buffer",
     "restore_host_env_buffer",
+    "SeqBlobWriter",
     "SequenceRingDriver",
 ]

@@ -24,7 +24,7 @@ before it flattens, so the rows mean the same features on both sides.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -391,14 +391,19 @@ def sac_ae_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return state
 
 
-def sequence_ring_from_jax(arrays: Mapping[str, Any], meta: Mapping[str, Any]) -> DeviceReplayState:
-    """A JAX sequence ``DeviceReplayState``'s numpy ``arrays``
-    (``storage/<key>``, ``pos``, ``valid``) and ``meta`` -> the port's
-    snapshot, which ``SequenceRingDriver.load_state_dict`` and
-    ``restore_host_env_buffer`` read. The JAX ``key`` is not carried: a
-    threefry key has no Philox state that draws the same numbers, so the
-    snapshot has no ``key`` and a driver restoring it keeps its generator
-    as seeded."""
+def sequence_ring_from_jax(arrays: Any, meta: Optional[Mapping[str, Any]] = None) -> DeviceReplayState:
+    """A JAX sequence ``DeviceReplayState`` -> the port's snapshot, which
+    ``SequenceRingDriver.load_state_dict``, ``AsyncSequenceRing.load_state_dict``
+    and ``restore_host_env_buffer`` read. Takes the snapshot itself (a
+    ``SequenceRingDriver``'s or an ``AsyncSequenceRing``'s ``state_dict()``),
+    or its numpy ``arrays`` (``storage/<key>``, ``pos``, ``valid``) and
+    ``meta``. The JAX ``key`` is not carried: a threefry key has no Philox
+    state that draws the same numbers, so the snapshot has no ``key`` and a
+    ring restoring it keeps its generator as seeded."""
+    if meta is None:
+        if getattr(arrays, "kind", None) != "sequence":
+            raise ValueError(f"sequence_ring_from_jax takes a 'sequence' snapshot, got {getattr(arrays, 'kind', arrays)!r}")
+        arrays, meta = arrays.arrays, arrays.meta
     out = {name: torch.from_numpy(np.array(a, order="C")) for name, a in arrays.items() if name.startswith("storage/")}
     out["pos"] = torch.from_numpy(np.asarray(arrays["pos"], np.int64).copy())
     out["valid"] = torch.from_numpy(np.asarray(arrays["valid"], np.int64).copy())

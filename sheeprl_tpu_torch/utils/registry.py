@@ -26,6 +26,7 @@ TRAINERS: Dict[str, str] = {
     "a2c": "sheeprl_tpu_torch.algos.a2c.a2c",
     "dreamer_v1": "sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1",
     "dreamer_v2": "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",
+    "dreamer_sebulba": "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_sebulba",
     "dreamer_v3": "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
     "droq": "sheeprl_tpu_torch.algos.droq.droq",
     "p2e_dv1_exploration": "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_exploration",

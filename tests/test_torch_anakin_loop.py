@@ -150,12 +150,12 @@ def test_torch_anakin_loop_population_trigger_and_warning(tmp_path, monkeypatch)
 def test_torch_anakin_loop_registry_lists_both_trainers(capsys):
     from sheeprl_tpu_torch.utils.registry import TRAINERS
 
-    assert len(TRAINERS) == 21  # the Anakin pair and, since, the four async topologies
+    assert len(TRAINERS) == 22  # the Anakin pair and, since, the five async topologies: every JAX trainer
     rows = {r["name"]: r for r in cli.agents()}
     for name in ("ppo_anakin", "ppo_anakin_population"):
         assert rows[name]["trainer"] == TRAINERS[name] and rows[name]["evaluation"] and rows[name]["serving"]
         assert rows[name]["decoupled"] is False
-    for name in ("ppo_decoupled", "ppo_sebulba", "sac_decoupled", "sac_sebulba"):
+    for name in ("ppo_decoupled", "ppo_sebulba", "sac_decoupled", "sac_sebulba", "dreamer_sebulba"):
         assert rows[name]["trainer"] == TRAINERS[name] and rows[name]["decoupled"] is True
     assert "ppo_anakin_population: trainer=" in capsys.readouterr().out
 

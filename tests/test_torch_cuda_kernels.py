@@ -867,6 +867,65 @@ def test_torch_cuda_resident_loop_launches_the_scatter_once_per_flush(cuda, tmp_
     }
 
 
+def test_torch_cuda_async_ring_appends_at_column_offsets_match_plain(cuda):
+    """``dreamer_sebulba``'s ring: blobs of two actors (4 envs each, 16 staged
+    rows with ragged reset rows) appended at env columns 0 and 4 of a 24-row
+    ring of the 5 DreamerV3 keys, interleaved until every column wraps: after
+    every blob the card's storage and heads bit-equal to the same ring on the
+    CPU (the plain version), one scatter launch per blob."""
+    from sheeprl_tpu_torch.replay import AsyncSequenceRing
+    from sheeprl_tpu_torch.utils.burst import dreamer_ring_keys
+
+    keys = dreamer_ring_keys({"rgb": {"shape": [64, 64, 3]}}, ["rgb"], [], [18], with_is_first=True)
+    card, cpu = (AsyncSequenceRing(keys, 24, 8, 4, 16, 16, device=d) for d in (cuda, "cpu"))
+    rng = np.random.default_rng(21)
+    before = K.LAUNCHES["ragged_ring_scatter"]
+    for i in range(8):
+        off = 4 * (i % 2)
+        rows = []
+        for _ in range(int(rng.integers(4, 9))):
+            row = {k: (rng.integers(0, 256, (4,) + s) if np.dtype(d) == np.uint8 else rng.normal(size=(4,) + s)).astype(d)
+                   for k, (s, d) in keys.items()}
+            rows.append((row, np.ones(4, np.int32)))
+            done = (rng.random(4) < 0.4).astype(np.int32)
+            if done.any():
+                rows.append((row, done))
+        blob = card.pack_rows(rows[:16], off)
+        counts = np.zeros(8, np.int64)
+        counts[off:off + 4] = sum(m for _, m in rows[:16])
+        for ring in (card, cpu):
+            ring.append(blob.to(ring.device), off)
+            ring.note_append(counts, blob.numel())
+        torch.cuda.synchronize()
+        for k in keys:
+            assert torch.equal(card.state["storage"][k].cpu(), cpu.state["storage"][k]), (i, k)
+        assert torch.equal(card.state["pos"].cpu(), cpu.state["pos"]) and torch.equal(card.state["valid"].cpu(), cpu.state["valid"])
+    assert K.LAUNCHES["ragged_ring_scatter"] == before + 8 and (card.host_valid == 24).all()
+
+
+def test_torch_cuda_async_loop_launches_per_blob_and_step(cuda, tmp_path):
+    """A short ``run preset=dreamer_sebulba_atari_dummy`` on the card (full
+    width, B 4 x T 16, 2 actors x 4 envs): one scatter per committed blob,
+    ``gru_gates`` once per act step and test step and T + H per gradient step,
+    the two-hot kernels 3 per gradient step, nothing else."""
+    from sheeprl_tpu_torch import cli
+
+    K.reset_launches()
+    summary = cli.run(["preset=dreamer_sebulba_atari_dummy", "metric.log_level=0", "buffer.size=4096",
+                       "algo.learning_starts=64", "algo.total_steps=256", "algo.per_rank_batch_size=4",
+                       "algo.per_rank_sequence_length=16", "algo.replay_ratio=0.125", "checkpoint.save_last=false",
+                       f"log_root={tmp_path}"])
+    G = summary["gradient_steps"]
+    assert summary["device"].startswith("cuda") and G > 0 and summary["test_steps"] > 0 and summary["act_steps"] > 0
+    assert np.isfinite(np.asarray(summary["metrics"])).all()
+    assert K.LAUNCHES == {
+        "gru_gates": summary["act_steps"] + G * (16 + 15) + summary["test_steps"], "two_hot_symlog_loss": 0,
+        "two_hot_symlog_loss_lse": 3 * G, "two_hot_symlog_loss_lse_bwd": 3 * G,
+        "two_hot_symexp_decode": 3 * G, "gae": 0, "sumtree_sample": 0,
+        "ragged_ring_scatter": summary["replay"]["Replay/flushes"],
+    }
+
+
 def test_torch_cuda_eval_step_gru_gates_ln_matches_plain(cuda):
     """The evaluation and test-episode path's shape: one row, the
     (1, 1536) projection of DreamerV3-S's 512-wide GRU. The kernel against

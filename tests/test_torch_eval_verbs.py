@@ -158,6 +158,7 @@ def test_torch_eval_verbs_agents_lists_the_three_families():
     for name in ("dreamer_v3", "ppo", "sac"):
         assert rows[name] == {"name": name, "trainer": f"sheeprl_tpu_torch.algos.{name}.{name}",
                               "evaluation": True, "serving": True, "decoupled": False}
-    assert rows["dreamer_sebulba"]["trainer"] is None and rows["dreamer_sebulba"]["serving"]
+    assert rows["dreamer_sebulba"]["trainer"] == "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_sebulba"
+    assert rows["dreamer_sebulba"]["decoupled"] and rows["dreamer_sebulba"]["serving"]
     with pytest.raises(ValueError, match="no arguments"):
         cli.agents(["x=1"])

@@ -148,8 +148,9 @@ def test_torch_ppo_loop_run_dispatches_on_the_algorithm(monkeypatch):
     for name, module in (("ppo_anakin", anakin), ("ppo_anakin_population", population)):
         monkeypatch.setattr(module, "main", lambda cfg, device: {"algo": cfg.algo.name, "device": str(device)})
         assert cli.run([f"preset={name}", "fabric.accelerator=cpu"]) == {"algo": name, "device": "cpu"}
-    with pytest.raises(NotImplementedError, match="dreamer_sebulba"):  # ppo_sebulba trains now
-        cli.run(["preset=ppo", "fabric.accelerator=cpu", "algo.name=dreamer_sebulba"])
+    # every JAX trainer is ported: an unregistered name raises JAX's error
+    with pytest.raises(RuntimeError, match="Given the algorithm named 'no_such_algo', no module has been found"):
+        cli.run(["preset=ppo", "fabric.accelerator=cpu", "algo.name=no_such_algo"])
 
 
 def test_torch_ppo_loop_needs_a_card_unless_asked_for_the_cpu(monkeypatch):

@@ -143,5 +143,5 @@ def test_torch_rssm_v1_loop_is_registered():
     rows = {r["name"]: r for r in cli.agents()}
     for name in ("dreamer_v1", "p2e_dv1_exploration", "p2e_dv1_finetuning"):
         assert rows[name]["trainer"] and rows[name]["evaluation"] and not rows[name]["serving"]
-    # 15 after slice 16, 17 with the two Anakin trainers, 21 with the four async topologies
-    assert sum(1 for r in rows.values() if r["trainer"]) == 21
+    # every trainer of the JAX package: the Dreamer and P2E families, PPO, SAC, Anakin and the async ones
+    assert sum(1 for r in rows.values() if r["trainer"]) == 22
