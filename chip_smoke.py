@@ -337,10 +337,23 @@ result line):
    governor, the staleness guard, finite losses, the actors' streams; a
    resume from the latest save restoring the ring, heads, generator and
    ``Ratio`` bit for bit; ``evaluation``, one served session, one dispatch
-   alone and an act step profiled.
+   alone and an act step profiled;
+60. hybrid burst on the card: one DreamerV3-S burst at the hybrid player's
+   spec (16 grants, the 19-row bucket) against the CPU's from the same state
+   and draws; the blob appended bit-equal to the plain scatter; the host
+   snapshot's bf16 pull bit-equal and untouched by a later burst;
+61. hybrid DreamerV3 run: ``run preset=dreamer_v3_100k_atari_dummy`` at its
+   default ``algo.hybrid_player.enabled=auto`` (the host player on the CPU,
+   bursts on the trainer thread), exact launch counts, a resume onto the
+   ring; act-step, burst and snapshot timings;
+62. hybrid SAC: one burst against the CPU's, ``run preset=sac`` at ``auto``
+   (bursts of 256 grants), the exact grant accounting, a resume, beside a
+   coupled run of the same length;
+63. ``metric.profiler``: a profiled PPO run's trace holds ``gae``'s kernel
+   events; its launch counts equal the plain run's.
 
 Phases 1-3, 11, 14 and 21 run first, in this process alone, so that the
-kernels are timed on an idle card. Phases 4-10, 12, 13 and 15-59 then run
+kernels are timed on an idle card. Phases 4-10, 12, 13 and 15-63 then run
 in five worker processes at once on the same card (``LANES``; each worker
 is this script with ``--lane NAME --out FILE``), each a chain of phases in
 the order above; path timings taken there share the card and the CPU's
@@ -1876,6 +1889,7 @@ def run_phase(workdir: str) -> dict:
     t0 = time.perf_counter()
     summary = cli.run([
         f"preset={RUN_PRESET}",
+        "algo.hybrid_player.enabled=false",  # the coupled topology, as JAX's coupled benchmark exps set it
         f"algo.learning_starts={RUN_LEARNING_STARTS}",
         f"algo.total_steps={total}",
         "checkpoint.save_last=true",
@@ -4357,7 +4371,8 @@ def _memmap_run(root: str, memmap: bool, *extra) -> dict:
     timer.reset()
     dv3.EnvIndependentReplayBuffer = _Watching
     try:
-        summary = cli.run([f"preset={RUN_PRESET}", f"algo.learning_starts={MEMMAP_LEARNING_STARTS}",
+        summary = cli.run([f"preset={RUN_PRESET}", "algo.hybrid_player.enabled=false",
+                           f"algo.learning_starts={MEMMAP_LEARNING_STARTS}",
                            f"algo.total_steps={total}", "checkpoint.every=0", "checkpoint.save_last=true",
                            "metric.log_level=0", "metric.disable_timer=false", "algo.run_test=false",
                            f"buffer.memmap={memmap}", f"log_root={root}", *extra])
@@ -5530,7 +5545,8 @@ def _continuous_run(workdir: str, extra, iters: int) -> tuple:
     starts = int(cfg.algo.learning_starts)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    summary = cli.run([f"preset={CONTINUOUS_PRESET}", f"algo.total_steps={starts + n_envs * (iters - 1)}",
+    summary = cli.run([f"preset={CONTINUOUS_PRESET}", "algo.hybrid_player.enabled=false",
+                       f"algo.total_steps={starts + n_envs * (iters - 1)}",
                        "checkpoint.every=0", "checkpoint.save_last=true", "metric.log_level=0",
                        f"log_root={workdir}"] + list(extra))
     return summary, dict(kernels.LAUNCHES), time.perf_counter() - t0
@@ -5922,7 +5938,8 @@ def sac_next_obs_phase(workdir: str) -> dict:
     observation, every loss finite, no kernel launched."""
     kernels.reset_launches()
     t0 = time.perf_counter()
-    summary = cli.run(["preset=sac", "buffer.sample_next_obs=true", f"algo.total_steps={SAC_NEXT_OBS_STEPS}",
+    summary = cli.run(["preset=sac", "algo.hybrid_player.enabled=false", "buffer.sample_next_obs=true",
+                       f"algo.total_steps={SAC_NEXT_OBS_STEPS}",
                        "checkpoint.every=0", "checkpoint.save_last=true", "metric.log_level=0", f"log_root={workdir}"])
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -6283,9 +6300,10 @@ def dry_run_phase(workdir: str) -> dict:
     from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration  # noqa: F401 - the TRAINERS entry
 
     seq1 = ["algo.per_rank_sequence_length=1"]
+    coupled = ["algo.hybrid_player.enabled=false"]  # the coupled topology, as JAX's coupled exps set it
     families = {"ppo": (PPO_PRESET, [], 4 * 128), "a2c": ("a2c", [], 4 * 5),
-                "ppo_recurrent": ("ppo_recurrent", [], 16 * 512), "dreamer_v3": (RUN_PRESET, seq1, 1),
-                "sac": ("sac", [], 4), "droq": ("droq", [], 4), "sac_ae": ("sac_ae", ["buffer.memmap=false"], 4),
+                "ppo_recurrent": ("ppo_recurrent", [], 16 * 512), "dreamer_v3": (RUN_PRESET, seq1 + coupled, 1),
+                "sac": ("sac", coupled, 4), "droq": ("droq", [], 4), "sac_ae": ("sac_ae", ["buffer.memmap=false"], 4),
                 "p2e_dv3_exploration": (EXPLORE_PRESET, seq1, 4)}
     common = ["dry_run=true", "algo.total_steps=1000000", "algo.learning_starts=500000", "checkpoint.every=0",
               "checkpoint.save_last=true", "metric.log_level=0", f"log_root={workdir}"]
@@ -8519,6 +8537,449 @@ def rssm_sebulba_run_phase(workdir: str) -> dict:
     return out
 
 
+# -- 60-63. the hybrid host player and the profiler ---------------------------------
+
+HYBRID_TRAIN_EVERY = 16  # the preset's algo.hybrid_player.train_every
+HYBRID_LEARNING_STARTS = 128
+HYBRID_TOTAL = 160  # grants 1 a step from 128: bursts of 16 at 143 and 159, finish's 1 at the end
+HYBRID_RESUME_TOTAL = 216  # the restored Ratio grants again past 195: a burst of 16 and finish's 5
+HYBRID_SAC_TOTAL = 1024  # 256 iterations of 4 envs: 3 bursts of 256 grants and finish's tail
+HYBRID_SAC_RESUME_TOTAL = 1792
+PROFILER_ITERATIONS = 3  # the trace's window: iterations 1 and 2
+
+
+def _params_rule(name: str, card: dict, cpu: dict, lr: float, steps: int, share: float) -> dict:
+    """Parameters after ``steps`` Adam steps on the two machines: every
+    element within 2 lr a step (Adam moves an element whose gradient is near
+    0 by up to lr either way) plus 1e-6, and ``share`` of them within 1e-6."""
+    diffs = torch.cat([(card[k] - cpu[k]).abs().reshape(-1) for k in cpu])
+    out = {"max_abs_err": float(diffs.max()), "share_within_1e-6": float((diffs <= 1e-6).float().mean())}
+    if out["max_abs_err"] > 2 * lr * steps + 1e-6 or out["share_within_1e-6"] < share:
+        raise AssertionError(f"{name} after the burst on the card differs from the CPU: {out}")
+    return out
+
+
+def hybrid_burst_card_phase(card: str = "cuda") -> dict:
+    """60. One DreamerV3-S hybrid burst (full width, B 4 x T 16, H 15; the
+    harness's spec on 1 env at train_every 16: grad_chunk 16 and the 19-row
+    bucket) on the card, TF32 off, from seeded weights, a seeded ring and
+    injected draws: 18 staged rows appended by one ``ragged_ring_scatter_keys``
+    launch, bit-equal to the plain scatter on the CPU, then the 16 granted
+    steps. Each step is held against the CPU from the card's own state just
+    before it, on the card's own gradients: the CPU's Adam (one twin per
+    optimizer, loaded with the card's parameters and moments) takes the card's
+    gradients, and the card's parameters after the step agree with it by the
+    resident dispatch's rule, 99.9 % within 1e-6 and every element within
+    2 lr + 1e-6 (Adam moves an element with a near-zero gradient by up to lr
+    either way). The first step's gradients, from the shared initial state,
+    within 1e-3 of the CPU's as whole vectors. Then the host snapshot: a pull after the burst's event equals the
+    card's parameters rounded to bf16, bit for bit, and a snapshot packed
+    before a second burst is unchanged by it. Reports an unheld burst's host
+    time and its span on the card, and the blocking pull's ms and bytes."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_sebulba import player_subset
+    from sheeprl_tpu_torch.data.ring import effective_stage_buckets, make_blob_layouts, pack_burst_blob
+    from sheeprl_tpu_torch.utils.burst import HostSnapshot, dreamer_ring_keys, dreamer_stage_sizes
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    T, B, C, E, G = 16, 4, 512, 1, HYBRID_TRAIN_EVERY
+    cfg = _run_cfg([f"algo.per_rank_sequence_length={T}", f"algo.per_rank_batch_size={B}"])
+    keys = dreamer_ring_keys(cfg.spaces.obs, ["rgb"], [], [18], with_is_first=True)
+    stage_max, stage_buckets = dreamer_stage_sizes(HYBRID_TRAIN_EVERY, E, C)
+    buckets = effective_stage_buckets(stage_buckets, stage_max)
+    spec = {"capacity": C, "n_envs": E, "grad_chunk": G, "seq_len": T, "batch_size": B, "ring_keys": keys,
+            "stage_buckets": buckets, "stage_max": stage_max}
+    bucket, rows = buckets[0], 18
+    rng = np.random.default_rng(60)
+    ring = _resident_ring(rng, keys, C, E)
+    fresh = _resident_ring(rng, keys, rows, E)
+    staged = {k: np.zeros((bucket,) + v.shape[1:], v.dtype) for k, v in fresh.items()}
+    for k, v in fresh.items():
+        staged[k][:rows] = v
+    mask = np.zeros((bucket, E), np.int32)
+    mask[:rows] = 1
+    layout = make_blob_layouts(keys, E, G, buckets)[bucket]
+    gen = torch.Generator().manual_seed(61)
+    draws = {"env": torch.zeros((G, B), dtype=torch.int64), "u": torch.rand((G, B), generator=gen),
+             "noise": [draw_noise(cfg, T, B, [18], gen, "cpu") for _ in range(G)]}
+    lrs = {"world": 1e-4, "actor": 8e-5, "critic": 8e-5}
+    twins = make_optimizers(cfg, *build_training_agent(cfg, "cpu")[:3])  # the CPU's Adams, fed the card's state
+
+    def on(dev, noise):
+        return {"posterior": noise["posterior"].to(dev), "imagined_prior": noise["imagined_prior"].to(dev),
+                "actions": [u.to(dev) for u in noise["actions"]]}
+
+    steps = {name: [] for name in lrs}  # per step: (max abs err, share within 1e-6) of the card's Adam step
+
+    def held(name, opt):
+        """The card's step of optimizer ``name`` against the CPU twin's on the
+        card's own gradients and pre-step state."""
+        def step(g):
+            twin = twins[name]
+            with torch.no_grad():
+                for t, p in zip(twin.params, opt.params):
+                    t.copy_(p.detach().cpu())
+            twin.load_state_dict(copy.deepcopy(opt.state_dict()))
+            twin.step([x.detach().cpu() for x in g])
+            out = opt_steps[name](g)
+            diffs = torch.cat([(p.detach().cpu() - t.detach()).abs().reshape(-1) for p, t in zip(opt.params, twin.params)])
+            steps[name].append((float(diffs.max()), float((diffs <= 1e-6).float().mean())))
+            return out
+        return step
+
+    results, opt_steps = {}, {}
+    for role, dev in (("ref", "cpu"), ("card", card)):
+        modules = build_training_agent(cfg, dev)
+        optimizers = make_optimizers(cfg, *modules[:3])
+        first_grads = {}
+        for name, opt in optimizers.items():  # the gradients of the first step, from the shared state
+            inner = held(name, opt) if role == "card" else opt.step
+            if role == "card":
+                opt_steps[name] = opt.step
+
+            def hooked(g, step=inner, name=name):
+                if name not in first_grads:
+                    first_grads[name] = torch.cat([x.detach().reshape(-1).cpu() for x in g])
+                return step(g)
+            opt.step = hooked
+        burst = make_train_step(*modules, optimizers, cfg, ring=spec)
+        rb = {k: torch.from_numpy(v.copy()).to(dev) for k, v in ring.items()}
+        granted = G if role == "card" else 1  # the CPU's reference: the append and the first step
+        values = {**staged, "__mask__": mask, "__pos__": np.array([300], np.int32),
+                  "__valid_n__": np.array([300], np.int32),
+                  "__validmask__": (np.arange(G) < granted).astype(np.float32)}
+        dev_draws = {"env": draws["env"].to(dev), "u": draws["u"].to(dev), "noise": [on(dev, n) for n in draws["noise"]]}
+        before = kernels.LAUNCHES["ragged_ring_scatter"]
+        t0 = time.perf_counter()
+        (moments, cum), rb, metrics = burst((init_moments(dev), 0), rb,
+                                            pack_burst_blob(layout, values, pin_memory=dev != "cpu"), None, dev_draws)
+        results[role] = {
+            "modules": modules, "optimizers": optimizers, "burst": burst, "rb": {k: v.cpu() for k, v in rb.items()},
+            "metrics": metrics.cpu(),
+            "grads": first_grads, "host_s": time.perf_counter() - t0, "cum": int(cum),
+            "launched": kernels.LAUNCHES["ragged_ring_scatter"] - before,
+        }
+    cpu, crd = results["ref"], results["card"]
+    if card == "cuda" and (crd["launched"] != 1 or cpu["launched"] != 0):
+        raise AssertionError(f"scatter launches: card {crd['launched']}, CPU {cpu['launched']}")
+    for k in keys:
+        if not torch.equal(crd["rb"][k], cpu["rb"][k]):
+            raise AssertionError(f"the ring's '{k}' after the burst's append differs from the plain scatter's")
+    if crd["cum"] != G or not torch.isfinite(crd["metrics"]).all():
+        raise AssertionError(f"the card's burst took {crd['cum']} steps, losses {crd['metrics'].tolist()}")
+    out = {"grad_chunk": G, "bucket": bucket, "cpu_first_step_s": cpu["host_s"], "held_burst_s": crd["host_s"],
+           "first_step_grad_rel_err": {}, "adam_on_card_gradients": {}}
+    for name in lrs:
+        a, b = crd["grads"][name], cpu["grads"][name]
+        rel = float((a - b).norm() / b.norm().clamp(min=1e-30))
+        out["first_step_grad_rel_err"][name] = rel
+        if rel > 1e-3:
+            raise AssertionError(f"the first step's {name} gradient differs between the card and the CPU: {rel}")
+        worst = {"max_abs_err": max(m for m, _ in steps[name]), "min_share_within_1e-6": min(sh for _, sh in steps[name]),
+                 "steps": len(steps[name])}
+        out["adam_on_card_gradients"][name] = worst
+        if worst["steps"] != G or worst["max_abs_err"] > 2 * lrs[name] + 1e-6 or worst["min_share_within_1e-6"] < 0.999:
+            raise AssertionError(f"the card's {name} Adam steps differ from the CPU's on the same gradients: {worst}")
+    if card == "cuda":  # a second burst, unheld, timed: its enqueue on the host, its span on the card (events)
+        for name, opt in crd["optimizers"].items():
+            opt.step = opt_steps[name]
+        again = {**staged, "__mask__": np.zeros_like(mask), "__pos__": np.array([300 + rows], np.int32),
+                 "__valid_n__": np.array([300 + rows], np.int32), "__validmask__": np.ones(G, np.float32)}
+        dev_draws = {"env": draws["env"].to(card), "u": draws["u"].to(card),
+                     "noise": [on(card, n) for n in draws["noise"]]}
+        rb = {k: v.to(card) for k, v in crd["rb"].items()}
+        blob = pack_burst_blob(layout, again, pin_memory=True)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        crd["burst"]((init_moments(card), G), rb, blob, None, dev_draws)
+        out["burst_host_s"] = time.perf_counter() - t0
+        end.record()
+        torch.cuda.synchronize()
+        out["burst_device_span_ms"] = start.elapsed_time(end)
+    # the snapshot of the player's subset, on the card after the burst
+    wm, actor = crd["modules"][0], crd["modules"][1]
+    card_sub = player_subset(wm, actor)
+    host_sub = copy.deepcopy(card_sub).to("cpu")
+    card_t = [*card_sub.parameters(), *card_sub.buffers()]
+    snap = HostSnapshot(card_t, [*host_sub.parameters(), *host_sub.buffers()], torch.bfloat16)
+    pulls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        snap.pull()
+        pulls.append(time.perf_counter() - t0)
+    if not all(torch.equal(h, c.detach().cpu().to(torch.bfloat16).float())
+               for h, c in zip([*host_sub.parameters(), *host_sub.buffers()], card_t)):
+        raise AssertionError("the snapshot's pull is not the card's parameters rounded to bf16")
+    before_second = [c.detach().cpu().clone() for c in card_t]
+    if not snap.refresh_async(version=1):
+        raise AssertionError("a refresh with no copy in flight was skipped")
+    one = {**staged, "__mask__": np.zeros_like(mask), "__pos__": np.array([300 + rows], np.int32),
+           "__valid_n__": np.array([300 + rows], np.int32), "__validmask__": np.eye(1, G, dtype=np.float32)[0]}
+    crd["burst"]((init_moments(card), G), {k: v.to(card) for k, v in crd["rb"].items()},
+                 pack_burst_blob(layout, one, pin_memory=card != "cpu"), None,
+                 {"env": draws["env"][:1].to(card), "u": draws["u"][:1].to(card), "noise": [on(card, draws["noise"][0])]})
+    deadline = time.monotonic() + 60
+    while not snap.poll():
+        if time.monotonic() > deadline:
+            raise AssertionError("the snapshot's copy never landed")
+        time.sleep(0.001)
+    host_after = [*host_sub.parameters(), *host_sub.buffers()]
+    if not all(torch.equal(h, b.to(torch.bfloat16).float()) for h, b in zip(host_after, before_second)):
+        raise AssertionError("a snapshot packed before a burst changed with the burst's in-place updates")
+    if all(torch.equal(b, c.detach().cpu()) for b, c in zip(before_second, card_t)):
+        raise AssertionError("the second burst moved no player parameter")
+    out["snapshot"] = {"bytes": snap.nbytes, "pull_ms": float(np.median(pulls) * 1e3),
+                       "pull_ms_all": [p * 1e3 for p in pulls], "bf16_bit_equal": True, "isolated": True}
+    log("hybrid burst (card vs CPU): " + json.dumps(out))
+    return out
+
+
+def _act_ms(summary: dict) -> dict:
+    inside = [s * 1e3 for s, busy in summary["act_host_s"] if busy]
+    outside = [s * 1e3 for s, busy in summary["act_host_s"] if not busy]
+    med = lambda v: float(np.median(v)) if v else None  # noqa: E731
+    return {"inside_burst_ms": med(inside), "outside_burst_ms": med(outside), "inside_n": len(inside),
+            "outside_n": len(outside)}
+
+
+def _hybrid_launch_check(summary: dict, launches: dict, T: int, H: int) -> dict:
+    """A hybrid DreamerV3 run's exact counts: the trainer's steps launch the
+    kernels, one scatter a flush, the card's test episode one GRU step each;
+    the host player, on the CPU, launches none."""
+    G = summary["gradient_steps"]
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want.update({
+        "two_hot_symlog_loss_lse": 3 * G,
+        "two_hot_symlog_loss_lse_bwd": 3 * G,
+        "two_hot_symexp_decode": 3 * G,
+        "gru_gates": G * (T + H) + (summary["test_steps"] or 0),
+        "ragged_ring_scatter": summary["replay"]["Replay/flushes"],
+    })
+    if launches != want:
+        raise AssertionError(f"hybrid launches {launches} != {want} for {G} gradient steps")
+    return want
+
+
+def hybrid_rssm_run_phase(workdir: str, card: str = "cuda") -> dict:
+    """61. ``run preset=dreamer_v3_100k_atari_dummy`` at its default
+    ``algo.hybrid_player.enabled=auto``, which is on on the card: the full
+    recipe (B 16 x T 64, H 15), ``learning_starts`` 128, 160 steps: the host
+    player on the CPU, bursts of 16 grants on the trainer thread (at 143 and
+    159, finish's 1). The exact launch counts; every loss finite; the
+    checkpoint's host buffer patched; a resume mirrors it into the ring and
+    trains a burst. Reports env steps/s, the bursts' host seconds, the act
+    step's host ms inside and outside a burst and the snapshot's age. (On
+    the CPU, a rehearsal, ``auto`` is off: it is turned on.)"""
+    extra = [] if card == "cuda" else ["fabric.accelerator=cpu", "algo.hybrid_player.enabled=true"]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    s = cli.run([f"preset={RUN_PRESET}", f"algo.learning_starts={HYBRID_LEARNING_STARTS}",
+                 f"algo.total_steps={HYBRID_TOTAL}", "checkpoint.every=0", "checkpoint.save_last=true",
+                 "metric.log_level=0", f"log_root={workdir}"] + extra)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    cfg = load_config(find_run_config(s["checkpoint"]))
+    T, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.horizon)
+    if not s["hybrid"] or s["resident"] or s["gradient_steps"] != HYBRID_TOTAL - HYBRID_LEARNING_STARTS + 1:
+        raise AssertionError(f"hybrid run: hybrid={s['hybrid']}, {s['gradient_steps']} gradient steps")
+    if s["bursts"] != 3 or s["grad_chunk"] != HYBRID_TRAIN_EVERY or not np.isfinite(np.asarray(s["metrics"])).all():
+        raise AssertionError(f"hybrid run: {s['bursts']} bursts of {s['grad_chunk']}, losses {s['metrics']}")
+    want = _hybrid_launch_check(s, launches, T, H) if card == "cuda" else None
+    env = load_checkpoint(s["checkpoint"])["rb"]["envs"][0]
+    if env["pos"] != HYBRID_TOTAL or env["buffer"]["truncated"][HYBRID_TOTAL - 1].item() != 1:
+        raise AssertionError("the hybrid run's checkpoint holds no patched host buffer")
+    kernels.reset_launches()
+    r = cli.run([f"checkpoint.resume_from={s['checkpoint']}", f"algo.total_steps={HYBRID_RESUME_TOTAL}",
+                 "algo.learning_starts=2", "algo.run_test=false", "metric.log_level=0", f"log_root={workdir}"] + extra)
+    resume_launches = dict(kernels.LAUNCHES)
+    if not r["hybrid"] or r["ring_restored"] != [[HYBRID_TOTAL], [HYBRID_TOTAL]] or r["bursts"] < 1:
+        raise AssertionError(f"hybrid resume: ring {r['ring_restored']}, {r['bursts']} bursts")
+    if card == "cuda":
+        _hybrid_launch_check(r, resume_launches, T, H)
+    # the coupled loop on the same steps, grants and card, for the comparison
+    t0 = time.perf_counter()
+    coupled = cli.run([f"preset={RUN_PRESET}", "algo.hybrid_player.enabled=false",
+                       f"algo.learning_starts={HYBRID_LEARNING_STARTS}", f"algo.total_steps={HYBRID_TOTAL}",
+                       "checkpoint.every=0", "checkpoint.save_last=false", "metric.log_level=0", "algo.run_test=false",
+                       f"log_root={os.path.join(workdir, 'coupled')}"] + extra[:1])
+    if coupled["hybrid"] or coupled["gradient_steps"] != s["gradient_steps"]:
+        raise AssertionError(f"the coupled run took {coupled['gradient_steps']} gradient steps")
+    out = {
+        "coupled": {"env_steps_per_s": coupled["env_steps_per_s"], "loop_steps_per_s": coupled["loop_steps_per_s"],
+                    "wall_s": time.perf_counter() - t0,
+                    "train_host_s": float(sum(t for t, _ in coupled["train_host_s"]))},
+        "launches": launches, "want": want, "gradient_steps": s["gradient_steps"], "bursts": s["bursts"],
+        "player_steps": s["player_steps"], "test_steps": s["test_steps"], "wall_s": wall,
+        "env_steps_per_s": s["env_steps_per_s"], "loop_steps_per_s": s["loop_steps_per_s"],
+        "trained_burst_host_s": [t for t, trained in s["burst_host_s"] if trained],
+        "burst_host_s": s["burst_host_s"], "flush_host_ms": float(np.median(s["flush_host_s"]) * 1e3),
+        "act": _act_ms(s), "snapshot_age": s["snapshot_age"], "snapshot": s["snapshot"], "losses_last": s["metrics"][-1],
+        "resume": {"launches": resume_launches, "gradient_steps": r["gradient_steps"], "bursts": r["bursts"],
+                   "ring_restored": r["ring_restored"], "test_steps": 0},
+    }
+    log("hybrid DreamerV3 run: " + json.dumps({k: v for k, v in out.items() if k not in ("launches", "want")}))
+    return out
+
+
+def _sac_burst_accounting(cfg, iters: int) -> tuple:
+    """JAX's SAC burst accounting for a fresh run of ``iters`` iterations:
+    ``Ratio``'s grants from ``learning_starts``, a flush whenever a full
+    chunk is queued or the staging rows are about to overflow, the tail at
+    the end. Returns ``(grad_chunk, grants, trained bursts)``."""
+    from sheeprl_tpu_torch.utils.utils import Ratio
+
+    n_envs, train_every = int(cfg.env.num_envs), 64
+    chunk = round(float(cfg.algo.replay_ratio) * n_envs * train_every)
+    starts = int(cfg.algo.learning_starts) // n_envs
+    stage_max = min(starts + 2 * train_every + 1, int(cfg.buffer.size) // n_envs)
+    ratio, prefill = Ratio(float(cfg.algo.replay_ratio)), starts - int(starts > 0)
+    staged = backlog = grants = trained = 0
+    for it in range(1, iters + 2):
+        if it <= iters:
+            staged += 1
+            if it >= starts:
+                backlog += ratio(it * n_envs - prefill + n_envs)
+        while (it > iters and (staged or backlog)) or backlog >= chunk or staged >= stage_max - 1:
+            take = min(chunk, backlog)
+            staged, backlog, grants, trained = 0, backlog - take, grants + take, trained + int(take > 0)
+            if it <= iters and backlog < chunk:
+                break
+    return chunk, grants, trained
+
+
+def hybrid_sac_run_phase(workdir: str, card: str = "cuda") -> dict:
+    """62. SAC's hybrid path. One burst (full width, the preset's chunk of
+    256 on 4 envs, 4 granted) on the card against the CPU from the same
+    weights, ring and injected draws, TF32 off: the 64 staged rows appended
+    with wrap-around bit-equal, the parameters by the train-step rule over 4
+    steps. Then ``run preset=sac`` at ``auto`` on the card: bursts of 256
+    grants on the trainer thread, the exact grant accounting, no kernel
+    (``sumtree_sample`` 0: the burst samples uniformly), finite losses, a
+    resume; env steps/s and the bursts' host seconds beside a coupled
+    ``preset=sac`` run of the same length in the same call."""
+    from sheeprl_tpu_torch.algos.sac.sac import make_burst_train_step
+    from sheeprl_tpu_torch.data.ring import pack_burst_blob
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = preset("sac")
+    C, E, G, granted, rows = 2048, 4, 256, 4, 64
+    dims = {"observations": 3, "next_observations": 3, "actions": 1, "rewards": 1, "terminated": 1}
+    rng = np.random.default_rng(62)
+    ring = {k: rng.normal(size=(C, E, d)).astype(np.float32) for k, d in dims.items()}
+    ring["terminated"] = (rng.random((C, E, 1)) < 0.01).astype(np.float32)
+    stage_max = 2 * 64 + 26
+    values = {k: np.zeros((stage_max, E, d), np.float32) for k, d in dims.items()}
+    for k, d in dims.items():
+        values[k][:rows] = rng.normal(size=(rows, E, d))
+    valid = np.zeros(G, np.float32)
+    valid[:granted] = 1.0
+    values.update(__pos__=np.asarray(C - 20, np.int32), __count__=np.asarray(rows, np.int32),
+                  __valid_n__=np.asarray(C, np.int32), __flags__=valid.copy(), __valid__=valid)
+    gen = torch.Generator().manual_seed(63)
+    B = int(cfg.algo.per_rank_batch_size)
+    draws = {"pos": torch.randint(0, C, (granted, B), generator=gen), "env": torch.randint(0, E, (granted, B), generator=gen),
+             "next": torch.randn((granted, B, 1), generator=gen), "actor": torch.randn((granted, B, 1), generator=gen)}
+    results = {}
+    for dev in ("cpu", card):
+        agent, opts = _sac_parts(cfg, dev)
+        burst, layout = make_burst_train_step(agent, opts, cfg, C, E, stage_max, G, dims)
+        rb = {k: torch.from_numpy(v.copy()).to(dev) for k, v in ring.items()}
+        t0 = time.perf_counter()
+        losses = burst(rb, pack_burst_blob(layout, values, pin_memory=dev != "cpu"), None,
+                       {k: v.to(dev) for k, v in draws.items()})
+        losses = losses.cpu()
+        results[dev] = {"rb": {k: v.cpu() for k, v in rb.items()}, "losses": losses, "s": time.perf_counter() - t0,
+                        "params": {k: v.detach().cpu() for k, v in agent.state_dict().items()}}
+    for k in dims:
+        if not torch.equal(results[card]["rb"][k], results["cpu"]["rb"][k]):
+            raise AssertionError(f"the SAC burst's append of '{k}' differs between the card and the CPU")
+    torch.testing.assert_close(results[card]["losses"], results["cpu"]["losses"], rtol=1e-4, atol=1e-5)
+    lr = max(float(cfg.algo.actor.optimizer.lr), float(cfg.algo.critic.optimizer.lr), float(cfg.algo.alpha.optimizer.lr))
+    step_check = _params_rule("the SAC agent", results[card]["params"], results["cpu"]["params"], lr, granted, 0.99)
+
+    extra = [] if card == "cuda" else ["fabric.accelerator=cpu"]
+    runs = {}
+    for name, hybrid in (("hybrid", "auto" if card == "cuda" else "true"), ("coupled", "false")):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        s = cli.run(["preset=sac", f"algo.hybrid_player.enabled={hybrid}", f"algo.total_steps={HYBRID_SAC_TOTAL}",
+                     "checkpoint.every=0", "checkpoint.save_last=true", "metric.log_level=0", "algo.run_test=false",
+                     f"log_root={os.path.join(workdir, name)}"] + extra)
+        s["wall_s"], s["launches"] = time.perf_counter() - t0, dict(kernels.LAUNCHES)
+        runs[name] = s
+    s, coupled = runs["hybrid"], runs["coupled"]
+    chunk, grants, trained = _sac_burst_accounting(load_config(find_run_config(s["checkpoint"])),
+                                                   HYBRID_SAC_TOTAL // E)
+    if not s["burst"] or s["grad_chunk"] != chunk or s["gradient_steps"] != grants or s["bursts"] != trained:
+        raise AssertionError(f"hybrid SAC: burst={s['burst']} chunk {s['grad_chunk']} (want {chunk}), "
+                             f"{s['gradient_steps']} steps (want {grants}), {s['bursts']} bursts (want {trained})")
+    if coupled["burst"] or coupled["gradient_steps"] != grants or not np.isfinite(np.asarray(s["losses"])).all():
+        raise AssertionError(f"coupled SAC took {coupled['gradient_steps']} steps; hybrid losses {s['losses']}")
+    if card == "cuda":
+        _zero_launch_check("the hybrid SAC run", s["launches"])
+    kernels.reset_launches()
+    r = cli.run([f"checkpoint.resume_from={s['checkpoint']}", f"algo.total_steps={HYBRID_SAC_RESUME_TOTAL}",
+                 "metric.log_level=0", f"log_root={os.path.join(workdir, 'hybrid')}"] + extra)
+    resume_launches = dict(kernels.LAUNCHES)
+    if not r["burst"] or r["gradient_steps"] <= 0 or not np.isfinite(np.asarray(r["losses"])).all():
+        raise AssertionError(f"hybrid SAC resume: burst={r['burst']}, {r['gradient_steps']} gradient steps")
+    if card == "cuda":
+        _zero_launch_check("the hybrid SAC resume", resume_launches)
+    out = {
+        "burst_vs_cpu": {"cpu_s": results["cpu"]["s"], "card_s": results[card]["s"], "params": step_check,
+                         "ring_equal": True},
+        "launches": s["launches"], "grad_chunk": chunk, "gradient_steps": grants, "bursts": trained,
+        "wall_steps_per_s": HYBRID_SAC_TOTAL / s["wall_s"], "wall_s": s["wall_s"],
+        "trained_burst_host_s": [t for t, trained in s["burst_host_s"] if trained],
+        "act": _act_ms(s), "snapshot": s["snapshot"],
+        "env_and_submit_steps_per_s": s["env_steps_per_s"],
+        "coupled": {"env_steps_per_s": coupled["env_steps_per_s"], "wall_s": coupled["wall_s"],
+                    "wall_steps_per_s": HYBRID_SAC_TOTAL / coupled["wall_s"],
+                    "train_s": float(np.sum(coupled["train_s"])), "gradient_steps": coupled["gradient_steps"]},
+        "resume": {"launches": resume_launches, "gradient_steps": r["gradient_steps"], "bursts": r["bursts"]},
+    }
+    log("hybrid SAC: " + json.dumps({k: v for k, v in out.items() if k not in ("launches",)}))
+    return out
+
+
+def profiler_card_phase(workdir: str, card: str = "cuda") -> dict:
+    """63. ``metric.profiler``: a PPO run of PROFILER_ITERATIONS iterations
+    with ``metric.profiler.enabled=true start_iter=1 num_iters=2`` writes a
+    Chrome trace under ``<log_dir>/profiler`` that holds the card's kernel
+    events, ``gae``'s once an iteration of the window among them; its launch
+    counts equal the same run's without the profiler."""
+    extra = [] if card == "cuda" else ["fabric.accelerator=cpu"]
+    common = [f"preset={PPO_PRESET}", f"algo.total_steps={PROFILER_ITERATIONS * 512}", "metric.log_level=0",
+              "algo.run_test=false", "checkpoint.every=0", "checkpoint.save_last=false"] + extra
+    out = {}
+    for name, flags in (("profiled", ["metric.profiler.enabled=true", "metric.profiler.start_iter=1",
+                                      "metric.profiler.num_iters=2"]), ("plain", [])):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        s = cli.run(common + flags + [f"log_root={os.path.join(workdir, name)}"])
+        out[name] = {"launches": dict(kernels.LAUNCHES), "wall_s": time.perf_counter() - t0, "trace": s["profiler"]}
+    if out["profiled"]["launches"] != out["plain"]["launches"] or out["plain"]["trace"] is not None:
+        raise AssertionError(f"profiled launches {out['profiled']['launches']} != {out['plain']['launches']}")
+    trace = out["profiled"]["trace"]
+    if not trace or not trace.endswith("trace_1_3.json"):
+        raise AssertionError(f"the profiled run wrote no trace of iterations 1-2: {trace}")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e for e in events if e.get("cat") == "kernel"]
+    gae = [e for e in device if "gae" in str(e.get("name", ""))]
+    out["trace_bytes"] = os.path.getsize(trace)
+    out["kernel_events"], out["gae_events"] = len(device), len(gae)
+    out["gae_kernel_us"] = [float(e.get("dur", 0.0)) for e in gae]
+    if card == "cuda" and (len(gae) != 2 or out["profiled"]["launches"]["gae"] != PROFILER_ITERATIONS):
+        raise AssertionError(f"the trace holds {len(gae)} gae kernel events of {len(device)} (want 2)")
+    out["launches"] = out["profiled"]["launches"]
+    log("profiler: " + json.dumps({k: v for k, v in out.items() if k not in ("profiled", "plain", "launches")}))
+    return out
+
+
+
 # -- lanes -------------------------------------------------------------------
 #
 # After the kernel phases (1-3, 11, 14, 21), which the main process runs
@@ -8668,6 +9129,15 @@ def _lane_async_sac(timed) -> dict:
                 "sac_decoupled_run": timed("sac_decoupled_run", sac_decoupled_run_phase, workdir)}
 
 
+def _lane_hybrid(timed) -> dict:
+    r = {"hybrid_burst_card": timed("hybrid_burst_card", hybrid_burst_card_phase)}
+    with tempfile.TemporaryDirectory() as workdir:
+        r["hybrid_rssm_run"] = timed("hybrid_rssm_run", hybrid_rssm_run_phase, workdir)
+        r["hybrid_sac_run"] = timed("hybrid_sac_run", hybrid_sac_run_phase, workdir)
+        r["profiler_card"] = timed("profiler_card", profiler_card_phase, workdir)
+    return r
+
+
 def _lane_sebulba_rssm(timed) -> dict:
     r = {"rssm_sebulba_card": timed("rssm_sebulba_card", rssm_sebulba_card_phase)}
     with tempfile.TemporaryDirectory() as workdir:
@@ -8679,18 +9149,19 @@ def _lane_sebulba_rssm(timed) -> dict:
 #: run's seconds by phase (the SAC run alone is ~200 s); the async PPO runs
 #: in the Anakin lane, the async SAC runs in the SAC lane, the pipeline's
 #: card checks (a ~25 s rebuild of gae among them) and the Anakin population
-#: in the PPO/DreamerV3 lane; dreamer_sebulba (58-59) in a fifth lane, as
-#: every other lane was near ~360 s
+#: in the PPO/DreamerV3 lane; dreamer_sebulba (58-59), then the hybrid player
+#: and the profiler (60-63), in a fifth lane, as every other lane was near ~360 s
 LANES = {
     "sac": (_lane_sac, _lane_classic, _lane_bf16, _lane_async_sac),
     "anakin": (_lane_anakin, _lane_onpolicy, _lane_async_ppo),
     "ppo_rssm": (_lane_ppo, _lane_rssm, _lane_resident, _lane_explore, _lane_pipeline, _lane_population),
     "families": (_lane_runtime, _lane_continuous, _lane_offpolicy, _lane_v2, _lane_v1),
-    "sebulba_rssm": (_lane_sebulba_rssm,),
+    "sebulba_rssm": (_lane_sebulba_rssm, _lane_hybrid),
 }
 #: torch threads of a lane: the first four split the host's cores as they did
 #: alone; the dreamer_sebulba lane's learner and actors mostly launch kernels
-#: under the GIL, so it takes one
+#: under the GIL, so it takes one, and runs the hybrid player's phases (60-63)
+#: after them: a sixth lane of their own slowed the others by 12-26 % on 8 cores
 LANE_THREADS = {"sebulba_rssm": 1}
 _LANE_TAG = ""
 
@@ -8851,6 +9322,9 @@ def main() -> int:
              "dreamer_sebulba_resume": R["rssm_sebulba_run"]["resume"],
              "dreamer_sebulba_evaluation": R["rssm_sebulba_run"]["evaluation"],
              "dreamer_sebulba_serve": R["rssm_sebulba_run"]["serve"]}
+    hybrid, hybrid_sac, profiled = R["hybrid_rssm_run"], R["hybrid_sac_run"], R["profiler_card"]
+    paths.update({"hybrid_rssm": hybrid, "hybrid_rssm_resume": hybrid["resume"], "hybrid_sac": hybrid_sac,
+                  "hybrid_sac_resume": hybrid_sac["resume"], "profiler_ppo": profiled})
     rows = [gru] + two_hot + [gae_row, sumtree_row, scatter_row]
     for row in rows:
         row["launches_by_path"] = {name: path["launches"][row["name"]] for name, path in paths.items()}
@@ -8866,6 +9340,7 @@ def main() -> int:
                                    v2_test=v2_run["test_steps"], p2e_dv2_exploration_test=p2e_dv2["exploration"]["test_steps"],
                                    p2e_dv2_finetuning_test=p2e_dv2["finetuning"]["test_steps"],
                                    dreamer_sebulba_test=R["rssm_sebulba_run"]["test_steps"],
+                                   hybrid_rssm_test=hybrid["test_steps"],
                                    dreamer_sebulba_act_steps=R["rssm_sebulba_run"]["act_steps"],
                                    dreamer_sebulba_resume_act_steps=R["rssm_sebulba_run"]["resume"]["act_steps"])
     gru["eval_shape"]["floor_ms"] = floor

@@ -50,6 +50,8 @@ steps: ``Rewards/rew_avg``, ``Game/ep_len_avg``, the ``Loss/*`` and
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import math
 import os
 import time
@@ -99,12 +101,13 @@ from sheeprl_tpu_torch.replay import (
     resolve_device_resident,
     restore_host_env_buffer,
 )
-from sheeprl_tpu_torch.utils.burst import dreamer_ring_keys
+from sheeprl_tpu_torch.utils.burst import HybridPlayerHarness, dreamer_ring_keys
 from sheeprl_tpu_torch.utils.checkpoint import write_run_config
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric, build_aggregator
+from sheeprl_tpu_torch.utils.profiler import TraceProfiler
 from sheeprl_tpu_torch.utils.timer import log_timers, timer
-from sheeprl_tpu_torch.utils.utils import Ratio
+from sheeprl_tpu_torch.utils.utils import Ratio, resolve_hybrid_player
 
 __all__ = ["METRIC_NAMES", "Player", "draw_noise", "make_optimizers", "make_train_step", "main"]
 
@@ -602,18 +605,28 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     action_rng = np.random.default_rng(seed)
     player = Player(world_model, actor, num_envs, generator)
 
+    # the hybrid host player (JAX's default off the CPU): the policy on the
+    # host CPU from a snapshot, the ring and the bursts on the card; it is
+    # already device-resident and asynchronous, so it takes precedence over
+    # the resident tier
+    burst = resolve_hybrid_player(cfg.algo.get("hybrid_player"), device)
     # the device-resident sequence ring: pixels stay uint8 on the card,
     # windows are drawn there, one dispatch per env step
     ring_keys = dreamer_ring_keys(cfg.spaces.obs, cnn_keys, mlp_keys, actions_dim, with_is_first=True)
-    resident, reason = resolve_device_resident(
-        cfg.buffer.get("device_resident", False), ring_keys, buffer_size, num_envs,
-        float(cfg.buffer.get("hbm_budget_gb", 4.0)), sequence={"seq_len": seq_len, "batch_size": batch_size},
-    )
-    if log_level > 0 and cfg.buffer.get("device_resident", False):
-        print(f"Replay: device_resident={resident} ({reason})", flush=True)
+    resident = False
+    if not burst:
+        resident, reason = resolve_device_resident(
+            cfg.buffer.get("device_resident", False), ring_keys, buffer_size, num_envs,
+            float(cfg.buffer.get("hbm_budget_gb", 4.0)), sequence={"seq_len": seq_len, "batch_size": batch_size},
+        )
+        if log_level > 0 and cfg.buffer.get("device_resident", False):
+            print(f"Replay: device_resident={resident} ({reason})", flush=True)
+    # the host buffer: the storage tier, or with the hybrid player the
+    # checkpoint's copy of the ring (kept only with buffer.checkpoint)
+    host_mirror = (not burst and not resident) or (burst and checkpoint_rb)
     # the finite guard and its sentinel on the host tier only, as in the JAX package
     sentinel_cfg = (cfg.get("fault") or {}).get("sentinel") or {}
-    guard = bool(sentinel_cfg.get("enabled", True)) and not resident
+    guard = bool(sentinel_cfg.get("enabled", True)) and not resident and not burst
     sentinel = DivergenceSentinel(sentinel_cfg)
     # the saved replay, told apart by its content: a ring snapshot
     # (``DeviceReplayState``) or the host buffer's state
@@ -626,7 +639,31 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         rb.load_state_dict(saved_rb)
         restored = rb  # resumed on the ring: the host buffer is mirrored into it
     driver: Optional[SequenceRingDriver] = None
-    if resident:
+    hp: Optional[HybridPlayerHarness] = None
+    act_player = player
+    if burst:
+        from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_sebulba import player_subset
+
+        card_agent = player_subset(world_model, actor)
+        host_agent = copy.deepcopy(card_agent).to("cpu")  # the host player's modules
+        hp = HybridPlayerHarness(
+            cfg, ring_keys=ring_keys, capacity=buffer_size, seq_len=seq_len, batch_size=batch_size,
+            policy_steps_per_iter=num_envs,
+            make_burst_fn=lambda ring: make_train_step(
+                world_model, actor, critic, target_critic, optimizers, cfg, ring=ring
+            ),
+            player_card=[*card_agent.parameters(), *card_agent.buffers()],
+            player_host=[*host_agent.parameters(), *host_agent.buffers()],
+            carry=(moments_state, torch.zeros((), dtype=torch.int64, device=device)), device=device,
+            train_modules=(world_model, actor, critic, target_critic), optimizers=list(optimizers.values()),
+            rb=rb if saved_rb is not None else None, aggregator=aggregator,
+        )
+        if state is not None and state.get("host_rng") is not None:
+            hp.host_generator.set_state(state["host_rng"])
+        if state is not None and state.get("rng") is not None:
+            hp.generator.set_state(state["rng"])
+        act_player = Player(host_agent.world_model, host_agent.actor, num_envs, hp.host_generator)
+    elif resident:
         driver = SequenceRingDriver(
             ring_keys, buffer_size, num_envs, seq_len, batch_size,
             grad_chunk=max(1, int(math.ceil(float(cfg.algo.replay_ratio) * num_envs))),
@@ -645,11 +682,14 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     for k in ("rewards", "truncated", "terminated"):
         step_data[k] = np.zeros((1, num_envs, 1), dtype=np.float32)
     step_data["is_first"] = np.ones_like(step_data["terminated"])
-    player.init_states()
+    act_player.init_states()
 
     summary: Dict[str, Any] = {"start_iter": start_iter, "metrics": [], "train_host_s": [], "checkpoint": None,
                                "device": str(device), "resident": resident, "dispatch_host_s": [],
-                               "test_reward": None, "test_steps": None}
+                               "test_reward": None, "test_steps": None, "hybrid": burst, "act_host_s": [],
+                               # the ring's heads as a resume mirrored them from the host buffer
+                               "ring_restored": ([hp.runner.dev_pos.tolist(), hp.runner.dev_valid.tolist()]
+                                                 if burst and saved_rb is not None else None)}
     # this run's gradient steps: a resumed run starts again at 0, so its first
     # step copies the critic into the target critic, as the JAX loop does
     cum_gradient_steps = 0
@@ -688,9 +728,13 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
 
     player_steps = 0
     env_s = 0.0
+    profiler = TraceProfiler(cfg.metric.get("profiler"), log_dir, device)
     t_loop = time.perf_counter()
     for iter_num in range(start_iter, total_iters + 1):
+        profiler.tick(iter_num)
         policy_step += num_envs
+        if burst:
+            hp.poll()  # the newest snapshot that has landed
         t_env = time.perf_counter()
         # the player's forward is inside: the copy of its actions to the host waits for the card
         with timer("Time/env_interaction_time", SumMetric):
@@ -705,7 +749,12 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 )
             else:
                 prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=num_envs)
-                acts = player.get_actions({k: torch.from_numpy(v).to(device) for k, v in prepared.items()})
+                t_act, busy = time.perf_counter(), burst and hp.trainer.busy
+                # the hybrid player acts on the host CPU: nothing goes to the card
+                act_device = "cpu" if burst else device
+                acts = act_player.get_actions({k: torch.from_numpy(v).to(act_device) for k, v in prepared.items()})
+                if burst:
+                    summary["act_host_s"].append((time.perf_counter() - t_act, busy or hp.trainer.busy))
                 player_steps += 1
                 actions = torch.cat(acts, dim=-1).float().cpu().numpy()
                 # a continuous action goes to the env as it is; a discrete head as its index
@@ -715,8 +764,10 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             step_data["actions"] = actions.reshape(1, num_envs, -1)
             if resident:
                 driver.stage_step(step_data)  # the device ring is the only storage tier
-            else:
+            if host_mirror:
                 rb.add(step_data)
+            if burst:
+                hp.stage_step(step_data)
             next_obs, rewards, terminated, truncated, infos = envs.step(real_actions)
         dones = np.logical_or(terminated, truncated)
         env_s += time.perf_counter() - t_env
@@ -724,7 +775,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         step_data["is_first"] = np.zeros_like(step_data["terminated"])
         if "restart_on_exception" in infos:
             patch_restarted_envs(infos["restart_on_exception"], dones, step_data,
-                                 rb=None if resident else rb, driver=driver if resident else None)
+                                 rb=rb if host_mirror else None, driver=driver if resident else hp)
         if log_level > 0:
             for i, ep_rew, ep_len in infos.get("episodes", ()):
                 if aggregator is not None:
@@ -757,15 +808,23 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
             if resident:
                 driver.stage_reset(reset_data, dones_idxes)
-            else:
+            if host_mirror:
                 rb.add(reset_data, dones_idxes)
+            if burst:
+                hp.stage_reset(reset_data, dones_idxes)
             step_data["rewards"][:, dones_idxes] = 0.0
             step_data["terminated"][:, dones_idxes] = 0.0
             step_data["truncated"][:, dones_idxes] = 0.0
             step_data["is_first"][:, dones_idxes] = 1.0
-            player.init_states(dones_idxes)
+            act_player.init_states(dones_idxes)
 
-        if resident:
+        if burst:
+            if iter_num >= learning_starts:
+                hp.grant(ratio(policy_step - prefill_steps * num_envs))
+            # the flushes are handed to the trainer thread; the env loop never waits on the card
+            hp.pump()
+            cum_gradient_steps, train_step = hp.gradient_steps, resumed_train_steps + hp.train_steps
+        elif resident:
             if iter_num >= learning_starts:
                 driver.grant(ratio(policy_step - prefill_steps * num_envs))
             # ONE append + sample + train dispatch per env step (plus
@@ -825,28 +884,48 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             iter_num == total_iters and cfg.checkpoint.get("save_last", False)
         ):
             last_checkpoint = policy_step
-            ckpt_state = {
-                "world_model": world_model.state_dict(),
-                "actor": actor.state_dict(),
-                "critic": critic.state_dict(),
-                "target_critic": target_critic.state_dict(),
-                "optimizers": {name: opt.state_dict() for name, opt in optimizers.items()},
-                "moments": moments_state,
-                "ratio": ratio.state_dict(),
-                "iter_num": iter_num,
-                "batch_size": batch_size,
-                "last_log": last_log,
-                "last_checkpoint": last_checkpoint,
-                "train_step": train_step,
-                "last_train": last_train,
-                "rng": generator.get_state(),
-            }
-            if checkpoint_rb:
-                # the ring, its heads and its generator; or the host buffer and its generators
-                ckpt_state["rb"] = driver.state_dict(live=True).to_dict() if resident else rb.state_dict()
-            path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
-            summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+            # with the hybrid player, the trainer's state between two bursts
+            # (at most one burst stale, as in the JAX package)
+            with hp.trainer.train_lock if burst else contextlib.nullcontext():
+                if burst:
+                    moments_state = hp.carry[0]
+                ckpt_state = {
+                    "world_model": world_model.state_dict(),
+                    "actor": actor.state_dict(),
+                    "critic": critic.state_dict(),
+                    "target_critic": target_critic.state_dict(),
+                    "optimizers": {name: opt.state_dict() for name, opt in optimizers.items()},
+                    "moments": moments_state,
+                    "ratio": ratio.state_dict(),
+                    "iter_num": iter_num,
+                    "batch_size": batch_size,
+                    "last_log": last_log,
+                    "last_checkpoint": last_checkpoint,
+                    "train_step": train_step,
+                    "last_train": last_train,
+                    "rng": (hp.generator if burst else generator).get_state(),
+                }
+                if burst:
+                    ckpt_state["host_rng"] = hp.host_generator.get_state()
+                if checkpoint_rb:
+                    # the ring, its heads and its generator; or the host buffer and its generators
+                    ckpt_state["rb"] = (driver.state_dict(live=True).to_dict() if resident
+                                        else rb.checkpoint_state_dict())
+                path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
+                summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
 
+    if burst:
+        # the tail: grants that can never run (an env still shorter than a window) go with the run
+        moments_state, _ = hp.finish()
+        cum_gradient_steps, train_step = hp.gradient_steps, resumed_train_steps + hp.train_steps
+        summary.update(
+            metrics=list(hp.metric_rows), bursts=hp.runner.bursts, burst_host_s=list(hp.trainer.step_host_s),
+            flush_host_s=list(hp.flush_host_s), snapshot_age=hp.snapshot_age,
+            snapshot={"pulls": hp.snapshot.pulls, "polls": hp.snapshot.polls, "bytes": hp.snapshot.nbytes},
+            grad_chunk=hp.grad_chunk, replay={"Replay/flushes": hp.runner.flushes,
+                                              "Replay/bytes_staged": hp.runner.bytes_staged},
+        )
+    profiler.close(total_iters + 1)
     manager.close()
     read_metrics()
     loop_s = time.perf_counter() - t_loop
@@ -862,10 +941,11 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         gradient_steps=cum_gradient_steps,
         env_steps_per_s=steps / env_s if env_s > 0 else None,
         loop_steps_per_s=steps / loop_s if loop_s > 0 else None,
-        train_calls=driver.train_steps if resident else len(summary["train_host_s"]),
-        replay=driver.metrics() if resident else None,
+        train_calls=driver.train_steps if resident else (hp.train_steps if burst else len(summary["train_host_s"])),
+        replay=driver.metrics() if resident else summary.get("replay"),
         rollbacks=sentinel.rollbacks,
         checkpoint_timings=manager.timings,
+        profiler=profiler.trace_path,
         **{"Fault/skipped_updates": sentinel.total_skipped, "Fault/env_restarts": envs.env_restarts},
     )
     return summary

@@ -292,7 +292,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 "rng": generator.get_state(),
             }
             if cfg.buffer.checkpoint:
-                ckpt_state["rb"] = rb.state_dict()
+                ckpt_state["rb"] = rb.checkpoint_state_dict()
             path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
             summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
 

@@ -584,7 +584,7 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
                 "rng": generator.get_state(),
             }
             if cfg.buffer.get("checkpoint", False):
-                ckpt_state["rb"] = rb.state_dict()
+                ckpt_state["rb"] = rb.checkpoint_state_dict()
             path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
             summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
 

@@ -56,6 +56,7 @@ from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
 from sheeprl_tpu_torch.utils.checkpoint import write_run_config
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric, build_aggregator
+from sheeprl_tpu_torch.utils.profiler import TraceProfiler
 from sheeprl_tpu_torch.utils.timer import log_timers, timer
 from sheeprl_tpu_torch.utils.utils import polynomial_decay
 
@@ -243,7 +244,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         "test_steps": None, "skipped": [],
     }
     heads = sum(actions_dim) if is_continuous else len(actions_dim)  # the env's action columns
+    profiler = TraceProfiler(cfg.metric.get("profiler"), log_dir, device)
     for iter_num in range(start_iter, total_iters + 1):
+        profiler.tick(iter_num)
         t0 = time.perf_counter()
         for _ in range(rollout_steps):
             policy_step += num_envs
@@ -366,6 +369,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
 
     manager.close()
     envs.close()
+    profiler.close(total_iters + 1)
+    summary["profiler"] = profiler.trace_path
     if algo.get("run_test", True):
         summary["test_reward"], summary["test_steps"] = test(player, cfg, device)
     logger.close()

@@ -58,6 +58,7 @@ from sheeprl_tpu_torch.ops.kernels import gae, gae_factors
 from sheeprl_tpu_torch.utils.checkpoint import write_run_config
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric, build_aggregator
+from sheeprl_tpu_torch.utils.profiler import TraceProfiler
 from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import polynomial_decay
 
@@ -447,9 +448,11 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         "episodes": [], "block_s": [], "checkpoint": None, "device": str(device), "test_reward": None,
         "test_steps": None, "skipped": [],
     }
+    profiler = TraceProfiler(cfg.metric.get("profiler"), log_dir, device)
     iter_num = start_iter - 1
     while iter_num < total_iters:
         block_iters = min(iters_per_block, total_iters - iter_num)
+        profiler.tick(iter_num + 1)
         t0 = time.perf_counter()
         with timer("Time/train_time", SumMetric):
             coefs = torch.tensor([clip_coef, ent_coef], dtype=torch.float32).to(device)
@@ -527,6 +530,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
 
     manager.close()
+    profiler.close(iter_num + 1)
+    summary["profiler"] = profiler.trace_path
     if algo.get("run_test", True):
         summary["test_reward"], summary["test_steps"] = test(player, cfg, device)
     logger.close()

@@ -70,6 +70,7 @@ from sheeprl_tpu_torch.optim import build_stacked_optimizer
 from sheeprl_tpu_torch.utils.checkpoint import write_run_config
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric, build_aggregator
+from sheeprl_tpu_torch.utils.profiler import TraceProfiler
 from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import polynomial_decay
 
@@ -699,8 +700,10 @@ def population_main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     }
     iter_num = start_iter - 1
     best = int(fitness_np.argmax())
+    profiler = TraceProfiler(cfg.metric.get("profiler"), log_dir, device)
     while iter_num < total_iters:
         block_iters = min(iters_per_block, total_iters - iter_num)
+        profiler.tick(iter_num + 1)
         block_num += 1
         gate = pbt_step is not None and block_num % pbt_every == 0
 
@@ -847,6 +850,8 @@ def population_main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
 
     manager.close()
+    profiler.close(iter_num + 1)
+    summary["profiler"] = profiler.trace_path
     best = int(fitness_np.argmax())
     summary.update(best_member=best, hparams={k: np.asarray(v).tolist() for k, v in hparams_np.items()},
                    env_params={k: np.asarray(v).tolist() for k, v in env_params_np.items()})

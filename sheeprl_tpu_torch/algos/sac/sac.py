@@ -48,6 +48,8 @@ fault counters. The host tier's buffer is memmapped with ``buffer.memmap``.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import math
 import os
 import time
@@ -57,26 +59,28 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.sac.agent import SACAgent, build_agent
+from sheeprl_tpu_torch.algos.sac.agent import SACAgent, SACPlayer, build_agent
 from sheeprl_tpu_torch.algos.sac.loss import critic_loss, entropy_loss, policy_loss
 from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, test
 from sheeprl_tpu_torch.config import dotdict, plain
 from sheeprl_tpu_torch.data import ReplayBuffer
+from sheeprl_tpu_torch.data.ring import BlobLayout, make_layout, pack_burst_blob, unpack_burst_blob
 from sheeprl_tpu_torch.envs import make_vector_env
 from sheeprl_tpu_torch.fault import CheckpointManager, DivergenceSentinel, load_resume_state
 from sheeprl_tpu_torch.ops.guard import StateGuard, finite_guard
 from sheeprl_tpu_torch.ops.kernels import sumtree_sample
 from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
+from sheeprl_tpu_torch.utils.burst import HostCopies, HostSnapshot, TrainerThread, TrainStateCopy
 from sheeprl_tpu_torch.utils.checkpoint import write_run_config
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric, build_aggregator
 from sheeprl_tpu_torch.utils.timer import log_timers, timer
 from sheeprl_tpu_torch.replay import DeviceReplayBuffer, DeviceReplayState, resolve_device_resident, restore_host_buffer
 from sheeprl_tpu_torch.replay import sumtree as st
-from sheeprl_tpu_torch.utils.utils import Ratio
+from sheeprl_tpu_torch.utils.utils import Ratio, resolve_hybrid_player
 
-__all__ = ["LOSS_NAMES", "RING_KEYS", "make_optimizers", "make_train_step", "make_resident_train_step",
-           "restore_train_state", "main"]
+__all__ = ["LOSS_NAMES", "RING_KEYS", "burst_layout", "make_burst_train_step", "make_optimizers", "make_train_step",
+           "make_resident_train_step", "restore_train_state", "main"]
 
 LOSS_NAMES = ("Loss/value_loss", "Loss/policy_loss", "Loss/alpha_loss")
 #: what a stored transition holds, in the order a host sample is packed for its one copy to the device
@@ -290,6 +294,80 @@ def make_resident_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, 
     return train
 
 
+def burst_layout(dims: Dict[str, int], stage_max: int, n_envs: int, grad_chunk: int) -> BlobLayout:
+    """Byte layout of one burst job (JAX ``make_burst_train_step``'s packed
+    upload): ``stage_max`` staged rows of each ring key, the ring's write
+    head, the staged count, the valid rows after the append, each step's EMA
+    flag and its granted mask. JAX's blob also carries the burst's PRNG key;
+    the port's draws come from the trainer's generator."""
+    spec = [(k, (stage_max, n_envs, d), np.float32) for k, d in dims.items()]
+    spec += [
+        ("__pos__", (), np.int32),
+        ("__count__", (), np.int32),
+        ("__valid_n__", (), np.int32),
+        ("__flags__", (grad_chunk,), np.float32),
+        ("__valid__", (grad_chunk,), np.float32),
+    ]
+    return make_layout(spec)
+
+
+def make_burst_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, capacity: int, n_envs: int,
+                          stage_max: int, grad_chunk: int, dims: Dict[str, int]) -> Tuple[Callable, BlobLayout]:
+    """The hybrid player's burst (JAX ``make_burst_train_step`` on one
+    device): ``(burst, layout)`` with ``burst(rb, blob, generator=None,
+    draws=None) -> losses or None``.
+
+    ``rb`` is the flat ring ``{key: (capacity, n_envs, d)}`` float32 on the
+    card, ``blob`` one host :func:`burst_layout` job. The burst appends the
+    blob's first ``__count__`` staged rows at the write head with
+    wrap-around (the padding rows are dropped; plain ``index_copy_``, as JAX
+    appends outside any Pallas kernel), then runs one uniform minibatch step
+    over the valid ``(position, env)`` grid for each granted entry of
+    ``__valid__`` (a prefix): the critic update, the target EMA where
+    ``__flags__`` says, the actor and the entropy updates. The steps past
+    the granted prefix are no-ops, as JAX's masked scan steps are. Each step
+    draws ``B`` positions, ``B`` envs and the next-action and actor noise
+    from ``generator`` unless ``draws`` holds them (``pos``/``env`` ``(G,
+    B)`` and ``next``/``actor`` ``(G, B, act_dim)`` for the G granted
+    steps). The count, heads and masks are read from the host copy of the
+    blob: nothing is read back from the card. Returns the ``(3,)`` mean of
+    :data:`LOSS_NAMES` over the granted steps, or None."""
+    step, _ = _gradient_step(agent, optimizers, float(cfg.algo.gamma))
+    layout = burst_layout(dims, stage_max, n_envs, grad_chunk)
+    batch_size = int(cfg.algo.per_rank_batch_size)
+    capacity, n_envs = int(capacity), int(n_envs)
+
+    def burst(rb: Dict[str, torch.Tensor], blob: torch.Tensor, generator: Optional[torch.Generator] = None,
+              draws: Optional[Dict[str, torch.Tensor]] = None) -> Optional[torch.Tensor]:
+        device = next(iter(rb.values())).device
+        host = unpack_burst_blob(blob, layout)
+        staged = unpack_burst_blob(blob.to(device, non_blocking=True), layout)
+        count, pos, valid_n = int(host["__count__"]), int(host["__pos__"]), int(host["__valid_n__"])
+        if count:
+            rows = (pos + torch.arange(count, device=device)) % capacity
+            for k in dims:
+                rb[k].index_copy_(0, rows, staged[k][:count])
+        granted = [g for g in range(grad_chunk) if float(host["__valid__"][g]) > 0]
+        if not granted:
+            return None
+        n = len(granted)
+        if draws is None:
+            draws = {
+                "pos": torch.randint(0, max(valid_n, 1), (n, batch_size), generator=generator, device=device),
+                "env": torch.randint(0, n_envs, (n, batch_size), generator=generator, device=device),
+            }
+            for k in ("next", "actor"):
+                draws[k] = torch.randn((n, batch_size, agent.action_dim), generator=generator, device=device)
+        total = torch.zeros(3, dtype=torch.float32, device=device)
+        for i, g in enumerate(granted):
+            batch = {k: rb[k][draws["pos"][i], draws["env"][i]] for k in RING_KEYS}
+            losses, _, _, _ = step(batch, None, draws["next"][i], draws["actor"][i], float(host["__flags__"][g]) > 0)
+            total += losses
+        return total / n
+
+    return burst, layout
+
+
 def _ring_specs(obs_dim: int, act_dim: int) -> Dict[str, Tuple[tuple, Any]]:
     return {
         "observations": ((obs_dim,), np.float32),
@@ -361,9 +439,26 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     specs = _ring_specs(obs_dim, act_dim)
     per_cfg = cfg.buffer.priority
     prioritized = bool(per_cfg.enabled)
-    resident, reason = resolve_device_resident(
-        cfg.buffer.device_resident, specs, buffer_size, num_envs, float(cfg.buffer.hbm_budget_gb), prioritized
-    )
+    # the hybrid host player (JAX's default off the CPU): the actor acts on
+    # the host CPU from a snapshot; with train_every > 1 (auto: 64) the
+    # grants train in bursts on a trainer thread over a ring on the card,
+    # which takes precedence over the resident tier and samples uniformly
+    hp_cfg = algo.get("hybrid_player") or {}
+    hybrid = resolve_hybrid_player(hp_cfg, device)
+    refresh_every = max(1, int(hp_cfg.get("refresh_every", 64)))
+    train_every = hp_cfg.get("train_every", "auto")
+    if isinstance(train_every, str):
+        train_every = (64 if hybrid else 1) if train_every == "auto" else int(train_every)
+    train_every = max(1, int(train_every))
+    burst = hybrid and train_every > 1
+    if burst and sample_next_obs:
+        warnings.warn("buffer.sample_next_obs is not supported by burst training; disabling the burst path.")
+        burst = False
+    resident, reason = False, "algo.hybrid_player"
+    if not burst:
+        resident, reason = resolve_device_resident(
+            cfg.buffer.device_resident, specs, buffer_size, num_envs, float(cfg.buffer.hbm_budget_gb), prioritized
+        )
     if resident and sample_next_obs:
         # the ring holds every row's next observation; a uniform ring spills
         # to the host buffer as the JAX loop does, a prioritized one raises as
@@ -375,7 +470,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                       "one — falling back to the host buffer path.")
         resident, reason = False, "buffer.sample_next_obs"
     log_level = int(cfg.metric.get("log_level", 1))
-    if log_level > 0 and cfg.buffer.device_resident:
+    if log_level > 0 and cfg.buffer.device_resident and not burst:
         print(f"Replay: device_resident={resident} ({reason})", flush=True)
 
     rb = ReplayBuffer(buffer_size, num_envs, ("observations",), memmap=bool(cfg.buffer.get("memmap", False)),
@@ -418,7 +513,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         warnings.warn(f"The checkpoint.every parameter ({cfg.checkpoint.every}) is not a multiple of the "
                       f"policy_steps_per_iter value ({policy_steps_per_iter}).")
     sentinel_cfg = (cfg.get("fault") or {}).get("sentinel") or {}
-    guard = bool(sentinel_cfg.get("enabled", True))
+    guard = bool(sentinel_cfg.get("enabled", True)) and not burst
     sentinel = DivergenceSentinel(sentinel_cfg)
     ckpt_dir = os.path.join(log_dir, "checkpoint")
     manager = CheckpointManager.from_config(cfg)
@@ -437,8 +532,52 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         resident_fn = make_resident_train_step(agent, optimizers, cfg, drb, guard=guard)
         beta0 = float(per_cfg.beta)
         ema_backlog: List[float] = []
-    else:
+    elif not burst:
         train_fn = make_train_step(agent, optimizers, cfg, guard=guard)
+    if hybrid:
+        # SAC's actor is small: its snapshot stays float32 (the Dreamer harness narrows to bf16)
+        host_agent = copy.deepcopy(agent).to("cpu")
+        snapshot = HostSnapshot(list(agent.actor.parameters()), list(host_agent.actor.parameters()), torch.float32)
+        snapshot.pull()
+        host_generator = torch.Generator().manual_seed(seed + 17)
+        if state is not None and state.get("host_rng") is not None:
+            host_generator.set_state(state["host_rng"])
+        host_player = SACPlayer(host_agent, host_generator)
+        last_refresh = 0
+    if burst:
+        grad_chunk = max(1, int(round(float(algo.replay_ratio) * policy_steps_per_iter * train_every)))
+        # sized from the configured warm-up, not the resume-shifted one: the
+        # staging rows only ever hold the transitions since the last flush
+        base_learning_starts = int(algo.get("learning_starts", 0)) // policy_steps_per_iter if not dry_run else 0
+        stage_max = min(base_learning_starts + 2 * train_every + 1, buffer_size)
+        dims = {k: int(specs[k][0][0]) for k in RING_KEYS}
+        burst_fn, layout = make_burst_train_step(agent, optimizers, cfg, buffer_size, num_envs, stage_max, grad_chunk,
+                                                 dims)
+        rb_dev = {k: torch.zeros((buffer_size, num_envs, d), dtype=torch.float32, device=device)
+                  for k, d in dims.items()}
+        dev_pos, dev_total = 0, 0
+        if not rb.empty:  # resumed with the host buffer: mirror it into the ring
+            stored = rb.to_numpy()
+            for k in rb_dev:
+                host = np.asarray(stored[k], np.float32).reshape(buffer_size, num_envs, -1)
+                rb_dev[k] = torch.from_numpy(host).to(device)
+            dev_pos, dev_total = rb.pos, (buffer_size if rb.full else rb.pos)
+        staged: List[Dict[str, np.ndarray]] = []
+        ema_backlog = []
+        burst_losses = HostCopies()
+        bursts = [0]  # trained bursts, counted on the trainer thread
+
+        def burst_step(rb_dev, blob):
+            losses = burst_fn(rb_dev, blob, generator)
+            if losses is not None:
+                bursts[0] += 1
+                burst_losses.put(losses, bursts[0])
+            snapshot.refresh_async(bursts[0])  # newest wins; skipped while a copy is in flight
+            return rb_dev, losses
+
+        trainer = TrainerThread(burst_step, rb_dev, supervisor_cfg=(cfg.get("fault") or {}).get("supervisor"),
+                                rollback=TrainStateCopy([agent], optimizers, [generator]), device=device)
+        snapshot.attach_supervisor(trainer.supervisor)
 
     action_rng = np.random.default_rng(seed)
     obs = envs.reset(seed=seed)[0]
@@ -446,7 +585,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         "start_iter": start_iter, "iterations": 0, "gradient_steps": 0, "train_calls": 0, "losses": [],
         "episodes": [], "env_s": [], "train_s": [], "checkpoint": None, "device": str(device), "test_reward": None,
         "test_steps": None,
-        "resident": resident, "prioritized": resident and prioritized,
+        "resident": resident, "prioritized": resident and prioritized, "hybrid": hybrid, "burst": burst,
+        "flush_host_s": [], "act_host_s": [],
     }
     pending: List[torch.Tensor] = []  # losses still on the device
 
@@ -461,6 +601,42 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                     for name, value in zip(LOSS_NAMES, row):
                         aggregator.update(name, value)
 
+    def take_burst_losses(wait: bool = False) -> None:
+        """The trained bursts' losses that have landed on the host."""
+        for _burst, row in burst_losses.take(wait):
+            pending.append(torch.tensor(row))
+
+    def flush_burst() -> None:
+        """Hand the staged transitions and up to one grant chunk to the
+        trainer thread (the steps past the granted ones are no-ops)."""
+        nonlocal dev_pos, dev_total, train_step
+        count = len(staged)
+        values: Dict[str, np.ndarray] = {}
+        for k, d in dims.items():
+            values[k] = np.zeros((stage_max, num_envs, d), np.float32)
+            if count:
+                values[k][:count] = np.stack([t[k] for t in staged])
+        staged.clear()
+        dev_total = min(dev_total + count, buffer_size)
+        chunk = min(grad_chunk, len(ema_backlog))
+        flags = np.zeros((grad_chunk,), np.float32)
+        valid = np.zeros((grad_chunk,), np.float32)
+        flags[:chunk] = ema_backlog[:chunk]
+        valid[:chunk] = 1.0
+        t0 = time.perf_counter()
+        with timer("Time/train_time", SumMetric):
+            values.update(__pos__=np.asarray(dev_pos, np.int32), __count__=np.asarray(count, np.int32),
+                          __valid_n__=np.asarray(dev_total, np.int32), __flags__=flags, __valid__=valid)
+            trainer.submit(pack_burst_blob(layout, values, pin_memory=device.type == "cuda"))
+            take_burst_losses()
+        summary["flush_host_s"].append(time.perf_counter() - t0)
+        dev_pos = (dev_pos + count) % buffer_size
+        del ema_backlog[:chunk]
+        if chunk > 0:
+            summary["gradient_steps"] += chunk
+            summary["train_calls"] += 1
+            train_step += 1
+
     def observe(out):
         """The losses kept on the device; with the guard, the skipped count
         read now (once per train call) and handed to the sentinel."""
@@ -473,10 +649,21 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
         t0 = time.perf_counter()
+        if hybrid:
+            # adopt a landed snapshot; without bursts also start the next copy
+            # every refresh_every iterations (the bursts refresh after each job)
+            snapshot.poll()
+            if (not burst and iter_num - last_refresh >= refresh_every and iter_num > learning_starts
+                    and snapshot.refresh_async(iter_num)):
+                last_refresh = iter_num
         # the actor's forward is inside: the copy of its actions to the host waits for the card
         with timer("Time/env_interaction_time", SumMetric):
             if iter_num <= learning_starts:
                 actions = action_rng.uniform(low, high, size=(num_envs, act_dim)).astype(np.float32)
+            elif hybrid:  # on the host CPU: nothing goes to the card
+                t_act, busy = time.perf_counter(), burst and trainer.busy
+                actions = host_player(prepare_obs(obs, mlp_keys, num_envs)).float().numpy()
+                summary["act_host_s"].append((time.perf_counter() - t_act, busy or (burst and trainer.busy)))
             else:
                 actions = player(prepare_obs(obs, mlp_keys, num_envs, device)).float().cpu().numpy()
             next_obs, rewards, terminated, truncated, infos = envs.step(actions)
@@ -509,7 +696,19 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         obs = next_obs
         t1 = time.perf_counter()
 
-        if resident:
+        if burst:
+            # stage the transition for the ring; the host buffer stays the checkpoint's copy
+            staged.append({k: np.asarray(step_data[k][0], dtype=np.float32) for k in dims})
+            if iter_num >= learning_starts:
+                granted = ratio(policy_step - prefill_steps + policy_steps_per_iter)
+                ema_backlog.extend([1.0 if iter_num % ema_modulus == 0 else 0.0] * granted)
+            # one burst once a full grant chunk is queued, or when the staging
+            # rows are about to overflow (low replay ratios)
+            while len(ema_backlog) >= grad_chunk or len(staged) >= stage_max - 1:
+                flush_burst()
+                if len(ema_backlog) < grad_chunk:
+                    break
+        elif resident:
             if iter_num >= learning_starts:
                 granted = ratio(policy_step - prefill_steps + policy_steps_per_iter)
                 ema_backlog.extend([1.0 if iter_num % ema_modulus == 0 else 0.0] * granted)
@@ -573,25 +772,40 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             iter_num == total_iters and cfg.checkpoint.get("save_last", False)
         ):
             last_checkpoint = policy_step
-            ckpt_state = {
-                "agent": agent.state_dict(),
-                "qf_optimizer": optimizers[1].state_dict(),
-                "actor_optimizer": optimizers[0].state_dict(),
-                "alpha_optimizer": optimizers[2].state_dict(),
-                "ratio": ratio.state_dict(),
-                "iter_num": iter_num,
-                "batch_size": batch_size,
-                "last_log": last_log,
-                "last_checkpoint": last_checkpoint,
-                "train_step": train_step,
-                "last_train": last_train,
-                "rng": generator.get_state(),
-            }
-            if cfg.buffer.checkpoint:
-                ckpt_state["rb"] = drb.state_dict(live=True).to_dict() if resident else rb.state_dict()
-            path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
-            summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+            # in burst mode the trainer's state between two bursts (at most one burst stale, as in JAX)
+            with trainer.train_lock if burst else contextlib.nullcontext():
+                ckpt_state = {
+                    "agent": agent.state_dict(),
+                    "qf_optimizer": optimizers[1].state_dict(),
+                    "actor_optimizer": optimizers[0].state_dict(),
+                    "alpha_optimizer": optimizers[2].state_dict(),
+                    "ratio": ratio.state_dict(),
+                    "iter_num": iter_num,
+                    "batch_size": batch_size,
+                    "last_log": last_log,
+                    "last_checkpoint": last_checkpoint,
+                    "train_step": train_step,
+                    "last_train": last_train,
+                    "rng": generator.get_state(),
+                }
+                if hybrid:
+                    ckpt_state["host_rng"] = host_generator.get_state()
+                if cfg.buffer.checkpoint:
+                    ckpt_state["rb"] = drb.state_dict(live=True).to_dict() if resident else rb.checkpoint_state_dict()
+                path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
+                summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
 
+    if burst:
+        # the tail: Ratio has counted the remaining grants, so they run (as the JAX loop does)
+        while staged or ema_backlog:
+            flush_burst()
+        trainer.close()
+        take_burst_losses(wait=True)
+        summary.update(bursts=bursts[0], burst_host_s=list(trainer.step_host_s), grad_chunk=grad_chunk,
+                       stage_max=stage_max, train_every=train_every)
+    if hybrid:
+        summary["snapshot"] = {"pulls": snapshot.pulls, "polls": snapshot.polls, "bytes": snapshot.nbytes,
+                               "host_version": snapshot.host_version}
     manager.close()
     read_losses()
     envs.close()

@@ -130,7 +130,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         ckpt = dict(req["state"])
         ckpt["ratio"] = ratio.state_dict()
         if with_buffer and cfg.buffer.checkpoint:
-            ckpt["rb"] = rb.state_dict()
+            ckpt["rb"] = rb.checkpoint_state_dict()
         manager.save(req["path"], ckpt, step=req["step"], config=plain(cfg))
 
     def handoff(item: Any) -> bool:

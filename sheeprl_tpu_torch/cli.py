@@ -222,12 +222,31 @@ def compose_run_config(args: Sequence[str]) -> DotDict:
     return _resolve_run_names(cfg)
 
 
+#: the families whose hybrid host player (``algo.hybrid_player``) the port
+#: does not run yet: ``enabled: true`` raises for them, ``auto`` is off
+HYBRID_PLAYER_NOT_PORTED = (
+    "dreamer_v2", "dreamer_v1", "p2e_dv1_exploration", "p2e_dv1_finetuning", "p2e_dv2_exploration",
+    "p2e_dv2_finetuning", "p2e_dv3_exploration", "p2e_dv3_finetuning",
+)
+
+
 def check_configs(cfg: DotDict) -> None:
     """JAX ``check_configs``' checks of a run config that the port has keys
     for: a negative ``algo.learning_starts`` raises; an ``env.action_repeat``
     below 1 becomes 1. An unknown ``fabric.precision`` raises the
-    ``ValueError`` of the JAX package's ``Precision.from_string``."""
+    ``ValueError`` of the JAX package's ``Precision.from_string``. An
+    ``algo.hybrid_player.enabled`` set on (``true``) for a family of
+    :data:`HYBRID_PLAYER_NOT_PORTED` raises: the port has no hybrid path
+    for it yet, and would otherwise train coupled while the config says
+    hybrid."""
     Precision.from_config(cfg)
+    algo = cfg.get("algo") or {}
+    enabled = (algo.get("hybrid_player") or {}).get("enabled", "auto")
+    if algo.get("name") in HYBRID_PLAYER_NOT_PORTED and str(enabled).lower() == "true":
+        raise ValueError(
+            f"algo.hybrid_player.enabled=true: the hybrid host player is not ported yet for '{algo.get('name')}' "
+            "(DreamerV3 and SAC have it); set algo.hybrid_player.enabled=false or auto, which is off for it"
+        )
     learning_starts = (cfg.get("algo") or {}).get("learning_starts")
     if learning_starts is not None and learning_starts < 0:
         raise ValueError("The `algo.learning_starts` parameter must be greater or equal to zero.")

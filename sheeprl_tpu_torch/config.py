@@ -127,6 +127,8 @@ RUN_DEFAULTS: Dict[str, Any] = {
         "log_level": 1,
         "log_every": 5000,
         "disable_timer": None,
+        # the iteration-windowed trace (utils/profiler.py:TraceProfiler)
+        "profiler": {"enabled": False, "start_iter": 8, "num_iters": 4},
         "aggregator": {
             "raise_on_missing": False,
             "metrics": {"Rewards/rew_avg": {"_target_": "MeanMetric"}, "Game/ep_len_avg": {"_target_": "MeanMetric"}},

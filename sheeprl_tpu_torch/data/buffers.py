@@ -157,6 +157,20 @@ class ReplayBuffer:
                for k, v in self._buf.items()}
         return {"buffer": buf, "pos": self._pos, "full": self._full, "rng": self._rng.bit_generator.state}
 
+    def checkpoint_state_dict(self) -> Dict[str, Any]:
+        """:meth:`state_dict` with the JAX package's truncation patch
+        (``CheckpointCallback._ckpt_rb``): the newest row's ``truncated`` is 1
+        in every env, so a resumed run's next row never continues the saved
+        episode. The patch is made on a copy of that key: the live buffer,
+        memmapped or not, stays as it is while a save (asynchronous too)
+        reads the state."""
+        state = self.state_dict()
+        if "truncated" in state["buffer"] and not self.empty:
+            truncated = state["buffer"]["truncated"].clone()
+            truncated[(self._pos - 1) % self._buffer_size] = 1
+            state["buffer"]["truncated"] = truncated
+        return state
+
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         self._buf = {}  # old owners delete their files before the new ones are made
         buf = {}
@@ -323,6 +337,11 @@ class EnvIndependentReplayBuffer:
         resumed run draws what the uninterrupted run would have drawn; this
         state does the same."""
         return {"envs": [b.state_dict() for b in self._buf], "rng": self._rng.bit_generator.state}
+
+    def checkpoint_state_dict(self) -> Dict[str, Any]:
+        """:meth:`state_dict` with each env's newest row marked ``truncated``
+        on a copy (:meth:`ReplayBuffer.checkpoint_state_dict`)."""
+        return {"envs": [b.checkpoint_state_dict() for b in self._buf], "rng": self._rng.bit_generator.state}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         if len(state["envs"]) != self._n_envs:
@@ -528,6 +547,15 @@ class EpisodeBuffer:
             "open": [[_tensors(chunk) for chunk in chunks] for chunks in self._open_episodes],
             "rng": self._rng.bit_generator.state,
         }
+
+    def checkpoint_state_dict(self) -> Dict[str, Any]:
+        """:meth:`state_dict` without the open episodes, as the JAX
+        package's ``CheckpointCallback._ckpt_rb`` saves the buffer: a
+        resumed run starts every env's episode afresh. The live buffer keeps
+        them."""
+        state = self.state_dict()
+        state["open"] = [[] for _ in range(self._n_envs)]
+        return state
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         if len(state["open"]) != self._n_envs:

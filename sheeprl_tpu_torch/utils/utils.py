@@ -5,7 +5,7 @@ from __future__ import annotations
 import warnings
 from typing import Any, Dict, Mapping, Optional
 
-__all__ = ["Ratio", "polynomial_decay"]
+__all__ = ["Ratio", "polynomial_decay", "resolve_hybrid_player"]
 
 
 def polynomial_decay(
@@ -17,6 +17,18 @@ def polynomial_decay(
     if current_step > max_decay_steps or initial == final:
         return final
     return (initial - final) * ((1 - current_step / max_decay_steps) ** power) + final
+
+
+def resolve_hybrid_player(hp_cfg: Optional[Mapping[str, Any]], device: Any) -> bool:
+    """Resolve ``algo.hybrid_player.enabled`` (JAX ``resolve_hybrid_player``):
+    ``"auto"`` (the default) turns the host-CPU player on iff the trainer's
+    ``device`` is not the CPU; the strings ``"true"``/``"false"`` (any case)
+    and bools are taken as they say; any other string is off."""
+    enabled = (hp_cfg or {}).get("enabled", "auto")
+    on_cpu = str(device).split(":")[0] == "cpu"
+    if isinstance(enabled, str):
+        enabled = (not on_cpu) if enabled.lower() == "auto" else enabled.lower() == "true"
+    return bool(enabled)
 
 
 class Ratio:

@@ -1062,3 +1062,68 @@ def test_torch_cuda_checkpoint_staging_is_ordered_before_later_writes(cuda):
     host = finalize_host(staged)
     assert host["w"].device.type == "cpu" and host["w"].is_pinned() and host["n"] == 3
     assert torch.equal(host["w"], torch.arange(1 << 22, dtype=torch.float32))
+
+
+def test_torch_cuda_host_snapshot_copy_is_event_gated_and_isolated(cuda):
+    """The hybrid player's snapshot: the pack is a fresh bf16 tensor on the
+    card, copied into pinned memory without blocking; ``poll`` adopts it
+    only once its event has completed (the card is kept busy with
+    ``torch.cuda._sleep`` first), and an in-place update queued after the
+    refresh does not reach it."""
+    from sheeprl_tpu_torch.utils.burst import HostSnapshot
+
+    torch.manual_seed(0)
+    card = torch.nn.Linear(256, 512).to(cuda)
+    host = torch.nn.Linear(256, 512)
+    snap = HostSnapshot(list(card.parameters()), list(host.parameters()), torch.bfloat16)
+    snap.pull()  # loads the pack's kernels: a kernel's first launch (lazy module loading) waits for the card
+    want = [p.detach().to(torch.bfloat16).float().cpu() for p in card.parameters()]
+    torch.cuda._sleep(200_000_000)  # the copy queues behind ~0.1 s of device work
+    assert snap.refresh_async(version=3)
+    assert not snap.refresh_async(version=4)  # a copy in flight: skipped
+    with torch.no_grad():
+        for p in card.parameters():
+            p.add_(1.0)
+    polled = snap.poll()
+    torch.cuda.synchronize()
+    assert polled is False or snap.host_version == 3
+    while not polled:
+        polled = snap.poll()
+    assert snap.host_version == 3 and snap.pulls == 2
+    for h, w in zip(host.parameters(), want):
+        assert torch.equal(h, w)
+    slot_host = snap.pack()
+    assert slot_host.is_cuda and slot_host.dtype == torch.bfloat16
+
+
+def test_torch_cuda_sac_burst_append_matches_cpu(cuda):
+    """SAC's hybrid burst appends its staged rows on the card exactly as on
+    the CPU: wrap-around at the ring's end, the padding rows dropped, no
+    step granted (the parameters stay)."""
+    from sheeprl_tpu_torch.algos.sac.agent import build_agent
+    from sheeprl_tpu_torch.algos.sac.sac import make_burst_train_step, make_optimizers
+    from sheeprl_tpu_torch.config import apply_overrides, preset
+    from sheeprl_tpu_torch.data.ring import pack_burst_blob
+
+    cfg = apply_overrides(preset("sac"), ["algo.per_rank_batch_size=16"])
+    C, E, S, G, count = 64, 4, 20, 8, 13
+    dims = {"observations": 3, "next_observations": 3, "actions": 1, "rewards": 1, "terminated": 1}
+    rng = np.random.default_rng(5)
+    ring = {k: rng.normal(size=(C, E, d)).astype(np.float32) for k, d in dims.items()}
+    values = {k: rng.normal(size=(S, E, d)).astype(np.float32) for k, d in dims.items()}
+    values.update(__pos__=np.asarray(C - 5, np.int32), __count__=np.asarray(count, np.int32),
+                  __valid_n__=np.asarray(C, np.int32), __flags__=np.zeros(G, np.float32),
+                  __valid__=np.zeros(G, np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        agent, _ = build_agent(cfg, 3, {"shape": [1], "low": [-2.0], "high": [2.0]}, dev)
+        before = {k: v.detach().cpu().clone() for k, v in agent.state_dict().items()}
+        burst, layout = make_burst_train_step(agent, make_optimizers(cfg, agent), cfg, C, E, S, G, dims)
+        rb = {k: torch.from_numpy(v.copy()).to(dev) for k, v in ring.items()}
+        assert burst(rb, pack_burst_blob(layout, values, pin_memory=str(dev) != "cpu")) is None
+        assert all(torch.equal(v.detach().cpu(), before[k]) for k, v in agent.state_dict().items())
+        out[str(dev)] = {k: v.cpu() for k, v in rb.items()}
+    for k in dims:
+        assert torch.equal(out["cuda"][k], out["cpu"][k]), k
+        written = torch.nonzero((out["cuda"][k] != torch.from_numpy(ring[k])).flatten(1).any(1)).flatten().tolist()
+        assert written == list(range(8)) + list(range(C - 5, C)), k

@@ -56,6 +56,9 @@ def test_torch_rssm_resident_preset_is_the_host_preset_with_the_ring():
     host, resident = preset("dreamer_v3_100k_atari_dummy"), preset("dreamer_v3_100k_atari_dummy_resident")
     assert resident.buffer == {"size": 100000, "device_resident": True, "hbm_budget_gb": 4.0, "checkpoint": True}
     assert host.buffer.device_resident is False
+    # the resident preset keeps the hybrid player off, as JAX's device-resident exps do
+    assert resident.algo.pop("hybrid_player") == {"enabled": False, "train_every": 16, "snapshot_every": 4}
+    assert host.algo.pop("hybrid_player") == {"enabled": "auto", "train_every": 16, "snapshot_every": 4}
     assert {k: v for k, v in resident.items() if k != "buffer"} == {k: v for k, v in host.items() if k != "buffer"}
 
 

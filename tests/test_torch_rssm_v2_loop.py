@@ -18,6 +18,7 @@ import torch
 from sheeprl_tpu_torch import cli
 from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import buffer_digest
+from sheeprl_tpu_torch.data import EpisodeBuffer
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
 
 #: the presets' models cut to a few units (the recipes' keys and rows kept)
@@ -127,6 +128,10 @@ def test_torch_rssm_v2_loop_episode_run_and_resume(tmp_path, monkeypatch):
     """The episode buffer fills at the dummy env's first episode end (366
     steps for seed 5); training waits for it."""
     count = GruCount(monkeypatch)
+    live = {}  # the buffer's own state at the save, beside the patched copy the checkpoint holds
+    patched = EpisodeBuffer.checkpoint_state_dict
+    monkeypatch.setattr(EpisodeBuffer, "checkpoint_state_dict",
+                        lambda self: live.setdefault("state", self.state_dict()) and patched(self))
     summary = cli.run(["preset=dreamer_v2_ms_pacman_dummy"] + TINY + [
         "algo.learning_starts=368", "algo.total_steps=420", "algo.run_test=false", "checkpoint.every=0",
         f"log_root={tmp_path}"])
@@ -145,8 +150,10 @@ def test_torch_rssm_v2_loop_episode_run_and_resume(tmp_path, monkeypatch):
     assert not ep["actions"][0].any() and (ep["actions"][1:].sum(-1) == 1).all() and ep["rewards"][0, 0] == 0
     done = np.logical_or(ep["terminated"], ep["truncated"])[:, 0]
     assert done[-1] and not done[:-1].any()
-    # the next episode starts on the reset observation, with is_first and no action
-    first_open = state["rb"]["open"][0][0]
+    # the checkpoint drops the open episode, as JAX's CheckpointCallback saves the buffer;
+    # the live buffer's next episode starts on the reset observation, with is_first and no action
+    assert state["rb"]["open"] == [[]] and len(live["state"]["open"][0]) > 0
+    first_open = live["state"]["open"][0][0]
     assert first_open["is_first"][0, 0] == 1 and not first_open["actions"][0].any()
     resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "algo.learning_starts=2",
                        "algo.total_steps=452", "algo.run_test=false", f"log_root={tmp_path}",
