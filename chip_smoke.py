@@ -351,9 +351,27 @@ result line):
    coupled run of the same length;
 63. ``metric.profiler``: a profiled PPO run's trace holds ``gae``'s kernel
    events; its launch counts equal the plain run's.
+64. hybrid Dreamer V2 burst on the card: one burst at the preset's widths
+   and 4 envs (13 grants, the 22-row bucket), the blob appended bit-equal to
+   the plain scatter, each AdamW step held on the card's own gradients, the
+   hard target copy at the burst's step with ``cum`` 100; the episode
+   rule's table and draws at the preset's 25,000 x 4 ring bit-equal to the
+   CPU's;
+65. hybrid Dreamer V2 run: ``run preset=dreamer_v2_atari_dummy`` at
+   ``auto``, at least 2 bursts, every grant taken, exact launches; a resume
+   mirrored from the host buffer trains a burst;
+66. the episode rule in a run: ``preset=dreamer_v2_ms_pacman_dummy`` at
+   ``auto`` without ``prioritize_ends``: a traced burst's windows never
+   cross a boundary where their env has a boundary-free window; with
+   ``prioritize_ends`` ``auto`` warns and trains coupled, ``true`` raises;
+67. hybrid Dreamer V1 and the P2E-DV1/DV2/DV3 exploration runs at ``auto``,
+   exact launches, ``Params/exploration_amount`` in the flushed metrics;
+   each finetuning run from its exploration checkpoint stays coupled.
+The V2, V1 and P2E runs of phases 39-52 pass ``algo.hybrid_player.enabled=false``:
+their presets' ``auto`` is on on the card since the families have the path.
 
 Phases 1-3, 11, 14 and 21 run first, in this process alone, so that the
-kernels are timed on an idle card. Phases 4-10, 12, 13 and 15-63 then run
+kernels are timed on an idle card. Phases 4-10, 12, 13 and 15-67 then run
 in five worker processes at once on the same card (``LANES``; each worker
 is this script with ``--lane NAME --out FILE``), each a chain of phases in
 the order above; path timings taken there share the card and the CPU's
@@ -6177,7 +6195,7 @@ def explore_run_phase(workdir: str) -> dict:
     t0 = time.perf_counter()
     summary = cli.run([f"preset={EXPLORE_PRESET}", "env.num_envs=1", f"algo.learning_starts={EXPLORE_LEARNING_STARTS}",
                        f"algo.total_steps={total}", "checkpoint.every=0", "checkpoint.save_last=true",
-                       "metric.log_level=0", f"log_root={workdir}"])
+                       "metric.log_level=0", f"log_root={workdir}", COUPLED])
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     cfg = load_config(find_run_config(summary["checkpoint"]))
@@ -6196,14 +6214,15 @@ def explore_run_phase(workdir: str) -> dict:
     out = {"gradient_steps": G, "policy_steps": summary["policy_steps"], "player_steps": summary["player_steps"],
            "test_steps": summary["test_steps"], "test_reward": summary["test_reward"], "launches": launches,
            "wall_s": wall, "host_ms_per_gradient_step": [s / g * 1e3 for s, g in summary["train_host_s"]],
-           "env_steps_per_s": summary["env_steps_per_s"],
+           "env_steps_per_s": summary["env_steps_per_s"], "loop_steps_per_s": summary["loop_steps_per_s"],
            "metrics": [dict(zip(names, row)) for row in summary["metrics"]], "checkpoint": summary["checkpoint"],
            "checkpoint_bytes": os.path.getsize(summary["checkpoint"])}
     log("exploration run: " + json.dumps({k: v for k, v in out.items() if k not in ("metrics", "checkpoint")}))
     kernels.reset_launches()
     resumed = cli.run([f"checkpoint.resume_from={summary['checkpoint']}", "metric.log_level=0",
                        "algo.learning_starts=2", f"algo.total_steps={summary['policy_steps'] + EXPLORE_RESUME_STEPS}",
-                       "checkpoint.save_last=false", "algo.run_test=false", f"log_root={_log_root(summary)}"])
+                       "checkpoint.save_last=false", "algo.run_test=false", f"log_root={_log_root(summary)}",
+                       COUPLED])
     resume_launches = dict(kernels.LAUNCHES)
     if (resumed["start_iter"] != summary["policy_steps"] + 1 or resumed["gradient_steps"] == 0
             or resume_launches != _explore_launch_want(resumed, T, H)
@@ -6234,7 +6253,7 @@ def finetune_phase(workdir: str, explore_ckpt: str) -> dict:
     summary = cli.run([f"preset={FINETUNE_PRESET}", f"checkpoint.exploration_ckpt_path={explore_ckpt}",
                        "buffer.load_from_exploration=true", f"algo.learning_starts={FINETUNE_LEARNING_STARTS}",
                        f"algo.total_steps={FINETUNE_TOTAL_STEPS}", "checkpoint.every=0", "checkpoint.save_last=true",
-                       "metric.log_level=0", f"log_root={workdir}"])
+                       "metric.log_level=0", f"log_root={workdir}", COUPLED])
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     cfg = load_config(find_run_config(summary["checkpoint"]))
@@ -6304,7 +6323,7 @@ def dry_run_phase(workdir: str) -> dict:
     families = {"ppo": (PPO_PRESET, [], 4 * 128), "a2c": ("a2c", [], 4 * 5),
                 "ppo_recurrent": ("ppo_recurrent", [], 16 * 512), "dreamer_v3": (RUN_PRESET, seq1 + coupled, 1),
                 "sac": ("sac", coupled, 4), "droq": ("droq", [], 4), "sac_ae": ("sac_ae", ["buffer.memmap=false"], 4),
-                "p2e_dv3_exploration": (EXPLORE_PRESET, seq1, 4)}
+                "p2e_dv3_exploration": (EXPLORE_PRESET, seq1 + coupled, 4)}
     common = ["dry_run=true", "algo.total_steps=1000000", "algo.learning_starts=500000", "checkpoint.every=0",
               "checkpoint.save_last=true", "metric.log_level=0", f"log_root={workdir}"]
     out = {}
@@ -6506,12 +6525,16 @@ def _profile_v2_step(checkpoint: str, explore: bool = False) -> dict:
     return out
 
 
+#: the coupled topology for a V2-family run on the card, where the presets' ``auto`` turns the hybrid player on
+COUPLED = "algo.hybrid_player.enabled=false"
+
+
 def _v2_run(args, per_step: int, name: str) -> tuple:
     """``cli.run(args)`` with the counts zeroed just before and checked just
     after (:func:`_v2_launch_want`); finite metrics, on the card."""
     kernels.reset_launches()
     t0 = time.perf_counter()
-    summary = cli.run(args)
+    summary = cli.run(list(args) + [COUPLED])
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     if summary["device"].split(":")[0] != "cuda" or not np.isfinite(np.asarray(summary["metrics"])).all():
@@ -6542,8 +6565,8 @@ def _v2_summary(summary: dict, launches: dict, wall: float) -> dict:
             "player_steps": summary["player_steps"], "test_steps": summary["test_steps"],
             "test_reward": summary["test_reward"], "launches": launches, "wall_s": wall,
             "host_ms_per_gradient_step": [s / g * 1e3 for s, g in summary["train_host_s"]],
-            "env_steps_per_s": summary["env_steps_per_s"], "checkpoint": summary["checkpoint"],
-            "checkpoint_bytes": os.path.getsize(summary["checkpoint"])}
+            "env_steps_per_s": summary["env_steps_per_s"], "loop_steps_per_s": summary["loop_steps_per_s"],
+            "checkpoint": summary["checkpoint"], "checkpoint_bytes": os.path.getsize(summary["checkpoint"])}
 
 
 def v2_run_phase(workdir: str) -> dict:
@@ -6847,7 +6870,7 @@ def _v1_run(args, name: str) -> tuple:
     after: no kernel on a V1 path; finite metrics, on the card."""
     kernels.reset_launches()
     t0 = time.perf_counter()
-    summary = cli.run(args)
+    summary = cli.run(list(args) + [COUPLED])
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     if summary["device"].split(":")[0] != "cuda" or not np.isfinite(np.asarray(summary["metrics"])).all():
@@ -8980,6 +9003,408 @@ def profiler_card_phase(workdir: str, card: str = "cuda") -> dict:
 
 
 
+# -- 64-67. the hybrid host player of Dreamer V2, Dreamer V1 and the P2E exploration loops ---
+
+HYBRID_V2_CHUNK = 13  # round(0.2 replay ratio x 4 envs x 16 train_every)
+HYBRID_V2_CUM0, HYBRID_V2_FREQ = 95, 100  # the burst's steps at cum 95..107: the hard copy at its sixth
+HYBRID_FAMILY_TOTALS = {  # learning_starts past a window per env (T + 2 rows), then >= 2 (V2) or >= 1 bursts
+    "dreamer_v2_atari_dummy": (208, 348),
+    "dreamer_v2_ms_pacman_dummy": (208, 352),
+    "dreamer_v1_atari_dummy": (208, 280),
+    "p2e_dv1_exploration_atari_dummy": (208, 280),
+    "p2e_dv2_exploration_atari_dummy": (208, 288),
+    "p2e_dv3_exploration_atari_dummy": (264, 288),
+}
+HYBRID_EPISODE_STEPS = 80  # the episode-rule run's time limit: episodes of ~81 rows, windows of 50
+#: the CPU rehearsal's widths (the run accounting does not depend on them)
+HYBRID_TINY = [
+    "algo.dense_units=8", "algo.mlp_layers=1", "algo.world_model.encoder.cnn_channels_multiplier=2",
+    "algo.world_model.observation_model.cnn_channels_multiplier=2", "algo.world_model.encoder.dense_units=8",
+    "algo.world_model.encoder.mlp_layers=1", "algo.world_model.observation_model.dense_units=8",
+    "algo.world_model.observation_model.mlp_layers=1", "algo.world_model.recurrent_model.recurrent_state_size=16",
+    "algo.world_model.recurrent_model.dense_units=8", "algo.world_model.representation_model.hidden_size=8",
+    "algo.world_model.transition_model.hidden_size=8", "algo.world_model.reward_model.dense_units=8",
+    "algo.world_model.reward_model.mlp_layers=1", "algo.world_model.discount_model.dense_units=8",
+    "algo.world_model.discount_model.mlp_layers=1", "algo.actor.dense_units=8", "algo.actor.mlp_layers=1",
+    "algo.critic.dense_units=8", "algo.critic.mlp_layers=1", "algo.world_model.stochastic_size=4",
+    "algo.world_model.discrete_size=4", "algo.ensembles.n=3", "algo.ensembles.dense_units=8",
+    "algo.ensembles.mlp_layers=1", "algo.per_rank_batch_size=2",
+]
+
+
+def _hybrid_extra(card: str) -> list:
+    """A run's overrides: none on the card (``auto`` is on there); the CPU
+    rehearsal turns the path on and cuts the widths."""
+    return [] if card == "cuda" else ["fabric.accelerator=cpu", "algo.hybrid_player.enabled=true"] + HYBRID_TINY
+
+
+def _hybrid_grants(cfg, learning_starts: int, total: int) -> int:
+    """The gradient steps a fresh run's ``Ratio`` grants over ``total``
+    policy steps, replayed apart from the loop."""
+    from sheeprl_tpu_torch.utils.utils import Ratio
+
+    n = int(cfg.env.num_envs)
+    ls = learning_starts // n
+    prefill = ls - int(ls > 0)
+    ratio = Ratio(float(cfg.algo.replay_ratio), pretrain_steps=int(cfg.algo.per_rank_pretrain_steps))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return sum(ratio(it * n - prefill * n) for it in range(1, total // n + 1) if it >= ls)
+
+
+def _family_hybrid_launches(summary: dict, gru_per_step: int, two_hot: bool) -> dict:
+    """A hybrid run's exact counts: the trainer's steps launch the kernels
+    (``gru_per_step`` GRU launches a gradient step; P2E-DV3's 7 two-hot
+    losses and backward launches and 8 decodes), one scatter a flush, the
+    card's test episode one GRU step each (Dreamer V1's GRU is plain ops:
+    none); the host player, on the CPU, launches none."""
+    G = summary["gradient_steps"]
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want["gru_gates"] = G * gru_per_step + ((summary["test_steps"] or 0) if gru_per_step else 0)
+    want["ragged_ring_scatter"] = summary["replay"]["Replay/flushes"]
+    if two_hot:
+        want.update(two_hot_symlog_loss_lse=7 * G, two_hot_symlog_loss_lse_bwd=7 * G, two_hot_symexp_decode=8 * G)
+    return want
+
+
+def _hybrid_family_out(s: dict, launches: dict, want, wall: float) -> dict:
+    return {"launches": launches, "want": want, "gradient_steps": s["gradient_steps"], "bursts": s["bursts"],
+            "grad_chunk": s["grad_chunk"], "flushes": s["replay"]["Replay/flushes"], "player_steps": s["player_steps"],
+            "test_steps": s["test_steps"], "wall_s": wall, "env_steps_per_s": s["env_steps_per_s"],
+            "loop_steps_per_s": s["loop_steps_per_s"],
+            "trained_burst_host_s": [t for t, trained in s["burst_host_s"] if trained],
+            "flush_host_ms": float(np.median(s["flush_host_s"]) * 1e3), "act": _act_ms(s),
+            "snapshot_age": s["snapshot_age"], "snapshot": s["snapshot"], "metric_names": s["metric_names"],
+            "losses_last": s["metrics"][-1], "checkpoint": s["checkpoint"]}
+
+
+def _hybrid_family_run(name: str, preset_name: str, workdir: str, card: str, gru_per_step: int, two_hot: bool = False,
+                       extra=(), min_bursts: int = 1) -> dict:
+    """``run preset=<preset_name>`` at its default ``auto`` (the hybrid
+    player on the card) with the counts zeroed just before and read just
+    after: every grant ``Ratio`` gives taken in at least ``min_bursts``
+    trained bursts, the exact launches, every loss finite."""
+    learning_starts, total = HYBRID_FAMILY_TOTALS[preset_name]
+    args = [f"preset={preset_name}", f"algo.learning_starts={learning_starts}", f"algo.total_steps={total}",
+            "checkpoint.every=0", "checkpoint.save_last=true", "metric.log_level=0",
+            f"log_root={os.path.join(workdir, name)}"] + list(extra) + _hybrid_extra(card)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    s = cli.run(args)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    cfg = load_config(find_run_config(s["checkpoint"]))
+    grants = _hybrid_grants(cfg, learning_starts, total)
+    if not s["hybrid"] or s["gradient_steps"] != grants or s["bursts"] < min_bursts or s["bursts"] != s["train_calls"]:
+        raise AssertionError(f"{name}: hybrid={s['hybrid']}, {s['gradient_steps']} gradient steps of {grants} granted, "
+                             f"{s['bursts']} bursts")
+    if not np.isfinite(np.asarray(s["metrics"])).all() or len(s["metrics"]) != s["bursts"]:
+        raise AssertionError(f"{name}: losses {s['metrics']}")
+    want = _family_hybrid_launches(s, gru_per_step, two_hot) if card == "cuda" else None
+    if card == "cuda" and launches != want:
+        raise AssertionError(f"{name} hybrid launches {launches} != {want}")
+    out = _hybrid_family_out(s, launches, want, wall)
+    log(f"hybrid {name} run: " + json.dumps({k: v for k, v in out.items() if k not in ("launches", "want")}))
+    return out
+
+
+def hybrid_v2_burst_card_phase(card: str = "cuda") -> dict:
+    """64. One Dreamer V2 hybrid burst at the preset's widths (recurrent 600,
+    dense 400 x 4, CNN multiplier 48; B 16 x T 50, H 15) on the card, TF32
+    off, from seeded weights, a seeded ring and injected draws, at the
+    harness's spec on the preset's 4 envs (``grad_chunk`` 13, the 22-row
+    bucket): the staged rows appended by one ``ragged_ring_scatter_keys``
+    launch, bit-equal to the plain scatter on the CPU, then 13 steps over the
+    carry ``(cum,)`` from 95, the hard target copy every 100: the copy
+    happens at the burst's sixth step (``cum`` 100), so the target critic
+    ends as the critic after the fifth. Each step's AdamW held against the
+    CPU's on the card's own gradients and pre-step state: every element
+    within 2 lr + 1e-6, 99.9 % within 1e-6. Then the episode rule's table on
+    the card against the CPU's, bit for bit, on a 25,000 x 4 ring with
+    episode boundaries and an env with no boundary-free window, and its
+    draws."""
+    from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
+    from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent as build_v2_agent
+    from sheeprl_tpu_torch.data.ring import (build_burst_train_step, effective_stage_buckets, episode_window_table,
+                                             make_blob_layouts, pack_burst_blob, sample_window_starts)
+    from sheeprl_tpu_torch.utils.burst import dreamer_ring_keys, dreamer_stage_sizes
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    C, E, TE = 256, 4, 16
+    over = [f"algo.critic.per_rank_target_network_update_freq={HYBRID_V2_FREQ}"]
+    cfg = _v2_cfg(V2_PRESET, over + (HYBRID_TINY if card == "cpu" else []))
+    T, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
+    G = max(1, int(round(float(cfg.algo.replay_ratio) * E * TE)))
+    keys = dreamer_ring_keys(cfg.spaces.obs, ["rgb"], [], [18], with_is_first=True)
+    stage_max, stage_buckets = dreamer_stage_sizes(TE, E, C)
+    buckets = effective_stage_buckets(stage_buckets, stage_max)
+    spec = {"capacity": C, "n_envs": E, "grad_chunk": G, "seq_len": T, "batch_size": B, "ring_keys": keys,
+            "stage_buckets": buckets, "stage_max": stage_max}
+    bucket, rows = buckets[0], TE + 2
+    rng = np.random.default_rng(64)
+    ring = _resident_ring(rng, keys, C, E)
+    fresh = _resident_ring(rng, keys, rows, E)
+    staged = {k: np.zeros((bucket,) + v.shape[1:], v.dtype) for k, v in fresh.items()}
+    for k, v in fresh.items():
+        staged[k][:rows] = v
+    mask = np.zeros((bucket, E), np.int32)
+    mask[:rows] = 1
+    mask[rows - 2:, 1:] = 0  # ragged reset rows: the last two rows only env 0's
+    values = {**staged, "__mask__": mask, "__pos__": np.array([100, 120, 140, 160], np.int32),
+              "__valid_n__": np.array([100, 120, 140, 160], np.int32), "__validmask__": np.ones(G, np.float32)}
+    blob = pack_burst_blob(make_blob_layouts(keys, E, G, buckets)[bucket], values, pin_memory=card != "cpu")
+    # the CPU's append: the same blob through the plain scatter
+    plain = build_burst_train_step(lambda c, xs: (c, torch.zeros(1)), spec, lambda g: None)
+    cpu_rb = {k: torch.from_numpy(v.copy()) for k, v in ring.items()}
+    plain(0, cpu_rb, pack_burst_blob(make_blob_layouts(keys, E, G, buckets)[bucket],
+                                     {**values, "__validmask__": np.zeros(G, np.float32)}), None)
+
+    gen = torch.Generator().manual_seed(65)
+    modules = build_v2_agent(cfg, card)
+    optimizers = dv2.make_optimizers(cfg, *modules[:3])
+    draws = {"env": torch.randint(0, E, (G, B), generator=gen).to(card), "u": torch.rand((G, B), generator=gen).to(card),
+             "noise": [_to_device(dv2.draw_noise(cfg, T, B, modules[1], gen, "cpu"), card) for _ in range(G)]}
+    twins = dv2.make_optimizers(cfg, *build_v2_agent(cfg, "cpu")[:3])
+    lrs = {name: float(opt.optimizer.param_groups[0]["lr"]) for name, opt in optimizers.items()}
+    steps = {name: [] for name in optimizers}
+    critic_after = []
+    inner = {name: opt.step for name, opt in optimizers.items()}
+
+    def held(name, opt):
+        def step(g):
+            twin = twins[name]
+            with torch.no_grad():
+                for t, p in zip(twin.params, opt.params):
+                    t.copy_(p.detach().cpu())
+            twin.load_state_dict(copy.deepcopy(opt.state_dict()))
+            twin.step([x.detach().cpu() for x in g])
+            out = inner[name](g)
+            diffs = torch.cat([(p.detach().cpu() - t.detach()).abs().reshape(-1) for p, t in zip(opt.params, twin.params)])
+            steps[name].append((float(diffs.max()), float((diffs <= 1e-6).float().mean())))
+            if name == "critic":
+                critic_after.append([p.detach().cpu().clone() for p in opt.params])
+            return out
+        return step
+
+    for name, opt in optimizers.items():
+        opt.step = held(name, opt)
+    burst = dv2.make_train_step(*modules, optimizers, cfg, ring=spec)
+    rb = {k: torch.from_numpy(v.copy()).to(card) for k, v in ring.items()}
+    before = kernels.LAUNCHES["ragged_ring_scatter"]
+    t0 = time.perf_counter()
+    (cum,), rb, metrics = burst((HYBRID_V2_CUM0,), rb, blob, None, draws)
+    metrics = metrics.cpu()
+    burst_s = time.perf_counter() - t0
+    launched = kernels.LAUNCHES["ragged_ring_scatter"] - before
+    if card == "cuda" and launched != 1:
+        raise AssertionError(f"the V2 burst's append took {launched} scatter launches")
+    for k in keys:
+        if not torch.equal(rb[k].cpu(), cpu_rb[k]):
+            raise AssertionError(f"the ring's '{k}' after the V2 burst's append differs from the plain scatter's")
+    if cum != HYBRID_V2_CUM0 + G or not torch.isfinite(metrics).all():
+        raise AssertionError(f"the V2 burst ended at cum {cum}, losses {metrics.tolist()}")
+    copy_at = HYBRID_V2_FREQ - HYBRID_V2_CUM0  # the step index whose cum is a multiple of the frequency
+    target = [p.detach().cpu() for p in modules[3].parameters()]
+    if not all(torch.equal(t, c) for t, c in zip(target, critic_after[copy_at - 1])):
+        raise AssertionError("the V2 burst's hard target copy did not copy the critic as it was at cum 100")
+    if all(torch.equal(t, c) for t, c in zip(target, critic_after[-1])):
+        raise AssertionError("the target critic followed the critic past the copy")
+    out = {"grad_chunk": G, "bucket": bucket, "burst_s": burst_s, "cum": cum, "copied_at_step": copy_at,
+           "adam_on_card_gradients": {}, "losses": metrics.tolist()}
+    for name in optimizers:
+        worst = {"max_abs_err": max(m for m, _ in steps[name]), "min_share_within_1e-6": min(sh for _, sh in steps[name]),
+                 "steps": len(steps[name])}
+        out["adam_on_card_gradients"][name] = worst
+        if worst["steps"] != G or worst["max_abs_err"] > 2 * lrs[name] + 1e-6 or worst["min_share_within_1e-6"] < 0.999:
+            raise AssertionError(f"the card's V2 {name} AdamW steps differ from the CPU's on the same gradients: {worst}")
+    # the episode rule's table at the preset's ring size: 25,000 rows x 4 envs
+    CE = int(preset(V2_PRESET).buffer.size) // E
+    is_first = (rng.random((CE, E, 1)) < 0.01).astype(np.float32)
+    is_first[::2, 3] = 1.0  # env 3: a boundary every other row, no boundary-free window
+    pos = np.array([1234, 0, 20000, 777], np.int32)
+    valid = np.array([CE, 9000, CE, CE], np.int32)
+    cpu_t = episode_window_table(torch.from_numpy(pos), torch.from_numpy(valid), torch.from_numpy(is_first), CE, T)
+    dev_in = [torch.from_numpy(a).to(card) for a in (pos, valid, is_first)]
+    times = []
+    for _ in range(3):
+        if card == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_t = episode_window_table(*dev_in, CE, T)
+        if card == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    for a, b, what in zip(card_t, cpu_t, ("table", "n_valid")):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"the episode rule's {what} on the card differs from the CPU's")
+    if int(cpu_t[1][3]) != CE - T + 1:
+        raise AssertionError(f"env 3 did not fall back to its sequential starts: {int(cpu_t[1][3])}")
+    env_idx = torch.randint(0, E, (4096,), generator=gen)
+    u = torch.rand(4096, generator=gen)
+    drawn = sample_window_starts(u.to(card), env_idx.to(card), *card_t, CE, T).cpu()
+    if not torch.equal(drawn, sample_window_starts(u, env_idx, *cpu_t, CE, T)):
+        raise AssertionError("the episode rule's draws on the card differ from the CPU's")
+    out["episode_table"] = {"rows": CE, "envs": E, "n_valid": cpu_t[1].tolist(), "host_ms": times,
+                            "bit_equal": True}
+    log("hybrid V2 burst (card vs CPU): " + json.dumps({k: v for k, v in out.items() if k != "losses"}))
+    return out
+
+
+def hybrid_v2_run_phase(workdir: str, card: str = "cuda") -> dict:
+    """65. ``run preset=dreamer_v2_atari_dummy`` at its default ``auto`` on
+    the card: the preset's 4 envs and widths, ``learning_starts`` past a
+    window per env, at least 2 trained bursts of 13; every grant ``Ratio``
+    gives taken; exact launches (``gru_gates_ln`` T + H = 65 a gradient step
+    and one per test-episode step, one scatter a flush: the host player
+    launched nothing); then a resume from the checkpoint's host buffer
+    (``buffer.checkpoint``), mirrored into the ring, trains a burst with the
+    same exact counts."""
+    s = _hybrid_family_run("v2", V2_PRESET, workdir, card, gru_per_step=65, min_bursts=2)
+    if s["grad_chunk"] != HYBRID_V2_CHUNK:
+        raise AssertionError(f"the V2 hybrid run's bursts hold {s['grad_chunk']} steps")
+    saved = load_checkpoint(s["checkpoint"])
+    pos = [int(env["pos"]) for env in saved["rb"]["envs"]]
+    if any(env["full"] for env in saved["rb"]["envs"]):
+        raise AssertionError("the V2 hybrid run filled its host buffer")
+    heads = [pos, pos]  # the ring mirrored from a host buffer that has not wrapped: valid = pos
+    learning_starts, total = HYBRID_FAMILY_TOTALS[V2_PRESET]
+    kernels.reset_launches()
+    r = cli.run([f"checkpoint.resume_from={s['checkpoint']}", f"algo.total_steps={total + 4 * 40}",
+                 "algo.learning_starts=8", "algo.run_test=false", "metric.log_level=0",
+                 f"log_root={os.path.join(workdir, 'v2')}"] + _hybrid_extra(card)[:2])
+    launches = dict(kernels.LAUNCHES)
+    if not r["hybrid"] or r["ring_restored"] != heads or r["bursts"] < 1 or r["cum_restored"] != saved["cum"]:
+        raise AssertionError(f"V2 hybrid resume: ring {r['ring_restored']} (saved {heads}), {r['bursts']} bursts")
+    if card == "cuda" and launches != _family_hybrid_launches(r, 65, False):
+        raise AssertionError(f"V2 hybrid resume launches {launches}")
+    s["resume"] = {"launches": launches, "gradient_steps": r["gradient_steps"], "bursts": r["bursts"],
+                   "ring_restored": r["ring_restored"], "test_steps": 0}
+    log("hybrid V2 resume: " + json.dumps(s["resume"]))
+    return s
+
+
+def hybrid_v2_episode_run_phase(workdir: str, card: str = "cuda") -> dict:
+    """66. ``run preset=dreamer_v2_ms_pacman_dummy buffer.prioritize_ends=false``
+    at ``auto`` on the card, on the ring's episode rule, episodes cut at
+    HYBRID_EPISODE_STEPS steps so that the ring holds boundaries and
+    boundary-free windows: at least 2 trained bursts, exact launches; every
+    window drawn in the run's last burst holds no interior ``is_first``
+    wherever its env has a boundary-free window (the drawn rows and the ring
+    read back at that burst). Then ``prioritize_ends=true``: under ``auto``
+    it warns and trains coupled, under ``true`` it raises."""
+    from sheeprl_tpu_torch.data import ring as ring_module
+
+    traced = {}
+    table_fn, draw_fn = ring_module.episode_window_table, ring_module.sample_window_starts
+
+    def table(pos, valid, is_first, capacity, seq_len):
+        traced.update(pos=pos.cpu().numpy(), valid=valid.cpu().numpy(), is_first=is_first.cpu().numpy(),
+                      windows=[], seq_len=seq_len)
+        return table_fn(pos, valid, is_first, capacity, seq_len)
+
+    def draw(u, env_idx, tab, n_valid, capacity, seq_len):
+        rows = draw_fn(u, env_idx, tab, n_valid, capacity, seq_len)
+        traced["windows"].append((rows.cpu().numpy(), env_idx.cpu().numpy()))
+        return rows
+
+    ring_module.episode_window_table, ring_module.sample_window_starts = table, draw
+    try:
+        s = _hybrid_family_run("v2_episode", V2_EPISODE_PRESET, workdir, card, gru_per_step=65, min_bursts=2,
+                               extra=["buffer.prioritize_ends=false", f"env.max_episode_steps={HYBRID_EPISODE_STEPS}",
+                                      "algo.run_test=false"])
+    finally:
+        ring_module.episode_window_table, ring_module.sample_window_starts = table_fn, draw_fn
+    flags = traced["is_first"].reshape(traced["is_first"].shape[0], -1) > 0  # (C, E)
+    C, T = flags.shape[0], traced["seq_len"]
+    clean_env = []
+    for e in range(flags.shape[1]):  # does env e hold a boundary-free window the sequential rule allows?
+        n = int(traced["valid"][e])
+        starts = range(n - T + 1) if n < C else [(int(traced["pos"][e]) + d) % C for d in range(C - T + 1)]
+        clean_env.append(any(not flags[[(p + i) % C for i in range(1, T)], e].any() for p in starts))
+    mixed = checked = 0
+    for rows, envs in traced["windows"]:
+        for b, e in enumerate(envs):
+            interior = flags[rows[1:, b], e].any()
+            if clean_env[e] and interior:
+                raise AssertionError(f"an episode-rule window of env {e} crosses an episode boundary")
+            mixed += int(interior)
+            checked += 1
+    boundaries = int(flags.sum())
+    if not checked or boundaries <= flags.shape[1] or not any(clean_env):
+        raise AssertionError(f"the traced burst drew {checked} windows over {boundaries} boundaries")
+    s["episode_rule"] = {"windows_checked": checked, "boundaries": boundaries, "clean_envs": clean_env,
+                         "windows_crossing": mixed}
+    # prioritize_ends: the ring has no such bias
+    ends = [f"preset={V2_EPISODE_PRESET}", "buffer.prioritize_ends=true", "algo.total_steps=8", "algo.run_test=false",
+            "metric.log_level=0", f"log_root={os.path.join(workdir, 'ends')}"] + _hybrid_extra(card)
+    auto = [a for a in ends if not a.startswith("algo.hybrid_player")]
+    if card == "cpu":  # auto is off on the CPU: the rehearsal resolves it on, as the card does
+        from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
+
+        resolve, dv2.resolve_hybrid_player = dv2.resolve_hybrid_player, lambda hp_cfg, device: True
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            coupled = cli.run(auto)
+    finally:
+        if card == "cpu":
+            dv2.resolve_hybrid_player = resolve
+    if coupled["hybrid"] or not any("prioritize_ends" in str(w.message) for w in caught):
+        raise AssertionError("prioritize_ends under auto did not warn and train coupled")
+    try:
+        cli.run(ends + ["algo.hybrid_player.enabled=true"])
+    except ValueError as err:
+        s["prioritize_ends"] = {"auto": "warned, coupled", "true": str(err)[:80]}
+    else:
+        raise AssertionError("prioritize_ends under enabled=true did not raise")
+    log("hybrid V2 episode rule: " + json.dumps({"episode_rule": s["episode_rule"], **s["prioritize_ends"]}))
+    return s
+
+
+def hybrid_v1_explore_runs_phase(workdir: str, card: str = "cuda") -> dict:
+    """67. ``run`` of ``preset=dreamer_v1_atari_dummy`` and the P2E-DV1,
+    P2E-DV2 and P2E-DV3 exploration presets at ``auto`` on the card (P2E-DV3
+    at ``train_every`` 4: bursts of 16), each at least one trained burst,
+    every grant taken, exact launches (V1 and P2E-DV1 none but the scatter;
+    P2E-DV2 80 ``gru_gates_ln`` a gradient step; P2E-DV3 94 and its 7 + 7
+    two-hot losses and 8 decodes), ``Params/exploration_amount`` among V1's,
+    P2E-DV1's and P2E-DV2's flushed metrics. Then each finetuning preset from
+    its exploration checkpoint at ``auto``: coupled, no flush, no snapshot."""
+    families = {
+        "v1": (V1_PRESET, 0, False, [], None),
+        "p2e_dv1": (V1_EXPLORE_PRESET, 0, False, [], V1_FINETUNE_PRESET),
+        "p2e_dv2": (V2_EXPLORE_PRESET, 80, False, [], V2_FINETUNE_PRESET),
+        "p2e_dv3": (EXPLORE_PRESET, 94, True, ["algo.hybrid_player.train_every=4"], FINETUNE_PRESET),
+    }
+    out = {}
+    for name, (preset_name, gru, two_hot, extra, finetune) in families.items():
+        # the rehearsal's DreamerV3 heads: 17 bins
+        tiny_v3 = ["algo.world_model.reward_model.bins=17", "algo.critic.bins=17"] if card == "cpu" else []
+        if name == "p2e_dv3":
+            extra = list(extra) + tiny_v3
+        s = _hybrid_family_run(name, preset_name, workdir, card, gru, two_hot, list(extra) + ["algo.run_test=false"])
+        if name != "p2e_dv3" and s["metric_names"][-1] != "Params/exploration_amount":
+            raise AssertionError(f"{name}: no Params/exploration_amount among {s['metric_names']}")
+        if finetune is not None:
+            kernels.reset_launches()
+            starts = HYBRID_FAMILY_TOTALS[preset_name][0]  # a window per env before the first grant
+            f = cli.run([f"preset={finetune}", f"checkpoint.exploration_ckpt_path={s['checkpoint']}",
+                         f"algo.learning_starts={starts}", f"algo.total_steps={starts + 24}", "algo.run_test=false",
+                         "metric.log_level=0",
+                         "checkpoint.save_last=false", f"log_root={os.path.join(workdir, name + '_finetune')}"]
+                        + _hybrid_extra(card) + (tiny_v3 if name == "p2e_dv3" else []))
+            launches = dict(kernels.LAUNCHES)
+            if f["hybrid"] or "bursts" in f or "snapshot" in f or launches["ragged_ring_scatter"] or not f["train_calls"]:
+                raise AssertionError(f"{name} finetuning under auto: hybrid={f['hybrid']}, launches {launches}")
+            s["finetune"] = {"launches": launches, "gradient_steps": f["gradient_steps"], "train_calls": f["train_calls"],
+                             "switched_at": f["switched_at"], "hybrid": False}
+        out[name] = s
+    log("hybrid V1/P2E runs: " + json.dumps({k: {"bursts": v["bursts"], "gradient_steps": v["gradient_steps"],
+                                                  "env_steps_per_s": v["env_steps_per_s"]} for k, v in out.items()}))
+    return out
+
+
 # -- lanes -------------------------------------------------------------------
 #
 # After the kernel phases (1-3, 11, 14, 21), which the main process runs
@@ -9145,22 +9570,36 @@ def _lane_sebulba_rssm(timed) -> dict:
     return r
 
 
+def _lane_hybrid_v2(timed) -> dict:
+    r = {"hybrid_v2_burst_card": timed("hybrid_v2_burst_card", hybrid_v2_burst_card_phase)}
+    with tempfile.TemporaryDirectory() as workdir:
+        r["hybrid_v2_run"] = timed("hybrid_v2_run", hybrid_v2_run_phase, workdir)
+        r["hybrid_v2_episode_run"] = timed("hybrid_v2_episode_run", hybrid_v2_episode_run_phase, workdir)
+    return r
+
+
+def _lane_hybrid_families(timed) -> dict:
+    with tempfile.TemporaryDirectory() as workdir:
+        return {"hybrid_v1_explore_runs": timed("hybrid_v1_explore_runs", hybrid_v1_explore_runs_phase, workdir)}
+
+
 #: each lane's groups, run in order by one worker; balanced on a serial
 #: run's seconds by phase (the SAC run alone is ~200 s); the async PPO runs
 #: in the Anakin lane, the async SAC runs in the SAC lane, the pipeline's
 #: card checks (a ~25 s rebuild of gae among them) and the Anakin population
 #: in the PPO/DreamerV3 lane; dreamer_sebulba (58-59), then the hybrid player
-#: and the profiler (60-63), in a fifth lane, as every other lane was near ~360 s
+#: and the profiler (60-63) and the hybrid Dreamer V2, V1 and P2E phases
+#: (64-67, ~112 s alone), in a fifth lane, as every other lane was near ~360 s
 LANES = {
     "sac": (_lane_sac, _lane_classic, _lane_bf16, _lane_async_sac),
     "anakin": (_lane_anakin, _lane_onpolicy, _lane_async_ppo),
     "ppo_rssm": (_lane_ppo, _lane_rssm, _lane_resident, _lane_explore, _lane_pipeline, _lane_population),
     "families": (_lane_runtime, _lane_continuous, _lane_offpolicy, _lane_v2, _lane_v1),
-    "sebulba_rssm": (_lane_sebulba_rssm, _lane_hybrid),
+    "sebulba_rssm": (_lane_sebulba_rssm, _lane_hybrid, _lane_hybrid_v2, _lane_hybrid_families),
 }
 #: torch threads of a lane: the first four split the host's cores as they did
 #: alone; the dreamer_sebulba lane's learner and actors mostly launch kernels
-#: under the GIL, so it takes one, and runs the hybrid player's phases (60-63)
+#: under the GIL, so it takes one, and runs the hybrid player's phases (60-67)
 #: after them: a sixth lane of their own slowed the others by 12-26 % on 8 cores
 LANE_THREADS = {"sebulba_rssm": 1}
 _LANE_TAG = ""
@@ -9325,6 +9764,23 @@ def main() -> int:
     hybrid, hybrid_sac, profiled = R["hybrid_rssm_run"], R["hybrid_sac_run"], R["profiler_card"]
     paths.update({"hybrid_rssm": hybrid, "hybrid_rssm_resume": hybrid["resume"], "hybrid_sac": hybrid_sac,
                   "hybrid_sac_resume": hybrid_sac["resume"], "profiler_ppo": profiled})
+    hybrid_v2, families = R["hybrid_v2_run"], R["hybrid_v1_explore_runs"]
+    paths.update({"hybrid_v2": hybrid_v2, "hybrid_v2_resume": hybrid_v2["resume"],
+                  "hybrid_v2_episode": R["hybrid_v2_episode_run"],
+                  **{f"hybrid_{name}": run for name, run in families.items()},
+                  **{f"hybrid_{name}_finetune": run["finetune"] for name, run in families.items() if "finetune" in run}})
+    # each family's hybrid run beside its coupled phase's run of the same preset (1 env there, 4 here)
+    coupled = {"v2": v2_run, "v1": v1_run, "p2e_dv1": p2e_dv1["exploration"], "p2e_dv2": p2e_dv2["exploration"],
+               "p2e_dv3": explore}
+    hybrid_runs = {"v2": hybrid_v2, **families}
+    log("hybrid against coupled: " + json.dumps({
+        name: {"hybrid_env_steps_per_s": hybrid_runs[name]["env_steps_per_s"],
+               "hybrid_loop_steps_per_s": hybrid_runs[name]["loop_steps_per_s"],
+               "coupled_env_steps_per_s": run.get("env_steps_per_s"),
+               "coupled_loop_steps_per_s": run.get("loop_steps_per_s"),
+               "burst_host_s": hybrid_runs[name]["trained_burst_host_s"], "act": hybrid_runs[name]["act"],
+               "snapshot_bytes": hybrid_runs[name]["snapshot"]["bytes"],
+               "snapshot_age": hybrid_runs[name]["snapshot_age"]} for name, run in coupled.items()}))
     rows = [gru] + two_hot + [gae_row, sumtree_row, scatter_row]
     for row in rows:
         row["launches_by_path"] = {name: path["launches"][row["name"]] for name, path in paths.items()}
@@ -9340,7 +9796,7 @@ def main() -> int:
                                    v2_test=v2_run["test_steps"], p2e_dv2_exploration_test=p2e_dv2["exploration"]["test_steps"],
                                    p2e_dv2_finetuning_test=p2e_dv2["finetuning"]["test_steps"],
                                    dreamer_sebulba_test=R["rssm_sebulba_run"]["test_steps"],
-                                   hybrid_rssm_test=hybrid["test_steps"],
+                                   hybrid_rssm_test=hybrid["test_steps"], hybrid_v2_test=hybrid_v2["test_steps"],
                                    dreamer_sebulba_act_steps=R["rssm_sebulba_run"]["act_steps"],
                                    dreamer_sebulba_resume_act_steps=R["rssm_sebulba_run"]["resume"]["act_steps"])
     gru["eval_shape"]["floor_ms"] = floor

@@ -40,6 +40,7 @@ from sheeprl_tpu_torch.algos.dreamer_v2.agent import (
     Head,
     MLPDecoder,
     MLPEncoder,
+    PlayerModules,
     actor_dists,
     actor_sample,
     add_exploration_noise,
@@ -55,6 +56,7 @@ __all__ = [
     "RecurrentModel",
     "WorldModel",
     "PlayerDV1",
+    "player_subset",
     "compute_stochastic_state",
     "actor_dists",
     "actor_sample",
@@ -170,7 +172,8 @@ class WorldModel(nn.Module):
 
     @property
     def stochastic_size(self) -> int:
-        return self.transition_model.out.out_features // 2
+        # the representation head gives the posterior's mean and std, as the transition the prior's
+        return self.representation_model.out.out_features // 2
 
     def representation(self, recurrent_state: torch.Tensor, embedded_obs: torch.Tensor,
                        noise: Optional[torch.Tensor]):
@@ -226,7 +229,7 @@ class PlayerDV1:
     def init_states(self, reset_envs: Optional[Sequence[int]] = None) -> None:
         wm = self.world_model
         if reset_envs is None or len(reset_envs) == 0:
-            device = wm.transition_model.out.weight.device
+            device = wm.representation_model.out.weight.device
             self.actions = torch.zeros((self.num_envs, sum(self.actor.actions_dim)), device=device)
             self.recurrent_state = torch.zeros((self.num_envs, wm.recurrent_model.rnn.hidden_size), device=device)
             self.stochastic_state = torch.zeros((self.num_envs, wm.stochastic_size), device=device)
@@ -251,6 +254,16 @@ class PlayerDV1:
         self.actions = torch.cat(acts, dim=-1)
         self.recurrent_state, self.stochastic_state = rec, stoch
         return acts
+
+
+def player_subset(world_model: WorldModel, actor: nn.Module) -> PlayerModules:
+    """What the hybrid host player needs of a Dreamer V1 agent (the JAX
+    loop's ``_player_subset``): the encoder, the recurrent and
+    representation models and the acting actor, sharing the trainer's
+    tensors."""
+    sub = WorldModel(world_model.encoder, world_model.recurrent_model, world_model.representation_model, None,
+                     world_model.min_std)
+    return PlayerModules(sub, actor)
 
 
 # -- initialization from a seed (JAX: agent.py:329-534) ------------------------

@@ -31,8 +31,10 @@ The loop is the Dreamer V2 family's :func:`~sheeprl_tpu_torch.algos.dreamer_v2.d
 with V1's player and V1's rows (no ``is_first``), on the per-env sequential
 buffer whatever ``buffer.type`` says, as the JAX V1 loop keeps it; ``Ratio``
 with ``per_rank_pretrain_steps``; the player's ``expl_amount`` logged as
-``Params/exploration_amount``. It runs unguarded, as the JAX loop does. The
-JAX loop's hybrid burst player is not ported.
+``Params/exploration_amount``. It runs unguarded, as the JAX loop does.
+With the hybrid host player (``algo.hybrid_player``) the loop's burst path
+runs :func:`make_train_step`'s ``ring`` variant over a carry with no
+counter and a ring without ``is_first``, V1's rows having none.
 """
 
 from __future__ import annotations
@@ -41,11 +43,11 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from sheeprl_tpu_torch.algos.dreamer_v1.agent import PlayerDV1, WorldModel, actor_sample, build_agent
+from sheeprl_tpu_torch.algos.dreamer_v1.agent import PlayerDV1, WorldModel, actor_sample, build_agent, player_subset
 from sheeprl_tpu_torch.algos.dreamer_v1.loss import actor_loss, critic_loss, reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v1.utils import compute_lambda_values
 from sheeprl_tpu_torch.algos.dreamer_v2.agent import Actor, draw_actor_noise
-from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import make_optimizers, run_loop, start_run
+from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import burst_train_step, make_optimizers, run_loop, start_run
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_NAMES, _grads
 from sheeprl_tpu_torch.distributions import BernoulliSafeMode, Independent, Normal
 from sheeprl_tpu_torch.fault import load_resume_state
@@ -183,13 +185,15 @@ def critic_step(critic: torch.nn.Module, optimizer: ClippedOptimizer, traj: torc
 
 
 def make_train_step(world_model: WorldModel, actor: Actor, critic: torch.nn.Module,
-                    optimizers: Dict[str, ClippedOptimizer], cfg: Any) -> Callable:
+                    optimizers: Dict[str, ClippedOptimizer], cfg: Any, ring: Optional[Dict[str, Any]] = None
+                    ) -> Callable:
     """The G-step update: ``train(data, generator=None, noise=None) ->
     metrics``. ``data`` holds ``(G, T, B, ...)`` float tensors on the
     modules' device (pixels in ``[0, 255]``); ``noise`` is a list of G
     :func:`draw_noise` dicts, else the draws come from ``generator``. The
     modules and optimizers are updated in place; ``metrics`` is ``(G, 10)``
-    in :data:`METRIC_NAMES` order."""
+    in :data:`METRIC_NAMES` order. With ``ring`` the step body becomes the
+    ring's burst over the carry ``()`` (JAX's ``(params, opts)``)."""
 
     def gradient_step(batch: Dict[str, torch.Tensor], noise: Dict[str, Any]) -> torch.Tensor:
         posts, recs, _, losses, (post_ent, prior_ent) = world_model_step(
@@ -203,6 +207,10 @@ def make_train_step(world_model: WorldModel, actor: Actor, critic: torch.nn.Modu
         rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
         return torch.stack([rec_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, post_ent,
                             prior_ent, loss, value_loss]).detach()
+
+    if ring is not None:
+        return burst_train_step(gradient_step, ring, lambda gen, T, B: draw_noise(cfg, T, B, actor, gen, gen.device),
+                                counted=False)
 
     def train(data: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
               noise: Optional[List[Dict[str, Any]]] = None) -> torch.Tensor:
@@ -221,14 +229,21 @@ class DreamerV1Learner:
     """The world model, actor and critic under :func:`make_train_step`; the
     player (:class:`PlayerDV1`) acts with the actor, after random actions
     until ``learning_starts``. Each metric row ends in the player's
-    ``expl_amount`` (``Params/exploration_amount``)."""
+    ``expl_amount`` (``Params/exploration_amount``), the hybrid player's
+    through the harness's extra metrics."""
 
     random_prefill = True
     metric_names = METRIC_NAMES + ("Params/exploration_amount",)
     player_cls = PlayerDV1
     rows_with_is_first = False
+    hybrid = True
+    episode_rule = False  # the buffer is per-env sequential whatever buffer.type says
+    exploration_metric = True
+    burst_metric_names = METRIC_NAMES
+    burst_carry = ()
 
     def __init__(self, cfg: Any, device: torch.device, state: Optional[Dict[str, Any]]) -> None:
+        self.cfg = cfg
         self.world_model, self.actor, self.critic = build_agent(cfg, device, state)
         self.optimizers = make_optimizers(cfg, self.world_model, self.actor, self.critic)
         if state is not None:
@@ -240,6 +255,16 @@ class DreamerV1Learner:
 
     def player_actor(self, granted: bool) -> torch.nn.Module:
         return self.actor
+
+    def player_modules(self) -> torch.nn.Module:
+        return player_subset(self.world_model, self.actor)
+
+    @property
+    def train_modules(self) -> tuple:
+        return self.world_model, self.actor, self.critic
+
+    def burst(self, ring: Dict[str, Any]) -> Callable:
+        return make_train_step(self.world_model, self.actor, self.critic, self.optimizers, self.cfg, ring=ring)
 
     def train(self, data, cum, generator):
         return [row + [self.expl_amount] for row in self._train(data, generator).cpu().tolist()]

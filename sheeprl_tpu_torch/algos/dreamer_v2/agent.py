@@ -55,6 +55,8 @@ __all__ = [
     "actor_sample",
     "add_exploration_noise",
     "PlayerDV2",
+    "PlayerModules",
+    "player_subset",
     "build_agent",
     "xavier_normal_",
     "GREEDY_SAMPLES",
@@ -404,10 +406,12 @@ class PlayerDV2:
     def init_states(self, reset_envs: Optional[Sequence[int]] = None) -> None:
         wm = self.world_model
         if reset_envs is None or len(reset_envs) == 0:
-            device = wm.transition_model.out.weight.device
+            # the representation head's width is the stochastic state's (S*D), as the transition's
+            device = wm.representation_model.out.weight.device
             self.actions = torch.zeros((self.num_envs, sum(self.actor.actions_dim)), device=device)
             self.recurrent_state = torch.zeros((self.num_envs, wm.recurrent_model.rnn.hidden_size), device=device)
-            self.stochastic_state = torch.zeros((self.num_envs, wm.transition_model.out.out_features), device=device)
+            self.stochastic_state = torch.zeros((self.num_envs, wm.representation_model.out.out_features),
+                                                device=device)
             return
         idx = torch.as_tensor(list(reset_envs), device=self.actions.device)
         for t in (self.actions, self.recurrent_state, self.stochastic_state):
@@ -429,6 +433,27 @@ class PlayerDV2:
         self.actions = torch.cat(acts, dim=-1)
         self.recurrent_state, self.stochastic_state = rec, stoch
         return acts
+
+
+class PlayerModules(nn.Module):
+    """The modules a player acts with: ``world_model`` (the subset of
+    :func:`player_subset`) and ``actor``."""
+
+    def __init__(self, world_model: nn.Module, actor: nn.Module) -> None:
+        super().__init__()
+        self.world_model = world_model
+        self.actor = actor
+
+
+def player_subset(world_model: WorldModel, actor: Actor) -> PlayerModules:
+    """What the hybrid host player needs of a Dreamer V2 agent (the JAX
+    loop's ``_player_subset``): the encoder, the recurrent and
+    representation models and the acting actor, sharing the trainer's
+    tensors. The transition model, decoders, heads, critics and optimizer
+    state stay on the card."""
+    sub = WorldModel(world_model.encoder, world_model.recurrent_model, world_model.representation_model, None,
+                     world_model.discrete)
+    return PlayerModules(sub, actor)
 
 
 # -- initialization from a seed (JAX: agent.py:646-671) ----------------------

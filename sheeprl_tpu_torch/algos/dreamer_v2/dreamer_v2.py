@@ -36,15 +36,21 @@ the JAX loop's host tier: ``buffer.type`` ``sequential`` (per-env
 ``per_rank_pretrain_steps``; the JAX loop's rows (the first observation
 with ``is_first``, then each observation after its action, and a reset row
 for each env that just finished). It runs unguarded, as the JAX V2 loop
-does. The JAX loop's hybrid burst player is not ported.
+does. With the hybrid host player (``algo.hybrid_player``, JAX's default on
+the card) the player acts on the host CPU, the rows stream to a sequence
+ring on the card (the episode buffer through the ring's episode rule) and a
+trainer thread takes the granted steps in bursts (:func:`make_train_step`'s
+``ring`` variant, :class:`~sheeprl_tpu_torch.utils.burst.HybridPlayerHarness`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import os
 import time
 import warnings
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -57,6 +63,7 @@ from sheeprl_tpu_torch.algos.dreamer_v2.agent import (
     actor_dists,
     actor_sample,
     build_agent,
+    player_subset,
 )
 from sheeprl_tpu_torch.algos.dreamer_v2.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v2.utils import compute_lambda_values, prepare_obs, test
@@ -64,15 +71,17 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import action_dims
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_NAMES, _grads
 from sheeprl_tpu_torch.config import dotdict, plain
 from sheeprl_tpu_torch.data import EnvIndependentReplayBuffer, EpisodeBuffer
+from sheeprl_tpu_torch.data.ring import build_burst_train_step
 from sheeprl_tpu_torch.distributions import BernoulliSafeMode, Independent, Normal, OneHotCategorical
 from sheeprl_tpu_torch.envs import make_vector_env
 from sheeprl_tpu_torch.fault import CheckpointManager, load_resume_state
 from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
+from sheeprl_tpu_torch.utils.burst import HybridPlayerHarness, dreamer_ring_keys
 from sheeprl_tpu_torch.utils.checkpoint import write_run_config
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric, build_aggregator
 from sheeprl_tpu_torch.utils.timer import log_timers, timer
-from sheeprl_tpu_torch.utils.utils import Ratio
+from sheeprl_tpu_torch.utils.utils import Ratio, resolve_hybrid_player
 
 __all__ = [
     "METRIC_NAMES",
@@ -272,14 +281,22 @@ def state_entropies(cfg: Any, post_logits: torch.Tensor, prior_logits: torch.Ten
 
 
 def make_train_step(world_model: WorldModel, actor: Actor, critic: torch.nn.Module, target_critic: torch.nn.Module,
-                    optimizers: Dict[str, ClippedOptimizer], cfg: Any) -> Callable:
+                    optimizers: Dict[str, ClippedOptimizer], cfg: Any, ring: Optional[Dict[str, Any]] = None
+                    ) -> Callable:
     """The G-step update: ``train(data, cum0, generator=None, noise=None) ->
     metrics``. ``data`` holds ``(G, T, B, ...)`` float tensors on the
     modules' device (pixels in ``[0, 255]``); ``cum0`` counts the run's
     gradient steps before the call (the target copy's phase); ``noise`` is a
     list of G :func:`draw_noise` dicts, else the draws come from
     ``generator``. The modules and optimizers are updated in place;
-    ``metrics`` is ``(G, 10)`` in :data:`METRIC_NAMES` order."""
+    ``metrics`` is ``(G, 10)`` in :data:`METRIC_NAMES` order.
+
+    With ``ring`` (the hybrid player's ring spec) the same step body becomes
+    the ring's burst (:func:`~sheeprl_tpu_torch.data.ring.build_burst_train_step`)
+    over the carry ``(cum,)``, the gradient steps taken since the run
+    started, so a burst that straddles a hard target copy copies at the
+    step the coupled loop copies at: ``burst(carry, rb, blob, generator=None,
+    draws=None) -> (carry, rb, metrics)``."""
     freq = int(cfg.algo.critic.per_rank_target_network_update_freq)
     gamma = float(cfg.algo.gamma)
     pairs = [(list(critic.parameters()), list(target_critic.parameters()))]
@@ -300,6 +317,10 @@ def make_train_step(world_model: WorldModel, actor: Actor, critic: torch.nn.Modu
         return torch.stack([rec_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, post_ent,
                             prior_ent, loss, value_loss]).detach()
 
+    if ring is not None:
+        return burst_train_step(gradient_step, ring, lambda gen, T, B: draw_noise(cfg, T, B, actor, gen, gen.device),
+                                counted=True)
+
     def train(data: Dict[str, torch.Tensor], cum0: int, generator: Optional[torch.Generator] = None,
               noise: Optional[List[Dict[str, Any]]] = None) -> torch.Tensor:
         n_steps, T, B = data["actions"].shape[:3]
@@ -311,6 +332,28 @@ def make_train_step(world_model: WorldModel, actor: Actor, critic: torch.nn.Modu
         return torch.stack(rows, dim=0)
 
     return train
+
+
+def burst_train_step(step: Callable, ring: Dict[str, Any], draw: Callable, counted: bool,
+                     names: Optional[Sequence[str]] = None) -> Callable:
+    """A V2-family step body as the ring's burst. ``step(batch, cum, noise)``
+    (``counted``: the carry is ``(cum,)``, the target copies' phase, as JAX's
+    ``(params, opts, cum)``) or ``step(batch, noise)`` (the carry is ``()``,
+    V1's ``(params, opts)``) returns one metric row; ``draw(generator, T,
+    B)`` one step's noise. With ``names`` a step's metrics are a dict keyed
+    by them, as the P2E steps return theirs."""
+    seq_len, batch_size = int(ring["seq_len"]), int(ring["batch_size"])
+
+    def carry_step(carry, xs):
+        batch, noise = xs
+        if counted:
+            (cum,) = carry
+            row, carry = step(batch, cum, noise), (cum + 1,)
+        else:
+            row = step(batch, noise)
+        return carry, (dict(zip(names, row.unbind())) if names is not None else row)
+
+    return build_burst_train_step(carry_step, ring, lambda gen: draw(gen, seq_len, batch_size))
 
 
 # -- the loop ------------------------------------------------------------------
@@ -371,13 +414,13 @@ def _load_buffer(rb: Any, saved: Dict[str, Any]) -> None:
 
 def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], log_dir: str, logger: Any, envs: Any,
              learner: Any, saved_rb: Optional[Dict[str, Any]]) -> Dict[str, Any]:
-    """The coupled host-buffer loop of the Dreamer V2 family (the JAX V2
-    loops' body): step the envs with the player, store the JAX loop's rows,
-    take the gradient steps ``Ratio`` grants through ``learner.train``, log
-    at ``metric.log_every`` and checkpoint. ``state`` is the resumed run's
+    """The host-buffer loop of the Dreamer V2 family (the JAX V2 loops'
+    body): step the envs with the player, store the JAX loop's rows, take
+    the gradient steps ``Ratio`` grants through ``learner.train``, log at
+    ``metric.log_every`` and checkpoint. ``state`` is the resumed run's
     checkpoint (None on a fresh run); ``saved_rb`` a buffer state to
     restore. With ``algo.run_test`` the run ends in a greedy test episode of
-    ``learner.test_actor``. Returns the run's summary.
+    ``learner.test_actor`` on the card. Returns the run's summary.
 
     ``learner`` holds ``world_model``, ``metric_names``, ``random_prefill``
     (random actions until ``learning_starts`` on a fresh run),
@@ -389,6 +432,24 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
     generator)`` (a list of metric rows; ``cum`` the run's gradient steps
     before, the target copies' phase) and ``state()`` (the checkpoint's
     modules and optimizers).
+
+    The hybrid host player (``algo.hybrid_player``, on by ``auto`` on the
+    card, as in JAX) needs ``learner.hybrid``; the finetuning learners have
+    it off and train coupled whatever the key says, as JAX's finetuning
+    loops never read it. Then the player acts on the host CPU with a copy of
+    ``learner.player_modules()`` refreshed from the card, the rows go to the
+    ring on the card in flushes, and a trainer thread runs the granted steps
+    in bursts of ``learner.burst(ring)`` over ``learner.burst_carry``,
+    restoring ``learner.train_modules``/``learner.optimizers`` before a
+    retried burst; ``learner.exploration_metric`` adds the player's
+    ``expl_amount`` as ``Params/exploration_amount``. ``buffer.type=episode``
+    runs the ring's episode rule where ``learner.episode_rule`` (Dreamer V2);
+    P2E-DV2 warns and trains coupled. With the episode buffer,
+    ``buffer.prioritize_ends`` raises under ``enabled=true`` and warns and
+    trains coupled under ``auto``, and a resume with ``buffer.checkpoint``
+    warns and trains coupled. The host buffer is kept with the hybrid player
+    only for ``buffer.checkpoint``; a sequential one restored from a
+    checkpoint is mirrored into the ring.
 
     The checkpoint also holds ``cum``, the gradient steps of the run and of
     the runs it resumed; a resumed run reads it back (its summary's
@@ -431,9 +492,10 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
     log_level = int(cfg.metric.get("log_level", 1))
     log_every = int(cfg.metric.get("log_every", 5000))
     action_repeat = int(cfg.env.get("action_repeat", 1) or 1)
-    train_step = int(state.get("train_step", 0)) if state is not None else 0
+    train_step = resumed_train_steps = int(state.get("train_step", 0)) if state is not None else 0
     last_train = int(state.get("last_train", 0)) if state is not None else 0
     cum_before = int(state.get("cum", 0)) if state is not None else 0
+    checkpoint_rb = bool(cfg.buffer.get("checkpoint", False))
     if log_level > 0 and log_every % num_envs != 0:
         warnings.warn(f"The metric.log_every parameter ({log_every}) is not a multiple of the "
                       f"policy_steps_per_iter value ({num_envs}).")
@@ -450,6 +512,52 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
     player = player_cls(learner.world_model, learner.player_actor(granted=False), num_envs, generator, expl_amount)
     clip_rewards = bool(cfg.env.get("clip_rewards", False))
 
+    hp_cfg = cfg.algo.get("hybrid_player") or {}
+    hybrid = learner.hybrid and resolve_hybrid_player(hp_cfg, device)
+    episode_rule = hybrid and episode_buffer
+    if episode_rule and not learner.episode_rule:
+        warnings.warn("hybrid_player burst mode requires buffer.type=sequential; falling back to host sampling")
+        hybrid = episode_rule = False
+    if episode_rule and bool(cfg.buffer.get("prioritize_ends", False)):
+        # a config conflict: under an explicit enabled=true it raises rather than drop the bias or the burst
+        msg = ("buffer.prioritize_ends is a host-path sampling bias not implemented by the device ring's "
+               "episode-rule sampling. Unset it to use the hybrid player with the episode buffer, or set "
+               "algo.hybrid_player.enabled=false.")
+        if str(hp_cfg.get("enabled", "auto")).lower() == "true":
+            raise ValueError(msg)
+        warnings.warn(msg + " hybrid_player was 'auto': falling back to host-path sampling.")
+        hybrid = episode_rule = False
+    if episode_rule and state is not None and checkpoint_rb:
+        # the run must stay resumable with its own config: never an error
+        warnings.warn("Resuming an episode buffer cannot mirror the device ring (episodes are not a per-env "
+                      "sequential layout): this resumed run keeps host-path sampling. Use buffer.type=sequential "
+                      "if you need burst mode across resumes.")
+        hybrid = episode_rule = False
+    host_mirror = not hybrid or checkpoint_rb
+    hp: Optional[HybridPlayerHarness] = None
+    act_player = player
+    if hybrid:
+        card_sub = learner.player_modules()
+        host_sub = copy.deepcopy(card_sub).to("cpu")  # the host player's modules
+        hp = HybridPlayerHarness(
+            cfg, ring_keys=dreamer_ring_keys(cfg.spaces.obs, cnn_keys, mlp_keys, actions_dim, with_is_first),
+            capacity=int(cfg.buffer.size) // num_envs if not dry_run else 4,
+            seq_len=seq_len, batch_size=batch_size, policy_steps_per_iter=num_envs, make_burst_fn=learner.burst,
+            player_card=[*card_sub.parameters(), *card_sub.buffers()],
+            player_host=[*host_sub.parameters(), *host_sub.buffers()],
+            carry=learner.burst_carry, device=device, train_modules=learner.train_modules,
+            optimizers=list(learner.optimizers.values()),
+            rb=rb if saved_rb is not None and not episode_buffer else None,
+            metric_names=learner.burst_metric_names, aggregator=aggregator, ring_spec={"episode_rule": episode_rule},
+        )
+        if state is not None and state.get("host_rng") is not None:
+            hp.host_generator.set_state(state["host_rng"])
+        if state is not None and state.get("rng") is not None:
+            hp.generator.set_state(state["rng"])
+        act_player = player_cls(host_sub.world_model, host_sub.actor, num_envs, hp.host_generator, expl_amount)
+        if learner.exploration_metric:
+            hp.extra_metrics["Params/exploration_amount"] = lambda: act_player.expl_amount
+
     # the first observation: its row has a zero action and reward (and is_first)
     step_data: Dict[str, np.ndarray] = {}
     obs = envs.reset(seed=seed)[0]
@@ -461,20 +569,29 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
     step_data["rewards"] = np.zeros((1, num_envs, 1), dtype=np.float32)
     if with_is_first:
         step_data["is_first"] = np.ones((1, num_envs, 1), dtype=np.float32)
-    rb.add(step_data)
-    player.init_states()
+    if host_mirror:
+        rb.add(step_data)
+    if hybrid:
+        hp.stage_step(step_data)
+    act_player.init_states()
 
     summary: Dict[str, Any] = {"start_iter": start_iter, "metrics": [], "train_host_s": [], "checkpoint": None,
                                "device": str(device), "test_reward": None, "test_steps": None,
                                "metric_names": list(learner.metric_names), "switched_at": None,
                                "buffer_type": "episode" if episode_buffer else "sequential", "cum_restored": cum_before,
-                               "restored_buffer": restored}
+                               "restored_buffer": restored, "hybrid": hybrid, "episode_rule": episode_rule,
+                               "act_host_s": [],
+                               # the ring's heads as a resume mirrored them from the host buffer
+                               "ring_restored": ([hp.runner.dev_pos.tolist(), hp.runner.dev_valid.tolist()]
+                                                 if hybrid and saved_rb is not None else None)}
     cum_gradient_steps = 0  # the target copies' phase: a resumed run starts again at 0, as the JAX loop does
     player_steps = 0
     env_s = 0.0
     t_loop = time.perf_counter()
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += num_envs
+        if hybrid:
+            hp.poll()  # the newest snapshot that has landed
         t_env = time.perf_counter()
         with timer("Time/env_interaction_time", SumMetric):
             prefill = learner.random_prefill and iter_num <= learning_starts and state is None
@@ -488,7 +605,12 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
                 )
             else:
                 prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=num_envs)
-                acts = player.get_actions({k: torch.from_numpy(v).to(device) for k, v in prepared.items()})
+                t_act, busy = time.perf_counter(), hybrid and hp.trainer.busy
+                # the hybrid player acts on the host CPU: nothing goes to the card
+                act_device = "cpu" if hybrid else device
+                acts = act_player.get_actions({k: torch.from_numpy(v).to(act_device) for k, v in prepared.items()})
+                if hybrid:
+                    summary["act_host_s"].append((time.perf_counter() - t_act, busy or hp.trainer.busy))
                 player_steps += 1
                 actions = torch.cat(acts, dim=-1).float().cpu().numpy()
                 real_actions = actions if is_continuous else np.stack([a.argmax(dim=-1).cpu().numpy() for a in acts],
@@ -523,7 +645,10 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
         step_data["actions"] = actions.reshape(1, num_envs, -1).astype(np.float32)
         rewards = np.asarray(rewards, dtype=np.float32).reshape(1, num_envs, -1)
         step_data["rewards"] = np.tanh(rewards) if clip_rewards else rewards
-        rb.add(step_data)
+        if host_mirror:
+            rb.add(step_data)
+        if hybrid:
+            hp.stage_step(step_data)
 
         dones_idxes = np.asarray(dones).reshape(num_envs).nonzero()[0].tolist()
         if dones_idxes:
@@ -535,12 +660,21 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
             reset_data["actions"] = np.zeros((1, n, int(np.sum(actions_dim))), dtype=np.float32)
             if with_is_first:
                 reset_data["is_first"] = np.ones((1, n, 1), dtype=np.float32)
-            rb.add(reset_data, dones_idxes)
+            if host_mirror:
+                rb.add(reset_data, dones_idxes)
+            if hybrid:
+                hp.stage_reset(reset_data, dones_idxes)
             step_data["terminated"][:, dones_idxes] = 0.0
             step_data["truncated"][:, dones_idxes] = 0.0
-            player.init_states(dones_idxes)
+            act_player.init_states(dones_idxes)
 
-        if iter_num >= learning_starts:
+        if hybrid:
+            if iter_num >= learning_starts:
+                hp.grant(ratio(policy_step - prefill_steps * num_envs))
+            # the flushes are handed to the trainer thread; the env loop never waits on the card
+            hp.pump()
+            cum_gradient_steps, train_step = hp.gradient_steps, resumed_train_steps + hp.train_steps
+        elif iter_num >= learning_starts:
             gradient_steps = ratio(policy_step - prefill_steps * num_envs)
             if gradient_steps > 0:
                 actor = learner.player_actor(granted=True)
@@ -578,23 +712,42 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
             iter_num == total_iters and cfg.checkpoint.get("save_last", False)
         ):
             last_checkpoint = policy_step
-            ckpt_state = {
-                **learner.state(),
-                "ratio": ratio.state_dict(),
-                "iter_num": iter_num,
-                "batch_size": batch_size,
-                "last_log": last_log,
-                "last_checkpoint": last_checkpoint,
-                "train_step": train_step,
-                "last_train": last_train,
-                "cum": cum_before + cum_gradient_steps,
-                "rng": generator.get_state(),
-            }
-            if cfg.buffer.get("checkpoint", False):
-                ckpt_state["rb"] = rb.checkpoint_state_dict()
-            path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
-            summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+            # with the hybrid player, the trainer's state between two bursts (at most one burst stale, as in JAX)
+            with hp.trainer.train_lock if hybrid else contextlib.nullcontext():
+                ckpt_state = {
+                    **learner.state(),
+                    "ratio": ratio.state_dict(),
+                    "iter_num": iter_num,
+                    "batch_size": batch_size,
+                    "last_log": last_log,
+                    "last_checkpoint": last_checkpoint,
+                    "train_step": train_step,
+                    "last_train": last_train,
+                    "cum": cum_before + cum_gradient_steps,
+                    "rng": (hp.generator if hybrid else generator).get_state(),
+                }
+                if hybrid:
+                    ckpt_state["host_rng"] = hp.host_generator.get_state()
+                if checkpoint_rb:
+                    ckpt_state["rb"] = rb.checkpoint_state_dict()
+                path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
+                summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
 
+    if hybrid:
+        # the tail: grants that can never run (an env still shorter than a window) go with the run
+        hp.finish()
+        cum_gradient_steps, train_step = hp.gradient_steps, resumed_train_steps + hp.train_steps
+        summary.update(
+            metrics=list(hp.metric_rows), metric_names=list(hp.metric_names), bursts=hp.runner.bursts,
+            burst_host_s=list(hp.trainer.step_host_s), flush_host_s=list(hp.flush_host_s),
+            snapshot_age=hp.snapshot_age, grad_chunk=hp.grad_chunk, train_calls=hp.train_steps,
+            snapshot={"pulls": hp.snapshot.pulls, "polls": hp.snapshot.polls, "bytes": hp.snapshot.nbytes},
+            replay={"Replay/flushes": hp.runner.flushes, "Replay/bytes_staged": hp.runner.bytes_staged},
+        )
+        if log_level > 0:
+            for row in hp.metric_rows:
+                print("train " + " ".join(f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(hp.metric_names, row)),
+                      flush=True)
     manager.close()
     loop_s = time.perf_counter() - t_loop
     envs.close()
@@ -611,24 +764,31 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
         cum=cum_before + cum_gradient_steps,
         env_steps_per_s=steps / env_s if env_s > 0 else None,
         loop_steps_per_s=steps / loop_s if loop_s > 0 else None,
-        train_calls=len(summary["train_host_s"]),
         checkpoint_timings=manager.timings,
         **{"Fault/env_restarts": envs.env_restarts},
     )
+    summary.setdefault("train_calls", len(summary["train_host_s"]))
     return summary
 
 
 class DreamerV2Learner:
     """The world model, actor, critic and target critic under
     :func:`make_train_step`; the player acts with the actor, after random
-    actions until ``learning_starts``."""
+    actions until ``learning_starts``. The hybrid player's bursts carry
+    ``(cum,)`` and restore all four modules and the three optimizers."""
 
     random_prefill = True
     metric_names = METRIC_NAMES
     player_cls = PlayerDV2
     rows_with_is_first = True
+    hybrid = True
+    episode_rule = True
+    exploration_metric = False
+    burst_metric_names = METRIC_NAMES
+    burst_carry = (0,)
 
     def __init__(self, cfg: Any, device: torch.device, state: Optional[Dict[str, Any]]) -> None:
+        self.cfg = cfg
         self.world_model, self.actor, self.critic, self.target_critic = build_agent(cfg, device, state)
         self.optimizers = make_optimizers(cfg, self.world_model, self.actor, self.critic)
         if state is not None:
@@ -640,6 +800,17 @@ class DreamerV2Learner:
 
     def player_actor(self, granted: bool) -> torch.nn.Module:
         return self.actor
+
+    def player_modules(self) -> torch.nn.Module:
+        return player_subset(self.world_model, self.actor)
+
+    @property
+    def train_modules(self) -> tuple:
+        return self.world_model, self.actor, self.critic, self.target_critic
+
+    def burst(self, ring: Dict[str, Any]) -> Callable:
+        return make_train_step(self.world_model, self.actor, self.critic, self.target_critic, self.optimizers,
+                               self.cfg, ring=ring)
 
     def train(self, data, cum, generator):
         return self._train(data, cum, generator).cpu().tolist()

@@ -22,8 +22,8 @@ arXiv:2005.05960):
 
 No kernel is on the path. The loop is the Dreamer V2 family's
 :func:`~sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2.run_loop` with V1's
-player and rows, on the per-env sequential buffer, unguarded as the JAX loop
-is; the player acts with the exploration actor and the run's test episode is
+player and rows, on the per-env sequential buffer (and with the hybrid host
+player on a ring without ``is_first``), unguarded as the JAX loop is; the player acts with the exploration actor and the run's test episode is
 the task actor's (zero-shot).
 """
 
@@ -33,14 +33,14 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
-from sheeprl_tpu_torch.algos.dreamer_v1.agent import PlayerDV1
+from sheeprl_tpu_torch.algos.dreamer_v1.agent import PlayerDV1, player_subset
 from sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1 import (
     behaviour_step,
     critic_step,
     draw_imagination_noise,
     world_model_step,
 )
-from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import run_loop, start_run
+from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import burst_train_step, run_loop, start_run
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _grads
 from sheeprl_tpu_torch.algos.p2e_dv1.agent import P2EDV1Agent, build_agent
 from sheeprl_tpu_torch.distributions import Independent, Normal
@@ -112,13 +112,16 @@ def ensemble_loss(agent: P2EDV1Agent, posts: torch.Tensor, recs: torch.Tensor, a
     return (-Independent(Normal(pred, 1.0), 1).log_prob(tgt).mean(dim=(1, 2))).sum()
 
 
-def make_train_step(agent: P2EDV1Agent, optimizers: Dict[str, ClippedOptimizer], cfg: Any) -> Callable:
+def make_train_step(agent: P2EDV1Agent, optimizers: Dict[str, ClippedOptimizer], cfg: Any,
+                    ring: Optional[Dict[str, Any]] = None) -> Callable:
     """The G-step update: ``train(data, generator=None, noise=None) ->
     metrics``. ``data`` holds ``(G, T, B, ...)`` float tensors on the
     modules' device (pixels in ``[0, 255]``); ``noise`` is a list of G
     :func:`draw_noise` dicts, else the draws come from ``generator``. The
     modules and optimizers are updated in place; ``metrics`` is ``(G, 14)``
-    in :data:`METRIC_NAMES` order."""
+    in :data:`METRIC_NAMES` order. With ``ring`` the step body becomes the
+    ring's burst over the carry ``()``, each step's metrics a dict keyed by
+    :data:`METRIC_NAMES`, as JAX's."""
     wm = agent.world_model
     intrinsic_mult = float(cfg.algo.intrinsic_reward_multiplier)
 
@@ -153,6 +156,10 @@ def make_train_step(agent: P2EDV1Agent, optimizers: Dict[str, ClippedOptimizer],
                             prior_ent, ens_loss, loss_expl, intrinsic.mean(), value_expl, loss_task,
                             value_task]).detach()
 
+    if ring is not None:
+        return burst_train_step(gradient_step, ring, lambda gen, T, B: draw_noise(cfg, T, B, agent, gen, gen.device),
+                                counted=False, names=METRIC_NAMES)
+
     def train(data: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
               noise: Optional[List[Dict[str, Any]]] = None) -> torch.Tensor:
         n_steps, T, B = data["actions"].shape[:3]
@@ -176,8 +183,14 @@ class ExplorationLearner:
     metric_names = METRIC_NAMES + ("Params/exploration_amount",)
     player_cls = PlayerDV1
     rows_with_is_first = False
+    hybrid = True
+    episode_rule = False  # the buffer is per-env sequential whatever buffer.type says
+    exploration_metric = True
+    burst_metric_names = None  # the burst steps name their metrics
+    burst_carry = ()
 
     def __init__(self, cfg: Any, device: torch.device, state: Optional[Dict[str, Any]]) -> None:
+        self.cfg = cfg
         self.agent = build_agent(cfg, device, state)
         self.world_model = self.agent.world_model
         self.test_actor = self.agent.actor_task
@@ -190,6 +203,16 @@ class ExplorationLearner:
 
     def player_actor(self, granted: bool) -> torch.nn.Module:
         return self.agent.actor_exploration
+
+    def player_modules(self) -> torch.nn.Module:
+        return player_subset(self.world_model, self.agent.actor_exploration)
+
+    @property
+    def train_modules(self) -> tuple:
+        return (self.agent,)
+
+    def burst(self, ring: Dict[str, Any]) -> Callable:
+        return make_train_step(self.agent, self.optimizers, self.cfg, ring=ring)
 
     def train(self, data, cum, generator):
         return [row + [self.expl_amount] for row in self._train(data, generator).cpu().tolist()]

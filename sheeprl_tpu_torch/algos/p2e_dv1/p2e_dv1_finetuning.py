@@ -43,6 +43,7 @@ class FinetuningLearner:
     metric row ends in the player's ``expl_amount``."""
 
     random_prefill = False
+    hybrid = False  # coupled whatever algo.hybrid_player says: JAX's finetuning loops never read it
     metric_names = METRIC_NAMES + ("Params/exploration_amount",)
     player_cls = PlayerDV1
     rows_with_is_first = False

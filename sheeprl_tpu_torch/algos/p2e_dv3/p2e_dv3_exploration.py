@@ -28,11 +28,16 @@ P2E loops are. The player acts with the exploration actor; the run's test
 episode is the task actor's (zero-shot). Checkpoints hold every module, the
 optimizers, every ``Moments`` state, the ``Ratio``, the generator and with
 ``buffer.checkpoint`` the host buffer; ``checkpoint.resume_from`` resumes
-them.
+them. With the hybrid host player (``algo.hybrid_player``, JAX's default on
+the card) the exploration actor acts on the host CPU and a trainer thread
+takes the granted steps in bursts over the sequence ring on the card
+(:func:`make_train_step`'s ``ring`` variant, carry ``(moments, cum)``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import os
 import time
 import warnings
@@ -42,6 +47,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import action_dims, actor_dists, actor_sample
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_sebulba import player_subset
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import Player, _grads, _uniform
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import patch_restarted_envs
 from sheeprl_tpu_torch.algos.dreamer_v3.evaluate import DreamerV3Agent
@@ -56,6 +62,7 @@ from sheeprl_tpu_torch.algos.p2e_dv3.utils import (
 )
 from sheeprl_tpu_torch.config import dotdict, plain
 from sheeprl_tpu_torch.data import EnvIndependentReplayBuffer
+from sheeprl_tpu_torch.data.ring import build_burst_train_step
 from sheeprl_tpu_torch.distributions import (
     BernoulliSafeMode,
     Independent,
@@ -67,11 +74,12 @@ from sheeprl_tpu_torch.distributions import (
 from sheeprl_tpu_torch.envs import make_vector_env
 from sheeprl_tpu_torch.fault import CheckpointManager, load_resume_state
 from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
+from sheeprl_tpu_torch.utils.burst import HybridPlayerHarness, dreamer_ring_keys
 from sheeprl_tpu_torch.utils.checkpoint import write_run_config
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric, build_aggregator
 from sheeprl_tpu_torch.utils.timer import log_timers, timer
-from sheeprl_tpu_torch.utils.utils import Ratio
+from sheeprl_tpu_torch.utils.utils import Ratio, resolve_hybrid_player
 
 __all__ = ["critics_spec", "metric_names", "draw_noise", "make_optimizers", "make_train_step", "run_loop", "main"]
 
@@ -152,7 +160,8 @@ def initial_moments(agent: P2EAgent, device) -> Dict[str, Any]:
     return {"task": init_moments(device), "exploration": {k: init_moments(device) for k in agent.critic_names}}
 
 
-def make_train_step(agent: P2EAgent, optimizers: Dict[str, ClippedOptimizer], cfg: Any) -> Callable:
+def make_train_step(agent: P2EAgent, optimizers: Dict[str, ClippedOptimizer], cfg: Any,
+                    ring: Optional[Dict[str, Any]] = None) -> Callable:
     """The G-step update: ``train(data, moments_state, cum0, generator=None,
     noise=None) -> (moments_state, metrics)``. ``data`` holds ``(G, T, B,
     ...)`` float tensors on the modules' device (pixels in ``[0, 255]``);
@@ -160,7 +169,10 @@ def make_train_step(agent: P2EAgent, optimizers: Dict[str, ClippedOptimizer], cf
     :func:`draw_noise` dicts, else the draws come from ``generator``.
     ``moments_state`` is ``{"task": ..., "exploration": {name: ...}}``. The
     modules and optimizers are updated in place; ``metrics`` is ``(G,
-    len(metric_names))`` in :func:`metric_names` order."""
+    len(metric_names))`` in :func:`metric_names` order. With ``ring`` the
+    step body becomes the ring's burst over the carry ``(moments_state,
+    cum)`` (JAX's ``(params, opts, moments, cum)``; ``cum`` a tensor on the
+    modules' device), each step's metrics a dict keyed by name, as JAX's."""
     wm = agent.world_model
     wm_cfg = cfg.algo.world_model
     cnn_enc = list(cfg.algo.cnn_keys.encoder)
@@ -363,6 +375,18 @@ def make_train_step(agent: P2EAgent, optimizers: Dict[str, ClippedOptimizer], cf
             row = torch.stack([metrics[k].detach() for k in metric_names(spec)])
         return moments_state, row
 
+    if ring is not None:
+        seq_len, batch_size, names_ = int(ring["seq_len"]), int(ring["batch_size"]), metric_names(spec)
+
+        def carry_step(carry, xs):
+            moments_state, cum = carry
+            batch, noise = xs
+            moments_state, row = gradient_step(batch, moments_state, cum, noise)
+            return (moments_state, cum + 1), dict(zip(names_, row.unbind()))
+
+        return build_burst_train_step(
+            carry_step, ring, lambda gen: draw_noise(cfg, seq_len, batch_size, actions_dim, gen, gen.device, continuous))
+
     def train(
         data: Dict[str, torch.Tensor],
         moments_state: Dict[str, Any],
@@ -400,7 +424,13 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
     run), ``player_actor(granted)`` (the actor the player acts with before
     and from the first granted gradient step), ``train(data, cum,
     generator)`` (a list of metric rows) and ``state()`` (the checkpoint's
-    modules, optimizers and ``Moments``)."""
+    modules, optimizers and ``Moments``). The hybrid host player runs where
+    ``learner.hybrid`` (the exploration phase) and ``algo.hybrid_player``
+    resolves on: the exploration actor acts on a CPU copy of DreamerV3's
+    player subset, the rows go to the ring on the card, the trainer thread
+    runs ``learner.burst(ring)`` over ``(learner.moments, cum)`` and restores
+    every module and optimizer before a retried burst. The finetuning phase
+    trains coupled whatever the key says, as JAX's does."""
     num_envs = int(cfg.env.num_envs)
     seed = int(cfg.seed)
     dry_run = bool(cfg.get("dry_run", False))
@@ -452,6 +482,30 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
     action_rng = np.random.default_rng(seed)
     agent = learner.agent
     player = Player(agent.world_model, learner.player_actor(granted=False), num_envs, generator)
+    hybrid = learner.hybrid and resolve_hybrid_player(cfg.algo.get("hybrid_player"), device)
+    checkpoint_rb = bool(cfg.buffer.get("checkpoint", False))
+    host_mirror = not hybrid or checkpoint_rb  # with the hybrid player, the checkpoint's copy of the ring
+    hp: Optional[HybridPlayerHarness] = None
+    act_player = player
+    resumed_train_steps = train_step
+    if hybrid:
+        card_agent = learner.player_modules()
+        host_agent = copy.deepcopy(card_agent).to("cpu")  # the host player's modules
+        hp = HybridPlayerHarness(
+            cfg, ring_keys=dreamer_ring_keys(cfg.spaces.obs, cnn_keys, mlp_keys, actions_dim, with_is_first=True),
+            capacity=buffer_size, seq_len=seq_len, batch_size=batch_size, policy_steps_per_iter=num_envs,
+            make_burst_fn=learner.burst,
+            player_card=[*card_agent.parameters(), *card_agent.buffers()],
+            player_host=[*host_agent.parameters(), *host_agent.buffers()],
+            carry=(learner.moments, torch.zeros((), dtype=torch.int64, device=device)), device=device,
+            train_modules=learner.train_modules, optimizers=list(learner.optimizers.values()),
+            rb=rb if saved_rb is not None else None, metric_names=learner.burst_metric_names, aggregator=aggregator,
+        )
+        if state is not None and state.get("host_rng") is not None:
+            hp.host_generator.set_state(state["host_rng"])
+        if state is not None and state.get("rng") is not None:
+            hp.generator.set_state(state["rng"])
+        act_player = Player(host_agent.world_model, host_agent.actor, num_envs, hp.host_generator)
 
     step_data: Dict[str, np.ndarray] = {}
     obs = envs.reset(seed=seed)[0]
@@ -460,17 +514,22 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
     for k in ("rewards", "truncated", "terminated"):
         step_data[k] = np.zeros((1, num_envs, 1), dtype=np.float32)
     step_data["is_first"] = np.ones_like(step_data["terminated"])
-    player.init_states()
+    act_player.init_states()
 
     summary: Dict[str, Any] = {"start_iter": start_iter, "metrics": [], "train_host_s": [], "checkpoint": None,
                                "device": str(device), "test_reward": None, "test_steps": None,
-                               "metric_names": list(learner.metric_names), "switched_at": None}
+                               "metric_names": list(learner.metric_names), "switched_at": None, "hybrid": hybrid,
+                               "act_host_s": [],
+                               "ring_restored": ([hp.runner.dev_pos.tolist(), hp.runner.dev_valid.tolist()]
+                                                 if hybrid and saved_rb is not None else None)}
     cum_gradient_steps = 0  # a resumed run starts again at 0, so its first step copies the critics, as in JAX
     player_steps = 0
     env_s = 0.0
     t_loop = time.perf_counter()
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += num_envs
+        if hybrid:
+            hp.poll()  # the newest snapshot that has landed
         t_env = time.perf_counter()
         with timer("Time/env_interaction_time", SumMetric):
             prefill = learner.random_prefill and iter_num <= learning_starts and state is None
@@ -484,20 +543,29 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
                 )
             else:
                 prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=num_envs)
-                acts = player.get_actions({k: torch.from_numpy(v).to(device) for k, v in prepared.items()})
+                t_act, busy = time.perf_counter(), hybrid and hp.trainer.busy
+                # the hybrid player acts on the host CPU: nothing goes to the card
+                act_device = "cpu" if hybrid else device
+                acts = act_player.get_actions({k: torch.from_numpy(v).to(act_device) for k, v in prepared.items()})
+                if hybrid:
+                    summary["act_host_s"].append((time.perf_counter() - t_act, busy or hp.trainer.busy))
                 player_steps += 1
                 actions = torch.cat(acts, dim=-1).float().cpu().numpy()
                 real_actions = actions if is_continuous else np.stack([a.argmax(dim=-1).cpu().numpy() for a in acts],
                                                                       axis=-1)
             step_data["actions"] = actions.reshape(1, num_envs, -1)
-            rb.add(step_data)
+            if host_mirror:
+                rb.add(step_data)
+            if hybrid:
+                hp.stage_step(step_data)
             next_obs, rewards, terminated, truncated, infos = envs.step(real_actions)
         dones = np.logical_or(terminated, truncated)
         env_s += time.perf_counter() - t_env
 
         step_data["is_first"] = np.zeros_like(step_data["terminated"])
         if "restart_on_exception" in infos:
-            patch_restarted_envs(infos["restart_on_exception"], dones, step_data, rb=rb)
+            patch_restarted_envs(infos["restart_on_exception"], dones, step_data, rb=rb if host_mirror else None,
+                                 driver=hp)
         if log_level > 0:
             for i, ep_rew, ep_len in infos.get("episodes", ()):
                 if aggregator is not None:
@@ -527,14 +595,23 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
             reset_data["actions"] = np.zeros((1, len(dones_idxes), int(np.sum(actions_dim))), dtype=np.float32)
             reset_data["rewards"] = step_data["rewards"][:, dones_idxes]
             reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
-            rb.add(reset_data, dones_idxes)
+            if host_mirror:
+                rb.add(reset_data, dones_idxes)
+            if hybrid:
+                hp.stage_reset(reset_data, dones_idxes)
             step_data["rewards"][:, dones_idxes] = 0.0
             step_data["terminated"][:, dones_idxes] = 0.0
             step_data["truncated"][:, dones_idxes] = 0.0
             step_data["is_first"][:, dones_idxes] = 1.0
-            player.init_states(dones_idxes)
+            act_player.init_states(dones_idxes)
 
-        if iter_num >= learning_starts:
+        if hybrid:
+            if iter_num >= learning_starts:
+                hp.grant(ratio(policy_step - prefill_steps * num_envs))
+            # the flushes are handed to the trainer thread; the env loop never waits on the card
+            hp.pump()
+            cum_gradient_steps, train_step = hp.gradient_steps, resumed_train_steps + hp.train_steps
+        elif iter_num >= learning_starts:
             gradient_steps = ratio(policy_step - prefill_steps * num_envs)
             if gradient_steps > 0:
                 actor = learner.player_actor(granted=True)
@@ -572,22 +649,39 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
             iter_num == total_iters and cfg.checkpoint.get("save_last", False)
         ):
             last_checkpoint = policy_step
-            ckpt_state = {
-                **learner.state(),
-                "ratio": ratio.state_dict(),
-                "iter_num": iter_num,
-                "batch_size": batch_size,
-                "last_log": last_log,
-                "last_checkpoint": last_checkpoint,
-                "train_step": train_step,
-                "last_train": last_train,
-                "rng": generator.get_state(),
-            }
-            if cfg.buffer.get("checkpoint", False):
-                ckpt_state["rb"] = rb.checkpoint_state_dict()
-            path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
-            summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+            # with the hybrid player, the trainer's state between two bursts (at most one burst stale, as in JAX)
+            with hp.trainer.train_lock if hybrid else contextlib.nullcontext():
+                if hybrid:
+                    learner.moments = hp.carry[0]
+                ckpt_state = {
+                    **learner.state(),
+                    "ratio": ratio.state_dict(),
+                    "iter_num": iter_num,
+                    "batch_size": batch_size,
+                    "last_log": last_log,
+                    "last_checkpoint": last_checkpoint,
+                    "train_step": train_step,
+                    "last_train": last_train,
+                    "rng": (hp.generator if hybrid else generator).get_state(),
+                }
+                if hybrid:
+                    ckpt_state["host_rng"] = hp.host_generator.get_state()
+                if checkpoint_rb:
+                    ckpt_state["rb"] = rb.checkpoint_state_dict()
+                path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
+                summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
 
+    if hybrid:
+        # the tail: grants that can never run (an env still shorter than a window) go with the run
+        learner.moments, _ = hp.finish()
+        cum_gradient_steps, train_step = hp.gradient_steps, resumed_train_steps + hp.train_steps
+        summary.update(
+            metrics=list(hp.metric_rows), metric_names=list(hp.metric_names), bursts=hp.runner.bursts,
+            burst_host_s=list(hp.trainer.step_host_s), flush_host_s=list(hp.flush_host_s),
+            snapshot_age=hp.snapshot_age, grad_chunk=hp.grad_chunk, train_calls=hp.train_steps,
+            snapshot={"pulls": hp.snapshot.pulls, "polls": hp.snapshot.polls, "bytes": hp.snapshot.nbytes},
+            replay={"Replay/flushes": hp.runner.flushes, "Replay/bytes_staged": hp.runner.bytes_staged},
+        )
     manager.close()
     loop_s = time.perf_counter() - t_loop
     envs.close()
@@ -603,10 +697,10 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
         gradient_steps=cum_gradient_steps,
         env_steps_per_s=steps / env_s if env_s > 0 else None,
         loop_steps_per_s=steps / loop_s if loop_s > 0 else None,
-        train_calls=len(summary["train_host_s"]),
         checkpoint_timings=manager.timings,
         **{"Fault/env_restarts": envs.env_restarts},
     )
+    summary.setdefault("train_calls", len(summary["train_host_s"]))
     return summary
 
 
@@ -616,8 +710,11 @@ class ExplorationLearner:
     ``learning_starts``."""
 
     random_prefill = True
+    hybrid = True
+    burst_metric_names = None  # the burst steps name their metrics
 
     def __init__(self, cfg: Any, device: torch.device, state: Optional[Dict[str, Any]]) -> None:
+        self.cfg = cfg
         self.agent = build_agent(cfg, device, state)
         self.optimizers = make_optimizers(cfg, self.agent)
         self.moments = initial_moments(self.agent, device)
@@ -634,6 +731,17 @@ class ExplorationLearner:
 
     def player_actor(self, granted: bool) -> torch.nn.Module:
         return self.agent.actor_exploration
+
+    def player_modules(self) -> torch.nn.Module:
+        """DreamerV3's player subset with the exploration actor."""
+        return player_subset(self.agent.world_model, self.agent.actor_exploration)
+
+    @property
+    def train_modules(self) -> tuple:
+        return (self.agent,)
+
+    def burst(self, ring: Dict[str, Any]) -> Callable:
+        return make_train_step(self.agent, self.optimizers, self.cfg, ring=ring)
 
     def train(self, data, cum, generator):
         self.moments, metrics = self._train(data, self.moments, cum, generator)

@@ -55,6 +55,7 @@ class FinetuningLearner:
     the exploration actor plays until the first granted step."""
 
     random_prefill = False
+    hybrid = False  # coupled whatever algo.hybrid_player says: JAX's finetuning loops never read it
     metric_names = METRIC_NAMES
 
     def __init__(self, cfg: Any, device: torch.device, state: Dict[str, Any], resumed: bool) -> None:

@@ -17,6 +17,8 @@
     python -m sheeprl_tpu_torch evaluation checkpoint_path=<ckpt> [fabric.accelerator=cuda|cpu] [seed=...]
     python -m sheeprl_tpu_torch agents
 
+The JAX CLI's ``serve_fleet`` and ``registration`` verbs, and its ``--pod``
+flag, are not ported: they exit with the reason.
 ``run`` trains from a preset (``configs/<name>.json``), or resuming, from the
 checkpoint's ``config.json``, with the algorithm ``algo.name`` names (a
 trainer of :data:`~sheeprl_tpu_torch.utils.registry.TRAINERS`); :data:`~sheeprl_tpu_torch.config.RUN_DEFAULTS`
@@ -222,31 +224,12 @@ def compose_run_config(args: Sequence[str]) -> DotDict:
     return _resolve_run_names(cfg)
 
 
-#: the families whose hybrid host player (``algo.hybrid_player``) the port
-#: does not run yet: ``enabled: true`` raises for them, ``auto`` is off
-HYBRID_PLAYER_NOT_PORTED = (
-    "dreamer_v2", "dreamer_v1", "p2e_dv1_exploration", "p2e_dv1_finetuning", "p2e_dv2_exploration",
-    "p2e_dv2_finetuning", "p2e_dv3_exploration", "p2e_dv3_finetuning",
-)
-
-
 def check_configs(cfg: DotDict) -> None:
     """JAX ``check_configs``' checks of a run config that the port has keys
     for: a negative ``algo.learning_starts`` raises; an ``env.action_repeat``
     below 1 becomes 1. An unknown ``fabric.precision`` raises the
-    ``ValueError`` of the JAX package's ``Precision.from_string``. An
-    ``algo.hybrid_player.enabled`` set on (``true``) for a family of
-    :data:`HYBRID_PLAYER_NOT_PORTED` raises: the port has no hybrid path
-    for it yet, and would otherwise train coupled while the config says
-    hybrid."""
+    ``ValueError`` of the JAX package's ``Precision.from_string``."""
     Precision.from_config(cfg)
-    algo = cfg.get("algo") or {}
-    enabled = (algo.get("hybrid_player") or {}).get("enabled", "auto")
-    if algo.get("name") in HYBRID_PLAYER_NOT_PORTED and str(enabled).lower() == "true":
-        raise ValueError(
-            f"algo.hybrid_player.enabled=true: the hybrid host player is not ported yet for '{algo.get('name')}' "
-            "(DreamerV3 and SAC have it); set algo.hybrid_player.enabled=false or auto, which is off for it"
-        )
     learning_starts = (cfg.get("algo") or {}).get("learning_starts")
     if learning_starts is not None and learning_starts < 0:
         raise ValueError("The `algo.learning_starts` parameter must be greater or equal to zero.")
@@ -393,12 +376,41 @@ def agents(args: Sequence[str] = ()) -> List[dict]:
 
 _VERBS = {"run": run, "serve": serve, "evaluation": evaluation, "eval": evaluation, "agents": agents}
 
+#: the JAX CLI's verbs (its ``main``), the ported ones and the rest
+JAX_VERBS = ("run", "eval", "evaluation", "serve", "serve_fleet", "agents", "registration")
+
+#: why each JAX verb the port lacks is not here
+NOT_PORTED = {
+    "serve_fleet": "the serving fleet (replicas behind a router) waits for ROADMAP.md Queue 1",
+    "registration": "model registration needs mlflow, which this round leaves out",
+}
+
+
+def _not_ported(verb: str) -> None:
+    raise SystemExit(f"'{verb}' is a verb of the JAX CLI that is not ported: {NOT_PORTED[verb]}")
+
+
+def _refuse_pod(args: Sequence[str]) -> None:
+    """``--pod [N]`` / ``--pod=N`` (the JAX CLI's pod of worker processes
+    over one mesh) has no counterpart in the port."""
+    for tok in args:
+        if tok == "--pod" or tok.startswith("--pod="):
+            raise SystemExit(f"'{tok}': pod training (a gang of worker processes over one mesh) is not ported")
+
 
 def main(argv: Optional[List[str]] = None) -> None:
     """Dispatch on the first word when it is a verb; otherwise every word is
-    an argument of ``run``, as in the JAX CLI."""
+    an argument of ``run``, as in the JAX CLI. A JAX verb the port lacks
+    (:data:`NOT_PORTED`) and ``--pod`` on a ``run`` command line exit with
+    the reason instead of reaching ``run``."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in _VERBS:
-        _VERBS[argv[0]](argv[1:])
-    else:
+    if not argv or argv[0] not in JAX_VERBS:
+        _refuse_pod(argv)
         run(argv)
+        return
+    verb, rest = argv[0], argv[1:]
+    if verb in NOT_PORTED:
+        _not_ported(verb)
+    if verb == "run":
+        _refuse_pod(rest)
+    _VERBS[verb](rest)

@@ -24,8 +24,13 @@ and trains at its own cadence through the append-free dispatch
 (:func:`build_seq_train_step`), drawing windows against the live per-env
 heads.
 
-Left for a later slice: the episode rule (``episode_window_table``,
-``sample_window_starts``).
+Dreamer V2's episode buffer rides the ring through the episode rule
+(:func:`episode_window_table`, :func:`sample_window_starts`): a window
+start is valid when its window also holds no interior ``is_first``, so a
+window never mixes two episodes. Its deviations from the host
+``EpisodeBuffer`` are the JAX package's: starts are uniform over valid
+windows (not over episodes), the open episode's prefix can be drawn, and
+``prioritize_ends`` stays a host-buffer feature.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ __all__ = [
     "build_seq_append_step",
     "build_seq_train_step",
     "effective_stage_buckets",
+    "episode_window_table",
     "make_blob_layouts",
     "make_layout",
     "make_seq_append_layout",
@@ -48,6 +54,8 @@ __all__ = [
     "pack_burst_blob",
     "ring_append_rows",
     "ring_sample_windows",
+    "ring_sample_windows_episode",
+    "sample_window_starts",
     "torch_dtype",
     "unpack_burst_blob",
 ]
@@ -87,6 +95,60 @@ def ring_sample_windows(
     start = (base + (u.to(torch.float32) * n_starts.to(torch.float32)).to(torch.int32)) % capacity
     steps = torch.arange(seq_len, dtype=torch.int32, device=start.device)
     return (start[None, :] + steps[:, None]) % capacity
+
+
+def episode_window_table(pos: torch.Tensor, valid_n: torch.Tensor, is_first: torch.Tensor, capacity: int,
+                         seq_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per env, the window starts the episode rule allows: the window
+    satisfies the sequential rule (:func:`ring_sample_windows`'s) AND holds
+    no episode boundary in its interior (``is_first`` may be 1 only at its
+    first row). An env with no boundary-free window falls back to its
+    sequential starts (the host buffer would raise; the ring cannot stop).
+
+    Returns ``(table, n_valid)``: ``table`` ``(C, E)`` int32 with each env's
+    valid starts packed to the front in ascending order (a stable sort),
+    ``n_valid`` ``(E,)`` the count, at least 1. It depends only on the ring
+    after a burst's single append, so a burst computes it once and each
+    step draws from it with :func:`sample_window_starts`."""
+    flags = (is_first.reshape(capacity, -1) > 0).to(torch.int32)  # (C, E)
+    # interior[p, e]: any is_first in rows p+1 .. p+seq_len-1 (circular), by a doubled cumsum
+    doubled = torch.cat([flags, flags[:seq_len]], dim=0)
+    cs = torch.cat([torch.zeros_like(flags[:1]), torch.cumsum(doubled, dim=0, dtype=torch.int32)], dim=0)
+    p = torch.arange(capacity, device=flags.device)
+    interior = (cs[p + seq_len] - cs[p + 1]) > 0  # (C, E)
+    # the sequential rule per position: its distance from the env's oldest row is below the start count
+    valid_n, pos = valid_n.to(torch.int32), pos.to(torch.int32)
+    full = valid_n >= capacity
+    n_starts = torch.where(full, torch.full_like(valid_n, capacity - seq_len + 1), torch.clamp(valid_n - seq_len + 1, min=1))
+    base = torch.where(full, pos, torch.zeros_like(pos))
+    dist = (p[:, None].to(torch.int32) - base[None, :]) % capacity  # (C, E)
+    seq_ok = dist < n_starts[None, :]
+    ep_ok = seq_ok & ~interior
+    ok = torch.where(ep_ok.any(dim=0)[None, :], ep_ok, seq_ok)
+    table = torch.argsort((~ok).to(torch.int8), dim=0, stable=True).to(torch.int32)
+    n_valid = torch.clamp(ok.sum(dim=0, dtype=torch.int32), min=1)
+    return table, n_valid
+
+
+def sample_window_starts(u: torch.Tensor, env_idx: torch.Tensor, table: torch.Tensor, n_valid: torch.Tensor,
+                         capacity: int, seq_len: int) -> torch.Tensor:
+    """A uniform draw from :func:`episode_window_table`'s packed starts:
+    ``(T, B)`` int32 time indices for the per-element env choices
+    ``env_idx``; ``u`` one uniform in [0, 1) per element, its product with
+    the count taken in float32, as JAX takes it."""
+    nv = n_valid[env_idx]
+    idx = torch.minimum((u.to(torch.float32) * nv.to(torch.float32)).to(torch.int32), nv - 1)
+    start = table[idx.long(), env_idx]
+    steps = torch.arange(seq_len, dtype=torch.int32, device=start.device)
+    return (start[None, :] + steps[:, None]) % capacity
+
+
+def ring_sample_windows_episode(u: torch.Tensor, env_idx: torch.Tensor, pos: torch.Tensor, valid_n: torch.Tensor,
+                                is_first: torch.Tensor, capacity: int, seq_len: int) -> torch.Tensor:
+    """The episode rule in one call (the table, then the draw); the burst
+    step uses the two halves, the table once per burst."""
+    table, n_valid = episode_window_table(pos, valid_n, is_first, capacity, seq_len)
+    return sample_window_starts(u, env_idx, table, n_valid, capacity, seq_len)
 
 
 def effective_stage_buckets(stage_buckets, stage_max: int) -> Tuple[int, ...]:
@@ -206,9 +268,11 @@ def _train_granted(carry, n: int, sampled_step: Callable, ring_envs: int, ring_b
     metrics = []
     for i in range(n):
         carry, m = sampled_step(carry, draws["env"][i], draws["u"][i], draws["noise"][i])
-        metrics.append(m.to(torch.float32))
-    # averaged over the granted steps only
-    return carry, torch.stack(metrics, dim=0).sum(dim=0) / n
+        metrics.append(m)
+    # averaged over the granted steps only; a dict of metrics (the P2E steps') stays a dict
+    if isinstance(metrics[0], dict):
+        return carry, {k: torch.stack([m[k].to(torch.float32) for m in metrics]).sum(dim=0) / n for k in metrics[0]}
+    return carry, torch.stack([m.to(torch.float32) for m in metrics], dim=0).sum(dim=0) / n
 
 
 def build_burst_train_step(
@@ -237,7 +301,10 @@ def build_burst_train_step(
     ``generator`` (the ring's), unless ``draws`` holds them:
     ``{"env": (G, B), "u": (G, B), "noise": [G noise]}`` for the G granted
     steps. ``metrics`` is the mean of the steps' metrics over the granted
-    steps, or None when none ran."""
+    steps (a tensor, or a dict of them where the steps return a dict), or
+    None when none ran. With ``ring["episode_rule"]`` (Dreamer V2's episode
+    buffer) the starts follow the episode rule: the table is computed once,
+    after the append, and every step draws from it."""
     # imported here: the kernels package imports the replay package, which imports this module
     from sheeprl_tpu_torch.ops.kernels import ragged_ring_scatter_keys
 
@@ -246,6 +313,7 @@ def build_burst_train_step(
     grad_chunk = int(ring["grad_chunk"])
     ring_seq = int(ring["seq_len"])
     ring_batch = int(ring["batch_size"])
+    episode_rule = bool(ring.get("episode_rule", False))
     ring_keys = ring["ring_keys"]
     buckets = tuple(int(b) for b in ring["stage_buckets"])
     layouts = make_blob_layouts(
@@ -268,11 +336,13 @@ def build_burst_train_step(
         granted: List[int] = [g for g in range(grad_chunk) if ready and float(host["__validmask__"][g]) > 0]
         if not granted:
             return carry, rb, None
-        sampled_step = _granted_step(
-            gradient_step, rb, lambda uu, env_idx: ring_sample_windows(uu, env_idx, new_pos, new_valid, capacity, ring_seq)
-        )
-        carry, metrics = _train_granted(carry, len(granted), sampled_step, ring_envs, ring_batch, device, draw_noise,
-                                        generator, draws)
+        if episode_rule:
+            table, n_valid = episode_window_table(new_pos, new_valid, rb["is_first"], capacity, ring_seq)
+            sample_starts = lambda uu, env_idx: sample_window_starts(uu, env_idx, table, n_valid, capacity, ring_seq)
+        else:
+            sample_starts = lambda uu, env_idx: ring_sample_windows(uu, env_idx, new_pos, new_valid, capacity, ring_seq)
+        carry, metrics = _train_granted(carry, len(granted), _granted_step(gradient_step, rb, sample_starts),
+                                        ring_envs, ring_batch, device, draw_noise, generator, draws)
         return carry, rb, metrics
 
     return burst_fn

@@ -10,7 +10,9 @@ env step.
   the host buffers;
 - :mod:`~sheeprl_tpu_torch.replay.driver`: :class:`SequenceRingDriver`
   (DreamerV3's per-env-head sequence ring), and :class:`AsyncSequenceRing`
-  with :class:`SeqBlobWriter` (the same ring fed by actor threads).
+  with :class:`SeqBlobWriter` (the same ring fed by actor threads);
+- :mod:`~sheeprl_tpu_torch.replay.indices`: the host buffers' draw
+  arithmetic (eligible rows, window starts) on tensors.
 """
 
 from sheeprl_tpu_torch.replay.device_buffer import (

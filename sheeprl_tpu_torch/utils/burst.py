@@ -1,6 +1,7 @@
 """The hybrid host player and its trainer-thread burst dispatch
 (counterpart of ``sheeprl_tpu/utils/burst.py``: the ``algo.hybrid_player``
-machinery of the DreamerV3 and SAC loops).
+machinery of the Dreamer V1/V2/V3 loops, the three Plan2Explore exploration
+loops and SAC).
 
 The env loop's policy runs on the host CPU from a copy of the player's
 parameters, while a trainer thread appends the staged transitions to the
@@ -551,6 +552,7 @@ class BurstRunner:
         self.dev_valid = np.zeros(self._n_envs, np.int64)
         self._staged: List[Tuple[Dict[str, np.ndarray], np.ndarray]] = []
         self.bursts = 0  # trained bursts; trainer-thread state
+        self.metric_names: Optional[Tuple[str, ...]] = None  # the keys of steps that return their metrics as a dict
         self.flushes = 0
         self.bytes_staged = 0
         self._metrics = HostCopies()  # each trained burst's mean metrics, tagged with its count
@@ -616,6 +618,9 @@ class BurstRunner:
         slab.held = False
         if not trained or metrics is None:
             return (carry, rb), None  # an append-only burst has no metrics
+        if isinstance(metrics, dict):  # the steps name their metrics (the P2E steps): one row in the dict's order
+            self.metric_names = tuple(metrics)
+            metrics = torch.stack([metrics[k] for k in self.metric_names])
         self.bursts += 1
         self._metrics.put(metrics, self.bursts)
         if self._snapshot is not None and self.bursts % self._snapshot_every == 0:
@@ -686,7 +691,13 @@ class HybridPlayerHarness:
     ``make_burst_fn(ring_spec)`` returns the burst function for the spec;
     ``player_card``/``player_host`` are the player's tensors on the card and
     their CPU copies (the host player's modules), ``train_modules`` and
-    ``optimizers`` the state a retried burst restores (:class:`TrainStateCopy`).
+    ``optimizers`` the state a retried burst restores (:class:`TrainStateCopy`):
+    every module and optimizer the family's step updates in place (targets,
+    ensembles, both actor/critic pairs). ``ring_spec`` adds keys to the
+    burst's ring spec (``episode_rule``). ``metric_names`` names the burst
+    metrics' columns, or None where the steps return a dict keyed by name;
+    :attr:`extra_metrics` (name -> callable, e.g. the exploration amount) is
+    read at each landed burst, beside its means, and ends its row.
 
     The train draws come from the ring's generator, seeded with
     ``cfg.seed``; the host player's from a CPU generator seeded with
@@ -709,8 +720,9 @@ class HybridPlayerHarness:
         train_modules: Sequence[torch.nn.Module] = (),
         optimizers: Sequence[Any] = (),
         rb=None,
-        metric_names: Sequence[str] = DREAMER_METRIC_NAMES,
+        metric_names: Optional[Sequence[str]] = DREAMER_METRIC_NAMES,
         aggregator=None,
+        ring_spec: Optional[Dict[str, Any]] = None,
     ) -> None:
         hp_cfg = cfg.algo.get("hybrid_player") or {}
         train_every = max(1, int(hp_cfg.get("train_every", 16)))
@@ -730,6 +742,7 @@ class HybridPlayerHarness:
             "ring_keys": ring_keys,
             "stage_buckets": buckets,
             "stage_max": stage_max,
+            **(ring_spec or {}),
         }
         burst_fn = make_burst_fn(ring_spec)
         rb_dev, dev_pos, dev_valid = init_device_ring(ring_keys, capacity, n_envs, self.device, rb=rb)
@@ -747,9 +760,11 @@ class HybridPlayerHarness:
             rollback=rollback, device=self.device,
         )
         self.runner.set_ring_state(dev_pos, dev_valid)
-        self._metric_names = tuple(metric_names)
+        self._metric_names = tuple(metric_names) if metric_names is not None else None
         self._aggregator = aggregator
-        self.metric_rows: List[List[float]] = []  # every trained burst's mean metrics, in order
+        # late-bound {name: () -> value} (the V1/P2E exploration amount), read at each landed burst
+        self.extra_metrics: Dict[str, Callable[[], Any]] = {}
+        self.metric_rows: List[List[float]] = []  # every trained burst's mean metrics and extras, in order
         self.flush_host_s: List[float] = []
 
         self.grant_backlog = 0
@@ -788,12 +803,20 @@ class HybridPlayerHarness:
     def grant(self, n: int) -> None:
         self.grant_backlog += int(n)
 
+    @property
+    def metric_names(self) -> Tuple[str, ...]:
+        """The columns of :attr:`metric_rows`: the burst metrics' names (the
+        steps' own where they return a dict), then :attr:`extra_metrics`'."""
+        names = self._metric_names if self._metric_names is not None else (self.runner.metric_names or ())
+        return tuple(names) + tuple(self.extra_metrics)
+
     def _take_metrics(self, wait: bool = False) -> None:
         for _burst, row in self.runner.take_metrics(wait):
+            row = row + [float(fn()) for fn in self.extra_metrics.values()]
             self.metric_rows.append(row)
             agg = self._aggregator
             if agg is not None and not agg.disabled:
-                for name, value in zip(self._metric_names, row):
+                for name, value in zip(self.metric_names, row):
                     if name in agg:
                         agg.update(name, value)
 

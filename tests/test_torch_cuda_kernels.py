@@ -1127,3 +1127,65 @@ def test_torch_cuda_sac_burst_append_matches_cpu(cuda):
         assert torch.equal(out["cuda"][k], out["cpu"][k]), k
         written = torch.nonzero((out["cuda"][k] != torch.from_numpy(ring[k])).flatten(1).any(1)).flatten().tolist()
         assert written == list(range(8)) + list(range(C - 5, C)), k
+
+
+@pytest.mark.parametrize("case", ["random", "no_window"])
+def test_torch_cuda_episode_rule_table_and_draw_match_cpu(cuda, case):
+    """The ring's episode rule (plain indexing, no kernel) on the card, at
+    the Dreamer V2 presets' ring (25,000 rows x 4 envs, windows of 50),
+    against the CPU: the table, its counts and the drawn windows bit for
+    bit; ``no_window`` gives env 3 a boundary every other row (its
+    sequential starts)."""
+    from sheeprl_tpu_torch.data.ring import episode_window_table, sample_window_starts
+
+    C, E, T = 25000, 4, 50
+    rng = np.random.default_rng(7)
+    is_first = (rng.random((C, E, 1)) < 0.01).astype(np.float32)
+    if case == "no_window":
+        is_first[::2, 3] = 1.0
+    pos, valid = np.array([1234, 0, 20000, 777], np.int32), np.array([C, 9000, C, C], np.int32)
+    cpu_in = [torch.from_numpy(a) for a in (pos, valid, is_first)]
+    want = episode_window_table(*cpu_in, C, T)
+    got = episode_window_table(*[t.to(cuda) for t in cpu_in], C, T)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    if case == "no_window":
+        assert int(want[1][3]) == C - T + 1
+    gen = torch.Generator().manual_seed(3)
+    env_idx, u = torch.randint(0, E, (1024,), generator=gen), torch.rand(1024, generator=gen)
+    drawn = sample_window_starts(u.to(cuda), env_idx.to(cuda), *got, C, T)
+    assert torch.equal(drawn.cpu(), sample_window_starts(u, env_idx, *want, C, T))
+
+
+def test_torch_cuda_four_key_blob_append_matches_plain(cuda):
+    """A flush of a ring built without ``is_first`` (Dreamer V1's rows: the
+    pixels, actions, rewards and ``terminated``) through the burst program
+    on the card: one ``ragged_ring_scatter_keys`` launch, the ring equal to
+    the plain scatter's on the CPU bit for bit."""
+    from sheeprl_tpu_torch.data.ring import build_burst_train_step, make_blob_layouts, pack_burst_blob
+    from sheeprl_tpu_torch.utils.burst import dreamer_ring_keys
+
+    C, E, S = 64, 4, 22
+    keys = dreamer_ring_keys({"rgb": {"shape": [64, 64, 3]}}, ["rgb"], [], [18], with_is_first=False)
+    assert list(keys) == ["rgb", "actions", "rewards", "terminated"]
+    spec = {"capacity": C, "n_envs": E, "grad_chunk": 6, "seq_len": 50, "batch_size": 4, "ring_keys": keys,
+            "stage_buckets": (S,), "stage_max": S}
+    rng = np.random.default_rng(11)
+    values = {k: (rng.integers(0, 256, (S, E) + shape).astype(np.uint8) if dt == np.uint8
+                  else rng.normal(size=(S, E) + shape).astype(np.float32)) for k, (shape, dt) in keys.items()}
+    mask = (rng.random((S, E)) < 0.8).astype(np.int32)
+    values.update({"__mask__": mask, "__pos__": np.array([60, 3, 0, 40], np.int32),
+                   "__valid_n__": np.array([C, 3, 0, C], np.int32), "__validmask__": np.zeros(6, np.float32)})
+    blob = pack_burst_blob(make_blob_layouts(keys, E, 6, (S,))[S], values)
+    burst = build_burst_train_step(lambda c, xs: (c, torch.zeros(1)), spec, lambda g: None)
+    ring = {k: (rng.integers(0, 256, (C, E) + shape).astype(np.uint8) if dt == np.uint8
+                else rng.normal(size=(C, E) + shape).astype(np.float32)) for k, (shape, dt) in keys.items()}
+    cpu_rb = {k: torch.from_numpy(v.copy()) for k, v in ring.items()}
+    card_rb = {k: torch.from_numpy(v.copy()).to(cuda) for k, v in ring.items()}
+    burst(0, cpu_rb, blob)
+    before = K.LAUNCHES["ragged_ring_scatter"]
+    burst(0, card_rb, blob.pin_memory())
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["ragged_ring_scatter"] == before + 1
+    for k in keys:
+        assert torch.equal(card_rb[k].cpu(), cpu_rb[k]), k

@@ -16,8 +16,10 @@ against the JAX package's (``sheeprl_tpu/utils/burst.py``), on the CPU.
   unfaulted run with the same draws, bit for bit.
 - ``HostSnapshot``: a pull's copy is the card's tensors rounded to the wire
   dtype; a packed snapshot is unchanged by later in-place updates.
-- The stopgap: ``algo.hybrid_player.enabled=true`` raises for the families
-  whose hybrid path is not ported yet.
+- The Dreamer V2/V1 and P2E exploration presets resolve ``enabled`` as
+  JAX's do (``true`` on, ``auto`` on for the card only, ``false`` off); the
+  finetuning presets compose under ``true`` and their learners train
+  coupled.
 """
 
 import copy
@@ -306,24 +308,46 @@ def test_torch_hybrid_player_snapshot_pull_and_isolation(wire):
         assert torch.equal(h, c.to(wire).float())
 
 
-# -- the stopgap for the families not ported yet -----------------------------
+# -- the Dreamer V2/V1 and P2E families' switch ---------------------------------
 
 @pytest.mark.parametrize("preset_name", ["dreamer_v2_atari_dummy", "dreamer_v1_atari_dummy",
                                          "p2e_dv3_exploration_atari_dummy", "p2e_dv2_exploration_atari_dummy",
                                          "p2e_dv1_exploration_atari_dummy"],
                          ids=["v2", "v1", "explore_v3", "explore_v2", "explore_v1"])
-def test_torch_hybrid_player_not_ported_families_raise_on_enabled(preset_name):
-    with pytest.raises(ValueError, match="hybrid host player is not ported yet"):
-        cli.compose_run_config([f"preset={preset_name}", "algo.hybrid_player.enabled=true"])
-    for value in ("auto", "false"):
-        cfg = cli.compose_run_config([f"preset={preset_name}", f"algo.hybrid_player.enabled={value}"])
-        assert not resolve_hybrid_player(cfg.algo.hybrid_player, "cpu")
+def test_torch_hybrid_player_families_resolve_as_jax(preset_name):
+    """``true`` composes and resolves on (the CPU too, as JAX's); ``auto``
+    (the preset's) on for the card and off for the CPU; ``false`` off."""
+    cfg = cli.compose_run_config([f"preset={preset_name}", "algo.hybrid_player.enabled=true"])
+    assert resolve_hybrid_player(cfg.algo.hybrid_player, "cpu") and resolve_hybrid_player(cfg.algo.hybrid_player,
+                                                                                         "cuda")
+    cfg = cli.compose_run_config([f"preset={preset_name}"])
+    assert cfg.algo.hybrid_player.enabled == "auto"
+    assert resolve_hybrid_player(cfg.algo.hybrid_player, "cuda") and not resolve_hybrid_player(cfg.algo.hybrid_player,
+                                                                                             "cpu")
+    cfg = cli.compose_run_config([f"preset={preset_name}", "algo.hybrid_player.enabled=false"])
+    assert not resolve_hybrid_player(cfg.algo.hybrid_player, "cuda")
+
+
+@pytest.mark.parametrize("phase", ["p2e_dv3_finetuning", "p2e_dv2_finetuning", "p2e_dv1_finetuning"],
+                         ids=["v3", "v2", "v1"])
+def test_torch_hybrid_player_finetuning_composes_under_true_and_trains_coupled(phase):
+    import importlib
+
+    cfg = cli.compose_run_config([f"preset={phase}_atari_dummy", "algo.hybrid_player.enabled=true",
+                                  "checkpoint.exploration_ckpt_path=x.ckpt"])
+    assert str(cfg.algo.hybrid_player.enabled).lower() == "true"
+    family = phase.split("_")[1]
+    learner = importlib.import_module(f"sheeprl_tpu_torch.algos.p2e_{family}.{phase}").FinetuningLearner
+    assert learner.hybrid is False  # JAX's finetuning loops never read the key
 
 
 def test_torch_hybrid_player_presets_follow_jax_exps():
     from sheeprl_tpu_torch.config import preset
 
-    for name in ("dreamer_v3_100k_atari_dummy", "dreamer_v3_S_atari100k", "dreamer_v3_continuous_dummy"):
+    for name in ("dreamer_v3_100k_atari_dummy", "dreamer_v3_S_atari100k", "dreamer_v3_continuous_dummy",
+                 "dreamer_v2_atari_dummy", "dreamer_v2_ms_pacman_dummy", "dreamer_v1_atari_dummy",
+                 "p2e_dv1_exploration_atari_dummy", "p2e_dv2_exploration_atari_dummy",
+                 "p2e_dv3_exploration_atari_dummy"):
         assert preset(name).algo.hybrid_player == {"enabled": "auto", "train_every": 16, "snapshot_every": 4}
     assert preset("sac").algo.hybrid_player == {"enabled": "auto", "refresh_every": 64}
     for name in ("dreamer_v3_100k_atari_dummy_resident", "sac_per", "dreamer_sebulba_atari_dummy", "sac_sebulba",
