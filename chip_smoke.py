@@ -367,16 +367,41 @@ result line):
 67. hybrid Dreamer V1 and the P2E-DV1/DV2/DV3 exploration runs at ``auto``,
    exact launches, ``Params/exploration_amount`` in the flushed metrics;
    each finetuning run from its exploration checkpoint stays coupled.
+68. fleet in-process: serve's traffic (8 sessions x 16 steps) through a
+   ``FleetRouter`` over two in-process ``PolicyServer``s on the card, on the
+   run's checkpoint: every answer equal to one server's, each session on one
+   replica, ``gru_gates`` exactly once per session dispatch; the router
+   hop's host ms and both client p50/p99;
+69. ``serve_fleet``: the verb as a process with 3 replica processes on the
+   card: each replica's start to READY and the checkpoint's load timed;
+   serve's traffic equal to phase 68's single server; the same traffic with
+   one replica SIGKILLed between two steps (the kill-replica drill): no
+   request dropped, its sessions re-homed once each, counted and flagged,
+   detection and respawn to READY timed; the same with one replica
+   SIGSTOPped (the hang-replica drill: it keeps its card context, the
+   survivors answer, its lease expires, it is SIGKILLed and respawned,
+   counted as a hang); a later checkpoint published into
+   the watched directory mid-traffic (a rolling swap): ``fleet_version``
+   never down for a client, every replica adopting it; each replica's
+   ``gru_gates`` launches equal to its dispatches; SIGTERM: exit 0 from the
+   router and every replica;
+70. ``serve --flywheel`` on the SAC-PER checkpoint's agent: clients stepping
+   the port's Pendulum-v1 send ``reward``/``done``; the learner (``run
+   --from-serve``, on the card) trains and publishes, the server adopts
+   (publish to adoption timed); ``hang-learner`` then ``kill-learner``: each
+   counted and the learner respawned while no request errs; one ingest
+   dispatch card against CPU from the checkpoint's agent (the 2 lr rule).
 The V2, V1 and P2E runs of phases 39-52 pass ``algo.hybrid_player.enabled=false``:
 their presets' ``auto`` is on on the card since the families have the path.
 
 Phases 1-3, 11, 14 and 21 run first, in this process alone, so that the
-kernels are timed on an idle card. Phases 4-10, 12, 13 and 15-67 then run
-in five worker processes at once on the same card (``LANES``; each worker
-is this script with ``--lane NAME --out FILE``), each a chain of phases in
-the order above; path timings taken there share the card and the CPU's
-cores with the other lanes. The script fails, and stops the other workers,
-as soon as one fails.
+kernels are timed on an idle card. Phases 4-10, 12, 13, 15-67 and 68 then
+run in five worker processes at once on the same card (``LANES``; each
+worker is this script with ``--lane NAME --out FILE``), each a chain of
+phases in the order above; path timings taken there share the card and the
+CPU's cores with the other lanes. Phases 69 and 70 run last, in two workers
+at once (``TAIL_LANES``), on the checkpoints the lanes left behind. The
+script fails, and stops the other workers, as soon as one fails.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -390,6 +415,7 @@ import io
 import json
 import os
 import pickle
+import shutil
 import signal
 import socket
 import subprocess
@@ -1967,9 +1993,11 @@ def run_phase(workdir: str) -> dict:
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port below the ephemeral range: a server binds it seconds after the
+    pick, and an outgoing connection of another lane must not take it first."""
+    from sheeprl_tpu_torch.serve.fleet import free_port
+
+    return free_port("127.0.0.1")
 
 
 class _Conn:
@@ -9405,6 +9433,661 @@ def hybrid_v1_explore_runs_phase(workdir: str, card: str = "cuda") -> dict:
     return out
 
 
+# -- 68-70. serving at scale: the fleet and the flywheel -------------------------------
+
+FLEET_REPLICAS = 3
+FLEET_KILL_AT = N_STEPS // 2  # the kill drill's step at which one replica is SIGKILLed
+FLEET_SWAP_AT = N_STEPS // 2  # the swap drill's step at which a later checkpoint is published
+FLEET_SWAP_STEPS = 1000  # the later checkpoint's step, past the served one
+FLEET_LEASE_S = 8.0  # the replicas' health-probe lease: a SIGSTOPped one is SIGKILLed past it
+FLEET_REQUEST_TIMEOUT_S = 5.0  # a request to a stopped replica fails over after this
+FLYWHEEL_CLIENTS = 4
+FLYWHEEL_LEASE_S = 6.0
+FLYWHEEL_INGEST_ROWS = 16  # the card-vs-CPU ingest dispatch: 16 rows at replay ratio 0.5 grant 8 steps
+KEEP_ENV = "CHIP_SMOKE_KEEP"  # the directory the lanes leave the tail's checkpoints in
+RUN_ENV = "CHIP_SMOKE_RUN"  # this run's token, inherited by every process it starts
+LANE_GRACE_S = 60.0  # a lane asked to stop (SIGTERM) is SIGKILLed after this
+
+
+def _keep_dir(name: str) -> Optional[Path]:
+    """``<keep>/<name>``, the hand-over from a lane to the tail, or None when
+    the phase runs outside the script's lanes."""
+    keep = os.environ.get(KEEP_ENV)
+    return Path(keep) / name if keep else None
+
+
+def _publish_copy(src: str, ckpt_dir: Path, step: Optional[int] = None, agent_only: bool = False) -> Path:
+    """``src``'s state saved into ``ckpt_dir`` at ``step`` (default: its own)
+    through the checkpoint manager: published in the manifest, with the run's
+    ``config.json`` beside it, so ``serve`` and its watcher read it as a run's
+    own save. ``agent_only`` keeps the ``agent`` tree alone."""
+    from sheeprl_tpu_torch.config import plain
+    from sheeprl_tpu_torch.fault.manager import CheckpointManager, parse_step
+
+    state = load_checkpoint(src)
+    if agent_only:
+        state = {"agent": state["agent"]}
+    step = parse_step(Path(src).name) if step is None else int(step)
+    path = Path(ckpt_dir) / f"ckpt_{step}_0.ckpt"
+    CheckpointManager().save(path, state, step=step, config=plain(load_config(find_run_config(src))))
+    return path
+
+
+def _session_frames():
+    """serve's frames: N_SESSIONS x N_STEPS 64x64x3 images from seed 2."""
+    rng = np.random.default_rng(2)
+    return [[rng.integers(0, 256, size=(64, 64, 3), dtype=np.uint8).tolist() for _ in range(N_STEPS)]
+            for _ in range(N_SESSIONS)]
+
+
+def _session_traffic(port: int, frames, prefix: str, pause_at: Optional[int] = None, pause=None,
+                     deadline_s: float = 300.0) -> dict:
+    """N_SESSIONS concurrent sessions x N_STEPS, one connection each, session
+    1 resetting at RESET_AT; with ``pause`` every session waits before step
+    ``pause_at`` until ``pause(answers so far)`` has run (no request in
+    flight then). Every answer kept whole; the first error raises."""
+    deadline = time.monotonic() + deadline_s
+    answers = [[None] * N_STEPS for _ in range(N_SESSIONS)]
+    latencies, errors = [], []
+    barrier = threading.Barrier(N_SESSIONS, action=lambda: pause(answers)) if pause is not None else None
+
+    def session(i: int) -> None:
+        try:
+            conn = _Conn(port, deadline)
+            for t in range(N_STEPS):
+                if barrier is not None and t == pause_at:
+                    barrier.wait(timeout=120)
+                msg = {"obs": {"rgb": frames[i][t]}, "session_id": f"{prefix}{i}"}
+                if i == 1 and t == RESET_AT:
+                    msg["reset"] = True
+                t0 = time.perf_counter()
+                resp = conn.ask(msg)
+                latencies.append(time.perf_counter() - t0)
+                if "actions" not in resp:
+                    raise AssertionError(f"session {prefix}{i} step {t}: {resp}")
+                answers[i][t] = resp
+            conn.close()
+        except BaseException as e:  # reported below
+            errors.append(e)
+            if barrier is not None:
+                barrier.abort()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=session, args=(i,), daemon=True) for i in range(N_SESSIONS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=deadline_s)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(th.is_alive() for th in threads):
+        raise TimeoutError(f"a session client of {prefix} did not finish")
+    lat = np.asarray(latencies) * 1e3
+    return {"answers": answers, "wall_s": wall, "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)), "requests": int(lat.size),
+            "requests_per_s": lat.size / wall}
+
+
+def _one_session_ms(port: int, frames_row: list, sid: str) -> tuple:
+    """One session's steps in sequence on one connection, nothing else in
+    flight: its answers, each round trip's ms and the replica of its last
+    answer (None from a single server)."""
+    conn = _Conn(port, time.monotonic() + 60)
+    answers, ms, replica = [], [], None
+    try:
+        for frame in frames_row:
+            t0 = time.perf_counter()
+            resp = conn.ask({"obs": {"rgb": frame}, "session_id": sid})
+            ms.append((time.perf_counter() - t0) * 1e3)
+            answers.append(resp["actions"])
+            replica = resp.get("replica")
+    finally:
+        conn.close()
+    return answers, ms, replica
+
+
+def _actions(traffic: dict) -> list:
+    return [[a["actions"] for a in row] for row in traffic["answers"]]
+
+
+def _ask(port: int, payload: dict, timeout_s: float = 60.0) -> dict:
+    conn = _Conn(port, time.monotonic() + timeout_s)
+    try:
+        return conn.ask(payload)
+    finally:
+        conn.close()
+
+
+def _gpu_memory_used() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=memory.used,memory.total", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def fleet_inprocess_phase(ckpt: str, card: str = "cuda") -> dict:
+    """Phase 68: the run's checkpoint served by one in-process
+    ``PolicyServer`` on a socket, then by a ``FleetRouter`` over two more
+    (each its own session engine on the card) behind the router's socket, to
+    serve's traffic (8 sessions x 16 steps, one reset): every answer through
+    the router equals the single server's, each session stays on one
+    replica, and ``gru_gates`` launches exactly once per session dispatch of
+    the two replicas (warm-ups included). The router hop's host ms is the
+    difference of the two medians."""
+    from sheeprl_tpu_torch.serve.fleet import FleetRouter, ReplicaEndpoint
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+
+    cfg = cli.compose_serve_config([f"checkpoint_path={ckpt}", f"fabric.accelerator={card}"])
+    policy = serve_policy_dreamer_v3(cfg, load_checkpoint(ckpt), torch.device(card))
+    scfg = {"port": 0, "max_wait_ms": 2.0, "session": {"buckets": [1, 8, 32], "max_sessions": 64}}
+    frames = _session_frames()
+    single = PolicyServer(policy, scfg).start()
+    try:
+        one = _session_traffic(single.address[1], frames, "s")
+    finally:
+        single.stop()
+    kernels.reset_launches()
+    servers = [PolicyServer(policy, scfg).start() for _ in range(2)]
+    router = FleetRouter([ReplicaEndpoint(f"replica-{i}", *s.address) for i, s in enumerate(servers)],
+                         {"health_poll_s": 0.25}, port=0).start()
+    try:
+        if not router.wait_ready(timeout_s=60):
+            raise AssertionError(f"the in-process fleet never became ready: {router.health()}")
+        fleet = _session_traffic(router.address[1], frames, "s")
+        counters = dict(router.counters)
+    finally:
+        router.stop()
+        for s in servers:
+            s.stop()
+    launches = dict(kernels.LAUNCHES)
+    engines = [s.engine.stats() for s in servers]
+    dispatches = sum(e["dispatches"] + e["warmup_dispatches"] for e in engines)
+    if _actions(fleet) != _actions(one):
+        raise AssertionError("answers through the router differ from the single server's")
+    homes = {i: {a["replica"] for a in row} for i, row in enumerate(fleet["answers"])}
+    if any(len(h) != 1 for h in homes.values()) or counters["sessions_rehomed"] or counters["retries"]:
+        raise AssertionError(f"sessions moved between replicas: {homes}, {counters}")
+    want = {name: 0 for name in kernels.LAUNCHES}
+    want["gru_gates"] = dispatches if card == "cuda" else 0
+    if launches != want or (card == "cuda" and dispatches < 2):
+        raise AssertionError(f"fleet launches {launches} != {want} for {dispatches} dispatches")
+    out = {
+        "launches": launches,
+        "dispatches": dispatches,
+        "replica_dispatches": [e["dispatches"] for e in engines],
+        "counters": counters,
+        "single": {k: one[k] for k in ("p50_ms", "p99_ms", "requests_per_s", "wall_s", "requests")},
+        "fleet": {k: fleet[k] for k in ("p50_ms", "p99_ms", "requests_per_s", "wall_s", "requests")},
+        "router_hop_p50_ms": fleet["p50_ms"] - one["p50_ms"],
+        "reference": _actions(one),
+    }
+    log("fleet in-process: " + json.dumps({k: v for k, v in out.items() if k != "reference"}))
+    return out
+
+
+def _fleet_health_sampler(port: int, stop: threading.Event, samples: list) -> threading.Thread:
+    def run() -> None:
+        while not stop.is_set():
+            try:
+                samples.append((time.perf_counter(), _ask(port, {"health": True}, 10.0)))
+            except (OSError, ValueError):
+                pass
+            stop.wait(0.05)
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th
+
+
+def _replica_launches(health: dict, card: str) -> dict:
+    """Each live replica's own health probe: its kernel launches held against
+    its session dispatches (warm-ups included), summed over the fleet."""
+    total = {name: 0 for name in kernels.LAUNCHES}
+    per = {}
+    for name, rep in health["replicas"].items():
+        port = int(rep["address"].rsplit(":", 1)[1])
+        engine = _ask(port, {"health": True})["engine"]
+        dispatches = engine["dispatches"] + engine["warmup_dispatches"]
+        want = {k: 0 for k in kernels.LAUNCHES}
+        want["gru_gates"] = dispatches if card == "cuda" else 0
+        if engine["launches"] != want or not engine["device"].startswith(card):
+            raise AssertionError(f"{name} on {engine['device']}: launches {engine['launches']} != {want}")
+        per[name] = {"dispatches": dispatches, "generation": rep["proc"]["generation"], "device": engine["device"]}
+        for k, v in engine["launches"].items():
+            total[k] += v
+    return {"launches": total, "replicas": per}
+
+
+def fleet_verb_phase(ckpt: str, workdir: str, reference: list, card: str = "cuda") -> dict:
+    """Phase 69: ``python -m sheeprl_tpu_torch serve_fleet`` as a process
+    with FLEET_REPLICAS replica processes on the card, on a published copy of
+    the run's checkpoint. Timed: the copy's load, each replica's start to
+    READY. Serve's traffic through the router equals phase 68's single
+    server; the same traffic again with one replica (the home of session k0)
+    SIGKILLed between steps FLEET_KILL_AT - 1 and FLEET_KILL_AT: no request
+    dropped or errored, the victim's sessions re-homed exactly once each,
+    counted and flagged, the others' answers still the reference; the kill
+    detected and the respawn READY, timed; the same traffic again with the
+    home of g0 SIGSTOPped (alive, its card context held, silent): the
+    survivors answer, requests to it fail over after FLEET_REQUEST_TIMEOUT_S,
+    its FLEET_LEASE_S lease expires and it is SIGKILLed and respawned, counted
+    as a hang; then a later checkpoint published into the watched directory
+    mid-traffic: ``fleet_version`` never goes down
+    for any client, the answers stay the reference (the same weights) and
+    every replica adopts the step. Each replica's ``gru_gates`` launches
+    equal its own dispatches. SIGTERM: the router and every replica exit 0."""
+    ckpt_dir = Path(workdir) / "fleet" / "checkpoint"
+    served = _publish_copy(ckpt, ckpt_dir)
+    base_step = int(served.name.split("_")[1])
+    t0 = time.perf_counter()
+    load_checkpoint(served)
+    load_s = time.perf_counter() - t0  # warm: the copy was just written
+    port = _free_port()
+    log_path = Path(workdir) / "fleet.log"
+    env = {**os.environ, "OMP_NUM_THREADS": "2"}
+    env.pop(KEEP_ENV, None)
+    cmd = [sys.executable, "-m", "sheeprl_tpu_torch", "serve_fleet", f"checkpoint_path={served}",
+           f"fabric.accelerator={card}", f"serve.fleet.replicas={FLEET_REPLICAS}", f"serve.port={port}",
+           "serve.max_wait_ms=2.0", "serve.watch_poll_s=0.5", "serve.fleet.health_poll_s=0.25",
+           f"serve.fleet.lease_s={FLEET_LEASE_S}", f"serve.fleet.request_timeout_s={FLEET_REQUEST_TIMEOUT_S}",
+           "serve.log_every_s=600"]
+    with open(log_path, "w") as log_file:
+        t_spawn = time.perf_counter()
+        # a session of its own: a failure below stops the router and its replicas together
+        proc = subprocess.Popen(cmd, stdout=log_file, stderr=subprocess.STDOUT, env=env,
+                                cwd=os.path.dirname(os.path.abspath(__file__)), start_new_session=True)
+    stop, samples = threading.Event(), []
+    out: dict = {"load_s": load_s, "checkpoint_bytes": served.stat().st_size}
+    try:
+        ready_at = {}
+        deadline = time.monotonic() + 300
+        while len(ready_at) < FLEET_REPLICAS:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"the fleet never became ready:\n{log_path.read_text()[-4000:]}")
+            try:
+                health = _ask(port, {"health": True}, 5.0)
+                for name, rep in health["replicas"].items():
+                    if rep["ready"] and name not in ready_at:
+                        ready_at[name] = time.perf_counter() - t_spawn
+            except OSError:
+                pass
+            time.sleep(0.1)
+        out["ready_s"] = ready_at
+        out["gpu_memory_3_replicas"] = _gpu_memory_used()
+        sampler = _fleet_health_sampler(port, stop, samples)
+        frames = _session_frames()
+
+        plain_run = _session_traffic(port, frames, "a")
+        if _actions(plain_run) != reference:
+            raise AssertionError("answers through the serve_fleet router differ from the single server's")
+        # the same traffic straight to one replica: the router hop is the difference of the medians
+        replica_port = int(_ask(port, {"health": True})["replicas"]["replica-1"]["address"].rsplit(":", 1)[1])
+        direct = _session_traffic(replica_port, frames, "d")
+        if _actions(direct) != reference:
+            raise AssertionError("a replica's own answers differ from the single server's")
+        # and one session alone, straight and through the router: the hop with nothing else in flight
+        hop, hop_home = {}, {}
+        for name, p in (("direct", replica_port), ("router", port)):
+            answers, ms, home = _one_session_ms(p, frames[0], f"h-{name}")
+            if answers != reference[0]:
+                raise AssertionError(f"one session {name}: answers differ from the single server's")
+            hop[f"{name}_p50_ms"] = float(np.percentile(ms, 50))
+            hop_home[name] = home
+        hop["hop_p50_ms"] = hop["router_p50_ms"] - hop["direct_p50_ms"]
+        out["hop_one_session"] = hop
+
+        kill = {}
+
+        def pause_kill(answers) -> None:  # every session between steps: nothing in flight
+            health = _ask(port, {"health": True})
+            homes = {f"k{i}": row[FLEET_KILL_AT - 1]["replica"] for i, row in enumerate(answers)}
+            victim = homes["k0"]
+            kill.update(victim=victim, homes=homes, rehomed_before=health["fleet"]["sessions_rehomed"],
+                        pid=health["replicas"][victim]["proc"]["pid"], t=time.perf_counter())
+            os.kill(kill["pid"], signal.SIGKILL)
+
+        kill_run = _session_traffic(port, frames, "k", FLEET_KILL_AT, pause_kill)
+        health = _ask(port, {"health": True})
+        victims = sorted(s for s, home in kill["homes"].items() if home == kill["victim"])
+        rehomed_flags = sorted(f"k{i}" for i, row in enumerate(kill_run["answers"]) if any(a.get("rehomed") for a in row))
+        rehomed_count = health["fleet"]["sessions_rehomed"] - kill["rehomed_before"]
+        # the router un-homes every session living on a dead replica, the idle
+        # ones of the first traffic and the one-session hop's too
+        idle = [f"a{i}" for i, row in enumerate(plain_run["answers"]) if row[-1]["replica"] == kill["victim"]]
+        idle += ["h-router"] if hop_home["router"] == kill["victim"] else []
+        if rehomed_flags != victims or rehomed_count != len(victims) + len(idle):
+            raise AssertionError(f"re-homes {rehomed_flags} / {rehomed_count} != the victim's sessions {victims} "
+                                 f"and the idle ones {idle}")
+        for i, row in enumerate(kill_run["answers"]):
+            moved = f"k{i}" in victims
+            for t, a in enumerate(row):
+                if (not moved or t < FLEET_KILL_AT) and a["actions"] != reference[i][t]:
+                    raise AssertionError(f"session k{i} step {t} differs from the reference")
+                if moved and t >= FLEET_KILL_AT and a["replica"] == kill["victim"]:
+                    raise AssertionError(f"session k{i} stayed on the killed replica at step {t}")
+        deadline = time.monotonic() + 300
+        while True:  # the respawned replica READY again
+            health = _ask(port, {"health": True})
+            rep = health["replicas"][kill["victim"]]
+            if rep["ready"] and rep["proc"]["generation"] >= 2:
+                back = time.perf_counter()
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the killed replica never came back: {rep}")
+            time.sleep(0.05)
+        kill_samples = [(t, h) for t, h in samples if t >= kill["t"]]
+        detect = next((t for t, h in kill_samples if h["replicas"][kill["victim"]]["proc"]["deaths"] >= 1), None)
+        proc_info = health["replicas"][kill["victim"]]["proc"]
+        if proc_info["kills"] != 1 or proc_info["hangs"] != 0 or proc_info["last_signal"] != "SIGKILL":
+            raise AssertionError(f"the kill was not counted as one: {proc_info}")
+        out["kill"] = {
+            "victim": kill["victim"], "victim_sessions": victims, "idle_sessions_rehomed": len(idle),
+            "rehomed": rehomed_count,
+            "detect_s": (detect - kill["t"]) if detect else None,
+            "respawn_to_ready_s": back - kill["t"],
+            "p50_ms": kill_run["p50_ms"], "p99_ms": kill_run["p99_ms"], "requests": kill_run["requests"],
+            "dropped": 0, "retries": health["fleet"]["retries"], "replica_errors": health["fleet"]["replica_errors"],
+            "gpu_memory_after_respawn": _gpu_memory_used(),
+        }
+
+        # the hang: the home of g0 SIGSTOPped between two steps (alive, its card context held, silent)
+        hang = {}
+
+        def pause_hang(answers) -> None:
+            health = _ask(port, {"health": True})
+            victim = answers[0][FLEET_KILL_AT - 1]["replica"]
+            hang.update(victim=victim, pid=health["replicas"][victim]["proc"]["pid"], t=time.perf_counter(),
+                        rehomed_before=health["fleet"]["sessions_rehomed"],
+                        homes={f"g{i}": row[FLEET_KILL_AT - 1]["replica"] for i, row in enumerate(answers)})
+            os.kill(hang["pid"], signal.SIGSTOP)
+
+        hang_run = _session_traffic(port, frames, "g", FLEET_KILL_AT, pause_hang)
+        hang["gpu_memory_while_stopped"] = _gpu_memory_used()
+        deadline = time.monotonic() + 300
+        while True:
+            rep = _ask(port, {"health": True})["replicas"][hang["victim"]]
+            if rep["proc"]["hangs"] >= 1 and hang.get("detect") is None:
+                hang["detect"] = time.perf_counter()
+            if rep["ready"] and rep["proc"]["hangs"] >= 1 and rep["proc"]["pid"] != hang["pid"]:
+                hang["back"] = time.perf_counter()
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the stopped replica never came back: {rep}")
+            time.sleep(0.05)
+        g_victims = sorted(sid for sid, home in hang["homes"].items() if home == hang["victim"])
+        g_flagged = sorted(f"g{i}" for i, row in enumerate(hang_run["answers"]) if any(a.get("rehomed") for a in row))
+        if g_flagged != g_victims or rep["proc"]["kills"] != (1 if hang["victim"] == kill["victim"] else 0):
+            raise AssertionError(f"hang drill: flagged {g_flagged} != {g_victims}, proc {rep['proc']}")
+        for i, row in enumerate(hang_run["answers"]):
+            if f"g{i}" not in g_victims and [a["actions"] for a in row] != reference[i]:
+                raise AssertionError(f"session g{i} (not on the stopped replica) changed its answers")
+        out["hang"] = {
+            "victim": hang["victim"], "victim_sessions": g_victims, "detect_s": hang["detect"] - hang["t"],
+            "respawn_to_ready_s": hang["back"] - hang["t"], "lease_s": FLEET_LEASE_S,
+            "p50_ms": hang_run["p50_ms"], "p99_ms": hang_run["p99_ms"], "requests": hang_run["requests"],
+            "dropped": 0, "gpu_memory_while_stopped": hang["gpu_memory_while_stopped"],
+            "gpu_memory_after_respawn": _gpu_memory_used(),
+        }
+
+        swap = {}
+
+        def pause_swap(answers) -> None:
+            swap["t"] = time.perf_counter()
+            _publish_copy(str(served), ckpt_dir, step=base_step + FLEET_SWAP_STEPS)
+
+        swap_run = _session_traffic(port, frames, "c", FLEET_SWAP_AT, pause_swap)
+        new_step = base_step + FLEET_SWAP_STEPS
+        deadline = time.monotonic() + 120
+        while not all(r["step"] == new_step and r["ready"] for r in _ask(port, {"health": True})["replicas"].values()):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the fleet never adopted step {new_step}: {_ask(port, {'health': True})}")
+            time.sleep(0.1)
+        adopted = time.perf_counter() - swap["t"]
+        for i, row in enumerate(swap_run["answers"]):
+            versions = [a["fleet_version"] for a in row]
+            if versions != sorted(versions):
+                raise AssertionError(f"session c{i}'s fleet_version went down: {versions}")
+            if [a["actions"] for a in row] != reference[i]:
+                raise AssertionError(f"session c{i}'s answers changed across the swap")
+        after = [_ask(port, {"obs": {"rgb": frames[i][0]}, "session_id": f"c{i}"}) for i in range(N_SESSIONS)]
+        if any(a.get("fleet_version") != new_step for a in after):
+            raise AssertionError(f"answers after the swap: {[a.get('fleet_version') for a in after]}")
+        out["swap"] = {"step": new_step, "adopted_by_all_s": adopted,
+                       "answers_at_new_step": sum(a["fleet_version"] == new_step for row in swap_run["answers"] for a in row),
+                       "p50_ms": swap_run["p50_ms"], "p99_ms": swap_run["p99_ms"]}
+        health = _ask(port, {"health": True})
+        out.update(_replica_launches(health, card))
+        out["plain"] = {k: plain_run[k] for k in ("p50_ms", "p99_ms", "requests_per_s", "wall_s", "requests")}
+        out["direct_to_one_replica"] = {k: direct[k] for k in ("p50_ms", "p99_ms", "requests_per_s", "wall_s")}
+        out["router_hop_p50_ms"] = plain_run["p50_ms"] - direct["p50_ms"]
+        out["fleet_counters"] = {k: v for k, v in health["fleet"].items() if isinstance(v, int)}
+        stop.set()
+        sampler.join(timeout=10)
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=180)
+        out["drain_s"] = time.perf_counter() - t_term
+    finally:
+        stop.set()
+        try:  # after a clean drain the group is empty
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    text = log_path.read_text()
+    final = json.loads([ln for ln in text.splitlines() if ln.startswith('{"status"')][-1])
+    rcs = {name: rep["proc"]["last_rc"] for name, rep in final["replicas"].items()}
+    if rc != 0 or text.count("serve: drained cleanly") != FLEET_REPLICAS + 1 or any(v != 0 for v in rcs.values()):
+        raise AssertionError(f"the fleet's drain: rc {rc}, replicas {rcs}:\n{text[-4000:]}")
+    out["exit_codes"] = {"router": rc, **rcs}
+    log("serve_fleet: " + json.dumps(out))
+    return out
+
+
+def _ingest_card_vs_cpu(cfg, state: dict, card: str) -> dict:
+    """One ingest dispatch of FLYWHEEL_INGEST_ROWS rows (8 granted steps at
+    the served SAC's full width, batch 256) on the card and on the CPU from
+    the checkpoint's agent, fresh optimizers and the same injected draws:
+    every parameter within 2 lr a step of the CPU's, 99 % within 1e-6."""
+    from sheeprl_tpu_torch.algos.sac.flywheel import SACFlywheelIngest
+
+    fly_cfg = copy.deepcopy(cfg)
+    fly_cfg["serve"] = {"flywheel": {"ingest_rows": FLYWHEEL_INGEST_ROWS, "grad_max": 8, "replay_ratio": 0.5,
+                                     "learning_starts_rows": 1, "buffer_size": 4096}}
+    gen = torch.Generator().manual_seed(70)
+    batch = int(cfg.algo.per_rank_batch_size)
+    drawn = {}
+
+    def draws(count: int, valid: int) -> dict:
+        if "d" not in drawn:
+            drawn["d"] = {"pos": torch.randint(0, valid, (count, batch), generator=gen),
+                          "env": torch.zeros((count, batch), dtype=torch.int64),
+                          "next": torch.randn((count, batch, 1), generator=gen),
+                          "actor": torch.randn((count, batch, 1), generator=gen)}
+        return drawn["d"]
+
+    rows = np.random.default_rng(70).standard_normal((FLYWHEEL_INGEST_ROWS, 9)).astype(np.float32)
+    rows[:, 5] = 0.0  # the terminated column
+    out = {}
+    for dev in (card, "cpu"):
+        ingest = SACFlywheelIngest(fly_cfg, state["agent"], dev,
+                                   draws=lambda c, v, dev=dev: {k: t.to(dev) for k, t in draws(c, v).items()})
+        ingest.ingest(rows)
+        out[dev] = ({k: v.detach().float().cpu() for k, v in ingest.agent_state().items()},
+                    ingest.grad_steps, ingest.dispatches)
+    if out[card][1:] != out["cpu"][1:] or out["cpu"][1] != 8:
+        raise AssertionError(f"ingest accounting card {out[card][1:]} vs CPU {out['cpu'][1:]}")
+    lr = max(float(cfg.algo[k].optimizer.lr) for k in ("actor", "critic", "alpha"))
+    res = _params_rule("flywheel ingest dispatch", out[card][0], out["cpu"][0], lr, out["cpu"][1], 0.99)
+    return {**res, "grad_steps": out["cpu"][1], "dispatches": out["cpu"][2]}
+
+
+def _pendulum_client(port: int, cfg, seed: int, stop: threading.Event, traffic: dict) -> None:
+    """One closed-loop client on the port's Pendulum-v1: each request grades
+    the previous action with its reward and ``terminated``."""
+    from sheeprl_tpu_torch.envs import make_env
+
+    env = make_env(cfg, seed)
+    obs, _ = env.reset(seed=seed)
+    conn = _Conn(port, time.monotonic() + 60)
+    feedback = None
+    try:
+        while not stop.is_set():
+            msg = {"obs": {"state": np.asarray(obs["state"], np.float32).reshape(1, -1).tolist()}, "n": 1}
+            if feedback is not None:
+                msg["reward"], msg["done"] = feedback
+            t0 = time.perf_counter()
+            resp = conn.ask(msg)
+            traffic["latencies"].append(time.perf_counter() - t0)
+            traffic["requests"] += 1
+            if "actions" not in resp:
+                traffic["errors"].append(resp)
+                continue
+            traffic["versions"][seed].append(resp["version"])
+            obs, reward, terminated, truncated, _ = env.step(np.asarray(resp["actions"][0], np.float32))
+            feedback = (float(reward), float(terminated))
+            if terminated or truncated:
+                obs, _ = env.reset()
+                feedback = None  # the next episode's first request grades nothing
+                traffic["episodes"] += 1
+            time.sleep(0.01)  # a client's think time: ~100 requests/s each
+    except BaseException as e:
+        traffic["errors"].append(repr(e))
+    finally:
+        conn.close()
+        env.close()
+
+
+def flywheel_phase(ckpt: str, workdir: str, card: str = "cuda") -> dict:
+    """Phase 70: ``serve --flywheel`` on a published copy of the SAC-PER
+    checkpoint's agent (2 x 256, batch 256) on the card, in this process;
+    FLYWHEEL_CLIENTS closed-loop clients step the port's Pendulum-v1 and send
+    ``reward``/``done``. The learner (``run --from-serve``, its own process on
+    the card) trains and publishes; the server adopts the step (publish to
+    adoption timed against the manifest's time). Then ``hang-learner`` and
+    ``kill-learner`` at the ``serve.flywheel.tick`` point: each counted and
+    the learner respawned, while no request errs. SIGTERM drains. Before it,
+    one ingest dispatch card against CPU from the checkpoint's agent."""
+    from sheeprl_tpu_torch.fault import inject
+    from sheeprl_tpu_torch.fault.manager import read_manifest
+
+    ckpt_dir = Path(workdir) / "flywheel" / "checkpoint"
+    served = _publish_copy(ckpt, ckpt_dir, agent_only=True)
+    base_step = int(served.name.split("_")[1])
+    cfg = cli.compose_serve_config([f"checkpoint_path={served}"])
+    ingest_check = _ingest_card_vs_cpu(cfg, load_checkpoint(served), card)
+    log("flywheel ingest card vs CPU: " + json.dumps(ingest_check))
+    traffic = {"requests": 0, "errors": [], "latencies": [], "episodes": 0,
+               "versions": {i: [] for i in range(FLYWHEEL_CLIENTS)}}
+    marks: dict = {}
+
+    def client(port: int, result: dict) -> None:
+        deadline = time.monotonic() + 300
+        while not _ask(port, {"health": True}).get("ready"):
+            if time.monotonic() > deadline:
+                raise AssertionError("the flywheel server never became ready")
+            time.sleep(0.1)
+        stop = threading.Event()
+        threads = [threading.Thread(target=_pendulum_client, args=(port, cfg, i, stop, traffic), daemon=True)
+                   for i in range(FLYWHEEL_CLIENTS)]
+        t_start = time.perf_counter()
+        for th in threads:
+            th.start()
+        try:
+            def learner() -> dict:
+                return _ask(port, {"health": True})["flywheel"]["learner"]
+
+            def until(cond, what: str, timeout: float = 240.0):
+                end = time.monotonic() + timeout
+                while True:
+                    health = _ask(port, {"health": True})
+                    if cond(health):
+                        return health
+                    if time.monotonic() > end or traffic["errors"]:
+                        raise AssertionError(f"{what}: {health.get('flywheel')} {traffic['errors'][:3]}")
+                    time.sleep(0.05)
+
+            health = until(lambda h: h["flywheel"]["learner"]["published_step"] > base_step, "no publish")
+            marks["first_publish_s"] = time.perf_counter() - t_start
+            first = health["flywheel"]["learner"]["published_step"]
+            health = until(lambda h: h["weights"]["step"] >= first, "no adoption")
+            adopted_wall = time.time()
+            entry = next(e for e in read_manifest(ckpt_dir) if int(e["step"]) == first)
+            marks["publish_to_adopt_s"] = adopted_wall - float(entry["time"])
+            c0, g0, t0 = learner()["ingested_rows"], learner()["grad_steps"], time.perf_counter()
+            time.sleep(5.0)
+            lrn = learner()
+            marks["learner_rows_per_s"] = (lrn["ingested_rows"] - c0) / (time.perf_counter() - t0)
+            marks["learner_grad_steps_per_s"] = (lrn["grad_steps"] - g0) / (time.perf_counter() - t0)
+            marks["learner_before_drills"] = lrn
+            hangs0, pid0 = lrn["hangs"], lrn["pid"]
+            t_hang = time.perf_counter()
+            inject.arm("serve.flywheel.tick", action="hang-learner", at=1)
+            until(lambda h: h["flywheel"]["learner"]["hangs"] > hangs0, "the hang was not detected", 120)
+            marks["hang_detect_s"] = time.perf_counter() - t_hang
+            health = until(lambda h: _learner_up(h, served, pid0), "no respawn after the hang", 240)
+            marks["hang_respawn_s"] = time.perf_counter() - t_hang
+            kills0, pid1 = health["flywheel"]["learner"]["kills"], health["flywheel"]["learner"]["pid"]
+            t_kill = time.perf_counter()
+            inject.arm("serve.flywheel.tick", action="kill-learner", at=1)
+            until(lambda h: h["flywheel"]["learner"]["kills"] > kills0, "the kill was not detected", 60)
+            marks["kill_detect_s"] = time.perf_counter() - t_kill
+            until(lambda h: _learner_up(h, served, pid1), "no respawn after the kill", 240)
+            marks["kill_respawn_s"] = time.perf_counter() - t_kill
+            result["final"] = _ask(port, {"health": True})
+            result["status"] = _learner_status_of(served)
+        finally:
+            stop.set()
+            for th in threads:
+                th.join(timeout=30)
+            result["wall_s"] = time.perf_counter() - t_start
+
+    result = _serve_with([
+        f"checkpoint_path={served}", f"fabric.accelerator={card}", "--flywheel", "serve.watch=True",
+        "serve.watch_poll_s=0.2", "serve.buckets=[1,8]", "serve.max_wait_ms=2.0", "serve.flywheel.poll_s=0.2",
+        "serve.flywheel.flush_s=0.1", "serve.flywheel.block_rows=64", "serve.flywheel.publish_rows=1024",
+        f"serve.flywheel.lease_s={FLYWHEEL_LEASE_S}",
+        "serve.flywheel.grace_s=180", "serve.flywheel.supervisor.backoff=0.2", "serve.flywheel.supervisor.max_restarts=10",
+    ], client)
+    launches = result["launches"]
+    final = result["final"]
+    fl, lrn = final["flywheel"], final["flywheel"]["learner"]
+    if traffic["errors"] or not traffic["requests"]:
+        raise AssertionError(f"flywheel traffic: {traffic['requests']} requests, errors {traffic['errors'][:3]}")
+    if any(v != sorted(v) for v in traffic["versions"].values()):
+        raise AssertionError("a client's weight version went down")
+    if lrn["hangs"] < 1 or lrn["kills"] < 1 or lrn["restarts"] < 2 or lrn["fatal"] is not None:
+        raise AssertionError(f"learner drills: {lrn}")
+    if fl["errors"] or not fl["rows_logged"] or final["weights"]["step"] <= base_step:
+        raise AssertionError(f"flywheel: {fl}, weights {final['weights']}")
+    if not str(result["status"].get("device", "")).startswith(card):
+        raise AssertionError(f"the learner ran on {result['status'].get('device')}")
+    _zero_launch_check("the SAC flywheel", launches)
+    lat = np.asarray(traffic["latencies"]) * 1e3
+    out = {
+        "launches": launches,
+        "requests": traffic["requests"], "dropped": 0, "episodes": traffic["episodes"],
+        "requests_per_s": traffic["requests"] / result["wall_s"],
+        "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+        "rows_logged": fl["rows_logged"], "rows_shed": fl["rows_shed"], "rows_spooled": fl["rows_spooled"],
+        "weights_step": final["weights"]["step"], "weights_version": final["weights"]["version"],
+        "learner": lrn, "learner_device": result["status"].get("device"), **marks, "ingest_card_vs_cpu": ingest_check,
+    }
+    log("flywheel: " + json.dumps(out))
+    return out
+
+
+def _learner_up(health: dict, served: Path, old_pid: int) -> bool:
+    """A learner other than ``old_pid`` is alive and has written its status."""
+    lrn = health["flywheel"]["learner"]
+    return lrn["alive"] and lrn["pid"] != old_pid and _learner_status_of(served).get("pid") == lrn["pid"]
+
+
+def _learner_status_of(served: Path) -> dict:
+    from sheeprl_tpu_torch.serve.flywheel import read_learner_status
+
+    return read_learner_status(Path(served).parent / "flywheel") or {}
+
+
 # -- lanes -------------------------------------------------------------------
 #
 # After the kernel phases (1-3, 11, 14, 21), which the main process runs
@@ -9424,6 +10107,11 @@ def _lane_rssm(timed) -> dict:
     with tempfile.TemporaryDirectory() as workdir:
         r["run"] = timed("run", run_phase, workdir)
         r["serve"] = timed("serve", serve_phase, r["run"]["checkpoint"])
+        r["fleet_inprocess"] = timed("fleet_inprocess", fleet_inprocess_phase, r["run"]["checkpoint"])
+        keep = _keep_dir("rssm")
+        if keep is not None:  # the tail's fleet serves this checkpoint and holds it to these answers
+            _publish_copy(r["run"]["checkpoint"], keep)
+            (keep / "reference.json").write_text(json.dumps(r["fleet_inprocess"]["reference"]))
         r["rssm_evaluation"] = timed("rssm_evaluation", rssm_evaluation_phase, r["run"]["checkpoint"])
     return r
 
@@ -9442,6 +10130,9 @@ def _lane_sac(timed) -> dict:
     r = {"sac_update": timed("sac_update", sac_update_phase)}
     with tempfile.TemporaryDirectory() as workdir:
         r["sac_run"] = run = timed("sac_run", sac_run_phase, workdir)
+        keep = _keep_dir("sac")
+        if keep is not None:  # the tail's flywheel serves this checkpoint's agent
+            _publish_copy(run["checkpoint"], keep, agent_only=True)
         r["sac_serve"] = timed("sac_serve", stateless_serve_phase, run["checkpoint"], "sac")
         r["sac_evaluation"] = timed("sac_evaluation", stateless_evaluation_phase, run["checkpoint"], "sac",
                                     SAC_RETURN_BAR, run["test_reward"])
@@ -9583,6 +10274,21 @@ def _lane_hybrid_families(timed) -> dict:
         return {"hybrid_v1_explore_runs": timed("hybrid_v1_explore_runs", hybrid_v1_explore_runs_phase, workdir)}
 
 
+def _kept_checkpoint(name: str) -> str:
+    return str(max(_keep_dir(name).glob("ckpt_*_0.ckpt"), key=lambda p: int(p.name.split("_")[1])))
+
+
+def _lane_fleet(timed) -> dict:
+    reference = json.loads((_keep_dir("rssm") / "reference.json").read_text())
+    with tempfile.TemporaryDirectory() as workdir:
+        return {"fleet_verb": timed("fleet_verb", fleet_verb_phase, _kept_checkpoint("rssm"), workdir, reference)}
+
+
+def _lane_flywheel(timed) -> dict:
+    with tempfile.TemporaryDirectory() as workdir:
+        return {"flywheel": timed("flywheel", flywheel_phase, _kept_checkpoint("sac"), workdir)}
+
+
 #: each lane's groups, run in order by one worker; balanced on a serial
 #: run's seconds by phase (the SAC run alone is ~200 s); the async PPO runs
 #: in the Anakin lane, the async SAC runs in the SAC lane, the pipeline's
@@ -9601,7 +10307,14 @@ LANES = {
 #: alone; the dreamer_sebulba lane's learner and actors mostly launch kernels
 #: under the GIL, so it takes one, and runs the hybrid player's phases (60-67)
 #: after them: a sixth lane of their own slowed the others by 12-26 % on 8 cores
-LANE_THREADS = {"sebulba_rssm": 1}
+#: after LANES, the tail: phases 69 and 70 serve the DreamerV3-S and SAC-PER
+#: checkpoints the lanes left in KEEP_ENV's directory, each in a worker of its
+#: own, the replicas and the learner as processes of their own beside them
+TAIL_LANES = {
+    "fleet": (_lane_fleet,),
+    "flywheel": (_lane_flywheel,),
+}
+LANE_THREADS = {"sebulba_rssm": 1, "fleet": 1}
 _LANE_TAG = ""
 
 
@@ -9627,12 +10340,52 @@ def _exit_with_parent() -> None:
     threading.Thread(target=watch, daemon=True).start()
 
 
+def _exit_on_sigterm(signum, frame) -> None:
+    """A lane asked to stop unwinds, so that each phase's ``finally`` stops the
+    processes it started."""
+    raise SystemExit(128 + signum)
+
+
+def _stop_strays(token: str) -> list:
+    """SIGKILLs every process but this one that carries ``RUN_ENV=token`` in
+    its environment (each process the script started, and theirs, inherit
+    it): a worker stopped mid-phase may have left a server or a learner
+    behind. Returns their pids."""
+    mark = f"{RUN_ENV}={token}".encode()
+    stray = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit() or int(entry) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{entry}/environ", "rb") as f:
+                if mark not in f.read().split(b"\0"):
+                    continue
+            os.kill(int(entry), signal.SIGKILL)
+            stray.append(int(entry))
+        except OSError:  # gone, or not ours to read
+            continue
+    end = time.monotonic() + 10
+    while time.monotonic() < end and any(_running(pid) for pid in stray):
+        time.sleep(0.1)
+    return stray
+
+
+def _running(pid: int) -> bool:
+    """The process exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
 def lane_main(name: str, out: str) -> int:
     global _LANE_TAG
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
         return 1
     _exit_with_parent()
+    signal.signal(signal.SIGTERM, _exit_on_sigterm)
     _LANE_TAG = f"[{name}] "
     # the CPU's cores shared between the lanes; TF32 off, as every
     # card-vs-CPU phase sets it
@@ -9642,22 +10395,23 @@ def lane_main(name: str, out: str) -> int:
     _build.build_all()  # loads what the main process built
     phase_s, results = {}, {}
     timed = _timer(phase_s)
-    for group in LANES[name]:
+    for group in {**LANES, **TAIL_LANES}[name]:
         results.update(group(timed))
     with open(out, "wb") as f:
         pickle.dump({"results": results, "phase_s": phase_s}, f)
     return 0
 
 
-def run_lanes(phase_s: dict) -> dict:
-    """Every lane's worker at once; their results merged. Fails, after
-    stopping the others, as soon as one worker fails."""
+def run_lanes(phase_s: dict, lanes: Optional[dict] = None) -> dict:
+    """Every lane's worker (of ``lanes``, default LANES) at once; their
+    results merged. Fails, after stopping the others, as soon as one worker
+    fails."""
     results = {}
     torch.cuda.empty_cache()  # the kernel phases' cached blocks, for the workers
     with tempfile.TemporaryDirectory() as tmp:
         procs, started = {}, {}
         try:
-            for name in LANES:
+            for name in LANES if lanes is None else lanes:
                 out = os.path.join(tmp, f"{name}.pkl")
                 procs[name] = (subprocess.Popen([sys.executable, os.path.abspath(__file__), "--lane", name, "--out", out]),
                                out)
@@ -9678,9 +10432,15 @@ def run_lanes(phase_s: dict) -> dict:
                     results.update(done["results"])
                     phase_s.update(done["phase_s"])
                     log(f"lane {name} done in {phase_s[f'lane_{name}']} s")
-        finally:
-            for proc, _ in procs.values():
-                if proc.poll() is None:
+        finally:  # the others asked first, so that their own clean-ups stop what they started
+            live = [proc for proc, _ in procs.values() if proc.poll() is None]
+            for proc in live:
+                proc.terminate()
+            end = time.monotonic() + LANE_GRACE_S
+            for proc in live:
+                try:
+                    proc.wait(timeout=max(0.1, end - time.monotonic()))
+                except subprocess.TimeoutExpired:
                     proc.kill()
                     proc.wait()
     return results
@@ -9692,6 +10452,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
         return 1
+    token = f"{os.getpid()}-{time.time_ns()}"
+    os.environ[RUN_ENV] = token
+    try:
+        return run_all()
+    finally:
+        stray = _stop_strays(token)
+        if stray:
+            log(f"stopped {len(stray)} process(es) left running: {stray}")
+
+
+def run_all() -> int:
+    """Every phase: the kernels alone, then the lanes and the tail."""
     t_start = time.perf_counter()
     phase_s = {}
     timed = _timer(phase_s)
@@ -9706,7 +10478,13 @@ def main() -> int:
     sumtree_row = timed("sumtree", sumtree_phase, str(chase_lib))
     scatter_row = timed("ring_scatter", scatter_phase)
     nonfinite = timed("nonfinite", nonfinite_phase)
-    R = timed("lanes", run_lanes, phase_s)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
+    os.environ[KEEP_ENV] = keep
+    try:
+        R = timed("lanes", run_lanes, phase_s)
+        R.update(timed("tail", run_lanes, phase_s, TAIL_LANES))
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
     run, resident_run, fault, rundir, memmap = R["run"], R["resident_run"], R["fault"], R["rundir"], R["memmap"]
     ppo_run, sac_run, a2c_run, recurrent_run = R["ppo_run"], R["sac_run"], R["a2c_run"], R["ppo_recurrent_run"]
     recurrent_serve, continuous, continuous_run = R["ppo_recurrent_serve"], R["ppo_continuous"], R["continuous_run"]
@@ -9760,7 +10538,8 @@ def main() -> int:
              "sac_decoupled_resume": R["sac_decoupled_run"]["resume"], "dreamer_sebulba": R["rssm_sebulba_run"],
              "dreamer_sebulba_resume": R["rssm_sebulba_run"]["resume"],
              "dreamer_sebulba_evaluation": R["rssm_sebulba_run"]["evaluation"],
-             "dreamer_sebulba_serve": R["rssm_sebulba_run"]["serve"]}
+             "dreamer_sebulba_serve": R["rssm_sebulba_run"]["serve"],
+             "fleet_inprocess": R["fleet_inprocess"], "fleet_verb": R["fleet_verb"], "flywheel": R["flywheel"]}
     hybrid, hybrid_sac, profiled = R["hybrid_rssm_run"], R["hybrid_sac_run"], R["profiler_card"]
     paths.update({"hybrid_rssm": hybrid, "hybrid_rssm_resume": hybrid["resume"], "hybrid_sac": hybrid_sac,
                   "hybrid_sac_resume": hybrid_sac["resume"], "profiler_ppo": profiled})

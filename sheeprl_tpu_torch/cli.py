@@ -1,5 +1,5 @@
 """Command line (counterpart of ``sheeprl_tpu/cli.py``: the ``run``,
-``serve``, ``evaluation`` and ``agents`` verbs)::
+``serve``, ``serve_fleet``, ``evaluation`` and ``agents`` verbs)::
 
     python -m sheeprl_tpu_torch run \\
         preset=<configs/*.json: sac_per, sac, droq, sac_ae, ppo, ppo_anakin, ppo_anakin_population, a2c,
@@ -13,12 +13,23 @@
         [checkpoint.resume_from=<ckpt>|latest] [checkpoint.exploration_ckpt_path=<ckpt>] [dry_run=true] ...
     python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt> \\
         [fabric.accelerator=cuda|cpu] [serve.port=0] [serve.buckets=[1,8,32,128]] [serve.engine=aot|naive] \\
-        [serve.session.buckets=[1,8,32]] [serve.watch=true] [serve.watch_poll_s=2.0] ...
+        [serve.session.buckets=[1,8,32]] [serve.watch=true] [serve.watch_poll_s=2.0] \\
+        [--fleet [N]] [--flywheel [DIR]] ...
+    python -m sheeprl_tpu_torch serve_fleet checkpoint_path=<ckpt> [serve.fleet.replicas=3] ...
+    python -m sheeprl_tpu_torch run --from-serve <DIR> checkpoint_path=<ckpt> [serve.flywheel.*=...]
     python -m sheeprl_tpu_torch evaluation checkpoint_path=<ckpt> [fabric.accelerator=cuda|cpu] [seed=...]
     python -m sheeprl_tpu_torch agents
 
-The JAX CLI's ``serve_fleet`` and ``registration`` verbs, and its ``--pod``
-flag, are not ported: they exit with the reason.
+The JAX CLI's ``registration`` verb and its ``--pod`` flag are not ported:
+they exit with the reason. ``serve --fleet N`` (or ``serve.fleet.replicas=N``
+with N >= 2, or the ``serve_fleet`` verb, 3 replicas unless
+``serve.fleet.replicas`` says otherwise) serves the checkpoint through N
+supervised replica processes behind a router
+(:mod:`sheeprl_tpu_torch.serve.fleet`); a fleet asked for by the flag or the
+verb with fewer than 2 replicas raises. ``serve --flywheel [DIR]`` turns on
+the serve→train loop (:mod:`sheeprl_tpu_torch.serve.flywheel`, the spool in
+DIR, default ``flywheel/`` beside the checkpoint), whose learner is ``run
+--from-serve DIR``.
 ``run`` trains from a preset (``configs/<name>.json``), or resuming, from the
 checkpoint's ``config.json``, with the algorithm ``algo.name`` names (a
 trainer of :data:`~sheeprl_tpu_torch.utils.registry.TRAINERS`); :data:`~sheeprl_tpu_torch.config.RUN_DEFAULTS`
@@ -59,7 +70,7 @@ import importlib
 import sys
 import time
 import warnings
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -81,6 +92,8 @@ __all__ = [
     "main",
     "run",
     "serve",
+    "serve_fleet",
+    "learn_from_serve",
     "evaluation",
     "agents",
     "compose_run_config",
@@ -93,12 +106,12 @@ __all__ = [
 ]
 
 
-def resolve_device(accelerator: Optional[str]) -> torch.device:
-    """``cpu`` -> the CPU; ``cuda``/``gpu``/``auto`` (or unset) -> the current
-    CUDA device, raising when there is none."""
+def _wants_cpu(accelerator: Optional[str]) -> bool:
+    """True for ``cpu``; for ``cuda``/``gpu``/``auto`` (or unset) False,
+    raising when there is no CUDA device (without making a CUDA context)."""
     name = str(accelerator or "cuda").lower()
     if name == "cpu":
-        return torch.device("cpu")
+        return True
     if name not in ("cuda", "gpu", "auto"):
         raise ValueError(f"fabric.accelerator must be cuda|gpu|auto|cpu, got {accelerator!r}")
     if not torch.cuda.is_available():
@@ -106,6 +119,14 @@ def resolve_device(accelerator: Optional[str]) -> torch.device:
             "no CUDA device is available; this entry point runs on the GPU unless asked for the "
             "CPU with fabric.accelerator=cpu"
         )
+    return False
+
+
+def resolve_device(accelerator: Optional[str]) -> torch.device:
+    """``cpu`` -> the CPU; ``cuda``/``gpu``/``auto`` (or unset) -> the current
+    CUDA device, raising when there is none."""
+    if _wants_cpu(accelerator):
+        return torch.device("cpu")
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -304,11 +325,111 @@ def _exploration_handoff(cfg: DotDict) -> None:
             cfg.env[k] = exploration_cfg.env[k]
 
 
+def _extract_fleet_flag(args: List[str]) -> Tuple[List[str], Optional[int]]:
+    """``--fleet [N]`` / ``--fleet=N`` out of the arguments: (the rest, the
+    replica count or None). A bare ``--fleet`` means 3."""
+    out: List[str] = []
+    fleet: Optional[int] = None
+    i = 0
+    while i < len(args):
+        tok = args[i]
+        if tok == "--fleet":
+            if i + 1 < len(args) and args[i + 1].isdigit():
+                fleet = int(args[i + 1])
+                i += 2
+            else:
+                fleet = 3
+                i += 1
+            continue
+        if tok.startswith("--fleet="):
+            fleet = int(tok.split("=", 1)[1])
+            i += 1
+            continue
+        out.append(tok)
+        i += 1
+    return out, fleet
+
+
+def _extract_flywheel_flag(args: List[str]) -> Tuple[List[str], bool, Optional[str]]:
+    """``--flywheel [DIR]`` / ``--flywheel=DIR`` out of the arguments: (the
+    rest, whether it was given, the spool directory or None: ``flywheel/``
+    beside the served checkpoint)."""
+    out: List[str] = []
+    enabled = False
+    directory: Optional[str] = None
+    i = 0
+    while i < len(args):
+        tok = args[i]
+        if tok == "--flywheel":
+            enabled = True
+            nxt = args[i + 1] if i + 1 < len(args) else None
+            if nxt is not None and "=" not in nxt and not nxt.startswith("-"):
+                directory = nxt
+                i += 2
+            else:
+                i += 1
+            continue
+        if tok.startswith("--flywheel="):
+            enabled = True
+            directory = tok.split("=", 1)[1] or None
+            i += 1
+            continue
+        out.append(tok)
+        i += 1
+    return out, enabled, directory
+
+
+def _extract_from_serve_flag(args: List[str]) -> Tuple[List[str], Optional[str]]:
+    """``--from-serve DIR`` / ``--from-serve=DIR`` out of the arguments: (the
+    rest, the spool directory or None). DIR is required."""
+    out: List[str] = []
+    directory: Optional[str] = None
+    i = 0
+    while i < len(args):
+        tok = args[i]
+        if tok == "--from-serve":
+            if i + 1 >= len(args) or "=" in args[i + 1]:
+                raise ValueError("--from-serve needs the flywheel spool directory (`--from-serve <dir>`)")
+            directory = args[i + 1]
+            i += 2
+            continue
+        if tok.startswith("--from-serve="):
+            directory = tok.split("=", 1)[1]
+            if not directory:
+                raise ValueError("--from-serve needs the flywheel spool directory (`--from-serve=<dir>`)")
+            i += 1
+            continue
+        out.append(tok)
+        i += 1
+    return out, directory
+
+
+def learn_from_serve(args: Sequence[str], directory: str) -> dict:
+    """``run --from-serve <dir>``: the flywheel's learner as its own process.
+    The config is composed as ``serve``'s (the checkpoint's run config, so
+    the learner rebuilds the agent that is served), with the flywheel on and
+    its spool in ``directory``; returns the learner's last status."""
+    from sheeprl_tpu_torch.serve.flywheel import run_flywheel_learner
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    cfg = compose_serve_config(args)
+    cfg.serve.flywheel.update({"enabled": True, "dir": str(directory)})
+    Precision.from_config(cfg)
+    device = resolve_device(cfg.fabric.get("accelerator"))
+    _full_float32()
+    return run_flywheel_learner(cfg, load_checkpoint(cfg.checkpoint_path), device)
+
+
 def run(args: Sequence[str]) -> dict:
-    """Train; returns the run's summary (counters, metrics, checkpoint)."""
+    """Train; returns the run's summary (counters, metrics, checkpoint).
+    ``--from-serve <dir>`` runs the flywheel's learner instead
+    (:func:`learn_from_serve`)."""
     from sheeprl_tpu_torch.fault.inject import arm_from_env
     from sheeprl_tpu_torch.utils.registry import TRAINERS
 
+    args, from_serve = _extract_from_serve_flag(list(args))
+    if from_serve is not None:
+        return learn_from_serve(args, from_serve)
     arm_from_env()  # SHEEPRL_FAULT_ARM's fault points, for drills
     cfg = compose_run_config(args)
     if cfg.algo.name not in TRAINERS:
@@ -323,13 +444,37 @@ def run(args: Sequence[str]) -> dict:
     return importlib.import_module(module).main(cfg, device)
 
 
-def serve(args: Sequence[str]) -> None:
+def serve(args: Sequence[str], fleet: Optional[int] = None, require_fleet: bool = False) -> Optional[dict]:
+    """Serve a checkpoint (see the module docstring): one server in this
+    process, or with ``serve.fleet.replicas`` >= 2 (``--fleet N``, ``fleet``)
+    a fleet of replica processes, whose router's last health it returns.
+    ``--flywheel [DIR]`` turns the serve→train loop on."""
     from sheeprl_tpu_torch.serve.server import serve_policy
     from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
     from sheeprl_tpu_torch.utils.registry import registered_policy_builder_names, resolve_policy_builder
 
+    args, flag_fleet = _extract_fleet_flag(list(args))
+    args, flag_flywheel, flywheel_dir = _extract_flywheel_flag(args)
+    fleet = flag_fleet if flag_fleet is not None else fleet
     cfg = compose_serve_config(args)
+    if fleet is not None:
+        cfg.serve.fleet["replicas"] = int(fleet)
+    if flag_flywheel:
+        cfg.serve.flywheel["enabled"] = True
+        if flywheel_dir is not None:
+            cfg.serve.flywheel["dir"] = str(flywheel_dir)
+    replicas = int(cfg.serve.fleet.get("replicas", 0) or 0)
+    if (require_fleet or flag_fleet is not None) and replicas < 2:
+        # asked for a fleet: a lone unsupervised server would serve without any
+        # of the fleet's fault tolerance, so fail loudly instead
+        raise ValueError(f"fleet serving needs serve.fleet.replicas >= 2, got {replicas} — "
+                         "drop the fleet flag/verb for a single-process server")
     Precision.from_config(cfg)
+    if replicas >= 2:
+        from sheeprl_tpu_torch.serve.fleet import serve_fleet as serve_fleet_body
+
+        _wants_cpu(cfg.fabric.get("accelerator"))  # no card, no fleet; the router itself needs none
+        return serve_fleet_body(cfg)
     device = resolve_device(cfg.fabric.get("accelerator"))
     _full_float32()
     builder = resolve_policy_builder(cfg.algo.name)
@@ -340,6 +485,14 @@ def serve(args: Sequence[str]) -> None:
         )
     state = load_checkpoint(cfg.checkpoint_path)
     serve_policy(cfg, state, builder, device)
+    return None
+
+
+def serve_fleet(args: Sequence[str]) -> Optional[dict]:
+    """``serve_fleet checkpoint_path=...``: ``serve --fleet N`` with N from
+    ``serve.fleet.replicas`` (3 unless given; fewer than 2 raises)."""
+    has_replicas = any(a.startswith("serve.fleet.replicas=") for a in args)
+    return serve(list(args), fleet=None if has_replicas else 3, require_fleet=True)
 
 
 def evaluation(args: Sequence[str]) -> dict:
@@ -374,14 +527,14 @@ def agents(args: Sequence[str] = ()) -> List[dict]:
     return rows
 
 
-_VERBS = {"run": run, "serve": serve, "evaluation": evaluation, "eval": evaluation, "agents": agents}
+_VERBS = {"run": run, "serve": serve, "serve_fleet": serve_fleet, "evaluation": evaluation, "eval": evaluation,
+          "agents": agents}
 
 #: the JAX CLI's verbs (its ``main``), the ported ones and the rest
 JAX_VERBS = ("run", "eval", "evaluation", "serve", "serve_fleet", "agents", "registration")
 
 #: why each JAX verb the port lacks is not here
 NOT_PORTED = {
-    "serve_fleet": "the serving fleet (replicas behind a router) waits for ROADMAP.md Queue 1",
     "registration": "model registration needs mlflow, which this round leaves out",
 }
 

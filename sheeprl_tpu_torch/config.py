@@ -95,6 +95,57 @@ SERVE_DEFAULTS: Dict[str, Any] = {
         "watcher_quarantine_after": 3,
         # the scheduler and watcher workers' supervisor (fault.supervisor.*)
         "supervisor": {},
+        # the in-process PolicyClient's default wait bound (None: unbounded);
+        # its expiry raises ServeTimeoutError
+        "client_timeout_s": None,
+        # the serve fleet (serve/fleet.py): replicas >= 2 serves through that
+        # many supervised replica processes behind a router; the process
+        # supervisor's lease, spawn grace, restart budget, backoff, escalation
+        # and drain budget; the router's health poll and probe timeout, its
+        # failover retries, its per-replica in-flight bound and its request
+        # timeout toward a replica
+        "fleet": {
+            "replicas": 0,
+            "lease_s": 15.0,
+            "grace_s": 120.0,
+            "max_restarts": 3,
+            "backoff": 0.5,
+            "escalation": "degrade",
+            "join_s": 30.0,
+            "health_poll_s": 0.5,
+            "health_timeout_s": 2.0,
+            "retry_budget": 2,
+            "max_inflight": 64,
+            "request_timeout_s": 30.0,
+        },
+        # the serve→train loop (serve/flywheel.py): the spool directory (None:
+        # flywheel/ beside the checkpoint) and this replica's name in it; the
+        # transport (rows a block, blocks in the writer's queue, the partial
+        # flush's age, the streams paired at once); whether this process
+        # spawns the learner; the learner's ring, rows a dispatch, steps a
+        # dispatch, steps a row and rows before the first step; its publish
+        # cadence, row budget and poll; its supervision lease and spawn grace
+        "flywheel": {
+            "enabled": False,
+            "dir": None,
+            "replica": None,
+            "block_rows": 256,
+            "queue_blocks": 8,
+            "flush_s": 0.25,
+            "max_streams": 4096,
+            "learner": True,
+            "buffer_size": 4096,
+            "ingest_rows": 64,
+            "grad_max": 8,
+            "replay_ratio": 0.5,
+            "learning_starts_rows": 128,
+            "publish_rows": 256,
+            "max_rows": None,
+            "poll_s": 0.5,
+            "lease_s": 15.0,
+            "grace_s": 180.0,
+            "supervisor": {"max_restarts": 3, "backoff": 0.5, "escalation": "degrade", "join_s": 30.0},
+        },
     },
 }
 

@@ -23,6 +23,15 @@ File corrupters (:func:`truncate_file`, :func:`scramble_file`,
 :class:`FlakyEnv` is an env whose ``step``/``reset`` raises or hangs on a
 shared fuse. Counters advance only for an armed point, so an unarmed probe
 costs one dict lookup and one environment read.
+
+Process-tier chaos: the serve fleet's router registers callables that
+SIGKILL or SIGSTOP one of its replica processes (:func:`set_replica_chaos`),
+and the flywheel's learner supervisor the same for the learner process
+(:func:`set_learner_chaos`); the ``kill-replica``/``hang-replica`` and
+``kill-learner``/``hang-learner`` actions dispatch to them, from the point's
+calling thread, which carries on (an unregistered handler is a no-op). The
+JAX package's ``kill-host``/``hang-host`` (its pod of training workers) are
+not ported: arming them raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import threading
 import time
 import zipfile
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -52,6 +61,8 @@ __all__ = [
     "plant_torn_checkpoint",
     "NaNInjector",
     "FlakyEnv",
+    "set_replica_chaos",
+    "set_learner_chaos",
     "KILL_ENV_VAR",
     "ARM_ENV_VAR",
     "NAN_ENV_VAR",
@@ -61,11 +72,15 @@ KILL_ENV_VAR = "SHEEPRL_FAULT_KILL"
 ARM_ENV_VAR = "SHEEPRL_FAULT_ARM"
 NAN_ENV_VAR = "SHEEPRL_FAULT_NAN_AT"
 
-_ACTIONS = ("raise", "kill", "kill-thread", "hang")
+_ACTIONS = ("raise", "kill", "kill-thread", "hang", "kill-replica", "hang-replica", "kill-learner", "hang-learner")
 
 _counts: Dict[str, int] = {}
 _armed: Dict[str, Tuple[str, int, float]] = {}  # point -> (action, Nth hit, hang_s)
 _hang_release = threading.Event()
+# process-tier chaos: "kill"/"hang" callables registered by the fleet router
+# (its replica processes) and by the flywheel's learner supervisor
+_replica_chaos: Dict[str, Optional[Callable[[], None]]] = {"kill": None, "hang": None}
+_learner_chaos: Dict[str, Optional[Callable[[], None]]] = {"kill": None, "hang": None}
 
 
 class FaultInjected(RuntimeError):
@@ -82,8 +97,10 @@ class ThreadKilled(BaseException):
 def arm(point: str, action: str = "raise", at: int = 1, hang_s: float = 5.0) -> None:
     """Arm ``point`` to fire on its ``at``-th hit: ``raise``
     (:class:`FaultInjected`), ``kill`` (SIGKILL the process), ``kill-thread``
-    (:class:`ThreadKilled`) or ``hang`` (stall the calling thread ``hang_s``
-    seconds, then return: a lease expiry, not a crash)."""
+    (:class:`ThreadKilled`), ``hang`` (stall the calling thread ``hang_s``
+    seconds, then return: a lease expiry, not a crash), or one of the
+    process-tier actions (``kill-replica``, ``hang-replica``,
+    ``kill-learner``, ``hang-learner``: call the registered handler)."""
     if action not in _ACTIONS:
         raise ValueError(f"Unknown fault action '{action}' (one of {_ACTIONS})")
     _armed[point] = (action, int(at), float(hang_s))
@@ -97,6 +114,21 @@ def disarm(point: Optional[str] = None) -> None:
         _armed.pop(point, None)
 
 
+def set_replica_chaos(kill: Optional[Callable[[], None]] = None, hang: Optional[Callable[[], None]] = None) -> None:
+    """Register the fleet's handlers: ``kill()`` SIGKILLs one live replica
+    process, ``hang()`` SIGSTOPs one (alive but silent: the lease-expiry
+    model). ``kill-replica``/``hang-replica`` dispatch to them; cleared by
+    :func:`reset`."""
+    _replica_chaos["kill"], _replica_chaos["hang"] = kill, hang
+
+
+def set_learner_chaos(kill: Optional[Callable[[], None]] = None, hang: Optional[Callable[[], None]] = None) -> None:
+    """Register the flywheel learner's handlers (SIGKILL / SIGSTOP of the
+    learner process); ``kill-learner``/``hang-learner`` dispatch to them;
+    cleared by :func:`reset`."""
+    _learner_chaos["kill"], _learner_chaos["hang"] = kill, hang
+
+
 def release_hangs() -> None:
     """Wake every thread stalled in a ``hang`` point (and any later one
     until the next :func:`reset`)."""
@@ -104,10 +136,13 @@ def release_hangs() -> None:
 
 
 def reset() -> None:
-    """Clear every armed point and hit counter, and release stalled threads."""
+    """Clear every armed point, hit counter and process-tier handler, and
+    release stalled threads."""
     global _hang_release
     _armed.clear()
     _counts.clear()
+    set_replica_chaos(None, None)
+    set_learner_chaos(None, None)
     _hang_release.set()
     _hang_release = threading.Event()
 
@@ -179,6 +214,14 @@ def fault_point(point: str) -> None:
         return
     if action == "kill":
         os.kill(os.getpid(), signal.SIGKILL)  # the preemption model: no cleanup
+    if action.endswith(("-replica", "-learner")):
+        # process-tier chaos: the registered handler acts on another process;
+        # the calling thread (the owner's poll loop) keeps running
+        registry = _learner_chaos if action.endswith("-learner") else _replica_chaos
+        handler = registry[action.split("-", 1)[0]]
+        if handler is not None:
+            handler()
+        return
     if action == "hang":
         # stall, then return: the woken thread must notice its own verdict (ctx.cancelled)
         _hang_release.wait(hang_s)

@@ -45,7 +45,7 @@ no PER).
 from __future__ import annotations
 
 import warnings
-from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -207,7 +207,8 @@ class DeviceReplayBuffer:
         self.tree_leaves = sumtree.leaf_count(self.capacity * self.n_envs) if prioritized else 0
         # one staged row per flush, packed into one upload
         self.layout: BlobLayout = make_layout([(k, (1, self.n_envs) + shape, dtype) for k, (shape, dtype) in self.specs.items()])
-        # the decoupled topology's blob: up to stage_rows rows and their count
+        # up to stage_rows rows and their count: the decoupled topology's
+        # blob, and with stage_rows > 1 the staging area's flush
         self.stage_rows = int(stage_rows)
         self.append_layout: BlobLayout = make_layout(
             [(k, (self.stage_rows, self.n_envs) + shape, dtype) for k, (shape, dtype) in self.specs.items()]
@@ -225,7 +226,7 @@ class DeviceReplayBuffer:
 
         self._pos = 0
         self._full = False
-        self._staged: Optional[Dict[str, np.ndarray]] = None
+        self._staged: List[Dict[str, np.ndarray]] = []
         self._metrics = {"flushes": 0, "inserts": 0}
 
     # -- properties ----------------------------------------------------------
@@ -243,25 +244,31 @@ class DeviceReplayBuffer:
 
     # -- staging, flush and append ---------------------------------------------
     def add(self, step_data: Dict[str, np.ndarray]) -> None:
-        """Stage one ``(1, n_envs, ...)`` transition row for the next flush."""
-        if self._staged is not None:
-            raise RuntimeError("the staging area holds one row; flush (make_job) before adding another")
-        self._staged = {
+        """Stage one ``(1, n_envs, ...)`` transition row for the next flush
+        (up to ``stage_rows`` of them)."""
+        if len(self._staged) >= self.stage_rows:
+            held = "one row" if self.stage_rows == 1 else f"{self.stage_rows} rows"
+            raise RuntimeError(f"the staging area holds {held}; flush (make_job) before adding another")
+        self._staged.append({
             k: np.asarray(step_data[k], dtype=dtype).reshape((1, self.n_envs) + shape)
             for k, (shape, dtype) in self.specs.items()
-        }
+        })
         self._metrics["inserts"] += self.n_envs
 
     def make_job(self) -> ReplayJob:
-        """Pack the staged row (if any: a backlog-drain dispatch appends
+        """Pack the staged rows (if any: a backlog-drain dispatch appends
         nothing) into one blob, start its non-blocking copy to the device and
-        advance the host head."""
-        pos, count = self._pos, int(self._staged is not None)
+        advance the host head. One staged row packs into :attr:`layout`;
+        with ``stage_rows`` > 1 they pack into :attr:`append_layout`."""
+        pos, count = self._pos, len(self._staged)
         blob = None
         if count:
-            host = pack_burst_blob(self.layout, self._staged, pin_memory=self.device.type == "cuda")
+            if self.stage_rows == 1:
+                host = pack_burst_blob(self.layout, self._staged[0], pin_memory=self.device.type == "cuda")
+            else:
+                host = self.pack_rows([{k: v[0] for k, v in row.items()} for row in self._staged])
             blob = host.to(self.device, non_blocking=True)
-            self._staged = None
+            self._staged = []
             if self._pos + count >= self.capacity:
                 self._full = True
             self._pos = (self._pos + count) % self.capacity
@@ -269,15 +276,28 @@ class DeviceReplayBuffer:
         return ReplayJob(blob, pos, count, self.valid_rows)
 
     def append(self, job: ReplayJob) -> None:
-        """Scatter the job's row into the ring at its position; with PER its
-        ``n_envs`` fresh leaves enter at the running maximum priority."""
+        """Scatter the job's rows into the ring from its position, wrapping;
+        with PER their fresh leaves enter at the running maximum priority."""
         if not job.count:
+            return
+        if self.stage_rows > 1:
+            self._scatter_rows(unpack_burst_blob(job.blob, self.append_layout), job.count, job.pos)
             return
         rows = unpack_burst_blob(job.blob, self.layout)
         for k, store in self.storage.items():
             store[job.pos] = rows[k][0]
         if self.prioritized:
             sumtree.update(self.tree, job.pos * self.n_envs + self._env_leaves, self.max_p.expand(self.n_envs))
+
+    def _scatter_rows(self, rows: Dict[str, torch.Tensor], count: int, pos: int) -> None:
+        """The first ``count`` rows of an :attr:`append_layout` blob into the
+        ring from ``pos``, wrapping, one ``index_copy_`` per key."""
+        idx = (torch.arange(count, device=self.device) + pos) % self.capacity
+        for k, store in self.storage.items():
+            store.index_copy_(0, idx, rows[k][:count])
+        if self.prioritized:
+            leaves = (idx[:, None] * self.n_envs + self._env_leaves[None, :]).reshape(-1)
+            sumtree.update(self.tree, leaves, self.max_p.expand(count * self.n_envs))
 
     # -- decoupled (Sebulba) append/train pair ---------------------------------
     def pack_rows(self, rows: Sequence[Dict[str, np.ndarray]]) -> torch.Tensor:
@@ -321,19 +341,12 @@ class DeviceReplayBuffer:
         the rows past ``count`` are dropped. With PER each fresh ``(row,
         env)`` leaf enters the sum-tree at ``max_p``. Call
         :meth:`note_append` after it: the head is the host's."""
-        layout, n_envs, capacity = self.append_layout, self.n_envs, self.capacity
+        layout = self.append_layout
 
         def append(blob: torch.Tensor, count: int) -> None:
             count = int(count)
-            if count <= 0:
-                return
-            rows = unpack_burst_blob(blob, layout)
-            idx = (torch.arange(count, device=self.device) + self._pos) % capacity
-            for k, store in self.storage.items():
-                store.index_copy_(0, idx, rows[k][:count])
-            if self.prioritized:
-                leaves = (idx[:, None] * n_envs + self._env_leaves[None, :]).reshape(-1)
-                sumtree.update(self.tree, leaves, self.max_p.expand(count * n_envs))
+            if count > 0:
+                self._scatter_rows(unpack_burst_blob(blob, layout), count, self._pos)
 
         return append
 
@@ -353,7 +366,7 @@ class DeviceReplayBuffer:
         :class:`~sheeprl_tpu_torch.fault.CheckpointManager` to stage without
         blocking the host. Call with an empty staging area (the loop flushes
         every env step)."""
-        if self._staged is not None:
+        if self._staged:
             raise RuntimeError("checkpointing with a staged but unflushed row would drop it")
 
         def out(v: torch.Tensor) -> torch.Tensor:

@@ -23,7 +23,12 @@ batch ``i`` is keyed ``(seed, i)``, the counterpart of the JAX scheduler's
 ``fold_in(base_key, i)``.
 
 Past the queue bound ``submit`` blocks (backpressure) and raises
-:class:`ServeOverloadedError` once its timeout expires. The worker thread
+:class:`ServeOverloadedError` once its timeout expires. With the flywheel on
+(:attr:`RequestScheduler.flywheel`, a
+:class:`~sheeprl_tpu_torch.serve.flywheel.TrajectoryLog`) each resolved
+request, with its optional ``reward``/``done`` feedback and its stream, is
+observed after its caller is released: the log never adds to a request's
+latency and never fails it. The worker thread
 runs inference, so it binds the engine's CUDA device when it starts; it uses
 that device's current stream, like every other caller.
 
@@ -88,6 +93,7 @@ class ServeStats:
         self._latencies = collections.deque(maxlen=int(latency_window))
         self._depth_fn = None  # wired by the scheduler
         self._sessions_fn = None  # wired by the scheduler
+        self._flywheel_fn = None  # wired when the flywheel is on
 
     def add(self, name: str, value: int = 1) -> None:
         with self._lock:
@@ -137,6 +143,20 @@ class ServeStats:
                 "Serve/p99_latency_ms": round(p99 * 1e3, 3),
             }
             sessions_fn = self._sessions_fn
+            flywheel_fn = self._flywheel_fn
+        if flywheel_fn is not None:
+            fl = flywheel_fn()
+            out.update(
+                {
+                    "Serve/flywheel_rows": fl["rows_logged"],
+                    "Serve/flywheel_shed": fl["rows_shed"],
+                    "Serve/flywheel_feedback_missing": fl["feedback_missing"],
+                    "Serve/flywheel_feedback_orphans": fl["feedback_orphans"],
+                    "Serve/flywheel_depth": fl["transport_depth"],
+                    "Serve/flywheel_spooled": fl["rows_spooled"],
+                    "Serve/flywheel_errors": fl["errors"],
+                }
+            )
         if sessions_fn is not None:
             s = sessions_fn()
             out.update(
@@ -155,13 +175,20 @@ class ServeStats:
 
 
 class _Request:
-    __slots__ = ("obs", "n", "session_id", "reset", "event", "actions", "version", "error", "t_submit", "t_resolve")
+    __slots__ = ("obs", "n", "session_id", "reset", "reward", "done", "stream", "event", "actions", "version", "error",
+                 "t_submit", "t_resolve")
 
-    def __init__(self, obs: Dict[str, np.ndarray], n: int, session_id: Optional[str] = None, reset: bool = False):
+    def __init__(self, obs: Dict[str, np.ndarray], n: int, session_id: Optional[str] = None, reset: bool = False,
+                 reward: Any = None, done: Any = None, stream: Optional[str] = None):
         self.obs = obs
         self.n = n
         self.session_id = session_id
         self.reset = bool(reset)
+        # the flywheel's feedback: it grades the PREVIOUS action served on
+        # this stream (a session, a connection or an in-process client)
+        self.reward = reward
+        self.done = done
+        self.stream = stream
         self.event = threading.Event()
         self.actions: Optional[np.ndarray] = None
         self.version = -1
@@ -230,6 +257,8 @@ class RequestScheduler:
                                                                      daemon=True)
         self._handle = None  # the supervisor's WorkerHandle when supervised
         self._started = False
+        #: a serve.flywheel.TrajectoryLog when the flywheel is on
+        self.flywheel: Any = None
 
     # -- lifecycle ----------------------------------------------------------- #
 
@@ -293,12 +322,17 @@ class RequestScheduler:
         timeout: Optional[float] = None,
         session_id: Optional[str] = None,
         reset: bool = False,
+        reward: Any = None,
+        done: Any = None,
+        stream: Optional[str] = None,
     ) -> _Request:
         """Enqueue a prepared batch; returns the request future. Blocks while
         the queue is at its bound; ``timeout`` seconds later it gives up with
         :class:`ServeOverloadedError`. ``session_id`` names the caller's
         session (one row); ``reset`` restarts its state before stepping; no
-        ``session_id`` serves a one-shot step from a fresh state."""
+        ``session_id`` serves a one-shot step from a fresh state. ``reward``
+        and ``done`` are the flywheel's feedback on the previous action of
+        ``stream`` (default: the session); they never change the answer."""
         if self._closed.is_set():
             raise ServeClosedError("scheduler is stopped")
         if session_id is not None and self.sessions is None:
@@ -306,7 +340,8 @@ class RequestScheduler:
         n = self.engine.policy.validate_batch(obs)
         if session_id is not None and n != 1:
             raise ValueError(f"a session request is one state row, got n={n}")
-        req = _Request(obs, n, session_id=session_id, reset=reset)
+        req = _Request(obs, n, session_id=session_id, reset=reset, reward=reward, done=done,
+                       stream=stream if stream is not None else session_id)
         try:
             if timeout is None:
                 while not self._closed.is_set():
@@ -414,9 +449,13 @@ class RequestScheduler:
         self.stats.add("batches", 1)
         self.stats.add("rows_served", rows)
         start = 0
+        log = self.flywheel
         for r in batch:
-            r.resolve(actions[start : start + r.n], version)
+            rows = actions[start : start + r.n]
+            r.resolve(rows, version)
             start += r.n
+            if log is not None:  # after the resolve, and never raising
+                log.observe(r.obs, r.n, rows, r.reward, r.done, r.stream)
 
     def _settle(self, pending: List[_Request]) -> None:
         """Shutdown: serve ``pending`` in order, in batches of at most

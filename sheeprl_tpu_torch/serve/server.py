@@ -10,6 +10,7 @@ Wire protocol (one JSON object per line, both directions)::
     <- {"error": "..."}                       # per-request failure
     -> {"health": true}
     <- {"status": "ok", "ready": true, ...}   # liveness/readiness probe
+    -> {"obs": {...}, "reward": 0.7, "done": false}  # flywheel feedback
 
 ``obs`` leaves are raw env observations (the server applies the policy's own
 ``prepare``), ``n`` (default 1) of them batched along the first axis. A
@@ -20,6 +21,16 @@ binds a request with ``session_id`` to a server-side state row; without it,
 ``n`` one-shot rows are stepped from a fresh state. ``serve_policy`` stops on
 SIGTERM/SIGINT with a graceful drain: it stops accepting, serves every
 admitted request, then returns.
+
+With ``serve.flywheel.enabled`` (the serve→train loop,
+:mod:`~sheeprl_tpu_torch.serve.flywheel`) a request's optional ``reward`` and
+``done`` grade the PREVIOUS action served on its stream (the session, else
+the connection, else the in-process client); the server logs the completed
+transitions into the spool directory, and ``serve_policy`` supervises the
+learner process that trains on them. An algorithm with no registered
+learner-ingest, or no spool directory, raises
+:class:`~sheeprl_tpu_torch.serve.flywheel.FlywheelConfigError` before a
+socket binds. Omitting the fields serves as before.
 
 With ``serve.watch`` a :class:`~sheeprl_tpu_torch.serve.weights.CheckpointWatcher`
 watches the served checkpoint's directory and publishes each newer complete
@@ -46,6 +57,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.fault.supervisor import Supervisor
+from sheeprl_tpu_torch.ops.kernels import LAUNCHES
 from sheeprl_tpu_torch.serve.engine import BucketEngine, NaiveEngine, default_buckets
 from sheeprl_tpu_torch.serve.policy import ServePolicy, StatefulServePolicy
 from sheeprl_tpu_torch.serve.scheduler import RequestScheduler, ServeStats
@@ -57,11 +69,18 @@ __all__ = ["PolicyClient", "PolicyServer", "install_drain_handlers", "request_ov
 
 class PolicyClient:
     """In-process client: raw env observations in, env-format actions out.
-    Concurrent callers are micro-batched into shared dispatches."""
+    Concurrent callers are micro-batched into shared dispatches.
+    ``timeout_s`` bounds the waits a call leaves unset (None: no bound); its
+    expiry raises :class:`~sheeprl_tpu_torch.serve.scheduler.ServeTimeoutError`.
+    ``stream`` is the flywheel's pairing identity of a caller without a
+    session (default: this client)."""
 
-    def __init__(self, policy: "ServePolicy | StatefulServePolicy", scheduler: RequestScheduler) -> None:
+    def __init__(self, policy: "ServePolicy | StatefulServePolicy", scheduler: RequestScheduler,
+                 timeout_s: Optional[float] = None, stream: Optional[str] = None) -> None:
         self.policy = policy
         self.scheduler = scheduler
+        self.timeout_s = timeout_s
+        self.stream = stream if stream is not None else f"client-{id(self):x}"
 
     def act(
         self,
@@ -71,18 +90,30 @@ class PolicyClient:
         submit_timeout: Optional[float] = None,
         session_id: Optional[str] = None,
         reset: bool = False,
+        reward: Any = None,
+        done: Any = None,
+        stream: Optional[str] = None,
     ) -> Tuple[np.ndarray, int]:
         """Actions ``(n, action_dim)`` and the weight version that produced
         them. ``timeout`` bounds the wait for the result, ``submit_timeout``
-        the wait for queue space (None: no bound)."""
+        the wait for queue space (both default to the client's
+        ``timeout_s``). ``reward``/``done`` (a scalar or ``n`` values) are
+        feedback on the previous action served to ``stream`` (default: the
+        session, else this client); they never change the answer."""
+        timeout = self.timeout_s if timeout is None else timeout
+        submit_timeout = self.timeout_s if submit_timeout is None else submit_timeout
         prepared = self.policy.prepare(obs, n)
-        req = self.scheduler.submit(prepared, timeout=submit_timeout, session_id=session_id, reset=reset)
+        if stream is None:
+            stream = session_id if session_id is not None else self.stream
+        req = self.scheduler.submit(prepared, timeout=submit_timeout, session_id=session_id, reset=reset,
+                                    reward=reward, done=done, stream=stream)
         return self.scheduler.result(req, timeout=timeout)
 
 
 class _JsonLineHandler(socketserver.StreamRequestHandler):
     def handle(self) -> None:  # one connection, many newline-framed requests
         server: "_TcpFrontEnd" = self.server  # type: ignore[assignment]
+        conn_stream = f"conn-{self.client_address[0]}:{self.client_address[1]}"  # feedback pairs per connection
         for raw in self.rfile:
             line = raw.strip()
             if not line:
@@ -101,6 +132,9 @@ class _JsonLineHandler(socketserver.StreamRequestHandler):
                         submit_timeout=server.request_timeout_s,
                         session_id=None if session_id is None else str(session_id),
                         reset=bool(msg.get("reset", False)),
+                        reward=msg.get("reward"),
+                        done=msg.get("done"),
+                        stream=conn_stream if session_id is None else str(session_id),
                     )
                     resp = {"actions": np.asarray(actions).tolist(), "version": int(version)}
             except Exception as e:  # per request: report it, keep the connection
@@ -132,7 +166,11 @@ class PolicyServer:
     :class:`SessionEngine`; a :class:`ServePolicy` gets the
     :class:`BucketEngine` (``serve.engine=aot``) or the per-request
     :class:`NaiveEngine` (``naive``). ``watch_dir`` (a run's
-    ``checkpoint/`` directory) starts a checkpoint watcher over it."""
+    ``checkpoint/`` directory) starts a checkpoint watcher over it. With
+    ``serve.flywheel.enabled`` the scheduler logs into a
+    :class:`~sheeprl_tpu_torch.serve.flywheel.TrajectoryLog`
+    (``self.flywheel``); ``learner_probe``, when an owner sets it, fills the
+    health probe's ``flywheel.learner`` block."""
 
     def __init__(self, policy: "ServePolicy | StatefulServePolicy", serve_cfg: Optional[Dict[str, Any]] = None,
                  watch_dir: "str | os.PathLike | None" = None) -> None:
@@ -175,7 +213,7 @@ class PolicyServer:
             stats=self.stats,
             seed=int(cfg.get("seed") or 0),
         )
-        self.client = PolicyClient(policy, self.scheduler)
+        self.client = PolicyClient(policy, self.scheduler, timeout_s=cfg.get("client_timeout_s"))
         self._request_timeout_s = float(cfg.get("request_timeout_s", 30.0) or 30.0)
         # the staleness alarm: weights older than this turn the probe to
         # degraded, and Serve/weights_stale counts the ok -> stale turns
@@ -196,6 +234,13 @@ class PolicyServer:
         self._host = str(cfg.get("host", "127.0.0.1"))
         self._port = cfg.get("port", None)
         self._draining = False
+        self.flywheel = None
+        self.learner_probe: Optional[Callable[[], Dict[str, Any]]] = None
+        fly = dict(cfg.get("flywheel") or {})
+        if fly.get("enabled"):  # a misconfiguration fails here, before a socket binds
+            self.flywheel = _trajectory_log(policy, fly)
+            self.scheduler.flywheel = self.flywheel
+            self.stats._flywheel_fn = self.flywheel.snapshot
 
     @property
     def address(self) -> Optional[Tuple[str, int]]:
@@ -239,6 +284,7 @@ class PolicyServer:
                 "device": str(self.engine.device),
                 "buckets": [int(b) for b in self.engine.buckets],
                 **self.engine.stats(),
+                "launches": dict(LAUNCHES),  # this process's kernel launches
             },
             "scheduler": {
                 "alive": bool(alive),
@@ -261,6 +307,14 @@ class PolicyServer:
                 "quarantined": [str(p) for p in sorted(self.watcher.quarantined)],
                 "restarts": int(workers.get("serve-ckpt-watcher", {}).get("restarts", 0)),
             }
+        if self.flywheel is not None:
+            fl = self.flywheel.snapshot()
+            out["flywheel"] = {k: int(fl[k]) for k in ("rows_logged", "rows_shed", "feedback_missing",
+                                                      "feedback_orphans", "transport_depth", "rows_spooled",
+                                                      "spool_bytes", "errors")}
+            out["flywheel"]["replica"] = str(self.flywheel.replica)
+            if self.learner_probe is not None:
+                out["flywheel"]["learner"] = self.learner_probe()
         if self.stateful:
             s = self.engine.cache.snapshot()
             out["sessions"] = {
@@ -292,12 +346,44 @@ class PolicyServer:
         if self.watcher is not None:
             self.watcher.stop()
         self.scheduler.stop()
+        if self.flywheel is not None:  # after the drain: the settled requests' rows spool too
+            self.flywheel.close()
 
     def __enter__(self) -> "PolicyServer":
         return self.start()
 
     def __exit__(self, *exc) -> None:
         self.stop()
+
+
+def _trajectory_log(policy: Any, fly: Dict[str, Any]) -> Any:
+    """The server's :class:`~sheeprl_tpu_torch.serve.flywheel.TrajectoryLog`
+    from a ``serve.flywheel`` mapping; raises
+    :class:`~sheeprl_tpu_torch.serve.flywheel.FlywheelConfigError` for an
+    algorithm without a learner-ingest, or without a spool directory."""
+    from sheeprl_tpu_torch.serve.flywheel import FlywheelConfigError, TrajectoryLog
+    from sheeprl_tpu_torch.utils.registry import registered_flywheel_ingest_names, resolve_flywheel_ingest
+
+    if resolve_flywheel_ingest(str(policy.name)) is None:
+        raise FlywheelConfigError(
+            f"serve.flywheel is enabled but the algorithm named '{policy.name}' has no registered learner-ingest "
+            f"builder. Algorithms with flywheel support: {', '.join(registered_flywheel_ingest_names())}."
+        )
+    if not fly.get("dir"):
+        raise FlywheelConfigError(
+            "serve.flywheel.enabled=True needs serve.flywheel.dir (the shared spool directory the learner tails); "
+            "`serve --flywheel` derives it from the checkpoint dir automatically"
+        )
+    return TrajectoryLog(
+        fly["dir"],
+        policy.obs_spec,
+        int(policy.action_dim),
+        replica=str(fly.get("replica") or f"replica-{os.getpid()}"),
+        block_rows=int(fly.get("block_rows", 256) or 256),
+        queue_blocks=int(fly.get("queue_blocks", 8) or 8),
+        flush_s=float(fly.get("flush_s", 0.25) or 0.25),
+        max_streams=int(fly.get("max_streams", 4096) or 4096),
+    )
 
 
 def request_over_socket(addr: Tuple[str, int], payload: Dict[str, Any], timeout: float = 30.0) -> Dict[str, Any]:
@@ -341,11 +427,28 @@ def serve_policy(cfg: Any, state: Optional[Dict[str, Any]], builder: Callable, d
     """The ``serve`` entry body: build the policy from the checkpoint state on
     ``device`` and serve it until ``serve.max_requests`` requests have been
     answered (None: until SIGTERM/SIGINT). Prints a ``Serve/*`` snapshot
-    every ``serve.log_every_s`` seconds and once at the end."""
+    every ``serve.log_every_s`` seconds and once at the end. With the
+    flywheel on, the spool directory defaults to ``flywheel/`` beside the
+    checkpoint, and unless ``serve.flywheel.learner`` is false this process
+    supervises the learner (:class:`~sheeprl_tpu_torch.serve.flywheel.LearnerSupervisor`),
+    ticked from the serve loop: a wedged or dead learner never stops serving."""
     policy = builder(cfg, state, device)
     serve_cfg = dict(cfg.get("serve", {}))
     watch_dir = os.path.dirname(os.path.abspath(str(cfg.checkpoint_path))) if serve_cfg.get("watch") else None
+    fly_cfg = dict(serve_cfg.get("flywheel") or {})
+    if fly_cfg.get("enabled"):
+        if not fly_cfg.get("dir"):  # the defaults carry dir: None
+            fly_cfg["dir"] = os.path.join(os.path.dirname(os.path.abspath(str(cfg.checkpoint_path))), "flywheel")
+        if not fly_cfg.get("replica"):
+            fly_cfg["replica"] = f"replica-{os.getpid()}"
+        serve_cfg["flywheel"] = fly_cfg
     server = PolicyServer(policy, serve_cfg, watch_dir=watch_dir)
+    learner_sup = None
+    if fly_cfg.get("enabled") and fly_cfg.get("learner", True):
+        from sheeprl_tpu_torch.serve.flywheel import LearnerSupervisor
+
+        learner_sup = LearnerSupervisor(cfg, fly_cfg["dir"])
+        server.learner_probe = learner_sup.probe
     max_requests = serve_cfg.get("max_requests")
     log_every_s = float(serve_cfg.get("log_every_s", 10.0) or 10.0)
     drain = threading.Event()
@@ -359,6 +462,8 @@ def serve_policy(cfg: Any, state: Optional[Dict[str, Any]], builder: Callable, d
         last_log = time.perf_counter()
         while not drain.is_set():
             drain.wait(0.2)
+            if learner_sup is not None:
+                learner_sup.tick()
             if time.perf_counter() - last_log >= log_every_s:
                 print(json.dumps({**server.stats.snapshot(), **server.engine.stats()}), flush=True)
                 last_log = time.perf_counter()
@@ -366,6 +471,8 @@ def serve_policy(cfg: Any, state: Optional[Dict[str, Any]], builder: Callable, d
                 break
     finally:
         server.stop()
+        if learner_sup is not None:
+            learner_sup.stop()
         restore_handlers()
         print(json.dumps({**server.stats.snapshot(), **server.engine.stats()}), flush=True)
         if drain.is_set():

@@ -1,9 +1,11 @@
 """Algorithm registry (counterpart of ``sheeprl_tpu/utils/registry.py``):
 algorithm name -> the module that trains it (and whether that trainer is
 decoupled, JAX's ``register_algorithm(decoupled=True)``), the evaluation
-that tests its checkpoint, and the policy builder that serves it.
-Evaluations and builders register when their module is imported; the
-lookups import the built-in modules first."""
+that tests its checkpoint, the policy builder that serves it, and the
+flywheel's learner-ingest that trains it on served rows
+(:mod:`sheeprl_tpu_torch.serve.flywheel`). Evaluations, builders and ingests
+register when their module is imported; the lookups import the built-in
+modules first."""
 
 from __future__ import annotations
 
@@ -18,6 +20,9 @@ __all__ = [
     "registered_policy_builder_names",
     "register_evaluation",
     "resolve_evaluation",
+    "register_flywheel_ingest",
+    "resolve_flywheel_ingest",
+    "registered_flywheel_ingest_names",
     "algorithm_table",
 ]
 
@@ -53,6 +58,7 @@ DECOUPLED = frozenset({"ppo_decoupled", "ppo_sebulba", "sac_decoupled", "sac_seb
 
 policy_builder_registry: Dict[str, Callable] = {}
 evaluation_registry: Dict[str, Callable] = {}
+flywheel_ingest_registry: Dict[str, Callable] = {}
 
 _BUILTIN_MODULES = [
     "sheeprl_tpu_torch.algos.a2c.evaluate",
@@ -66,6 +72,7 @@ _BUILTIN_MODULES = [
     "sheeprl_tpu_torch.algos.ppo.evaluate",
     "sheeprl_tpu_torch.algos.ppo_recurrent.evaluate",
     "sheeprl_tpu_torch.algos.sac.evaluate",
+    "sheeprl_tpu_torch.algos.sac.flywheel",
     "sheeprl_tpu_torch.algos.sac_ae.evaluate",
 ]
 
@@ -91,6 +98,15 @@ def register_evaluation(algorithms: List[str]) -> Callable[[Callable], Callable]
     return _register_into(evaluation_registry, algorithms)
 
 
+def register_flywheel_ingest(algorithms: List[str]) -> Callable[[Callable], Callable]:
+    """Register ``fn(cfg, agent_state, device)`` as the flywheel
+    learner-ingest of ``algorithms``: an object with ``row_width``,
+    ``ingest(rows)``, ``consumed`` (rows trained into its replay),
+    ``grad_steps`` and ``agent_state()`` (what ``serve``'s builder rebuilds
+    from)."""
+    return _register_into(flywheel_ingest_registry, algorithms)
+
+
 def _import_builtins() -> None:
     for module in _BUILTIN_MODULES:
         importlib.import_module(module)
@@ -109,6 +125,16 @@ def registered_policy_builder_names() -> List[str]:
 def resolve_evaluation(name: str) -> Optional[Callable]:
     _import_builtins()
     return evaluation_registry.get(name)
+
+
+def resolve_flywheel_ingest(name: str) -> Optional[Callable]:
+    _import_builtins()
+    return flywheel_ingest_registry.get(name)
+
+
+def registered_flywheel_ingest_names() -> List[str]:
+    _import_builtins()
+    return sorted(flywheel_ingest_registry)
 
 
 def algorithm_table() -> List[Dict[str, Any]]:

@@ -2,8 +2,10 @@
 ``main``), on the CPU: every JAX verb is either dispatched to the port's
 function of that name or exits naming the verb as not ported, and never
 falls through to ``run``; ``--pod`` on a ``run`` command line exits the same
-way; a command line without a verb and the four ported verbs dispatch as
-before."""
+way; a command line without a verb and the ported verbs dispatch as before;
+``serve_fleet`` reaches ``serve`` asking for a fleet (3 replicas unless
+``serve.fleet.replicas`` says otherwise), and the ``--fleet``, ``--flywheel``
+and ``--from-serve`` flags parse as JAX's do."""
 
 import pytest
 
@@ -34,7 +36,7 @@ def test_torch_cli_verbs_are_the_jax_verbs():
     assert not set(cli._VERBS) & set(cli.NOT_PORTED)
 
 
-@pytest.mark.parametrize("verb,reason", [("serve_fleet", "ROADMAP.md Queue 1"), ("registration", "mlflow")])
+@pytest.mark.parametrize("verb,reason", [("registration", "mlflow")])
 def test_torch_cli_verbs_not_ported_exit_naming_the_verb(calls, verb, reason):
     with pytest.raises(SystemExit, match=f"'{verb}'.*not ported.*{reason}"):
         cli.main([verb, "checkpoint_path=x.ckpt"])
@@ -61,3 +63,52 @@ def test_torch_cli_verbs_pod_flag_exits(calls, argv, with_verb):
 def test_torch_cli_verbs_ported_dispatch_unchanged(calls, argv, want):
     cli.main(argv)
     assert calls == [want]
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["serve_fleet", "checkpoint_path=c"], (["checkpoint_path=c"], 3, True)),
+    (["serve_fleet", "checkpoint_path=c", "serve.fleet.replicas=5"],
+     (["checkpoint_path=c", "serve.fleet.replicas=5"], None, True)),
+], ids=["default_replicas", "replicas_key"])
+def test_torch_cli_verbs_serve_fleet_asks_serve_for_a_fleet(monkeypatch, argv, want):
+    seen = []
+    monkeypatch.setattr(cli, "serve", lambda args, fleet=None, require_fleet=False: seen.append(
+        (list(args), fleet, require_fleet)))
+    cli.main(argv)
+    assert seen == [want]
+
+
+def test_torch_cli_verbs_from_serve_runs_the_learner_not_a_training_run(monkeypatch):
+    seen = []
+    monkeypatch.setattr(cli, "learn_from_serve", lambda args, d: seen.append((list(args), d)))
+    monkeypatch.setattr(cli, "compose_run_config", lambda args: pytest.fail("a training run was composed"))
+    cli.main(["run", "--from-serve", "spool", "checkpoint_path=c"])
+    assert seen == [(["checkpoint_path=c"], "spool")]
+
+
+FLAG_CASES = [
+    ["serve", "--fleet"], ["--fleet", "4", "x=1"], ["--fleet=2"], ["--fleet", "x=1"],
+    ["--flywheel"], ["--flywheel", "spool", "x=1"], ["--flywheel=spool"], ["--flywheel", "--fleet", "2"],
+    ["--flywheel", "x=1"], ["--flywheel="], ["--from-serve", "d", "x=1"], ["--from-serve=d"], ["x=1", "y=2"],
+]
+
+
+@pytest.mark.parametrize("argv", FLAG_CASES, ids=lambda a: " ".join(a) or "empty")
+@pytest.mark.parametrize("flag", ["fleet", "flywheel", "from_serve"])
+def test_torch_cli_verbs_flags_parse_as_jax(flag, argv):
+    from sheeprl_tpu import cli as jax_cli
+
+    name = f"_extract_{flag}_flag"
+    assert getattr(cli, name)(list(argv)) == getattr(jax_cli, name)(list(argv))
+
+
+@pytest.mark.parametrize("argv", [["--from-serve"], ["--from-serve", "x=1"], ["--from-serve="]],
+                         ids=["missing", "override", "empty"])
+def test_torch_cli_verbs_from_serve_without_a_directory_raises_as_jax(argv):
+    from sheeprl_tpu import cli as jax_cli
+
+    with pytest.raises(ValueError) as want:
+        jax_cli._extract_from_serve_flag(list(argv))
+    with pytest.raises(ValueError) as got:
+        cli._extract_from_serve_flag(list(argv))
+    assert str(got.value) == str(want.value)

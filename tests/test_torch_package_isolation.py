@@ -72,7 +72,8 @@ def test_torch_package_imports_with_jax_and_reference_blocked():
                  "algos.p2e_dv1.p2e_dv1_exploration", "algos.p2e_dv1.p2e_dv1_finetuning", "algos.p2e_dv1.evaluate",
                  "algos.p2e_dv1.utils", "algos.ppo.ppo_anakin", "algos.ppo.ppo_anakin_population",
                  "envs.device_envs", "envs.device_envs.base", "envs.device_envs.cartpole", "envs.device_envs.pendulum",
-                 "envs.device_envs.acrobot", "envs.device_envs.mountain_car"):
+                 "envs.device_envs.acrobot", "envs.device_envs.mountain_car", "fault.procsup", "serve.fleet",
+                 "serve.flywheel", "algos.sac.flywheel", "serve.server", "serve.scheduler"):
         assert f"sheeprl_tpu_torch.{name}" in report["imported"]
 
 
