@@ -391,17 +391,35 @@ result line):
    (publish to adoption timed); ``hang-learner`` then ``kill-learner``: each
    counted and the learner respawned while no request errs; one ingest
    dispatch card against CPU from the checkpoint's agent (the 2 lr rule).
+71. data-parallel update: one full-recipe PPO update (512 rows, 2 x 256, 10
+   epochs) by two gloo rank processes on the card and by two on the CPU,
+   from one shared state with injected permutations, at the float32 and
+   the bfloat16 wire: each pair of ranks bit-equal, card against CPU the
+   losses and the 2 lr rule; the reduction's bytes, host ms and share of
+   the update; whether gloo itself takes CUDA tensors;
+72. the pod: ``run --pod 2 preset=ppo env.num_envs=2`` for 64 global
+   iterations of 512 steps: exit 0, ``gae`` exactly once per iteration in
+   each worker, the workers' parameters bit-equal, rank 0's last-10 return
+   at least POD_RETURN_BAR; env steps/s over both workers, beside phase
+   10's one process; the card's memory;
+73. pod drills: a fault-free twin, ``kill-host`` (a gang restart on a fresh
+   coordinator port from the newest complete checkpoint, fences monotone,
+   the twin's final counters), ``hang-host`` (a lease of 8 s, counted as a
+   hang), SIGTERM (both workers checkpoint and exit 0, so does the
+   launcher); each MTTR.
 The V2, V1 and P2E runs of phases 39-52 pass ``algo.hybrid_player.enabled=false``:
 their presets' ``auto`` is on on the card since the families have the path.
 
 Phases 1-3, 11, 14 and 21 run first, in this process alone, so that the
-kernels are timed on an idle card. Phases 4-10, 12, 13, 15-67 and 68 then
+kernels are timed on an idle card. Phases 4-10, 12, 13, 15-67, 68, 71, 72 and half of 73 then
 run in five worker processes at once on the same card (``LANES``; each
 worker is this script with ``--lane NAME --out FILE``), each a chain of
 phases in the order above; path timings taken there share the card and the
-CPU's cores with the other lanes. Phases 69 and 70 run last, in two workers
-at once (``TAIL_LANES``), on the checkpoints the lanes left behind. The
-script fails, and stops the other workers, as soon as one fails.
+CPU's cores with the other lanes. Phases 69, 70 and 73's twin and kill drill
+run last, in three workers at once (``TAIL_LANES``), 69 and 70 on the checkpoints the lanes left
+behind. Phase 72 runs at the end of the families lane, 73's hang and
+SIGTERM drills at the end of the SAC lane. The script fails, and stops the
+other workers, as soon as one fails.
 
 The last three lines: the kernels' JSON record, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -10088,6 +10106,422 @@ def _learner_status_of(served: Path) -> dict:
     return read_learner_status(Path(served).parent / "flywheel") or {}
 
 
+# -- 71-73. data-parallel PPO over torch.distributed and the pod -------------------------
+
+POD_WORKERS = 2
+POD_ENVS = 2  # a worker's envs: 2 workers x 2 envs x 128 steps, the global batch of 512 rows of exp=ppo
+POD_ITERATIONS = PPO_ITERATIONS
+# the pod run's learning bar: rank 0's last-10 mean return at 64 iterations. The host PPO run's 450 is not
+# held: the same command's CPU runs read 498.3, 362.3 and 182.9 (seeds 1-3) and 456.9, 194.9 and 306.9
+# (seeds 42, 4, 5): with 2 workers' minibatches of 64 an epoch takes 4 Adam steps of 128 rows, not 8 of 64
+POD_RETURN_BAR = 150.0
+POD_DRILL_ITERATIONS = 8  # the drills' runs: 8 iterations of 512 global steps, a checkpoint each
+POD_KILL_AT = 6  # the chaos beat: the 6th observed step advance of 2 workers, iteration 3
+POD_LEASE_S = 8.0  # the hang drill's heartbeat lease
+POD_TIMEOUT_S = 600
+POD_ROOT = "ppo/CartPole-v1"  # the pods' experiment directory under their log_root
+DP_WIRES = ("float32", "bfloat16")
+
+
+def _dp_update_rank(rank: int, world: int, port: int, device: str, payload: dict) -> dict:
+    """One rank of phase 71 (``python3 chip_smoke.py --dp-rank ...``, a
+    process of its own): the full-recipe update on this rank's 256 rows at
+    each wire, three times from the same start (a warm-up, the timed update,
+    and one with every reduction timed after a synchronise); on the card
+    also whether this torch's gloo takes CUDA tensors itself."""
+    import torch.distributed as dist
+
+    from sheeprl_tpu_torch.algos.ppo.ppo import param_digest
+    from sheeprl_tpu_torch.config import dotdict
+    from sheeprl_tpu_torch.parallel import comm
+    from sheeprl_tpu_torch.parallel.distributed import maybe_init, shutdown
+
+    torch.set_num_threads(1)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        maybe_init(coordinator_address=f"127.0.0.1:{port}", num_processes=world, process_id=rank)
+        cfg, local = dotdict(payload["cfg"]), payload["local"]
+        data = {k: torch.from_numpy(np.ascontiguousarray(v[rank * local:(rank + 1) * local])).to(device)
+                for k, v in payload["data"].items()}
+        perms = torch.from_numpy(payload["perms"][rank]).to(device)
+        clip, ent = float(cfg.algo.clip_coef), float(cfg.algo.ent_coef)
+        out = {}
+        for wire in DP_WIRES:
+            comm.set_grad_reduce_dtype(wire, fresh_run=True)
+            runs = []
+            for timed_reduce in (False, False, True):
+                agent, _ = build_ppo_agent(cfg, (2,), False, {"state": {"shape": [4]}}, device, payload["state"])
+                train = make_ppo_train_step(agent, make_ppo_optimizer(cfg, agent), cfg, local)
+                reduce_s, untimed = [], comm._all_reduce_sum
+
+                def timed_sum(flat, reduce_s=reduce_s, untimed=untimed):
+                    if flat.is_cuda:
+                        torch.cuda.synchronize()  # the backward done: time the crossing and the collective alone
+                    t0 = time.perf_counter()
+                    untimed(flat)
+                    if flat.is_cuda:
+                        torch.cuda.synchronize()
+                    reduce_s.append(time.perf_counter() - t0)
+
+                if timed_reduce:
+                    comm._all_reduce_sum = timed_sum
+                calls, nbytes = comm.REDUCTIONS["calls"], comm.REDUCTIONS["bytes"]
+                try:
+                    if device == "cuda":
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses = train(data, clip, ent, perms=perms)[0].cpu()
+                    seconds = time.perf_counter() - t0
+                finally:
+                    comm._all_reduce_sum = untimed
+                runs.append({"losses": losses.numpy(), "seconds": seconds, "reduce_s": reduce_s,
+                             "calls": comm.REDUCTIONS["calls"] - calls, "bytes": comm.REDUCTIONS["bytes"] - nbytes,
+                             "digest": param_digest(agent),
+                             "params": {k: v.detach().cpu().numpy() for k, v in agent.state_dict().items()}})
+            timed = runs[2]
+            out[wire] = {
+                "losses": runs[1]["losses"], "params": runs[1]["params"], "digest": runs[1]["digest"],
+                "repeatable": len({r["digest"] for r in runs}) == 1,
+                "update_ms": runs[1]["seconds"] * 1e3, "reductions": runs[1]["calls"],
+                "bytes_per_reduction": runs[1]["bytes"] / max(1, runs[1]["calls"]),
+                "reduce_ms_median": float(np.median(timed["reduce_s"]) * 1e3),
+                "reduce_ms_range": [min(timed["reduce_s"]) * 1e3, max(timed["reduce_s"]) * 1e3],
+                "reduce_share_of_update": sum(timed["reduce_s"]) / runs[1]["seconds"],
+            }
+        if device == "cuda":  # gloo's own CUDA path, which comm.py does not use
+            probe = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                for name, op in (("all_reduce", lambda t: dist.all_reduce(t)),
+                                 ("all_gather", lambda t: dist.all_gather([torch.empty_like(t) for _ in range(world)], t))):
+                    try:
+                        op(torch.ones(8, dtype=dtype, device="cuda"))
+                        probe[f"{name}_{str(dtype).split('.')[-1]}"] = "ok"
+                    except Exception as e:  # what this build refuses is the finding
+                        probe[f"{name}_{str(dtype).split('.')[-1]}"] = f"{type(e).__name__}: {str(e)[:160]}"
+            out["gloo_cuda_tensors"] = probe
+        return out
+    finally:
+        shutdown()
+
+
+def dp_rank_main(rank: int, port: int, device: str, job: str, out: str) -> int:
+    """``python3 chip_smoke.py --dp-rank RANK PORT DEVICE JOB OUT``: one rank
+    of phase 71 on the payload pickled in JOB; its result pickled to OUT."""
+    with open(job, "rb") as f:
+        payload = pickle.load(f)
+    result = _dp_update_rank(rank, POD_WORKERS, port, device, payload)
+    with open(out, "wb") as f:
+        pickle.dump(result, f)
+    return 0
+
+
+def _spawn_dp_ranks(device: str, payload: dict, timeout: float = 300.0) -> list:
+    """Phase 71's two ranks on ``device``, each a process of this script
+    (``--dp-rank``) in one gloo group on a fresh port; their results by rank.
+    Every process is stopped whatever happens."""
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, "job.pkl")
+        with open(job, "wb") as f:
+            pickle.dump(payload, f)
+        port = _free_port()
+        outs = [os.path.join(tmp, f"rank_{r}.pkl") for r in range(POD_WORKERS)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), str(port), device,
+                                   job, outs[r]]) for r in range(POD_WORKERS)]
+        try:
+            deadline = time.monotonic() + timeout
+            for r, proc in enumerate(procs):
+                rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+                if rc != 0:
+                    raise AssertionError(f"phase 71's {device} rank {r} exited {rc}")
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"phase 71's {device} ranks did not end within {timeout:g} s") from None
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        results = []
+        for out in outs:
+            with open(out, "rb") as f:
+                results.append(pickle.load(f))
+    return results
+
+
+def dp_update_phase(card: str = "cuda") -> dict:
+    """Phase 71: one full-recipe data-parallel PPO update (512 rows, 2 ranks
+    x 256, 10 epochs x 4 minibatches of 64 a rank, Adam lr 1e-3) by two gloo
+    rank processes on the card, both from one shared state with injected
+    permutations, at the float32 and the bfloat16 wire; the same update by
+    two CPU rank processes. Held: each pair of ranks ends bit-equal; card
+    against CPU the losses within rtol 1e-5 (float32 wire; 1e-4 at bfloat16,
+    where a gradient one float32 ulp from a bfloat16 boundary may round apart)
+    and every parameter within 2 lr (Adam's first steps move a parameter by
+    about lr sign(g), so a gradient near 0 may step the other way), at the
+    float32 wire 99.9 % of them within 1e-5; the two wires' results differ.
+    Reported: the reductions per update, their bytes, their host ms after a
+    synchronise and their share of the update; whether gloo itself takes
+    CUDA tensors."""
+    from sheeprl_tpu_torch.config import plain
+
+    cfg = _ppo_cfg(False)
+    rows = int(cfg.env.num_envs) * int(cfg.algo.rollout_steps)
+    local = rows // POD_WORKERS
+    lr = float(cfg.algo.optimizer.lr)
+    data = _ppo_batch(np.random.default_rng(21), rows, False, 2)
+    agent, _ = build_ppo_agent(cfg, (2,), False, {"state": {"shape": [4]}}, "cpu")
+    gen = torch.Generator().manual_seed(22)
+    perms = torch.stack([draw_permutations(int(cfg.algo.update_epochs), local, gen, "cpu") for _ in range(POD_WORKERS)])
+    payload = {"cfg": plain(cfg), "local": local, "state": {k: v.clone() for k, v in agent.state_dict().items()},
+               "data": {k: v.numpy() for k, v in data.items()}, "perms": perms.numpy()}
+    on = {card: _spawn_dp_ranks(card, payload)}
+    on["cpu"] = on[card] if card == "cpu" else _spawn_dp_ranks("cpu", payload)
+    out = {"rows": rows, "local_rows": local, "gloo_cuda_tensors": on[card][0].get("gloo_cuda_tensors")}
+    for wire in DP_WIRES:
+        for dev, ranks in on.items():
+            if ranks[0][wire]["digest"] != ranks[1][wire]["digest"]:
+                raise AssertionError(f"phase 71: the {dev} ranks' parameters differ after the {wire}-wire update")
+        got, want = on[card][0][wire], on["cpu"][0][wire]
+        if not np.isfinite(got["losses"]).all():
+            raise AssertionError(f"phase 71: non-finite losses on the card at the {wire} wire: {got['losses']}")
+        rtol = 1e-5 if wire == "float32" else 1e-4
+        np.testing.assert_allclose(got["losses"], want["losses"], rtol=rtol, atol=1e-6,
+                                   err_msg=f"phase 71 losses at the {wire} wire, card against CPU")
+        diffs = np.concatenate([np.abs(got["params"][k] - want["params"][k]).ravel() for k in want["params"]])
+        share = float((diffs <= 1e-5).mean())
+        if diffs.max() > 2 * lr or (wire == "float32" and share < 0.999):
+            raise AssertionError(f"phase 71 at the {wire} wire: parameters card against CPU max {diffs.max()}, "
+                                 f"{share:.6f} within 1e-5")
+        out[wire] = {
+            "losses": got["losses"].tolist(), "loss_max_rel_err": float(np.max(np.abs(got["losses"] - want["losses"])
+                                                                               / np.abs(want["losses"]))),
+            "param_max_abs_err": float(diffs.max()), "param_share_within_1e-5": share,
+            "param_share_within_1e-6": float((diffs <= 1e-6).mean()),
+            "ranks_bit_equal": True, "repeatable": got["repeatable"],
+            **{k: got[k] for k in ("update_ms", "reductions", "bytes_per_reduction", "reduce_ms_median",
+                                   "reduce_ms_range", "reduce_share_of_update")},
+            "cpu_update_ms": want["update_ms"], "cpu_reduce_ms_median": want["reduce_ms_median"],
+        }
+    if on[card][0]["float32"]["digest"] == on[card][0]["bfloat16"]["digest"]:
+        raise AssertionError("phase 71: the bfloat16 wire changed nothing: the reduction is not on it")
+    log("data-parallel PPO update (2 gloo ranks, card against CPU): " + json.dumps(out))
+    return out
+
+
+def _pod_cli(workdir: str, tag: str, overrides: list, sigterm_after_checkpoint: bool = False) -> dict:
+    """``python -m sheeprl_tpu_torch run --pod 2 <overrides>`` as a process of
+    its own session (stopped with everything it started if anything fails);
+    its output, POD_SUMMARY, POD_WORKER lines, wall seconds and the card's
+    memory sampled every second meanwhile. With ``sigterm_after_checkpoint``
+    the launcher is SIGTERMed once the run's first checkpoint is complete."""
+    from sheeprl_tpu_torch.fault.manager import find_latest_run_checkpoint
+
+    log_root = Path(workdir) / tag
+    log_path = Path(workdir) / f"{tag}.log"
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}  # the workers' work is on the card; the cores are the lanes'
+    env.pop(KEEP_ENV, None)
+    cmd = [sys.executable, "-m", "sheeprl_tpu_torch", "run", "--pod", str(POD_WORKERS), *overrides,
+           f"log_root={log_root}"]
+    stop, memory = threading.Event(), []
+
+    def sample() -> None:
+        while not stop.wait(1.0):
+            try:
+                memory.append(_gpu_memory_used())
+            except (OSError, subprocess.SubprocessError):
+                pass
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(cmd, stdout=log_file, stderr=subprocess.STDOUT, env=env,
+                                cwd=os.path.dirname(os.path.abspath(__file__)), start_new_session=True)
+    sampler.start()
+    sigterm_at = None
+    try:
+        deadline = time.monotonic() + POD_TIMEOUT_S
+        while proc.poll() is None:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"pod run '{tag}' did not end in {POD_TIMEOUT_S} s:\n{log_path.read_text()[-4000:]}")
+            if sigterm_after_checkpoint and sigterm_at is None and find_latest_run_checkpoint(log_root / POD_ROOT) is not None:
+                sigterm_at = time.perf_counter() - t0
+                proc.send_signal(signal.SIGTERM)
+            time.sleep(0.2)
+    finally:
+        stop.set()
+        with contextlib.suppress(ProcessLookupError):  # the launcher, and whatever it left in its session
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        wall = time.perf_counter() - t0
+        sampler.join()  # an nvidia-smi in flight ends here, not as an orphan of this lane
+    text = log_path.read_text()
+    lines = text.splitlines()
+    summaries = [json.loads(line[len("POD_SUMMARY "):]) for line in lines if line.startswith("POD_SUMMARY ")]
+    ranks = sorted((json.loads(line[len("POD_WORKER "):]) for line in lines if line.startswith("POD_WORKER ")),
+                   key=lambda r: r["rank"])
+    if proc.returncode != 0 or not summaries:
+        raise AssertionError(f"pod run '{tag}' exited {proc.returncode}:\n{text[-4000:]}")
+    return {"summary": summaries[-1], "ranks": ranks, "wall_s": wall, "memory": memory, "text": text,
+            "sigterm_at_s": sigterm_at, "log_root": log_root}
+
+
+def _pod_rank_checks(tag: str, run: dict, iterations: int, card: str) -> None:
+    """Both workers ran ``iterations`` iterations with ``gae`` launched
+    exactly once each (on the card; none on the CPU) and no other kernel,
+    and ended with bit-equal parameters."""
+    ranks = run["ranks"]
+    if [r["rank"] for r in ranks] != list(range(POD_WORKERS)):
+        raise AssertionError(f"pod run '{tag}': POD_WORKER lines of ranks {[r['rank'] for r in ranks]}")
+    for r in ranks:
+        want = {"gae": r["iterations"]} if card == "cuda" else {}
+        if r["iterations"] != iterations or r["launches"] != want:
+            raise AssertionError(f"pod run '{tag}' rank {r['rank']}: {r['iterations']} iterations, launches "
+                                 f"{r['launches']} (want {iterations} and {want})")
+    if len({r["param_digest"] for r in ranks}) != 1:
+        raise AssertionError(f"pod run '{tag}': the ranks' parameters differ: {[r['param_digest'] for r in ranks]}")
+
+
+def _final_counters(log_root: Path) -> dict:
+    from sheeprl_tpu_torch.fault.manager import find_latest_run_checkpoint, load_resume_state
+
+    ckpt = find_latest_run_checkpoint(log_root / POD_ROOT)
+    if ckpt is None:
+        raise AssertionError(f"no complete checkpoint under {log_root}")
+    state = load_resume_state(ckpt)
+    return {k: int(state[k]) for k in ("iter_num", "last_checkpoint", "train_step")}
+
+
+def pod_run_phase(workdir: str, card: str = "cuda") -> dict:
+    """Phase 72: ``run --pod 2 preset=ppo env.num_envs=2`` on the card for
+    POD_ITERATIONS global iterations of 512 steps (exp=ppo's global batch):
+    the launcher exits 0 with the pod finished; each worker ran every
+    iteration with ``gae`` launched exactly once each and no other kernel,
+    reduced its gradients once a minibatch, and ended bit-equal to the
+    other; rank 0's last-10 mean return at least POD_RETURN_BAR. Reported:
+    env steps/s over both workers (the global steps over a worker's rollout
+    seconds, and over the launcher's wall), the card's memory meanwhile and
+    each worker's peak reserved."""
+    steps = POD_ITERATIONS * POD_WORKERS * POD_ENVS * 128
+    run = _pod_cli(workdir, "pod", [f"preset={PPO_PRESET}", f"env.num_envs={POD_ENVS}", f"algo.total_steps={steps}",
+                                    "metric.log_level=0", f"fabric.accelerator={card}"])
+    s, ranks = run["summary"], run["ranks"]
+    if not s["finished"] or s["pod_restarts"] or s["kills"] or s["hangs"] or s["error"]:
+        raise AssertionError(f"the pod run did not finish clean: {s}")
+    _pod_rank_checks("pod", run, POD_ITERATIONS, card)
+    epochs, mbs = 10, 128 * POD_ENVS // 64
+    for r in ranks:
+        if r["policy_steps"] != steps or r["reductions"]["calls"] != POD_ITERATIONS * epochs * mbs:
+            raise AssertionError(f"pod worker {r['rank']}: {r['policy_steps']} steps, {r['reductions']} reductions")
+    last10 = ranks[0]["last10"]
+    if last10 is None or last10 < POD_RETURN_BAR:
+        raise AssertionError(f"the pod did not learn CartPole: rank 0's last-10 mean return {last10}")
+    out = {
+        "iterations": POD_ITERATIONS, "policy_steps": steps, "wall_s": run["wall_s"],
+        "env_steps_per_s": [r["env_steps_per_s"] for r in ranks],
+        "wall_env_steps_per_s": steps / run["wall_s"],
+        "rollout_s": [r["rollout_s"] for r in ranks], "update_s": [r["update_s"] for r in ranks],
+        "launches_per_worker": [r["launches"] for r in ranks],
+        "reductions_per_worker": [r["reductions"] for r in ranks],
+        "last10_per_worker": [r["last10"] for r in ranks], "test_reward": ranks[0]["test_reward"],
+        "param_digest": ranks[0]["param_digest"], "cuda_max_reserved_mb": [r["cuda_max_reserved_mb"] for r in ranks],
+        "gpu_memory_used_samples": run["memory"][::5], "gpu_memory_used_peak": max(run["memory"], default=None,
+                                                                                  key=lambda m: int(m.split()[0])),
+    }
+    log("pod run (2 workers): " + json.dumps(out))
+    return out
+
+
+def _drill_recipe(iterations: int, card: str) -> list:
+    """The drills' run: ``iterations`` global iterations of 512 steps at the
+    full recipe's widths, a checkpoint each, no test episode."""
+    return [f"preset={PPO_PRESET}", f"env.num_envs={POD_ENVS}", "metric.log_level=0", "algo.run_test=False",
+            f"algo.total_steps={iterations * 512}", "checkpoint.every=512", "fabric.pod.backoff=0.1",
+            "fabric.pod.tick_s=0.05", f"fabric.accelerator={card}"]
+
+
+#: the drills' final counters: every iteration trained once and checkpointed
+POD_DRILL_COUNTERS = {"iter_num": POD_DRILL_ITERATIONS, "last_checkpoint": POD_DRILL_ITERATIONS * 512,
+                      "train_step": POD_DRILL_ITERATIONS}
+
+
+def _chaos_drill(workdir: str, tag: str, card: str, extra: list) -> dict:
+    """One chaos drill (``kill`` or ``hang``) at the POD_KILL_AT-th step
+    advance: a gang restart on a fresh coordinator port from the newest
+    complete checkpoint, the fences monotone, the kill or the hang counted
+    alone, the resumed workers bit-equal with ``gae`` once per iteration,
+    the drills' final counters."""
+    what = {"kill": "kills", "hang": "hangs"}[tag]
+    run = _pod_cli(workdir, tag, _drill_recipe(POD_DRILL_ITERATIONS, card) + [
+        "fault.chaos.enabled=True", f"fault.chaos.events=[train.pod.step:{tag}-host:{POD_KILL_AT}]", *extra])
+    s = run["summary"]
+    if f"pod: chaos {tag}-host" not in run["text"] or not s["finished"] or s["error"] or s["pod_restarts"] < 1:
+        raise AssertionError(f"the {tag}-host drill: {s}")
+    if s[what] < 1 or (tag == "kill" and s["hangs"]) or (tag == "hang" and s["hangs"] != 1):
+        raise AssertionError(f"the {tag}-host drill counted kills {s['kills']}, hangs {s['hangs']}")
+    if s["fences"] != sorted(s["fences"]) or s["fences"][-1] <= 0 or not s["restarts"]:
+        raise AssertionError(f"the {tag}-host drill's fences {s['fences']}, restarts {s['restarts']}")
+    counters = _final_counters(run["log_root"])
+    if counters != POD_DRILL_COUNTERS:
+        raise AssertionError(f"the {tag}-host drill ended on {counters}, not {POD_DRILL_COUNTERS}")
+    resumed = POD_DRILL_ITERATIONS - s["fences"][-1] // 512
+    _pod_rank_checks(tag, run, resumed, card)
+    ports = [line.rsplit(":", 1)[1] for line in run["text"].splitlines() if line.startswith("pod: launching")]
+    if any(f"coordinator port {ports[0]}" in line for line in run["text"].splitlines()
+           if line.startswith("pod: gang restart")):
+        raise AssertionError(f"the {tag}-host drill's restart reused the coordinator port {ports}")
+    out = {"summary": {k: s[k] for k in ("generation", "pod_restarts", "fences", "kills", "hangs", "deaths", "restarts")},
+           "mttr_s": [r["mttr_s"] for r in s["restarts"]], "wall_s": run["wall_s"], "counters": counters,
+           "resumed_iterations": resumed, "launches_per_worker": [r["launches"] for r in run["ranks"]]}
+    log(f"pod {tag}-host drill: " + json.dumps(out))
+    return out
+
+
+def pod_kill_drills_phase(workdir: str, card: str = "cuda") -> dict:
+    """Phase 73, its first half: a fault-free twin of POD_DRILL_ITERATIONS
+    global iterations (the drills' counters, the workers bit-equal), then
+    ``kill-host``: a worker SIGKILLed at the POD_KILL_AT-th step advance
+    restarts the gang, which ends on the twin's counters. Reported: the MTTR
+    (the SIGKILL to the first iteration after the restart)."""
+    twin = _pod_cli(workdir, "twin", _drill_recipe(POD_DRILL_ITERATIONS, card))
+    _pod_rank_checks("twin", twin, POD_DRILL_ITERATIONS, card)
+    counters = _final_counters(twin["log_root"])
+    if counters != POD_DRILL_COUNTERS:
+        raise AssertionError(f"the drills' twin ended on {counters}, not {POD_DRILL_COUNTERS}")
+    out = {"twin": {"counters": counters, "wall_s": twin["wall_s"],
+                    "launches_per_worker": [r["launches"] for r in twin["ranks"]],
+                    "cuda_max_reserved_mb": [r["cuda_max_reserved_mb"] for r in twin["ranks"]]},
+           "kill": _chaos_drill(workdir, "kill", card, [])}
+    log("pod twin: " + json.dumps(out["twin"]))
+    return out
+
+
+def pod_hang_drills_phase(workdir: str, card: str = "cuda") -> dict:
+    """Phase 73, its second half: ``hang-host`` (a worker SIGSTOPped at the
+    POD_KILL_AT-th step advance, POD_LEASE_S of lease: counted as a hang,
+    apart from the kills; the gang restarts and ends on the drills'
+    counters), then SIGTERM on the launcher after the first checkpoint:
+    both workers checkpoint at their next iteration and exit 0, and so does
+    the launcher. Reported: the MTTR (the SIGSTOP to the first iteration
+    after the restart) and the seconds from the SIGTERM to the exit."""
+    out = {"hang": _chaos_drill(workdir, "hang", card, [f"fabric.pod.lease_s={POD_LEASE_S}", "fabric.pod.grace_s=60"])}
+    drain = _pod_cli(workdir, "drain", _drill_recipe(4000, card), sigterm_after_checkpoint=True)
+    s = drain["summary"]
+    if not s["drained"] or s["error"] or s["pod_restarts"] or s["kills"] or \
+            any(h["last_rc"] != 0 for h in s["workers_detail"].values()):
+        raise AssertionError(f"the SIGTERM drill: {s}")
+    if not all(r["drained"] for r in drain["ranks"]) or drain["text"].count("drain requested — checkpointed") != 2:
+        raise AssertionError(f"the SIGTERM drill: workers {drain['ranks']}")
+    iters = drain["ranks"][0]["iterations"]
+    _pod_rank_checks("drain", drain, iters, card)
+    if _final_counters(drain["log_root"])["iter_num"] != iters:
+        raise AssertionError("the SIGTERM drill's last checkpoint is not the drained iteration's")
+    out["drain"] = {"iterations": iters, "sigterm_at_s": drain["sigterm_at_s"], "wall_s": drain["wall_s"],
+                    "exit_after_sigterm_s": drain["wall_s"] - drain["sigterm_at_s"],
+                    "launches_per_worker": [r["launches"] for r in drain["ranks"]]}
+    log("pod SIGTERM drill: " + json.dumps(out["drain"]))
+    return out
+
+
 # -- lanes -------------------------------------------------------------------
 #
 # After the kernel phases (1-3, 11, 14, 21), which the main process runs
@@ -10278,6 +10712,25 @@ def _kept_checkpoint(name: str) -> str:
     return str(max(_keep_dir(name).glob("ckpt_*_0.ckpt"), key=lambda p: int(p.name.split("_")[1])))
 
 
+def _lane_dp_update(timed) -> dict:
+    return {"dp_update": timed("dp_update", dp_update_phase)}
+
+
+def _lane_pod(timed) -> dict:
+    with tempfile.TemporaryDirectory() as workdir:
+        return {"pod_run": timed("pod_run", pod_run_phase, workdir)}
+
+
+def _lane_pod_kill(timed) -> dict:
+    with tempfile.TemporaryDirectory() as workdir:
+        return {"pod_kill_drills": timed("pod_kill_drills", pod_kill_drills_phase, workdir)}
+
+
+def _lane_pod_hang(timed) -> dict:
+    with tempfile.TemporaryDirectory() as workdir:
+        return {"pod_hang_drills": timed("pod_hang_drills", pod_hang_drills_phase, workdir)}
+
+
 def _lane_fleet(timed) -> dict:
     reference = json.loads((_keep_dir("rssm") / "reference.json").read_text())
     with tempfile.TemporaryDirectory() as workdir:
@@ -10295,13 +10748,17 @@ def _lane_flywheel(timed) -> dict:
 #: card checks (a ~25 s rebuild of gae among them) and the Anakin population
 #: in the PPO/DreamerV3 lane; dreamer_sebulba (58-59), then the hybrid player
 #: and the profiler (60-63) and the hybrid Dreamer V2, V1 and P2E phases
-#: (64-67, ~112 s alone), in a fifth lane, as every other lane was near ~360 s
+#: (64-67, ~112 s alone), in a fifth lane, as every other lane was near ~360 s;
+#: the data-parallel update (71, two card and two CPU rank processes, ~40 s
+#: alone) at the end of the fifth lane, the pod's run (72, ~70 s alone) at the
+#: end of the families lane and the hang and SIGTERM drills (73's second half,
+#: ~90 s alone) at the end of the SAC lane, the three shortest
 LANES = {
-    "sac": (_lane_sac, _lane_classic, _lane_bf16, _lane_async_sac),
+    "sac": (_lane_sac, _lane_classic, _lane_bf16, _lane_async_sac, _lane_pod_hang),
     "anakin": (_lane_anakin, _lane_onpolicy, _lane_async_ppo),
     "ppo_rssm": (_lane_ppo, _lane_rssm, _lane_resident, _lane_explore, _lane_pipeline, _lane_population),
-    "families": (_lane_runtime, _lane_continuous, _lane_offpolicy, _lane_v2, _lane_v1),
-    "sebulba_rssm": (_lane_sebulba_rssm, _lane_hybrid, _lane_hybrid_v2, _lane_hybrid_families),
+    "families": (_lane_runtime, _lane_continuous, _lane_offpolicy, _lane_v2, _lane_v1, _lane_pod),
+    "sebulba_rssm": (_lane_sebulba_rssm, _lane_hybrid, _lane_hybrid_v2, _lane_hybrid_families, _lane_dp_update),
 }
 #: torch threads of a lane: the first four split the host's cores as they did
 #: alone; the dreamer_sebulba lane's learner and actors mostly launch kernels
@@ -10309,12 +10766,16 @@ LANES = {
 #: after them: a sixth lane of their own slowed the others by 12-26 % on 8 cores
 #: after LANES, the tail: phases 69 and 70 serve the DreamerV3-S and SAC-PER
 #: checkpoints the lanes left in KEEP_ENV's directory, each in a worker of its
-#: own, the replicas and the learner as processes of their own beside them
+#: own, the replicas and the learner as processes of their own beside them;
+#: the pod's twin and kill drill (73's first half, ~85 s alone) in a third,
+#: its workers processes of their own (with four tail lanes on the 8 cores
+#: the flywheel's took 214 s against its ~100 s)
 TAIL_LANES = {
     "fleet": (_lane_fleet,),
     "flywheel": (_lane_flywheel,),
+    "pod_kill": (_lane_pod_kill,),
 }
-LANE_THREADS = {"sebulba_rssm": 1, "fleet": 1}
+LANE_THREADS = {"sebulba_rssm": 1, "fleet": 1, "pod_kill": 1}
 _LANE_TAG = ""
 
 
@@ -10346,37 +10807,86 @@ def _exit_on_sigterm(signum, frame) -> None:
     raise SystemExit(128 + signum)
 
 
-def _stop_strays(token: str) -> list:
-    """SIGKILLs every process but this one that carries ``RUN_ENV=token`` in
-    its environment (each process the script started, and theirs, inherit
-    it): a worker stopped mid-phase may have left a server or a learner
-    behind. Returns their pids."""
-    mark = f"{RUN_ENV}={token}".encode()
-    stray = []
-    for entry in os.listdir("/proc"):
-        if not entry.isdigit() or int(entry) == os.getpid():
-            continue
-        try:
-            with open(f"/proc/{entry}/environ", "rb") as f:
-                if mark not in f.read().split(b"\0"):
-                    continue
-            os.kill(int(entry), signal.SIGKILL)
-            stray.append(int(entry))
-        except OSError:  # gone, or not ours to read
-            continue
-    end = time.monotonic() + 10
-    while time.monotonic() < end and any(_running(pid) for pid in stray):
-        time.sleep(0.1)
-    return stray
+def _become_subreaper() -> None:
+    """Makes this process the reaper of its descendants' orphans
+    (``PR_SET_CHILD_SUBREAPER``): a process whose parent ends before it, an
+    ``nvidia-smi`` of a lane's sampler or a worker its launcher left, is
+    re-parented here and not to the machine's init, so that _stop_strays
+    finds it, and reaps it once it has ended."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:  # PR_SET_CHILD_SUBREAPER
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER) failed")
 
 
-def _running(pid: int) -> bool:
-    """The process exists and is not a zombie."""
+def _proc_state(pid: int):
+    """``(state, ppid)`` of a process from /proc, or None once it is gone."""
     try:
         with open(f"/proc/{pid}/stat") as f:
-            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
-    except OSError:
+            fields = f.read().rsplit(")", 1)[1].split()
+        return fields[0], int(fields[1])
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+def _marked(pid: int, mark: bytes) -> bool:
+    try:
+        with open(f"/proc/{pid}/environ", "rb") as f:
+            return mark in f.read().split(b"\0")
+    except OSError:  # gone, a zombie, or not ours to read
         return False
+
+
+def _cmdline(pid: int) -> str:
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as f:
+            return f.read().replace(b"\0", b" ").decode(errors="replace").strip()[:200]
+    except OSError:
+        return "?"
+
+
+def _stop_strays(token: str, budget_s: float = 30.0) -> list:
+    """Stops every process the script started that is still there, and
+    returns those that were still running, each as ``"pid command line"``.
+    Each process that carries ``RUN_ENV=token`` in its environment (each
+    process the script started, and theirs, inherit it) or is a child of
+    this one (the orphans _become_subreaper brings here included) is
+    SIGKILLed, and this process's children are reaped, zombies included,
+    until none is left. Raises if one outlives ``budget_s``."""
+    mark = f"{RUN_ENV}={token}".encode()
+    me = os.getpid()
+    stray = {}
+    end = time.monotonic() + budget_s
+    while True:
+        left = []
+        for entry in os.listdir("/proc"):
+            if not entry.isdigit() or int(entry) == me:
+                continue
+            pid = int(entry)
+            info = _proc_state(pid)
+            if info is None:
+                continue
+            state, ppid = info
+            if ppid == me or (state != "Z" and _marked(pid, mark)):
+                left.append(pid)
+                if state != "Z":
+                    stray.setdefault(pid, _cmdline(pid))
+                    with contextlib.suppress(OSError):
+                        os.kill(pid, signal.SIGKILL)
+        while True:  # reap every child that has ended
+            try:
+                pid, _ = os.waitpid(-1, os.WNOHANG)
+            except ChildProcessError:
+                break
+            if pid == 0:
+                break
+        if not left:
+            return [f"{pid} {cmd}" for pid, cmd in stray.items()]
+        if time.monotonic() > end:
+            raise RuntimeError(f"processes still there {budget_s:g} s after SIGKILL: "
+                               + "; ".join(f"{pid} {_proc_state(pid)} {_cmdline(pid)}" for pid in left))
+        time.sleep(0.1)
 
 
 def lane_main(name: str, out: str) -> int:
@@ -10449,21 +10959,28 @@ def run_lanes(phase_s: dict, lanes: Optional[dict] = None) -> dict:
 def main() -> int:
     if len(sys.argv) == 5 and sys.argv[1] == "--lane" and sys.argv[3] == "--out":
         return lane_main(sys.argv[2], sys.argv[4])
+    if len(sys.argv) == 7 and sys.argv[1] == "--dp-rank":
+        return dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke runs only on the card", file=sys.stderr)
         return 1
     token = f"{os.getpid()}-{time.time_ns()}"
     os.environ[RUN_ENV] = token
+    _become_subreaper()
     try:
-        return run_all()
+        lines = run_all()
     finally:
         stray = _stop_strays(token)
         if stray:
             log(f"stopped {len(stray)} process(es) left running: {stray}")
+    for line in lines:  # after the sweep: the result is the last thing printed
+        print(line)
+    return 0
 
 
-def run_all() -> int:
-    """Every phase: the kernels alone, then the lanes and the tail."""
+def run_all() -> list:
+    """Every phase: the kernels alone, then the lanes and the tail; the
+    result's lines, for main to print."""
     t_start = time.perf_counter()
     phase_s = {}
     timed = _timer(phase_s)
@@ -10605,16 +11122,31 @@ def run_all() -> int:
     seb_rssm = R["rssm_sebulba_run"]
     scatter_row["paths"] = {"dreamer_sebulba": {"launches": seb_rssm["launches"]["ragged_ring_scatter"],
                                                 "blobs": seb_rssm["replay"]["Replay/flushes"]}}
+    # the pod paths: gae once per iteration in each worker process, counted exactly there
+    pod_run, drills = R["pod_run"], {**R["pod_kill_drills"], **R["pod_hang_drills"]}
+    gae_row["paths"]["ppo_pod"] = {"launches_per_worker": [w["gae"] for w in pod_run["launches_per_worker"]],
+                                   "iterations": pod_run["iterations"]}
+    for tag in ("twin", "kill", "hang", "drain"):
+        gae_row["paths"][f"ppo_pod_{tag}"] = {"launches_per_worker": [w.get("gae", 0)
+                                                                      for w in drills[tag]["launches_per_worker"]]}
+    for rank, w in enumerate(pod_run["launches_per_worker"]):
+        gae_row["launches_by_path"][f"ppo_pod_rank_{rank}"] = w["gae"]
+    log("pod against one process: " + json.dumps({
+        "pod_env_steps_per_s": pod_run["env_steps_per_s"], "pod_wall_env_steps_per_s": pod_run["wall_env_steps_per_s"],
+        "pod_wall_s": pod_run["wall_s"], "one_process_env_steps_per_s": ppo_run["env_steps_per_s"],
+        "one_process_wall_env_steps_per_s": ppo_run["policy_steps"] / ppo_run["wall_s"],
+        "one_process_wall_s": ppo_run["wall_s"], "pod_last10": pod_run["last10_per_worker"],
+        "one_process_last10": ppo_run["last_10_mean_return"],
+        "mttr_s": {"kill": drills["kill"]["mttr_s"], "hang": drills["hang"]["mttr_s"]},
+        "reduction": {w: {k: R["dp_update"][w][k] for k in ("bytes_per_reduction", "reduce_ms_median",
+                                                            "reduce_share_of_update", "update_ms")}
+                      for w in ("float32", "bfloat16")}}))
     rows.append(_gru_bf16_kernel_row(gru, floor, continuous_run, R["continuous_serve"], R["continuous_ring"]))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s; seconds by phase: {json.dumps(phase_s)}")
-    print(json.dumps({"nonfinite": nonfinite, **R}))
-    print(json.dumps({"kernels": rows}))
-    print(card)
-    print(json.dumps({
+    return [json.dumps({"nonfinite": nonfinite, **R}), json.dumps({"kernels": rows}), card, json.dumps({
         "ok": True,
         "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
-    }))
-    return 0
+    })]
 
 
 if __name__ == "__main__":

@@ -12,6 +12,11 @@ padded rows weighted 0, clipped by global norm and applied by RMSprop
 the loop reads them once per iteration.
 
 As JAX's A2C, the loop has no in-step guard and no divergence sentinel.
+Data-parallel (``run --pod W``) it runs as the PPO loop does
+(:mod:`sheeprl_tpu_torch.algos.ppo.ppo`): each rank its own envs, rollout,
+GAE and permutation, the summed minibatch gradients mean-reduced over the
+group before the one clipped step, the losses the group's means, rank 0
+alone writing, the heartbeat and the drain at each iteration's end.
 Checkpoints go through the
 :class:`~sheeprl_tpu_torch.fault.CheckpointManager`, the rollout lives in
 the run's :class:`~sheeprl_tpu_torch.data.ReplayBuffer` (memmapped under the
@@ -36,7 +41,11 @@ from sheeprl_tpu_torch.data import ReplayBuffer
 from sheeprl_tpu_torch.envs import make_vector_env
 from sheeprl_tpu_torch.fault import CheckpointManager, load_resume_state
 from sheeprl_tpu_torch.ops.kernels import gae
+from sheeprl_tpu_torch.algos.ppo.ppo import last10, param_digest, rank_generator
 from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
+from sheeprl_tpu_torch.parallel import pod as pod_runtime
+from sheeprl_tpu_torch.parallel.comm import all_reduce_mean, broadcast_flag, pmean_grads
+from sheeprl_tpu_torch.parallel.fabric import global_rank, world_size
 from sheeprl_tpu_torch.utils.checkpoint import write_run_config
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric, build_aggregator
@@ -61,7 +70,10 @@ def make_train_step(agent: A2CAgent, optimizer: ClippedOptimizer, cfg: Any, loca
     gradient of ``policy + value`` loss (``loss_reduction`` ``sum``, or
     ``mean`` over its real rows) is added to the running sum in minibatch
     order, and the sum takes one clipped optimizer step. ``losses`` is the
-    ``(2,)`` mean of :data:`LOSS_NAMES` over the minibatches, on the device."""
+    ``(2,)`` mean of :data:`LOSS_NAMES` over the minibatches, on the device.
+    In a group of W > 1 processes the sum is mean-reduced over the group
+    before the step (JAX's ``pmean_grads`` of the scanned sum), and
+    ``losses`` is the group's mean."""
     algo = cfg.algo
     mb_size = int(algo.per_rank_batch_size)
     n_mb = max(1, -(-local_batch // mb_size))
@@ -104,8 +116,8 @@ def make_train_step(agent: A2CAgent, optimizer: ClippedOptimizer, cfg: Any, loca
             else:
                 torch._foreach_add_(acc, grads)
             losses.append(torch.stack([pg, v]))
-        optimizer.step(acc)
-        return torch.stack(losses).mean(dim=0)
+        optimizer.step(pmean_grads(acc))
+        return all_reduce_mean(torch.stack(losses).mean(dim=0))
 
     return train
 
@@ -127,11 +139,12 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     seed = int(cfg.seed)
     if int(cfg.buffer.size) < rollout_steps:
         raise ValueError(f"The size of the buffer ({cfg.buffer.size}) cannot be lower than the rollout steps ({rollout_steps})")
+    rank, world = global_rank(), world_size()
 
     log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
-    logger = get_logger(cfg, log_dir)
+    logger = get_logger(cfg, log_dir, rank)
     print(f"Log dir: {log_dir}", flush=True)
-    envs = make_vector_env(cfg, seed)
+    envs = make_vector_env(cfg, seed, rank=rank)
     cfg["spaces"] = dotdict(envs.spaces)
     for k in obs_keys:
         if len(cfg.spaces.obs[k]["shape"]) > 1:
@@ -139,7 +152,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                              f"The observation with key '{k}' has shape {tuple(cfg.spaces.obs[k]['shape'])}.")
     actions_dim, is_continuous = action_spec(cfg.spaces)
     logger.log_hyperparams(cfg)
-    write_run_config(log_dir, plain(cfg))
+    if rank == 0:
+        write_run_config(log_dir, plain(cfg))
     aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.get("aggregator"))
 
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -153,10 +167,11 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
 
     memmap = bool(cfg.buffer.get("memmap", False))
     rb = ReplayBuffer(int(cfg.buffer.size), num_envs, obs_keys, memmap=memmap,
-                      memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"),
+                      memmap_dir=os.path.join(log_dir, "memmap_buffer", f"rank_{rank}"),
                       memmap_mode=str(cfg.buffer.get("memmap_mode", "r+")))
 
-    policy_steps_per_iter = num_envs * rollout_steps
+    world_envs = num_envs * world  # the counters count every rank's envs
+    policy_steps_per_iter = world_envs * rollout_steps
     start_iter = int(state["iter_num"]) + 1 if state is not None else 1
     policy_step = int(state["iter_num"]) * policy_steps_per_iter if state is not None else 0
     last_log = int(state.get("last_log", 0)) if state is not None else 0
@@ -176,20 +191,21 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     gamma, gae_lambda = float(algo.gamma), float(algo.gae_lambda)
     ckpt_dir = os.path.join(log_dir, "checkpoint")
     manager = CheckpointManager.from_config(cfg)
-    train_fn = make_train_step(agent, optimizer, cfg, policy_steps_per_iter)
+    train_fn = make_train_step(agent, optimizer, cfg, num_envs * rollout_steps)
 
-    reset_obs = envs.reset(seed=seed)[0]
+    reset_obs = envs.reset(seed=seed + rank * num_envs)[0]
     next_obs = {k: np.asarray(reset_obs[k]) for k in obs_keys}
     step_data: Dict[str, np.ndarray] = {k: next_obs[k][np.newaxis] for k in obs_keys}
     summary: Dict[str, Any] = {
         "start_iter": start_iter, "iterations": 0, "losses": [], "episodes": [], "rollout_s": [], "gae_s": [],
         "update_s": [], "checkpoint": None, "device": str(device), "test_reward": None, "test_steps": None,
+        "rank": rank, "world_size": world, "drained": False,
     }
     heads = sum(actions_dim) if is_continuous else len(actions_dim)  # the env's action columns
     for iter_num in range(start_iter, total_iters + 1):
         t0 = time.perf_counter()
         for _ in range(rollout_steps):
-            policy_step += num_envs
+            policy_step += world_envs
             with timer("Time/env_interaction_time", SumMetric):
                 obs_t = prepare_obs(next_obs, (), num_envs, device)
                 env_actions, buf_actions, _, values = player.rollout_step(obs_t)
@@ -221,7 +237,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                     if aggregator is not None:
                         aggregator.update("Rewards/rew_avg", ep_rew)
                         aggregator.update("Game/ep_len_avg", ep_len)
-                    print(f"Rank-0: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
+                    print(f"Rank-{rank}: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
         t1 = time.perf_counter()
 
         # GAE on the device, bootstrapped with the value of the last observation
@@ -237,7 +253,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         flat["returns"] = returns.reshape(-1, *returns.shape[2:])
         flat["advantages"] = advantages.reshape(-1, *advantages.shape[2:])
         with timer("Time/train_time", SumMetric):
-            losses = train_fn(flat, generator=generator).cpu().tolist()  # the one read
+            perm_gen = generator if world == 1 else rank_generator(seed, rank, iter_num, device)
+            losses = train_fn(flat, generator=perm_gen).cpu().tolist()  # the one read
         t3 = time.perf_counter()
         train_step += 1
         if aggregator is not None:
@@ -249,8 +266,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         summary["update_s"].append(t3 - t2)
         summary["iterations"] += 1
         if log_level > 0 and (policy_step - last_log >= log_every or iter_num == total_iters):
-            print(f"policy_step={policy_step} " + " ".join(
-                f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(LOSS_NAMES, losses)), flush=True)
+            if rank == 0:
+                print(f"policy_step={policy_step} " + " ".join(
+                    f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(LOSS_NAMES, losses)), flush=True)
             if aggregator is not None:
                 logger.log_dict(aggregator.compute(), policy_step)
                 aggregator.reset()
@@ -258,9 +276,11 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             last_log = policy_step
             last_train = train_step
 
+        pod_runtime.beat_step(policy_step)
+        drain_now = broadcast_flag(pod_runtime.drain_requested())
         if (int(cfg.checkpoint.every) > 0 and policy_step - last_checkpoint >= int(cfg.checkpoint.every)) or (
             iter_num == total_iters and cfg.checkpoint.get("save_last", False)
-        ):
+        ) or drain_now:
             last_checkpoint = policy_step
             ckpt_state = {
                 "agent": agent.state_dict(),
@@ -272,12 +292,17 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 "last_train": last_train,
                 "rng": generator.get_state(),
             }
-            path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
-            summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+            if rank == 0:  # every rank holds the same state; rank 0 writes it
+                path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_{rank}.ckpt")
+                summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+        if drain_now:
+            print(f"Rank-{rank}: drain requested — checkpointed at policy_step={policy_step}, exiting", flush=True)
+            summary["drained"] = True
+            break
 
     manager.close()
     envs.close()
-    if algo.get("run_test", True):
+    if algo.get("run_test", True) and rank == 0:
         summary["test_reward"], summary["test_steps"] = test(player, cfg, device)
     logger.close()
     env_s = sum(summary["rollout_s"])
@@ -286,5 +311,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         log_dir=log_dir,
         env_steps_per_s=summary["iterations"] * policy_steps_per_iter / env_s if env_s > 0 else None,
         checkpoint_timings=manager.timings,
+        last10=last10(summary["episodes"]),
+        param_digest=param_digest(agent) if world > 1 else None,
     )
     return summary

@@ -31,6 +31,22 @@ metrics in ``metrics.jsonl`` at the same steps: ``Info/*`` every iteration,
 the aggregated ``Rewards/rew_avg``, ``Game/ep_len_avg`` and ``Loss/*`` and
 the ``Time/sps_*`` rates every ``metric.log_every`` policy steps. The losses
 reach the aggregator from the iteration's one read of the device.
+
+Data-parallel (a ``torch.distributed`` group of W processes, one device
+each: ``run --pod W``): every rank steps its own ``env.num_envs`` envs (env
+``i`` of rank ``r`` seeded ``seed + r * num_envs + i``), keeps its own
+rollout and runs GAE on it; each minibatch's gradients are mean-reduced over
+the group before the clipped step (:func:`~sheeprl_tpu_torch.parallel.comm.pmean_grads`),
+the guard's verdict is the group's, and the losses are the group's means, so
+the ranks' parameters stay bit-equal. The counters count every rank's envs
+(``num_envs * W`` a step), so a resumed pod restores the global step. With
+``buffer.share_data`` each rank gathers every rank's rows and takes its own
+slice of one common permutation of the global batch; without it each rank
+permutes its own rows with a generator of its rank. Rank 0 alone logs, writes
+the config, checkpoints and runs the test episode; every rank reads the
+checkpoint on resume. Each iteration beats the pod's heartbeat
+(:func:`~sheeprl_tpu_torch.parallel.pod.beat_step`), and once the launcher
+asks for a drain (rank 0's flag, broadcast) the run checkpoints and ends.
 """
 
 from __future__ import annotations
@@ -53,6 +69,16 @@ from sheeprl_tpu_torch.fault import CheckpointManager, DivergenceSentinel, NaNIn
 from sheeprl_tpu_torch.ops.guard import StateGuard, finite_guard
 from sheeprl_tpu_torch.ops.kernels import gae
 from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
+from sheeprl_tpu_torch.parallel import pod as pod_runtime
+from sheeprl_tpu_torch.parallel.comm import (
+    all_gather_rows,
+    all_reduce_mean,
+    barrier,
+    broadcast_flag,
+    pmean_grads,
+    pmean_grads_with_verdict,
+)
+from sheeprl_tpu_torch.parallel.fabric import global_rank, world_size
 from sheeprl_tpu_torch.utils.checkpoint import write_run_config
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric, build_aggregator
@@ -60,7 +86,8 @@ from sheeprl_tpu_torch.utils.profiler import TraceProfiler
 from sheeprl_tpu_torch.utils.timer import log_timers, timer
 from sheeprl_tpu_torch.utils.utils import polynomial_decay
 
-__all__ = ["LOSS_NAMES", "draw_permutations", "make_optimizer", "make_train_step", "main"]
+__all__ = ["LOSS_NAMES", "draw_permutations", "rank_generator", "param_digest", "last10", "make_optimizer",
+           "make_train_step", "main"]
 
 LOSS_NAMES = ("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss")
 
@@ -72,6 +99,32 @@ def make_optimizer(cfg: Any, agent: PPOAgent) -> ClippedOptimizer:
 def draw_permutations(epochs: int, batch: int, generator: Optional[torch.Generator], device) -> torch.Tensor:
     """One permutation of the ``batch`` rows per epoch, ``(epochs, batch)``."""
     return torch.stack([torch.randperm(batch, generator=generator, device=device) for _ in range(epochs)])
+
+
+def rank_generator(seed: int, rank: int, iteration: int, device) -> torch.Generator:
+    """The generator of rank ``rank``'s own draws in ``iteration`` of a
+    data-parallel run (JAX ``fold_in(key, axis_index("dp"))``): seeded from
+    the three numbers alone, so a resumed rank draws what it would have."""
+    seed64 = int(np.random.SeedSequence([int(seed), int(rank), int(iteration)]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(seed64 & ((1 << 63) - 1))
+
+
+def param_digest(module: torch.nn.Module) -> str:
+    """sha256 of the module's parameters' bytes, in order: equal digests are
+    bit-equal parameters (a pod's ranks must end equal)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in module.parameters():
+        h.update(p.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def last10(episodes) -> Optional[float]:
+    """The mean return of the last 10 finished episodes (``(step, env,
+    return, length)`` rows), None before the first."""
+    tail = [ep[2] for ep in list(episodes)[-10:]]
+    return float(np.mean(tail)) if tail else None
 
 
 def make_train_step(agent: PPOAgent, optimizer: ClippedOptimizer, cfg: Any, local_batch: int,
@@ -89,7 +142,16 @@ def make_train_step(agent: PPOAgent, optimizer: ClippedOptimizer, cfg: Any, loca
 
     ``guard=True`` (JAX ``guard=True``): a minibatch whose gradients or loss
     are not all finite leaves the parameters and the optimizer's state as
-    they were."""
+    they were.
+
+    In a group of W > 1 processes (read when the step is built): each
+    minibatch's gradients are mean-reduced over the group before the step,
+    the guard's verdict is True only where it is on every rank, and
+    ``losses`` is the group's mean. With ``buffer.share_data`` ``data`` is
+    first gathered from every rank (``(W * local_batch, ...)``), and
+    ``perms`` indexes the gathered rows: each rank's slice of one common
+    ``(update_epochs, W * local_batch)`` permutation, which ``generator``
+    (common to the ranks) draws when ``perms`` is None."""
     algo = cfg.algo
     mb_size = int(algo.per_rank_batch_size)
     n_mb = max(1, -(-local_batch // mb_size))
@@ -108,6 +170,8 @@ def make_train_step(agent: PPOAgent, optimizer: ClippedOptimizer, cfg: Any, loca
     cnn_keys, mlp_keys = list(algo.cnn_keys.encoder), list(algo.mlp_keys.encoder)
     params = list(agent.parameters())
     state_guard = StateGuard(lambda: params + optimizer.state_tensors()) if guard else None
+    world, rank = world_size(), global_rank()
+    share_data = world > 1 and bool((cfg.get("buffer") or {}).get("share_data", False))
 
     def minibatch_step(batch: Dict[str, torch.Tensor], clip_coef: torch.Tensor, ent_coef: torch.Tensor):
         obs = {k: batch[k].to(torch.float32) / 255.0 - 0.5 for k in cnn_keys}
@@ -123,7 +187,13 @@ def make_train_step(agent: PPOAgent, optimizer: ClippedOptimizer, cfg: Any, loca
         loss = pg + vf_coef * v + ent_coef * ent
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-        ok = finite_guard([*grads, loss]) if guard else None
+        if world == 1:
+            ok = finite_guard([*grads, loss]) if guard else None
+        elif guard:  # the loss is per rank: the group's verdict, so every rank takes the same branch
+            grads, ok = pmean_grads_with_verdict(grads, finite_guard([loss]))
+            ok = ok & finite_guard(grads)
+        else:
+            grads, ok = pmean_grads(grads), None
         optimizer.step(grads)
         if guard:
             state_guard.select(ok)
@@ -137,6 +207,11 @@ def make_train_step(agent: PPOAgent, optimizer: ClippedOptimizer, cfg: Any, loca
         generator: Optional[torch.Generator] = None,
     ):
         device = data["actions"].device
+        if share_data:
+            data = {k: all_gather_rows(v) for k, v in data.items()}
+            if perms is None:
+                perms = draw_permutations(epochs, local_batch * world, generator, device)
+                perms = perms[:, rank * local_batch:(rank + 1) * local_batch]
         if perms is None:
             perms = draw_permutations(epochs, local_batch, generator, device)
         clip_coef = torch.as_tensor(clip_coef, dtype=torch.float32, device=device)
@@ -154,7 +229,7 @@ def make_train_step(agent: PPOAgent, optimizer: ClippedOptimizer, cfg: Any, loca
                 total += losses
                 if guard:
                     skipped += (~ok).to(torch.float32)
-        return total / (epochs * n_mb), skipped
+        return all_reduce_mean(total / (epochs * n_mb)), skipped
 
     return train
 
@@ -178,15 +253,18 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     seed = int(cfg.seed)
     if int(cfg.buffer.size) < rollout_steps:
         raise ValueError(f"The size of the buffer ({cfg.buffer.size}) cannot be lower than the rollout steps ({rollout_steps})")
+    rank, world = global_rank(), world_size()
+    share_data = world > 1 and bool(cfg.buffer.get("share_data", False))
 
     log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
-    logger = get_logger(cfg, log_dir)
+    logger = get_logger(cfg, log_dir, rank)
     print(f"Log dir: {log_dir}", flush=True)
-    envs = make_vector_env(cfg, seed)
+    envs = make_vector_env(cfg, seed, rank=rank)
     cfg["spaces"] = dotdict(envs.spaces)
     actions_dim, is_continuous = action_spec(cfg.spaces)
     logger.log_hyperparams(cfg)
-    write_run_config(log_dir, plain(cfg))  # the run directory's config.json
+    if rank == 0:
+        write_run_config(log_dir, plain(cfg))  # the run directory's config.json
     aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.get("aggregator"))
 
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -202,10 +280,12 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         algo["per_rank_batch_size"] = int(state["batch_size"])
 
     rb = ReplayBuffer(int(cfg.buffer.size), num_envs, obs_keys, memmap=bool(cfg.buffer.get("memmap", False)),
-                      memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"),
+                      memmap_dir=os.path.join(log_dir, "memmap_buffer", f"rank_{rank}"),
                       memmap_mode=str(cfg.buffer.get("memmap_mode", "r+")))
 
-    policy_steps_per_iter = num_envs * rollout_steps
+    # the counters count every rank's envs, so a resumed pod restores the global step
+    world_envs = num_envs * world
+    policy_steps_per_iter = world_envs * rollout_steps
     start_iter = int(state["iter_num"]) + 1 if state is not None else 1
     policy_step = int(state["iter_num"]) * policy_steps_per_iter if state is not None else 0
     last_log = int(state["last_log"]) if state is not None else 0
@@ -229,27 +309,27 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     nan_injector = NaNInjector(cfg)
     ckpt_dir = os.path.join(log_dir, "checkpoint")
     manager = CheckpointManager.from_config(cfg)
-    train_fn = make_train_step(agent, optimizer, cfg, policy_steps_per_iter, guard=guard)
+    train_fn = make_train_step(agent, optimizer, cfg, num_envs * rollout_steps, guard=guard)
 
     lr = lr0 = float(algo.optimizer.lr)
     clip_coef0, ent_coef0 = float(algo.clip_coef), float(algo.ent_coef)
     clip_coef, ent_coef = clip_coef0, ent_coef0
 
-    reset_obs = envs.reset(seed=seed)[0]
+    reset_obs = envs.reset(seed=seed + rank * num_envs)[0]
     next_obs = {k: np.asarray(reset_obs[k]) for k in obs_keys}
     step_data: Dict[str, np.ndarray] = {k: next_obs[k][np.newaxis] for k in obs_keys}
     summary: Dict[str, Any] = {
         "start_iter": start_iter, "iterations": 0, "losses": [], "episodes": [], "rollout_s": [], "gae_s": [],
         "update_s": [], "checkpoint": None, "device": str(device), "test_reward": None,
-        "test_steps": None, "skipped": [],
+        "test_steps": None, "skipped": [], "rank": rank, "world_size": world, "drained": False,
     }
     heads = sum(actions_dim) if is_continuous else len(actions_dim)  # the env's action columns
-    profiler = TraceProfiler(cfg.metric.get("profiler"), log_dir, device)
+    profiler = TraceProfiler(cfg.metric.get("profiler") if rank == 0 else None, log_dir, device)
     for iter_num in range(start_iter, total_iters + 1):
         profiler.tick(iter_num)
         t0 = time.perf_counter()
         for _ in range(rollout_steps):
-            policy_step += num_envs
+            policy_step += world_envs
             # the policy's forward is inside: the copy of its actions to the
             # host waits for the card
             with timer("Time/env_interaction_time", SumMetric):
@@ -281,7 +361,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                     if aggregator is not None:
                         aggregator.update("Rewards/rew_avg", ep_rew)
                         aggregator.update("Game/ep_len_avg", ep_len)
-                    print(f"Rank-0: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
+                    print(f"Rank-{rank}: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
         t1 = time.perf_counter()
 
         # GAE on the device, bootstrapped with the value of the last observation
@@ -300,7 +380,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             nan_injector.poison(flat, "advantages", iter_num)
         # the update's one read waits for the card: the timer holds its device time
         with timer("Time/train_time", SumMetric):
-            losses, skipped = train_fn(flat, clip_coef, ent_coef, generator=generator)
+            # without share_data a rank permutes its own rows with its own draws
+            perm_gen = generator if world == 1 or share_data else rank_generator(seed, rank, iter_num, device)
+            losses, skipped = train_fn(flat, clip_coef, ent_coef, generator=perm_gen)
             losses = torch.cat([losses, skipped.reshape(1)]).cpu().tolist()  # the one read
         t3 = time.perf_counter()
         train_step += 1
@@ -318,6 +400,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                         generator.set_state(good["rng"])
 
                 manager.wait()  # the newest save must be published before the rollback looks for it
+                barrier()  # ... rank 0's, before any rank looks
                 sentinel.recover(ckpt_dir, rollback)
         summary["losses"].append(losses)
         summary["rollout_s"].append(t1 - t0)
@@ -332,8 +415,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             if guard and sentinel.total_skipped:
                 logger.log_dict({"Fault/skipped_updates": sentinel.total_skipped}, policy_step)
             if policy_step - last_log >= log_every or iter_num == total_iters:
-                print(f"policy_step={policy_step} " + " ".join(
-                    f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(LOSS_NAMES, losses)), flush=True)
+                if rank == 0:
+                    print(f"policy_step={policy_step} " + " ".join(
+                        f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(LOSS_NAMES, losses)), flush=True)
                 if aggregator is not None:
                     logger.log_dict(aggregator.compute(), policy_step)
                     aggregator.reset()
@@ -349,9 +433,13 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         if algo.anneal_ent_coef:
             ent_coef = polynomial_decay(iter_num, initial=ent_coef0, final=0.0, max_decay_steps=total_iters)
 
+        # the pod's heartbeat, and rank 0's drain flag on every rank: a rank
+        # that left while another entered the next rollout would hang it in a collective
+        pod_runtime.beat_step(policy_step)
+        drain_now = broadcast_flag(pod_runtime.drain_requested())
         if (int(cfg.checkpoint.every) > 0 and policy_step - last_checkpoint >= int(cfg.checkpoint.every)) or (
             iter_num == total_iters and cfg.checkpoint.get("save_last", False)
-        ):
+        ) or drain_now:
             last_checkpoint = policy_step
             ckpt_state = {
                 "agent": agent.state_dict(),
@@ -364,14 +452,19 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 "last_train": last_train,
                 "rng": generator.get_state(),
             }
-            path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
-            summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+            if rank == 0:  # every rank holds the same state; rank 0 writes it
+                path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_{rank}.ckpt")
+                summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+        if drain_now:
+            print(f"Rank-{rank}: drain requested — checkpointed at policy_step={policy_step}, exiting", flush=True)
+            summary["drained"] = True
+            break
 
     manager.close()
     envs.close()
     profiler.close(total_iters + 1)
     summary["profiler"] = profiler.trace_path
-    if algo.get("run_test", True):
+    if algo.get("run_test", True) and rank == 0:
         summary["test_reward"], summary["test_steps"] = test(player, cfg, device)
     logger.close()
     env_s = sum(summary["rollout_s"])
@@ -381,6 +474,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         env_steps_per_s=summary["iterations"] * policy_steps_per_iter / env_s if env_s > 0 else None,
         rollbacks=sentinel.rollbacks,
         checkpoint_timings=manager.timings,
+        last10=last10(summary["episodes"]),
+        param_digest=param_digest(agent) if world > 1 else None,
         **{"Fault/skipped_updates": sentinel.total_skipped, "Fault/env_restarts": envs.env_restarts},
     )
     return summary

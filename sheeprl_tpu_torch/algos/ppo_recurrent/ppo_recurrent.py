@@ -27,6 +27,15 @@ Random draws come from an explicit ``torch.Generator``: the actions and
 each epoch's permutation, which the update also takes as an argument. As
 JAX's recurrent PPO, the loop has no in-step guard and no sentinel; its
 checkpoints, run directory and metrics are the PPO loop's.
+
+Data-parallel (``run --pod W``) it runs as the PPO loop does
+(:mod:`sheeprl_tpu_torch.algos.ppo.ppo`): each rank steps its own envs and
+runs GAE on its own rollout; the ranks then gather every rank's rollout
+(envs in rank order), chunk it as one, pad the sequence count to the
+quantum ``W * per_rank_num_batches`` and each takes its contiguous
+``S_pad / W`` sequences, as the JAX step shards the padded sequences over
+``dp``; each minibatch's gradients are mean-reduced over the group before
+the clipped step, with a permutation of the rank's own.
 """
 
 from __future__ import annotations
@@ -39,7 +48,7 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.ppo.ppo import draw_permutations
+from sheeprl_tpu_torch.algos.ppo.ppo import draw_permutations, last10, param_digest, rank_generator
 from sheeprl_tpu_torch.algos.ppo.utils import action_spec
 from sheeprl_tpu_torch.algos.ppo_recurrent.agent import RecurrentPPOAgent, build_agent, forward_with_actions
 from sheeprl_tpu_torch.algos.ppo_recurrent.utils import chunk_sequences, pad_sequences, prepare_obs, test
@@ -49,13 +58,16 @@ from sheeprl_tpu_torch.envs import make_vector_env
 from sheeprl_tpu_torch.fault import CheckpointManager, load_resume_state
 from sheeprl_tpu_torch.ops.kernels import gae
 from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
+from sheeprl_tpu_torch.parallel import pod as pod_runtime
+from sheeprl_tpu_torch.parallel.comm import all_gather_rows, all_reduce_mean, broadcast_flag, pmean_grads
+from sheeprl_tpu_torch.parallel.fabric import global_rank, world_size
 from sheeprl_tpu_torch.utils.checkpoint import write_run_config
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric, build_aggregator
 from sheeprl_tpu_torch.utils.timer import log_timers, timer
 from sheeprl_tpu_torch.utils.utils import polynomial_decay
 
-__all__ = ["LOSS_NAMES", "make_optimizer", "make_train_step", "prepare_update", "main"]
+__all__ = ["LOSS_NAMES", "make_optimizer", "make_train_step", "prepare_update", "gather_envs", "main"]
 
 LOSS_NAMES = ("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss")
 
@@ -73,7 +85,10 @@ def make_train_step(agent: RecurrentPPOAgent, optimizer: ClippedOptimizer, cfg: 
     ``generator``. Each epoch takes minibatches of ``s_local //
     per_rank_num_batches`` sequences in permutation order; each minibatch's
     losses are means over its own mask. ``losses`` is the ``(3,)`` mean of
-    :data:`LOSS_NAMES` over every minibatch of every epoch, on the device."""
+    :data:`LOSS_NAMES` over every minibatch of every epoch, on the device.
+    In a group of W > 1 processes each minibatch's gradients are
+    mean-reduced over the group before the step and ``losses`` is the
+    group's mean."""
     algo = cfg.algo
     nb = max(1, int(algo.per_rank_num_batches))
     mb = max(1, s_local // nb)
@@ -112,7 +127,7 @@ def make_train_step(agent: RecurrentPPOAgent, optimizer: ClippedOptimizer, cfg: 
         ent = -(entropy * w).sum() / wsum
         loss = pg + vf_coef * v + ent_coef * ent
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        optimizer.step([torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
+        optimizer.step(pmean_grads([torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]))
         return torch.stack([pg, v, ent]).detach()
 
     def train(data: Dict[str, torch.Tensor], clip_coef: "torch.Tensor | float", ent_coef: "torch.Tensor | float",
@@ -127,19 +142,33 @@ def make_train_step(agent: RecurrentPPOAgent, optimizer: ClippedOptimizer, cfg: 
         for e in range(epochs):
             for m in range(n_mb):
                 total += minibatch_step({k: v[:, idx[e, m]] for k, v in data.items()}, clip_coef, ent_coef)
-        return total / (epochs * n_mb)
+        return all_reduce_mean(total / (epochs * n_mb))
 
     return train
 
 
 def prepare_update(local: Dict[str, np.ndarray], returns: np.ndarray, advantages: np.ndarray, rollout_steps: int,
-                   num_envs: int, seq_len: int, quantum: int, device) -> Dict[str, torch.Tensor]:
+                   num_envs: int, seq_len: int, quantum: int, device, rank: int = 0,
+                   world: int = 1) -> Dict[str, torch.Tensor]:
     """The rollout ``(T, N, ...)`` with its returns and advantages ->
     chunked, padded sequences (:func:`~.utils.chunk_sequences`,
-    :func:`~.utils.pad_sequences`) as tensors on ``device``."""
+    :func:`~.utils.pad_sequences`) as tensors on ``device``; with ``world``
+    > 1, rank ``rank``'s contiguous ``S_pad / world`` of them (``quantum`` a
+    multiple of ``world``)."""
     local = dict(local, returns=returns, advantages=advantages)
     padded, mask = chunk_sequences(local, rollout_steps, num_envs, seq_len)
-    return {k: torch.from_numpy(v).to(device) for k, v in pad_sequences(padded, mask, quantum).items()}
+    out = pad_sequences(padded, mask, quantum)
+    s_local = out["mask"].shape[1] // world
+    return {k: torch.from_numpy(np.ascontiguousarray(v[:, rank * s_local:(rank + 1) * s_local])).to(device)
+            for k, v in out.items()}
+
+
+def gather_envs(local: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """Every rank's ``(T, N, ...)`` arrays joined on the env axis in rank
+    order, ``(T, W * N, ...)``: the rollout of the group's envs, which the
+    JAX loop holds whole."""
+    return {k: np.moveaxis(all_gather_rows(torch.from_numpy(np.ascontiguousarray(np.moveaxis(v, 1, 0)))).numpy(), 0, 1)
+            for k, v in local.items()}
 
 
 def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
@@ -160,15 +189,17 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     num_envs = int(cfg.env.num_envs)
     rollout_steps = int(algo.rollout_steps)
     seed = int(cfg.seed)
+    rank, world = global_rank(), world_size()
 
     log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
-    logger = get_logger(cfg, log_dir)
+    logger = get_logger(cfg, log_dir, rank)
     print(f"Log dir: {log_dir}", flush=True)
-    envs = make_vector_env(cfg, seed)
+    envs = make_vector_env(cfg, seed, rank=rank)
     cfg["spaces"] = dotdict(envs.spaces)
     actions_dim, is_continuous = action_spec(cfg.spaces)
     logger.log_hyperparams(cfg)
-    write_run_config(log_dir, plain(cfg))
+    if rank == 0:
+        write_run_config(log_dir, plain(cfg))
     aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.get("aggregator"))
 
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -183,10 +214,11 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
 
     # the rollout storage holds exactly one rollout, as the JAX loop's
     rb = ReplayBuffer(rollout_steps, num_envs, obs_keys, memmap=bool(cfg.buffer.get("memmap", False)),
-                      memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"),
+                      memmap_dir=os.path.join(log_dir, "memmap_buffer", f"rank_{rank}"),
                       memmap_mode=str(cfg.buffer.get("memmap_mode", "r+")))
 
-    policy_steps_per_iter = num_envs * rollout_steps
+    world_envs = num_envs * world  # the counters count every rank's envs
+    policy_steps_per_iter = world_envs * rollout_steps
     start_iter = int(state["iter_num"]) + 1 if state is not None else 1
     policy_step = int(state["iter_num"]) * policy_steps_per_iter if state is not None else 0
     last_log = int(state["last_log"]) if state is not None else 0
@@ -204,7 +236,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         warnings.warn(f"The checkpoint.every parameter ({cfg.checkpoint.every}) is not a multiple of the "
                       f"policy_steps_per_iter value ({policy_steps_per_iter}).")
     seq_len = int(algo.per_rank_sequence_length)
-    quantum = max(1, int(algo.per_rank_num_batches))  # one device: world_size * num_batches
+    quantum = world * max(1, int(algo.per_rank_num_batches))
     gamma, gae_lambda = float(algo.gamma), float(algo.gae_lambda)
     reset_on_done = bool(algo.get("reset_recurrent_state_on_done", True))
     ckpt_dir = os.path.join(log_dir, "checkpoint")
@@ -215,7 +247,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     clip_coef0, ent_coef0 = float(algo.clip_coef), float(algo.ent_coef)
     clip_coef, ent_coef = clip_coef0, ent_coef0
 
-    reset_obs = envs.reset(seed=seed)[0]
+    reset_obs = envs.reset(seed=seed + rank * num_envs)[0]
     next_obs = {k: np.asarray(reset_obs[k]) for k in obs_keys}
     step_data: Dict[str, np.ndarray] = {k: next_obs[k][np.newaxis] for k in obs_keys}
     states = player.reset_states(num_envs, device)
@@ -224,14 +256,14 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     summary: Dict[str, Any] = {
         "start_iter": start_iter, "iterations": 0, "losses": [], "sequences": [], "episodes": [], "rollout_s": [],
         "gae_s": [], "update_s": [], "checkpoint": None, "device": str(device), "test_reward": None,
-        "test_steps": None,
+        "test_steps": None, "rank": rank, "world_size": world, "drained": False,
     }
     heads = n_actions if is_continuous else len(actions_dim)  # the env's action columns
     hidden = agent.rnn.hidden_size
     for iter_num in range(start_iter, total_iters + 1):
         t0 = time.perf_counter()
         for _ in range(rollout_steps):
-            policy_step += num_envs
+            policy_step += world_envs
             with timer("Time/env_interaction_time", SumMetric):
                 obs_t = prepare_obs(next_obs, cnn_keys, num_envs, device)
                 acts, logprobs, values, new_states = player(obs_t, torch.from_numpy(prev_actions).to(device), states)
@@ -280,7 +312,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                     if aggregator is not None:
                         aggregator.update("Rewards/rew_avg", ep_rew)
                         aggregator.update("Game/ep_len_avg", ep_len)
-                    print(f"Rank-0: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
+                    print(f"Rank-{rank}: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
         t1 = time.perf_counter()
 
         # GAE on the device, bootstrapped from the reset pair and the last, unmasked actions
@@ -293,12 +325,19 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         returns, advantages = returns.cpu().numpy(), advantages.cpu().numpy()
         t2 = time.perf_counter()
 
-        data = prepare_update(local, returns, advantages, rollout_steps, num_envs, seq_len, quantum, device)
-        s_pad = int(data["mask"].shape[1])
+        if world > 1:  # the group's rollout, chunked as one and sharded by sequence
+            gathered = gather_envs(dict(local, returns=returns, advantages=advantages))
+            returns, advantages = gathered.pop("returns"), gathered.pop("advantages")
+            data = prepare_update(gathered, returns, advantages, rollout_steps, world_envs, seq_len, quantum, device,
+                                  rank, world)
+        else:
+            data = prepare_update(local, returns, advantages, rollout_steps, num_envs, seq_len, quantum, device)
+        s_pad = int(data["mask"].shape[1])  # this rank's padded sequences
         if s_pad not in train_fns:
             train_fns[s_pad] = make_train_step(agent, optimizer, cfg, s_pad)
         with timer("Time/train_time", SumMetric):
-            losses = train_fns[s_pad](data, clip_coef, ent_coef, generator=generator).cpu().tolist()  # the one read
+            perm_gen = generator if world == 1 else rank_generator(seed, rank, iter_num, device)
+            losses = train_fns[s_pad](data, clip_coef, ent_coef, generator=perm_gen).cpu().tolist()  # the one read
         t3 = time.perf_counter()
         train_step += 1
         if aggregator is not None:
@@ -314,8 +353,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             logger.log_dict({"Info/learning_rate": lr, "Info/clip_coef": clip_coef, "Info/ent_coef": ent_coef},
                             policy_step)
             if policy_step - last_log >= log_every or iter_num == total_iters:
-                print(f"policy_step={policy_step} " + " ".join(
-                    f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(LOSS_NAMES, losses)), flush=True)
+                if rank == 0:
+                    print(f"policy_step={policy_step} " + " ".join(
+                        f"{n.split('/')[-1]}={v:.6g}" for n, v in zip(LOSS_NAMES, losses)), flush=True)
                 if aggregator is not None:
                     logger.log_dict(aggregator.compute(), policy_step)
                     aggregator.reset()
@@ -331,9 +371,11 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         if algo.anneal_ent_coef:
             ent_coef = polynomial_decay(iter_num, initial=ent_coef0, final=0.0, max_decay_steps=total_iters)
 
+        pod_runtime.beat_step(policy_step)
+        drain_now = broadcast_flag(pod_runtime.drain_requested())
         if (int(cfg.checkpoint.every) > 0 and policy_step - last_checkpoint >= int(cfg.checkpoint.every)) or (
             iter_num == total_iters and cfg.checkpoint.get("save_last", False)
-        ):
+        ) or drain_now:
             last_checkpoint = policy_step
             ckpt_state = {
                 "agent": agent.state_dict(),
@@ -346,12 +388,17 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 "last_train": last_train,
                 "rng": generator.get_state(),
             }
-            path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
-            summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+            if rank == 0:  # every rank holds the same state; rank 0 writes it
+                path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_{rank}.ckpt")
+                summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+        if drain_now:
+            print(f"Rank-{rank}: drain requested — checkpointed at policy_step={policy_step}, exiting", flush=True)
+            summary["drained"] = True
+            break
 
     manager.close()
     envs.close()
-    if algo.get("run_test", True):
+    if algo.get("run_test", True) and rank == 0:
         summary["test_reward"], summary["test_steps"] = test(agent, cfg, device)
     logger.close()
     env_s = sum(summary["rollout_s"])
@@ -360,5 +407,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         log_dir=log_dir,
         env_steps_per_s=summary["iterations"] * policy_steps_per_iter / env_s if env_s > 0 else None,
         checkpoint_timings=manager.timings,
+        last10=last10(summary["episodes"]),
+        param_digest=param_digest(agent) if world > 1 else None,
     )
     return summary

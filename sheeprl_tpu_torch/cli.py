@@ -20,8 +20,19 @@
     python -m sheeprl_tpu_torch evaluation checkpoint_path=<ckpt> [fabric.accelerator=cuda|cpu] [seed=...]
     python -m sheeprl_tpu_torch agents
 
-The JAX CLI's ``registration`` verb and its ``--pod`` flag are not ported:
-they exit with the reason. ``serve --fleet N`` (or ``serve.fleet.replicas=N``
+The JAX CLI's ``registration`` verb is not ported: it exits with the
+reason. ``run --pod N`` (``--pod`` alone means 2, ``--pod=N`` too, or
+``fabric.pod.workers=N``) trains over a gang-supervised pod of N worker
+processes, one device each, joined in one ``torch.distributed`` group
+(:mod:`sheeprl_tpu_torch.parallel.pod`); fewer than 2 workers raise. Every
+``run``, ``serve`` and ``serve_fleet`` joins the group the
+``fabric.distributed`` block or the ``SHEEPRL_*`` variables name
+(:func:`~sheeprl_tpu_torch.parallel.distributed.maybe_init`), and a run
+checks ``fabric.devices`` (one device per process) and sets the gradient
+wire (``fabric.grad_reduce_dtype``, :func:`~sheeprl_tpu_torch.parallel.fabric.setup`).
+Under a group of more than one process only the algorithms that reduce
+their gradients over it train (:data:`DATA_PARALLEL`); the others raise
+``NotImplementedError``. ``serve --fleet N`` (or ``serve.fleet.replicas=N``
 with N >= 2, or the ``serve_fleet`` verb, 3 replicas unless
 ``serve.fleet.replicas`` says otherwise) serves the checkpoint through N
 supervised replica processes behind a router
@@ -249,8 +260,12 @@ def check_configs(cfg: DotDict) -> None:
     """JAX ``check_configs``' checks of a run config that the port has keys
     for: a negative ``algo.learning_starts`` raises; an ``env.action_repeat``
     below 1 becomes 1. An unknown ``fabric.precision`` raises the
-    ``ValueError`` of the JAX package's ``Precision.from_string``."""
+    ``ValueError`` of the JAX package's ``Precision.from_string``, an unknown
+    ``fabric.grad_reduce_dtype`` that of its ``set_grad_reduce_dtype``."""
+    from sheeprl_tpu_torch.parallel.comm import parse_grad_reduce_dtype
+
     Precision.from_config(cfg)
+    parse_grad_reduce_dtype((cfg.get("fabric") or {}).get("grad_reduce_dtype", "auto"))
     learning_starts = (cfg.get("algo") or {}).get("learning_starts")
     if learning_starts is not None and learning_starts < 0:
         raise ValueError("The `algo.learning_starts` parameter must be greater or equal to zero.")
@@ -350,6 +365,49 @@ def _extract_fleet_flag(args: List[str]) -> Tuple[List[str], Optional[int]]:
     return out, fleet
 
 
+def _extract_pod_flag(args: List[str]) -> Tuple[List[str], Optional[int]]:
+    """``--pod [N]`` / ``--pod=N`` out of the arguments: (the rest, the
+    worker count or None). A bare ``--pod`` means 2."""
+    out: List[str] = []
+    pod: Optional[int] = None
+    i = 0
+    while i < len(args):
+        tok = args[i]
+        if tok == "--pod":
+            if i + 1 < len(args) and args[i + 1].isdigit():
+                pod = int(args[i + 1])
+                i += 2
+            else:
+                pod = 2
+                i += 1
+            continue
+        if tok.startswith("--pod="):
+            pod = int(tok.split("=", 1)[1])
+            i += 1
+            continue
+        out.append(tok)
+        i += 1
+    return out, pod
+
+
+#: the algorithms whose steps mean-reduce their gradients over a
+#: ``torch.distributed`` group; any other raises under more than one process
+DATA_PARALLEL = frozenset({"ppo", "a2c", "ppo_recurrent"})
+
+
+def _require_data_parallel(algo: str, world: int) -> None:
+    """Refuse a group of ``world`` > 1 processes for an algorithm whose steps
+    do not reduce their gradients: each process would train alone on its
+    own data."""
+    if world > 1 and algo not in DATA_PARALLEL:
+        raise NotImplementedError(
+            f"{algo}: data-parallel training over {world} processes is not ported for this algorithm; its gradient "
+            f"steps do not reduce over the group yet, and each process would train alone. Only "
+            f"{', '.join(sorted(DATA_PARALLEL))} train data-parallel; the data-parallel slice of the off-policy, "
+            "Dreamer, Anakin, population and async families will add the rest (ROADMAP, Queue 1)"
+        )
+
+
 def _extract_flywheel_flag(args: List[str]) -> Tuple[List[str], bool, Optional[str]]:
     """``--flywheel [DIR]`` / ``--flywheel=DIR`` out of the arguments: (the
     rest, whether it was given, the spool directory or None: ``flywheel/``
@@ -423,25 +481,69 @@ def learn_from_serve(args: Sequence[str], directory: str) -> dict:
 def run(args: Sequence[str]) -> dict:
     """Train; returns the run's summary (counters, metrics, checkpoint).
     ``--from-serve <dir>`` runs the flywheel's learner instead
-    (:func:`learn_from_serve`)."""
+    (:func:`learn_from_serve`); ``--pod N`` (or ``fabric.pod.workers=N``)
+    runs the pod launcher, which returns the pod's summary."""
     from sheeprl_tpu_torch.fault.inject import arm_from_env
+    from sheeprl_tpu_torch.parallel import fabric
+    from sheeprl_tpu_torch.parallel.distributed import maybe_init
+    from sheeprl_tpu_torch.parallel.pod import maybe_start_worker_runtime, pod_worker_active, run_pod
     from sheeprl_tpu_torch.utils.registry import TRAINERS
 
     args, from_serve = _extract_from_serve_flag(list(args))
     if from_serve is not None:
         return learn_from_serve(args, from_serve)
+    args, pod_flag = _extract_pod_flag(args)
     arm_from_env()  # SHEEPRL_FAULT_ARM's fault points, for drills
     cfg = compose_run_config(args)
     if cfg.algo.name not in TRAINERS:
         raise RuntimeError(f"Given the algorithm named '{cfg.algo.name}', no module has been found to be imported.")
+    if pod_flag is not None:
+        cfg.fabric.pod["workers"] = int(pod_flag)
+    if (pod_flag is not None or int(cfg.fabric.pod.get("workers", 0) or 0)) and not pod_worker_active():
+        # asked for a pod: get one or a loud error (the launcher wants 2 or
+        # more workers), never a lone process
+        _require_data_parallel(cfg.algo.name, max(2, int(cfg.fabric.pod.get("workers", 0) or 0)))
+        _wants_cpu(cfg.fabric.get("accelerator"))  # no card, no pod; the launcher itself needs none
+        return run_pod(cfg, args)
+    # the worker runtime first: the launcher's lease must outlive the join
+    maybe_start_worker_runtime()
+    maybe_init(cfg.fabric.get("distributed"))
     if cfg.algo.name in FINETUNING_ALGOS:
         _exploration_handoff(cfg)
     device = resolve_device(cfg.fabric.get("accelerator"))
+    world = fabric.setup(cfg)["world_size"]
+    _require_data_parallel(cfg.algo.name, world)
     _full_float32()
     module = TRAINERS[cfg.algo.name]
     utils = importlib.import_module(module.rsplit(".", 1)[0] + ".utils")
     configure_metrics(cfg, utils.AGGREGATOR_KEYS)
-    return importlib.import_module(module).main(cfg, device)
+    summary = importlib.import_module(module).main(cfg, device)
+    if pod_worker_active():
+        _report_worker(summary, world)
+    return summary
+
+
+def _report_worker(summary: Dict[str, Any], world: int) -> None:
+    """A pod worker's ``POD_WORKER`` line: its rank, iterations, host seconds
+    of its rollouts and updates, env steps/s, its peak reserved card memory,
+    the kernels it launched, the reductions it made and its final
+    parameters' digest (the ranks' must be equal)."""
+    import json
+
+    from sheeprl_tpu_torch.ops.kernels import LAUNCHES
+    from sheeprl_tpu_torch.parallel.comm import REDUCTIONS
+    from sheeprl_tpu_torch.parallel.distributed import rank
+
+    print("POD_WORKER " + json.dumps({
+        "rank": rank(), "world_size": world, "start_iter": summary.get("start_iter"),
+        "iterations": summary.get("iterations"), "policy_steps": summary.get("policy_steps"),
+        "rollout_s": sum(summary.get("rollout_s") or ()), "update_s": sum(summary.get("update_s") or ()),
+        "env_steps_per_s": summary.get("env_steps_per_s"),
+        "cuda_max_reserved_mb": torch.cuda.max_memory_reserved() / 2 ** 20 if torch.cuda.is_initialized() else None,
+        "launches": {k: v for k, v in LAUNCHES.items() if v}, "reductions": dict(REDUCTIONS),
+        "param_digest": summary.get("param_digest"), "drained": summary.get("drained"),
+        "test_reward": summary.get("test_reward"), "last10": summary.get("last10"),
+    }), flush=True)
 
 
 def serve(args: Sequence[str], fleet: Optional[int] = None, require_fleet: bool = False) -> Optional[dict]:
@@ -457,6 +559,10 @@ def serve(args: Sequence[str], fleet: Optional[int] = None, require_fleet: bool 
     args, flag_flywheel, flywheel_dir = _extract_flywheel_flag(args)
     fleet = flag_fleet if flag_fleet is not None else fleet
     cfg = compose_serve_config(args)
+    from sheeprl_tpu_torch.parallel.distributed import maybe_init
+
+    # serve joins the same group as run, from the same fabric.distributed / SHEEPRL_* knobs
+    maybe_init(cfg.fabric.get("distributed"))
     if fleet is not None:
         cfg.serve.fleet["replicas"] = int(fleet)
     if flag_flywheel:
@@ -543,27 +649,15 @@ def _not_ported(verb: str) -> None:
     raise SystemExit(f"'{verb}' is a verb of the JAX CLI that is not ported: {NOT_PORTED[verb]}")
 
 
-def _refuse_pod(args: Sequence[str]) -> None:
-    """``--pod [N]`` / ``--pod=N`` (the JAX CLI's pod of worker processes
-    over one mesh) has no counterpart in the port."""
-    for tok in args:
-        if tok == "--pod" or tok.startswith("--pod="):
-            raise SystemExit(f"'{tok}': pod training (a gang of worker processes over one mesh) is not ported")
-
-
 def main(argv: Optional[List[str]] = None) -> None:
     """Dispatch on the first word when it is a verb; otherwise every word is
     an argument of ``run``, as in the JAX CLI. A JAX verb the port lacks
-    (:data:`NOT_PORTED`) and ``--pod`` on a ``run`` command line exit with
-    the reason instead of reaching ``run``."""
+    (:data:`NOT_PORTED`) exits with the reason instead of reaching ``run``."""
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] not in JAX_VERBS:
-        _refuse_pod(argv)
         run(argv)
         return
     verb, rest = argv[0], argv[1:]
     if verb in NOT_PORTED:
         _not_ported(verb)
-    if verb == "run":
-        _refuse_pod(rest)
     _VERBS[verb](rest)

@@ -170,8 +170,24 @@ RUN_DEFAULTS: Dict[str, Any] = {
     "root_dir": None,
     "run_name": None,
     "log_root": "logs/runs",
-    # configs/fabric/default.yaml's precision; see sheeprl_tpu_torch/parallel/fabric.py
-    "fabric": {"accelerator": "cuda", "precision": "32-true"},
+    # configs/fabric/default.yaml: precision (parallel/fabric.py), one device
+    # per process, the gradient wire (parallel/comm.py; auto: bfloat16 when a
+    # group spans more than one process), the process group's bring-up
+    # (parallel/distributed.py; enabled null: join iff a coordinator or a
+    # process count is given, here or by SHEEPRL_COORDINATOR /
+    # SHEEPRL_NUM_PROCESSES / SHEEPRL_PROCESS_ID) and the pod
+    # (parallel/pod.py; workers >= 2, or `run --pod N`)
+    "fabric": {
+        "accelerator": "cuda",
+        "precision": "32-true",
+        "devices": 1,
+        "grad_reduce_dtype": "auto",
+        "distributed": {"enabled": None, "coordinator": None, "num_processes": None, "process_id": None,
+                        "connect_retries": 3, "connect_backoff_s": 1.0, "init_timeout_s": None},
+        "pod": {"workers": 0, "devices_per_worker": 1, "coordinator_host": "127.0.0.1", "lease_s": 30.0,
+                "grace_s": 120.0, "beat_s": None, "max_restarts": 2, "backoff": 0.5, "escalation": "degrade",
+                "drain_s": 10.0, "join_s": 30.0, "tick_s": 0.25},
+    },
     # configs/metric/default.yaml; disable_timer None: the timers run iff
     # log_level > 0; the presets add their Loss/* and State/* keys
     "metric": {

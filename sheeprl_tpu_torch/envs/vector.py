@@ -206,12 +206,14 @@ def make_env(cfg: Any, seed: int) -> Any:
     return env
 
 
-def make_vector_env(cfg: Any, seed: int, restart_on_exception: bool = False) -> SyncVectorEnv:
+def make_vector_env(cfg: Any, seed: int, restart_on_exception: bool = False, rank: int = 0) -> SyncVectorEnv:
     """``cfg.env.num_envs`` copies of the env ``cfg.env.id`` names; env ``i``
-    is built with ``seed + i``, wrapped in :class:`RestartOnException` with
+    of rank ``rank`` is built with ``seed + rank * num_envs + i`` (JAX
+    ``vectorize_env``), wrapped in :class:`RestartOnException` with
     ``restart_on_exception``, self-healing as ``env.restart_attempts`` and
     ``env.step_timeout`` ask."""
-    envs = [lambda i=i: make_env(cfg, seed + i) for i in range(int(cfg.env.num_envs))]
+    n = int(cfg.env.num_envs)
+    envs = [lambda i=i: make_env(cfg, seed + rank * n + i) for i in range(n)]
     if restart_on_exception:
         envs = [lambda fn=fn: RestartOnException(fn) for fn in envs]
     return SyncVectorEnv(

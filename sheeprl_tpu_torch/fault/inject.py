@@ -26,12 +26,13 @@ costs one dict lookup and one environment read.
 
 Process-tier chaos: the serve fleet's router registers callables that
 SIGKILL or SIGSTOP one of its replica processes (:func:`set_replica_chaos`),
-and the flywheel's learner supervisor the same for the learner process
-(:func:`set_learner_chaos`); the ``kill-replica``/``hang-replica`` and
-``kill-learner``/``hang-learner`` actions dispatch to them, from the point's
-calling thread, which carries on (an unregistered handler is a no-op). The
-JAX package's ``kill-host``/``hang-host`` (its pod of training workers) are
-not ported: arming them raises ``ValueError``.
+the flywheel's learner supervisor the same for the learner process
+(:func:`set_learner_chaos`), and the pod launcher for one of its training
+workers (:func:`set_host_chaos`, at the points ``train.pod.tick`` and
+``train.pod.step``); the ``kill-replica``/``hang-replica``,
+``kill-learner``/``hang-learner`` and ``kill-host``/``hang-host`` actions
+dispatch to them, from the point's calling thread, which carries on (an
+unregistered handler is a no-op).
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ __all__ = [
     "FlakyEnv",
     "set_replica_chaos",
     "set_learner_chaos",
+    "set_host_chaos",
     "KILL_ENV_VAR",
     "ARM_ENV_VAR",
     "NAN_ENV_VAR",
@@ -72,15 +74,20 @@ KILL_ENV_VAR = "SHEEPRL_FAULT_KILL"
 ARM_ENV_VAR = "SHEEPRL_FAULT_ARM"
 NAN_ENV_VAR = "SHEEPRL_FAULT_NAN_AT"
 
-_ACTIONS = ("raise", "kill", "kill-thread", "hang", "kill-replica", "hang-replica", "kill-learner", "hang-learner")
+_ACTIONS = (
+    "raise", "kill", "kill-thread", "hang",
+    "kill-replica", "hang-replica", "kill-host", "hang-host", "kill-learner", "hang-learner",
+)
 
 _counts: Dict[str, int] = {}
 _armed: Dict[str, Tuple[str, int, float]] = {}  # point -> (action, Nth hit, hang_s)
 _hang_release = threading.Event()
 # process-tier chaos: "kill"/"hang" callables registered by the fleet router
-# (its replica processes) and by the flywheel's learner supervisor
+# (its replica processes), the flywheel's learner supervisor and the pod
+# launcher (its training workers)
 _replica_chaos: Dict[str, Optional[Callable[[], None]]] = {"kill": None, "hang": None}
 _learner_chaos: Dict[str, Optional[Callable[[], None]]] = {"kill": None, "hang": None}
+_host_chaos: Dict[str, Optional[Callable[[], None]]] = {"kill": None, "hang": None}
 
 
 class FaultInjected(RuntimeError):
@@ -100,7 +107,8 @@ def arm(point: str, action: str = "raise", at: int = 1, hang_s: float = 5.0) -> 
     (:class:`ThreadKilled`), ``hang`` (stall the calling thread ``hang_s``
     seconds, then return: a lease expiry, not a crash), or one of the
     process-tier actions (``kill-replica``, ``hang-replica``,
-    ``kill-learner``, ``hang-learner``: call the registered handler)."""
+    ``kill-learner``, ``hang-learner``, ``kill-host``, ``hang-host``: call
+    the registered handler)."""
     if action not in _ACTIONS:
         raise ValueError(f"Unknown fault action '{action}' (one of {_ACTIONS})")
     _armed[point] = (action, int(at), float(hang_s))
@@ -129,6 +137,13 @@ def set_learner_chaos(kill: Optional[Callable[[], None]] = None, hang: Optional[
     _learner_chaos["kill"], _learner_chaos["hang"] = kill, hang
 
 
+def set_host_chaos(kill: Optional[Callable[[], None]] = None, hang: Optional[Callable[[], None]] = None) -> None:
+    """Register the pod launcher's handlers: ``kill()`` SIGKILLs one live
+    training worker, ``hang()`` SIGSTOPs one (a dead host and a wedged one);
+    ``kill-host``/``hang-host`` dispatch to them; cleared by :func:`reset`."""
+    _host_chaos["kill"], _host_chaos["hang"] = kill, hang
+
+
 def release_hangs() -> None:
     """Wake every thread stalled in a ``hang`` point (and any later one
     until the next :func:`reset`)."""
@@ -143,6 +158,7 @@ def reset() -> None:
     _counts.clear()
     set_replica_chaos(None, None)
     set_learner_chaos(None, None)
+    set_host_chaos(None, None)
     _hang_release.set()
     _hang_release = threading.Event()
 
@@ -214,10 +230,10 @@ def fault_point(point: str) -> None:
         return
     if action == "kill":
         os.kill(os.getpid(), signal.SIGKILL)  # the preemption model: no cleanup
-    if action.endswith(("-replica", "-learner")):
+    if action.endswith(("-replica", "-learner", "-host")):
         # process-tier chaos: the registered handler acts on another process;
         # the calling thread (the owner's poll loop) keeps running
-        registry = _learner_chaos if action.endswith("-learner") else _replica_chaos
+        registry = {"replica": _replica_chaos, "learner": _learner_chaos, "host": _host_chaos}[action.split("-", 1)[1]]
         handler = registry[action.split("-", 1)[0]]
         if handler is not None:
             handler()

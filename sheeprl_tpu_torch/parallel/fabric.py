@@ -13,16 +13,28 @@ in the JAX package.
 
 :func:`partition` is ``Fabric.partition``'s rule for the Sebulba topologies
 on the port's one device.
+
+:func:`setup` is the rest of ``Fabric.from_config`` that the port has: the
+``fabric.devices`` rule (one device per process: more devices are more
+processes, ``run --pod N``) and the gradient wire dtype, applied once at the
+start of a run. The rank accessors read the ``torch.distributed`` group
+(:mod:`~sheeprl_tpu_torch.parallel.distributed`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
-__all__ = ["PRECISION_ALIASES", "Precision", "compute_dtype", "partition"]
+from sheeprl_tpu_torch.parallel import distributed
+from sheeprl_tpu_torch.parallel.comm import get_grad_reduce_dtype, parse_grad_reduce_dtype, set_grad_reduce_dtype
+
+__all__ = [
+    "PRECISION_ALIASES", "Precision", "compute_dtype", "partition", "resolve_devices", "visible_devices", "setup",
+    "world_size", "global_rank", "is_global_zero",
+]
 
 #: alias -> (parameter dtype, compute dtype), the JAX package's table
 PRECISION_ALIASES = {
@@ -85,3 +97,58 @@ def partition(device: "torch.device | str", actor_devices: "int | str" = "auto")
         )
     device = torch.device(device)
     return device, device
+
+
+def visible_devices(accelerator: Optional[str]) -> int:
+    """Devices a process of this accelerator sees: the CPU is one, a CUDA
+    accelerator every card ``torch.cuda.device_count`` counts (no context is
+    made)."""
+    return 1 if str(accelerator or "cuda").lower() == "cpu" else torch.cuda.device_count()
+
+
+def resolve_devices(devices: Any, visible: int) -> int:
+    """``fabric.devices`` as JAX's ``Fabric`` resolves it: ``auto``, null and
+    -1 are every visible device, a count above the visible ones raises JAX's
+    ``ValueError``. A count above 1 raises ``NotImplementedError``: the port
+    drives one device per process."""
+    if devices in ("auto", None, -1):
+        n = visible
+    else:
+        n = int(devices)
+        if n > visible:
+            raise ValueError(f"Requested {n} devices but only {visible} are visible")
+    if n > 1:
+        raise NotImplementedError(
+            f"fabric.devices resolves to {n}: the port drives one device per process; train over {n} devices as a "
+            f"pod of {n} worker processes, one device each, with `run --pod {n}` (or fabric.pod.workers={n})"
+        )
+    return n
+
+
+def setup(cfg: Mapping[str, Any]) -> Dict[str, Any]:
+    """Apply a run config's ``fabric`` block at the start of a run, after
+    the process group is joined: check ``fabric.devices``
+    (:func:`resolve_devices`) and set the gradient wire dtype once
+    (``fresh_run=True``); ``auto`` is bfloat16 when the group spans more than
+    one process and float32 otherwise, where the reduction is no collective
+    and a cast would round the gradients for nothing. Returns the resolved
+    ``devices``, ``world_size``, ``rank`` and ``grad_reduce_dtype``."""
+    fabric = cfg.get("fabric") or {}
+    devices = resolve_devices(fabric.get("devices", 1), visible_devices(fabric.get("accelerator")))
+    world = distributed.world_size()
+    wire = fabric.get("grad_reduce_dtype", "auto")
+    if parse_grad_reduce_dtype(wire) == "auto":
+        wire = "bfloat16" if world > 1 else "float32"
+    set_grad_reduce_dtype(wire, fresh_run=True)
+    return {"devices": devices, "world_size": world, "rank": distributed.rank(),
+            "grad_reduce_dtype": "float32" if get_grad_reduce_dtype() is None else "bfloat16"}
+
+
+#: the group's size and this process's rank (1 and 0 outside a pod), one device a process
+world_size = distributed.world_size
+global_rank = distributed.rank
+
+
+def is_global_zero() -> bool:
+    """Rank 0: the process that logs, saves the config and checkpoints."""
+    return distributed.rank() == 0

@@ -76,10 +76,11 @@ class JsonlWriter:
             self._file.close()
 
 
-def get_logger(cfg: Mapping[str, Any], log_dir: "str | os.PathLike"):
-    """:class:`NullWriter` at ``metric.log_level <= 0``, else the writer
-    ``logger.name`` names (``jsonl``, the default)."""
-    if int((cfg.get("metric") or {}).get("log_level", 1)) <= 0:
+def get_logger(cfg: Mapping[str, Any], log_dir: "str | os.PathLike", rank: int = 0):
+    """:class:`NullWriter` at ``metric.log_level <= 0`` and on every rank
+    but 0 (only rank 0 of a pod logs), else the writer ``logger.name`` names
+    (``jsonl``, the default)."""
+    if int((cfg.get("metric") or {}).get("log_level", 1)) <= 0 or rank != 0:
         return NullWriter()
     kind = str((cfg.get("logger") or {}).get("name") or "jsonl")
     if kind == "jsonl":
@@ -98,7 +99,21 @@ def get_log_dir(cfg: Mapping[str, Any], root_dir: str, run_name: str) -> str:
     one more than the highest numeric ``version_*`` under
     ``<log_root>/<root_dir>/<run_name>`` (0 for the first); other names are
     ignored. The directory is claimed by an exclusive ``mkdir``: of two runs
-    that pick the same ``N`` at once, the second takes ``N + 1``."""
+    that pick the same ``N`` at once, the second takes ``N + 1``. In a
+    ``torch.distributed`` group rank 0 picks and claims it, and every rank
+    gets rank 0's path (each worker timestamps its own ``run_name``)."""
+    from sheeprl_tpu_torch.parallel.distributed import rank, world_size
+
+    if world_size() > 1:
+        import torch.distributed as dist
+
+        box = [_claim_log_dir(cfg, root_dir, run_name) if rank() == 0 else None]
+        dist.broadcast_object_list(box, src=0)
+        return str(box[0])
+    return _claim_log_dir(cfg, root_dir, run_name)
+
+
+def _claim_log_dir(cfg: Mapping[str, Any], root_dir: str, run_name: str) -> str:
     base = Path(str(cfg.get("log_root", "logs/runs"))) / str(root_dir) / str(run_name)
     base.mkdir(parents=True, exist_ok=True)
     existing = []

@@ -1,11 +1,12 @@
 """The port's command line against the JAX CLI's verbs (``sheeprl_tpu/cli.py``
 ``main``), on the CPU: every JAX verb is either dispatched to the port's
 function of that name or exits naming the verb as not ported, and never
-falls through to ``run``; ``--pod`` on a ``run`` command line exits the same
-way; a command line without a verb and the ported verbs dispatch as before;
+falls through to ``run``; ``--pod`` on a ``run`` command line (or a verbless
+one) leaves the single-process path for the pod launcher with its worker
+count; a command line without a verb and the ported verbs dispatch as before;
 ``serve_fleet`` reaches ``serve`` asking for a fleet (3 replicas unless
-``serve.fleet.replicas`` says otherwise), and the ``--fleet``, ``--flywheel``
-and ``--from-serve`` flags parse as JAX's do."""
+``serve.fleet.replicas`` says otherwise), and the ``--fleet``, ``--flywheel``,
+``--from-serve`` and ``--pod`` flags parse as JAX's do."""
 
 import pytest
 
@@ -43,13 +44,23 @@ def test_torch_cli_verbs_not_ported_exit_naming_the_verb(calls, verb, reason):
     assert calls == []  # nothing reached run
 
 
-@pytest.mark.parametrize("argv", [["--pod"], ["--pod", "4"], ["--pod=4"]], ids=["bare", "count", "equals"])
+@pytest.mark.parametrize("argv,workers", [(["--pod"], 2), (["--pod", "4"], 4), (["--pod=4"], 4)],
+                         ids=["bare", "count", "equals"])
 @pytest.mark.parametrize("with_verb", [True, False], ids=["run", "no_verb"])
-def test_torch_cli_verbs_pod_flag_exits(calls, argv, with_verb):
-    line = (["run"] if with_verb else []) + ["preset=ppo", *argv, "algo.total_steps=8"]
-    with pytest.raises(SystemExit, match="pod.*not ported"):
-        cli.main(line)
-    assert calls == []
+def test_torch_cli_verbs_pod_flag_exits(monkeypatch, tmp_path, argv, workers, with_verb):
+    """``--pod`` exits the single-process path into the pod launcher: the
+    run's config carries the worker count, the workers' argv drops the
+    flag, and no training starts in this process."""
+    import sheeprl_tpu_torch.parallel.pod as pod
+
+    pods = []
+    monkeypatch.setattr(pod, "run_pod", lambda cfg, args: pods.append((cfg.fabric.pod.workers, list(args))))
+    monkeypatch.setattr(cli, "resolve_device", lambda accelerator: pytest.fail("a training run started"))
+    monkeypatch.delenv("SHEEPRL_POD_RANK", raising=False)
+    rest = ["preset=ppo", "fabric.accelerator=cpu", f"log_root={tmp_path}", "algo.total_steps=8"]
+    line = (["run"] if with_verb else []) + rest[:1] + argv + rest[1:]
+    cli.main(line)
+    assert pods == [(workers, rest)]
 
 
 @pytest.mark.parametrize("argv,want", [
@@ -90,11 +101,12 @@ FLAG_CASES = [
     ["serve", "--fleet"], ["--fleet", "4", "x=1"], ["--fleet=2"], ["--fleet", "x=1"],
     ["--flywheel"], ["--flywheel", "spool", "x=1"], ["--flywheel=spool"], ["--flywheel", "--fleet", "2"],
     ["--flywheel", "x=1"], ["--flywheel="], ["--from-serve", "d", "x=1"], ["--from-serve=d"], ["x=1", "y=2"],
+    ["--pod"], ["--pod", "4", "x=1"], ["--pod=3"], ["--pod", "x=1"], ["x=1", "--pod"],
 ]
 
 
 @pytest.mark.parametrize("argv", FLAG_CASES, ids=lambda a: " ".join(a) or "empty")
-@pytest.mark.parametrize("flag", ["fleet", "flywheel", "from_serve"])
+@pytest.mark.parametrize("flag", ["fleet", "flywheel", "from_serve", "pod"])
 def test_torch_cli_verbs_flags_parse_as_jax(flag, argv):
     from sheeprl_tpu import cli as jax_cli
 
