@@ -406,19 +406,39 @@ result line):
    coordinator port from the newest complete checkpoint, fences monotone,
    the twin's final counters), ``hang-host`` (a lease of 8 s, counted as a
    hang), SIGTERM (both workers checkpoint and exit 0, so does the
-   launcher); each MTTR.
+   launcher); each MTTR;
+74. data-parallel off-policy and DreamerV3 calls: SAC on the host tier and
+   on the replicated prioritized ring, the dropout-Q ensemble, the pixel SAC
+   and DreamerV3-S, each one call by two gloo rank processes on the card and
+   two on the CPU at both wires: each pair bit-equal (rings and trees too),
+   each card rank's launches exact (``sumtree_sample`` once a gradient
+   step, DreamerV3's 79 GRU steps and 3 of each two-hot kernel), card
+   against CPU the losses and the 2 lr rule;
+75. ``run --pod 2 preset=sac_per`` for POD_SAC_STEPS steps a worker: exit 0,
+   ``sumtree_sample`` once per granted gradient step in each worker, the
+   workers' parameters and replicated rings bit-equal; env steps/s beside
+   phase 13's one process; the card's memory;
+76. ``run --pod 2`` on the resident DreamerV3 preset: each worker's
+   ``gru_gates_ln``, two-hot and ``ragged_ring_scatter`` launches exact, the
+   workers bit-equal; ``dry_run`` pods of SAC, the dropout-Q ensemble, the
+   pixel SAC and DreamerV3's host tier, each bit-equal;
+77. ``kill-host`` on the SAC-PER pod against its fault-free twin: a gang
+   restart from the newest complete checkpoint (rank 0's, the replicated
+   ring and tree in it), the twin's counters at the end; the MTTR.
 The V2, V1 and P2E runs of phases 39-52 pass ``algo.hybrid_player.enabled=false``:
 their presets' ``auto`` is on on the card since the families have the path.
 
 Phases 1-3, 11, 14 and 21 run first, in this process alone, so that the
-kernels are timed on an idle card. Phases 4-10, 12, 13, 15-67, 68, 71, 72 and half of 73 then
-run in five worker processes at once on the same card (``LANES``; each
+kernels are timed on an idle card. Phases 4-10, 12, 13, 15-67, 68, 71, 72, half of 73 and 74
+then run in five worker processes at once on the same card (``LANES``; each
 worker is this script with ``--lane NAME --out FILE``), each a chain of
 phases in the order above; path timings taken there share the card and the
-CPU's cores with the other lanes. Phases 69, 70 and 73's twin and kill drill
-run last, in three workers at once (``TAIL_LANES``), 69 and 70 on the checkpoints the lanes left
-behind. Phase 72 runs at the end of the families lane, 73's hang and
-SIGTERM drills at the end of the SAC lane. The script fails, and stops the
+CPU's cores with the other lanes. Phases 69, 70, 73's twin and kill drill,
+and 75-77 run last, in four workers at once (``TAIL_LANES``), 69 and 70 on
+the checkpoints the lanes left behind, 76 after 73's drill, 75 then 77 in a
+lane of their own. Phase 72 runs at the end of the families lane, 73's hang
+and SIGTERM drills at the end of the SAC lane, 74 at the end of the Anakin
+lane. The script fails, and stops the
 other workers, as soon as one fails.
 
 The last three lines: the kernels' JSON record, the card's name and power
@@ -10207,10 +10227,12 @@ def _dp_update_rank(rank: int, world: int, port: int, device: str, payload: dict
 
 def dp_rank_main(rank: int, port: int, device: str, job: str, out: str) -> int:
     """``python3 chip_smoke.py --dp-rank RANK PORT DEVICE JOB OUT``: one rank
-    of phase 71 on the payload pickled in JOB; its result pickled to OUT."""
+    of phase 71 (or of phase 74, a payload whose ``job`` is ``families``) on
+    the payload pickled in JOB; its result pickled to OUT."""
     with open(job, "rb") as f:
         payload = pickle.load(f)
-    result = _dp_update_rank(rank, POD_WORKERS, port, device, payload)
+    run_rank = _dp_families_rank if payload.get("job") == "families" else _dp_update_rank
+    result = run_rank(rank, POD_WORKERS, port, device, payload)
     with open(out, "wb") as f:
         pickle.dump(result, f)
     return 0
@@ -10233,9 +10255,10 @@ def _spawn_dp_ranks(device: str, payload: dict, timeout: float = 300.0) -> list:
             for r, proc in enumerate(procs):
                 rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
                 if rc != 0:
-                    raise AssertionError(f"phase 71's {device} rank {r} exited {rc}")
+                    raise AssertionError(f"the {device} rank {r} of {payload.get('job', 'phase 71')} exited {rc}")
         except subprocess.TimeoutExpired:
-            raise AssertionError(f"phase 71's {device} ranks did not end within {timeout:g} s") from None
+            raise AssertionError(f"the {device} ranks of {payload.get('job', 'phase 71')} did not end within "
+                                 f"{timeout:g} s") from None
         finally:
             for proc in procs:
                 if proc.poll() is None:
@@ -10522,6 +10545,475 @@ def pod_hang_drills_phase(workdir: str, card: str = "cuda") -> dict:
     return out
 
 
+# -- 74-77. data-parallel off-policy and DreamerV3 training, the pods of those families ------
+
+DP_FAMILY_STEPS = 2  # the off-policy families' gradient steps a call (PER: G >= 2 draws through the tree)
+DP_RSSM_T, DP_RSSM_B = 64, 4  # the DreamerV3-S call: T 64 (79 GRU launches with H 15), 2 rows a rank
+DP_PER_CAPACITY, DP_PER_FILLED = 4096, 1024  # the replicated ring's rows, and the filled ones
+DP_FAMILIES = ("sac_host", "sac_per", "droq", "sac_ae", "dreamer_v3")
+#: each family's kernel launches in one card rank for one call: SAC-PER's sumtree_sample once a
+#: gradient step, DreamerV3's per gradient step counts (T + H GRU steps, 3 two-hot losses, their
+#: backwards and 3 decodes); every other kernel 0, and on the CPU ranks every kernel 0
+DP_FAMILY_LAUNCHES = {
+    "sac_per": {"sumtree_sample": DP_FAMILY_STEPS},
+    "dreamer_v3": {"gru_gates": DP_RSSM_T + 15, "two_hot_symlog_loss_lse": 3, "two_hot_symlog_loss_lse_bwd": 3,
+                   "two_hot_symexp_decode": 3},
+}
+POD_SAC_STEPS = 2048  # phase 75: a worker's env steps (512 iterations of 4 envs)
+POD_SAC_DRILL_STEPS = 1024  # phase 77: a worker's env steps (256 iterations), a checkpoint every 256
+POD_SAC_KILL_AT = 120  # phase 77's chaos beat: the 120th observed step advance of 2 workers
+POD_RSSM_LEARNING_STARTS, POD_RSSM_STEPS = 128, 140  # phase 76's resident DreamerV3 pod
+POD_SAC_ROOT = "sac/Pendulum-v1"
+
+
+def _dp_family_cfg(family: str):
+    """The family's preset at its full widths, with the data-parallel
+    call's cuts (the SAC-AE and DreamerV3 batches are the one-process
+    card phases' cuts, split over the two ranks)."""
+    if family in ("sac_host", "sac_per"):
+        return preset(SAC_PRESET)
+    if family == "droq":
+        return preset("droq")
+    if family == "sac_ae":
+        cfg = apply_overrides(preset("sac_ae"), [f"algo.per_rank_batch_size={SAC_AE_CARD_BATCH}"])
+        cfg["spaces"] = {"obs": {"rgb": {"shape": [64, 64, 3], "dtype": "uint8"}},
+                         "actions": {"shape": [2], "low": [-1.0, -1.0], "high": [1.0, 1.0], "continuous": True}}
+        return apply_overrides(cfg, [])
+    return _run_cfg([f"algo.per_rank_sequence_length={DP_RSSM_T}", f"algo.per_rank_batch_size={DP_RSSM_B}"])
+
+
+def _sac_rows(rng, lead) -> dict:
+    return {"observations": rng.normal(size=(*lead, 3)).astype(np.float32),
+            "next_observations": rng.normal(size=(*lead, 3)).astype(np.float32),
+            "actions": rng.uniform(-2, 2, size=(*lead, 1)).astype(np.float32),
+            "rewards": rng.normal(size=(*lead, 1)).astype(np.float32),
+            "terminated": (rng.uniform(size=(*lead, 1)) < 0.1).astype(np.float32)}
+
+
+def _numpy_tree(x):
+    if isinstance(x, dict):
+        return {k: _numpy_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_numpy_tree(v) for v in x]
+    return x.numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _dp_families_payload() -> dict:
+    """Every family's seeded call, built once on the CPU: the data of the
+    whole group (a rank takes its share), each rank's draws, the SAC-PER
+    ring's contents. The agents are built from their seeds on each rank's
+    own device (device-independent initialisations)."""
+    from sheeprl_tpu_torch.algos.droq.agent import build_agent as build_droq
+    from sheeprl_tpu_torch.algos.droq.droq import draw_noise as droq_noise
+    from sheeprl_tpu_torch.algos.sac.sac import _ring_specs
+    from sheeprl_tpu_torch.algos.sac_ae.agent import build_agent as build_sac_ae
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import draw_noise as sac_ae_noise
+    from sheeprl_tpu_torch.config import plain
+    from sheeprl_tpu_torch.replay import sumtree as st
+
+    rng, G, W = np.random.default_rng(74), DP_FAMILY_STEPS, POD_WORKERS
+    gen = torch.Generator().manual_seed(75)
+    out = {}
+    cfg = _dp_family_cfg("sac_host")
+    B = int(cfg.algo.per_rank_batch_size)
+    out["sac_host"] = {"cfg": plain(cfg), "data": _sac_rows(rng, (G, B)),
+                       "noise": {k: torch.randn((W, G, B // W, 1), generator=gen).numpy() for k in ("next", "actor")}}
+    cfg = _dp_family_cfg("sac_per")
+    n_ring = int(cfg.env.num_envs) * W
+    specs = _ring_specs(3, 1)
+    storage = {}
+    for k, (shape, _) in specs.items():
+        full = np.zeros((DP_PER_CAPACITY, n_ring) + shape, np.float32)
+        full[:DP_PER_FILLED] = rng.normal(size=(DP_PER_FILLED, n_ring) + shape)
+        storage[k] = full
+    storage["terminated"][:] = 0.0
+    leaves = DP_PER_FILLED * n_ring
+    tree = st.update(st.init(DP_PER_CAPACITY * n_ring), torch.arange(leaves),
+                     torch.from_numpy(rng.uniform(0.05, 2.0, size=leaves).astype(np.float32)))
+    out["sac_per"] = {"cfg": plain(cfg), "specs": specs, "storage": storage, "tree": tree.numpy(), "max_p": 2.5,
+                      "row": _sac_rows(rng, (1, n_ring)), "beta": 0.5,
+                      "draws": {"u": torch.rand((W, G, B // W), generator=gen).numpy(),
+                                **{k: torch.randn((W, G, B // W, 1), generator=gen).numpy() for k in ("next", "actor")}}}
+    cfg = _dp_family_cfg("droq")
+    B = int(cfg.algo.per_rank_batch_size)
+    ref, _ = build_droq(cfg, 3, {"shape": [1], "low": [-2.0], "high": [2.0], "continuous": True}, "cpu")
+    out["droq"] = {"cfg": plain(cfg), "critic_data": _sac_rows(rng, (G, B)), "actor_data": _sac_rows(rng, (B,)),
+                   "noise": [_numpy_tree(droq_noise(ref, G, B // W, gen, "cpu")) for _ in range(W)]}
+    cfg = _dp_family_cfg("sac_ae")
+    B = int(cfg.algo.per_rank_batch_size)
+    ref, _ = build_sac_ae(cfg, "cpu")
+    out["sac_ae"] = {"cfg": plain(cfg), "data": {
+        "rgb": rng.integers(0, 256, (G, B, 64, 64, 3)).astype(np.float32),
+        "next_rgb": rng.integers(0, 256, (G, B, 64, 64, 3)).astype(np.float32),
+        "actions": rng.uniform(-1, 1, (G, B, 2)).astype(np.float32),
+        "rewards": rng.normal(size=(G, B, 1)).astype(np.float32),
+        "terminated": (rng.uniform(size=(G, B, 1)) < 0.25).astype(np.float32)},
+        "noise": [_numpy_tree(sac_ae_noise(ref, cfg, G, B // W, gen, "cpu")) for _ in range(W)]}
+    del ref
+    cfg = _dp_family_cfg("dreamer_v3")
+    out["dreamer_v3"] = {"cfg": plain(cfg),
+                         "data": {k: v.numpy() for k, v in _batch(rng, DP_RSSM_T, DP_RSSM_B, 18).items()},
+                         "noise": [_numpy_tree(draw_noise(cfg, DP_RSSM_T, DP_RSSM_B // W, [18], gen, "cpu"))
+                                   for _ in range(W)]}
+    return out
+
+
+def _to(tree, device: str):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return torch.from_numpy(np.ascontiguousarray(tree)).to(device) if isinstance(tree, np.ndarray) else tree
+
+
+def _dp_family_call(family: str, p: dict, rank: int, device: str) -> dict:
+    """One family's call on this rank, from the seeded weights; its losses,
+    parameters, digest, host seconds, and for SAC-PER its ring's digest."""
+    from sheeprl_tpu_torch.algos.ppo.ppo import param_digest
+    from sheeprl_tpu_torch.algos.sac import sac
+    from sheeprl_tpu_torch.config import dotdict
+
+    W, G = POD_WORKERS, DP_FAMILY_STEPS
+    cfg = dotdict(p["cfg"])
+    ring = None
+
+    def share(data: dict, axis: int) -> dict:
+        width = next(iter(data.values())).shape[axis] // W
+        return {k: _to(np.take(v, np.arange(rank * width, (rank + 1) * width), axis=axis), device)
+                for k, v in data.items()}
+
+    t0 = time.perf_counter()
+    if family in ("sac_host", "sac_per"):
+        agent, optimizers = _sac_parts(cfg, device)
+        modules = agent
+        noise = {k: _to(v[rank], device) for k, v in (p["noise"] if family == "sac_host" else p["draws"]).items()}
+        if family == "sac_host":
+            losses = sac.make_train_step(agent, optimizers, cfg, guard=True)(share(p["data"], 1), True, noise=noise)[0]
+        else:
+            from sheeprl_tpu_torch.replay import DeviceReplayBuffer, DeviceReplayState
+
+            per, n_ring = cfg.buffer.priority, int(cfg.env.num_envs) * W
+            ring = DeviceReplayBuffer(p["specs"], DP_PER_CAPACITY, n_ring, device=device, prioritized=True,
+                                      per_alpha=float(per.alpha), per_eps=float(per.eps), seed=int(cfg.seed) + 29)
+            arrays = {f"storage/{k}": torch.from_numpy(v) for k, v in p["storage"].items()}
+            arrays.update(tree=torch.from_numpy(p["tree"]), max_p=torch.tensor(p["max_p"]),
+                          key=ring.generator.get_state())
+            ring.load_state_dict(DeviceReplayState("uniform", arrays, {
+                "capacity": DP_PER_CAPACITY, "n_envs": n_ring, "prioritized": True, "host_pos": DP_PER_FILLED,
+                "host_full": False}))
+            local = int(cfg.env.num_envs)
+            mine = {k: np.ascontiguousarray(v[:, rank * local:(rank + 1) * local]) for k, v in p["row"].items()}
+            ring.add({k: sac._gather_envs(v, W) for k, v in mine.items()})  # the loop's replicated append
+            train = sac.make_resident_train_step(agent, optimizers, cfg, ring, guard=True)
+            losses = train(ring.make_job(), [1.0] * G, p["beta"], draws=noise)[0]
+    elif family == "droq":
+        from sheeprl_tpu_torch.algos.droq.agent import build_agent as build_droq
+        from sheeprl_tpu_torch.algos.droq.droq import make_train_step as droq_train_step
+        from sheeprl_tpu_torch.algos.sac.sac import make_optimizers as sac_optimizers
+
+        agent, _ = build_droq(cfg, 3, {"shape": [1], "low": [-2.0], "high": [2.0], "continuous": True}, device)
+        modules = agent
+        losses = droq_train_step(agent, sac_optimizers(cfg, agent), cfg)(
+            share(p["critic_data"], 1), share(p["actor_data"], 0), noise=_to(p["noise"][rank], device))
+    elif family == "sac_ae":
+        from sheeprl_tpu_torch.algos.sac_ae.agent import build_agent as build_sac_ae
+        from sheeprl_tpu_torch.algos.sac_ae.sac_ae import make_optimizers as sac_ae_optimizers
+        from sheeprl_tpu_torch.algos.sac_ae.sac_ae import make_train_step as sac_ae_train_step
+
+        agent, _ = build_sac_ae(cfg, device)
+        modules = agent
+        optimizers = {k: _Sgd(opt, SAC_AE_SGD_LR) for k, opt in sac_ae_optimizers(cfg, agent).items()}
+        losses = sac_ae_train_step(agent, optimizers, cfg)(share(p["data"], 1), 1, noise=_to(p["noise"][rank], device))
+    else:
+        wm, actor, critic, target = build_training_agent(cfg, device)
+        modules = torch.nn.ModuleList([wm, actor, critic, target])
+        train = make_train_step(wm, actor, critic, target, make_optimizers(cfg, wm, actor, critic), cfg, guard=True)
+        losses = train(share(p["data"], 2), init_moments(device), 0, noise=[_to(p["noise"][rank], device)])[1][0]
+    losses = losses.detach().cpu().numpy()
+    seconds = time.perf_counter() - t0
+    out = {"losses": losses, "seconds": seconds, "digest": param_digest(modules),
+           "params": {k: v.detach().cpu().numpy() for k, v in modules.state_dict().items()}}
+    if ring is not None:
+        out["ring_digest"] = ring.digest()
+    return out
+
+
+def _dp_families_rank(rank: int, world: int, port: int, device: str, payload: dict) -> dict:
+    """One rank of phase 74: every family's call at each wire, the kernel
+    launches and the reductions of each counted in this process."""
+    from sheeprl_tpu_torch.parallel import comm
+    from sheeprl_tpu_torch.parallel.distributed import maybe_init, shutdown
+
+    torch.set_num_threads(2)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        maybe_init(coordinator_address=f"127.0.0.1:{port}", num_processes=world, process_id=rank)
+        out = {}
+        for wire in DP_WIRES:
+            comm.set_grad_reduce_dtype(wire, fresh_run=True)
+            for family in DP_FAMILIES:
+                kernels.reset_launches()
+                calls = comm.REDUCTIONS["calls"]
+                result = _dp_family_call(family, payload[family], rank, device)
+                result["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+                result["reductions"] = comm.REDUCTIONS["calls"] - calls
+                out[(wire, family)] = result
+        return out
+    finally:
+        shutdown()
+
+
+def dp_families_phase(card: str = "cuda") -> dict:
+    """Phase 74: one data-parallel call of each new family, by two gloo
+    rank processes on the card and two on the CPU, at the float32 and the
+    bfloat16 wire, from the same seeded weights, data and draws: SAC on the
+    host tier (the preset's batch of 256, 128 a rank, 2 guarded steps), SAC
+    on the replicated prioritized ring (2 guarded steps through
+    ``sumtree_sample``, the group's 8 env columns, the staged row of each
+    rank appended in rank order), the dropout-Q ensemble (2 critic steps,
+    the actor's and the entropy's), the pixel SAC (full width, 1 row a rank,
+    2 steps from step 1, each optimizer an SGD at SAC_AE_SGD_LR, as phase
+    37) and DreamerV3-S (T 64, 2 rows a rank, 1 guarded step). Held: each
+    pair of ranks ends bit-equal (and SAC-PER's rings, trees and ``max_p``);
+    each card rank's kernel launches are DP_FAMILY_LAUNCHES exactly, the CPU
+    ranks' none; the reductions per call (3 a SAC step, the ensemble's G +
+    2, the pixel SAC's 2 per step + 2, DreamerV3's 3); card against CPU the
+    losses within rtol 1e-5 (SAC; 1e-4 for the ensemble, the pixel SAC and
+    DreamerV3, as their one-process phases, and at the bfloat16 wire), every
+    parameter within 2 lr + 1e-6 of the CPU's and, at the float32 wire,
+    99.9 % within 1e-5 (99 % at the bfloat16 wire, where an averaged
+    gradient one float32 rounding from a bfloat16 boundary rounds apart)."""
+    payload = {"job": "families", **_dp_families_payload()}
+    lrs = {"sac_host": 3e-4, "sac_per": 3e-4, "droq": 3e-4, "sac_ae": SAC_AE_SGD_LR, "dreamer_v3": 1e-4}
+    want_reductions = {"sac_host": 3 * DP_FAMILY_STEPS, "sac_per": 3 * DP_FAMILY_STEPS, "droq": DP_FAMILY_STEPS + 2,
+                       "sac_ae": 2 * DP_FAMILY_STEPS + 2, "dreamer_v3": 3}
+    # the card's ranks and the CPU's at once, each pair its own group
+    on, errors = {}, []
+
+    def spawn(dev: str) -> None:
+        try:
+            on[dev] = _spawn_dp_ranks(dev, payload, timeout=600.0)
+        except BaseException as e:  # re-raised below, once both pairs have ended
+            errors.append(e)
+
+    threads = [threading.Thread(target=spawn, args=(dev,), daemon=True) for dev in dict.fromkeys((card, "cpu"))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    out = {}
+    for wire in DP_WIRES:
+        for family in DP_FAMILIES:
+            key = (wire, family)
+            for dev, ranks in on.items():
+                a, b = ranks[0][key], ranks[1][key]
+                if a["digest"] != b["digest"] or a.get("ring_digest") != b.get("ring_digest"):
+                    raise AssertionError(f"phase 74 {family} at the {wire} wire: the {dev} ranks differ")
+                want = DP_FAMILY_LAUNCHES.get(family, {}) if dev == "cuda" else {}
+                for r in (a, b):
+                    if r["launches"] != want or r["reductions"] != want_reductions[family]:
+                        raise AssertionError(f"phase 74 {family} at the {wire} wire on {dev}: launches "
+                                             f"{r['launches']} (want {want}), reductions {r['reductions']}")
+            got, ref = on[card][0][key], on["cpu"][0][key]
+            if not np.isfinite(got["losses"]).all():
+                raise AssertionError(f"phase 74 {family}: non-finite losses on the card at the {wire} wire")
+            rtol = 1e-5 if family.startswith("sac_") and family != "sac_ae" and wire == "float32" else 1e-4
+            np.testing.assert_allclose(got["losses"], ref["losses"], rtol=rtol, atol=1e-6,
+                                       err_msg=f"phase 74 {family} losses at the {wire} wire, card against CPU")
+            diffs = np.concatenate([np.abs(got["params"][k] - ref["params"][k]).ravel() for k in ref["params"]])
+            share = float((diffs <= 1e-5).mean())
+            if diffs.max() > 2 * lrs[family] + 1e-6 or share < (0.999 if wire == "float32" else 0.99):
+                raise AssertionError(f"phase 74 {family} at the {wire} wire: parameters card against CPU max "
+                                     f"{diffs.max()}, {share:.6f} within 1e-5")
+            out[f"{family}_{wire}"] = {
+                "loss_max_rel_err": float(np.max(np.abs(got["losses"] - ref["losses"]) / np.maximum(np.abs(ref["losses"]), 1e-12))),
+                "param_max_abs_err": float(diffs.max()), "param_share_within_1e-5": share,
+                "launches_per_rank": got["launches"], "reductions": got["reductions"],
+                "card_ms": got["seconds"] * 1e3, "cpu_ms": ref["seconds"] * 1e3, "ranks_bit_equal": True}
+    log("data-parallel off-policy and DreamerV3 calls (2 gloo ranks, card against CPU): " + json.dumps(out))
+    return out
+
+
+def _offpolicy_pod_checks(tag: str, run: dict, card: str, want_fn) -> None:
+    """Both workers ended with bit-equal parameters (and replicated rings),
+    each with the kernel launches ``want_fn(worker)`` gives it exactly."""
+    ranks = run["ranks"]
+    if [r["rank"] for r in ranks] != list(range(POD_WORKERS)):
+        raise AssertionError(f"pod run '{tag}': POD_WORKER lines of ranks {[r['rank'] for r in ranks]}")
+    if len({r["param_digest"] for r in ranks}) != 1 or len({r.get("replay_digest") for r in ranks}) != 1:
+        raise AssertionError(f"pod run '{tag}': the ranks differ: {[(r['param_digest'], r.get('replay_digest')) for r in ranks]}")
+    for r in ranks:
+        want = {k: v for k, v in want_fn(r).items() if v} if card == "cuda" else {}
+        if r["launches"] != want:
+            raise AssertionError(f"pod run '{tag}' rank {r['rank']}: launches {r['launches']} (want {want})")
+
+
+def _sac_pod_launches(worker: dict) -> dict:
+    return {"sumtree_sample": worker["gradient_steps"]}
+
+
+def pod_sac_run_phase(workdir: str, card: str = "cuda") -> dict:
+    """Phase 75: ``run --pod 2 preset=sac_per algo.hybrid_player.enabled=false``
+    for POD_SAC_STEPS env steps a worker (each worker its own 4 envs, the
+    replicated ring of the group's 8 columns on the card in each): exit 0;
+    each worker's ``sumtree_sample`` launches equal its granted gradient
+    steps, no other kernel; the workers' parameters and rings (storage,
+    tree, ``max_p``) bit-equal. Reported: env steps/s of the pod (a worker's
+    steps over its loop's seconds, both workers' over the launcher's wall)
+    beside phase 13's one process, the card's memory and each worker's
+    peak reserved (beside phase 13's one process in the script's log)."""
+    run = _pod_cli(workdir, "pod_sac", [f"preset={SAC_PRESET}", COUPLED, f"algo.total_steps={POD_SAC_STEPS}",
+                                        "metric.log_level=0", "checkpoint.every=0", "checkpoint.save_last=false",
+                                        f"fabric.accelerator={card}"])
+    s, ranks = run["summary"], run["ranks"]
+    if not s["finished"] or s["pod_restarts"] or s["kills"] or s["hangs"] or s["error"]:
+        raise AssertionError(f"the SAC-PER pod run did not finish clean: {s}")
+    _offpolicy_pod_checks("pod_sac", run, card, _sac_pod_launches)
+    for r in ranks:
+        if r["policy_steps"] != POD_SAC_STEPS or not r["gradient_steps"] or r["replay_digest"] is None:
+            raise AssertionError(f"SAC-PER pod worker {r['rank']}: {r}")
+    out = {"policy_steps_per_worker": POD_SAC_STEPS, "gradient_steps": [r["gradient_steps"] for r in ranks],
+           "wall_s": run["wall_s"], "env_steps_per_s": [r["env_steps_per_s"] for r in ranks],
+           "wall_env_steps_per_s": POD_WORKERS * POD_SAC_STEPS / run["wall_s"],
+           "loop_s": [r["rollout_s"] + r["update_s"] for r in ranks],
+           "launches_per_worker": [r["launches"] for r in ranks], "reductions_per_worker": [r["reductions"] for r in ranks],
+           "param_digest": ranks[0]["param_digest"], "replay_digest": ranks[0]["replay_digest"],
+           "cuda_max_reserved_mb": [r["cuda_max_reserved_mb"] for r in ranks],
+           "gpu_memory_used_peak": max(run["memory"], default=None, key=lambda m: int(m.split()[0]))}
+    log("SAC-PER pod (2 workers): " + json.dumps(out))
+    return out
+
+
+def _rssm_pod_launches(worker: dict) -> dict:
+    g = worker["gradient_steps"]
+    return {"gru_gates": g * 79 + worker["player_steps"] + (worker["test_steps"] or 0), "two_hot_symlog_loss_lse": 3 * g,
+            "two_hot_symlog_loss_lse_bwd": 3 * g, "two_hot_symexp_decode": 3 * g,
+            "ragged_ring_scatter": (worker.get("replay") or {}).get("Replay/flushes", 0)}
+
+
+def pod_rssm_phase(workdir: str, card: str = "cuda") -> dict:
+    """Phase 76: ``run --pod 2`` on ``dreamer_v3_100k_atari_dummy_resident``
+    (each worker's per-env-head ring of its own env on the card, its 8
+    windows a step of the global 16) with ``learning_starts``
+    POD_RSSM_LEARNING_STARTS for POD_RSSM_STEPS steps: exit 0; each worker's
+    launches exactly ``gru_gates`` = 79 a gradient step + its player steps +
+    rank 0's test episode, 3 of each two-hot kernel a gradient step, one
+    ``ragged_ring_scatter`` a flush; the workers bit-equal. Then
+    ``dry_run=True`` pods of SAC (host tier), the dropout-Q ensemble, the
+    pixel SAC and DreamerV3's host tier, all at once: each exits 0 with
+    bit-equal workers."""
+    run = _pod_cli(workdir, "pod_rssm", [
+        "preset=dreamer_v3_100k_atari_dummy_resident", COUPLED, f"algo.learning_starts={POD_RSSM_LEARNING_STARTS}",
+        f"algo.total_steps={POD_RSSM_STEPS}", "metric.log_level=0", "checkpoint.every=0", "checkpoint.save_last=false",
+        f"fabric.accelerator={card}"])
+    s, ranks = run["summary"], run["ranks"]
+    if not s["finished"] or s["pod_restarts"] or s["error"] or not all(r["gradient_steps"] for r in ranks):
+        raise AssertionError(f"the resident DreamerV3 pod run: {s}, workers {ranks}")
+    _offpolicy_pod_checks("pod_rssm", run, card, _rssm_pod_launches)
+    out = {"resident": {"wall_s": run["wall_s"], "gradient_steps": [r["gradient_steps"] for r in ranks],
+                        "launches_per_worker": [r["launches"] for r in ranks],
+                        "reductions_per_worker": [r["reductions"] for r in ranks],
+                        "cuda_max_reserved_mb": [r["cuda_max_reserved_mb"] for r in ranks],
+                        "param_digest": ranks[0]["param_digest"]}}
+    dry = POD_DRY_RUNS
+    results, errors = {}, []
+
+    def one(name: str) -> None:
+        try:
+            results[name] = _pod_cli(workdir, f"dry_{name}", dry[name] + [
+                "dry_run=True", "metric.log_level=0", "algo.run_test=False", "buffer.memmap=False",
+                f"fabric.accelerator={card}"])
+        except BaseException as e:  # re-raised below, after every pod has ended
+            errors.append(f"{name}: {e}")
+
+    threads = [threading.Thread(target=one, args=(name,), daemon=True) for name in dry]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise AssertionError("phase 76's dry-run pods: " + " | ".join(errors))
+    for name, r in results.items():
+        _offpolicy_pod_checks(f"dry_{name}", r, card, lambda w: DP_DRY_LAUNCHES.get(name, lambda _w: {})(w))
+        out[f"dry_run_{name}"] = {"wall_s": r["wall_s"], "gradient_steps": [w["gradient_steps"] for w in r["ranks"]],
+                                  "launches_per_worker": [w["launches"] for w in r["ranks"]],
+                                  "param_digest": r["ranks"][0]["param_digest"]}
+    log("DreamerV3 and off-policy pods: " + json.dumps(out))
+    return out
+
+
+#: phase 76's dry-run pods, at the presets' widths
+POD_DRY_RUNS = {"sac": ["preset=sac", COUPLED], "droq": ["preset=droq"], "sac_ae": ["preset=sac_ae"],
+                "dreamer_v3": ["preset=dreamer_v3_100k_atari_dummy", COUPLED, "algo.per_rank_sequence_length=1"]}
+#: the dry-run pods' launches in each worker: DreamerV3's host tier at T 1 (1 + 15 GRU steps a gradient step)
+DP_DRY_LAUNCHES = {
+    "dreamer_v3": lambda w: {"gru_gates": w["gradient_steps"] * 16 + w["player_steps"],
+                             "two_hot_symlog_loss_lse": 3 * w["gradient_steps"],
+                             "two_hot_symlog_loss_lse_bwd": 3 * w["gradient_steps"],
+                             "two_hot_symexp_decode": 3 * w["gradient_steps"]},
+}
+
+
+def _sac_drill_recipe(card: str) -> list:
+    return [f"preset={SAC_PRESET}", COUPLED, "metric.log_level=0", "algo.run_test=False",
+            f"algo.total_steps={POD_SAC_DRILL_STEPS}", "checkpoint.every=256", "fabric.pod.backoff=0.1",
+            "fabric.pod.tick_s=0.05", f"fabric.accelerator={card}"]
+
+
+def _sac_final_counters(log_root: Path) -> dict:
+    from sheeprl_tpu_torch.fault.manager import find_latest_run_checkpoint, load_resume_state
+
+    ckpt = find_latest_run_checkpoint(log_root / POD_SAC_ROOT)
+    if ckpt is None:
+        raise AssertionError(f"no complete checkpoint under {log_root}")
+    state = load_resume_state(ckpt)
+    rb = state["rb"]
+    return {"iter_num": int(state["iter_num"]), "last_checkpoint": int(state["last_checkpoint"]),
+            "ring_envs": int(rb["meta"]["n_envs"]), "ring_has_tree": "tree" in rb["arrays"]}
+
+
+def pod_sac_drill_phase(workdir: str, card: str = "cuda") -> dict:
+    """Phase 77: ``kill-host`` on the SAC-PER pod. A fault-free twin of
+    POD_SAC_DRILL_STEPS steps a worker (a checkpoint every 256, rank 0's,
+    the replicated ring and its tree in it), then the same run with a worker
+    SIGKILLed at the POD_SAC_KILL_AT-th step advance: the gang restarts on a
+    fresh port from the newest complete checkpoint (fences monotone, above
+    0), every resumed worker loads the ring and tree, the workers end
+    bit-equal with ``sumtree_sample`` once a gradient step, and the run ends
+    on the twin's counters (iterations, the last checkpoint's step; the
+    gradient steps differ by JAX's resume rule, the restored ``Ratio``
+    catching up). Reported: the MTTR."""
+    twin = _pod_cli(workdir, "sac_twin", _sac_drill_recipe(card))
+    _offpolicy_pod_checks("sac_twin", twin, card, _sac_pod_launches)
+    counters = _sac_final_counters(twin["log_root"])
+    want = {"iter_num": POD_SAC_DRILL_STEPS // 4, "last_checkpoint": POD_SAC_DRILL_STEPS,
+            "ring_envs": 4 * POD_WORKERS, "ring_has_tree": True}
+    if counters != want:
+        raise AssertionError(f"the SAC-PER twin ended on {counters}, not {want}")
+    run = _pod_cli(workdir, "sac_kill", _sac_drill_recipe(card) + [
+        "fault.chaos.enabled=True", f"fault.chaos.events=[train.pod.step:kill-host:{POD_SAC_KILL_AT}]"])
+    s = run["summary"]
+    if "pod: chaos kill-host" not in run["text"] or not s["finished"] or s["error"] or s["pod_restarts"] < 1:
+        raise AssertionError(f"the SAC-PER kill-host drill: {s}")
+    if s["kills"] < 1 or s["hangs"] or s["fences"] != sorted(s["fences"]) or s["fences"][-1] <= 0:
+        raise AssertionError(f"the SAC-PER kill-host drill: kills {s['kills']}, hangs {s['hangs']}, fences {s['fences']}")
+    _offpolicy_pod_checks("sac_kill", run, card, _sac_pod_launches)
+    if _sac_final_counters(run["log_root"]) != want:
+        raise AssertionError(f"the SAC-PER kill drill ended on {_sac_final_counters(run['log_root'])}, not {want}")
+    out = {"twin": {"wall_s": twin["wall_s"], "counters": counters,
+                    "gradient_steps": [r["gradient_steps"] for r in twin["ranks"]],
+                    "launches_per_worker": [r["launches"] for r in twin["ranks"]]},
+           "kill": {"summary": {k: s[k] for k in ("generation", "pod_restarts", "fences", "kills", "hangs", "deaths")},
+                    "mttr_s": [r["mttr_s"] for r in s["restarts"]], "wall_s": run["wall_s"],
+                    "gradient_steps": [r["gradient_steps"] for r in run["ranks"]],
+                    "launches_per_worker": [r["launches"] for r in run["ranks"]]}}
+    log("SAC-PER pod kill-host drill: " + json.dumps(out))
+    return out
+
+
 # -- lanes -------------------------------------------------------------------
 #
 # After the kernel phases (1-3, 11, 14, 21), which the main process runs
@@ -10731,6 +11223,21 @@ def _lane_pod_hang(timed) -> dict:
         return {"pod_hang_drills": timed("pod_hang_drills", pod_hang_drills_phase, workdir)}
 
 
+def _lane_dp_families(timed) -> dict:
+    return {"dp_families": timed("dp_families", dp_families_phase)}
+
+
+def _lane_pod_sac(timed) -> dict:
+    with tempfile.TemporaryDirectory() as workdir:
+        return {"pod_sac_run": timed("pod_sac_run", pod_sac_run_phase, workdir),
+                "pod_sac_drill": timed("pod_sac_drill", pod_sac_drill_phase, workdir)}
+
+
+def _lane_pod_rssm(timed) -> dict:
+    with tempfile.TemporaryDirectory() as workdir:
+        return {"pod_rssm": timed("pod_rssm", pod_rssm_phase, workdir)}
+
+
 def _lane_fleet(timed) -> dict:
     reference = json.loads((_keep_dir("rssm") / "reference.json").read_text())
     with tempfile.TemporaryDirectory() as workdir:
@@ -10752,10 +11259,12 @@ def _lane_flywheel(timed) -> dict:
 #: the data-parallel update (71, two card and two CPU rank processes, ~40 s
 #: alone) at the end of the fifth lane, the pod's run (72, ~70 s alone) at the
 #: end of the families lane and the hang and SIGTERM drills (73's second half,
-#: ~90 s alone) at the end of the SAC lane, the three shortest
+#: ~90 s alone) at the end of the SAC lane, the three shortest; the off-policy
+#: and DreamerV3 data-parallel calls (74, two card and two CPU rank processes)
+#: at the end of the Anakin lane
 LANES = {
     "sac": (_lane_sac, _lane_classic, _lane_bf16, _lane_async_sac, _lane_pod_hang),
-    "anakin": (_lane_anakin, _lane_onpolicy, _lane_async_ppo),
+    "anakin": (_lane_anakin, _lane_onpolicy, _lane_async_ppo, _lane_dp_families),
     "ppo_rssm": (_lane_ppo, _lane_rssm, _lane_resident, _lane_explore, _lane_pipeline, _lane_population),
     "families": (_lane_runtime, _lane_continuous, _lane_offpolicy, _lane_v2, _lane_v1, _lane_pod),
     "sebulba_rssm": (_lane_sebulba_rssm, _lane_hybrid, _lane_hybrid_v2, _lane_hybrid_families, _lane_dp_update),
@@ -10769,13 +11278,16 @@ LANES = {
 #: own, the replicas and the learner as processes of their own beside them;
 #: the pod's twin and kill drill (73's first half, ~85 s alone) in a third,
 #: its workers processes of their own (with four tail lanes on the 8 cores
-#: the flywheel's took 214 s against its ~100 s)
+#: the flywheel's took 214 s against its ~100 s), the resident DreamerV3 and
+#: dry-run pods (76) after it; the SAC-PER pod (75) and its kill drill (77) in
+#: a fourth, their workers' work on the card
 TAIL_LANES = {
     "fleet": (_lane_fleet,),
     "flywheel": (_lane_flywheel,),
-    "pod_kill": (_lane_pod_kill,),
+    "pod_kill": (_lane_pod_kill, _lane_pod_rssm),
+    "pod_sac": (_lane_pod_sac,),
 }
-LANE_THREADS = {"sebulba_rssm": 1, "fleet": 1, "pod_kill": 1}
+LANE_THREADS = {"sebulba_rssm": 1, "fleet": 1, "pod_kill": 1, "pod_sac": 1}
 _LANE_TAG = ""
 
 
@@ -11131,6 +11643,28 @@ def run_all() -> list:
                                                                       for w in drills[tag]["launches_per_worker"]]}
     for rank, w in enumerate(pod_run["launches_per_worker"]):
         gae_row["launches_by_path"][f"ppo_pod_rank_{rank}"] = w["gae"]
+    # the off-policy and DreamerV3 pods (74-77): launches counted in each rank's or worker's own process
+    fam = R["dp_families"]
+    sumtree_row["paths"]["dp_families_sac_per"] = {"launches_per_rank": fam["sac_per_float32"]["launches_per_rank"],
+                                                   "gradient_steps": DP_FAMILY_STEPS}
+    for name, path in (("sac_pod", R["pod_sac_run"]), ("sac_pod_twin", R["pod_sac_drill"]["twin"]),
+                       ("sac_pod_kill", R["pod_sac_drill"]["kill"])):
+        sumtree_row["paths"][name] = {"launches_per_worker": [w.get("sumtree_sample", 0) for w in path.get(
+            "launches_per_worker", [])], "gradient_steps": path["gradient_steps"]}
+    rssm_pod = R["pod_rssm"]["resident"]
+    for row in [gru] + two_hot + [scatter_row]:
+        row.setdefault("paths", {})["rssm_pod"] = {
+            "launches_per_worker": [w.get(row["name"], 0) for w in rssm_pod["launches_per_worker"]],
+            "gradient_steps": rssm_pod["gradient_steps"]}
+        if row["name"] in DP_FAMILY_LAUNCHES["dreamer_v3"]:
+            row["paths"]["dp_families_rssm"] = {"launches_per_rank": fam["dreamer_v3_float32"]["launches_per_rank"][
+                row["name"]], "gradient_steps": 1}
+    log("SAC-PER pod against one process: " + json.dumps({
+        "pod_env_steps_per_s": R["pod_sac_run"]["env_steps_per_s"],
+        "pod_wall_env_steps_per_s": R["pod_sac_run"]["wall_env_steps_per_s"], "pod_wall_s": R["pod_sac_run"]["wall_s"],
+        "one_process_env_steps_per_s": sac_run.get("env_steps_per_s"),
+        "one_process_wall_s": sac_run.get("wall_s"), "one_process_policy_steps": sac_run.get("policy_steps"),
+        "mttr_s": R["pod_sac_drill"]["kill"]["mttr_s"]}))
     log("pod against one process: " + json.dumps({
         "pod_env_steps_per_s": pod_run["env_steps_per_s"], "pod_wall_env_steps_per_s": pod_run["wall_env_steps_per_s"],
         "pod_wall_s": pod_run["wall_s"], "one_process_env_steps_per_s": ppo_run["env_steps_per_s"],

@@ -226,7 +226,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             if memmap:  # the JAX loop allocates these keys in the memmapped buffer too
                 step_data["returns"] = np.zeros_like(step_data["rewards"])
                 step_data["advantages"] = np.zeros_like(step_data["rewards"])
-            rb.add(step_data)
+            rb.add(step_data, validate_args=cfg.buffer.get("validate_args", False))
 
             next_obs = {k: np.asarray(obs[k]) for k in obs_keys}
             for k in obs_keys:

@@ -570,7 +570,7 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
     if with_is_first:
         step_data["is_first"] = np.ones((1, num_envs, 1), dtype=np.float32)
     if host_mirror:
-        rb.add(step_data)
+        rb.add(step_data, validate_args=cfg.buffer.get("validate_args", False))
     if hybrid:
         hp.stage_step(step_data)
     act_player.init_states()
@@ -646,7 +646,7 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
         rewards = np.asarray(rewards, dtype=np.float32).reshape(1, num_envs, -1)
         step_data["rewards"] = np.tanh(rewards) if clip_rewards else rewards
         if host_mirror:
-            rb.add(step_data)
+            rb.add(step_data, validate_args=cfg.buffer.get("validate_args", False))
         if hybrid:
             hp.stage_step(step_data)
 
@@ -661,7 +661,7 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
             if with_is_first:
                 reset_data["is_first"] = np.ones((1, n, 1), dtype=np.float32)
             if host_mirror:
-                rb.add(reset_data, dones_idxes)
+                rb.add(reset_data, dones_idxes, validate_args=cfg.buffer.get("validate_args", False))
             if hybrid:
                 hp.stage_reset(reset_data, dones_idxes)
             step_data["terminated"][:, dones_idxes] = 0.0

@@ -39,8 +39,26 @@ host read), and the EMA cadence counts only the steps taken. The
 with the metrics once per train call. The resident tier stays unguarded, as
 in the JAX package.
 
+Under ``run --pod N`` (a ``torch.distributed`` group of N processes, one
+device each) every rank steps its own envs and counts its own policy steps,
+as the JAX loop counts one process's envs, and trains on
+``per_rank_batch_size // N`` windows of its own host buffer or ring (a
+batch that N does not divide raises JAX's ``ValueError``). The world-model,
+actor and critic gradients are mean-reduced before their clipped steps, the
+guard's verdict is the group's (it rides the critic's reduction), the
+``Moments`` percentiles are taken over every rank's lambda-returns
+(:func:`~sheeprl_tpu_torch.algos.dreamer_v3.utils.moments_update`) and the
+metrics are the group's means. The ring's sampling gate is the group's. The
+generators (the player's and the step noise's, the host buffer's and the
+ring's) are re-seeded at the run's start, fresh or resumed, from (seed,
+rank, start iteration) (``parallel/fabric.py:rank_seed``), where JAX folds
+the rank into its key; at one process nothing is re-seeded. Rank 0 alone
+logs, writes the config, runs the test episode and checkpoints, its replay
+included; every rank resumes from that checkpoint. The hybrid player does
+not run under a group (the CLI refuses it).
+
 The run writes into its own directory (``utils.logger.get_log_dir``); the
-host tier's per-env buffers are memmapped under its ``memmap_buffer/rank_0``
+host tier's per-env buffers are memmapped under its ``memmap_buffer/rank_<r>``
 with ``buffer.memmap`` (the default). At ``metric.log_level`` 1 the JAX
 loop's metrics go to ``metrics.jsonl`` every ``metric.log_every`` policy
 steps: ``Rewards/rew_avg``, ``Game/ep_len_avg``, the ``Loss/*`` and
@@ -71,6 +89,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     sample_stochastic,
 )
 from sheeprl_tpu_torch.algos.dreamer_v3.evaluate import DreamerV3Agent, posterior_step
+from sheeprl_tpu_torch.algos.ppo.ppo import last10, param_digest
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
     compute_lambda_values,
@@ -95,6 +114,15 @@ from sheeprl_tpu_torch.envs import make_vector_env
 from sheeprl_tpu_torch.fault import CheckpointManager, DivergenceSentinel, load_resume_state
 from sheeprl_tpu_torch.ops.guard import StateGuard, finite_guard, guarded_select
 from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
+from sheeprl_tpu_torch.parallel import pod as pod_runtime
+from sheeprl_tpu_torch.parallel.comm import (
+    all_reduce_mean,
+    barrier,
+    broadcast_flag,
+    pmean_grads,
+    pmean_grads_with_verdict,
+)
+from sheeprl_tpu_torch.parallel.fabric import global_rank, rank_seed, world_size
 from sheeprl_tpu_torch.replay import (
     DeviceReplayState,
     SequenceRingDriver,
@@ -371,14 +399,14 @@ def make_train_step(
             1 - batch["terminated"],
             float(wm_cfg.continue_scale_factor),
         )
-        wm_grads = _grads(rec_loss, wm_params)
+        wm_grads = pmean_grads(_grads(rec_loss, wm_params))
         optimizers["world"].step(wm_grads)
 
         # -- behaviour learning on the updated world model
         moments_state, traj, lambda_values, discount, policy_loss = imagine(
             posts, recs, 1 - batch["terminated"], noise, moments_state
         )
-        actor_grads = _grads(policy_loss, actor_params)
+        actor_grads = pmean_grads(_grads(policy_loss, actor_params))
         optimizers["actor"].step(actor_grads)
 
         # -- critic update, against the target critic after this step's EMA
@@ -389,10 +417,15 @@ def make_train_step(
             (-qv.log_prob(lambda_values) - qv.log_prob(target_values)) * discount[:-1, ..., 0]
         )
         critic_grads = _grads(value_loss, critic_params)
-        optimizers["critic"].step(critic_grads)
         ok = None
         if guard:
-            ok = finite_guard([*wm_grads, *actor_grads, *critic_grads, rec_loss, policy_loss, value_loss])
+            # the group's verdict rides the last reduction (JAX's pmin over dp)
+            critic_grads, ok = pmean_grads_with_verdict(
+                critic_grads, finite_guard([*wm_grads, *actor_grads, *critic_grads, rec_loss, policy_loss, value_loss]))
+        else:
+            critic_grads = pmean_grads(critic_grads)
+        optimizers["critic"].step(critic_grads)
+        if guard:
             state_guard.select(ok)
             keys = list(old_moments)
             moments_state = dict(zip(keys, guarded_select(
@@ -423,7 +456,16 @@ def make_train_step(
             return draw_noise(cfg, seq_len, batch_size, actions_dim, gen, gen.device, continuous)
 
         if not ring.get("decoupled"):
-            return build_burst_train_step(carry_step, ring, noise_fn)
+            burst = build_burst_train_step(carry_step, ring, noise_fn)
+            if world_size() == 1:
+                return burst
+
+            def group_burst(*args, **kwargs):
+                # the granted steps' mean metrics, averaged over the group (JAX's pmean)
+                carry, rb, metrics = burst(*args, **kwargs)
+                return carry, rb, None if metrics is None else all_reduce_mean(metrics)
+
+            return group_burst
         seq_train, ctl_layout = build_seq_train_step(carry_step, ring, noise_fn)
         if not guard:
             return seq_train, ctl_layout
@@ -460,7 +502,8 @@ def make_train_step(
                 skipped += (~ok).to(torch.float32)
             else:
                 cum = cum + 1
-        return moments_state, torch.stack(metrics, dim=0), skipped
+        # each step's metrics averaged over the group (JAX's pmean of the steps' mean)
+        return moments_state, all_reduce_mean(torch.stack(metrics, dim=0)), skipped
 
     return train
 
@@ -538,18 +581,20 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     obs_keys = cnn_keys + mlp_keys
     num_envs = int(cfg.env.num_envs)
     seed = int(cfg.seed)
+    rank, world = global_rank(), world_size()
 
     log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
-    logger = get_logger(cfg, log_dir)
+    logger = get_logger(cfg, log_dir, rank)
     print(f"Log dir: {log_dir}", flush=True)
-    envs = make_vector_env(cfg, seed, restart_on_exception=True)
+    envs = make_vector_env(cfg, seed, restart_on_exception=True, rank=rank)
     cfg["spaces"] = dotdict(envs.spaces)  # what serve reads off the run's config.json
     is_continuous, actions_dim = action_dims(cfg.spaces)
     if is_continuous:
         low = np.asarray(cfg.spaces.actions.low, np.float32)
         high = np.asarray(cfg.spaces.actions.high, np.float32)
     logger.log_hyperparams(cfg)
-    write_run_config(log_dir, plain(cfg))  # the run directory's config.json
+    if rank == 0:
+        write_run_config(log_dir, plain(cfg))  # the run directory's config.json
     aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.get("aggregator"))
 
     world_model, actor, critic, target_critic = build_training_agent(cfg, device, state)
@@ -565,7 +610,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     dry_run = bool(cfg.get("dry_run", False))
     buffer_size = int(cfg.buffer.size) // num_envs if not dry_run else 2
     rb = EnvIndependentReplayBuffer(buffer_size, num_envs, obs_keys, memmap=bool(cfg.buffer.get("memmap", False)),
-                                    memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"),
+                                    memmap_dir=os.path.join(log_dir, "memmap_buffer", f"rank_{rank}"),
                                     memmap_mode=str(cfg.buffer.get("memmap_mode", "r+")))
     rb.seed(seed)
     checkpoint_rb = bool(cfg.buffer.get("checkpoint", False))
@@ -586,6 +631,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     if state is not None:
         ratio.load_state_dict(state["ratio"])
     batch_size = int(cfg.algo.per_rank_batch_size)
+    if batch_size % world != 0:
+        raise ValueError(f"per_rank_batch_size ({batch_size}) must be divisible by the number of devices ({world})")
+    local_batch = batch_size // world  # each rank trains on its share, drawn from its own data
     seq_len = int(cfg.algo.per_rank_sequence_length)
     log_level = int(cfg.metric.get("log_level", 1))
     log_every = int(cfg.metric.get("log_every", 5000))
@@ -618,6 +666,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         resident, reason = resolve_device_resident(
             cfg.buffer.get("device_resident", False), ring_keys, buffer_size, num_envs,
             float(cfg.buffer.get("hbm_budget_gb", 4.0)), sequence={"seq_len": seq_len, "batch_size": batch_size},
+            world=world,
         )
         if log_level > 0 and cfg.buffer.get("device_resident", False):
             print(f"Replay: device_resident={resident} ({reason})", flush=True)
@@ -665,7 +714,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         act_player = Player(host_agent.world_model, host_agent.actor, num_envs, hp.host_generator)
     elif resident:
         driver = SequenceRingDriver(
-            ring_keys, buffer_size, num_envs, seq_len, batch_size,
+            ring_keys, buffer_size, num_envs, seq_len, local_batch,
             grad_chunk=max(1, int(math.ceil(float(cfg.algo.replay_ratio) * num_envs))),
             make_burst_fn=lambda ring: make_train_step(
                 world_model, actor, critic, target_critic, optimizers, cfg, ring=ring
@@ -675,8 +724,16 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     else:
         train_fn = make_train_step(world_model, actor, critic, target_critic, optimizers, cfg, guard=guard)
 
+    if world > 1:
+        # each rank's own draws from here on, whatever checkpoint it resumed
+        # (every rank of a restarted pod reads rank 0's); the buffers keep their rows
+        generator.manual_seed(rank_seed(seed, rank, start_iter))
+        action_rng = np.random.default_rng([seed, rank])
+        rb.seed(rank_seed(seed + 1, rank, start_iter))
+        if resident:
+            driver.generator.manual_seed(rank_seed(seed + 31, rank, start_iter))
     step_data: Dict[str, np.ndarray] = {}
-    obs = envs.reset(seed=seed)[0]
+    obs = envs.reset(seed=seed + rank * num_envs)[0]
     for k in obs_keys:
         step_data[k] = np.asarray(obs[k])[np.newaxis]
     for k in ("rewards", "truncated", "terminated"):
@@ -689,7 +746,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                                "test_reward": None, "test_steps": None, "hybrid": burst, "act_host_s": [],
                                # the ring's heads as a resume mirrored them from the host buffer
                                "ring_restored": ([hp.runner.dev_pos.tolist(), hp.runner.dev_valid.tolist()]
-                                                 if burst and saved_rb is not None else None)}
+                                                 if burst and saved_rb is not None else None),
+                               "rank": rank, "world_size": world, "drained": False, "iterations": 0, "episodes": []}
     # this run's gradient steps: a resumed run starts again at 0, so its first
     # step copies the critic into the target critic, as the JAX loop does
     cum_gradient_steps = 0
@@ -765,7 +823,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             if resident:
                 driver.stage_step(step_data)  # the device ring is the only storage tier
             if host_mirror:
-                rb.add(step_data)
+                rb.add(step_data, validate_args=cfg.buffer.get("validate_args", False))
             if burst:
                 hp.stage_step(step_data)
             next_obs, rewards, terminated, truncated, infos = envs.step(real_actions)
@@ -776,12 +834,15 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         if "restart_on_exception" in infos:
             patch_restarted_envs(infos["restart_on_exception"], dones, step_data,
                                  rb=rb if host_mirror else None, driver=driver if resident else hp)
+        for i, ep_rew, ep_len in infos.get("episodes", ()):
+            summary["episodes"].append((policy_step, i, ep_rew, ep_len))
         if log_level > 0:
             for i, ep_rew, ep_len in infos.get("episodes", ()):
                 if aggregator is not None:
                     aggregator.update("Rewards/rew_avg", ep_rew)
                     aggregator.update("Game/ep_len_avg", ep_len)
-                print(f"policy_step={policy_step}, reward_env_{i}={ep_rew}, length={ep_len}", flush=True)
+                print(f"{f'Rank-{rank}: ' if world > 1 else ''}policy_step={policy_step}, reward_env_{i}={ep_rew}, "
+                      f"length={ep_len}", flush=True)
 
         real_next_obs = {k: np.asarray(next_obs[k]).copy() for k in obs_keys}
         for idx, final in enumerate(infos.get("final_obs", ())):
@@ -809,7 +870,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             if resident:
                 driver.stage_reset(reset_data, dones_idxes)
             if host_mirror:
-                rb.add(reset_data, dones_idxes)
+                rb.add(reset_data, dones_idxes, validate_args=cfg.buffer.get("validate_args", False))
             if burst:
                 hp.stage_reset(reset_data, dones_idxes)
             step_data["rewards"][:, dones_idxes] = 0.0
@@ -850,7 +911,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             if gradient_steps > 0:
                 t0 = time.perf_counter()
                 with timer("Time/replay_path_time", SumMetric):
-                    sample = rb.sample(batch_size, sequence_length=seq_len, n_samples=gradient_steps)
+                    sample = rb.sample(local_batch, sequence_length=seq_len, n_samples=gradient_steps)
                     data = {k: torch.from_numpy(v).to(device).float() for k, v in sample.items()}
                 # the metrics' one read waits for the card: the timer holds the steps' device time
                 with timer("Time/train_time", SumMetric):
@@ -875,14 +936,19 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                             generator.set_state(good["rng"])
 
                     manager.wait()  # the newest save must be published before the rollback looks for it
+                    barrier()  # ... rank 0's, before any rank looks
                     sentinel.recover(ckpt_dir, rollback)
         if not resident and log_level > 0 and (policy_step - last_log >= log_every or iter_num == total_iters):
             log_metrics()
             last_log, last_train = policy_step, train_step
 
+        summary["iterations"] += 1
+        # the pod's heartbeat, and rank 0's drain flag on every rank
+        pod_runtime.beat_step(policy_step)
+        drain_now = broadcast_flag(pod_runtime.drain_requested())
         if (int(cfg.checkpoint.every) > 0 and policy_step - last_checkpoint >= int(cfg.checkpoint.every)) or (
             iter_num == total_iters and cfg.checkpoint.get("save_last", False)
-        ):
+        ) or drain_now:
             last_checkpoint = policy_step
             # with the hybrid player, the trainer's state between two bursts
             # (at most one burst stale, as in the JAX package)
@@ -907,12 +973,17 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 }
                 if burst:
                     ckpt_state["host_rng"] = hp.host_generator.get_state()
-                if checkpoint_rb:
+                if checkpoint_rb and rank == 0:
                     # the ring, its heads and its generator; or the host buffer and its generators
                     ckpt_state["rb"] = (driver.state_dict(live=True).to_dict() if resident
                                         else rb.checkpoint_state_dict())
-                path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
-                summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+                if rank == 0:  # rank 0 alone writes, its buffer included (JAX CheckpointCallback._save)
+                    path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
+                    summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+        if drain_now:
+            print(f"Rank-{rank}: drain requested — checkpointed at policy_step={policy_step}, exiting", flush=True)
+            summary["drained"] = True
+            break
 
     if burst:
         # the tail: grants that can never run (an env still shorter than a window) go with the run
@@ -930,7 +1001,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     read_metrics()
     loop_s = time.perf_counter() - t_loop
     envs.close()
-    if cfg.algo.get("run_test", True):
+    if cfg.algo.get("run_test", True) and rank == 0:
         summary["test_reward"], summary["test_steps"] = test(player.agent, cfg, device, greedy=False)
     logger.close()
     steps = policy_step - (start_iter - 1) * num_envs
@@ -946,6 +1017,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         rollbacks=sentinel.rollbacks,
         checkpoint_timings=manager.timings,
         profiler=profiler.trace_path,
+        last10=last10(summary["episodes"]),
+        param_digest=(param_digest(torch.nn.ModuleList([world_model, actor, critic, target_critic]))
+                      if world > 1 else None),
         **{"Fault/skipped_updates": sentinel.total_skipped, "Fault/env_restarts": envs.env_restarts},
     )
     return summary

@@ -8,6 +8,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.envs import make_env
+from sheeprl_tpu_torch.parallel.comm import all_gather_wire
 
 __all__ = ["AGGREGATOR_KEYS", "prepare_obs", "init_moments", "moments_update", "compute_lambda_values", "test",
            "patch_restarted_envs"]
@@ -67,9 +68,12 @@ def moments_update(
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, torch.Tensor]:
     """EMA of the low and high percentiles of the lambda-returns (linear
     interpolation, as ``jnp.quantile``); returns ``(new_state, offset,
-    invscale)``. One process: the JAX package's gather over devices is the
-    identity here."""
-    x = x.detach().to(torch.float32).reshape(-1)
+    invscale)``. The returns are detached, then gathered from every rank of
+    a data-parallel group on the gradient wire (``all_gather_wire``, as the
+    JAX package gathers over ``dp``: in bfloat16 under a bfloat16 wire), so
+    every rank takes the group's quantiles and no gradient crosses the
+    collective. At one process the gather is the identity."""
+    x = all_gather_wire(x.detach().to(torch.float32)).reshape(-1)
     low = torch.quantile(x, percentile_low)
     high = torch.quantile(x, percentile_high)
     new_low = decay * state["low"] + (1 - decay) * low

@@ -1,5 +1,5 @@
 """DroQ coupled training (counterpart of ``sheeprl_tpu/algos/droq/droq.py``,
-one device, the host replay buffer).
+one device a process, the host replay buffer).
 
 Each iteration, in the JAX package's order: one env step of ``num_envs``
 envs (uniform random actions until ``learning_starts``, then the actor's
@@ -9,6 +9,21 @@ steps on G sampled batches, each the TD update of the dropout ensemble
 against the target ensemble (dropout live in both) followed by the target
 EMA, then ONE actor step and ONE entropy-coefficient step on a separately
 sampled batch. The actor regresses the ensemble's mean Q, not its minimum.
+
+Under ``run --pod N`` (a ``torch.distributed`` group of N processes, one
+device each) every rank steps its own ``env.num_envs`` envs (env ``i`` of
+rank ``r`` seeded ``seed + r * num_envs + i``) and counts its own policy
+steps, as the JAX loop counts one process's envs, so every rank's ``Ratio``
+grants the same steps; each trains on ``per_rank_batch_size // N`` rows of
+its own data (a batch that N does not divide raises JAX's ``ValueError``),
+and the steps mean-reduce their gradients and losses over the group. Its
+draws: the generators are re-seeded at the run's start, fresh or resumed,
+from (seed, rank, start iteration) (``parallel/fabric.py:rank_seed``), where
+JAX folds the rank into its key; at one process nothing is re-seeded. Rank 0
+alone logs, writes the config, runs the test episode and checkpoints, its
+buffer included, as JAX's ``CheckpointCallback._save`` does; every rank
+resumes from that checkpoint. Each iteration beats the pod's heartbeat and
+broadcasts rank 0's drain flag.
 
 Random numbers (the Gaussian noise and the dropout masks) come from an
 explicit ``torch.Generator`` or are passed in (:func:`draw_noise` gives
@@ -28,6 +43,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.algos.droq.agent import DroQAgent, build_agent
+from sheeprl_tpu_torch.algos.ppo.ppo import last10, param_digest
 from sheeprl_tpu_torch.algos.sac.loss import critic_loss, entropy_loss, policy_loss
 from sheeprl_tpu_torch.algos.sac.sac import LOSS_NAMES, RING_KEYS, _to_device, make_optimizers
 from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, test
@@ -35,6 +51,9 @@ from sheeprl_tpu_torch.config import dotdict, plain
 from sheeprl_tpu_torch.data import ReplayBuffer
 from sheeprl_tpu_torch.envs import make_vector_env
 from sheeprl_tpu_torch.fault import CheckpointManager, load_resume_state
+from sheeprl_tpu_torch.parallel import pod as pod_runtime
+from sheeprl_tpu_torch.parallel.comm import all_reduce_mean, broadcast_flag, pmean_grads
+from sheeprl_tpu_torch.parallel.fabric import global_rank, rank_seed, world_size
 from sheeprl_tpu_torch.utils.checkpoint import write_run_config
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric, build_aggregator
@@ -73,7 +92,12 @@ def make_train_step(agent: DroQAgent, optimizers, cfg: Any) -> Callable:
     float32 tensors of :data:`RING_KEYS` on the agent's device; ``noise`` is
     a :func:`draw_noise` dict, else drawn from ``generator``. Returns the
     ``(3,)`` tensor of :data:`LOSS_NAMES`: the critic loss's mean over the G
-    steps, the actor's and the entropy coefficient's loss, on the device."""
+    steps, the actor's and the entropy coefficient's loss, on the device.
+
+    Under a data-parallel group the batches are this rank's share, each
+    critic step's gradients and the actor's and the entropy coefficient's
+    are mean-reduced before their optimizer steps (JAX ``droq.py:68,94,102``),
+    and the three losses are the group's means (``:106-108``)."""
     actor_opt, critic_opt, alpha_opt = optimizers
     actor_params, critic_params = list(agent.actor.parameters()), list(agent.critic.parameters())
     gamma = float(cfg.algo.gamma)
@@ -95,7 +119,7 @@ def make_train_step(agent: DroQAgent, optimizers, cfg: Any) -> Callable:
                                                  gamma, noise["next"][g], masks("target_masks", g))
             q = agent.critic(batch["observations"], batch["actions"], masks("online_masks", g))
             qf_loss = critic_loss(q, td_target)
-            critic_opt.step(torch.autograd.grad(qf_loss, critic_params))
+            critic_opt.step(pmean_grads(torch.autograd.grad(qf_loss, critic_params)))
             agent.ema()  # after every critic step
             qf_total += qf_loss.detach()
 
@@ -104,11 +128,11 @@ def make_train_step(agent: DroQAgent, optimizers, cfg: Any) -> Callable:
         actions, logp = agent.sample_action(obs, noise["actor"])
         mean_q = torch.mean(agent.critic(obs, actions, noise["actor_masks"]), dim=-1, keepdim=True)
         actor_loss = policy_loss(alpha, logp, mean_q)
-        actor_opt.step(torch.autograd.grad(actor_loss, actor_params))
+        actor_opt.step(pmean_grads(torch.autograd.grad(actor_loss, actor_params)))
 
         alpha_loss = entropy_loss(agent.log_alpha, logp.detach(), agent.target_entropy)
-        alpha_opt.step(torch.autograd.grad(alpha_loss, [agent.log_alpha]))
-        return torch.stack([qf_total / G, actor_loss.detach(), alpha_loss.detach()])
+        alpha_opt.step(pmean_grads(torch.autograd.grad(alpha_loss, [agent.log_alpha])))
+        return all_reduce_mean(torch.stack([qf_total / G, actor_loss.detach(), alpha_loss.detach()]))
 
     return train
 
@@ -130,11 +154,12 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     sample_next_obs = bool(cfg.buffer.get("sample_next_obs", False))
     num_envs = int(cfg.env.num_envs)
     seed = int(cfg.seed)
+    rank, world = global_rank(), world_size()
 
     log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
-    logger = get_logger(cfg, log_dir)
+    logger = get_logger(cfg, log_dir, rank)
     print(f"Log dir: {log_dir}", flush=True)
-    envs = make_vector_env(cfg, seed)
+    envs = make_vector_env(cfg, seed, rank=rank)
     cfg["spaces"] = dotdict(envs.spaces)
     action_space = cfg.spaces.actions
     if not action_space.get("continuous", False):
@@ -144,7 +169,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             raise ValueError("Only environments with vector-only observations are supported by the DroQ agent. "
                              f"The observation with key '{k}' has shape {tuple(cfg.spaces.obs[k].shape)}.")
     logger.log_hyperparams(cfg)
-    write_run_config(log_dir, plain(cfg))
+    if rank == 0:
+        write_run_config(log_dir, plain(cfg))
     aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.get("aggregator"))
     obs_dim = int(sum(np.prod(cfg.spaces.obs[k].shape) for k in mlp_keys))
     low, high = np.asarray(action_space.low, np.float32), np.asarray(action_space.high, np.float32)
@@ -160,12 +186,15 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             opt.load_state_dict(state[name])
         algo["per_rank_batch_size"] = int(state["batch_size"])
     batch_size = int(algo.per_rank_batch_size)
+    if batch_size % world != 0:
+        raise ValueError(f"per_rank_batch_size ({batch_size}) must be divisible by the number of devices ({world})")
+    local_batch = batch_size // world  # each rank trains on its share, drawn from its own data
     dry_run = bool(cfg.get("dry_run", False))
     train_fn = make_train_step(agent, optimizers, cfg)
 
     rb = ReplayBuffer(int(cfg.buffer.size) // num_envs if not dry_run else 1, num_envs, ("observations",),
                       memmap=bool(cfg.buffer.get("memmap", False)),
-                      memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"),
+                      memmap_dir=os.path.join(log_dir, "memmap_buffer", f"rank_{rank}"),
                       memmap_mode=str(cfg.buffer.get("memmap_mode", "r+")))
     rb.seed(seed)
     if state is not None and cfg.buffer.checkpoint and state.get("rb") is not None:
@@ -195,11 +224,17 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     ckpt_dir = os.path.join(log_dir, "checkpoint")
     manager = CheckpointManager.from_config(cfg)
 
-    action_rng = np.random.default_rng(seed)
-    obs = envs.reset(seed=seed)[0]
-    summary: Dict[str, Any] = {"start_iter": start_iter, "gradient_steps": 0, "train_calls": 0, "losses": [],
-                               "episodes": [], "train_s": [], "checkpoint": None, "device": str(device),
-                               "test_reward": None, "test_steps": None}
+    action_rng = np.random.default_rng(seed if world == 1 else [seed, rank])
+    if world > 1:
+        # each rank's own draws from here on, whatever checkpoint it resumed
+        # (every rank of a restarted pod reads rank 0's); the buffer keeps its rows
+        generator.manual_seed(rank_seed(seed, rank, start_iter))
+        rb.seed(rank_seed(seed + 1, rank, start_iter))
+    obs = envs.reset(seed=seed + rank * num_envs)[0]
+    summary: Dict[str, Any] = {"start_iter": start_iter, "iterations": 0, "gradient_steps": 0, "train_calls": 0,
+                               "losses": [], "episodes": [], "train_s": [], "checkpoint": None, "device": str(device),
+                               "test_reward": None, "test_steps": None, "rank": rank, "world_size": world,
+                               "drained": False}
     pending: List[torch.Tensor] = []
 
     def read_losses() -> None:
@@ -227,7 +262,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 if aggregator is not None:
                     aggregator.update("Rewards/rew_avg", ep_rew)
                     aggregator.update("Game/ep_len_avg", ep_len)
-                print(f"Rank-0: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
+                print(f"Rank-{rank}: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
 
         step_data = {
             "terminated": np.asarray(terminated, dtype=np.uint8).reshape(1, num_envs, -1),
@@ -243,7 +278,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                     for k in mlp_keys:
                         real_next_obs[k][i] = final[k]
             step_data["next_observations"] = prepare_obs(real_next_obs, mlp_keys, num_envs).numpy()[np.newaxis]
-        rb.add(step_data)
+        rb.add(step_data, validate_args=cfg.buffer.get("validate_args", False))
         obs = next_obs
 
         if iter_num >= learning_starts:
@@ -252,9 +287,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             if granted > 0:
                 t0 = time.perf_counter()
                 with timer("Time/replay_path_time", SumMetric):
-                    critic_data = _to_device(rb.sample(batch_size, granted, sample_next_obs=sample_next_obs), device)
+                    critic_data = _to_device(rb.sample(local_batch, granted, sample_next_obs=sample_next_obs), device)
                     actor_data = {k: v[0] for k, v in _to_device(
-                        rb.sample(batch_size, 1, sample_next_obs=sample_next_obs), device).items()}
+                        rb.sample(local_batch, 1, sample_next_obs=sample_next_obs), device).items()}
                 with timer("Time/train_time", SumMetric):
                     pending.append(train_fn(critic_data, actor_data, generator=generator))
                 summary["train_s"].append(time.perf_counter() - t0)
@@ -273,9 +308,13 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 last_train = train_step
             last_log = policy_step
 
+        summary["iterations"] += 1
+        # the pod's heartbeat, and rank 0's drain flag on every rank
+        pod_runtime.beat_step(policy_step)
+        drain_now = broadcast_flag(pod_runtime.drain_requested())
         if (int(cfg.checkpoint.every) > 0 and policy_step - last_checkpoint >= int(cfg.checkpoint.every)) or (
             iter_num == total_iters and cfg.checkpoint.get("save_last", False)
-        ):
+        ) or drain_now:
             last_checkpoint = policy_step
             ckpt_state = {
                 "agent": agent.state_dict(),
@@ -291,20 +330,27 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 "last_train": last_train,
                 "rng": generator.get_state(),
             }
-            if cfg.buffer.checkpoint:
-                ckpt_state["rb"] = rb.checkpoint_state_dict()
-            path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
-            summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+            if rank == 0:  # rank 0 alone writes, its buffer included (JAX CheckpointCallback._save)
+                if cfg.buffer.checkpoint:
+                    ckpt_state["rb"] = rb.checkpoint_state_dict()
+                path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
+                summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+        if drain_now:
+            print(f"Rank-{rank}: drain requested — checkpointed at policy_step={policy_step}, exiting", flush=True)
+            summary["drained"] = True
+            break
 
     manager.close()
     read_losses()
     loop_s = time.perf_counter() - t_loop
     envs.close()
-    if algo.get("run_test", True):
+    if algo.get("run_test", True) and rank == 0:
         summary["test_reward"], summary["test_steps"] = test(player, cfg, device)
     logger.close()
     steps = policy_step - (start_iter - 1) * num_envs
     summary.update(policy_steps=policy_step, log_dir=log_dir,
-                   loop_steps_per_s=steps / loop_s if loop_s > 0 else None,
+                   loop_steps_per_s=steps / loop_s if loop_s > 0 else None, env_steps_per_s=steps / loop_s if loop_s > 0
+                   else None, last10=last10(summary["episodes"]),
+                   param_digest=param_digest(agent) if world > 1 else None,
                    checkpoint_timings=manager.timings, **{"Fault/env_restarts": envs.env_restarts})
     return summary

@@ -555,7 +555,7 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
                                                                       axis=-1)
             step_data["actions"] = actions.reshape(1, num_envs, -1)
             if host_mirror:
-                rb.add(step_data)
+                rb.add(step_data, validate_args=cfg.buffer.get("validate_args", False))
             if hybrid:
                 hp.stage_step(step_data)
             next_obs, rewards, terminated, truncated, infos = envs.step(real_actions)
@@ -596,7 +596,7 @@ def run_loop(cfg: Any, device: torch.device, state: Optional[Dict[str, Any]], lo
             reset_data["rewards"] = step_data["rewards"][:, dones_idxes]
             reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
             if host_mirror:
-                rb.add(reset_data, dones_idxes)
+                rb.add(reset_data, dones_idxes, validate_args=cfg.buffer.get("validate_args", False))
             if hybrid:
                 hp.stage_reset(reset_data, dones_idxes)
             step_data["rewards"][:, dones_idxes] = 0.0

@@ -162,7 +162,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                             step_data["actions"] = packed[None, :, heads:-2]
                             step_data["logprobs"] = packed[None, :, -2:-1]
                             step_data["rewards"] = rewards.reshape(1, num_envs, -1)
-                            rb.add(step_data)
+                            rb.add(step_data, validate_args=cfg.buffer.get("validate_args", False))
                             next_obs = {k: np.asarray(obs[k]) for k in obs_keys}
                             for k in obs_keys:
                                 step_data[k] = next_obs[k][np.newaxis]

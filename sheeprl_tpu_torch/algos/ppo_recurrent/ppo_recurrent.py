@@ -295,7 +295,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             step_data["prev_hx"] = packed[None, :, off + 2:off + 2 + hidden]
             step_data["prev_cx"] = packed[None, :, off + 2 + hidden:]
             step_data["prev_actions"] = prev_actions.copy()
-            rb.add(step_data)
+            rb.add(step_data, validate_args=cfg.buffer.get("validate_args", False))
 
             prev_actions = ((1 - dones) * actions_np).astype(np.float32)
             next_obs = {k: np.asarray(obs[k]) for k in obs_keys}

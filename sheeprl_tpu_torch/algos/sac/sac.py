@@ -1,5 +1,5 @@
-"""SAC coupled training (counterpart of ``sheeprl_tpu/algos/sac/sac.py``,
-one device).
+"""SAC coupled training (counterpart of ``sheeprl_tpu/algos/sac/sac.py``):
+one device a process, data-parallel over a group of processes.
 
 Each iteration, in the JAX package's order: one env step of ``num_envs``
 envs (uniform random actions until ``learning_starts``, then the actor's
@@ -38,6 +38,21 @@ leaves' priorities and ``max_p`` stay as they were (a select on the device,
 no host read); the loop reads the skipped count once per train call for the
 :class:`~sheeprl_tpu_torch.fault.DivergenceSentinel`.
 
+Under ``run --pod N`` (a ``torch.distributed`` group of N processes, one
+device each) every rank steps its own ``env.num_envs`` envs (env ``i`` of
+rank ``r`` seeded ``seed + r * num_envs + i``) and counts its own policy
+steps, as the JAX loop counts one process's envs, so every rank's ``Ratio``
+grants the same steps; each trains on ``per_rank_batch_size // N`` rows of
+its own data (a batch that N does not divide raises JAX's ``ValueError``),
+and the steps mean-reduce their gradients and losses over the group. Its
+draws: the generators are re-seeded at the run's start, fresh or resumed,
+from (seed, rank, start iteration) (``parallel/fabric.py:rank_seed``), where
+JAX folds the rank into its key; at one process nothing is re-seeded. Rank 0
+alone logs, writes the config, runs the test episode and checkpoints, its
+buffer included, as JAX's ``CheckpointCallback._save`` does; every rank
+resumes from that checkpoint. Each iteration beats the pod's heartbeat and
+broadcasts rank 0's drain flag.
+
 The run writes into its own directory (``utils.logger.get_log_dir``) and, at
 ``metric.log_level`` 1, the JAX loop's metrics into ``metrics.jsonl`` every
 ``metric.log_every`` policy steps: ``Rewards/rew_avg``, ``Game/ep_len_avg``,
@@ -61,6 +76,7 @@ import torch
 
 from sheeprl_tpu_torch.algos.sac.agent import SACAgent, SACPlayer, build_agent
 from sheeprl_tpu_torch.algos.sac.loss import critic_loss, entropy_loss, policy_loss
+from sheeprl_tpu_torch.algos.ppo.ppo import last10, param_digest
 from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, test
 from sheeprl_tpu_torch.config import dotdict, plain
 from sheeprl_tpu_torch.data import ReplayBuffer
@@ -70,6 +86,18 @@ from sheeprl_tpu_torch.fault import CheckpointManager, DivergenceSentinel, load_
 from sheeprl_tpu_torch.ops.guard import StateGuard, finite_guard
 from sheeprl_tpu_torch.ops.kernels import sumtree_sample
 from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
+from sheeprl_tpu_torch.parallel import pod as pod_runtime
+from sheeprl_tpu_torch.parallel.comm import (
+    all_gather_exact,
+    all_gather_rows,
+    all_reduce_max,
+    all_reduce_mean,
+    barrier,
+    broadcast_flag,
+    pmean_grads,
+    pmean_grads_with_verdict,
+)
+from sheeprl_tpu_torch.parallel.fabric import global_rank, rank_seed, world_size
 from sheeprl_tpu_torch.utils.burst import HostCopies, HostSnapshot, TrainerThread, TrainStateCopy
 from sheeprl_tpu_torch.utils.checkpoint import write_run_config
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
@@ -121,7 +149,13 @@ def _gradient_step(agent: SACAgent, optimizers: Optimizers, gamma: float,
     0-dim verdict over the three updates' losses and gradients, and where it
     is False the step has put the agent and the optimizers' states back as
     the last ``snapshot()`` or step left them; else ``ok`` is None and
-    ``snapshot`` does nothing."""
+    ``snapshot`` does nothing.
+
+    Under a data-parallel group the critic's, the actor's and the entropy
+    coefficient's gradients are each mean-reduced before their optimizer
+    step, in JAX's order (the last the reference's explicit α all-reduce),
+    and the guard's verdict is the group's, carried by the last reduction,
+    so every rank takes the same branch. At one process nothing changes."""
     actor_opt, critic_opt, alpha_opt = optimizers
     actor_params, critic_params = list(agent.actor.parameters()), list(agent.critic.parameters())
     every_param = list(agent.parameters())  # actor, critic, target critic, log_alpha
@@ -137,7 +171,7 @@ def _gradient_step(agent: SACAgent, optimizers: Optimizers, gamma: float,
         )
         q = agent.q_values(obs, batch["actions"])
         qf_loss = critic_loss(q, td_target, weights)
-        cgrads = torch.autograd.grad(qf_loss, critic_params)
+        cgrads = pmean_grads(torch.autograd.grad(qf_loss, critic_params))
         critic_opt.step(cgrads)
         if ema:
             agent.ema()
@@ -146,15 +180,20 @@ def _gradient_step(agent: SACAgent, optimizers: Optimizers, gamma: float,
         actions, logp = agent.sample_action(obs, noise_actor)
         min_q = torch.min(agent.q_values(obs, actions), dim=-1, keepdim=True).values
         actor_loss = policy_loss(alpha, logp, min_q)
-        agrads = torch.autograd.grad(actor_loss, actor_params)
+        agrads = pmean_grads(torch.autograd.grad(actor_loss, actor_params))
         actor_opt.step(agrads)
 
         alpha_loss = entropy_loss(agent.log_alpha, logp.detach(), agent.target_entropy)
         lgrads = torch.autograd.grad(alpha_loss, [agent.log_alpha])
-        alpha_opt.step(lgrads)
         ok = None
         if guard:
-            ok = finite_guard([*cgrads, *agrads, *lgrads, qf_loss, actor_loss, alpha_loss])
+            # the group's verdict rides the last reduction (JAX's pmin over dp)
+            lgrads, ok = pmean_grads_with_verdict(
+                lgrads, finite_guard([*cgrads, *agrads, *lgrads, qf_loss, actor_loss, alpha_loss]))
+        else:
+            lgrads = pmean_grads(lgrads)
+        alpha_opt.step(lgrads)
+        if guard:
             state_guard.select(ok)
         return torch.stack([qf_loss, actor_loss, alpha_loss]).detach(), q.detach(), td_target, ok
 
@@ -174,7 +213,9 @@ def make_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, guard: bo
     act_dim)`` standard normal, else drawn from ``generator``. ``ema`` is the
     JAX ``ema_flag`` of the iteration. Returns the ``(3,)`` mean of
     :data:`LOSS_NAMES` over the G steps and ``skipped``, the 0-dim count of
-    steps the guard undid (0 unguarded), both left on the device."""
+    steps the guard undid (0 unguarded), both left on the device. Under a
+    data-parallel group ``data`` is this rank's share of the batch, and the
+    losses are the group's means (one all-reduce a call)."""
     step, snapshot = _gradient_step(agent, optimizers, float(cfg.algo.gamma), guard)
 
     def train(data: Dict[str, torch.Tensor], ema: bool, noise: Optional[Dict[str, torch.Tensor]] = None,
@@ -191,7 +232,7 @@ def make_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, guard: bo
                                     bool(ema))
             total += losses
             _count_skipped(skipped, ok)
-        return total / G, skipped
+        return all_reduce_mean(total / G), skipped
 
     return train
 
@@ -226,9 +267,20 @@ def make_resident_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, 
 
     ``guard=True`` (JAX ``guard=True``): a step the guard undoes also leaves
     the drawn leaves' priorities and ``max_p`` as they were (the old leaf is
-    written back, so the next draw sees the tree JAX restores)."""
+    written back, so the next draw sees the tree JAX restores).
+
+    Under a data-parallel group each rank draws ``per_rank_batch_size //
+    world`` rows a step. A uniform ring holds the rank's own env columns
+    (JAX's env-sharded ring, one device a process). A prioritized ring is
+    replicated (the loop appends every rank's rows in rank order): each rank
+    draws from the common tree, normalises the weights by the group's
+    largest, and after the step every rank applies all ranks' leaves and
+    priorities in rank order and the group's ``max_p``, so the rings, trees
+    and ``max_p`` stay bit-equal (JAX ``sac.py:418,472-478``). The losses are
+    the group's means."""
     step, snapshot = _gradient_step(agent, optimizers, float(cfg.algo.gamma), guard)
-    batch_size = int(cfg.algo.per_rank_batch_size)
+    world = world_size()
+    batch_size = int(cfg.algo.per_rank_batch_size) // world  # this rank's share
     n_envs = drb.n_envs
     flat = {k: v.view(drb.capacity * n_envs, *v.shape[2:]) for k, v in drb.storage.items()}
 
@@ -256,7 +308,8 @@ def make_resident_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, 
             weights = None
             if drb.prioritized:
                 leaf, weights = sumtree_sample(drb.tree, draws["u"][g], valid * n_envs, beta)
-                weights = weights / torch.clamp(weights.max(), min=1e-12)
+                # normalised by the group's largest weight (JAX's pmax over dp)
+                weights = weights / torch.clamp(all_reduce_max(weights.max()), min=1e-12)
                 rows = leaf.to(torch.int64)  # leaves are (row, env) row-major
             else:
                 rows = draws["pos"][g] * n_envs + draws["env"][g]
@@ -264,6 +317,9 @@ def make_resident_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, 
             losses, q, td_target, ok = step(batch, weights, draws["next"][g], draws["actor"][g], bool(flag))
             if drb.prioritized:
                 priority = torch.pow(torch.mean(torch.abs(q - td_target), dim=-1) + drb.per_eps, drb.per_alpha)
+                # the tree is replicated: every rank applies every rank's
+                # (leaf, priority) pairs in rank order, exactly (no wire dtype)
+                rows, priority = all_gather_exact(rows, priority)
                 if ok is not None:
                     # a skipped step writes the drawn leaves' old priorities back; a
                     # leaf never exceeds max_p (new rows enter at max_p), so max_p
@@ -273,7 +329,7 @@ def make_resident_train_step(agent: SACAgent, optimizers: Optimizers, cfg: Any, 
                 torch.maximum(drb.max_p, priority.max(), out=drb.max_p)
             total += losses
             _count_skipped(skipped, ok)
-        return total / len(flags), skipped
+        return all_reduce_mean(total / len(flags)), skipped
 
     if not append:
         def train_only(ctl, draws: Optional[Dict[str, torch.Tensor]] = None
@@ -378,6 +434,17 @@ def _ring_specs(obs_dim: int, act_dim: int) -> Dict[str, Tuple[tuple, Any]]:
     }
 
 
+def _gather_envs(x: np.ndarray, world: int) -> np.ndarray:
+    """Every rank's ``(rows, num_envs, ...)`` step rows side by side in rank
+    order, ``(rows, world * num_envs, ...)``, exactly (the replicated
+    prioritized ring's append)."""
+    if world == 1:
+        return x
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    gathered = all_gather_rows(t.movedim(1, 0).contiguous())  # (world * num_envs, rows, ...)
+    return gathered.movedim(0, 1).numpy()
+
+
 def _to_device(sample: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
     """A host sample's :data:`RING_KEYS` as float32 on ``device``, in ONE copy."""
     widths = [int(np.prod(sample[k].shape[2:])) for k in RING_KEYS]
@@ -407,14 +474,16 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     sample_next_obs = bool(cfg.buffer.get("sample_next_obs", False))
     num_envs = int(cfg.env.num_envs)
     seed = int(cfg.seed)
+    rank, world = global_rank(), world_size()
 
     log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
-    logger = get_logger(cfg, log_dir)
+    logger = get_logger(cfg, log_dir, rank)
     print(f"Log dir: {log_dir}", flush=True)
-    envs = make_vector_env(cfg, seed)
+    envs = make_vector_env(cfg, seed, rank=rank)
     cfg["spaces"] = dotdict(envs.spaces)
     logger.log_hyperparams(cfg)
-    write_run_config(log_dir, plain(cfg))  # the run directory's config.json
+    if rank == 0:
+        write_run_config(log_dir, plain(cfg))  # the run directory's config.json
     aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.get("aggregator"))
     action_space = cfg.spaces.actions
     if not action_space.get("continuous", False):
@@ -433,6 +502,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             opt.load_state_dict(state[name])
         algo["per_rank_batch_size"] = int(state["batch_size"])
     batch_size = int(algo.per_rank_batch_size)
+    if batch_size % world != 0:
+        raise ValueError(f"per_rank_batch_size ({batch_size}) must be divisible by the number of devices ({world})")
+    local_batch = batch_size // world  # each rank trains on its share, drawn from its own data
 
     dry_run = bool(cfg.get("dry_run", False))
     buffer_size = int(cfg.buffer.size) // num_envs if not dry_run else 1
@@ -457,7 +529,8 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     resident, reason = False, "algo.hybrid_player"
     if not burst:
         resident, reason = resolve_device_resident(
-            cfg.buffer.device_resident, specs, buffer_size, num_envs, float(cfg.buffer.hbm_budget_gb), prioritized
+            cfg.buffer.device_resident, specs, buffer_size, num_envs, float(cfg.buffer.hbm_budget_gb), prioritized,
+            world=world,
         )
     if resident and sample_next_obs:
         # the ring holds every row's next observation; a uniform ring spills
@@ -474,7 +547,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         print(f"Replay: device_resident={resident} ({reason})", flush=True)
 
     rb = ReplayBuffer(buffer_size, num_envs, ("observations",), memmap=bool(cfg.buffer.get("memmap", False)),
-                      memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"),
+                      memmap_dir=os.path.join(log_dir, "memmap_buffer", f"rank_{rank}"),
                       memmap_mode=str(cfg.buffer.get("memmap_mode", "r+")))
     rb.seed(seed)
     saved_rb = state.get("rb") if state is not None and cfg.buffer.checkpoint else None
@@ -519,16 +592,20 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     manager = CheckpointManager.from_config(cfg)
 
     drb = None
+    # the prioritized ring is replicated: every rank holds the group's env columns
+    ring_envs = num_envs * world if resident and prioritized else num_envs
     if resident:
         grad_max = max(1, int(math.ceil(float(algo.replay_ratio) * policy_steps_per_iter)))
         drb = DeviceReplayBuffer(
-            specs, buffer_size, num_envs, device=device, prioritized=prioritized,
+            specs, buffer_size, ring_envs, device=device, prioritized=prioritized,
             per_alpha=float(per_cfg.alpha), per_eps=float(per_cfg.eps), seed=seed + 29,
         )
         if restored_ring is not None:
             drb.load_state_dict(restored_ring)
         elif not rb.empty:  # resumed from a host-buffer checkpoint
             drb.load_host_buffer(rb)
+        if world > 1:  # each rank's own draws (rank 0's ring generator came from a restored checkpoint)
+            drb.generator.manual_seed(rank_seed(seed + 29, rank, start_iter))
         resident_fn = make_resident_train_step(agent, optimizers, cfg, drb, guard=guard)
         beta0 = float(per_cfg.beta)
         ema_backlog: List[float] = []
@@ -579,14 +656,19 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                                 rollback=TrainStateCopy([agent], optimizers, [generator]), device=device)
         snapshot.attach_supervisor(trainer.supervisor)
 
-    action_rng = np.random.default_rng(seed)
-    obs = envs.reset(seed=seed)[0]
+    action_rng = np.random.default_rng(seed if world == 1 else [seed, rank])
+    if world > 1:
+        # each rank's own draws from here on, whatever checkpoint it resumed
+        # (every rank of a restarted pod reads rank 0's); the buffer keeps its rows
+        generator.manual_seed(rank_seed(seed, rank, start_iter))
+        rb.seed(rank_seed(seed + 1, rank, start_iter))
+    obs = envs.reset(seed=seed + rank * num_envs)[0]
     summary: Dict[str, Any] = {
         "start_iter": start_iter, "iterations": 0, "gradient_steps": 0, "train_calls": 0, "losses": [],
         "episodes": [], "env_s": [], "train_s": [], "checkpoint": None, "device": str(device), "test_reward": None,
         "test_steps": None,
         "resident": resident, "prioritized": resident and prioritized, "hybrid": hybrid, "burst": burst,
-        "flush_host_s": [], "act_host_s": [],
+        "flush_host_s": [], "act_host_s": [], "rank": rank, "world_size": world, "drained": False,
     }
     pending: List[torch.Tensor] = []  # losses still on the device
 
@@ -644,6 +726,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         pending.append(losses)
         if guard and sentinel.observe(skipped):
             manager.wait()  # the newest save must be published before the rollback looks for it
+            barrier()  # ... rank 0's, before any rank looks
             sentinel.recover(ckpt_dir, lambda good: restore_train_state(agent, optimizers, generator, good))
 
     for iter_num in range(start_iter, total_iters + 1):
@@ -673,7 +756,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 if aggregator is not None:
                     aggregator.update("Rewards/rew_avg", ep_rew)
                     aggregator.update("Game/ep_len_avg", ep_len)
-                print(f"Rank-0: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
+                print(f"Rank-{rank}: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
 
         real_next_obs = {k: np.array(next_obs[k]) for k in mlp_keys}
         for i, final in enumerate(infos.get("final_obs", ())):
@@ -689,10 +772,13 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         }
         if not sample_next_obs:
             step_data["next_observations"] = prepare_obs(real_next_obs, mlp_keys, num_envs).numpy()[np.newaxis]
-        if resident:
+        if resident and ring_envs > num_envs:
+            # the replicated ring appends the group's rows, rank 0's envs first
+            drb.add({k: _gather_envs(v, world) for k, v in step_data.items()})
+        elif resident:
             drb.add(step_data)  # the device ring is the only storage tier
         else:
-            rb.add(step_data)
+            rb.add(step_data, validate_args=cfg.buffer.get("validate_args", False))
         obs = next_obs
         t1 = time.perf_counter()
 
@@ -736,7 +822,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             granted = ratio(policy_step - prefill_steps + policy_steps_per_iter)
             if granted > 0:
                 with timer("Time/replay_path_time", SumMetric):
-                    data = _to_device(rb.sample(batch_size, granted, sample_next_obs=sample_next_obs), device)
+                    data = _to_device(rb.sample(local_batch, granted, sample_next_obs=sample_next_obs), device)
                 # as on the ring: the enqueue, and with the guard the device time
                 with timer("Time/train_time", SumMetric):
                     observe(train_fn(data, iter_num % ema_modulus == 0, generator=generator))
@@ -768,9 +854,13 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 last_train = train_step
             last_log = policy_step
 
+        # the pod's heartbeat, and rank 0's drain flag on every rank: a rank
+        # that left while another entered the next collective would hang it
+        pod_runtime.beat_step(policy_step)
+        drain_now = broadcast_flag(pod_runtime.drain_requested())
         if (int(cfg.checkpoint.every) > 0 and policy_step - last_checkpoint >= int(cfg.checkpoint.every)) or (
             iter_num == total_iters and cfg.checkpoint.get("save_last", False)
-        ):
+        ) or drain_now:
             last_checkpoint = policy_step
             # in burst mode the trainer's state between two bursts (at most one burst stale, as in JAX)
             with trainer.train_lock if burst else contextlib.nullcontext():
@@ -790,10 +880,15 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 }
                 if hybrid:
                     ckpt_state["host_rng"] = host_generator.get_state()
-                if cfg.buffer.checkpoint:
+                if cfg.buffer.checkpoint and rank == 0:
                     ckpt_state["rb"] = drb.state_dict(live=True).to_dict() if resident else rb.checkpoint_state_dict()
-                path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
-                summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+                if rank == 0:  # rank 0 alone writes, its buffer included (JAX CheckpointCallback._save)
+                    path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
+                    summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+        if drain_now:
+            print(f"Rank-{rank}: drain requested — checkpointed at policy_step={policy_step}, exiting", flush=True)
+            summary["drained"] = True
+            break
 
     if burst:
         # the tail: Ratio has counted the remaining grants, so they run (as the JAX loop does)
@@ -809,7 +904,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     manager.close()
     read_losses()
     envs.close()
-    if algo.get("run_test", True):
+    if algo.get("run_test", True) and rank == 0:
         summary["test_reward"], summary["test_steps"] = test(player, cfg, device)
     logger.close()
     env_s = sum(summary["env_s"])
@@ -820,6 +915,9 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         replay=drb.metrics() if resident else None,
         rollbacks=sentinel.rollbacks,
         checkpoint_timings=manager.timings,
+        last10=last10(summary["episodes"]),
+        param_digest=param_digest(agent) if world > 1 else None,
+        replay_digest=drb.digest() if resident and prioritized and world > 1 else None,
         **{"Fault/skipped_updates": sentinel.total_skipped, "Fault/env_restarts": envs.env_restarts},
     )
     return summary

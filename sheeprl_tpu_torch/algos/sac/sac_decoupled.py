@@ -180,7 +180,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                                 for k in mlp_keys:
                                     real_next_obs[k][i] = final[k]
                         step_data["next_observations"] = prepare_obs(real_next_obs, mlp_keys, num_envs).numpy()[np.newaxis]
-                    rb.add(step_data)
+                    rb.add(step_data, validate_args=cfg.buffer.get("validate_args", False))
                     obs = next_obs
                     # the player samples and ships the granted batches (JAX: sac_decoupled.py:281-299)
                     if iter_num >= learning_starts:

@@ -1,5 +1,5 @@
 """SAC-AE coupled training (counterpart of ``sheeprl_tpu/algos/sac_ae/sac_ae.py``,
-one device, the host replay buffer).
+one device a process, the host replay buffer).
 
 Each granted gradient step, in the JAX package's order, gated on the
 cumulative count of gradient steps taken before it (``cum``):
@@ -15,6 +15,21 @@ cumulative count of gradient steps taken before it (``cum``):
    decoder.per_rank_update_freq == 0``: pixel targets reduced to 5 bits and
    dithered by uniform noise, plus ``l2_lambda`` times half the squared norm
    of the encoder's features.
+
+Under ``run --pod N`` (a ``torch.distributed`` group of N processes, one
+device each) every rank steps its own ``env.num_envs`` envs (env ``i`` of
+rank ``r`` seeded ``seed + r * num_envs + i``) and counts its own policy
+steps, as the JAX loop counts one process's envs, so every rank's ``Ratio``
+grants the same steps; each trains on ``per_rank_batch_size // N`` rows of
+its own data (a batch that N does not divide raises JAX's ``ValueError``),
+and the steps mean-reduce their gradients and losses over the group. Its
+draws: the generators are re-seeded at the run's start, fresh or resumed,
+from (seed, rank, start iteration) (``parallel/fabric.py:rank_seed``), where
+JAX folds the rank into its key; at one process nothing is re-seeded. Rank 0
+alone logs, writes the config, runs the test episode and checkpoints, its
+buffer included, as JAX's ``CheckpointCallback._save`` does; every rank
+resumes from that checkpoint. Each iteration beats the pod's heartbeat and
+broadcasts rank 0's drain flag.
 
 The encoder's parameters sit in two Adams, the critic's and the encoder's,
 as in the JAX package; the decoder's optimizer is AdamW. Random numbers come
@@ -33,6 +48,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from sheeprl_tpu_torch.algos.ppo.ppo import last10, param_digest
 from sheeprl_tpu_torch.algos.sac.loss import critic_loss, entropy_loss, policy_loss
 from sheeprl_tpu_torch.algos.sac_ae.agent import SACAEAgent, build_agent
 from sheeprl_tpu_torch.algos.sac_ae.utils import prepare_obs, preprocess_obs, test
@@ -41,6 +57,9 @@ from sheeprl_tpu_torch.data import ReplayBuffer
 from sheeprl_tpu_torch.envs import make_vector_env
 from sheeprl_tpu_torch.fault import CheckpointManager, load_resume_state
 from sheeprl_tpu_torch.optim import ClippedOptimizer, build_optimizer
+from sheeprl_tpu_torch.parallel import pod as pod_runtime
+from sheeprl_tpu_torch.parallel.comm import all_reduce_mean, broadcast_flag, pmean_grads
+from sheeprl_tpu_torch.parallel.fabric import global_rank, rank_seed, world_size
 from sheeprl_tpu_torch.utils.checkpoint import write_run_config
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, SumMetric, build_aggregator
@@ -87,7 +106,14 @@ def make_train_step(agent: SACAEAgent, optimizers: Dict[str, ClippedOptimizer], 
     ``next_<key>`` beside each observation key); ``cum0`` counts the
     gradient steps taken before; ``noise`` is a :func:`draw_noise` dict, else
     drawn from ``generator``. Returns the ``(4,)`` mean of :data:`LOSS_NAMES`
-    over the G steps, on the device."""
+    over the G steps, on the device.
+
+    Under a data-parallel group ``data`` is this rank's share of the batch;
+    the critic's gradients are mean-reduced, then on their cadence the
+    actor's and the entropy coefficient's, then the encoder's and decoder's
+    in one reduction (JAX ``sac_ae.py:87,108,116,148``), and the four losses
+    are the group's means. The gates read ``cum``, the same on every rank,
+    so every rank calls the same collectives in the same order."""
     algo = cfg.algo
     gamma = float(algo.gamma)
     cnn_enc, mlp_enc = list(algo.cnn_keys.encoder), list(algo.mlp_keys.encoder)
@@ -109,7 +135,7 @@ def make_train_step(agent: SACAEAgent, optimizers: Dict[str, ClippedOptimizer], 
         obs, next_obs = normalize(batch), normalize(batch, "next_")
         td_target = agent.next_target_q(next_obs, batch["rewards"], batch["terminated"], gamma, noise["next"])
         qf_loss = critic_loss(agent.q_values(obs, batch["actions"]), td_target)
-        optimizers["qf"].step(torch.autograd.grad(qf_loss, critic_params))
+        optimizers["qf"].step(pmean_grads(torch.autograd.grad(qf_loss, critic_params)))
         if cum % target_freq == 0:
             agent.ema()
 
@@ -119,9 +145,9 @@ def make_train_step(agent: SACAEAgent, optimizers: Dict[str, ClippedOptimizer], 
             actions, logp = agent.sample_action(obs, noise["actor"])
             min_q = torch.min(agent.q_values(obs, actions), dim=-1, keepdim=True).values
             actor_loss = policy_loss(alpha, logp, min_q)
-            optimizers["actor"].step(torch.autograd.grad(actor_loss, actor_params))
+            optimizers["actor"].step(pmean_grads(torch.autograd.grad(actor_loss, actor_params)))
             alpha_loss = entropy_loss(agent.log_alpha, logp.detach(), agent.target_entropy)
-            optimizers["alpha"].step(torch.autograd.grad(alpha_loss, [agent.log_alpha]))
+            optimizers["alpha"].step(pmean_grads(torch.autograd.grad(alpha_loss, [agent.log_alpha])))
 
         rec_loss = torch.zeros((), device=qf_loss.device)
         if cum % decoder_freq == 0:
@@ -131,7 +157,8 @@ def make_train_step(agent: SACAEAgent, optimizers: Dict[str, ClippedOptimizer], 
             for k in list(cnn_dec) + list(mlp_dec):
                 target = preprocess_obs(batch[k], bits=5, uniform=noise["pixels"][k]) if k in cnn_dec else batch[k]
                 rec_loss = rec_loss + torch.mean((target - recon[k]) ** 2) + l2_lambda * l2
-            grads = torch.autograd.grad(rec_loss, encoder_params + decoder_params)
+            # the encoder's and the decoder's gradients in one reduction, as JAX's one pmean
+            grads = pmean_grads(torch.autograd.grad(rec_loss, encoder_params + decoder_params))
             optimizers["encoder"].step(grads[: len(encoder_params)])
             optimizers["decoder"].step(grads[len(encoder_params):])
         return [qf_loss.detach(), actor_loss.detach(), alpha_loss.detach(), rec_loss.detach()]
@@ -147,7 +174,7 @@ def make_train_step(agent: SACAEAgent, optimizers: Dict[str, ClippedOptimizer], 
             step_noise = {"next": noise["next"][g], "actor": noise["actor"][g],
                           "pixels": {k: v[g] for k, v in noise["pixels"].items()}}
             total += torch.stack(gradient_step({k: v[g] for k, v in data.items()}, int(cum0) + g, step_noise))
-        return total / G
+        return all_reduce_mean(total / G)
 
     return train
 
@@ -169,17 +196,19 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     sample_next_obs = bool(cfg.buffer.get("sample_next_obs", False))
     num_envs = int(cfg.env.num_envs)
     seed = int(cfg.seed)
+    rank, world = global_rank(), world_size()
 
     log_dir = get_log_dir(cfg, cfg.root_dir, cfg.run_name)
-    logger = get_logger(cfg, log_dir)
+    logger = get_logger(cfg, log_dir, rank)
     print(f"Log dir: {log_dir}", flush=True)
-    envs = make_vector_env(cfg, seed)
+    envs = make_vector_env(cfg, seed, rank=rank)
     cfg["spaces"] = dotdict(envs.spaces)
     action_space = cfg.spaces.actions
     if not action_space.get("continuous", False):
         raise RuntimeError("Unexpected action space, should be continuous")
     logger.log_hyperparams(cfg)
-    write_run_config(log_dir, plain(cfg))
+    if rank == 0:
+        write_run_config(log_dir, plain(cfg))
     aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.get("aggregator"))
     low, high = np.asarray(action_space.low, np.float32), np.asarray(action_space.high, np.float32)
 
@@ -193,12 +222,15 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             opt.load_state_dict(state["optimizers"][name])
         algo["per_rank_batch_size"] = int(state["batch_size"])
     batch_size = int(algo.per_rank_batch_size)
+    if batch_size % world != 0:
+        raise ValueError(f"per_rank_batch_size ({batch_size}) must be divisible by the number of devices ({world})")
+    local_batch = batch_size // world  # each rank trains on its share, drawn from its own data
     dry_run = bool(cfg.get("dry_run", False))
     train_fn = make_train_step(agent, optimizers, cfg)
 
     rb = ReplayBuffer(int(cfg.buffer.size) // num_envs if not dry_run else 1, num_envs, tuple(obs_keys),
                       memmap=bool(cfg.buffer.get("memmap", False)),
-                      memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"),
+                      memmap_dir=os.path.join(log_dir, "memmap_buffer", f"rank_{rank}"),
                       memmap_mode=str(cfg.buffer.get("memmap_mode", "r+")))
     rb.seed(seed)
     if state is not None and cfg.buffer.checkpoint and state.get("rb") is not None:
@@ -228,11 +260,17 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
     ckpt_dir = os.path.join(log_dir, "checkpoint")
     manager = CheckpointManager.from_config(cfg)
 
-    action_rng = np.random.default_rng(seed)
-    obs = envs.reset(seed=seed)[0]
-    summary: Dict[str, Any] = {"start_iter": start_iter, "train_calls": 0, "losses": [], "episodes": [],
-                               "train_s": [], "checkpoint": None, "device": str(device), "test_reward": None,
-                               "test_steps": None}
+    action_rng = np.random.default_rng(seed if world == 1 else [seed, rank])
+    if world > 1:
+        # each rank's own draws from here on, whatever checkpoint it resumed
+        # (every rank of a restarted pod reads rank 0's); the buffer keeps its rows
+        generator.manual_seed(rank_seed(seed, rank, start_iter))
+        rb.seed(rank_seed(seed + 1, rank, start_iter))
+    obs = envs.reset(seed=seed + rank * num_envs)[0]
+    summary: Dict[str, Any] = {"start_iter": start_iter, "iterations": 0, "train_calls": 0, "losses": [],
+                               "episodes": [], "train_s": [], "checkpoint": None, "device": str(device),
+                               "test_reward": None, "test_steps": None, "rank": rank, "world_size": world,
+                               "drained": False}
     pending: List[torch.Tensor] = []
     # this run's gradient steps set the update gates; a resumed run counts from 0, as the JAX loop does
     gradient_steps = 0
@@ -264,7 +302,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 if aggregator is not None:
                     aggregator.update("Rewards/rew_avg", ep_rew)
                     aggregator.update("Game/ep_len_avg", ep_len)
-                print(f"Rank-0: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
+                print(f"Rank-{rank}: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
 
         step_data = {k: np.asarray(obs[k])[np.newaxis] for k in obs_keys}
         if not sample_next_obs:
@@ -278,7 +316,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
         step_data["truncated"] = np.asarray(truncated, dtype=np.float32).reshape(1, num_envs, -1)
         step_data["actions"] = actions.astype(np.float32).reshape(1, num_envs, -1)
         step_data["rewards"] = np.asarray(rewards, dtype=np.float32).reshape(1, num_envs, -1)
-        rb.add(step_data)
+        rb.add(step_data, validate_args=cfg.buffer.get("validate_args", False))
         obs = next_obs
 
         if iter_num >= learning_starts:
@@ -287,7 +325,7 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
             if granted > 0:
                 t0 = time.perf_counter()
                 with timer("Time/replay_path_time", SumMetric):
-                    sample = rb.sample(batch_size, granted, sample_next_obs=sample_next_obs)
+                    sample = rb.sample(local_batch, granted, sample_next_obs=sample_next_obs)
                     data = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device).float() for k, v in sample.items()}
                 with timer("Time/train_time", SumMetric):
                     pending.append(train_fn(data, gradient_steps, generator=generator))
@@ -307,9 +345,13 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 last_train = train_step
             last_log = policy_step
 
+        summary["iterations"] += 1
+        # the pod's heartbeat, and rank 0's drain flag on every rank
+        pod_runtime.beat_step(policy_step)
+        drain_now = broadcast_flag(pod_runtime.drain_requested())
         if (int(cfg.checkpoint.every) > 0 and policy_step - last_checkpoint >= int(cfg.checkpoint.every)) or (
             iter_num == total_iters and cfg.checkpoint.get("save_last", False)
-        ):
+        ) or drain_now:
             last_checkpoint = policy_step
             ckpt_state = {
                 "agent": agent.state_dict(),
@@ -323,20 +365,27 @@ def main(cfg: Any, device: torch.device) -> Dict[str, Any]:
                 "last_train": last_train,
                 "rng": generator.get_state(),
             }
-            if cfg.buffer.checkpoint:
-                ckpt_state["rb"] = rb.checkpoint_state_dict()
-            path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
-            summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+            if rank == 0:  # rank 0 alone writes, its buffer included (JAX CheckpointCallback._save)
+                if cfg.buffer.checkpoint:
+                    ckpt_state["rb"] = rb.checkpoint_state_dict()
+                path = os.path.join(ckpt_dir, f"ckpt_{policy_step}_0.ckpt")
+                summary["checkpoint"] = str(manager.save(path, ckpt_state, step=policy_step, config=plain(cfg)))
+        if drain_now:
+            print(f"Rank-{rank}: drain requested — checkpointed at policy_step={policy_step}, exiting", flush=True)
+            summary["drained"] = True
+            break
 
     manager.close()
     read_losses()
     loop_s = time.perf_counter() - t_loop
     envs.close()
-    if algo.get("run_test", True):
+    if algo.get("run_test", True) and rank == 0:
         summary["test_reward"], summary["test_steps"] = test(player, cfg, device)
     logger.close()
     steps = policy_step - (start_iter - 1) * num_envs
     summary.update(policy_steps=policy_step, log_dir=log_dir, gradient_steps=gradient_steps,
                    loop_steps_per_s=steps / loop_s if loop_s > 0 else None, checkpoint_timings=manager.timings,
+                   env_steps_per_s=steps / loop_s if loop_s > 0 else None, last10=last10(summary["episodes"]),
+                   param_digest=param_digest(agent) if world > 1 else None,
                    **{"Fault/env_restarts": envs.env_restarts})
     return summary

@@ -392,7 +392,31 @@ def _extract_pod_flag(args: List[str]) -> Tuple[List[str], Optional[int]]:
 
 #: the algorithms whose steps mean-reduce their gradients over a
 #: ``torch.distributed`` group; any other raises under more than one process
-DATA_PARALLEL = frozenset({"ppo", "a2c", "ppo_recurrent"})
+DATA_PARALLEL = frozenset({"ppo", "a2c", "ppo_recurrent", "sac", "droq", "sac_ae", "dreamer_v3"})
+
+#: the data-parallel algorithms with a hybrid host player
+#: (``algo.hybrid_player``), whose bursts do not train under a group yet
+HYBRID_FAMILIES = frozenset({"sac", "dreamer_v3"})
+
+
+def _require_coupled_player(cfg: DotDict, world: int) -> None:
+    """Refuse a group of ``world`` > 1 processes for a run whose hybrid host
+    player resolves on (``algo.hybrid_player.enabled`` true, or ``auto`` off
+    the CPU, as JAX's ``resolve_hybrid_player``): its bursts train on a
+    trainer thread that does not reduce over the group yet. Resolved from the
+    accelerator's name, so a launcher needs no device to refuse."""
+    from sheeprl_tpu_torch.utils.utils import resolve_hybrid_player
+
+    if world <= 1 or cfg.algo.name not in HYBRID_FAMILIES:
+        return
+    device = "cpu" if str(cfg.fabric.get("accelerator") or "cuda").lower() == "cpu" else "cuda"
+    if resolve_hybrid_player(cfg.algo.get("hybrid_player"), device):
+        raise NotImplementedError(
+            f"{cfg.algo.name}: the hybrid host player (algo.hybrid_player.enabled resolves on, as `auto` does on the "
+            f"card) does not train over {world} processes yet; its bursts do not reduce over the group. Pass "
+            "algo.hybrid_player.enabled=false for data-parallel training; the hybrid bursts under a group are in "
+            "ROADMAP, Queue 1"
+        )
 
 
 def _require_data_parallel(algo: str, world: int) -> None:
@@ -478,6 +502,17 @@ def learn_from_serve(args: Sequence[str], directory: str) -> dict:
     return run_flywheel_learner(cfg, load_checkpoint(cfg.checkpoint_path), device)
 
 
+def _apply_run_checks(cfg: DotDict) -> None:
+    """The JAX ``run_algorithm``'s process-wide settings from the config:
+    ``distribution.validate_args`` and the ``ops`` block (checked; see
+    :mod:`~sheeprl_tpu_torch.ops.backend`)."""
+    from sheeprl_tpu_torch.distributions import set_validate_args
+    from sheeprl_tpu_torch.ops.backend import configure_from_config
+
+    set_validate_args(bool((cfg.get("distribution") or {}).get("validate_args", False)))
+    configure_from_config(cfg.get("ops"))
+
+
 def run(args: Sequence[str]) -> dict:
     """Train; returns the run's summary (counters, metrics, checkpoint).
     ``--from-serve <dir>`` runs the flywheel's learner instead
@@ -497,12 +532,14 @@ def run(args: Sequence[str]) -> dict:
     cfg = compose_run_config(args)
     if cfg.algo.name not in TRAINERS:
         raise RuntimeError(f"Given the algorithm named '{cfg.algo.name}', no module has been found to be imported.")
+    _apply_run_checks(cfg)
     if pod_flag is not None:
         cfg.fabric.pod["workers"] = int(pod_flag)
     if (pod_flag is not None or int(cfg.fabric.pod.get("workers", 0) or 0)) and not pod_worker_active():
         # asked for a pod: get one or a loud error (the launcher wants 2 or
         # more workers), never a lone process
         _require_data_parallel(cfg.algo.name, max(2, int(cfg.fabric.pod.get("workers", 0) or 0)))
+        _require_coupled_player(cfg, max(2, int(cfg.fabric.pod.get("workers", 0) or 0)))
         _wants_cpu(cfg.fabric.get("accelerator"))  # no card, no pod; the launcher itself needs none
         return run_pod(cfg, args)
     # the worker runtime first: the launcher's lease must outlive the join
@@ -513,6 +550,7 @@ def run(args: Sequence[str]) -> dict:
     device = resolve_device(cfg.fabric.get("accelerator"))
     world = fabric.setup(cfg)["world_size"]
     _require_data_parallel(cfg.algo.name, world)
+    _require_coupled_player(cfg, world)
     _full_float32()
     module = TRAINERS[cfg.algo.name]
     utils = importlib.import_module(module.rsplit(".", 1)[0] + ".utils")
@@ -537,12 +575,16 @@ def _report_worker(summary: Dict[str, Any], world: int) -> None:
     print("POD_WORKER " + json.dumps({
         "rank": rank(), "world_size": world, "start_iter": summary.get("start_iter"),
         "iterations": summary.get("iterations"), "policy_steps": summary.get("policy_steps"),
-        "rollout_s": sum(summary.get("rollout_s") or ()), "update_s": sum(summary.get("update_s") or ()),
+        "rollout_s": sum(summary.get("rollout_s") or summary.get("env_s") or ()),
+        "update_s": sum(summary.get("update_s") or summary.get("train_s") or ()),
+        "gradient_steps": summary.get("gradient_steps"),
         "env_steps_per_s": summary.get("env_steps_per_s"),
         "cuda_max_reserved_mb": torch.cuda.max_memory_reserved() / 2 ** 20 if torch.cuda.is_initialized() else None,
         "launches": {k: v for k, v in LAUNCHES.items() if v}, "reductions": dict(REDUCTIONS),
-        "param_digest": summary.get("param_digest"), "drained": summary.get("drained"),
-        "test_reward": summary.get("test_reward"), "last10": summary.get("last10"),
+        "param_digest": summary.get("param_digest"), "replay_digest": summary.get("replay_digest"),
+        "drained": summary.get("drained"),
+        "test_reward": summary.get("test_reward"), "test_steps": summary.get("test_steps"),
+        "player_steps": summary.get("player_steps"), "replay": summary.get("replay"), "last10": summary.get("last10"),
     }), flush=True)
 
 
@@ -559,7 +601,10 @@ def serve(args: Sequence[str], fleet: Optional[int] = None, require_fleet: bool 
     args, flag_flywheel, flywheel_dir = _extract_flywheel_flag(args)
     fleet = flag_fleet if flag_fleet is not None else fleet
     cfg = compose_serve_config(args)
+    from sheeprl_tpu_torch.ops.backend import configure_from_config
     from sheeprl_tpu_torch.parallel.distributed import maybe_init
+
+    configure_from_config(cfg.get("ops"))  # JAX's serve checks the ops block too
 
     # serve joins the same group as run, from the same fabric.distributed / SHEEPRL_* knobs
     maybe_init(cfg.fabric.get("distributed"))
@@ -607,7 +652,10 @@ def evaluation(args: Sequence[str]) -> dict:
     from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
     from sheeprl_tpu_torch.utils.registry import resolve_evaluation
 
+    from sheeprl_tpu_torch.ops.backend import configure_from_config
+
     cfg = compose_eval_config(args)
+    configure_from_config(cfg.get("ops"))  # JAX's eval checks the ops block too
     Precision.from_config(cfg)
     device = resolve_device(cfg.fabric.get("accelerator"))
     _full_float32()

@@ -204,6 +204,9 @@ RUN_DEFAULTS: Dict[str, Any] = {
     "logger": {"name": "jsonl"},
     "buffer": {
         "size": 1000000,
+        # configs/buffer/default.yaml: the host buffers' add checks its input
+        # (data/buffers.py) when on
+        "validate_args": False,
         # configs/buffer/default.yaml: host buffers on files under the run's
         # memmap_buffer/ (the PPO and SAC presets turn it off)
         "memmap": True,
@@ -243,6 +246,12 @@ RUN_DEFAULTS: Dict[str, Any] = {
         "grayscale": False,
         "capture_video": False,
     },
+    # configs/distribution/default.yaml: the static argument checks of the
+    # distributions (distributions/core.py:set_validate_args)
+    "distribution": {"validate_args": False},
+    # configs/config.yaml's kernel tier: checked, never applied, as the port
+    # has no backend switch (ops/backend.py; lax raises)
+    "ops": {"backend": "auto", "kernels": {}},
     # configs/config.yaml: one iteration, no warm-up and the loops' smallest buffers
     "dry_run": False,
 }

@@ -124,8 +124,29 @@ class ReplayBuffer:
             self._buf[key] = self._allocate(key, array.shape, array.dtype)
             self._buf[key][:] = array
 
-    def add(self, data: Dict[str, np.ndarray]) -> None:
-        """Write ``(seq_len, n_envs, ...)`` rows at the head, wrapping around."""
+    def _validate_add(self, data: Any) -> None:
+        """``buffer.validate_args``'s checks, with the JAX buffer's errors:
+        a dict of numpy arrays, each ``[sequence_length, n_envs, ...]``,
+        congruent in those two dims."""
+        if not isinstance(data, dict):
+            raise ValueError(f"'data' must be a dictionary of numpy arrays, got '{type(data)}'")
+        shapes = {}
+        for k, v in data.items():
+            if not isinstance(v, np.ndarray):
+                raise ValueError(f"'data' must contain numpy arrays; key '{k}' has type '{type(v)}'")
+            if v.ndim < 2:
+                raise RuntimeError(
+                    f"'data' must have at least 2 dimensions: [sequence_length, n_envs, ...]. Shape of '{k}' is {v.shape}"
+                )
+            shapes[k] = v.shape[:2]
+        if len(set(shapes.values())) > 1:
+            raise RuntimeError(f"Every array in 'data' must be congruent in the first 2 dimensions: {shapes}")
+
+    def add(self, data: Dict[str, np.ndarray], validate_args: bool = False) -> None:
+        """Write ``(seq_len, n_envs, ...)`` rows at the head, wrapping around;
+        ``validate_args`` (``buffer.validate_args``) checks ``data`` first."""
+        if validate_args:
+            self._validate_add(data)
         data_len = next(iter(data.values())).shape[0]
         next_pos = (self._pos + data_len) % self._buffer_size
         if next_pos <= self._pos or (data_len > self._buffer_size and not self._full):
@@ -321,13 +342,16 @@ class EnvIndependentReplayBuffer:
         for i, b in enumerate(self._buf):
             b.seed(None if seed is None else seed + i)
 
-    def add(self, data: Dict[str, np.ndarray], indices: Optional[Sequence[int]] = None) -> None:
+    def add(self, data: Dict[str, np.ndarray], indices: Optional[Sequence[int]] = None,
+            validate_args: bool = False) -> None:
+        """Each column of ``data`` into its env's buffer; ``validate_args``
+        has each env's buffer check its column first."""
         if indices is None:
             indices = tuple(range(self._n_envs))
         elif len(indices) != next(iter(data.values())).shape[1]:
             raise ValueError(f"{len(indices)} indices for {next(iter(data.values())).shape[1]} env columns")
         for col, env_idx in enumerate(indices):
-            self._buf[env_idx].add({k: v[:, col : col + 1] for k, v in data.items()})
+            self._buf[env_idx].add({k: v[:, col : col + 1] for k, v in data.items()}, validate_args=validate_args)
 
     def state_dict(self) -> Dict[str, Any]:
         """Every per-env buffer's :meth:`~ReplayBuffer.state_dict` (storage,
@@ -439,9 +463,23 @@ class EpisodeBuffer:
     def seed(self, seed: Optional[int]) -> None:
         self._rng = np.random.default_rng(seed)
 
-    def add(self, data: Dict[str, np.ndarray], env_idxes: Optional[Sequence[int]] = None) -> None:
+    def add(self, data: Dict[str, np.ndarray], env_idxes: Optional[Sequence[int]] = None,
+            validate_args: bool = False) -> None:
         """Append ``(seq_len, len(env_idxes), ...)`` rows to each env's open
-        episode; every row that ends an episode stores it."""
+        episode; every row that ends an episode stores it.
+        ``validate_args`` (``buffer.validate_args``) checks ``data`` and
+        ``env_idxes`` first, with the JAX buffer's errors."""
+        if validate_args:
+            if not isinstance(data, dict) or not all(isinstance(v, np.ndarray) for v in data.values()):
+                raise ValueError("'data' must be a dictionary of numpy arrays")
+            if any(v.ndim < 2 for v in data.values()):
+                raise RuntimeError("'data' must have at least 2 dims: [sequence_length, n_envs, ...]")
+            if len({v.shape[:2] for v in data.values()}) > 1:
+                raise RuntimeError("Every array in 'data' must be congruent in the first 2 dimensions")
+            if "terminated" not in data or "truncated" not in data:
+                raise RuntimeError(f"The episode must contain the 'terminated' and 'truncated' keys, got: {data.keys()}")
+            if env_idxes is not None and (np.array(env_idxes) >= self._n_envs).any():
+                raise ValueError(f"The env indices must be in [0, {self._n_envs}), given {env_idxes}")
         if "terminated" not in data or "truncated" not in data:
             raise RuntimeError(f"The episode must contain the 'terminated' and 'truncated' keys, got: {data.keys()}")
         if env_idxes is None:

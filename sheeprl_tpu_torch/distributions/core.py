@@ -21,6 +21,14 @@ parameters to float32 first (:func:`_lift`), so log-probs, KLs, entropies
 and softmaxes run in float32, and casts its samples, modes and means back to
 the parameters' own dtype (``_sample_dtype``), as the JAX package does. With
 float32 parameters both are no-ops.
+
+``distribution.validate_args`` (:func:`set_validate_args`, wired from the
+run config by the CLI) turns on the JAX package's static argument checks at
+the same constructors and with the same messages: broadcastable shapes and
+floating dtypes for ``Normal``, at least one dim of ``OneHotCategorical``
+logits, broadcastable ``TruncatedNormal`` parameters. They read shapes and
+dtypes only, never a value, so nothing is copied back from the card.
+``TruncatedNormal`` checks ``low < high`` under either setting.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ from sheeprl_tpu_torch.ops.core import symexp, symlog
 from sheeprl_tpu_torch.ops.kernels import two_hot_mean, two_hot_symlog_loss_lse
 
 __all__ = [
+    "set_validate_args",
+    "validate_args",
     "OneHotCategorical",
     "OneHotCategoricalStraightThrough",
     "Normal",
@@ -50,6 +60,52 @@ __all__ = [
 ]
 
 
+_VALIDATE = False
+
+
+def set_validate_args(enabled: bool) -> None:
+    """Turn the static argument checks on or off for the whole process
+    (``distribution.validate_args``; JAX ``set_validate_args``)."""
+    global _VALIDATE
+    _VALIDATE = bool(enabled)
+
+
+def validate_args() -> bool:
+    """Whether the static argument checks are on."""
+    return _VALIDATE
+
+
+def _shape(x) -> tuple:
+    return tuple(x.shape) if isinstance(x, torch.Tensor) else ()
+
+
+def _dtype_name(x) -> str:
+    """A dtype as the JAX package names it (a Python number as JAX's weak type)."""
+    if isinstance(x, torch.Tensor):
+        return str(x.dtype).replace("torch.", "")
+    if isinstance(x, bool):
+        return "bool"
+    return "float32" if isinstance(x, float) else "int32"
+
+
+def _check_broadcastable(name: str, *arrays) -> None:
+    if not _VALIDATE:
+        return
+    try:
+        torch.broadcast_shapes(*(_shape(a) for a in arrays))
+    except RuntimeError as e:
+        raise ValueError(f"{name}: arguments are not broadcastable: {[_shape(a) for a in arrays]}") from e
+
+
+def _check_floating(name: str, **arrays) -> None:
+    if not _VALIDATE:
+        return
+    for arg, a in arrays.items():
+        floating = a.is_floating_point() if isinstance(a, torch.Tensor) else isinstance(a, float)
+        if not floating:
+            raise ValueError(f"{name}: '{arg}' must be floating point, got {_dtype_name(a)}")
+
+
 def _lift(x):
     """A floating tensor below float32 as float32; anything else as is."""
     if isinstance(x, torch.Tensor) and x.is_floating_point() and x.element_size() < 4:
@@ -61,6 +117,8 @@ class OneHotCategorical:
     """Categorical over the last axis with one-hot values."""
 
     def __init__(self, logits: torch.Tensor) -> None:
+        if _VALIDATE and logits.ndim < 1:
+            raise ValueError(f"OneHotCategorical: logits must have at least 1 dim, got {logits.ndim}")
         self._sample_dtype = logits.dtype
         logits = _lift(logits)
         self.logits = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
@@ -116,6 +174,8 @@ class Normal:
     the JAX package's formulas and op order."""
 
     def __init__(self, loc: torch.Tensor, scale: torch.Tensor) -> None:
+        _check_broadcastable("Normal", loc, scale)
+        _check_floating("Normal", loc=loc, scale=scale)
         self._sample_dtype = loc.dtype
         self.loc = _lift(loc)
         self.scale = _lift(scale)
@@ -214,6 +274,7 @@ class TruncatedNormal:
 
     def __init__(self, loc: torch.Tensor, scale: torch.Tensor, low: float = -1.0, high: float = 1.0,
                  eps: float = 1e-6) -> None:
+        _check_broadcastable("TruncatedNormal", loc, scale)
         if not float(low) < float(high):
             raise ValueError(f"TruncatedNormal: low ({low}) must be < high ({high})")
         self._sample_dtype = loc.dtype

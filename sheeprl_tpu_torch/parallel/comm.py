@@ -40,6 +40,9 @@ __all__ = [
     "all_gather_wire",
     "all_gather_rows",
     "all_reduce_mean",
+    "all_reduce_max",
+    "all_true",
+    "all_gather_exact",
     "broadcast_flag",
     "barrier",
     "REDUCTIONS",
@@ -200,6 +203,58 @@ def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
     host = x.detach().to(torch.float32).cpu().clone()
     dist.all_reduce(host)
     return (host / w).to(x.dtype).to(x.device)
+
+
+def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the group (``lax.pmax``),
+    exact: a maximum rounds nothing, and ``x`` crosses in its own dtype,
+    never the gradient wire's. At world size 1, ``x``."""
+    if world_size() == 1:
+        return x
+    host = x.detach().contiguous().cpu().clone()
+    dist.all_reduce(host, op=dist.ReduceOp.MAX)
+    return host.to(x.device)
+
+
+def all_true(flag: bool) -> bool:
+    """True iff ``flag`` is True on every rank (a host decision every rank
+    must take alike, such as a ring's sampling gate). At world size 1,
+    ``flag``."""
+    if world_size() == 1:
+        return bool(flag)
+    t = torch.tensor([int(bool(flag))], dtype=torch.int32)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return bool(t.item())
+
+
+def all_gather_exact(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Every rank's 1-D ``xs`` concatenated in rank order, each in its own
+    dtype and bit for bit (``lax.all_gather(..., tiled=True)`` of each), in
+    ONE collective: the tensors are packed into one int64 buffer (an int64
+    as itself, a 32-bit float or int by its bits), so nothing crosses the
+    gradient wire's dtype. Every rank must pass tensors of the same
+    lengths. At world size 1, ``xs``."""
+    if world_size() == 1:
+        return tuple(xs)
+    parts = []
+    for x in xs:
+        x = x.detach().reshape(-1).cpu()
+        if x.dtype == torch.int64:
+            parts.append(x)
+        elif x.element_size() == 4:
+            parts.append(x.contiguous().view(torch.int32).to(torch.int64))
+        else:
+            raise TypeError(f"all_gather_exact takes int64 and 32-bit tensors, got {x.dtype}")
+    packed = all_gather_rows(torch.cat(parts)[None]).view(world_size(), -1)
+    out, offset = [], 0
+    for x, part in zip(xs, parts):
+        n = part.numel()
+        cols = packed[:, offset:offset + n].reshape(-1)
+        offset += n
+        if x.dtype != torch.int64:
+            cols = cols.to(torch.int32).view(x.dtype)
+        out.append(cols.to(x.device))
+    return tuple(out)
 
 
 def broadcast_flag(flag: bool, src: int = 0) -> bool:

@@ -24,6 +24,8 @@ start of a run. The rank accessors read the ``torch.distributed`` group
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
@@ -33,7 +35,7 @@ from sheeprl_tpu_torch.parallel.comm import get_grad_reduce_dtype, parse_grad_re
 
 __all__ = [
     "PRECISION_ALIASES", "Precision", "compute_dtype", "partition", "resolve_devices", "visible_devices", "setup",
-    "world_size", "global_rank", "is_global_zero",
+    "world_size", "global_rank", "is_global_zero", "rank_seed",
 ]
 
 #: alias -> (parameter dtype, compute dtype), the JAX package's table
@@ -152,3 +154,13 @@ global_rank = distributed.rank
 def is_global_zero() -> bool:
     """Rank 0: the process that logs, saves the config and checkpoints."""
     return distributed.rank() == 0
+
+
+def rank_seed(seed: int, rank: int, iteration: int) -> int:
+    """A 63-bit seed of rank ``rank``'s own draws from ``iteration`` on: a
+    function of the three numbers alone, so a rank resumed at an iteration
+    draws what a rank started there would (the off-policy and Dreamer loops
+    re-seed their generators with it at a run's start above one process,
+    JAX's ``fold_in(key, axis_index("dp"))``)."""
+    return int(np.random.SeedSequence([int(seed), int(rank), int(iteration)]).generate_state(1, np.uint64)[0]
+               >> np.uint64(1))

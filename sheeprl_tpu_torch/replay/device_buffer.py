@@ -71,6 +71,7 @@ def estimate_ring_bytes(
     n_envs: int,
     prioritized: bool = False,
     sequence: Optional[Dict[str, int]] = None,
+    world: int = 1,
 ) -> int:
     """Device bytes of a ring with the given storage spec (plus the sum-tree
     with PER).
@@ -80,7 +81,16 @@ def estimate_ring_bytes(
     storage rows, the per-env heads and a train key (the JAX package's
     count, kept so the two agree), the ``(capacity, n_envs)`` int32 window
     validity working set, and the gathered ``(T, B)`` window in float32,
-    the part that bites for a pixel ring."""
+    the part that bites for a pixel ring.
+
+    ``world`` is the data-parallel group's size, ``n_envs`` one rank's envs:
+    a prioritized ring is replicated, every rank holding the group's
+    ``world * n_envs`` columns and their tree (JAX's replicated PER ring); a
+    uniform or sequence ring holds the rank's own columns (JAX's env-sharded
+    ring, one device a process) and a sequence ring gathers the rank's
+    ``batch_size // world`` windows."""
+    if prioritized:
+        n_envs = n_envs * int(world)
     total = 0
     row_bytes_f32 = 0
     for shape, dtype in specs.values():
@@ -92,7 +102,7 @@ def estimate_ring_bytes(
     if sequence is not None:
         total += n_envs * 2 * 4 + 8
         total += capacity * n_envs * 4
-        total += int(sequence["seq_len"]) * int(sequence["batch_size"]) * row_bytes_f32
+        total += int(sequence["seq_len"]) * (int(sequence["batch_size"]) // max(1, int(world))) * row_bytes_f32
     return int(total)
 
 
@@ -104,6 +114,7 @@ def resolve_device_resident(
     hbm_budget_gb: float,
     prioritized: bool = False,
     sequence: Optional[Dict[str, int]] = None,
+    world: int = 1,
 ) -> Tuple[bool, str]:
     """``(use_device, reason)`` for the ``buffer.device_resident`` knob:
     ``False`` | ``True`` | ``"auto"``. ``auto`` puts the ring on the device
@@ -112,7 +123,9 @@ def resolve_device_resident(
     memory at allocation. A prioritized ring that does not fit raises: the
     host buffer samples uniformly, so spilling would change the algorithm
     (the JAX package spills it all the same). ``sequence`` sizes a Dreamer
-    sequence ring (:func:`estimate_ring_bytes`)."""
+    sequence ring (:func:`estimate_ring_bytes`); ``world`` is the
+    data-parallel group's size (JAX's device count), ``n_envs`` one rank's
+    envs."""
     if isinstance(setting, str):
         setting = setting.strip().lower()
         if setting not in ("auto", "true", "false"):
@@ -121,7 +134,7 @@ def resolve_device_resident(
     if setting is False:
         return False, "disabled by config"
     budget = float(hbm_budget_gb) * (1 << 30)
-    est = estimate_ring_bytes(specs, capacity, n_envs, prioritized, sequence=sequence)
+    est = estimate_ring_bytes(specs, capacity, n_envs, prioritized, sequence=sequence, world=world)
     if est <= budget:
         return True, f"ring fits HBM budget ({est / 2**20:.1f} MiB <= {hbm_budget_gb} GiB)"
     need = f"device ring would need {est / 2**30:.2f} GiB (budget buffer.hbm_budget_gb={hbm_budget_gb})"
@@ -358,6 +371,21 @@ class DeviceReplayBuffer:
             "Replay/flushes": self._metrics["flushes"],
             "Replay/inserts": self._metrics["inserts"],
         }
+
+    def digest(self) -> str:
+        """sha256 of the ring's storage, heads, and with PER its tree and
+        ``max_p``, in order: equal digests are bit-equal rings (a
+        data-parallel group's replicated prioritized rings must be)."""
+        import hashlib
+
+        h = hashlib.sha256()
+        tensors = [self.storage[k] for k in sorted(self.storage)]
+        if self.prioritized:
+            tensors += [self.tree, self.max_p]
+        for t in tensors:
+            h.update(t.detach().to("cpu").contiguous().numpy().tobytes())
+        h.update(f"{self._pos},{self.valid_rows}".encode())
+        return h.hexdigest()
 
     # -- checkpoint ----------------------------------------------------------
     def state_dict(self, live: bool = False) -> DeviceReplayState:

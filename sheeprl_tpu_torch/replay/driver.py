@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.data.ring import BlobLayout, build_seq_append_step, make_blob_layouts, pack_burst_blob
+from sheeprl_tpu_torch.parallel.comm import all_true
 from sheeprl_tpu_torch.replay.device_buffer import DeviceReplayState
 from sheeprl_tpu_torch.utils.burst import init_device_ring
 
@@ -85,6 +86,7 @@ class SequenceRingDriver:
         self._layouts = make_blob_layouts(self.ring_keys, self.n_envs, self.grad_chunk, buckets)
 
         self._staged: List[Tuple[Dict[str, np.ndarray], np.ndarray]] = []
+        self._group_ready = False  # every rank's ring has held a window in every env
         self.grant_backlog = 0
         self.gradient_steps = 0
         self.train_steps = 0
@@ -143,8 +145,13 @@ class SequenceRingDriver:
         self._staged.clear()
         env_counts = mask.sum(axis=0)
         # Hold grants while any env is shorter than a sample window (the
-        # host buffer refuses to sample in that state).
-        ready = (self.dev_valid + env_counts).min() >= self.seq_len
+        # host buffer refuses to sample in that state). Under a
+        # data-parallel group every rank's ring must be ready, or one rank
+        # would enter the gradient step's collectives alone; the heads only
+        # grow, so the group is asked until it first says yes.
+        ready = bool((self.dev_valid + env_counts).min() >= self.seq_len)
+        if self.grant_backlog > 0 and not self._group_ready:
+            ready = self._group_ready = all_true(ready)
         chunk = min(self.grad_chunk, self.grant_backlog) if ready else 0
         validmask = np.zeros((self.grad_chunk,), np.float32)
         validmask[:chunk] = 1.0

@@ -275,21 +275,53 @@ def test_torch_dist_init_family_guard_lets_the_ppo_family_train(algo):
 
 
 def test_torch_dist_init_family_guard_runs_before_training(monkeypatch, tmp_path):
-    """``run`` in a group of 2 refuses SAC before its loop starts, and a pod
-    of SAC is refused before any worker spawns."""
+    """``run`` in a group of 2 refuses Dreamer V2 (not data-parallel yet)
+    before its loop starts, and a pod of it is refused before any worker
+    spawns."""
     import importlib
 
     import sheeprl_tpu_torch.parallel.pod as pod
 
-    sac = importlib.import_module("sheeprl_tpu_torch.algos.sac.sac")
-    monkeypatch.setattr(sac, "main", lambda cfg, device: pytest.fail("SAC trained in a group of 2"))
-    monkeypatch.setattr(pod, "run_pod", lambda cfg, argv: pytest.fail("a SAC pod spawned"))
+    v2 = importlib.import_module("sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2")
+    monkeypatch.setattr(v2, "main", lambda cfg, device: pytest.fail("Dreamer V2 trained in a group of 2"))
+    monkeypatch.setattr(pod, "run_pod", lambda cfg, argv: pytest.fail("a Dreamer V2 pod spawned"))
     monkeypatch.setattr(dist, "world_size", lambda: 2)
-    line = ["preset=sac", "fabric.accelerator=cpu", "dry_run=True", f"log_root={tmp_path}"]
-    with pytest.raises(NotImplementedError, match="^sac: data-parallel"):
+    line = ["preset=dreamer_v2_atari_dummy", "fabric.accelerator=cpu", "dry_run=True", f"log_root={tmp_path}"]
+    with pytest.raises(NotImplementedError, match="^dreamer_v2: data-parallel"):
         cli.run(line)
-    with pytest.raises(NotImplementedError, match="^sac: data-parallel"):
+    with pytest.raises(NotImplementedError, match="^dreamer_v2: data-parallel"):
         cli.run(["--pod", "2"] + line)
+
+
+def test_torch_dist_init_data_parallel_families_are_the_slice_s():
+    assert cli.DATA_PARALLEL == {"ppo", "a2c", "ppo_recurrent", "sac", "droq", "sac_ae", "dreamer_v3"}
+
+
+HYBRID_LINES = {
+    "sac": ["preset=sac"],
+    "rssm": ["preset=dreamer_v3_100k_atari_dummy"],
+}
+
+
+@pytest.mark.parametrize("family", list(HYBRID_LINES))
+def test_torch_dist_init_hybrid_player_under_a_group_is_refused(monkeypatch, tmp_path, family):
+    """A hybrid host player that resolves on (``true``, or ``auto`` on the
+    card) is refused under a group before any worker spawns or trains; off
+    (``auto`` on the CPU, or ``false``) the family trains data-parallel."""
+    import sheeprl_tpu_torch.parallel.pod as pod
+
+    monkeypatch.setattr(pod, "run_pod", lambda cfg, argv: pytest.fail("a hybrid pod spawned"))
+    monkeypatch.setattr(cli.torch.cuda, "is_available", lambda: True)
+    monkeypatch.delenv("SHEEPRL_POD_RANK", raising=False)
+    base = HYBRID_LINES[family] + [f"log_root={tmp_path}"]
+    for extra in (["algo.hybrid_player.enabled=true", "fabric.accelerator=cpu"], []):  # [] is auto on the card
+        with pytest.raises(NotImplementedError, match="algo.hybrid_player.enabled=false.*Queue 1"):
+            cli.run(["--pod", "2"] + base + extra)
+    cfg = cli.compose_run_config(base + ["fabric.accelerator=cpu"])
+    cli._require_coupled_player(cfg, 2)  # auto on the CPU: off
+    cfg = cli.compose_run_config(base + ["algo.hybrid_player.enabled=false"])
+    cli._require_coupled_player(cfg, 2)
+    cli._require_coupled_player(cli.compose_run_config(base + ["algo.hybrid_player.enabled=true"]), 1)
 
 
 def test_torch_dist_init_pod_without_a_card_refuses_before_spawning(monkeypatch, tmp_path):

@@ -144,9 +144,9 @@ def test_torch_replay_next_obs_sac_first_sample_equals_the_jax_buffer(tmp_path, 
     adds, samples = [], []
     real_add, real_sample = ReplayBuffer.add, ReplayBuffer.sample
 
-    def add_spy(self, data):
+    def add_spy(self, data, **kwargs):
         adds.append({k: np.array(v) for k, v in data.items()})
-        return real_add(self, data)
+        return real_add(self, data, **kwargs)
 
     def sample_spy(self, batch_size, n_samples=1, sample_next_obs=False):
         out = real_sample(self, batch_size, n_samples, sample_next_obs=sample_next_obs)
